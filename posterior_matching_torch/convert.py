@@ -1,0 +1,242 @@
+"""The weights bridge: JAX-package parameter trees -> the port's modules.
+
+A PM-VQVAE checkpoint of the JAX package holds two numpy trees: ``params``
+(``vqvae``, ``partial_encoder``, ``pixel_cnn``) and ``state``, whose
+``vq_ema`` collection holds the VQ codebook (the EMA quantizer updates it in
+place, so it is not a parameter there). :func:`pm_vqvae_state_dict` maps both
+onto the port's ``state_dict`` names and layouts; :func:`load_pm_vqvae` reads
+a run directory; :func:`random_pm_vqvae_tree` makes a tree of the same
+structure from a seed, standing in for a checkpoint where none is at hand.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from posterior_matching_torch.models.pm_vqvae import PMVQVAE
+from posterior_matching_torch.runtime import resolve_device
+from posterior_matching_torch.train.state import load_train_state
+
+Tree = Dict[str, Any]
+
+
+def _conv(kernel) -> np.ndarray:
+    """flax HWIO -> torch ``[O, I, kh, kw]``."""
+    return np.ascontiguousarray(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def _conv_transpose(kernel) -> np.ndarray:
+    """flax ``ConvTranspose`` HWIO (``transpose_kernel=False``: a correlation
+    with the kernel as stored) -> ``conv_transpose2d``'s ``[I, O, kh, kw]``,
+    which correlates with the kernel flipped in space."""
+    k = np.asarray(kernel)[::-1, ::-1]
+    return np.ascontiguousarray(k.transpose(2, 3, 0, 1))
+
+
+def _put_conv(out, prefix, sub, transpose=False):
+    out[f"{prefix}.weight"] = (_conv_transpose if transpose else _conv)(sub["kernel"])
+    out[f"{prefix}.bias"] = np.asarray(sub["bias"])
+
+
+def _put_stack(out, prefix, stack):
+    i = 0
+    while f"res3x3_{i}" in stack:
+        _put_conv(out, f"{prefix}.res3x3.{i}", stack[f"res3x3_{i}"])
+        _put_conv(out, f"{prefix}.res1x1.{i}", stack[f"res1x1_{i}"])
+        i += 1
+
+
+def _put_encoder(out, prefix, enc):
+    for name in ("enc_1", "enc_2", "enc_3"):
+        _put_conv(out, f"{prefix}.{name}", enc[name])
+    _put_stack(out, f"{prefix}.stack", enc["ConvResidualStack_0"])
+
+
+def vqvae_state_dict(params: Tree, vq_ema: Tree) -> Dict[str, np.ndarray]:
+    """A JAX ``VQVAE``'s ``params`` and ``vq_ema`` trees -> the port's
+    ``VQVAE`` state dict (the decode path and the codebook)."""
+    out: Dict[str, np.ndarray] = {}
+    dec = params["decoder"]
+    _put_conv(out, "decoder.dec_1", dec["dec_1"])
+    _put_stack(out, "decoder.stack", dec["ConvResidualStack_0"])
+    _put_conv(out, "decoder.dec_2", dec["dec_2"], transpose=True)
+    _put_conv(out, "decoder.dec_3", dec["dec_3"], transpose=True)
+    out["vq.embeddings"] = np.asarray(vq_ema["vq"]["embeddings"])
+    return out
+
+
+def partial_encoder_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    _put_encoder(out, "encoder", params["ConvResidualEncoder_0"])
+    out["dense.kernel"] = np.asarray(params["Dense_0"]["kernel"])
+    out["dense.bias"] = np.asarray(params["Dense_0"]["bias"])
+    return out
+
+
+def pixel_cnn_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """Flax names and layouts are kept (see ``models/pixelcnn.py``)."""
+    out: Dict[str, np.ndarray] = {}
+    for name, sub in params.items():
+        if name == "embed":
+            out["embed"] = np.asarray(sub["embedding"])
+            continue
+        sub = sub.get("Conv_0", sub)  # masked convs nest their params
+        out[f"layers.{name}.kernel"] = np.asarray(sub["kernel"])
+        out[f"layers.{name}.bias"] = np.asarray(sub["bias"])
+    return out
+
+
+def pm_vqvae_state_dict(params: Tree, state: Tree) -> Dict[str, np.ndarray]:
+    """JAX ``params`` / ``state`` trees -> the port's ``PMVQVAE`` state dict
+    (numpy arrays). The codebook comes from ``state["vq_ema"]``."""
+    parts = {
+        "vqvae": vqvae_state_dict(params["vqvae"], state["vq_ema"]["vqvae"]),
+        "partial_encoder": partial_encoder_state_dict(params["partial_encoder"]),
+        "pixel_cnn": pixel_cnn_state_dict(params["pixel_cnn"]),
+    }
+    return {f"{p}.{k}": v for p, sd in parts.items() for k, v in sd.items()}
+
+
+def to_torch(state_dict: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {
+        k: torch.from_numpy(np.array(v, dtype=np.float32))
+        for k, v in state_dict.items()
+    }
+
+
+def pm_vqvae_from_jax(
+    params: Tree,
+    state: Tree,
+    conditional_dim: int,
+    vqvae_config: Dict[str, Any],
+    pixel_cnn_config: Dict[str, Any],
+    device: Optional[str] = None,
+) -> PMVQVAE:
+    """Builds a ``PMVQVAE`` on ``device`` (the GPU unless ``"cpu"``) and
+    loads JAX-layout weights into it; every parameter must be covered."""
+    model = PMVQVAE.from_config(
+        conditional_dim, vqvae_config, pixel_cnn_config, device=device
+    )
+    model.load_state_dict(to_torch(pm_vqvae_state_dict(params, state)))
+    return model
+
+
+def load_pm_vqvae(run_dir: str, device: Optional[str] = None) -> PMVQVAE:
+    """Reads a PM-VQVAE run directory (``vqvae_config.json``,
+    ``config.json``, ``train_state.pkl``) written by either package."""
+    resolve_device(device)
+    with open(os.path.join(run_dir, "vqvae_config.json")) as fp:
+        vqvae_config = json.load(fp)
+    with open(os.path.join(run_dir, "config.json")) as fp:
+        config = json.load(fp)
+    ts = load_train_state(os.path.join(run_dir, "train_state.pkl"))
+    return pm_vqvae_from_jax(
+        ts.params, ts.state, config["conditional_dim"], vqvae_config,
+        config["pixel_cnn"], device=device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# A JAX-layout tree from a seed
+# ---------------------------------------------------------------------------
+
+
+def _trunc_normal(rng: np.random.Generator, shape) -> np.ndarray:
+    """Truncated normal in [-2, 2] times 1/sqrt(fan_in), the flax init the
+    JAX package uses for its conv and dense kernels."""
+    x = rng.standard_normal(shape)
+    bad = np.abs(x) > 2
+    while bad.any():
+        x[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(x) > 2
+    fan_in = int(np.prod(shape[:-1]))
+    return (x / np.sqrt(fan_in)).astype(np.float32)
+
+
+def random_pm_vqvae_tree(
+    conditional_dim: int,
+    vqvae_config: Dict[str, Any],
+    pixel_cnn_config: Dict[str, Any],
+    seed: int,
+) -> Tuple[Tree, Tree]:
+    """``(params, state)`` with the structure and shapes of the JAX
+    package's ``PMVQVAE`` variables, drawn from ``seed`` with the same
+    initialiser families (biases zero, conditional projections N(0, 1),
+    codebook uniform with variance 1/D)."""
+    rng = np.random.default_rng(seed)
+    vq = vqvae_config
+    hid, rh = vq["hidden_units"], vq["residual_hidden_units"]
+    cout, d = vq.get("output_channels", 3), vq["embedding_dim"]
+    pc = pixel_cnn_config
+    f, ni, n_res = pc["num_filters"], pc["num_indices"], pc["num_resnet"]
+    h, w = pc["image_shape"]
+
+    def kb(*shape, std=None):
+        k = (
+            _trunc_normal(rng, shape) if std is None
+            else (std * rng.standard_normal(shape)).astype(np.float32)
+        )
+        return {"kernel": k, "bias": np.zeros(shape[-1], np.float32)}
+
+    def stack():
+        out = {}
+        for i in range(vq["residual_blocks"]):
+            out[f"res3x3_{i}"] = kb(3, 3, hid, rh)
+            out[f"res1x1_{i}"] = kb(1, 1, rh, hid)
+        return out
+
+    def encoder(cin):
+        return {
+            "enc_1": kb(4, 4, cin, hid // 2),
+            "enc_2": kb(4, 4, hid // 2, hid),
+            "enc_3": kb(3, 3, hid, hid),
+            "ConvResidualStack_0": stack(),
+        }
+
+    pixel = {
+        "embed": {"embedding": (rng.standard_normal((ni, f)) / np.sqrt(f)).astype(np.float32)},
+        "v_init": {"Conv_0": kb(5, 3, f, f)},
+        "h_init_up": {"Conv_0": kb(3, 3, f, f)},
+        "h_init_left": {"Conv_0": kb(3, 3, f, f)},
+        "logits_conv": kb(1, 1, f, ni),
+    }
+    aux_in = {("up", "horizontal"): f, ("dn", "vertical"): f, ("dn", "horizontal"): 2 * f}
+    for dname in ("up", "dn"):
+        for r in range(n_res):
+            for st in ("vertical", "horizontal"):
+                tag = f"{dname}_0_{r}_{st}"
+                pixel[f"{tag}_conv_a"] = {"Conv_0": kb(3, 3, 2 * f, f)}
+                pixel[f"{tag}_conv_b"] = {"Conv_0": kb(3, 3, 2 * f, 2 * f)}
+                pixel[f"{tag}_cond_proj"] = kb(conditional_dim, 2 * f, std=1.0)
+                if (dname, st) in aux_in:
+                    pixel[f"{tag}_aux"] = kb(2 * aux_in[(dname, st)], f)
+    params = {
+        "vqvae": {
+            "encoder": encoder(cout),
+            "pre_vq_conv": kb(1, 1, hid, d),
+            "decoder": {
+                "dec_1": kb(3, 3, d, hid),
+                "ConvResidualStack_0": stack(),
+                "dec_2": kb(4, 4, hid, hid // 2),
+                "dec_3": kb(4, 4, hid // 2, cout),
+                "log_scale": np.zeros((), np.float32),
+            },
+        },
+        "partial_encoder": {
+            "ConvResidualEncoder_0": encoder(cout + 1),
+            "Dense_0": kb(h * w * hid, conditional_dim),
+        },
+        "pixel_cnn": pixel,
+    }
+    lim = np.sqrt(3.0 / d)
+    k = vq["num_embeddings"]
+    state = {"vq_ema": {"vqvae": {"vq": {
+        "embeddings": rng.uniform(-lim, lim, (k, d)).astype(np.float32),
+        "ema_cluster_size": np.zeros(k, np.float32),
+        "ema_dw": np.zeros((k, d), np.float32),
+    }}}}
+    return params, state

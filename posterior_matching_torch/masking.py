@@ -1,0 +1,300 @@
+"""On-device mask generation for the CelebA imputation path.
+
+Counterpart of ``posterior_matching_tpu/masking.py`` for the generators the
+``CelebAMaskGenerator`` mixture draws from (:447-452): random rectangles,
+fixed rectangles, per-pixel Bernoulli, and crops of the thresholded bicubic
+noise canvas (``random_pattern_mask``, :242-321), flattened into one
+categorical (:329-376). Every generator is ``(generator, shape) -> mask``
+with an explicit ``torch.Generator`` whose device the mask is drawn on; masks
+are ``[B, H, W, 1]`` float32, 1 where a pixel is observed. The other
+registry entries of the JAX module are not ported yet.
+
+The pattern canvas is rebuilt without PIL: :func:`_bicubic_resize`
+reproduces ``PIL.Image.resize(..., BICUBIC)`` on a mode ``F`` image (PIL's
+cubic kernel with a = -0.5, its support and rounding rules, a horizontal
+pass then a vertical pass, each summed in float64 and stored as float32).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from posterior_matching_torch.runtime import resolve_device
+
+MaskFn = Callable[[torch.Generator, Sequence[int]], torch.Tensor]
+
+_REJECTION_CANDIDATES = 32
+
+
+def _image_shape(shape: Sequence[int]) -> Tuple[int, int, int]:
+    if len(shape) != 4:
+        raise ValueError(f"expected shape [batch, height, width, channels], got {shape}")
+    b, h, w, _ = shape
+    return b, h, w
+
+
+def _randint(gen: torch.Generator, low: int, high: int, size) -> torch.Tensor:
+    return torch.randint(low, high, size, generator=gen, device=gen.device)
+
+
+def image_bernoulli_mask(
+    gen: torch.Generator, shape: Sequence[int], p: float = 0.2
+) -> torch.Tensor:
+    """iid Bernoulli(p) per pixel."""
+    b, h, w = _image_shape(shape)
+    u = torch.rand((b, h, w, 1), generator=gen, device=gen.device)
+    return (u < p).float()
+
+
+def _rect_to_mask(x1, y1, x2, y2, h: int, w: int) -> torch.Tensor:
+    """[B] inclusive rectangle corners -> [B, H, W, 1], 0 inside."""
+    ys = torch.arange(h, device=x1.device)[None, :, None]
+    xs = torch.arange(w, device=x1.device)[None, None, :]
+    inside = (
+        (ys >= y1[:, None, None]) & (ys <= y2[:, None, None])
+        & (xs >= x1[:, None, None]) & (xs <= x2[:, None, None])
+    )
+    return (1.0 - inside.float())[..., None]
+
+
+def _static_valid_rectangle(h, w, min_prop, max_prop):
+    """A deterministic in-bounds rectangle for when every candidate fails."""
+    target = min(max(min_prop, 0.0) + 1e-6, max_prop)
+    area = max(1, int(np.ceil(target * h * w)))
+    rh = min(h, int(np.ceil(np.sqrt(area))))
+    rw = min(w, int(np.ceil(area / rh)))
+    return 0, 0, rw - 1, rh - 1
+
+
+def rectangle_mask(
+    gen: torch.Generator,
+    shape: Sequence[int],
+    min_prop: float = 0.3,
+    max_prop: float = 1.0,
+) -> torch.Tensor:
+    """Random rectangle with area in [min_prop, max_prop] of the image: the
+    first valid of 32 candidates, else a fixed valid rectangle."""
+    b, h, w = _image_shape(shape)
+    k = _REJECTION_CANDIDATES
+    xs = _randint(gen, 0, w, (b, k, 2))
+    ys = _randint(gen, 0, h, (b, k, 2))
+    x1, x2 = xs.min(-1).values, xs.max(-1).values
+    y1, y2 = ys.min(-1).values, ys.max(-1).values
+    area = (x2 - x1 + 1) * (y2 - y1 + 1)
+    valid = (area >= min_prop * h * w) & (area <= max_prop * h * w)
+    first = valid.int().argmax(-1, keepdim=True)
+    any_valid = valid.any(-1)
+    fallback = _static_valid_rectangle(h, w, min_prop, max_prop)
+
+    def pick(v, f):
+        return torch.where(any_valid, v.gather(-1, first)[:, 0], f)
+
+    return _rect_to_mask(
+        pick(x1, fallback[0]), pick(y1, fallback[1]),
+        pick(x2, fallback[2]), pick(y2, fallback[3]), h, w,
+    )
+
+
+def fixed_rectangle_mask(
+    gen: torch.Generator, shape: Sequence[int], y1: int, x1: int, y2: int, x2: int
+) -> torch.Tensor:
+    """Fixed rectangle, exclusive ends."""
+    b, h, w = _image_shape(shape)
+    mask = torch.ones(1, h, w, 1, device=gen.device)
+    mask[:, y1:y2, x1:x2, :] = 0.0
+    return mask.expand(b, h, w, 1)
+
+
+# ---------------------------------------------------------------------------
+# Pattern canvas
+# ---------------------------------------------------------------------------
+
+
+def _cubic(x: np.ndarray, a: float = -0.5) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(
+        x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+        np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0),
+    )
+
+
+def _resample_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """PIL's bicubic resampling coefficients (``precompute_coeffs``) as an
+    ``[out, in]`` float64 matrix."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    mat = np.zeros((out_size, in_size))
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        w = _cubic((np.arange(xmin, xmax) - center + 0.5) / filterscale)
+        total = w.sum()
+        mat[xx, xmin:xmax] = w / total if total != 0.0 else w
+    return mat
+
+
+def _bicubic_resize(img: np.ndarray, out_size: int) -> np.ndarray:
+    """``PIL.Image.fromarray(img, "F").resize((out, out), BICUBIC)``."""
+    mh = _resample_matrix(img.shape[1], out_size)
+    mv = _resample_matrix(img.shape[0], out_size)
+    tmp = (img.astype(np.float64) @ mh.T).astype(np.float32)
+    return (mv @ tmp.astype(np.float64)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def pattern_canvas(
+    canvas_size: int, resolution: float, density: float, seed: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The thresholded bicubic-noise canvas (uint8, 1 = hidden) and its
+    summed-area table (``sat[i, j]`` = ones in ``canvas[:i, :j]``)."""
+    low_size = max(2, int(resolution * canvas_size))
+    low = np.random.RandomState(seed).uniform(
+        0, 1, size=(low_size, low_size)
+    ).astype(np.float32)
+    canvas = (_bicubic_resize(low, canvas_size) < density).astype(np.uint8)
+    sat = np.zeros((canvas_size + 1, canvas_size + 1), np.int32)
+    sat[1:, 1:] = np.cumsum(
+        np.cumsum(canvas, axis=0, dtype=np.int64), axis=1
+    ).astype(np.int32)
+    return canvas, sat
+
+
+def random_pattern_mask(
+    gen: torch.Generator,
+    shape: Sequence[int],
+    canvas: torch.Tensor,
+    sat: torch.Tensor,
+    density: float = 0.25,
+    density_std: float = 0.05,
+) -> torch.Tensor:
+    """Crops of the pattern canvas with density rejection: the first of 32
+    random crops whose hidden share is within ``density_std`` of
+    ``density``, else the closest. Candidate densities come from four
+    corners of the summed-area table; only the chosen crop is gathered."""
+    b, h, w = _image_shape(shape)
+    size = canvas.shape[0]
+    k = _REJECTION_CANDIDATES
+    xs = _randint(gen, 0, size - w + 1, (b, k))
+    ys = _randint(gen, 0, size - h + 1, (b, k))
+    count = sat[ys + h, xs + w] - sat[ys, xs + w] - sat[ys + h, xs] + sat[ys, xs]
+    coverage = count.float() / np.float32(h * w)
+    gap = (coverage - density).abs()
+    valid = gap < density_std
+    idx = torch.where(
+        valid.any(-1), valid.int().argmax(-1), gap.argmin(-1)
+    )[:, None]
+    x_sel = xs.gather(1, idx)[:, 0]
+    y_sel = ys.gather(1, idx)[:, 0]
+    dev = canvas.device
+    rows = y_sel[:, None] + torch.arange(h, device=dev)
+    cols = x_sel[:, None] + torch.arange(w, device=dev)
+    picked = canvas[rows[:, :, None], cols[:, None, :]].float()
+    return (1.0 - picked)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# The CelebA mixture
+# ---------------------------------------------------------------------------
+
+
+def mixture_mask(
+    gen: torch.Generator,
+    shape: Sequence[int],
+    generators: Sequence[MaskFn],
+    weights: Sequence[float],
+) -> torch.Tensor:
+    """Every batch element picks a component independently; all components
+    are drawn batched and selected by index."""
+    b = shape[0]
+    w = torch.tensor(weights, dtype=torch.float32, device=gen.device)
+    choice = torch.multinomial(w / w.sum(), b, replacement=True, generator=gen)
+    masks = torch.stack([g(gen, shape) for g in generators], 1)
+    return masks[torch.arange(b, device=gen.device), choice]
+
+
+def _flatten_mixture(generators, weights):
+    """Nested ``(generators, weights)`` specs -> one categorical."""
+    flat_g, flat_w = [], []
+    total = float(sum(weights))
+    for g, w in zip(generators, weights):
+        if isinstance(g, tuple):
+            for sg, sw in zip(*_flatten_mixture(*g)):
+                flat_g.append(sg)
+                flat_w.append(w / total * sw)
+        else:
+            flat_g.append(g)
+            flat_w.append(w / total)
+    return flat_g, flat_w
+
+
+def _siidgm_spec(canvas: torch.Tensor, sat: torch.Tensor):
+    fixed = functools.partial
+    gens = [
+        fixed(random_pattern_mask, canvas=canvas, sat=sat),
+        fixed(image_bernoulli_mask, p=0.2),
+        fixed(fixed_rectangle_mask, y1=16, x1=16, y2=48, x2=48),
+        fixed(fixed_rectangle_mask, y1=0, x1=0, y2=64, x2=32),
+        fixed(fixed_rectangle_mask, y1=0, x1=0, y2=32, x2=64),
+        fixed(fixed_rectangle_mask, y1=0, x1=32, y2=64, x2=64),
+        fixed(fixed_rectangle_mask, y1=32, x1=0, y2=64, x2=64),
+    ]
+    return gens, [2, 2, 2, 1, 1, 1, 1]
+
+
+# GCF face-part rectangles (y1, x1, y2, x2), exclusive ends.
+_GCF_RECTS = (
+    (26, 17, 58, 36), (26, 29, 58, 48), (26, 15, 37, 50),
+    (26, 15, 37, 34), (26, 31, 37, 50), (43, 20, 62, 44),
+)
+
+
+def celeb_a_mask_spec(
+    device: torch.device, canvas_size: int = 2048
+) -> Tuple[list, list]:
+    """SIIDGM + GCF + rectangle with weights [1, 1, 2], flattened (the
+    reference's CelebAMaskGenerator). The pattern canvas lives on
+    ``device``."""
+    canvas, sat = pattern_canvas(canvas_size, 0.06, 0.25, 0)
+    canvas_t = torch.from_numpy(canvas).to(device)
+    sat_t = torch.from_numpy(sat).to(device)
+    gcf = (
+        [functools.partial(fixed_rectangle_mask, y1=a, x1=b, y2=c, x2=d)
+         for a, b, c, d in _GCF_RECTS],
+        [1] * len(_GCF_RECTS),
+    )
+    return _flatten_mixture(
+        [_siidgm_spec(canvas_t, sat_t), gcf, rectangle_mask], [1, 1, 2]
+    )
+
+
+def get_mask_generator(name: str, device: Optional[str] = None) -> MaskFn:
+    """``(generator, shape) -> mask`` by the reference's generator name,
+    with its tables on ``device`` (the GPU unless ``"cpu"``)."""
+    dev = resolve_device(device)
+    if name != "CelebAMaskGenerator":
+        raise NotImplementedError(f"mask generator {name!r} is not ported yet")
+    gens, weights = celeb_a_mask_spec(dev)
+    return functools.partial(mixture_mask, generators=gens, weights=weights)
+
+
+def add_mask(
+    batch: dict, gen: torch.Generator, mask_fn: MaskFn,
+    data_key: Optional[str] = None,
+) -> dict:
+    """Adds ``batch["mask"]``: ``[B, H, W, 1]`` for images, the data's own
+    shape for feature vectors."""
+    if data_key is None:
+        data_key = "image" if "image" in batch else "features"
+    x = batch[data_key]
+    mask = mask_fn(gen, x.shape)
+    if data_key == "image":
+        mask = mask.reshape(*x.shape[:-1], 1)
+    else:
+        mask = mask.reshape(x.shape)
+    return {**batch, "mask": mask}
+

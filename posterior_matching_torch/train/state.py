@@ -1,0 +1,107 @@
+"""Train state and the ``train_state.pkl`` checkpoint contract.
+
+Counterpart of ``posterior_matching_tpu/train/state.py:20-55``: the same
+field names (``params``, ``state``, ``opt_state``, ``ema_params``, ``step``)
+holding plain numpy trees, so a run directory written by either package is
+read by the other.
+
+A pickle written by the JAX package names its classes by their JAX-side
+import paths. A plain ``pickle.load`` would import the JAX package (and JAX
+with it) to rebuild them, so :func:`load_train_state` maps those names onto
+this package's own types instead.
+"""
+from __future__ import annotations
+
+import pickle
+from dataclasses import dataclass
+from typing import Any
+
+
+@dataclass
+class TrainState:
+    params: Any
+    state: Any
+    opt_state: Any = None
+    ema_params: Any = None
+    step: Any = 0
+
+
+class ForeignRecord:
+    """Stand-in for an object of a JAX-side library (an optax state, say)
+    found in a checkpoint. Each foreign class path gets its own subclass
+    (``module`` and ``__name__`` say which); an instance keeps the
+    constructor arguments and pickled state as read. The port's inference
+    path never reads them."""
+
+    module = ""
+
+    def __new__(cls, *args):
+        obj = super().__new__(cls)
+        obj.args = args
+        return obj
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+# Libraries whose classes a JAX-written checkpoint may name; importing any
+# of them would pull in JAX.
+_FOREIGN_ROOTS = frozenset(
+    {"jax", "jaxlib", "flax", "optax", "chex", "ml_collections",
+     "posterior_matching_tpu"}
+)
+
+_CLASS_MAP = {
+    ("posterior_matching_tpu.train.state", "TrainState"): TrainState,
+    ("flax.core.frozen_dict", "FrozenDict"): dict,
+}
+
+
+class _PortUnpickler(pickle.Unpickler):
+    def __init__(self, fp):
+        super().__init__(fp)
+        self._foreign = {}
+
+    def find_class(self, module: str, name: str):
+        mapped = _CLASS_MAP.get((module, name))
+        if mapped is not None:
+            return mapped
+        if module.split(".")[0] in _FOREIGN_ROOTS:
+            key = (module, name)
+            if key not in self._foreign:
+                self._foreign[key] = type(name, (ForeignRecord,), {"module": module})
+            return self._foreign[key]
+        return super().find_class(module, name)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    if hasattr(tree, "detach"):  # torch.Tensor
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def save_train_state(path: str, train_state: TrainState) -> None:
+    host_state = TrainState(
+        params=_to_numpy(train_state.params),
+        state=_to_numpy(train_state.state),
+        opt_state=_to_numpy(train_state.opt_state),
+        ema_params=_to_numpy(train_state.ema_params),
+        step=int(train_state.step),
+    )
+    with open(path, "wb") as fp:
+        pickle.dump(host_state, fp)
+
+
+def load_train_state(path: str) -> TrainState:
+    """Reads a ``train_state.pkl`` written by either package. Unpickling
+    runs code named in the file: load only checkpoints this project wrote."""
+    with open(path, "rb") as fp:
+        out = _PortUnpickler(fp).load()
+    if not isinstance(out, TrainState):
+        raise TypeError(f"{path} holds a {type(out).__name__}, not a TrainState")
+    return out
+

@@ -1,0 +1,69 @@
+"""Import hygiene and device policy of the PyTorch port.
+
+The port and ``chip_smoke.py`` run on a machine without JAX, flax,
+ml_collections, PIL, absl or tqdm, so none of them (nor the JAX package) may
+be imported; Triton is imported only inside the function that launches a
+kernel, never at module level. Entry points run on the GPU unless the caller
+asks for the CPU: without a GPU they raise.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from posterior_matching_torch import masking, runtime
+from posterior_matching_torch.config import PM_VQVAE_CELEB_A, VQVAE_CELEB_A
+from posterior_matching_torch.models.pm_vqvae import PMVQVAE
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "posterior_matching_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"
+]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_collections", "PIL",
+             "absl", "tqdm", "posterior_matching_tpu"}
+
+
+def _imports(tree, module_level=False):
+    """Imported module names; with ``module_level``, only those that run
+    when the module is imported (not inside a function body)."""
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if module_level and isinstance(
+            node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)
+        ):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        stack.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_side_imports(path):
+    tree = ast.parse(path.read_text())
+    bad = sorted({m for m in _imports(tree) if m.split(".")[0] in FORBIDDEN})
+    assert not bad, f"{path} imports {bad}"
+    top = {m.split(".")[0] for m in _imports(tree, module_level=True)}
+    assert "triton" not in top, f"{path} imports triton at module level"
+
+
+def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PMVQVAE.from_config(
+            PM_VQVAE_CELEB_A["conditional_dim"], VQVAE_CELEB_A,
+            PM_VQVAE_CELEB_A["pixel_cnn"],
+        )
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        masking.get_mask_generator("CelebAMaskGenerator")
+    assert runtime.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_float32_numerics_are_pinned():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False

@@ -1,0 +1,105 @@
+"""The port's CelebA mask mixture against the JAX package's.
+
+Masks are random, so the mixture is held by distribution, as
+``tests/test_masking.py`` holds the JAX generators: the share of each
+component (fixed rectangles are recognised exactly, random rectangles by
+shape, Bernoulli and pattern masks by coverage) against the mixture weights,
+and the mean coverage against the JAX generator's. The pattern canvas, built
+here without PIL, must match the JAX package's PIL-built canvas cell for cell
+on at least 99.9% of cells.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from posterior_matching_tpu import masking as jax_masking
+from posterior_matching_torch import masking
+
+N = 2048
+SHAPE = (N, 64, 64, 3)
+SIIDGM_FIXED = [(16, 16, 48, 48), (0, 0, 64, 32), (0, 0, 32, 64), (0, 32, 64, 64), (32, 0, 64, 64)]
+GCF_FIXED = [(26, 17, 58, 36), (26, 29, 58, 48), (26, 15, 37, 50),
+             (26, 15, 37, 34), (26, 31, 37, 50), (43, 20, 62, 44)]
+# flattened weights: SIIDGM [2,2,2,1,1,1,1]/10 x 1/4, GCF 1/6 x 1/4, rect 1/2
+EXPECTED = {
+    "pattern": 0.05, "bernoulli": 0.05, "rect": 0.5,
+    **{f"s{i}": (0.05 if i == 0 else 0.025) for i in range(5)},
+    **{f"g{i}": 1 / 24 for i in range(6)},
+}
+
+
+def _rect(y1, x1, y2, x2):
+    m = np.ones((64, 64), np.float32)
+    m[y1:y2, x1:x2] = 0
+    return m
+
+
+def classify(masks: np.ndarray) -> dict:
+    """Component shares of a batch of CelebA-mixture masks [N, 64, 64]."""
+    fixed = {f"s{i}": _rect(*r) for i, r in enumerate(SIIDGM_FIXED)}
+    fixed.update({f"g{i}": _rect(*r) for i, r in enumerate(GCF_FIXED)})
+    counts = dict.fromkeys(EXPECTED, 0)
+    for m in masks:
+        name = next((k for k, f in fixed.items() if np.array_equal(m, f)), None)
+        if name is None:
+            hidden = m == 0
+            ys, xs = np.nonzero(hidden)
+            box = hidden[ys.min():ys.max() + 1, xs.min():xs.max() + 1]
+            if box.all():
+                name = "rect"
+            elif hidden.mean() > 0.6:
+                name = "bernoulli"
+            else:
+                name = "pattern"
+        counts[name] += 1
+    return {k: v / len(masks) for k, v in counts.items()}
+
+
+@pytest.fixture(scope="module")
+def port_masks():
+    mask_fn = masking.get_mask_generator("CelebAMaskGenerator", device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    m = mask_fn(gen, SHAPE)
+    assert m.shape == (N, 64, 64, 1) and m.dtype == torch.float32
+    return m[..., 0].numpy()
+
+
+def test_celeb_a_component_shares(port_masks):
+    assert set(np.unique(port_masks)) <= {0.0, 1.0}
+    shares = classify(port_masks)
+    for name, p in EXPECTED.items():
+        sigma = np.sqrt(p * (1 - p) / N)
+        assert abs(shares[name] - p) < 5 * sigma, (name, shares[name], p)
+
+
+def test_celeb_a_coverage_matches_jax(port_masks):
+    jax_fn = jax_masking.get_mask_generator("CelebAMaskGenerator")
+    want = np.asarray(jax_fn(jax.random.PRNGKey(3), SHAPE))[..., 0]
+    port_hidden = 1 - port_masks.mean((1, 2))
+    jax_hidden = 1 - want.mean((1, 2))
+    # the two means differ by sampling noise only: 5 sigma of the difference
+    sigma = np.sqrt(port_hidden.var() / N + jax_hidden.var() / N)
+    assert abs(port_hidden.mean() - jax_hidden.mean()) < 5 * sigma
+    # pattern crops hold their target density in both
+    shares = classify(port_masks)
+    pattern = [m for m in port_masks if classify(m[None])["pattern"] == 1]
+    assert shares["pattern"] > 0
+    assert all(abs((1 - m.mean()) - 0.25) < 0.08 for m in pattern)
+
+
+@pytest.mark.parametrize("size", [128, 256, 512])
+def test_pattern_canvas_matches_pil(size):
+    got, sat = masking.pattern_canvas(size, 0.06, 0.25, 0)
+    want = jax_masking._PatternCanvas.get(size, 0.06, 0.25, 0)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert np.mean(got == want) >= 0.999
+    assert sat[-1, -1] == int(got.sum())
+
+
+def test_add_mask_shapes():
+    mask_fn = masking.get_mask_generator("CelebAMaskGenerator", device="cpu")
+    batch = {"image": torch.zeros(4, 64, 64, 3)}
+    out = masking.add_mask(batch, torch.Generator().manual_seed(1), mask_fn)
+    assert out["mask"].shape == (4, 64, 64, 1)
+    assert out["image"] is batch["image"]
