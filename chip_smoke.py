@@ -1,21 +1,37 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU.
 
-Runs the port's PM-VQVAE CelebA imputation path at the flagship's full width
-and checks it, in four phases:
+Runs the port's two PM-VQVAE CelebA paths at the flagship's full width,
+imputation and stage-2 training, and checks them, in these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
-2. both row-sampler kernels (``posterior_matching_torch/ops/csrc``) are built
-   from this checkout's sources, launched at the main path's shapes
-   (n = 32 images x 10 samples, F = 128, L = 24, 16 x 16 codes, K = 512) and
-   held against their plain PyTorch versions on the same inputs; each is
-   timed with CUDA events beside its bound;
-3. the slice: three imputation requests of 32 seeded 64x64x3 images with
-   CelebA masks, 10 samples each, through ``pm_vqvae_impute`` with weights
-   from ``--seed`` (a JAX-layout tree sent through ``convert.py``) or from
-   ``--run_dir``; the kernels' launch counters must show the requests went
-   through them; a small request is also checked against the plain path on
-   the CPU with the same noise;
-4. one JSON line of per-kernel numbers, the card's name and power limit, and
+2. all five kernels (``posterior_matching_torch/ops/csrc``) are built from
+   this checkout's sources, one ``nvcc`` each, in parallel; both row-sampler
+   kernels are launched at the imputation path's shapes (n = 32 images x 10
+   samples, F = 128, L = 24, 16 x 16 codes, K = 512) and held against their
+   plain PyTorch versions on the same inputs; each is timed with CUDA events
+   beside its bound;
+3. imputation: three requests of 32 seeded 64x64x3 images with CelebA
+   masks, 10 samples each, through ``pm_vqvae_impute`` with weights from
+   ``--seed`` (a JAX-layout tree sent through ``convert.py``) or from
+   ``--run_dir``; the sampler kernels' launch counters must show the
+   requests went through them; a small request is also checked against the
+   plain path on the CPU with the same noise;
+4. the codebook search kernel against its plain version at the training
+   path's shapes (8192 latents of 64, 512 codes), and on exact ties;
+5. the gated chain kernels (forward and backward) against autograd through
+   the plain chain at full width, for the up and the down pass (B = 32,
+   16 x 16, F = 128, cond 512, L = 12, keep 0.5, masks from the in-kernel
+   hash), each timed beside its bound;
+6. training: 8 steps of the stage-2 ``Trainer`` (``fit``, with a checkpoint
+   callback) at full width on seeded batches with dropout 0.5, then one
+   profiled step (device time by kernel group, the device's idle share);
+   the three training kernels' counters must be
+   > 0 on every step; the VQ-VAE must stay bit for bit frozen, every
+   trainable tensor must move, the eval loss of a fixed batch must drop; a
+   small model's step on the GPU must match the plain path's on the CPU;
+   the checkpoint must load back through ``load_pm_vqvae`` and serve an
+   imputation request;
+7. one JSON line of per-kernel numbers, the card's name and power limit, and
    the result line.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--out DIR]``.
@@ -38,12 +54,24 @@ import torch
 VROW_TOL = 1e-4     # max |kernel - plain| / max(1, max |plain|)
 LOGITS_TOL = 1e-4   # same, on the row kernel's logits
 SAMPLE_AGREEMENT = 0.999
+# The training kernels: outputs 1e-4 relative to scale as above. Gradients
+# the same: the weight gradients sum 8192 rows per entry (float32 rounding
+# of such a sum is ~1e-6 relative) and every gradient passes back through
+# up to 24 levels, so 1e-4 of the tensor's scale leaves a wide margin over
+# rounding while any wrong tap, mask or transpose shows as O(1).
+STREAM_TOL = 1e-4
+GRAD_TOL = 1e-4
+KEEP_RATE_TOL = 0.005
+SEARCH_AGREEMENT = 0.999
+NEAR_TIE = 1e-5     # score gap of a tolerated search disagreement / scale
+STEP_LOSS_TOL = 1e-5
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 BATCH, NUM_SAMPLES, REQUESTS = 32, 10, 3
+TRAIN_STEPS = 8
 DEVICE = "cuda"
 
 
@@ -79,6 +107,408 @@ def nbytes(*tensors) -> int:
 def rel_err(got: torch.Tensor, want: torch.Tensor):
     err = (got - want).abs().max().item()
     return err, err / max(1.0, want.abs().max().item())
+
+def bound(flops, byts):
+    """The least time (ms) for the work on this card, and what sets it."""
+    t_op, t_by = flops / PEAK_F32_FLOPS * 1e3, byts / PEAK_BYTES * 1e3
+    return max(t_op, t_by), ("operations" if t_op >= t_by else "bytes")
+
+
+def check(ok: bool, what: str):
+    if not ok:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the codebook search
+# ---------------------------------------------------------------------------
+
+
+def vq_phase(model, x):
+    """The search kernel against its plain version on the latents of ``x``
+    (the training path's shapes), and on exact ties."""
+    from posterior_matching_torch.ops import vq
+
+    with torch.no_grad():
+        z = model.vqvae.encode(x)
+    flat = z.reshape(-1, z.shape[-1]).contiguous()
+    cb = model.vqvae.vq.embeddings.detach().contiguous()
+    got = vq.nearest_codebook_indices(flat, cb)
+    want = vq.nearest_codebook_indices_plain(flat, cb)
+    torch.cuda.synchronize()
+    scores = 2.0 * (flat @ cb.T) - (cb * cb).sum(-1)
+    gap = (scores.gather(1, want[:, None].long())
+           - scores.gather(1, got[:, None].long())).abs()[:, 0]
+    diff = got != want
+    agree = 1.0 - diff.float().mean().item()
+    scale = scores.abs().max().item()
+    err = gap.max().item()
+    log(f"vq_search: indices agree on {agree:.6f} of {got.numel()} latents; "
+        f"max score gap {err:.3e} (scale {scale:.3e})")
+    check(agree >= SEARCH_AGREEMENT, f"vq_search agrees on {agree} < {SEARCH_AGREEMENT}")
+    check(bool((gap[diff] <= NEAR_TIE * scale).all()),
+          "vq_search disagrees beyond a near-tie")
+    half = cb.shape[0] // 2
+    tied = torch.cat([cb[:half], cb[:half]]).contiguous()   # code k == k + half
+    got_t = vq.nearest_codebook_indices(flat, tied)
+    want_t = vq.nearest_codebook_indices_plain(flat, tied)
+    torch.cuda.synchronize()
+    check(bool((got_t < half).all()), "vq_search broke a tie to the higher index")
+    check(torch.equal(got_t, want_t), "vq_search disagrees on exact ties")
+    log("vq_search: exact ties go to the lower index, as in the plain version")
+
+    n, d = flat.shape
+    k = cb.shape[0]
+    ms = time_ms(lambda: vq.nearest_codebook_indices(flat, cb), reps=50, warmup=3)
+    plain_ms = time_ms(lambda: vq.nearest_codebook_indices_plain(flat, cb), reps=50, warmup=3)
+    b_ms, b_by = bound(2.0 * n * k * d, nbytes(flat, cb) + 4 * n)
+    log(f"vq_search: {ms:.4f} ms/launch (plain {plain_ms:.4f}), bound {b_ms:.4f} ms "
+        f"by {b_by} ({2.0 * n * k * d / 1e9:.3f} GFLOP)")
+    return {"name": "vq_search", "route": "cuda",
+            "source": "posterior_matching_torch/ops/csrc/vq_search.cu",
+            "replaces": "posterior_matching_tpu/ops/vq.py:35",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the gated chain, forward and backward
+# ---------------------------------------------------------------------------
+
+
+def stream_work(cfg, w, fwd_bytes, bwd_bytes):
+    """Operations of one forward and one backward launch (the backward does
+    each product twice: data and weight gradients)."""
+    f, tv = cfg.f, cfg.taps_v.skh * cfg.taps_v.skw
+    th = cfg.taps_h.skh * cfg.taps_h.skw
+    per_row = (tv + th) * (2 * f * f + 4 * f * f) + 2 * f * f
+    if cfg.down:
+        per_row += 2 * (2 * f * f)
+    mm = 2.0 * cfg.rows * cfg.n_levels * per_row
+    proj = 2.0 * 2 * cfg.n_levels * cfg.b * cfg.cd * 2 * f
+    return (mm + proj, fwd_bytes), (2 * mm + 2 * proj, bwd_bytes)
+
+
+def stream_phase(model, x, b, seed):
+    """Both gated chain kernels against autograd through the plain chain at
+    full width, up pass then down pass, with in-kernel hash dropout."""
+    from posterior_matching_torch.ops import gated_chain as gc
+
+    pc = model.pixel_cnn
+    n, f = pc.num_resnet, pc.num_filters
+    keep = 1.0 - pc.dropout
+    taps = gc.chain_taps(pc.receptive_field_dims)
+    with torch.no_grad():
+        codes = model.vqvae.encoding_indices(x)
+        cond = model.conditional_latents(x, b).contiguous()
+        xv0, xh0 = (t.contiguous() for t in pc.init_stacks(codes))
+    gen = torch.Generator(device=x.device).manual_seed(seed + 17)
+    results = {}
+    for direction in ("up", "dn"):
+        down = direction == "dn"
+        with torch.no_grad():
+            w = {k: v.detach().contiguous() for k, v in gc.stack_levels(
+                [gc.pack_level(pc.layers, direction, p, f, down, pc.receptive_field_dims)
+                 for p in range(n)]).items()}
+        base = n if down else 0
+        skips = None
+        if down:
+            xs_v, xs_h = [xv0_up, *up_v], [xh0_up, *up_h]
+            skips = (torch.stack([xs_v[n - 1 - p] for p in range(n)]).contiguous(),
+                     torch.stack([xs_h[n - 1 - p] for p in range(n)]).contiguous())
+            xv0, xh0 = up_v[-1].contiguous(), up_h[-1].contiguous()
+        leaves = [xv0, xh0, cond, *w.values()] + (list(skips) if down else [])
+        leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+        lx0, lh0, lcond = leaves[:3]
+        lw = dict(zip(w, leaves[3: 3 + len(w)]))
+        lsk = tuple(leaves[3 + len(w):]) if down else None
+        kw = dict(seed=seed, base_pair=base, keep=keep, taps=taps)
+        got = gc.gated_stream(lx0, lh0, lsk, lcond, lw, **kw)
+        want = gc.gated_stream_plain(lx0, lh0, lsk, lcond, lw, **kw)
+        torch.cuda.synchronize()
+        fwd_err = 0.0
+        for name, g_, w_ in zip(("xv", "xh"), got, want):
+            err, rel = rel_err(g_, w_)
+            fwd_err = max(fwd_err, err)
+            log(f"gated_stream_fwd {direction} {name} outputs: max abs err {err:.3e}, "
+                f"relative to scale {rel:.3e}")
+            check(rel <= STREAM_TOL, f"gated_stream_fwd {direction} {name}: {rel:.3e}")
+        cot = [torch.randn(t.shape, generator=gen, device=t.device) for t in want]
+        gk = torch.autograd.grad(got, leaves, cot)
+        gp = torch.autograd.grad(want, leaves, cot, retain_graph=True)
+        torch.cuda.synchronize()
+        names = ["dxv0", "dxh0", "dcond", *("d" + k for k in w)] + (
+            ["dskv", "dskh"] if down else [])
+        bwd_err, worst = 0.0, ("", 0.0)
+        for name, a, c in zip(names, gk, gp):
+            err, rel = rel_err(a, c)
+            bwd_err = max(bwd_err, err)
+            worst = max(worst, (name, rel), key=lambda t: t[1])
+            check(rel <= GRAD_TOL, f"gated_stream_bwd {direction} {name}: {rel:.3e} > {GRAD_TOL}")
+        log(f"gated_stream_bwd {direction}: {len(names)} gradients, max abs err "
+            f"{bwd_err:.3e}, worst relative to scale {worst[1]:.3e} ({worst[0]})")
+        mv, mh = gc.step_masks(seed, base, n, xv0.shape, keep, x.device)
+        rate = torch.cat([mv.flatten(), mh.flatten()]).mean().item()
+        log(f"gated_stream {direction}: realised keep rate {rate:.6f} (keep {keep})")
+        check(abs(rate - keep) <= KEEP_RATE_TOL, f"keep rate {rate} is not {keep}")
+        if not down:
+            xv0_up, xh0_up = xv0, xh0
+            up_v, up_h = (t.detach() for t in want)
+
+        # times of the kernels (wrapper calls) and of the plain versions
+        cfg = gc.StreamConfig(xv0, cond, n, down, keep, seed, base, taps)
+        sk = skips if down else None
+        with torch.no_grad():
+            saves = gc.stream_fwd(cfg, xv0, xh0, sk, cond, w)
+            saved = {"xv0": xv0, "xh0": xh0, "cond": cond, **saves}
+            if down:
+                saved["skv"], saved["skh"] = skips
+            w_nb = {k: v for k, v in w.items() if not k.startswith("b")}
+            gv, gh = (c.reshape(n, -1, f).contiguous() for c in cot)
+            fwd_ms = time_ms(lambda: gc.stream_fwd(cfg, xv0, xh0, sk, cond, w), reps=3)
+            bwd_ms = time_ms(lambda: gc.stream_bwd(cfg, gv, gh, saved, w_nb), reps=3)
+            fwd_plain = time_ms(lambda: gc.gated_stream_plain(xv0, xh0, sk, cond, w, **kw), reps=3)
+        bwd_plain = time_ms(lambda: torch.autograd.grad(want, leaves, cot, retain_graph=True),
+                            reps=3)
+        grads = gc.stream_bwd(cfg, gv, gh, saved, w_nb)
+        fwd_bytes = nbytes(xv0, xh0, cond, *w.values(), *(sk or ()),
+                           *(saves[k] for k in ("xvo", "xho", "a1v", "a1h", "b1v", "b1h")))
+        bwd_bytes = nbytes(gv, gh, *saved.values(), *w_nb.values(), *grads.values())
+        (ff, fb), (bf, bb) = stream_work(cfg, w, fwd_bytes, bwd_bytes)
+        results[direction] = {
+            "fwd": (fwd_err, fwd_ms, fwd_plain, ff, fb),
+            "bwd": (bwd_err, bwd_ms, bwd_plain, bf, bb),
+        }
+        for kind, (_, ms, pms, fl, by) in results[direction].items():
+            b_ms, b_by = bound(fl, by)
+            log(f"gated_stream_{kind} {direction}: {ms:.3f} ms/launch (plain {pms:.3f}), "
+                f"bound {b_ms:.3f} ms by {b_by} ({fl / 1e9:.1f} GFLOP, {by / 1e6:.1f} MB)")
+        del got, want, gk, gp, saves, saved, grads
+    out = []
+    for kind, line in (("fwd", 1337), ("bwd", 1407)):
+        per = [results[d][kind] for d in ("up", "dn")]
+        b_ms, b_by = bound(sum(p[3] for p in per) / 2, sum(p[4] for p in per) / 2)
+        out.append({
+            "name": f"gated_stream_{kind}", "route": "cuda",
+            "source": f"posterior_matching_torch/ops/csrc/gated_stream_{kind}.cu",
+            "replaces": f"posterior_matching_tpu/ops/gated_chain.py:{line}",
+            "max_abs_err": max(p[0] for p in per),
+            # per launch: the mean of the up and the down pass
+            "ms": sum(p[1] for p in per) / 2, "plain_ms": sum(p[2] for p in per) / 2,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "per_pass": {d: {"ms": results[d][kind][1], "plain_ms": results[d][kind][2],
+                             "gflop": results[d][kind][3] / 1e9,
+                             "mb": results[d][kind][4] / 1e6} for d in ("up", "dn")},
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: training
+# ---------------------------------------------------------------------------
+
+
+def training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg, vq_cfg, pc_cfg):
+    """8 full-width steps of the stage-2 trainer, then the checks."""
+    import tempfile
+
+    from posterior_matching_torch import config, convert
+    from posterior_matching_torch.masking import add_mask
+    from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
+    from posterior_matching_torch.ops import gated_chain as gc
+    from posterior_matching_torch.ops import vq
+    from posterior_matching_torch.train.trainer import (
+        CheckpointCallback,
+        pm_vqvae_loss,
+        pm_vqvae_trainer,
+    )
+
+    counters = {"vq_search": vq.nearest_codebook_indices,
+                "gated_stream_fwd": gc.stream_fwd, "gated_stream_bwd": gc.stream_bwd}
+    batches = [{"image": torch.rand(image_shape, generator=gen, device=dev)}
+               for _ in range(TRAIN_STEPS)]
+    fixed = add_mask({"image": batches[0]["image"]}, gen, mask_fn)
+
+    def eval_loss():
+        with torch.no_grad():
+            return pm_vqvae_loss(model, fixed, 0, False).item()
+
+    trainer = pm_vqvae_trainer(model, config.PM_VQVAE_CELEB_A_TRAIN, seed=args.seed,
+                               mask_fn=mask_fn)
+    trainer.init()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    loss_before = eval_loss()
+    step_s, losses, launches = [], [], {k: 0 for k in counters}
+    clock = [0.0]
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        clock[0] = time.perf_counter()
+
+    def record(trainer_, metrics):
+        """After each step: its time, loss and kernel launches."""
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - clock[0])
+        counts = {k: c.launches for k, c in counters.items()}
+        for k, v in counts.items():
+            launches[k] += v
+        losses.append(loss)
+        log(f"train step {trainer_.step}: loss {loss:.4f} in {step_s[-1] * 1e3:.1f} ms; "
+            f"launches {counts}")
+        check(np.isfinite(loss), f"step {trainer_.step} loss is not finite")
+        check(all(v > 0 for v in counts.values()),
+              f"step {trainer_.step} did not launch every training kernel: {counts}")
+        reset()
+
+    run_dir = tempfile.TemporaryDirectory()
+    ckpt = f"{run_dir.name}/train_state.pkl"
+    reset()
+    trainer.fit(batches, TRAIN_STEPS, callbacks=[record, CheckpointCallback(ckpt, TRAIN_STEPS)])
+    steady = step_s[2:]
+    steps_per_s = len(steady) / sum(steady)
+    loss_after = eval_loss()
+    log(f"training: {steps_per_s:.4f} steps/s over steps 3-{TRAIN_STEPS} "
+        f"(batch {image_shape[0]}); eval loss of a fixed batch {loss_before:.4f} -> "
+        f"{loss_after:.4f}")
+    check(loss_after < loss_before, "the eval loss did not drop")
+    after = model.state_dict()
+    for name, t in before.items():
+        if name.startswith("vqvae."):
+            check(torch.equal(after[name], t), f"{name} changed: the VQ-VAE is not frozen")
+    for name in trainer.optimizer.params:
+        check(not torch.equal(after[name], before[name]), f"{name} did not move")
+    log(f"training: {sum(n.startswith('vqvae.') for n in before)} VQ-VAE tensors "
+        f"unchanged, all {len(trainer.optimizer.params)} trainable tensors moved")
+
+    small_step_check(vq_cfg, pm_cfg, args.seed, dev)
+
+    with run_dir:
+        with open(f"{run_dir.name}/vqvae_config.json", "w") as fp:
+            json.dump(vq_cfg, fp)
+        with open(f"{run_dir.name}/config.json", "w") as fp:
+            json.dump({"conditional_dim": pm_cfg["conditional_dim"], "pixel_cnn": pc_cfg}, fp)
+        loaded = convert.load_pm_vqvae(run_dir.name, device=DEVICE)
+    for name, t in loaded.state_dict().items():
+        check(torch.equal(t, after[name]), f"{name} did not survive the checkpoint")
+    batch = add_mask({"image": torch.rand(image_shape, generator=gen, device=dev)},
+                     gen, mask_fn)
+    imp = pm_vqvae_impute(loaded, batch["image"], batch["mask"], NUM_SAMPLES, generator=gen)
+    torch.cuda.synchronize()
+    check(imp.shape == (image_shape[0], NUM_SAMPLES, *image_shape[1:]),
+          f"imputations from the checkpoint have shape {tuple(imp.shape)}")
+    check(bool(torch.isfinite(imp).all()), "imputations from the checkpoint are not finite")
+    log("checkpoint: train_state.pkl loads back through load_pm_vqvae, every tensor "
+        "equal; an imputation request from it ran")
+    split = profile_step(trainer, batches[-1])
+    return {"steps_per_s": steps_per_s, "step_s": step_s, "losses": losses,
+            "eval_loss": [loss_before, loss_after], "launches": launches,
+            "split": split}
+
+
+# Kernel names of the gated chain's two libraries (csrc/gated_stream_*.cu),
+# as their demangled names end: "gsk::data_gemm<256>(...)",
+# "(anonymous namespace)::wgrad<128>(...)" (not cuDNN's "..._wgrad_...").
+_CHAIN_KERNELS = ("::data_gemm<", "::wgrad<", "::gate_bwd(", "::rowsum_images(",
+                  "::sum_images(", "::dwc_kernel(", "::dcond_kernel(", "::proj_kernel(")
+
+
+def profile_step(trainer, batch):
+    """One more training step under ``torch.profiler``: device time by kernel
+    group, CUDA kernel launches, and the device's idle share of the step's
+    wall time (1 - the union of kernel intervals / wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch)["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log("profiled step: the profiler saw no device time (split not measured)")
+        return None
+    groups = {}
+    for e in kernels:
+        name = e.name
+        if any(k in name for k in _CHAIN_KERNELS):
+            g = "gated_stream kernels"
+        elif "vq_search" in name:
+            g = "vq_search kernel"
+        elif "gemm" in name.lower() or "cutlass" in name.lower():
+            g = "matmuls (cuBLAS)"
+        elif any(k in name.lower() for k in ("conv", "cudnn", "wgrad", "dgrad")):
+            g = "convolutions (cuDNN)"
+        else:
+            g = "elementwise and reductions"
+        ms, n = groups.get(g, (0.0, 0))
+        groups[g] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy = (busy + cur_e - cur_s) / 1e3
+    log(f"profiled step: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall_ms:.3f}, {len(kernels)} CUDA kernel launches")
+    for g, (ms, n) in sorted(groups.items(), key=lambda t: -t[1][0]):
+        log(f"  {g}: {ms:.2f} ms device time in {n} launches")
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda t: -t[1])[:8]
+    for name, ms in top[:4]:
+        log(f"  top kernel {ms:.2f} ms: {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "kernel_launches": len(kernels), "top_kernels": top,
+            "groups": {g: {"ms": ms, "launches": n} for g, (ms, n) in groups.items()}}
+
+
+def small_step_check(vq_cfg, pm_cfg, seed, dev):
+    """One training step of a small model through the kernels on the GPU
+    against the same step of the plain path on the CPU: the same codes,
+    the same hash masks, the loss within 1e-5 relative and every gradient
+    within GRAD_TOL of its scale."""
+    from posterior_matching_torch import convert
+    from posterior_matching_torch.train.trainer import pm_vqvae_loss
+
+    vq_small = dict(vq_cfg, hidden_units=32, residual_hidden_units=8)
+    pc_small = dict(pm_cfg["pixel_cnn"], image_shape=(8, 8), num_resnet=2,
+                    num_indices=64)
+    vq_small["num_embeddings"] = 64
+    cond_dim = 64
+    params, state = convert.random_pm_vqvae_tree(cond_dim, vq_small, pc_small, seed=seed + 5)
+    models = {d: convert.pm_vqvae_from_jax(params, state, cond_dim, vq_small, pc_small,
+                                           device=d) for d in (DEVICE, "cpu")}
+    g = torch.Generator().manual_seed(seed + 6)
+    x = torch.rand(4, 32, 32, 3, generator=g)
+    b = (torch.rand(4, 32, 32, 1, generator=g) > 0.5).float()
+    out = {}
+    for d, m in models.items():
+        batch = {"image": x.to(d), "mask": b.to(d)}
+        names = [n for n, _ in m.named_parameters() if not n.startswith("vqvae.")]
+        ps = dict(m.named_parameters())
+        with torch.no_grad():
+            codes = m.vqvae.encoding_indices(batch["image"]).cpu()
+        loss = pm_vqvae_loss(m, batch, 1234, True)
+        grads = torch.autograd.grad(loss, [ps[n] for n in names])
+        out[d] = (codes, loss.item(), {n: gr.cpu() for n, gr in zip(names, grads)})
+    (cg, lg, gg), (cc, lc, gcpu) = out[DEVICE], out["cpu"]
+    check(torch.equal(cg, cc), "small step: the GPU's codes differ from the CPU's")
+    loss_rel = abs(lg - lc) / abs(lc)
+    worst = max(((n, rel_err(gg[n], gcpu[n])[1]) for n in gcpu), key=lambda t: t[1])
+    log(f"small step vs CPU plain path: codes equal, loss {lg:.6f} vs {lc:.6f} "
+        f"(relative {loss_rel:.3e}), worst gradient relative to scale {worst[1]:.3e} "
+        f"({worst[0]}) over {len(gcpu)} tensors")
+    check(loss_rel <= STEP_LOSS_TOL, "small step: the loss disagrees with the CPU's")
+    check(worst[1] <= GRAD_TOL, "small step: a gradient disagrees with the CPU's")
 
 
 def main() -> int:
@@ -215,10 +645,6 @@ def main() -> int:
     vrow_bytes = nbytes(*vrow_in, *want_v)
     row_bytes = nbytes(*row_in, *want_r[:3])  # timed without the logits out
 
-    def bound(flops, byts):
-        t_op, t_by = flops / PEAK_F32_FLOPS * 1e3, byts / PEAK_BYTES * 1e3
-        return max(t_op, t_by), ("operations" if t_op >= t_by else "bytes")
-
     vrow_bound, vrow_by = bound(vrow_flops, vrow_bytes)
     row_bound, row_by = bound(row_flops, row_bytes)
     log(f"vrow: {vrow_ms:.3f} ms/launch (plain {vrow_plain_ms:.3f}), bound "
@@ -289,7 +715,18 @@ def main() -> int:
     if code_agree < SAMPLE_AGREEMENT or imp_err > 1e-4:
         raise AssertionError("the GPU path disagrees with the CPU plain path")
 
-    # ---- 4. results --------------------------------------------------------
+    # ---- 4. the codebook search, 5. the gated chain ----------------------
+    train_batch = request_batch()
+    vq_line = vq_phase(model, train_batch["image"])
+    stream_lines = stream_phase(model, train_batch["image"], train_batch["mask"], args.seed)
+
+    # ---- 6. training -------------------------------------------------------
+    train = training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg,
+                           vq_cfg, pc_cfg)
+    for line in (vq_line, *stream_lines):
+        line["launches"] = train["launches"][line["name"]]
+
+    # ---- 7. results --------------------------------------------------------
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
          "source": "posterior_matching_torch/ops/csrc/sampler_vrow.cu",
@@ -303,15 +740,18 @@ def main() -> int:
          "launches": launches["sampler_row"], "max_abs_err": row_err,
          "ms": row_ms, "plain_ms": row_plain_ms, "bound_ms": row_bound,
          "bound_by": row_by, "library_ms": None},
+        vq_line, *stream_lines,
     ]
     summary = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "imgs_per_s": BATCH * len(steady) / sum(steady),
-        "request_s": req_s, "psnr": psnrs, "kernels": kernels,
+        "request_s": req_s, "psnr": psnrs, "training": train, "kernels": kernels,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)
-    log(json.dumps({"kernels": kernels}))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in kernels]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -35,3 +35,22 @@ PM_VQVAE_CELEB_A = {
 
 # CelebA images are cropped and resized to 64x64x3 (data/datasets.py).
 CELEB_A_IMAGE_SHAPE = (64, 64, 3)
+
+# Stage-2 training settings: ``configs/pm_vqvae_celeb_a.py:12-46`` (the
+# ``data`` batch size and mask generator, ``steps``, ``validation_freq``,
+# ``lr_schedule``; dropout is ``PM_VQVAE_CELEB_A["pixel_cnn"]["dropout"]``)
+# and the optimizer of ``train_pm_vqvae.py:170-179``: Adam at optax's
+# defaults (the config sets no ``adam``) under the exponential decay,
+# everything under ``vqvae`` frozen.
+PM_VQVAE_CELEB_A_TRAIN = {
+    "train_batch_size": 32,
+    "mask_generator": "CelebAMaskGenerator",
+    "steps": 150000,
+    "validation_freq": 2000,
+    "lr_schedule": {
+        "init_value": 3e-4,
+        "decay_rate": 0.999995,
+        "transition_steps": 1,
+    },
+    "frozen": ("vqvae",),
+}

@@ -1,12 +1,15 @@
-"""The weights bridge: JAX-package parameter trees -> the port's modules.
+"""The weights bridge between the JAX package's parameter trees and the
+port's modules, both ways.
 
 A PM-VQVAE checkpoint of the JAX package holds two numpy trees: ``params``
 (``vqvae``, ``partial_encoder``, ``pixel_cnn``) and ``state``, whose
-``vq_ema`` collection holds the VQ codebook (the EMA quantizer updates it in
-place, so it is not a parameter there). :func:`pm_vqvae_state_dict` maps both
-onto the port's ``state_dict`` names and layouts; :func:`load_pm_vqvae` reads
-a run directory; :func:`random_pm_vqvae_tree` makes a tree of the same
-structure from a seed, standing in for a checkpoint where none is at hand.
+``vq_ema`` collection holds the VQ codebook and its EMA statistics (the EMA
+quantizer updates them in place, so they are not parameters there).
+:func:`pm_vqvae_state_dict` maps both onto the port's ``state_dict`` names
+and layouts and :func:`pm_vqvae_trees` maps them back, exactly;
+:func:`load_pm_vqvae` reads a run directory; :func:`random_pm_vqvae_tree`
+makes a tree of the same structure from a seed, standing in for a
+checkpoint where none is at hand.
 """
 from __future__ import annotations
 
@@ -58,14 +61,18 @@ def _put_encoder(out, prefix, enc):
 
 def vqvae_state_dict(params: Tree, vq_ema: Tree) -> Dict[str, np.ndarray]:
     """A JAX ``VQVAE``'s ``params`` and ``vq_ema`` trees -> the port's
-    ``VQVAE`` state dict (the decode path and the codebook)."""
+    ``VQVAE`` state dict."""
     out: Dict[str, np.ndarray] = {}
+    _put_encoder(out, "encoder", params["encoder"])
+    _put_conv(out, "pre_vq_conv", params["pre_vq_conv"])
     dec = params["decoder"]
     _put_conv(out, "decoder.dec_1", dec["dec_1"])
     _put_stack(out, "decoder.stack", dec["ConvResidualStack_0"])
     _put_conv(out, "decoder.dec_2", dec["dec_2"], transpose=True)
     _put_conv(out, "decoder.dec_3", dec["dec_3"], transpose=True)
-    out["vq.embeddings"] = np.asarray(vq_ema["vq"]["embeddings"])
+    out["decoder.log_scale"] = np.asarray(dec["log_scale"])
+    for name in ("embeddings", "ema_cluster_size", "ema_dw"):
+        out[f"vq.{name}"] = np.asarray(vq_ema["vq"][name])
     return out
 
 
@@ -99,6 +106,83 @@ def pm_vqvae_state_dict(params: Tree, state: Tree) -> Dict[str, np.ndarray]:
         "pixel_cnn": pixel_cnn_state_dict(params["pixel_cnn"]),
     }
     return {f"{p}.{k}": v for p, sd in parts.items() for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# The port's state dict -> JAX trees
+# ---------------------------------------------------------------------------
+
+# PixelCNN layers that are masked convs, whose parameters flax nests under
+# ``Conv_0``.
+_MASKED_CONVS = ("v_init", "h_init_up", "h_init_left", "_conv_a", "_conv_b")
+
+
+def _get_conv(sd, prefix, transpose=False) -> Tree:
+    w = np.asarray(sd[f"{prefix}.weight"])
+    # inverses of _conv_transpose and _conv
+    kernel = w.transpose(2, 3, 0, 1)[::-1, ::-1] if transpose else w.transpose(2, 3, 1, 0)
+    return {"kernel": np.ascontiguousarray(kernel),
+            "bias": np.asarray(sd[f"{prefix}.bias"])}
+
+
+def _get_stack(sd, prefix) -> Tree:
+    out, i = {}, 0
+    while f"{prefix}.res3x3.{i}.weight" in sd:
+        out[f"res3x3_{i}"] = _get_conv(sd, f"{prefix}.res3x3.{i}")
+        out[f"res1x1_{i}"] = _get_conv(sd, f"{prefix}.res1x1.{i}")
+        i += 1
+    return out
+
+
+def _get_encoder(sd, prefix) -> Tree:
+    out = {name: _get_conv(sd, f"{prefix}.{name}") for name in ("enc_1", "enc_2", "enc_3")}
+    out["ConvResidualStack_0"] = _get_stack(sd, f"{prefix}.stack")
+    return out
+
+
+def _sub(sd, prefix: str) -> Dict[str, np.ndarray]:
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+
+
+def pm_vqvae_trees(state_dict) -> Tuple[Tree, Tree]:
+    """The port's ``PMVQVAE`` state dict (tensors or arrays) -> the JAX
+    package's ``(params, state)`` numpy trees, the inverse of
+    :func:`pm_vqvae_state_dict`."""
+    sd = {k: (v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v))
+          for k, v in state_dict.items()}
+    vq, pe, pc = _sub(sd, "vqvae"), _sub(sd, "partial_encoder"), _sub(sd, "pixel_cnn")
+    decoder = {
+        "dec_1": _get_conv(vq, "decoder.dec_1"),
+        "ConvResidualStack_0": _get_stack(vq, "decoder.stack"),
+        "dec_2": _get_conv(vq, "decoder.dec_2", transpose=True),
+        "dec_3": _get_conv(vq, "decoder.dec_3", transpose=True),
+        "log_scale": vq["decoder.log_scale"],
+    }
+    pixel = {"embed": {"embedding": pc["embed"]}}
+    for key in pc:
+        if not key.startswith("layers.") or not key.endswith(".kernel"):
+            continue
+        name = key[len("layers."):-len(".kernel")]
+        kb = {"kernel": pc[key], "bias": pc[f"layers.{name}.bias"]}
+        masked = name in _MASKED_CONVS[:3] or name.endswith(_MASKED_CONVS[3:])
+        pixel[name] = {"Conv_0": kb} if masked else kb
+    params = {
+        "vqvae": {
+            "encoder": _get_encoder(vq, "encoder"),
+            "pre_vq_conv": _get_conv(vq, "pre_vq_conv"),
+            "decoder": decoder,
+        },
+        "partial_encoder": {
+            "ConvResidualEncoder_0": _get_encoder(pe, "encoder"),
+            "Dense_0": {"kernel": pe["dense.kernel"], "bias": pe["dense.bias"]},
+        },
+        "pixel_cnn": pixel,
+    }
+    state = {"vq_ema": {"vqvae": {"vq": {
+        name: vq[f"vq.{name}"] for name in ("embeddings", "ema_cluster_size", "ema_dw")
+    }}}}
+    return params, state
 
 
 def to_torch(state_dict: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

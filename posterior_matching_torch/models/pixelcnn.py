@@ -6,8 +6,17 @@ parameters keep their flax names (``v_init``, ``h_init_up``, ``h_init_left``,
 ``embed``, ``logits_conv``) and flax layouts (conv kernels HWIO, dense
 kernels ``[in, out]``), which are what the sampler's fused weight stacks are
 cut from. Only the flat topology (``num_hierarchies == 1``, the setting of
-every shipped config) is ported. The full-grid forward and ``log_prob`` come
-with the training slice; sampling is :mod:`posterior_matching_torch.ops.
+every shipped config) is ported.
+
+:meth:`PixelCNN.forward` and :meth:`PixelCNN.log_prob` are the fused flat
+path of the JAX module (``models/pixelcnn.py:559-596, 668-685``): the
+embedding, the statically sliced ``v_init`` / ``h_init_up`` /
+``h_init_left`` convs (``F.conv2d``, which the JAX package leaves to XLA),
+then the up and the down pass of the gated chain
+(:func:`posterior_matching_torch.ops.gated_chain.gated_stream`: the
+hand-written kernels on the GPU) and the float32 1x1 logits head. A conv
+kernel's masked-out taps never enter the graph, so their gradients are
+exactly zero. Sampling is :mod:`posterior_matching_torch.ops.
 sampler_chain`.
 """
 from __future__ import annotations
@@ -15,9 +24,29 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from posterior_matching_torch.models.networks import _trunc_normal_fan_in
+from posterior_matching_torch.ops.gated_chain import (
+    chain_taps,
+    gated_stream,
+    pack_level,
+    stack_levels,
+)
+
+
+def _masked_conv(x: torch.Tensor, layer: "KernelBias", kernel_size,
+                 valid_rows, valid_cols) -> torch.Tensor:
+    """The JAX ``_MaskedConv``'s stride-1 path on NHWC ``x``: the kernel
+    sliced to its valid taps, convolved with the SAME padding shifted by
+    the slice (negative padding crops)."""
+    kh, kw = kernel_size
+    (r0, r1), (c0, c1) = valid_rows, valid_cols
+    pads = (kw // 2 - c0, (c1 - 1) - kw // 2, kh // 2 - r0, (r1 - 1) - kh // 2)
+    w = layer.kernel[r0:r1, c0:c1].permute(3, 2, 0, 1)
+    out = F.conv2d(F.pad(x.permute(0, 3, 1, 2), pads), w, layer.bias)
+    return out.permute(0, 2, 3, 1)
 
 
 class KernelBias(nn.Module):
@@ -90,3 +119,74 @@ class PixelCNN(nn.Module):
                     if aux_in is not None:
                         layers[f"{tag}_aux"] = KernelBias((2 * aux_in, f))
         self.layers = nn.ModuleDict(layers)
+
+    def forward(
+        self,
+        indices: torch.Tensor,
+        conditional_input: torch.Tensor,
+        training: bool = False,
+        seed: int = 0,
+    ) -> torch.Tensor:
+        """``[B, H, W]`` codes and ``[B, D]`` conditions -> ``[B, H, W, K]``
+        float32 logits. With ``training`` and ``dropout > 0`` the chain's
+        dropout masks are the hash masks of ``seed``."""
+        if conditional_input is None:
+            raise ValueError("the port's PixelCNN chain needs a condition")
+        xv, xh = self.init_stacks(indices)
+        x_final = self._chain(xv, xh, conditional_input.reshape(indices.shape[0], -1),
+                              training, seed)
+        lw = self.layers["logits_conv"]
+        return (F.elu(x_final) @ lw.kernel[0, 0] + lw.bias).float()
+
+    def init_stacks(self, indices: torch.Tensor):
+        """The chain's inputs: ``v_init`` and ``h_init_up + h_init_left`` of
+        the codes' embedding, ``[B, H, W, F]`` each."""
+        rows, cols = self.receptive_field_dims
+        layers = self.layers
+        h0 = self.embed[indices.long()]
+        v_init = _masked_conv(h0, layers["v_init"], (2 * rows - 1, cols),
+                              (0, rows - 1), (0, cols))
+        h_up = _masked_conv(h0, layers["h_init_up"], (3, cols), (0, 1), (0, cols))
+        h_left = _masked_conv(h0, layers["h_init_left"], (3, cols), (0, 2),
+                              (0, cols // 2))
+        return v_init, h_up + h_left
+
+    def _chain(self, xv, xh, cond, training: bool, seed: int) -> torch.Tensor:
+        """The up pass, then the down pass with the up outputs as skips in
+        reverse (``pixelcnn.py:386-445``): with ``xs = [init] + up outputs``
+        down level p takes ``xs[n - 1 - p]``, so the last up output is the
+        down pass's carry and never a skip, and the init stacks are the
+        last skip. Returns the last horizontal output."""
+        n, f = self.num_resnet, self.num_filters
+        rf = self.receptive_field_dims
+        keep = 1.0 - self.dropout if (training and self.dropout > 0) else 1.0
+        common = dict(seed=seed, keep=keep, taps=chain_taps(rf))
+        up_w = stack_levels(
+            [pack_level(self.layers, "up", p, f, False, rf) for p in range(n)]
+        )
+        up_v, up_h = gated_stream(xv, xh, None, cond, up_w, base_pair=0, **common)
+        xs_v, xs_h = [xv, *up_v], [xh, *up_h]
+        skips = (
+            torch.stack([xs_v[n - 1 - p] for p in range(n)]),
+            torch.stack([xs_h[n - 1 - p] for p in range(n)]),
+        )
+        dn_w = stack_levels(
+            [pack_level(self.layers, "dn", p, f, True, rf) for p in range(n)]
+        )
+        _, dn_h = gated_stream(up_v[-1], up_h[-1], skips, cond, dn_w,
+                               base_pair=n, **common)
+        return dn_h[-1]
+
+    def log_prob(
+        self,
+        value: torch.Tensor,
+        conditional_input: torch.Tensor,
+        training: bool = False,
+        seed: int = 0,
+    ) -> torch.Tensor:
+        """Teacher-forced log-likelihood of ``value [B, H, W]``, summed over
+        the grid: ``[B]``."""
+        logits = self(value, conditional_input, training=training, seed=seed)
+        logp = torch.log_softmax(logits, dim=-1)
+        lls = torch.gather(logp, -1, value.long()[..., None])[..., 0]
+        return lls.sum(dim=tuple(range(1, lls.ndim)))

@@ -1,10 +1,14 @@
-"""PM-VQVAE: frozen VQ-VAE decoder + partial encoder + conditional PixelCNN.
+"""PM-VQVAE: frozen VQ-VAE + partial encoder + conditional PixelCNN.
 
-Counterpart of ``posterior_matching_tpu/models/pm_vqvae.py:24-211``, the
-imputation path: partial encoder -> raster sampling of code grids (the
-hand-written row-sampler kernels on the GPU) -> VQ-VAE decode -> stitch in
-the observed pixels -> clip. The training objective (``__call__``,
-``log_prob``) comes with the training slice.
+Counterpart of ``posterior_matching_tpu/models/pm_vqvae.py:24-211``:
+
+- the training objective (:meth:`PMVQVAE.forward`): the frozen VQ-VAE's
+  codes (the codebook search kernel on the GPU), the partial encoder's
+  condition, the PixelCNN's teacher-forced log-likelihood (the gated chain
+  kernels on the GPU);
+- the imputation path (:func:`pm_vqvae_impute`): partial encoder -> raster
+  sampling of code grids (the row-sampler kernels on the GPU) -> VQ-VAE
+  decode -> stitch in the observed pixels -> clip.
 """
 from __future__ import annotations
 
@@ -66,6 +70,16 @@ class PMVQVAE(nn.Module):
 
     def conditional_latents(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.partial_encoder(torch.cat([x * b, b], dim=-1))
+
+    def forward(self, x: torch.Tensor, b: torch.Tensor, training: bool = False,
+                seed: int = 0) -> torch.Tensor:
+        """Per-example conditional log-likelihood of the VQ codes of ``x``
+        given the observed pixels ``x * b`` (``pm_vqvae.py:85-106``):
+        ``[B]``. ``seed`` draws the PixelCNN's dropout masks in training."""
+        with torch.no_grad():
+            codes = self.vqvae.encoding_indices(x)
+        cond = self.conditional_latents(x, b)
+        return self.pixel_cnn.log_prob(codes, cond, training=training, seed=seed)
 
     def decode_code_samples(self, code_samples: torch.Tensor) -> torch.Tensor:
         """[S, B, h, w] int codes -> [S, B, H, W, C] decoder means."""

@@ -1,8 +1,10 @@
-"""VQ-VAE decoder path and the PM partial encoder.
+"""VQ-VAE encode and decode paths and the PM partial encoder.
 
-Counterpart of ``posterior_matching_tpu/models/vqvae.py:137-367``: the
-residual conv stacks, the decoder mean, the codebook lookup, ``decode_indices``
-and ``VQVAEPartialEncoder``. Public functions take and return NHWC tensors,
+Counterpart of ``posterior_matching_tpu/models/vqvae.py:33-367``: the
+residual conv stacks, ``encode`` and ``encoding_indices`` (the codebook
+search is :mod:`posterior_matching_torch.ops.vq`), the quantizer's forward
+without its EMA codebook update, the decoder mean, the codebook lookup,
+``decode_indices`` and ``VQVAEPartialEncoder``. Public functions take and return NHWC tensors,
 as the JAX package does; inside, convolutions run NCHW through
 ``torch.nn.functional`` (the JAX package leaves them to XLA, outside any
 Pallas kernel).
@@ -17,13 +19,17 @@ of the zero-inserted input with the unflipped kernel: that is
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from posterior_matching_torch.models.networks import Dense
+from posterior_matching_torch.ops.vq import (
+    nearest_codebook_indices,
+    vq_straight_through,
+)
 
 
 def _same_pad(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -126,6 +132,9 @@ class ConvResidualDecoder(nn.Module):
         self, cin: int, hidden: int, blocks: int, res_hidden: int, cout: int
     ):
         super().__init__()
+        # the decoder Normal's scalar log-scale: unused by the mean, kept so
+        # that a checkpoint crosses over whole
+        self.log_scale = nn.Parameter(torch.zeros(()))
         self.dec_1 = Conv(cin, hidden, 3)
         self.stack = ConvResidualStack(hidden, blocks, res_hidden)
         self.dec_2 = ConvTranspose(hidden, hidden // 2, 4, 2)
@@ -138,21 +147,50 @@ class ConvResidualDecoder(nn.Module):
 
 class VectorQuantizer(nn.Module):
     """The codebook. In the JAX package it lives in the ``vq_ema`` state
-    collection, not in ``params`` (the EMA quantizer updates it in place)."""
+    collection, not in ``params`` (the EMA quantizer updates it in place),
+    beside the EMA statistics, which are kept here as buffers so that a
+    checkpoint crosses over whole. The EMA update itself belongs to stage-1
+    training and is not ported yet."""
 
-    def __init__(self, num_embeddings: int, embedding_dim: int):
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 commitment_cost: float = 0.25):
         super().__init__()
+        self.commitment_cost = commitment_cost
         self.embeddings = nn.Parameter(
             torch.zeros(num_embeddings, embedding_dim)
         )
+        self.register_buffer("ema_cluster_size", torch.zeros(num_embeddings))
+        self.register_buffer(
+            "ema_dw", torch.zeros(num_embeddings, embedding_dim)
+        )
+
+    def forward(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``z [..., D]`` -> the straight-through quantization, the
+        commitment loss, the codebook perplexity and the indices
+        (``vqvae.py:75-87,120-135`` with ``use_ema``, outside training)."""
+        flat = z.reshape(-1, z.shape[-1]).contiguous()
+        indices = nearest_codebook_indices(flat, self.embeddings)
+        quantized = self.embeddings[indices.long()].reshape(z.shape)
+        e_latent_loss = ((quantized.detach() - z) ** 2).mean()
+        counts = torch.bincount(
+            indices.long(), minlength=self.embeddings.shape[0]
+        )
+        avg_probs = counts.float() / indices.numel()
+        perplexity = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-10)).sum())
+        return {
+            "quantize": vq_straight_through(z, quantized),
+            "loss": self.commitment_cost * e_latent_loss,
+            "perplexity": perplexity,
+            "encoding_indices": indices.reshape(z.shape[:-1]),
+        }
 
     def quantize(self, encoding_indices: torch.Tensor) -> torch.Tensor:
         return self.embeddings[encoding_indices.long()]
 
 
 class VQVAE(nn.Module):
-    """The VQ-VAE's decode path. ``encode`` and ``encoding_indices`` (and the
-    VQ search kernel they use) belong to the training slice."""
+    """The VQ-VAE's encode and decode paths. The training loss (decoder
+    likelihood plus the EMA codebook update) belongs to stage 1."""
 
     def __init__(
         self,
@@ -162,14 +200,29 @@ class VQVAE(nn.Module):
         hidden_units: int = 128,
         residual_blocks: int = 2,
         residual_hidden_units: int = 128,
+        commitment_cost: float = 0.25,
         **_unused,
     ):
         super().__init__()
-        self.vq = VectorQuantizer(num_embeddings, embedding_dim)
+        self.encoder = ConvResidualEncoder(
+            output_channels, hidden_units, residual_blocks,
+            residual_hidden_units,
+        )
+        self.pre_vq_conv = Conv(hidden_units, embedding_dim, 1)
+        self.vq = VectorQuantizer(num_embeddings, embedding_dim, commitment_cost)
         self.decoder = ConvResidualDecoder(
             embedding_dim, hidden_units, residual_blocks,
             residual_hidden_units, output_channels,
         )
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, C] images -> [B, H/4, W/4, D] pre-quantization latents."""
+        z = self.pre_vq_conv(self.encoder(x.permute(0, 3, 1, 2)))
+        return z.permute(0, 2, 3, 1)
+
+    def encoding_indices(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, C] images -> [B, H/4, W/4] int32 codes."""
+        return self.vq(self.encode(x))["encoding_indices"]
 
     def decode_indices(self, encoding_indices: torch.Tensor) -> torch.Tensor:
         """[B, h, w] integer codes -> [B, H, W, C] decoder means."""

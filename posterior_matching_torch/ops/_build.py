@@ -6,6 +6,10 @@ into ``ops/_build/`` (git-ignored), named by a hash of the sources and flags,
 so a changed source is rebuilt and an unchanged one is reused. Nothing is
 built at import time: the first call of a kernel wrapper builds its library,
 and :func:`build` compiles several at once, one ``nvcc`` process each.
+
+The wrappers' shared launch helpers live here too: argument checks, the
+CPU-or-CUDA dispatch test, and the error check after each launch (every C
+entry point returns ``cudaGetLastError()``).
 """
 from __future__ import annotations
 
@@ -15,7 +19,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -23,8 +29,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = {
     "sampler_vrow": "sampler_vrow.cu",
     "sampler_row": "sampler_row.cu",
+    "vq_search": "vq_search.cu",
+    "gated_stream_fwd": "gated_stream_fwd.cu",
+    "gated_stream_bwd": "gated_stream_bwd.cu",
 }
-HEADERS = ("sampler_common.cuh",)
+HEADERS = ("sampler_common.cuh", "gated_common.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -89,3 +98,54 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+# ---------------------------------------------------------------------------
+# Launch helpers
+# ---------------------------------------------------------------------------
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+U32 = ctypes.c_uint32
+F32 = ctypes.c_float
+
+
+def load_fn(name: str, fn: str, argtypes: Sequence) -> ctypes.CDLL:
+    """Loads kernel library ``name`` and declares its entry point ``fn``
+    (returning a CUDA error code) and ``pm_error_string``."""
+    lib = load(name)
+    getattr(lib, fn).argtypes = list(argtypes)
+    getattr(lib, fn).restype = I
+    lib.pm_error_string.argtypes = [I]
+    lib.pm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> int:
+    """Raises unless ``t`` is a contiguous ``dtype`` tensor of ``shape``;
+    returns its device pointer."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected {dtype} {tuple(shape)}, got {t.dtype} "
+            f"{tuple(t.shape)}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    return t.data_ptr()
+
+
+def on_cpu(tensors) -> bool:
+    """True when every tensor lies on the CPU (the wrapper then runs the
+    plain version), False when all are CUDA tensors; raises on a mix."""
+    devices = {t.device.type for t in tensors if t is not None}
+    if devices == {"cpu"}:
+        return True
+    if devices != {"cuda"}:
+        raise ValueError(f"tensors on mixed devices: {sorted(devices)}")
+    return False
+
+
+def raise_on(lib, err: int, what: str):
+    if err:
+        msg = lib.pm_error_string(err).decode()
+        raise RuntimeError(f"{what} failed to launch: {msg} ({err})")

@@ -27,7 +27,6 @@ sample-major order.
 """
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -279,43 +278,11 @@ def row_plain(
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def _check(name: str, t: torch.Tensor, shape):
-    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{name}: expected float32 {tuple(shape)}, got {t.dtype} "
-            f"{tuple(t.shape)}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    return t.data_ptr()
-
-
-def _on_cpu(tensors) -> bool:
-    devices = {t.device.type for t in tensors if t is not None}
-    if devices == {"cpu"}:
-        return True
-    if devices != {"cuda"}:
-        raise ValueError(f"tensors on mixed devices: {sorted(devices)}")
-    return False
-
-
-def _raise_on(lib, err: int, what: str):
-    if err:
-        msg = lib.pm_error_string(err).decode()
-        raise RuntimeError(f"{what} failed to launch: {msg} ({err})")
+_check, _on_cpu, _raise_on = _build.check, _build.on_cpu, _build.raise_on
 
 
 def _load(name: str, fn: str, nptr: int, nint: int):
-    lib = _build.load(name)
-    getattr(lib, fn).argtypes = [_P] * nptr + [_I] * nint + [_P]
-    getattr(lib, fn).restype = _I
-    lib.pm_error_string.argtypes = [_I]
-    lib.pm_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load_fn(name, fn, [_build.P] * nptr + [_build.I] * nint + [_build.P])
 
 
 class _Vrow:

@@ -3,5 +3,11 @@ from posterior_matching_torch.train.state import (
     load_train_state,
     save_train_state,
 )
+from posterior_matching_torch.train.trainer import (
+    CheckpointCallback,
+    Trainer,
+    pm_vqvae_trainer,
+)
 
-__all__ = ["TrainState", "load_train_state", "save_train_state"]
+__all__ = ["CheckpointCallback", "TrainState", "Trainer", "load_train_state",
+           "pm_vqvae_trainer", "save_train_state"]

@@ -9,6 +9,14 @@ A pickle written by the JAX package names its classes by their JAX-side
 import paths. A plain ``pickle.load`` would import the JAX package (and JAX
 with it) to rebuild them, so :func:`load_train_state` maps those names onto
 this package's own types instead.
+
+The other way round, :func:`save_train_state` writes the ``TrainState``
+under the JAX package's name, ``posterior_matching_tpu.train.state.
+TrainState``, holding numpy trees only, so the JAX package's plain
+``pickle.load`` reads it without this package or torch being importable.
+Pickle's own ``save_global`` imports the module a class names to check it,
+which would import JAX here; :class:`_JaxNamedPickler` writes that one
+reference without the lookup.
 """
 from __future__ import annotations
 
@@ -24,6 +32,11 @@ class TrainState:
     opt_state: Any = None
     ema_params: Any = None
     step: Any = 0
+
+
+# Where the JAX package defines ``TrainState``: the name a checkpoint of
+# either package gives it.
+_JAX_TRAIN_STATE = ("posterior_matching_tpu.train.state", "TrainState")
 
 
 class ForeignRecord:
@@ -52,7 +65,7 @@ _FOREIGN_ROOTS = frozenset(
 )
 
 _CLASS_MAP = {
-    ("posterior_matching_tpu.train.state", "TrainState"): TrainState,
+    _JAX_TRAIN_STATE: TrainState,
     ("flax.core.frozen_dict", "FrozenDict"): dict,
 }
 
@@ -84,7 +97,25 @@ def _to_numpy(tree):
     return tree
 
 
+class _JaxNamedPickler(pickle._Pickler):
+    """The pure-Python pickler, with :class:`TrainState` written under the
+    JAX package's module path. Only that class is renamed; every other
+    global (numpy's reconstructors) is written and checked as usual."""
+
+    def save_global(self, obj, name=None):
+        if obj is not TrainState:
+            return super().save_global(obj, name)
+        module, qualname = _JAX_TRAIN_STATE
+        self.save(module)
+        self.save(qualname)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
 def save_train_state(path: str, train_state: TrainState) -> None:
+    """Writes ``train_state`` with every tensor as a numpy array. The trees
+    should be in the JAX package's layout (``convert.pm_vqvae_trees``) for
+    the JAX package to evaluate them."""
     host_state = TrainState(
         params=_to_numpy(train_state.params),
         state=_to_numpy(train_state.state),
@@ -93,7 +124,7 @@ def save_train_state(path: str, train_state: TrainState) -> None:
         step=int(train_state.step),
     )
     with open(path, "wb") as fp:
-        pickle.dump(host_state, fp)
+        _JaxNamedPickler(fp, protocol=4).dump(host_state)
 
 
 def load_train_state(path: str) -> TrainState:

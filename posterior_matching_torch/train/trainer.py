@@ -1,0 +1,216 @@
+"""The training runtime: one optimizer step at a time, on the GPU.
+
+Counterpart of ``posterior_matching_tpu/train/trainer.py`` (:185-272, the
+update step), for a ``torch.nn.Module``:
+
+- parameters under a frozen prefix (``"vqvae"``: ``train_pm_vqvae.py:
+  177-179``) get no gradient, no update and no optimizer state;
+- the prologue (mask generation) runs on the device from an explicit
+  generator, seeded from (run seed, step); the dropout seed of a step is
+  derived from (run seed, step) as well, so a step is a function of the
+  run seed, the step and the batch;
+- loss, backward, the Adam update (:mod:`posterior_matching_torch.train.
+  optim`) and ``step + 1``, in that order; optionally the whole update is
+  skipped when the loss or a gradient is not finite, and an EMA of the
+  parameters is kept;
+- checkpoints are ``train_state.pkl`` files in the JAX package's layout
+  (:func:`posterior_matching_torch.train.state.save_train_state`), which
+  the JAX package evaluates.
+
+The TPU trainer's dispatch tools (``steps_per_call``, device-resident data,
+the packed-parameter codec) are not ported: they amortise host dispatch on
+the TPU.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from posterior_matching_torch.ops.gated_chain import _mix32_int
+from posterior_matching_torch.runtime import resolve_device
+from posterior_matching_torch.train.optim import Adam, trainable_names
+from posterior_matching_torch.train.schedules import exponential_decay
+from posterior_matching_torch.train.state import TrainState, save_train_state
+
+Batch = Dict[str, torch.Tensor]
+# loss_fn(model, batch, dropout_seed, training) -> scalar loss
+LossFn = Callable[[nn.Module, Batch, int, bool], torch.Tensor]
+# prologue_fn(batch, generator) -> batch, on the device
+PrologueFn = Callable[[Batch, torch.Generator], Batch]
+# to_trees(state_dict) -> (params, state) in the JAX package's layout
+TreesFn = Callable[[Dict[str, torch.Tensor]], Tuple[Any, Any]]
+
+
+def derive_seed(seed: int, step: int, stream: int) -> int:
+    """A 31-bit seed for ``stream`` (0: dropout, 1: prologue) of a step."""
+    return _mix32_int(_mix32_int(_mix32_int(seed) ^ stream) ^ step) & 0x7FFFFFFF
+
+
+class Trainer:
+    def __init__(
+        self,
+        model: nn.Module,
+        loss_fn: LossFn,
+        *,
+        lr_schedule: Dict[str, Any],
+        frozen: Sequence[str] = (),
+        prologue_fn: Optional[PrologueFn] = None,
+        seed: int = 0,
+        skip_nonfinite_updates: bool = False,
+        ema_rate: Optional[float] = None,
+        to_trees: Optional[TreesFn] = None,
+        device: Optional[str] = None,
+    ):
+        """``device``: the GPU unless ``"cpu"`` (raises without a GPU)."""
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.loss_fn = loss_fn
+        self.schedule = exponential_decay(**lr_schedule)
+        self.frozen = tuple(frozen)
+        self.prologue_fn = prologue_fn
+        self.seed = int(seed)
+        self.skip_nonfinite = skip_nonfinite_updates
+        self.ema_rate = ema_rate
+        self.to_trees = to_trees
+        self.step = 0
+        self.optimizer: Optional[Adam] = None
+        self.ema_params: Optional[Dict[str, torch.Tensor]] = None
+
+    def init(self, initial_state_dict: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """Loads warm-start weights (a partial state dict overrides the
+        model's own), freezes the frozen subtrees and builds the optimizer
+        over the rest, at step 0."""
+        if initial_state_dict:
+            sd = self.model.state_dict()
+            unknown = set(initial_state_dict) - set(sd)
+            if unknown:
+                raise KeyError(f"unknown parameters: {sorted(unknown)[:5]}")
+            sd.update(initial_state_dict)
+            self.model.load_state_dict(sd)
+        params = dict(self.model.named_parameters())
+        trainable = set(trainable_names(list(params), self.frozen))
+        for name, p in params.items():
+            p.requires_grad_(name in trainable)
+        self.optimizer = Adam(
+            {n: p for n, p in params.items() if n in trainable}, self.schedule
+        )
+        if self.ema_rate is not None:
+            self.ema_params = {n: p.detach().clone() for n, p in params.items()}
+        self.step = 0
+
+    def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """One update; returns the step's metrics (device tensors)."""
+        if self.optimizer is None:
+            self.init()
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        if self.prologue_fn is not None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(derive_seed(self.seed, self.step, 1))
+            batch = self.prologue_fn(batch, gen)
+        self.model.train()
+        loss = self.loss_fn(self.model, batch, derive_seed(self.seed, self.step, 0), True)
+        names = list(self.optimizer.params)
+        grads = torch.autograd.grad(loss, [self.optimizer.params[n] for n in names])
+        grads = dict(zip(names, grads))
+        metrics = {"loss": loss.detach()}
+        ok = True
+        if self.skip_nonfinite:
+            ok = bool(torch.isfinite(loss)) and all(
+                bool(torch.isfinite(g).all()) for g in grads.values()
+            )
+            metrics["skipped"] = torch.tensor(float(not ok))
+        if ok:
+            self.optimizer.step(grads)
+        if self.ema_params is not None:
+            with torch.no_grad():
+                for n, p in self.model.named_parameters():
+                    e = self.ema_params[n]
+                    e.copy_(e * self.ema_rate + (1.0 - self.ema_rate) * p)
+        self.step += 1
+        return metrics
+
+    def fit(
+        self,
+        batches: Iterable[Batch],
+        steps: int,
+        callbacks: Sequence[Callable[["Trainer", Dict[str, torch.Tensor]], None]] = (),
+    ) -> None:
+        """Steps until ``self.step == steps``, cycling through ``batches``;
+        each callback is called as ``cb(trainer, metrics)`` after a step."""
+        if self.optimizer is None:
+            self.init()
+
+        def forever():
+            while True:
+                empty = True
+                for b in batches:
+                    empty = False
+                    yield b
+                if empty:
+                    raise ValueError("empty dataset")
+
+        it = forever()
+        while self.step < steps:
+            metrics = self.train_step(next(it))
+            for cb in callbacks:
+                cb(self, metrics)
+
+    def train_state(self) -> TrainState:
+        """The state as the JAX package's ``TrainState`` holds it."""
+        trees = self.to_trees or (lambda sd: (sd, {}))
+        params, state = trees(self.model.state_dict())
+        opt_state = None
+        if self.optimizer is not None:
+            opt = self.optimizer.state_dict()
+            opt_state = {"count": opt["count"],
+                         "mu": {k: v.detach().cpu().numpy() for k, v in opt["mu"].items()},
+                         "nu": {k: v.detach().cpu().numpy() for k, v in opt["nu"].items()}}
+        ema = None
+        if self.ema_params is not None:
+            sd = dict(self.model.state_dict())
+            sd.update(self.ema_params)
+            ema = trees(sd)[0]
+        return TrainState(params=params, state=state, opt_state=opt_state,
+                          ema_params=ema, step=self.step)
+
+    def save_checkpoint(self, path: str) -> None:
+        save_train_state(path, self.train_state())
+
+
+class CheckpointCallback:
+    """Writes ``train_state.pkl`` every ``every`` steps."""
+
+    def __init__(self, path: str, every: int):
+        self.path, self.every = path, every
+
+    def __call__(self, trainer: Trainer, metrics) -> None:
+        if trainer.step % self.every == 0:
+            trainer.save_checkpoint(self.path)
+
+
+def pm_vqvae_loss(model, batch: Batch, seed: int, training: bool) -> torch.Tensor:
+    """``-mean log p(codes | cond)`` (``train_pm_vqvae.py:144-159``)."""
+    return -model(batch["image"], batch["mask"], training=training, seed=seed).mean()
+
+
+def pm_vqvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
+                     mask_fn=None, device: Optional[str] = None, **kwargs) -> Trainer:
+    """The stage-2 trainer of ``train_pm_vqvae.py:144-193``: Adam under the
+    exponential decay, the VQ-VAE frozen, masks added on the device by
+    ``mask_fn`` (or passed in each batch when None), checkpoints in the JAX
+    package's layout."""
+    from posterior_matching_torch.convert import pm_vqvae_trees
+    from posterior_matching_torch.masking import add_mask
+
+    prologue = None
+    if mask_fn is not None:
+        prologue = lambda batch, gen: add_mask(batch, gen, mask_fn)
+    return Trainer(
+        model, pm_vqvae_loss,
+        lr_schedule=train_config["lr_schedule"],
+        frozen=train_config.get("frozen", ("vqvae",)),
+        prologue_fn=prologue, seed=seed, to_trees=pm_vqvae_trees,
+        device=device, **kwargs,
+    )

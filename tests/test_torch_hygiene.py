@@ -15,6 +15,7 @@ import torch
 from posterior_matching_torch import masking, runtime
 from posterior_matching_torch.config import PM_VQVAE_CELEB_A, VQVAE_CELEB_A
 from posterior_matching_torch.models.pm_vqvae import PMVQVAE
+from posterior_matching_torch.train.trainer import Trainer, pm_vqvae_loss
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "posterior_matching_torch").rglob("*.py")) + [
@@ -61,6 +62,11 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
         )
     with pytest.raises(RuntimeError, match="no CUDA device"):
         masking.get_mask_generator("CelebAMaskGenerator")
+    lr = {"init_value": 1e-3, "decay_rate": 1.0, "transition_steps": 1}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(torch.nn.Linear(2, 2), pm_vqvae_loss, lr_schedule=lr)
+    assert Trainer(torch.nn.Linear(2, 2), pm_vqvae_loss, lr_schedule=lr,
+                   device="cpu").device == torch.device("cpu")
     assert runtime.resolve_device("cpu") == torch.device("cpu")
 
 

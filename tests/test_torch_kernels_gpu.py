@@ -1,16 +1,21 @@
-"""The hand-written sampler kernels against their plain PyTorch versions.
+"""The hand-written kernels against their plain PyTorch versions.
 
 These need an NVIDIA GPU (sm_90a) and ``nvcc``; elsewhere they skip. On the
 card: ``python -m pytest tests/test_torch_kernels_gpu.py -q -m cuda``. Shapes
 are small but cover what the full-width smoke run does not: widths that do
 not divide the vrow kernel's 32 row slots, sample counts that leave a
-block's tile ragged, and two logits chunks. Tolerance: 1e-4 relative to the
-tensor's scale (float32 sums in another order).
+block's tile ragged, two logits chunks; row counts that leave the gated
+chain's 32-row tiles ragged, grids other than square; latent counts that
+leave the search's 32-row tiles ragged. Tolerance: 1e-4 relative to the
+tensor's scale (float32 sums in another order), for the chain's gradients
+too (their sums run over at most a few hundred rows here).
 """
 import pytest
 import torch
 
+from posterior_matching_torch.ops import gated_chain as gc
 from posterior_matching_torch.ops import sampler_chain as sc
+from posterior_matching_torch.ops import vq
 
 pytestmark = pytest.mark.cuda
 F = 128
@@ -92,3 +97,70 @@ def test_kernel_wrappers_refuse_unsupported_shapes(dev):
         sc.vrow(*args)
     with pytest.raises(ValueError, match="mixed devices"):
         sc.vrow(*[a.cpu() if i == 1 else a for i, a in enumerate(_vrow_inputs(gen, 4, 16, 5))])
+
+
+@pytest.mark.parametrize("n,k,d", [(1000, 512, 64), (37, 130, 8)])
+def test_vq_search_kernel_matches_plain(dev, n, k, d):
+    gen = torch.Generator(device=dev).manual_seed(n + k)
+    z = _rand(gen, n, d)
+    cb = _rand(gen, k, d)
+    before = vq.nearest_codebook_indices.launches
+    got = vq.nearest_codebook_indices(z, cb)
+    torch.cuda.synchronize()
+    assert vq.nearest_codebook_indices.launches == before + 1
+    want = vq.nearest_codebook_indices_plain(z, cb)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    diff = got != want
+    assert diff.float().mean().item() <= 1e-3
+    # every disagreement is a near-tie of the two scores
+    scores = 2.0 * (z @ cb.T) - (cb * cb).sum(-1)
+    gap = (scores.gather(1, want[:, None].long()) - scores.gather(1, got[:, None].long())).abs()
+    assert (gap[diff] <= 1e-5 * scores.abs().max()).all()
+
+
+def test_vq_search_kernel_breaks_exact_ties_low(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    base = _rand(gen, 100, 16)
+    cb = torch.cat([base, base, base]).contiguous()   # every code three times
+    z = base[torch.randperm(100, generator=gen, device=dev)].contiguous()
+    got = vq.nearest_codebook_indices(z, cb)
+    want = vq.nearest_codebook_indices_plain(z, cb)
+    assert (got < 100).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _stream_case(gen, b, h, w, L, cd, down):
+    f = gc.KERNEL_FILTERS
+    taps = gc.chain_taps()
+    shapes = gc.weight_shapes(f, cd, *taps, down)
+    weights = {n: _rand(gen, L, *s, scale=0.05) for n, s in shapes}
+    for n in weights:
+        if n.startswith("wc"):
+            weights[n] = _rand(gen, L, *dict(shapes)[n], scale=0.02)
+    xv0, xh0 = _rand(gen, b, h, w, f), _rand(gen, b, h, w, f)
+    skips = (_rand(gen, L, b, h, w, f), _rand(gen, L, b, h, w, f)) if down else None
+    return xv0, xh0, skips, _rand(gen, b, cd), weights
+
+
+@pytest.mark.parametrize("down", [False, True], ids=["up", "down"])
+@pytest.mark.parametrize("b,h,w,keep", [(2, 8, 8, 0.5), (3, 5, 7, 1.0)])
+def test_gated_stream_kernels_match_plain(dev, down, b, h, w, keep):
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + h + down)
+    L, cd = 3, 16
+    xv0, xh0, skips, cond, weights = _stream_case(gen, b, h, w, L, cd, down)
+    leaves = [xv0, xh0, cond, *weights.values()] + (list(skips) if down else [])
+    for t in leaves:
+        t.requires_grad_(True)
+    kw = dict(seed=7, base_pair=12 if down else 0, keep=keep)
+    f0, b0 = gc.stream_fwd.launches, gc.stream_bwd.launches
+    got = gc.gated_stream(xv0, xh0, skips, cond, weights, **kw)
+    want = gc.gated_stream_plain(xv0, xh0, skips, cond, weights, **kw)
+    for g_, w_ in zip(got, want):
+        assert _close(g_, w_)
+    cot = [_rand(gen, *t.shape) for t in want]
+    grads_k = torch.autograd.grad(got, leaves, cot)
+    torch.cuda.synchronize()
+    assert gc.stream_fwd.launches == f0 + 1 and gc.stream_bwd.launches == b0 + 1
+    grads_p = torch.autograd.grad(want, leaves, cot)
+    for gk, gp in zip(grads_k, grads_p):
+        assert _close(gk, gp)
