@@ -1,10 +1,12 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU.
 
 Runs the port's two PM-VQVAE CelebA paths at the flagship's full width,
-imputation and stage-2 training, and checks them, in these phases:
+imputation and stage-2 training, then PM-VDVAE MNIST's three paths at the
+full width of ``configs/pm_vdvae_mnist.py`` (imputation, likelihood,
+training), and checks them, in these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
-2. all five kernels (``posterior_matching_torch/ops/csrc``) are built from
+2. all seven kernels (``posterior_matching_torch/ops/csrc``) are built from
    this checkout's sources, one ``nvcc`` each, in parallel; both row-sampler
    kernels are launched at the imputation path's shapes (n = 32 images x 10
    samples, F = 128, L = 24, 16 x 16 codes, K = 512) and held against their
@@ -31,10 +33,24 @@ imputation and stage-2 training, and checks them, in these phases:
    small model's step on the GPU must match the plain path's on the CPU;
    the checkpoint must load back through ``load_pm_vqvae`` and serve an
    imputation request;
-7. one JSON line of per-kernel numbers, the card's name and power limit, and
+7. PM-VDVAE (width 192, latent 16, 20 encoder and 20 decoder blocks,
+   weights from ``--seed`` through ``convert.random_pm_vdvae_tree`` or from
+   ``--vdvae_run_dir``): the block-chain kernels (forward and backward)
+   against autograd through the plain chain at the five encoder run shapes
+   of a training batch of 16, each timed beside its bound; three imputation
+   requests of 32 images x 10 samples with MNIST masks through
+   ``vdvae_impute`` (5 chain launches each); one likelihood chunk of 125
+   through ``vdvae_is_log_probs`` at 16 importance samples (10 chain
+   launches); 8 steps of ``pm_vdvae_trainer`` at batch 16 (10 forward and
+   10 backward chain launches each), the eval loss of a fixed batch
+   lowered, every tensor moved, a small step on the GPU equal to the plain
+   path's on the CPU, the checkpoint reloaded through ``load_pm_vdvae``,
+   then one profiled step;
+8. one JSON line of per-kernel numbers, the card's name and power limit, and
    the result line.
 
-Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--out DIR]``.
+Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--vdvae_run_dir
+RUN] [--out DIR]``.
 It needs one CUDA device and exits non-zero without one, and in a directory
 that holds this script and nothing else of the repository.
 """
@@ -70,8 +86,19 @@ STEP_LOSS_TOL = 1e-5
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
+# The block chain: outputs and every gradient within 1e-4 of the tensor's
+# scale (float32 sums in another order; a wrong tap, bound or transpose
+# shows as O(1)).
+CHAIN_TOL = 1e-4
+
 BATCH, NUM_SAMPLES, REQUESTS = 32, 10, 3
 TRAIN_STEPS = 8
+# PM-VDVAE: imputation requests as eval_pm_vdvae_imputation.py serves them
+# (batch 32, 10 samples here); one likelihood chunk of the eval's
+# batch_chunk 125 at 16 importance samples (the eval's default is 10,000:
+# cut for the time limit); training at the config's batch of 16.
+LL_BATCH, LL_SAMPLES = 125, 16
+VDVAE_TRAIN_BATCH = 16
 DEVICE = "cuda"
 
 
@@ -317,11 +344,7 @@ def training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg, vq_cfg, 
     from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
     from posterior_matching_torch.ops import gated_chain as gc
     from posterior_matching_torch.ops import vq
-    from posterior_matching_torch.train.trainer import (
-        CheckpointCallback,
-        pm_vqvae_loss,
-        pm_vqvae_trainer,
-    )
+    from posterior_matching_torch.train.trainer import pm_vqvae_loss, pm_vqvae_trainer
 
     counters = {"vq_search": vq.nearest_codebook_indices,
                 "gated_stream_fwd": gc.stream_fwd, "gated_stream_bwd": gc.stream_bwd}
@@ -338,37 +361,10 @@ def training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg, vq_cfg, 
     trainer.init()
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     loss_before = eval_loss()
-    step_s, losses, launches = [], [], {k: 0 for k in counters}
-    clock = [0.0]
-
-    def reset():
-        for c in counters.values():
-            c.launches = 0
-        torch.cuda.synchronize()
-        clock[0] = time.perf_counter()
-
-    def record(trainer_, metrics):
-        """After each step: its time, loss and kernel launches."""
-        loss = metrics["loss"].item()
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - clock[0])
-        counts = {k: c.launches for k, c in counters.items()}
-        for k, v in counts.items():
-            launches[k] += v
-        losses.append(loss)
-        log(f"train step {trainer_.step}: loss {loss:.4f} in {step_s[-1] * 1e3:.1f} ms; "
-            f"launches {counts}")
-        check(np.isfinite(loss), f"step {trainer_.step} loss is not finite")
-        check(all(v > 0 for v in counts.values()),
-              f"step {trainer_.step} did not launch every training kernel: {counts}")
-        reset()
-
     run_dir = tempfile.TemporaryDirectory()
-    ckpt = f"{run_dir.name}/train_state.pkl"
-    reset()
-    trainer.fit(batches, TRAIN_STEPS, callbacks=[record, CheckpointCallback(ckpt, TRAIN_STEPS)])
-    steady = step_s[2:]
-    steps_per_s = len(steady) / sum(steady)
+    steps_per_s, step_s, losses, launches = fit_steps(
+        trainer, batches, counters, lambda name, count: count > 0,
+        f"{run_dir.name}/train_state.pkl")
     loss_after = eval_loss()
     log(f"training: {steps_per_s:.4f} steps/s over steps 3-{TRAIN_STEPS} "
         f"(batch {image_shape[0]}); eval loss of a fixed batch {loss_before:.4f} -> "
@@ -402,7 +398,7 @@ def training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg, vq_cfg, 
     check(bool(torch.isfinite(imp).all()), "imputations from the checkpoint are not finite")
     log("checkpoint: train_state.pkl loads back through load_pm_vqvae, every tensor "
         "equal; an imputation request from it ran")
-    split = profile_step(trainer, batches[-1])
+    split = profile_step(trainer, batches[-1], VQVAE_GROUPS)
     return {"steps_per_s": steps_per_s, "step_s": step_s, "losses": losses,
             "eval_loss": [loss_before, loss_after], "launches": launches,
             "split": split}
@@ -411,40 +407,54 @@ def training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg, vq_cfg, 
 # Kernel names of the gated chain's two libraries (csrc/gated_stream_*.cu),
 # as their demangled names end: "gsk::data_gemm<256>(...)",
 # "(anonymous namespace)::wgrad<128>(...)" (not cuDNN's "..._wgrad_...").
-_CHAIN_KERNELS = ("::data_gemm<", "::wgrad<", "::gate_bwd(", "::rowsum_images(",
-                  "::sum_images(", "::dwc_kernel(", "::dcond_kernel(", "::proj_kernel(")
+_CHAIN_KERNELS = ("::data_gemm<", "::wgrad<128>", "::wgrad<256>", "::gate_bwd(",
+                  "::rowsum_images(", "::sum_images(", "::dwc_kernel(", "::dcond_kernel(",
+                  "::proj_kernel(")
+# ... and of the block chain's (csrc/block_chain_*.cu).
+_BLOCK_CHAIN_KERNELS = ("bck::chain_gemm<", "::wgrad<48>", "::wgrad<192>",
+                        "::reduce_splits(", "::bias_grad(")
+VQVAE_GROUPS = (("gated_stream kernels", _CHAIN_KERNELS), ("vq_search kernel", ("vq_search",)))
+VDVAE_GROUPS = (("block_chain kernels", _BLOCK_CHAIN_KERNELS),
+                ("triangular solves (cuBLAS)", ("trsm",)))
 
 
-def profile_step(trainer, batch):
-    """One more training step under ``torch.profiler``: device time by kernel
-    group, CUDA kernel launches, and the device's idle share of the step's
-    wall time (1 - the union of kernel intervals / wall)."""
+def profile_step(trainer, batch, kernel_groups):
+    """One more training step under :func:`profile_work`."""
+    return profile_work(lambda: trainer.train_step(batch)["loss"].item(), kernel_groups,
+                        "profiled step")
+
+
+def profile_work(fn, kernel_groups, what):
+    """``fn()`` under ``torch.profiler``: device time by kernel group
+    (``kernel_groups``: the port's own, by name, then the libraries'), CUDA
+    kernel launches, and the device's idle share of the wall time (1 - the
+    union of kernel intervals / wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(batch)["loss"].item()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        log("profiled step: the profiler saw no device time (split not measured)")
+        log(f"{what}: the profiler saw no device time (split not measured)")
         return None
+    # cuDNN's implicit-GEMM and FFT convolutions ("..._fprop_implicit_gemm_
+    # ...", a complex "..._gemm_cf32cf32_...") are convolutions: test for
+    # those names before cuBLAS's "gemm"
+    library_groups = (
+        ("convolutions (cuDNN)", ("conv", "cudnn", "wgrad", "dgrad", "fprop", "fft", "cf32")),
+        ("matmuls (cuBLAS)", ("gemm", "cutlass")),
+    )
     groups = {}
     for e in kernels:
-        name = e.name
-        if any(k in name for k in _CHAIN_KERNELS):
-            g = "gated_stream kernels"
-        elif "vq_search" in name:
-            g = "vq_search kernel"
-        elif "gemm" in name.lower() or "cutlass" in name.lower():
-            g = "matmuls (cuBLAS)"
-        elif any(k in name.lower() for k in ("conv", "cudnn", "wgrad", "dgrad")):
-            g = "convolutions (cuDNN)"
-        else:
-            g = "elementwise and reductions"
+        g = next((grp for grp, marks in kernel_groups if any(k in e.name for k in marks)),
+                 None) or next((grp for grp, marks in library_groups
+                                if any(k in e.name.lower() for k in marks)),
+                               "elementwise and reductions")
         ms, n = groups.get(g, (0.0, 0))
         groups[g] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -456,7 +466,7 @@ def profile_step(trainer, batch):
         else:
             cur_e = max(cur_e, e_)
     busy = (busy + cur_e - cur_s) / 1e3
-    log(f"profiled step: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms, idle share "
+    log(f"{what}: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms, idle share "
         f"{1 - busy / wall_ms:.3f}, {len(kernels)} CUDA kernel launches")
     for g, (ms, n) in sorted(groups.items(), key=lambda t: -t[1][0]):
         log(f"  {g}: {ms:.2f} ms device time in {n} launches")
@@ -511,10 +521,368 @@ def small_step_check(vq_cfg, pm_cfg, seed, dev):
     check(worst[1] <= GRAD_TOL, "small step: a gradient disagrees with the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: PM-VDVAE
+# ---------------------------------------------------------------------------
+
+
+def mnist_batch(gen, dev, n, mask_fn):
+    """``n`` seeded integer images in [0, 255] with MNIST-mixture masks."""
+    from posterior_matching_torch.masking import add_mask
+
+    x = torch.randint(0, 256, (n, 28, 28, 1), generator=gen, device=dev).float()
+    return add_mask({"image": x}, gen, mask_fn)
+
+
+def capture_runs(model, x, b):
+    """The block-chain calls of one masked encode: each run's input and
+    stacked weights, as the encoder hands them to the kernel."""
+    from posterior_matching_torch.models import vdvae
+
+    runs, chain = [], vdvae.block_chain
+
+    def record(h, w, *, mid, k):
+        runs.append((h.detach().clone(), {n: t.detach().clone() for n, t in w.items()},
+                     mid, k))
+        return chain(h, w, mid=mid, k=k)
+
+    vdvae.block_chain = record
+    try:
+        with torch.no_grad():
+            model.encode_masked(x, b)
+    finally:
+        vdvae.block_chain = chain
+    return runs
+
+
+def chain_flops(b, h, w, c, mid, k, n_lvl):
+    """Forward operations of a run of ``n_lvl`` blocks: c1 and c4, [c, mid]
+    products, at every row; c2 and c3, [mid, mid] products, at each row's
+    taps that land inside the image only (a tap outside adds a zero)."""
+    pad = k // 2
+    taps = sum(max(h - abs(dy), 0) * max(w - abs(dx), 0)
+               for dy in range(-pad, pad + 1) for dx in range(-pad, pad + 1))
+    return 2.0 * n_lvl * b * (2 * h * w * c * mid + 2 * taps * mid * mid)
+
+
+def block_chain_phase(runs, seed):
+    """Both block-chain kernels against autograd through the plain chain at
+    each run's shapes, with a random cotangent on the run's output; each
+    timed beside its bound and the plain version."""
+    from posterior_matching_torch.ops import block_chain as bc
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 23)
+    per_run = []
+    for x, w, mid, k in runs:
+        n_lvl, res, c = w["w1"].shape[0], x.shape[1], x.shape[-1]
+        leaves = [t.clone().requires_grad_(True) for t in (x, *(w[n] for n in bc.NAMES))]
+        lw = dict(zip(bc.NAMES, leaves[1:]))
+        got = bc.block_chain(leaves[0], lw, mid=mid, k=k)
+        want = bc.block_chain_plain(leaves[0], lw, mid=mid, k=k)
+        torch.cuda.synchronize()
+        fwd_err, rel = rel_err(got, want)
+        check(rel <= CHAIN_TOL, f"block_chain_fwd res {res}: {rel:.3e} > {CHAIN_TOL}")
+        cot = torch.randn(x.shape, generator=gen, device=x.device)
+        gk = torch.autograd.grad(got, leaves, cot)
+        gp = torch.autograd.grad(want, leaves, cot, retain_graph=True)
+        torch.cuda.synchronize()
+        bwd_err, worst = 0.0, ("", 0.0)
+        for name, a, b_ in zip(("dx0", *("d" + n for n in bc.NAMES)), gk, gp):
+            err, rel_g = rel_err(a, b_)
+            bwd_err = max(bwd_err, err)
+            worst = max(worst, (name, rel_g), key=lambda t_: t_[1])
+            check(rel_g <= CHAIN_TOL, f"block_chain_bwd res {res} {name}: {rel_g:.3e}")
+        log(f"block_chain res {res} (L = {n_lvl}, k = {k}, {x.shape[0]} images): output max "
+            f"abs err {fwd_err:.3e} (relative to scale {rel:.3e}); 9 gradients max abs err "
+            f"{bwd_err:.3e}, worst relative to scale {worst[1]:.3e} ({worst[0]})")
+
+        cfg = bc.ChainConfig(x, n_lvl, mid, k)
+        x0 = x.reshape(-1, c).contiguous()
+        wc = {n: w[n].contiguous() for n in bc.NAMES}
+        wk = {n: wc[n] for n in ("w1", "w2", "w3", "w4")}
+        g = cot.reshape(-1, c).contiguous()
+        with torch.no_grad():
+            saves = bc.chain_fwd(cfg, x0, wc)
+            saved = {"x0": x0, **saves}
+            fwd_ms = time_ms(lambda: bc.chain_fwd(cfg, x0, wc), reps=10, warmup=2)
+            bwd_ms = time_ms(lambda: bc.chain_bwd(cfg, g, saved, wk), reps=10, warmup=2)
+            fwd_plain = time_ms(lambda: bc.block_chain_plain(x, w, mid=mid, k=k), reps=5)
+        bwd_plain = time_ms(lambda: torch.autograd.grad(want, leaves, cot, retain_graph=True),
+                            reps=5)
+        grads = bc.chain_bwd(cfg, g, saved, wk)
+        # the backward does each product twice (data and weight gradients)
+        flops = chain_flops(x.shape[0], x.shape[1], x.shape[2], c, mid, k, n_lvl)
+        fwd_bytes = nbytes(x0, *wc.values(), *saves.values())
+        bwd_bytes = nbytes(g, *saved.values(), *wk.values(), *grads.values())
+        run = {"res": res, "levels": n_lvl, "k": k, "rows": cfg.rows,
+               "fwd": (fwd_err, fwd_ms, fwd_plain, flops, fwd_bytes),
+               "bwd": (bwd_err, bwd_ms, bwd_plain, 2 * flops, bwd_bytes)}
+        for kind in ("fwd", "bwd"):
+            _, ms, pms, fl, by = run[kind]
+            b_ms, b_by = bound(fl, by)
+            log(f"block_chain_{kind} res {res}: {ms:.4f} ms/launch (plain {pms:.3f}), bound "
+                f"{b_ms:.4f} ms by {b_by} ({fl / 1e9:.3f} GFLOP, {by / 1e6:.1f} MB)")
+        per_run.append(run)
+        del got, want, gk, gp, saves, saved, grads
+    out = []
+    mean = lambda vals: sum(vals) / len(vals)
+    for kind, line in (("fwd", 270), ("bwd", 308)):
+        per = [r[kind] for r in per_run]
+        # per launch: the mean over the encoder's five runs
+        b_ms, b_by = bound(mean([p[3] for p in per]), mean([p[4] for p in per]))
+        out.append({
+            "name": f"block_chain_{kind}", "route": "cuda",
+            "source": f"posterior_matching_torch/ops/csrc/block_chain_{kind}.cu",
+            "replaces": f"posterior_matching_tpu/ops/block_chain.py:{line}",
+            "max_abs_err": max(p[0] for p in per),
+            "ms": mean([p[1] for p in per]), "plain_ms": mean([p[2] for p in per]),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "per_run": [{"res": r["res"], "levels": r["levels"], "k": r["k"],
+                         "ms": r[kind][1], "plain_ms": r[kind][2],
+                         "gflop": r[kind][3] / 1e9, "mb": r[kind][4] / 1e6}
+                        for r in per_run],
+        })
+    return out
+
+
+def vdvae_serving_phases(model, gen, mask_fn):
+    """Imputation (three requests) and likelihood (one chunk), each with the
+    chain's forward counter reset just before it and read just after."""
+    from posterior_matching_torch.models.vdvae import vdvae_impute, vdvae_is_log_probs
+    from posterior_matching_torch.ops import block_chain as bc
+
+    bc.chain_fwd.launches = 0
+    req_s, psnrs = [], []
+    for i in range(REQUESTS):
+        batch = mnist_batch(gen, DEVICE, BATCH, mask_fn)
+        x, b = batch["image"], batch["mask"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imp = vdvae_impute(model, x, b, NUM_SAMPLES, generator=gen)
+        torch.cuda.synchronize()
+        req_s.append(time.perf_counter() - t0)
+        check(imp.shape == (BATCH, NUM_SAMPLES, 28, 28, 1),
+              f"imputations have shape {tuple(imp.shape)}")
+        check(bool(torch.isfinite(imp).all()) and imp.min() >= 0 and imp.max() <= 255,
+              "imputations are not finite values in [0, 255]")
+        observed = (b == 1).expand_as(x)
+        for s in range(NUM_SAMPLES):
+            check(torch.equal(imp[:, s][observed], x[observed]),
+                  "observed pixels were not copied through")
+        # eval_pm_vdvae_imputation.py:94-96
+        mse = ((imp.mean(1) / 255.0 - x / 255.0) ** 2).mean((1, 2, 3))
+        psnr = (-10.0 * torch.log10(mse)).mean().item()
+        check(np.isfinite(psnr), f"PSNR is not finite: {psnr}")
+        psnrs.append(psnr)
+        log(f"vdvae request {i}: {BATCH} images x {NUM_SAMPLES} samples in "
+            f"{req_s[-1] * 1e3:.1f} ms = {BATCH / req_s[-1]:.2f} imgs/s, PSNR mean {psnr:.3f} dB")
+    impute_launches = bc.chain_fwd.launches
+    check(impute_launches == 5 * REQUESTS,
+          f"block_chain_fwd launched {impute_launches} times over {REQUESTS} requests, "
+          f"not {5 * REQUESTS}")
+    steady = req_s[1:]
+    imgs_per_s = BATCH * len(steady) / sum(steady)
+    log(f"vdvae imputation: {imgs_per_s:.3f} imgs/s over requests 1-{REQUESTS - 1}; "
+        f"block_chain_fwd launches {impute_launches} (5 a request)")
+    split = profile_work(lambda: vdvae_impute(model, x, b, NUM_SAMPLES, generator=gen),
+                         VDVAE_GROUPS, "profiled vdvae request")
+
+    batch = mnist_batch(gen, DEVICE, LL_BATCH, mask_fn)
+    bc.chain_fwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    px, ac = vdvae_is_log_probs(model, batch["image"], batch["mask"], LL_SAMPLES,
+                                batch_chunk=LL_BATCH, generator=gen)
+    torch.cuda.synchronize()
+    ll_s = time.perf_counter() - t0
+    ll_launches = bc.chain_fwd.launches
+    check(ll_launches == 10, f"block_chain_fwd launched {ll_launches} times in a chunk, not 10")
+    check(px.shape == ac.shape == (LL_BATCH,), "likelihoods have the wrong shape")
+    check(bool(torch.isfinite(px).all() and torch.isfinite(ac).all()),
+          "likelihoods are not finite")
+    bpd = (-px / (28 * 28 * np.log(2))).mean().item()   # eval_pm_vdvae_likelihood.py:146
+    log(f"vdvae likelihood: {LL_BATCH} images x {LL_SAMPLES} importance samples in "
+        f"{ll_s:.3f} s = {LL_BATCH / ll_s:.2f} imgs/s; BPD {bpd:.4f}, AC-LL "
+        f"{ac.mean().item():.4f}; block_chain_fwd launches {ll_launches}")
+    return {"imgs_per_s": imgs_per_s, "request_s": req_s, "psnr": psnrs,
+            "impute_launches": impute_launches, "request_split": split,
+            "likelihood_s": ll_s, "bpd": bpd, "ac_ll": ac.mean().item(),
+            "likelihood_launches": ll_launches}
+
+
+def fit_steps(trainer, batches, counters, expected, ckpt):
+    """``TRAIN_STEPS`` steps of ``trainer`` with a checkpoint at the end;
+    after each: its time, loss and the kernels' launches, each counter set
+    to 0 just before the step. ``expected(name, count)`` says whether a
+    step's count is right."""
+    from posterior_matching_torch.train.trainer import CheckpointCallback
+
+    step_s, losses, launches = [], [], {k: 0 for k in counters}
+    clock = [0.0]
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        clock[0] = time.perf_counter()
+
+    def record(trainer_, metrics):
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - clock[0])
+        counts = {k: c.launches for k, c in counters.items()}
+        for k, v in counts.items():
+            launches[k] += v
+        losses.append(loss)
+        log(f"train step {trainer_.step}: loss {loss:.4f} in {step_s[-1] * 1e3:.1f} ms; "
+            f"launches {counts}")
+        check(np.isfinite(loss), f"step {trainer_.step} loss is not finite")
+        check(all(expected(k, v) for k, v in counts.items()),
+              f"step {trainer_.step} did not launch the training kernels as expected: {counts}")
+        reset()
+
+    reset()
+    trainer.fit(batches, TRAIN_STEPS, callbacks=[record, CheckpointCallback(ckpt, TRAIN_STEPS)])
+    steady = step_s[2:]
+    return len(steady) / sum(steady), step_s, losses, launches
+
+
+def vdvae_training_phase(model, model_config, args, gen, mask_fn):
+    """8 full-width steps of the PM-VDVAE trainer, then the checks."""
+    import tempfile
+
+    from posterior_matching_torch import config, convert
+    from posterior_matching_torch.models.vdvae import vdvae_impute
+    from posterior_matching_torch.ops import block_chain as bc
+    from posterior_matching_torch.train.trainer import pm_vdvae_loss, pm_vdvae_trainer
+
+    batches = [{"image": mnist_batch(gen, DEVICE, VDVAE_TRAIN_BATCH, mask_fn)["image"]}
+               for _ in range(TRAIN_STEPS)]
+    fixed = mnist_batch(gen, DEVICE, VDVAE_TRAIN_BATCH, mask_fn)
+
+    def eval_loss():
+        with torch.no_grad():
+            return pm_vdvae_loss(model, fixed, 1234).item()
+
+    trainer = pm_vdvae_trainer(model, config.PM_VDVAE_MNIST_TRAIN, seed=args.seed,
+                               mask_fn=mask_fn, device=DEVICE)
+    trainer.init()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    loss_before = eval_loss()
+    run_dir = tempfile.TemporaryDirectory()
+    counters = {"block_chain_fwd": bc.chain_fwd, "block_chain_bwd": bc.chain_bwd}
+    steps_per_s, step_s, losses, launches = fit_steps(
+        trainer, batches, counters, lambda name, count: count == 10,
+        f"{run_dir.name}/train_state.pkl")
+    loss_after = eval_loss()
+    log(f"vdvae training: {steps_per_s:.4f} steps/s over steps 3-{TRAIN_STEPS} (batch "
+        f"{VDVAE_TRAIN_BATCH}); eval loss of a fixed batch {loss_before:.4f} -> "
+        f"{loss_after:.4f}")
+    check(loss_after < loss_before, "the eval loss did not drop")
+    after = model.state_dict()
+    for name in trainer.optimizer.params:
+        check(not torch.equal(after[name], before[name]), f"{name} did not move")
+    log(f"vdvae training: all {len(trainer.optimizer.params)} trainable tensors moved")
+
+    small_vdvae_step_check(args.seed)
+
+    with run_dir:
+        with open(f"{run_dir.name}/model_config.json", "w") as fp:
+            json.dump(model_config, fp)
+        loaded = convert.load_pm_vdvae(run_dir.name, device=DEVICE)
+    for name, t in loaded.state_dict().items():
+        check(torch.equal(t, trainer.ema_params[name]),
+              f"{name} is not the EMA parameter after the checkpoint")
+    batch = mnist_batch(gen, DEVICE, 4, mask_fn)
+    imp = vdvae_impute(loaded, batch["image"], batch["mask"], 2, generator=gen)
+    torch.cuda.synchronize()
+    check(imp.shape == (4, 2, 28, 28, 1) and bool(torch.isfinite(imp).all()),
+          "an imputation from the checkpoint failed")
+    log("vdvae checkpoint: train_state.pkl loads back through load_pm_vdvae with the EMA "
+        "parameters, every tensor equal; an imputation request from it ran")
+    split = profile_step(trainer, batches[-1], VDVAE_GROUPS)
+    return {"steps_per_s": steps_per_s, "step_s": step_s, "losses": losses,
+            "eval_loss": [loss_before, loss_after], "launches": launches, "split": split}
+
+
+def small_vdvae_step_check(seed):
+    """The loss and every gradient of a small width-192 PM-VDVAE (the
+    kernels' width) on the GPU against the plain path on the CPU, with the
+    same injected normals: the loss within 1e-5 relative, every gradient
+    within GRAD_TOL of its scale."""
+    from posterior_matching_torch import convert
+    from posterior_matching_torch.models.vdvae import parse_layer_string
+    from posterior_matching_torch.train.trainer import pm_vdvae_loss
+
+    small = {"image_shape": (8, 8, 1), "encoder_blocks": "8x3,8d2,4x2,4d4,1x2",
+             "decoder_blocks": "1x1,4m1,4x1,8m4,8x2", "latent_dim": 16, "width": 192,
+             "bottleneck_multiple": 0.25, "no_bias_above": 64, "num_mixtures": 10}
+    tree = convert.random_pm_vdvae_tree(small, seed=seed + 7)
+    g = torch.Generator().manual_seed(seed + 8)
+    x = torch.randint(0, 256, (4, 8, 8, 1), generator=g).float()
+    b = (torch.rand(4, 8, 8, 1, generator=g) > 0.5).float()
+    eps = [torch.randn(4, r, r, 16, generator=g)
+           for r, _ in parse_layer_string(small["decoder_blocks"])]
+    out = {}
+    for d in (DEVICE, "cpu"):
+        m = convert.pm_vdvae_from_jax(tree, small, device=d)
+        names, params = zip(*m.named_parameters())
+        loss = pm_vdvae_loss(m, {"image": x.to(d), "mask": b.to(d)}, iter(eps))
+        grads = torch.autograd.grad(loss, params)
+        out[d] = (loss.item(), {n: gr.cpu() for n, gr in zip(names, grads)})
+    (lg, gg), (lc, gcpu) = out[DEVICE], out["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    worst = max(((n, rel_err(gg[n], gcpu[n])[1]) for n in gcpu), key=lambda t: t[1])
+    log(f"vdvae small step vs CPU plain path: loss {lg:.6f} vs {lc:.6f} (relative "
+        f"{loss_rel:.3e}), worst gradient relative to scale {worst[1]:.3e} ({worst[0]}) over "
+        f"{len(gcpu)} tensors")
+    check(loss_rel <= STEP_LOSS_TOL, "vdvae small step: the loss disagrees with the CPU's")
+    check(worst[1] <= GRAD_TOL, "vdvae small step: a gradient disagrees with the CPU's")
+
+
+def vdvae_phases(args, gen):
+    """Phase 7 whole: the model, the kernel comparisons, the three paths."""
+    from posterior_matching_torch import config, convert, masking
+    from posterior_matching_torch.ops import block_chain as bc
+
+    model_config = config.PM_VDVAE_MNIST
+    if args.vdvae_run_dir:
+        model = convert.load_pm_vdvae(args.vdvae_run_dir, device=DEVICE)
+        with open(f"{args.vdvae_run_dir}/model_config.json") as fp:
+            model_config = json.load(fp)
+        weights_from = args.vdvae_run_dir
+    else:
+        tree = convert.random_pm_vdvae_tree(model_config, seed=args.seed)
+        model = convert.pm_vdvae_from_jax(tree, model_config, device=DEVICE)
+        weights_from = f"seed {args.seed}"
+    log(f"model: PM-VDVAE MNIST, weights from {weights_from}; width "
+        f"{model_config['width']}, latent {model_config['latent_dim']}, "
+        f"{len(model.encoder.specs)} encoder / {model.decoder.n_blocks} decoder blocks, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    mask_fn = masking.get_mask_generator("MNISTMaskGenerator", device=DEVICE)
+    batch = mnist_batch(gen, DEVICE, VDVAE_TRAIN_BATCH, mask_fn)
+    runs = capture_runs(model, batch["image"], batch["mask"])
+    check([(r[0].shape[1], r[1]["w1"].shape[0], r[3]) for r in runs]
+          == [(28, 6, 3), (14, 4, 3), (7, 2, 3), (3, 2, 3), (1, 2, 1)],
+          "the encoder's runs are not the config's five")
+    kernel_lines = block_chain_phase(runs, args.seed)
+    del runs
+    serving = vdvae_serving_phases(model, gen, mask_fn)
+    train = vdvae_training_phase(model, model_config, args, gen, mask_fn)
+    for line in kernel_lines:
+        line["launches"] = train["launches"][line["name"]]
+    log(f"block chain launches over {TRAIN_STEPS} training steps: {train['launches']} "
+        f"(10 each a step); fwd launches on the other paths: imputation "
+        f"{serving['impute_launches']}, likelihood {serving['likelihood_launches']}; "
+        f"counters now fwd {bc.chain_fwd.launches} bwd {bc.chain_bwd.launches}")
+    return kernel_lines, {"serving": serving, "training": train}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--run_dir", default=None)
+    parser.add_argument("--vdvae_run_dir", default=None)
     parser.add_argument("--out", default="chiprun_out/chip_smoke")
     args = parser.parse_args()
 
@@ -726,7 +1094,10 @@ def main() -> int:
     for line in (vq_line, *stream_lines):
         line["launches"] = train["launches"][line["name"]]
 
-    # ---- 7. results --------------------------------------------------------
+    # ---- 7. PM-VDVAE ---------------------------------------------------------
+    chain_lines, vdvae = vdvae_phases(args, gen)
+
+    # ---- 8. results --------------------------------------------------------
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
          "source": "posterior_matching_torch/ops/csrc/sampler_vrow.cu",
@@ -740,12 +1111,13 @@ def main() -> int:
          "launches": launches["sampler_row"], "max_abs_err": row_err,
          "ms": row_ms, "plain_ms": row_plain_ms, "bound_ms": row_bound,
          "bound_by": row_by, "library_ms": None},
-        vq_line, *stream_lines,
+        vq_line, *stream_lines, *chain_lines,
     ]
     summary = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "imgs_per_s": BATCH * len(steady) / sum(steady),
-        "request_s": req_s, "psnr": psnrs, "training": train, "kernels": kernels,
+        "request_s": req_s, "psnr": psnrs, "training": train, "vdvae": vdvae,
+        "kernels": kernels,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)

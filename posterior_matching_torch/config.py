@@ -1,4 +1,4 @@
-"""Flagship PM-VQVAE CelebA widths as plain dicts.
+"""Model and training settings of the ported configurations, as plain dicts.
 
 Copied from the JAX package's config files, which need ``ml_collections``:
 
@@ -6,7 +6,10 @@ Copied from the JAX package's config files, which need ``ml_collections``:
 - ``PM_VQVAE_CELEB_A``: ``configs/pm_vqvae_celeb_a.py:22-29`` (``pixel_cnn``
   and ``conditional_dim``), with ``num_indices`` 512 as written by the
   training script into
-  ``artifacts/pm-vqvae-celeb_a-20260820-142531/config.json``.
+  ``artifacts/pm-vqvae-celeb_a-20260820-142531/config.json``;
+- ``PM_VDVAE_MNIST``: ``configs/pm_vdvae_mnist.py:24-36`` (the ``model``
+  block), and ``PM_VDVAE_MNIST_TRAIN`` its training settings (:15-22,
+  :42-47).
 """
 
 VQVAE_CELEB_A = {
@@ -53,4 +56,40 @@ PM_VQVAE_CELEB_A_TRAIN = {
         "transition_steps": 1,
     },
     "frozen": ("vqvae",),
+}
+
+# PM-VDVAE MNIST: ``configs/pm_vdvae_mnist.py:24-36``. ``compute_dtype`` is
+# None there (a placeholder the CLI may set to bfloat16, which the port does
+# not run).
+PM_VDVAE_MNIST = {
+    "image_shape": (28, 28, 1),
+    "encoder_blocks": "28x6,28d2,14x4,14d2,7x2,7d2,3x2,3d2,1x2",
+    "decoder_blocks": "1x2,3m1,3x2,7m3,7x2,14m7,14x4,28m14,28x6",
+    "latent_dim": 16,
+    "width": 192,
+    "bottleneck_multiple": 0.25,
+    "no_bias_above": 64,
+    "num_mixtures": 10,
+    "custom_width_string": None,
+    "compute_dtype": None,
+}
+
+# Its training settings: ``configs/pm_vdvae_mnist.py:15-22`` (the per-device
+# batch and the mask generator) and :42-47 (``flat_optimizer``,
+# ``ema_rate``, ``gradient_clip``, ``lr``, ``steps``, ``validation_freq``).
+# ``train_pm_vdvae.py:161-186`` reads ``warm_up`` and ``weight_decay`` with
+# the defaults 0 the config leaves them at, and Adam at optax's defaults. No
+# ported config sets either to anything else: their other side (the linear
+# warm-up, the decayed weights) is run only by the optax parity test.
+PM_VDVAE_MNIST_TRAIN = {
+    "train_batch_size": 16,
+    "mask_generator": "MNISTMaskGenerator",
+    "flat_optimizer": False,
+    "ema_rate": 0.999,
+    "gradient_clip": 200.0,
+    "lr": 0.00015,
+    "warm_up": 0,
+    "weight_decay": 0.0,
+    "steps": 500000,
+    "validation_freq": 5000,
 }

@@ -1,7 +1,7 @@
 """The weights bridge between the JAX package's parameter trees and the
 port's modules, both ways.
 
-A PM-VQVAE checkpoint of the JAX package holds two numpy trees: ``params``
+PM-VQVAE. A checkpoint of the JAX package holds two numpy trees: ``params``
 (``vqvae``, ``partial_encoder``, ``pixel_cnn``) and ``state``, whose
 ``vq_ema`` collection holds the VQ codebook and its EMA statistics (the EMA
 quantizer updates them in place, so they are not parameters there).
@@ -10,6 +10,15 @@ and layouts and :func:`pm_vqvae_trees` maps them back, exactly;
 :func:`load_pm_vqvae` reads a run directory; :func:`random_pm_vqvae_tree`
 makes a tree of the same structure from a seed, standing in for a
 checkpoint where none is at hand.
+
+PM-VDVAE. Its ``params`` tree (``encoder``, ``masked_encoder``, ``decoder``
+with ``block_i/{posterior,masked_posterior,prior,resnet}/c1..c4``,
+``z_proj``, ``x_bias_<r>``, ``gain``, ``bias`` and ``out_net/params_conv``)
+keeps flax's names and layouts in the port, so :func:`pm_vdvae_state_dict`
+joins each tree path with dots and :func:`pm_vdvae_trees` splits them back;
+:func:`load_pm_vdvae` reads a run directory, evaluating the EMA parameters
+where the checkpoint has them, as the JAX eval scripts do;
+:func:`random_pm_vdvae_tree` draws a tree from a seed.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import numpy as np
 import torch
 
 from posterior_matching_torch.models.pm_vqvae import PMVQVAE
+from posterior_matching_torch.models.vdvae import PosteriorMatchingVDVAE
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.train.state import load_train_state
 
@@ -324,3 +334,92 @@ def random_pm_vqvae_tree(
         "ema_dw": np.zeros((k, d), np.float32),
     }}}}
     return params, state
+
+
+# ---------------------------------------------------------------------------
+# PM-VDVAE
+# ---------------------------------------------------------------------------
+
+
+def pm_vdvae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """A JAX ``PosteriorMatchingVDVAE`` ``params`` tree -> the port's state
+    dict: each leaf under its tree path joined by dots."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}.{k}" if prefix else k, v)
+        else:
+            out[prefix] = np.asarray(node)
+
+    walk("", params)
+    return out
+
+
+def pm_vdvae_trees(state_dict) -> Tree:
+    """The port's state dict (tensors or arrays) -> the JAX ``params`` tree,
+    the inverse of :func:`pm_vdvae_state_dict`."""
+    tree: Tree = {}
+    for name, v in state_dict.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+    return tree
+
+
+def pm_vdvae_from_jax(params: Tree, config: Dict[str, Any],
+                      device: Optional[str] = None) -> PosteriorMatchingVDVAE:
+    """Builds a ``PosteriorMatchingVDVAE`` from a ``model_config.json`` dict
+    on ``device`` (the GPU unless ``"cpu"``) and loads JAX-layout weights;
+    every parameter must be covered."""
+    model = PosteriorMatchingVDVAE.from_config(config, device=device)
+    model.load_state_dict(to_torch(pm_vdvae_state_dict(params)))
+    return model
+
+
+def load_pm_vdvae(run_dir: str, device: Optional[str] = None) -> PosteriorMatchingVDVAE:
+    """Reads a PM-VDVAE run directory (``model_config.json``,
+    ``train_state.pkl``) written by either package, with ``ema_params`` when
+    the checkpoint has them (``eval_pm_vdvae_imputation.py:78-83``)."""
+    resolve_device(device)
+    with open(os.path.join(run_dir, "model_config.json")) as fp:
+        config = json.load(fp)
+    ts = load_train_state(os.path.join(run_dir, "train_state.pkl"))
+    params = ts.ema_params if ts.ema_params is not None else ts.params
+    return pm_vdvae_from_jax(params, config, device=device)
+
+
+def random_pm_vdvae_tree(config: Dict[str, Any], seed: int) -> Tree:
+    """A ``params`` tree with the structure and shapes of the JAX package's
+    ``PosteriorMatchingVDVAE``, drawn from ``seed`` with no zero anywhere:
+    kernels truncated normal / sqrt(fan_in), the encoders' and resnets'
+    last convs and ``z_proj`` times sqrt(1 / blocks) as the JAX init scales
+    them, the heads' last convs times 0.3 (the prior's is zero at the JAX
+    init, which would leave its path untested), biases and the bias inputs
+    N(0, 0.02^2), the gain 1 + N(0, 0.02^2)."""
+    rng = np.random.default_rng(seed)
+    model = PosteriorMatchingVDVAE.from_config(config, device="cpu")
+    enc_scale = np.sqrt(1.0 / len(model.encoder.specs))
+    dec_scale = np.sqrt(1.0 / model.decoder.n_blocks)
+    out: Dict[str, np.ndarray] = {}
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        parts = name.split(".")
+        small = lambda: (0.02 * rng.standard_normal(shape)).astype(np.float32)
+        if parts[-1] == "kernel":
+            k = _trunc_normal(rng, shape)
+            if parts[-2] == "c4" and "encoder" in parts[0]:
+                k *= enc_scale
+            elif (parts[-2] == "c4" and parts[-3] == "resnet") or parts[-2] == "z_proj":
+                k *= dec_scale
+            elif parts[-2] == "c4":
+                k *= 0.3
+            out[name] = k.astype(np.float32)
+        elif parts[-1] == "gain":
+            out[name] = (1.0 + small()).astype(np.float32)
+        else:
+            out[name] = small()
+    return pm_vdvae_trees(out)

@@ -1,0 +1,20 @@
+from posterior_matching_torch.distributions._math import (
+    fill_scale_tril,
+    fill_triangular,
+    kl_diag_tril,
+    softplus_scale,
+    tril_size,
+)
+from posterior_matching_torch.distributions.logistic import QuantizedLogisticMixture
+from posterior_matching_torch.distributions.normal import (
+    MultivariateNormalDiag,
+    MultivariateNormalTriL,
+    Noise,
+    standard_normal,
+)
+
+__all__ = [
+    "MultivariateNormalDiag", "MultivariateNormalTriL", "Noise",
+    "QuantizedLogisticMixture", "fill_scale_tril", "fill_triangular",
+    "kl_diag_tril", "softplus_scale", "standard_normal", "tril_size",
+]

@@ -1,13 +1,14 @@
-"""On-device mask generation for the CelebA imputation path.
+"""On-device mask generation for the CelebA and MNIST paths.
 
 Counterpart of ``posterior_matching_tpu/masking.py`` for the generators the
-``CelebAMaskGenerator`` mixture draws from (:447-452): random rectangles,
-fixed rectangles, per-pixel Bernoulli, and crops of the thresholded bicubic
-noise canvas (``random_pattern_mask``, :242-321), flattened into one
-categorical (:329-376). Every generator is ``(generator, shape) -> mask``
-with an explicit ``torch.Generator`` whose device the mask is drawn on; masks
-are ``[B, H, W, 1]`` float32, 1 where a pixel is observed. The other
-registry entries of the JAX module are not ported yet.
+``CelebAMaskGenerator`` (:447-452) and ``MNISTMaskGenerator`` (:383-401,
+:460) mixtures draw from: random rectangles, fixed rectangles, random
+squares, per-pixel Bernoulli, and crops of the thresholded bicubic noise
+canvas (``random_pattern_mask``, :242-321), flattened into one categorical
+(:329-376). Every generator is ``(generator, shape) -> mask`` with an
+explicit ``torch.Generator`` whose device the mask is drawn on; masks are
+``[B, H, W, 1]`` float32, 1 where a pixel is observed. The other registry
+entries of the JAX module are not ported yet.
 
 The pattern canvas is rebuilt without PIL: :func:`_bicubic_resize`
 reproduces ``PIL.Image.resize(..., BICUBIC)`` on a mode ``F`` image (PIL's
@@ -106,6 +107,15 @@ def fixed_rectangle_mask(
     mask = torch.ones(1, h, w, 1, device=gen.device)
     mask[:, y1:y2, x1:x2, :] = 0.0
     return mask.expand(b, h, w, 1)
+
+
+def square_mask(gen: torch.Generator, shape: Sequence[int], size: int) -> torch.Tensor:
+    """A random ``size`` x ``size`` square per image, its corner uniform in
+    ``[0, W - size) x [0, H - size)`` (``masking.py:178-187``)."""
+    b, h, w = _image_shape(shape)
+    x = _randint(gen, 0, w - size, (b,))
+    y = _randint(gen, 0, h - size, (b,))
+    return _rect_to_mask(x, y, x + size - 1, y + size - 1, h, w)
 
 
 # ---------------------------------------------------------------------------
@@ -272,13 +282,34 @@ def celeb_a_mask_spec(
     )
 
 
+def mnist_mask_spec(dim: int = 28) -> Tuple[list, list]:
+    """Bernoulli(0.5), four half-image rectangles, a random half-size square
+    and a random rectangle, weights [2, 1, 1, 1, 1, 2, 2] (the reference's
+    MNISTMaskGenerator, ``masking.py:383-401``)."""
+    half = dim // 2
+    fixed = functools.partial
+    gens = [
+        fixed(image_bernoulli_mask, p=0.5),
+        fixed(fixed_rectangle_mask, y1=0, x1=0, y2=dim, x2=half),
+        fixed(fixed_rectangle_mask, y1=0, x1=0, y2=half, x2=dim),
+        fixed(fixed_rectangle_mask, y1=0, x1=half, y2=dim, x2=dim),
+        fixed(fixed_rectangle_mask, y1=half, x1=0, y2=dim, x2=dim),
+        fixed(square_mask, size=half),
+        rectangle_mask,
+    ]
+    return gens, [2, 1, 1, 1, 1, 2, 2]
+
+
 def get_mask_generator(name: str, device: Optional[str] = None) -> MaskFn:
     """``(generator, shape) -> mask`` by the reference's generator name,
     with its tables on ``device`` (the GPU unless ``"cpu"``)."""
     dev = resolve_device(device)
-    if name != "CelebAMaskGenerator":
+    if name == "CelebAMaskGenerator":
+        gens, weights = celeb_a_mask_spec(dev)
+    elif name == "MNISTMaskGenerator":
+        gens, weights = mnist_mask_spec()
+    else:
         raise NotImplementedError(f"mask generator {name!r} is not ported yet")
-    gens, weights = celeb_a_mask_spec(dev)
     return functools.partial(mixture_mask, generators=gens, weights=weights)
 
 

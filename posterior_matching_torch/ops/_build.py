@@ -32,8 +32,10 @@ SOURCES = {
     "vq_search": "vq_search.cu",
     "gated_stream_fwd": "gated_stream_fwd.cu",
     "gated_stream_bwd": "gated_stream_bwd.cu",
+    "block_chain_fwd": "block_chain_fwd.cu",
+    "block_chain_bwd": "block_chain_bwd.cu",
 }
-HEADERS = ("sampler_common.cuh", "gated_common.cuh")
+HEADERS = ("sampler_common.cuh", "gated_common.cuh", "block_chain_common.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -6,8 +6,9 @@ from posterior_matching_torch.train.state import (
 from posterior_matching_torch.train.trainer import (
     CheckpointCallback,
     Trainer,
+    pm_vdvae_trainer,
     pm_vqvae_trainer,
 )
 
 __all__ = ["CheckpointCallback", "TrainState", "Trainer", "load_train_state",
-           "pm_vqvae_trainer", "save_train_state"]
+           "pm_vdvae_trainer", "pm_vqvae_trainer", "save_train_state"]

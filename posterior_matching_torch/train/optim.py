@@ -1,5 +1,8 @@
 """Adam with a learning-rate schedule, as the JAX training scripts compose it.
 
+:class:`Adam` is the PM-VQVAE chain; :class:`ClippedAdam` the PM-VDVAE one,
+below.
+
 Counterpart of ``optax.chain(scale_by_adam(), scale_by_schedule(schedule),
 scale(-1.0))`` (``train_pm_vqvae.py:170-175``), with optax's defaults (``b1 = 0.9``,
 ``b2 = 0.999``, ``eps = 1e-8``, ``eps_root = 0``; no ported config changes
@@ -30,21 +33,57 @@ class Adam:
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
 
+    def _advance(self):
+        """The step's learning rate (at the count before the increment) and
+        bias corrections (at the count after it)."""
+        lr = self.schedule(self.count)
+        self.count += 1
+        return lr, 1.0 - B1 ** self.count, 1.0 - B2 ** self.count
+
+    def _direction(self, k: str, g: torch.Tensor, c1: float, c2: float) -> torch.Tensor:
+        """Updates ``k``'s moments with ``g`` in place and returns Adam's
+        direction ``mu_hat / (sqrt(nu_hat) + eps)``."""
+        mu = self.mu[k].mul_(B1).add_((1.0 - B1) * g)
+        nu = self.nu[k].mul_(B2).add_((1.0 - B2) * (g * g))
+        return (mu / c1) / (torch.sqrt(nu / c2) + EPS)
+
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> None:
         """One update from ``grads`` (keyed like ``params``), in place."""
-        lr = self.schedule(self.count)
-        self.count += 1
-        c1 = 1.0 - B1 ** self.count
-        c2 = 1.0 - B2 ** self.count
+        lr, c1, c2 = self._advance()
         for k, p in self.params.items():
-            g = grads[k]
-            mu = self.mu[k].mul_(B1).add_((1.0 - B1) * g)
-            nu = self.nu[k].mul_(B2).add_((1.0 - B2) * (g * g))
-            p.sub_(lr * ((mu / c1) / (torch.sqrt(nu / c2) + EPS)))
+            p.sub_(lr * self._direction(k, grads[k], c1, c2))
 
     def state_dict(self) -> Dict[str, object]:
         return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
+
+
+class ClippedAdam(Adam):
+    """``optax.chain(clip_by_global_norm(max_norm), scale_by_adam(),
+    add_decayed_weights(weight_decay, mask=ndim != 1),
+    scale_by_schedule(schedule), scale(-1.0))`` (``train_pm_vdvae.py:
+    161-186``), in optax's order: the gradients are scaled by ``max_norm /
+    norm`` (as ``(g / norm) * max_norm``) only when their global norm is at
+    least ``max_norm``; Adam as :class:`Adam`; then ``weight_decay * p`` is
+    added to the update of every parameter that is not 1-D, and the update
+    is scaled by the schedule."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule,
+                 max_norm: float, weight_decay: float = 0.0):
+        super().__init__(params, schedule)
+        self.max_norm, self.weight_decay = float(max_norm), float(weight_decay)
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor]) -> None:
+        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+        clip = ~(norm < self.max_norm)   # optax: keep g where norm < max_norm
+        lr, c1, c2 = self._advance()
+        for k, p in self.params.items():
+            g = torch.where(clip, (grads[k] / norm) * self.max_norm, grads[k])
+            u = self._direction(k, g, c1, c2)
+            if self.weight_decay and p.ndim != 1:
+                u = u + self.weight_decay * p
+            p.sub_(lr * u)
 
 
 def trainable_names(names: Sequence[str], frozen_prefixes: Sequence[str]):

@@ -9,10 +9,11 @@ update step), for a ``torch.nn.Module``:
   generator, seeded from (run seed, step); the dropout seed of a step is
   derived from (run seed, step) as well, so a step is a function of the
   run seed, the step and the batch;
-- loss, backward, the Adam update (:mod:`posterior_matching_torch.train.
-  optim`) and ``step + 1``, in that order; optionally the whole update is
-  skipped when the loss or a gradient is not finite, and an EMA of the
-  parameters is kept;
+- loss, backward, the optimizer's update (:mod:`posterior_matching_torch.
+  train.optim`: Adam under the exponential decay for PM-VQVAE, the clipped
+  chain of ``train_pm_vdvae.py`` for PM-VDVAE) and ``step + 1``, in that
+  order; optionally the whole update is skipped when the loss or a raw
+  gradient is not finite, and an EMA of the parameters is kept;
 - checkpoints are ``train_state.pkl`` files in the JAX package's layout
   (:func:`posterior_matching_torch.train.state.save_train_state`), which
   the JAX package evaluates.
@@ -30,8 +31,8 @@ from torch import nn
 
 from posterior_matching_torch.ops.gated_chain import _mix32_int
 from posterior_matching_torch.runtime import resolve_device
-from posterior_matching_torch.train.optim import Adam, trainable_names
-from posterior_matching_torch.train.schedules import exponential_decay
+from posterior_matching_torch.train.optim import Adam, ClippedAdam, trainable_names
+from posterior_matching_torch.train.schedules import exponential_decay, linear_schedule
 from posterior_matching_torch.train.state import TrainState, save_train_state
 
 Batch = Dict[str, torch.Tensor]
@@ -41,6 +42,9 @@ LossFn = Callable[[nn.Module, Batch, int, bool], torch.Tensor]
 PrologueFn = Callable[[Batch, torch.Generator], Batch]
 # to_trees(state_dict) -> (params, state) in the JAX package's layout
 TreesFn = Callable[[Dict[str, torch.Tensor]], Tuple[Any, Any]]
+# optimizer(trainable parameters) -> an object with step(grads),
+# state_dict() and params, as optim.Adam
+OptimizerFn = Callable[[Dict[str, torch.Tensor]], Adam]
 
 
 def derive_seed(seed: int, step: int, stream: int) -> int:
@@ -54,7 +58,7 @@ class Trainer:
         model: nn.Module,
         loss_fn: LossFn,
         *,
-        lr_schedule: Dict[str, Any],
+        optimizer: OptimizerFn,
         frozen: Sequence[str] = (),
         prologue_fn: Optional[PrologueFn] = None,
         seed: int = 0,
@@ -63,11 +67,12 @@ class Trainer:
         to_trees: Optional[TreesFn] = None,
         device: Optional[str] = None,
     ):
-        """``device``: the GPU unless ``"cpu"`` (raises without a GPU)."""
+        """``optimizer`` builds the optimizer from the trainable parameters;
+        ``device``: the GPU unless ``"cpu"`` (raises without a GPU)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
-        self.schedule = exponential_decay(**lr_schedule)
+        self.make_optimizer = optimizer
         self.frozen = tuple(frozen)
         self.prologue_fn = prologue_fn
         self.seed = int(seed)
@@ -93,8 +98,8 @@ class Trainer:
         trainable = set(trainable_names(list(params), self.frozen))
         for name, p in params.items():
             p.requires_grad_(name in trainable)
-        self.optimizer = Adam(
-            {n: p for n, p in params.items() if n in trainable}, self.schedule
+        self.optimizer = self.make_optimizer(
+            {n: p for n, p in params.items() if n in trainable}
         )
         if self.ema_rate is not None:
             self.ema_params = {n: p.detach().clone() for n, p in params.items()}
@@ -204,13 +209,53 @@ def pm_vqvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     from posterior_matching_torch.convert import pm_vqvae_trees
     from posterior_matching_torch.masking import add_mask
 
+    schedule = exponential_decay(**train_config["lr_schedule"])
     prologue = None
     if mask_fn is not None:
         prologue = lambda batch, gen: add_mask(batch, gen, mask_fn)
     return Trainer(
         model, pm_vqvae_loss,
-        lr_schedule=train_config["lr_schedule"],
+        optimizer=lambda params: Adam(params, schedule),
         frozen=train_config.get("frozen", ("vqvae",)),
         prologue_fn=prologue, seed=seed, to_trees=pm_vqvae_trees,
         device=device, **kwargs,
+    )
+
+
+def pm_vdvae_loss(model, batch: Batch, noise, training: bool = True) -> torch.Tensor:
+    """``-mean(reconstruction_ll - kl) + mean(pm_kl)``
+    (``train_pm_vdvae.py:135-150``). ``noise``: an int seeds a generator on
+    the model's device; a generator or an iterator of normals is used as
+    given."""
+    if isinstance(noise, int):
+        noise = torch.Generator(device=model.device).manual_seed(noise)
+    out = model(batch["image"], batch["mask"], noise)
+    elbo = (out["reconstruction_ll"] - out["kl"]).mean()
+    return -elbo + out["pm_kl"].mean()
+
+
+def pm_vdvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
+                     mask_fn=None, device: Optional[str] = None, **kwargs) -> Trainer:
+    """The trainer of ``train_pm_vdvae.py:135-202``: nothing frozen, the
+    clipped Adam chain under a constant rate (or a linear warm-up), updates
+    skipped when the loss or a raw gradient is not finite, an EMA of the
+    parameters, masks added on the device by ``mask_fn`` (or passed in each
+    batch when None), checkpoints in the JAX package's layout."""
+    from posterior_matching_torch.convert import pm_vdvae_trees
+    from posterior_matching_torch.masking import add_mask
+
+    cfg = train_config
+    if cfg.get("flat_optimizer", False):
+        raise NotImplementedError("flat_optimizer is not ported")
+    warm_up, lr = cfg.get("warm_up", 0), cfg["lr"]
+    schedule = linear_schedule(0.0, lr, warm_up) if warm_up > 0 else (lambda count: lr)
+    optimizer = lambda params: ClippedAdam(params, schedule, cfg["gradient_clip"],
+                                           cfg.get("weight_decay", 0.0))
+    prologue = None
+    if mask_fn is not None:
+        prologue = lambda batch, gen: add_mask(batch, gen, mask_fn)
+    return Trainer(
+        model, pm_vdvae_loss, optimizer=optimizer, prologue_fn=prologue, seed=seed,
+        skip_nonfinite_updates=True, ema_rate=cfg.get("ema_rate", 0.999),
+        to_trees=lambda sd: (pm_vdvae_trees(sd), {}), device=device, **kwargs,
     )

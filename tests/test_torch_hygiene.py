@@ -13,9 +13,16 @@ import pytest
 import torch
 
 from posterior_matching_torch import masking, runtime
-from posterior_matching_torch.config import PM_VQVAE_CELEB_A, VQVAE_CELEB_A
+from posterior_matching_torch.config import (
+    PM_VDVAE_MNIST,
+    PM_VDVAE_MNIST_TRAIN,
+    PM_VQVAE_CELEB_A,
+    VQVAE_CELEB_A,
+)
 from posterior_matching_torch.models.pm_vqvae import PMVQVAE
-from posterior_matching_torch.train.trainer import Trainer, pm_vqvae_loss
+from posterior_matching_torch.models.vdvae import PosteriorMatchingVDVAE
+from posterior_matching_torch.train.optim import Adam
+from posterior_matching_torch.train.trainer import Trainer, pm_vdvae_trainer, pm_vqvae_loss
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "posterior_matching_torch").rglob("*.py")) + [
@@ -62,10 +69,10 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
         )
     with pytest.raises(RuntimeError, match="no CUDA device"):
         masking.get_mask_generator("CelebAMaskGenerator")
-    lr = {"init_value": 1e-3, "decay_rate": 1.0, "transition_steps": 1}
+    adam = lambda params: Adam(params, lambda count: 1e-3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        Trainer(torch.nn.Linear(2, 2), pm_vqvae_loss, lr_schedule=lr)
-    assert Trainer(torch.nn.Linear(2, 2), pm_vqvae_loss, lr_schedule=lr,
+        Trainer(torch.nn.Linear(2, 2), pm_vqvae_loss, optimizer=adam)
+    assert Trainer(torch.nn.Linear(2, 2), pm_vqvae_loss, optimizer=adam,
                    device="cpu").device == torch.device("cpu")
     assert runtime.resolve_device("cpu") == torch.device("cpu")
 
@@ -73,3 +80,30 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
 def test_float32_numerics_are_pinned():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_vdvae_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PosteriorMatchingVDVAE.from_config(PM_VDVAE_MNIST)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        masking.get_mask_generator("MNISTMaskGenerator")
+    model = PosteriorMatchingVDVAE.from_config(PM_VDVAE_MNIST, device="cpu")
+    assert model.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pm_vdvae_trainer(model, PM_VDVAE_MNIST_TRAIN)
+    assert pm_vdvae_trainer(model, PM_VDVAE_MNIST_TRAIN, device="cpu").device == torch.device("cpu")
+    masking.get_mask_generator("MNISTMaskGenerator", device="cpu")
+
+
+@pytest.mark.parametrize("option", [{"compute_dtype": "bfloat16"}, {"remat": True},
+                                    {"fused_chain": True}])
+def test_vdvae_tpu_options_are_refused(option):
+    with pytest.raises(NotImplementedError, match=next(iter(option))):
+        PosteriorMatchingVDVAE.from_config(dict(PM_VDVAE_MNIST, **option), device="cpu")
+
+
+def test_vdvae_flat_optimizer_is_refused():
+    model = PosteriorMatchingVDVAE.from_config(PM_VDVAE_MNIST, device="cpu")
+    with pytest.raises(NotImplementedError, match="flat_optimizer"):
+        pm_vdvae_trainer(model, dict(PM_VDVAE_MNIST_TRAIN, flat_optimizer=True), device="cpu")

@@ -6,13 +6,18 @@ are small but cover what the full-width smoke run does not: widths that do
 not divide the vrow kernel's 32 row slots, sample counts that leave a
 block's tile ragged, two logits chunks; row counts that leave the gated
 chain's 32-row tiles ragged, grids other than square; latent counts that
-leave the search's 32-row tiles ragged. Tolerance: 1e-4 relative to the
-tensor's scale (float32 sums in another order), for the chain's gradients
-too (their sums run over at most a few hundred rows here).
+leave the search's 32-row tiles ragged; block-chain runs whose rows leave
+the 64- and 32-row tiles ragged, 1x1 and 3x3 taps at the image's edges, and
+a run long enough that its weight gradients sum two 1024-row splits, each at
+both compiled (width, mid) pairs.
+Tolerance: 1e-4 relative to the tensor's scale (float32 sums in another
+order), for the chains' gradients too (their sums run over at most a few
+thousand rows here).
 """
 import pytest
 import torch
 
+from posterior_matching_torch.ops import block_chain as bc
 from posterior_matching_torch.ops import gated_chain as gc
 from posterior_matching_torch.ops import sampler_chain as sc
 from posterior_matching_torch.ops import vq
@@ -164,3 +169,77 @@ def test_gated_stream_kernels_match_plain(dev, down, b, h, w, keep):
     grads_p = torch.autograd.grad(want, leaves, cot)
     for gk, gp in zip(grads_k, grads_p):
         assert _close(gk, gp)
+
+
+def _block_chain_case(gen, b, h, w, L, k, c=192, m=48):
+    weights = {n: _rand(gen, L, *s, scale=s[0] ** -0.5) for n, s in bc.weight_shapes(c, m, k)}
+    return _rand(gen, b, h, w, c), weights
+
+
+@pytest.mark.parametrize("c,m", bc.KERNEL_WIDTHS)
+@pytest.mark.parametrize("b,h,w,L,k", [(2, 7, 5, 3, 3), (3, 1, 1, 2, 1), (20, 9, 9, 2, 3)])
+def test_block_chain_kernels_match_plain(dev, b, h, w, L, k, c, m):
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + h + L + c)
+    x, weights = _block_chain_case(gen, b, h, w, L, k, c, m)
+    leaves = [x, *(weights[n] for n in bc.NAMES)]
+    for t in leaves:
+        t.requires_grad_(True)
+    f0, b0 = bc.chain_fwd.launches, bc.chain_bwd.launches
+    got = bc.block_chain(x, weights, mid=m, k=k)
+    want = bc.block_chain_plain(x, weights, mid=m, k=k)
+    assert got.shape == x.shape and _close(got, want)
+    cot = _rand(gen, *x.shape)
+    grads_k = torch.autograd.grad(got, leaves, cot)
+    torch.cuda.synchronize()
+    assert bc.chain_fwd.launches == f0 + 1 and bc.chain_bwd.launches == b0 + 1
+    grads_p = torch.autograd.grad(want, leaves, cot)
+    for name, gk, gp in zip(("x", *bc.NAMES), grads_k, grads_p):
+        assert _close(gk, gp), name
+
+
+def test_block_chain_wrappers_refuse_unsupported_inputs(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, weights = _block_chain_case(gen, 2, 4, 4, 2, 3)
+    cfg = bc.ChainConfig(x, 2, 48, 3)
+    flat = x.reshape(-1, 192)
+    with pytest.raises(ValueError, match="contiguous"):
+        bc.chain_fwd(cfg, flat.t().contiguous().t(), weights)
+    with pytest.raises(ValueError, match="w2"):
+        bc.chain_fwd(cfg, flat, dict(weights, w2=weights["w2"][:, :9 * 40].contiguous()))
+    with pytest.raises(ValueError, match="width"):
+        bc.block_chain(x[..., :64].contiguous(),
+                       {n: t[..., :64] if n in ("w4", "b4") else t for n, t in weights.items()},
+                       mid=48, k=3)
+
+
+# configs/pm_vdvae_digits16.py's model block: the width-64 pair of the
+# block-chain kernels, at every run shape of its encoder.
+DIGITS16 = {"image_shape": (16, 16, 1), "encoder_blocks": "16x3,16d2,8x3,8d2,4x2,4d4,1x2",
+            "decoder_blocks": "1x2,4m1,4x2,8m4,8x3,16m8,16x3", "latent_dim": 8, "width": 64,
+            "bottleneck_multiple": 0.25, "no_bias_above": 32, "num_mixtures": 5}
+
+
+def test_pm_vdvae_digits16_step_matches_cpu(dev):
+    from posterior_matching_torch import convert
+    from posterior_matching_torch.models.vdvae import parse_layer_string
+    from posterior_matching_torch.train.trainer import pm_vdvae_loss
+
+    tree = convert.random_pm_vdvae_tree(DIGITS16, seed=5)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randint(0, 256, (4, 16, 16, 1), generator=g).float()
+    b = (torch.rand(4, 16, 16, 1, generator=g) > 0.5).float()
+    eps = [torch.randn(4, r, r, 8, generator=g)
+           for r, _ in parse_layer_string(DIGITS16["decoder_blocks"])]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        m = convert.pm_vdvae_from_jax(tree, DIGITS16, device=d)
+        f0, b0 = bc.chain_fwd.launches, bc.chain_bwd.launches
+        loss = pm_vdvae_loss(m, {"image": x.to(d), "mask": b.to(d)}, iter(eps))
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        out[d.type] = (loss.item(), [gr.cpu() for gr in grads],
+                       bc.chain_fwd.launches - f0, bc.chain_bwd.launches - b0)
+    (lg, gg, fg, bg), (lc, gc_, _, _) = out["cuda"], out["cpu"]
+    assert (fg, bg) == (8, 8)   # 4 runs of 2+ blocks, both encoders
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, w in zip(gg, gc_):
+        assert _close(a, w)

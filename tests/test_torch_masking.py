@@ -103,3 +103,80 @@ def test_add_mask_shapes():
     out = masking.add_mask(batch, torch.Generator().manual_seed(1), mask_fn)
     assert out["mask"].shape == (4, 64, 64, 1)
     assert out["image"] is batch["image"]
+
+
+# ---------------------------------------------------------------------------
+# The MNIST mixture
+# ---------------------------------------------------------------------------
+
+MNIST_SHAPE = (N, 28, 28, 1)
+MNIST_HALVES = [(0, 0, 28, 14), (0, 0, 14, 28), (0, 14, 28, 28), (14, 0, 28, 28)]
+# weights [2, 1, 1, 1, 1, 2, 2] / 10 (masking.py:383-401)
+MNIST_EXPECTED = {"bernoulli": 0.2, **{f"h{i}": 0.1 for i in range(4)},
+                  "square": 0.2, "rect": 0.2}
+
+
+def classify_mnist(masks: np.ndarray) -> dict:
+    """Component shares of MNIST-mixture masks [N, 28, 28]: the fixed halves
+    exactly, a 14 x 14 hidden box is the square (a random rectangle covers at
+    least 0.3 of the image, more than 196 pixels), any other hidden box the
+    rectangle, the rest Bernoulli."""
+    halves = {}
+    for i, (y1, x1, y2, x2) in enumerate(MNIST_HALVES):
+        m = np.ones((28, 28), np.float32)
+        m[y1:y2, x1:x2] = 0
+        halves[f"h{i}"] = m
+    counts = dict.fromkeys(MNIST_EXPECTED, 0)
+    for m in masks:
+        name = next((k for k, f in halves.items() if np.array_equal(m, f)), None)
+        if name is None:
+            hidden = m == 0
+            ys, xs = np.nonzero(hidden)
+            box = hidden[ys.min():ys.max() + 1, xs.min():xs.max() + 1] if len(ys) else None
+            if box is not None and box.all():
+                name = "square" if box.shape == (14, 14) else "rect"
+            else:
+                name = "bernoulli"
+        counts[name] += 1
+    return {k: v / len(masks) for k, v in counts.items()}
+
+
+@pytest.fixture(scope="module")
+def mnist_masks():
+    mask_fn = masking.get_mask_generator("MNISTMaskGenerator", device="cpu")
+    m = mask_fn(torch.Generator().manual_seed(0), MNIST_SHAPE)
+    assert m.shape == (N, 28, 28, 1) and m.dtype == torch.float32
+    return m[..., 0].numpy()
+
+
+def test_mnist_component_shares(mnist_masks):
+    assert set(np.unique(mnist_masks)) <= {0.0, 1.0}
+    shares = classify_mnist(mnist_masks)
+    for name, p in MNIST_EXPECTED.items():
+        sigma = np.sqrt(p * (1 - p) / N)
+        assert abs(shares[name] - p) < 5 * sigma, (name, shares[name], p)
+
+
+def test_mnist_coverage_matches_jax(mnist_masks):
+    jax_fn = jax_masking.get_mask_generator("MNISTMaskGenerator")
+    want = np.asarray(jax_fn(jax.random.PRNGKey(3), MNIST_SHAPE))[..., 0]
+    port_hidden = 1 - mnist_masks.mean((1, 2))
+    jax_hidden = 1 - want.mean((1, 2))
+    sigma = np.sqrt(port_hidden.var() / N + jax_hidden.var() / N)
+    assert abs(port_hidden.mean() - jax_hidden.mean()) < 5 * sigma
+    # both draw the same components in the same shares
+    port_shares, jax_shares = classify_mnist(mnist_masks), classify_mnist(want)
+    for name, p in MNIST_EXPECTED.items():
+        sigma = np.sqrt(2 * p * (1 - p) / N)
+        assert abs(port_shares[name] - jax_shares[name]) < 5 * sigma, name
+
+
+def test_square_mask_range():
+    """Corners uniform over [0, 28 - 14): every square lies inside the
+    image, and both extreme corners occur."""
+    m = masking.square_mask(torch.Generator().manual_seed(2), (4000, 28, 28, 1), 14)[..., 0]
+    hidden = (m == 0).numpy()
+    assert (hidden.sum((1, 2)) == 196).all()
+    rows = hidden.any(2).argmax(1)
+    cols = hidden.any(1).argmax(1)
+    assert rows.min() == 0 and rows.max() == 13 and cols.min() == 0 and cols.max() == 13

@@ -126,13 +126,13 @@ def test_skip_nonfinite_updates_and_ema():
     optimizer alone and says so; the EMA of the parameters follows
     ``e = rate e + (1 - rate) p`` over every parameter
     (``train/trainer.py:244-260`` of the JAX package)."""
+    from posterior_matching_torch.train.optim import Adam
     from posterior_matching_torch.train.trainer import Trainer
 
     model = torch.nn.Linear(3, 1)
-    lr = {"init_value": 0.1, "decay_rate": 1.0, "transition_steps": 1}
     loss = lambda m, batch, seed, training: (m(batch["x"]) ** 2).mean() * batch["s"]
-    trainer = Trainer(model, loss, lr_schedule=lr, skip_nonfinite_updates=True,
-                      ema_rate=0.5, device="cpu")
+    trainer = Trainer(model, loss, optimizer=lambda params: Adam(params, lambda count: 0.1),
+                      skip_nonfinite_updates=True, ema_rate=0.5, device="cpu")
     trainer.init()
     w0 = model.weight.detach().clone()
     x = torch.ones(2, 3)
@@ -145,3 +145,29 @@ def test_skip_nonfinite_updates_and_ema():
     # two EMA updates: the first towards the unchanged weights, then 0.5 / 0.5
     torch.testing.assert_close(trainer.ema_params["weight"],
                                0.5 * w0 + 0.5 * model.weight.detach())
+
+
+def test_pm_vqvae_updates_unchanged_by_the_optimizer_hook():
+    """The trainer builds its optimizer through a hook now; the one
+    ``pm_vqvae_trainer`` builds must update bit for bit as the Adam written
+    out here as it stood before the hook: ``mu``/``nu`` in place,
+    ``p -= lr (mu / c1) / (sqrt(nu / c2) + eps)`` with
+    ``lr = init * rate ** (count / steps)``."""
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(5, 4), torch.nn.Linear(4, 1))
+    ref = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = pm_vqvae_trainer(model, PM_VQVAE_CELEB_A_TRAIN, device="cpu")
+    trainer.init()
+    mu = {n: torch.zeros_like(p) for n, p in ref.items()}
+    nu = {n: torch.zeros_like(p) for n, p in ref.items()}
+    for step in range(4):
+        grads = {n: torch.randn_like(p) * 10.0 ** (step - 2) for n, p in ref.items()}
+        trainer.optimizer.step(grads)
+        rate = LR["init_value"] * LR["decay_rate"] ** (step / LR["transition_steps"])
+        c1, c2 = 1.0 - 0.9 ** (step + 1), 1.0 - 0.999 ** (step + 1)
+        for n, g in grads.items():
+            mu[n].mul_(0.9).add_((1.0 - 0.9) * g)
+            nu[n].mul_(0.999).add_((1.0 - 0.999) * (g * g))
+            ref[n] = ref[n] - rate * ((mu[n] / c1) / (torch.sqrt(nu[n] / c2) + 1e-8))
+        for n, p in model.named_parameters():
+            assert torch.equal(p.detach(), ref[n]), (step, n)
