@@ -6,7 +6,7 @@ full width of ``configs/pm_vdvae_mnist.py`` (imputation, likelihood,
 training), and checks them, in these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
-2. all seven kernels (``posterior_matching_torch/ops/csrc``) are built from
+2. all nine kernels (``posterior_matching_torch/ops/csrc``) are built from
    this checkout's sources, one ``nvcc`` each, in parallel; both row-sampler
    kernels are launched at the imputation path's shapes (n = 32 images x 10
    samples, F = 128, L = 24, 16 x 16 codes, K = 512) and held against their
@@ -46,8 +46,23 @@ training), and checks them, in these phases:
    lowered, every tensor moved, a small step on the GPU equal to the plain
    path's on the CPU, the checkpoint reloaded through ``load_pm_vdvae``,
    then one profiled step;
-8. one JSON line of per-kernel numbers, the card's name and power limit, and
-   the result line.
+8. PM-VDVAE training through the fused decoder chain (``fused_chain=True``,
+   the same weights): the decoder-chain kernels (forward and backward)
+   against autograd through the plain chain at the five decoder run shapes
+   of a training batch of 16, with a random cotangent on each of the four
+   outputs, each timed beside its bound; the first step's loss and every
+   gradient equal to the unfused model's on the same batch and normals; 8
+   steps of ``pm_vdvae_trainer`` on the same batches (5 forward and 5
+   backward decoder-chain launches each, and the block chain's 10 + 10),
+   the eval loss lowered, every tensor moved, a small digits16-width fused
+   step on the GPU equal to the plain path's on the CPU, one profiled step;
+9. the training CLI, ``posterior_matching_torch.train_pm_vdvae``, at full
+   width with ``fused_chain=True`` on small synthetic MNIST files (512
+   training and 64 test images): 4 steps, two validations of 4 batches; its
+   run directory, its ``val_loss`` lines, its decoder-chain launches and its
+   checkpoint, reloaded through ``load_pm_vdvae`` to serve an imputation;
+10. one JSON line of per-kernel numbers, the card's name and power limit,
+   and the result line.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--vdvae_run_dir
 RUN] [--out DIR]``.
@@ -104,6 +119,14 @@ DEVICE = "cuda"
 
 def log(*args):
     print(*args, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def stamp(what: str):
+    """Logs the seconds since the script started, at a phase's start."""
+    log(f"[{time.perf_counter() - _START:.1f} s] {what}")
 
 
 def nvidia_smi_line() -> str:
@@ -410,11 +433,15 @@ def training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg, vq_cfg, 
 _CHAIN_KERNELS = ("::data_gemm<", "::wgrad<128>", "::wgrad<256>", "::gate_bwd(",
                   "::rowsum_images(", "::sum_images(", "::dwc_kernel(", "::dcond_kernel(",
                   "::proj_kernel(")
-# ... and of the block chain's (csrc/block_chain_*.cu).
+# ... of the decoder chain's (csrc/decoder_chain_*.cu: namespace dck, and
+# its own kernels) ...
+_DECODER_CHAIN_KERNELS = ("dck::", "::z_into_state<", "::z_bwd<")
+# ... and of the block chain's (csrc/block_chain_*.cu, namespace bck).
 _BLOCK_CHAIN_KERNELS = ("bck::chain_gemm<", "::wgrad<48>", "::wgrad<192>",
                         "::reduce_splits(", "::bias_grad(")
 VQVAE_GROUPS = (("gated_stream kernels", _CHAIN_KERNELS), ("vq_search kernel", ("vq_search",)))
-VDVAE_GROUPS = (("block_chain kernels", _BLOCK_CHAIN_KERNELS),
+VDVAE_GROUPS = (("decoder_chain kernels", _DECODER_CHAIN_KERNELS),
+                ("block_chain kernels", _BLOCK_CHAIN_KERNELS),
                 ("triangular solves (cuBLAS)", ("trsm",)))
 
 
@@ -624,25 +651,8 @@ def block_chain_phase(runs, seed):
                 f"{b_ms:.4f} ms by {b_by} ({fl / 1e9:.3f} GFLOP, {by / 1e6:.1f} MB)")
         per_run.append(run)
         del got, want, gk, gp, saves, saved, grads
-    out = []
-    mean = lambda vals: sum(vals) / len(vals)
-    for kind, line in (("fwd", 270), ("bwd", 308)):
-        per = [r[kind] for r in per_run]
-        # per launch: the mean over the encoder's five runs
-        b_ms, b_by = bound(mean([p[3] for p in per]), mean([p[4] for p in per]))
-        out.append({
-            "name": f"block_chain_{kind}", "route": "cuda",
-            "source": f"posterior_matching_torch/ops/csrc/block_chain_{kind}.cu",
-            "replaces": f"posterior_matching_tpu/ops/block_chain.py:{line}",
-            "max_abs_err": max(p[0] for p in per),
-            "ms": mean([p[1] for p in per]), "plain_ms": mean([p[2] for p in per]),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "per_run": [{"res": r["res"], "levels": r["levels"], "k": r["k"],
-                         "ms": r[kind][1], "plain_ms": r[kind][2],
-                         "gflop": r[kind][3] / 1e9, "mb": r[kind][4] / 1e6}
-                        for r in per_run],
-        })
-    return out
+    return chain_lines("block_chain", "posterior_matching_tpu/ops/block_chain.py",
+                       (("fwd", 270), ("bwd", 308)), per_run)
 
 
 def vdvae_serving_phases(model, gen, mask_fn):
@@ -715,7 +725,7 @@ def fit_steps(trainer, batches, counters, expected, ckpt):
     after each: its time, loss and the kernels' launches, each counter set
     to 0 just before the step. ``expected(name, count)`` says whether a
     step's count is right."""
-    from posterior_matching_torch.train.trainer import CheckpointCallback
+    from posterior_matching_torch.train.callbacks import CheckpointCallback
 
     step_s, losses, launches = [], [], {k: 0 for k in counters}
     clock = [0.0]
@@ -742,23 +752,21 @@ def fit_steps(trainer, batches, counters, expected, ckpt):
         reset()
 
     reset()
-    trainer.fit(batches, TRAIN_STEPS, callbacks=[record, CheckpointCallback(ckpt, TRAIN_STEPS)])
+    trainer.fit(batches, TRAIN_STEPS, callbacks=[record, CheckpointCallback(ckpt)])
     steady = step_s[2:]
     return len(steady) / sum(steady), step_s, losses, launches
 
 
-def vdvae_training_phase(model, model_config, args, gen, mask_fn):
-    """8 full-width steps of the PM-VDVAE trainer, then the checks."""
+def vdvae_training_phase(model, model_config, args, gen, mask_fn, batches, fixed, expected,
+                         small_config):
+    """8 full-width steps of the PM-VDVAE trainer on ``batches``, then the
+    checks: ``expected`` maps each kernel counter's name to its launches a
+    step, ``small_config`` is the small model held against the CPU."""
     import tempfile
 
     from posterior_matching_torch import config, convert
     from posterior_matching_torch.models.vdvae import vdvae_impute
-    from posterior_matching_torch.ops import block_chain as bc
     from posterior_matching_torch.train.trainer import pm_vdvae_loss, pm_vdvae_trainer
-
-    batches = [{"image": mnist_batch(gen, DEVICE, VDVAE_TRAIN_BATCH, mask_fn)["image"]}
-               for _ in range(TRAIN_STEPS)]
-    fixed = mnist_batch(gen, DEVICE, VDVAE_TRAIN_BATCH, mask_fn)
 
     def eval_loss():
         with torch.no_grad():
@@ -770,9 +778,9 @@ def vdvae_training_phase(model, model_config, args, gen, mask_fn):
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     loss_before = eval_loss()
     run_dir = tempfile.TemporaryDirectory()
-    counters = {"block_chain_fwd": bc.chain_fwd, "block_chain_bwd": bc.chain_bwd}
+    counters = kernel_counters()
     steps_per_s, step_s, losses, launches = fit_steps(
-        trainer, batches, counters, lambda name, count: count == 10,
+        trainer, batches, counters, lambda name, count: count == expected.get(name, 0),
         f"{run_dir.name}/train_state.pkl")
     loss_after = eval_loss()
     log(f"vdvae training: {steps_per_s:.4f} steps/s over steps 3-{TRAIN_STEPS} (batch "
@@ -784,7 +792,7 @@ def vdvae_training_phase(model, model_config, args, gen, mask_fn):
         check(not torch.equal(after[name], before[name]), f"{name} did not move")
     log(f"vdvae training: all {len(trainer.optimizer.params)} trainable tensors moved")
 
-    small_vdvae_step_check(args.seed)
+    small_vdvae_step_check(args.seed, small_config)
 
     with run_dir:
         with open(f"{run_dir.name}/model_config.json", "w") as fp:
@@ -805,45 +813,314 @@ def vdvae_training_phase(model, model_config, args, gen, mask_fn):
             "eval_loss": [loss_before, loss_after], "launches": launches, "split": split}
 
 
-def small_vdvae_step_check(seed):
-    """The loss and every gradient of a small width-192 PM-VDVAE (the
-    kernels' width) on the GPU against the plain path on the CPU, with the
-    same injected normals: the loss within 1e-5 relative, every gradient
-    within GRAD_TOL of its scale."""
+def kernel_counters():
+    """The PM-VDVAE kernels' wrappers, whose ``launches`` count them."""
+    from posterior_matching_torch.ops import block_chain as bc
+    from posterior_matching_torch.ops import decoder_chain as dc
+
+    return {"block_chain_fwd": bc.chain_fwd, "block_chain_bwd": bc.chain_bwd,
+            "decoder_chain_fwd": dc.dec_fwd, "decoder_chain_bwd": dc.dec_bwd}
+
+
+# The small models held against the CPU: width 192 (the kernels' MNIST
+# width) on 8x8 images through the block chain, and configs/pm_vdvae_
+# digits16.py's model (width 64) with the fused decoder (its 1x2 run, 4 rows
+# at batch 4, stays unfused).
+SMALL_VDVAE = {"image_shape": (8, 8, 1), "encoder_blocks": "8x3,8d2,4x2,4d4,1x2",
+               "decoder_blocks": "1x1,4m1,4x1,8m4,8x2", "latent_dim": 16, "width": 192,
+               "bottleneck_multiple": 0.25, "no_bias_above": 64, "num_mixtures": 10}
+DIGITS16_FUSED = {"image_shape": (16, 16, 1), "encoder_blocks": "16x3,16d2,8x3,8d2,4x2,4d4,1x2",
+                  "decoder_blocks": "1x2,4m1,4x2,8m4,8x3,16m8,16x3", "latent_dim": 8,
+                  "width": 64, "bottleneck_multiple": 0.25, "no_bias_above": 32,
+                  "num_mixtures": 5, "fused_chain": True}
+
+
+def small_vdvae_step_check(seed, small):
+    """The loss and every gradient of a small PM-VDVAE on the GPU against
+    the plain path on the CPU, with the same injected normals: the loss
+    within 1e-5 relative, every gradient within GRAD_TOL of its scale."""
     from posterior_matching_torch import convert
     from posterior_matching_torch.models.vdvae import parse_layer_string
     from posterior_matching_torch.train.trainer import pm_vdvae_loss
 
-    small = {"image_shape": (8, 8, 1), "encoder_blocks": "8x3,8d2,4x2,4d4,1x2",
-             "decoder_blocks": "1x1,4m1,4x1,8m4,8x2", "latent_dim": 16, "width": 192,
-             "bottleneck_multiple": 0.25, "no_bias_above": 64, "num_mixtures": 10}
     tree = convert.random_pm_vdvae_tree(small, seed=seed + 7)
     g = torch.Generator().manual_seed(seed + 8)
-    x = torch.randint(0, 256, (4, 8, 8, 1), generator=g).float()
-    b = (torch.rand(4, 8, 8, 1, generator=g) > 0.5).float()
-    eps = [torch.randn(4, r, r, 16, generator=g)
+    side, ld = small["image_shape"][0], small["latent_dim"]
+    x = torch.randint(0, 256, (4, side, side, 1), generator=g).float()
+    b = (torch.rand(4, side, side, 1, generator=g) > 0.5).float()
+    eps = [torch.randn(4, r, r, ld, generator=g)
            for r, _ in parse_layer_string(small["decoder_blocks"])]
     out = {}
+    counters = kernel_counters()
     for d in (DEVICE, "cpu"):
         m = convert.pm_vdvae_from_jax(tree, small, device=d)
         names, params = zip(*m.named_parameters())
+        before = {k: c.launches for k, c in counters.items()}
         loss = pm_vdvae_loss(m, {"image": x.to(d), "mask": b.to(d)}, iter(eps))
         grads = torch.autograd.grad(loss, params)
-        out[d] = (loss.item(), {n: gr.cpu() for n, gr in zip(names, grads)})
-    (lg, gg), (lc, gcpu) = out[DEVICE], out["cpu"]
+        launched = {k: c.launches - before[k] for k, c in counters.items()}
+        out[d] = (loss.item(), {n: gr.cpu() for n, gr in zip(names, grads)}, launched)
+    (lg, gg, launched), (lc, gcpu, _) = out[DEVICE], out["cpu"]
     loss_rel = abs(lg - lc) / abs(lc)
     worst = max(((n, rel_err(gg[n], gcpu[n])[1]) for n in gcpu), key=lambda t: t[1])
-    log(f"vdvae small step vs CPU plain path: loss {lg:.6f} vs {lc:.6f} (relative "
+    log(f"vdvae small step (width {small['width']}, fused_chain "
+        f"{small.get('fused_chain')}) vs CPU plain path: loss {lg:.6f} vs {lc:.6f} (relative "
         f"{loss_rel:.3e}), worst gradient relative to scale {worst[1]:.3e} ({worst[0]}) over "
-        f"{len(gcpu)} tensors")
+        f"{len(gcpu)} tensors; GPU launches {launched}")
+    check(launched["block_chain_fwd"] > 0, "vdvae small step: the block chain did not run")
+    check((launched["decoder_chain_bwd"] > 0) == bool(small.get("fused_chain")),
+          "vdvae small step: the decoder chain ran where it should not, or not where it should")
     check(loss_rel <= STEP_LOSS_TOL, "vdvae small step: the loss disagrees with the CPU's")
     check(worst[1] <= GRAD_TOL, "vdvae small step: a gradient disagrees with the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: PM-VDVAE through the fused decoder chain
+# ---------------------------------------------------------------------------
+
+
+def capture_dec_runs(model, batch, gen):
+    """The decoder-chain calls of one fused training forward: each run's
+    inputs, normals and stacked weights, as the decoder hands them over."""
+    from posterior_matching_torch.models import vdvae
+
+    runs, chain = [], vdvae.dec_chain
+
+    def record(x0, acts, macts, eps, w, *, mid, ld, k):
+        runs.append((*(t.detach().clone() for t in (x0, acts, macts, eps)),
+                     {n: t.detach().clone() for n, t in w.items()}, mid, ld, k))
+        return chain(x0, acts, macts, eps, w, mid=mid, ld=ld, k=k)
+
+    vdvae.dec_chain = record
+    try:
+        with torch.no_grad():
+            model(batch["image"], batch["mask"], gen)
+    finally:
+        vdvae.dec_chain = chain
+    return runs
+
+
+def dec_chain_flops(b, h, w, c, mid, ld, k, n_lvl):
+    """Forward operations of a decoder run: at every row c1 of the four
+    Blocks (inputs 2c, 2c, c, c), their c4 (outputs 2 ld, ld + tril,
+    2 ld + c, c) and the z projection; c2 and c3 of the four at the taps
+    that land inside the image only."""
+    pad = k // 2
+    taps = sum(max(h - abs(dy), 0) * max(w - abs(dx), 0)
+               for dy in range(-pad, pad + 1) for dx in range(-pad, pad + 1))
+    rows, mw = b * h * w, ld + ld * (ld + 1) // 2
+    per_level = (2 * rows * mid * 6 * c + 4 * 2 * 2 * b * taps * mid * mid
+                 + 2 * rows * mid * (2 * ld + mw + 2 * ld + c + c) + 2 * rows * ld * c)
+    return float(n_lvl * per_level)
+
+
+def decoder_chain_phase(runs, seed):
+    """Both decoder-chain kernels against autograd through the plain chain
+    at each run's shapes, with a random cotangent on each of the four
+    outputs; each timed beside its bound and the plain version."""
+    from posterior_matching_torch.ops import decoder_chain as dc
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 29)
+    per_run = []
+    out_names = ("x_final", "post", "prior", "masked")
+    for x0, acts, macts, eps, w, mid, ld, k in runs:
+        n_lvl, res, c = eps.shape[0], x0.shape[1], x0.shape[-1]
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (x0, acts, macts, *(w[n] for n in dc.NAMES))]
+        lw = dict(zip(dc.NAMES, leaves[3:]))
+        got = dc.dec_chain(*leaves[:3], eps, lw, mid=mid, ld=ld, k=k)
+        want = dc.dec_chain_plain(*leaves[:3], eps, lw, ld=ld, k=k)
+        torch.cuda.synchronize()
+        fwd_err, fwd_rel = 0.0, 0.0
+        for name, a, b_ in zip(out_names, got, want):
+            err, rel = rel_err(a, b_)
+            fwd_err, fwd_rel = max(fwd_err, err), max(fwd_rel, rel)
+            check(rel <= CHAIN_TOL, f"decoder_chain_fwd res {res} {name}: {rel:.3e} > {CHAIN_TOL}")
+        cots = [torch.randn(t.shape, generator=gen, device=DEVICE) for t in want]
+        gk = torch.autograd.grad(got, leaves, cots)
+        gp = torch.autograd.grad(want, leaves, cots, retain_graph=True)
+        torch.cuda.synchronize()
+        bwd_err, worst = 0.0, ("", 0.0)
+        for name, a, b_ in zip(("dx0", "dacts", "dmacts", *("d" + n for n in dc.NAMES)), gk, gp):
+            err, rel_g = rel_err(a, b_)
+            bwd_err = max(bwd_err, err)
+            worst = max(worst, (name, rel_g), key=lambda t_: t_[1])
+            check(rel_g <= CHAIN_TOL, f"decoder_chain_bwd res {res} {name}: {rel_g:.3e}")
+        log(f"decoder_chain res {res} (L = {n_lvl}, k = {k}, {x0.shape[0]} images): 4 outputs "
+            f"max abs err {fwd_err:.3e} (relative to scale {fwd_rel:.3e}); {len(gk)} gradients "
+            f"max abs err {bwd_err:.3e}, worst relative to scale {worst[1]:.3e} ({worst[0]})")
+
+        cfg = dc.DecConfig(x0, acts, n_lvl, mid, ld, k)
+        flat = lambda t: t.reshape(-1, t.shape[-1]).contiguous()
+        lvl = lambda t: t.reshape(n_lvl, cfg.rows, t.shape[-1]).contiguous()
+        inputs = {"x0": flat(x0), "acts": flat(acts), "macts": flat(macts), "eps": lvl(eps),
+                  **{n: w[n].contiguous() for n in dc.NAMES}}
+        cot = {"g": flat(cots[0]), "gpost": lvl(cots[1]), "gprior": lvl(cots[2]),
+               "gmask": lvl(cots[3])}
+        weights = {n: inputs[n] for n in dc.NAMES}
+        with torch.no_grad():
+            outs = dc.dec_fwd(cfg, inputs)
+            saved = {n: {**inputs, **outs}[n] for n in dc._SAVED}
+            fwd_ms = time_ms(lambda: dc.dec_fwd(cfg, inputs), reps=5, warmup=1)
+            bwd_ms = time_ms(lambda: dc.dec_bwd(cfg, cot, saved, weights), reps=5, warmup=1)
+            fwd_plain = time_ms(lambda: dc.dec_chain_plain(x0, acts, macts, eps, w, ld=ld, k=k),
+                                reps=3)
+        bwd_plain = time_ms(lambda: torch.autograd.grad(want, leaves, cots, retain_graph=True),
+                            reps=3)
+        grads = dc.dec_bwd(cfg, cot, saved, weights)
+        # the backward does each product twice (data and weight gradients),
+        # but for the masked Block's input-side data gradient on the state
+        flops = dec_chain_flops(x0.shape[0], x0.shape[1], x0.shape[2], c, mid, ld, k, n_lvl)
+        bwd_flops = 2 * flops - 2.0 * n_lvl * cfg.rows * c * mid
+        read_w = [t for n, t in weights.items() if n != "bz" and "_b" not in n]
+        fwd_bytes = nbytes(*inputs.values(), *outs.values())
+        bwd_bytes = nbytes(*cot.values(), *saved.values(), *read_w, *grads.values())
+        run = {"res": res, "levels": n_lvl, "k": k, "rows": cfg.rows,
+               "fwd": (fwd_err, fwd_ms, fwd_plain, flops, fwd_bytes),
+               "bwd": (bwd_err, bwd_ms, bwd_plain, bwd_flops, bwd_bytes)}
+        for kind in ("fwd", "bwd"):
+            _, ms, pms, fl, by = run[kind]
+            b_ms, b_by = bound(fl, by)
+            log(f"decoder_chain_{kind} res {res}: {ms:.4f} ms/launch (plain {pms:.3f}), bound "
+                f"{b_ms:.4f} ms by {b_by} ({fl / 1e9:.3f} GFLOP, {by / 1e6:.1f} MB)")
+        per_run.append(run)
+        del got, want, gk, gp, outs, saved, grads
+    return chain_lines("decoder_chain", "posterior_matching_tpu/ops/decoder_chain.py",
+                       (("fwd", 226), ("bwd", 291)), per_run)
+
+
+def chain_lines(name, replaces, kinds, per_run):
+    """The kernels-line entries of a chain's two kernels: per launch the
+    mean over the runs, and each run beside it."""
+    out = []
+    mean = lambda vals: sum(vals) / len(vals)
+    for kind, line in kinds:
+        per = [r[kind] for r in per_run]
+        b_ms, b_by = bound(mean([p[3] for p in per]), mean([p[4] for p in per]))
+        out.append({
+            "name": f"{name}_{kind}", "route": "cuda",
+            "source": f"posterior_matching_torch/ops/csrc/{name}_{kind}.cu",
+            "replaces": f"{replaces}:{line}",
+            "max_abs_err": max(p[0] for p in per),
+            "ms": mean([p[1] for p in per]), "plain_ms": mean([p[2] for p in per]),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "per_run": [{"res": r["res"], "levels": r["levels"], "k": r["k"],
+                         "ms": r[kind][1], "plain_ms": r[kind][2],
+                         "bound_ms": bound(r[kind][3], r[kind][4])[0],
+                         "gflop": r[kind][3] / 1e9, "mb": r[kind][4] / 1e6}
+                        for r in per_run],
+        })
+    return out
+
+
+def fused_step_check(unfused, fused, batch, gen):
+    """The first step of the fused model against the unfused one at full
+    width on the card, the same batch and injected normals: the loss within
+    1e-5 relative, every gradient within GRAD_TOL of its scale."""
+    from posterior_matching_torch.train.trainer import pm_vdvae_loss
+
+    n, ld = batch["image"].shape[0], fused.decoder.latent_dim
+    eps = [torch.randn(n, r, r, ld, generator=gen, device=DEVICE)
+           for r, _ in fused.decoder.specs]
+    counters = kernel_counters()
+    out = {}
+    for name, m in (("unfused", unfused), ("fused", fused)):
+        before = {k: c.launches for k, c in counters.items()}
+        names, params = zip(*m.named_parameters())
+        loss = pm_vdvae_loss(m, batch, iter(eps))
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        out[name] = (loss.item(), dict(zip(names, grads)),
+                     {k: c.launches - before[k] for k, c in counters.items()})
+    (lu, gu, _), (lf, gf, launched) = out["unfused"], out["fused"]
+    loss_rel = abs(lf - lu) / abs(lu)
+    worst = max(((n_, rel_err(gf[n_], gu[n_])[1]) for n_ in gu), key=lambda t: t[1])
+    log(f"fused vs unfused first step at full width: loss {lf:.6f} vs {lu:.6f} (relative "
+        f"{loss_rel:.3e}), worst gradient relative to scale {worst[1]:.3e} ({worst[0]}) over "
+        f"{len(gu)} tensors; fused launches {launched}")
+    check(launched["decoder_chain_fwd"] == 5 and launched["decoder_chain_bwd"] == 5,
+          f"the fused step launched the decoder chain {launched}, not 5 + 5")
+    check(loss_rel <= STEP_LOSS_TOL, "the fused step's loss disagrees with the unfused one's")
+    check(worst[1] <= GRAD_TOL, "a fused step's gradient disagrees with the unfused one's")
+    return {"loss": [lf, lu], "loss_rel": loss_rel, "worst_grad": worst}
+
+
+def cli_phase(args, gen, mask_fn):
+    """``train_pm_vdvae`` at full width with the fused decoder on small
+    synthetic MNIST files, in this process (the kernels are built): its run
+    directory, validation lines, decoder-chain launches and checkpoint."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import tempfile
+
+    from posterior_matching_torch import convert, train_pm_vdvae
+    from posterior_matching_torch.data import load_arrays
+    from posterior_matching_torch.models.vdvae import vdvae_impute
+    from posterior_matching_torch.ops import decoder_chain as dc
+
+    steps, n_train, n_test, batch = 4, 512, 64, 16
+    cwd, data_env = os.getcwd(), os.environ.get("PM_TPU_DATA_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/data/mnist")
+        os.environ["PM_TPU_DATA_DIR"] = f"{tmp}/data"
+        try:
+            for split, n in (("train", n_train), ("test", n_test)):
+                arrays = load_arrays("mnist", split)   # the synthetic stand-in
+                np.savez(f"{tmp}/data/mnist/{split}.npz",
+                         **{k: v[:n] for k, v in arrays.items()})
+            os.chdir(tmp)
+            f0, b0 = dc.dec_fwd.launches, dc.dec_bwd.launches
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                rc = train_pm_vdvae.main([
+                    "--config", "pm_vdvae_mnist", "--config.steps", str(steps),
+                    "--config.validation_freq", str(steps // 2), "--config.seed",
+                    str(args.seed), "--config.model.fused_chain=True"])
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            if data_env is None:
+                os.environ.pop("PM_TPU_DATA_DIR", None)
+            else:
+                os.environ["PM_TPU_DATA_DIR"] = data_env
+        fwd, bwd = dc.dec_fwd.launches - f0, dc.dec_bwd.launches - b0
+        lines = printed.getvalue().splitlines()
+        for line in lines:
+            log(f"  train_pm_vdvae: {line}")
+        check(rc == 0, f"train_pm_vdvae exited with {rc}")
+        run_dirs = glob.glob(f"{tmp}/runs/pm-vdvae-mnist-*")
+        check(len(run_dirs) == 1, f"train_pm_vdvae made the run directories {run_dirs}")
+        files = sorted(os.listdir(run_dirs[0]))
+        check(files == ["model_config.json", "train_meta.json", "train_state.pkl"],
+              f"the run directory holds {files}")
+        steps_lines = [ln for ln in lines if ln.startswith("[step ")]
+        check(len(steps_lines) == 2 and all("val_loss=" in ln for ln in steps_lines),
+              "train_pm_vdvae did not log two validations with val_loss")
+        n_val = n_test // batch
+        check(bwd == 5 * steps and fwd == 5 * (steps + 2 * n_val),
+              f"train_pm_vdvae launched the decoder chain {fwd} + {bwd} times, not "
+              f"{5 * (steps + 2 * n_val)} + {5 * steps}")
+        loaded = convert.load_pm_vdvae(run_dirs[0], device=DEVICE)
+    check(loaded.decoder.fused, "the run's model_config.json lost fused_chain")
+    req = mnist_batch(gen, DEVICE, 4, mask_fn)
+    imp = vdvae_impute(loaded, req["image"], req["mask"], 2, generator=gen)
+    torch.cuda.synchronize()
+    check(imp.shape == (4, 2, 28, 28, 1) and bool(torch.isfinite(imp).all()),
+          "an imputation from the CLI's checkpoint failed")
+    log(f"train_pm_vdvae: {steps} steps and 2 validations of {n_val} batches in {wall:.1f} s; "
+        f"run directory {files}; decoder chain launches {fwd} fwd + {bwd} bwd; the checkpoint "
+        "loads through load_pm_vdvae and served an imputation")
+    return {"wall_s": wall, "lines": steps_lines, "dec_launches": [fwd, bwd]}
+
+
 def vdvae_phases(args, gen):
-    """Phase 7 whole: the model, the kernel comparisons, the three paths."""
+    """Phases 7 to 9: the model, the kernel comparisons, the three paths,
+    then training through the fused decoder and the CLI."""
     from posterior_matching_torch import config, convert, masking
-    from posterior_matching_torch.ops import block_chain as bc
+    from posterior_matching_torch.models.vdvae import PosteriorMatchingVDVAE
 
     model_config = config.PM_VDVAE_MNIST
     if args.vdvae_run_dir:
@@ -855,6 +1132,10 @@ def vdvae_phases(args, gen):
         tree = convert.random_pm_vdvae_tree(model_config, seed=args.seed)
         model = convert.pm_vdvae_from_jax(tree, model_config, device=DEVICE)
         weights_from = f"seed {args.seed}"
+    model_config = dict(model_config, fused_chain=None)
+    fused_config = dict(model_config, fused_chain=True)
+    fused = PosteriorMatchingVDVAE.from_config(fused_config, device=DEVICE)
+    fused.load_state_dict(model.state_dict())
     log(f"model: PM-VDVAE MNIST, weights from {weights_from}; width "
         f"{model_config['width']}, latent {model_config['latent_dim']}, "
         f"{len(model.encoder.specs)} encoder / {model.decoder.n_blocks} decoder blocks, "
@@ -867,15 +1148,45 @@ def vdvae_phases(args, gen):
           "the encoder's runs are not the config's five")
     kernel_lines = block_chain_phase(runs, args.seed)
     del runs
+    stamp("PM-VDVAE imputation and likelihood")
     serving = vdvae_serving_phases(model, gen, mask_fn)
-    train = vdvae_training_phase(model, model_config, args, gen, mask_fn)
-    for line in kernel_lines:
-        line["launches"] = train["launches"][line["name"]]
-    log(f"block chain launches over {TRAIN_STEPS} training steps: {train['launches']} "
-        f"(10 each a step); fwd launches on the other paths: imputation "
-        f"{serving['impute_launches']}, likelihood {serving['likelihood_launches']}; "
-        f"counters now fwd {bc.chain_fwd.launches} bwd {bc.chain_bwd.launches}")
-    return kernel_lines, {"serving": serving, "training": train}
+
+    # ---- 8. the fused decoder: kernels, the first step, training ---------
+    stamp("decoder chain kernels")
+    dec_runs = capture_dec_runs(fused, batch, gen)
+    check([(r[0].shape[1], r[3].shape[0], r[7]) for r in dec_runs]
+          == [(1, 2, 1), (3, 3, 3), (7, 3, 3), (14, 5, 3), (28, 7, 3)],
+          "the decoder's fused runs are not the config's five")
+    dec_lines = decoder_chain_phase(dec_runs, args.seed)
+    del dec_runs
+    first_step = fused_step_check(model, fused, batch, gen)
+
+    batches = [{"image": mnist_batch(gen, DEVICE, VDVAE_TRAIN_BATCH, mask_fn)["image"]}
+               for _ in range(TRAIN_STEPS)]
+    fixed = mnist_batch(gen, DEVICE, VDVAE_TRAIN_BATCH, mask_fn)
+    stamp("PM-VDVAE training")
+    train = vdvae_training_phase(model, model_config, args, gen, mask_fn, batches, fixed,
+                                 {"block_chain_fwd": 10, "block_chain_bwd": 10},
+                                 SMALL_VDVAE)
+    stamp("PM-VDVAE training through the fused decoder")
+    fused_train = vdvae_training_phase(
+        fused, fused_config, args, gen, mask_fn, batches, fixed,
+        {"block_chain_fwd": 10, "block_chain_bwd": 10, "decoder_chain_fwd": 5,
+         "decoder_chain_bwd": 5}, DIGITS16_FUSED)
+    for lines, run in ((kernel_lines, train), (dec_lines, fused_train)):
+        for line in lines:
+            line["launches"] = run["launches"][line["name"]]
+            line["launches_per_step"] = line["launches"] / TRAIN_STEPS
+    log(f"kernel launches over {TRAIN_STEPS} training steps: unfused {train['launches']}, "
+        f"fused {fused_train['launches']}; block_chain_fwd launches on the other paths: "
+        f"imputation {serving['impute_launches']}, likelihood {serving['likelihood_launches']}")
+
+    # ---- 9. the training CLI ------------------------------------------------
+    stamp("the training CLI")
+    cli = cli_phase(args, gen, mask_fn)
+    return kernel_lines + dec_lines, {"serving": serving, "training": train,
+                                      "fused_first_step": first_step,
+                                      "fused_training": fused_train, "cli": cli}
 
 
 def main() -> int:
@@ -1023,6 +1334,7 @@ def main() -> int:
         f"{row_bytes / 1e6:.1f} MB)")
 
     # ---- 3. the slice: three imputation requests ---------------------------
+    stamp("PM-VQVAE imputation")
     sc.vrow.launches = 0
     sc.row.launches = 0
     req_s, psnrs = [], []
@@ -1084,20 +1396,25 @@ def main() -> int:
         raise AssertionError("the GPU path disagrees with the CPU plain path")
 
     # ---- 4. the codebook search, 5. the gated chain ----------------------
+    stamp("codebook search and gated chain kernels")
     train_batch = request_batch()
     vq_line = vq_phase(model, train_batch["image"])
     stream_lines = stream_phase(model, train_batch["image"], train_batch["mask"], args.seed)
 
     # ---- 6. training -------------------------------------------------------
+    stamp("PM-VQVAE training")
     train = training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg,
                            vq_cfg, pc_cfg)
     for line in (vq_line, *stream_lines):
         line["launches"] = train["launches"][line["name"]]
+        line["launches_per_step"] = line["launches"] / TRAIN_STEPS
 
-    # ---- 7. PM-VDVAE ---------------------------------------------------------
-    chain_lines, vdvae = vdvae_phases(args, gen)
+    # ---- 7-9. PM-VDVAE -------------------------------------------------------
+    stamp("PM-VDVAE")
+    vdvae_lines, vdvae = vdvae_phases(args, gen)
 
-    # ---- 8. results --------------------------------------------------------
+    # ---- 10. results -------------------------------------------------------
+    stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
          "source": "posterior_matching_torch/ops/csrc/sampler_vrow.cu",
@@ -1111,7 +1428,7 @@ def main() -> int:
          "launches": launches["sampler_row"], "max_abs_err": row_err,
          "ms": row_ms, "plain_ms": row_plain_ms, "bound_ms": row_bound,
          "bound_by": row_by, "library_ms": None},
-        vq_line, *stream_lines, *chain_lines,
+        vq_line, *stream_lines, *vdvae_lines,
     ]
     summary = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -1123,7 +1440,9 @@ def main() -> int:
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in kernels]}))
+    extra = ("launches_per_step", "per_run", "per_pass")
+    log(json.dumps({"kernels": [{**{k: kd[k] for k in keys},
+                                 **{k: kd[k] for k in extra if k in kd}} for kd in kernels]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

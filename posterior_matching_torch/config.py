@@ -8,8 +8,9 @@ Copied from the JAX package's config files, which need ``ml_collections``:
   training script into
   ``artifacts/pm-vqvae-celeb_a-20260820-142531/config.json``;
 - ``PM_VDVAE_MNIST``: ``configs/pm_vdvae_mnist.py:24-36`` (the ``model``
-  block), and ``PM_VDVAE_MNIST_TRAIN`` its training settings (:15-22,
-  :42-47).
+  block), ``PM_VDVAE_MNIST_TRAIN`` its training settings (:42-47),
+  ``PM_VDVAE_MNIST_DATA`` its ``data`` block (:15-22), and
+  :func:`pm_vdvae_mnist` the whole file, as the training CLI reads it.
 """
 
 VQVAE_CELEB_A = {
@@ -74,16 +75,14 @@ PM_VDVAE_MNIST = {
     "compute_dtype": None,
 }
 
-# Its training settings: ``configs/pm_vdvae_mnist.py:15-22`` (the per-device
-# batch and the mask generator) and :42-47 (``flat_optimizer``,
-# ``ema_rate``, ``gradient_clip``, ``lr``, ``steps``, ``validation_freq``).
-# ``train_pm_vdvae.py:161-186`` reads ``warm_up`` and ``weight_decay`` with
-# the defaults 0 the config leaves them at, and Adam at optax's defaults. No
-# ported config sets either to anything else: their other side (the linear
-# warm-up, the decayed weights) is run only by the optax parity test.
+# Its training settings: ``configs/pm_vdvae_mnist.py:42-47``
+# (``flat_optimizer``, ``ema_rate``, ``gradient_clip``, ``lr``, ``steps``,
+# ``validation_freq``). ``train_pm_vdvae.py:161-186`` reads ``warm_up`` and
+# ``weight_decay`` with the defaults 0 the config leaves them at, and Adam
+# at optax's defaults. No ported config sets either to anything else: their
+# other side (the linear warm-up, the decayed weights) is run only by the
+# optax parity test.
 PM_VDVAE_MNIST_TRAIN = {
-    "train_batch_size": 16,
-    "mask_generator": "MNISTMaskGenerator",
     "flat_optimizer": False,
     "ema_rate": 0.999,
     "gradient_clip": 200.0,
@@ -93,3 +92,31 @@ PM_VDVAE_MNIST_TRAIN = {
     "steps": 500000,
     "validation_freq": 5000,
 }
+
+# Its ``data`` block, ``configs/pm_vdvae_mnist.py:15-22``: the per-device
+# batch sizes, the splits (validation on the test split) and the masks.
+PM_VDVAE_MNIST_DATA = {
+    "dataset": "mnist",
+    "train_split": "train",
+    "validation_split": "test",
+    "train_batch_size": 16,
+    "val_batch_size": 16,
+    "mask_generator": "MNISTMaskGenerator",
+}
+
+
+def pm_vdvae_mnist() -> dict:
+    """``configs/pm_vdvae_mnist.py`` whole, in its nesting (``data``,
+    ``model``, then the training keys of :42-47), as a fresh dict that the
+    CLI's ``--config.<path>`` flags may change. ``seed`` is None (a fresh
+    draw unless set) and ``model.fused_chain`` None (the block chain in the
+    encoders, the decoder unfused), the JAX defaults."""
+    train = {k: v for k, v in PM_VDVAE_MNIST_TRAIN.items()
+             if k not in ("warm_up", "weight_decay")}
+    return {"data": dict(PM_VDVAE_MNIST_DATA),
+            "model": dict(PM_VDVAE_MNIST, fused_chain=None),
+            "seed": None, **train}
+
+
+# The configurations the training CLIs take by name.
+CONFIGS = {"pm_vdvae_mnist": pm_vdvae_mnist}

@@ -400,6 +400,20 @@ def random_pm_vdvae_tree(config: Dict[str, Any], seed: int) -> Tree:
     them, the heads' last convs times 0.3 (the prior's is zero at the JAX
     init, which would leave its path untested), biases and the bias inputs
     N(0, 0.02^2), the gain 1 + N(0, 0.02^2)."""
+    return _pm_vdvae_tree(config, seed, jax_init=False)
+
+
+def init_pm_vdvae_tree(config: Dict[str, Any], seed: int) -> Tree:
+    """The JAX package's initial ``params`` of ``PosteriorMatchingVDVAE``,
+    equal in distribution (its draws come from ``jax.random``): kernels
+    truncated normal / sqrt(fan_in), the encoders' and resnets' last convs
+    and ``z_proj`` times sqrt(1 / blocks) (``vdvae.py:255, 411-418``), the
+    prior's last conv zero (``zero_last``, :403-406), every bias and bias
+    input zero, the gain one."""
+    return _pm_vdvae_tree(config, seed, jax_init=True)
+
+
+def _pm_vdvae_tree(config: Dict[str, Any], seed: int, jax_init: bool) -> Tree:
     rng = np.random.default_rng(seed)
     model = PosteriorMatchingVDVAE.from_config(config, device="cpu")
     enc_scale = np.sqrt(1.0 / len(model.encoder.specs))
@@ -408,14 +422,19 @@ def random_pm_vdvae_tree(config: Dict[str, Any], seed: int) -> Tree:
     for name, p in model.named_parameters():
         shape = tuple(p.shape)
         parts = name.split(".")
-        small = lambda: (0.02 * rng.standard_normal(shape)).astype(np.float32)
+        if jax_init:
+            small = lambda: np.zeros(shape, np.float32)
+        else:
+            small = lambda: (0.02 * rng.standard_normal(shape)).astype(np.float32)
         if parts[-1] == "kernel":
             k = _trunc_normal(rng, shape)
             if parts[-2] == "c4" and "encoder" in parts[0]:
                 k *= enc_scale
             elif (parts[-2] == "c4" and parts[-3] == "resnet") or parts[-2] == "z_proj":
                 k *= dec_scale
-            elif parts[-2] == "c4":
+            elif parts[-2] == "c4" and parts[-3] == "prior" and jax_init:
+                k *= 0.0
+            elif parts[-2] == "c4" and not jax_init:
                 k *= 0.3
             out[name] = k.astype(np.float32)
         elif parts[-1] == "gain":

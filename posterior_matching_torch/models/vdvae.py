@@ -10,18 +10,24 @@ Modules are ``nn.Module``s on NHWC tensors. Parameters keep the flax names
 and layouts (conv kernels ``[kh, kw, in, out]``), so a state-dict name is
 the JAX tree path joined by dots (``convert.pm_vdvae_state_dict``).
 
-- Every run of two or more non-downsampling encoder blocks at one
-  resolution goes through :func:`posterior_matching_torch.ops.block_chain.
-  block_chain` (``vdvae.py:260-313``): the hand-written kernels for CUDA
-  tensors, the plain blocks for CPU tensors. Downsampling blocks, the
-  decoder's heads and resnets and the output head are plain convolutions
-  (XLA's in the JAX package).
+- ``fused_chain`` chooses the runs (the JAX package's option of the same
+  name, ``vdvae.py:210-236, 623-642``, without its environment variables):
+  with ``None`` (the default) every run of two or more non-downsampling
+  encoder blocks at one resolution goes through :func:`posterior_matching_
+  torch.ops.block_chain.block_chain` (``vdvae.py:260-313``); ``True`` also
+  sends the training path's decoder runs (``Decoder.forward_posterior``)
+  through :func:`posterior_matching_torch.ops.decoder_chain.dec_chain`
+  (``vdvae.py:691-788``); ``False`` runs every block on its own. The chains
+  are the hand-written kernels for CUDA tensors and their plain versions
+  for CPU tensors. Downsampling blocks, the other decoder paths and the
+  output head are plain convolutions (XLA's in the JAX package).
 - Sampling takes ``noise`` (:data:`~posterior_matching_torch.distributions.
   Noise`): a ``torch.Generator``, or an iterator of the caller's standard
   normals, consumed in the order in which the JAX package calls
-  ``make_rng("sample")``.
-- The TPU options are not ported: ``compute_dtype`` other than float32,
-  ``remat`` and the fused decoder chain raise.
+  ``make_rng("sample")``; a fused run draws each block's normals by the
+  same call, in the same order.
+- The other TPU options are not ported: ``compute_dtype`` other than
+  float32, ``remat`` and ``fused_chain="interpret"`` raise.
 """
 from __future__ import annotations
 
@@ -40,9 +46,11 @@ from posterior_matching_torch.distributions import (
     QuantizedLogisticMixture,
     fill_scale_tril,
     softplus_scale,
+    standard_normal,
     tril_size,
 )
 from posterior_matching_torch.ops.block_chain import NAMES, block_chain, conv_taps, gelu
+from posterior_matching_torch.ops.decoder_chain import dec_chain, dec_chain_supported
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.utils import logmeanexp
 
@@ -140,14 +148,17 @@ def _pad_channels(t: torch.Tensor, width: int) -> torch.Tensor:
 
 class Encoder(nn.Module):
     """Stack of bottleneck blocks recording the activations of each
-    resolution, the last block's at each (``vdvae.py:206-325``)."""
+    resolution, the last block's at each (``vdvae.py:206-325``); with
+    ``chain`` the runs go through the block chain."""
 
     def __init__(self, in_channels: int, width: int, blocks: str,
-                 bottleneck_multiple: float, custom_width_string: Optional[str] = None):
+                 bottleneck_multiple: float, custom_width_string: Optional[str] = None,
+                 chain: bool = True):
         super().__init__()
         self.widths = get_width_settings(width, custom_width_string)
         self.specs = parse_layer_string(blocks)
         self.bm = bottleneck_multiple
+        self.chain = chain
         self.in_conv = Conv(in_channels, width, 3)
         c = width
         for i, (res, down) in enumerate(self.specs):
@@ -173,7 +184,7 @@ class Encoder(nn.Module):
             while j < len(specs) and specs[j][0] == res and specs[j][1] is None:
                 j += 1
             j = max(j, i + 1)
-            if j - i >= 2 and h.shape[-1] == self.widths[res]:
+            if self.chain and j - i >= 2 and h.shape[-1] == self.widths[res]:
                 per_level = [self.block(b).chain_weights() for b in range(i, j)]
                 stacked = {n: torch.stack([lv[n] for lv in per_level]) for n in NAMES}
                 h = block_chain(h, stacked, mid=int(self.widths[res] * self.bm),
@@ -272,6 +283,18 @@ class DecoderBlock(nn.Module):
         out[self.res] = self.resnet(x)
         return out
 
+    def chain_weights(self) -> Dict[str, torch.Tensor]:
+        """This block as one level of a decoder chain, in its kernel-native
+        layout (``vdvae.py:488-515``); differentiable views of the
+        parameters."""
+        out = {}
+        for tag, block in (("p", self.posterior), ("m", self.masked_posterior),
+                           ("q", self.prior), ("r", self.resnet)):
+            out.update({f"{tag}_{n}": t for n, t in block.chain_weights().items()})
+        out["wz"] = self.z_proj.tap_weight()
+        out["bz"] = self.z_proj.bias.reshape(1, -1)
+        return out
+
     def forward_posterior(self, xs: Acts, acts: Acts, masked_acts: Acts, noise: Noise):
         a, ma = acts[self.res], masked_acts[self.res]
         x = self._get_x(xs, a.shape[0], like=a)
@@ -328,10 +351,12 @@ class Decoder(nn.Module):
 
     def __init__(self, latent_dim: int, image_size: int, num_channels: int, width: int,
                  blocks: str, bottleneck_multiple: float, no_bias_above: int,
-                 num_mixtures: int, custom_width_string: Optional[str] = None):
+                 num_mixtures: int, custom_width_string: Optional[str] = None,
+                 fused: bool = False):
         super().__init__()
         widths = get_width_settings(width, custom_width_string)
         specs = parse_layer_string(blocks)
+        self.specs, self.fused, self.bm = specs, fused, bottleneck_multiple
         self.latent_dim, self.image_size = latent_dim, image_size
         self.n_blocks = len(specs)
         for i, (res, mixin) in enumerate(specs):
@@ -354,11 +379,57 @@ class Decoder(nn.Module):
     def _final(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.gain + self.bias
 
+    def _fused_run(self, idxs: List[int], xs: Acts, acts: Acts, masked_acts: Acts,
+                   noise: Noise):
+        """Blocks ``idxs``, one resolution's run, as one decoder chain
+        (``vdvae.py:691-745``); the updated state and the blocks' stats as
+        :meth:`DecoderBlock.forward_posterior` gives them, without ``z``."""
+        blocks = [self.blocks()[i] for i in idxs]
+        first, ld = blocks[0], self.latent_dim
+        a, ma = acts[first.res], masked_acts[first.res]
+        batch = a.shape[0]
+        x0 = first._get_x(xs, batch, like=a)
+        # each block's normals by the unfused sample's own call, in order
+        eps = torch.stack([standard_normal(noise, (batch, b.res, b.res, ld), a.device)
+                           for b in blocks])
+        per_level = [b.chain_weights() for b in blocks]
+        weights = {n: torch.stack([lv[n] for lv in per_level]) for n in per_level[0]}
+        x_final, post, prior, masked = dec_chain(
+            x0, a, ma, eps, weights, mid=int(first.w * self.bm), ld=ld,
+            k=3 if first.res > 2 else 1)
+        out = dict(xs)
+        out[first.res] = x_final
+        flat = lambda t: t.reshape(batch, -1, t.shape[-1])
+        stats = []
+        for off in range(len(blocks)):
+            loc, scale = post[off][..., :ld], softplus_scale(post[off][..., ld:])
+            pr = MultivariateNormalDiag(prior[off][..., :ld],
+                                        softplus_scale(prior[off][..., ld:]))
+            kl = MultivariateNormalDiag(loc, scale).kl_divergence(pr).sum((1, 2))
+            pm = {"raw": flat(masked[off]), "loc": flat(loc.detach()),
+                  "scale": flat(scale.detach())}
+            stats.append({"kl": kl, "pm": pm})
+        return out, stats
+
     def forward_posterior(self, acts: Acts, masked_acts: Acts, noise: Noise):
         xs, stats = self._bias_state(), []
-        for blk in self.blocks():
-            xs, s = blk.forward_posterior(xs, acts, masked_acts, noise)
-            stats.append(s)
+        specs, i = self.specs, 0
+        while i < len(specs):
+            # the run at this resolution, a mixin only at its first block
+            # (vdvae.py:760-788)
+            res, j = specs[i][0], i + 1
+            while j < len(specs) and specs[j][0] == res and specs[j][1] is None:
+                j += 1
+            if (self.fused and j - i >= 2
+                    and dec_chain_supported(acts[res].shape[0], res, res)):
+                xs, run_stats = self._fused_run(list(range(i, j)), xs, acts, masked_acts,
+                                                noise)
+                stats.extend(run_stats)
+            else:
+                for blk in self.blocks()[i:j]:
+                    xs, s = blk.forward_posterior(xs, acts, masked_acts, noise)
+                    stats.append(s)
+            i = j
         # one batched pm_kl over every block's positions (vdvae.py:790-812)
         ld = self.latent_dim
         raw = torch.cat([s["pm"]["raw"] for s in stats], 1)
@@ -396,26 +467,32 @@ class Decoder(nn.Module):
 
 
 # Config keys of the TPU-only options and the value the port runs.
-_TPU_OPTIONS = {"compute_dtype": None, "remat": False, "fused_chain": None}
+_TPU_OPTIONS = {"compute_dtype": None, "remat": False}
 
 
 class PosteriorMatchingVDVAE(nn.Module):
     """Full PM-VDVAE (``vdvae.py:845-965``) on [0, 255] images; the encoders
-    see ``x / 127.5 - 1``."""
+    see ``x / 127.5 - 1``. ``fused_chain``: ``None``, ``True`` or ``False``,
+    as the module docstring says."""
 
     def __init__(self, image_shape: Tuple[int, int, int], encoder_blocks: str,
                  decoder_blocks: str, latent_dim: int = 16, width: int = 128,
                  bottleneck_multiple: float = 0.25, no_bias_above: int = 64,
-                 num_mixtures: int = 10, custom_width_string: Optional[str] = None):
+                 num_mixtures: int = 10, custom_width_string: Optional[str] = None,
+                 fused_chain: Optional[bool] = None):
         super().__init__()
+        if fused_chain not in (None, True, False):
+            raise NotImplementedError(f"fused_chain={fused_chain!r} is not ported")
         self.image_shape = tuple(image_shape)
         c = self.image_shape[-1]
-        self.encoder = Encoder(c, width, encoder_blocks, bottleneck_multiple, custom_width_string)
+        chain = fused_chain is not False
+        self.encoder = Encoder(c, width, encoder_blocks, bottleneck_multiple,
+                               custom_width_string, chain)
         self.masked_encoder = Encoder(c + 1, width, encoder_blocks, bottleneck_multiple,
-                                      custom_width_string)
+                                      custom_width_string, chain)
         self.decoder = Decoder(latent_dim, self.image_shape[0], c, width, decoder_blocks,
                                bottleneck_multiple, no_bias_above, num_mixtures,
-                               custom_width_string)
+                               custom_width_string, fused=fused_chain is True)
 
     @classmethod
     def from_config(cls, config: Dict[str, Any], device=None) -> "PosteriorMatchingVDVAE":

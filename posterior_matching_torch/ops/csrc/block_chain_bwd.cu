@@ -43,123 +43,6 @@ enum BwdPtr {
   DXS, DH1, DH2, DH3, PART, BWD_NPTR
 };
 
-// dW[l][t * Kin + i][n] = sum_r gelu(A_l)(r + shift_t, i) * G_l[r][n] over
-// the rows of split s, for i in the block's tile; A_l is src's level l (or
-// with src0, level l's input: src0 at l = 0, else src's level l - 1).
-struct WgArgs {
-  const float* src0;
-  const float* src;  // [L, R, Kin]
-  const float* gs;   // [L, R, N]
-  int Kin, k, S;
-  float* out;        // S == 1: [L, k*k*Kin, N]; else partials [L, S, ...]
-  Geo g;
-};
-
-template <int N>
-__global__ void __launch_bounds__(kThreads) wgrad(const WgArgs p) {
-  using T = Tile<N>;
-  constexpr int TM = T::TM, LDA = T::LDA, TN = T::TN;
-  constexpr int RP = kThreads / TM;  // rows staged per pass
-  __shared__ __align__(16) float sA[kKC * LDA];
-  __shared__ __align__(16) float sB[kKC * N];
-  const Geo g = p.g;
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * TM, t = blockIdx.y;
-  const int l = blockIdx.z / p.S, s = blockIdx.z % p.S;
-  const size_t RK = (size_t)g.R * p.Kin;
-  const float* src = p.src0 ? (l ? p.src + (l - 1) * RK : p.src0) : p.src + l * RK;
-  const float* gl = p.gs + (size_t)l * g.R * N;
-  const int pad = p.k / 2;
-  const int dy = t / p.k - pad, dx = t % p.k - pad;
-  const int rbeg = s * kSplitRows;
-  const int rend = min(g.R, rbeg + kSplitRows);
-  const int m = tid % TM, kk0 = tid / TM;
-  const int i = i0 + m;
-  float acc[4][TN];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int u = 0; u < TN; ++u) acc[a][u] = 0.f;
-
-  for (int k0 = rbeg; k0 < rend; k0 += kKC) {
-#pragma unroll
-    for (int h = 0; h < kKC / RP; ++h) {
-      const int kk = kk0 + h * RP;
-      const int r = k0 + kk;
-      float v = 0.f;
-      if (r < rend && i < p.Kin) {
-        const int pos = r % g.HW;
-        const int yy = pos / g.W + dy, xx = pos % g.W + dx;
-        if (yy >= 0 && yy < g.H && xx >= 0 && xx < g.W)
-          v = gelu(src[(size_t)(r + dy * g.W + dx) * p.Kin + i]);
-      }
-      sA[kk * LDA + m] = v;
-    }
-    for (int q = tid; q < kKC * N; q += kThreads) {
-      const int kr = q / N, n = q % N;
-      const int r = k0 + kr;
-      sB[kr * N + n] = r < rend ? gl[(size_t)r * N + n] : 0.f;
-    }
-    __syncthreads();
-    mma_chunk<N>(acc, sA, sB);
-    __syncthreads();
-  }
-  const int tr = tid / T::NCG, tc = tid % T::NCG;
-  const size_t per = (size_t)p.k * p.k * p.Kin * N;
-  float* out = p.out + ((size_t)l * p.S + s) * per + (size_t)t * p.Kin * N;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = i0 + tr * 4 + a;
-    if (row >= p.Kin) continue;
-#pragma unroll
-    for (int u = 0; u < TN; ++u) out[(size_t)row * N + tc * TN + u] = acc[a][u];
-  }
-}
-
-// out[l][j] = sum_s part[l][s][j], in order of s.
-__global__ void reduce_splits(const float* __restrict__ part,
-                              float* __restrict__ out, int L, int S, size_t n) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)L * n) return;
-  const size_t l = idx / n, j = idx % n;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += part[(l * S + s) * n + j];
-  out[idx] = acc;
-}
-
-// db[l][c] = sum_r G[l][r][c]: block (32 columns, level), 8 row lanes each
-// summing every 8th row, then the lanes in order.
-__global__ void bias_grad(const float* __restrict__ gs, float* __restrict__ db,
-                          int R, int N) {
-  __shared__ float part[8][32];
-  const int col = threadIdx.x % 32, lane = threadIdx.x / 32;
-  const int c = blockIdx.x * 32 + col, l = blockIdx.y;
-  float acc = 0.f;
-  if (c < N)
-    for (int r = lane; r < R; r += 8) acc += gs[((size_t)l * R + r) * N + c];
-  part[lane][col] = acc;
-  __syncthreads();
-  if (lane == 0 && c < N) {
-    float s = 0.f;
-    for (int j = 0; j < 8; ++j) s += part[j][col];
-    db[(size_t)l * N + c] = s;
-  }
-}
-
-template <int N>
-void weight_grad(const WgArgs& base, float* dw, float* part, int L,
-                 cudaStream_t stream) {
-  WgArgs a = base;
-  a.out = a.S == 1 ? dw : part;
-  const dim3 grid((a.Kin + Tile<N>::TM - 1) / Tile<N>::TM, a.k * a.k, L * a.S);
-  wgrad<N><<<grid, kThreads, 0, stream>>>(a);
-  if (a.S > 1) {
-    const size_t n = (size_t)a.k * a.k * a.Kin * N;
-    const size_t total = (size_t)L * n;
-    reduce_splits<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(part, dw, L, a.S, n);
-  }
-}
-
 template <int C, int M>
 int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t stream) {
   auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
@@ -218,23 +101,25 @@ int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t stream) {
 
   WgArgs w{};
   w.g = g;
-  w.S = n_splits(g);
+  w.gelu = 1;
   // dw1: gelu(level input)^T dh1
-  w.src0 = in(X0); w.src = in(XOUT); w.gs = out(DH1); w.Kin = C; w.k = 1;
+  w.src0 = in(X0); w.src = in(XOUT); w.lsrc = RC; w.gs = out(DH1);
+  w.Kin = C; w.k = 1; w.rows = C;
   weight_grad<M>(w, out(DW1), out(PART), L, stream);
   // dw2, dw3: shifted gelu(h1), gelu(h2) against dh2, dh3
-  w.src0 = nullptr; w.src = in(H1); w.gs = out(DH2); w.Kin = M; w.k = k;
+  w.src0 = nullptr; w.src = in(H1); w.lsrc = RM; w.gs = out(DH2);
+  w.Kin = M; w.k = k; w.rows = k * k * M;
   weight_grad<M>(w, out(DW2), out(PART), L, stream);
   w.src = in(H2); w.gs = out(DH3);
   weight_grad<M>(w, out(DW3), out(PART), L, stream);
   // dw4: gelu(h3)^T d
-  w.src = in(H3); w.gs = dxs; w.k = 1;
+  w.src = in(H3); w.gs = dxs; w.k = 1; w.rows = M;
   weight_grad<C>(w, out(DW4), out(PART), L, stream);
 
-  bias_grad<<<dim3((M + 31) / 32, L), 256, 0, stream>>>(out(DH1), out(DB1), g.R, M);
-  bias_grad<<<dim3((M + 31) / 32, L), 256, 0, stream>>>(out(DH2), out(DB2), g.R, M);
-  bias_grad<<<dim3((M + 31) / 32, L), 256, 0, stream>>>(out(DH3), out(DB3), g.R, M);
-  bias_grad<<<dim3((C + 31) / 32, L), 256, 0, stream>>>(dxs, out(DB4), g.R, C);
+  launch_bias_grad(out(DH1), out(DB1), L, g.R, M, stream);
+  launch_bias_grad(out(DH2), out(DB2), L, g.R, M, stream);
+  launch_bias_grad(out(DH3), out(DB3), L, g.R, M, stream);
+  launch_bias_grad(dxs, out(DB4), L, g.R, C, stream);
   return (int)cudaGetLastError();
 }
 

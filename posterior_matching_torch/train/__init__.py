@@ -1,14 +1,19 @@
+from posterior_matching_torch.train.callbacks import (
+    Callback,
+    CheckpointCallback,
+    LearningRateLoggerCallback,
+)
 from posterior_matching_torch.train.state import (
     TrainState,
     load_train_state,
     save_train_state,
 )
 from posterior_matching_torch.train.trainer import (
-    CheckpointCallback,
     Trainer,
     pm_vdvae_trainer,
     pm_vqvae_trainer,
 )
 
-__all__ = ["CheckpointCallback", "TrainState", "Trainer", "load_train_state",
-           "pm_vdvae_trainer", "pm_vqvae_trainer", "save_train_state"]
+__all__ = ["Callback", "CheckpointCallback", "LearningRateLoggerCallback", "TrainState",
+           "Trainer", "load_train_state", "pm_vdvae_trainer", "pm_vqvae_trainer",
+           "save_train_state"]

@@ -47,12 +47,17 @@ class Adam:
         nu = self.nu[k].mul_(B2).add_((1.0 - B2) * (g * g))
         return (mu / c1) / (torch.sqrt(nu / c2) + EPS)
 
+    def _update(self, p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """The update of ``p`` before the schedule scales it: Adam's
+        direction ``u`` as it is (``ClippedAdam`` adds the decayed weights)."""
+        return u
+
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> None:
         """One update from ``grads`` (keyed like ``params``), in place."""
         lr, c1, c2 = self._advance()
         for k, p in self.params.items():
-            p.sub_(lr * self._direction(k, grads[k], c1, c2))
+            p.sub_(lr * self._update(p, self._direction(k, grads[k], c1, c2)))
 
     def state_dict(self) -> Dict[str, object]:
         return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
@@ -73,17 +78,15 @@ class ClippedAdam(Adam):
         super().__init__(params, schedule)
         self.max_norm, self.weight_decay = float(max_norm), float(weight_decay)
 
+    def _update(self, p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        return u + self.weight_decay * p if self.weight_decay and p.ndim != 1 else u
+
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> None:
         norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
         clip = ~(norm < self.max_norm)   # optax: keep g where norm < max_norm
-        lr, c1, c2 = self._advance()
-        for k, p in self.params.items():
-            g = torch.where(clip, (grads[k] / norm) * self.max_norm, grads[k])
-            u = self._direction(k, g, c1, c2)
-            if self.weight_decay and p.ndim != 1:
-                u = u + self.weight_decay * p
-            p.sub_(lr * u)
+        super().step({k: torch.where(clip, (g / norm) * self.max_norm, g)
+                      for k, g in grads.items()})
 
 
 def trainable_names(names: Sequence[str], frozen_prefixes: Sequence[str]):

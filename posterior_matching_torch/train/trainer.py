@@ -16,7 +16,11 @@ update step), for a ``torch.nn.Module``:
   gradient is not finite, and an EMA of the parameters is kept;
 - checkpoints are ``train_state.pkl`` files in the JAX package's layout
   (:func:`posterior_matching_torch.train.state.save_train_state`), which
-  the JAX package evaluates.
+  the JAX package evaluates;
+- :meth:`Trainer.fit` validates as the JAX trainer does (:612-661).
+
+A loss function returns the scalar loss, or ``(loss, metrics)`` with a
+dict of detached scalar metrics to log beside it.
 
 The TPU trainer's dispatch tools (``steps_per_call``, device-resident data,
 the packed-parameter codec) are not ported: they amortise host dispatch on
@@ -24,20 +28,23 @@ the TPU.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+import math
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from posterior_matching_torch.ops.gated_chain import _mix32_int
 from posterior_matching_torch.runtime import resolve_device
+from posterior_matching_torch.train.callbacks import Callback
 from posterior_matching_torch.train.optim import Adam, ClippedAdam, trainable_names
 from posterior_matching_torch.train.schedules import exponential_decay, linear_schedule
 from posterior_matching_torch.train.state import TrainState, save_train_state
 
 Batch = Dict[str, torch.Tensor]
-# loss_fn(model, batch, dropout_seed, training) -> scalar loss
-LossFn = Callable[[nn.Module, Batch, int, bool], torch.Tensor]
+# loss_fn(model, batch, seed, training) -> scalar loss, or (loss, metrics)
+LossFn = Callable[[nn.Module, Batch, int, bool], Any]
 # prologue_fn(batch, generator) -> batch, on the device
 PrologueFn = Callable[[Batch, torch.Generator], Batch]
 # to_trees(state_dict) -> (params, state) in the JAX package's layout
@@ -48,8 +55,21 @@ OptimizerFn = Callable[[Dict[str, torch.Tensor]], Adam]
 
 
 def derive_seed(seed: int, step: int, stream: int) -> int:
-    """A 31-bit seed for ``stream`` (0: dropout, 1: prologue) of a step."""
+    """A 31-bit seed for ``stream`` (0: dropout, 1: prologue, 2: the
+    validation at this step) of a step."""
     return _mix32_int(_mix32_int(_mix32_int(seed) ^ stream) ^ step) & 0x7FFFFFFF
+
+
+def _loss_and_metrics(out) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    return out if isinstance(out, tuple) else (out, {})
+
+
+def _aggregate(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
+    """Each metric's mean over the list (``trainer.py:665-674``)."""
+    if not metrics:
+        return {}
+    return {k: sum(float(m[k].float().mean()) for m in metrics) / len(metrics)
+            for k in metrics[0]}
 
 
 class Trainer:
@@ -68,7 +88,10 @@ class Trainer:
         device: Optional[str] = None,
     ):
         """``optimizer`` builds the optimizer from the trainable parameters;
-        ``device``: the GPU unless ``"cpu"`` (raises without a GPU)."""
+        with ``ema_rate`` an EMA of the parameters is kept, and validation
+        uses it (``use_ema_for_eval`` of the JAX trainer, which its one EMA
+        caller sets); ``device``: the GPU unless ``"cpu"`` (raises without
+        a GPU)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
@@ -109,17 +132,14 @@ class Trainer:
         """One update; returns the step's metrics (device tensors)."""
         if self.optimizer is None:
             self.init()
-        batch = {k: v.to(self.device) for k, v in batch.items()}
-        if self.prologue_fn is not None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(derive_seed(self.seed, self.step, 1))
-            batch = self.prologue_fn(batch, gen)
+        batch = self._prologue(batch, derive_seed(self.seed, self.step, 1))
         self.model.train()
-        loss = self.loss_fn(self.model, batch, derive_seed(self.seed, self.step, 0), True)
+        loss, aux = _loss_and_metrics(
+            self.loss_fn(self.model, batch, derive_seed(self.seed, self.step, 0), True))
         names = list(self.optimizer.params)
         grads = torch.autograd.grad(loss, [self.optimizer.params[n] for n in names])
         grads = dict(zip(names, grads))
-        metrics = {"loss": loss.detach()}
+        metrics = {**aux, "loss": loss.detach()}
         ok = True
         if self.skip_nonfinite:
             ok = bool(torch.isfinite(loss)) and all(
@@ -136,14 +156,59 @@ class Trainer:
         self.step += 1
         return metrics
 
+    def _prologue(self, batch: Batch, seed: int) -> Batch:
+        """The batch (tensors or numpy arrays) on the device, through the
+        prologue with a generator seeded by ``seed``."""
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        if self.prologue_fn is None:
+            return batch
+        return self.prologue_fn(batch, torch.Generator(device=self.device).manual_seed(seed))
+
+    @torch.no_grad()
+    def validate(self, batches: Iterable[Batch]) -> Dict[str, float]:
+        """The loss function's metrics (and ``loss``) averaged over
+        ``batches``, not training, with the EMA parameters where the
+        trainer keeps them. Batch ``i``'s prologue and loss draw from
+        seeds derived from (run seed, step, 2) and ``i``."""
+        if self.optimizer is None:
+            self.init()
+        params = dict(self.model.named_parameters())
+        kept = None
+        if self.ema_params is not None:
+            kept = {n: p.detach().clone() for n, p in params.items()}
+            for n, p in params.items():
+                p.copy_(self.ema_params[n])
+        try:
+            self.model.eval()
+            base, out = derive_seed(self.seed, self.step, 2), []
+            for i, batch in enumerate(batches):
+                batch = self._prologue(batch, derive_seed(base, i, 1))
+                loss, aux = _loss_and_metrics(
+                    self.loss_fn(self.model, batch, derive_seed(base, i, 0), False))
+                out.append({**aux, "loss": loss})
+        finally:
+            if kept is not None:
+                for n, p in params.items():
+                    p.copy_(kept[n])
+        return _aggregate(out)
+
     def fit(
         self,
         batches: Iterable[Batch],
         steps: int,
-        callbacks: Sequence[Callable[["Trainer", Dict[str, torch.Tensor]], None]] = (),
+        callbacks: Sequence[Any] = (),
+        val_batches: Optional[Iterable[Batch]] = None,
+        validation_freq: int = 1000,
     ) -> None:
-        """Steps until ``self.step == steps``, cycling through ``batches``;
-        each callback is called as ``cb(trainer, metrics)`` after a step."""
+        """Steps until ``self.step == steps``, cycling through ``batches``.
+        After each step every plain callable of ``callbacks`` is called as
+        ``cb(trainer, metrics)``. Every ``validation_freq`` steps and at the
+        last, as the JAX trainer (``trainer.py:612-661``): the step metrics
+        since the last validation averaged, ``steps_per_sec``, the ``val_``
+        metrics of :meth:`validate` over ``val_batches``, each
+        :class:`~posterior_matching_torch.train.callbacks.Callback`'s
+        ``on_validation_end(train_state, step, logs)``, then prints one line
+        ``[step s/S] k=v ...``."""
         if self.optimizer is None:
             self.init()
 
@@ -156,11 +221,28 @@ class Trainer:
                 if empty:
                     raise ValueError("empty dataset")
 
-        it = forever()
+        per_step = [cb for cb in callbacks if not isinstance(cb, Callback)]
+        on_validation = [cb for cb in callbacks if isinstance(cb, Callback)]
+        it, pending, since, t_start = forever(), [], 0, time.time()
         while self.step < steps:
             metrics = self.train_step(next(it))
-            for cb in callbacks:
+            for cb in per_step:
                 cb(self, metrics)
+            pending.append(metrics)
+            since += 1
+            if self.step % validation_freq and self.step != steps:
+                continue
+            logs = _aggregate(pending)
+            logs["steps_per_sec"] = since / max(time.time() - t_start, 1e-9)
+            if val_batches is not None:
+                logs.update({f"val_{k}": v for k, v in self.validate(val_batches).items()})
+            if on_validation:
+                state = self.train_state()
+                for cb in on_validation:
+                    cb.on_validation_end(state, self.step, logs)
+            print(f"[step {self.step}/{steps}] "
+                  + " ".join(f"{k}={v:.5g}" for k, v in sorted(logs.items())), flush=True)
+            pending, since, t_start = [], 0, time.time()
 
     def train_state(self) -> TrainState:
         """The state as the JAX package's ``TrainState`` holds it."""
@@ -182,17 +264,6 @@ class Trainer:
 
     def save_checkpoint(self, path: str) -> None:
         save_train_state(path, self.train_state())
-
-
-class CheckpointCallback:
-    """Writes ``train_state.pkl`` every ``every`` steps."""
-
-    def __init__(self, path: str, every: int):
-        self.path, self.every = path, every
-
-    def __call__(self, trainer: Trainer, metrics) -> None:
-        if trainer.step % self.every == 0:
-            trainer.save_checkpoint(self.path)
 
 
 def pm_vqvae_loss(model, batch: Batch, seed: int, training: bool) -> torch.Tensor:
@@ -222,16 +293,25 @@ def pm_vqvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     )
 
 
-def pm_vdvae_loss(model, batch: Batch, noise, training: bool = True) -> torch.Tensor:
-    """``-mean(reconstruction_ll - kl) + mean(pm_kl)``
-    (``train_pm_vdvae.py:135-150``). ``noise``: an int seeds a generator on
-    the model's device; a generator or an iterator of normals is used as
-    given."""
+def pm_vdvae_metrics(model, batch: Batch, noise, training: bool = True):
+    """The loss ``-mean(reconstruction_ll - kl) + mean(pm_kl)`` and the
+    metrics ``reconstruction_ll``, ``kl``, ``pm_kl`` (batch means) and
+    ``bpd`` (``train_pm_vdvae.py:135-150``). ``noise``: an int seeds a
+    generator on the model's device; a generator or an iterator of normals
+    is used as given."""
     if isinstance(noise, int):
         noise = torch.Generator(device=model.device).manual_seed(noise)
     out = model(batch["image"], batch["mask"], noise)
     elbo = (out["reconstruction_ll"] - out["kl"]).mean()
-    return -elbo + out["pm_kl"].mean()
+    loss = -elbo + out["pm_kl"].mean()
+    metrics = {k: out[k].detach().mean() for k in ("reconstruction_ll", "kl", "pm_kl")}
+    metrics["bpd"] = -elbo.detach() / (math.prod(model.image_shape) * math.log(2))
+    return loss, metrics
+
+
+def pm_vdvae_loss(model, batch: Batch, noise, training: bool = True) -> torch.Tensor:
+    """The loss of :func:`pm_vdvae_metrics` alone."""
+    return pm_vdvae_metrics(model, batch, noise, training)[0]
 
 
 def pm_vdvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
@@ -240,7 +320,8 @@ def pm_vdvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     clipped Adam chain under a constant rate (or a linear warm-up), updates
     skipped when the loss or a raw gradient is not finite, an EMA of the
     parameters, masks added on the device by ``mask_fn`` (or passed in each
-    batch when None), checkpoints in the JAX package's layout."""
+    batch when None), the EMA parameters for validation, checkpoints in the
+    JAX package's layout."""
     from posterior_matching_torch.convert import pm_vdvae_trees
     from posterior_matching_torch.masking import add_mask
 
@@ -255,7 +336,7 @@ def pm_vdvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     if mask_fn is not None:
         prologue = lambda batch, gen: add_mask(batch, gen, mask_fn)
     return Trainer(
-        model, pm_vdvae_loss, optimizer=optimizer, prologue_fn=prologue, seed=seed,
+        model, pm_vdvae_metrics, optimizer=optimizer, prologue_fn=prologue, seed=seed,
         skip_nonfinite_updates=True, ema_rate=cfg.get("ema_rate", 0.999),
         to_trees=lambda sd: (pm_vdvae_trees(sd), {}), device=device, **kwargs,
     )

@@ -1,10 +1,11 @@
 """Import hygiene and device policy of the PyTorch port.
 
-The port and ``chip_smoke.py`` run on a machine without JAX, flax,
-ml_collections, PIL, absl or tqdm, so none of them (nor the JAX package) may
-be imported; Triton is imported only inside the function that launches a
-kernel, never at module level. Entry points run on the GPU unless the caller
-asks for the CPU: without a GPU they raise.
+The port (its ``data`` modules and training CLI too) and ``chip_smoke.py``
+run on a machine without JAX, flax, ml_collections, PIL, absl or tqdm, so
+none of them (nor the JAX package) may be imported; Triton is imported only
+inside the function that launches a kernel, never at module level. Entry
+points run on the GPU unless the caller asks for the CPU: without a GPU
+they raise.
 """
 import ast
 from pathlib import Path
@@ -12,7 +13,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from posterior_matching_torch import masking, runtime
+from posterior_matching_torch import masking, runtime, train_pm_vdvae
 from posterior_matching_torch.config import (
     PM_VDVAE_MNIST,
     PM_VDVAE_MNIST_TRAIN,
@@ -94,10 +95,20 @@ def test_vdvae_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
         pm_vdvae_trainer(model, PM_VDVAE_MNIST_TRAIN)
     assert pm_vdvae_trainer(model, PM_VDVAE_MNIST_TRAIN, device="cpu").device == torch.device("cpu")
     masking.get_mask_generator("MNISTMaskGenerator", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_pm_vdvae.main(["--config", "pm_vdvae_mnist", "--config.steps", "1"])
+
+
+def test_vdvae_fused_chain_options_are_taken():
+    for option in (None, True, False):
+        model = PosteriorMatchingVDVAE.from_config(dict(PM_VDVAE_MNIST, fused_chain=option),
+                                                   device="cpu")
+        assert model.decoder.fused == (option is True)
+        assert model.encoder.chain == model.masked_encoder.chain == (option is not False)
 
 
 @pytest.mark.parametrize("option", [{"compute_dtype": "bfloat16"}, {"remat": True},
-                                    {"fused_chain": True}])
+                                    {"fused_chain": "interpret"}])
 def test_vdvae_tpu_options_are_refused(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         PosteriorMatchingVDVAE.from_config(dict(PM_VDVAE_MNIST, **option), device="cpu")

@@ -6,10 +6,13 @@ are small but cover what the full-width smoke run does not: widths that do
 not divide the vrow kernel's 32 row slots, sample counts that leave a
 block's tile ragged, two logits chunks; row counts that leave the gated
 chain's 32-row tiles ragged, grids other than square; latent counts that
-leave the search's 32-row tiles ragged; block-chain runs whose rows leave
-the 64- and 32-row tiles ragged, 1x1 and 3x3 taps at the image's edges, and
-a run long enough that its weight gradients sum two 1024-row splits, each at
-both compiled (width, mid) pairs.
+leave the search's 32-row tiles ragged; block-chain and decoder-chain runs
+whose rows leave the 32- to 256-row tiles ragged, 1x1 and 3x3 taps at the
+image's edges, and runs long enough that their weight gradients sum two
+1024-row splits, each at both compiled geometries; the decoder chain's
+backward with every output's cotangent and with the state's alone; and a
+digits16 PM-VDVAE step, with the block chain and with the decoder chain
+too, against the CPU.
 Tolerance: 1e-4 relative to the tensor's scale (float32 sums in another
 order), for the chains' gradients too (their sums run over at most a few
 thousand rows here).
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from posterior_matching_torch.ops import block_chain as bc
+from posterior_matching_torch.ops import decoder_chain as dc
 from posterior_matching_torch.ops import gated_chain as gc
 from posterior_matching_torch.ops import sampler_chain as sc
 from posterior_matching_torch.ops import vq
@@ -219,27 +223,89 @@ DIGITS16 = {"image_shape": (16, 16, 1), "encoder_blocks": "16x3,16d2,8x3,8d2,4x2
             "bottleneck_multiple": 0.25, "no_bias_above": 32, "num_mixtures": 5}
 
 
-def test_pm_vdvae_digits16_step_matches_cpu(dev):
+def _decoder_chain_case(gen, b, h, w, L, k, c, m, ld):
+    weights = {n: _rand(gen, L, *s, scale=s[0] ** -0.5)
+               for n, s in dc.weight_shapes(c, c, m, ld, k)}
+    ins = [_rand(gen, b, h, w, c) for _ in range(3)]
+    return ins, _rand(gen, L, b, h, w, ld), weights
+
+
+@pytest.mark.parametrize("c,m,ld", dc.KERNEL_GEOMETRIES)
+@pytest.mark.parametrize("b,h,w,L,k,all_cots", [
+    (2, 7, 5, 3, 3, True), (8, 1, 1, 2, 1, True), (20, 9, 9, 2, 3, True),
+    (2, 7, 5, 2, 3, False)])
+def test_decoder_chain_kernels_match_plain(dev, b, h, w, L, k, all_cots, c, m, ld):
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + h + L + c)
+    (x0, acts, macts), eps, weights = _decoder_chain_case(gen, b, h, w, L, k, c, m, ld)
+    leaves = [x0, acts, macts, *(weights[n] for n in dc.NAMES)]
+    for t in leaves:
+        t.requires_grad_(True)
+    f0, b0 = dc.dec_fwd.launches, dc.dec_bwd.launches
+    got = dc.dec_chain(x0, acts, macts, eps, weights, mid=m, ld=ld, k=k)
+    want = dc.dec_chain_plain(x0, acts, macts, eps, weights, ld=ld, k=k)
+    for name, g_, w_ in zip(("x_final", "post", "prior", "masked"), got, want):
+        assert g_.shape == w_.shape and _close(g_, w_), name
+    # with all_cots every output carries a cotangent; else x_final's alone,
+    # and the backward sees zeros for the heads
+    outs = (got, want) if all_cots else ((got[0],), (want[0],))
+    cots = [_rand(gen, *t.shape) for t in outs[1]]
+    grads_k = torch.autograd.grad(outs[0], leaves, cots)
+    torch.cuda.synchronize()
+    assert dc.dec_fwd.launches == f0 + 1 and dc.dec_bwd.launches == b0 + 1
+    # the masked Block's weights and macts reach only `masked`: without its
+    # cotangent their gradients are zero
+    grads_p = torch.autograd.grad(outs[1], leaves, cots, allow_unused=True)
+    for name, gk, gp, t in zip(("x0", "acts", "macts", *dc.NAMES), grads_k, grads_p, leaves):
+        assert _close(gk, torch.zeros_like(t) if gp is None else gp), name
+
+
+def test_decoder_chain_wrappers_refuse_unsupported_inputs(dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    (x0, acts, macts), eps, weights = _decoder_chain_case(gen, 2, 4, 4, 2, 3, 192, 48, 16)
+    with pytest.raises(ValueError, match="width"):
+        dc.dec_chain(x0, acts, macts, eps, weights, mid=40, ld=16, k=3)
+    with pytest.raises(ValueError, match="as wide as the state"):
+        dc.dec_chain(x0, acts[..., :64].contiguous(), macts, eps, weights, mid=48, ld=16, k=3)
+    with pytest.raises(ValueError, match="q_w4"):
+        dc.dec_chain(x0, acts, macts, eps, dict(weights, q_w4=weights["q_w4"][..., :100]),
+                     mid=48, ld=16, k=3)
+
+
+# configs/pm_vdvae_digits16.py's model block: the width-64 geometry of the
+# chain kernels, at every run shape of its encoder and decoder.
+DIGITS16 = {"image_shape": (16, 16, 1), "encoder_blocks": "16x3,16d2,8x3,8d2,4x2,4d4,1x2",
+            "decoder_blocks": "1x2,4m1,4x2,8m4,8x3,16m8,16x3", "latent_dim": 8, "width": 64,
+            "bottleneck_multiple": 0.25, "no_bias_above": 32, "num_mixtures": 5}
+
+
+@pytest.mark.parametrize("fused_chain", [None, True])
+def test_pm_vdvae_digits16_step_matches_cpu(dev, fused_chain):
+    """The loss and gradients of a digits16 step through the kernels against
+    the plain path on the CPU, the same normals: 4 block-chain runs in each
+    encoder and, fused, 3 decoder runs (the 1x2 run's 4 rows stay unfused)."""
     from posterior_matching_torch import convert
     from posterior_matching_torch.models.vdvae import parse_layer_string
     from posterior_matching_torch.train.trainer import pm_vdvae_loss
 
-    tree = convert.random_pm_vdvae_tree(DIGITS16, seed=5)
+    config = dict(DIGITS16, fused_chain=fused_chain)
+    tree = convert.random_pm_vdvae_tree(config, seed=5)
     g = torch.Generator().manual_seed(6)
     x = torch.randint(0, 256, (4, 16, 16, 1), generator=g).float()
     b = (torch.rand(4, 16, 16, 1, generator=g) > 0.5).float()
     eps = [torch.randn(4, r, r, 8, generator=g)
            for r, _ in parse_layer_string(DIGITS16["decoder_blocks"])]
+    counters = (bc.chain_fwd, bc.chain_bwd, dc.dec_fwd, dc.dec_bwd)
     out = {}
     for d in (dev, torch.device("cpu")):
-        m = convert.pm_vdvae_from_jax(tree, DIGITS16, device=d)
-        f0, b0 = bc.chain_fwd.launches, bc.chain_bwd.launches
+        m = convert.pm_vdvae_from_jax(tree, config, device=d)
+        before = [c.launches for c in counters]
         loss = pm_vdvae_loss(m, {"image": x.to(d), "mask": b.to(d)}, iter(eps))
         grads = torch.autograd.grad(loss, list(m.parameters()))
         out[d.type] = (loss.item(), [gr.cpu() for gr in grads],
-                       bc.chain_fwd.launches - f0, bc.chain_bwd.launches - b0)
-    (lg, gg, fg, bg), (lc, gc_, _, _) = out["cuda"], out["cpu"]
-    assert (fg, bg) == (8, 8)   # 4 runs of 2+ blocks, both encoders
+                       [c.launches - n for c, n in zip(counters, before)])
+    (lg, gg, launches), (lc, gc_, _) = out["cuda"], out["cpu"]
+    dec = 3 if fused_chain else 0
+    assert launches == [8, 8, dec, dec]   # 4 runs of 2+ blocks, both encoders
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for a, w in zip(gg, gc_):
         assert _close(a, w)
