@@ -1,17 +1,20 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU.
 
-Runs the port's two PM-VQVAE CelebA paths at the flagship's full width,
-imputation and stage-2 training, then PM-VDVAE MNIST's three paths at the
-full width of ``configs/pm_vdvae_mnist.py`` (imputation, likelihood,
-training), and checks them, in these phases:
+Runs the port's PM-VQVAE paths at the flagship CelebA width (imputation and
+stage-2 training through each of the PixelCNN chain's three kernel
+granularities), the PM-VQVAE MNIST training pipeline from the command line
+(stage 1, then stage 2), then PM-VDVAE MNIST's three paths at the full
+width of ``configs/pm_vdvae_mnist.py`` (imputation, likelihood, training),
+and checks them, in these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
-2. all nine kernels (``posterior_matching_torch/ops/csrc``) are built from
-   this checkout's sources, one ``nvcc`` each, in parallel; both row-sampler
-   kernels are launched at the imputation path's shapes (n = 32 images x 10
-   samples, F = 128, L = 24, 16 x 16 codes, K = 512) and held against their
-   plain PyTorch versions on the same inputs; each is timed with CUDA events
-   beside its bound;
+2. all thirteen kernels (``posterior_matching_torch/ops/csrc``; the pair
+   and segment kernels share a source per direction) are built from this
+   checkout's sources, one ``nvcc`` per source, in parallel; both
+   row-sampler kernels are launched at the imputation path's shapes (n = 32
+   images x 10 samples, F = 128, L = 24, 16 x 16 codes, K = 512) and held
+   against their plain PyTorch versions on the same inputs; each is timed
+   with CUDA events beside its bound;
 3. imputation: three requests of 32 seeded 64x64x3 images with CelebA
    masks, 10 samples each, through ``pm_vqvae_impute`` with weights from
    ``--seed`` (a JAX-layout tree sent through ``convert.py``) or from
@@ -21,19 +24,32 @@ training), and checks them, in these phases:
 4. the codebook search kernel against its plain version at the training
    path's shapes (8192 latents of 64, 512 codes), and on exact ties;
 5. the gated chain kernels (forward and backward) against autograd through
-   the plain chain at full width, for the up and the down pass (B = 32,
-   16 x 16, F = 128, cond 512, L = 12, keep 0.5, masks from the in-kernel
-   hash), each timed beside its bound;
-6. training: 8 steps of the stage-2 ``Trainer`` (``fit``, with a checkpoint
-   callback) at full width on seeded batches with dropout 0.5, then one
-   profiled step (device time by kernel group, the device's idle share);
-   the three training kernels' counters must be
-   > 0 on every step; the VQ-VAE must stay bit for bit frozen, every
-   trainable tensor must move, the eval loss of a fixed batch must drop; a
-   small model's step on the GPU must match the plain path's on the CPU;
-   the checkpoint must load back through ``load_pm_vqvae`` and serve an
+   the plain chain at full width (B = 32, 16 x 16, F = 128, cond 512,
+   keep 0.5, masks from the in-kernel hash): the stream's for the up and the
+   down pass (L = 12), the pair's for an up and a down level, the
+   segment's for an up and a down segment of 4 levels; each timed beside
+   its bound;
+6. the first training step at full width with ``chain_segment`` "stream",
+   1, 4 and 5: equal losses and gradients, each mode's launches as
+   expected;
+7. training, once per mode ("stream", 1, 4) from the same weights: 8 steps
+   of the stage-2 ``Trainer`` (``fit``, with a checkpoint callback) on the
+   same seeded batches with dropout 0.5, then one profiled step (device
+   time by kernel group, the device's idle share); each step's launches
+   exactly the mode's (2 + 2 stream, 24 + 24 pair, 6 + 6 segment, 1 search;
+   none of the other modes'); the VQ-VAE bit for bit frozen, every
+   trainable tensor moved, the eval loss of a fixed batch lowered; a small
+   model's step through the mode's kernels equal to the plain path's on
+   the CPU; the checkpoint loaded back through ``load_pm_vqvae`` to serve an
    imputation request;
-7. PM-VDVAE (width 192, latent 16, 20 encoder and 20 decoder blocks,
+8. the PM-VQVAE training CLIs in this process on small synthetic MNIST
+   files (512 training and 64 test images), at the full widths of
+   ``configs/vqvae_mnist.py`` and ``configs/pm_vqvae_mnist.py``:
+   ``train_vqvae``, then ``train_pm_vqvae --chain_segment 4`` reading its run
+   directory, 4 steps and two validations each; the run directories, the
+   segment launches, stage 1's VQ-VAE unchanged in stage 2's checkpoint,
+   which serves an imputation;
+9. PM-VDVAE (width 192, latent 16, 20 encoder and 20 decoder blocks,
    weights from ``--seed`` through ``convert.random_pm_vdvae_tree`` or from
    ``--vdvae_run_dir``): the block-chain kernels (forward and backward)
    against autograd through the plain chain at the five encoder run shapes
@@ -46,7 +62,7 @@ training), and checks them, in these phases:
    lowered, every tensor moved, a small step on the GPU equal to the plain
    path's on the CPU, the checkpoint reloaded through ``load_pm_vdvae``,
    then one profiled step;
-8. PM-VDVAE training through the fused decoder chain (``fused_chain=True``,
+10. PM-VDVAE training through the fused decoder chain (``fused_chain=True``,
    the same weights): the decoder-chain kernels (forward and backward)
    against autograd through the plain chain at the five decoder run shapes
    of a training batch of 16, with a random cotangent on each of the four
@@ -56,12 +72,13 @@ training), and checks them, in these phases:
    backward decoder-chain launches each, and the block chain's 10 + 10),
    the eval loss lowered, every tensor moved, a small digits16-width fused
    step on the GPU equal to the plain path's on the CPU, one profiled step;
-9. the training CLI, ``posterior_matching_torch.train_pm_vdvae``, at full
+11. the training CLI, ``posterior_matching_torch.train_pm_vdvae``, at full
    width with ``fused_chain=True`` on small synthetic MNIST files (512
    training and 64 test images): 4 steps, two validations of 4 batches; its
-   run directory, its ``val_loss`` lines, its decoder-chain launches and its
+   run directory, its ``model_config.json`` (the config file's model keys
+   only), its ``val_loss`` lines, its decoder-chain launches and its
    checkpoint, reloaded through ``load_pm_vdvae`` to serve an imputation;
-10. one JSON line of per-kernel numbers, the card's name and power limit,
+12. one JSON line of per-kernel numbers, the card's name and power limit,
    and the result line.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--vdvae_run_dir
@@ -226,15 +243,24 @@ def vq_phase(model, x):
 # ---------------------------------------------------------------------------
 
 
-def stream_work(cfg, w, fwd_bytes, bwd_bytes):
-    """Operations of one forward and one backward launch (the backward does
-    each product twice: data and weight gradients)."""
-    f, tv = cfg.f, cfg.taps_v.skh * cfg.taps_v.skw
-    th = cfg.taps_h.skh * cfg.taps_h.skw
-    per_row = (tv + th) * (2 * f * f + 4 * f * f) + 2 * f * f
+def in_image_taps(tp, h, w):
+    """The (position, tap) pairs of an ``h x w`` image whose tap lands inside
+    the image (a tap outside reads the zero padding and adds nothing)."""
+    return sum(max(h - abs(i - tp.pad_top), 0) * max(w - abs(j - tp.pad_left), 0)
+               for i in range(tp.skh) for j in range(tp.skw))
+
+
+def stream_work(cfg, fwd_bytes, bwd_bytes):
+    """Operations of one forward and one backward launch of ``cfg``'s levels
+    (the backward does each product twice: data and weight gradients): each
+    block's conv_a ([2F, F]) and conv_b ([2F, 2F]) at its in-image taps, the
+    aux products ([2F, F]) at every row, the cond projections."""
+    f, hw = cfg.f, cfg.h * cfg.w
+    taps = in_image_taps(cfg.taps_v, cfg.h, cfg.w) + in_image_taps(cfg.taps_h, cfg.h, cfg.w)
+    per_image = taps * (2 * f * f + 4 * f * f) + hw * (2 * f * f)
     if cfg.down:
-        per_row += 2 * (2 * f * f)
-    mm = 2.0 * cfg.rows * cfg.n_levels * per_row
+        per_image += hw * 2 * (2 * f * f)
+    mm = 2.0 * cfg.b * cfg.n_levels * per_image
     proj = 2.0 * 2 * cfg.n_levels * cfg.b * cfg.cd * 2 * f
     return (mm + proj, fwd_bytes), (2 * mm + 2 * proj, bwd_bytes)
 
@@ -324,7 +350,7 @@ def stream_phase(model, x, b, seed):
         fwd_bytes = nbytes(xv0, xh0, cond, *w.values(), *(sk or ()),
                            *(saves[k] for k in ("xvo", "xho", "a1v", "a1h", "b1v", "b1h")))
         bwd_bytes = nbytes(gv, gh, *saved.values(), *w_nb.values(), *grads.values())
-        (ff, fb), (bf, bb) = stream_work(cfg, w, fwd_bytes, bwd_bytes)
+        (ff, fb), (bf, bb) = stream_work(cfg, fwd_bytes, bwd_bytes)
         results[direction] = {
             "fwd": (fwd_err, fwd_ms, fwd_plain, ff, fb),
             "bwd": (bwd_err, bwd_ms, bwd_plain, bf, bb),
@@ -354,26 +380,215 @@ def stream_phase(model, x, b, seed):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: training
+# Phase 6: the pair and segment kernels, the chain modes' first step
+# ---------------------------------------------------------------------------
+
+SEGMENT = 4   # the segment length of the kernel comparisons and training
+
+
+def level_phase(model, x, b, seed):
+    """The pair and segment kernels (forward and backward) against autograd
+    through their plain versions at full width: an up and a down pair
+    (levels 0 of each pass), an up and a down segment of SEGMENT levels, with
+    in-kernel hash dropout and a random cotangent on every output; each
+    timed beside its bound."""
+    from posterior_matching_torch.ops import gated_chain as gc
+
+    pc = model.pixel_cnn
+    n, f, rf = pc.num_resnet, pc.num_filters, pc.receptive_field_dims
+    keep = 1.0 - pc.dropout
+    taps = gc.chain_taps(rf)
+    with torch.no_grad():
+        codes = model.vqvae.encoding_indices(x)
+        cond = model.conditional_latents(x, b).contiguous()
+        xv0, xh0 = (t.contiguous() for t in pc.init_stacks(codes))
+        up_w = gc.stack_levels([gc.pack_level(pc.layers, "up", p, f, False, rf)
+                                for p in range(n)])
+        up_v, up_h = gc.gated_stream(xv0, xh0, None, cond, up_w, seed=seed, base_pair=0,
+                                     keep=keep, taps=taps)
+    xs_v, xs_h = [xv0, *up_v], [xh0, *up_h]
+    gen = torch.Generator(device=x.device).manual_seed(seed + 31)
+    kinds = {"pair": ((gc.pair_fwd, gc.pair_bwd), 1), "segment": ((gc.seg_fwd, gc.seg_bwd), SEGMENT)}
+    results = {k: {} for k in kinds}
+    for kind, ((fwd, bwd), n_lvl) in kinds.items():
+        for direction in ("up", "dn"):
+            down = direction == "dn"
+            base = n if down else 0
+            with torch.no_grad():
+                ws = [{k: v.detach().contiguous() for k, v in
+                       gc.pack_level(pc.layers, direction, p, f, down, rf).items()}
+                      for p in range(n_lvl)]
+            xv, xh = (xs_v[n], xs_h[n]) if down else (xv0, xh0)
+            sk = [(xs_v[n - 1 - p].contiguous(), xs_h[n - 1 - p].contiguous())
+                  for p in range(n_lvl)] if down else None
+            leaves = [t.detach().clone().requires_grad_(True) for t in
+                      (xv, xh, cond, *(t for w in ws for t in w.values()),
+                       *(t for pair in (sk or ()) for t in pair))]
+            lxv, lxh, lcond = leaves[:3]
+            it = iter(leaves[3:])
+            lws = [{k: next(it) for k in w} for w in ws]
+            lsk = [(next(it), next(it)) for _ in range(n_lvl)] if down else None
+            kw = dict(seed=seed, base_pair=base, keep=keep, taps=taps)
+            if kind == "pair":
+                pk = dict(seed=seed, pair_index=base, keep=keep, taps=taps)
+                got = [gc.gated_pair(lxv, lxh, lsk and lsk[0], lcond, lws[0], **pk)]
+                want = [gc.gated_pair_plain(lxv, lxh, lsk and lsk[0], lcond, lws[0], **pk)]
+            else:
+                got = gc.gated_segment(lxv, lxh, lsk, lcond, lws, **kw)
+                want = gc.gated_segment_plain(lxv, lxh, lsk, lcond, lws, **kw)
+            got = [t for pair in got for t in pair]
+            want = [t for pair in want for t in pair]
+            torch.cuda.synchronize()
+            fwd_err = 0.0
+            for i, (g_, w_) in enumerate(zip(got, want)):
+                err, rel = rel_err(g_, w_)
+                fwd_err = max(fwd_err, err)
+                check(rel <= STREAM_TOL, f"gated_{kind}_fwd {direction} output {i}: {rel:.3e}")
+            cot = [torch.randn(t.shape, generator=gen, device=t.device) for t in want]
+            gk = torch.autograd.grad(got, leaves, cot)
+            gp = torch.autograd.grad(want, leaves, cot, retain_graph=True)
+            torch.cuda.synchronize()
+            bwd_err, worst = 0.0, (0.0, -1)
+            for i, (a, c) in enumerate(zip(gk, gp)):
+                err, rel = rel_err(a, c)
+                bwd_err = max(bwd_err, err)
+                worst = max(worst, (rel, i))
+                check(rel <= GRAD_TOL, f"gated_{kind}_bwd {direction} gradient {i}: {rel:.3e}")
+            log(f"gated_{kind} {direction} (L = {n_lvl}): {len(got)} outputs max abs err "
+                f"{fwd_err:.3e}; {len(gk)} gradients max abs err {bwd_err:.3e}, worst "
+                f"relative to scale {worst[0]:.3e}")
+
+            # times of the wrappers (one launch each) and of the plain versions
+            cfg = gc.StreamConfig(xv, cond, n_lvl, down, keep, seed, base, taps)
+            gs = [(c1.contiguous(), c2.contiguous()) for c1, c2 in zip(cot[::2], cot[1::2])]
+            with torch.no_grad():
+                saves = fwd(cfg, xv, xh, sk, cond, ws)
+                fwd_ms = time_ms(lambda: fwd(cfg, xv, xh, sk, cond, ws), reps=10, warmup=2)
+                bwd_ms = time_ms(lambda: bwd(cfg, gs, xv, xh, cond, sk, saves, ws), reps=10,
+                                 warmup=2)
+                plain = lambda: gc.gated_segment_plain(xv, xh, sk, cond, ws, **kw)
+                fwd_plain = time_ms(plain, reps=3)
+            bwd_plain = time_ms(lambda: torch.autograd.grad(want, leaves, cot, retain_graph=True),
+                                reps=3)
+            head, grads = bwd(cfg, gs, xv, xh, cond, sk, saves, ws)
+            ins = (xv, xh, cond, *(t for w in ws for t in w.values()),
+                   *(t for pair in (sk or ()) for t in pair))
+            fwd_bytes = nbytes(*ins, *(t for s_ in saves for t in s_.values()))
+            bwd_bytes = nbytes(*(t for pair in gs for t in pair), *ins,
+                               *(t for s_ in saves for t in s_.values()),
+                               *head.values(), *(t for g_ in grads for t in g_.values()))
+            (ff, fb), (bf, bb) = stream_work(cfg, fwd_bytes, bwd_bytes)
+            results[kind][direction] = {"fwd": (fwd_err, fwd_ms, fwd_plain, ff, fb),
+                                        "bwd": (bwd_err, bwd_ms, bwd_plain, bf, bb)}
+            for k2, (_, ms, pms, fl, by) in results[kind][direction].items():
+                b_ms, b_by = bound(fl, by)
+                log(f"gated_{kind}_{k2} {direction}: {ms:.4f} ms/launch (plain {pms:.3f}), bound "
+                    f"{b_ms:.4f} ms by {b_by} ({fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB)")
+            del got, want, gk, gp, saves, grads, head
+    out = []
+    for kind, lines in (("pair", (("fwd", 305), ("bwd", 368))),
+                        ("segment", (("fwd", 801), ("bwd", 861)))):
+        for k2, line in lines:
+            per = [results[kind][d][k2] for d in ("up", "dn")]
+            b_ms, b_by = bound(sum(p[3] for p in per) / 2, sum(p[4] for p in per) / 2)
+            out.append({
+                "name": f"gated_{kind}_{k2}", "route": "cuda",
+                "source": f"posterior_matching_torch/ops/csrc/gated_levels_{k2}.cu",
+                "replaces": f"posterior_matching_tpu/ops/gated_chain.py:{line}",
+                "max_abs_err": max(p[0] for p in per),
+                # per launch: the mean of the up and the down call
+                "ms": sum(p[1] for p in per) / 2, "plain_ms": sum(p[2] for p in per) / 2,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "per_pass": {d: {"levels": kinds[kind][1], "ms": results[kind][d][k2][1],
+                                 "plain_ms": results[kind][d][k2][2],
+                                 "gflop": results[kind][d][k2][3] / 1e9,
+                                 "mb": results[kind][d][k2][4] / 1e6} for d in ("up", "dn")},
+            })
+    return out
+
+
+def chain_counters():
+    """The PM-VQVAE training kernels' wrappers, whose ``launches`` count
+    them."""
+    from posterior_matching_torch.ops import gated_chain as gc
+    from posterior_matching_torch.ops import vq
+
+    return {"vq_search": vq.nearest_codebook_indices,
+            "gated_stream_fwd": gc.stream_fwd, "gated_stream_bwd": gc.stream_bwd,
+            "gated_pair_fwd": gc.pair_fwd, "gated_pair_bwd": gc.pair_bwd,
+            "gated_segment_fwd": gc.seg_fwd, "gated_segment_bwd": gc.seg_bwd}
+
+
+def mode_launches(chain_segment, n):
+    """The chain kernels' launches of one training step (a forward and a
+    backward of the up and the down pass) with ``chain_segment``."""
+    if chain_segment == "stream":
+        kind, per_pass = "stream", 1
+    else:
+        kind = "pair" if chain_segment == 1 else "segment"
+        per_pass = -(-n // chain_segment)
+    return {"vq_search": 1, f"gated_{kind}_fwd": 2 * per_pass, f"gated_{kind}_bwd": 2 * per_pass}
+
+
+def modes_step_check(model, batch, seed, modes=("stream", 1, SEGMENT, 5)):
+    """The first training step at full width with each chain mode on the
+    same batch and dropout seed: the loss within 1e-5 relative and every
+    trainable gradient within GRAD_TOL of its scale of the stream's, each
+    mode's chain launches as expected."""
+    from posterior_matching_torch.train.trainer import pm_vqvae_loss
+
+    pc = model.pixel_cnn
+    counters = chain_counters()
+    names, params = zip(*[(n_, p) for n_, p in model.named_parameters()
+                          if not n_.startswith("vqvae.")])
+    out = {}
+    for mode in modes:
+        pc.chain_segment = mode
+        before = {k: c.launches for k, c in counters.items()}
+        loss = pm_vqvae_loss(model, batch, seed, True)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        launched = {k: c.launches - before[k] for k, c in counters.items()}
+        want = mode_launches(mode, pc.num_resnet)
+        check(all(launched[k] == want.get(k, 0) for k in launched),
+              f"chain_segment={mode} launched {launched}, not {want}")
+        out[mode] = (loss.item(), dict(zip(names, grads)))
+    pc.chain_segment = "stream"
+    ls, gs = out["stream"]
+    summary = {}
+    for mode in modes[1:]:
+        lm, gm = out[mode]
+        loss_rel = abs(lm - ls) / abs(ls)
+        worst = max(((n_, rel_err(gm[n_], gs[n_])[1]) for n_ in gs), key=lambda t: t[1])
+        log(f"first step, chain_segment={mode} vs stream: loss {lm:.6f} vs {ls:.6f} (relative "
+            f"{loss_rel:.3e}), worst gradient relative to scale {worst[1]:.3e} ({worst[0]}) "
+            f"over {len(gs)} tensors; launches {mode_launches(mode, pc.num_resnet)}")
+        check(loss_rel <= STEP_LOSS_TOL, f"chain_segment={mode}: the loss disagrees")
+        check(worst[1] <= GRAD_TOL, f"chain_segment={mode}: a gradient disagrees")
+        summary[str(mode)] = {"loss": lm, "loss_rel": loss_rel, "worst_grad": worst}
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: training
 # ---------------------------------------------------------------------------
 
 
-def training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg, vq_cfg, pc_cfg):
-    """8 full-width steps of the stage-2 trainer, then the checks."""
+def training_phase(model, args, mask_fn, gen, batches, fixed, pm_cfg, vq_cfg, pc_cfg,
+                   chain_segment="stream"):
+    """8 full-width steps of the stage-2 trainer on ``batches`` with the
+    PixelCNN chain's ``chain_segment``, then the checks."""
     import tempfile
 
     from posterior_matching_torch import config, convert
     from posterior_matching_torch.masking import add_mask
     from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
-    from posterior_matching_torch.ops import gated_chain as gc
-    from posterior_matching_torch.ops import vq
     from posterior_matching_torch.train.trainer import pm_vqvae_loss, pm_vqvae_trainer
 
-    counters = {"vq_search": vq.nearest_codebook_indices,
-                "gated_stream_fwd": gc.stream_fwd, "gated_stream_bwd": gc.stream_bwd}
-    batches = [{"image": torch.rand(image_shape, generator=gen, device=dev)}
-               for _ in range(TRAIN_STEPS)]
-    fixed = add_mask({"image": batches[0]["image"]}, gen, mask_fn)
+    model.pixel_cnn.chain_segment = chain_segment
+    image_shape = tuple(batches[0]["image"].shape)
+    counters = chain_counters()
+    expected = mode_launches(chain_segment, model.pixel_cnn.num_resnet)
 
     def eval_loss():
         with torch.no_grad():
@@ -386,12 +601,12 @@ def training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg, vq_cfg, 
     loss_before = eval_loss()
     run_dir = tempfile.TemporaryDirectory()
     steps_per_s, step_s, losses, launches = fit_steps(
-        trainer, batches, counters, lambda name, count: count > 0,
+        trainer, batches, counters, lambda name, count: count == expected.get(name, 0),
         f"{run_dir.name}/train_state.pkl")
     loss_after = eval_loss()
-    log(f"training: {steps_per_s:.4f} steps/s over steps 3-{TRAIN_STEPS} "
-        f"(batch {image_shape[0]}); eval loss of a fixed batch {loss_before:.4f} -> "
-        f"{loss_after:.4f}")
+    log(f"training (chain_segment={chain_segment}): {steps_per_s:.4f} steps/s over steps "
+        f"3-{TRAIN_STEPS} (batch {image_shape[0]}); eval loss of a fixed batch "
+        f"{loss_before:.4f} -> {loss_after:.4f}; chain launches a step {expected}")
     check(loss_after < loss_before, "the eval loss did not drop")
     after = model.state_dict()
     for name, t in before.items():
@@ -402,17 +617,18 @@ def training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg, vq_cfg, 
     log(f"training: {sum(n.startswith('vqvae.') for n in before)} VQ-VAE tensors "
         f"unchanged, all {len(trainer.optimizer.params)} trainable tensors moved")
 
-    small_step_check(vq_cfg, pm_cfg, args.seed, dev)
+    small_step_check(vq_cfg, pm_cfg, args.seed, chain_segment)
 
     with run_dir:
         with open(f"{run_dir.name}/vqvae_config.json", "w") as fp:
             json.dump(vq_cfg, fp)
         with open(f"{run_dir.name}/config.json", "w") as fp:
             json.dump({"conditional_dim": pm_cfg["conditional_dim"], "pixel_cnn": pc_cfg}, fp)
-        loaded = convert.load_pm_vqvae(run_dir.name, device=DEVICE)
+        loaded = convert.load_pm_vqvae(run_dir.name, device=DEVICE,
+                                       chain_segment=chain_segment)
     for name, t in loaded.state_dict().items():
         check(torch.equal(t, after[name]), f"{name} did not survive the checkpoint")
-    batch = add_mask({"image": torch.rand(image_shape, generator=gen, device=dev)},
+    batch = add_mask({"image": torch.rand(image_shape, generator=gen, device=DEVICE)},
                      gen, mask_fn)
     imp = pm_vqvae_impute(loaded, batch["image"], batch["mask"], NUM_SAMPLES, generator=gen)
     torch.cuda.synchronize()
@@ -422,14 +638,16 @@ def training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg, vq_cfg, 
     log("checkpoint: train_state.pkl loads back through load_pm_vqvae, every tensor "
         "equal; an imputation request from it ran")
     split = profile_step(trainer, batches[-1], VQVAE_GROUPS)
-    return {"steps_per_s": steps_per_s, "step_s": step_s, "losses": losses,
-            "eval_loss": [loss_before, loss_after], "launches": launches,
+    model.pixel_cnn.chain_segment = "stream"
+    return {"chain_segment": chain_segment, "steps_per_s": steps_per_s, "step_s": step_s,
+            "losses": losses, "eval_loss": [loss_before, loss_after], "launches": launches,
             "split": split}
 
 
-# Kernel names of the gated chain's two libraries (csrc/gated_stream_*.cu),
-# as their demangled names end: "gsk::data_gemm<256>(...)",
-# "(anonymous namespace)::wgrad<128>(...)" (not cuDNN's "..._wgrad_...").
+# Kernel names of the gated chain's libraries (csrc/gated_{stream,pair,
+# segment}_*.cu, all from gated_levels.cuh), as their demangled names end:
+# "gsk::data_gemm<256>(...)", "gsk::wgrad<128>(...)" (not cuDNN's
+# "..._wgrad_...").
 _CHAIN_KERNELS = ("::data_gemm<", "::wgrad<128>", "::wgrad<256>", "::gate_bwd(",
                   "::rowsum_images(", "::sum_images(", "::dwc_kernel(", "::dcond_kernel(",
                   "::proj_kernel(")
@@ -439,7 +657,7 @@ _DECODER_CHAIN_KERNELS = ("dck::", "::z_into_state<", "::z_bwd<")
 # ... and of the block chain's (csrc/block_chain_*.cu, namespace bck).
 _BLOCK_CHAIN_KERNELS = ("bck::chain_gemm<", "::wgrad<48>", "::wgrad<192>",
                         "::reduce_splits(", "::bias_grad(")
-VQVAE_GROUPS = (("gated_stream kernels", _CHAIN_KERNELS), ("vq_search kernel", ("vq_search",)))
+VQVAE_GROUPS = (("gated chain kernels", _CHAIN_KERNELS), ("vq_search kernel", ("vq_search",)))
 VDVAE_GROUPS = (("decoder_chain kernels", _DECODER_CHAIN_KERNELS),
                 ("block_chain kernels", _BLOCK_CHAIN_KERNELS),
                 ("triangular solves (cuBLAS)", ("trsm",)))
@@ -508,11 +726,11 @@ def profile_work(fn, kernel_groups, what):
             "groups": {g: {"ms": ms, "launches": n} for g, (ms, n) in groups.items()}}
 
 
-def small_step_check(vq_cfg, pm_cfg, seed, dev):
-    """One training step of a small model through the kernels on the GPU
-    against the same step of the plain path on the CPU: the same codes,
-    the same hash masks, the loss within 1e-5 relative and every gradient
-    within GRAD_TOL of its scale."""
+def small_step_check(vq_cfg, pm_cfg, seed, chain_segment):
+    """One training step of a small model through the kernels of
+    ``chain_segment`` on the GPU against the same step of the plain path on
+    the CPU: the same codes, the same hash masks, the loss within 1e-5
+    relative and every gradient within GRAD_TOL of its scale."""
     from posterior_matching_torch import convert
     from posterior_matching_torch.train.trainer import pm_vqvae_loss
 
@@ -523,7 +741,8 @@ def small_step_check(vq_cfg, pm_cfg, seed, dev):
     cond_dim = 64
     params, state = convert.random_pm_vqvae_tree(cond_dim, vq_small, pc_small, seed=seed + 5)
     models = {d: convert.pm_vqvae_from_jax(params, state, cond_dim, vq_small, pc_small,
-                                           device=d) for d in (DEVICE, "cpu")}
+                                           device=d, chain_segment=chain_segment)
+              for d in (DEVICE, "cpu")}
     g = torch.Generator().manual_seed(seed + 6)
     x = torch.rand(4, 32, 32, 3, generator=g)
     b = (torch.rand(4, 32, 32, 1, generator=g) > 0.5).float()
@@ -541,7 +760,8 @@ def small_step_check(vq_cfg, pm_cfg, seed, dev):
     check(torch.equal(cg, cc), "small step: the GPU's codes differ from the CPU's")
     loss_rel = abs(lg - lc) / abs(lc)
     worst = max(((n, rel_err(gg[n], gcpu[n])[1]) for n in gcpu), key=lambda t: t[1])
-    log(f"small step vs CPU plain path: codes equal, loss {lg:.6f} vs {lc:.6f} "
+    log(f"small step (chain_segment={chain_segment}) vs CPU plain path: codes equal, "
+        f"loss {lg:.6f} vs {lc:.6f} "
         f"(relative {loss_rel:.3e}), worst gradient relative to scale {worst[1]:.3e} "
         f"({worst[0]}) over {len(gcpu)} tensors")
     check(loss_rel <= STEP_LOSS_TOL, "small step: the loss disagrees with the CPU's")
@@ -549,7 +769,118 @@ def small_step_check(vq_cfg, pm_cfg, seed, dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: PM-VDVAE
+# Phase 8: the PM-VQVAE training CLIs
+# ---------------------------------------------------------------------------
+
+
+def vqvae_cli_phase(args, gen):
+    """``train_vqvae``, then ``train_pm_vqvae --chain_segment SEGMENT`` reading
+    its run directory, at the full widths of ``configs/vqvae_mnist.py`` and
+    ``configs/pm_vqvae_mnist.py`` on small synthetic MNIST files, in this
+    process: the run directories and validation lines, the segment kernels'
+    launches, the frozen VQ-VAE in stage 2's checkpoint, and an imputation
+    served from it."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import tempfile
+
+    from posterior_matching_torch import convert, masking, train_pm_vqvae, train_vqvae
+    from posterior_matching_torch.data import load_arrays
+    from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
+    from posterior_matching_torch.train.state import load_train_state
+
+    steps, n_train, n_test, batch = 4, 512, 64, 32
+    n_val = n_test // batch
+    counters = chain_counters()
+    cwd, data_env = os.getcwd(), os.environ.get("PM_TPU_DATA_DIR")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/data/mnist")
+        os.environ["PM_TPU_DATA_DIR"] = f"{tmp}/data"
+        try:
+            for split, n in (("train", n_train), ("test", n_test)):
+                arrays = load_arrays("mnist", split)   # the synthetic stand-in
+                np.savez(f"{tmp}/data/mnist/{split}.npz",
+                         **{k: v[:n] for k, v in arrays.items()})
+            os.chdir(tmp)
+            common = ["--config.steps", str(steps), "--config.validation_freq",
+                      str(steps // 2), "--config.seed", str(args.seed)]
+            for stage, main, extra in (
+                    ("train_vqvae", train_vqvae.main, ["--config", "vqvae_mnist"]),
+                    ("train_pm_vqvae", train_pm_vqvae.main,
+                     ["--config", "pm_vqvae_mnist", "--chain_segment", str(SEGMENT)])):
+                if stage == "train_pm_vqvae":
+                    extra += ["--config.vqvae_dir", out["train_vqvae"]["run_dir"]]
+                before = {k: c.launches for k, c in counters.items()}
+                printed = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    rc = main([*extra, *common])
+                wall = time.perf_counter() - t0
+                launched = {k: c.launches - before[k] for k, c in counters.items()}
+                lines = printed.getvalue().splitlines()
+                for line in lines:
+                    log(f"  {stage}: {line}")
+                check(rc == 0, f"{stage} exited with {rc}")
+                prefix = "vqvae" if stage == "train_vqvae" else "pm-vqvae"
+                run_dirs = glob.glob(f"runs/{prefix}-mnist-*")
+                check(len(run_dirs) == 1, f"{stage} made the run directories {run_dirs}")
+                steps_lines = [ln for ln in lines if ln.startswith("[step ")]
+                check(len(steps_lines) == 2 and all("val_loss=" in ln for ln in steps_lines),
+                      f"{stage} did not log two validations with val_loss")
+                out[stage] = {"run_dir": run_dirs[0], "files": sorted(os.listdir(run_dirs[0])),
+                              "wall_s": wall, "lines": steps_lines, "launches": launched}
+                log(f"{stage}: {steps} steps and 2 validations of {n_val} batches in "
+                    f"{wall:.1f} s; run directory {out[stage]['files']}; launches {launched}")
+            run1, run2 = out["train_vqvae"]["run_dir"], out["train_pm_vqvae"]["run_dir"]
+            check(out["train_vqvae"]["files"] == ["model_config.json", "train_meta.json",
+                                                  "train_state.pkl"],
+                  "train_vqvae's run directory holds other files")
+            check(out["train_pm_vqvae"]["files"] == ["config.json", "train_meta.json",
+                                                     "train_state.pkl", "vqvae_config.json"],
+                  "train_pm_vqvae's run directory holds other files")
+            check(out["train_vqvae"]["launches"]["vq_search"] > 0,
+                  "train_vqvae did not run the search kernel")
+            per_pass = -(-8 // SEGMENT)   # pm_vqvae_mnist: 8 levels a pass
+            seg = out["train_pm_vqvae"]["launches"]
+            want_fwd, want_bwd = 2 * per_pass * (steps + 2 * n_val), 2 * per_pass * steps
+            check(seg["gated_segment_fwd"] == want_fwd and seg["gated_segment_bwd"] == want_bwd
+                  and not any(seg[k] for k in seg if "stream" in k or "pair" in k),
+                  f"train_pm_vqvae launched {seg}, not {want_fwd} + {want_bwd} segment launches")
+            with open(f"{run2}/config.json") as fp:
+                config2 = json.load(fp)
+            check(config2["vqvae_dir"] == run1 and "chain_segment" not in json.dumps(config2),
+                  "stage 2's config.json does not name stage 1's run, or holds chain_segment")
+            with open(f"{run1}/model_config.json") as fp:
+                vq_config = json.load(fp)
+            ts1 = load_train_state(f"{run1}/train_state.pkl")
+            vq1 = convert.vqvae_from_jax(ts1.params, ts1.state, vq_config, device=DEVICE)
+            model2 = convert.load_pm_vqvae(run2, device=DEVICE, chain_segment=SEGMENT)
+        finally:
+            os.chdir(cwd)
+            if data_env is None:
+                os.environ.pop("PM_TPU_DATA_DIR", None)
+            else:
+                os.environ["PM_TPU_DATA_DIR"] = data_env
+    for name, t in vq1.state_dict().items():
+        check(torch.equal(model2.vqvae.state_dict()[name], t),
+              f"stage 2 changed the VQ-VAE's {name}")
+    mask_fn = masking.get_mask_generator("MNISTMaskGenerator", device=DEVICE)
+    req = masking.add_mask({"image": torch.rand(4, 28, 28, 1, generator=gen, device=DEVICE)},
+                           gen, mask_fn)
+    imp = pm_vqvae_impute(model2, req["image"], req["mask"], 2, generator=gen)
+    torch.cuda.synchronize()
+    check(imp.shape == (4, 2, 28, 28, 1) and bool(torch.isfinite(imp).all()),
+          "an imputation from train_pm_vqvae's checkpoint failed")
+    log("train_pm_vqvae read train_vqvae's run; its checkpoint holds stage 1's VQ-VAE and "
+        "codebook unchanged, loads through load_pm_vqvae and served an imputation")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: PM-VDVAE
 # ---------------------------------------------------------------------------
 
 
@@ -875,7 +1206,7 @@ def small_vdvae_step_check(seed, small):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: PM-VDVAE through the fused decoder chain
+# Phase 10: PM-VDVAE through the fused decoder chain
 # ---------------------------------------------------------------------------
 
 
@@ -1055,7 +1386,7 @@ def cli_phase(args, gen, mask_fn):
     import os
     import tempfile
 
-    from posterior_matching_torch import convert, train_pm_vdvae
+    from posterior_matching_torch import config, convert, train_pm_vdvae
     from posterior_matching_torch.data import load_arrays
     from posterior_matching_torch.models.vdvae import vdvae_impute
     from posterior_matching_torch.ops import decoder_chain as dc
@@ -1103,8 +1434,12 @@ def cli_phase(args, gen, mask_fn):
         check(bwd == 5 * steps and fwd == 5 * (steps + 2 * n_val),
               f"train_pm_vdvae launched the decoder chain {fwd} + {bwd} times, not "
               f"{5 * (steps + 2 * n_val)} + {5 * steps}")
-        loaded = convert.load_pm_vdvae(run_dirs[0], device=DEVICE)
-    check(loaded.decoder.fused, "the run's model_config.json lost fused_chain")
+        with open(f"{run_dirs[0]}/model_config.json") as fp:
+            written = json.load(fp)
+        loaded = convert.load_pm_vdvae(run_dirs[0], device=DEVICE, fused_chain=True)
+    check(set(written) == set(config.PM_VDVAE_MNIST),
+          f"the run's model_config.json holds {sorted(written)}, not the config file's keys")
+    check(loaded.decoder.fused, "load_pm_vdvae did not take fused_chain=True")
     req = mnist_batch(gen, DEVICE, 4, mask_fn)
     imp = vdvae_impute(loaded, req["image"], req["mask"], 2, generator=gen)
     torch.cuda.synchronize()
@@ -1112,12 +1447,13 @@ def cli_phase(args, gen, mask_fn):
           "an imputation from the CLI's checkpoint failed")
     log(f"train_pm_vdvae: {steps} steps and 2 validations of {n_val} batches in {wall:.1f} s; "
         f"run directory {files}; decoder chain launches {fwd} fwd + {bwd} bwd; the checkpoint "
-        "loads through load_pm_vdvae and served an imputation")
+        "holds the config file's model keys, loads through load_pm_vdvae (fused on request) and "
+        "served an imputation")
     return {"wall_s": wall, "lines": steps_lines, "dec_launches": [fwd, bwd]}
 
 
 def vdvae_phases(args, gen):
-    """Phases 7 to 9: the model, the kernel comparisons, the three paths,
+    """Phases 9 to 11: the model, the kernel comparisons, the three paths,
     then training through the fused decoder and the CLI."""
     from posterior_matching_torch import config, convert, masking
     from posterior_matching_torch.models.vdvae import PosteriorMatchingVDVAE
@@ -1151,7 +1487,7 @@ def vdvae_phases(args, gen):
     stamp("PM-VDVAE imputation and likelihood")
     serving = vdvae_serving_phases(model, gen, mask_fn)
 
-    # ---- 8. the fused decoder: kernels, the first step, training ---------
+    # ---- 10. the fused decoder: kernels, the first step, training --------
     stamp("decoder chain kernels")
     dec_runs = capture_dec_runs(fused, batch, gen)
     check([(r[0].shape[1], r[3].shape[0], r[7]) for r in dec_runs]
@@ -1181,7 +1517,7 @@ def vdvae_phases(args, gen):
         f"fused {fused_train['launches']}; block_chain_fwd launches on the other paths: "
         f"imputation {serving['impute_launches']}, likelihood {serving['likelihood_launches']}")
 
-    # ---- 9. the training CLI ------------------------------------------------
+    # ---- 11. the training CLI -----------------------------------------------
     stamp("the training CLI")
     cli = cli_phase(args, gen, mask_fn)
     return kernel_lines + dec_lines, {"serving": serving, "training": train,
@@ -1395,25 +1731,42 @@ def main() -> int:
     if code_agree < SAMPLE_AGREEMENT or imp_err > 1e-4:
         raise AssertionError("the GPU path disagrees with the CPU plain path")
 
-    # ---- 4. the codebook search, 5. the gated chain ----------------------
+    # ---- 4. the codebook search, 5. the gated chain kernels, 6. the modes --
     stamp("codebook search and gated chain kernels")
     train_batch = request_batch()
     vq_line = vq_phase(model, train_batch["image"])
-    stream_lines = stream_phase(model, train_batch["image"], train_batch["mask"], args.seed)
+    chain_lines = stream_phase(model, train_batch["image"], train_batch["mask"], args.seed)
+    stamp("pair and segment kernels")
+    chain_lines += level_phase(model, train_batch["image"], train_batch["mask"], args.seed)
+    first_step = modes_step_check(model, train_batch, args.seed)
 
-    # ---- 6. training -------------------------------------------------------
-    stamp("PM-VQVAE training")
-    train = training_phase(model, args, mask_fn, gen, dev, image_shape, pm_cfg,
-                           vq_cfg, pc_cfg)
-    for line in (vq_line, *stream_lines):
-        line["launches"] = train["launches"][line["name"]]
+    # ---- 7. training, one run per chain mode from the same weights ---------
+    batches = [{"image": torch.rand(image_shape, generator=gen, device=dev)}
+               for _ in range(TRAIN_STEPS)]
+    fixed = masking.add_mask({"image": batches[0]["image"]}, gen, mask_fn)
+    init_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    train = {}
+    for mode in ("stream", 1, SEGMENT):
+        stamp(f"PM-VQVAE training, chain_segment={mode}")
+        model.load_state_dict(init_sd)
+        train[str(mode)] = training_phase(model, args, mask_fn, gen, batches, fixed, pm_cfg,
+                                          vq_cfg, pc_cfg, mode)
+    del init_sd
+    run_of = {"gated_pair": "1", "gated_segment": str(SEGMENT)}
+    for line in (vq_line, *chain_lines):
+        run = train[run_of.get(line["name"].rsplit("_", 1)[0], "stream")]
+        line["launches"] = run["launches"][line["name"]]
         line["launches_per_step"] = line["launches"] / TRAIN_STEPS
 
-    # ---- 7-9. PM-VDVAE -------------------------------------------------------
+    # ---- 8. the PM-VQVAE training CLIs ---------------------------------------
+    stamp("the PM-VQVAE training CLIs")
+    vqvae_cli = vqvae_cli_phase(args, gen)
+
+    # ---- 9-11. PM-VDVAE ------------------------------------------------------
     stamp("PM-VDVAE")
     vdvae_lines, vdvae = vdvae_phases(args, gen)
 
-    # ---- 10. results -------------------------------------------------------
+    # ---- 12. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
@@ -1428,13 +1781,13 @@ def main() -> int:
          "launches": launches["sampler_row"], "max_abs_err": row_err,
          "ms": row_ms, "plain_ms": row_plain_ms, "bound_ms": row_bound,
          "bound_by": row_by, "library_ms": None},
-        vq_line, *stream_lines, *vdvae_lines,
+        vq_line, *chain_lines, *vdvae_lines,
     ]
     summary = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "imgs_per_s": BATCH * len(steady) / sum(steady),
-        "request_s": req_s, "psnr": psnrs, "training": train, "vdvae": vdvae,
-        "kernels": kernels,
+        "request_s": req_s, "psnr": psnrs, "modes_first_step": first_step,
+        "training": train, "vqvae_cli": vqvae_cli, "vdvae": vdvae, "kernels": kernels,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)

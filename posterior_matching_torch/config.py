@@ -10,7 +10,10 @@ Copied from the JAX package's config files, which need ``ml_collections``:
 - ``PM_VDVAE_MNIST``: ``configs/pm_vdvae_mnist.py:24-36`` (the ``model``
   block), ``PM_VDVAE_MNIST_TRAIN`` its training settings (:42-47),
   ``PM_VDVAE_MNIST_DATA`` its ``data`` block (:15-22), and
-  :func:`pm_vdvae_mnist` the whole file, as the training CLI reads it.
+  :func:`pm_vdvae_mnist` the whole file, as the training CLI reads it;
+- :func:`vqvae_mnist` and :func:`pm_vqvae_mnist`: ``configs/vqvae_mnist.py``
+  and ``configs/pm_vqvae_mnist.py`` whole, the stage-1 and stage-2 training
+  CLIs' configurations.
 """
 
 VQVAE_CELEB_A = {
@@ -118,5 +121,43 @@ def pm_vdvae_mnist() -> dict:
             "seed": None, **train}
 
 
+def vqvae_mnist() -> dict:
+    """``configs/vqvae_mnist.py`` whole (:7-29), as a fresh dict; ``seed``
+    None (a fresh draw unless set)."""
+    return {
+        "data": {"dataset": "mnist", "train_split": "train", "validation_split": "test",
+                 "train_batch_size": 32, "val_batch_size": 32},
+        "model": {"embedding_dim": 64, "num_embeddings": 256, "hidden_units": 32,
+                  "residual_hidden_units": 32, "residual_blocks": 2, "decay": 0.99,
+                  "use_ema": True, "commitment_cost": 0.25, "output_channels": 1},
+        "steps": 60000,
+        "validation_freq": 1000,
+        "learning_rate": 3e-4,
+        "seed": None,
+    }
+
+
+def pm_vqvae_mnist() -> dict:
+    """``configs/pm_vqvae_mnist.py`` whole (:9-38), as a fresh dict: 7x7
+    codes, 8 resnet levels of 128 filters; ``compute_dtype`` None (the port
+    computes in float32), ``seed`` None. ``pixel_cnn.num_indices`` is set
+    from the stage-1 run, as ``train_pm_vqvae.py:105`` does."""
+    return {
+        "data": {"dataset": "mnist", "train_split": "train", "validation_split": "test",
+                 "train_batch_size": 32, "val_batch_size": 32,
+                 "mask_generator": "MNISTMaskGenerator"},
+        "vqvae_dir": "runs/vqvae-mnist",
+        "pixel_cnn": {"image_shape": (7, 7), "num_resnet": 8, "num_hierarchies": 1,
+                      "num_filters": 128, "dropout": 0.5},
+        "conditional_dim": 512,
+        "compute_dtype": None,
+        "steps": 120000,
+        "validation_freq": 1000,
+        "lr_schedule": {"init_value": 3e-4, "decay_rate": 0.999995, "transition_steps": 1},
+        "seed": None,
+    }
+
+
 # The configurations the training CLIs take by name.
-CONFIGS = {"pm_vdvae_mnist": pm_vdvae_mnist}
+CONFIGS = {"pm_vdvae_mnist": pm_vdvae_mnist, "vqvae_mnist": vqvae_mnist,
+           "pm_vqvae_mnist": pm_vqvae_mnist}

@@ -24,13 +24,14 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from posterior_matching_torch.models.pm_vqvae import PMVQVAE
 from posterior_matching_torch.models.vdvae import PosteriorMatchingVDVAE
+from posterior_matching_torch.models.vqvae import VQVAE
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.train.state import load_train_state
 
@@ -155,13 +156,16 @@ def _sub(sd, prefix: str) -> Dict[str, np.ndarray]:
     return {k[n:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
 
 
-def pm_vqvae_trees(state_dict) -> Tuple[Tree, Tree]:
-    """The port's ``PMVQVAE`` state dict (tensors or arrays) -> the JAX
-    package's ``(params, state)`` numpy trees, the inverse of
-    :func:`pm_vqvae_state_dict`."""
-    sd = {k: (v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v))
-          for k, v in state_dict.items()}
-    vq, pe, pc = _sub(sd, "vqvae"), _sub(sd, "partial_encoder"), _sub(sd, "pixel_cnn")
+def _numpy(state_dict) -> Dict[str, np.ndarray]:
+    return {k: (v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v))
+            for k, v in state_dict.items()}
+
+
+def vqvae_trees(state_dict) -> Tuple[Tree, Tree]:
+    """The port's ``VQVAE`` state dict (tensors or arrays) -> a JAX
+    ``VQVAE``'s ``(params, {"vq_ema": ...})`` numpy trees, the inverse of
+    :func:`vqvae_state_dict`."""
+    vq = _numpy(state_dict)
     decoder = {
         "dec_1": _get_conv(vq, "decoder.dec_1"),
         "ConvResidualStack_0": _get_stack(vq, "decoder.stack"),
@@ -169,6 +173,24 @@ def pm_vqvae_trees(state_dict) -> Tuple[Tree, Tree]:
         "dec_3": _get_conv(vq, "decoder.dec_3", transpose=True),
         "log_scale": vq["decoder.log_scale"],
     }
+    params = {
+        "encoder": _get_encoder(vq, "encoder"),
+        "pre_vq_conv": _get_conv(vq, "pre_vq_conv"),
+        "decoder": decoder,
+    }
+    state = {"vq_ema": {"vq": {
+        name: vq[f"vq.{name}"] for name in ("embeddings", "ema_cluster_size", "ema_dw")
+    }}}
+    return params, state
+
+
+def pm_vqvae_trees(state_dict) -> Tuple[Tree, Tree]:
+    """The port's ``PMVQVAE`` state dict (tensors or arrays) -> the JAX
+    package's ``(params, state)`` numpy trees, the inverse of
+    :func:`pm_vqvae_state_dict`."""
+    sd = _numpy(state_dict)
+    pe, pc = _sub(sd, "partial_encoder"), _sub(sd, "pixel_cnn")
+    vq_params, vq_state = vqvae_trees(_sub(sd, "vqvae"))
     pixel = {"embed": {"embedding": pc["embed"]}}
     for key in pc:
         if not key.startswith("layers.") or not key.endswith(".kernel"):
@@ -178,21 +200,14 @@ def pm_vqvae_trees(state_dict) -> Tuple[Tree, Tree]:
         masked = name in _MASKED_CONVS[:3] or name.endswith(_MASKED_CONVS[3:])
         pixel[name] = {"Conv_0": kb} if masked else kb
     params = {
-        "vqvae": {
-            "encoder": _get_encoder(vq, "encoder"),
-            "pre_vq_conv": _get_conv(vq, "pre_vq_conv"),
-            "decoder": decoder,
-        },
+        "vqvae": vq_params,
         "partial_encoder": {
             "ConvResidualEncoder_0": _get_encoder(pe, "encoder"),
             "Dense_0": {"kernel": pe["dense.kernel"], "bias": pe["dense.bias"]},
         },
         "pixel_cnn": pixel,
     }
-    state = {"vq_ema": {"vqvae": {"vq": {
-        name: vq[f"vq.{name}"] for name in ("embeddings", "ema_cluster_size", "ema_dw")
-    }}}}
-    return params, state
+    return params, {"vq_ema": {"vqvae": vq_state["vq_ema"]}}
 
 
 def to_torch(state_dict: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -202,6 +217,16 @@ def to_torch(state_dict: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     }
 
 
+def vqvae_from_jax(params: Tree, state: Tree, config: Dict[str, Any],
+                   device: Optional[str] = None) -> VQVAE:
+    """Builds a ``VQVAE`` from a ``model_config.json`` dict on ``device``
+    (the GPU unless ``"cpu"``) and loads a JAX ``VQVAE``'s ``params`` and
+    ``{"vq_ema": ...}`` trees into it."""
+    model = VQVAE(**config).to(resolve_device(device))
+    model.load_state_dict(to_torch(vqvae_state_dict(params, state["vq_ema"])))
+    return model
+
+
 def pm_vqvae_from_jax(
     params: Tree,
     state: Tree,
@@ -209,19 +234,24 @@ def pm_vqvae_from_jax(
     vqvae_config: Dict[str, Any],
     pixel_cnn_config: Dict[str, Any],
     device: Optional[str] = None,
+    chain_segment: Union[str, int] = "stream",
 ) -> PMVQVAE:
-    """Builds a ``PMVQVAE`` on ``device`` (the GPU unless ``"cpu"``) and
-    loads JAX-layout weights into it; every parameter must be covered."""
+    """Builds a ``PMVQVAE`` on ``device`` (the GPU unless ``"cpu"``) with
+    the PixelCNN chain's ``chain_segment`` and loads JAX-layout weights into
+    it; every parameter must be covered."""
     model = PMVQVAE.from_config(
-        conditional_dim, vqvae_config, pixel_cnn_config, device=device
+        conditional_dim, vqvae_config, pixel_cnn_config, device=device,
+        chain_segment=chain_segment,
     )
     model.load_state_dict(to_torch(pm_vqvae_state_dict(params, state)))
     return model
 
 
-def load_pm_vqvae(run_dir: str, device: Optional[str] = None) -> PMVQVAE:
+def load_pm_vqvae(run_dir: str, device: Optional[str] = None,
+                  chain_segment: Union[str, int] = "stream") -> PMVQVAE:
     """Reads a PM-VQVAE run directory (``vqvae_config.json``,
-    ``config.json``, ``train_state.pkl``) written by either package."""
+    ``config.json``, ``train_state.pkl``) written by either package;
+    ``chain_segment`` is the caller's choice, not the run's."""
     resolve_device(device)
     with open(os.path.join(run_dir, "vqvae_config.json")) as fp:
         vqvae_config = json.load(fp)
@@ -230,7 +260,7 @@ def load_pm_vqvae(run_dir: str, device: Optional[str] = None) -> PMVQVAE:
     ts = load_train_state(os.path.join(run_dir, "train_state.pkl"))
     return pm_vqvae_from_jax(
         ts.params, ts.state, config["conditional_dim"], vqvae_config,
-        config["pixel_cnn"], device=device,
+        config["pixel_cnn"], device=device, chain_segment=chain_segment,
     )
 
 
@@ -251,6 +281,68 @@ def _trunc_normal(rng: np.random.Generator, shape) -> np.ndarray:
     return (x / np.sqrt(fan_in)).astype(np.float32)
 
 
+def _kb(rng: np.random.Generator, *shape, std=None) -> Tree:
+    """A kernel (truncated normal / sqrt(fan_in), or N(0, std^2)) and a zero
+    bias."""
+    k = (_trunc_normal(rng, shape) if std is None
+         else (std * rng.standard_normal(shape)).astype(np.float32))
+    return {"kernel": k, "bias": np.zeros(shape[-1], np.float32)}
+
+
+def _conv_stack(rng, vq) -> Tree:
+    hid, rh, out = vq["hidden_units"], vq["residual_hidden_units"], {}
+    for i in range(vq["residual_blocks"]):
+        out[f"res3x3_{i}"] = _kb(rng, 3, 3, hid, rh)
+        out[f"res1x1_{i}"] = _kb(rng, 1, 1, rh, hid)
+    return out
+
+
+def _conv_encoder(rng, vq, cin: int) -> Tree:
+    hid = vq["hidden_units"]
+    return {
+        "enc_1": _kb(rng, 4, 4, cin, hid // 2),
+        "enc_2": _kb(rng, 4, 4, hid // 2, hid),
+        "enc_3": _kb(rng, 3, 3, hid, hid),
+        "ConvResidualStack_0": _conv_stack(rng, vq),
+    }
+
+
+def _vqvae_params(rng, vq) -> Tree:
+    hid, cout, d = vq["hidden_units"], vq.get("output_channels", 3), vq["embedding_dim"]
+    return {
+        "encoder": _conv_encoder(rng, vq, cout),
+        "pre_vq_conv": _kb(rng, 1, 1, hid, d),
+        "decoder": {
+            "dec_1": _kb(rng, 3, 3, d, hid),
+            "ConvResidualStack_0": _conv_stack(rng, vq),
+            "dec_2": _kb(rng, 4, 4, hid, hid // 2),
+            "dec_3": _kb(rng, 4, 4, hid // 2, cout),
+            "log_scale": np.zeros((), np.float32),
+        },
+    }
+
+
+def _vq_ema(rng, vq) -> Tree:
+    """The codebook (uniform with variance 1 / D) and zero EMA statistics."""
+    k, d = vq["num_embeddings"], vq["embedding_dim"]
+    lim = np.sqrt(3.0 / d)
+    return {"vq": {
+        "embeddings": rng.uniform(-lim, lim, (k, d)).astype(np.float32),
+        "ema_cluster_size": np.zeros(k, np.float32),
+        "ema_dw": np.zeros((k, d), np.float32),
+    }}
+
+
+def init_vqvae_tree(config: Dict[str, Any], seed: int) -> Tuple[Tree, Tree]:
+    """A JAX ``VQVAE``'s initial ``(params, {"vq_ema": ...})``, equal in
+    distribution to its ``init`` (its draws come from ``jax.random``):
+    kernels truncated normal / sqrt(fan_in), biases and ``log_scale`` zero,
+    the codebook uniform with variance 1 / D, the EMA statistics zero."""
+    rng = np.random.default_rng(seed)
+    params = _vqvae_params(rng, config)
+    return params, {"vq_ema": _vq_ema(rng, config)}
+
+
 def random_pm_vqvae_tree(
     conditional_dim: int,
     vqvae_config: Dict[str, Any],
@@ -262,78 +354,35 @@ def random_pm_vqvae_tree(
     initialiser families (biases zero, conditional projections N(0, 1),
     codebook uniform with variance 1/D)."""
     rng = np.random.default_rng(seed)
-    vq = vqvae_config
-    hid, rh = vq["hidden_units"], vq["residual_hidden_units"]
-    cout, d = vq.get("output_channels", 3), vq["embedding_dim"]
-    pc = pixel_cnn_config
+    vq, pc = vqvae_config, pixel_cnn_config
     f, ni, n_res = pc["num_filters"], pc["num_indices"], pc["num_resnet"]
     h, w = pc["image_shape"]
-
-    def kb(*shape, std=None):
-        k = (
-            _trunc_normal(rng, shape) if std is None
-            else (std * rng.standard_normal(shape)).astype(np.float32)
-        )
-        return {"kernel": k, "bias": np.zeros(shape[-1], np.float32)}
-
-    def stack():
-        out = {}
-        for i in range(vq["residual_blocks"]):
-            out[f"res3x3_{i}"] = kb(3, 3, hid, rh)
-            out[f"res1x1_{i}"] = kb(1, 1, rh, hid)
-        return out
-
-    def encoder(cin):
-        return {
-            "enc_1": kb(4, 4, cin, hid // 2),
-            "enc_2": kb(4, 4, hid // 2, hid),
-            "enc_3": kb(3, 3, hid, hid),
-            "ConvResidualStack_0": stack(),
-        }
-
     pixel = {
         "embed": {"embedding": (rng.standard_normal((ni, f)) / np.sqrt(f)).astype(np.float32)},
-        "v_init": {"Conv_0": kb(5, 3, f, f)},
-        "h_init_up": {"Conv_0": kb(3, 3, f, f)},
-        "h_init_left": {"Conv_0": kb(3, 3, f, f)},
-        "logits_conv": kb(1, 1, f, ni),
+        "v_init": {"Conv_0": _kb(rng, 5, 3, f, f)},
+        "h_init_up": {"Conv_0": _kb(rng, 3, 3, f, f)},
+        "h_init_left": {"Conv_0": _kb(rng, 3, 3, f, f)},
+        "logits_conv": _kb(rng, 1, 1, f, ni),
     }
     aux_in = {("up", "horizontal"): f, ("dn", "vertical"): f, ("dn", "horizontal"): 2 * f}
     for dname in ("up", "dn"):
         for r in range(n_res):
             for st in ("vertical", "horizontal"):
                 tag = f"{dname}_0_{r}_{st}"
-                pixel[f"{tag}_conv_a"] = {"Conv_0": kb(3, 3, 2 * f, f)}
-                pixel[f"{tag}_conv_b"] = {"Conv_0": kb(3, 3, 2 * f, 2 * f)}
-                pixel[f"{tag}_cond_proj"] = kb(conditional_dim, 2 * f, std=1.0)
+                pixel[f"{tag}_conv_a"] = {"Conv_0": _kb(rng, 3, 3, 2 * f, f)}
+                pixel[f"{tag}_conv_b"] = {"Conv_0": _kb(rng, 3, 3, 2 * f, 2 * f)}
+                pixel[f"{tag}_cond_proj"] = _kb(rng, conditional_dim, 2 * f, std=1.0)
                 if (dname, st) in aux_in:
-                    pixel[f"{tag}_aux"] = kb(2 * aux_in[(dname, st)], f)
+                    pixel[f"{tag}_aux"] = _kb(rng, 2 * aux_in[(dname, st)], f)
     params = {
-        "vqvae": {
-            "encoder": encoder(cout),
-            "pre_vq_conv": kb(1, 1, hid, d),
-            "decoder": {
-                "dec_1": kb(3, 3, d, hid),
-                "ConvResidualStack_0": stack(),
-                "dec_2": kb(4, 4, hid, hid // 2),
-                "dec_3": kb(4, 4, hid // 2, cout),
-                "log_scale": np.zeros((), np.float32),
-            },
-        },
+        "vqvae": _vqvae_params(rng, vq),
         "partial_encoder": {
-            "ConvResidualEncoder_0": encoder(cout + 1),
-            "Dense_0": kb(h * w * hid, conditional_dim),
+            "ConvResidualEncoder_0": _conv_encoder(rng, vq, vq.get("output_channels", 3) + 1),
+            "Dense_0": _kb(rng, h * w * vq["hidden_units"], conditional_dim),
         },
         "pixel_cnn": pixel,
     }
-    lim = np.sqrt(3.0 / d)
-    k = vq["num_embeddings"]
-    state = {"vq_ema": {"vqvae": {"vq": {
-        "embeddings": rng.uniform(-lim, lim, (k, d)).astype(np.float32),
-        "ema_cluster_size": np.zeros(k, np.float32),
-        "ema_dw": np.zeros((k, d), np.float32),
-    }}}}
-    return params, state
+    return params, {"vq_ema": {"vqvae": _vq_ema(rng, vq)}}
 
 
 # ---------------------------------------------------------------------------
@@ -380,13 +429,18 @@ def pm_vdvae_from_jax(params: Tree, config: Dict[str, Any],
     return model
 
 
-def load_pm_vdvae(run_dir: str, device: Optional[str] = None) -> PosteriorMatchingVDVAE:
+def load_pm_vdvae(run_dir: str, device: Optional[str] = None,
+                  fused_chain: Optional[bool] = None) -> PosteriorMatchingVDVAE:
     """Reads a PM-VDVAE run directory (``model_config.json``,
     ``train_state.pkl``) written by either package, with ``ema_params`` when
-    the checkpoint has them (``eval_pm_vdvae_imputation.py:78-83``)."""
+    the checkpoint has them (``eval_pm_vdvae_imputation.py:78-83``).
+    ``fused_chain`` is the caller's execution option; a run's file does not
+    hold it."""
     resolve_device(device)
     with open(os.path.join(run_dir, "model_config.json")) as fp:
         config = json.load(fp)
+    if fused_chain is not None:
+        config["fused_chain"] = fused_chain
     ts = load_train_state(os.path.join(run_dir, "train_state.pkl"))
     params = ts.ema_params if ts.ema_params is not None else ts.params
     return pm_vdvae_from_jax(params, config, device=device)

@@ -12,16 +12,22 @@ every shipped config) is ported.
 path of the JAX module (``models/pixelcnn.py:559-596, 668-685``): the
 embedding, the statically sliced ``v_init`` / ``h_init_up`` /
 ``h_init_left`` convs (``F.conv2d``, which the JAX package leaves to XLA),
-then the up and the down pass of the gated chain
-(:func:`posterior_matching_torch.ops.gated_chain.gated_stream`: the
-hand-written kernels on the GPU) and the float32 1x1 logits head. A conv
-kernel's masked-out taps never enter the graph, so their gradients are
-exactly zero. Sampling is :mod:`posterior_matching_torch.ops.
+then the up and the down pass of the gated chain (:mod:`posterior_matching_
+torch.ops.gated_chain`: the hand-written kernels on the GPU) and the float32
+1x1 logits head. ``chain_segment`` chooses the chain's granularity, as
+``PM_TPU_CHAIN_SEGMENT`` does in the JAX package (``pixelcnn.py:410-495``):
+``"stream"`` (the default) runs each pass as one launch of the stream
+kernels, ``1`` each level through the pair kernels, an integer ``L``
+segments of ``L`` levels (the last one shorter where ``L`` does not divide
+``num_resnet``). All three realise the same dropout masks and, in float32,
+the same outputs. It is an execution option, never a key of a config file.
+A conv kernel's masked-out taps never enter the graph, so their gradients
+are exactly zero. Sampling is :mod:`posterior_matching_torch.ops.
 sampler_chain`.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +36,8 @@ from torch import nn
 from posterior_matching_torch.models.networks import _trunc_normal_fan_in
 from posterior_matching_torch.ops.gated_chain import (
     chain_taps,
+    gated_pair,
+    gated_segment,
     gated_stream,
     pack_level,
     stack_levels,
@@ -73,10 +81,12 @@ class PixelCNN(nn.Module):
         num_filters: int = 128,
         receptive_field_dims: Tuple[int, int] = (3, 3),
         conditional_dim: Optional[int] = None,
+        chain_segment: Union[str, int] = "stream",
     ):
         super().__init__()
         if num_hierarchies != 1:
             raise ValueError("the port supports num_hierarchies == 1 only")
+        self.chain_segment = chain_segment
         self.num_indices = num_indices
         self.image_shape = tuple(image_shape)
         self.dropout = dropout
@@ -151,9 +161,19 @@ class PixelCNN(nn.Module):
                               (0, cols // 2))
         return v_init, h_up + h_left
 
+    @property
+    def chain_segment(self) -> Union[str, int]:
+        return self._chain_segment
+
+    @chain_segment.setter
+    def chain_segment(self, value: Union[str, int]):
+        if value != "stream" and not (isinstance(value, int) and value >= 1):
+            raise ValueError(f"chain_segment is 'stream' or an integer >= 1, got {value!r}")
+        self._chain_segment = value
+
     def _chain(self, xv, xh, cond, training: bool, seed: int) -> torch.Tensor:
         """The up pass, then the down pass with the up outputs as skips in
-        reverse (``pixelcnn.py:386-445``): with ``xs = [init] + up outputs``
+        reverse (``pixelcnn.py:386-495``): with ``xs = [init] + up outputs``
         down level p takes ``xs[n - 1 - p]``, so the last up output is the
         down pass's carry and never a skip, and the init stacks are the
         last skip. Returns the last horizontal output."""
@@ -161,21 +181,37 @@ class PixelCNN(nn.Module):
         rf = self.receptive_field_dims
         keep = 1.0 - self.dropout if (training and self.dropout > 0) else 1.0
         common = dict(seed=seed, keep=keep, taps=chain_taps(rf))
-        up_w = stack_levels(
-            [pack_level(self.layers, "up", p, f, False, rf) for p in range(n)]
-        )
-        up_v, up_h = gated_stream(xv, xh, None, cond, up_w, base_pair=0, **common)
-        xs_v, xs_h = [xv, *up_v], [xh, *up_h]
-        skips = (
-            torch.stack([xs_v[n - 1 - p] for p in range(n)]),
-            torch.stack([xs_h[n - 1 - p] for p in range(n)]),
-        )
-        dn_w = stack_levels(
-            [pack_level(self.layers, "dn", p, f, True, rf) for p in range(n)]
-        )
-        _, dn_h = gated_stream(up_v[-1], up_h[-1], skips, cond, dn_w,
-                               base_pair=n, **common)
-        return dn_h[-1]
+        levels = {d: [pack_level(self.layers, d, p, f, d == "dn", rf) for p in range(n)]
+                  for d in ("up", "dn")}
+        if self.chain_segment == "stream":
+            up_v, up_h = gated_stream(xv, xh, None, cond, stack_levels(levels["up"]),
+                                      base_pair=0, **common)
+            xs_v, xs_h = [xv, *up_v], [xh, *up_h]
+            skips = (
+                torch.stack([xs_v[n - 1 - p] for p in range(n)]),
+                torch.stack([xs_h[n - 1 - p] for p in range(n)]),
+            )
+            _, dn_h = gated_stream(up_v[-1], up_h[-1], skips, cond,
+                                   stack_levels(levels["dn"]), base_pair=n, **common)
+            return dn_h[-1]
+        seg = self.chain_segment
+        xs_v, xs_h = [xv], [xh]
+        for d, base in (("up", 0), ("dn", n)):
+            for p in range(0, n, seg):
+                ws = levels[d][p: p + seg]
+                sk = None
+                if d == "dn":
+                    sk = [(xs_v[n - 1 - q], xs_h[n - 1 - q]) for q in range(p, p + len(ws))]
+                if seg == 1:
+                    outs = [gated_pair(xv, xh, sk and sk[0], cond, ws[0],
+                                       pair_index=base + p, **common)]
+                else:
+                    outs = gated_segment(xv, xh, sk, cond, ws, base_pair=base + p, **common)
+                if d == "up":
+                    xs_v += [o[0] for o in outs]
+                    xs_h += [o[1] for o in outs]
+                xv, xh = outs[-1]
+        return xh
 
     def log_prob(
         self,

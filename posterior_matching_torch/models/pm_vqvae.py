@@ -12,7 +12,7 @@ Counterpart of ``posterior_matching_tpu/models/pm_vqvae.py:24-211``:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -32,13 +32,17 @@ class PMVQVAE(nn.Module):
     """``vqvae_config`` and ``pixel_cnn_config`` are the JSON config dicts a
     run directory holds (``vqvae_config.json``, ``config.json``'s
     ``pixel_cnn``); keys the port does not use (``compute_dtype``, say) are
-    ignored: the port computes in float32."""
+    ignored: the port computes in float32. ``chain_segment`` is the
+    PixelCNN's chain granularity (:class:`~posterior_matching_torch.models.
+    pixelcnn.PixelCNN`), an option of the caller's, never read from a
+    config."""
 
     def __init__(
         self,
         conditional_dim: int,
         vqvae_config: Dict[str, Any],
         pixel_cnn_config: Dict[str, Any],
+        chain_segment: Union[str, int] = "stream",
     ):
         super().__init__()
         vq = dict(vqvae_config)
@@ -54,7 +58,8 @@ class PMVQVAE(nn.Module):
             residual_blocks=vq["residual_blocks"],
             residual_hidden_units=vq["residual_hidden_units"],
         )
-        self.pixel_cnn = PixelCNN(**pc, conditional_dim=conditional_dim)
+        self.pixel_cnn = PixelCNN(**pc, conditional_dim=conditional_dim,
+                                  chain_segment=chain_segment)
 
     @classmethod
     def from_config(
@@ -63,10 +68,12 @@ class PMVQVAE(nn.Module):
         vqvae_config: Dict[str, Any],
         pixel_cnn_config: Dict[str, Any],
         device: Optional[str] = None,
+        chain_segment: Union[str, int] = "stream",
     ) -> "PMVQVAE":
         """Builds the model on ``device`` (the GPU unless ``"cpu"``)."""
         dev = resolve_device(device)
-        return cls(conditional_dim, vqvae_config, pixel_cnn_config).to(dev).eval()
+        return cls(conditional_dim, vqvae_config, pixel_cnn_config,
+                   chain_segment).to(dev).eval()
 
     def conditional_latents(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.partial_encoder(torch.cat([x * b, b], dim=-1))

@@ -1,13 +1,15 @@
-"""VQ-VAE encode and decode paths and the PM partial encoder.
+"""The VQ-VAE (stage-1 training, encode and decode) and the PM partial
+encoder.
 
 Counterpart of ``posterior_matching_tpu/models/vqvae.py:33-367``: the
 residual conv stacks, ``encode`` and ``encoding_indices`` (the codebook
-search is :mod:`posterior_matching_torch.ops.vq`), the quantizer's forward
-without its EMA codebook update, the decoder mean, the codebook lookup,
-``decode_indices`` and ``VQVAEPartialEncoder``. Public functions take and return NHWC tensors,
-as the JAX package does; inside, convolutions run NCHW through
-``torch.nn.functional`` (the JAX package leaves them to XLA, outside any
-Pallas kernel).
+search is :mod:`posterior_matching_torch.ops.vq`), the EMA quantizer with
+its codebook update, the training forward (the decoder Normal's
+reconstruction loss plus the commitment loss), the codebook lookup,
+``decode_indices`` and ``VQVAEPartialEncoder``. Public functions take and
+return NHWC tensors, as the JAX package does; inside, convolutions run NCHW
+through ``torch.nn.functional`` (the JAX package leaves them to XLA, outside
+any Pallas kernel).
 
 Convolution weights are stored in torch layout. ``convert.py`` maps flax's
 HWIO kernels onto them, including the transposed convolutions, whose flax
@@ -19,12 +21,13 @@ of the zero-inserted input with the unflipped kernel: that is
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from posterior_matching_torch.distributions._math import LOG_2PI
 from posterior_matching_torch.models.networks import Dense
 from posterior_matching_torch.ops.vq import (
     nearest_codebook_indices,
@@ -126,14 +129,13 @@ class ConvResidualEncoder(nn.Module):
 
 class ConvResidualDecoder(nn.Module):
     """3x3 conv + residual stack + two stride-2 transposed convs; returns the
-    decoder Normal's mean (its scale is not needed for imputation)."""
+    decoder Normal's mean. Its scalar ``log_scale`` gives the scale of the
+    training loss (:meth:`VQVAE.forward`)."""
 
     def __init__(
         self, cin: int, hidden: int, blocks: int, res_hidden: int, cout: int
     ):
         super().__init__()
-        # the decoder Normal's scalar log-scale: unused by the mean, kept so
-        # that a checkpoint crosses over whole
         self.log_scale = nn.Parameter(torch.zeros(()))
         self.dec_1 = Conv(cin, hidden, 3)
         self.stack = ConvResidualStack(hidden, blocks, res_hidden)
@@ -146,28 +148,33 @@ class ConvResidualDecoder(nn.Module):
 
 
 class VectorQuantizer(nn.Module):
-    """The codebook. In the JAX package it lives in the ``vq_ema`` state
-    collection, not in ``params`` (the EMA quantizer updates it in place),
-    beside the EMA statistics, which are kept here as buffers so that a
-    checkpoint crosses over whole. The EMA update itself belongs to stage-1
-    training and is not ported yet."""
+    """The EMA codebook quantizer (``vqvae.py:33-140`` with ``use_ema``).
+    The codebook and its EMA statistics are buffers, as they are the
+    ``vq_ema`` state collection in the JAX package: no optimizer sees them.
+    Only a forward called with ``is_training=True`` moves them, never the
+    module's ``training`` flag, so a frozen VQ-VAE inside a model in
+    ``train()`` mode keeps its codebook."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 commitment_cost: float = 0.25):
+                 commitment_cost: float = 0.25, decay: float = 0.99,
+                 epsilon: float = 1e-5):
         super().__init__()
-        self.commitment_cost = commitment_cost
-        self.embeddings = nn.Parameter(
-            torch.zeros(num_embeddings, embedding_dim)
+        self.commitment_cost, self.decay, self.epsilon = commitment_cost, decay, epsilon
+        # the JAX init: uniform with variance 1 / embedding_dim
+        lim = math.sqrt(3.0 / embedding_dim)
+        self.register_buffer(
+            "embeddings", torch.empty(num_embeddings, embedding_dim).uniform_(-lim, lim)
         )
         self.register_buffer("ema_cluster_size", torch.zeros(num_embeddings))
         self.register_buffer(
             "ema_dw", torch.zeros(num_embeddings, embedding_dim)
         )
 
-    def forward(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, z: torch.Tensor, is_training: bool = False) -> Dict[str, torch.Tensor]:
         """``z [..., D]`` -> the straight-through quantization, the
         commitment loss, the codebook perplexity and the indices
-        (``vqvae.py:75-87,120-135`` with ``use_ema``, outside training)."""
+        (``vqvae.py:75-135``); with ``is_training`` the codebook then takes
+        one EMA step (the quantization uses the codebook before it)."""
         flat = z.reshape(-1, z.shape[-1]).contiguous()
         indices = nearest_codebook_indices(flat, self.embeddings)
         quantized = self.embeddings[indices.long()].reshape(z.shape)
@@ -175,6 +182,8 @@ class VectorQuantizer(nn.Module):
         counts = torch.bincount(
             indices.long(), minlength=self.embeddings.shape[0]
         )
+        if is_training:
+            self._ema_update(flat.detach(), indices.long(), counts)
         avg_probs = counts.float() / indices.numel()
         perplexity = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-10)).sum())
         return {
@@ -184,13 +193,25 @@ class VectorQuantizer(nn.Module):
             "encoding_indices": indices.reshape(z.shape[:-1]),
         }
 
+    @torch.no_grad()
+    def _ema_update(self, flat, indices, counts):
+        """Laplace-smoothed EMA of the code counts and of the latents summed
+        per code, and the codebook their ratio (``vqvae.py:88-113``)."""
+        k = self.embeddings.shape[0]
+        dw = torch.zeros_like(self.ema_dw).index_add_(0, indices, flat)
+        self.ema_cluster_size.mul_(self.decay).add_((1.0 - self.decay) * counts.to(flat.dtype))
+        self.ema_dw.mul_(self.decay).add_((1.0 - self.decay) * dw)
+        n = self.ema_cluster_size.sum()
+        stable = (self.ema_cluster_size + self.epsilon) / (n + k * self.epsilon) * n
+        self.embeddings.copy_(self.ema_dw / stable[:, None])
+
     def quantize(self, encoding_indices: torch.Tensor) -> torch.Tensor:
         return self.embeddings[encoding_indices.long()]
 
 
 class VQVAE(nn.Module):
-    """The VQ-VAE's encode and decode paths. The training loss (decoder
-    likelihood plus the EMA codebook update) belongs to stage 1."""
+    """The VQ-VAE (``vqvae.py:252-329``). ``use_ema=False`` (the codebook
+    learned by the loss) is set by no config and is not ported."""
 
     def __init__(
         self,
@@ -200,20 +221,46 @@ class VQVAE(nn.Module):
         hidden_units: int = 128,
         residual_blocks: int = 2,
         residual_hidden_units: int = 128,
+        decay: float = 0.99,
         commitment_cost: float = 0.25,
+        use_ema: bool = True,
         **_unused,
     ):
         super().__init__()
+        if not use_ema:
+            raise NotImplementedError("use_ema=False is not ported: every config "
+                                      "learns the codebook by EMA")
         self.encoder = ConvResidualEncoder(
             output_channels, hidden_units, residual_blocks,
             residual_hidden_units,
         )
         self.pre_vq_conv = Conv(hidden_units, embedding_dim, 1)
-        self.vq = VectorQuantizer(num_embeddings, embedding_dim, commitment_cost)
+        self.vq = VectorQuantizer(num_embeddings, embedding_dim, commitment_cost, decay)
         self.decoder = ConvResidualDecoder(
             embedding_dim, hidden_units, residual_blocks,
             residual_hidden_units, output_channels,
         )
+
+    def forward(self, x: torch.Tensor, is_training: bool = False) -> Dict[str, Any]:
+        """Stage 1's objective on ``[B, H, W, C]`` images
+        (``vqvae.py:301-321``): ``loss`` is the reconstruction loss, the
+        decoder Normal's ``-mean(sum log p(x))`` at scale
+        ``exp(log_scale) + 1e-5``, plus the quantizer's commitment loss; with
+        ``is_training`` the codebook takes its EMA step."""
+        z = self.encode(x)
+        vq_output = self.vq(z, is_training=is_training)
+        loc = self.decoder(vq_output["quantize"].permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        scale = torch.exp(self.decoder.log_scale) + 1e-5
+        zs = (x - loc) / scale
+        lp = -0.5 * zs * zs - torch.log(scale) - 0.5 * LOG_2PI
+        reconstruction_loss = -lp.sum(dim=tuple(range(1, lp.ndim))).mean()
+        return {
+            "loss": reconstruction_loss + vq_output["loss"],
+            "vq_output": vq_output,
+            "z": z,
+            "reconstruction": loc,
+            "reconstruction_loss": reconstruction_loss,
+        }
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, C] images -> [B, H/4, W/4, D] pre-quantization latents."""

@@ -32,13 +32,15 @@ SOURCES = {
     "vq_search": "vq_search.cu",
     "gated_stream_fwd": "gated_stream_fwd.cu",
     "gated_stream_bwd": "gated_stream_bwd.cu",
+    "gated_levels_fwd": "gated_levels_fwd.cu",
+    "gated_levels_bwd": "gated_levels_bwd.cu",
     "block_chain_fwd": "block_chain_fwd.cu",
     "block_chain_bwd": "block_chain_bwd.cu",
     "decoder_chain_fwd": "decoder_chain_fwd.cu",
     "decoder_chain_bwd": "decoder_chain_bwd.cu",
 }
-HEADERS = ("sampler_common.cuh", "gated_common.cuh", "block_chain_common.cuh",
-           "decoder_chain_common.cuh")
+HEADERS = ("sampler_common.cuh", "gated_common.cuh", "gated_levels.cuh",
+           "block_chain_common.cuh", "decoder_chain_common.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

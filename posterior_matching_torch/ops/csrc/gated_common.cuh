@@ -1,6 +1,7 @@
-// Shared pieces of the gated-chain training kernels (gated_stream_fwd.cu,
-// gated_stream_bwd.cu): the dropout hash, the elementwise functions, the
-// argument layout of the C entry points, and `data_gemm`, a block-tiled
+// Shared pieces of the gated-chain training kernels (gated_levels.cuh and
+// the stream, pair and segment entry points): the dropout hash, the
+// elementwise functions, the argument layout of the C entry points, and
+// `data_gemm`, a block-tiled
 // float32 GEMM over the B*H*W rows of a pass whose A operand is gathered
 // term by term (a conv tap is a term: a source tensor read at a shifted
 // position, optionally through concat_elu and the dropout mask) and whose

@@ -56,7 +56,8 @@ def plan_taps(
 
 
 def _elu(z: torch.Tensor) -> torch.Tensor:
-    z = z.float()
+    # at least float32: half types go up, float64 stays
+    z = z.to(torch.promote_types(z.dtype, torch.float32))
     return torch.where(z > 0, z, torch.exp(torch.clamp(z, max=0.0)) - 1.0)
 
 

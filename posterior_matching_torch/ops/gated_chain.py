@@ -1,8 +1,10 @@
-"""The PixelCNN's gated resnet chain for training: one whole up or down pass.
+"""The PixelCNN's gated resnet chain for training, at three granularities.
 
-Counterpart of the stream path of ``posterior_matching_tpu/ops/
-gated_chain.py`` (``gated_stream``, :1725). One level is a vertical gated
-block, then a horizontal gated block that takes the new vertical as aux:
+Counterpart of ``posterior_matching_tpu/ops/gated_chain.py``'s training
+paths: ``gated_stream`` (:1725, one whole up or down pass), ``gated_pair``
+(:723, one level) and ``gated_segment`` (:1215, L consecutive levels). One
+level is a vertical gated block, then a horizontal gated block that takes
+the new vertical as aux:
 
 - ``a1 = conv_a(concat_elu(x)) + sum concat_elu(aux) @ Wx + ba``;
 - ``d = concat_elu(a1) * mask / keep``;
@@ -15,13 +17,29 @@ torch.ops.gated_block.TapPlan`). Down levels take skips: the vertical block
 split by rows into ``wxh_u`` (for the new vertical) and ``wxh_s`` (for the
 skip).
 
-On the GPU a pass is two hand-written kernels, ``csrc/gated_stream_fwd.cu``
-(replacing ``_stream_fwd_kernel_factory``, :1337, ``pallas_call`` :1595) and
-``csrc/gated_stream_bwd.cu`` (``_stream_bwd_kernel_factory``, :1407,
-``pallas_call`` :1660), joined by :class:`GatedStream`, a
-``torch.autograd.Function``. Beside them is :func:`gated_stream_plain`, the
-same L levels in plain PyTorch, differentiated by autograd, which the
-dispatcher :func:`gated_stream` runs only for tensors on the CPU.
+On the GPU each granularity is two hand-written kernels, a forward and a
+backward joined by a ``torch.autograd.Function``:
+
+- the stream, ``csrc/gated_stream_fwd.cu`` (replacing
+  ``_stream_fwd_kernel_factory``, :1337, ``pallas_call`` :1595) and
+  ``csrc/gated_stream_bwd.cu`` (``_stream_bwd_kernel_factory``, :1407,
+  :1660), through :class:`GatedStream`, with ``[L, ...]`` stacked weights;
+- the pair (``_fwd_kernel_factory`` :305 -> :586, ``_bwd_kernel_factory``
+  :368 -> :649) and the segment (``_seg_fwd_kernel_factory`` :801 -> :1046,
+  ``_seg_bwd_kernel_factory`` :861 -> :1125), each an entry point of
+  ``csrc/gated_levels_fwd.cu`` and ``csrc/gated_levels_bwd.cu``
+  (``pm_gated_pair_*``, ``pm_gated_segment_*``), both through
+  :class:`GatedLevels`, with each level's weights and skips as their own
+  tensors and each level's outputs returned.
+
+All six run the launch sequence of ``csrc/gated_levels.cuh``, each launch
+over all ``B*H*W`` rows: the JAX batch chunks ``bc_fwd`` / ``bc_bwd``
+(``PM_TPU_CHAIN_BC_*``) tile the TPU's VMEM and have no counterpart here.
+Beside them are the plain versions, :func:`gated_stream_plain`,
+:func:`gated_pair_plain` and :func:`gated_segment_plain`, the same levels in
+plain PyTorch differentiated by autograd, which the dispatchers
+(:func:`gated_stream`, :func:`gated_pair`, :func:`gated_segment`) run only
+for tensors on the CPU.
 
 Dropout. The TPU kernels draw their masks from the TPU's PRNG, seeded per
 (step seed, ``block_id = 2 (base_pair + level) + sub_block``, image), so the
@@ -30,8 +48,9 @@ generator exists only on a TPU. Here a counter-based hash of the same fields
 and the element index (``position * 2F + channel``) is compared with
 ``keep * 2^32``; the kernels compute it in-kernel in both directions, and
 :func:`dropout_keep_mask` computes it in torch, so kernel and plain realise
-the same masks bit for bit. The plain path also takes injected masks, which
-is how the tests match the JAX package's ``mask_mode="input"``.
+the same masks bit for bit, and a level gets the same masks whichever
+granularity runs it. The plain path also takes injected masks, which is how
+the tests match the JAX package's ``mask_mode="input"``.
 """
 from __future__ import annotations
 
@@ -252,6 +271,83 @@ def _block_plain(x, auxes, proj, mask, wa, ba, wb, bb, tp: TapPlan, keep):
     return x_new.reshape(b, h, wd, f)
 
 
+def _level_plain(xv, xh, sk, cond, w: Weights, mv, mh, taps: Tuple[TapPlan, TapPlan],
+                 keep: float):
+    """One level: the vertical block, then the horizontal one with the new
+    vertical (and the skips ``sk = (skv, skh)`` of a down level) as aux."""
+    taps_v, taps_h = taps
+    aux_v = [(sk[0], w["wxv"])] if sk is not None else []
+    xv = _block_plain(xv, aux_v, cond @ w["wcv"], mv, w["wav"], w["bav"], w["wbv"],
+                      w["bbv"], taps_v, keep)
+    aux_h = [(xv, w["wxh_u"])] + ([(sk[1], w["wxh_s"])] if sk is not None else [])
+    xh = _block_plain(xh, aux_h, cond @ w["wch"], mh, w["wah"], w["bah"], w["wbh"],
+                      w["bbh"], taps_h, keep)
+    return xv, xh
+
+
+def gated_segment_plain(
+    xv: torch.Tensor,
+    xh: torch.Tensor,
+    skips: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]],
+    cond: torch.Tensor,
+    ws: Sequence[Weights],
+    *,
+    keep: float = 1.0,
+    masks: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+    seed: int = 0,
+    base_pair: int = 0,
+    taps: Optional[Tuple[TapPlan, TapPlan]] = None,
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``L = len(ws)`` gated levels in plain PyTorch, differentiable by
+    autograd (``gated_segment``, ``gated_chain.py:1215``).
+
+    ``xv``, ``xh``: ``[B, H, W, F]``; ``skips``: ``None`` (up) or level
+    ``l``'s ``(skv, skh)``, each ``[B, H, W, F]``; ``cond [B, CD]``; ``ws``:
+    each level's weights of :func:`weight_shapes`. With ``keep < 1`` the
+    masks are ``masks[l] = (mv, mh)``, each ``[B, H, W, 2F]`` 0/1, or else
+    the hash masks of blocks ``2 (base_pair + l) + sub``. Returns each
+    level's ``(xv, xh)``."""
+    taps = taps or chain_taps()
+    b, h, w, f = xv.shape
+    outs = []
+    for lvl, wl in enumerate(ws):
+        if keep >= 1.0:
+            mv = mh = None
+        elif masks is not None:
+            mv, mh = masks[lvl]
+        else:
+            mv, mh = (dropout_keep_mask(seed, 2 * (base_pair + lvl) + sub, b, h, w, 2 * f,
+                                        keep, xv.device) for sub in (0, 1))
+        xv, xh = _level_plain(xv, xh, None if skips is None else skips[lvl], cond, wl,
+                              mv, mh, taps, keep)
+        outs.append((xv, xh))
+    return outs
+
+
+def gated_pair_plain(
+    xv: torch.Tensor,
+    xh: torch.Tensor,
+    skips: Skips,
+    cond: torch.Tensor,
+    w: Weights,
+    *,
+    keep: float = 1.0,
+    masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    seed: int = 0,
+    pair_index: int = 0,
+    taps: Optional[Tuple[TapPlan, TapPlan]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One level (``gated_pair``, ``gated_chain.py:723``): the arguments of
+    :func:`gated_segment_plain` for one level, ``skips`` the level's
+    ``(skv, skh)`` or ``None``, ``masks`` its ``(mv, mh)``. Returns
+    ``(xv', xh')``."""
+    return gated_segment_plain(
+        xv, xh, None if skips is None else [skips], cond, [w], keep=keep,
+        masks=None if masks is None else [masks], seed=seed, base_pair=pair_index,
+        taps=taps,
+    )[0]
+
+
 def gated_stream_plain(
     xv0: torch.Tensor,
     xh0: torch.Tensor,
@@ -265,46 +361,29 @@ def gated_stream_plain(
     base_pair: int = 0,
     taps: Optional[Tuple[TapPlan, TapPlan]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """L gated levels in plain PyTorch, differentiable by autograd.
-
-    ``xv0``, ``xh0``: ``[B, H, W, F]``; ``skips``: ``None`` (up) or
-    ``(skv, skh)``, each ``[L, B, H, W, F]`` (down level ``l`` reads
-    ``skips[.][l]``); ``cond [B, CD]``; ``w``: the stacked weights of
-    :func:`weight_shapes`. With ``keep < 1`` the masks are ``masks = (mv,
-    mh)``, each ``[L, B, H, W, 2F]`` 0/1, or else the hash masks of
-    ``(seed, base_pair)``. Returns the level outputs ``(xvo, xho)``, each
-    ``[L, B, H, W, F]``."""
-    taps_v, taps_h = taps or chain_taps()
+    """A pass of L levels with stacked weights (``gated_stream``,
+    ``gated_chain.py:1725``): ``skips`` ``None`` or ``(skv, skh)``, each
+    ``[L, B, H, W, F]`` (down level ``l`` reads ``skips[.][l]``); ``w`` the
+    ``[L, ...]`` stacks of :func:`weight_shapes`; ``masks`` ``(mv, mh)``,
+    each ``[L, B, H, W, 2F]``. Returns the level outputs ``(xvo, xho)``,
+    each ``[L, B, H, W, F]``."""
     n_lvl = w["wav"].shape[0]
-    down = skips is not None
-    if keep < 1.0 and masks is None:
-        masks = step_masks(seed, base_pair, n_lvl, xv0.shape, keep, xv0.device)
-    xv, xh = xv0, xh0
-    outs_v, outs_h = [], []
-    for lvl in range(n_lvl):
-        mv, mh = (None, None) if keep >= 1.0 else (masks[0][lvl], masks[1][lvl])
-        aux_v = [(skips[0][lvl], w["wxv"][lvl])] if down else []
-        xv = _block_plain(
-            xv, aux_v, cond @ w["wcv"][lvl], mv, w["wav"][lvl], w["bav"][lvl],
-            w["wbv"][lvl], w["bbv"][lvl], taps_v, keep,
-        )
-        aux_h = [(xv, w["wxh_u"][lvl])]
-        if down:
-            aux_h.append((skips[1][lvl], w["wxh_s"][lvl]))
-        xh = _block_plain(
-            xh, aux_h, cond @ w["wch"][lvl], mh, w["wah"][lvl], w["bah"][lvl],
-            w["wbh"][lvl], w["bbh"][lvl], taps_h, keep,
-        )
-        outs_v.append(xv)
-        outs_h.append(xh)
-    return torch.stack(outs_v), torch.stack(outs_h)
+    per_level = lambda pair: [(pair[0][l], pair[1][l]) for l in range(n_lvl)]
+    outs = gated_segment_plain(
+        xv0, xh0, None if skips is None else per_level(skips), cond,
+        [{k: v[l] for k, v in w.items()} for l in range(n_lvl)], keep=keep,
+        masks=None if masks is None else per_level(masks), seed=seed,
+        base_pair=base_pair, taps=taps,
+    )
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-# Argument order of the C entry points (csrc/gated_stream_{fwd,bwd}.cu).
+# Argument order of the C entry points: the geometry ints of all six, the
+# stream's pointers (csrc/gated_stream_{fwd,bwd}.cu) ...
 _GEOMETRY = ("L", "B", "H", "W", "CD", "tv_skh", "tv_skw", "tv_pt", "tv_pl",
              "th_skh", "th_skw", "th_pt", "th_pl", "seed", "base_pair",
              "thresh", "use_drop")
@@ -313,18 +392,28 @@ _W_FWD = ("wav", "bav", "wbv", "bbv", "wcv", "wxv",
 _FWD_PTRS = ("xv0", "xh0", "skv", "skh", "cond", *_W_FWD,
              "xvo", "xho", "a1v", "a1h", "b1v", "b1h", "proj")
 _W_BWD = ("wav", "wbv", "wcv", "wxv", "wah", "wbh", "wch", "wxh_u", "wxh_s")
+_SCRATCH = ("db1v", "db1h", "da1v", "da1h", "gtot", "gvtot", "rsv", "rsh", "rav", "rah")
 _BWD_PTRS = (
     "gv", "gh", "xv0", "xh0", "xvo", "xho", "skv", "skh", "cond",
     "a1v", "a1h", "b1v", "b1h", *_W_BWD,
     "dxv0", "dxh0", "dskv", "dskh", "dcond",
-    *("d" + n for n in _W_FWD),
-    "db1v", "db1h", "da1v", "da1h", "gtot", "gvtot", "rsv", "rsh", "rav", "rah",
+    *("d" + n for n in _W_FWD), *_SCRATCH,
 )
+# ... and the pair's and segment's (csrc/gated_levels_{fwd,bwd}.cu,
+# csrc/gated_levels.cuh): a head, then one list per level
+_SAVES = ("xvo", "xho", "a1v", "a1h", "b1v", "b1h")
+_SEG_FWD = ("xv0", "xh0", "cond", "proj")
+_LEVEL_FWD = ("skv", "skh", *_W_FWD, *_SAVES)
+_SEG_BWD = ("xv0", "xh0", "cond", "dxv0", "dxh0", "dcond", *_SCRATCH)
+_LEVEL_BWD = ("gv", "gh", *_SAVES[:2], "skv", "skh", *_SAVES[2:], *_W_BWD,
+              "dskv", "dskh", *("d" + n for n in _W_FWD))
+# The most levels one launch takes (csrc/gated_levels.cuh kMaxLevels).
+MAX_LEVELS = 32
 
 
 class StreamConfig:
-    """Static geometry of one pass, shared by the forward and backward
-    launches."""
+    """Static geometry of the levels of one launch (a pass, a pair or a
+    segment), shared by the forward and backward launches."""
 
     def __init__(self, xv0: torch.Tensor, cond: torch.Tensor, n_levels: int,
                  down: bool, keep: float, seed: int, base_pair: int,
@@ -336,12 +425,15 @@ class StreamConfig:
         self.taps_v, self.taps_h = taps
         if self.f != KERNEL_FILTERS:
             raise ValueError(
-                f"gated_stream kernels need num_filters == {KERNEL_FILTERS}, "
+                f"the gated chain kernels need num_filters == {KERNEL_FILTERS}, "
                 f"got {self.f}"
             )
+        if not 1 <= n_levels <= MAX_LEVELS:
+            raise ValueError(f"the gated chain kernels take 1 to {MAX_LEVELS} levels "
+                             f"a launch, got {n_levels}")
         for tp in taps:
             if tp.skh > 3 or tp.skw > 3:
-                raise ValueError(f"gated_stream kernels take at most 3x3 taps, got {tp}")
+                raise ValueError(f"the gated chain kernels take at most 3x3 taps, got {tp}")
 
     @property
     def rows(self) -> int:
@@ -364,30 +456,35 @@ class StreamConfig:
         }
         return [vals[k] for k in _GEOMETRY]
 
+    def level_shapes(self, bias: bool = True) -> Dict[str, Tuple[int, ...]]:
+        """One level's weight shapes (without the biases with ``bias``
+        false)."""
+        shp = dict(weight_shapes(self.f, self.cd, self.taps_v, self.taps_h, self.down))
+        return {k: v for k, v in shp.items() if bias or not k.startswith("b")}
+
     def weight_shapes(self, bias: bool = True) -> Dict[str, Tuple[int, ...]]:
-        shp = dict(weight_shapes(self.f, self.cd, self.taps_v, self.taps_h,
-                                 self.down))
-        out = {k: (self.n_levels, *v) for k, v in shp.items()}
-        if not bias:
-            out = {k: v for k, v in out.items() if not k.startswith("b")}
-        return out
+        """The stream's ``[L, ...]`` stacks."""
+        return {k: (self.n_levels, *v) for k, v in self.level_shapes(bias).items()}
 
 
-def _launch(lib_name: str, fn: str, names: Sequence[str],
-            tensors: Dict[str, Optional[torch.Tensor]], cfg: StreamConfig,
-            device: torch.device):
-    ptrs = (ctypes.c_void_p * len(names))(
-        *[tensors[n].data_ptr() if tensors.get(n) is not None else None
-          for n in names]
-    )
+def _ptrs(names: Sequence[str], tensors: Dict[str, Optional[torch.Tensor]]) -> List:
+    """Device pointers of ``names`` (null for a missing or ``None`` one)."""
+    return [tensors[n].data_ptr() if tensors.get(n) is not None else None for n in names]
+
+
+def _launch(lib_name: str, ptrs: Sequence, cfg: StreamConfig, device: torch.device,
+            entry: Optional[str] = None):
+    """Calls entry point ``pm_<entry>`` (by default ``pm_<lib_name>``) of
+    kernel library ``lib_name``."""
+    fn = f"pm_{entry or lib_name}"
+    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     ints = (ctypes.c_int * len(_GEOMETRY))(*cfg.ints())
     lib = _build.load_fn(
         lib_name, fn,
         [_build.P, _build.I, _build.P, _build.I, _build.F32, _build.P],
     )
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(ptrs, len(names), ints, len(_GEOMETRY),
-                           1.0 / cfg.keep, stream)
+    err = getattr(lib, fn)(arr, len(ptrs), ints, len(_GEOMETRY), 1.0 / cfg.keep, stream)
     return lib, err
 
 
@@ -425,8 +522,7 @@ class _StreamFwd:
                "a1v": empty(L, R, f), "a1h": empty(L, R, f),
                "b1v": empty(L, R, 2 * f), "b1h": empty(L, R, 2 * f)}
         t.update(out, proj=empty(L, 2, cfg.b, 2 * f))
-        lib, err = _launch("gated_stream_fwd", "pm_gated_stream_fwd",
-                           _FWD_PTRS, t, cfg, xv0.device)
+        lib, err = _launch("gated_stream_fwd", _ptrs(_FWD_PTRS, t), cfg, xv0.device)
         self.launches += 1
         _build.raise_on(lib, err, "gated_stream_fwd")
         return out
@@ -472,8 +568,7 @@ class _StreamBwd:
             "rav": empty(L, b, f), "rah": empty(L, b, f),
         }
         t.update(grads, **scratch)
-        lib, err = _launch("gated_stream_bwd", "pm_gated_stream_bwd",
-                           _BWD_PTRS, t, cfg, dev)
+        lib, err = _launch("gated_stream_bwd", _ptrs(_BWD_PTRS, t), cfg, dev)
         self.launches += 1
         _build.raise_on(lib, err, "gated_stream_bwd")
         return grads
@@ -561,3 +656,211 @@ def gated_stream(
         cfg, contig(xv0), contig(xh0), contig(skv), contig(skh),
         contig(cond), *[contig(w[n]) for n in names],
     )
+
+
+# ---------------------------------------------------------------------------
+# The pair and the segment
+# ---------------------------------------------------------------------------
+
+LevelSkips = Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]]
+
+
+class _LevelsFwd:
+    """Wrapper of entry point ``pm_<entry>`` of ``csrc/gated_levels_fwd.cu``:
+    ``gated_pair_fwd`` (one level) or ``gated_segment_fwd`` (any number).
+    One call runs the config's levels and counts as one launch. Returns each
+    level's outputs and saves (:data:`_SAVES`), every one its own
+    ``[B, H, W, C]`` tensor."""
+
+    lib = "gated_levels_fwd"
+
+    def __init__(self, entry: str):
+        self.entry = entry
+        self.launches = 0
+
+    def __call__(self, cfg: StreamConfig, xv0, xh0, skips: LevelSkips, cond,
+                 ws: Sequence[Weights]) -> List[Dict[str, torch.Tensor]]:
+        act = (cfg.b, cfg.h, cfg.w, cfg.f)
+        head = {"xv0": xv0, "xh0": xh0, "cond": cond}
+        _check_all(head, {"xv0": act, "xh0": act, "cond": (cfg.b, cfg.cd)})
+        empty = lambda *s: torch.empty(s, device=xv0.device)
+        head["proj"] = empty(cfg.n_levels, 2, cfg.b, 2 * cfg.f)
+        shapes = cfg.level_shapes()
+        if cfg.down:
+            shapes.update(skv=act, skh=act)
+        ptrs, outs = _ptrs(_SEG_FWD, head), []
+        for lvl in range(cfg.n_levels):
+            t = dict(ws[lvl])
+            if cfg.down:
+                t["skv"], t["skh"] = skips[lvl]
+            _check_all(t, shapes)
+            out = {n: empty(*act[:3], (2 if n.startswith("b1") else 1) * cfg.f)
+                   for n in _SAVES}
+            ptrs += _ptrs(_LEVEL_FWD, {**t, **out})
+            outs.append(out)
+        lib, err = _launch(self.lib, ptrs, cfg, xv0.device, self.entry)
+        self.launches += 1
+        _build.raise_on(lib, err, self.entry)
+        return outs
+
+
+class _LevelsBwd:
+    """Wrapper of entry point ``pm_<entry>`` of ``csrc/gated_levels_bwd.cu``
+    (``gated_pair_bwd`` or ``gated_segment_bwd``): one call is the VJP of the
+    config's levels and counts as one launch. ``gs[l]`` are level ``l``'s
+    output cotangents (``None``: zero). Returns the cotangents of ``xv0``,
+    ``xh0`` and ``cond``, and each level's skip and weight gradients."""
+
+    lib = "gated_levels_bwd"
+
+    def __init__(self, entry: str):
+        self.entry = entry
+        self.launches = 0
+
+    def __call__(self, cfg: StreamConfig, gs, xv0, xh0, cond, skips: LevelSkips,
+                 saves: Sequence[Dict[str, torch.Tensor]], ws: Sequence[Weights]):
+        n_lvl, r, f = cfg.n_levels, cfg.rows, cfg.f
+        act = (cfg.b, cfg.h, cfg.w, f)
+        empty = lambda *s: torch.empty(s, device=xv0.device)
+        head = {"xv0": xv0, "xh0": xh0, "cond": cond,
+                "dxv0": empty(*act), "dxh0": empty(*act), "dcond": empty(cfg.b, cfg.cd),
+                "db1v": empty(n_lvl, r, 2 * f), "db1h": empty(n_lvl, r, 2 * f),
+                "da1v": empty(n_lvl, r, f), "da1h": empty(n_lvl, r, f),
+                "gtot": empty(r, f), "gvtot": empty(r, f),
+                "rsv": empty(n_lvl, cfg.b, 2 * f), "rsh": empty(n_lvl, cfg.b, 2 * f),
+                "rav": empty(n_lvl, cfg.b, f), "rah": empty(n_lvl, cfg.b, f)}
+        shapes = cfg.level_shapes(bias=False)
+        if cfg.down:
+            shapes.update(skv=act, skh=act)
+        ptrs, grads = _ptrs(_SEG_BWD, head), []
+        for lvl in range(n_lvl):
+            t = {k: v for k, v in ws[lvl].items() if not k.startswith("b")}
+            if cfg.down:
+                t["skv"], t["skh"] = skips[lvl]
+            _check_all(t, shapes)
+            cot = dict(zip(("gv", "gh"), gs[lvl]))
+            _check_all({k: v for k, v in cot.items() if v is not None},
+                       {k: act for k, v in cot.items() if v is not None})
+            g = {"d" + n: empty(*s) for n, s in cfg.level_shapes().items()}
+            if cfg.down:
+                g["dskv"], g["dskh"] = empty(*act), empty(*act)
+            ptrs += _ptrs(_LEVEL_BWD, {**t, **cot, **saves[lvl], **g})
+            grads.append(g)
+        lib, err = _launch(self.lib, ptrs, cfg, xv0.device, self.entry)
+        self.launches += 1
+        _build.raise_on(lib, err, self.entry)
+        return {k: head[k] for k in ("dxv0", "dxh0", "dcond")}, grads
+
+
+pair_fwd = _LevelsFwd("gated_pair_fwd")
+pair_bwd = _LevelsBwd("gated_pair_bwd")
+seg_fwd = _LevelsFwd("gated_segment_fwd")
+seg_bwd = _LevelsBwd("gated_segment_bwd")
+
+
+class GatedLevels(torch.autograd.Function):
+    """Consecutive levels whose forward and backward are the pair kernels
+    (``kernels = (pair_fwd, pair_bwd)``, one level) or the segment kernels
+    (``(seg_fwd, seg_bwd)``). Inputs: ``xv0``, ``xh0``, ``cond``, then level
+    by level the skips (down) and the weights (:func:`weight_shapes`'
+    order). Outputs: each level's ``(xv, xh)``, separate tensors, so that up
+    outputs can be down skips. Saved for the backward: the inputs and each
+    level's outputs and ``a1``, ``b1``; a level's inputs are the previous
+    level's outputs. An output that later code does not use gets a ``None``
+    cotangent, which the kernels read as zero."""
+
+    @staticmethod
+    def forward(ctx, kernels, cfg: StreamConfig, xv0, xh0, cond, *rest):
+        n_lvl = cfg.n_levels
+        names = list(cfg.level_shapes())
+        n_sk = 2 * n_lvl if cfg.down else 0
+        skips = [rest[2 * l: 2 * l + 2] for l in range(n_lvl)] if cfg.down else None
+        ws = [dict(zip(names, rest[n_sk + l * len(names): n_sk + (l + 1) * len(names)]))
+              for l in range(n_lvl)]
+        saves = kernels[0](cfg, xv0, xh0, skips, cond, ws)
+        ctx.kernels, ctx.cfg, ctx.names = kernels, cfg, names
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xv0, xh0, cond, *rest, *(s[k] for s in saves for k in _SAVES))
+        return tuple(s[k] for s in saves for k in ("xvo", "xho"))
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        cfg, names = ctx.cfg, ctx.names
+        n_lvl, n_s = cfg.n_levels, len(_SAVES)
+        xv0, xh0, cond, *rest = ctx.saved_tensors
+        rest, flat_saves = rest[:-n_s * n_lvl], rest[-n_s * n_lvl:]
+        n_sk = 2 * n_lvl if cfg.down else 0
+        skips = [rest[2 * l: 2 * l + 2] for l in range(n_lvl)] if cfg.down else None
+        ws = [dict(zip(names, rest[n_sk + l * len(names): n_sk + (l + 1) * len(names)]))
+              for l in range(n_lvl)]
+        saves = [dict(zip(_SAVES, flat_saves[n_s * l: n_s * (l + 1)])) for l in range(n_lvl)]
+        contig = lambda t: None if t is None else t.contiguous()
+        gs = [(contig(gouts[2 * l]), contig(gouts[2 * l + 1])) for l in range(n_lvl)]
+        g, per_level = ctx.kernels[1](cfg, gs, xv0, xh0, cond, skips, saves, ws)
+        dsk = [g_["d" + k] for g_ in per_level for k in ("skv", "skh")] if cfg.down else []
+        dws = [g_["d" + n] for g_ in per_level for n in names]
+        return (None, None, g["dxv0"], g["dxh0"], g["dcond"], *dsk, *dws)
+
+
+def _levels(kernels, xv, xh, skips: LevelSkips, cond, ws: Sequence[Weights], *, seed: int,
+            base_pair: int, keep: float, masks, taps):
+    """The plain version for CPU tensors, :class:`GatedLevels` through
+    ``kernels`` for CUDA tensors (which take no injected masks)."""
+    taps = taps or chain_taps()
+    tensors = [xv, xh, cond, *(t for w in ws for t in w.values()),
+               *(t for sk in (skips or ()) for t in sk)]
+    if _build.on_cpu(tensors):
+        return gated_segment_plain(xv, xh, skips, cond, ws, keep=keep, masks=masks,
+                                   seed=seed, base_pair=base_pair, taps=taps)
+    if masks is not None:
+        raise ValueError("the gated chain kernels draw their own dropout masks; "
+                         "injected masks run on the CPU only")
+    cfg = StreamConfig(xv, cond, len(ws), skips is not None, keep, seed, base_pair, taps)
+    names = list(cfg.level_shapes())
+    flat = [t.contiguous() for sk in (skips or ()) for t in sk]
+    flat += [w[n].contiguous() for w in ws for n in names]
+    out = GatedLevels.apply(kernels, cfg, xv.contiguous(), xh.contiguous(),
+                            cond.contiguous(), *flat)
+    return [(out[2 * l], out[2 * l + 1]) for l in range(len(ws))]
+
+
+def gated_pair(
+    xv: torch.Tensor,
+    xh: torch.Tensor,
+    skips: Skips,
+    cond: torch.Tensor,
+    w: Weights,
+    *,
+    seed: int,
+    pair_index: int,
+    keep: float,
+    masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    taps: Optional[Tuple[TapPlan, TapPlan]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One level (the arguments of :func:`gated_pair_plain`): the plain
+    version for CPU tensors, the pair kernels for CUDA tensors."""
+    return _levels(
+        (pair_fwd, pair_bwd), xv, xh, None if skips is None else [skips], cond, [w],
+        seed=seed, base_pair=pair_index, keep=keep,
+        masks=None if masks is None else [masks], taps=taps,
+    )[0]
+
+
+def gated_segment(
+    xv: torch.Tensor,
+    xh: torch.Tensor,
+    skips: LevelSkips,
+    cond: torch.Tensor,
+    ws: Sequence[Weights],
+    *,
+    seed: int,
+    base_pair: int,
+    keep: float,
+    masks: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+    taps: Optional[Tuple[TapPlan, TapPlan]] = None,
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``len(ws)`` levels (the arguments of :func:`gated_segment_plain`): the
+    plain version for CPU tensors, the segment kernels for CUDA tensors.
+    Returns each level's ``(xv, xh)``."""
+    return _levels((seg_fwd, seg_bwd), xv, xh, skips, cond, ws, seed=seed,
+                   base_pair=base_pair, keep=keep, masks=masks, taps=taps)

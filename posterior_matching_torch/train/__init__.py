@@ -12,8 +12,9 @@ from posterior_matching_torch.train.trainer import (
     Trainer,
     pm_vdvae_trainer,
     pm_vqvae_trainer,
+    vqvae_trainer,
 )
 
 __all__ = ["Callback", "CheckpointCallback", "LearningRateLoggerCallback", "TrainState",
            "Trainer", "load_train_state", "pm_vdvae_trainer", "pm_vqvae_trainer",
-           "save_train_state"]
+           "save_train_state", "vqvae_trainer"]

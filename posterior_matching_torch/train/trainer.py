@@ -10,8 +10,9 @@ update step), for a ``torch.nn.Module``:
   derived from (run seed, step) as well, so a step is a function of the
   run seed, the step and the batch;
 - loss, backward, the optimizer's update (:mod:`posterior_matching_torch.
-  train.optim`: Adam under the exponential decay for PM-VQVAE, the clipped
-  chain of ``train_pm_vdvae.py`` for PM-VDVAE) and ``step + 1``, in that
+  train.optim`: Adam at a constant rate for the VQ-VAE, under the
+  exponential decay for PM-VQVAE, the clipped chain of
+  ``train_pm_vdvae.py`` for PM-VDVAE) and ``step + 1``, in that
   order; optionally the whole update is skipped when the loss or a raw
   gradient is not finite, and an EMA of the parameters is kept;
 - checkpoints are ``train_state.pkl`` files in the JAX package's layout
@@ -291,6 +292,30 @@ def pm_vqvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
         prologue_fn=prologue, seed=seed, to_trees=pm_vqvae_trees,
         device=device, **kwargs,
     )
+
+
+def vqvae_metrics(model, batch: Batch, seed: int, training: bool):
+    """Stage 1's loss and the metrics ``perplexity``, ``reconstruction_loss``
+    and ``vq_loss`` (``train_vqvae.py:84-98``); the codebook takes its EMA
+    step on training batches only."""
+    out = model(batch["image"], is_training=training)
+    vq_out = out["vq_output"]
+    return out["loss"], {"perplexity": vq_out["perplexity"].detach(),
+                         "reconstruction_loss": out["reconstruction_loss"].detach(),
+                         "vq_loss": vq_out["loss"].detach()}
+
+
+def vqvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
+                  device: Optional[str] = None, **kwargs) -> Trainer:
+    """The stage-1 trainer of ``train_vqvae.py:84-112``: plain Adam at the
+    constant ``learning_rate``, the codebook's EMA state advanced by the
+    training forward and kept by validation, checkpoints in the JAX
+    package's layout (``params`` and ``{"vq_ema": ...}``)."""
+    from posterior_matching_torch.convert import vqvae_trees
+
+    lr = train_config["learning_rate"]
+    return Trainer(model, vqvae_metrics, optimizer=lambda params: Adam(params, lambda count: lr),
+                   seed=seed, to_trees=vqvae_trees, device=device, **kwargs)
 
 
 def pm_vdvae_metrics(model, batch: Batch, noise, training: bool = True):

@@ -1,0 +1,109 @@
+"""Trains a PM-VQVAE, stage 2: partial encoder and conditional PixelCNN on a
+frozen VQ-VAE, on the GPU.
+
+Counterpart of ``train_pm_vqvae.py:88-224``. Run it as::
+
+    python -m posterior_matching_torch.train_pm_vqvae --config pm_vqvae_mnist \\
+        --config.vqvae_dir runs/vqvae-mnist-<timestamp> [--config.steps 1000] \\
+        [--config.validation_freq 500] [--config.seed 0] [--chain_segment 4] \\
+        [--device cpu]
+
+- ``--config``, ``--config.<path> <value>``, ``--device`` and
+  ``--resume_dir`` as :mod:`posterior_matching_torch.cli` reads them.
+- ``vqvae_dir`` is a stage-1 run directory of either package: its
+  ``model_config.json`` builds the VQ-VAE and sets ``pixel_cnn.num_indices``
+  to its ``num_embeddings`` (:99-105); its ``train_state.pkl`` warm-starts
+  the ``vqvae`` subtree and its ``vq_ema`` codebook (:212-223), which stay
+  frozen: no gradient, no update, the codebook never moved.
+- ``--chain_segment`` chooses the PixelCNN chain's kernels: ``stream`` (the
+  default, one launch a pass), ``1`` (one pair launch a level) or an
+  integer ``L`` (segments of ``L`` levels), as ``PM_TPU_CHAIN_SEGMENT`` does
+  in the JAX package. It is this run's execution option: no file holds it.
+- The loss is ``-mean log p(codes | cond)`` (:144-157) under Adam with the
+  exponential decay (``pm_vqvae_trainer``), masks drawn on the device;
+  validation every ``validation_freq`` steps and at the last. Other
+  weights start from the JAX package's initialiser families, drawn from
+  the seed. Images are scaled to [0, 1].
+- The run directory ``runs/pm-vqvae-<dataset>-<timestamp>/`` holds
+  ``config.json`` (the configuration's own keys), ``vqvae_config.json``,
+  ``train_meta.json`` and ``train_state.pkl`` in the JAX package's layout,
+  which ``eval_pm_vqvae.py`` and ``convert.load_pm_vqvae`` read.
+- It runs on the GPU unless ``--device cpu``, and raises without one.
+
+Not ported yet: ``--resume_dir`` (refused), ``compute_dtype`` (refused
+unless None), the TensorBoard logs and the imputation images they show
+(``ROADMAP.md`` A6).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Optional, Sequence, Union
+
+from posterior_matching_torch import convert
+from posterior_matching_torch.cli import parse_config
+from posterior_matching_torch.data import load_datasets
+from posterior_matching_torch.masking import get_mask_generator
+from posterior_matching_torch.runtime import resolve_device
+from posterior_matching_torch.train.callbacks import CheckpointCallback
+from posterior_matching_torch.train.resume import save_train_meta
+from posterior_matching_torch.train.state import load_train_state
+from posterior_matching_torch.train.trainer import pm_vqvae_trainer
+from posterior_matching_torch.utils import make_run_dir
+
+
+def chain_segment(raw: str) -> Union[str, int]:
+    """``stream``, or a segment length >= 1."""
+    if raw == "stream":
+        return raw
+    if not raw.isdigit() or int(raw) < 1:
+        raise argparse.ArgumentTypeError(f"'stream' or an integer >= 1, not {raw!r}")
+    return int(raw)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--chain_segment", type=chain_segment, default="stream",
+                        help="the PixelCNN chain's kernels: stream, 1 (pairs) or L (segments)")
+    args, config = parse_config(parser, argv, ("pm_vqvae_mnist",))
+    if config["compute_dtype"] is not None:
+        parser.error("compute_dtype is not ported: the port computes in float32")
+    device = resolve_device(args.device)
+
+    data = config["data"]
+    train_dataset, val_dataset = load_datasets(data)
+    with open(os.path.join(config["vqvae_dir"], "model_config.json")) as fp:
+        vqvae_config = json.load(fp)
+    vqvae_state = load_train_state(os.path.join(config["vqvae_dir"], "train_state.pkl"))
+    config["pixel_cnn"]["num_indices"] = vqvae_config["num_embeddings"]
+
+    params, _ = convert.random_pm_vqvae_tree(
+        config["conditional_dim"], vqvae_config, config["pixel_cnn"], seed=config["seed"])
+    params["vqvae"] = vqvae_state.params
+    state = {"vq_ema": {"vqvae": vqvae_state.state["vq_ema"]}}
+    model = convert.pm_vqvae_from_jax(params, state, config["conditional_dim"], vqvae_config,
+                                      config["pixel_cnn"], device=device,
+                                      chain_segment=args.chain_segment)
+    trainer = pm_vqvae_trainer(model, config, seed=config["seed"],
+                               mask_fn=get_mask_generator(data["mask_generator"], device),
+                               device=device)
+    trainer.init()
+
+    run_dir = make_run_dir(prefix=f"pm-vqvae-{data['dataset']}")
+    print("Using run directory:", run_dir, flush=True)
+    save_train_meta(run_dir, config)
+    with open(os.path.join(run_dir, "config.json"), "w") as fp:
+        json.dump(config, fp)
+    with open(os.path.join(run_dir, "vqvae_config.json"), "w") as fp:
+        json.dump(vqvae_config, fp)
+
+    trainer.fit(train_dataset, config["steps"],
+                [CheckpointCallback(os.path.join(run_dir, "train_state.pkl"))],
+                val_batches=val_dataset, validation_freq=config["validation_freq"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,7 +5,11 @@ card: ``python -m pytest tests/test_torch_kernels_gpu.py -q -m cuda``. Shapes
 are small but cover what the full-width smoke run does not: widths that do
 not divide the vrow kernel's 32 row slots, sample counts that leave a
 block's tile ragged, two logits chunks; row counts that leave the gated
-chain's 32-row tiles ragged, grids other than square; latent counts that
+chain's 32-row tiles ragged, grids other than square; the pair and
+segment kernels at the flagship's 16x16 and PM-VQVAE MNIST's 7x7 code
+grids, up and down, with and without dropout, a segment whose outputs
+reach the loss only in part, and a small PM-VQVAE step per chain mode
+(stream, pairs, segments with a remainder) against the CPU; latent counts that
 leave the search's 32-row tiles ragged; block-chain and decoder-chain runs
 whose rows leave the 32- to 256-row tiles ragged, 1x1 and 3x3 taps at the
 image's edges, and runs long enough that their weight gradients sum two
@@ -173,6 +177,129 @@ def test_gated_stream_kernels_match_plain(dev, down, b, h, w, keep):
     grads_p = torch.autograd.grad(want, leaves, cot)
     for gk, gp in zip(grads_k, grads_p):
         assert _close(gk, gp)
+
+
+def _level_case(gen, b, h, w, L, cd, down):
+    """Per-level weights at 1 / sqrt(fan-in) (biases 0.05), so that
+    activations and gradients stay of order 1 over the levels."""
+    f = gc.KERNEL_FILTERS
+    shapes = gc.weight_shapes(f, cd, *gc.chain_taps(), down)
+    ws = [{n: _rand(gen, *s, scale=s[0] ** -0.5 if len(s) == 2 else 0.05) for n, s in shapes}
+          for _ in range(L)]
+    xv0, xh0, cond = _rand(gen, b, h, w, f), _rand(gen, b, h, w, f), _rand(gen, b, cd)
+    sk = [(_rand(gen, b, h, w, f), _rand(gen, b, h, w, f)) for _ in range(L)] if down else None
+    return xv0, xh0, sk, cond, ws
+
+
+def _leaf_names(ws, sk):
+    return ["xv0", "xh0", "cond", *(f"{n}[{l}]" for l, wl in enumerate(ws) for n in wl),
+            *(f"{n}[{l}]" for l in range(len(sk or ())) for n in ("skv", "skh"))]
+
+
+@pytest.mark.parametrize("down", [False, True], ids=["up", "down"])
+@pytest.mark.parametrize("mode", ["pair", "segment"])
+@pytest.mark.parametrize("b,h,w,cd,keep,seg", [(2, 16, 16, 512, 0.5, 4), (3, 7, 7, 512, 1.0, 8),
+                                               (2, 7, 7, 16, 0.5, 3)])
+def test_gated_pair_and_segment_kernels_match_plain(dev, down, mode, b, h, w, cd, keep, seg):
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + h + cd + down)
+    n_lvl = 1 if mode == "pair" else seg
+    xv0, xh0, sk, cond, ws = _level_case(gen, b, h, w, n_lvl, cd, down)
+    leaves = [xv0, xh0, cond, *(t for wl in ws for t in wl.values()),
+              *(t for pair in (sk or ()) for t in pair)]
+    for t in leaves:
+        t.requires_grad_(True)
+    fwd, bwd = (gc.pair_fwd, gc.pair_bwd) if mode == "pair" else (gc.seg_fwd, gc.seg_bwd)
+    f0, b0 = fwd.launches, bwd.launches
+    if mode == "pair":
+        kw = dict(seed=5, pair_index=13 if down else 2, keep=keep)
+        got = [gc.gated_pair(xv0, xh0, sk and sk[0], cond, ws[0], **kw)]
+        want = [gc.gated_pair_plain(xv0, xh0, sk and sk[0], cond, ws[0], **kw)]
+    else:
+        kw = dict(seed=5, base_pair=12 if down else 3, keep=keep)
+        got = gc.gated_segment(xv0, xh0, sk, cond, ws, **kw)
+        want = gc.gated_segment_plain(xv0, xh0, sk, cond, ws, **kw)
+    got = [t for pair in got for t in pair]
+    want = [t for pair in want for t in pair]
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape and _close(g_, w_)
+    cot = [_rand(gen, *t.shape) for t in want]
+    grads_k = torch.autograd.grad(got, leaves, cot)
+    torch.cuda.synchronize()
+    assert fwd.launches == f0 + 1 and bwd.launches == b0 + 1
+    grads_p = torch.autograd.grad(want, leaves, cot)
+    for name, gk, gp in zip(_leaf_names(ws, sk), grads_k, grads_p):
+        assert _close(gk, gp), name
+
+
+def test_gated_segment_backward_with_unused_outputs(dev):
+    """Only the last level's horizontal output and the first level's
+    vertical one reach the loss: the others' cotangents arrive as None."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    xv0, xh0, sk, cond, ws = _level_case(gen, 2, 8, 8, 3, 32, True)
+    leaves = [xv0, xh0, cond, *(t for wl in ws for t in wl.values()),
+              *(t for pair in sk for t in pair)]
+    for t in leaves:
+        t.requires_grad_(True)
+    kw = dict(seed=9, base_pair=4, keep=0.5)
+    got = gc.gated_segment(xv0, xh0, sk, cond, ws, **kw)
+    want = gc.gated_segment_plain(xv0, xh0, sk, cond, ws, **kw)
+    loss = lambda outs: (outs[-1][1] ** 2).sum() + outs[0][0].sum()
+    grads_k = torch.autograd.grad(loss(got), leaves)
+    grads_p = torch.autograd.grad(loss(want), leaves)
+    for name, gk, gp in zip(_leaf_names(ws, sk), grads_k, grads_p):
+        assert _close(gk, gp), name
+
+
+def test_gated_level_wrappers_refuse_masks_and_widths(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xv0, xh0, _, cond, ws = _level_case(gen, 2, 4, 4, 1, 16, False)
+    masks = (torch.ones(2, 4, 4, 256, device=dev),) * 2
+    with pytest.raises(ValueError, match="injected masks"):
+        gc.gated_pair(xv0, xh0, None, cond, ws[0], seed=0, pair_index=0, keep=0.5, masks=masks)
+    narrow = {n: t[..., :64] for n, t in ws[0].items()}
+    with pytest.raises(ValueError, match="num_filters"):
+        gc.gated_segment(xv0[..., :64], xh0[..., :64], None, cond, [narrow], seed=0,
+                         base_pair=0, keep=1.0)
+
+
+# A small PM-VQVAE at PM-VQVAE MNIST's geometry (28x28x1 images, 7x7 codes,
+# 128 filters), 3 resnet levels: segments of 2 leave a remainder of 1.
+SMALL_VQ = {"output_channels": 1, "embedding_dim": 16, "num_embeddings": 32,
+            "hidden_units": 16, "residual_blocks": 1, "residual_hidden_units": 8,
+            "decay": 0.99, "use_ema": True, "commitment_cost": 0.25}
+SMALL_PC = {"image_shape": (7, 7), "num_resnet": 3, "num_hierarchies": 1,
+            "num_filters": 128, "dropout": 0.5, "num_indices": 32}
+
+
+@pytest.mark.parametrize("chain_segment,launches", [("stream", (2, 0, 0)), (1, (0, 6, 0)),
+                                                    (2, (0, 0, 4))])
+def test_pm_vqvae_step_per_chain_mode_matches_cpu(dev, chain_segment, launches):
+    """The loss and gradients of a training step through each mode's
+    kernels against the plain path on the CPU (the same hash masks)."""
+    from posterior_matching_torch import convert
+    from posterior_matching_torch.train.trainer import pm_vqvae_loss
+
+    params, state = convert.random_pm_vqvae_tree(24, SMALL_VQ, SMALL_PC, seed=4)
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(3, 28, 28, 1, generator=g)
+    b = (torch.rand(3, 28, 28, 1, generator=g) > 0.5).float()
+    counters = (gc.stream_bwd, gc.pair_bwd, gc.seg_bwd)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        m = convert.pm_vqvae_from_jax(params, state, 24, SMALL_VQ, SMALL_PC, device=d,
+                                      chain_segment=chain_segment)
+        names, ps = zip(*[(n, p) for n, p in m.named_parameters()
+                          if not n.startswith("vqvae.")])
+        before = [c.launches for c in counters]
+        loss = pm_vqvae_loss(m, {"image": x.to(d), "mask": b.to(d)}, 77, True)
+        grads = torch.autograd.grad(loss, ps)
+        out[d.type] = (loss.item(), [gr.cpu() for gr in grads],
+                       tuple(c.launches - n for c, n in zip(counters, before)))
+    (lg, gg, launched), (lc, gcpu, _) = out["cuda"], out["cpu"]
+    assert launched == launches
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, w_ in zip(gg, gcpu):
+        assert _close(a, w_)
 
 
 def _block_chain_case(gen, b, h, w, L, k, c=192, m=48):

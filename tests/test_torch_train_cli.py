@@ -10,11 +10,15 @@ package's.
   geometry).
 - ``python -m posterior_matching_torch.train_pm_vdvae`` on the CPU at a
   tiny model (width 16, latent 4) on small synthetic MNIST files, fused
-  decoder on: 2 steps, one validation; its run directory; the JAX
-  package's ``load_train_state`` reads the checkpoint, and the JAX model
-  gives the port's loss on a batch with the same injected normals, within 1e-4
-  relative (the port's fused runs sum in another order than the JAX
-  package's unfused blocks).
+  decoder on: 2 steps, one validation; its run directory; its
+  ``model_config.json`` holds exactly the keys of ``configs/
+  pm_vdvae_mnist.py``'s ``model`` block (``fused_chain`` is the run's
+  execution option, not written), so the JAX ``from_config`` builds it as
+  written on the CPU; the JAX package's ``load_train_state`` reads the
+  checkpoint, and that JAX model gives the port's loss on a batch with the
+  same injected normals, within 1e-4 relative (the port's fused runs sum
+  in another order than the JAX package's unfused blocks); the port loads
+  the run unfused unless asked for the fused decoder.
 """
 import json
 import os
@@ -30,7 +34,9 @@ from posterior_matching_tpu.data import sources as jax_sources
 from posterior_matching_tpu.distributions import normal as jax_normal
 from posterior_matching_tpu.models.vdvae import PosteriorMatchingVDVAE as JaxVDVAE
 from posterior_matching_tpu.train.state import load_train_state as jax_load_train_state
-from posterior_matching_torch import convert, train_pm_vdvae
+from configs.pm_vdvae_mnist import get_config as jax_pm_vdvae_mnist
+from posterior_matching_torch import cli, convert, train_pm_vdvae
+from posterior_matching_torch.config import CONFIGS
 from posterior_matching_torch.data import datasets, sources
 from posterior_matching_torch.models.vdvae import parse_layer_string
 from posterior_matching_torch.train.trainer import pm_vdvae_loss
@@ -86,7 +92,7 @@ def test_load_datasets_stream_matches_jax(data_dir):
 
 
 def test_init_tree_has_the_jax_init_structure():
-    config = dict(train_pm_vdvae.CONFIGS["pm_vdvae_mnist"]()["model"], image_shape=(8, 8, 1),
+    config = dict(CONFIGS["pm_vdvae_mnist"]()["model"], image_shape=(8, 8, 1),
                   width=16, latent_dim=4, num_mixtures=2,
                   encoder_blocks="8x2,8d2,4x2,4d4,1x2", decoder_blocks="1x2,4m1,4x2,8m4,8x2")
     x = np.zeros((1, 8, 8, 1), np.float32)
@@ -136,7 +142,8 @@ def test_cli_trains_and_jax_reads_its_checkpoint(data_dir, tmp_path, monkeypatch
         assert json.load(fp) == {"seed": 3, "steps": 2}
     with open(os.path.join(run_dir, "model_config.json")) as fp:
         model_config = json.load(fp)
-    assert model_config["width"] == 16 and model_config["fused_chain"] is True
+    assert set(model_config) == set(jax_pm_vdvae_mnist().model.to_dict())
+    assert model_config["width"] == 16
 
     ts = jax_load_train_state(os.path.join(run_dir, "train_state.pkl"))
     assert int(ts.step) == 2
@@ -146,7 +153,7 @@ def test_cli_trains_and_jax_reads_its_checkpoint(data_dir, tmp_path, monkeypatch
     eps = [rng.randn(2, r, r, 4).astype(np.float32)
            for r, _ in parse_layer_string(model_config["decoder_blocks"])]
     inject.extend(eps)
-    jm = JaxVDVAE.from_config(dict(model_config, fused_chain=False))
+    jm = JaxVDVAE.from_config(model_config)
 
     @jax.jit
     def jax_loss(params):
@@ -155,8 +162,9 @@ def test_cli_trains_and_jax_reads_its_checkpoint(data_dir, tmp_path, monkeypatch
 
     want = jax_loss(ts.ema_params)
     assert not inject   # one sample per decoder block
+    assert convert.load_pm_vdvae(run_dir, device="cpu", fused_chain=True).decoder.fused
     port = convert.load_pm_vdvae(run_dir, device="cpu")
-    assert port.decoder.fused
+    assert not port.decoder.fused
     with torch.no_grad():
         got = pm_vdvae_loss(port, {"image": torch.from_numpy(x), "mask": torch.from_numpy(b)},
                             iter(torch.from_numpy(e) for e in eps))
@@ -171,11 +179,11 @@ def test_cli_refuses_what_it_does_not_take(argv, capsys):
 
 
 def test_config_overrides():
-    config = train_pm_vdvae.CONFIGS["pm_vdvae_mnist"]()
-    train_pm_vdvae.apply_overrides(config, train_pm_vdvae.parse_overrides(
+    config = CONFIGS["pm_vdvae_mnist"]()
+    cli.apply_overrides(config, cli.parse_overrides(
         ["--config.steps", "7", "--config.lr=1.5e-4", "--config.model.fused_chain=True",
          "--config.model.decoder_blocks=1x2,28m1", "--config.seed", "None"]))
     assert config["steps"] == 7 and config["lr"] == 1.5e-4 and config["seed"] is None
     assert config["model"]["fused_chain"] is True
     assert config["model"]["decoder_blocks"] == "1x2,28m1"
-    assert train_pm_vdvae.CONFIGS["pm_vdvae_mnist"]()["steps"] == 500000
+    assert CONFIGS["pm_vdvae_mnist"]()["steps"] == 500000
