@@ -14,7 +14,8 @@ and checks them, in these phases:
    row-sampler kernels are launched at the imputation path's shapes (n = 32
    images x 10 samples, F = 128, L = 24, 16 x 16 codes, K = 512) and held
    against their plain PyTorch versions on the same inputs; each is timed
-   with CUDA events beside its bound;
+   with CUDA events beside its bound, the row kernel also with its weight
+   stream per busy SM and its GFLOP/s;
 3. imputation: three requests of 32 seeded 64x64x3 images with CelebA
    masks, 10 samples each, through ``pm_vqvae_impute`` with weights from
    ``--seed`` (a JAX-layout tree sent through ``convert.py``) or from
@@ -1651,7 +1652,7 @@ def main() -> int:
         # computes either chain)
         vrow_ms = time_ms(lambda: sc.vrow(*vrow_in), reps=10)
         vrow_plain_ms = time_ms(lambda: sc.vrow_plain(*vrow_in), reps=3)
-        row_ms = time_ms(lambda: sc.row(*row_in), reps=5)
+        row_ms = time_ms(lambda: sc.row(*row_in), reps=10)
         row_plain_ms = time_ms(lambda: sc.row_plain(*row_in), reps=2)
 
     n_res = pcnn.num_resnet
@@ -1668,6 +1669,13 @@ def main() -> int:
     log(f"row:  {row_ms:.3f} ms/launch (plain {row_plain_ms:.3f}), bound "
         f"{row_bound:.3f} ms by {row_by} ({row_flops / 1e9:.1f} GFLOP, "
         f"{row_bytes / 1e6:.1f} MB)")
+    # The row kernel streams every weight of a pixel once per block (8
+    # samples), pixel by pixel: hlw, wa and wb of each level, lw.
+    row_blocks = -(-n // 8)
+    row_wbytes = row_blocks * wid * 4 * (2 * f * f + n_lvl * 28 * f * f + f * k_idx)
+    log(f"row:  weight stream {row_wbytes / row_blocks / (row_ms * 1e6):.1f} GB/s "
+        f"per busy SM ({row_blocks} blocks, {row_wbytes / 1e9:.1f} GB a launch), "
+        f"{row_flops / (row_ms * 1e6):.1f} GFLOP/s, {row_ms / row_bound:.2f}x its bound")
 
     # ---- 3. the slice: three imputation requests ---------------------------
     stamp("PM-VQVAE imputation")
@@ -1780,7 +1788,11 @@ def main() -> int:
          "replaces": "posterior_matching_tpu/ops/sampler_chain.py:215",
          "launches": launches["sampler_row"], "max_abs_err": row_err,
          "ms": row_ms, "plain_ms": row_plain_ms, "bound_ms": row_bound,
-         "bound_by": row_by, "library_ms": None},
+         "bound_by": row_by, "library_ms": None,
+         "design": "one block of 8 consumer warps + 1 producer warp per 8 samples; "
+                   "operands gathered into shared memory once a GEMM; weights "
+                   "streamed by cp.async.bulk through 2 x 64 KB mbarrier slots; "
+                   "8 samples x 4 columns a lane, split-K reduced in fixed order"},
         vq_line, *chain_lines, *vdvae_lines,
     ]
     summary = {
@@ -1793,7 +1805,7 @@ def main() -> int:
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("launches_per_step", "per_run", "per_pass")
+    extra = ("launches_per_step", "per_run", "per_pass", "design")
     log(json.dumps({"kernels": [{**{k: kd[k] for k in keys},
                                  **{k: kd[k] for k in extra if k in kd}} for kd in kernels]}))
     log(json.dumps({"ok": True, "device": {

@@ -4,10 +4,11 @@ These need an NVIDIA GPU (sm_90a) and ``nvcc``; elsewhere they skip. On the
 card: ``python -m pytest tests/test_torch_kernels_gpu.py -q -m cuda``. Shapes
 are small but cover what the full-width smoke run does not: widths that do
 not divide the vrow kernel's 32 row slots, sample counts that leave a
-block's tile ragged, two logits chunks; row counts that leave the gated
-chain's 32-row tiles ragged, grids other than square; the pair and
-segment kernels at the flagship's 16x16 and PM-VQVAE MNIST's 7x7 code
-grids, up and down, with and without dropout, a segment whose outputs
+block's tile ragged, two logits chunks, the row kernel at full depth
+(L = 24) and launched twice for bit-identical outputs; row counts that
+leave the gated chain's 32-row tiles ragged, grids other than square; the
+pair and segment kernels at the flagship's 16x16 and PM-VQVAE MNIST's 7x7
+code grids, up and down, with and without dropout, a segment whose outputs
 reach the loss only in part, and a small PM-VQVAE step per chain mode
 (stream, pairs, segments with a remainder) against the CPU; latent counts that
 leave the search's 32-row tiles ragged; block-chain and decoder-chain runs
@@ -78,20 +79,33 @@ def test_vrow_kernel_matches_plain(dev, wid, n):
         assert _close(g, w)
 
 
-@pytest.mark.parametrize("wid,n,k", [(16, 5, 512), (7, 13, 256)])
-def test_row_kernel_matches_plain(dev, wid, n, k):
-    gen = torch.Generator(device=dev).manual_seed(wid * 100 + n)
-    n_lvl, s = 4, 0.05
-    args = (
+def _row_inputs(gen, n_lvl, wid, n, k):
+    s = 0.05
+    return (
         _rand(gen, n_lvl, 12 * F, F, scale=s), _rand(gen, n_lvl, F, scale=s),
         _rand(gen, n_lvl, 8 * F, 2 * F, scale=s), _rand(gen, n_lvl, 2 * F, scale=s),
         _rand(gen, n_lvl, n, 2 * F),
         _rand(gen, n_lvl, wid, n, F), _rand(gen, n_lvl, wid, n, 2 * F),
         _rand(gen, n_lvl, wid, n, F), _rand(gen, wid, n, F), _rand(gen, wid, n, F),
-        sc.gumbel_noise((wid, n, k), gen, dev),
+        sc.gumbel_noise((wid, n, k), gen, gen.device),
         _rand(gen, k, F, scale=s), _rand(gen, F, k, scale=s), _rand(gen, k, scale=s),
         _rand(gen, 2 * F, F, scale=s), _rand(gen, F, scale=s),
     )
+
+
+# The weight ring wraps at GEMM, level and pixel boundaries: full depth
+# (L = 24) with a ragged last block (n = 13) and with full blocks (n = 16),
+# one column, one and two logits chunks.
+@pytest.mark.parametrize("wid,n,k,n_lvl", [
+    pytest.param(16, 5, 512, 4, id="16-5-512"),
+    pytest.param(7, 13, 256, 4, id="7-13-256"),
+    pytest.param(16, 13, 512, 24, id="16-13-512-L24"),
+    pytest.param(16, 16, 256, 24, id="16-16-256-L24"),
+    pytest.param(1, 5, 512, 4, id="1-5-512"),
+])
+def test_row_kernel_matches_plain(dev, wid, n, k, n_lvl):
+    gen = torch.Generator(device=dev).manual_seed(wid * 100 + n)
+    args = _row_inputs(gen, n_lvl, wid, n, k)
     before = sc.row.launches
     got = sc.row(*args, with_logits=True)
     torch.cuda.synchronize()
@@ -100,6 +114,17 @@ def test_row_kernel_matches_plain(dev, wid, n, k):
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
     for g, w in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
         assert _close(g, w)
+
+
+def test_row_kernel_is_deterministic(dev):
+    # the split-K partial sums are reduced in a fixed order
+    gen = torch.Generator(device=dev).manual_seed(7)
+    args = _row_inputs(gen, 24, 16, 13, 512)
+    first = sc.row(*args, with_logits=True)
+    second = sc.row(*args, with_logits=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_kernel_wrappers_refuse_unsupported_shapes(dev):

@@ -3,7 +3,11 @@
 Both get the same numpy-drawn Gumbel noise ``[H, W, n, K]``; the JAX side runs
 its Pallas kernels in interpret mode, as ``tests/test_sampler_chain.py`` does.
 In float32 the samples must be equal and the logits agree to 1e-4 absolute
-(float32 rounding along a chain of a few dozen matmuls of width <= 12F).
+(float32 rounding along a chain of a few dozen matmuls of width <= 12F). One
+case runs at 128 filters, the only width the port's row kernel is built
+for, so the plain version that the kernel is held against on the card is
+itself held against JAX at that width, with a sample count (9) that leaves
+the kernel's 8-sample blocks ragged.
 """
 import jax
 import jax.numpy as jnp
@@ -20,10 +24,10 @@ from posterior_matching_torch.ops import sampler_chain
 LOGITS_ATOL = 1e-4
 
 
-def _models(num_resnet, num_indices, image_shape, cond_dim, batch):
+def _models(num_resnet, num_indices, image_shape, cond_dim, batch, num_filters=8):
     jax_model = JaxPixelCNN(
         num_indices=num_indices, image_shape=image_shape, dropout=0.0,
-        num_resnet=num_resnet, num_hierarchies=1, num_filters=8,
+        num_resnet=num_resnet, num_hierarchies=1, num_filters=num_filters,
     )
     x0 = jnp.zeros((batch, *image_shape), jnp.int32)
     cond = (
@@ -33,18 +37,23 @@ def _models(num_resnet, num_indices, image_shape, cond_dim, batch):
     variables = jax_model.init(jax.random.PRNGKey(0), x0, cond)
     port = PixelCNN(
         num_indices=num_indices, image_shape=image_shape, dropout=0.0,
-        num_resnet=num_resnet, num_filters=8, conditional_dim=cond_dim,
+        num_resnet=num_resnet, num_filters=num_filters, conditional_dim=cond_dim,
     )
     port.load_state_dict(to_torch(pixel_cnn_state_dict(variables["params"])))
     return jax_model, variables, port, cond
 
 
-@pytest.mark.parametrize("cond_dim", [10, None], ids=["cond", "uncond"])
-@pytest.mark.parametrize("num_resnet", [1, 3])
-def test_plain_sampler_matches_jax_rowkernel(num_resnet, cond_dim):
-    image_shape, num_indices, batch, num_samples = (5, 6), 12, 2, 3
+@pytest.mark.parametrize(
+    "num_resnet,cond_dim,num_filters,image_shape,batch",
+    [pytest.param(r, c, 8, (5, 6), 2, id=f"{r}-{cid}")
+     for r in (1, 3) for c, cid in ((10, "cond"), (None, "uncond"))]
+    + [pytest.param(1, 10, 128, (3, 4), 3, id="1-cond-128filters")],
+)
+def test_plain_sampler_matches_jax_rowkernel(num_resnet, cond_dim, num_filters,
+                                             image_shape, batch):
+    num_indices, num_samples = 12, 3
     jax_model, variables, port, cond = _models(
-        num_resnet, num_indices, image_shape, cond_dim, batch
+        num_resnet, num_indices, image_shape, cond_dim, batch, num_filters
     )
     n = num_samples * (batch if cond is not None else 1)
     noise = np.random.RandomState(3).gumbel(
