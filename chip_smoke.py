@@ -355,8 +355,11 @@ def stream_phase(model, x, b, seed):
         results[direction] = {
             "fwd": (fwd_err, fwd_ms, fwd_plain, ff, fb),
             "bwd": (bwd_err, bwd_ms, bwd_plain, bf, bb),
+            "splits": gc.wgrad_splits("gated_stream_bwd", cfg),
         }
-        for kind, (_, ms, pms, fl, by) in results[direction].items():
+        log(f"gated_stream_bwd {direction}: wgrad row splits {results[direction]['splits']}")
+        for kind in ("fwd", "bwd"):
+            _, ms, pms, fl, by = results[direction][kind]
             b_ms, b_by = bound(fl, by)
             log(f"gated_stream_{kind} {direction}: {ms:.3f} ms/launch (plain {pms:.3f}), "
                 f"bound {b_ms:.3f} ms by {b_by} ({fl / 1e9:.1f} GFLOP, {by / 1e6:.1f} MB)")
@@ -375,7 +378,9 @@ def stream_phase(model, x, b, seed):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "per_pass": {d: {"ms": results[d][kind][1], "plain_ms": results[d][kind][2],
                              "gflop": results[d][kind][3] / 1e9,
-                             "mb": results[d][kind][4] / 1e6} for d in ("up", "dn")},
+                             "mb": results[d][kind][4] / 1e6,
+                             **({"wgrad_splits": results[d]["splits"]} if kind == "bwd"
+                                else {})} for d in ("up", "dn")},
         })
     return out
 
@@ -480,8 +485,12 @@ def level_phase(model, x, b, seed):
                                *head.values(), *(t for g_ in grads for t in g_.values()))
             (ff, fb), (bf, bb) = stream_work(cfg, fwd_bytes, bwd_bytes)
             results[kind][direction] = {"fwd": (fwd_err, fwd_ms, fwd_plain, ff, fb),
-                                        "bwd": (bwd_err, bwd_ms, bwd_plain, bf, bb)}
-            for k2, (_, ms, pms, fl, by) in results[kind][direction].items():
+                                        "bwd": (bwd_err, bwd_ms, bwd_plain, bf, bb),
+                                        "splits": gc.wgrad_splits("gated_levels_bwd", cfg)}
+            log(f"gated_{kind}_bwd {direction}: wgrad row splits "
+                f"{results[kind][direction]['splits']}")
+            for k2 in ("fwd", "bwd"):
+                _, ms, pms, fl, by = results[kind][direction][k2]
                 b_ms, b_by = bound(fl, by)
                 log(f"gated_{kind}_{k2} {direction}: {ms:.4f} ms/launch (plain {pms:.3f}), bound "
                     f"{b_ms:.4f} ms by {b_by} ({fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB)")
@@ -503,7 +512,9 @@ def level_phase(model, x, b, seed):
                 "per_pass": {d: {"levels": kinds[kind][1], "ms": results[kind][d][k2][1],
                                  "plain_ms": results[kind][d][k2][2],
                                  "gflop": results[kind][d][k2][3] / 1e9,
-                                 "mb": results[kind][d][k2][4] / 1e6} for d in ("up", "dn")},
+                                 "mb": results[kind][d][k2][4] / 1e6,
+                                 **({"wgrad_splits": results[kind][d]["splits"]}
+                                    if k2 == "bwd" else {})} for d in ("up", "dn")},
             })
     return out
 
@@ -1676,6 +1687,15 @@ def main() -> int:
     log(f"row:  weight stream {row_wbytes / row_blocks / (row_ms * 1e6):.1f} GB/s "
         f"per busy SM ({row_blocks} blocks, {row_wbytes / 1e9:.1f} GB a launch), "
         f"{row_flops / (row_ms * 1e6):.1f} GFLOP/s, {row_ms / row_bound:.2f}x its bound")
+    # The vrow kernel streams every weight once per block (TS samples):
+    # viw, huw, then wav, waux (down levels) and wbv of each level.
+    vrow_nblocks = sc.vrow_blocks(wid, n)
+    vrow_wbytes = vrow_nblocks * 4 * (9 * f * f + n_lvl * 36 * f * f + n_res * 2 * f * f)
+    log(f"vrow: {vrow_nblocks} blocks ({-(-n // vrow_nblocks)} samples each), weight "
+        f"stream {vrow_wbytes / vrow_nblocks / (vrow_ms * 1e6):.1f} GB/s per busy SM "
+        f"({vrow_wbytes / 1e9:.2f} GB of L2 reads a launch), "
+        f"{vrow_flops / (vrow_ms * 1e6) / vrow_nblocks:.1f} GFLOP/s per busy SM, "
+        f"{vrow_ms / vrow_bound:.2f}x its bound")
 
     # ---- 3. the slice: three imputation requests ---------------------------
     stamp("PM-VQVAE imputation")
@@ -1782,7 +1802,12 @@ def main() -> int:
          "replaces": "posterior_matching_tpu/ops/sampler_chain.py:124",
          "launches": launches["sampler_vrow"], "max_abs_err": vrow_err,
          "ms": vrow_ms, "plain_ms": vrow_plain_ms, "bound_ms": vrow_bound,
-         "bound_by": vrow_by, "library_ms": None},
+         "bound_by": vrow_by, "library_ms": None,
+         "design": f"{vrow_nblocks} blocks of 12 warps; operands built in shared "
+                   "memory once a GEMM (zero halo rows); weights streamed by "
+                   "cp.async.bulk through 3 x 32 KB mbarrier slots, each refilled by "
+                   "the last warp done with it; 16 rows x 4 or 8 x 8 columns a "
+                   "thread, split-K reduced in fixed order"},
         {"name": "sampler_row", "route": "cuda",
          "source": "posterior_matching_torch/ops/csrc/sampler_row.cu",
          "replaces": "posterior_matching_tpu/ops/sampler_chain.py:215",

@@ -13,10 +13,13 @@
 // and the dropout mask in their epilogues; a level's external cotangents are
 // added into the carried ones (a null pointer is a zero cotangent). The
 // weight gradients of all levels then run as one launch per weight kind
-// (wgrad: one block per (32 input rows, tap, level) reducing over all rows),
-// the bias and cond gradients as small reductions. No atomics: each output
-// is summed by one thread in a fixed order, so equal inputs give equal
-// gradients on every run.
+// (wgrad: one block per (32 input rows, tap, level, row split)), the bias
+// and cond gradients as small reductions. A weight kind whose grid is small
+// (the pair's: 8-48 blocks at one level) has its rows cut into S splits, so
+// that its launch has ~kWgradBlocks blocks; each split's block writes a
+// partial sum, and reduce_splits adds the S partials in split order. No
+// atomics: each output is summed in a fixed order, so equal inputs give
+// equal gradients on every run.
 #pragma once
 
 #include "gated_common.cuh"
@@ -24,6 +27,10 @@
 namespace gsk {
 
 constexpr int kMaxLevels = 32;  // ops/gated_chain.py MAX_LEVELS
+// Blocks a weight-gradient launch aims for (~4 resident a block of 256
+// threads on each of the H100's 132 SMs), and the fewest rows a split sums.
+constexpr int kWgradBlocks = 4 * 132;
+constexpr int kMinSplitRows = 8 * kKC;
 
 // Per-level pointers passed by value in a kernel's parameters.
 struct PerLevel {
@@ -135,14 +142,32 @@ __global__ void gate_bwd(const float* __restrict__ carry, const float* __restric
   db1[r * 2 * F + F + j] = g * act * sg * (1.f - sg);
 }
 
+// The row splits of one weight kind's reduction over R rows when its grid
+// has `blocks` blocks a split: S splits of `rows` rows (a multiple of kKC,
+// the last one shorter), S = 1 where the grid is already large.
+struct Split {
+  int S, rows;
+};
+inline Split wgrad_split(int R, int blocks) {
+  int S = (kWgradBlocks + blocks - 1) / blocks;
+  S = S < R / kMinSplitRows ? S : R / kMinSplitRows;
+  if (S <= 1) return Split{1, R};
+  int rows = (R + S - 1) / S;
+  rows = (rows + kKC - 1) / kKC * kKC;
+  return Split{(R + rows - 1) / rows, rows};
+}
+
 // dW_l[t * 2C + i][n] = sum_r A_l(r + shift_t, i) * G_l[r][n], where A_l is
 // concat_elu of level l's source (times the dropout mask / keep with
-// `drop`). Block (i-tile, tap, level) reduces over all rows.
+// `drop`). Block (i-tile, tap, level * S + s) sums the rows of split s:
+// straight into dW_l when S == 1, else into part[l][s] ([taps.n * 2C, N]
+// each), which reduce_splits adds up.
 struct WgArgs {
   PerLevel src;     // level l's source [R, C]
   PerLevelOut out;  // level l's gradient [taps.n * 2C, N]
   const float* g;   // [L, R, N]
-  int C, drop;
+  float* part;      // [L, S, taps.n * 2C, N] when S > 1
+  int C, drop, S, rows;
   Taps taps;
   Geo geo;
   uint32_t seed, thresh;
@@ -157,7 +182,9 @@ __global__ void __launch_bounds__(kThreads) wgrad(const WgArgs p) {
   __shared__ __align__(16) float sB[kKC * N];
   const Geo g = p.geo;
   const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * kM, t = blockIdx.y, l = blockIdx.z;
+  const int i0 = blockIdx.x * kM, t = blockIdx.y;
+  const int l = blockIdx.z / p.S, sp = blockIdx.z % p.S;
+  const int rbeg = sp * p.rows, rend = min(g.R, rbeg + p.rows);
   const float* src = p.src.p[l];
   const float* gl = p.g + (size_t)l * g.R * N;
   const uint32_t key = stream_key(p.seed, (uint32_t)(2 * (p.base + l) + p.sub));
@@ -172,13 +199,13 @@ __global__ void __launch_bounds__(kThreads) wgrad(const WgArgs p) {
 #pragma unroll
     for (int u = 0; u < TN; ++u) acc[a][u] = 0.f;
 
-  for (int k0 = 0; k0 < g.R; k0 += kKC) {
+  for (int k0 = rbeg; k0 < rend; k0 += kKC) {
 #pragma unroll
     for (int h = 0; h < kKC / (kThreads / kM); ++h) {
       const int kk = kk0 + h * (kThreads / kM);
       const int r = k0 + kk;
       float v = 0.f;
-      if (r < g.R) {
+      if (r < rend) {
         const int b = r / g.HW, pos = r % g.HW;
         const int yy = pos / g.W + dy, xx = pos % g.W + dx;
         if (yy >= 0 && yy < g.H && xx >= 0 && xx < g.W) {
@@ -197,21 +224,35 @@ __global__ void __launch_bounds__(kThreads) wgrad(const WgArgs p) {
       const int kr = q / (N / 4), c4 = q % (N / 4);
       const int r = k0 + kr;
       reinterpret_cast<float4*>(sB)[q] =
-          r < g.R ? __ldg(reinterpret_cast<const float4*>(gl + (size_t)r * N) + c4)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
+          r < rend ? __ldg(reinterpret_cast<const float4*>(gl + (size_t)r * N) + c4)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     __syncthreads();
     mma_chunk<N>(acc, sA, sB);
     __syncthreads();
   }
   const int tr = tid / 32;
-  float* out = p.out.p[l] + (size_t)t * 2 * p.C * N;
+  const size_t per = (size_t)p.taps.n * 2 * p.C * N;  // one level's dW
+  float* out = (p.S == 1 ? p.out.p[l] : p.part + ((size_t)l * p.S + sp) * per) +
+               (size_t)t * 2 * p.C * N;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int row = i0 + tr * 4 + a;
 #pragma unroll
     for (int u = 0; u < TN; ++u) out[(size_t)row * N + tile_col<N>(u)] = acc[a][u];
   }
+}
+
+// out_l[j] = sum_s part[l][s][j], in the order of s, for the n entries j of
+// a level's dW; one thread per (l, j).
+__global__ void reduce_splits(const float* __restrict__ part, const PerLevelOut out, int L,
+                              int S, size_t n) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)L * n) return;
+  const size_t l = idx / n, j = idx % n;
+  float acc = 0.f;
+  for (int s = 0; s < S; ++s) acc += part[(l * S + s) * n + j];
+  out.p[l][j] = acc;
 }
 
 // out[lb][c] = sum over the image's positions of x[lb][pos][c]
@@ -265,6 +306,33 @@ __global__ void dcond_kernel(const float* __restrict__ rsv, const PerLevel wcv,
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) dcond[(size_t)b * CD + k] = acc;
+}
+
+// The split of chain c's weight kind of `taps` taps.
+inline Split wgrad_split(const Chain& c, int taps) {
+  return wgrad_split(c.g.R, (2 * kF / kM) * taps * c.L);
+}
+
+// The row splits of chain c's weight kinds: the vertical convs', the
+// horizontal convs', the aux products'.
+inline void wgrad_splits(const Chain& c, int* splits) {
+  const int taps[3] = {c.tv.n, c.th.n, 1};
+  for (int i = 0; i < 3; ++i) splits[i] = wgrad_split(c, taps[i]).S;
+}
+
+// Floats of the partial sums the backward of chain `c` needs: the largest
+// kind's, each counted at N = 2F (the kinds run one after another on one
+// stream and share them).
+inline long long wgrad_part_floats(const Chain& c) {
+  const int taps[3] = {c.tv.n, c.th.n, 1};
+  int splits[3];
+  wgrad_splits(c, splits);
+  long long most = 0;
+  for (int i = 0; i < 3; ++i) {
+    const long long n = splits[i] == 1 ? 0 : (long long)c.L * splits[i] * taps[i] * 4 * kF * kF;
+    most = n > most ? n : most;
+  }
+  return most;
 }
 
 // ---- the forward -----------------------------------------------------------
@@ -340,6 +408,7 @@ struct BwdPass {
   float *gtot, *gvtot; // [R, F]
   float *rsv, *rsh;    // [L, B, 2F]
   float *rav, *rah;    // [L, B, F]
+  float* part;         // wgrad_part_floats(c) floats
 };
 
 // The VJP of the L levels of `lv`. Returns cudaGetLastError() after the
@@ -437,11 +506,20 @@ inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
     a.base = c.base;
     a.sub = sub;
     a.inv_keep = c.inv_keep;
-    const dim3 grid(2 * F / kM, taps.n, L);
+    const Split sp = wgrad_split(c, taps.n);
+    a.S = sp.S;
+    a.rows = sp.rows;
+    a.part = s.part;
+    const dim3 grid(2 * F / kM, taps.n, L * sp.S);
     if (wide)
       wgrad<2 * F><<<grid, kThreads, 0, stream>>>(a);
     else
       wgrad<F><<<grid, kThreads, 0, stream>>>(a);
+    if (sp.S > 1) {
+      const size_t n = (size_t)taps.n * 2 * F * (wide ? 2 * F : F);
+      reduce_splits<<<(unsigned)((L * n + 255) / 256), 256, 0, stream>>>(s.part, a.out, L,
+                                                                          sp.S, n);
+    }
   };
   auto of = [&](int i) { return [&lv, i](int l) { return lv[l].in(i); }; };
   const Taps one = make_taps(1, 1, 0, 0);

@@ -25,9 +25,12 @@
 // a launch over all rows per phase and level, top level first, each level's
 // db1 and da1 kept in scratch; then one wgrad launch per weight kind for all
 // the levels, and the bias and cond reductions, without the stream's [L, ...]
-// stacks. At one level wgrad's grid is (2F / 32) x taps blocks, 48 of them
-// for the 2x3 vertical conv_a, on 132 SMs, so the pair's weight gradients
-// leave SMs idle; splitting their 8192-row reductions is later work. The TPU
+// stacks. At one level wgrad's grid is (2F / 32) x taps blocks, 48 for the
+// 2x3 vertical convs, 32 for the 2x2 horizontal ones and 8 for an aux
+// product, too few for 132 SMs: each kind's 8192 rows are cut into 11, 17
+// and 64 row splits (a segment of 4: 3, 5 and 17) whose partial sums
+// reduce_splits adds in split order, through `part`
+// (pm_gated_levels_bwd_part_floats floats). The TPU
 // kernels carry dv/dh in VMEM and accumulate dW per batch chunk; their batch
 // chunks (bc_bwd) have no counterpart here.
 #include "gated_levels.cuh"
@@ -38,11 +41,12 @@ using namespace gsk;
 
 enum LevelsBwdPtr {
   XV0, XH0, COND, DXV0, DXH0, DCOND, DB1V, DB1H, DA1V, DA1H, GTOT, GVTOT,
-  RSV, RSH, RAV, RAH, HEAD
+  RSV, RSH, RAV, RAH, PART, HEAD
 };
 
 // `ptrs` holds HEAD pointers (ops/gated_chain.py::_SEG_BWD: the levels'
-// inputs, cond, their cotangents (out), scratch) then LB_COUNT per level,
+// inputs, cond, their cotangents (out), scratch, the last the weight
+// gradients' partial sums) then LB_COUNT per level,
 // level by level (_LEVEL_BWD); `ints` the geometry of _GEOMETRY, base_pair
 // the first level's pair index; `max_levels` the most levels the entry
 // point takes.
@@ -58,7 +62,7 @@ int run_levels_bwd(const void* const* ptrs, int nptrs, const int* ints, int nint
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
   const BwdPass s{in(XV0), in(XH0), in(COND), out(DXV0), out(DXH0), out(DCOND),
                   out(DB1V), out(DB1H), out(DA1V), out(DA1H), out(GTOT), out(GVTOT),
-                  out(RSV), out(RSH), out(RAV), out(RAH)};
+                  out(RSV), out(RSH), out(RAV), out(RAH), out(PART)};
   return levels_bwd(c, s, lv, static_cast<cudaStream_t>(stream));
 }
 
@@ -76,4 +80,15 @@ extern "C" int pm_gated_pair_bwd(const void* const* ptrs, int nptrs, const int* 
 extern "C" int pm_gated_segment_bwd(const void* const* ptrs, int nptrs, const int* ints,
                                     int nints, float inv_keep, void* stream) {
   return run_levels_bwd(ptrs, nptrs, ints, nints, inv_keep, stream, kMaxLevels);
+}
+
+// Floats of the `part` scratch either entry point needs for a geometry (0
+// when no weight kind is split); -1 for a geometry it refuses. `splits`, if
+// not null, receives the row splits of the weight kinds of the vertical
+// convs, the horizontal convs and the aux products.
+extern "C" long long pm_gated_levels_bwd_part_floats(const int* ints, int nints, int* splits) {
+  Chain c;
+  if (!make_chain(ints, nints, 1.f, c)) return -1;
+  if (splits) wgrad_splits(c, splits);
+  return wgrad_part_floats(c);
 }

@@ -20,8 +20,11 @@
 // data-gradient phases are launches over all 8192 rows per level, top level
 // first, keeping each level's db1 and da1 in scratch; the weight gradients
 // of all levels then run as one launch per weight kind: gated_levels.cuh's
-// levels_bwd. The stream's weights, saves and gradients are [L, ...] stacks;
-// this entry point cuts them into per-level pointers.
+// levels_bwd. At the flagship's 12 levels the vertical convs' launches have
+// 576 blocks and sum all 8192 rows each; the horizontal convs' (384 blocks)
+// and the aux products' (96) are cut into 2 and 6 row splits, whose partial
+// sums go through `part`. The stream's weights, saves and gradients are
+// [L, ...] stacks; this entry point cuts them into per-level pointers.
 #include "gated_levels.cuh"
 
 namespace {
@@ -33,15 +36,16 @@ enum BwdPtr {
   WAV, WBV, WCV, WXV, WAH, WBH, WCH, WXHU, WXHS,
   DXV0, DXH0, DSKV, DSKH, DCOND,
   DWAV, DBAV, DWBV, DBBV, DWCV, DWXV, DWAH, DBAH, DWBH, DBBH, DWCH, DWXHU, DWXHS,
-  DB1V, DB1H, DA1V, DA1H, GTOT, GVTOT, RSV, RSH, RAV, RAH, BWD_NPTR
+  DB1V, DB1H, DA1V, DA1H, GTOT, GVTOT, RSV, RSH, RAV, RAH, PART, BWD_NPTR
 };
 
 }  // namespace
 
 // The VJP of one pass. `ptrs` holds BWD_NPTR device pointers in the order
 // of ops/gated_chain.py::_BWD_PTRS (the skip and skip-weight entries null
-// on the up pass), `ints` the geometry of _GEOMETRY. Returns
-// cudaGetLastError() after the launches.
+// on the up pass; the last is the weight gradients' partial sums,
+// pm_gated_stream_bwd_part_floats floats), `ints` the geometry of
+// _GEOMETRY. Returns cudaGetLastError() after the launches.
 extern "C" int pm_gated_stream_bwd(const void* const* ptrs, int nptrs, const int* ints,
                                    int nints, float inv_keep, void* stream) {
   constexpr int F = kF;
@@ -75,6 +79,17 @@ extern "C" int pm_gated_stream_bwd(const void* const* ptrs, int nptrs, const int
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
   const BwdPass s{in(XV0), in(XH0), in(COND), out(DXV0), out(DXH0), out(DCOND),
                   out(DB1V), out(DB1H), out(DA1V), out(DA1H), out(GTOT), out(GVTOT),
-                  out(RSV), out(RSH), out(RAV), out(RAH)};
+                  out(RSV), out(RSH), out(RAV), out(RAH), out(PART)};
   return levels_bwd(c, s, lv, static_cast<cudaStream_t>(stream));
+}
+
+// Floats of the `part` scratch pm_gated_stream_bwd needs for a geometry (0
+// when no weight kind is split); -1 for a geometry it refuses. `splits`, if
+// not null, receives the row splits of the weight kinds of the vertical
+// convs, the horizontal convs and the aux products.
+extern "C" long long pm_gated_stream_bwd_part_floats(const int* ints, int nints, int* splits) {
+  Chain c;
+  if (!make_chain(ints, nints, 1.f, c)) return -1;
+  if (splits) wgrad_splits(c, splits);
+  return wgrad_part_floats(c);
 }

@@ -1,17 +1,15 @@
 // Shared pieces of the PixelCNN sampler kernels (sampler_vrow.cu,
-// sampler_row.cu): the elementwise functions and a block-wide float32 GEMM
-// whose A operand is produced element by element by a caller's functor, so
-// each level's concat_elu / shifted-tap prologue is fused into the operand
-// load instead of being written out.
+// sampler_row.cu): the elementwise functions and the PTX both kernels'
+// weight streams are built from (mbarriers, cp.async.bulk copies into
+// shared memory, shared-memory loads at 32-bit addresses).
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace pmk {
 
-constexpr int kThreads = 256;  // threads per block, both kernels
-constexpr int kF = 128;        // num_filters the kernels are built for
-constexpr int kKC = 16;        // depth of one staged K chunk
+constexpr int kF = 128;  // num_filters the kernels are built for
 
 // elu in the exp(min(z, 0)) - 1 form of the JAX package's _elu
 // (ops/gated_block.py:58-66), which the plain PyTorch version also uses.
@@ -23,103 +21,75 @@ __device__ __forceinline__ float sigmoid(float z) {
   return 1.f / (1.f + expf(-z));
 }
 
-// Element k of concat_elu(x) for a C-wide row x: elu(x[k]) for k < C,
-// elu(-x[k - C]) after.
-__device__ __forceinline__ float celu_at(const float* x, int k, int C) {
-  return k < C ? elu(x[k]) : elu(-x[k - C]);
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// Register tile of a block-wide [M, N] product. Thread t owns rows
-// (t / TC) * TM + i and columns col(u): the first TN/2 in the left half of
-// N, the other TN/2 at the same offsets in the right half, so a gated
-// epilogue finds act column j and gate column j + N/2 in one thread.
-template <int M, int N, int TM, int TN>
-struct Tile {
-  static constexpr int TC = N / TN;
-  static_assert((M / TM) * TC == kThreads, "tile must cover the block");
-  static_assert(M % TM == 0 && TN % 2 == 0 && (N / 2) % (TN / 2) == 0, "");
-  __device__ static int row(int i) { return (threadIdx.x / TC) * TM + i; }
-  __device__ static int col(int u) {
-    return (u < TN / 2 ? 0 : N / 2) + (threadIdx.x % TC) * (TN / 2) +
-           u % (TN / 2);
-  }
-};
+// ---- mbarriers, bulk copies and shared-memory loads (PTX)
 
-// V consecutive shared-memory floats into registers, as 16- or 8-byte loads
-// where V allows (src is aligned to them at every call site).
-template <int V>
-__device__ __forceinline__ void load_run(float* dst, const float* src) {
-  if constexpr (V % 4 == 0) {
-#pragma unroll
-    for (int v = 0; v < V; v += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(src + v);
-      dst[v] = q.x;
-      dst[v + 1] = q.y;
-      dst[v + 2] = q.z;
-      dst[v + 3] = q.w;
-    }
-  } else if constexpr (V % 2 == 0) {
-#pragma unroll
-    for (int v = 0; v < V; v += 2) {
-      const float2 q = *reinterpret_cast<const float2*>(src + v);
-      dst[v] = q.x;
-      dst[v + 1] = q.y;
-    }
-  } else {
-#pragma unroll
-    for (int v = 0; v < V; ++v) dst[v] = src[v];
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
-
-// acc += A[M, K] @ W[K, N] in float32 (no tensor cores, no TF32).
-// A[r][k] = aload(r, k); W is row-major with leading dimension ldw and must
-// be 16-byte aligned with N and ldw multiples of 4; K a multiple of kKC.
-// sA holds kKC * (M + 4) floats, sW kKC * N floats. Every thread of the
-// block must call it; it synchronises the block before it returns.
-template <int M, int N, int TM, int TN, class ALoad>
-__device__ __forceinline__ void gemm_acc(float (&acc)[TM][TN],
-                                         const ALoad& aload, int K,
-                                         const float* __restrict__ W, int ldw,
-                                         float* sA, float* sW) {
-  using T = Tile<M, N, TM, TN>;
-  constexpr int LDA = M + 4;
-  const int tid = threadIdx.x;
-  const int tr = tid / T::TC, tc = tid % T::TC;
-  float4* sW4 = reinterpret_cast<float4*>(sW);
-  for (int k0 = 0; k0 < K; k0 += kKC) {
-    for (int i = tid; i < M * kKC; i += kThreads) {
-      const int kk = i % kKC, r = i / kKC;
-      sA[kk * LDA + r] = aload(r, k0 + kk);
-    }
-    for (int i = tid; i < kKC * (N / 4); i += kThreads) {
-      const int kk = i / (N / 4), c4 = i % (N / 4);
-      sW4[i] = __ldg(reinterpret_cast<const float4*>(
-                         W + (size_t)(k0 + kk) * ldw) + c4);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kKC; ++kk) {
-      float a[TM], w[TN];
-      load_run<TM>(a, sA + kk * LDA + tr * TM);
-      load_run<TN / 2>(w, sW + kk * N + tc * (TN / 2));
-      load_run<TN / 2>(w + TN / 2, sW + kk * N + N / 2 + tc * (TN / 2));
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int u = 0; u < TN; ++u) acc[i][u] = fmaf(a[i], w[u], acc[i][u]);
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
 }
-
-template <int TM, int TN>
-__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int u = 0; u < TN; ++u) acc[i][u] = 0.f;
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
-
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// Waits for the phase of the given parity to complete. A wait that never
+// ends (a parity mistake) traps, so it surfaces as a launch error.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0; !mbar_try_wait(bar, parity);)
+    if (++spins == (1u << 30)) __trap();
+}
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const float* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// Orders this thread's earlier shared-memory accesses before its later
+// bulk copies (the async proxy), e.g. other warps' reads of a slot, made
+// visible to it through an atomic, before the copy that overwrites it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A float4 at a 32-bit shared-memory address (one register where a
+// generic pointer takes two).
+__device__ __forceinline__ float4 lds4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
 }  // namespace pmk
 
 extern "C" const char* pm_error_string(int err) {

@@ -72,10 +72,10 @@ constexpr int F = kF;
 constexpr int TS = 8;    // samples per block
 constexpr int NC = 256;  // logits columns per GEMM chunk
 constexpr int kHalf = 128;  // columns a warp covers (32 lanes x 4)
-constexpr int kConsumers = kThreads;   // 8 warps: the products
+constexpr int kConsumers = 256;  // 8 warps: the products
 constexpr int kConsumerWarps = kConsumers / 32;
 constexpr int kBlock = kConsumers + 32;  // and one producer warp
-static_assert(F == kHalf && kConsumers == 256, "the tile assumes F = 128, 8 warps");
+static_assert(F == kHalf, "the tile assumes F = 128");
 
 // The weight stream.
 constexpr int kStage = 16384;  // floats a stage (64 KB)
@@ -113,63 +113,11 @@ struct RowArgs {
   int L, W, n, K;
 };
 
-// ---- mbarriers, bulk copies and the consumers' barrier (PTX)
+// ---- the consumers' barrier
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-// Waits for the phase of the given parity to complete. A wait that never
-// ends (a parity mistake) traps, so it surfaces as a launch error.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0; !mbar_try_wait(bar, parity);)
-    if (++spins == (1u << 30)) __trap();
-}
-__device__ __forceinline__ void bulk_g2s(uint32_t dst, const float* src,
-                                         uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
 // __syncthreads over the consumer warps only (named barrier 1).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 // ---- the weight ring

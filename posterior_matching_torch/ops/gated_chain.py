@@ -33,8 +33,10 @@ backward joined by a ``torch.autograd.Function``:
   tensors and each level's outputs returned.
 
 All six run the launch sequence of ``csrc/gated_levels.cuh``, each launch
-over all ``B*H*W`` rows: the JAX batch chunks ``bc_fwd`` / ``bc_bwd``
-(``PM_TPU_CHAIN_BC_*``) tile the TPU's VMEM and have no counterpart here.
+over all ``B*H*W`` rows (a weight gradient whose grid is small over row
+splits, added up in a fixed order from the backward's ``part`` scratch): the
+JAX batch chunks ``bc_fwd`` / ``bc_bwd`` (``PM_TPU_CHAIN_BC_*``) tile the
+TPU's VMEM and have no counterpart here.
 Beside them are the plain versions, :func:`gated_stream_plain`,
 :func:`gated_pair_plain` and :func:`gated_segment_plain`, the same levels in
 plain PyTorch differentiated by autograd, which the dispatchers
@@ -392,7 +394,8 @@ _W_FWD = ("wav", "bav", "wbv", "bbv", "wcv", "wxv",
 _FWD_PTRS = ("xv0", "xh0", "skv", "skh", "cond", *_W_FWD,
              "xvo", "xho", "a1v", "a1h", "b1v", "b1h", "proj")
 _W_BWD = ("wav", "wbv", "wcv", "wxv", "wah", "wbh", "wch", "wxh_u", "wxh_s")
-_SCRATCH = ("db1v", "db1h", "da1v", "da1h", "gtot", "gvtot", "rsv", "rsh", "rav", "rah")
+_SCRATCH = ("db1v", "db1h", "da1v", "da1h", "gtot", "gvtot", "rsv", "rsh", "rav", "rah",
+            "part")
 _BWD_PTRS = (
     "gv", "gh", "xv0", "xh0", "xvo", "xho", "skv", "skh", "cond",
     "a1v", "a1h", "b1v", "b1h", *_W_BWD,
@@ -488,6 +491,31 @@ def _launch(lib_name: str, ptrs: Sequence, cfg: StreamConfig, device: torch.devi
     return lib, err
 
 
+def _part_floats(lib_name: str, cfg: StreamConfig, splits=None) -> int:
+    fn = getattr(_build.load(lib_name), f"pm_{lib_name}_part_floats")
+    fn.argtypes, fn.restype = [_build.P, _build.I, _build.P], ctypes.c_longlong
+    n = fn((ctypes.c_int * len(_GEOMETRY))(*cfg.ints()), len(_GEOMETRY), splits)
+    if n < 0:
+        raise ValueError(f"{lib_name} refuses this geometry")
+    return n
+
+
+def _part(lib_name: str, cfg: StreamConfig, device: torch.device) -> torch.Tensor:
+    """The backward's ``part`` scratch (the weight gradients' row-split
+    partial sums), of the size the kernel library reports."""
+    return torch.empty(_part_floats(lib_name, cfg), device=device)
+
+
+def wgrad_splits(lib_name: str, cfg: StreamConfig) -> Dict[str, int]:
+    """The row splits the backward of library ``lib_name``
+    (``"gated_stream_bwd"`` or ``"gated_levels_bwd"``) sums each weight
+    kind's rows in at ``cfg``: the vertical convs', the horizontal convs',
+    the aux products'."""
+    splits = (ctypes.c_int * 3)()
+    _part_floats(lib_name, cfg, splits)
+    return dict(zip(("vertical", "horizontal", "aux"), splits))
+
+
 def _check_all(tensors: Dict[str, Optional[torch.Tensor]],
                shapes: Dict[str, Tuple[int, ...]]):
     for name, shape in shapes.items():
@@ -566,6 +594,7 @@ class _StreamBwd:
             "gtot": empty(R, f), "gvtot": empty(R, f),
             "rsv": empty(L, b, 2 * f), "rsh": empty(L, b, 2 * f),
             "rav": empty(L, b, f), "rah": empty(L, b, f),
+            "part": _part("gated_stream_bwd", cfg, dev),
         }
         t.update(grads, **scratch)
         lib, err = _launch("gated_stream_bwd", _ptrs(_BWD_PTRS, t), cfg, dev)
@@ -728,7 +757,8 @@ class _LevelsBwd:
                 "da1v": empty(n_lvl, r, f), "da1h": empty(n_lvl, r, f),
                 "gtot": empty(r, f), "gvtot": empty(r, f),
                 "rsv": empty(n_lvl, cfg.b, 2 * f), "rsh": empty(n_lvl, cfg.b, 2 * f),
-                "rav": empty(n_lvl, cfg.b, f), "rah": empty(n_lvl, cfg.b, f)}
+                "rav": empty(n_lvl, cfg.b, f), "rah": empty(n_lvl, cfg.b, f),
+                "part": _part(self.lib, cfg, xv0.device)}
         shapes = cfg.level_shapes(bias=False)
         if cfg.down:
             shapes.update(skv=act, skh=act)

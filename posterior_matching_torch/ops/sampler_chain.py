@@ -332,6 +332,14 @@ class _Vrow:
         return outv, outm, v0, hup
 
 
+def vrow_blocks(wid: int, n: int) -> int:
+    """Blocks of one ``vrow`` kernel launch at width ``wid`` and ``n``
+    samples, as the kernel's entry point splits them."""
+    fn = _build.load("sampler_vrow").pm_sampler_vrow_blocks
+    fn.argtypes, fn.restype = [_build.I, _build.I], _build.I
+    return fn(wid, n)
+
+
 class _Row:
     """Wrapper of ``csrc/sampler_row.cu``. ``launches`` counts kernel
     launches; the plain version (CPU tensors) does not count."""

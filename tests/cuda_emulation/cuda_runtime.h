@@ -1,6 +1,6 @@
-// A CPU stand-in for the CUDA pieces that csrc/sampler_row.cu uses, so the
-// kernel's indexing, barriers and weight ring can be tested without a GPU
-// (tests/test_torch_row_kernel_emulated.py). A block runs as one
+// A CPU stand-in for the CUDA pieces that csrc/sampler_row.cu and
+// csrc/sampler_vrow.cu use, so the kernels' indexing, barriers and weight
+// ring can be tested without a GPU (tests/test_torch_row_kernel_emulated.py). A block runs as one
 // std::thread per CUDA thread, one block at a time: __syncthreads, the named
 // barrier and __syncwarp are std::barriers; an mbarrier is a side-table entry
 // keyed by its shared-memory offset; a bulk copy lands when it is issued and
@@ -18,6 +18,7 @@
 #include <cstring>
 #include <mutex>
 #include <thread>
+#include <vector>
 
 #define __device__
 #define __global__
@@ -46,6 +47,8 @@ inline void emu_consumer_sync() { g_consumer_bar->arrive_and_wait(); }
 inline float __ldg(const float* p) { return *p; }
 inline float4 __ldg(const float4* p) { return *p; }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline void __threadfence_block() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline void __trap() {
   std::fprintf(stderr, "emulated kernel: trap\n");
   std::abort();
@@ -129,3 +132,40 @@ inline bool emu_try_wait(uint32_t bar, uint32_t parity) {
   std::this_thread::yield();
   return false;
 }
+
+// Runs `kernel` (a callable taking no arguments) over `blocks` blocks of
+// `threads` threads, one block at a time; `consumers` threads take the named
+// barrier. Shared memory (`smem_bytes` at g_smem_base) starts as NaNs, so
+// stale reads show.
+template <class K>
+void emu_launch(int blocks, int threads, int consumers, size_t smem_bytes, K kernel) {
+  for (int b = 0; b < blocks; ++b) {
+    std::memset(g_smem_base, 0xff, smem_bytes);
+    std::barrier<> block(threads), cons(consumers);
+    std::vector<std::barrier<>*> warps;
+    for (int w = 0; w < threads / 32; ++w) warps.push_back(g_warp_bar[w] = new std::barrier<>(32));
+    g_block_bar = &block;
+    g_consumer_bar = &cons;
+    std::vector<std::thread> pool;
+    for (int t = 0; t < threads; ++t)
+      pool.emplace_back([&kernel, t, b] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        kernel();
+      });
+    for (auto& t : pool) t.join();
+    for (auto* w : warps) delete w;
+  }
+}
+
+// The stand-in's globals, defined once by each harness; `smem` is the
+// emulated kernel's shared-memory array.
+#define EMU_GLOBALS(smem)                                  \
+  thread_local Dim threadIdx, blockIdx;                    \
+  std::barrier<>* g_block_bar;                             \
+  std::barrier<>* g_consumer_bar;                          \
+  std::barrier<>* g_warp_bar[32];                          \
+  char* g_smem_base = reinterpret_cast<char*>(smem);       \
+  float g_shfl[1024 * 2];                                  \
+  EmuBar g_bars[64];                                       \
+  std::mutex g_bar_mu;

@@ -1,18 +1,10 @@
 // Runs the emulated row kernel (sampler_row_emulated.cpp, the kernel source
-// with its PTX helpers replaced) over every block of a launch, each block as
-// kBlock std::threads. Entry point as pm_sampler_row, without the stream.
+// without its entry point, against the emulated sampler_common.cuh) over
+// every block of a launch, each block as kBlock std::threads. Entry point as
+// pm_sampler_row, without the stream.
 #include "sampler_row_emulated.cpp"
 
-#include <vector>
-
-thread_local Dim threadIdx, blockIdx;
-std::barrier<>* g_block_bar;
-std::barrier<>* g_consumer_bar;
-std::barrier<>* g_warp_bar[32];
-char* g_smem_base = reinterpret_cast<char*>(smem);
-float g_shfl[1024 * 2];
-EmuBar g_bars[64];
-std::mutex g_bar_mu;
+EMU_GLOBALS(smem)
 
 extern "C" int emu_sampler_row(
     const float* wa, const float* ba, const float* wb, const float* bb,
@@ -25,22 +17,6 @@ extern "C" int emu_sampler_row(
   const RowArgs p{wa,  ba,  wb,  bb,  cp,   prevh, prevm, aux,  hup, e1, gumbel,
                   emb, lw,  lb,  hlw, hlb,  outh,  outm,  outs, outl, L,  W,
                   n,   K};
-  for (int b = 0; b < (n + TS - 1) / TS; ++b) {
-    std::memset(smem, 0xff, sizeof(smem));  // NaNs: stale reads show
-    std::barrier<> block(kBlock), consumers(kConsumers);
-    std::vector<std::barrier<>*> warps;
-    for (int w = 0; w < kBlock / 32; ++w) warps.push_back(g_warp_bar[w] = new std::barrier<>(32));
-    g_block_bar = &block;
-    g_consumer_bar = &consumers;
-    std::vector<std::thread> threads;
-    for (int t = 0; t < kBlock; ++t)
-      threads.emplace_back([&p, t, b] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        row_kernel(p);
-      });
-    for (auto& t : threads) t.join();
-    for (auto* w : warps) delete w;
-  }
+  emu_launch((n + TS - 1) / TS, kBlock, kConsumers, sizeof(smem), [&p] { row_kernel(p); });
   return 0;
 }

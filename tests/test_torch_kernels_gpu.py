@@ -10,7 +10,10 @@ leave the gated chain's 32-row tiles ragged, grids other than square; the
 pair and segment kernels at the flagship's 16x16 and PM-VQVAE MNIST's 7x7
 code grids, up and down, with and without dropout, a segment whose outputs
 reach the loss only in part, and a small PM-VQVAE step per chain mode
-(stream, pairs, segments with a remainder) against the CPU; latent counts that
+(stream, pairs, segments with a remainder) against the CPU; the three
+chain backwards at the flagship's 32 x 16 x 16 rows (weight gradients in row
+splits) and at 2 x 7 x 7 (in one pass), each relaunched bit for bit; the vrow
+kernel at the flagship's row (W 16, n 320, L 24), relaunched bit for bit; latent counts that
 leave the search's 32-row tiles ragged; block-chain and decoder-chain runs
 whose rows leave the 32- to 256-row tiles ragged, 1x1 and 3x3 taps at the
 image's edges, and runs long enough that their weight gradients sum two
@@ -52,17 +55,21 @@ def _close(got, want):
     return err / max(1.0, want.abs().max().item()) <= TOL
 
 
-def _vrow_inputs(gen, n_lvl, wid, n):
-    s = 0.05
+def _vrow_inputs(gen, n_lvl, wid, n, fan_in=False):
+    """Weights at 0.05, or with ``fan_in`` at 1 / sqrt(fan-in) (biases
+    0.05): over 24 levels 0.05 makes the chain amplify float32 rounding
+    (the plain version itself lands ~5e-2 of scale off float64 at the last
+    level), the fan-in scale keeps both within ~1e-6."""
+    s = lambda k: k ** -0.5 if fan_in else 0.05
     return (
         _rand(gen, wid, n, F), _rand(gen, wid, n, F), _rand(gen, wid, n, F),
         _rand(gen, n_lvl, wid, n, F), _rand(gen, n_lvl, wid, n, 2 * F),
         _rand(gen, n_lvl, n, 2 * F),
-        _rand(gen, 6 * F, F, scale=s), _rand(gen, F, scale=s),
-        _rand(gen, 3 * F, F, scale=s), _rand(gen, F, scale=s),
-        _rand(gen, n_lvl, 12 * F, F, scale=s), _rand(gen, n_lvl, F, scale=s),
-        _rand(gen, n_lvl, 12 * F, 2 * F, scale=s), _rand(gen, n_lvl, 2 * F, scale=s),
-        _rand(gen, n_lvl, 2 * F, F, scale=s),
+        _rand(gen, 6 * F, F, scale=s(6 * F)), _rand(gen, F, scale=0.05),
+        _rand(gen, 3 * F, F, scale=s(3 * F)), _rand(gen, F, scale=0.05),
+        _rand(gen, n_lvl, 12 * F, F, scale=s(12 * F)), _rand(gen, n_lvl, F, scale=0.05),
+        _rand(gen, n_lvl, 12 * F, 2 * F, scale=s(12 * F)), _rand(gen, n_lvl, 2 * F, scale=0.05),
+        _rand(gen, n_lvl, 2 * F, F, scale=s(2 * F)),
     )
 
 
@@ -77,6 +84,20 @@ def test_vrow_kernel_matches_plain(dev, wid, n):
     want = sc.vrow_plain(*args)
     for g, w in zip(got, want):
         assert _close(g, w)
+
+
+def test_vrow_kernel_flagship_matches_plain_and_relaunches_bit_for_bit(dev):
+    # the flagship's row: W 16, n = 32 images x 10 samples, L 24 (107 blocks
+    # of 3 samples, the last ragged)
+    gen = torch.Generator(device=dev).manual_seed(16320)
+    args = _vrow_inputs(gen, 24, 16, 320, fan_in=True)
+    first = sc.vrow(*args)
+    second = sc.vrow(*args)
+    torch.cuda.synchronize()
+    want = sc.vrow_plain(*args)
+    for g, g2, w in zip(first, second, want):
+        assert _close(g, w)
+        assert torch.equal(g, g2)
 
 
 def _row_inputs(gen, n_lvl, wid, n, k):
@@ -254,6 +275,51 @@ def test_gated_pair_and_segment_kernels_match_plain(dev, down, mode, b, h, w, cd
     grads_p = torch.autograd.grad(want, leaves, cot)
     for name, gk, gp in zip(_leaf_names(ws, sk), grads_k, grads_p):
         assert _close(gk, gp), name
+
+
+# The backward kernels' weight gradients sum their rows in row splits where a
+# launch's grid is small (the flagship's 32 x 16 x 16 rows: the pair's and
+# segment's kinds, the stream's horizontal and aux ones) and in one pass
+# where it is large or the rows are few (2 x 7 x 7); each against autograd
+# through the plain version, and relaunched bit for bit.
+@pytest.mark.parametrize("down", [False, True], ids=["up", "down"])
+@pytest.mark.parametrize("b,h,w", [(32, 16, 16), (2, 7, 7)])
+@pytest.mark.parametrize("mode", ["pair", "segment", "stream"])
+def test_gated_backward_row_splits_match_autograd_bit_for_bit(dev, mode, b, h, w, down):
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + h + down)
+    cd, keep = 64, 0.5
+    n_lvl = {"pair": 1, "segment": 4, "stream": 12}[mode]
+    xv0, xh0, sk, cond, ws = _level_case(gen, b, h, w, n_lvl, cd, down)
+    if mode == "stream":
+        ws = [{k: torch.stack([wl[k] for wl in ws]) for k in ws[0]}]
+        sk = (torch.stack([p[0] for p in sk]), torch.stack([p[1] for p in sk])) if down else None
+        skl = list(sk) if down else []
+    else:
+        skl = [t for pair in (sk or ()) for t in pair]
+    leaves = [xv0, xh0, cond, *(t for wl in ws for t in wl.values()), *skl]
+    for t in leaves:
+        t.requires_grad_(True)
+    if mode == "stream":
+        kw = dict(seed=5, base_pair=12 if down else 0, keep=keep)
+        got = list(gc.gated_stream(xv0, xh0, sk, cond, ws[0], **kw))
+        want = list(gc.gated_stream_plain(xv0, xh0, sk, cond, ws[0], **kw))
+    elif mode == "pair":
+        kw = dict(seed=5, pair_index=13 if down else 2, keep=keep)
+        got = list(gc.gated_pair(xv0, xh0, sk and sk[0], cond, ws[0], **kw))
+        want = list(gc.gated_pair_plain(xv0, xh0, sk and sk[0], cond, ws[0], **kw))
+    else:
+        kw = dict(seed=5, base_pair=12 if down else 3, keep=keep)
+        got = [t for pair in gc.gated_segment(xv0, xh0, sk, cond, ws, **kw) for t in pair]
+        want = [t for pair in gc.gated_segment_plain(xv0, xh0, sk, cond, ws, **kw)
+                for t in pair]
+    cot = [_rand(gen, *t.shape) for t in want]
+    first = torch.autograd.grad(got, leaves, cot, retain_graph=True)
+    second = torch.autograd.grad(got, leaves, cot)
+    torch.cuda.synchronize()
+    grads_p = torch.autograd.grad(want, leaves, cot)
+    for i, (g1, g2, gp) in enumerate(zip(first, second, grads_p)):
+        assert _close(g1, gp), i
+        assert torch.equal(g1, g2), i
 
 
 def test_gated_segment_backward_with_unused_outputs(dev):

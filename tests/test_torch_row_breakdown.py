@@ -1,5 +1,6 @@
-"""The row kernel's breakdown tool (``ops/row_breakdown.py``) on the CPU: each
-variant's substitution still finds its place in ``csrc/sampler_row.cu``, and
+"""The sampler kernels' breakdown tool (``ops/row_breakdown.py``) on the CPU:
+each variant's substitution still finds its place in ``csrc/sampler_row.cu``
+or ``csrc/sampler_vrow.cu`` and the ``sampler_common.cuh`` they share, and
 the tool refuses to run without a CUDA device."""
 import pytest
 import torch
@@ -7,10 +8,13 @@ import torch
 from posterior_matching_torch.ops import _build, row_breakdown
 
 SOURCE = (_build.CSRC / "sampler_row.cu").read_text()
+VSOURCE = (_build.CSRC / "sampler_vrow.cu").read_text()
+HEADER = (_build.CSRC / "sampler_common.cuh").read_text()
 
 
 def test_kernel_variant_is_the_source():
-    assert row_breakdown.variants(SOURCE)["kernel"] == SOURCE
+    assert row_breakdown.variants(SOURCE, HEADER)["kernel"] == (SOURCE, HEADER)
+    assert row_breakdown.variants(VSOURCE, HEADER, "vrow")["kernel"] == (VSOURCE, HEADER)
 
 
 @pytest.mark.parametrize("name,gone,kept", [
@@ -23,7 +27,24 @@ def test_kernel_variant_is_the_source():
     ("ring_5x32k", ["kStage = 16384;", "kStages = 2;"], ["kStage = 8192;", "kStages = 5;"]),
 ])
 def test_variant_takes_its_part_away(name, gone, kept):
-    text = row_breakdown.variants(SOURCE)[name]
+    text = "".join(row_breakdown.variants(SOURCE, HEADER)[name])
+    for g in gone:
+        assert g not in text
+    for k in kept:
+        assert k in text
+
+
+@pytest.mark.parametrize("name,gone,kept", [
+    ("no_copy", ["mbar_expect_tx(bar", "complete_tx::bytes"], ["k4 < kWarpK"]),
+    ("no_fma", ["k4 < kWarpK"], ["mbar_expect_tx(bar", "complete_tx::bytes"]),
+    ("skeleton", ["k4 < kWarpK", "mbar_expect_tx(bar"], ["stream.issue(g);"]),
+    ("no_ring", ["stream.issue(g);", "== kWarps - 1", "mbar_wait(smem_u32(full"],
+     ["__syncthreads();"]),
+    ("ring_6x16k", ["kStage = 8192;", "kStages = 3;", "kWarpK = 16;"],
+     ["kStage = 4096;", "kStages = 6;", "kWarpK = 8;"]),
+])
+def test_vrow_variant_takes_its_part_away(name, gone, kept):
+    text = "".join(row_breakdown.variants(VSOURCE, HEADER, "vrow")[name])
     for g in gone:
         assert g not in text
     for k in kept:
@@ -32,7 +53,7 @@ def test_variant_takes_its_part_away(name, gone, kept):
 
 def test_variants_refuse_a_changed_source():
     with pytest.raises(ValueError, match="no longer has"):
-        row_breakdown.variants(SOURCE.replace("mbar_expect_tx(bar,", "expect(bar,"))
+        row_breakdown.variants(SOURCE.replace("mbar_expect_tx(bar,", "expect(bar,"), HEADER)
 
 
 def test_refuses_without_a_cuda_device(monkeypatch):

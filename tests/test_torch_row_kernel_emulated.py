@@ -3,8 +3,9 @@ against its plain version.
 
 The kernel's source is compiled with ``g++`` against a stand-in for the CUDA
 runtime (``tests/cuda_emulation``): each block runs as one thread per CUDA
-thread, the kernel's PTX helpers (mbarriers, bulk copies, the consumers'
-named barrier) become calls into the stand-in. That runs the kernel's own
+thread, the PTX helpers of ``sampler_common.cuh`` (mbarriers, bulk copies,
+shared-memory loads, the consumers' named barrier) become calls into the
+stand-in. That runs the kernel's own
 indexing, split-K reduction, ragged blocks and weight ring (the producer
 warp, the slots' parities across GEMM, level and pixel boundaries) without a
 GPU; the card's timing, memory model and PTX are left to the GPU tests.
@@ -26,7 +27,8 @@ EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
 F = sc.KERNEL_FILTERS
 TOL = 1e-4
 
-# The kernel's PTX helpers, by name, and the emulated body of each.
+# The PTX helpers of csrc/sampler_common.cuh and the kernels, by name, and
+# the emulated body of each.
 _HELPERS = {
     "mbar_init": "emu_mbar_init(bar, count);",
     "mbar_fence_init": "",
@@ -35,44 +37,70 @@ _HELPERS = {
     "mbar_try_wait": "return emu_try_wait(bar, parity);",
     "bulk_g2s": "emu_bulk(dst, src, bytes, bar);",
     "consumers_sync": "emu_consumer_sync();",
+    "lds4": "return *reinterpret_cast<const float4*>(g_smem_base + addr);",
+    "fence_proxy_async": "",
 }
 
 
-def emulated_source(src: str) -> str:
-    """The kernel without its C entry point, its PTX helpers replaced and its
-    dynamic shared memory a static array."""
-    src = src[: src.index('extern "C" int pm_sampler_row')]
+def _replace_helpers(src: str, what: str) -> str:
+    """``src`` with the body of each helper it defines replaced; raises if
+    inline PTX is left."""
     for name, body in _HELPERS.items():
         pattern = r"(__device__ __forceinline__ \w+ " + name + r"\([^)]*\) \{).*?\n\}\n"
         src, count = re.subn(pattern, lambda m: m.group(1) + " " + body + " }\n", src,
                              flags=re.S)
-        if count != 1:
-            raise ValueError(f"sampler_row.cu has {count} definitions of {name}")
-    if "asm" in src.split('#include "sampler_common.cuh"')[1]:
-        raise ValueError("sampler_row.cu has inline PTX the emulation does not replace")
+        if count > 1:
+            raise ValueError(f"{what} has {count} definitions of {name}")
+    if "asm" in src:
+        raise ValueError(f"{what} has inline PTX the emulation does not replace")
+    return src
+
+
+def emulated_header(src: str) -> str:
+    """``sampler_common.cuh`` with its PTX helpers replaced."""
+    return _replace_helpers(src, "sampler_common.cuh")
+
+
+def emulated_source(src: str, entry: str = "pm_sampler_row") -> str:
+    """A kernel source without its C entry point, its PTX helpers replaced
+    and its dynamic shared memory a static array."""
+    head, body = src[: src.index(f'extern "C" int {entry}')].split(
+        '#include "sampler_common.cuh"', 1)
+    src = head + '#include "sampler_common.cuh"' + _replace_helpers(body, entry)
     src = src.replace("extern __shared__ __align__(16) float smem[];", "")
     return src.replace("using namespace pmk;",
                        "using namespace pmk;\nalignas(64) float smem[232448 / 4];", 1)
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
+def build_emulation(out: Path, kernel: str, entry: str, harness: str) -> Path:
+    """Compiles ``harness`` (in tests/cuda_emulation) against the emulated
+    ``kernel`` source and header in ``out``; skips without a C++20
+    compiler. Returns the shared library."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to compile the emulated kernel")
-    out = tmp_path_factory.mktemp("row_emulation")
-    (out / "sampler_row_emulated.cpp").write_text(
-        emulated_source((_build.CSRC / "sampler_row.cu").read_text()))
-    lib = out / "librow_emulated.so"
+    (out / "sampler_common.cuh").write_text(
+        emulated_header((_build.CSRC / "sampler_common.cuh").read_text()))
+    stem = kernel.removesuffix(".cu")
+    (out / f"{stem}_emulated.cpp").write_text(
+        emulated_source((_build.CSRC / kernel).read_text(), entry))
+    lib = out / f"lib{stem}_emulated.so"
     proc = subprocess.run(
         [cxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w",
-         "-I", str(EMULATION), "-I", str(out), "-I", str(_build.CSRC),
-         "-o", str(lib), str(EMULATION / "row_harness.cpp")],
+         "-I", str(out), "-I", str(EMULATION),
+         "-o", str(lib), str(EMULATION / harness)],
         capture_output=True, text=True,
     )
     if proc.returncode and "<barrier>" in proc.stderr:
         pytest.skip("needs a C++20 standard library (<barrier>)")
     assert proc.returncode == 0, proc.stderr[-4000:]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    lib = build_emulation(tmp_path_factory.mktemp("row_emulation"), "sampler_row.cu",
+                          "pm_sampler_row", "row_harness.cpp")
     cdll = ctypes.CDLL(str(lib))
     cdll.emu_sampler_row.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4
     cdll.emu_sampler_row.restype = ctypes.c_int
@@ -121,6 +149,9 @@ def test_emulated_row_kernel_matches_plain(emu, n_lvl, wid, n, k):
 
 
 def test_emulation_replaces_every_ptx_helper():
-    src = (_build.CSRC / "sampler_row.cu").read_text()
-    out = emulated_source(src)
-    assert "asm volatile" in src and "asm" not in out.split("sampler_common.cuh")[1]
+    header = (_build.CSRC / "sampler_common.cuh").read_text()
+    assert "asm volatile" in header and "asm" not in emulated_header(header)
+    for kernel, entry in (("sampler_row.cu", "pm_sampler_row"),
+                          ("sampler_vrow.cu", "pm_sampler_vrow")):
+        src = (_build.CSRC / kernel).read_text()
+        assert "asm" not in emulated_source(src, entry).split("sampler_common.cuh")[1]
