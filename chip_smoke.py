@@ -115,9 +115,13 @@ SEARCH_AGREEMENT = 0.999
 NEAR_TIE = 1e-5     # score gap of a tolerated search disagreement / scale
 STEP_LOSS_TOL = 1e-5
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth.
+# cores, dense TF32 on the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# TF32 products per float32 product in the gated chain's GEMM core
+# (gated_common.cuh: the 3xTF32 split).
+TF32_PASSES = 3
 
 # The block chain: outputs and every gradient within 1e-4 of the tensor's
 # scale (float32 sums in another order; a wrong tap, bound or transpose
@@ -176,10 +180,24 @@ def rel_err(got: torch.Tensor, want: torch.Tensor):
     err = (got - want).abs().max().item()
     return err, err / max(1.0, want.abs().max().item())
 
-def bound(flops, byts):
-    """The least time (ms) for the work on this card, and what sets it."""
-    t_op, t_by = flops / PEAK_F32_FLOPS * 1e3, byts / PEAK_BYTES * 1e3
+def bound(flops, byts, peak=PEAK_F32_FLOPS):
+    """The least time (ms) for the work on this card, and what sets it:
+    ``flops`` at ``peak`` against the bytes at the memory rate."""
+    t_op, t_by = flops / peak * 1e3, byts / PEAK_BYTES * 1e3
     return max(t_op, t_by), ("operations" if t_op >= t_by else "bytes")
+
+
+def bound_tc(flops, byts):
+    """:func:`bound` for the gated chain's kernels as their GEMM core does
+    the work: TF32_PASSES tensor-core products per float32 product."""
+    return bound(TF32_PASSES * flops, byts, PEAK_TF32_FLOPS)
+
+
+# How the gated chain's kernels (TPU rows 4-9) do their GEMMs.
+GATED_DESIGN = ("GEMM core on tensor cores: mma.sync m16n8k8 TF32 with the 3xTF32 split; "
+                "64-row (or 64-channel) block tiles of 16 warps, 32 x N/8 a warp; 64-deep "
+                "chunks, B by cp.async a chunk ahead into 2 stages, A gathered a chunk ahead "
+                "and stored split in fragment order")
 
 
 def check(ok: bool, what: str):
@@ -360,16 +378,19 @@ def stream_phase(model, x, b, seed):
         log(f"gated_stream_bwd {direction}: wgrad row splits {results[direction]['splits']}")
         for kind in ("fwd", "bwd"):
             _, ms, pms, fl, by = results[direction][kind]
-            b_ms, b_by = bound(fl, by)
-            log(f"gated_stream_{kind} {direction}: {ms:.3f} ms/launch (plain {pms:.3f}), "
-                f"bound {b_ms:.3f} ms by {b_by} ({fl / 1e9:.1f} GFLOP, {by / 1e6:.1f} MB)")
+            b_ms, b_by = bound_tc(fl, by)
+            log(f"gated_stream_{kind} {direction}: {ms:.4f} ms/launch (plain {pms:.3f}), "
+                f"bound {b_ms:.4f} ms by {b_by} (float32 FMAs {bound(fl, by)[0]:.4f}; "
+                f"{fl / 1e9:.1f} GFLOP, {by / 1e6:.1f} MB)")
         del got, want, gk, gp, saves, saved, grads
     out = []
     for kind, line in (("fwd", 1337), ("bwd", 1407)):
         per = [results[d][kind] for d in ("up", "dn")]
-        b_ms, b_by = bound(sum(p[3] for p in per) / 2, sum(p[4] for p in per) / 2)
+        work = (sum(p[3] for p in per) / 2, sum(p[4] for p in per) / 2)
+        b_ms, b_by = bound_tc(*work)
         out.append({
-            "name": f"gated_stream_{kind}", "route": "cuda",
+            "name": f"gated_stream_{kind}", "route": "cuda", "design": GATED_DESIGN,
+            "bound_f32_ms": bound(*work)[0],
             "source": f"posterior_matching_torch/ops/csrc/gated_stream_{kind}.cu",
             "replaces": f"posterior_matching_tpu/ops/gated_chain.py:{line}",
             "max_abs_err": max(p[0] for p in per),
@@ -491,18 +512,21 @@ def level_phase(model, x, b, seed):
                 f"{results[kind][direction]['splits']}")
             for k2 in ("fwd", "bwd"):
                 _, ms, pms, fl, by = results[kind][direction][k2]
-                b_ms, b_by = bound(fl, by)
+                b_ms, b_by = bound_tc(fl, by)
                 log(f"gated_{kind}_{k2} {direction}: {ms:.4f} ms/launch (plain {pms:.3f}), bound "
-                    f"{b_ms:.4f} ms by {b_by} ({fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB)")
+                    f"{b_ms:.4f} ms by {b_by} (float32 FMAs {bound(fl, by)[0]:.4f}; "
+                    f"{fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB)")
             del got, want, gk, gp, saves, grads, head
     out = []
     for kind, lines in (("pair", (("fwd", 305), ("bwd", 368))),
                         ("segment", (("fwd", 801), ("bwd", 861)))):
         for k2, line in lines:
             per = [results[kind][d][k2] for d in ("up", "dn")]
-            b_ms, b_by = bound(sum(p[3] for p in per) / 2, sum(p[4] for p in per) / 2)
+            work = (sum(p[3] for p in per) / 2, sum(p[4] for p in per) / 2)
+            b_ms, b_by = bound_tc(*work)
             out.append({
-                "name": f"gated_{kind}_{k2}", "route": "cuda",
+                "name": f"gated_{kind}_{k2}", "route": "cuda", "design": GATED_DESIGN,
+                "bound_f32_ms": bound(*work)[0],
                 "source": f"posterior_matching_torch/ops/csrc/gated_levels_{k2}.cu",
                 "replaces": f"posterior_matching_tpu/ops/gated_chain.py:{line}",
                 "max_abs_err": max(p[0] for p in per),
@@ -649,7 +673,11 @@ def training_phase(model, args, mask_fn, gen, batches, fixed, pm_cfg, vq_cfg, pc
     check(bool(torch.isfinite(imp).all()), "imputations from the checkpoint are not finite")
     log("checkpoint: train_state.pkl loads back through load_pm_vqvae, every tensor "
         "equal; an imputation request from it ran")
-    split = profile_step(trainer, batches[-1], VQVAE_GROUPS)
+    split = profile_step(trainer, batches[-1], VQVAE_GROUPS, named=GEMM_CORE)
+    if split is not None:
+        with torch.no_grad():
+            h, w = model.vqvae.encoding_indices(fixed["image"][:1]).shape[1:]
+        split["gemm_core"] = gemm_core_rates(split, model.pixel_cnn, image_shape[0] * h * w)
     model.pixel_cnn.chain_segment = "stream"
     return {"chain_segment": chain_segment, "steps_per_s": steps_per_s, "step_s": step_s,
             "losses": losses, "eval_loss": [loss_before, loss_after], "launches": launches,
@@ -675,17 +703,59 @@ VDVAE_GROUPS = (("decoder_chain kernels", _DECODER_CHAIN_KERNELS),
                 ("triangular solves (cuBLAS)", ("trsm",)))
 
 
-def profile_step(trainer, batch, kernel_groups):
+# The gated chain's GEMM core, kernel by kernel, as their names end.
+GEMM_CORE = {k: f"::{k}" for k in ("data_gemm<128>", "data_gemm<256>", "wgrad<128>",
+                                   "wgrad<256>")}
+
+
+def gemm_core_work(pc, rows):
+    """Float32 operations (2 a multiply-add) of each GEMM-core kernel in one
+    PM-VQVAE training step (the up and the down pass, forward and backward)
+    at ``rows`` = B*H*W, as the kernels run them: every tap at every row
+    (a tap off the image multiplies zeros), each row split counted once."""
+    from posterior_matching_torch.ops import gated_chain as gc
+
+    f, n = pc.num_filters, pc.num_resnet
+    tv, th = (tp.skh * tp.skw for tp in gc.chain_taps(pc.receptive_field_dims))
+    mm = lambda k, width: 2.0 * rows * k * width   # noqa: E731
+    work = dict.fromkeys(GEMM_CORE, 0.0)
+    for down in (False, True):
+        skips = 2 if down else 0          # the skip aux products of a down level
+        work["data_gemm<128>"] += n * (mm(2 * f * (tv + th + 1 + skips), f))
+        work["data_gemm<256>"] += n * (mm(2 * f * (tv + th), 2 * f)         # forward conv_b
+                                       + mm(2 * f * (tv + th), 2 * f)       # conv_b^T
+                                       + mm(f * (1 + skips), 2 * f)         # aux^T
+                                       + mm(f * (tv + th), 2 * f))          # conv_a^T
+        work["wgrad<128>"] += n * mm(2 * f * (tv + th + 1 + skips), f)
+        work["wgrad<256>"] += n * mm(2 * f * (tv + th), 2 * f)
+    return work
+
+
+def gemm_core_rates(split, pc, rows):
+    """Each GEMM-core kernel's device ms in the profiled step and its float32
+    work rate (TFLOP/s), logged."""
+    out = {}
+    for name, flops in gemm_core_work(pc, rows).items():
+        ms = split["named"].get(name, 0.0)
+        out[name] = {"ms": ms, "gflop": flops / 1e9,
+                     "tflops": flops / (ms * 1e-3) / 1e12 if ms else None}
+        log(f"  GEMM core {name}: {ms:.2f} ms device time, {flops / 1e9:.1f} GFLOP, "
+            f"{out[name]['tflops'] or 0.0:.2f} TFLOP/s of float32 work")
+    return out
+
+
+def profile_step(trainer, batch, kernel_groups, named=None):
     """One more training step under :func:`profile_work`."""
     return profile_work(lambda: trainer.train_step(batch)["loss"].item(), kernel_groups,
-                        "profiled step")
+                        "profiled step", named)
 
 
-def profile_work(fn, kernel_groups, what):
+def profile_work(fn, kernel_groups, what, named=None):
     """``fn()`` under ``torch.profiler``: device time by kernel group
     (``kernel_groups``: the port's own, by name, then the libraries'), CUDA
-    kernel launches, and the device's idle share of the wall time (1 - the
-    union of kernel intervals / wall)."""
+    kernel launches, the device's idle share of the wall time (1 - the
+    union of kernel intervals / wall), and the device ms of the kernels
+    whose names contain each of ``named``'s markers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -733,8 +803,10 @@ def profile_work(fn, kernel_groups, what):
     top = sorted(by_name.items(), key=lambda t: -t[1])[:8]
     for name, ms in top[:4]:
         log(f"  top kernel {ms:.2f} ms: {name[:90]}")
+    named_ms = {k: sum(ms for name, ms in by_name.items() if mark in name)
+                for k, mark in (named or {}).items()}
     return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
-            "kernel_launches": len(kernels), "top_kernels": top,
+            "kernel_launches": len(kernels), "top_kernels": top, "named": named_ms,
             "groups": {g: {"ms": ms, "launches": n} for g, (ms, n) in groups.items()}}
 
 
@@ -1830,7 +1902,7 @@ def main() -> int:
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("launches_per_step", "per_run", "per_pass", "design")
+    extra = ("launches_per_step", "bound_f32_ms", "per_run", "per_pass", "design")
     log(json.dumps({"kernels": [{**{k: kd[k] for k in keys},
                                  **{k: kd[k] for k in extra if k in kd}} for kd in kernels]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,44 @@
 // Shared pieces of the gated-chain training kernels (gated_levels.cuh and
 // the stream, pair and segment entry points): the dropout hash, the
-// elementwise functions, the argument layout of the C entry points, and
-// `data_gemm`, a block-tiled
-// float32 GEMM over the B*H*W rows of a pass whose A operand is gathered
-// term by term (a conv tap is a term: a source tensor read at a shifted
-// position, optionally through concat_elu and the dropout mask) and whose
-// epilogue is one of the gated block's: bias, the gate and residual, or
-// concat_elu's derivative.
+// elementwise functions, the argument layout of the C entry points, and the
+// GEMM core both of the chain's GEMM kernels run on: `data_gemm` here (every
+// conv and data gradient, over the B*H*W rows of a pass) and `wgrad` in
+// gated_levels.cuh (every weight gradient, over the input channels). The A
+// operand of `data_gemm` is gathered term by term (a conv tap is a term: a
+// source tensor read at a shifted position, optionally through concat_elu
+// and the dropout mask); its epilogue is one of the gated block's: bias, the
+// gate and residual, or concat_elu's derivative.
+//
+// The core. Tensor cores through `mma.sync.m16n8k8` in TF32 with the 3xTF32
+// split (CUTLASS's OpMultiplyAddFastF32): an operand x is big = rna_tf32(x)
+// plus small = x - big (read by the tensor cores as TF32), and each product
+// is a_small b_big + a_big b_small + a_big b_big, in that order, which keeps
+// ~21 of float32's 24 significand bits (one TF32 pass keeps 11). Each
+// 64-deep chunk's MMAs start from zero and are added into the float32
+// accumulator: the tensor cores' own accumulation truncates, and left to
+// run over a whole K it costs ~20x float32's rounding.
+//
+// A block of 16 warps owns a 64-row tile and all N columns; a warp owns
+// 32 rows x N/8 columns as 2 x N/64 m16n8 fragments, its columns half in
+// [0, N/2) and half at the same offsets in [N/2, N), so that one thread
+// holds column j and column j + F of a gated epilogue. 16 warps of at most
+// 128 registers (4 a scheduler) hide the MMAs' and loads' latencies. The K
+// loop walks 64-deep chunks with one barrier each: B (weights, or
+// cotangent rows for wgrad) lands by 16-byte cp.async copies in one of two
+// stages, a chunk ahead; A is gathered into registers a chunk ahead (its
+// global loads in flight during the current chunk's MMAs), transformed,
+// split once and stored in the MMA fragment order (big and small planes),
+// so a lane's A registers are one 16-byte load each and need no moves
+// before the MMA (moves were half the MMA loop's instructions in the
+// pair layout first built). B is split in registers at the fragment load,
+// as CUTLASS does (cp.async lands its bytes without passing through
+// registers; a split pass in shared memory, tried, cost more than it
+// saved). Fragment loads are free of bank conflicts where the operands
+// land (the transposed B as [n][k], no scalar scatter).
+//
+// Bound: operations. 3 TF32 products per float32 product at the card's
+// 495 TFLOP/s dense TF32 rate: 165 TFLOP/s of float32 work (the float32
+// FMA rate outside the tensor cores is 67).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,10 +47,18 @@
 namespace gsk {
 
 constexpr int kF = 128;        // num_filters the kernels are built for
-constexpr int kThreads = 256;  // threads per block of every GEMM kernel
-constexpr int kM = 32;         // rows of a block tile
-constexpr int kKC = 16;        // depth of one staged K chunk
-constexpr int kLda = kM + 4;   // row pitch of the staged A chunk
+constexpr int kThreads = 512;  // threads per block of every GEMM kernel
+constexpr int kWarpsN = kThreads / 32 / 2;  // a block's warps across N (2 across its rows)
+constexpr int kBM = 64;        // rows (data_gemm) or channels (wgrad) of a block tile
+constexpr int kKC = 64;        // depth of one staged K chunk
+constexpr int kStages = 2;     // B's ring: copies run kStages - 1 chunks ahead
+// An A stage is two planes, big and small, of kBM x kKC floats in the MMA
+// fragment order (frag_at): a lane's four A registers of an m16 x k8 tile
+// are one 16-byte load, with no moves between the load and the MMA. B lands
+// as it is in memory: [k][N + 8], or transposed [n][kBPitchT], pitches that
+// spread a fragment load's lanes over distinct banks.
+constexpr int kAPlane = kBM * kKC;
+constexpr int kBPitchT = kKC + 4;
 constexpr int kMaxTerms = 12;
 constexpr int kMaxTaps = 9;
 
@@ -101,6 +141,177 @@ inline bool taps_ok(int skh, int skw, int pad_top, int pad_left) {
          pad_top < skh && pad_left >= 0 && pad_left < skw;
 }
 
+// ---- TF32 rounding; PTX: tensor-core MMA, cp.async ---------------------------
+
+// x rounded to TF32 (10 fraction bits, to nearest, ties away from zero),
+// as its bits: cvt.rna.tf32.f32's rounding for finite x and infinities, in
+// two integer operations (half an ulp added to the magnitude, the low 13
+// bits cleared). The conversion instruction itself runs on a slower pipe;
+// with it, B's split in the MMA loop cost ~0.9 ms more a stream backward
+// on the H100.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// d += A B for one m16n8k8 TF32 fragment (warp-collective): a[4], b[2] and
+// d[4] in the PTX ISA's fragment layout.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Copies `bytes` (0 or 16) from global `src` to shared `dst`, zero-filling
+// the rest of the 16.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most kStages - 2 of this thread's committed groups are
+// pending: the oldest chunk of the ring has landed.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// An operand element split for 3xTF32: big = x rounded to TF32, small =
+// x - big, exact in float32 and at most half an ulp of big. small is not
+// rounded: the tensor cores read its top 11 significant bits, which leaves
+// an error of at most 2^-21 |x| (rounding it first: 2^-22) and saves three
+// instructions an element of B's split, ~0.5 ms a stream backward on the
+// H100.
+__device__ __forceinline__ float2 split_tf32(float x) {
+  const float big = __uint_as_float(to_tf32(x));
+  return make_float2(big, x - big);
+}
+
+// ---- the GEMM core -----------------------------------------------------------
+
+// Dynamic shared memory of data_gemm<N> and wgrad<N>: two A stages of two
+// planes, then kStages B stages of N * kBPitchT floats (a stage holds a
+// [kKC][N + 8] or an [N][kBPitchT] chunk).
+template <int N>
+constexpr int smem_bytes() {
+  return (2 * 2 * kAPlane + kStages * N * kBPitchT) * 4;
+}
+
+// n8 tiles of a warp, and the accumulators of a thread: 2 m16 tiles x NT
+// n8 tiles x 4.
+template <int N>
+__host__ __device__ constexpr int n_tiles() {
+  return N / (8 * kWarpsN);
+}
+template <int N>
+using Acc = float[2][n_tiles<N>()][4];
+
+// The first column of n8 tile u of this thread's warp: NT / 2 tiles at
+// warp column wn * N / (2 kWarpsN) in each half of N.
+template <int N>
+__device__ __forceinline__ int tile_n0(int u) {
+  constexpr int NT = n_tiles<N>();
+  return (u < NT / 2 ? 0 : N / 2) + (threadIdx.x / 32 % kWarpsN) * (N / (2 * kWarpsN)) +
+         (u % (NT / 2)) * 8;
+}
+
+// The first row of m16 tile mt of this thread's warp.
+__device__ __forceinline__ int tile_m0(int mt) {
+  return (threadIdx.x / 32 / kWarpsN) * 32 + mt * 16;
+}
+
+// The offset in an A plane of element (m, k): m16 x k8 tiles, m-major, 32
+// lanes of 4 floats each (lane 4g + t holds (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4), its a0..a3). A lane's slot is its index XOR a swizzle of
+// the tile's k8 index and the lane's fifth bit, which spreads the gathers'
+// scalar stores over all banks and keeps every 8-lane phase of a fragment
+// load on 8 distinct 16-byte slots.
+__device__ __forceinline__ int frag_at(int m, int k) {
+  const int mi = m & 15, ki = k & 7, kt = k >> 3;
+  const int lane = (mi & 7) * 4 + (ki & 3);
+  const int slot = lane ^ (kt & 7) ^ ((lane >> 4) << 2);
+  return (((m >> 4) * (kKC / 8) + kt) * 32 + slot) * 4 + (mi >> 3) + 2 * (ki >> 2);
+}
+
+// Stores element (m, k) of A, split, into stage `sA` (big plane, then small).
+__device__ __forceinline__ void store_split(float* sA, int m, int k, float v) {
+  const float2 x = split_tf32(v);
+  const int at = frag_at(m, k);
+  sA[at] = x.x;
+  sA[kAPlane + at] = x.y;
+}
+
+// acc += the staged chunk: A from stage `sA` (fragment order, big and small
+// planes), B(k, n) = sB[k * BSK + n * BSN]. Each 8-deep step loads every
+// fragment it needs first (B split in registers), then issues its MMAs pass
+// by pass over all the warp's tiles (small-big, big-small, big-big: 2 x NT
+// independent accumulators between dependent MMAs). The chunk's products
+// accumulate in `part` from zero and are added into acc with one float32
+// add: the tensor cores' own accumulation truncates each sum to its largest
+// term's exponent, which over a long K (hundreds of MMAs into one
+// accumulator) costs ~20x float32's rounding; a chunk's MMAs lose about
+// what float32's adds lose.
+template <int N, int BSK, int BSN>
+__device__ __forceinline__ void mma_chunk(Acc<N>& acc, const float* sA, const float* sB) {
+  constexpr int NT = n_tiles<N>();
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int mt0 = threadIdx.x / 32 / kWarpsN * 2;  // the warp's first m16 tile
+  const float* bp = sB + t * BSK + g * BSN;
+  Acc<N> part = {};
+#pragma unroll
+  for (int k8 = 0; k8 < kKC; k8 += 8) {
+    uint32_t ab[2][4], as[2][4], bb[NT][2], bs[NT][2];
+    const int kt = k8 / 8, slot = lane ^ (kt & 7) ^ ((lane >> 4) << 2);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int at = (((mt0 + mt) * (kKC / 8) + kt) * 32 + slot) * 4;
+      const float4 vb = *reinterpret_cast<const float4*>(sA + at);
+      const float4 vs = *reinterpret_cast<const float4*>(sA + kAPlane + at);
+      ab[mt][0] = __float_as_uint(vb.x);
+      ab[mt][1] = __float_as_uint(vb.y);
+      ab[mt][2] = __float_as_uint(vb.z);
+      ab[mt][3] = __float_as_uint(vb.w);
+      as[mt][0] = __float_as_uint(vs.x);
+      as[mt][1] = __float_as_uint(vs.y);
+      as[mt][2] = __float_as_uint(vs.z);
+      as[mt][3] = __float_as_uint(vs.w);
+    }
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // b0 (k = t, n = g), b1 (t + 4, g)
+        const float2 x = split_tf32(bp[(k8 + 4 * i) * BSK + tile_n0<N>(u) * BSN]);
+        bb[u][i] = __float_as_uint(x.x);
+        bs[u][i] = __float_as_uint(x.y);
+      }
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_tf32(part[mt][u], as[mt], bb[u]);
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_tf32(part[mt][u], ab[mt], bs[u]);
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_tf32(part[mt][u], ab[mt], bb[u]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][u][i] += part[mt][u][i];
+}
+
 // ---- data_gemm ---------------------------------------------------------
 
 enum AMode { A_IDENT = 0, A_CELU = 1, A_CELU_DROP = 2 };
@@ -110,7 +321,7 @@ enum Epi { E_BIAS = 0, E_GATE = 1, E_CELU_BWD = 2 };
 // A(r, k) reads row `src` at r's position shifted by (dy, dx) (zero off the
 // grid): the row itself (A_IDENT, K = C), or its concat_elu (K = 2C), times
 // the dropout keep mask / keep (A_CELU_DROP). B(k, n) = w[k * ld + n], or
-// w[n * ld + k] with `trans`.
+// w[n * ld + k] with `trans`. K, C and ld are multiples of kKC.
 struct Term {
   const float* src;
   const float* w;
@@ -137,197 +348,217 @@ struct DataArgs {
   float* out2;         // E_GATE: the gated residual [R, F]
 };
 
-template <int V>
-__device__ __forceinline__ void load_run(float* dst, const float* src) {
-  if constexpr (V % 4 == 0) {
-#pragma unroll
-    for (int v = 0; v < V; v += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(src + v);
-      dst[v] = q.x;
-      dst[v + 1] = q.y;
-      dst[v + 2] = q.z;
-      dst[v + 3] = q.w;
-    }
-  } else {
-#pragma unroll
-    for (int v = 0; v < V; v += 2) {
-      const float2 q = *reinterpret_cast<const float2*>(src + v);
-      dst[v] = q.x;
-      dst[v + 1] = q.y;
+// A walk over the chunks of the terms: term ti, K offset k0.
+struct Cursor {
+  int ti, k0;
+  __device__ __forceinline__ void next(const DataArgs& p) {
+    if (ti == p.nt) return;
+    k0 += kKC;
+    if (k0 == p.t[ti].K) {
+      ++ti;
+      k0 = 0;
     }
   }
-}
+};
 
-// Stages kKC x N of B (rows k0.. of the product's B operand) into sB.
+// Issues the cp.async copies of B's chunk at `c` into stage `dst` (none
+// past the last term), and commits a group either way.
 template <int N>
-__device__ __forceinline__ void stage_b(float* sB, const float* w, int ld,
-                                        int trans, int k0) {
-  const int tid = threadIdx.x;
-  if (!trans) {
-    for (int i = tid; i < kKC * N / 4; i += kThreads) {
-      const int kr = i / (N / 4), c4 = i % (N / 4);
-      reinterpret_cast<float4*>(sB)[i] = __ldg(
-          reinterpret_cast<const float4*>(w + (size_t)(k0 + kr) * ld) + c4);
-    }
-  } else {
-    for (int i = tid; i < kKC * N / 4; i += kThreads) {
-      const int kq = i % (kKC / 4), n = i / (kKC / 4);
-      const float4 q = __ldg(
-          reinterpret_cast<const float4*>(w + (size_t)n * ld + k0) + kq);
-      sB[(4 * kq + 0) * N + n] = q.x;
-      sB[(4 * kq + 1) * N + n] = q.y;
-      sB[(4 * kq + 2) * N + n] = q.z;
-      sB[(4 * kq + 3) * N + n] = q.w;
+__device__ __forceinline__ void stage_b(float* dst, const DataArgs& p, const Cursor& c) {
+  if (c.ti < p.nt) {
+    const Term& T = p.t[c.ti];
+    // a thread's pieces: rows kThreads / (pieces a row) apart
+    if (!T.trans) {
+      constexpr int P = N / 4, STEP = kThreads / P;
+      const int kr = threadIdx.x / P, c4 = threadIdx.x % P;
+      const float* src = T.w + (size_t)(c.k0 + kr) * T.ld + 4 * c4;
+      uint32_t d = smem_u32(dst + kr * (N + 8) + 4 * c4);
+      const size_t sstep = (size_t)STEP * T.ld;
+#pragma unroll
+      for (int j = 0; j < kKC / STEP; ++j, src += sstep, d += STEP * (N + 8) * 4)
+        cp_async16(d, src, 16);
+    } else {
+      constexpr int P = kKC / 4, STEP = kThreads / P;
+      const int n = threadIdx.x / P, kq = threadIdx.x % P;
+      const float* src = T.w + (size_t)n * T.ld + c.k0 + 4 * kq;
+      uint32_t d = smem_u32(dst + n * kBPitchT + 4 * kq);
+      const size_t sstep = (size_t)STEP * T.ld;
+#pragma unroll
+      for (int j = 0; j < N / STEP; ++j, src += sstep, d += STEP * kBPitchT * 4)
+        cp_async16(d, src, 16);
     }
   }
+  cp_async_commit();
 }
 
-// acc[i][u] += sum over the staged chunk; thread (tr, tc) owns rows
-// tr * 4 + i and columns col(u): TN / 2 in the left half of N and the same
-// offsets in the right half, so a gated epilogue finds act column j and
-// gate column j + N / 2 in one thread.
-template <int N>
-__device__ __forceinline__ void mma_chunk(float (&acc)[4][N / 32],
-                                          const float* sA, const float* sB) {
-  constexpr int TN = N / 32;
-  const int tr = threadIdx.x / 32, tc = threadIdx.x % 32;
-#pragma unroll 4
-  for (int k = 0; k < kKC; ++k) {
-    float a[4], b[TN];
-    load_run<4>(a, sA + k * kLda + tr * 4);
-    load_run<TN / 2>(b, sB + k * N + tc * (TN / 2));
-    load_run<TN / 2>(b + TN / 2, sB + k * N + N / 2 + tc * (TN / 2));
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int u = 0; u < TN; ++u) acc[i][u] = fmaf(a[i], b[u], acc[i][u]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ int tile_col(int u) {
-  constexpr int TN = N / 32;
-  return (u < TN / 2 ? 0 : N / 2) + (threadIdx.x % 32) * (TN / 2) +
-         u % (TN / 2);
-}
-
-// out = epilogue(sum_terms A_t @ B_t) for rows [32 * blockIdx.x, + 32) and
+// out = epilogue(sum_terms A_t @ B_t) for rows [kBM * blockIdx.x, + kBM) and
 // all N columns. N is F (conv_a) or 2F (conv_b, and every product whose
 // epilogue pairs column j with j + F).
 template <int N>
-__global__ void __launch_bounds__(kThreads) data_gemm(const DataArgs p) {
-  constexpr int TN = N / 32;
+__global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__ DataArgs p) {
+  constexpr int NT = n_tiles<N>();
+  // a thread gathers kAR rows, kAStep apart, at chunk columns 4q .. 4q + 3;
+  // the two rows of a warp are 8 apart, so its stores spread over the banks
+  constexpr int kAStep = kThreads / (kKC / 4), kAR = kBM / kAStep;
+  static_assert(kAStep % 16 == 0, "a row pass covers whole m16 tiles");
   constexpr int F = kF;
-  __shared__ __align__(16) float sA[kKC * kLda];
-  __shared__ __align__(16) float sB[kKC * N];
+  extern __shared__ __align__(16) float smem[];
+  float* sA = smem;
+  float* sB = smem + 4 * kAPlane;
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * kM;
+  const int r0 = blockIdx.x * kBM;
   const Geo g = p.g;
-  float acc[4][TN];
+  Acc<N> acc;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int u = 0; u < TN; ++u) acc[i][u] = 0.f;
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][u][i] = 0.f;
 
-  // this thread stages A rows m0 and m0 + 16 at chunk column kk
-  const int kk = tid % kKC, m0 = tid / kKC;
-  for (int ti = 0; ti < p.nt; ++ti) {
-    const Term T = p.t[ti];
-    long srow[2];
-    uint32_t kimg[2], spos[2];
+  const int q = tid % (kKC / 4), rs = tid / (kKC / 4);
+  const int m = rs / 16 * 16 + (rs / 2) % 8 + 8 * (rs % 2);
+  int ry[kAR], rx[kAR];
+  uint32_t kimg[kAR];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + m0 + 16 * h;
-      srow[h] = -1;
-      kimg[h] = spos[h] = 0;
-      if (r < g.R) {
-        const int b = r / g.HW, pos = r % g.HW;
-        const int yy = pos / g.W + T.dy, xx = pos % g.W + T.dx;
-        if (yy >= 0 && yy < g.H && xx >= 0 && xx < g.W) {
-          srow[h] = r + T.dy * g.W + T.dx;
-          spos[h] = (uint32_t)(yy * g.W + xx);
-          kimg[h] = mix32(p.key ^ (uint32_t)b);
+  for (int h = 0; h < kAR; ++h) {
+    const int r = r0 + m + kAStep * h;
+    const int pos = r % g.HW;
+    ry[h] = r < g.R ? pos / g.W : -(1 << 20);  // rows past R read nothing
+    rx[h] = pos % g.W;
+    kimg[h] = mix32(p.key ^ (uint32_t)(r / g.HW));
+  }
+  float va[kAR][4];
+  uint32_t spos[kAR];
+  bool ok[kAR];
+  // global loads of A's chunk at `c` into va
+  auto load_a = [&](const Cursor& c) {
+    const Term& T = p.t[c.ti];
+    const int k = c.k0 + 4 * q;
+    const int col = T.mode == A_IDENT || k < T.C ? k : k - T.C;
+#pragma unroll
+    for (int h = 0; h < kAR; ++h) {
+      const int yy = ry[h] + T.dy, xx = rx[h] + T.dx;
+      ok[h] = yy >= 0 && yy < g.H && xx >= 0 && xx < g.W;
+      spos[h] = (uint32_t)(yy * g.W + xx);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok[h]) {
+        const int r = r0 + m + kAStep * h;
+        v = __ldg(reinterpret_cast<const float4*>(
+            T.src + (size_t)(r + T.dy * g.W + T.dx) * T.C + col));
+      }
+      va[h][0] = v.x;
+      va[h][1] = v.y;
+      va[h][2] = v.z;
+      va[h][3] = v.w;
+    }
+  };
+  // va through the term's concat_elu and mask, split, into A stage `s`
+  auto store_a = [&](const Cursor& c, int s) {
+    const Term& T = p.t[c.ti];
+    const int k = c.k0 + 4 * q;
+#pragma unroll
+    for (int h = 0; h < kAR; ++h) {
+      if (ok[h] && T.mode != A_IDENT) {
+        const bool neg = k >= T.C;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v = elu(neg ? -va[h][j] : va[h][j]);
+          if (T.mode == A_CELU_DROP)
+            v = kept(kimg[h], spos[h] * (uint32_t)(2 * T.C) + k + j, p.thresh) ? v * p.inv_keep
+                                                                            : 0.f;
+          va[h][j] = v;
         }
       }
-    }
-    for (int k0 = 0; k0 < T.K; k0 += kKC) {
-      const int k = k0 + kk;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v = 0.f;
-        if (srow[h] >= 0) {
-          const float* row = T.src + srow[h] * T.C;
-          if (T.mode == A_IDENT) {
-            v = row[k];
-          } else {
-            v = k < T.C ? elu(row[k]) : elu(-row[k - T.C]);
-            if (T.mode == A_CELU_DROP)
-              v = kept(kimg[h], spos[h] * (uint32_t)(2 * T.C) + k, p.thresh)
-                      ? v * p.inv_keep
-                      : 0.f;
+      for (int j = 0; j < 4; ++j) store_split(sA + s * 2 * kAPlane, m + kAStep * h, 4 * q + j, va[h][j]);
+    }
+  };
+
+  int nc = 0;
+  for (int ti = 0; ti < p.nt; ++ti) nc += p.t[ti].K / kKC;
+  Cursor ca{0, 0}, cb{0, 0}, cc{0, 0};  // A's next chunk, B's, the MMAs'
+  for (int s = 0; s < kStages - 1; ++s) {
+    stage_b<N>(sB + s * N * kBPitchT, p, cb);
+    cb.next(p);
+  }
+  load_a(ca);
+  store_a(ca, 0);
+  ca.next(p);
+  for (int c = 0; c < nc; ++c) {
+    cp_async_wait_ring();  // this thread's copies of chunk c landed
+    __syncthreads();   // everyone's, and A stage c % 2; B stage c - 1 is free
+    stage_b<N>(sB + (c + kStages - 1) % kStages * N * kBPitchT, p, cb);
+    cb.next(p);
+    const bool more = c + 1 < nc;
+    if (more) load_a(ca);
+    const float* a = sA + (c % 2) * 2 * kAPlane;
+    const float* b = sB + c % kStages * N * kBPitchT;
+    if (p.t[cc.ti].trans)
+      mma_chunk<N, 1, kBPitchT>(acc, a, b);
+    else
+      mma_chunk<N, N + 8, 1>(acc, a, b);
+    cc.next(p);
+    if (more) {
+      store_a(ca, (c + 1) % 2);
+      ca.next(p);
+    }
+  }
+
+  const int lane = tid % 32, gq = lane / 4, t2 = 2 * (lane % 4);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + tile_m0(mt) + gq + 8 * hh;
+      if (r >= g.R) continue;
+      const int b = r / g.HW;
+      if (p.epi == E_BIAS) {
+#pragma unroll
+        for (int u = 0; u < NT; ++u) {
+          const int c = tile_n0<N>(u) + t2;
+          const float2 bias = p.bias ? make_float2(p.bias[c], p.bias[c + 1])
+                                     : make_float2(0.f, 0.f);
+          *reinterpret_cast<float2*>(p.out + (size_t)r * N + c) =
+              make_float2(acc[mt][u][2 * hh] + bias.x, acc[mt][u][2 * hh + 1] + bias.y);
+        }
+      } else if (p.epi == E_GATE) {
+#pragma unroll
+        for (int u = 0; u < NT / 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = tile_n0<N>(u) + t2 + e;  // act column; its gate is j + F
+            const float act =
+                acc[mt][u][2 * hh + e] + p.bias[j] + p.proj[(size_t)b * N + j];
+            const float gate = acc[mt][u + NT / 2][2 * hh + e] + p.bias[j + F] +
+                               p.proj[(size_t)b * N + j + F];
+            p.out[(size_t)r * N + j] = act;
+            p.out[(size_t)r * N + j + F] = gate;
+            p.out2[(size_t)r * F + j] = p.xres[(size_t)r * F + j] + sigmoid(gate) * act;
           }
-        }
-        sA[kk * kLda + m0 + 16 * h] = v;
-      }
-      stage_b<N>(sB, T.w, T.ld, T.trans, k0);
-      __syncthreads();
-      mma_chunk<N>(acc, sA, sB);
-      __syncthreads();
-    }
-  }
-
-  const int tr = tid / 32;
+      } else {  // E_CELU_BWD
+        const uint32_t ki = mix32(p.key ^ (uint32_t)b);
+        const uint32_t pos = (uint32_t)(r % g.HW);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + tr * 4 + i;
-    if (r >= g.R) continue;
-    const int b = r / g.HW;
-    if (p.epi == E_BIAS) {
+        for (int u = 0; u < NT / 2; ++u)
 #pragma unroll
-      for (int u = 0; u < TN; ++u) {
-        const int c = tile_col<N>(u);
-        p.out[(size_t)r * N + c] = acc[i][u] + (p.bias ? p.bias[c] : 0.f);
-      }
-    } else if (p.epi == E_GATE) {
-#pragma unroll
-      for (int u = 0; u < TN / 2; ++u) {
-        const int j = tile_col<N>(u);  // act column; its gate is j + F
-        const float act = acc[i][u] + p.bias[j] + p.proj[(size_t)b * N + j];
-        const float gate =
-            acc[i][u + TN / 2] + p.bias[j + F] + p.proj[(size_t)b * N + j + F];
-        p.out[(size_t)r * N + j] = act;
-        p.out[(size_t)r * N + j + F] = gate;
-        p.out2[(size_t)r * F + j] =
-            p.xres[(size_t)r * F + j] + sigmoid(gate) * act;
-      }
-    } else {  // E_CELU_BWD
-      const uint32_t kimg = mix32(p.key ^ (uint32_t)b);
-      const uint32_t pos = (uint32_t)(r % g.HW);
-#pragma unroll
-      for (int u = 0; u < TN / 2; ++u) {
-        const int j = tile_col<N>(u);
-        float gp = acc[i][u], gn = acc[i][u + TN / 2];
-        if (p.drop) {
-          gp = kept(kimg, pos * (2 * F) + j, p.thresh) ? gp * p.inv_keep : 0.f;
-          gn = kept(kimg, pos * (2 * F) + j + F, p.thresh) ? gn * p.inv_keep
-                                                           : 0.f;
-        }
-        const float z = p.z[(size_t)r * F + j];
-        const float dpos = z > 0.f ? 1.f : expf(z);
-        const float dneg = -z > 0.f ? 1.f : expf(-z);
-        float s = 0.f;
-        if (p.base1) s += p.base1[(size_t)r * F + j];
-        if (p.base2) s += p.base2[(size_t)r * F + j];
-        p.out[(size_t)r * F + j] = s + (gp * dpos - gn * dneg);
+          for (int e = 0; e < 2; ++e) {
+            const int j = tile_n0<N>(u) + t2 + e;
+            float gp = acc[mt][u][2 * hh + e], gn = acc[mt][u + NT / 2][2 * hh + e];
+            if (p.drop) {
+              gp = kept(ki, pos * (2 * F) + j, p.thresh) ? gp * p.inv_keep : 0.f;
+              gn = kept(ki, pos * (2 * F) + j + F, p.thresh) ? gn * p.inv_keep : 0.f;
+            }
+            const float z = p.z[(size_t)r * F + j];
+            const float dpos = z > 0.f ? 1.f : expf(z);
+            const float dneg = -z > 0.f ? 1.f : expf(-z);
+            float s = 0.f;
+            if (p.base1) s += p.base1[(size_t)r * F + j];
+            if (p.base2) s += p.base2[(size_t)r * F + j];
+            p.out[(size_t)r * F + j] = s + (gp * dpos - gn * dneg);
+          }
       }
     }
-  }
-}
-
-// Launches data_gemm over all rows on `stream`.
-template <int N>
-inline void launch_data_gemm(const DataArgs& a, cudaStream_t stream) {
-  data_gemm<N><<<(a.g.R + kM - 1) / kM, kThreads, 0, stream>>>(a);
 }
 
 // A term per tap of `taps` over `src`, appended to a.

@@ -13,13 +13,19 @@
 // and the dropout mask in their epilogues; a level's external cotangents are
 // added into the carried ones (a null pointer is a zero cotangent). The
 // weight gradients of all levels then run as one launch per weight kind
-// (wgrad: one block per (32 input rows, tap, level, row split)), the bias
-// and cond gradients as small reductions. A weight kind whose grid is small
-// (the pair's: 8-48 blocks at one level) has its rows cut into S splits, so
-// that its launch has ~kWgradBlocks blocks; each split's block writes a
-// partial sum, and reduce_splits adds the S partials in split order. No
-// atomics: each output is summed in a fixed order, so equal inputs give
-// equal gradients on every run.
+// (wgrad, on data_gemm's tensor-core core: one block per (64 input
+// channels, tap, level, row split), the rows of the pass as its K axis),
+// the bias and cond gradients as small reductions. A weight kind whose grid
+// is small (the pair's: 4-24 blocks at one level) has its rows cut into S
+// splits, so that its launch has ~kWgradBlocks blocks; each split's block
+// writes a partial sum, and reduce_splits adds the S partials in split
+// order. No atomics: each output is summed in a fixed order (the chunks,
+// then the fragments, then the splits), so equal inputs give equal
+// gradients on every run.
+//
+// Everything from "---- launches" on launches kernels; the part above is
+// device code and host helpers only (the CPU emulation of the kernels,
+// tests/cuda_emulation, compiles that part).
 #pragma once
 
 #include "gated_common.cuh"
@@ -27,10 +33,12 @@
 namespace gsk {
 
 constexpr int kMaxLevels = 32;  // ops/gated_chain.py MAX_LEVELS
-// Blocks a weight-gradient launch aims for (~4 resident a block of 256
-// threads on each of the H100's 132 SMs), and the fewest rows a split sums.
-constexpr int kWgradBlocks = 4 * 132;
-constexpr int kMinSplitRows = 8 * kKC;
+// Blocks of 64 channels a weight-gradient launch aims for (two waves over
+// the H100's 132 SMs), the fewest rows a split sums, and what a split's
+// rows are a multiple of: the same splits as 4 x 132 blocks of 32 channels.
+constexpr int kWgradBlocks = 2 * 132;
+constexpr int kMinSplitRows = 128;
+constexpr int kSplitAlign = 16;
 
 // Per-level pointers passed by value in a kernel's parameters.
 struct PerLevel {
@@ -143,8 +151,8 @@ __global__ void gate_bwd(const float* __restrict__ carry, const float* __restric
 }
 
 // The row splits of one weight kind's reduction over R rows when its grid
-// has `blocks` blocks a split: S splits of `rows` rows (a multiple of kKC,
-// the last one shorter), S = 1 where the grid is already large.
+// has `blocks` blocks a split: S splits of `rows` rows (a multiple of
+// kSplitAlign, the last one shorter), S = 1 where the grid is already large.
 struct Split {
   int S, rows;
 };
@@ -153,7 +161,7 @@ inline Split wgrad_split(int R, int blocks) {
   S = S < R / kMinSplitRows ? S : R / kMinSplitRows;
   if (S <= 1) return Split{1, R};
   int rows = (R + S - 1) / S;
-  rows = (rows + kKC - 1) / kKC * kKC;
+  rows = (rows + kSplitAlign - 1) / kSplitAlign * kSplitAlign;
   return Split{(R + rows - 1) / rows, rows};
 }
 
@@ -176,71 +184,127 @@ struct WgArgs {
 };
 
 template <int N>
-__global__ void __launch_bounds__(kThreads) wgrad(const WgArgs p) {
-  constexpr int TN = N / 32;
-  __shared__ __align__(16) float sA[kKC * kLda];
-  __shared__ __align__(16) float sB[kKC * N];
+__global__ void __launch_bounds__(kThreads, 1) wgrad(const __grid_constant__ WgArgs p) {
+  constexpr int NT = n_tiles<N>();
+  // a thread gathers channels i .. i + 3 of kWR rows, kWStep apart; a warp
+  // takes 8 consecutive rows of 4 channel quads, so its stores spread over
+  // the banks
+  constexpr int kWStep = kThreads / (kBM / 4), kWR = kKC / kWStep;
+  static_assert(kThreads / 32 == kBM / 16 * 4, "warps: 4 row groups x kBM / 16 quad groups");
+  extern __shared__ __align__(16) float smem[];
+  float* sA = smem;
+  float* sB = smem + 4 * kAPlane;
   const Geo g = p.geo;
   const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * kM, t = blockIdx.y;
+  const int i0 = blockIdx.x * kBM, t = blockIdx.y;
   const int l = blockIdx.z / p.S, sp = blockIdx.z % p.S;
   const int rbeg = sp * p.rows, rend = min(g.R, rbeg + p.rows);
   const float* src = p.src.p[l];
   const float* gl = p.g + (size_t)l * g.R * N;
   const uint32_t key = stream_key(p.seed, (uint32_t)(2 * (p.base + l) + p.sub));
   const int dy = p.taps.dy[t], dx = p.taps.dx[t];
-  const int m = tid % kM, kk0 = tid / kM;
-  const int i = i0 + m;
-  const bool neg = i >= p.C;
+  // (a block's 64 channels lie in one half of concat_elu: C % 64 == 0)
+  const int q = tid / 128 * 4 + tid % 32 / 8, rr = tid / 32 % 4 * 8 + tid % 8;
+  const int i = i0 + 4 * q;
+  const bool neg = i0 >= p.C;
   const int ch = neg ? i - p.C : i;
-  float acc[4][TN];
+  Acc<N> acc;
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int u = 0; u < TN; ++u) acc[a][u] = 0.f;
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][u][e] = 0.f;
 
-  for (int k0 = rbeg; k0 < rend; k0 += kKC) {
+  float va[kWR][4];
+  uint32_t spos[kWR], kimg[kWR];
+  bool ok[kWR];
+  auto load_a = [&](int k0) {
 #pragma unroll
-    for (int h = 0; h < kKC / (kThreads / kM); ++h) {
-      const int kk = kk0 + h * (kThreads / kM);
-      const int r = k0 + kk;
-      float v = 0.f;
-      if (r < rend) {
-        const int b = r / g.HW, pos = r % g.HW;
-        const int yy = pos / g.W + dy, xx = pos % g.W + dx;
-        if (yy >= 0 && yy < g.H && xx >= 0 && xx < g.W) {
-          const float s = src[(size_t)(r + dy * g.W + dx) * p.C + ch];
-          v = elu(neg ? -s : s);
+    for (int h = 0; h < kWR; ++h) {
+      const int r = k0 + rr + kWStep * h;
+      const int b = r / g.HW, pos = r % g.HW;
+      const int yy = pos / g.W + dy, xx = pos % g.W + dx;
+      ok[h] = r < rend && yy >= 0 && yy < g.H && xx >= 0 && xx < g.W;
+      spos[h] = (uint32_t)(yy * g.W + xx);
+      kimg[h] = mix32(key ^ (uint32_t)b);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok[h])
+        v = __ldg(reinterpret_cast<const float4*>(src + (size_t)(r + dy * g.W + dx) * p.C + ch));
+      va[h][0] = v.x;
+      va[h][1] = v.y;
+      va[h][2] = v.z;
+      va[h][3] = v.w;
+    }
+  };
+  auto store_a = [&](int s) {
+#pragma unroll
+    for (int h = 0; h < kWR; ++h) {
+      float2 w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = 0.f;
+        if (ok[h]) {
+          v = elu(neg ? -va[h][j] : va[h][j]);
           if (p.drop)
-            v = kept(mix32(key ^ (uint32_t)b),
-                     (uint32_t)(yy * g.W + xx) * (uint32_t)(2 * p.C) + i, p.thresh)
-                    ? v * p.inv_keep
-                    : 0.f;
+            v = kept(kimg[h], spos[h] * (uint32_t)(2 * p.C) + i + j, p.thresh) ? v * p.inv_keep
+                                                                            : 0.f;
         }
+        w[j] = split_tf32(v);
       }
-      sA[kk * kLda + m] = v;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int at = frag_at(4 * q + j, rr + kWStep * h);
+        sA[s * 2 * kAPlane + at] = w[j].x;
+        sA[s * 2 * kAPlane + kAPlane + at] = w[j].y;
+      }
     }
-    for (int q = tid; q < kKC * N / 4; q += kThreads) {
-      const int kr = q / (N / 4), c4 = q % (N / 4);
-      const int r = k0 + kr;
-      reinterpret_cast<float4*>(sB)[q] =
-          r < rend ? __ldg(reinterpret_cast<const float4*>(gl + (size_t)r * N) + c4)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  // cotangent rows k0 .. k0 + kKC into B stage `s`, zeros past rend
+  auto stage_b = [&](int k0, int s) {
+    if (k0 < rend) {
+      float* dst = sB + s * N * kBPitchT;
+      constexpr int P = N / 4, STEP = kThreads / P;
+      const int kr = tid / P, c4 = tid % P;
+      uint32_t d = smem_u32(dst + kr * (N + 8) + 4 * c4);
+#pragma unroll
+      for (int j = 0; j < kKC / STEP; ++j, d += STEP * (N + 8) * 4) {
+        const int r = k0 + kr + j * STEP;
+        cp_async16(d, r < rend ? gl + (size_t)r * N + 4 * c4 : gl, r < rend ? 16 : 0);
+      }
     }
+    cp_async_commit();
+  };
+
+  const int nc = (rend - rbeg + kKC - 1) / kKC;
+  for (int s = 0; s < kStages - 1; ++s) stage_b(rbeg + s * kKC, s);
+  load_a(rbeg);
+  store_a(0);
+  for (int c = 0; c < nc; ++c) {
+    const int k0 = rbeg + c * kKC;
+    cp_async_wait_ring();
     __syncthreads();
-    mma_chunk<N>(acc, sA, sB);
-    __syncthreads();
+    stage_b(k0 + (kStages - 1) * kKC, (c + kStages - 1) % kStages);
+    const bool more = c + 1 < nc;
+    if (more) load_a(k0 + kKC);
+    mma_chunk<N, N + 8, 1>(acc, sA + (c % 2) * 2 * kAPlane, sB + c % kStages * N * kBPitchT);
+    if (more) store_a((c + 1) % 2);
   }
-  const int tr = tid / 32;
+
   const size_t per = (size_t)p.taps.n * 2 * p.C * N;  // one level's dW
   float* out = (p.S == 1 ? p.out.p[l] : p.part + ((size_t)l * p.S + sp) * per) +
                (size_t)t * 2 * p.C * N;
+  const int lane = tid % 32, t2 = 2 * (lane % 4);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = i0 + tr * 4 + a;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int u = 0; u < TN; ++u) out[(size_t)row * N + tile_col<N>(u)] = acc[a][u];
-  }
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = i0 + tile_m0(mt) + lane / 4 + 8 * hh;
+#pragma unroll
+      for (int u = 0; u < NT; ++u)
+        *reinterpret_cast<float2*>(out + (size_t)row * N + tile_n0<N>(u) + t2) =
+            make_float2(acc[mt][u][2 * hh], acc[mt][u][2 * hh + 1]);
+    }
 }
 
 // out_l[j] = sum_s part[l][s][j], in the order of s, for the n entries j of
@@ -310,7 +374,7 @@ __global__ void dcond_kernel(const float* __restrict__ rsv, const PerLevel wcv,
 
 // The split of chain c's weight kind of `taps` taps.
 inline Split wgrad_split(const Chain& c, int taps) {
-  return wgrad_split(c.g.R, (2 * kF / kM) * taps * c.L);
+  return wgrad_split(c.g.R, (2 * kF / kBM) * taps * c.L);
 }
 
 // The row splits of chain c's weight kinds: the vertical convs', the
@@ -333,6 +397,27 @@ inline long long wgrad_part_floats(const Chain& c) {
     most = n > most ? n : most;
   }
   return most;
+}
+
+// ---- launches --------------------------------------------------------------
+
+// Launches data_gemm over all rows on `stream`. The shared-memory limit is
+// set at every launch, not once behind a function-local static: such a
+// static is one object across every loaded library that includes this
+// header, and each library's kernel needs its own setting. A refusal shows
+// as the launch's error.
+template <int N>
+inline void launch_data_gemm(const DataArgs& a, cudaStream_t stream) {
+  cudaFuncSetAttribute(data_gemm<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem_bytes<N>());
+  data_gemm<N><<<(a.g.R + kBM - 1) / kBM, kThreads, smem_bytes<N>(), stream>>>(a);
+}
+
+// Launches wgrad over `grid` on `stream`.
+template <int N>
+inline void launch_wgrad(const WgArgs& a, dim3 grid, cudaStream_t stream) {
+  cudaFuncSetAttribute(wgrad<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<N>());
+  wgrad<N><<<grid, kThreads, smem_bytes<N>(), stream>>>(a);
 }
 
 // ---- the forward -----------------------------------------------------------
@@ -510,11 +595,11 @@ inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
     a.S = sp.S;
     a.rows = sp.rows;
     a.part = s.part;
-    const dim3 grid(2 * F / kM, taps.n, L * sp.S);
+    const dim3 grid(2 * F / kBM, taps.n, L * sp.S);
     if (wide)
-      wgrad<2 * F><<<grid, kThreads, 0, stream>>>(a);
+      launch_wgrad<2 * F>(a, grid, stream);
     else
-      wgrad<F><<<grid, kThreads, 0, stream>>>(a);
+      launch_wgrad<F>(a, grid, stream);
     if (sp.S > 1) {
       const size_t n = (size_t)taps.n * 2 * F * (wide ? 2 * F : F);
       reduce_splits<<<(unsigned)((L * n + 255) / 256), 256, 0, stream>>>(s.part, a.out, L,

@@ -18,15 +18,17 @@
 //
 // Bound: operations. Each product's VJP is two products (data and weight
 // gradients): 31.1 / 33.3 GFLOP a flagship level up / down counting
-// in-image taps (0.46 / 0.50 ms at 67 TFLOP/s) against ~70 MB read and
-// written; a segment of 4 four times that.
+// in-image taps against ~70 MB read and written; a segment of 4 four times
+// that. As the GEMM core does it, 3 TF32 tensor-core products per float32
+// product: 0.19 / 0.20 ms at 495 TFLOP/s (0.46 / 0.50 ms as float32 FMAs at
+// 67 TFLOP/s).
 //
 // Design. gated_levels.cuh's levels_bwd over the levels: the data gradients
 // a launch over all rows per phase and level, top level first, each level's
 // db1 and da1 kept in scratch; then one wgrad launch per weight kind for all
 // the levels, and the bias and cond reductions, without the stream's [L, ...]
-// stacks. At one level wgrad's grid is (2F / 32) x taps blocks, 48 for the
-// 2x3 vertical convs, 32 for the 2x2 horizontal ones and 8 for an aux
+// stacks. At one level wgrad's grid is (2F / 64) x taps blocks, 24 for the
+// 2x3 vertical convs, 16 for the 2x2 horizontal ones and 4 for an aux
 // product, too few for 132 SMs: each kind's 8192 rows are cut into 11, 17
 // and 64 row splits (a segment of 4: 3, 5 and 17) whose partial sums
 // reduce_splits adds in split order, through `part`

@@ -19,13 +19,15 @@
 // segment of a pass may be shorter: pixelcnn.py:470-494).
 //
 // Bound: operations. One flagship level (8192 rows of 16 x 16, F = 128) is
-// 15.6 / 16.6 GFLOP up / down of float32 FMAs counting the conv taps that
-// land inside the image (0.23 / 0.25 ms at 67 TFLOP/s) against ~50 MB read
-// and written; a segment of 4 four times that.
+// 15.6 / 16.6 GFLOP up / down counting the conv taps that land inside the
+// image (as the GEMM core's 3 TF32 tensor-core products per float32 product,
+// 0.095 / 0.10 ms at 495 TFLOP/s; 0.23 / 0.25 ms as float32 FMAs at 67
+// TFLOP/s) against ~50 MB read and written; a segment of 4 four times
+// that.
 //
 // Design. gated_levels.cuh's levels_fwd over the levels: one launch for
 // every level's cond projection, then 4 launches a level over all rows
-// (data_gemm); the carries between levels are the level outputs in device
+// (data_gemm, on the TF32 tensor-core core); the carries between levels are the level outputs in device
 // memory, which the backward needs anyway. The TPU kernels keep the carry in
 // VMEM and all L levels' weights resident; their batch chunks (bc_fwd) tile
 // VMEM and have no counterpart: each launch covers all B*H*W rows.

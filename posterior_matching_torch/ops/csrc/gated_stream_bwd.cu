@@ -12,18 +12,21 @@
 //
 // Bound: operations. The VJP of a product costs two products (data and
 // weight gradients), so at the flagship shapes a step's two passes are
-// ~773 GFLOP of float32 FMAs at the in-image taps (11.5 ms at 67 TFLOP/s)
-// against ~1.5 GB read and written (0.45 ms at 3.35 TB/s).
+// ~773 GFLOP at the in-image taps against ~1.5 GB read and written (0.45 ms
+// at 3.35 TB/s). The GEMM core (gated_common.cuh) does each float32
+// product as 3 TF32 tensor-core products: 4.7 ms at 495 TFLOP/s (11.5 ms as
+// float32 FMAs at 67 TFLOP/s).
 //
 // Design. The TPU kernel carries dv/dh through VMEM across a sequential
 // grid and accumulates dW in a resident output block. On Hopper the
 // data-gradient phases are launches over all 8192 rows per level, top level
 // first, keeping each level's db1 and da1 in scratch; the weight gradients
 // of all levels then run as one launch per weight kind: gated_levels.cuh's
-// levels_bwd. At the flagship's 12 levels the vertical convs' launches have
-// 576 blocks and sum all 8192 rows each; the horizontal convs' (384 blocks)
-// and the aux products' (96) are cut into 2 and 6 row splits, whose partial
-// sums go through `part`. The stream's weights, saves and gradients are
+// levels_bwd, every product on the tensor-core GEMM core. At the flagship's
+// 12 levels the vertical convs' launches have 288 blocks of 64 channels and
+// sum all 8192 rows each; the horizontal convs' (192 blocks) and the aux
+// products' (48) are cut into 2 and 6 row splits, whose partial sums go
+// through `part`. The stream's weights, saves and gradients are
 // [L, ...] stacks; this entry point cuts them into per-level pointers.
 #include "gated_levels.cuh"
 

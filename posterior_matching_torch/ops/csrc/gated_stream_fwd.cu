@@ -13,9 +13,10 @@
 // Bound: operations. At the flagship shapes (B*H*W = 32*16*16 = 8192 rows,
 // F = 128, L = 12, 2x3 vertical and 2x2 horizontal taps, counting the taps
 // that land inside the 16 x 16 image) a level is 1.90 MFLOP per row on the
-// up pass and 2.03 on the down pass: 187 + 200 GFLOP of float32 FMAs per
-// training step (5.8 ms at 67 TFLOP/s) against ~0.4 GB of saves written per
-// pass (0.12 ms at 3.35 TB/s).
+// up pass and 2.03 on the down pass: 187 + 200 GFLOP per training step
+// against ~0.4 GB of saves written per pass (0.12 ms at 3.35 TB/s). The GEMM
+// core does each float32 product as 3 TF32 tensor-core products: 2.3 ms at
+// 495 TFLOP/s (5.8 ms as float32 FMAs at 67 TFLOP/s).
 //
 // Design. The Pallas kernel walks (level, chunk) in order and carries the
 // stacks in VMEM. On Hopper blocks run in parallel and unordered, and one
@@ -25,8 +26,9 @@
 // shifted taps, concat_elu and the in-kernel dropout hash fused into the A
 // operand's load, biases, cond projection, gate and residual in the
 // epilogue). The stream's weights and saves are [L, ...] stacks; this entry
-// point cuts them into per-level pointers. Float32 FMAs without tensor
-// cores: fast kernels (wgmma, TMA, bf16) are later work.
+// point cuts them into per-level pointers. The products run on
+// gated_common.cuh's core: mma.sync TF32 tensor cores with the 3xTF32 split
+// (float32 numerics), pipelined operands; wgmma and TMA are later work.
 #include "gated_levels.cuh"
 
 namespace {

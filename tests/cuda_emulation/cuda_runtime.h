@@ -1,11 +1,15 @@
-// A CPU stand-in for the CUDA pieces that csrc/sampler_row.cu and
-// csrc/sampler_vrow.cu use, so the kernels' indexing, barriers and weight
-// ring can be tested without a GPU (tests/test_torch_row_kernel_emulated.py). A block runs as one
-// std::thread per CUDA thread, one block at a time: __syncthreads, the named
-// barrier and __syncwarp are std::barriers; an mbarrier is a side-table entry
-// keyed by its shared-memory offset; a bulk copy lands when it is issued and
-// counts its bytes against the mbarrier. The PTX helpers of the kernel are
-// replaced by calls to the emu_* functions here before it is compiled.
+// A CPU stand-in for the CUDA pieces that csrc/sampler_row.cu,
+// csrc/sampler_vrow.cu and the gated chain's GEMM kernels
+// (csrc/gated_common.cuh, gated_levels.cuh) use, so the kernels' indexing,
+// barriers, operand rings and fragment layouts can be tested without a GPU
+// (tests/test_torch_*_kernel_emulated.py). A block runs as one std::thread
+// per CUDA thread, one block at a time: __syncthreads, the named barrier and
+// __syncwarp are std::barriers; an mbarrier is a side-table entry keyed by
+// its shared-memory offset; a bulk copy lands when it is issued and counts
+// its bytes against the mbarrier; a cp.async copy lands when it is issued
+// (its waits do nothing); mma.sync is warp-collective through a per-warp
+// buffer and reads its operands as TF32 (the low 13 bits ignored). The PTX helpers of the kernel are replaced by calls to the emu_*
+// functions here before it is compiled.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -27,15 +31,27 @@
 #define __launch_bounds__(...)
 #define __align__(x)
 #define __shared__
+#define __grid_constant__
 
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
-struct Dim { unsigned x; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+struct Dim { unsigned x, y, z; };
 typedef int cudaError_t;
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
-extern thread_local Dim threadIdx, blockIdx;
+extern thread_local Dim threadIdx, blockIdx, blockDim;
 extern std::barrier<>* g_block_bar;     // every thread of the block
 extern std::barrier<>* g_consumer_bar;  // the named barrier's threads
 extern std::barrier<>* g_warp_bar[32];  // one per warp
@@ -133,24 +149,71 @@ inline bool emu_try_wait(uint32_t bar, uint32_t parity) {
   return false;
 }
 
-// Runs `kernel` (a callable taking no arguments) over `blocks` blocks of
-// `threads` threads, one block at a time; `consumers` threads take the named
-// barrier. Shared memory (`smem_bytes` at g_smem_base) starts as NaNs, so
-// stale reads show.
+// ---- mma.sync m16n8k8 .tf32, cp.async ------------------------------------
+
+// A warp's fragments, deposited by its lanes; two slots used in turn, so a
+// lane that runs ahead into the next MMA never overwrites what a slower lane
+// still reads.
+struct EmuMma {
+  uint32_t a[32][4], b[32][2];
+};
+extern EmuMma g_mma[32][2];
+
+// D = A B + C for an m16n8k8 TF32 fragment, by the PTX ISA's layout (lane =
+// 4 group + t): A a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// B b0 (k = t, n = g), b1 (t + 4, g); C and D c0 (g, 2t), c1 (g, 2t + 1),
+// c2 (g + 8, 2t), c3 (g + 8, 2t + 1). Operands are read as TF32 (the low 13
+// bits ignored, as the tensor cores do); each output sums C, then k = 0..7,
+// in float32.
+inline void emu_mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  static thread_local unsigned turn = 0;
+  const int lane = threadIdx.x % 32;
+  EmuMma& m = g_mma[threadIdx.x / 32][turn];
+  turn ^= 1u;
+  for (int i = 0; i < 4; ++i) m.a[lane][i] = a[i];
+  for (int i = 0; i < 2; ++i) m.b[lane][i] = b[i];
+  __syncwarp();
+  auto tf = [](uint32_t u) { return __uint_as_float(u & 0xffffe000u); };
+  const int g = lane / 4, t = lane % 4;
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    float s = d[i];
+    for (int k = 0; k < 8; ++k) {
+      const float av = tf(m.a[(row % 8) * 4 + k % 4][(row >= 8) + 2 * (k >= 4)]);
+      const float bv = tf(m.b[col * 4 + k % 4][k >= 4]);
+      s += av * bv;
+    }
+    d[i] = s;
+  }
+}
+
+// cp.async of 16 bytes: the first `bytes` from src, zeros after.
+inline void emu_cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
+  std::memset(g_smem_base + dst, 0, 16);
+  std::memcpy(g_smem_base + dst, src, bytes);
+}
+
+// Runs `kernel` (a callable taking no arguments) over a grid of gx x gy x gz
+// blocks of `threads` threads, one block at a time (x fastest); `consumers`
+// threads take the named barrier. Shared memory (`smem_bytes` at
+// g_smem_base) starts as NaNs, so stale reads show.
 template <class K>
-void emu_launch(int blocks, int threads, int consumers, size_t smem_bytes, K kernel) {
-  for (int b = 0; b < blocks; ++b) {
+void emu_launch_grid(int gx, int gy, int gz, int threads, int consumers, size_t smem_bytes,
+                     K kernel) {
+  for (int b = 0; b < gx * gy * gz; ++b) {
     std::memset(g_smem_base, 0xff, smem_bytes);
     std::barrier<> block(threads), cons(consumers);
     std::vector<std::barrier<>*> warps;
     for (int w = 0; w < threads / 32; ++w) warps.push_back(g_warp_bar[w] = new std::barrier<>(32));
     g_block_bar = &block;
     g_consumer_bar = &cons;
+    const Dim bid{unsigned(b % gx), unsigned(b / gx % gy), unsigned(b / (gx * gy))};
     std::vector<std::thread> pool;
     for (int t = 0; t < threads; ++t)
-      pool.emplace_back([&kernel, t, b] {
-        threadIdx.x = t;
-        blockIdx.x = b;
+      pool.emplace_back([&kernel, t, bid, threads] {
+        threadIdx = Dim{unsigned(t), 0, 0};
+        blockIdx = bid;
+        blockDim = Dim{unsigned(threads), 1, 1};
         kernel();
       });
     for (auto& t : pool) t.join();
@@ -158,14 +221,21 @@ void emu_launch(int blocks, int threads, int consumers, size_t smem_bytes, K ker
   }
 }
 
+// The same over `blocks` blocks in x.
+template <class K>
+void emu_launch(int blocks, int threads, int consumers, size_t smem_bytes, K kernel) {
+  emu_launch_grid(blocks, 1, 1, threads, consumers, smem_bytes, kernel);
+}
+
 // The stand-in's globals, defined once by each harness; `smem` is the
 // emulated kernel's shared-memory array.
 #define EMU_GLOBALS(smem)                                  \
-  thread_local Dim threadIdx, blockIdx;                    \
+  thread_local Dim threadIdx, blockIdx, blockDim;          \
   std::barrier<>* g_block_bar;                             \
   std::barrier<>* g_consumer_bar;                          \
   std::barrier<>* g_warp_bar[32];                          \
   char* g_smem_base = reinterpret_cast<char*>(smem);       \
   float g_shfl[1024 * 2];                                  \
   EmuBar g_bars[64];                                       \
+  EmuMma g_mma[32][2];                                     \
   std::mutex g_bar_mu;

@@ -6,7 +6,7 @@ are small but cover what the full-width smoke run does not: widths that do
 not divide the vrow kernel's 32 row slots, sample counts that leave a
 block's tile ragged, two logits chunks, the row kernel at full depth
 (L = 24) and launched twice for bit-identical outputs; row counts that
-leave the gated chain's 32-row tiles ragged, grids other than square; the
+leave the gated chain's 64-row tiles ragged, grids other than square; the
 pair and segment kernels at the flagship's 16x16 and PM-VQVAE MNIST's 7x7
 code grids, up and down, with and without dropout, a segment whose outputs
 reach the loss only in part, and a small PM-VQVAE step per chain mode
@@ -20,7 +20,8 @@ image's edges, and runs long enough that their weight gradients sum two
 1024-row splits, each at both compiled geometries; the decoder chain's
 backward with every output's cotangent and with the state's alone; and a
 digits16 PM-VDVAE step, with the block chain and with the decoder chain
-too, against the CPU.
+too, against the CPU; and the gated chain's 3xTF32 GEMM core on operands
+that TF32 alone would round, against float64.
 Tolerance: 1e-4 relative to the tensor's scale (float32 sums in another
 order), for the chains' gradients too (their sums run over at most a few
 thousand rows here).
@@ -339,6 +340,76 @@ def test_gated_segment_backward_with_unused_outputs(dev):
     grads_p = torch.autograd.grad(loss(want), leaves)
     for name, gk, gp in zip(_leaf_names(ws, sk), grads_k, grads_p):
         assert _close(gk, gp), name
+
+
+def test_gated_gemm_core_keeps_float32_operands_that_tf32_rounds(dev):
+    """Operands exact in float32 but not in TF32 (1 + 2^-12 rounds to 1 in
+    TF32's 10 fraction bits), on the A side (the input's first 8 channels)
+    and the B side (conv_a's weight rows 8-15): the pair forward's conv_a
+    product a1v against float64. No product has two such operands and every
+    sum stays below 2^8 at a resolution of 2^-13, so the float32 result is
+    exact and the 3xTF32 split reaches it; one TF32 pass would be off by
+    ~1e-4 of scale."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    b, h, w, cd = 2, 7, 7, 16
+    xv0, xh0, _, cond, ws = _level_case(gen, b, h, w, 1, cd, False)
+    odd = 1.0 + 2.0 ** -12
+    pos = (torch.arange(b * h * w, device=dev) % 3).reshape(b, h, w, 1)
+    c = torch.arange(8, device=dev)
+    x = torch.zeros(b, h, w, F, device=dev)
+    x[..., :8] = torch.where((c + pos) % 2 == 0, odd, 1.0)
+    x[..., 8:16] = torch.where((c + pos) % 2 == 0, 2.0, 1.0)
+    k, n = torch.arange(8, device=dev)[:, None], torch.arange(F, device=dev)[None, :]
+    taps = gc.chain_taps()
+    wav = torch.zeros(taps[0].skh * taps[0].skw, 2 * F, F, device=dev)
+    wav[:, :8] = torch.tensor([1.0, -1.0, 2.0, 0.5], device=dev)[(k + n) % 4]
+    wav[:, 8:16] = torch.where((k + n) % 2 == 0, odd, -odd)
+    wav *= torch.tensor([(-1.0) ** t for t in range(wav.shape[0])], device=dev)[:, None, None]
+    ws[0]["wav"] = wav.reshape(-1, F).contiguous()
+    ws[0]["bav"] = torch.zeros(F, device=dev)
+    cfg = gc.StreamConfig(x, cond, 1, False, 1.0, 5, 0, taps)
+    got = gc.pair_fwd(cfg, x, xh0, None, cond, ws)[0]["a1v"].reshape(-1, F).double()
+    torch.cuda.synchronize()
+    want = gc._conv_taps(gc._concat_elu(x.double()), ws[0]["wav"].double(), taps[0])
+    assert want.abs().max().item() < 2.0 ** 8
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+# Row counts that leave the GEMM core's 64-row tiles ragged (75 rows: one
+# full tile and 11 rows), the stream and a segment, up and down, with
+# dropout: outputs and every gradient against autograd through the plain
+# version.
+@pytest.mark.parametrize("down", [False, True], ids=["up", "down"])
+@pytest.mark.parametrize("mode", ["segment", "stream"])
+def test_gated_chain_kernels_with_ragged_row_tiles(dev, mode, down):
+    gen = torch.Generator(device=dev).manual_seed(75 + down)
+    b, h, w, n_lvl = 5, 3, 5, 3
+    xv0, xh0, sk, cond, ws = _level_case(gen, b, h, w, n_lvl, 32, down)
+    if mode == "stream":
+        ws = [{k: torch.stack([wl[k] for wl in ws]) for k in ws[0]}]
+        sk = (torch.stack([p[0] for p in sk]), torch.stack([p[1] for p in sk])) if down else None
+        skl = list(sk) if down else []
+    else:
+        skl = [t for pair in (sk or ()) for t in pair]
+    leaves = [xv0, xh0, cond, *(t for wl in ws for t in wl.values()), *skl]
+    for t in leaves:
+        t.requires_grad_(True)
+    kw = dict(seed=11, base_pair=12 if down else 0, keep=0.5)
+    if mode == "stream":
+        got = list(gc.gated_stream(xv0, xh0, sk, cond, ws[0], **kw))
+        want = list(gc.gated_stream_plain(xv0, xh0, sk, cond, ws[0], **kw))
+    else:
+        got = [t for pair in gc.gated_segment(xv0, xh0, sk, cond, ws, **kw) for t in pair]
+        want = [t for pair in gc.gated_segment_plain(xv0, xh0, sk, cond, ws, **kw)
+                for t in pair]
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        assert _close(g_, w_), i
+    cot = [_rand(gen, *t.shape) for t in want]
+    grads_k = torch.autograd.grad(got, leaves, cot)
+    torch.cuda.synchronize()
+    grads_p = torch.autograd.grad(want, leaves, cot)
+    for i, (gk, gp) in enumerate(zip(grads_k, grads_p)):
+        assert _close(gk, gp), i
 
 
 def test_gated_level_wrappers_refuse_masks_and_widths(dev):

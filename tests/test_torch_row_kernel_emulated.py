@@ -27,8 +27,8 @@ EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
 F = sc.KERNEL_FILTERS
 TOL = 1e-4
 
-# The PTX helpers of csrc/sampler_common.cuh and the kernels, by name, and
-# the emulated body of each.
+# The PTX helpers of csrc/sampler_common.cuh, csrc/gated_common.cuh and the
+# kernels, by name, and the emulated body of each.
 _HELPERS = {
     "mbar_init": "emu_mbar_init(bar, count);",
     "mbar_fence_init": "",
@@ -39,6 +39,10 @@ _HELPERS = {
     "consumers_sync": "emu_consumer_sync();",
     "lds4": "return *reinterpret_cast<const float4*>(g_smem_base + addr);",
     "fence_proxy_async": "",
+    "mma_tf32": "emu_mma_tf32(d, a, b);",
+    "cp_async16": "emu_cp_async16(dst, src, bytes);",
+    "cp_async_commit": "",
+    "cp_async_wait_ring": "",
 }
 
 
@@ -155,3 +159,6 @@ def test_emulation_replaces_every_ptx_helper():
                           ("sampler_vrow.cu", "pm_sampler_vrow")):
         src = (_build.CSRC / kernel).read_text()
         assert "asm" not in emulated_source(src, entry).split("sampler_common.cuh")[1]
+    gated = (_build.CSRC / "gated_common.cuh").read_text()
+    assert "asm(" in gated and "asm" not in _replace_helpers(gated, "gated_common.cuh")
+    assert "asm" not in (_build.CSRC / "gated_levels.cuh").read_text()
