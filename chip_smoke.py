@@ -67,7 +67,10 @@ and checks them, in these phases:
    the same weights): the decoder-chain kernels (forward and backward)
    against autograd through the plain chain at the five decoder run shapes
    of a training batch of 16, with a random cotangent on each of the four
-   outputs, each timed beside its bound; the first step's loss and every
+   outputs, each timed beside its bound (3 TF32 products at the tensor
+   cores' rate, the float32 FMA bound beside it), relaunched bit for bit,
+   its CUDA kernels a level counted and its float32 work rate logged; the
+   first step's loss and every
    gradient equal to the unfused model's on the same batch and normals; 8
    steps of ``pm_vdvae_trainer`` on the same batches (5 forward and 5
    backward decoder-chain launches each, and the block chain's 10 + 10),
@@ -192,6 +195,16 @@ def bound_tc(flops, byts):
     the work: TF32_PASSES tensor-core products per float32 product."""
     return bound(TF32_PASSES * flops, byts, PEAK_TF32_FLOPS)
 
+
+# How the decoder chain's kernels (TPU rows 12-13) do their products.
+DECODER_DESIGN = ("GEMM core on tensor cores (decoder_gemm.cuh): mma.sync m16n8k8 TF32 with the "
+                  "3xTF32 split; p, m and q grouped into one launch a phase (9 launches a level "
+                  "each way); row tiles of 64, 32 or 16 sized to the run, column tiles of 48; "
+                  "conv operands staged once a tile with their halo, taps read shifted under "
+                  "the image mask; B by cp.async through 3 stages (6 on 16-row tiles); weight "
+                  "gradients in 3 grouped launches over fixed row splits (the 3x3 stacks all "
+                  "nine taps a block, the source gathered once), one split-sum and one bias-sum "
+                  "launch")
 
 # How the gated chain's kernels (TPU rows 4-9) do their GEMMs.
 GATED_DESIGN = ("GEMM core on tensor cores: mma.sync m16n8k8 TF32 with the 3xTF32 split; "
@@ -1383,6 +1396,18 @@ def decoder_chain_phase(runs, seed):
         bwd_plain = time_ms(lambda: torch.autograd.grad(want, leaves, cots, retain_graph=True),
                             reps=3)
         grads = dc.dec_bwd(cfg, cot, saved, weights)
+        # a relaunch on the same inputs gives the same bits
+        with torch.no_grad():
+            outs2 = dc.dec_fwd(cfg, inputs)
+            grads2 = dc.dec_bwd(cfg, cot, saved, weights)
+        torch.cuda.synchronize()
+        check(all(torch.equal(outs[n], outs2[n]) for n in outs)
+              and all(torch.equal(grads[n], grads2[n]) for n in grads),
+              f"decoder_chain res {res}: a relaunch changed the bits")
+        # CUDA kernels a level, from one profiled launch of each
+        per_level = {kind: kernel_launches(fn) / n_lvl for kind, fn in (
+            ("fwd", lambda: dc.dec_fwd(cfg, inputs)),
+            ("bwd", lambda: dc.dec_bwd(cfg, cot, saved, weights)))}
         # the backward does each product twice (data and weight gradients),
         # but for the masked Block's input-side data gradient on the state
         flops = dec_chain_flops(x0.shape[0], x0.shape[1], x0.shape[2], c, mid, ld, k, n_lvl)
@@ -1392,26 +1417,52 @@ def decoder_chain_phase(runs, seed):
         bwd_bytes = nbytes(*cot.values(), *saved.values(), *read_w, *grads.values())
         run = {"res": res, "levels": n_lvl, "k": k, "rows": cfg.rows,
                "fwd": (fwd_err, fwd_ms, fwd_plain, flops, fwd_bytes),
-               "bwd": (bwd_err, bwd_ms, bwd_plain, bwd_flops, bwd_bytes)}
+               "bwd": (bwd_err, bwd_ms, bwd_plain, bwd_flops, bwd_bytes),
+               "launches_per_level": per_level}
         for kind in ("fwd", "bwd"):
             _, ms, pms, fl, by = run[kind]
-            b_ms, b_by = bound(fl, by)
+            b_ms, b_by = bound_tc(fl, by)
             log(f"decoder_chain_{kind} res {res}: {ms:.4f} ms/launch (plain {pms:.3f}), bound "
-                f"{b_ms:.4f} ms by {b_by} ({fl / 1e9:.3f} GFLOP, {by / 1e6:.1f} MB)")
+                f"{b_ms:.4f} ms by {b_by} (float32 FMAs {bound(fl, by)[0]:.4f}; "
+                f"{fl / 1e9:.3f} GFLOP, {by / 1e6:.1f} MB); {fl / (ms * 1e-3) / 1e12:.2f} "
+                f"TFLOP/s of float32 work; {per_level[kind]:.1f} CUDA kernels a level; "
+                f"relaunched bit for bit")
         per_run.append(run)
-        del got, want, gk, gp, outs, saved, grads
+        del got, want, gk, gp, outs, saved, grads, outs2, grads2
     return chain_lines("decoder_chain", "posterior_matching_tpu/ops/decoder_chain.py",
-                       (("fwd", 226), ("bwd", 291)), per_run)
+                       (("fwd", 226), ("bwd", 291)), per_run, tc=True, design=DECODER_DESIGN)
 
 
-def chain_lines(name, replaces, kinds, per_run):
+def kernel_launches(fn):
+    """The decoder-chain kernels that one ``fn()`` launches, counted by
+    ``torch.profiler`` (a few kernels of PyTorch's run first: the profiler
+    can miss the first kernels of a window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.zeros(1, device=DEVICE).add_(1.0)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and any(k in e.name for k in _DECODER_CHAIN_KERNELS))
+
+
+def chain_lines(name, replaces, kinds, per_run, tc=False, design=None):
     """The kernels-line entries of a chain's two kernels: per launch the
-    mean over the runs, and each run beside it."""
+    mean over the runs, and each run beside it. With ``tc`` the bound is
+    the tensor cores' (:func:`bound_tc`) and the float32 FMA bound stands
+    beside it."""
     out = []
     mean = lambda vals: sum(vals) / len(vals)
+    bnd = bound_tc if tc else bound
     for kind, line in kinds:
         per = [r[kind] for r in per_run]
-        b_ms, b_by = bound(mean([p[3] for p in per]), mean([p[4] for p in per]))
+        work = (mean([p[3] for p in per]), mean([p[4] for p in per]))
+        b_ms, b_by = bnd(*work)
         out.append({
             "name": f"{name}_{kind}", "route": "cuda",
             "source": f"posterior_matching_torch/ops/csrc/{name}_{kind}.cu",
@@ -1419,10 +1470,14 @@ def chain_lines(name, replaces, kinds, per_run):
             "max_abs_err": max(p[0] for p in per),
             "ms": mean([p[1] for p in per]), "plain_ms": mean([p[2] for p in per]),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            **({"bound_f32_ms": bound(*work)[0], "design": design} if tc else {}),
             "per_run": [{"res": r["res"], "levels": r["levels"], "k": r["k"],
                          "ms": r[kind][1], "plain_ms": r[kind][2],
-                         "bound_ms": bound(r[kind][3], r[kind][4])[0],
-                         "gflop": r[kind][3] / 1e9, "mb": r[kind][4] / 1e6}
+                         "bound_ms": bnd(r[kind][3], r[kind][4])[0],
+                         "gflop": r[kind][3] / 1e9, "mb": r[kind][4] / 1e6,
+                         "tflops": r[kind][3] / (r[kind][1] * 1e-3) / 1e12,
+                         **({"kernels_per_level": r["launches_per_level"][kind]}
+                            if "launches_per_level" in r else {})}
                         for r in per_run],
         })
     return out

@@ -25,20 +25,28 @@
 // Bound: operations. Every forward product has a data and a weight
 // gradient (the masked Block's x-side data gradient excepted), about 2x
 // the forward's ~43 GFLOP at the res-28 run of a PM-VDVAE MNIST training
-// step (1.3 ms at 67 TFLOP/s), against ~0.6 GB of saves, cotangents and
-// gradients (0.2 ms at 3.35 TB/s).
+// step: 84.5 GFLOP, 0.51 ms as 3 TF32 products at the H100's 495 TFLOP/s
+// (NVIDIA's data sheet; the core's way), 1.26 ms as float32 FMAs at 67,
+// against ~0.5 GB of saves, cotangents and gradients (0.15 ms at 3.35
+// TB/s).
 //
-// Design. As block_chain_bwd.cu: the data-gradient phases are launches over
-// all rows, level by level (chain_gemm, gelu's derivative recomputed from
-// the saves in the epilogue, dacts and dmacts accumulated in place, the
-// top level's write starting them); every level's dh1..dh3, du and d stay
-// in scratch. z_bwd does the z step in one launch a level. The weight
-// gradients of all levels then run as one wgrad launch per stack (two for
-// the stacks whose rows or columns come from two sources), summed over
-// 1024-row splits in a fixed order, and the bias gradients as column sums:
-// no atomics, so equal inputs give equal gradients on every run.
-#include <initializer_list>
-
+// Design. The data-gradient phases run level by level, each a launch over
+// all rows on decoder_gemm.cuh's core (dgemm: 3xTF32 mma.sync, the
+// mirrored conv taps read from one staged slab with its halo, gelu's
+// derivative recomputed from the saves in the epilogue): the resnet
+// Block's dh3, dh2, dh1 and du, the z step (z_bwd), then p, m and q, which
+// are independent given du, as grouped launches of dh3, dh2 and dh1, and
+// one launch of dacts, dmacts (accumulated in place, the top level's write
+// starting them) and the next d: 9 launches a level (the previous design:
+// 17). Every level's dh1..dh3, du and d stay in scratch. The weight
+// gradients of all levels then run as three launches, one per kind of
+// stack: the eight c2/c3 stacks (wgrad_taps: a block's source chunk
+// gathered through gelu once for the nine taps, the cotangent rows staged
+// with their halo); the c1 stacks with p's and m's activation rows; the c4
+// stacks and wz (wgrad). Their row splits are added by one reduce_parts
+// launch, and every bias gradient is one bias_sums launch: fixed splits
+// and orders, no atomics, so equal inputs give equal gradients on every
+// run.
 #include "decoder_chain_common.cuh"
 
 namespace {
@@ -56,62 +64,23 @@ enum BwdPtr {
   PART = DHBASE + 12, BWD_NPTR
 };
 
-// dh3 = gelu'(h3) * (sum of the c4-cotangent terms `top`), then dh2 and
-// dh1 back through the mirrored taps of c3 and c2.
-template <int M>
-void block_back(const Geo& g, int k, const Term* top, int n_top, const float* const* h,
-                const float* const* w, float* const* dh, cudaStream_t s) {
-  GemmArgs a{};
-  a.g = g;
-  a.amode = A_IDENT;
-  a.epi = E_GELU_BWD;
-  for (int i = 0; i < n_top; ++i) a.t[a.nt++] = top[i];
-  a.z = h[2];
-  a.out = dh[2];
-  launch_gemm<M>(a, s);
-  for (int c = 1; c >= 0; --c) {  // c3 then c2
-    GemmArgs b{};
-    b.g = g;
-    b.amode = A_IDENT;
-    b.epi = E_GELU_BWD;
-    add_taps(b, k, -1, dh[c + 1], M, w[W2 + 2 * c], M, 1);
-    b.z = h[c];
-    b.out = dh[c];
-    launch_gemm<M>(b, s);
-  }
-}
-
-// out = gelu'(z) * (sum of the terms) + base (base may be null).
-template <int N>
-void gelu_bwd_gemm(const Geo& g, std::initializer_list<Term> terms, const float* z,
-                   const float* base, float* out, cudaStream_t s) {
-  GemmArgs e{};
-  e.g = g;
-  e.amode = A_IDENT;
-  e.epi = E_GELU_BWD;
-  for (const Term& t : terms) e.t[e.nt++] = t;
-  e.z = z;
-  e.base = base;
-  e.out = out;
-  launch_gemm<N>(e, s);
-}
-
-// The z step's VJP for a block of kThreads / LD rows, a thread per (row,
+// The z step's VJP for a block of kZThreads / LD rows, a thread per (row,
 // latent j): dz = du @ wz^T, dpost = gpost + [dz | dz eps sigmoid(raw)]
 // (softplus' = sigmoid), and z = loc + (softplus(raw) + 1e-5) eps for dwz.
 // du's rows and wz are staged in shared memory (rows padded by one float).
 template <int C, int LD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kZThreads)
     z_bwd(const float* __restrict__ du, const float* __restrict__ wz,
           const float* __restrict__ post, const float* __restrict__ eps,
           const float* __restrict__ gpost, float* __restrict__ dpost,
           float* __restrict__ z, int R) {
-  constexpr int RB = kThreads / LD, P = C + 1;
-  __shared__ float sw[LD * P];
-  __shared__ float sd[RB * P];
+  constexpr int RB = kZThreads / LD, P = C + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* sw = smem;           // [LD][P]
+  float* sd = smem + LD * P;  // [RB][P]
   const int tid = threadIdx.x, r0 = blockIdx.x * RB;
-  for (int i = tid; i < LD * C; i += kThreads) sw[(i / C) * P + i % C] = wz[i];
-  for (int i = tid; i < RB * C; i += kThreads) {
+  for (int i = tid; i < LD * C; i += kZThreads) sw[(i / C) * P + i % C] = wz[i];
+  for (int i = tid; i < RB * C; i += kZThreads) {
     const int r = r0 + i / C;
     sd[(i / C) * P + i % C] = r < R ? du[(size_t)r0 * C + i] : 0.f;
   }
@@ -127,13 +96,105 @@ __global__ void __launch_bounds__(kThreads)
   z[(size_t)r * LD + j] = post[o + j] + (softplus(raw) + 1e-5f) * e;
 }
 
+// The weight-gradient products of a run in three kinds of stack (0: the
+// c2/c3 stacks, 1: the c1 stacks, 2: the c4 stacks and wz) and its bias
+// gradients, from the entry point's pointers `p` (any non-null stand-ins
+// where only the sizes are wanted). Returns the floats of `part` the row
+// splits need.
+struct Grads {
+  WJob w[3][kMaxWJobs];
+  int nw[3], blocks[3];
+  BArgs bias;
+  // a 3x3 run's c2/c3 stacks go through wgrad_taps (every tap a block)
+  static bool taps(int kind, int k) { return kind == 0 && k == 3; }
+};
+
+template <int C, int M, int LD>
+size_t plan_grads(const Geo& g, int L, int k, float* const* p, Grads& gr) {
+  using D = Dims<C, M, LD>;
+  const size_t R = g.R, RC = R * C, RM = R * M, RP = R * 2 * LD;
+  const int taps = k * k;
+  auto wj = [&](int kind, const float* src0, const float* src, size_t lsrc, int gelu, int Kin,
+                int tp, const float* gs, size_t lg, int N, float* out, size_t lout, int ldo) {
+    WJob j{};
+    j.src0 = src0;
+    j.src = src;
+    j.lsrc = lsrc;
+    j.gelu = gelu;
+    j.Kin = Kin;
+    j.taps = tp;
+    j.gs = gs;
+    j.lg = lg;
+    j.ldg = (int)(lg / R);
+    j.N = N;
+    j.out = out;
+    j.lout = lout;
+    j.ldo = ldo;
+    gr.w[kind][gr.nw[kind]++] = j;
+  };
+  auto dw = [&](int i) { return p[GBASE + i]; };
+  auto st = [&](int i) { return D::stride(i, k); };
+  gr.nw[0] = gr.nw[1] = gr.nw[2] = 0;
+  for (int b = 0; b < 4; ++b) {
+    // dw2, dw3: the shifted gelu(h1), gelu(h2) against dh2, dh3
+    for (int c = 0; c < 2; ++c)
+      wj(0, nullptr, p[SBASE + 3 * b + c], RM, 1, M, taps, p[DHBASE + 3 * b + c + 1], RM, M,
+         dw(8 * b + W2 + 2 * c), st(8 * b + W2 + 2 * c), M);
+    // dw1: gelu(the Block's input)^T dh1: the state rows (the run's level
+    // inputs, or u for the resnet), then for p and m the activation rows
+    const float* dh1 = p[DHBASE + 3 * b];
+    if (b == BR)
+      wj(1, nullptr, p[U], RC, 1, C, 1, dh1, RM, M, dw(8 * b + W1), st(8 * b + W1), M);
+    else
+      wj(1, p[X0], p[XOUT], RC, 1, C, 1, dh1, RM, M, dw(8 * b + W1), st(8 * b + W1), M);
+    if (b == BP || b == BM)
+      wj(1, nullptr, p[b == BP ? ACTS : MACTS], 0, 1, C, 1, dh1, RM, M,
+         dw(8 * b + W1) + (size_t)C * M, st(8 * b + W1), M);
+  }
+  // dw4: gelu(h3)^T (c4 cotangent); the prior's head against gprior, its
+  // tail against du; dwz = z^T du
+  auto h3 = [&](int b) { return p[SBASE + 3 * b + 2]; };
+  wj(2, nullptr, h3(BP), RM, 1, M, 1, p[DPOST], RP, 2 * LD, dw(8 * BP + W4), st(8 * BP + W4),
+     2 * LD);
+  wj(2, nullptr, h3(BM), RM, 1, M, 1, p[GMASK], R * D::MW, D::MW, dw(8 * BM + W4),
+     st(8 * BM + W4), D::MW);
+  wj(2, nullptr, h3(BQ), RM, 1, M, 1, p[GPRIOR], RP, 2 * LD, dw(8 * BQ + W4), st(8 * BQ + W4),
+     D::QW);
+  wj(2, nullptr, h3(BQ), RM, 1, M, 1, p[DUS], RC, C, dw(8 * BQ + W4) + 2 * LD, st(8 * BQ + W4),
+     D::QW);
+  wj(2, nullptr, h3(BR), RM, 1, M, 1, p[DXS], RC, C, dw(8 * BR + W4), st(8 * BR + W4), C);
+  wj(2, nullptr, p[ZS], R * LD, 0, LD, 1, p[DUS], RC, C, dw(WZ), st(WZ), C);
+
+  size_t pofs = 0;
+  for (int kind = 0; kind < 3; ++kind)
+    gr.blocks[kind] = plan_wgrad<M>(g, L, gr.w[kind], gr.nw[kind], gr.taps(kind, k), &pofs);
+
+  // the biases: column sums of dh1..dh3, of the c4 cotangents and of du
+  BArgs& ba = gr.bias;
+  ba = BArgs{};
+  ba.L = L;
+  ba.R = g.R;
+  auto bj = [&](const float* gs, size_t lg, int N, float* out, size_t lout) {
+    ba.job[ba.nj++] = BJob{gs, out, lg, lout, (int)(lg / R), N};
+  };
+  for (int b = 0; b < 4; ++b)
+    for (int i = 0; i < 3; ++i) bj(p[DHBASE + 3 * b + i], RM, M, dw(8 * b + B1 + 2 * i), M);
+  bj(p[DPOST], RP, 2 * LD, dw(8 * BP + B4), 2 * LD);
+  bj(p[GMASK], R * D::MW, D::MW, dw(8 * BM + B4), D::MW);
+  bj(p[GPRIOR], RP, 2 * LD, dw(8 * BQ + B4), D::QW);
+  bj(p[DUS], RC, C, dw(8 * BQ + B4) + 2 * LD, D::QW);
+  bj(p[DXS], RC, C, dw(8 * BR + B4), C);
+  bj(p[DUS], RC, C, dw(BZ), C);
+  return pofs;
+}
+
 template <int C, int M, int LD>
 int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
   using D = Dims<C, M, LD>;
   auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
   const Geo g = make_geo(ints);
-  const int L = ints[I_L], k = ints[I_K];
+  const int L = ints[I_L], k = ints[I_K], taps = k * k;
   const size_t R = g.R, RC = R * C, RM = R * M, RP = R * 2 * LD, RZ = R * LD;
   float* dxs = out(DXS);
   float* dus = out(DUS);
@@ -160,83 +221,102 @@ int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
     float* du = dus + l * RC;
     float* dpost = out(DPOST) + l * RP;
     const bool first = l == L - 1;
+    // dh3 = gelu'(h3) (the c4 cotangent terms), then dh2 and dh1 back
+    // through the mirrored taps of c3 and c2, of the Blocks in `bs`
+    auto back = [&](const int* bs, int nb, DJob* top) {
+      for (int i = 0; i < nb; ++i) top[i].z = h[bs[i]][2];
+      launch_dgemm<M>(g, top, nb, s);
+      for (int c = 1; c >= 0; --c) {
+        DJob j[3];
+        for (int i = 0; i < nb; ++i) {
+          const int b = bs[i];
+          j[i] = job(M, E_GELU_BWD, dh[b][c], M,
+                     term(dh[b][c + 1], M, 0, w[b][W2 + 2 * c], M, 1, taps, -1));
+          j[i].z = h[b][c];
+        }
+        launch_dgemm<M>(g, j, nb, s);
+      }
+    };
 
     // resnet: its c4 cotangent is d, which the residual also hands to u
-    const Term tr[1] = {Term{d, w[BR][W4], C, 0, 0, C, 1}};
-    block_back<M>(g, k, tr, 1, h[BR], w[BR], dh[BR], s);
-    gelu_bwd_gemm<C>(g, {Term{dh[BR][0], w[BR][W1], M, 0, 0, M, 1}}, in(U) + l * RC, d, du, s);
+    const int br[1] = {BR};
+    DJob tr = job(M, E_GELU_BWD, dh[BR][2], M, term(d, C, 0, w[BR][W4], C, 1));
+    back(br, 1, &tr);
+    DJob ju = job(C, E_GELU_BWD, du, C, term(dh[BR][0], M, 0, w[BR][W1], M, 1));
+    ju.z = in(U) + l * RC;
+    ju.base = d;
+    launch_dgemm<M>(g, &ju, 1, s);
 
-    constexpr int RB = kThreads / LD;
-    z_bwd<C, LD><<<(g.R + RB - 1) / RB, kThreads, 0, s>>>(
-        du, in(WBASE + WZ) + l * D::stride(WZ, k), in(POST) + l * RP, in(EPS) + l * RZ,
-        in(GPOST) + l * RP, dpost, out(ZS) + l * RZ, g.R);
+    constexpr int RB = kZThreads / LD;
+    launch_kernel(z_bwd<C, LD>, dim3((g.R + RB - 1) / RB), kZThreads, (LD + RB) * (C + 1) * 4,
+                  s, du, in(WBASE + WZ) + l * D::stride(WZ, k), in(POST) + l * RP,
+                  in(EPS) + l * RZ, in(GPOST) + l * RP, dpost, out(ZS) + l * RZ, g.R);
 
-    const Term tp[1] = {Term{dpost, w[BP][W4], 2 * LD, 0, 0, 2 * LD, 1}};
-    block_back<M>(g, k, tp, 1, h[BP], w[BP], dh[BP], s);
-    gelu_bwd_gemm<C>(g, {Term{dh[BP][0], w[BP][W1] + (size_t)C * M, M, 0, 0, M, 1}},
-                     in(ACTS), first ? nullptr : out(DACTS), out(DACTS), s);
+    // p, m, q, independent given du and dpost
+    const int bpmq[3] = {BP, BM, BQ};
+    DJob top[3] = {
+        job(M, E_GELU_BWD, dh[BP][2], M, term(dpost, 2 * LD, 0, w[BP][W4], 2 * LD, 1)),
+        job(M, E_GELU_BWD, dh[BM][2], M,
+            term(in(GMASK) + l * R * D::MW, D::MW, 0, w[BM][W4], D::MW, 1)),
+        job(M, E_GELU_BWD, dh[BQ][2], M,
+            term(in(GPRIOR) + l * RP, 2 * LD, 0, w[BQ][W4], D::QW, 1))};
+    top[2].t[top[2].nt++] = term(du, C, 0, w[BQ][W4] + 2 * LD, D::QW, 1);
+    back(bpmq, 3, top);
 
-    const Term tm[1] = {Term{in(GMASK) + l * R * D::MW, w[BM][W4], D::MW, 0, 0, D::MW, 1}};
-    block_back<M>(g, k, tm, 1, h[BM], w[BM], dh[BM], s);
-    gelu_bwd_gemm<C>(g, {Term{dh[BM][0], w[BM][W1] + (size_t)C * M, M, 0, 0, M, 1}},
-                     in(MACTS), first ? nullptr : out(DMACTS), out(DMACTS), s);
-
-    const Term tq[2] = {Term{in(GPRIOR) + l * RP, w[BQ][W4], 2 * LD, 0, 0, D::QW, 1},
-                        Term{du, w[BQ][W4] + 2 * LD, C, 0, 0, D::QW, 1}};
-    block_back<M>(g, k, tq, 2, h[BQ], w[BQ], dh[BQ], s);
-
-    gelu_bwd_gemm<C>(g, {Term{dh[BP][0], w[BP][W1], M, 0, 0, M, 1},
-                         Term{dh[BQ][0], w[BQ][W1], M, 0, 0, M, 1}},
-                     x, du, l ? dxs + (l - 1) * RC : out(DX0), s);
+    // dacts, dmacts and the next d
+    DJob da[3] = {
+        job(C, E_GELU_BWD, out(DACTS), C,
+            term(dh[BP][0], M, 0, w[BP][W1] + (size_t)C * M, M, 1)),
+        job(C, E_GELU_BWD, out(DMACTS), C,
+            term(dh[BM][0], M, 0, w[BM][W1] + (size_t)C * M, M, 1)),
+        job(C, E_GELU_BWD, l ? dxs + (l - 1) * RC : out(DX0), C,
+            term(dh[BP][0], M, 0, w[BP][W1], M, 1))};
+    da[0].z = in(ACTS);
+    da[0].base = first ? nullptr : out(DACTS);
+    da[1].z = in(MACTS);
+    da[1].base = first ? nullptr : out(DMACTS);
+    da[2].t[da[2].nt++] = term(dh[BQ][0], M, 0, w[BQ][W1], M, 1);
+    da[2].z = x;
+    da[2].base = du;
+    launch_dgemm<M>(g, da, 3, s);
   }
 
-  // ---- weight gradients of all levels, one stack at a time --------------
-  float* part = out(PART);
-  auto gw = [&](int i) { return out(GBASE + i); };
-  auto wg = [&](const float* src0, const float* src, size_t lsrc, int gelu,
-                const float* gs, int Kin, int kk, int rows, int orow, int ldo, int ocol) {
-    WgArgs a{};
-    a.g = g;
-    a.src0 = src0; a.src = src; a.lsrc = lsrc; a.gelu = gelu; a.gs = gs;
-    a.Kin = Kin; a.k = kk; a.rows = rows; a.orow = orow; a.ldo = ldo; a.ocol = ocol;
-    return a;
-  };
-  const float* acts[4] = {in(ACTS), in(MACTS), nullptr, nullptr};
-  for (int b = 0; b < 4; ++b) {
-    const float* dhb[3] = {in(DHBASE + 3 * b), in(DHBASE + 3 * b + 1), in(DHBASE + 3 * b + 2)};
-    // dw1: gelu(the Block's input)^T dh1: the state rows (the run's level
-    // inputs, or u for the resnet), then for p and m the activation rows
-    const WgArgs w1 = b == BR ? wg(nullptr, in(U), RC, 1, dhb[0], C, 1, C, 0, 0, 0)
-                              : wg(in(X0), in(XOUT), RC, 1, dhb[0], C, 1, D::cin(b), 0, 0, 0);
-    weight_grad<M>(w1, gw(8 * b + W1), part, L, s);
-    if (acts[b])
-      weight_grad<M>(wg(nullptr, acts[b], 0, 1, dhb[0], C, 1, 2 * C, C, 0, 0),
-                     gw(8 * b + W1), part, L, s);
-    // dw2, dw3: shifted gelu(h1), gelu(h2) against dh2, dh3
-    for (int c = 0; c < 2; ++c)
-      weight_grad<M>(wg(nullptr, in(SBASE + 3 * b + c), RM, 1, dhb[c + 1], M, k, k * k * M, 0, 0, 0),
-                     gw(8 * b + W2 + 2 * c), part, L, s);
-    for (int i = 0; i < 3; ++i) launch_bias_grad(dhb[i], gw(8 * b + B1 + 2 * i), L, g.R, M, s);
+  // ---- weight gradients of all levels, three launches, then the splits'
+  // sums and the bias gradients, one launch each
+  float* p[BWD_NPTR];
+  for (int i = 0; i < BWD_NPTR; ++i) p[i] = out(i);
+  Grads gr;
+  plan_grads<C, M, LD>(g, L, k, p, gr);
+  RArgs ra{};
+  ra.L = L;
+  ra.part = out(PART);
+  size_t entries = 0;
+  for (int kind = 0; kind < 3; ++kind) {
+    launch_wgrad<M>(g, gr.w[kind], gr.nw[kind], gr.blocks[kind], Grads::taps(kind, k),
+                    out(PART), s);
+    for (int i = 0; i < gr.nw[kind]; ++i)
+      if (gr.w[kind][i].S > 1) {
+        const WJob& j = gr.w[kind][i];
+        ra.job[ra.nj++] = j;
+        entries += (size_t)L * j.taps * j.Kin * j.N;
+      }
   }
-  // dw4: gelu(h3)^T (c4 cotangent), db4 its column sums
-  auto h3 = [&](int b) { return in(SBASE + 3 * b + 2); };
-  weight_grad<2 * LD>(wg(nullptr, h3(BP), RM, 1, out(DPOST), M, 1, M, 0, 0, 0), gw(8 * BP + W4), part, L, s);
-  launch_bias_grad(out(DPOST), gw(8 * BP + B4), L, g.R, 2 * LD, s);
-  weight_grad<D::MW>(wg(nullptr, h3(BM), RM, 1, in(GMASK), M, 1, M, 0, 0, 0), gw(8 * BM + W4), part, L, s);
-  launch_bias_grad(in(GMASK), gw(8 * BM + B4), L, g.R, D::MW, s);
-  // the prior's c4: the head's columns against gprior, the tail's against du
-  weight_grad<2 * LD>(wg(nullptr, h3(BQ), RM, 1, in(GPRIOR), M, 1, M, 0, D::QW, 0),
-                      gw(8 * BQ + W4), part, L, s);
-  weight_grad<C>(wg(nullptr, h3(BQ), RM, 1, dus, M, 1, M, 0, D::QW, 2 * LD),
-                 gw(8 * BQ + W4), part, L, s);
-  launch_bias_grad(in(GPRIOR), gw(8 * BQ + B4), L, g.R, 2 * LD, s, D::QW);
-  launch_bias_grad(dus, gw(8 * BQ + B4) + 2 * LD, L, g.R, C, s, D::QW);
-  weight_grad<C>(wg(nullptr, h3(BR), RM, 1, dxs, M, 1, M, 0, 0, 0), gw(8 * BR + W4), part, L, s);
-  launch_bias_grad(dxs, gw(8 * BR + B4), L, g.R, C, s);
-  // dwz = z^T du, dbz = column sums of du
-  weight_grad<C>(wg(nullptr, in(ZS), RZ, 0, dus, LD, 1, LD, 0, 0, 0), gw(WZ), part, L, s);
-  launch_bias_grad(dus, gw(BZ), L, g.R, C, s);
+  if (entries)
+    launch_kernel(reduce_parts, dim3((unsigned)((entries + 255) / 256)), 256, 0, s, ra);
+  int bias_blocks = 0;
+  for (int i = 0; i < gr.bias.nj; ++i) bias_blocks += L * ((gr.bias.job[i].N + 31) / 32);
+  launch_kernel(bias_sums, dim3(bias_blocks), kBiasThreads, kBiasThreads * 4, s, gr.bias);
   return (int)cudaGetLastError();
+}
+
+template <int C, int M, int LD>
+long long part_floats(const int* ints) {
+  // sizes only: every pointer a stand-in
+  static float stand_in[4];
+  float* p[BWD_NPTR];
+  for (int i = 0; i < BWD_NPTR; ++i) p[i] = stand_in;
+  Grads gr;
+  return (long long)plan_grads<C, M, LD>(make_geo(ints), ints[I_L], ints[I_K], p, gr);
 }
 
 }  // namespace
@@ -255,13 +335,12 @@ extern "C" int pm_decoder_chain_bwd(const void* const* ptrs, int nptrs,
 }
 
 // Floats of the `part` scratch pm_decoder_chain_bwd needs for a geometry:
-// the widest weight stack's partial sums per row split; -1 for a geometry
-// it refuses.
+// the row splits' partial sums of every weight gradient that has more than
+// one split; -1 for a geometry it refuses.
 extern "C" long long pm_decoder_chain_bwd_part_floats(const int* ints, int nints) {
   if (nints != I_DCOUNT || !dec_geometry_ok(ints)) return -1;
-  const long long c = ints[I_C], m = ints[I_M], kk = ints[I_K] * ints[I_K];
-  const long long ld = ints[I_LD], mw = ld + ld * (ld + 1) / 2;
-  long long widest = c * m;
-  for (long long v : {kk * m * m, m * mw, m * c, ld * c}) widest = v > widest ? v : widest;
-  return ints[I_L] * n_splits(make_geo(ints)) * widest;
+  const int c = ints[I_C], m = ints[I_M], ld = ints[I_LD];
+  if (c == 192 && m == 48 && ld == 16) return part_floats<192, 48, 16>(ints);
+  if (c == 64 && m == 16 && ld == 8) return part_floats<64, 16, 8>(ints);
+  return -1;
 }

@@ -1,8 +1,7 @@
 // Shared pieces of the VDVAE decoder-chain kernels (decoder_chain_fwd.cu,
 // decoder_chain_bwd.cu): the geometry and pointer layout of their C entry
 // points, the per-level strides of the 34 weight stacks, and the softplus
-// of the z sample. The products themselves are block_chain_common.cuh's
-// chain_gemm and wgrad.
+// of the z sample. The products themselves run on decoder_gemm.cuh's core.
 //
 // A level of a run has four bottleneck Blocks, in the order of
 // ops/decoder_chain.py::NAMES: p (posterior, on [x, acts], 2 LD outputs),
@@ -12,13 +11,12 @@
 // encoder-activation width equals the state width C.
 #pragma once
 
-#define PM_CHAIN_NS dck
-#include "block_chain_common.cuh"
+#include "decoder_gemm.cuh"
 
 namespace dck {
 
-// Integer arguments: block_chain's (L, B, H, W, C, M, K), then the latent
-// width, in the order of ops/decoder_chain.py::_GEOMETRY.
+// Integer arguments: (L, B, H, W, C, M, K), then the latent width, in the
+// order of ops/decoder_chain.py::_GEOMETRY.
 enum DecInt { I_LD = I_COUNT, I_DCOUNT };
 
 inline bool dec_geometry_ok(const int* ints) {
@@ -30,6 +28,7 @@ enum Blk { BP = 0, BM = 1, BQ = 2, BR = 3 };
 enum Wi { W1 = 0, B1, W2, B2, W3, B3, W4, B4 };
 constexpr int kWeights = 34;  // 4 Blocks x 8, then wz and bz
 constexpr int WZ = 32, BZ = 33;
+constexpr int kZThreads = 256;  // threads of the z step's kernels
 
 // (width, bottleneck, latent) triples the kernels are built for: PM-VDVAE
 // MNIST (configs/pm_vdvae_mnist.py: 192, 0.25, 16) and digits16
@@ -79,4 +78,26 @@ __device__ __forceinline__ float softplus(float x) {
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
+// A 1x1 or k x k term of a Block's product (see DTerm).
+inline DTerm term(const float* src, int K, int gelu, const float* w, int ld, int trans,
+                  int taps = 1, int sign = 1) {
+  return DTerm{src, w, K, taps, sign, gelu, ld, trans};
+}
+
+// A product of N columns into out (rows of ldo floats), its terms added.
+inline DJob job(int N, int epi, float* out, int ldo, DTerm t0) {
+  DJob j{};
+  j.t[0] = t0;
+  j.nt = 1;
+  j.N = N;
+  j.epi = epi;
+  j.out = out;
+  j.ldo = ldo;
+  return j;
+}
+
 }  // namespace dck
+
+extern "C" const char* pm_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

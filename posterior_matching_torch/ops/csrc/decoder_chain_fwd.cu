@@ -20,18 +20,20 @@
 // M), c4 of all four (M x (2 LD + LD + TRIL + 2 LD + C + C)) at every row,
 // and 4 x 2 k x k convolutions (M x M) at each row's in-image taps: at the
 // res-28 run of a PM-VDVAE MNIST training step (16 x 28 x 28 rows, L = 7,
-// C = 192, M = 48, LD = 16) about 43 GFLOP, 0.64 ms at 67 TFLOP/s, against
-// ~0.4 GB of inputs, outputs and saves (0.12 ms at 3.35 TB/s).
+// C = 192, M = 48, LD = 16) about 43 GFLOP: 0.26 ms as 3 TF32 products at
+// the H100's 495 TFLOP/s (NVIDIA's data sheet; the core's way), 0.64 ms as
+// float32 FMAs at 67, against ~0.4 GB of inputs, outputs and saves (0.12 ms
+// at 3.35 TB/s).
 //
-// Design. The Pallas kernel walks (chunk, level) in order with the state
-// in VMEM. On Hopper each dependent phase is a launch over all rows of the
-// run, as in block_chain_fwd.cu: chain_gemm (block_chain_common.cuh) with
-// the conv taps and gelu fused into the A operand's load, [x, acts] as two
-// terms (no concatenated tensor), and the bias or bias-plus-residual in the
-// epilogue. The prior's c4 is two products over column ranges of w4 (the
-// head into prior, the tail plus x into u); z_into_state adds the z
-// projection to u in place. 18 launches a level. Float32 FMAs without
-// tensor cores: fast kernels are later work.
+// Design. The Pallas kernel walks (chunk, level) in order with the state in
+// VMEM. On Hopper each dependent phase is a launch over all rows of the run
+// on decoder_gemm.cuh's tensor-core core (dgemm: 3xTF32 mma.sync, conv
+// operands staged once with their halo, B through a cp.async ring), and the
+// p, m and q Blocks, independent given x, share each launch: c1, c2, c3,
+// then c4 with the posterior's and masked posterior's heads, the prior's
+// head and its tail plus x into u (column tiles of 48). z_into_state adds
+// the z projection to u; the resnet Block r's four phases follow. 9
+// launches a level (the previous design: 18).
 #include "decoder_chain_common.cuh"
 
 namespace {
@@ -46,76 +48,35 @@ enum FwdPtr {
   FWD_NPTR = SBASE + 12
 };
 
-// c1..c3 of a Block: h1 = gelu(x) @ w1[:C] (+ gelu(a) @ w1[C:]) + b1, then
-// the two k x k convolutions through gelu.
-template <int C, int M>
-void block_front(const Geo& g, int k, const float* x, const float* a,
-                 const float* const* w, float* const* h, cudaStream_t s) {
-  GemmArgs p{};
-  p.g = g;
-  p.amode = A_GELU;
-  p.epi = E_BIAS;
-  p.t[p.nt++] = Term{x, w[W1], C, 0, 0, M, 0};
-  if (a) p.t[p.nt++] = Term{a, w[W1] + (size_t)C * M, C, 0, 0, M, 0};
-  p.bias = w[B1];
-  p.out = h[0];
-  launch_gemm<M>(p, s);
-  for (int c = 0; c < 2; ++c) {
-    GemmArgs q{};
-    q.g = g;
-    q.amode = A_GELU;
-    q.epi = E_BIAS;
-    add_taps(q, k, 1, h[c], M, w[W2 + 2 * c], M, 0);
-    q.bias = w[B2 + 2 * c];
-    q.out = h[c + 1];
-    launch_gemm<M>(q, s);
-  }
-}
-
-// c4 over N columns of w4 (rows ld wide, starting at w4 and b4): out =
-// gelu(h3) @ w4 + b4, plus res when given.
-template <int N, int M>
-void block_c4(const Geo& g, const float* h3, const float* w4, const float* b4,
-              int ld, const float* res, float* out, cudaStream_t s) {
-  GemmArgs p{};
-  p.g = g;
-  p.amode = A_GELU;
-  p.epi = res ? E_BIAS_RES : E_BIAS;
-  p.t[p.nt++] = Term{h3, w4, M, 0, 0, ld, 0};
-  p.bias = b4;
-  p.res = res;
-  p.out = out;
-  launch_gemm<N>(p, s);
-}
-
 // u[r][c] += bz[c] + sum_j z[r][j] wz[j][c], with z = loc + (softplus(raw)
 // + 1e-5) eps from the level's posterior outputs [loc | raw] and noise.
 // A block: kZRows rows, their z staged in shared memory.
 constexpr int kZRows = 8;
 
 template <int C, int LD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kZThreads)
     z_into_state(const float* __restrict__ post, const float* __restrict__ eps,
                  const float* __restrict__ wz, const float* __restrict__ bz,
                  float* __restrict__ u, int R) {
-  __shared__ float sz[kZRows][LD];
+  extern __shared__ __align__(16) float smem[];
+  float* sz = smem;  // [kZRows][LD]
   const int r0 = blockIdx.x * kZRows;
-  for (int i = threadIdx.x; i < kZRows * LD; i += kThreads) {
+  for (int i = threadIdx.x; i < kZRows * LD; i += kZThreads) {
     const int r = r0 + i / LD, j = i % LD;
     float z = 0.f;
     if (r < R) {
       const size_t o = (size_t)r * 2 * LD;
       z = post[o + j] + (softplus(post[o + LD + j]) + 1e-5f) * eps[(size_t)r * LD + j];
     }
-    sz[i / LD][j] = z;
+    sz[i] = z;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kZRows * C; i += kThreads) {
+  for (int i = threadIdx.x; i < kZRows * C; i += kZThreads) {
     const int rr = i / C, c = i % C, r = r0 + rr;
     if (r >= R) break;
     float acc = bz[c];
 #pragma unroll
-    for (int j = 0; j < LD; ++j) acc = fmaf(sz[rr][j], wz[j * C + c], acc);
+    for (int j = 0; j < LD; ++j) acc = fmaf(sz[rr * LD + j], wz[j * C + c], acc);
     u[(size_t)r * C + c] += acc;
   }
 }
@@ -126,7 +87,7 @@ int run_fwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
   auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
   const Geo g = make_geo(ints);
-  const int L = ints[I_L], k = ints[I_K];
+  const int L = ints[I_L], k = ints[I_K], taps = k * k;
   const size_t R = g.R, RC = R * C, RM = R * M;
 
   for (int l = 0; l < L; ++l) {
@@ -142,24 +103,58 @@ int run_fwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
     float* post = out(POST) + l * R * 2 * LD;
     float* u = out(U) + l * RC;
 
-    block_front<C, M>(g, k, x, in(ACTS), w[BP], h[BP], s);
-    block_c4<2 * LD, M>(g, h[BP][2], w[BP][W4], w[BP][B4], 2 * LD, nullptr, post, s);
+    // c1 of p, m, q: h1 = gelu(x) @ w1[:C] (+ gelu(a) @ w1[C:]) + b1; the
+    // masked posterior reads x too (its backward never returns to x)
+    const float* acts[3] = {in(ACTS), in(MACTS), nullptr};
+    DJob c1[3];
+    for (int b = BP; b <= BQ; ++b) {
+      c1[b] = job(M, E_BIAS, h[b][0], M, term(x, C, 1, w[b][W1], M, 0));
+      if (acts[b]) c1[b].t[c1[b].nt++] = term(acts[b], C, 1, w[b][W1] + (size_t)C * M, M, 0);
+      c1[b].bias = w[b][B1];
+    }
+    launch_dgemm<M>(g, c1, 3, s);
+    // c2, c3 of p, m, q: k x k convolutions through gelu
+    for (int c = 0; c < 2; ++c) {
+      DJob cv[3];
+      for (int b = BP; b <= BQ; ++b) {
+        cv[b] = job(M, E_BIAS, h[b][c + 1], M, term(h[b][c], M, 1, w[b][W2 + 2 * c], M, 0, taps));
+        cv[b].bias = w[b][B2 + 2 * c];
+      }
+      launch_dgemm<M>(g, cv, 3, s);
+    }
+    // c4: the heads of p, m and q, and q's tail plus x into u
+    DJob c4[4] = {
+        job(2 * LD, E_BIAS, post, 2 * LD, term(h[BP][2], M, 1, w[BP][W4], 2 * LD, 0)),
+        job(D::MW, E_BIAS, out(MASKED) + l * R * D::MW, D::MW,
+            term(h[BM][2], M, 1, w[BM][W4], D::MW, 0)),
+        job(2 * LD, E_BIAS, out(PRIOR) + l * R * 2 * LD, 2 * LD,
+            term(h[BQ][2], M, 1, w[BQ][W4], D::QW, 0)),
+        job(C, E_BIAS_RES, u, C, term(h[BQ][2], M, 1, w[BQ][W4] + 2 * LD, D::QW, 0))};
+    c4[0].bias = w[BP][B4];
+    c4[1].bias = w[BM][B4];
+    c4[2].bias = w[BQ][B4];
+    c4[3].bias = w[BQ][B4] + 2 * LD;
+    c4[3].res = x;
+    launch_dgemm<M>(g, c4, 4, s);
+    launch_kernel(z_into_state<C, LD>, dim3((g.R + kZRows - 1) / kZRows), kZThreads,
+                  kZRows * LD * 4, s, post, in(EPS) + l * R * LD,
+                  in(WBASE + WZ) + l * D::stride(WZ, k), in(WBASE + BZ) + l * D::stride(BZ, k),
+                  u, g.R);
 
-    // the masked posterior reads x too; its backward never returns to x
-    block_front<C, M>(g, k, x, in(MACTS), w[BM], h[BM], s);
-    block_c4<D::MW, M>(g, h[BM][2], w[BM][W4], w[BM][B4], D::MW, nullptr,
-                       out(MASKED) + l * R * D::MW, s);
-
-    block_front<C, M>(g, k, x, nullptr, w[BQ], h[BQ], s);
-    block_c4<2 * LD, M>(g, h[BQ][2], w[BQ][W4], w[BQ][B4], D::QW, nullptr,
-                        out(PRIOR) + l * R * 2 * LD, s);
-    block_c4<C, M>(g, h[BQ][2], w[BQ][W4] + 2 * LD, w[BQ][B4] + 2 * LD, D::QW, x, u, s);
-    z_into_state<C, LD><<<(g.R + kZRows - 1) / kZRows, kThreads, 0, s>>>(
-        post, in(EPS) + l * R * LD, in(WBASE + WZ) + l * D::stride(WZ, k),
-        in(WBASE + BZ) + l * D::stride(BZ, k), u, g.R);
-
-    block_front<C, M>(g, k, u, nullptr, w[BR], h[BR], s);
-    block_c4<C, M>(g, h[BR][2], w[BR][W4], w[BR][B4], C, u, out(XOUT) + l * RC, s);
+    // the resnet Block on u; its c4 adds u
+    DJob r1 = job(M, E_BIAS, h[BR][0], M, term(u, C, 1, w[BR][W1], M, 0));
+    r1.bias = w[BR][B1];
+    launch_dgemm<M>(g, &r1, 1, s);
+    for (int c = 0; c < 2; ++c) {
+      DJob rc = job(M, E_BIAS, h[BR][c + 1], M,
+                    term(h[BR][c], M, 1, w[BR][W2 + 2 * c], M, 0, taps));
+      rc.bias = w[BR][B2 + 2 * c];
+      launch_dgemm<M>(g, &rc, 1, s);
+    }
+    DJob r4 = job(C, E_BIAS_RES, out(XOUT) + l * RC, C, term(h[BR][2], M, 1, w[BR][W4], C, 0));
+    r4.bias = w[BR][B4];
+    r4.res = u;
+    launch_dgemm<M>(g, &r4, 1, s);
   }
   return (int)cudaGetLastError();
 }

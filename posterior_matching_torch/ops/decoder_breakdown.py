@@ -1,0 +1,313 @@
+"""Where the VDVAE decoder-chain kernels' time goes, on one CUDA device.
+
+Builds the decoder chain's two libraries (``csrc/decoder_chain_fwd.cu`` and
+``decoder_chain_bwd.cu`` with their headers) as they are and in variants
+that each take one part of the work away (by substitution in the sources),
+times every build in turns with CUDA events through the wrappers of
+``ops/decoder_chain.py`` at the five decoder runs of a PM-VDVAE MNIST
+training batch (16 images; res 1, 3, 7, 14, 28 with 2, 3, 3, 5, 7 levels;
+width 192, mid 48, latent 16; weights at 1 / sqrt(fan-in) from a seed), and
+prints one line per (kind, run, build):
+
+- ``kernel``: the sources as they are;
+- ``one_pass``: one TF32 product per float32 product (big-big) instead of
+  the 3xTF32 split's three;
+- ``skeleton``: no MMAs (the operand gathers, the B ring, the barriers and
+  the epilogues remain);
+- ``no_a_loads``: the A gathers read no global memory (zeros go through
+  gelu, the split and the stores);
+- ``no_b_copies``: B's rings copy nothing (the MMAs read stale stages);
+- ``no_sync``: no block barrier a chunk (the warps race through the rings);
+- ``no_gelu``: the operands' gelu skipped (the products see the raw
+  sources);
+- ``tm64``, ``tm16``: every data product on row tiles of 64 (16) rows,
+  whatever the run (both compute the right values);
+- ``bwd_data``: the backward's data-gradient part alone (no weight or bias
+  gradients);
+- ``bwd_wgrad``: the backward's weight- and bias-gradient part alone (no
+  level loop: it reads whatever the scratch holds).
+
+Only ``kernel`` computes the right values. ``--other NAME=DIR`` also times
+the decoder sources in DIR (another version of ``ops/csrc``, e.g. a parent
+commit's) as NAME in the same turns; ``--only`` restricts the variants
+(``--only kernel`` times the sources as they are and the others, whatever
+their design). Each build that is timed whole (``kernel`` and the others)
+is also profiled once per run: device ms by part (data products, weight
+gradients, bias sums and reductions, z steps, copies), CUDA kernel launches
+a level, each kernel's device ms in launch order (``times.json``), and the
+TFLOP/s of float32 work (the run's operations as ``chip_smoke.py`` counts
+them over the timed ms).
+
+Usage: ``python3 -m posterior_matching_torch.ops.decoder_breakdown [--other
+parent=DIR] [--only kernel,one_pass] [--reps 5] [--out DIR]`` (sources,
+libraries and ``times.json`` go to ``--out``, by default
+``ops/_build/decoder_breakdown``).
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+from posterior_matching_torch.ops import _build, decoder_chain as dc
+
+CORE, FWD, BWD = "decoder_gemm.cuh", "decoder_chain_fwd.cu", "decoder_chain_bwd.cu"
+# the decoder's sources; a version may lack some (an older design has no
+# core header and includes block_chain_common.cuh)
+FILES = (CORE, "block_chain_common.cuh", "decoder_chain_common.cuh", FWD, BWD)
+LIBS = ("decoder_chain_fwd", "decoder_chain_bwd")
+_MMAS = ("mma_tf32(part[u], as, bb[u]);", "mma_tf32(part[u], ab, bs[u]);",
+         "mma_tf32(part[u], ab, bb[u]);")
+# Each variant's substitutions: (file, old, new[, n]); each old string
+# occurs exactly n times (default once) in its file. The MMAs and the gelu
+# of a weight gradient's source occur in wgrad and in wgrad_taps.
+_PARTS = {
+    "one_pass": [(CORE, m, ";", 2) for m in _MMAS[:2]],
+    "skeleton": [(CORE, m, ";", 2) for m in _MMAS],
+    "no_a_loads": [(CORE, "if (ok && v < lim) x = ldg4(", "if (false) x = ldg4("),
+                   (CORE, "if (ok) a = __ldg(", "if (false) a = __ldg("),
+                   (CORE, "va[v] = ok ? __ldg(", "va[v] = false ? __ldg(")],
+    "no_b_copies": [(CORE, 'asm volatile("cp.async.cg.shared.global',
+                     'if (false) asm volatile("cp.async.cg.shared.global')],
+    "no_sync": [(CORE, "__syncthreads();  // chunk c's B stage and slab", "// chunk c's B stage"),
+                (CORE, "__syncthreads();  // chunk c's B stage and A", "// chunk c's B stage"),
+                (CORE, "__syncthreads();  // chunk c's cotangent stage", "// chunk c's stage")],
+    "no_gelu": [(CORE, "if (t.gelu)", "if (false)"), (CORE, "if (J.gelu)", "if (false)", 2)],
+    "tm64": [(CORE, "if (tiles64 * nj >= kWaveBlocks)", "if (true)")],
+    "tm16": [(CORE, "if (tiles64 * nj >= kWaveBlocks)", "if (false)"),
+             (CORE, "else if (tiles32 * nj >= kWaveBlocks)", "else if (false)")],
+    "bwd_data": [(BWD, "  // ---- weight gradients", "  return (int)cudaGetLastError();\n  //")],
+    "bwd_wgrad": [(BWD, "  for (int l = L - 1; l >= 0; --l) {",
+                   "  for (int l = -1; l >= 0; --l) {")],
+}
+VARIANTS = ("kernel", *_PARTS)
+# The PM-VDVAE MNIST decoder's fused runs at batch 16: (res, levels, k).
+RUNS = ((1, 2, 1), (3, 3, 3), (7, 3, 3), (14, 5, 3), (28, 7, 3))
+BATCH, WIDTH, MID, LD = 16, 192, 48, 16
+# device-time parts of a run, by kernel name (either design's)
+PARTS = (("data products", ("chain_gemm", "dgemm")),
+         ("weight gradients", ("wgrad",)),
+         ("bias sums and reductions", ("bias_grad", "reduce_splits", "bias_sums",
+                                       "reduce_parts")),
+         ("z steps", ("z_into_state", "z_bwd")),
+         ("copies", ("emcpy",)))
+
+
+def variants(texts: Dict[str, str], names=VARIANTS) -> Dict[str, Dict[str, str]]:
+    """The sources (by file name) as they are and with parts taken away,
+    for each of ``names``."""
+    out = {}
+    for name in names:
+        new = dict(texts)
+        for f, old, rep, *n in _PARTS.get(name, ()):
+            if new[f].count(old) != (n[0] if n else 1):
+                raise ValueError(f"{f} no longer has {n[0] if n else 1} of {old!r} ({name})")
+            new[f] = new[f].replace(old, rep)
+        out[name] = new
+    return out
+
+
+def dec_chain_flops(b, h, w, c, mid, ld, k, n_lvl):
+    """Forward operations of a decoder run (2 a multiply-add): at every row
+    c1 of the four Blocks (inputs 2c, 2c, c, c), their c4 (outputs 2 ld,
+    ld + tril, 2 ld + c, c) and the z projection; c2 and c3 of the four at
+    the taps that land inside the image only."""
+    pad = k // 2
+    taps = sum(max(h - abs(dy), 0) * max(w - abs(dx), 0)
+               for dy in range(-pad, pad + 1) for dx in range(-pad, pad + 1))
+    rows, mw = b * h * w, ld + ld * (ld + 1) // 2
+    per_level = (2 * rows * mid * 6 * c + 4 * 2 * 2 * b * taps * mid * mid
+                 + 2 * rows * mid * (2 * ld + mw + 2 * ld + c + c) + 2 * rows * ld * c)
+    return float(n_lvl * per_level)
+
+
+def bwd_flops(flops, rows, c, mid, n_lvl):
+    """The backward's operations: each forward product twice (data and
+    weight gradients) but the masked Block's data gradient on the state."""
+    return 2 * flops - 2.0 * n_lvl * rows * c * mid
+
+
+def _cases(dev):
+    """Per run: the forward and the backward call (functions of nothing),
+    its levels and its operations."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    cases = {}
+    for res, n_lvl, k in RUNS:
+        rows = BATCH * res * res
+        shape = (BATCH, res, res, WIDTH)
+        x0, acts, macts = (rnd(*shape) for _ in range(3))
+        cfg = dc.DecConfig(x0, acts, n_lvl, MID, LD, k)
+        ins = {"x0": x0.reshape(rows, WIDTH), "acts": acts.reshape(rows, WIDTH),
+               "macts": macts.reshape(rows, WIDTH), "eps": rnd(n_lvl, rows, LD)}
+        ins.update({n: rnd(n_lvl, *s, scale=s[0] ** -0.5)
+                    for n, s in dc.weight_shapes(WIDTH, WIDTH, MID, LD, k)})
+        shapes = cfg.shapes()
+        cots = {"g": rnd(*shapes["x0"]), "gpost": rnd(*shapes["post"]),
+                "gprior": rnd(*shapes["prior"]), "gmask": rnd(*shapes["masked"])}
+        w = {n: ins[n] for n in dc.NAMES}
+        holder = {}
+
+        def fwd(cfg=cfg, ins=ins, holder=holder):
+            holder["out"] = dc.dec_fwd(cfg, ins)
+
+        def bwd(cfg=cfg, ins=ins, holder=holder, cots=cots, w=w):
+            saved = {n: {**ins, **holder["out"]}[n] for n in dc._SAVED}
+            dc.dec_bwd(cfg, cots, saved, w)
+
+        flops = dec_chain_flops(BATCH, res, res, WIDTH, MID, LD, k, n_lvl)
+        cases[f"fwd res {res}"] = (fwd, n_lvl, flops)
+        cases[f"bwd res {res}"] = (bwd, n_lvl, bwd_flops(flops, rows, WIDTH, MID, n_lvl))
+    return cases
+
+
+def profile_parts(fn) -> Dict[str, float]:
+    """``fn()`` under ``torch.profiler``: device ms by part, and the CUDA
+    kernel launches (``launches``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {part: 0.0 for part, _ in PARTS}
+    out["other"], out["launches"] = 0.0, 0
+    for e in kernels:
+        part = next((p for p, marks in PARTS if any(m in e.name for m in marks)), "other")
+        out[part] += e.time_range.elapsed_us() / 1e3
+        out["launches"] += "emcpy" not in e.name
+    out["sequence"] = [(e.name[:60], e.time_range.elapsed_us() / 1e3)
+                       for e in sorted(kernels, key=lambda e: e.time_range.start)]
+    return out
+
+
+def _sources(names: List[str], others: Dict[str, Path], out: Path) -> Dict[str, Path]:
+    """A directory of sources per build: the variants written under
+    ``out``, the others as given."""
+    texts = {f: (_build.CSRC / f).read_text() for f in FILES if (_build.CSRC / f).exists()}
+    dirs = {}
+    for name, new in variants(texts, names).items():
+        d = out / "src" / name
+        d.mkdir(parents=True, exist_ok=True)
+        for f, text in new.items():
+            (d / f).write_text(text)
+        dirs[name] = d
+    for name, path in others.items():
+        if not all((path / f).exists() for f in (FWD, BWD)):
+            raise FileNotFoundError(f"{path} lacks {FWD} or {BWD}")
+        dirs[name] = path
+    return dirs
+
+
+def _build_all(dirs: Dict[str, Path], out: Path):
+    """Compiles both libraries of every source directory, all at once."""
+    procs = {}
+    for name, src in dirs.items():
+        for lib in LIBS:
+            so = out / "lib" / f"lib{lib}-{name}.so"
+            so.parent.mkdir(parents=True, exist_ok=True)
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-o", str(so),
+                   str(src / _build.SOURCES[lib])]
+            procs[name, lib] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True), so)
+    libs: Dict[str, Dict[str, ctypes.CDLL]] = {n: {} for n in dirs}
+    for (name, lib), (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{lib} ({name}) failed to build:\n{log}")
+        libs[name][lib] = ctypes.CDLL(str(so))
+    return libs
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--other", action="append", default=[], metavar="NAME=DIR")
+    parser.add_argument("--only", default=",".join(VARIANTS))
+    parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--out", default=str(_build.BUILD_DIR / "decoder_breakdown"))
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("decoder_breakdown: no CUDA device is available", file=sys.stderr)
+        return 2
+    names = [n for n in args.only.split(",") if n]
+    unknown = set(names) - set(VARIANTS)
+    if unknown:
+        parser.error(f"unknown variants {sorted(unknown)}")
+    out = Path(args.out).resolve()
+    out.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
+
+    others = {}
+    for spec in args.other:
+        name, _, path = spec.partition("=")
+        others[name] = Path(path).resolve()
+    dirs = _sources(names, others, out)
+    libs = _build_all(dirs, out)
+    first = next(iter(libs))
+
+    dev = torch.device("cuda")
+    for lib in LIBS:
+        _build._loaded[lib] = libs[first][lib]
+    cases = _cases(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = {case: {name: [] for name in libs} for case in cases}
+    with torch.no_grad():
+        # every build's forward first: the backwards read its saves
+        for name in [*libs, *reversed(list(libs))]:
+            for lib in LIBS:
+                _build._loaded[lib] = libs[name][lib]
+            for case, (fn, _, _) in cases.items():
+                fn()
+                start.record()
+                for _ in range(args.reps):
+                    fn()
+                end.record()
+                torch.cuda.synchronize()
+                times[case][name].append(start.elapsed_time(end) / args.reps)
+        whole = [n for n in libs if n == "kernel" or n in others]
+        parts = {case: {} for case in cases}
+        for name in whole:
+            for lib in LIBS:
+                _build._loaded[lib] = libs[name][lib]
+            for case, (fn, _, _) in cases.items():
+                parts[case][name] = profile_parts(fn)
+    for case, per in times.items():
+        _, n_lvl, flops = cases[case]
+        for name, ms in per.items():
+            mean = sum(ms) / len(ms)
+            line = (f"{case:11s} {name:11s} {' '.join(f'{t:.4f}' for t in ms)} ms/launch, "
+                    f"{flops / (mean * 1e-3) / 1e12:.2f} TFLOP/s of float32 work")
+            p = parts[case].get(name)
+            if p:
+                line += (f"; {p['launches'] / n_lvl:.1f} launches a level; device ms: " +
+                         ", ".join(f"{part} {p[part]:.4f}" for part, _ in PARTS)
+                         + f", other {p['other']:.4f}; the first level's launches (ms): "
+                         + " ".join(f"{ms:.4f}" for _, ms in
+                                    p["sequence"][:round(p["launches"] / n_lvl)]))
+            print(line, flush=True)
+    for name in libs:
+        for kind in ("fwd", "bwd"):
+            mean = [sum(v[name]) / len(v[name]) for c, v in times.items() if c.startswith(kind)]
+            print(f"{name:11s} {kind} mean over the five runs: {sum(mean) / len(mean):.4f} "
+                  f"ms/launch", flush=True)
+    (out / "times.json").write_text(json.dumps(
+        {"device": smi, "ms": times, "parts": parts, "reps": args.reps}, indent=1))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,7 +22,8 @@ package's kernel-native layout (:func:`weight_shapes`, ``:104-129``).
 On the GPU a run is two hand-written kernels, ``csrc/decoder_chain_fwd.cu``
 (replacing ``_fwd_kernel_factory``, :226, ``pallas_call`` :479) and
 ``csrc/decoder_chain_bwd.cu`` (``_bwd_kernel_factory``, :291,
-``pallas_call`` :532), joined by :class:`DecChain`, a
+``pallas_call`` :532), both on the tensor-core GEMM core of
+``csrc/decoder_gemm.cuh``, joined by :class:`DecChain`, a
 ``torch.autograd.Function`` whose backward takes the cotangents of all four
 outputs. Beside them is :func:`dec_chain_plain`, the same run in plain
 PyTorch, differentiated by autograd, which the dispatcher :func:`dec_chain`
@@ -188,7 +189,7 @@ def _check_all(tensors: Dict[str, torch.Tensor], shapes: Dict[str, Tuple[int, ..
 
 class _DecFwd:
     """Wrapper of ``csrc/decoder_chain_fwd.cu``: one call runs a whole run
-    (18 kernels per level on one stream) and counts as one launch."""
+    (9 kernels per level on one stream) and counts as one launch."""
 
     def __init__(self):
         self.launches = 0

@@ -1,6 +1,9 @@
 // A CPU stand-in for the CUDA pieces that csrc/sampler_row.cu,
-// csrc/sampler_vrow.cu and the gated chain's GEMM kernels
-// (csrc/gated_common.cuh, gated_levels.cuh) use, so the kernels' indexing,
+// csrc/sampler_vrow.cu, the gated chain's GEMM kernels
+// (csrc/gated_common.cuh, gated_levels.cuh) and the decoder chain's entry
+// points (csrc/decoder_chain_{fwd,bwd}.cu on decoder_gemm.cuh, whose
+// launch_kernel the emulation turns into emu_launch_grid, with the host
+// calls they make: stream copies, attributes) use, so the kernels' indexing,
 // barriers, operand rings and fragment layouts can be tested without a GPU
 // (tests/test_torch_*_kernel_emulated.py). A block runs as one std::thread
 // per CUDA thread, one block at a time: __syncthreads, the named barrier and
@@ -48,8 +51,25 @@ inline uint32_t __float_as_uint(float f) {
   return u;
 }
 struct Dim { unsigned x, y, z; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
 typedef int cudaError_t;
+typedef void* cudaStream_t;
+constexpr cudaError_t cudaSuccess = 0, cudaErrorInvalidValue = 1;
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+enum cudaMemcpyKind { cudaMemcpyDeviceToDevice };
+// a stream's copy happens at once: launches run as they are called
+inline cudaError_t cudaMemcpyAsync(void* dst, const void* src, size_t bytes, cudaMemcpyKind,
+                                   cudaStream_t) {
+  std::memcpy(dst, src, bytes);
+  return cudaSuccess;
+}
 
 extern thread_local Dim threadIdx, blockIdx, blockDim;
 extern std::barrier<>* g_block_bar;     // every thread of the block

@@ -20,8 +20,10 @@ image's edges, and runs long enough that their weight gradients sum two
 1024-row splits, each at both compiled geometries; the decoder chain's
 backward with every output's cotangent and with the state's alone; and a
 digits16 PM-VDVAE step, with the block chain and with the decoder chain
-too, against the CPU; and the gated chain's 3xTF32 GEMM core on operands
-that TF32 alone would round, against float64.
+too, against the CPU; the decoder chain's kernels relaunched bit for bit
+at the res-28 run shape; and the gated chain's and the decoder chain's
+3xTF32 GEMM cores on operands that TF32 alone would round, against
+float64.
 Tolerance: 1e-4 relative to the tensor's scale (float32 sums in another
 order), for the chains' gradients too (their sums run over at most a few
 thousand rows here).
@@ -546,6 +548,92 @@ def test_decoder_chain_kernels_match_plain(dev, b, h, w, L, k, all_cots, c, m, l
     grads_p = torch.autograd.grad(outs[1], leaves, cots, allow_unused=True)
     for name, gk, gp, t in zip(("x0", "acts", "macts", *dc.NAMES), grads_k, grads_p, leaves):
         assert _close(gk, torch.zeros_like(t) if gp is None else gp), name
+
+
+def _dec_flat(cfg, x0, acts, macts, eps, weights):
+    """The wrappers' flat inputs of a run."""
+    R, L = cfg.rows, cfg.n_levels
+    return {"x0": x0.reshape(R, -1), "acts": acts.reshape(R, -1),
+            "macts": macts.reshape(R, -1), "eps": eps.reshape(L, R, -1),
+            **{n: weights[n].contiguous() for n in dc.NAMES}}
+
+
+def test_decoder_chain_kernels_relaunch_bit_for_bit_at_res28(dev):
+    """The res-28 run of a PM-VDVAE MNIST training batch (16 x 28 x 28
+    rows, 7 levels, 3x3): both kernels launched twice on the same inputs
+    give the same bits (the weight gradients' row splits are added in a
+    fixed order)."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    (x0, acts, macts), eps, weights = _decoder_chain_case(gen, 16, 28, 28, 7, 3, 192, 48, 16)
+    cfg = dc.DecConfig(x0, acts, 7, 48, 16, 3)
+    inputs = _dec_flat(cfg, x0, acts, macts, eps, weights)
+    shapes = cfg.shapes()
+    cots = {"g": _rand(gen, *shapes["x0"]), "gpost": _rand(gen, *shapes["post"]),
+            "gprior": _rand(gen, *shapes["prior"]), "gmask": _rand(gen, *shapes["masked"])}
+    w = {n: inputs[n] for n in dc.NAMES}
+    with torch.no_grad():
+        outs = [dc.dec_fwd(cfg, inputs) for _ in range(2)]
+        saved = {n: {**inputs, **outs[0]}[n] for n in dc._SAVED}
+        grads = [dc.dec_bwd(cfg, cots, saved, w) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name in outs[0]:
+        assert torch.isfinite(outs[0][name]).all() and torch.equal(outs[0][name], outs[1][name]), name
+    for name in grads[0]:
+        assert torch.isfinite(grads[0][name]).all() and torch.equal(grads[0][name], grads[1][name]), name
+
+
+def test_decoder_gemm_core_keeps_float32_operands_that_tf32_rounds(dev):
+    """Operands exact in float32 but not in TF32 (1 + 2^-12 rounds to 1 in
+    TF32's 10 fraction bits) through both of the decoder's products, in the
+    backward of a one-level run (2 x 5 x 5 rows, 3x3): the resnet Block's
+    dh3 = gelu'(h3) (g @ r_w4^T) with the saved h3 zero (gelu'(0) = 1/2),
+    summed into r_b3's gradient (dgemm, g on the A side, r_w4 on the B
+    side), and dwz = z^T du with eps zero (z = loc) and r_w1 zero (du = g)
+    (wgrad, loc on the A side, g on the B side). No product has two such
+    operands, and every sum stays below 2^10 at a resolution of 2^-14, so
+    the float32 results are exact and the 3xTF32 split reaches them; one
+    TF32 pass would be off by ~1e-4 of scale. Against float64 at 1e-6."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    b, h, w, c, m, ld = 2, 5, 5, 192, 48, 16
+    (x0, acts, macts), eps, weights = _decoder_chain_case(gen, b, h, w, 1, 3, c, m, ld)
+    cfg = dc.DecConfig(x0, acts, 1, m, ld, 3)
+    R, odd = cfg.rows, 1.0 + 2.0 ** -12
+    rows = torch.arange(R, device=dev)[:, None]
+    k8 = torch.arange(8, device=dev)[None, :]
+    # g: odd values in columns 0-7 of the odd rows, 2 or 1 in columns 8-15
+    g = torch.zeros(R, c, device=dev)
+    g[:, :8] = torch.where((rows % 2 == 1) & ((rows + k8) % 3 == 0), odd, 1.0)
+    g[:, 8:16] = torch.where((rows + k8) % 2 == 0, 2.0, 1.0)
+    # r_w4 [m, c]: B(k = channel of g, n) = r_w4[n, k]; exact values against
+    # g's odd columns, odd values against its columns 8-15
+    n = torch.arange(m, device=dev)[:, None]
+    w4 = torch.zeros(m, c, device=dev)
+    w4[:, :8] = torch.tensor([1.0, -1.0, 2.0, 0.5], device=dev)[(n + k8) % 4]
+    w4[:, 8:16] = torch.where((n + k8) % 2 == 0, odd, -odd)
+    # loc: odd values on the even rows only
+    loc = torch.where((rows % 2 == 0) & ((rows + torch.arange(ld, device=dev)) % 3 == 0), odd,
+                      torch.where((rows + torch.arange(ld, device=dev)) % 2 == 0, 1.0, -0.5))
+    inputs = _dec_flat(cfg, x0, acts, macts, torch.zeros_like(eps), weights)
+    inputs["r_w4"] = w4[None].contiguous()
+    inputs["r_w1"] = torch.zeros_like(inputs["r_w1"])
+    with torch.no_grad():
+        saved = {**inputs, **dc.dec_fwd(cfg, inputs)}
+    saved["rh3"] = torch.zeros_like(saved["rh3"])
+    saved["u"] = torch.zeros_like(saved["u"])
+    saved["post"] = torch.cat([loc, torch.randn(R, ld, generator=gen, device=dev)], -1)[None]
+    shapes = cfg.shapes()
+    cots = {"g": g, "gpost": torch.zeros(shapes["post"], device=dev),
+            "gprior": torch.zeros(shapes["prior"], device=dev),
+            "gmask": torch.zeros(shapes["masked"], device=dev)}
+    with torch.no_grad():
+        grads = dc.dec_bwd(cfg, cots, {n: saved[n].contiguous() for n in dc._SAVED},
+                           {n: inputs[n] for n in dc.NAMES})
+    torch.cuda.synchronize()
+    want_b3 = (0.5 * g.double() @ w4.double().T).sum(0)
+    want_wz = loc.double().T @ g.double()
+    for got, want in ((grads["dr_b3"][0].double(), want_b3), (grads["dwz"][0].double(), want_wz)):
+        assert want.abs().max().item() < 2.0 ** 10
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
 
 
 def test_decoder_chain_wrappers_refuse_unsupported_inputs(dev):
