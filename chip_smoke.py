@@ -54,7 +54,9 @@ and checks them, in these phases:
    weights from ``--seed`` through ``convert.random_pm_vdvae_tree`` or from
    ``--vdvae_run_dir``): the block-chain kernels (forward and backward)
    against autograd through the plain chain at the five encoder run shapes
-   of a training batch of 16, each timed beside its bound; three imputation
+   of a training batch of 16, each timed beside its bound (3 TF32 products
+   at the tensor cores' rate, the float32 FMA bound beside it), relaunched
+   bit for bit, its CUDA kernels a level counted; three imputation
    requests of 32 images x 10 samples with MNIST masks through
    ``vdvae_impute`` (5 chain launches each); one likelihood chunk of 125
    through ``vdvae_is_log_probs`` at 16 importance samples (10 chain
@@ -197,7 +199,7 @@ def bound_tc(flops, byts):
 
 
 # How the decoder chain's kernels (TPU rows 12-13) do their products.
-DECODER_DESIGN = ("GEMM core on tensor cores (decoder_gemm.cuh): mma.sync m16n8k8 TF32 with the "
+DECODER_DESIGN = ("GEMM core on tensor cores (vdvae_gemm.cuh): mma.sync m16n8k8 TF32 with the "
                   "3xTF32 split; p, m and q grouped into one launch a phase (9 launches a level "
                   "each way); row tiles of 64, 32 or 16 sized to the run, column tiles of 48; "
                   "conv operands staged once a tile with their halo, taps read shifted under "
@@ -205,6 +207,15 @@ DECODER_DESIGN = ("GEMM core on tensor cores (decoder_gemm.cuh): mma.sync m16n8k
                   "gradients in 3 grouped launches over fixed row splits (the 3x3 stacks all "
                   "nine taps a block, the source gathered once), one split-sum and one bias-sum "
                   "launch")
+
+# How the block chain's kernels (TPU rows 10-11) do their products.
+BLOCK_DESIGN = ("GEMM core on tensor cores (vdvae_gemm.cuh, namespace bck): mma.sync m16n8k8 "
+                "TF32 with the 3xTF32 split; 4 launches a level each way (c1-c4; wide K in slabs "
+                "of 48, N = 192 as column tiles of 48); row tiles of 64, 32 or 16 sized to the "
+                "run; conv operands staged once a tile with their halo, taps read shifted under "
+                "the image mask; B by cp.async through 3 stages; weight gradients in 2 grouped "
+                "launches over fixed row splits (the 3x3 stacks all nine taps a block), one "
+                "split-sum and one bias-sum launch")
 
 # How the gated chain's kernels (TPU rows 4-9) do their GEMMs.
 GATED_DESIGN = ("GEMM core on tensor cores: mma.sync m16n8k8 TF32 with the 3xTF32 split; "
@@ -707,9 +718,9 @@ _CHAIN_KERNELS = ("::data_gemm<", "::wgrad<128>", "::wgrad<256>", "::gate_bwd(",
 # ... of the decoder chain's (csrc/decoder_chain_*.cu: namespace dck, and
 # its own kernels) ...
 _DECODER_CHAIN_KERNELS = ("dck::", "::z_into_state<", "::z_bwd<")
-# ... and of the block chain's (csrc/block_chain_*.cu, namespace bck).
-_BLOCK_CHAIN_KERNELS = ("bck::chain_gemm<", "::wgrad<48>", "::wgrad<192>",
-                        "::reduce_splits(", "::bias_grad(")
+# ... and of the block chain's (csrc/block_chain_*.cu: the same core in
+# namespace bck).
+_BLOCK_CHAIN_KERNELS = ("bck::",)
 VQVAE_GROUPS = (("gated chain kernels", _CHAIN_KERNELS), ("vq_search kernel", ("vq_search",)))
 VDVAE_GROUPS = (("decoder_chain kernels", _DECODER_CHAIN_KERNELS),
                 ("block_chain kernels", _BLOCK_CHAIN_KERNELS),
@@ -1010,20 +1021,11 @@ def capture_runs(model, x, b):
     return runs
 
 
-def chain_flops(b, h, w, c, mid, k, n_lvl):
-    """Forward operations of a run of ``n_lvl`` blocks: c1 and c4, [c, mid]
-    products, at every row; c2 and c3, [mid, mid] products, at each row's
-    taps that land inside the image only (a tap outside adds a zero)."""
-    pad = k // 2
-    taps = sum(max(h - abs(dy), 0) * max(w - abs(dx), 0)
-               for dy in range(-pad, pad + 1) for dx in range(-pad, pad + 1))
-    return 2.0 * n_lvl * b * (2 * h * w * c * mid + 2 * taps * mid * mid)
-
-
 def block_chain_phase(runs, seed):
     """Both block-chain kernels against autograd through the plain chain at
     each run's shapes, with a random cotangent on the run's output; each
-    timed beside its bound and the plain version."""
+    timed beside its bound and the plain version, relaunched bit for bit,
+    its CUDA kernels a level counted."""
     from posterior_matching_torch.ops import block_chain as bc
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 23)
@@ -1065,22 +1067,44 @@ def block_chain_phase(runs, seed):
         bwd_plain = time_ms(lambda: torch.autograd.grad(want, leaves, cot, retain_graph=True),
                             reps=5)
         grads = bc.chain_bwd(cfg, g, saved, wk)
+        # a relaunch on the same inputs gives the same bits
+        with torch.no_grad():
+            saves2 = bc.chain_fwd(cfg, x0, wc)
+            grads2 = bc.chain_bwd(cfg, g, saved, wk)
+        torch.cuda.synchronize()
+        check(all(torch.equal(saves[n], saves2[n]) for n in saves)
+              and all(torch.equal(grads[n], grads2[n]) for n in grads),
+              f"block_chain res {res}: a relaunch changed the bits")
+        # CUDA kernels a level, from one profiled launch of each, and the
+        # host's time to enqueue a launch
+        calls = {"fwd": lambda: bc.chain_fwd(cfg, x0, wc),
+                 "bwd": lambda: bc.chain_bwd(cfg, g, saved, wk)}
+        per_level = {kind: kernels_a_level(f"block_chain_{kind} res {res}", fn,
+                                           _BLOCK_CHAIN_KERNELS, n_lvl)
+                     for kind, fn in calls.items()}
+        host_us = {kind: host_ms(fn) * 1e3 / (per_level[kind] * n_lvl)
+                   for kind, fn in calls.items()}
         # the backward does each product twice (data and weight gradients)
-        flops = chain_flops(x.shape[0], x.shape[1], x.shape[2], c, mid, k, n_lvl)
+        flops = bc.chain_flops(x.shape[0], x.shape[1], x.shape[2], c, mid, k, n_lvl)
         fwd_bytes = nbytes(x0, *wc.values(), *saves.values())
         bwd_bytes = nbytes(g, *saved.values(), *wk.values(), *grads.values())
         run = {"res": res, "levels": n_lvl, "k": k, "rows": cfg.rows,
                "fwd": (fwd_err, fwd_ms, fwd_plain, flops, fwd_bytes),
-               "bwd": (bwd_err, bwd_ms, bwd_plain, 2 * flops, bwd_bytes)}
+               "bwd": (bwd_err, bwd_ms, bwd_plain, 2 * flops, bwd_bytes),
+               "launches_per_level": per_level, "host_us_per_kernel": host_us}
         for kind in ("fwd", "bwd"):
             _, ms, pms, fl, by = run[kind]
-            b_ms, b_by = bound(fl, by)
+            b_ms, b_by = bound_tc(fl, by)
             log(f"block_chain_{kind} res {res}: {ms:.4f} ms/launch (plain {pms:.3f}), bound "
-                f"{b_ms:.4f} ms by {b_by} ({fl / 1e9:.3f} GFLOP, {by / 1e6:.1f} MB)")
+                f"{b_ms:.4f} ms by {b_by} (float32 FMAs {bound(fl, by)[0]:.4f}; "
+                f"{fl / 1e9:.3f} GFLOP, {by / 1e6:.1f} MB); {fl / (ms * 1e-3) / 1e12:.2f} "
+                f"TFLOP/s of float32 work; {per_level[kind]:.1f} CUDA kernels a level, "
+                f"{ms * 1e3 / (per_level[kind] * n_lvl):.1f} us each on the device's clock, "
+                f"{host_us[kind]:.1f} us each to enqueue; relaunched bit for bit")
         per_run.append(run)
-        del got, want, gk, gp, saves, saved, grads
+        del got, want, gk, gp, saves, saved, grads, saves2, grads2
     return chain_lines("block_chain", "posterior_matching_tpu/ops/block_chain.py",
-                       (("fwd", 270), ("bwd", 308)), per_run)
+                       (("fwd", 270), ("bwd", 308)), per_run, tc=True, design=BLOCK_DESIGN)
 
 
 def vdvae_serving_phases(model, gen, mask_fn):
@@ -1328,20 +1352,6 @@ def capture_dec_runs(model, batch, gen):
     return runs
 
 
-def dec_chain_flops(b, h, w, c, mid, ld, k, n_lvl):
-    """Forward operations of a decoder run: at every row c1 of the four
-    Blocks (inputs 2c, 2c, c, c), their c4 (outputs 2 ld, ld + tril,
-    2 ld + c, c) and the z projection; c2 and c3 of the four at the taps
-    that land inside the image only."""
-    pad = k // 2
-    taps = sum(max(h - abs(dy), 0) * max(w - abs(dx), 0)
-               for dy in range(-pad, pad + 1) for dx in range(-pad, pad + 1))
-    rows, mw = b * h * w, ld + ld * (ld + 1) // 2
-    per_level = (2 * rows * mid * 6 * c + 4 * 2 * 2 * b * taps * mid * mid
-                 + 2 * rows * mid * (2 * ld + mw + 2 * ld + c + c) + 2 * rows * ld * c)
-    return float(n_lvl * per_level)
-
-
 def decoder_chain_phase(runs, seed):
     """Both decoder-chain kernels against autograd through the plain chain
     at each run's shapes, with a random cotangent on each of the four
@@ -1405,13 +1415,14 @@ def decoder_chain_phase(runs, seed):
               and all(torch.equal(grads[n], grads2[n]) for n in grads),
               f"decoder_chain res {res}: a relaunch changed the bits")
         # CUDA kernels a level, from one profiled launch of each
-        per_level = {kind: kernel_launches(fn) / n_lvl for kind, fn in (
+        per_level = {kind: kernels_a_level(f"decoder_chain_{kind} res {res}", fn,
+                                           _DECODER_CHAIN_KERNELS, n_lvl) for kind, fn in (
             ("fwd", lambda: dc.dec_fwd(cfg, inputs)),
             ("bwd", lambda: dc.dec_bwd(cfg, cot, saved, weights)))}
         # the backward does each product twice (data and weight gradients),
         # but for the masked Block's input-side data gradient on the state
-        flops = dec_chain_flops(x0.shape[0], x0.shape[1], x0.shape[2], c, mid, ld, k, n_lvl)
-        bwd_flops = 2 * flops - 2.0 * n_lvl * cfg.rows * c * mid
+        flops = dc.chain_flops(x0.shape[0], x0.shape[1], x0.shape[2], c, mid, ld, k, n_lvl)
+        bwd_flops = dc.bwd_flops(flops, cfg.rows, c, mid, n_lvl)
         read_w = [t for n, t in weights.items() if n != "bz" and "_b" not in n]
         fwd_bytes = nbytes(*inputs.values(), *outs.values())
         bwd_bytes = nbytes(*cot.values(), *saved.values(), *read_w, *grads.values())
@@ -1433,22 +1444,57 @@ def decoder_chain_phase(runs, seed):
                        (("fwd", 226), ("bwd", 291)), per_run, tc=True, design=DECODER_DESIGN)
 
 
-def kernel_launches(fn):
-    """The decoder-chain kernels that one ``fn()`` launches, counted by
-    ``torch.profiler`` (a few kernels of PyTorch's run first: the profiler
-    can miss the first kernels of a window)."""
+def host_ms(fn) -> float:
+    """The host's ms to enqueue one ``fn()``: 10 calls back to back from an
+    idle stream, the host clock stopped before the device is waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / 10
+    torch.cuda.synchronize()
+    return ms
+
+
+def kernel_launches(fn, markers):
+    """The kernels (of a chain, by their names' ``markers``) that one
+    ``fn()`` launches, counted by ``torch.profiler``, or None where no
+    window measured them. The profiler loses a window's first kernel, and
+    now and then every kernel from some point on; so eight ``add`` kernels
+    run before ``fn()`` and eight ``mul`` kernels after it, and a window
+    counts only where its trace starts with the one and ends with the other
+    (else it is profiled again, up to three windows)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(4):
-            torch.zeros(1, device=DEVICE).add_(1.0)
+    lead, trail = torch.zeros(1, device=DEVICE), torch.ones(1, device=DEVICE)
+    for _ in range(3):
         torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-               and any(k in e.name for k in _DECODER_CHAIN_KERNELS))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                lead.add_(1.0)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            for _ in range(8):
+                trail.mul_(1.0)
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted((e for e in prof.events()
+                                         if e.device_type == DeviceType.CUDA),
+                                        key=lambda e: e.time_range.start)]
+        if names and "add" in names[0].lower() and "mul" in names[-1].lower():
+            return sum(1 for k in names if any(m in k for m in markers))
+    return None
+
+
+def kernels_a_level(what, fn, markers, n_lvl):
+    """:func:`kernel_launches` over the run's levels; fails unless the
+    count was measured and saw the chain's kernels."""
+    n = kernel_launches(fn, markers)
+    check(n is not None, f"{what}: the profiler lost part of three windows")
+    check(n > 0, f"{what}: the profiler saw none of its kernels")
+    return n / n_lvl
 
 
 def chain_lines(name, replaces, kinds, per_run, tc=False, design=None):
@@ -1477,7 +1523,9 @@ def chain_lines(name, replaces, kinds, per_run, tc=False, design=None):
                          "gflop": r[kind][3] / 1e9, "mb": r[kind][4] / 1e6,
                          "tflops": r[kind][3] / (r[kind][1] * 1e-3) / 1e12,
                          **({"kernels_per_level": r["launches_per_level"][kind]}
-                            if "launches_per_level" in r else {})}
+                            if "launches_per_level" in r else {}),
+                         **({"host_us_per_kernel": r["host_us_per_kernel"][kind]}
+                            if "host_us_per_kernel" in r else {})}
                         for r in per_run],
         })
     return out

@@ -40,7 +40,7 @@ SOURCES = {
     "decoder_chain_bwd": "decoder_chain_bwd.cu",
 }
 HEADERS = ("sampler_common.cuh", "gated_common.cuh", "gated_levels.cuh",
-           "block_chain_common.cuh", "decoder_gemm.cuh", "decoder_chain_common.cuh")
+           "block_chain_common.cuh", "vdvae_gemm.cuh", "decoder_chain_common.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -51,6 +51,22 @@ def weight_shapes(cin: int, mid: int, k: int) -> List[Tuple[str, Tuple[int, int]
     ]
 
 
+def tap_pixels(h: int, w: int, k: int) -> int:
+    """Pixel-tap pairs of a k x k SAME convolution on an h x w image whose
+    tap lands inside the image (the padding's taps do no work)."""
+    pad = k // 2
+    return sum(max(h - abs(dy), 0) * max(w - abs(dx), 0)
+               for dy in range(-pad, pad + 1) for dx in range(-pad, pad + 1))
+
+
+def chain_flops(b: int, h: int, w: int, c: int, mid: int, k: int, n_lvl: int) -> float:
+    """Forward operations of a run (2 a multiply-add): c1 and c4, [c, mid]
+    products, at every row; c2 and c3, [mid, mid] products, at each row's
+    taps that land inside the image only. The backward's are twice these
+    (data and weight gradients)."""
+    return 2.0 * n_lvl * b * (2 * h * w * c * mid + 2 * tap_pixels(h, w, k) * mid * mid)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation."""
     return F.gelu(x, approximate="tanh")

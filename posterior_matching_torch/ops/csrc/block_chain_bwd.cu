@@ -18,19 +18,25 @@
 //
 // Bound: operations. The VJP of a product costs two products (data and
 // weight gradients), each over the forward's in-image taps: 17.4 GFLOP at
-// the encoder's res-28 run of a training step (0.26 ms at 67 TFLOP/s)
-// against ~0.3 GB read and written (0.09 ms at 3.35 TB/s).
+// the encoder's res-28 run of a training step, 0.11 ms as 3 TF32 products
+// at the H100's 495 TFLOP/s (NVIDIA's data sheet; the core's way), 0.26 ms
+// as float32 FMAs at 67, against ~0.13 GB read and written (0.04 ms at
+// 3.35 TB/s).
 //
 // Design. The TPU kernel carries d through VMEM across its sequential grid
 // and accumulates dW in resident output blocks. On Hopper the data-gradient
-// phases are launches over all rows, level by level, top level first
-// (chain_gemm, gelu's derivative recomputed from the saves in the
-// epilogue), keeping every level's dh1, dh2, dh3 and d in scratch. The
-// weight gradients of all levels then run as one launch per weight stack
-// (wgrad: one block per (input-row tile, tap, level, split of 1024 rows)),
-// whose partial sums a second launch adds in a fixed order, and the bias
-// gradients as column sums. No atomics: each output is summed in a fixed
-// order, so equal inputs give equal gradients on every run.
+// phases are launches over all rows, level by level, top level first, on
+// vdvae_gemm.cuh's core (dgemm: 3xTF32 mma.sync, the mirrored conv taps
+// read from one slab staged with its halo, gelu's derivative recomputed
+// from the saves in the epilogue; d's K = C in slabs of M, dx's N = C as
+// column tiles of M): 4 launches a level, every level's dh1, dh2, dh3 and d
+// kept in scratch. The weight gradients of all levels then run as two
+// launches: the c2/c3 stacks (wgrad_taps at k = 3: a block's source chunk
+// gathered through gelu once for the nine taps, the cotangent rows staged
+// with their halo) and the c1/c4 stacks (wgrad; at k = 1 the c2/c3 stacks
+// join them), over fixed row splits that one reduce_parts launch adds, and
+// every bias gradient is one bias_sums launch: fixed splits and orders, no
+// atomics, so equal inputs give equal gradients on every run.
 #include "block_chain_common.cuh"
 
 namespace {
@@ -43,84 +49,146 @@ enum BwdPtr {
   DXS, DH1, DH2, DH3, PART, BWD_NPTR
 };
 
+// The weight-gradient products of a run in two launches (0: the c2/c3
+// stacks, through wgrad_taps at k = 3; 1: the c1/c4 stacks, and at k = 1
+// the c2/c3 stacks too) and its bias gradients, from the entry point's
+// pointers `p` (any non-null stand-ins where only the sizes are wanted).
+// Returns the floats of `part` the row splits need.
+struct Grads {
+  WJob w[2][kMaxWJobs];
+  int nw[2], blocks[2];
+  BArgs bias;
+};
+
 template <int C, int M>
-int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t stream) {
+size_t plan_grads(const Geo& g, int L, int k, float* const* p, Grads& gr) {
+  const size_t R = g.R, RC = R * C, RM = R * M;
+  const int taps = k * k;
+  auto wj = [&](int kind, const float* src0, const float* src, size_t lsrc, int Kin, int tp,
+                const float* gs, size_t lg, int N, float* out) {
+    WJob j{};
+    j.src0 = src0;
+    j.src = src;
+    j.lsrc = lsrc;
+    j.gelu = 1;
+    j.Kin = Kin;
+    j.taps = tp;
+    j.gs = gs;
+    j.lg = lg;
+    j.ldg = (int)(lg / R);
+    j.N = N;
+    j.out = out;
+    j.lout = (size_t)tp * Kin * N;
+    j.ldo = N;
+    gr.w[kind][gr.nw[kind]++] = j;
+  };
+  gr.nw[0] = gr.nw[1] = 0;
+  // dw2, dw3: the shifted gelu(h1), gelu(h2) against dh2, dh3
+  const int kt = k == 3 ? 0 : 1;
+  wj(kt, nullptr, p[H1], RM, M, taps, p[DH2], RM, M, p[DW2]);
+  wj(kt, nullptr, p[H2], RM, M, taps, p[DH3], RM, M, p[DW3]);
+  // dw1: gelu(level input)^T dh1, the input x0 at level 0, else xout[l - 1];
+  // dw4: gelu(h3)^T d
+  wj(1, p[X0], p[XOUT], RC, C, 1, p[DH1], RM, M, p[DW1]);
+  wj(1, nullptr, p[H3], RM, M, 1, p[DXS], RC, C, p[DW4]);
+
+  size_t pofs = 0;
+  for (int kind = 0; kind < 2; ++kind)
+    gr.blocks[kind] =
+        gr.nw[kind] ? plan_wgrad<M>(g, L, gr.w[kind], gr.nw[kind], kind == 0, &pofs) : 0;
+
+  // the biases: column sums of dh1..dh3 and of d
+  BArgs& ba = gr.bias;
+  ba = BArgs{};
+  ba.L = L;
+  ba.R = g.R;
+  auto bj = [&](const float* gs, size_t lg, int N, float* out) {
+    ba.job[ba.nj++] = BJob{gs, out, lg, (size_t)N, (int)(lg / R), N};
+  };
+  bj(p[DH1], RM, M, p[DB1]);
+  bj(p[DH2], RM, M, p[DB2]);
+  bj(p[DH3], RM, M, p[DB3]);
+  bj(p[DXS], RC, C, p[DB4]);
+  return pofs;
+}
+
+template <int C, int M>
+int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
   auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
   const Geo g = make_geo(ints);
-  const int L = ints[I_L], k = ints[I_K];
+  const int L = ints[I_L], k = ints[I_K], taps = k * k;
   const size_t RC = (size_t)g.R * C, RM = (size_t)g.R * M;
   float* dxs = out(DXS);
 
   // d of the top level is the external cotangent
   cudaError_t err = cudaMemcpyAsync(dxs + (L - 1) * RC, in(G), RC * sizeof(float),
-                                    cudaMemcpyDeviceToDevice, stream);
+                                    cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return (int)err;
 
   for (int l = L - 1; l >= 0; --l) {
     const float* d = dxs + l * RC;
-    const float* x_in = l ? in(XOUT) + (l - 1) * RC : in(X0);
-    float* dh1 = out(DH1) + l * RM;
-    float* dh2 = out(DH2) + l * RM;
-    float* dh3 = out(DH3) + l * RM;
+    const float* x = l ? in(XOUT) + (l - 1) * RC : in(X0);
+    const float* h[3] = {in(H1) + l * RM, in(H2) + l * RM, in(H3) + l * RM};
+    float* dh[3] = {out(DH1) + l * RM, out(DH2) + l * RM, out(DH3) + l * RM};
 
-    GemmArgs a{};  // dh3 = gelu'(h3) * (d @ w4^T)
-    a.g = g;
-    a.amode = A_IDENT;
-    a.epi = E_GELU_BWD;
-    a.t[a.nt++] = Term{d, in(W4) + (size_t)l * M * C, C, 0, 0, C, 1};
-    a.z = in(H3) + l * RM;
-    a.out = dh3;
-    launch_gemm<M>(a, stream);
-
-    const float* srcs[2] = {dh3, dh2};
-    const float* ws[2] = {in(W3), in(W2)};
-    const float* zs[2] = {in(H2) + l * RM, in(H1) + l * RM};
-    float* dsts[2] = {dh2, dh1};
-    for (int c = 0; c < 2; ++c) {
-      GemmArgs b{};  // dh_{i-1} = gelu'(h_{i-1}) * convT(dh_i, w_i)
-      b.g = g;
-      b.amode = A_IDENT;
-      b.epi = E_GELU_BWD;
-      add_taps(b, k, -1, srcs[c], M, ws[c] + (size_t)l * k * k * M * M, M, 1);
-      b.z = zs[c];
-      b.out = dsts[c];
-      launch_gemm<M>(b, stream);
+    // dh3 = gelu'(h3) * (d @ w4^T)
+    DJob j3 = job(M, E_GELU_BWD, dh[2], M, term(d, C, 0, in(W4) + (size_t)l * M * C, C, 1));
+    j3.z = h[2];
+    launch_dgemm<M>(g, &j3, 1, s);
+    // dh2, dh1 back through the mirrored taps of c3, c2
+    const int ws[2] = {W2, W3};
+    for (int c = 1; c >= 0; --c) {
+      DJob jc = job(M, E_GELU_BWD, dh[c], M,
+                    term(dh[c + 1], M, 0, in(ws[c]) + (size_t)l * taps * M * M, M, 1, taps, -1));
+      jc.z = h[c];
+      launch_dgemm<M>(g, &jc, 1, s);
     }
-
-    GemmArgs e{};  // dx = d + gelu'(x) * (dh1 @ w1^T)
-    e.g = g;
-    e.amode = A_IDENT;
-    e.epi = E_GELU_BWD;
-    e.t[e.nt++] = Term{dh1, in(W1) + (size_t)l * C * M, M, 0, 0, M, 1};
-    e.z = x_in;
-    e.base = d;
-    e.out = l ? dxs + (l - 1) * RC : out(DX0);
-    launch_gemm<C>(e, stream);
+    // dx = d + gelu'(x) * (dh1 @ w1^T): the next level's d (dxs[l - 1], a
+    // slice apart from d's dxs[l]), or dx0
+    DJob jx = job(C, E_GELU_BWD, l ? dxs + (l - 1) * RC : out(DX0), C,
+                  term(dh[0], M, 0, in(W1) + (size_t)l * C * M, M, 1));
+    jx.z = x;
+    jx.base = d;
+    launch_dgemm<M>(g, &jx, 1, s);
   }
 
-  WgArgs w{};
-  w.g = g;
-  w.gelu = 1;
-  // dw1: gelu(level input)^T dh1
-  w.src0 = in(X0); w.src = in(XOUT); w.lsrc = RC; w.gs = out(DH1);
-  w.Kin = C; w.k = 1; w.rows = C;
-  weight_grad<M>(w, out(DW1), out(PART), L, stream);
-  // dw2, dw3: shifted gelu(h1), gelu(h2) against dh2, dh3
-  w.src0 = nullptr; w.src = in(H1); w.lsrc = RM; w.gs = out(DH2);
-  w.Kin = M; w.k = k; w.rows = k * k * M;
-  weight_grad<M>(w, out(DW2), out(PART), L, stream);
-  w.src = in(H2); w.gs = out(DH3);
-  weight_grad<M>(w, out(DW3), out(PART), L, stream);
-  // dw4: gelu(h3)^T d
-  w.src = in(H3); w.gs = dxs; w.k = 1; w.rows = M;
-  weight_grad<C>(w, out(DW4), out(PART), L, stream);
-
-  launch_bias_grad(out(DH1), out(DB1), L, g.R, M, stream);
-  launch_bias_grad(out(DH2), out(DB2), L, g.R, M, stream);
-  launch_bias_grad(out(DH3), out(DB3), L, g.R, M, stream);
-  launch_bias_grad(dxs, out(DB4), L, g.R, C, stream);
+  // ---- weight gradients of all levels, two launches, then the splits'
+  // sums and the bias gradients, one launch each
+  float* p[BWD_NPTR];
+  for (int i = 0; i < BWD_NPTR; ++i) p[i] = out(i);
+  Grads gr;
+  plan_grads<C, M>(g, L, k, p, gr);
+  RArgs ra{};
+  ra.L = L;
+  ra.part = out(PART);
+  size_t entries = 0;
+  for (int kind = 0; kind < 2; ++kind) {
+    if (!gr.nw[kind]) continue;
+    launch_wgrad<M>(g, gr.w[kind], gr.nw[kind], gr.blocks[kind], kind == 0, out(PART), s);
+    for (int i = 0; i < gr.nw[kind]; ++i)
+      if (gr.w[kind][i].S > 1) {
+        const WJob& j = gr.w[kind][i];
+        ra.job[ra.nj++] = j;
+        entries += (size_t)L * j.taps * j.Kin * j.N;
+      }
+  }
+  if (entries)
+    launch_kernel(reduce_parts, dim3((unsigned)((entries + 255) / 256)), 256, 0, s, ra);
+  int bias_blocks = 0;
+  for (int i = 0; i < gr.bias.nj; ++i) bias_blocks += L * ((gr.bias.job[i].N + 31) / 32);
+  launch_kernel(bias_sums, dim3(bias_blocks), kBiasThreads, kBiasThreads * 4, s, gr.bias);
   return (int)cudaGetLastError();
+}
+
+template <int C, int M>
+long long part_floats(const int* ints) {
+  // sizes only: every pointer a stand-in
+  static float stand_in[4];
+  float* p[BWD_NPTR];
+  for (int i = 0; i < BWD_NPTR; ++i) p[i] = stand_in;
+  Grads gr;
+  return (long long)plan_grads<C, M>(make_geo(ints), ints[I_L], ints[I_K], p, gr);
 }
 
 }  // namespace
@@ -137,11 +205,13 @@ extern "C" int pm_block_chain_bwd(const void* const* ptrs, int nptrs,
   BCK_DISPATCH_WIDTHS(ints, (run_bwd<C, M>(ptrs, ints, static_cast<cudaStream_t>(stream_))));
 }
 
-// Floats of the `part` scratch pm_block_chain_bwd needs for a geometry: one
-// weight stack's partial sums per row split; -1 for a geometry it refuses.
+// Floats of the `part` scratch pm_block_chain_bwd needs for a geometry: the
+// row splits' partial sums of every weight gradient that has more than one
+// split; -1 for a geometry it refuses.
 extern "C" long long pm_block_chain_bwd_part_floats(const int* ints, int nints) {
   if (nints != I_COUNT || !geometry_ok(ints)) return -1;
-  const long long c = ints[I_C], m = ints[I_M], kk = ints[I_K] * ints[I_K];
-  const long long widest = c * m > kk * m * m ? c * m : kk * m * m;
-  return ints[I_L] * n_splits(make_geo(ints)) * widest;
+  const int c = ints[I_C], m = ints[I_M];
+  if (c == 192 && m == 48) return part_floats<192, 48>(ints);
+  if (c == 64 && m == 16) return part_floats<64, 16>(ints);
+  return -1;
 }

@@ -15,18 +15,21 @@
 // c4 and 48 x 48 x 2 per row and in-image tap for c2 and c3 (an
 // out-of-image tap adds a zero): at the encoder's res-28 run of a training
 // step (16 x 28 x 28 = 12544 rows, L = 6, 82 x 82 in-image taps an image
-// where 9 x 28 x 28 = 84 x 84 would be all) 8.7 GFLOP (0.13 ms at 67
-// TFLOP/s) against 0.17 GB of inputs and saves (0.05 ms at 3.35 TB/s).
+// where 9 x 28 x 28 = 84 x 84 would be all) 8.7 GFLOP: 0.053 ms as 3 TF32
+// products at the H100's 495 TFLOP/s (NVIDIA's data sheet; the core's way),
+// 0.13 ms as float32 FMAs at 67, against 0.11 GB of inputs and saves
+// (0.033 ms at 3.35 TB/s).
 //
 // Design. The Pallas kernel walks (chunk, level) in order and carries the
 // level's input in VMEM. On Hopper blocks run in parallel and unordered, so
-// each dependent phase is its own launch over all rows of the run (4 per
-// level): chain_gemm (block_chain_common.cuh) tiles the rows 64 (N <= 64) or
-// 32 (N = 192) a block, with the conv taps (the image-bounds test replaces
-// the TPU's pltpu.roll and mask) and gelu fused into the A operand's load,
-// and the bias and residual into the epilogue. The carry is the saved level
-// output in global memory. Float32 FMAs without tensor cores: fast kernels
-// (wgmma, TMA, bf16) are later work.
+// each dependent phase is its own launch over all rows of the run, on
+// vdvae_gemm.cuh's tensor-core core (dgemm: 3xTF32 mma.sync, gelu and the
+// TF32 split applied once as a slab is staged, B through a cp.async ring):
+// c1 (K = C in slabs of M), c2 and c3 (one k x k term: the slab staged once
+// with a halo of W + 1 rows, each tap read shifted under the image mask,
+// the TPU's pltpu.roll and mask), c4 (N = C as column tiles of M, jobs of
+// one launch) with the bias and the residual in the epilogue. 4 launches a
+// level; the carry is the saved level output in global memory.
 #include "block_chain_common.cuh"
 
 namespace {
@@ -36,52 +39,35 @@ using namespace bck;
 enum FwdPtr { X0, W1, B1, W2, B2, W3, B3, W4, B4, XOUT, H1, H2, H3, FWD_NPTR };
 
 template <int C, int M>
-int run_fwd(const void* const* ptrs, const int* ints, cudaStream_t stream) {
+int run_fwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
   auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
   const Geo g = make_geo(ints);
-  const int L = ints[I_L], k = ints[I_K];
+  const int L = ints[I_L], k = ints[I_K], taps = k * k;
   const size_t RC = (size_t)g.R * C, RM = (size_t)g.R * M;
 
   for (int l = 0; l < L; ++l) {
-    const float* x_in = l ? in(XOUT) + (l - 1) * RC : in(X0);
-    float* h1 = out(H1) + l * RM;
-    float* h2 = out(H2) + l * RM;
-    float* h3 = out(H3) + l * RM;
+    const float* x = l ? in(XOUT) + (l - 1) * RC : in(X0);
+    float* h[3] = {out(H1) + l * RM, out(H2) + l * RM, out(H3) + l * RM};
 
-    GemmArgs a{};
-    a.g = g;
-    a.amode = A_GELU;
-    a.epi = E_BIAS;
-    a.t[a.nt++] = Term{x_in, in(W1) + (size_t)l * C * M, C, 0, 0, M, 0};
-    a.bias = in(B1) + (size_t)l * M;
-    a.out = h1;
-    launch_gemm<M>(a, stream);
-
-    const float* srcs[2] = {h1, h2};
-    const float* ws[2] = {in(W2), in(W3)};
-    const float* bs[2] = {in(B2), in(B3)};
-    float* dsts[2] = {h2, h3};
+    // c1: h1 = gelu(x) @ w1 + b1
+    DJob c1 = job(M, E_BIAS, h[0], M, term(x, C, 1, in(W1) + (size_t)l * C * M, M, 0));
+    c1.bias = in(B1) + (size_t)l * M;
+    launch_dgemm<M>(g, &c1, 1, s);
+    // c2, c3: k x k convolutions through gelu
+    const int ws[2] = {W2, W3}, bs[2] = {B2, B3};
     for (int c = 0; c < 2; ++c) {
-      GemmArgs b{};
-      b.g = g;
-      b.amode = A_GELU;
-      b.epi = E_BIAS;
-      add_taps(b, k, 1, srcs[c], M, ws[c] + (size_t)l * k * k * M * M, M, 0);
-      b.bias = bs[c] + (size_t)l * M;
-      b.out = dsts[c];
-      launch_gemm<M>(b, stream);
+      DJob cv = job(M, E_BIAS, h[c + 1], M,
+                    term(h[c], M, 1, in(ws[c]) + (size_t)l * taps * M * M, M, 0, taps));
+      cv.bias = in(bs[c]) + (size_t)l * M;
+      launch_dgemm<M>(g, &cv, 1, s);
     }
-
-    GemmArgs d{};
-    d.g = g;
-    d.amode = A_GELU;
-    d.epi = E_BIAS_RES;
-    d.t[d.nt++] = Term{h3, in(W4) + (size_t)l * M * C, M, 0, 0, C, 0};
-    d.bias = in(B4) + (size_t)l * C;
-    d.res = x_in;
-    d.out = out(XOUT) + l * RC;
-    launch_gemm<C>(d, stream);
+    // c4: xout[l] = x + gelu(h3) @ w4 + b4
+    DJob c4 = job(C, E_BIAS_RES, out(XOUT) + l * RC, C,
+                  term(h[2], M, 1, in(W4) + (size_t)l * M * C, C, 0));
+    c4.bias = in(B4) + (size_t)l * C;
+    c4.res = x;
+    launch_dgemm<M>(g, &c4, 1, s);
   }
   return (int)cudaGetLastError();
 }

@@ -31,7 +31,7 @@
 // TB/s).
 //
 // Design. The data-gradient phases run level by level, each a launch over
-// all rows on decoder_gemm.cuh's core (dgemm: 3xTF32 mma.sync, the
+// all rows on vdvae_gemm.cuh's core (dgemm: 3xTF32 mma.sync, the
 // mirrored conv taps read from one staged slab with its halo, gelu's
 // derivative recomputed from the saves in the epilogue): the resnet
 // Block's dh3, dh2, dh1 and du, the z step (z_bwd), then p, m and q, which

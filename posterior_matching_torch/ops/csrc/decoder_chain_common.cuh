@@ -1,7 +1,7 @@
 // Shared pieces of the VDVAE decoder-chain kernels (decoder_chain_fwd.cu,
 // decoder_chain_bwd.cu): the geometry and pointer layout of their C entry
 // points, the per-level strides of the 34 weight stacks, and the softplus
-// of the z sample. The products themselves run on decoder_gemm.cuh's core.
+// of the z sample. The products themselves run on vdvae_gemm.cuh's core.
 //
 // A level of a run has four bottleneck Blocks, in the order of
 // ops/decoder_chain.py::NAMES: p (posterior, on [x, acts], 2 LD outputs),
@@ -11,7 +11,8 @@
 // encoder-activation width equals the state width C.
 #pragma once
 
-#include "decoder_gemm.cuh"
+#define PM_CORE_NS dck
+#include "vdvae_gemm.cuh"
 
 namespace dck {
 
@@ -77,24 +78,6 @@ __device__ __forceinline__ float softplus(float x) {
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-// A 1x1 or k x k term of a Block's product (see DTerm).
-inline DTerm term(const float* src, int K, int gelu, const float* w, int ld, int trans,
-                  int taps = 1, int sign = 1) {
-  return DTerm{src, w, K, taps, sign, gelu, ld, trans};
-}
-
-// A product of N columns into out (rows of ldo floats), its terms added.
-inline DJob job(int N, int epi, float* out, int ldo, DTerm t0) {
-  DJob j{};
-  j.t[0] = t0;
-  j.nt = 1;
-  j.N = N;
-  j.epi = epi;
-  j.out = out;
-  j.ldo = ldo;
-  return j;
-}
 
 }  // namespace dck
 

@@ -27,7 +27,7 @@
 //
 // Design. The Pallas kernel walks (chunk, level) in order with the state in
 // VMEM. On Hopper each dependent phase is a launch over all rows of the run
-// on decoder_gemm.cuh's tensor-core core (dgemm: 3xTF32 mma.sync, conv
+// on vdvae_gemm.cuh's tensor-core core (dgemm: 3xTF32 mma.sync, conv
 // operands staged once with their halo, B through a cp.async ring), and the
 // p, m and q Blocks, independent given x, share each launch: c1, c2, c3,
 // then c4 with the posterior's and masked posterior's heads, the prior's

@@ -1,6 +1,10 @@
-// The GEMM core of the VDVAE decoder-chain kernels (decoder_chain_fwd.cu,
-// decoder_chain_bwd.cu): tanh-gelu, the geometry of a run, and the kernels,
-// on Hopper's tensor cores.
+// The GEMM core of the VDVAE chain kernels (the decoder's
+// decoder_chain_{fwd,bwd}.cu and the encoder's block_chain_{fwd,bwd}.cu):
+// tanh-gelu, the geometry of a run, and the kernels, on Hopper's tensor
+// cores. The including file names the namespace, PM_CORE_NS, before the
+// include (dck for the decoder chain, bck for the block chain), so that a
+// profile tells the two libraries' kernels apart and no two libraries define
+// the same symbols.
 //
 // - `dgemm`: every data product of a run (the Blocks' c1..c4 and their
 //   data gradients), over the B*H*W rows. One launch computes a group of
@@ -65,13 +69,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace dck {
+#ifndef PM_CORE_NS
+#error "define PM_CORE_NS, the core's namespace, before including vdvae_gemm.cuh"
+#endif
+
+namespace PM_CORE_NS {
 
 // ---- geometry ------------------------------------------------------------
 
 // Integer arguments of the C entry points, in the order of
-// ops/decoder_chain.py::_GEOMETRY (the latent width follows, see
-// decoder_chain_common.cuh).
+// ops/block_chain.py::_GEOMETRY and ops/decoder_chain.py::_GEOMETRY (whose
+// latent width follows, see decoder_chain_common.cuh).
 enum GeoInt { I_L, I_B, I_H, I_W, I_C, I_M, I_K, I_COUNT };
 
 struct Geo {
@@ -255,6 +263,24 @@ struct DArgs {
   int halo;  // rows staged above and below a tile: W + 1 where a term has taps, else 0
   int nbuf;  // A slab buffers: 2 where a job has more than one slab
 };
+
+// A 1x1 or k x k term of a Block's product (see DTerm).
+inline DTerm term(const float* src, int K, int gelu, const float* w, int ld, int trans,
+                  int taps = 1, int sign = 1) {
+  return DTerm{src, w, K, taps, sign, gelu, ld, trans};
+}
+
+// A product of N columns into out (rows of ldo floats), its terms added.
+inline DJob job(int N, int epi, float* out, int ldo, DTerm t0) {
+  DJob j{};
+  j.t[0] = t0;
+  j.nt = 1;
+  j.N = N;
+  j.epi = epi;
+  j.out = out;
+  j.ldo = ldo;
+  return j;
+}
 
 // Threads and tiles of dgemm<BN, TM>: a warp per (m16 row tile, NW8 n8
 // tiles); a thread carries NREG of a slab's (row, 8-channel group) items
@@ -957,10 +983,10 @@ inline void launch_kernel(void (*k)(A...), dim3 grid, int threads, int smem_byte
 // Blocks a launch should have to fill a wave of the H100's 132 SMs (a
 // build may set fewer: the CPU emulation's tests give their small runs
 // 64-row tiles).
-#ifndef DCK_WAVE_BLOCKS
-#define DCK_WAVE_BLOCKS 132
+#ifndef PM_CORE_WAVE_BLOCKS
+#define PM_CORE_WAVE_BLOCKS 132
 #endif
-constexpr int kWaveBlocks = DCK_WAVE_BLOCKS;
+constexpr int kWaveBlocks = PM_CORE_WAVE_BLOCKS;
 
 template <int BN, int TM>
 inline void launch_dgemm_tm(const DArgs& a, int nj, cudaStream_t s) {
@@ -1004,10 +1030,10 @@ inline void launch_dgemm(const Geo& g, const DJob* prob, int np, cudaStream_t s)
 // the fewest rows a split sums (a build may set fewer: the CPU emulation's
 // tests cut their small runs into splits).
 constexpr int kWgradBlocks = 4 * 132;
-#ifndef DCK_MIN_SPLIT_ROWS
-#define DCK_MIN_SPLIT_ROWS 512
+#ifndef PM_CORE_MIN_SPLIT_ROWS
+#define PM_CORE_MIN_SPLIT_ROWS 512
 #endif
-constexpr int kMinSplitRows = DCK_MIN_SPLIT_ROWS;
+constexpr int kMinSplitRows = PM_CORE_MIN_SPLIT_ROWS;
 
 // Blocks of one split of job J: a block per (level, tap, BN channels, BN
 // columns) in wgrad, per (level, 16 channels, BN columns) with the taps
@@ -1063,4 +1089,4 @@ inline void launch_wgrad(const Geo& g, const WJob* job, int nj, int blocks, bool
                   a);
 }
 
-}  // namespace dck
+}  // namespace PM_CORE_NS

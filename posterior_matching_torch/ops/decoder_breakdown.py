@@ -1,12 +1,16 @@
-"""Where the VDVAE decoder-chain kernels' time goes, on one CUDA device.
+"""Where the VDVAE chain kernels' time goes, on one CUDA device.
 
-Builds the decoder chain's two libraries (``csrc/decoder_chain_fwd.cu`` and
-``decoder_chain_bwd.cu`` with their headers) as they are and in variants
-that each take one part of the work away (by substitution in the sources),
-times every build in turns with CUDA events through the wrappers of
-``ops/decoder_chain.py`` at the five decoder runs of a PM-VDVAE MNIST
-training batch (16 images; res 1, 3, 7, 14, 28 with 2, 3, 3, 5, 7 levels;
-width 192, mid 48, latent 16; weights at 1 / sqrt(fan-in) from a seed), and
+Both chains run on one GEMM core (``csrc/vdvae_gemm.cuh``). For the chain
+``--chain`` names, this builds its two libraries (the decoder's
+``csrc/decoder_chain_fwd.cu`` and ``decoder_chain_bwd.cu``, or the
+encoder's ``csrc/block_chain_fwd.cu`` and ``block_chain_bwd.cu``, with their
+headers) as they are and in variants that each take one part of the work
+away (by substitution in the sources), times every build in turns with CUDA
+events through the wrappers of ``ops/decoder_chain.py`` (``ops/
+block_chain.py``) at the five runs of a PM-VDVAE MNIST training batch (16
+images, width 192, mid 48; the decoder's fused runs at res 1, 3, 7, 14, 28
+with 2, 3, 3, 5, 7 levels and latent 16, the encoder's at res 28, 14, 7, 3,
+1 with 6, 4, 2, 2, 2 levels; weights at 1 / sqrt(fan-in) from a seed), and
 prints one line per (kind, run, build):
 
 - ``kernel``: the sources as they are;
@@ -28,20 +32,20 @@ prints one line per (kind, run, build):
   level loop: it reads whatever the scratch holds).
 
 Only ``kernel`` computes the right values. ``--other NAME=DIR`` also times
-the decoder sources in DIR (another version of ``ops/csrc``, e.g. a parent
+the chain's sources in DIR (another version of ``ops/csrc``, e.g. a parent
 commit's) as NAME in the same turns; ``--only`` restricts the variants
 (``--only kernel`` times the sources as they are and the others, whatever
 their design). Each build that is timed whole (``kernel`` and the others)
 is also profiled once per run: device ms by part (data products, weight
 gradients, bias sums and reductions, z steps, copies), CUDA kernel launches
 a level, each kernel's device ms in launch order (``times.json``), and the
-TFLOP/s of float32 work (the run's operations as ``chip_smoke.py`` counts
-them over the timed ms).
+TFLOP/s of float32 work (the run's operations, ``decoder_chain.chain_flops``
+or ``block_chain.chain_flops``, over the timed ms).
 
-Usage: ``python3 -m posterior_matching_torch.ops.decoder_breakdown [--other
-parent=DIR] [--only kernel,one_pass] [--reps 5] [--out DIR]`` (sources,
-libraries and ``times.json`` go to ``--out``, by default
-``ops/_build/decoder_breakdown``).
+Usage: ``python3 -m posterior_matching_torch.ops.decoder_breakdown [--chain
+decoder|block] [--other parent=DIR] [--only kernel,one_pass] [--reps 5]
+[--out DIR]`` (sources, libraries and ``times.json`` go to ``--out``, by
+default ``ops/_build/{decoder,block}_breakdown``).
 """
 from __future__ import annotations
 
@@ -51,17 +55,18 @@ import json
 import subprocess
 import sys
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
-from posterior_matching_torch.ops import _build, decoder_chain as dc
+from posterior_matching_torch.ops import _build, block_chain as bc, decoder_chain as dc
 
-CORE, FWD, BWD = "decoder_gemm.cuh", "decoder_chain_fwd.cu", "decoder_chain_bwd.cu"
+CORE, FWD, BWD = "vdvae_gemm.cuh", "decoder_chain_fwd.cu", "decoder_chain_bwd.cu"
 # the decoder's sources; a version may lack some (an older design has no
 # core header and includes block_chain_common.cuh)
 FILES = (CORE, "block_chain_common.cuh", "decoder_chain_common.cuh", FWD, BWD)
-LIBS = ("decoder_chain_fwd", "decoder_chain_bwd")
+# the block chain's: the core (an older design had none) and its own
+BLOCK_FILES = (CORE, "block_chain_common.cuh", "block_chain_fwd.cu", "block_chain_bwd.cu")
 _MMAS = ("mma_tf32(part[u], as, bb[u]);", "mma_tf32(part[u], ab, bs[u]);",
          "mma_tf32(part[u], ab, bb[u]);")
 # Each variant's substitutions: (file, old, new[, n]); each old string
@@ -87,9 +92,27 @@ _PARTS = {
                    "  for (int l = -1; l >= 0; --l) {")],
 }
 VARIANTS = ("kernel", *_PARTS)
-# The PM-VDVAE MNIST decoder's fused runs at batch 16: (res, levels, k).
+# The PM-VDVAE MNIST decoder's fused runs at batch 16: (res, levels, k) ...
 RUNS = ((1, 2, 1), (3, 3, 3), (7, 3, 3), (14, 5, 3), (28, 7, 3))
+# ... and its encoder's runs (encoder_blocks "28x6,...,14x4,...,7x2,...,3x2,...,1x2").
+BLOCK_RUNS = ((28, 6, 3), (14, 4, 3), (7, 2, 3), (3, 2, 3), (1, 2, 1))
 BATCH, WIDTH, MID, LD = 16, 192, 48, 16
+
+
+class Chain(NamedTuple):
+    """A chain's sources (``files``: all it may include; ``fwd``, ``bwd``:
+    its two entry points' files) and its libraries."""
+    files: Tuple[str, ...]
+    fwd: str
+    bwd: str
+    libs: Tuple[str, str]
+
+
+CHAINS = {
+    "decoder": Chain(FILES, FWD, BWD, ("decoder_chain_fwd", "decoder_chain_bwd")),
+    "block": Chain(BLOCK_FILES, "block_chain_fwd.cu", "block_chain_bwd.cu",
+                   ("block_chain_fwd", "block_chain_bwd")),
+}
 # device-time parts of a run, by kernel name (either design's)
 PARTS = (("data products", ("chain_gemm", "dgemm")),
          ("weight gradients", ("wgrad",)),
@@ -99,13 +122,15 @@ PARTS = (("data products", ("chain_gemm", "dgemm")),
          ("copies", ("emcpy",)))
 
 
-def variants(texts: Dict[str, str], names=VARIANTS) -> Dict[str, Dict[str, str]]:
-    """The sources (by file name) as they are and with parts taken away,
-    for each of ``names``."""
+def variants(texts: Dict[str, str], names=VARIANTS,
+             chain: str = "decoder") -> Dict[str, Dict[str, str]]:
+    """The sources (by file name) of ``chain`` as they are and with parts
+    taken away, for each of ``names``."""
     out = {}
     for name in names:
         new = dict(texts)
         for f, old, rep, *n in _PARTS.get(name, ()):
+            f = CHAINS[chain].bwd if f == BWD else f
             if new[f].count(old) != (n[0] if n else 1):
                 raise ValueError(f"{f} no longer has {n[0] if n else 1} of {old!r} ({name})")
             new[f] = new[f].replace(old, rep)
@@ -113,29 +138,36 @@ def variants(texts: Dict[str, str], names=VARIANTS) -> Dict[str, Dict[str, str]]
     return out
 
 
-def dec_chain_flops(b, h, w, c, mid, ld, k, n_lvl):
-    """Forward operations of a decoder run (2 a multiply-add): at every row
-    c1 of the four Blocks (inputs 2c, 2c, c, c), their c4 (outputs 2 ld,
-    ld + tril, 2 ld + c, c) and the z projection; c2 and c3 of the four at
-    the taps that land inside the image only."""
-    pad = k // 2
-    taps = sum(max(h - abs(dy), 0) * max(w - abs(dx), 0)
-               for dy in range(-pad, pad + 1) for dx in range(-pad, pad + 1))
-    rows, mw = b * h * w, ld + ld * (ld + 1) // 2
-    per_level = (2 * rows * mid * 6 * c + 4 * 2 * 2 * b * taps * mid * mid
-                 + 2 * rows * mid * (2 * ld + mw + 2 * ld + c + c) + 2 * rows * ld * c)
-    return float(n_lvl * per_level)
+def _block_cases(dev):
+    """The block chain's :func:`_cases`."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for res, n_lvl, k in BLOCK_RUNS:
+        rows = BATCH * res * res
+        x = torch.randn(BATCH, res, res, WIDTH, generator=gen, device=dev)
+        cfg = bc.ChainConfig(x, n_lvl, MID, k)
+        x0 = x.reshape(rows, WIDTH)
+        w = {n: torch.randn((n_lvl, *s), generator=gen, device=dev) * s[0] ** -0.5
+             for n, s in bc.weight_shapes(WIDTH, MID, k)}
+        g = torch.randn(rows, WIDTH, generator=gen, device=dev)
+        wk = {n: w[n] for n in ("w1", "w2", "w3", "w4")}
+        holder = {}
 
+        def fwd(cfg=cfg, x0=x0, w=w, holder=holder):
+            holder["out"] = bc.chain_fwd(cfg, x0, w)
 
-def bwd_flops(flops, rows, c, mid, n_lvl):
-    """The backward's operations: each forward product twice (data and
-    weight gradients) but the masked Block's data gradient on the state."""
-    return 2 * flops - 2.0 * n_lvl * rows * c * mid
+        def bwd(cfg=cfg, x0=x0, g=g, wk=wk, holder=holder):
+            bc.chain_bwd(cfg, g, {"x0": x0, **holder["out"]}, wk)
+
+        flops = bc.chain_flops(BATCH, res, res, WIDTH, MID, k, n_lvl)
+        cases[f"fwd res {res}"] = (fwd, n_lvl, flops)
+        cases[f"bwd res {res}"] = (bwd, n_lvl, 2 * flops)
+    return cases
 
 
 def _cases(dev):
-    """Per run: the forward and the backward call (functions of nothing),
-    its levels and its operations."""
+    """Per run of the decoder: the forward and the backward call (functions
+    of nothing), its levels and its operations."""
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(*shape, scale=1.0):
@@ -164,9 +196,9 @@ def _cases(dev):
             saved = {n: {**ins, **holder["out"]}[n] for n in dc._SAVED}
             dc.dec_bwd(cfg, cots, saved, w)
 
-        flops = dec_chain_flops(BATCH, res, res, WIDTH, MID, LD, k, n_lvl)
+        flops = dc.chain_flops(BATCH, res, res, WIDTH, MID, LD, k, n_lvl)
         cases[f"fwd res {res}"] = (fwd, n_lvl, flops)
-        cases[f"bwd res {res}"] = (bwd, n_lvl, bwd_flops(flops, rows, WIDTH, MID, n_lvl))
+        cases[f"bwd res {res}"] = (bwd, n_lvl, dc.bwd_flops(flops, rows, WIDTH, MID, n_lvl))
     return cases
 
 
@@ -192,29 +224,32 @@ def profile_parts(fn) -> Dict[str, float]:
     return out
 
 
-def _sources(names: List[str], others: Dict[str, Path], out: Path) -> Dict[str, Path]:
-    """A directory of sources per build: the variants written under
-    ``out``, the others as given."""
-    texts = {f: (_build.CSRC / f).read_text() for f in FILES if (_build.CSRC / f).exists()}
+def _sources(names: List[str], others: Dict[str, Path], out: Path,
+             chain: str) -> Dict[str, Path]:
+    """A directory of ``chain``'s sources per build: the variants written
+    under ``out``, the others as given."""
+    ch = CHAINS[chain]
+    texts = {f: (_build.CSRC / f).read_text() for f in ch.files if (_build.CSRC / f).exists()}
     dirs = {}
-    for name, new in variants(texts, names).items():
+    for name, new in variants(texts, names, chain).items():
         d = out / "src" / name
         d.mkdir(parents=True, exist_ok=True)
         for f, text in new.items():
             (d / f).write_text(text)
         dirs[name] = d
     for name, path in others.items():
-        if not all((path / f).exists() for f in (FWD, BWD)):
-            raise FileNotFoundError(f"{path} lacks {FWD} or {BWD}")
+        if not all((path / f).exists() for f in (ch.fwd, ch.bwd)):
+            raise FileNotFoundError(f"{path} lacks {ch.fwd} or {ch.bwd}")
         dirs[name] = path
     return dirs
 
 
-def _build_all(dirs: Dict[str, Path], out: Path):
-    """Compiles both libraries of every source directory, all at once."""
+def _build_all(dirs: Dict[str, Path], out: Path, libs_of: Tuple[str, str]):
+    """Compiles both libraries ``libs_of`` of every source directory, all
+    at once."""
     procs = {}
     for name, src in dirs.items():
-        for lib in LIBS:
+        for lib in libs_of:
             so = out / "lib" / f"lib{lib}-{name}.so"
             so.parent.mkdir(parents=True, exist_ok=True)
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-o", str(so),
@@ -232,10 +267,11 @@ def _build_all(dirs: Dict[str, Path], out: Path):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--chain", choices=tuple(CHAINS), default="decoder")
     parser.add_argument("--other", action="append", default=[], metavar="NAME=DIR")
     parser.add_argument("--only", default=",".join(VARIANTS))
     parser.add_argument("--reps", type=int, default=5)
-    parser.add_argument("--out", default=str(_build.BUILD_DIR / "decoder_breakdown"))
+    parser.add_argument("--out")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("decoder_breakdown: no CUDA device is available", file=sys.stderr)
@@ -244,8 +280,9 @@ def main() -> int:
     unknown = set(names) - set(VARIANTS)
     if unknown:
         parser.error(f"unknown variants {sorted(unknown)}")
-    out = Path(args.out).resolve()
+    out = Path(args.out or _build.BUILD_DIR / f"{args.chain}_breakdown").resolve()
     out.mkdir(parents=True, exist_ok=True)
+    ch = CHAINS[args.chain]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
@@ -254,20 +291,25 @@ def main() -> int:
     for spec in args.other:
         name, _, path = spec.partition("=")
         others[name] = Path(path).resolve()
-    dirs = _sources(names, others, out)
-    libs = _build_all(dirs, out)
+    dirs = _sources(names, others, out, args.chain)
+    libs = _build_all(dirs, out, ch.libs)
     first = next(iter(libs))
 
     dev = torch.device("cuda")
-    for lib in LIBS:
+    for lib in ch.libs:
         _build._loaded[lib] = libs[first][lib]
-    cases = _cases(dev)
+    cases = (_block_cases if args.chain == "block" else _cases)(dev)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = {case: {name: [] for name in libs} for case in cases}
     with torch.no_grad():
+        # the first build warms the card (clocks, caches) before the turns
+        for fn, _, _ in cases.values():
+            for _ in range(args.reps):
+                fn()
+        torch.cuda.synchronize()
         # every build's forward first: the backwards read its saves
         for name in [*libs, *reversed(list(libs))]:
-            for lib in LIBS:
+            for lib in ch.libs:
                 _build._loaded[lib] = libs[name][lib]
             for case, (fn, _, _) in cases.items():
                 fn()
@@ -280,7 +322,7 @@ def main() -> int:
         whole = [n for n in libs if n == "kernel" or n in others]
         parts = {case: {} for case in cases}
         for name in whole:
-            for lib in LIBS:
+            for lib in ch.libs:
                 _build._loaded[lib] = libs[name][lib]
             for case, (fn, _, _) in cases.items():
                 parts[case][name] = profile_parts(fn)
@@ -304,7 +346,8 @@ def main() -> int:
             print(f"{name:11s} {kind} mean over the five runs: {sum(mean) / len(mean):.4f} "
                   f"ms/launch", flush=True)
     (out / "times.json").write_text(json.dumps(
-        {"device": smi, "ms": times, "parts": parts, "reps": args.reps}, indent=1))
+        {"device": smi, "chain": args.chain, "ms": times, "parts": parts, "reps": args.reps},
+        indent=1))
     print(smi)
     return 0
 

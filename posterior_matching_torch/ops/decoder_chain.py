@@ -23,7 +23,7 @@ On the GPU a run is two hand-written kernels, ``csrc/decoder_chain_fwd.cu``
 (replacing ``_fwd_kernel_factory``, :226, ``pallas_call`` :479) and
 ``csrc/decoder_chain_bwd.cu`` (``_bwd_kernel_factory``, :291,
 ``pallas_call`` :532), both on the tensor-core GEMM core of
-``csrc/decoder_gemm.cuh``, joined by :class:`DecChain`, a
+``csrc/vdvae_gemm.cuh``, joined by :class:`DecChain`, a
 ``torch.autograd.Function`` whose backward takes the cotangents of all four
 outputs. Beside them is :func:`dec_chain_plain`, the same run in plain
 PyTorch, differentiated by autograd, which the dispatcher :func:`dec_chain`
@@ -40,7 +40,7 @@ import torch
 
 from posterior_matching_torch.distributions._math import softplus_scale, tril_size
 from posterior_matching_torch.ops import _build
-from posterior_matching_torch.ops.block_chain import conv_taps, gelu
+from posterior_matching_torch.ops.block_chain import conv_taps, gelu, tap_pixels
 
 # (width, mid, latent) triples the kernels are compiled for
 # (csrc/decoder_chain_common.cuh, DCK_DISPATCH_WIDTHS): PM-VDVAE MNIST's and
@@ -69,6 +69,24 @@ def weight_shapes(width: int, awidth: int, mid: int, ld: int, k: int
                    (f"{tag}_w3", (kk * mid, mid)), (f"{tag}_b3", (1, mid)),
                    (f"{tag}_w4", (mid, cout)), (f"{tag}_b4", (1, cout))]
     return shapes + [("wz", (ld, width)), ("bz", (1, width))]
+
+
+def chain_flops(b: int, h: int, w: int, c: int, mid: int, ld: int, k: int,
+                n_lvl: int) -> float:
+    """Forward operations of a run (2 a multiply-add): at every row c1 of
+    the four Blocks (inputs 2c, 2c, c, c), their c4 (outputs 2 ld, ld +
+    tril, 2 ld + c, c) and the z projection; c2 and c3 of the four at the
+    taps that land inside the image only."""
+    rows, mw = b * h * w, ld + tril_size(ld)
+    per_level = (2 * rows * mid * 6 * c + 4 * 2 * 2 * b * tap_pixels(h, w, k) * mid * mid
+                 + 2 * rows * mid * (2 * ld + mw + 2 * ld + c + c) + 2 * rows * ld * c)
+    return float(n_lvl * per_level)
+
+
+def bwd_flops(flops: float, rows: int, c: int, mid: int, n_lvl: int) -> float:
+    """The backward's operations: each forward product twice (data and
+    weight gradients) but the masked Block's data gradient on the state."""
+    return 2 * flops - 2.0 * n_lvl * rows * c * mid
 
 
 def _block(w: Weights, tag: str, lvl: int, x: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,0 +1,13 @@
+// Runs one of the block chain's C entry points (BLOCK_SOURCE:
+// block_chain_fwd.cu or block_chain_bwd.cu, with vdvae_gemm.cuh),
+// emulated, on CPU pointers: every launch runs its blocks one at a time,
+// each block as its threads' std::threads. The sources here are the
+// emulated copies (PTX helpers replaced, launch_kernel a call of
+// emu_launch_grid, dynamic shared memory the array below).
+#include <cuda_runtime.h>
+
+alignas(64) float smem[232448 / 4];
+
+#include BLOCK_SOURCE
+
+EMU_GLOBALS(smem)

@@ -1,8 +1,9 @@
 // A CPU stand-in for the CUDA pieces that csrc/sampler_row.cu,
 // csrc/sampler_vrow.cu, the gated chain's GEMM kernels
-// (csrc/gated_common.cuh, gated_levels.cuh) and the decoder chain's entry
-// points (csrc/decoder_chain_{fwd,bwd}.cu on decoder_gemm.cuh, whose
-// launch_kernel the emulation turns into emu_launch_grid, with the host
+// (csrc/gated_common.cuh, gated_levels.cuh) and the VDVAE chains' entry
+// points (csrc/decoder_chain_{fwd,bwd}.cu and block_chain_{fwd,bwd}.cu on
+// vdvae_gemm.cuh, whose launch_kernel the emulation turns into
+// emu_launch_grid, with the host
 // calls they make: stream copies, attributes) use, so the kernels' indexing,
 // barriers, operand rings and fragment layouts can be tested without a GPU
 // (tests/test_torch_*_kernel_emulated.py). A block runs as one std::thread

@@ -1,5 +1,5 @@
 // Runs one of the decoder chain's C entry points (DECODER_SOURCE:
-// decoder_chain_fwd.cu or decoder_chain_bwd.cu, with decoder_gemm.cuh),
+// decoder_chain_fwd.cu or decoder_chain_bwd.cu, with vdvae_gemm.cuh),
 // emulated, on CPU pointers: every launch runs its blocks one at a time,
 // each block as its threads' std::threads. The sources here are the
 // emulated copies (PTX helpers replaced, launch_kernel a call of

@@ -1,5 +1,5 @@
 """The decoder chain's kernels (``csrc/decoder_chain_fwd.cu`` and
-``decoder_chain_bwd.cu`` on the GEMM core ``csrc/decoder_gemm.cuh``),
+``decoder_chain_bwd.cu`` on the GEMM core ``csrc/vdvae_gemm.cuh``),
 emulated on the CPU, against ``dec_chain_plain`` and its autograd.
 
 Each source is compiled with ``g++`` against ``tests/cuda_emulation`` and
@@ -42,40 +42,41 @@ _EMU_LAUNCH = ("emu_launch_grid(grid.x, grid.y, grid.z, threads, threads, smem_b
 SOURCES = ("decoder_chain_fwd.cu", "decoder_chain_bwd.cu")
 # the builds: (source, extra flags); "wide" ones fill a wave with one
 # block, so a toy run's products take 64-row tiles
-BUILDS = {"fwd": (SOURCES[0], []), "bwd_split": (SOURCES[1], ["-DDCK_MIN_SPLIT_ROWS=32"]),
-          "fwd_wide": (SOURCES[0], ["-DDCK_WAVE_BLOCKS=1"]),
-          "bwd_wide": (SOURCES[1], ["-DDCK_WAVE_BLOCKS=1"])}
+BUILDS = {"fwd": (SOURCES[0], []), "bwd_split": (SOURCES[1], ["-DPM_CORE_MIN_SPLIT_ROWS=32"]),
+          "fwd_wide": (SOURCES[0], ["-DPM_CORE_WAVE_BLOCKS=1"]),
+          "bwd_wide": (SOURCES[1], ["-DPM_CORE_WAVE_BLOCKS=1"])}
 
 
-def emulated_sources(out: Path):
-    """Writes the decoder sources into ``out`` with the core's PTX helpers
-    replaced, its launches emulated and the dynamic shared memory the
-    harness's array."""
-    core = (_build.CSRC / "decoder_gemm.cuh").read_text()
+def emulated_sources(out: Path, files=("decoder_chain_common.cuh", *SOURCES)):
+    """Writes the chain sources ``files`` (the decoder's by default) and the
+    GEMM core into ``out``, the core's PTX helpers replaced, its launches
+    emulated and the dynamic shared memory the harness's array."""
+    core = (_build.CSRC / "vdvae_gemm.cuh").read_text()
     assert core.count(_LAUNCH) == 1
-    core = _replace_helpers(core.replace(_LAUNCH, _EMU_LAUNCH), "decoder_gemm.cuh")
-    (out / "decoder_gemm.cuh").write_text(core.replace(_SMEM, ""))
-    for name in ("decoder_chain_common.cuh", *SOURCES):
+    core = _replace_helpers(core.replace(_LAUNCH, _EMU_LAUNCH), "vdvae_gemm.cuh")
+    (out / "vdvae_gemm.cuh").write_text(core.replace(_SMEM, ""))
+    for name in files:
         text = (_build.CSRC / name).read_text()
         assert "<<<" not in text and "asm" not in text, name
         (out / name).write_text(text.replace(_SMEM, ""))
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
+def compile_builds(out: Path, harness: str, macro: str, builds):
+    """Compiles ``harness`` (in tests/cuda_emulation) once per build of
+    ``builds`` ({name: (source, extra flags)}), the source named to it by
+    ``macro``, against the emulated sources in ``out``, all at once; skips
+    without a C++20 compiler. Returns the loaded libraries by build name."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to compile the emulated kernels")
-    out = tmp_path_factory.mktemp("decoder_emulation")
-    emulated_sources(out)
     procs = {}
-    for name, (src, flags) in BUILDS.items():
+    for name, (src, flags) in builds.items():
         lib = out / f"lib{name}.so"
         procs[name] = (subprocess.Popen(
             [cxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w",
-             f'-DDECODER_SOURCE="{src}"', *flags,
+             f'-D{macro}="{src}"', *flags,
              "-I", str(out), "-I", str(EMULATION), "-o", str(lib),
-             str(EMULATION / "decoder_harness.cpp")],
+             str(EMULATION / harness)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for name, (proc, lib) in procs.items():
@@ -84,6 +85,14 @@ def emu(tmp_path_factory):
             pytest.skip("needs a C++20 standard library (<barrier>)")
         assert proc.returncode == 0, log[-4000:]
         libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    out = tmp_path_factory.mktemp("decoder_emulation")
+    emulated_sources(out)
+    libs = compile_builds(out, "decoder_harness.cpp", "DECODER_SOURCE", BUILDS)
     P, I = ctypes.c_void_p, ctypes.c_int
     for name in ("fwd", "fwd_wide"):
         libs[name].pm_decoder_chain_fwd.argtypes = [P, I, P, I, P]

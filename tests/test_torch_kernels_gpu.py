@@ -15,15 +15,16 @@ chain backwards at the flagship's 32 x 16 x 16 rows (weight gradients in row
 splits) and at 2 x 7 x 7 (in one pass), each relaunched bit for bit; the vrow
 kernel at the flagship's row (W 16, n 320, L 24), relaunched bit for bit; latent counts that
 leave the search's 32-row tiles ragged; block-chain and decoder-chain runs
-whose rows leave the 32- to 256-row tiles ragged, 1x1 and 3x3 taps at the
-image's edges, and runs long enough that their weight gradients sum two
-1024-row splits, each at both compiled geometries; the decoder chain's
+whose rows leave the 16- to 64-row tiles ragged, 1x1 and 3x3 taps at the
+image's edges, and runs long enough that their weight gradients sum
+several row splits, each at both compiled geometries; the decoder chain's
 backward with every output's cotangent and with the state's alone; and a
 digits16 PM-VDVAE step, with the block chain and with the decoder chain
-too, against the CPU; the decoder chain's kernels relaunched bit for bit
-at the res-28 run shape; and the gated chain's and the decoder chain's
-3xTF32 GEMM cores on operands that TF32 alone would round, against
-float64.
+too, against the CPU; the block chain's and the decoder chain's kernels
+relaunched bit for bit at their res-28 run shapes; and the gated chain's
+GEMM core and the VDVAE chains' (the block chain's 1x1 products, its
+halo-staged 3x3 taps and their weight gradients, and the decoder chain's
+products) on operands that TF32 alone would round, against float64.
 Tolerance: 1e-4 relative to the tensor's scale (float32 sums in another
 order), for the chains' gradients too (their sums run over at most a few
 thousand rows here).
@@ -490,6 +491,136 @@ def test_block_chain_kernels_match_plain(dev, b, h, w, L, k, c, m):
     grads_p = torch.autograd.grad(want, leaves, cot)
     for name, gk, gp in zip(("x", *bc.NAMES), grads_k, grads_p):
         assert _close(gk, gp), name
+
+
+def test_block_chain_kernels_relaunch_bit_for_bit_at_res28(dev):
+    """The encoder's res-28 run of a PM-VDVAE MNIST training batch (16 x 28
+    x 28 rows, 6 levels, 3x3): both kernels launched twice on the same
+    inputs give the same bits (the weight gradients' row splits are added
+    in a fixed order)."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    x, weights = _block_chain_case(gen, 16, 28, 28, 6, 3)
+    cfg = bc.ChainConfig(x, 6, 48, 3)
+    x0 = x.reshape(cfg.rows, 192)
+    g = _rand(gen, cfg.rows, 192)
+    wk = {n: weights[n] for n in ("w1", "w2", "w3", "w4")}
+    with torch.no_grad():
+        outs = [bc.chain_fwd(cfg, x0, weights) for _ in range(2)]
+        grads = [bc.chain_bwd(cfg, g, {"x0": x0, **outs[0]}, wk) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in (outs, grads):
+        for name in a:
+            assert torch.isfinite(a[name]).all() and torch.equal(a[name], b[name]), name
+
+
+def test_block_chain_core_keeps_float32_operands_that_tf32_rounds(dev):
+    """Operands exact in float32 but not in TF32 (1 + 2^-12 rounds to 1 in
+    TF32's 10 fraction bits) through both of the block chain's products, in
+    the backward of a one-level run (2 x 5 x 5 rows, 3x3), with the saved h3
+    at 16 or 16 (1 + 2^-12), where gelu is the identity and gelu' is 1 in
+    float32: dh3 = gelu'(h3) (g @ w4^T), summed into db3 (dgemm, g on the A
+    side, w4 on the B side), and dw4 = gelu(h3)^T g (wgrad, h3 on the A
+    side, g on the B side). No product has two such operands (h3's odd
+    values lie on even rows, g's on odd rows), and every sum stays below
+    2^11 at a resolution of 2^-13 (db3's below 2^8), so the float32 results
+    are exact and the 3xTF32 split reaches them; one TF32 pass would be off
+    by ~5e-5 of scale. Against float64 at 1e-6."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    b, h, w, c, m = 2, 5, 5, 192, 48
+    x, weights = _block_chain_case(gen, b, h, w, 1, 3, c, m)
+    cfg = bc.ChainConfig(x, 1, m, 3)
+    R, odd = cfg.rows, 1.0 + 2.0 ** -12
+    rows = torch.arange(R, device=dev)[:, None]
+    k8 = torch.arange(8, device=dev)[None, :]
+    # g: odd values in columns 0-7 of the odd rows, 2 or 1 in columns 8-15
+    g = torch.zeros(R, c, device=dev)
+    g[:, :8] = torch.where((rows % 2 == 1) & ((rows + k8) % 3 == 0), odd, 1.0)
+    g[:, 8:16] = torch.where((rows + k8) % 2 == 0, 2.0, 1.0)
+    # w4 [m, c]: B(k = channel of g, n) = w4[n, k]; exact values against g's
+    # odd columns, odd values against its columns 8-15
+    n = torch.arange(m, device=dev)[:, None]
+    w4 = torch.zeros(m, c, device=dev)
+    w4[:, :8] = torch.tensor([1.0, -1.0, 2.0, 0.5], device=dev)[(n + k8) % 4]
+    w4[:, 8:16] = torch.where((n + k8) % 2 == 0, odd, -odd)
+    # h3: 16 (1 + 2^-12) on some channels of the even rows, else 16
+    ch = torch.arange(m, device=dev)[None, :]
+    h3 = torch.where((rows % 2 == 0) & ((rows + ch) % 3 == 0), 16.0 * odd, 16.0)
+    x0 = x.reshape(R, c)
+    wk = {"w1": weights["w1"], "w2": weights["w2"], "w3": weights["w3"], "w4": w4[None]}
+    with torch.no_grad():
+        saved = {"x0": x0, **bc.chain_fwd(cfg, x0, dict(weights, w4=w4[None]))}
+        saved["h3"] = h3[None].contiguous()
+        grads = bc.chain_bwd(cfg, g, saved, wk)
+    torch.cuda.synchronize()
+    want_b3 = (g.double() @ w4.double().T).sum(0)
+    want_w4 = h3.double().T @ g.double()
+    for got, want in ((grads["db3"][0, 0].double(), want_b3),
+                      (grads["dw4"][0].double(), want_w4)):
+        assert want.abs().max().item() < 2.0 ** 11
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+def test_block_chain_conv_taps_keep_float32_operands_that_tf32_rounds(dev):
+    """The block chain's 3x3 stacks on operands exact in float32 but not in
+    TF32 (1 + 2^-12), in a one-level run of two 5 x 5 images: the forward's
+    c2 (dgemm's halo-staged taps) with w1 zero, so that h1 = b1, 16 or
+    16 (1 + 2^-12) by channel (gelu is the identity there), and w2 odd only
+    on the rows of the channels where h1 is 16; and the backward's dw3
+    (wgrad_taps) from a saved h2 of 16 or 16 (1 + 2^-12) on the first
+    image only and dh3 = g @ w4^T (h3 = 16, gelu' = 1) odd on the second
+    image only (g and w4 as in the test above: taps never cross images).
+    No product has two such operands and every sum stays below 2^14 at a
+    resolution of 2^-9, so the float32 results are exact and the 3xTF32
+    split reaches them; one TF32 pass would be off by ~1e-4 of scale.
+    Against float64 at 1e-6."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    b, h, w, c, m = 2, 5, 5, 192, 48
+    x, weights = _block_chain_case(gen, b, h, w, 1, 3, c, m)
+    cfg = bc.ChainConfig(x, 1, m, 3)
+    R, odd = cfg.rows, 1.0 + 2.0 ** -12
+    ch = torch.arange(m, device=dev)
+    # forward: h1 = b1, odd on the even channels; w2 [9 m, m] exact on their
+    # rows, odd on the others', every entry positive
+    tap_row = torch.arange(9 * m, device=dev)[:, None]
+    col = ch[None, :]
+    chan = tap_row % m
+    w2 = torch.where(chan % 2 == 0,
+                     torch.tensor([1.0, 2.0, 0.5], device=dev)[(tap_row + col) % 3],
+                     odd * torch.tensor([1.0, 2.0], device=dev)[(tap_row + col) % 2])
+    b1 = torch.where(ch % 2 == 0, 16.0 * odd, 16.0)
+    fw = dict(weights, w1=torch.zeros_like(weights["w1"]), b1=b1[None, None].contiguous(),
+              w2=w2[None].contiguous(), b2=torch.zeros_like(weights["b2"]))
+    x0 = x.reshape(R, c)
+    with torch.no_grad():
+        saved = {"x0": x0, **bc.chain_fwd(cfg, x0, fw)}
+    h1 = b1.double().cpu().expand(b, h, w, m)
+    want_h2 = bc.conv_taps(h1, w2.double().cpu(), 3).reshape(R, m)
+    # backward: g and w4 put dh3 = s on the first image's rows and
+    # +-s (1 + 2^-12) on the second's (s = 1 or 2); h2 odd on the first's
+    rows = torch.arange(R, device=dev)[:, None]
+    first = rows < R // 2
+    s = 1.0 + (rows % 2).float()
+    g = torch.zeros(R, c, device=dev)
+    g[:, :1] = torch.where(first, s, 0.0)
+    g[:, 1:2] = torch.where(first, 0.0, s)
+    w4 = torch.zeros(m, c, device=dev)
+    w4[:, 0] = 1.0
+    w4[:, 1] = torch.where(ch % 2 == 0, odd, -odd)
+    got_h2 = saved["h2"][0].double().cpu()
+    saved["h2"] = torch.where(first & ((rows + ch) % 3 == 0), 16.0 * odd, 16.0)[None].contiguous()
+    saved["h3"] = torch.full_like(saved["h3"], 16.0)
+    wk = {"w1": fw["w1"], "w2": fw["w2"], "w3": weights["w3"], "w4": w4[None]}
+    with torch.no_grad():
+        grads = bc.chain_bwd(cfg, g, saved, wk)
+    torch.cuda.synchronize()
+    w3 = torch.zeros(9 * m, m, dtype=torch.float64, requires_grad=True)
+    out = bc.conv_taps(saved["h2"][0].double().cpu().reshape(b, h, w, m), w3, 3)
+    dh3 = (g.double() @ w4.double().T).cpu().reshape(b, h, w, m)
+    want_w3, = torch.autograd.grad(out, w3, dh3)
+    for got, want in ((got_h2, want_h2),
+                      (grads["dw3"][0].double().cpu(), want_w3)):
+        assert want.abs().max().item() < 2.0 ** 14
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
 
 
 def test_block_chain_wrappers_refuse_unsupported_inputs(dev):
