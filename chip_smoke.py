@@ -22,8 +22,12 @@ and checks them, in these phases:
    ``--run_dir``; the sampler kernels' launch counters must show the
    requests went through them; a small request is also checked against the
    plain path on the CPU with the same noise;
-4. the codebook search kernel against its plain version at the training
-   path's shapes (8192 latents of 64, 512 codes), and on exact ties;
+4. the codebook search kernel against its plain version at the stage-2
+   training path's shapes (8192 latents of 64, 512 codes) and at stage 1's
+   (16,384: 64 images), relaunched bit for bit and on exact ties; each
+   timed back to back, by its device time and kernels a call
+   (``torch.profiler``: one kernel a call) and by its host us, beside its
+   bound and the library's two calls (``addmm``, ``argmax``);
 5. the gated chain kernels (forward and backward) against autograd through
    the plain chain at full width (B = 32, 16 x 16, F = 128, cond 512,
    keep 0.5, masks from the in-kernel hash): the stream's for the up and the
@@ -164,19 +168,6 @@ def nvidia_smi_line() -> str:
     return out[torch.cuda.current_device()]
 
 
-def time_ms(fn, reps: int, warmup: int = 1) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -234,16 +225,14 @@ def check(ok: bool, what: str):
 # ---------------------------------------------------------------------------
 
 
-def vq_phase(model, x):
-    """The search kernel against its plain version on the latents of ``x``
-    (the training path's shapes), and on exact ties."""
-    from posterior_matching_torch.ops import vq
-
-    with torch.no_grad():
-        z = model.vqvae.encode(x)
-    flat = z.reshape(-1, z.shape[-1]).contiguous()
-    cb = model.vqvae.vq.embeddings.detach().contiguous()
+def vq_check(vq, flat, cb, what):
+    """The search kernel against its plain version on ``flat``: indices
+    agree on SEARCH_AGREEMENT of the latents, every disagreement a near-tie
+    of the two scores, a relaunch bit for bit, and exact ties (codes k and
+    k + K/2 equal) to the lower index, as in the plain version. Returns the
+    largest score gap."""
     got = vq.nearest_codebook_indices(flat, cb)
+    again = vq.nearest_codebook_indices(flat, cb)
     want = vq.nearest_codebook_indices_plain(flat, cb)
     torch.cuda.synchronize()
     scores = 2.0 * (flat @ cb.T) - (cb * cb).sum(-1)
@@ -253,11 +242,12 @@ def vq_phase(model, x):
     agree = 1.0 - diff.float().mean().item()
     scale = scores.abs().max().item()
     err = gap.max().item()
-    log(f"vq_search: indices agree on {agree:.6f} of {got.numel()} latents; "
+    log(f"vq_search {what}: indices agree on {agree:.6f} of {got.numel()} latents; "
         f"max score gap {err:.3e} (scale {scale:.3e})")
     check(agree >= SEARCH_AGREEMENT, f"vq_search agrees on {agree} < {SEARCH_AGREEMENT}")
     check(bool((gap[diff] <= NEAR_TIE * scale).all()),
           "vq_search disagrees beyond a near-tie")
+    check(torch.equal(got, again), "vq_search: a relaunch changed the indices")
     half = cb.shape[0] // 2
     tied = torch.cat([cb[:half], cb[:half]]).contiguous()   # code k == k + half
     got_t = vq.nearest_codebook_indices(flat, tied)
@@ -265,20 +255,80 @@ def vq_phase(model, x):
     torch.cuda.synchronize()
     check(bool((got_t < half).all()), "vq_search broke a tie to the higher index")
     check(torch.equal(got_t, want_t), "vq_search disagrees on exact ties")
-    log("vq_search: exact ties go to the lower index, as in the plain version")
+    log(f"vq_search {what}: relaunched bit for bit; exact ties go to the lower index, "
+        "as in the plain version")
+    return err
 
-    n, d = flat.shape
-    k = cb.shape[0]
-    ms = time_ms(lambda: vq.nearest_codebook_indices(flat, cb), reps=50, warmup=3)
-    plain_ms = time_ms(lambda: vq.nearest_codebook_indices_plain(flat, cb), reps=50, warmup=3)
-    b_ms, b_by = bound(2.0 * n * k * d, nbytes(flat, cb) + 4 * n)
-    log(f"vq_search: {ms:.4f} ms/launch (plain {plain_ms:.4f}), bound {b_ms:.4f} ms "
-        f"by {b_by} ({2.0 * n * k * d / 1e9:.3f} GFLOP)")
+
+# How the search kernel (TPU row 3) computes.
+VQ_DESIGN = ("one launch a call, norms fused: a block owns 128, 64, 32 or 16 rows (the "
+             "largest filling 7/8 of a wave: 64 at 8192 latents, 128 at 16,384), warps of two "
+             "m16 tiles x 16 codes in 8 code groups (4 at 128 rows); z staged once split in "
+             "fragment order; codes through a 3-stage cp.async ring; scores by mma.sync "
+             "m16n8k8 TF32 with the 3xTF32 split, 16-deep partial sums; |e|^2 from the B "
+             "fragments; argmax in registers, merged by quad shuffles and across code groups "
+             "in shared memory, ties to the lower index")
+
+
+def vq_phase(model, x):
+    """The search kernel against its plain version on the latents of ``x``
+    (the stage-2 training path's shapes) and of 64 seeded images (stage 1's
+    CelebA batch), and on exact ties; at each, the ms a call back to back,
+    the device ms and kernels a call, the host us a call, and the library's
+    two calls (``addmm`` of the negative norms, then ``argmax``) beside."""
+    from posterior_matching_torch.ops import vq
+    from posterior_matching_torch.ops.profiling import host_ms, profile_calls, time_ms
+    from posterior_matching_torch.ops.vq_breakdown import library_fn
+
+    gen = torch.Generator(device=x.device).manual_seed(64)
+    x64 = torch.rand((64, *x.shape[1:]), generator=gen, device=x.device)
+    cb = model.vqvae.vq.embeddings.detach().contiguous()
+    log(f"vq_search: TF32 matmuls {torch.backends.cuda.matmul.allow_tf32} (the library's "
+        "GEMM runs in float32)")
+    per_shape, err = [], 0.0
+    for what, images in (("stage 2", x), ("stage 1", x64)):
+        with torch.no_grad():
+            z = model.vqvae.encode(images)
+        flat = z.reshape(-1, z.shape[-1]).contiguous()
+        n, d = flat.shape
+        k = cb.shape[0]
+        err = max(err, vq_check(vq, flat, cb, f"{what} ({n} x {k} x {d})"))
+        fn = lambda: vq.nearest_codebook_indices(flat, cb)   # noqa: E731
+        lib = library_fn(flat, cb)
+        ms = time_ms(fn, reps=50, warmup=3)
+        plain_ms = time_ms(lambda: vq.nearest_codebook_indices_plain(flat, cb), reps=50,
+                           warmup=3)
+        library_ms = time_ms(lib, reps=50, warmup=3)
+        prof, lib_prof = profile_calls(fn, 20), profile_calls(lib, 20)
+        check(prof is not None, "vq_search: the profiler lost part of three windows")
+        dev_ms, per_call, names = prof
+        check(per_call == 1 and all("vq_search" in name for name in names),
+              f"vq_search: a call launched {per_call} kernels: {names}")
+        flops, byts = 2.0 * n * k * d, nbytes(flat, cb) + 4 * n
+        b_ms, b_by = bound_tc(flops, byts)
+        row = {"shape": [n, k, d], "ms": ms, "device_ms": dev_ms, "kernels_per_call": per_call,
+               "host_us": host_ms(fn) * 1e3, "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_device_ms": lib_prof and lib_prof[0],
+               "library_kernels_per_call": lib_prof and lib_prof[1],
+               "library_host_us": host_ms(lib) * 1e3, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_f32_ms": bound(flops, byts)[0], "gflop": flops / 1e9, "mb": byts / 1e6}
+        per_shape.append(row)
+        log(f"vq_search {what}: {ms:.5f} ms/call back to back, device {dev_ms:.5f} ms in "
+            f"{per_call:g} kernel, host {row['host_us']:.2f} us/call; library (addmm + "
+            f"argmax, two calls) {library_ms:.5f} ms/call, device "
+            f"{row['library_device_ms'] or float('nan'):.5f} ms in "
+            f"{row['library_kernels_per_call']} kernels, host {row['library_host_us']:.2f} "
+            f"us; plain {plain_ms:.5f}; bound {b_ms:.5f} ms by {b_by} on the tensor cores "
+            f"(float32 FMAs {row['bound_f32_ms']:.5f}; {flops / 1e9:.3f} GFLOP, "
+            f"{byts / 1e6:.2f} MB)")
+    main = per_shape[0]
     return {"name": "vq_search", "route": "cuda",
             "source": "posterior_matching_torch/ops/csrc/vq_search.cu",
             "replaces": "posterior_matching_tpu/ops/vq.py:35",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "bound_f32_ms": main["bound_f32_ms"],
+            "design": VQ_DESIGN, "per_shape": per_shape}
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +362,7 @@ def stream_phase(model, x, b, seed):
     """Both gated chain kernels against autograd through the plain chain at
     full width, up pass then down pass, with in-kernel hash dropout."""
     from posterior_matching_torch.ops import gated_chain as gc
+    from posterior_matching_torch.ops.profiling import time_ms
 
     pc = model.pixel_cnn
     n, f = pc.num_resnet, pc.num_filters
@@ -444,6 +495,7 @@ def level_phase(model, x, b, seed):
     in-kernel hash dropout and a random cotangent on every output; each
     timed beside its bound."""
     from posterior_matching_torch.ops import gated_chain as gc
+    from posterior_matching_torch.ops.profiling import time_ms
 
     pc = model.pixel_cnn
     n, f, rf = pc.num_resnet, pc.num_filters, pc.receptive_field_dims
@@ -1027,6 +1079,7 @@ def block_chain_phase(runs, seed):
     timed beside its bound and the plain version, relaunched bit for bit,
     its CUDA kernels a level counted."""
     from posterior_matching_torch.ops import block_chain as bc
+    from posterior_matching_torch.ops.profiling import host_ms, time_ms
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 23)
     per_run = []
@@ -1357,6 +1410,7 @@ def decoder_chain_phase(runs, seed):
     at each run's shapes, with a random cotangent on each of the four
     outputs; each timed beside its bound and the plain version."""
     from posterior_matching_torch.ops import decoder_chain as dc
+    from posterior_matching_torch.ops.profiling import time_ms
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 29)
     per_run = []
@@ -1444,48 +1498,17 @@ def decoder_chain_phase(runs, seed):
                        (("fwd", 226), ("bwd", 291)), per_run, tc=True, design=DECODER_DESIGN)
 
 
-def host_ms(fn) -> float:
-    """The host's ms to enqueue one ``fn()``: 10 calls back to back from an
-    idle stream, the host clock stopped before the device is waited for."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        fn()
-    ms = (time.perf_counter() - t0) * 1e3 / 10
-    torch.cuda.synchronize()
-    return ms
-
-
 def kernel_launches(fn, markers):
     """The kernels (of a chain, by their names' ``markers``) that one
-    ``fn()`` launches, counted by ``torch.profiler``, or None where no
-    window measured them. The profiler loses a window's first kernel, and
-    now and then every kernel from some point on; so eight ``add`` kernels
-    run before ``fn()`` and eight ``mul`` kernels after it, and a window
-    counts only where its trace starts with the one and ends with the other
-    (else it is profiled again, up to three windows)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``fn()`` launches, counted by ``torch.profiler`` between witness kernels
+    (``profiling.profile_calls``), or None where no window measured
+    them."""
+    from posterior_matching_torch.ops.profiling import profile_calls
 
-    lead, trail = torch.zeros(1, device=DEVICE), torch.ones(1, device=DEVICE)
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(8):
-                lead.add_(1.0)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-            for _ in range(8):
-                trail.mul_(1.0)
-            torch.cuda.synchronize()
-        names = [e.name for e in sorted((e for e in prof.events()
-                                         if e.device_type == DeviceType.CUDA),
-                                        key=lambda e: e.time_range.start)]
-        if names and "add" in names[0].lower() and "mul" in names[-1].lower():
-            return sum(1 for k in names if any(m in k for m in markers))
-    return None
+    prof = profile_calls(fn, 1)
+    if prof is None:
+        return None
+    return sum(n for name, n in prof[2].items() if any(m in name for m in markers))
 
 
 def kernels_a_level(what, fn, markers, n_lvl):
@@ -1728,6 +1751,7 @@ def main() -> int:
     from posterior_matching_torch import config, convert, masking
     from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
     from posterior_matching_torch.ops import _build, sampler_chain as sc
+    from posterior_matching_torch.ops.profiling import time_ms
 
     dev = torch.device(DEVICE)
     out_dir = repo / args.out
@@ -2005,7 +2029,8 @@ def main() -> int:
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("launches_per_step", "bound_f32_ms", "per_run", "per_pass", "design")
+    extra = ("launches_per_step", "bound_f32_ms", "per_run", "per_pass", "per_shape",
+             "design")
     log(json.dumps({"kernels": [{**{k: kd[k] for k in keys},
                                  **{k: kd[k] for k in extra if k in kd}} for kd in kernels]}))
     log(json.dumps({"ok": True, "device": {

@@ -60,6 +60,7 @@ from typing import Dict, List, NamedTuple, Tuple
 import torch
 
 from posterior_matching_torch.ops import _build, block_chain as bc, decoder_chain as dc
+from posterior_matching_torch.ops.profiling import time_ms
 
 CORE, FWD, BWD = "vdvae_gemm.cuh", "decoder_chain_fwd.cu", "decoder_chain_bwd.cu"
 # the decoder's sources; a version may lack some (an older design has no
@@ -299,7 +300,6 @@ def main() -> int:
     for lib in ch.libs:
         _build._loaded[lib] = libs[first][lib]
     cases = (_block_cases if args.chain == "block" else _cases)(dev)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = {case: {name: [] for name in libs} for case in cases}
     with torch.no_grad():
         # the first build warms the card (clocks, caches) before the turns
@@ -312,13 +312,7 @@ def main() -> int:
             for lib in ch.libs:
                 _build._loaded[lib] = libs[name][lib]
             for case, (fn, _, _) in cases.items():
-                fn()
-                start.record()
-                for _ in range(args.reps):
-                    fn()
-                end.record()
-                torch.cuda.synchronize()
-                times[case][name].append(start.elapsed_time(end) / args.reps)
+                times[case][name].append(time_ms(fn, args.reps))
         whole = [n for n in libs if n == "kernel" or n in others]
         parts = {case: {} for case in cases}
         for name in whole:

@@ -44,6 +44,7 @@ from typing import Dict
 import torch
 
 from posterior_matching_torch.ops import _build, gated_chain as gc
+from posterior_matching_torch.ops.profiling import time_ms
 
 HEADER, LEVELS = "gated_common.cuh", "gated_levels.cuh"
 FILES = (HEADER, LEVELS, "gated_stream_fwd.cu", "gated_stream_bwd.cu", "gated_levels_bwd.cu")
@@ -238,20 +239,13 @@ def main() -> int:
     for lib in LIBS:
         _build._loaded[lib] = libs["kernel"][lib]
     cases = _cases(dev)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = {case: {name: [] for name in libs} for case in cases}
     with torch.no_grad():
         for name in [*libs, *reversed(list(libs))]:
             for lib in LIBS:
                 _build._loaded[lib] = libs[name][lib]
             for case, fn in cases.items():
-                fn()
-                start.record()
-                for _ in range(args.reps):
-                    fn()
-                end.record()
-                torch.cuda.synchronize()
-                times[case][name].append(start.elapsed_time(end) / args.reps)
+                times[case][name].append(time_ms(fn, args.reps))
     for case, per in times.items():
         for name, ms in per.items():
             print(f"{case:18s} {name:10s} {' '.join(f'{t:.4f}' for t in ms)} ms/launch",

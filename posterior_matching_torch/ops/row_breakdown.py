@@ -43,6 +43,7 @@ from typing import Dict, Tuple
 import torch
 
 from posterior_matching_torch.ops import _build, sampler_chain as sc
+from posterior_matching_torch.ops.profiling import time_ms
 
 HEADER = "sampler_common.cuh"
 # The bulk copy in sampler_common.cuh, and a stage's arming for its bytes
@@ -252,16 +253,9 @@ def main() -> int:
         if not check(name) and name in ("kernel", ring_name):
             raise AssertionError(f"{name} disagrees with the plain version")
 
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = {name: [] for name in libs}
     for name in [*libs, *reversed(list(libs))]:
-        launch(libs[name])
-        start.record()
-        for _ in range(REPS):
-            launch(libs[name])
-        end.record()
-        torch.cuda.synchronize()
-        times[name].append(start.elapsed_time(end) / REPS)
+        times[name].append(time_ms(lambda: launch(libs[name]), REPS))
     for name, ms in times.items():
         print(f"{name:12s} {' '.join(f'{t:.4f}' for t in ms)} ms/launch", flush=True)
     (out / "times.json").write_text(json.dumps({"device": smi, "kernel": args.kernel,

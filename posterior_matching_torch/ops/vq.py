@@ -7,7 +7,8 @@ does not depend on k), with ties going to the lower index as
 
 On the GPU it is the hand-written kernel ``csrc/vq_search.cu`` (replacing
 the Pallas ``_vq_kernel``, ``ops/vq.py:35``, ``pallas_call`` :68), which
-never writes the ``[N, K]`` score matrix out. Beside it is the plain PyTorch
+never writes the ``[N, K]`` score matrix out: one launch a call, scores on
+the tensor cores in 3xTF32. Beside it is the plain PyTorch
 version, :func:`nearest_codebook_indices_plain`, which the wrapper runs only
 for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 The search is piecewise constant in its inputs, so it runs under
@@ -32,11 +33,14 @@ def nearest_codebook_indices_plain(
 
 
 class _VqSearch:
-    """Wrapper of ``csrc/vq_search.cu``. ``launches`` counts kernel
-    launches; the plain version (CPU tensors) does not count."""
+    """Wrapper of ``csrc/vq_search.cu``: one kernel launch a call (the
+    codebook's norms are taken inside it), the library and its entry point
+    resolved at the first call. ``launches`` counts kernel launches; the
+    plain version (CPU tensors) does not count."""
 
     def __init__(self):
         self.launches = 0
+        self._lib = None
 
     @torch.no_grad()
     def __call__(self, z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -50,21 +54,17 @@ class _VqSearch:
             raise ValueError(
                 f"vq_search kernel needs 1 <= D <= {MAX_EMBEDDING_DIM}, got {d}"
             )
-        cb_norm = (codebook * codebook).sum(-1)
-        ptrs = [
-            _build.check("z", z, (n, d)),
-            _build.check("codebook", codebook, (k, d)),
-            _build.check("cb_norm", cb_norm, (k,)),
-        ]
+        zp = _build.check("z", z, (n, d))
+        cp = _build.check("codebook", codebook, (k, d))
         out = torch.empty(n, dtype=torch.int32, device=z.device)
-        lib = _build.load_fn(
-            "vq_search", "pm_vq_search",
-            [_build.P] * 4 + [_build.I] * 3 + [_build.P],
-        )
+        if self._lib is None:
+            self._lib = _build.load_fn(
+                "vq_search", "pm_vq_search", [_build.P] * 3 + [_build.I] * 3 + [_build.P]
+            )
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = lib.pm_vq_search(*ptrs, out.data_ptr(), n, k, d, stream)
+        err = self._lib.pm_vq_search(zp, cp, out.data_ptr(), n, k, d, stream)
         self.launches += 1
-        _build.raise_on(lib, err, "vq_search")
+        _build.raise_on(self._lib, err, "vq_search")
         return out
 
 

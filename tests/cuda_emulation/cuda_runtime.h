@@ -1,5 +1,5 @@
 // A CPU stand-in for the CUDA pieces that csrc/sampler_row.cu,
-// csrc/sampler_vrow.cu, the gated chain's GEMM kernels
+// csrc/sampler_vrow.cu, csrc/vq_search.cu, the gated chain's GEMM kernels
 // (csrc/gated_common.cuh, gated_levels.cuh) and the VDVAE chains' entry
 // points (csrc/decoder_chain_{fwd,bwd}.cu and block_chain_{fwd,bwd}.cu on
 // vdvae_gemm.cuh, whose launch_kernel the emulation turns into
@@ -61,6 +61,10 @@ typedef void* cudaStream_t;
 constexpr cudaError_t cudaSuccess = 0, cudaErrorInvalidValue = 1;
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
@@ -98,6 +102,15 @@ T __shfl_xor_sync(unsigned, T v, int d) {
   buf[threadIdx.x] = v;
   __syncwarp();
   const T r = buf[(threadIdx.x & ~31u) | ((threadIdx.x & 31u) ^ d)];
+  __syncwarp();
+  return r;
+}
+template <class T>
+T __shfl_sync(unsigned, T v, int src) {
+  T* buf = reinterpret_cast<T*>(g_shfl);
+  buf[threadIdx.x] = v;
+  __syncwarp();
+  const T r = buf[(threadIdx.x & ~31u) | (unsigned(src) & 31u)];
   __syncwarp();
   return r;
 }
@@ -208,9 +221,14 @@ inline void emu_mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
   }
 }
 
-// cp.async of 16 bytes: the first `bytes` from src, zeros after.
+// cp.async of 16 bytes: the first `bytes` from src, zeros after ...
 inline void emu_cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
   std::memset(g_smem_base + dst, 0, 16);
+  std::memcpy(g_smem_base + dst, src, bytes);
+}
+// ... and of 4 bytes.
+inline void emu_cp_async4(uint32_t dst, const void* src, uint32_t bytes) {
+  std::memset(g_smem_base + dst, 0, 4);
   std::memcpy(g_smem_base + dst, src, bytes);
 }
 

@@ -13,8 +13,10 @@ reach the loss only in part, and a small PM-VQVAE step per chain mode
 (stream, pairs, segments with a remainder) against the CPU; the three
 chain backwards at the flagship's 32 x 16 x 16 rows (weight gradients in row
 splits) and at 2 x 7 x 7 (in one pass), each relaunched bit for bit; the vrow
-kernel at the flagship's row (W 16, n 320, L 24), relaunched bit for bit; latent counts that
-leave the search's 32-row tiles ragged; block-chain and decoder-chain runs
+kernel at the flagship's row (W 16, n 320, L 24), relaunched bit for bit; the
+codebook search at the four shapes the port runs it at (relaunched bit for
+bit), latent counts that leave its row tiles ragged, its near-margin
+winners against float64 and one device kernel a call; block-chain and decoder-chain runs
 whose rows leave the 16- to 64-row tiles ragged, 1x1 and 3x3 taps at the
 image's edges, and runs long enough that their weight gradients sum
 several row splits, each at both compiled geometries; the decoder chain's
@@ -190,6 +192,72 @@ def test_vq_search_kernel_breaks_exact_ties_low(dev):
     want = vq.nearest_codebook_indices_plain(z, cb)
     assert (got < 100).all()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# The four shapes the port runs the search at (latents, codes, width): a
+# PM-VQVAE step (32 x 16 x 16), a CelebA stage-1 step (64 x 16 x 16), MNIST
+# (32 x 7 x 7) and digits16 (32 x 4 x 4); each picks its own row tile.
+VQ_SHAPES = [(8192, 512, 64), (16384, 512, 64), (1568, 256, 64), (512, 128, 64)]
+
+
+@pytest.mark.parametrize("n,k,d", VQ_SHAPES)
+def test_vq_search_kernel_at_the_port_shapes(dev, n, k, d):
+    """Indices as the plain version's on >= 0.999 of the latents, every
+    disagreement a near-tie (1e-5 of the scores' scale), and a relaunch
+    bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(n + k)
+    cb = _rand(gen, k, d, scale=0.5)
+    z = (cb[torch.randint(0, k, (n,), generator=gen, device=dev)]
+         + _rand(gen, n, d, scale=0.3)).contiguous()
+    got = vq.nearest_codebook_indices(z, cb)
+    again = vq.nearest_codebook_indices(z, cb)
+    want = vq.nearest_codebook_indices_plain(z, cb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    diff = got != want
+    assert diff.float().mean().item() <= 1e-3
+    scores = 2.0 * (z @ cb.T) - (cb * cb).sum(-1)
+    gap = (scores.gather(1, want[:, None].long()) - scores.gather(1, got[:, None].long())).abs()
+    assert (gap[diff] <= 1e-5 * scores.abs().max()).all()
+
+
+def test_vq_search_kernel_resolves_a_near_margin_against_float64(dev):
+    """Rows near the midpoint of two codes, the winner ahead by 5e-5 of the
+    scores' scale in float64: 3xTF32 keeps every winner (one TF32 pass,
+    about 11 significand bits, would not)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, k, d = 8192, 512, 64
+    cb64 = torch.randn(k, d, generator=gen, device=dev, dtype=torch.float64)
+    a = torch.randint(0, k, (n,), generator=gen, device=dev)
+    b = (a + torch.randint(1, k, (n,), generator=gen, device=dev)) % k
+    diff = cb64[a] - cb64[b]
+    mid = 0.5 * (cb64[a] + cb64[b])
+    scale = (2.0 * mid @ cb64.T - (cb64 * cb64).sum(-1)).abs().max()
+    gamma = 5e-5 * scale / (2.0 * (diff * diff).sum(-1))
+    z = (mid + gamma[:, None] * diff).float().contiguous()
+    cb = cb64.float().contiguous()
+    s = 2.0 * z.double() @ cb.double().T - (cb.double() ** 2).sum(-1)
+    top = torch.topk(s, 2, dim=-1)
+    keep = (top.indices[:, 0] == a) & (top.indices[:, 1] == b)   # a leads, b follows
+    assert keep.float().mean().item() > 0.99
+    got = vq.nearest_codebook_indices(z, cb)
+    assert torch.equal(got[keep].long(), a[keep])
+
+
+def test_vq_search_is_one_kernel_a_call(dev):
+    """One wrapper call is one device kernel (no norm or other launches) and
+    adds one to the counter."""
+    from posterior_matching_torch.ops.profiling import profile_calls
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    z, cb = _rand(gen, 8192, 64), _rand(gen, 512, 64)
+    before = vq.nearest_codebook_indices.launches
+    vq.nearest_codebook_indices(z, cb)
+    assert vq.nearest_codebook_indices.launches == before + 1
+    prof = profile_calls(lambda: vq.nearest_codebook_indices(z, cb), 5)
+    assert prof is not None, "the profiler lost part of three windows"
+    _, per_call, names = prof
+    assert per_call == 1 and all("vq_search" in name for name in names), names
 
 
 def _stream_case(gen, b, h, w, L, cd, down):

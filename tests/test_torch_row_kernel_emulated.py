@@ -41,6 +41,7 @@ _HELPERS = {
     "fence_proxy_async": "",
     "mma_tf32": "emu_mma_tf32(d, a, b);",
     "cp_async16": "emu_cp_async16(dst, src, bytes);",
+    "cp_async4": "emu_cp_async4(dst, src, bytes);",
     "cp_async_commit": "",
     "cp_async_wait_ring": "",
 }
