@@ -3,9 +3,10 @@
 Runs the port's PM-VQVAE paths at the flagship CelebA width (imputation and
 stage-2 training through each of the PixelCNN chain's three kernel
 granularities), the PM-VQVAE MNIST training pipeline from the command line
-(stage 1, then stage 2), then PM-VDVAE MNIST's three paths at the full
-width of ``configs/pm_vdvae_mnist.py`` (imputation, likelihood, training),
-and checks them, in these phases:
+(stage 1, then stage 2), PM-VDVAE MNIST's three paths at the full width of
+``configs/pm_vdvae_mnist.py`` (imputation, likelihood, training), then the
+PM-VQVAE CelebA pipeline and the PM-VDVAE evals from their CLIs, and checks
+them, in these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
 2. all thirteen kernels (``posterior_matching_torch/ops/csrc``; the pair
@@ -88,7 +89,25 @@ and checks them, in these phases:
    run directory, its ``model_config.json`` (the config file's model keys
    only), its ``val_loss`` lines, its decoder-chain launches and its
    checkpoint, reloaded through ``load_pm_vdvae`` to serve an imputation;
-12. one JSON line of per-kernel numbers, the card's name and power limit,
+   the run directory, in a temporary tree, stays for phase 13;
+12. the PM-VQVAE CelebA pipeline from its three CLIs in this process, at
+   the full widths of ``configs/vqvae_celeb_a.py`` and
+   ``configs/pm_vqvae_celeb_a.py``, on small synthetic CelebA files (512
+   training, 64 validation and 64 test images, cropped and resized to
+   64x64x3 by the data path): ``train_vqvae`` (4 steps, two validations),
+   ``train_pm_vqvae`` on its run (the stream chain, 4 steps, two
+   validations), then ``eval_pm_vqvae`` on that run (64 images with CelebA
+   masks, 10 samples, 1 trial): the batches, run directories, each CLI's
+   kernel launches exactly (every counter set to 0 just before it: the
+   search 6, then the search 8 and the stream 16 + 8, then 2 x 16 of each
+   sampler kernel), the eval's files, shapes and ``eval_summary.json`` keys
+   (the JAX CLI's), and its wall time split into requests, embeddings and
+   PRD;
+13. the PM-VDVAE eval CLIs on phase 11's run: ``eval_pm_vdvae_imputation``
+   (64 images, 10 samples, 1 trial; 5 block-chain launches a batch) and
+   ``eval_pm_vdvae_likelihood`` (125 images in one batch and chunk, 16
+   importance samples; 10 launches): their files, shapes and finite BPD;
+14. one JSON line of per-kernel numbers, the card's name and power limit,
    and the result line.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--vdvae_run_dir
@@ -97,9 +116,14 @@ It needs one CUDA device and exits non-zero without one, and in a directory
 that holds this script and nothing else of the repository.
 """
 import argparse
+import contextlib
+import glob
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -218,6 +242,49 @@ GATED_DESIGN = ("GEMM core on tensor cores: mma.sync m16n8k8 TF32 with the 3xTF3
 def check(ok: bool, what: str):
     if not ok:
         raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def cli_env(cwd, data_dir):
+    """Runs what it holds in ``cwd`` with ``$PM_TPU_DATA_DIR`` set to
+    ``data_dir``; both are restored after."""
+    old_cwd, old_env = os.getcwd(), os.environ.get("PM_TPU_DATA_DIR")
+    os.environ["PM_TPU_DATA_DIR"] = str(data_dir)
+    os.chdir(cwd)
+    try:
+        yield
+    finally:
+        os.chdir(old_cwd)
+        if old_env is None:
+            os.environ.pop("PM_TPU_DATA_DIR", None)
+        else:
+            os.environ["PM_TPU_DATA_DIR"] = old_env
+
+
+def write_splits(data_dir, dataset, sizes):
+    """``<data_dir>/<dataset>/<split>.npz``: the synthetic stand-in of each
+    split cut to its first ``n`` examples."""
+    from posterior_matching_torch.data import load_arrays
+
+    os.makedirs(f"{data_dir}/{dataset}", exist_ok=True)
+    for split, n in sizes.items():
+        arrays = load_arrays(dataset, split)   # the synthetic stand-in
+        np.savez(f"{data_dir}/{dataset}/{split}.npz", **{k: v[:n] for k, v in arrays.items()})
+
+
+def run_cli(name, main, argv):
+    """``main(argv)`` in this process, its standard output captured and
+    logged: ``(exit code, lines, wall seconds)``."""
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = main(list(argv))
+    wall = time.perf_counter() - t0
+    lines = printed.getvalue().splitlines()
+    for line in lines:
+        log(f"  {name}: {line}")
+    check(rc == 0, f"{name} exited with {rc}")
+    return rc, lines, wall
 
 
 # ---------------------------------------------------------------------------
@@ -690,8 +757,6 @@ def training_phase(model, args, mask_fn, gen, batches, fixed, pm_cfg, vq_cfg, pc
                    chain_segment="stream"):
     """8 full-width steps of the stage-2 trainer on ``batches`` with the
     PixelCNN chain's ``chain_segment``, then the checks."""
-    import tempfile
-
     from posterior_matching_torch import config, convert
     from posterior_matching_torch.masking import add_mask
     from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
@@ -940,31 +1005,17 @@ def vqvae_cli_phase(args, gen):
     process: the run directories and validation lines, the segment kernels'
     launches, the frozen VQ-VAE in stage 2's checkpoint, and an imputation
     served from it."""
-    import contextlib
-    import glob
-    import io
-    import os
-    import tempfile
-
     from posterior_matching_torch import convert, masking, train_pm_vqvae, train_vqvae
-    from posterior_matching_torch.data import load_arrays
     from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
     from posterior_matching_torch.train.state import load_train_state
 
     steps, n_train, n_test, batch = 4, 512, 64, 32
     n_val = n_test // batch
     counters = chain_counters()
-    cwd, data_env = os.getcwd(), os.environ.get("PM_TPU_DATA_DIR")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        os.makedirs(f"{tmp}/data/mnist")
-        os.environ["PM_TPU_DATA_DIR"] = f"{tmp}/data"
-        try:
-            for split, n in (("train", n_train), ("test", n_test)):
-                arrays = load_arrays("mnist", split)   # the synthetic stand-in
-                np.savez(f"{tmp}/data/mnist/{split}.npz",
-                         **{k: v[:n] for k, v in arrays.items()})
-            os.chdir(tmp)
+        write_splits(f"{tmp}/data", "mnist", {"train": n_train, "test": n_test})
+        with cli_env(tmp, f"{tmp}/data"):
             common = ["--config.steps", str(steps), "--config.validation_freq",
                       str(steps // 2), "--config.seed", str(args.seed)]
             for stage, main, extra in (
@@ -974,16 +1025,8 @@ def vqvae_cli_phase(args, gen):
                 if stage == "train_pm_vqvae":
                     extra += ["--config.vqvae_dir", out["train_vqvae"]["run_dir"]]
                 before = {k: c.launches for k, c in counters.items()}
-                printed = io.StringIO()
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(printed):
-                    rc = main([*extra, *common])
-                wall = time.perf_counter() - t0
+                _, lines, wall = run_cli(stage, main, [*extra, *common])
                 launched = {k: c.launches - before[k] for k, c in counters.items()}
-                lines = printed.getvalue().splitlines()
-                for line in lines:
-                    log(f"  {stage}: {line}")
-                check(rc == 0, f"{stage} exited with {rc}")
                 prefix = "vqvae" if stage == "train_vqvae" else "pm-vqvae"
                 run_dirs = glob.glob(f"runs/{prefix}-mnist-*")
                 check(len(run_dirs) == 1, f"{stage} made the run directories {run_dirs}")
@@ -1018,12 +1061,6 @@ def vqvae_cli_phase(args, gen):
             ts1 = load_train_state(f"{run1}/train_state.pkl")
             vq1 = convert.vqvae_from_jax(ts1.params, ts1.state, vq_config, device=DEVICE)
             model2 = convert.load_pm_vqvae(run2, device=DEVICE, chain_segment=SEGMENT)
-        finally:
-            os.chdir(cwd)
-            if data_env is None:
-                os.environ.pop("PM_TPU_DATA_DIR", None)
-            else:
-                os.environ["PM_TPU_DATA_DIR"] = data_env
     for name, t in vq1.state_dict().items():
         check(torch.equal(model2.vqvae.state_dict()[name], t),
               f"stage 2 changed the VQ-VAE's {name}")
@@ -1267,8 +1304,6 @@ def vdvae_training_phase(model, model_config, args, gen, mask_fn, batches, fixed
     """8 full-width steps of the PM-VDVAE trainer on ``batches``, then the
     checks: ``expected`` maps each kernel counter's name to its launches a
     step, ``small_config`` is the small model held against the CPU."""
-    import tempfile
-
     from posterior_matching_torch import config, convert
     from posterior_matching_torch.models.vdvae import vdvae_impute
     from posterior_matching_torch.train.trainer import pm_vdvae_loss, pm_vdvae_trainer
@@ -1586,67 +1621,39 @@ def fused_step_check(unfused, fused, batch, gen):
     return {"loss": [lf, lu], "loss_rel": loss_rel, "worst_grad": worst}
 
 
-def cli_phase(args, gen, mask_fn):
+def cli_phase(args, gen, mask_fn, work):
     """``train_pm_vdvae`` at full width with the fused decoder on small
-    synthetic MNIST files, in this process (the kernels are built): its run
-    directory, validation lines, decoder-chain launches and checkpoint."""
-    import contextlib
-    import glob
-    import io
-    import os
-    import tempfile
-
+    synthetic MNIST files, in this process (the kernels are built), in
+    ``work``: its run directory, validation lines, decoder-chain launches
+    and checkpoint. The run directory stays for phase 13."""
     from posterior_matching_torch import config, convert, train_pm_vdvae
-    from posterior_matching_torch.data import load_arrays
     from posterior_matching_torch.models.vdvae import vdvae_impute
     from posterior_matching_torch.ops import decoder_chain as dc
 
     steps, n_train, n_test, batch = 4, 512, 64, 16
-    cwd, data_env = os.getcwd(), os.environ.get("PM_TPU_DATA_DIR")
-    with tempfile.TemporaryDirectory() as tmp:
-        os.makedirs(f"{tmp}/data/mnist")
-        os.environ["PM_TPU_DATA_DIR"] = f"{tmp}/data"
-        try:
-            for split, n in (("train", n_train), ("test", n_test)):
-                arrays = load_arrays("mnist", split)   # the synthetic stand-in
-                np.savez(f"{tmp}/data/mnist/{split}.npz",
-                         **{k: v[:n] for k, v in arrays.items()})
-            os.chdir(tmp)
-            f0, b0 = dc.dec_fwd.launches, dc.dec_bwd.launches
-            printed = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(printed):
-                rc = train_pm_vdvae.main([
-                    "--config", "pm_vdvae_mnist", "--config.steps", str(steps),
-                    "--config.validation_freq", str(steps // 2), "--config.seed",
-                    str(args.seed), "--config.model.fused_chain=True"])
-            wall = time.perf_counter() - t0
-        finally:
-            os.chdir(cwd)
-            if data_env is None:
-                os.environ.pop("PM_TPU_DATA_DIR", None)
-            else:
-                os.environ["PM_TPU_DATA_DIR"] = data_env
-        fwd, bwd = dc.dec_fwd.launches - f0, dc.dec_bwd.launches - b0
-        lines = printed.getvalue().splitlines()
-        for line in lines:
-            log(f"  train_pm_vdvae: {line}")
-        check(rc == 0, f"train_pm_vdvae exited with {rc}")
-        run_dirs = glob.glob(f"{tmp}/runs/pm-vdvae-mnist-*")
-        check(len(run_dirs) == 1, f"train_pm_vdvae made the run directories {run_dirs}")
-        files = sorted(os.listdir(run_dirs[0]))
-        check(files == ["model_config.json", "train_meta.json", "train_state.pkl"],
-              f"the run directory holds {files}")
-        steps_lines = [ln for ln in lines if ln.startswith("[step ")]
-        check(len(steps_lines) == 2 and all("val_loss=" in ln for ln in steps_lines),
-              "train_pm_vdvae did not log two validations with val_loss")
-        n_val = n_test // batch
-        check(bwd == 5 * steps and fwd == 5 * (steps + 2 * n_val),
-              f"train_pm_vdvae launched the decoder chain {fwd} + {bwd} times, not "
-              f"{5 * (steps + 2 * n_val)} + {5 * steps}")
-        with open(f"{run_dirs[0]}/model_config.json") as fp:
-            written = json.load(fp)
-        loaded = convert.load_pm_vdvae(run_dirs[0], device=DEVICE, fused_chain=True)
+    write_splits(f"{work}/data", "mnist", {"train": n_train, "test": n_test})
+    f0, b0 = dc.dec_fwd.launches, dc.dec_bwd.launches
+    with cli_env(work, f"{work}/data"):
+        _, lines, wall = run_cli("train_pm_vdvae", train_pm_vdvae.main, [
+            "--config", "pm_vdvae_mnist", "--config.steps", str(steps),
+            "--config.validation_freq", str(steps // 2), "--config.seed",
+            str(args.seed), "--config.model.fused_chain=True"])
+    fwd, bwd = dc.dec_fwd.launches - f0, dc.dec_bwd.launches - b0
+    run_dirs = glob.glob(f"{work}/runs/pm-vdvae-mnist-*")
+    check(len(run_dirs) == 1, f"train_pm_vdvae made the run directories {run_dirs}")
+    files = sorted(os.listdir(run_dirs[0]))
+    check(files == ["model_config.json", "train_meta.json", "train_state.pkl"],
+          f"the run directory holds {files}")
+    steps_lines = [ln for ln in lines if ln.startswith("[step ")]
+    check(len(steps_lines) == 2 and all("val_loss=" in ln for ln in steps_lines),
+          "train_pm_vdvae did not log two validations with val_loss")
+    n_val = n_test // batch
+    check(bwd == 5 * steps and fwd == 5 * (steps + 2 * n_val),
+          f"train_pm_vdvae launched the decoder chain {fwd} + {bwd} times, not "
+          f"{5 * (steps + 2 * n_val)} + {5 * steps}")
+    with open(f"{run_dirs[0]}/model_config.json") as fp:
+        written = json.load(fp)
+    loaded = convert.load_pm_vdvae(run_dirs[0], device=DEVICE, fused_chain=True)
     check(set(written) == set(config.PM_VDVAE_MNIST),
           f"the run's model_config.json holds {sorted(written)}, not the config file's keys")
     check(loaded.decoder.fused, "load_pm_vdvae did not take fused_chain=True")
@@ -1659,12 +1666,13 @@ def cli_phase(args, gen, mask_fn):
         f"run directory {files}; decoder chain launches {fwd} fwd + {bwd} bwd; the checkpoint "
         "holds the config file's model keys, loads through load_pm_vdvae (fused on request) and "
         "served an imputation")
-    return {"wall_s": wall, "lines": steps_lines, "dec_launches": [fwd, bwd]}
+    return {"wall_s": wall, "lines": steps_lines, "dec_launches": [fwd, bwd],
+            "run_dir": run_dirs[0]}
 
 
-def vdvae_phases(args, gen):
+def vdvae_phases(args, gen, work):
     """Phases 9 to 11: the model, the kernel comparisons, the three paths,
-    then training through the fused decoder and the CLI."""
+    then training through the fused decoder and the CLI (in ``work``)."""
     from posterior_matching_torch import config, convert, masking
     from posterior_matching_torch.models.vdvae import PosteriorMatchingVDVAE
 
@@ -1729,10 +1737,203 @@ def vdvae_phases(args, gen):
 
     # ---- 11. the training CLI -----------------------------------------------
     stamp("the training CLI")
-    cli = cli_phase(args, gen, mask_fn)
+    cli = cli_phase(args, gen, mask_fn, work)
     return kernel_lines + dec_lines, {"serving": serving, "training": train,
                                       "fused_first_step": first_step,
                                       "fused_training": fused_train, "cli": cli}
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the PM-VQVAE CelebA pipeline from its three CLIs
+# ---------------------------------------------------------------------------
+
+# The JAX eval CLI's eval_summary.json keys (eval_pm_vqvae.py:197-217).
+EVAL_SUMMARY_KEYS = {"dataset", "num_instances", "num_samples", "num_trials", "psnr_mean",
+                     "psnr_std", "per_trial_psnr", "precision", "precision_std", "recall",
+                     "recall_std", "embedder", "measured_at"}
+IMPUTATION_FILES = ["embedder.txt", "f_scores.npy", "prd_data.npy", "psnrs.npy"]
+
+
+def wall_split(lines):
+    """The eval CLIs' ``Wall time:`` line as ``{part: seconds}``."""
+    (line,) = [ln for ln in lines if ln.startswith("Wall time: ")]
+    parts = [p.rsplit(" ", 2) for p in line[len("Wall time: "):].split(", ")]
+    return {name.lower(): float(sec) for name, sec, _ in parts}
+
+
+def imputation_results_check(run_dir, n, num_samples, what):
+    """The files and shapes an imputation eval CLI writes."""
+    res = f"{run_dir}/imputation_results"
+    files = sorted(f for f in os.listdir(res) if f != "eval_summary.json")
+    check(files == IMPUTATION_FILES, f"{what} wrote {files}")
+    psnrs, prd = np.load(f"{res}/psnrs.npy"), np.load(f"{res}/prd_data.npy")
+    f_scores = np.load(f"{res}/f_scores.npy")
+    check(psnrs.shape == (1, n) and bool(np.isfinite(psnrs).all()),
+          f"{what}: psnrs.npy {psnrs.shape}, not (1, {n}) finite values")
+    check(prd.shape == (1, num_samples, 2, 1001) and bool(((prd >= 0) & (prd <= 1)).all()),
+          f"{what}: prd_data.npy {prd.shape}, not (1, {num_samples}, 2, 1001) in [0, 1]")
+    check(f_scores.shape == (1, 2), f"{what}: f_scores.npy {f_scores.shape}")
+    with open(f"{res}/embedder.txt") as fp:
+        check(fp.read() == "random_conv\n", f"{what}: embedder.txt is not random_conv")
+    return {"psnr_mean": float(psnrs.mean()), "f_scores": f_scores[0].tolist()}
+
+
+def celeb_a_pipeline_phase(args, work):
+    """``train_vqvae --config vqvae_celeb_a``, ``train_pm_vqvae --config
+    pm_vqvae_celeb_a`` (the stream chain) reading its run, then
+    ``eval_pm_vqvae --dataset celeb_a`` on that run, at the configs' full
+    widths on small synthetic CelebA files (512 training, 64 validation and
+    64 test images), in this process in ``work``: the image batches each
+    CLI read (noted as its loaders yield them), the run directories, each
+    CLI's kernel launches (every counter set to 0 just before it), the
+    eval's files and summary keys, and its wall time by part."""
+    from posterior_matching_torch import eval_pm_vqvae, train_pm_vqvae, train_vqvae
+    from posterior_matching_torch.config import CELEB_A_IMAGE_SHAPE, CONFIGS
+    from posterior_matching_torch.data.datasets import ArrayDataset
+    from posterior_matching_torch.ops import sampler_chain as sc
+
+    steps, n_eval = 4, 2 * BATCH
+    sizes = {"train": 512, "validation": 64, "test": n_eval}
+    t0 = time.perf_counter()
+    write_splits(f"{work}/data", "celeb_a", sizes)
+    log(f"synthetic CelebA files {sizes} written in {time.perf_counter() - t0:.1f} s")
+    counters = {**chain_counters(), "sampler_vrow": sc.vrow, "sampler_row": sc.row}
+    stage1, stage2 = CONFIGS["vqvae_celeb_a"](), CONFIGS["pm_vqvae_celeb_a"]()
+    n_val1 = sizes["validation"] // stage1["data"]["val_batch_size"]
+    n_val2 = sizes["validation"] // stage2["data"]["val_batch_size"]
+    n_req = n_eval // BATCH
+    rows = stage2["pixel_cnn"]["image_shape"][0]
+    common = ["--config.steps", str(steps), "--config.validation_freq", str(steps // 2),
+              "--config.seed", str(args.seed)]
+    out, seen = {}, set()
+    plain_iter = ArrayDataset.__iter__
+
+    def noting_iter(self):
+        for batch in plain_iter(self):
+            img = batch["image"]
+            seen.add((img.shape[1:], str(img.dtype), bool(0 <= img.min() and img.max() <= 1)))
+            yield batch
+
+    with cli_env(work, f"{work}/data"):
+        def run_stage(stage, main, argv, expected):
+            for c in counters.values():
+                c.launches = 0
+            seen.clear()
+            ArrayDataset.__iter__ = noting_iter
+            try:
+                _, lines, wall = run_cli(stage, main, argv)
+            finally:
+                ArrayDataset.__iter__ = plain_iter
+            check(seen == {(CELEB_A_IMAGE_SHAPE, "float32", True)},
+                  f"{stage} read the image batches {seen}, not 64x64x3 float32 in [0, 1]")
+            launched = {k: c.launches for k, c in counters.items()}
+            want = {k: expected.get(k, 0) for k in counters}
+            check(launched == want, f"{stage} launched {launched}, not {want}")
+            out[stage] = {"wall_s": wall, "launches": launched, "lines": lines}
+            if stage != "eval_pm_vqvae":
+                prefix = stage.replace("train_", "").replace("_", "-")
+                run_dirs = glob.glob(f"runs/{prefix}-celeb_a-*")
+                check(len(run_dirs) == 1, f"{stage} made the run directories {run_dirs}")
+                out[stage]["run_dir"] = os.path.abspath(run_dirs[0])
+                out[stage]["files"] = sorted(os.listdir(run_dirs[0]))
+                steps_lines = [ln for ln in lines if ln.startswith("[step ")]
+                check(len(steps_lines) == 2 and all("val_loss=" in ln for ln in steps_lines),
+                      f"{stage} did not log two validations with val_loss")
+            log(f"{stage}: {wall:.1f} s; 64x64x3 batches; launches {launched}")
+            return out[stage].get("run_dir")
+
+        run1 = run_stage("train_vqvae", train_vqvae.main,
+                         ["--config", "vqvae_celeb_a", *common],
+                         {"vq_search": steps + 2 * n_val1})
+        run2 = run_stage("train_pm_vqvae", train_pm_vqvae.main,
+                         ["--config", "pm_vqvae_celeb_a", *common, "--config.vqvae_dir", run1],
+                         {"vq_search": steps + 2 * n_val2,
+                          "gated_stream_fwd": 2 * (steps + 2 * n_val2),
+                          "gated_stream_bwd": 2 * steps})
+        run_stage("eval_pm_vqvae", eval_pm_vqvae.main,
+                  ["--run_dir", run2, "--dataset", "celeb_a", "--mask_generator",
+                   "CelebAMaskGenerator", "--num_instances", str(n_eval), "--batch_size",
+                   str(BATCH), "--num_samples", str(NUM_SAMPLES), "--num_trials", "1"],
+                  {"sampler_vrow": n_req * rows, "sampler_row": n_req * rows})
+    check(out["train_vqvae"]["files"] == ["model_config.json", "train_meta.json",
+                                          "train_state.pkl"],
+          "train_vqvae's run directory holds other files")
+    check(out["train_pm_vqvae"]["files"] == ["config.json", "train_meta.json",
+                                             "train_state.pkl", "vqvae_config.json"],
+          "train_pm_vqvae's run directory holds other files")
+    res = imputation_results_check(run2, n_eval, NUM_SAMPLES, "eval_pm_vqvae")
+    with open(f"{run2}/imputation_results/eval_summary.json") as fp:
+        summary = json.load(fp)
+    check(set(summary) == EVAL_SUMMARY_KEYS,
+          f"eval_summary.json holds {sorted(summary)}, not the JAX CLI's keys")
+    check(summary["embedder"] == "random_conv" and summary["num_instances"] == n_eval
+          and np.isfinite(summary["psnr_mean"]), "eval_summary.json's values are wrong")
+    split = wall_split(out["eval_pm_vqvae"]["lines"])
+    out["eval_pm_vqvae"].update(res, summary=summary, wall_split=split)
+    log(f"eval_pm_vqvae: {n_eval} images x {NUM_SAMPLES} samples, 1 trial, in "
+        f"{out['eval_pm_vqvae']['wall_s']:.2f} s: requests {split['requests']:.3f} s, "
+        f"embeddings {split['embeddings']:.3f} s, PRD {split['prd']:.3f} s; PSNR "
+        f"{summary['psnr_mean']:.3f}, precision {summary['precision']:.4f}, recall "
+        f"{summary['recall']:.4f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the PM-VDVAE eval CLIs
+# ---------------------------------------------------------------------------
+
+
+def vdvae_eval_phase(run_dir, work):
+    """``eval_pm_vdvae_imputation`` (64 instances in batches of 32, 10
+    samples, 1 trial) and ``eval_pm_vdvae_likelihood`` (125 instances in one
+    batch of 125, 16 importance samples, 1 trial) on phase 11's run
+    directory, on MNIST's synthetic test split cut to 125, in this process:
+    their files and shapes, finite values, and the block chain's launches
+    (the counters set to 0 just before each)."""
+    from posterior_matching_torch import eval_pm_vdvae_imputation, eval_pm_vdvae_likelihood
+
+    n_imp, n_ll, ll_samples = 2 * BATCH, LL_BATCH, LL_SAMPLES
+    write_splits(f"{work}/eval_data", "mnist", {"test": max(n_imp, n_ll)})
+    counters = kernel_counters()
+    common = ["--run_dir", run_dir, "--dataset", "mnist", "--mask_generator",
+              "MNISTMaskGenerator", "--num_trials", "1"]
+    out = {}
+    with cli_env(work, f"{work}/eval_data"):
+        for stage, main, argv, fwd in (
+                ("eval_pm_vdvae_imputation", eval_pm_vdvae_imputation.main,
+                 [*common, "--num_instances", str(n_imp), "--batch_size", str(BATCH),
+                  "--num_samples", str(NUM_SAMPLES)], 5 * (n_imp // BATCH)),
+                ("eval_pm_vdvae_likelihood", eval_pm_vdvae_likelihood.main,
+                 [*common, "--num_instances", str(n_ll), "--batch_size", str(n_ll),
+                  "--num_samples", str(ll_samples)], 10)):
+            for c in counters.values():
+                c.launches = 0
+            _, lines, wall = run_cli(stage, main, argv)
+            launched = {k: c.launches for k, c in counters.items()}
+            want = dict.fromkeys(counters, 0)
+            want["block_chain_fwd"] = fwd
+            check(launched == want, f"{stage} launched {launched}, not {want}")
+            out[stage] = {"wall_s": wall, "launches": launched, "lines": lines}
+            log(f"{stage}: {wall:.1f} s; launches {launched}")
+    out["eval_pm_vdvae_imputation"].update(
+        imputation_results_check(run_dir, n_imp, NUM_SAMPLES, "eval_pm_vdvae_imputation"),
+        wall_split=wall_split(out["eval_pm_vdvae_imputation"]["lines"]))
+    res = f"{run_dir}/likelihood_results"
+    check(sorted(os.listdir(res)) == ["bpd.npy", "x_lls.npy", "xo_lls.npy"],
+          f"eval_pm_vdvae_likelihood wrote {sorted(os.listdir(res))}")
+    lls = {k: np.load(f"{res}/{k}.npy") for k in ("bpd", "x_lls", "xo_lls")}
+    check(all(v.shape == (1, n_ll) for v in lls.values()),
+          f"likelihood results have shapes {[v.shape for v in lls.values()]}")
+    check(bool(np.isfinite(lls["bpd"]).all()) and bool(np.isfinite(lls["x_lls"]).all()),
+          "BPD or log p(x) is not finite")
+    np.testing.assert_allclose(lls["bpd"], -lls["x_lls"] / (28 * 28 * np.log(2)), rtol=1e-6)
+    out["eval_pm_vdvae_likelihood"]["bpd"] = float(lls["bpd"].mean())
+    log(f"PM-VDVAE eval CLIs on the run of phase 11: imputation PSNR "
+        f"{out['eval_pm_vdvae_imputation']['psnr_mean']:.3f}, wall "
+        f"{out['eval_pm_vdvae_imputation']['wall_split']}; likelihood BPD "
+        f"{out['eval_pm_vdvae_likelihood']['bpd']:.4f} over {n_ll} images at {ll_samples} "
+        f"importance samples")
+    return out
 
 
 def main() -> int:
@@ -1989,11 +2190,21 @@ def main() -> int:
     stamp("the PM-VQVAE training CLIs")
     vqvae_cli = vqvae_cli_phase(args, gen)
 
-    # ---- 9-11. PM-VDVAE ------------------------------------------------------
-    stamp("PM-VDVAE")
-    vdvae_lines, vdvae = vdvae_phases(args, gen)
+    with tempfile.TemporaryDirectory() as work:
+        # ---- 9-11. PM-VDVAE --------------------------------------------------
+        stamp("PM-VDVAE")
+        vdvae_lines, vdvae = vdvae_phases(args, gen, work)
 
-    # ---- 12. results -------------------------------------------------------
+        # ---- 12. the PM-VQVAE CelebA pipeline from its CLIs -------------------
+        stamp("the PM-VQVAE CelebA pipeline from its CLIs")
+        os.makedirs(f"{work}/celeb_a")
+        celeb_a = celeb_a_pipeline_phase(args, f"{work}/celeb_a")
+
+        # ---- 13. the PM-VDVAE eval CLIs on phase 11's run ---------------------
+        stamp("the PM-VDVAE eval CLIs")
+        vdvae_eval = vdvae_eval_phase(vdvae["cli"]["run_dir"], work)
+
+    # ---- 14. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
@@ -2024,6 +2235,7 @@ def main() -> int:
         "imgs_per_s": BATCH * len(steady) / sum(steady),
         "request_s": req_s, "psnr": psnrs, "modes_first_step": first_step,
         "training": train, "vqvae_cli": vqvae_cli, "vdvae": vdvae, "kernels": kernels,
+        "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)

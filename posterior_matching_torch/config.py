@@ -13,7 +13,14 @@ Copied from the JAX package's config files, which need ``ml_collections``:
   :func:`pm_vdvae_mnist` the whole file, as the training CLI reads it;
 - :func:`vqvae_mnist` and :func:`pm_vqvae_mnist`: ``configs/vqvae_mnist.py``
   and ``configs/pm_vqvae_mnist.py`` whole, the stage-1 and stage-2 training
-  CLIs' configurations.
+  CLIs' configurations; :func:`vqvae_celeb_a`, :func:`pm_vqvae_celeb_a`,
+  :func:`vqvae_digits16`, :func:`pm_vqvae_digits16` and
+  :func:`pm_vdvae_digits16` the same of their config files.
+
+Each whole-file configuration leaves ``seed`` None (a fresh draw unless
+set) and ``compute_dtype`` None (the port computes in float32), and drops
+the JAX execution options the port does not take (``steps_per_call``,
+``device_resident_data``, ``packed_chain``).
 """
 
 VQVAE_CELEB_A = {
@@ -158,6 +165,111 @@ def pm_vqvae_mnist() -> dict:
     }
 
 
+def vqvae_celeb_a() -> dict:
+    """``configs/vqvae_celeb_a.py`` whole (:7-29): the model block is
+    :data:`VQVAE_CELEB_A`."""
+    return {
+        "data": {"dataset": "celeb_a", "train_split": "train",
+                 "validation_split": "validation", "train_batch_size": 64,
+                 "val_batch_size": 64},
+        "model": dict(VQVAE_CELEB_A),
+        "steps": 100000,
+        "validation_freq": 1000,
+        "learning_rate": 3e-4,
+        "seed": None,
+    }
+
+
+def pm_vqvae_celeb_a() -> dict:
+    """``configs/pm_vqvae_celeb_a.py`` whole (:10-47): 16x16 codes, 12
+    resnet levels of 128 filters; ``pixel_cnn.num_indices`` is set from
+    the stage-1 run."""
+    t = PM_VQVAE_CELEB_A_TRAIN
+    pixel_cnn = {k: v for k, v in PM_VQVAE_CELEB_A["pixel_cnn"].items()
+                 if k != "num_indices"}
+    return {
+        "data": {"dataset": "celeb_a", "train_split": "train",
+                 "validation_split": "validation",
+                 "train_batch_size": t["train_batch_size"], "val_batch_size": 32,
+                 "mask_generator": t["mask_generator"]},
+        "vqvae_dir": "runs/vqvae-celeb_a",
+        "pixel_cnn": pixel_cnn,
+        "conditional_dim": PM_VQVAE_CELEB_A["conditional_dim"],
+        "compute_dtype": None,
+        "steps": t["steps"],
+        "validation_freq": t["validation_freq"],
+        "lr_schedule": dict(t["lr_schedule"]),
+        "seed": None,
+    }
+
+
+def _digits16_data(batch_size: int, mask_generator: str = None) -> dict:
+    """The digits16 ``data`` block: real sklearn digits at 16x16 from
+    ``$PM_TPU_DATA_DIR/digits16/{train,val}.npz`` (no synthetic
+    stand-in)."""
+    data = {"dataset": "digits16", "train_split": "train", "validation_split": "val",
+            "train_batch_size": batch_size, "val_batch_size": batch_size}
+    if mask_generator is not None:
+        data["mask_generator"] = mask_generator
+    return data
+
+
+def vqvae_digits16() -> dict:
+    """``configs/vqvae_digits16.py`` whole (:11-35): a 4x4 code grid."""
+    return {
+        "data": _digits16_data(32),
+        "model": {"embedding_dim": 64, "num_embeddings": 128, "hidden_units": 32,
+                  "residual_hidden_units": 32, "residual_blocks": 2, "decay": 0.99,
+                  "use_ema": True, "commitment_cost": 0.25, "output_channels": 1},
+        "steps": 6000,
+        "validation_freq": 1000,
+        "learning_rate": 3e-4,
+        "seed": None,
+    }
+
+
+def pm_vqvae_digits16() -> dict:
+    """``configs/pm_vqvae_digits16.py`` whole (:15-47): 4x4 codes, 6 resnet
+    levels of 64 filters, rectangle masks. The chain and sampler kernels
+    are built for 128 filters, so this runs on the CPU only."""
+    return {
+        "data": _digits16_data(32, "RectangleMaskGenerator"),
+        "vqvae_dir": "runs/vqvae-digits16",
+        "pixel_cnn": {"image_shape": (4, 4), "num_resnet": 6, "num_hierarchies": 1,
+                      "num_filters": 64, "dropout": 0.5},
+        "conditional_dim": 256,
+        "compute_dtype": None,
+        "steps": 8000,
+        "validation_freq": 1000,
+        "lr_schedule": {"init_value": 3e-4, "decay_rate": 0.999995, "transition_steps": 1},
+        "seed": None,
+    }
+
+
+def pm_vdvae_digits16() -> dict:
+    """``configs/pm_vdvae_digits16.py`` whole (:15-59): the 16/8/4/1
+    resolution ladder at width 64; ``model.fused_chain`` None, as
+    :func:`pm_vdvae_mnist`."""
+    return {
+        "data": _digits16_data(16, "RectangleMaskGenerator"),
+        "model": {"image_shape": (16, 16, 1),
+                  "encoder_blocks": "16x3,16d2,8x3,8d2,4x2,4d4,1x2",
+                  "decoder_blocks": "1x2,4m1,4x2,8m4,8x3,16m8,16x3",
+                  "latent_dim": 8, "width": 64, "bottleneck_multiple": 0.25,
+                  "no_bias_above": 32, "num_mixtures": 5, "custom_width_string": None,
+                  "compute_dtype": None, "fused_chain": None},
+        "seed": None,
+        "flat_optimizer": False,
+        "ema_rate": 0.999,
+        "gradient_clip": 200.0,
+        "lr": 0.0003,
+        "steps": 6000,
+        "validation_freq": 500,
+    }
+
+
 # The configurations the training CLIs take by name.
 CONFIGS = {"pm_vdvae_mnist": pm_vdvae_mnist, "vqvae_mnist": vqvae_mnist,
-           "pm_vqvae_mnist": pm_vqvae_mnist}
+           "pm_vqvae_mnist": pm_vqvae_mnist, "vqvae_celeb_a": vqvae_celeb_a,
+           "pm_vqvae_celeb_a": pm_vqvae_celeb_a, "vqvae_digits16": vqvae_digits16,
+           "pm_vqvae_digits16": pm_vqvae_digits16, "pm_vdvae_digits16": pm_vdvae_digits16}

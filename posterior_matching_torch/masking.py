@@ -7,8 +7,10 @@ squares, per-pixel Bernoulli, and crops of the thresholded bicubic noise
 canvas (``random_pattern_mask``, :242-321), flattened into one categorical
 (:329-376). Every generator is ``(generator, shape) -> mask`` with an
 explicit ``torch.Generator`` whose device the mask is drawn on; masks are
-``[B, H, W, 1]`` float32, 1 where a pixel is observed. The other registry
-entries of the JAX module are not ported yet.
+``[B, H, W, 1]`` float32, 1 where a pixel is observed. The registry
+(:func:`get_mask_generator`) also names the rectangle and per-pixel
+Bernoulli generators alone; its feature-vector and Omniglot / CIFAR-10
+entries are not ported yet.
 
 The pattern canvas is rebuilt without PIL: :func:`_bicubic_resize`
 reproduces ``PIL.Image.resize(..., BICUBIC)`` on a mode ``F`` image (PIL's
@@ -300,17 +302,32 @@ def mnist_mask_spec(dim: int = 28) -> Tuple[list, list]:
     return gens, [2, 1, 1, 1, 1, 2, 2]
 
 
-def get_mask_generator(name: str, device: Optional[str] = None) -> MaskFn:
-    """``(generator, shape) -> mask`` by the reference's generator name,
-    with its tables on ``device`` (the GPU unless ``"cpu"``)."""
+def _mixture(spec: Tuple[list, list]) -> MaskFn:
+    return functools.partial(mixture_mask, generators=spec[0], weights=spec[1])
+
+
+# name -> (device, **kwargs) -> mask function (``masking.py:455-476``).
+_REGISTRY = {
+    "ImageBernoulliMaskGenerator":
+        lambda dev, **kw: functools.partial(image_bernoulli_mask, **kw),
+    "RectangleMaskGenerator": lambda dev, **kw: functools.partial(rectangle_mask, **kw),
+    "MNISTMaskGenerator": lambda dev, **kw: _mixture(mnist_mask_spec(**kw)),
+    "CelebAMaskGenerator": lambda dev, **kw: _mixture(celeb_a_mask_spec(dev, **kw)),
+}
+
+
+def get_mask_generator(name: str, device: Optional[str] = None, **kwargs) -> MaskFn:
+    """``(generator, shape) -> mask`` by the reference's generator name and
+    keyword arguments (a config's ``mask_generator_kwargs``;
+    ``masking.py:479-486``), with its tables on ``device`` (the GPU unless
+    ``"cpu"``)."""
     dev = resolve_device(device)
-    if name == "CelebAMaskGenerator":
-        gens, weights = celeb_a_mask_spec(dev)
-    elif name == "MNISTMaskGenerator":
-        gens, weights = mnist_mask_spec()
-    else:
+    if name not in _REGISTRY:
         raise NotImplementedError(f"mask generator {name!r} is not ported yet")
-    return functools.partial(mixture_mask, generators=gens, weights=weights)
+    # `bounds` may arrive as a list from a JSON round trip.
+    if kwargs.get("bounds") is not None:
+        kwargs["bounds"] = tuple(kwargs["bounds"])
+    return _REGISTRY[name](dev, **kwargs)
 
 
 def add_mask(

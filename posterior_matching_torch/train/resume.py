@@ -5,7 +5,7 @@ seed rule of ``resolve_seed`` (:33-61) without ``--resume_dir``, and
 ``save_train_meta`` (:64-70), so that a run directory written by the port
 records its seed as the JAX package's does. Continuing a run from its
 checkpoint waits for the optimizer state to be written in optax's layout
-(``ROADMAP.md`` A2); the training CLI refuses ``--resume_dir`` until then.
+(``ROADMAP.md`` A6); the training CLI refuses ``--resume_dir`` until then.
 """
 from __future__ import annotations
 

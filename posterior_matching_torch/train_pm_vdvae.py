@@ -6,8 +6,9 @@ Counterpart of ``train_pm_vdvae.py:111-227``. Run it as::
         [--config.steps 1000] [--config.validation_freq 500] [--config.seed 0] \\
         [--config.model.fused_chain=True] [--device cpu]
 
-- ``--config``, ``--config.<path> <value>``, ``--device`` and
-  ``--resume_dir`` as :mod:`posterior_matching_torch.cli` reads them.
+- ``--config`` is ``pm_vdvae_mnist`` or ``pm_vdvae_digits16``;
+  ``--config.<path> <value>``, ``--device`` and ``--resume_dir`` as
+  :mod:`posterior_matching_torch.cli` reads them.
 - The loss is ``-ELBO + mean(pm_kl)``, logged with ``reconstruction_ll``,
   ``kl``, ``pm_kl`` and ``bpd`` (:135-150); the optimizer, EMA and skipping
   of non-finite updates are ``pm_vdvae_trainer``'s; masks are drawn on the
@@ -47,7 +48,7 @@ from posterior_matching_torch.utils import make_run_dir
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    args, config = parse_config(parser, argv, ("pm_vdvae_mnist",))
+    args, config = parse_config(parser, argv, ("pm_vdvae_mnist", "pm_vdvae_digits16"))
     device = resolve_device(args.device)
 
     data = dict(config["data"])
@@ -55,7 +56,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     tree = convert.init_pm_vdvae_tree(config["model"], seed=config["seed"])
     model = convert.pm_vdvae_from_jax(tree, config["model"], device=device)
     trainer = pm_vdvae_trainer(model, config, seed=config["seed"],
-                               mask_fn=get_mask_generator(data["mask_generator"], device),
+                               mask_fn=get_mask_generator(
+                                   data["mask_generator"], device,
+                                   **(data.get("mask_generator_kwargs") or {})),
                                device=device)
     trainer.init()
 

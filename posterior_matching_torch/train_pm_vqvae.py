@@ -3,13 +3,15 @@ frozen VQ-VAE, on the GPU.
 
 Counterpart of ``train_pm_vqvae.py:88-224``. Run it as::
 
-    python -m posterior_matching_torch.train_pm_vqvae --config pm_vqvae_mnist \\
-        --config.vqvae_dir runs/vqvae-mnist-<timestamp> [--config.steps 1000] \\
+    python -m posterior_matching_torch.train_pm_vqvae --config pm_vqvae_celeb_a \\
+        --config.vqvae_dir runs/vqvae-celeb_a-<timestamp> [--config.steps 1000] \\
         [--config.validation_freq 500] [--config.seed 0] [--chain_segment 4] \\
         [--device cpu]
 
-- ``--config``, ``--config.<path> <value>``, ``--device`` and
-  ``--resume_dir`` as :mod:`posterior_matching_torch.cli` reads them.
+- ``--config`` is ``pm_vqvae_celeb_a``, ``pm_vqvae_mnist`` or
+  ``pm_vqvae_digits16`` (64 filters: the CPU only, the kernels take 128);
+  ``--config.<path> <value>``, ``--device`` and ``--resume_dir`` as
+  :mod:`posterior_matching_torch.cli` reads them.
 - ``vqvae_dir`` is a stage-1 run directory of either package: its
   ``model_config.json`` builds the VQ-VAE and sets ``pixel_cnn.num_indices``
   to its ``num_embeddings`` (:99-105); its ``train_state.pkl`` warm-starts
@@ -67,7 +69,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--chain_segment", type=chain_segment, default="stream",
                         help="the PixelCNN chain's kernels: stream, 1 (pairs) or L (segments)")
-    args, config = parse_config(parser, argv, ("pm_vqvae_mnist",))
+    args, config = parse_config(parser, argv,
+                                ("pm_vqvae_mnist", "pm_vqvae_celeb_a", "pm_vqvae_digits16"))
     if config["compute_dtype"] is not None:
         parser.error("compute_dtype is not ported: the port computes in float32")
     device = resolve_device(args.device)
@@ -87,7 +90,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                       config["pixel_cnn"], device=device,
                                       chain_segment=args.chain_segment)
     trainer = pm_vqvae_trainer(model, config, seed=config["seed"],
-                               mask_fn=get_mask_generator(data["mask_generator"], device),
+                               mask_fn=get_mask_generator(
+                                   data["mask_generator"], device,
+                                   **(data.get("mask_generator_kwargs") or {})),
                                device=device)
     trainer.init()
 

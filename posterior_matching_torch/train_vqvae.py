@@ -2,12 +2,13 @@
 
 Counterpart of ``train_vqvae.py:69-134``. Run it as::
 
-    python -m posterior_matching_torch.train_vqvae --config vqvae_mnist \\
+    python -m posterior_matching_torch.train_vqvae --config vqvae_celeb_a \\
         [--config.steps 1000] [--config.validation_freq 500] [--config.seed 0] \\
         [--device cpu]
 
-- ``--config``, ``--config.<path> <value>``, ``--device`` and
-  ``--resume_dir`` as :mod:`posterior_matching_torch.cli` reads them.
+- ``--config`` is ``vqvae_celeb_a``, ``vqvae_mnist`` or ``vqvae_digits16``;
+  ``--config.<path> <value>``, ``--device`` and ``--resume_dir`` as
+  :mod:`posterior_matching_torch.cli` reads them.
 - The loss is the decoder's reconstruction loss plus the commitment loss,
   logged with ``perplexity``, ``reconstruction_loss`` and ``vq_loss``
   (:84-98); Adam at the constant ``learning_rate``; the codebook's EMA
@@ -45,7 +46,7 @@ from posterior_matching_torch.utils import make_run_dir
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    args, config = parse_config(parser, argv, ("vqvae_mnist",))
+    args, config = parse_config(parser, argv, ("vqvae_mnist", "vqvae_celeb_a", "vqvae_digits16"))
     device = resolve_device(args.device)
 
     train_dataset, val_dataset = load_datasets(config["data"])

@@ -1,8 +1,9 @@
 """Import hygiene and device policy of the PyTorch port.
 
-The port (its ``data`` modules and training CLI too) and ``chip_smoke.py``
-run on a machine without JAX, flax, ml_collections, PIL, absl or tqdm, so
-none of them (nor the JAX package) may be imported; Triton is imported only
+The port (its ``data`` and ``eval`` modules and CLIs too) and
+``chip_smoke.py`` run on a machine without JAX, flax, ml_collections, PIL,
+absl, tqdm, sklearn or TF-Hub, so none of them (nor the JAX package) may be
+imported; Triton is imported only
 inside the function that launches a kernel, never at module level. Entry
 points run on the GPU unless the caller asks for the CPU: without a GPU
 they raise.
@@ -13,7 +14,14 @@ from pathlib import Path
 import pytest
 import torch
 
-from posterior_matching_torch import masking, runtime, train_pm_vdvae
+from posterior_matching_torch import (
+    eval_pm_vdvae_imputation,
+    eval_pm_vdvae_likelihood,
+    eval_pm_vqvae,
+    masking,
+    runtime,
+    train_pm_vdvae,
+)
 from posterior_matching_torch.config import (
     PM_VDVAE_MNIST,
     PM_VDVAE_MNIST_TRAIN,
@@ -30,7 +38,7 @@ PORT_FILES = sorted((REPO / "posterior_matching_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
 ]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_collections", "PIL",
-             "absl", "tqdm", "posterior_matching_tpu"}
+             "absl", "tqdm", "sklearn", "tensorflow_hub", "posterior_matching_tpu"}
 
 
 def _imports(tree, module_level=False):
@@ -118,3 +126,17 @@ def test_vdvae_flat_optimizer_is_refused():
     model = PosteriorMatchingVDVAE.from_config(PM_VDVAE_MNIST, device="cpu")
     with pytest.raises(NotImplementedError, match="flat_optimizer"):
         pm_vdvae_trainer(model, dict(PM_VDVAE_MNIST_TRAIN, flat_optimizer=True), device="cpu")
+
+
+@pytest.mark.parametrize("main", [eval_pm_vqvae.main, eval_pm_vdvae_imputation.main,
+                                  eval_pm_vdvae_likelihood.main])
+def test_eval_clis_need_a_gpu_unless_told_cpu(main, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("PM_TPU_DATA_DIR", str(tmp_path))
+    argv = ["--run_dir", str(tmp_path), "--dataset", "digits16", "--mask_generator",
+            "RectangleMaskGenerator"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    # on the CPU it runs on, as far as the absent data
+    with pytest.raises(ValueError, match="unknown dataset"):
+        main([*argv, "--device", "cpu"])
