@@ -5,8 +5,8 @@ stage-2 training through each of the PixelCNN chain's three kernel
 granularities), the PM-VQVAE MNIST training pipeline from the command line
 (stage 1, then stage 2), PM-VDVAE MNIST's three paths at the full width of
 ``configs/pm_vdvae_mnist.py`` (imputation, likelihood, training), then the
-PM-VQVAE CelebA pipeline and the PM-VDVAE evals from their CLIs, and checks
-them, in these phases:
+PM-VQVAE CelebA pipeline and the PM-VDVAE evals from their CLIs, then
+PM-VAE's training and UCI eval CLIs, and checks them, in these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
 2. all thirteen kernels (``posterior_matching_torch/ops/csrc``; the pair
@@ -107,7 +107,20 @@ them, in these phases:
    (64 images, 10 samples, 1 trial; 5 block-chain launches a batch) and
    ``eval_pm_vdvae_likelihood`` (125 images in one batch and chunk, 16
    importance samples; 10 launches): their files, shapes and finite BPD;
-14. one JSON line of per-kernel numbers, the card's name and power limit,
+14. PM-VAE from its CLIs, at the full widths of ``configs/pm_vae_gas.py``,
+   ``configs/pm_vae_bsds.py`` and ``configs/pm_vae_mnist.py`` on the
+   synthetic stand-ins: ``train_pm_vae`` for 200, 50 and 20 steps (two
+   validations each; finite losses that fall, steps/s over steps 3-N, the
+   checkpoint reloaded through ``load_pm_vae``, one profiled step's CUDA
+   kernel launches), ``eval_pm_vae_uci`` on gas's run (1024 test rows, 512
+   samples, 2 trials: ``uci_results`` of shape [2]), gas's ``impute``
+   keeping the observed features exactly, the MNIST model's ``impute`` and
+   ``is_log_prob`` on a batch of 32 at 64 samples, and a narrow model of
+   each family stepped on the GPU and on the CPU with the same weights and
+   normals (the loss within 1e-5 relative, every gradient within 1e-4 of
+   scale); none of the thirteen kernels is launched (every counter set to
+   0 before each CLI and read after it);
+15. one JSON line of per-kernel numbers, the card's name and power limit,
    and the result line.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--vdvae_run_dir
@@ -1936,6 +1949,242 @@ def vdvae_eval_phase(run_dir, work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: PM-VAE from its CLIs
+# ---------------------------------------------------------------------------
+
+# PM-VAE: the training CLI at each family's full width (gas, bsds, the
+# MNIST conv model), then the UCI eval CLI on gas's run at its own sample
+# count on the 1024 synthetic test rows, 2 trials (the CLI's default is 5).
+# Each run: (config, steps, whether its loss must fall from the first
+# validation window to the second). bsds's matching log-likelihood is NaN
+# within its first 3 steps on the synthetic stand-in, in the JAX package
+# too (its KL weight is 0 until step 30,000): its run is held to finite
+# reconstruction log-likelihoods.
+PM_VAE_RUNS = (("pm_vae_gas", 200, True), ("pm_vae_bsds", 50, False),
+               ("pm_vae_mnist", 20, True))
+PM_VAE_EVAL_SAMPLES, PM_VAE_EVAL_TRIALS = 512, 2
+# The small GPU-vs-CPU steps: each family at narrow widths.
+SMALL_PM_VAE = {
+    "features": {"latent_dim": 8, "encoder_net": "ResidualMLP", "decoder_net": "ResidualMLP",
+                 "decoder_dist": "IdentityGaussian", "posterior_dist": "TriLGaussian",
+                 "decoder_dist_config": {"event_size": 10},
+                 "encoder_net_config": {"residual_blocks": 2, "hidden_units": 32,
+                                        "layer_norm": True},
+                 "decoder_net_config": {"residual_blocks": 2, "hidden_units": 32,
+                                        "layer_norm": True},
+                 "matching_ll_stop_gradients": True},
+    "image": {"latent_dim": 6, "encoder_net": "ConvEncoder", "decoder_net": "ConvDecoder",
+              "posterior_dist": "TriLGaussian", "partial_posterior_dist": "AutoregressiveGMM",
+              "decoder_dist": "Bernoulli",
+              "encoder_net_config": {"conv_layers": [(8, 5, 1), (8, 5, 2), (16, 5, 1),
+                                                     (16, 5, 2), (16, 7, 1)]},
+              "decoder_net_config": {"conv_layers": [(16, 7, 1), (16, 5, 2), (8, 5, 1),
+                                                     (8, 5, 2), (1, 5, 1)]}},
+}
+
+
+def all_kernel_counters():
+    """The wrappers of all thirteen kernels, whose ``launches`` count
+    them."""
+    from posterior_matching_torch.ops import sampler_chain as sc
+
+    return {"sampler_vrow": sc.vrow, "sampler_row": sc.row, **chain_counters(),
+            **kernel_counters()}
+
+
+@contextlib.contextmanager
+def step_clock():
+    """Records the trainer, its last batch and the time after each of its
+    steps (the device waited for) while a training CLI runs: ``{"trainer",
+    "batch", "t"}``."""
+    from posterior_matching_torch.train.trainer import Trainer
+
+    seen = {"trainer": None, "batch": None, "t": []}
+    step = Trainer.train_step
+
+    def timed(self, batch):
+        out = step(self, batch)
+        torch.cuda.synchronize()
+        seen["t"].append(time.perf_counter())
+        seen["trainer"], seen["batch"] = self, batch
+        return out
+
+    Trainer.train_step = timed
+    try:
+        yield seen
+    finally:
+        Trainer.train_step = step
+
+
+def small_pm_vae_step_check(data_key, seed):
+    """The loss and every gradient of a narrow PM-VAE of one family on the
+    GPU against the CPU, with the same weights and injected normals: the
+    loss within 1e-5 relative, every gradient within GRAD_TOL of its
+    scale."""
+    from posterior_matching_torch import convert
+    from posterior_matching_torch.train.trainer import pm_vae_loss_fn
+
+    cfg = SMALL_PM_VAE[data_key]
+    g = torch.Generator().manual_seed(seed + 15)
+    shape = (64, 10) if data_key == "features" else (16, 28, 28, 1)
+    x = torch.randn(shape, generator=g) if data_key == "features" else \
+        (torch.rand(shape, generator=g) > 0.5).float()
+    b = (torch.rand(shape, generator=g) > 0.5).float()
+    eps = torch.randn(shape[0], cfg["latent_dim"], generator=g)
+    loss_fn = pm_vae_loss_fn({"model": cfg, "beta": {"schedule": "cyclic", "low_value": 0.0,
+                                                     "high_value": 1.0, "period": 10,
+                                                     "delay": 2}}, data_key)
+    tree = convert.init_pm_vae_tree(cfg, seed=seed + 16)
+    out = {}
+    for d in (DEVICE, "cpu"):
+        m = convert.pm_vae_from_jax(tree, cfg, device=d)
+        names, params = zip(*m.named_parameters())
+        loss, _ = loss_fn(m, {data_key: x.to(d), "mask": b.to(d)}, iter([eps]), True, 6)
+        grads = torch.autograd.grad(loss, params)
+        out[d] = (loss.item(), {n: gr.cpu() for n, gr in zip(names, grads)})
+    (lg, gg), (lc, gcpu) = out[DEVICE], out["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    worst = max(((n, rel_err(gg[n], gcpu[n])[1]) for n in gcpu), key=lambda t: t[1])
+    log(f"pm-vae small step ({cfg['encoder_net']}) vs CPU: loss {lg:.6f} vs {lc:.6f} (relative "
+        f"{loss_rel:.3e}), worst gradient relative to scale {worst[1]:.3e} ({worst[0]}) over "
+        f"{len(gcpu)} tensors")
+    check(loss_rel <= STEP_LOSS_TOL, "pm-vae small step: the loss disagrees with the CPU's")
+    check(worst[1] <= GRAD_TOL, "pm-vae small step: a gradient disagrees with the CPU's")
+    return {"loss_rel": loss_rel, "worst_grad_rel": worst[1]}
+
+
+def pm_vae_train_cli(name, steps, falls, seed, work, counters):
+    """``train_pm_vae --config name`` at full width for ``steps`` steps and
+    two validations, on the synthetic stand-in, in this process: its run
+    directory, finite reconstruction log-likelihoods, with ``falls`` finite
+    losses falling from the first window to the second, steps/s over steps
+    3 to ``steps`` (each step waited for), no kernel launched, the
+    checkpoint reloaded through ``load_pm_vae`` bit for bit, and one more
+    step profiled (its CUDA kernel launches and idle share)."""
+    from posterior_matching_torch import convert, train_pm_vae
+
+    for c in counters.values():
+        c.launches = 0
+    with cli_env(work, f"{work}/no_data"), step_clock() as clock:
+        _, lines, wall = run_cli(f"train_pm_vae {name}", train_pm_vae.main, [
+            "--config", name, "--config.steps", str(steps), "--config.validation_freq",
+            str(steps // 2), "--config.seed", str(seed)])
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    check(not launched, f"train_pm_vae {name} launched kernels {launched}")
+    dataset = name[len("pm_vae_"):]
+    run_dirs = glob.glob(f"{work}/runs/pm-vae-{dataset}-*")
+    check(len(run_dirs) == 1, f"train_pm_vae {name} made the run directories {run_dirs}")
+    files = sorted(os.listdir(run_dirs[0]))
+    check(files == ["model_config.json", "train_meta.json", "train_state.pkl"],
+          f"the run directory holds {files}")
+    windows = [ln for ln in lines if ln.startswith("[step ")]
+    check(len(windows) == 2 and all("val_loss=" in ln for ln in windows),
+          f"train_pm_vae {name} did not log two validations with val_loss")
+    value = lambda ln, k: float(ln.split(f" {k}=")[1].split()[0])
+    losses = [value(ln, "loss") for ln in windows]
+    recs = [value(ln, k) for ln in windows for k in ("reconstruction_ll",
+                                                     "val_reconstruction_ll")]
+    check(all(np.isfinite(recs)), f"train_pm_vae {name}: reconstruction_ll {recs}")
+    check(not falls or (all(np.isfinite(losses)) and losses[1] < losses[0]),
+          f"train_pm_vae {name}: the loss did not fall ({losses})")
+    t = clock["t"]
+    check(len(t) == steps, f"train_pm_vae {name} ran {len(t)} steps")
+    steps_per_s = (steps - 2) / (t[-1] - t[1])
+    trainer = clock["trainer"]
+    loaded = convert.load_pm_vae(run_dirs[0], device=DEVICE)
+    want = trainer.model.state_dict()
+    bits = lambda a: a.contiguous().view(torch.int32)   # NaN included
+    check(set(want) == set(loaded.state_dict())
+          and all(torch.equal(bits(v), bits(want[k])) for k, v in loaded.state_dict().items()),
+          f"train_pm_vae {name}: the checkpoint does not reload through load_pm_vae")
+    prof = profile_step(trainer, clock["batch"], ())
+    per_step = None if prof is None else prof["kernel_launches"]
+    log(f"train_pm_vae {name}: {steps} steps, 2 validations in {wall:.1f} s; {steps_per_s:.1f} "
+        f"steps/s over steps 3-{steps} (host-bound: each step waited for); window losses "
+        f"{losses}; {per_step} CUDA kernel launches a step; the checkpoint reloads through "
+        "load_pm_vae")
+    return {"wall_s": wall, "steps": steps, "steps_per_s": steps_per_s, "losses": losses,
+            "launches_per_step": per_step,
+            "idle_share": None if prof is None else prof["idle_share"],
+            "run_dir": run_dirs[0], "lines": windows}
+
+
+def pm_vae_phase(args, work):
+    """Phase 14: PM-VAE's three configurations through the training CLI,
+    gas's run through the eval CLI, the conv model's imputation and
+    importance sampling, and the small GPU-vs-CPU steps; no kernel is
+    launched."""
+    from posterior_matching_torch import convert, eval_pm_vae_uci, masking
+
+    counters = all_kernel_counters()
+    out = {"small_step": {k: small_pm_vae_step_check(k, args.seed) for k in SMALL_PM_VAE}}
+    os.makedirs(f"{work}/no_data", exist_ok=True)
+    for name, steps, falls in PM_VAE_RUNS:
+        out[name] = pm_vae_train_cli(name, steps, falls, args.seed, work, counters)
+
+    gas_dir = out["pm_vae_gas"]["run_dir"]
+    for c in counters.values():
+        c.launches = 0
+    with cli_env(work, f"{work}/no_data"):
+        _, lines, wall = run_cli("eval_pm_vae_uci", eval_pm_vae_uci.main, [
+            "--run_dir", gas_dir, "--dataset", "gas", "--num_samples", str(PM_VAE_EVAL_SAMPLES),
+            "--num_trials", str(PM_VAE_EVAL_TRIALS)])
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    check(not launched, f"eval_pm_vae_uci launched kernels {launched}")
+    res = {k: np.load(f"{gas_dir}/uci_results/{k}.npy") for k in ("nrmse", "ac_lls")}
+    check(all(v.shape == (PM_VAE_EVAL_TRIALS,) and np.isfinite(v).all() for v in res.values()),
+          f"uci_results have shapes {[v.shape for v in res.values()]} or are not finite")
+    check(any(ln.startswith("NRMSE: ") for ln in lines)
+          and any(ln.startswith("AC LL: ") for ln in lines), "eval_pm_vae_uci printed no result")
+    out["eval_pm_vae_uci"] = {"wall_s": wall, "nrmse": res["nrmse"].tolist(),
+                              "ac_lls": res["ac_lls"].tolist()}
+    log(f"eval_pm_vae_uci: 1024 rows x {PM_VAE_EVAL_SAMPLES} samples x {PM_VAE_EVAL_TRIALS} "
+        f"trials in {wall:.1f} s wall; NRMSE {res['nrmse'].tolist()}, AC LL "
+        f"{res['ac_lls'].tolist()} (a {out['pm_vae_gas']['steps']}-step model)")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
+    bern = masking.get_mask_generator("BernoulliMaskGenerator", DEVICE)
+    with torch.no_grad():
+        gas = convert.load_pm_vae(gas_dir, device=DEVICE)
+        x = torch.randn(32, 8, generator=gen, device=DEVICE)
+        b = bern(gen, x.shape)
+        imp = gas.impute(x, b, gen, PM_VAE_EVAL_SAMPLES)
+        check(imp.shape == (PM_VAE_EVAL_SAMPLES, 32, 8) and bool(torch.isfinite(imp).all())
+              and torch.equal(imp[:, b != 0], (x * b)[None].expand_as(imp)[:, b != 0]),
+              "gas impute did not keep the observed features exactly")
+
+        mnist = convert.load_pm_vae(out["pm_vae_mnist"]["run_dir"], device=DEVICE)
+        mask_fn = masking.get_mask_generator("MNISTMaskGenerator", DEVICE)
+        req = mnist_batch(gen, DEVICE, BATCH, mask_fn)
+        xm = (req["image"] > 127).float()
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imp_m = mnist.impute(xm, req["mask"], gen, 64)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ll = mnist.is_log_prob(xm, req["mask"], gen, 64)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    check(not launched, f"the conv PM-VAE's imputation launched kernels {launched}")
+    observed = (req["mask"] != 0).expand_as(xm)[None].expand_as(imp_m)
+    check(imp_m.shape == (64, BATCH, 28, 28, 1) and bool(torch.isfinite(imp_m).all())
+          and torch.equal(imp_m[observed], xm[None].expand_as(imp_m)[observed]),
+          "the conv PM-VAE's imputations are not finite or lost observed pixels")
+    check(all(v.shape == (BATCH,) and bool(torch.isfinite(v).all()) for v in ll),
+          "the conv PM-VAE's importance-sampled log-likelihoods are not finite")
+    out["mnist_requests"] = {"impute_ms": (t1 - t0) * 1e3, "is_log_prob_ms": (t2 - t1) * 1e3,
+                             "log_p_x": ll[0].mean().item(), "ac_ll": ll[1].mean().item()}
+    log(f"pm_vae_mnist: impute {BATCH} x 64 samples (32 autoregressive steps) in "
+        f"{(t1 - t0) * 1e3:.1f} ms, is_log_prob in {(t2 - t1) * 1e3:.1f} ms; log p(x) "
+        f"{ll[0].mean().item():.2f}, log p(x_u | x_o) {ll[1].mean().item():.2f}; "
+        "no kernel launched")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2204,7 +2453,12 @@ def main() -> int:
         stamp("the PM-VDVAE eval CLIs")
         vdvae_eval = vdvae_eval_phase(vdvae["cli"]["run_dir"], work)
 
-    # ---- 14. results -------------------------------------------------------
+        # ---- 14. PM-VAE from its CLIs -------------------------------------------
+        stamp("PM-VAE from its CLIs")
+        os.makedirs(f"{work}/pm_vae")
+        pm_vae = pm_vae_phase(args, f"{work}/pm_vae")
+
+    # ---- 15. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
@@ -2235,7 +2489,7 @@ def main() -> int:
         "imgs_per_s": BATCH * len(steady) / sum(steady),
         "request_s": req_s, "psnr": psnrs, "modes_first_step": first_step,
         "training": train, "vqvae_cli": vqvae_cli, "vdvae": vdvae, "kernels": kernels,
-        "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval,
+        "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval, "pm_vae": pm_vae,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)

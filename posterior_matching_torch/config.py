@@ -15,7 +15,13 @@ Copied from the JAX package's config files, which need ``ml_collections``:
   and ``configs/pm_vqvae_mnist.py`` whole, the stage-1 and stage-2 training
   CLIs' configurations; :func:`vqvae_celeb_a`, :func:`pm_vqvae_celeb_a`,
   :func:`vqvae_digits16`, :func:`pm_vqvae_digits16` and
-  :func:`pm_vdvae_digits16` the same of their config files.
+  :func:`pm_vdvae_digits16` the same of their config files;
+- the eleven PM-VAE configurations, ``configs/pm_vae_*.py`` whole: the
+  five UCI tables and the three real sklearn tables share
+  ``configs/_base.py:32-110`` (:func:`_uci_pm_vae`), and the conv family
+  (``pm_vae_mnist``, ``pm_vae_mnist16``, ``pm_vae_digits16``) is written
+  out. Their ``model`` blocks keep the ``masked_posterior_*`` keys, which
+  ``PosteriorMatchingVAE.from_config`` ignores, as the JAX package's does.
 
 Each whole-file configuration leaves ``seed`` None (a fresh draw unless
 set) and ``compute_dtype`` None (the port computes in float32), and drops
@@ -268,8 +274,147 @@ def pm_vdvae_digits16() -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# PM-VAE
+# ---------------------------------------------------------------------------
+
+# The cyclic KL weight of the UCI configs unless one sets its own
+# (``configs/_base.py:94-100``).
+_CYCLIC_BETA = {"schedule": "cyclic", "low_value": 0.0, "high_value": 1.0, "period": 50000,
+                "delay": 1000}
+
+
+def _uci_pm_vae(dataset: str, event_size: int, latent_dim: int, *,
+                train_batch_size: int = 512, encoder_blocks: int = 2,
+                decoder_blocks: int = 2, layer_norm: bool = False, dropout: float = None,
+                beta: dict = None, steps: int = 200000,
+                lr_transition_steps: int = 5000) -> dict:
+    """``configs/_base.py``'s ``uci_pm_vae_config`` (:32-110): residual MLPs
+    of 256 units, a TriL posterior, the identity-scale Gaussian likelihood,
+    Bernoulli(0.5) masks, training noise 0.001."""
+    enc = {"residual_blocks": encoder_blocks, "hidden_units": 256, "layer_norm": layer_norm}
+    dec = {"residual_blocks": decoder_blocks, "hidden_units": 256, "layer_norm": layer_norm}
+    if dropout is not None:
+        enc["dropout"] = dropout
+        dec["dropout"] = dropout
+    return {
+        "data": {"dataset": dataset, "train_split": "train", "validation_split": "val",
+                 "train_batch_size": train_batch_size, "val_batch_size": train_batch_size,
+                 "training_noise": 0.001, "mask_generator": "BernoulliMaskGenerator"},
+        "model": {"latent_dim": latent_dim, "encoder_net": "ResidualMLP",
+                  "decoder_net": "ResidualMLP", "decoder_dist": "IdentityGaussian",
+                  "posterior_dist": "TriLGaussian",
+                  "decoder_dist_config": {"event_size": event_size},
+                  "masked_posterior_dist": "AutoregressiveGMM",
+                  "masked_posterior_config": {"hidden_units": 256, "residual_blocks": 3},
+                  "encoder_net_config": enc, "decoder_net_config": dec,
+                  "matching_ll_stop_gradients": True},
+        "beta": dict(beta or _CYCLIC_BETA),
+        "steps": steps,
+        "validation_freq": 1000,
+        "save_final_state": True,
+        "weight_decay": 0.00001,
+        "lr_schedule": {"init_value": 0.001, "decay_rate": 0.9,
+                        "transition_steps": lr_transition_steps},
+        "seed": None,
+    }
+
+
+def _cyclic(period: int, delay: int) -> dict:
+    return dict(_CYCLIC_BETA, period=period, delay=delay)
+
+
+def _conv_pm_vae(dataset: str, validation_split: str, batch: int, mask_generator: str,
+                 model: dict, steps: int, validation_freq: int, transition_steps: int,
+                 mask_kwargs: dict = None) -> dict:
+    """The conv PM-VAE configs' shape: a conv encoder and decoder, a TriL
+    posterior and the Bernoulli likelihood."""
+    data = {"dataset": dataset, "train_split": "train", "validation_split": validation_split,
+            "train_batch_size": batch, "val_batch_size": batch,
+            "mask_generator": mask_generator}
+    if mask_kwargs is not None:
+        data["mask_generator_kwargs"] = mask_kwargs
+    return {
+        "data": data,
+        "model": {"encoder_net": "ConvEncoder", "decoder_net": "ConvDecoder",
+                  "posterior_dist": "TriLGaussian", "decoder_dist": "Bernoulli", **model},
+        "steps": steps,
+        "validation_freq": validation_freq,
+        "lr_schedule": {"init_value": 0.001, "decay_rate": 0.9,
+                        "transition_steps": transition_steps},
+        "seed": None,
+    }
+
+
+def _pm_vae_16_model() -> dict:
+    """``configs/pm_vae_mnist16.py`` and ``configs/pm_vae_digits16.py``'s
+    model."""
+    return {
+        "latent_dim": 10,
+        "encoder_net_config": {"conv_layers": [(32, 3, 1), (32, 3, 2), (64, 3, 2), (64, 1, 1)]},
+        "decoder_net_config": {"conv_layers": [(64, 8, 1), (64, 5, 2), (32, 5, 1), (32, 5, 1),
+                                               (1, 3, 1)]},
+    }
+
+
+def pm_vae_mnist() -> dict:
+    """``configs/pm_vae_mnist.py`` whole: five convs to 1x1x128, six
+    transposed convs back to 28x28x1, the autoregressive GMM partial
+    posterior, MNIST masks."""
+    return _conv_pm_vae("mnist", "test", 256, "MNISTMaskGenerator", {
+        "latent_dim": 32,
+        "partial_posterior_dist": "AutoregressiveGMM",
+        "encoder_net_config": {"conv_layers": [(32, 5, 1), (32, 5, 2), (64, 5, 1), (64, 5, 2),
+                                               (128, 7, 1)]},
+        "decoder_net_config": {"conv_layers": [(64, 7, 1), (64, 5, 2), (32, 5, 1), (32, 5, 2),
+                                               (32, 5, 1), (1, 5, 1)]},
+    }, steps=80000, validation_freq=1000, transition_steps=5000)
+
+
+def pm_vae_mnist16() -> dict:
+    """``configs/pm_vae_mnist16.py`` whole: a 4x4x64 encoder output, uniform
+    masks observing at most about a fifth of the pixels."""
+    return _conv_pm_vae("mnist16", "test", 128, "UniformMaskGenerator",
+                        _pm_vae_16_model(),
+                        steps=200000, validation_freq=10000, transition_steps=5000,
+                        mask_kwargs={"bounds": (0.0, 0.2)})
+
+
+def pm_vae_digits16() -> dict:
+    """``configs/pm_vae_digits16.py`` whole: ``pm_vae_mnist16``'s model on
+    the real 16x16 digits (files only)."""
+    return _conv_pm_vae("digits16", "val", 128, "UniformMaskGenerator",
+                        _pm_vae_16_model(),
+                        steps=8000, validation_freq=1000, transition_steps=1000,
+                        mask_kwargs={"bounds": (0.0, 0.2)})
+
+
+PM_VAE_CONFIGS = {
+    "pm_vae_gas": lambda: _uci_pm_vae("gas", 8, 16),
+    "pm_vae_power": lambda: _uci_pm_vae("power", 6, 16),
+    "pm_vae_hepmass": lambda: _uci_pm_vae("hepmass", 21, 16),
+    "pm_vae_miniboone": lambda: _uci_pm_vae(
+        "miniboone", 43, 32, train_batch_size=1024, encoder_blocks=5, layer_norm=True,
+        dropout=0.5, beta=_cyclic(5000, 2000), steps=22000, lr_transition_steps=1000),
+    "pm_vae_bsds": lambda: _uci_pm_vae(
+        "bsds", 63, 64, encoder_blocks=5, decoder_blocks=5, layer_norm=True,
+        beta={"schedule": "monotonic", "low_value": 0.0, "high_value": 1.0,
+              "transition_steps": 200000, "transition_begin": 30000}),
+    "pm_vae_wine": lambda: _uci_pm_vae("wine", 13, 8, train_batch_size=64, steps=2000,
+                                       beta=_cyclic(1000, 0)),
+    "pm_vae_breast_cancer": lambda: _uci_pm_vae("breast_cancer", 30, 12, train_batch_size=128,
+                                                steps=5000, beta=_cyclic(1500, 0)),
+    "pm_vae_digits": lambda: _uci_pm_vae("digits_flat", 64, 16, train_batch_size=128,
+                                         steps=6000, beta=_cyclic(2000, 0)),
+    "pm_vae_mnist": pm_vae_mnist,
+    "pm_vae_mnist16": pm_vae_mnist16,
+    "pm_vae_digits16": pm_vae_digits16,
+}
+
+
 # The configurations the training CLIs take by name.
 CONFIGS = {"pm_vdvae_mnist": pm_vdvae_mnist, "vqvae_mnist": vqvae_mnist,
            "pm_vqvae_mnist": pm_vqvae_mnist, "vqvae_celeb_a": vqvae_celeb_a,
            "pm_vqvae_celeb_a": pm_vqvae_celeb_a, "vqvae_digits16": vqvae_digits16,
-           "pm_vqvae_digits16": pm_vqvae_digits16, "pm_vdvae_digits16": pm_vdvae_digits16}
+           "pm_vqvae_digits16": pm_vqvae_digits16, "pm_vdvae_digits16": pm_vdvae_digits16,
+           **PM_VAE_CONFIGS}

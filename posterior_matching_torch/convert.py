@@ -19,6 +19,15 @@ joins each tree path with dots and :func:`pm_vdvae_trees` splits them back;
 :func:`load_pm_vdvae` reads a run directory, evaluating the EMA parameters
 where the checkpoint has them, as the JAX eval scripts do;
 :func:`random_pm_vdvae_tree` draws a tree from a seed.
+
+PM-VAE. Its ``params`` tree (``encoder_net``, ``posterior_dist``,
+``decoder_net``, ``decoder_dist``, ``partial_encoder_net``,
+``partial_posterior_dist``, each with flax's ``Dense_<i>`` / ``Conv_<i>`` /
+``ConvTranspose_<i>``, ``log_scale`` and ``ar_net_*`` leaves) keeps flax's
+names and layouts in the port too: :func:`pm_vae_state_dict` and
+:func:`pm_vae_trees` join and split the tree paths, :func:`load_pm_vae`
+reads a run directory and :func:`init_pm_vae_tree` draws the JAX
+package's initialisation from a seed.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import numpy as np
 import torch
 
 from posterior_matching_torch.models.pm_vqvae import PMVQVAE
+from posterior_matching_torch.models.vae import PosteriorMatchingVAE
 from posterior_matching_torch.models.vdvae import PosteriorMatchingVDVAE
 from posterior_matching_torch.models.vqvae import VQVAE
 from posterior_matching_torch.runtime import resolve_device
@@ -390,9 +400,8 @@ def random_pm_vqvae_tree(
 # ---------------------------------------------------------------------------
 
 
-def pm_vdvae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
-    """A JAX ``PosteriorMatchingVDVAE`` ``params`` tree -> the port's state
-    dict: each leaf under its tree path joined by dots."""
+def _flat_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """Each leaf of a tree under its path joined by dots."""
     out: Dict[str, np.ndarray] = {}
 
     def walk(prefix, node):
@@ -406,9 +415,9 @@ def pm_vdvae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
     return out
 
 
-def pm_vdvae_trees(state_dict) -> Tree:
-    """The port's state dict (tensors or arrays) -> the JAX ``params`` tree,
-    the inverse of :func:`pm_vdvae_state_dict`."""
+def _tree(state_dict) -> Tree:
+    """A state dict (tensors or arrays) -> the tree whose paths its names
+    join, the inverse of :func:`_flat_state_dict`."""
     tree: Tree = {}
     for name, v in state_dict.items():
         node = tree
@@ -417,6 +426,18 @@ def pm_vdvae_trees(state_dict) -> Tree:
             node = node.setdefault(k, {})
         node[leaf] = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
     return tree
+
+
+def pm_vdvae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """A JAX ``PosteriorMatchingVDVAE`` ``params`` tree -> the port's state
+    dict: each leaf under its tree path joined by dots."""
+    return _flat_state_dict(params)
+
+
+def pm_vdvae_trees(state_dict) -> Tree:
+    """The port's state dict (tensors or arrays) -> the JAX ``params`` tree,
+    the inverse of :func:`pm_vdvae_state_dict`."""
+    return _tree(state_dict)
 
 
 def pm_vdvae_from_jax(params: Tree, config: Dict[str, Any],
@@ -496,3 +517,58 @@ def _pm_vdvae_tree(config: Dict[str, Any], seed: int, jax_init: bool) -> Tree:
         else:
             out[name] = small()
     return pm_vdvae_trees(out)
+
+
+# ---------------------------------------------------------------------------
+# PM-VAE
+# ---------------------------------------------------------------------------
+
+
+def pm_vae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """A JAX ``PosteriorMatchingVAE`` ``params`` tree -> the port's state
+    dict: each leaf under its tree path joined by dots."""
+    return _flat_state_dict(params)
+
+
+def pm_vae_trees(state_dict) -> Tree:
+    """The port's state dict (tensors or arrays) -> the JAX ``params`` tree,
+    the inverse of :func:`pm_vae_state_dict`."""
+    return _tree(state_dict)
+
+
+def pm_vae_from_jax(params: Tree, config: Dict[str, Any],
+                    device: Optional[str] = None) -> PosteriorMatchingVAE:
+    """Builds a ``PosteriorMatchingVAE`` from a ``model_config.json`` dict on
+    ``device`` (the GPU unless ``"cpu"``) and loads JAX-layout weights;
+    every parameter must be covered."""
+    model = PosteriorMatchingVAE.from_config(config, device=device)
+    model.load_state_dict(to_torch(pm_vae_state_dict(params)))
+    return model
+
+
+def load_pm_vae(run_dir: str, device: Optional[str] = None) -> PosteriorMatchingVAE:
+    """Reads a PM-VAE run directory (``model_config.json``,
+    ``train_state.pkl``) written by either package; its ``params``, as
+    ``eval_pm_vae_uci.py`` evaluates them."""
+    resolve_device(device)
+    with open(os.path.join(run_dir, "model_config.json")) as fp:
+        config = json.load(fp)
+    ts = load_train_state(os.path.join(run_dir, "train_state.pkl"))
+    return pm_vae_from_jax(ts.params, config, device=device)
+
+
+def init_pm_vae_tree(config: Dict[str, Any], seed: int) -> Tree:
+    """The JAX package's initial ``params`` of ``PosteriorMatchingVAE``,
+    equal in distribution (its draws come from ``jax.random``): every Dense
+    and conv kernel and the autoregressive GMM's ``ar_net_*_w`` truncated
+    normal / sqrt(fan_in), every bias and ``log_scale`` zero."""
+    rng = np.random.default_rng(seed)
+    model = PosteriorMatchingVAE.from_config(config, device="cpu")
+    out: Dict[str, np.ndarray] = {}
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        if name.endswith(".kernel") or name.endswith("_w"):
+            out[name] = _trunc_normal(rng, shape)
+        else:
+            out[name] = np.zeros(shape, np.float32)
+    return pm_vae_trees(out)

@@ -5,16 +5,19 @@ from posterior_matching_torch.distributions._math import (
     softplus_scale,
     tril_size,
 )
+from posterior_matching_torch.distributions.discrete import Bernoulli
 from posterior_matching_torch.distributions.logistic import QuantizedLogisticMixture
+from posterior_matching_torch.distributions.mixture import GMM1D
 from posterior_matching_torch.distributions.normal import (
     MultivariateNormalDiag,
     MultivariateNormalTriL,
     Noise,
+    Normal,
     standard_normal,
 )
 
 __all__ = [
-    "MultivariateNormalDiag", "MultivariateNormalTriL", "Noise",
-    "QuantizedLogisticMixture", "fill_scale_tril", "fill_triangular",
+    "Bernoulli", "GMM1D", "MultivariateNormalDiag", "MultivariateNormalTriL", "Noise",
+    "Normal", "QuantizedLogisticMixture", "fill_scale_tril", "fill_triangular",
     "kl_diag_tril", "softplus_scale", "standard_normal", "tril_size",
 ]

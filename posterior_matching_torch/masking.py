@@ -1,16 +1,18 @@
-"""On-device mask generation for the CelebA and MNIST paths.
+"""On-device mask generation.
 
-Counterpart of ``posterior_matching_tpu/masking.py`` for the generators the
-``CelebAMaskGenerator`` (:447-452) and ``MNISTMaskGenerator`` (:383-401,
-:460) mixtures draw from: random rectangles, fixed rectangles, random
-squares, per-pixel Bernoulli, and crops of the thresholded bicubic noise
-canvas (``random_pattern_mask``, :242-321), flattened into one categorical
-(:329-376). Every generator is ``(generator, shape) -> mask`` with an
-explicit ``torch.Generator`` whose device the mask is drawn on; masks are
-``[B, H, W, 1]`` float32, 1 where a pixel is observed. The registry
-(:func:`get_mask_generator`) also names the rectangle and per-pixel
-Bernoulli generators alone; its feature-vector and Omniglot / CIFAR-10
-entries are not ported yet.
+Counterpart of ``posterior_matching_tpu/masking.py`` for the feature-level
+generators of PM-VAE (``uniform_mask`` and ``bernoulli_mask``, :58-95) and
+for the generators the ``CelebAMaskGenerator`` (:447-452) and
+``MNISTMaskGenerator`` (:383-401, :460) mixtures draw from: random
+rectangles, fixed rectangles, random squares, per-pixel Bernoulli, and
+crops of the thresholded bicubic noise canvas (``random_pattern_mask``,
+:242-321), flattened into one categorical (:329-376). Every generator is
+``(generator, shape) -> mask`` with an explicit ``torch.Generator`` whose
+device the mask is drawn on; masks are float32, 1 where a feature is
+observed: the data's own shape for the feature-level generators, ``[B, H,
+W, 1]`` for the image ones. The registry (:func:`get_mask_generator`) also
+names the rectangle and per-pixel Bernoulli generators alone; its Omniglot
+and CIFAR-10 entries are not ported yet.
 
 The pattern canvas is rebuilt without PIL: :func:`_bicubic_resize`
 reproduces ``PIL.Image.resize(..., BICUBIC)`` on a mode ``F`` image (PIL's
@@ -41,6 +43,29 @@ def _image_shape(shape: Sequence[int]) -> Tuple[int, int, int]:
 
 def _randint(gen: torch.Generator, low: int, high: int, size) -> torch.Tensor:
     return torch.randint(low, high, size, generator=gen, device=gen.device)
+
+
+def uniform_mask(
+    gen: torch.Generator, shape: Sequence[int],
+    bounds: Optional[Tuple[float, float]] = None,
+) -> torch.Tensor:
+    """Per row, a count ``q`` uniform on ``{0..d-1}`` (with ``bounds``:
+    ``int(d lo) + `` uniform on ``{0..int(d hi)-1}``, which can pass ``d
+    hi``, as the reference's does), then a uniformly random subset of ``q``
+    observed features: those whose iid uniform ranks below ``q``."""
+    b, d = shape[0], int(np.prod(shape[1:]))
+    if bounds is None:
+        q = _randint(gen, 0, d, (b,))
+    else:
+        q = int(d * bounds[0]) + _randint(gen, 0, int(d * bounds[1]), (b,))
+    u = torch.rand((b, d), generator=gen, device=gen.device)
+    ranks = torch.argsort(torch.argsort(u, -1), -1)
+    return (ranks < q[:, None]).float().reshape(tuple(shape))
+
+
+def bernoulli_mask(gen: torch.Generator, shape: Sequence[int], p: float = 0.5) -> torch.Tensor:
+    """iid Bernoulli(p) per feature."""
+    return (torch.rand(tuple(shape), generator=gen, device=gen.device) < p).float()
 
 
 def image_bernoulli_mask(
@@ -308,6 +333,8 @@ def _mixture(spec: Tuple[list, list]) -> MaskFn:
 
 # name -> (device, **kwargs) -> mask function (``masking.py:455-476``).
 _REGISTRY = {
+    "BernoulliMaskGenerator": lambda dev, **kw: functools.partial(bernoulli_mask, **kw),
+    "UniformMaskGenerator": lambda dev, **kw: functools.partial(uniform_mask, **kw),
     "ImageBernoulliMaskGenerator":
         lambda dev, **kw: functools.partial(image_bernoulli_mask, **kw),
     "RectangleMaskGenerator": lambda dev, **kw: functools.partial(rectangle_mask, **kw),

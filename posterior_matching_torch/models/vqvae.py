@@ -16,7 +16,9 @@ HWIO kernels onto them, including the transposed convolutions, whose flax
 form (``padding="SAME"``, ``transpose_kernel=False``) is a plain correlation
 of the zero-inserted input with the unflipped kernel: that is
 ``conv_transpose2d`` with the kernel flipped in space and the padding of
-:func:`_transpose_padding`.
+:func:`~posterior_matching_torch.models.networks.conv_transpose_padding`
+(shared with the PM-VAE decoder, whose padding differs at the two ends;
+here both ends must be equal).
 """
 from __future__ import annotations
 
@@ -28,28 +30,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from posterior_matching_torch.distributions._math import LOG_2PI
-from posterior_matching_torch.models.networks import Dense
+from posterior_matching_torch.models.networks import (
+    Dense,
+    conv_transpose_padding,
+    same_padding,
+)
 from posterior_matching_torch.ops.vq import (
     nearest_codebook_indices,
     vq_straight_through,
 )
-
-
-def _same_pad(size: int, k: int, s: int) -> Tuple[int, int]:
-    """flax/XLA ``SAME`` padding (low, high) along one axis."""
-    out = -(-size // s)
-    total = max((out - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def _transpose_padding(k: int, s: int) -> int:
-    """``conv_transpose2d`` padding equal to ``lax.conv_transpose``'s SAME
-    padding (``jax._src.lax.convolution._conv_transpose_padding``)."""
-    pad_len = k + s - 2
-    pad_a = k - 1 if s > k - 1 else math.ceil(pad_len / 2)
-    if pad_len - pad_a != pad_a:
-        raise ValueError(f"asymmetric transpose padding for k={k}, s={s}")
-    return k - 1 - pad_a
 
 
 class Conv(nn.Module):
@@ -63,8 +52,8 @@ class Conv(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ph = _same_pad(x.shape[2], self.k, self.stride)
-        pw = _same_pad(x.shape[3], self.k, self.stride)
+        ph = same_padding(x.shape[2], self.k, self.stride)
+        pw = same_padding(x.shape[3], self.k, self.stride)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             return F.conv2d(
                 x, self.weight, self.bias, self.stride, (ph[0], pw[0])
@@ -81,7 +70,10 @@ class ConvTranspose(nn.Module):
     def __init__(self, cin: int, cout: int, k: int, stride: int):
         super().__init__()
         self.stride = stride
-        self.padding = _transpose_padding(k, stride)
+        lo, hi = conv_transpose_padding(k, stride)
+        if lo != hi:
+            raise ValueError(f"asymmetric transpose padding for k={k}, s={stride}")
+        self.padding = k - 1 - lo
         self.weight = nn.Parameter(torch.empty(cin, cout, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))

@@ -1,7 +1,7 @@
 """Adam with a learning-rate schedule, as the JAX training scripts compose it.
 
-:class:`Adam` is the PM-VQVAE chain; :class:`ClippedAdam` the PM-VDVAE one,
-below.
+:class:`Adam` is the PM-VQVAE chain; :class:`ClippedAdam` the PM-VDVAE one
+and, without its clip, PM-VAE's (below).
 
 Counterpart of ``optax.chain(scale_by_adam(), scale_by_schedule(schedule),
 scale(-1.0))`` (``train_pm_vqvae.py:170-175``), with optax's defaults (``b1 = 0.9``,
@@ -15,7 +15,7 @@ JAX trainer's ``multi_transform(... set_to_zero)`` does to them.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -70,19 +70,23 @@ class ClippedAdam(Adam):
     161-186``), in optax's order: the gradients are scaled by ``max_norm /
     norm`` (as ``(g / norm) * max_norm``) only when their global norm is at
     least ``max_norm``; Adam as :class:`Adam`; then ``weight_decay * p`` is
-    added to the update of every parameter that is not 1-D, and the update
-    is scaled by the schedule."""
+    added to the update of every parameter that is not 1-D (a scalar is
+    decayed), and the update is scaled by the schedule. With ``max_norm``
+    None there is no clip: PM-VAE's chain (``train_pm_vae.py:80-94``)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule,
-                 max_norm: float, weight_decay: float = 0.0):
+                 max_norm: Optional[float], weight_decay: float = 0.0):
         super().__init__(params, schedule)
-        self.max_norm, self.weight_decay = float(max_norm), float(weight_decay)
+        self.max_norm = None if max_norm is None else float(max_norm)
+        self.weight_decay = float(weight_decay)
 
     def _update(self, p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return u + self.weight_decay * p if self.weight_decay and p.ndim != 1 else u
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> None:
+        if self.max_norm is None:
+            return super().step(grads)
         norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
         clip = ~(norm < self.max_norm)   # optax: keep g where norm < max_norm
         super().step({k: torch.where(clip, (g / norm) * self.max_norm, g)

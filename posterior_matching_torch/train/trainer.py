@@ -5,14 +5,17 @@ update step), for a ``torch.nn.Module``:
 
 - parameters under a frozen prefix (``"vqvae"``: ``train_pm_vqvae.py:
   177-179``) get no gradient, no update and no optimizer state;
-- the prologue (mask generation) runs on the device from an explicit
-  generator, seeded from (run seed, step); the dropout seed of a step is
-  derived from (run seed, step) as well, so a step is a function of the
-  run seed, the step and the batch;
+- the prologue (mask generation, PM-VAE's training noise) runs on the
+  device from an explicit generator, seeded from (run seed, step), and
+  validation may run another one (``val_prologue_fn``: PM-VAE's adds no
+  noise, ``datasets.py:460-465``); the dropout seed of a step is derived
+  from (run seed, step) as well, so a step is a function of the run seed,
+  the step and the batch;
 - loss, backward, the optimizer's update (:mod:`posterior_matching_torch.
   train.optim`: Adam at a constant rate for the VQ-VAE, under the
   exponential decay for PM-VQVAE, the clipped chain of
-  ``train_pm_vdvae.py`` for PM-VDVAE) and ``step + 1``, in that
+  ``train_pm_vdvae.py`` for PM-VDVAE, that chain without the clip for
+  PM-VAE) and ``step + 1``, in that
   order; optionally the whole update is skipped when the loss or a raw
   gradient is not finite, and an EMA of the parameters is kept;
 - checkpoints are ``train_state.pkl`` files in the JAX package's layout
@@ -21,7 +24,9 @@ update step), for a ``torch.nn.Module``:
 - :meth:`Trainer.fit` validates as the JAX trainer does (:612-661).
 
 A loss function returns the scalar loss, or ``(loss, metrics)`` with a
-dict of detached scalar metrics to log beside it.
+dict of detached scalar metrics to log beside it. With ``pass_step`` it
+also takes the step, as the JAX trainer's loss functions do (PM-VAE's KL
+weight follows it).
 
 The TPU trainer's dispatch tools (``steps_per_call``, device-resident data,
 the packed-parameter codec) are not ported: they amortise host dispatch on
@@ -40,12 +45,16 @@ from posterior_matching_torch.ops.gated_chain import _mix32_int
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.train.callbacks import Callback
 from posterior_matching_torch.train.optim import Adam, ClippedAdam, trainable_names
-from posterior_matching_torch.train.schedules import exponential_decay, linear_schedule
+from posterior_matching_torch.train.schedules import (
+    exponential_decay,
+    get_beta_schedule,
+    linear_schedule,
+)
 from posterior_matching_torch.train.state import TrainState, save_train_state
 
 Batch = Dict[str, torch.Tensor]
-# loss_fn(model, batch, seed, training) -> scalar loss, or (loss, metrics)
-LossFn = Callable[[nn.Module, Batch, int, bool], Any]
+# loss_fn(model, batch, seed, training[, step]) -> scalar loss, or (loss, metrics)
+LossFn = Callable[..., Any]
 # prologue_fn(batch, generator) -> batch, on the device
 PrologueFn = Callable[[Batch, torch.Generator], Batch]
 # to_trees(state_dict) -> (params, state) in the JAX package's layout
@@ -82,6 +91,8 @@ class Trainer:
         optimizer: OptimizerFn,
         frozen: Sequence[str] = (),
         prologue_fn: Optional[PrologueFn] = None,
+        val_prologue_fn: Optional[PrologueFn] = None,
+        pass_step: bool = False,
         seed: int = 0,
         skip_nonfinite_updates: bool = False,
         ema_rate: Optional[float] = None,
@@ -91,14 +102,17 @@ class Trainer:
         """``optimizer`` builds the optimizer from the trainable parameters;
         with ``ema_rate`` an EMA of the parameters is kept, and validation
         uses it (``use_ema_for_eval`` of the JAX trainer, which its one EMA
-        caller sets); ``device``: the GPU unless ``"cpu"`` (raises without
-        a GPU)."""
+        caller sets); ``val_prologue_fn`` prepares validation batches
+        (``prologue_fn`` when None); ``device``: the GPU unless ``"cpu"``
+        (raises without a GPU)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
         self.make_optimizer = optimizer
         self.frozen = tuple(frozen)
         self.prologue_fn = prologue_fn
+        self.val_prologue_fn = val_prologue_fn if val_prologue_fn is not None else prologue_fn
+        self.pass_step = pass_step
         self.seed = int(seed)
         self.skip_nonfinite = skip_nonfinite_updates
         self.ema_rate = ema_rate
@@ -133,10 +147,10 @@ class Trainer:
         """One update; returns the step's metrics (device tensors)."""
         if self.optimizer is None:
             self.init()
-        batch = self._prologue(batch, derive_seed(self.seed, self.step, 1))
+        batch = self._prologue(batch, derive_seed(self.seed, self.step, 1), self.prologue_fn)
         self.model.train()
         loss, aux = _loss_and_metrics(
-            self.loss_fn(self.model, batch, derive_seed(self.seed, self.step, 0), True))
+            self._loss(batch, derive_seed(self.seed, self.step, 0), True))
         names = list(self.optimizer.params)
         grads = torch.autograd.grad(loss, [self.optimizer.params[n] for n in names])
         grads = dict(zip(names, grads))
@@ -157,20 +171,25 @@ class Trainer:
         self.step += 1
         return metrics
 
-    def _prologue(self, batch: Batch, seed: int) -> Batch:
-        """The batch (tensors or numpy arrays) on the device, through the
-        prologue with a generator seeded by ``seed``."""
+    def _loss(self, batch: Batch, seed: int, training: bool):
+        step = (self.step,) if self.pass_step else ()
+        return self.loss_fn(self.model, batch, seed, training, *step)
+
+    def _prologue(self, batch: Batch, seed: int, prologue_fn: Optional[PrologueFn]) -> Batch:
+        """The batch (tensors or numpy arrays) on the device, through
+        ``prologue_fn`` with a generator seeded by ``seed``."""
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
-        if self.prologue_fn is None:
+        if prologue_fn is None:
             return batch
-        return self.prologue_fn(batch, torch.Generator(device=self.device).manual_seed(seed))
+        return prologue_fn(batch, torch.Generator(device=self.device).manual_seed(seed))
 
     @torch.no_grad()
     def validate(self, batches: Iterable[Batch]) -> Dict[str, float]:
         """The loss function's metrics (and ``loss``) averaged over
         ``batches``, not training, with the EMA parameters where the
-        trainer keeps them. Batch ``i``'s prologue and loss draw from
-        seeds derived from (run seed, step, 2) and ``i``."""
+        trainer keeps them, each batch through the validation prologue.
+        Batch ``i``'s prologue and loss draw from seeds derived from (run
+        seed, step, 2) and ``i``."""
         if self.optimizer is None:
             self.init()
         params = dict(self.model.named_parameters())
@@ -183,9 +202,8 @@ class Trainer:
             self.model.eval()
             base, out = derive_seed(self.seed, self.step, 2), []
             for i, batch in enumerate(batches):
-                batch = self._prologue(batch, derive_seed(base, i, 1))
-                loss, aux = _loss_and_metrics(
-                    self.loss_fn(self.model, batch, derive_seed(base, i, 0), False))
+                batch = self._prologue(batch, derive_seed(base, i, 1), self.val_prologue_fn)
+                loss, aux = _loss_and_metrics(self._loss(batch, derive_seed(base, i, 0), False))
                 out.append({**aux, "loss": loss})
         finally:
             if kept is not None:
@@ -364,4 +382,81 @@ def pm_vdvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
         model, pm_vdvae_metrics, optimizer=optimizer, prologue_fn=prologue, seed=seed,
         skip_nonfinite_updates=True, ema_rate=cfg.get("ema_rate", 0.999),
         to_trees=lambda sd: (pm_vdvae_trees(sd), {}), device=device, **kwargs,
+    )
+
+
+def pm_vae_prologue(data_config: Dict[str, Any], mask_fn, training: bool) -> Optional[PrologueFn]:
+    """PM-VAE's batch prologue (``datasets.py:429-465``): in training,
+    ``training_noise`` times standard normals added to ``features`` (the
+    configuration's, when it has one), then the mask of ``mask_fn`` (when
+    not None); the validation prologue adds no noise."""
+    from posterior_matching_torch.masking import add_mask
+
+    noise_std = data_config.get("training_noise") if training else None
+    if mask_fn is None and noise_std is None:
+        return None
+
+    def prologue(batch: Batch, gen: torch.Generator) -> Batch:
+        out = dict(batch)
+        if noise_std is not None and "features" in out:
+            x = out["features"]
+            eps = torch.randn(x.shape, generator=gen, device=gen.device, dtype=x.dtype)
+            out["features"] = x + noise_std * eps.to(x.device)
+        if mask_fn is not None:
+            out = add_mask(out, gen, mask_fn)
+        return out
+
+    return prologue
+
+
+def pm_vae_loss_fn(config: Dict[str, Any], data_key: str) -> LossFn:
+    """The PM-VAE training loss of ``train_pm_vae.py:49-77``: ``-mean(
+    reconstruction_ll - beta kl) + matching_coef * -mean(matching_ll)`` with
+    the beta schedule at the step, logged with each output's batch mean and
+    ``beta``. Its ``noise``: an int seeds the sample and dropout generators
+    on the model's device; a generator or an iterator of normals is used
+    for the samples as given (then there is no dropout generator)."""
+    beta_schedule = get_beta_schedule(config.get("beta"))
+    matching_coef = config.get("matching_coef", 1.0)
+
+    def loss_fn(model, batch: Batch, noise, training: bool, step: int):
+        dropout = None
+        if isinstance(noise, int):
+            dropout = torch.Generator(device=model.device).manual_seed(derive_seed(noise, 0, 3))
+            noise = torch.Generator(device=model.device).manual_seed(noise)
+        out = model(batch[data_key], batch["mask"], noise, training=training, dropout=dropout)
+        beta = beta_schedule(step)
+        elbo = (out["reconstruction_ll"] - beta * out["kl"]).mean()
+        loss = -elbo + matching_coef * -out["matching_ll"].mean()
+        metrics = {k: v.detach().mean() for k, v in out.items()}
+        metrics["beta"] = torch.tensor(beta)
+        return loss, metrics
+
+    return loss_fn
+
+
+def pm_vae_trainer(model, config: Dict[str, Any], *, seed: int = 0, mask_fn=None,
+                   data_key: str = "features", device: Optional[str] = None,
+                   **kwargs) -> Trainer:
+    """The trainer of ``train_pm_vae.py:80-158``: nothing frozen, Adam with
+    the decayed weights of every parameter that is not 1-D under the
+    exponential decay and no clip (:class:`~posterior_matching_torch.train.
+    optim.ClippedAdam` without ``max_norm``), the loss of
+    :func:`pm_vae_loss_fn` at the step, masks from ``mask_fn`` and the
+    training noise added on the device, checkpoints in the JAX package's
+    layout."""
+    from posterior_matching_torch.convert import pm_vae_trees
+
+    if config.get("adam"):
+        raise NotImplementedError("Adam options other than optax's defaults are not ported")
+    schedule = exponential_decay(**config["lr_schedule"])
+    optimizer = lambda params: ClippedAdam(params, schedule, None,
+                                           config.get("weight_decay", 0.0))
+    data = config.get("data", {})
+    return Trainer(
+        model, pm_vae_loss_fn(config, data_key), optimizer=optimizer,
+        prologue_fn=pm_vae_prologue(data, mask_fn, True),
+        val_prologue_fn=pm_vae_prologue(data, mask_fn, False) or (lambda batch, gen: batch),
+        pass_step=True,
+        seed=seed, to_trees=lambda sd: (pm_vae_trees(sd), {}), device=device, **kwargs,
     )

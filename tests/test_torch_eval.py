@@ -172,8 +172,8 @@ def test_registry_masks_match_jax_by_distribution(name, kwargs):
 
 
 def test_registry_refuses_unported_generators():
-    with pytest.raises(NotImplementedError, match="BernoulliMaskGenerator"):
-        masking.get_mask_generator("BernoulliMaskGenerator", "cpu")
+    with pytest.raises(NotImplementedError, match="OmniglotMaskGenerator"):
+        masking.get_mask_generator("OmniglotMaskGenerator", "cpu")
     with pytest.raises(TypeError):
         masking.get_mask_generator("RectangleMaskGenerator", "cpu", size=3)(
             torch.Generator(), (2, 8, 8, 1))

@@ -15,23 +15,32 @@ import pytest
 import torch
 
 from posterior_matching_torch import (
+    eval_pm_vae_uci,
     eval_pm_vdvae_imputation,
     eval_pm_vdvae_likelihood,
     eval_pm_vqvae,
     masking,
     runtime,
+    train_pm_vae,
     train_pm_vdvae,
 )
 from posterior_matching_torch.config import (
+    PM_VAE_CONFIGS,
     PM_VDVAE_MNIST,
     PM_VDVAE_MNIST_TRAIN,
     PM_VQVAE_CELEB_A,
     VQVAE_CELEB_A,
 )
 from posterior_matching_torch.models.pm_vqvae import PMVQVAE
+from posterior_matching_torch.models.vae import PosteriorMatchingVAE
 from posterior_matching_torch.models.vdvae import PosteriorMatchingVDVAE
 from posterior_matching_torch.train.optim import Adam
-from posterior_matching_torch.train.trainer import Trainer, pm_vdvae_trainer, pm_vqvae_loss
+from posterior_matching_torch.train.trainer import (
+    Trainer,
+    pm_vae_trainer,
+    pm_vdvae_trainer,
+    pm_vqvae_loss,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "posterior_matching_torch").rglob("*.py")) + [
@@ -140,3 +149,29 @@ def test_eval_clis_need_a_gpu_unless_told_cpu(main, monkeypatch, tmp_path):
     # on the CPU it runs on, as far as the absent data
     with pytest.raises(ValueError, match="unknown dataset"):
         main([*argv, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", ["pm_vae_gas", "pm_vae_mnist"])
+def test_pm_vae_entry_points_need_a_gpu_unless_told_cpu(name, monkeypatch, tmp_path):
+    """The model, its trainer, its masks and both CLIs raise without a GPU
+    unless asked for the CPU; on the CPU the eval CLI runs as far as the
+    absent run directory."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = PM_VAE_CONFIGS[name]()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PosteriorMatchingVAE.from_config(config["model"])
+    model = PosteriorMatchingVAE.from_config(config["model"], device="cpu")
+    assert model.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pm_vae_trainer(model, config)
+    assert pm_vae_trainer(model, config, device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        masking.get_mask_generator(config["data"]["mask_generator"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_pm_vae.main(["--config", name, "--config.steps", "1"])
+    monkeypatch.setenv("PM_TPU_DATA_DIR", str(tmp_path))
+    argv = ["--run_dir", str(tmp_path / "absent"), "--dataset", "gas", "--num_instances", "32"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_pm_vae_uci.main(argv)
+    with pytest.raises(FileNotFoundError, match="model_config.json"):
+        eval_pm_vae_uci.main([*argv, "--device", "cpu"])
