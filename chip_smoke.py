@@ -6,7 +6,8 @@ granularities), the PM-VQVAE MNIST training pipeline from the command line
 (stage 1, then stage 2), PM-VDVAE MNIST's three paths at the full width of
 ``configs/pm_vdvae_mnist.py`` (imputation, likelihood, training), then the
 PM-VQVAE CelebA pipeline and the PM-VDVAE evals from their CLIs, then
-PM-VAE's training and UCI eval CLIs, and checks them, in these phases:
+PM-VAE's training and UCI eval CLIs, then VaDE's and the greedy
+acquisition's CLIs, and checks them, in these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
 2. all thirteen kernels (``posterior_matching_torch/ops/csrc``; the pair
@@ -120,7 +121,25 @@ PM-VAE's training and UCI eval CLIs, and checks them, in these phases:
    normals (the loss within 1e-5 relative, every gradient within 1e-4 of
    scale); none of the thirteen kernels is launched (every counter set to
    0 before each CLI and read after it);
-15. one JSON line of per-kernel numbers, the card's name and power limit,
+15. VaDE and greedy acquisition from their CLIs, at the full widths of
+   ``configs/vade_mnist.py``, ``configs/pm_vade_mnist.py``,
+   ``configs/pm_vae_mnist16.py`` and ``configs/lookahead_mnist16.py`` on the
+   synthetic stand-ins: ``train_vade`` (40 pretraining and 40 ELBO steps at
+   batch 128; the mixture fitted on the device, grafted into the prior
+   before the ELBO phase, ``val_clustering_accuracy`` at both
+   validations), ``train_pm_vade`` on its run (20 steps; every VaDE tensor
+   bit for bit frozen), ``train_pm_vae --config pm_vae_mnist16`` (30
+   steps, with phase 14's checks), ``train_lookahead_posterior`` on that
+   run (20 steps of the full 64 x 32 x 16 one-step batch; the PM-VAE bit
+   for bit frozen, every ``lookahead_*`` tensor moved) and
+   ``eval_greedy_acquisition`` on it (8 instances, 31 steps, 50 samples,
+   chunks of 8: its trajectories, the mean RMSE curves, its wall time);
+   each training CLI's steps/s over steps 3-N, launches a step and idle
+   share; a narrow VaDE, PM-VaDE and lookahead model stepped on the GPU and on the CPU with the same weights and draws (the
+   loss within 1e-5 relative, every gradient within 1e-4 of scale); none
+   of the thirteen kernels launched (every counter set to 0 before each
+   CLI and read after it);
+16. one JSON line of per-kernel numbers, the card's name and power limit,
    and the result line.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--vdvae_run_dir
@@ -134,6 +153,7 @@ import glob
 import io
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -1995,18 +2015,19 @@ def all_kernel_counters():
 
 @contextlib.contextmanager
 def step_clock():
-    """Records the trainer, its last batch and the time after each of its
-    steps (the device waited for) while a training CLI runs: ``{"trainer",
-    "batch", "t"}``."""
+    """Records the trainer, its last batch and the span of each of its
+    steps, from its call to its end with the device waited for, while a
+    training CLI runs: ``{"trainer", "batch", "spans"}``."""
     from posterior_matching_torch.train.trainer import Trainer
 
-    seen = {"trainer": None, "batch": None, "t": []}
+    seen = {"trainer": None, "batch": None, "spans": []}
     step = Trainer.train_step
 
     def timed(self, batch):
+        t0 = time.perf_counter()
         out = step(self, batch)
         torch.cuda.synchronize()
-        seen["t"].append(time.perf_counter())
+        seen["spans"].append(time.perf_counter() - t0)
         seen["trainer"], seen["batch"] = self, batch
         return out
 
@@ -2017,11 +2038,80 @@ def step_clock():
         Trainer.train_step = step
 
 
+def counted_cli(name, main, argv, work, counters):
+    """A CLI in this process on the synthetic stand-ins, every kernel
+    counter set to 0 just before it and read just after (none may have
+    launched), each training step waited for and timed: ``(lines, wall,
+    clock)``."""
+    for c in counters.values():
+        c.launches = 0
+    with cli_env(work, f"{work}/no_data"), step_clock() as clock:
+        _, lines, wall = run_cli(name, main, argv)
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    check(not launched, f"{name} launched kernels {launched}")
+    return lines, wall, clock
+
+
+def step_rate(name, clock, steps, lines, finite=True):
+    """Steps/s of the last ``steps`` steps: steps 3 to ``steps`` over the
+    sum of their spans (the whole window but the validations between
+    steps); the last two ``[step ...]`` lines, each with a ``val_loss`` and,
+    with ``finite``, finite losses; and one more step profiled (its CUDA
+    kernel launches and the device's idle share)."""
+    spans = clock["spans"][-steps:]
+    check(len(spans) == steps, f"{name} ran {len(spans)} steps")
+    windows = [ln for ln in lines if ln.startswith("[step ")][-2:]
+    check(len(windows) == 2 and all("val_loss=" in ln for ln in windows),
+          f"{name}: validations {windows}")
+    losses = [line_value(ln, "loss") for ln in windows]
+    check(not finite or all(np.isfinite(losses)), f"{name}: window losses {losses}")
+    steps_per_s = (steps - 2) / sum(spans[2:])
+    prof = profile_step(clock["trainer"], clock["batch"], ())
+    per_step = None if prof is None else prof["kernel_launches"]
+    log(f"{name}: {steps} steps, {steps_per_s:.1f} steps/s over steps 3-{steps} (each step "
+        f"waited for), window losses {losses}, {per_step} CUDA kernel launches a step")
+    return {"steps": steps, "steps_per_s": steps_per_s, "losses": losses,
+            "launches_per_step": per_step,
+            "idle_share": None if prof is None else prof["idle_share"], "lines": windows}
+
+
+def line_value(line, key):
+    """The number after `` key=`` in a CLI's log line."""
+    return float(line.split(f" {key}=")[1].split()[0])
+
+
+def same_bits(a, b):
+    bits = lambda v: v.detach().contiguous().cpu().view(torch.int32)   # NaN included
+    return torch.equal(bits(a), bits(b))
+
+
+def small_grad_check(what, build, loss_of):
+    """The loss and every gradient of a narrow model on the GPU against the
+    CPU, with the same weights and draws: the loss within STEP_LOSS_TOL
+    relative, every gradient within GRAD_TOL of its scale (a parameter the
+    loss does not reach has none on either side)."""
+    out = {}
+    for d in (DEVICE, "cpu"):
+        m = build(d)
+        names, params = zip(*m.named_parameters())
+        loss = loss_of(m, d)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        out[d] = (loss.item(), {n: g.cpu() for n, g in zip(names, grads) if g is not None})
+    (lg, gg), (lc, gcpu) = out[DEVICE], out["cpu"]
+    check(set(gg) == set(gcpu) and gcpu, f"{what}: different parameters got gradients")
+    loss_rel = abs(lg - lc) / abs(lc)
+    worst = max(((n, rel_err(gg[n], gcpu[n])[1]) for n in gcpu), key=lambda t: t[1])
+    log(f"{what} small step vs CPU: loss {lg:.6f} vs {lc:.6f} (relative {loss_rel:.3e}), worst "
+        f"gradient relative to scale {worst[1]:.3e} ({worst[0]}) over {len(gcpu)} tensors")
+    check(loss_rel <= STEP_LOSS_TOL, f"{what} small step: the loss disagrees with the CPU's")
+    check(worst[1] <= GRAD_TOL, f"{what} small step: a gradient disagrees with the CPU's")
+    return {"loss_rel": loss_rel, "worst_grad_rel": worst[1], "tensors": len(gcpu)}
+
+
 def small_pm_vae_step_check(data_key, seed):
     """The loss and every gradient of a narrow PM-VAE of one family on the
-    GPU against the CPU, with the same weights and injected normals: the
-    loss within 1e-5 relative, every gradient within GRAD_TOL of its
-    scale."""
+    GPU against the CPU (:func:`small_grad_check`), with the same weights
+    and injected normals."""
     from posterior_matching_torch import convert
     from posterior_matching_torch.train.trainer import pm_vae_loss_fn
 
@@ -2036,78 +2126,44 @@ def small_pm_vae_step_check(data_key, seed):
                                                      "high_value": 1.0, "period": 10,
                                                      "delay": 2}}, data_key)
     tree = convert.init_pm_vae_tree(cfg, seed=seed + 16)
-    out = {}
-    for d in (DEVICE, "cpu"):
-        m = convert.pm_vae_from_jax(tree, cfg, device=d)
-        names, params = zip(*m.named_parameters())
-        loss, _ = loss_fn(m, {data_key: x.to(d), "mask": b.to(d)}, iter([eps]), True, 6)
-        grads = torch.autograd.grad(loss, params)
-        out[d] = (loss.item(), {n: gr.cpu() for n, gr in zip(names, grads)})
-    (lg, gg), (lc, gcpu) = out[DEVICE], out["cpu"]
-    loss_rel = abs(lg - lc) / abs(lc)
-    worst = max(((n, rel_err(gg[n], gcpu[n])[1]) for n in gcpu), key=lambda t: t[1])
-    log(f"pm-vae small step ({cfg['encoder_net']}) vs CPU: loss {lg:.6f} vs {lc:.6f} (relative "
-        f"{loss_rel:.3e}), worst gradient relative to scale {worst[1]:.3e} ({worst[0]}) over "
-        f"{len(gcpu)} tensors")
-    check(loss_rel <= STEP_LOSS_TOL, "pm-vae small step: the loss disagrees with the CPU's")
-    check(worst[1] <= GRAD_TOL, "pm-vae small step: a gradient disagrees with the CPU's")
-    return {"loss_rel": loss_rel, "worst_grad_rel": worst[1]}
+    return small_grad_check(
+        f"pm-vae ({cfg['encoder_net']})", lambda d: convert.pm_vae_from_jax(tree, cfg, device=d),
+        lambda m, d: loss_fn(m, {data_key: x.to(d), "mask": b.to(d)}, iter([eps]), True, 6)[0])
 
 
 def pm_vae_train_cli(name, steps, falls, seed, work, counters):
     """``train_pm_vae --config name`` at full width for ``steps`` steps and
-    two validations, on the synthetic stand-in, in this process: its run
-    directory, finite reconstruction log-likelihoods, with ``falls`` finite
-    losses falling from the first window to the second, steps/s over steps
-    3 to ``steps`` (each step waited for), no kernel launched, the
-    checkpoint reloaded through ``load_pm_vae`` bit for bit, and one more
-    step profiled (its CUDA kernel launches and idle share)."""
+    two validations, on the synthetic stand-in, in this process
+    (:func:`counted_cli`, :func:`step_rate`): its run directory, finite
+    reconstruction log-likelihoods, with ``falls`` finite losses falling
+    from the first window to the second, and the checkpoint reloaded
+    through ``load_pm_vae`` bit for bit."""
     from posterior_matching_torch import convert, train_pm_vae
 
-    for c in counters.values():
-        c.launches = 0
-    with cli_env(work, f"{work}/no_data"), step_clock() as clock:
-        _, lines, wall = run_cli(f"train_pm_vae {name}", train_pm_vae.main, [
-            "--config", name, "--config.steps", str(steps), "--config.validation_freq",
-            str(steps // 2), "--config.seed", str(seed)])
-    launched = {k: c.launches for k, c in counters.items() if c.launches}
-    check(not launched, f"train_pm_vae {name} launched kernels {launched}")
+    lines, wall, clock = counted_cli(f"train_pm_vae {name}", train_pm_vae.main, [
+        "--config", name, "--config.steps", str(steps), "--config.validation_freq",
+        str(steps // 2), "--config.seed", str(seed)], work, counters)
     dataset = name[len("pm_vae_"):]
     run_dirs = glob.glob(f"{work}/runs/pm-vae-{dataset}-*")
     check(len(run_dirs) == 1, f"train_pm_vae {name} made the run directories {run_dirs}")
     files = sorted(os.listdir(run_dirs[0]))
     check(files == ["model_config.json", "train_meta.json", "train_state.pkl"],
           f"the run directory holds {files}")
-    windows = [ln for ln in lines if ln.startswith("[step ")]
-    check(len(windows) == 2 and all("val_loss=" in ln for ln in windows),
-          f"train_pm_vae {name} did not log two validations with val_loss")
-    value = lambda ln, k: float(ln.split(f" {k}=")[1].split()[0])
-    losses = [value(ln, "loss") for ln in windows]
-    recs = [value(ln, k) for ln in windows for k in ("reconstruction_ll",
-                                                     "val_reconstruction_ll")]
-    check(all(np.isfinite(recs)), f"train_pm_vae {name}: reconstruction_ll {recs}")
-    check(not falls or (all(np.isfinite(losses)) and losses[1] < losses[0]),
-          f"train_pm_vae {name}: the loss did not fall ({losses})")
-    t = clock["t"]
-    check(len(t) == steps, f"train_pm_vae {name} ran {len(t)} steps")
-    steps_per_s = (steps - 2) / (t[-1] - t[1])
-    trainer = clock["trainer"]
-    loaded = convert.load_pm_vae(run_dirs[0], device=DEVICE)
-    want = trainer.model.state_dict()
-    bits = lambda a: a.contiguous().view(torch.int32)   # NaN included
-    check(set(want) == set(loaded.state_dict())
-          and all(torch.equal(bits(v), bits(want[k])) for k, v in loaded.state_dict().items()),
+    # before step_rate's profiled step moves the weights
+    loaded = convert.load_pm_vae(run_dirs[0], device=DEVICE).state_dict()
+    want = clock["trainer"].model.state_dict()
+    check(set(want) == set(loaded) and all(same_bits(v, want[k]) for k, v in loaded.items()),
           f"train_pm_vae {name}: the checkpoint does not reload through load_pm_vae")
-    prof = profile_step(trainer, clock["batch"], ())
-    per_step = None if prof is None else prof["kernel_launches"]
-    log(f"train_pm_vae {name}: {steps} steps, 2 validations in {wall:.1f} s; {steps_per_s:.1f} "
-        f"steps/s over steps 3-{steps} (host-bound: each step waited for); window losses "
-        f"{losses}; {per_step} CUDA kernel launches a step; the checkpoint reloads through "
-        "load_pm_vae")
-    return {"wall_s": wall, "steps": steps, "steps_per_s": steps_per_s, "losses": losses,
-            "launches_per_step": per_step,
-            "idle_share": None if prof is None else prof["idle_share"],
-            "run_dir": run_dirs[0], "lines": windows}
+    rate = step_rate(f"train_pm_vae {name}", clock, steps, lines, finite=falls)
+    losses = rate["losses"]
+    recs = [line_value(ln, k) for ln in rate["lines"]
+            for k in ("reconstruction_ll", "val_reconstruction_ll")]
+    check(all(np.isfinite(recs)), f"train_pm_vae {name}: reconstruction_ll {recs}")
+    check(not falls or losses[1] < losses[0],
+          f"train_pm_vae {name}: the loss did not fall ({losses})")
+    log(f"train_pm_vae {name}: 2 validations in {wall:.1f} s wall; the checkpoint reloads "
+        "through load_pm_vae")
+    return {"wall_s": wall, "run_dir": run_dirs[0], **rate}
 
 
 def pm_vae_phase(args, work):
@@ -2182,6 +2238,208 @@ def pm_vae_phase(args, work):
         f"{(t1 - t0) * 1e3:.1f} ms, is_log_prob in {(t2 - t1) * 1e3:.1f} ms; log p(x) "
         f"{ll[0].mean().item():.2f}, log p(x_u | x_o) {ll[1].mean().item():.2f}; "
         "no kernel launched")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: VaDE and greedy acquisition from their CLIs
+# ---------------------------------------------------------------------------
+
+# Steps of each CLI (train_vade's for each of its phases 1 and 3), each
+# validating twice; the acquisition eval's instances, samples, episode and
+# chunk are the JAX CLI's defaults but for 8 instances.
+VADE_STEPS, PM_VADE_STEPS, PM_VAE16_STEPS, LOOKAHEAD_STEPS = 40, 20, 30, 20
+ACQ_INSTANCES, ACQ_SAMPLES, ACQ_EPISODE, ACQ_CHUNK = 8, 50, 31, 8
+# The small GPU-vs-CPU steps: a narrow conv VaDE (the autoregressive GMM
+# partial posterior for PM-VaDE) on 28x28 images, and a narrow PM-VAE of
+# 16x16 images under the lookahead posterior.
+SMALL_VADE = {"num_components": 5, "latent_dim": 4, "encoder_net": "ConvEncoder",
+              "decoder_net": "ConvDecoder", "decoder_dist": "Bernoulli",
+              "encoder_net_config": {"conv_layers": [(8, 5, 1), (8, 5, 2), (16, 5, 1),
+                                                     (16, 5, 2), (16, 7, 1)]},
+              "decoder_net_config": {"conv_layers": [(16, 7, 1), (16, 5, 2), (8, 5, 1),
+                                                     (8, 5, 2), (1, 5, 1)]},
+              "partial_posterior_dist": "AutoregressiveGMM",
+              "partial_posterior_dist_config": {"num_components": 3, "residual_blocks": 1,
+                                                "hidden_units": 32}}
+SMALL_LOOKAHEAD_PM_VAE = {"latent_dim": 4, "encoder_net": "ConvEncoder",
+                          "decoder_net": "ConvDecoder", "posterior_dist": "TriLGaussian",
+                          "decoder_dist": "Bernoulli",
+                          "encoder_net_config": {"conv_layers": [(8, 3, 1), (8, 3, 2),
+                                                                 (16, 3, 2), (16, 1, 1)]},
+                          "decoder_net_config": {"conv_layers": [(16, 8, 1), (16, 5, 2),
+                                                                 (8, 5, 1), (1, 3, 1)]}}
+
+
+def small_vade_step_checks(seed):
+    """VaDE's ELBO, PM-VaDE's matching loss and the lookahead loss of narrow
+    models, each on the GPU against the CPU."""
+    from posterior_matching_torch import convert
+    from posterior_matching_torch.train.trainer import (
+        lookahead_loss_fn,
+        pm_vade_loss_fn,
+        vade_loss_fn,
+    )
+
+    g = torch.Generator().manual_seed(seed + 17)
+    x = (torch.rand(16, 28, 28, 1, generator=g) > 0.5).float()
+    b = (torch.rand(16, 28, 28, 1, generator=g) > 0.5).float()
+    eps = torch.randn(16, SMALL_VADE["latent_dim"], generator=g)
+    batch = lambda d: {"image": x.to(d), "mask": b.to(d)}
+    out = {}
+    for partial, name, loss_fn in ((False, "vade", vade_loss_fn),
+                                   (True, "pm_vade", pm_vade_loss_fn)):
+        tree = convert.init_vade_tree(SMALL_VADE, seed=seed + 18, partial=partial)
+        out[name] = small_grad_check(
+            name, lambda d: convert.vade_from_jax(tree, SMALL_VADE, device=d),
+            lambda m, d: loss_fn("image")(m, batch(d), iter([eps]), True))
+
+    cfg = {"num_features": 256, "lookahead_subsample": 16, "model_samples": 8}
+    tree = convert.init_lookahead_tree(cfg, SMALL_LOOKAHEAD_PM_VAE, seed=seed + 19)
+    x16 = (torch.rand(4, 16, 16, 1, generator=g) > 0.5).float()
+    b16 = (torch.rand(4, 16, 16, 1, generator=g) > 0.8).float()
+    lat = SMALL_LOOKAHEAD_PM_VAE["latent_dim"]
+    draws = [torch.randn(8, 4, lat, generator=g), torch.randperm(256, generator=g)[:16],
+             torch.randn(8 * 4 * 16, lat, generator=g)]
+    out["lookahead"] = small_grad_check(
+        "lookahead", lambda d: convert.lookahead_from_jax(tree, cfg, SMALL_LOOKAHEAD_PM_VAE,
+                                                          device=d),
+        lambda m, d: lookahead_loss_fn("image")(m, {"image": x16.to(d), "mask": b16.to(d)},
+                                                iter(draws), True))
+    return out
+
+
+def vade_phase(args, work):
+    """Phase 15: ``train_vade`` (its three phases; the mixture grafted and
+    ``val_clustering_accuracy`` logged), ``train_pm_vade`` on its run (the
+    VaDE frozen bit for bit), ``train_pm_vae --config pm_vae_mnist16``,
+    ``train_lookahead_posterior`` on that run (only ``lookahead_*``
+    moved) and ``eval_greedy_acquisition`` on it, all at the configs'
+    widths on the stand-ins; the small GPU-vs-CPU steps; no kernel
+    launched."""
+    from posterior_matching_torch import (
+        config,
+        convert,
+        eval_greedy_acquisition,
+        train_lookahead_posterior,
+        train_pm_vade,
+        train_vade,
+    )
+    from posterior_matching_torch.train.trainer import Trainer
+
+    counters = all_kernel_counters()
+    out = {"small_step": small_vade_step_checks(args.seed)}
+    os.makedirs(f"{work}/no_data", exist_ok=True)
+    seed = ["--config.seed", str(args.seed)]
+
+    # -- train_vade, its mixture and graft recorded ----------------------------
+    fits, starts = [], []
+
+    class Recorded(train_vade.GaussianMixture):
+        def fit(self, x):
+            fits.append(self)
+            return super().fit(x)
+
+    init = Trainer.init
+
+    def recorded_init(self, initial_state_dict=None):
+        init(self, initial_state_dict)
+        starts.append({k: v.detach().clone() for k, v in self.model.state_dict().items()})
+
+    train_vade.GaussianMixture, Trainer.init = Recorded, recorded_init
+    try:
+        lines, wall, clock = counted_cli("train_vade vade_mnist", train_vade.main, [
+            "--config", "vade_mnist", "--config.pretrain_steps", str(VADE_STEPS),
+            "--config.steps", str(VADE_STEPS), "--config.validation_freq",
+            str(VADE_STEPS // 2), *seed], work, counters)
+    finally:
+        train_vade.GaussianMixture, Trainer.init = Recorded.__bases__[0], init
+    (vade_dir,) = glob.glob(f"{work}/runs/vade-mnist-*")
+    files = sorted(os.listdir(vade_dir))
+    check(files == ["model_config.json", "pretrain_state.pkl", "train_meta.json",
+                    "train_state.pkl"], f"the VaDE run directory holds {files}")
+    gmm_lines = [ln for ln in lines if ln.startswith("GMM Accuracy: ")]
+    check(len(gmm_lines) == 1, "train_vade printed no GMM accuracy")
+    check(len(fits) == 1 and len(starts) == 2, "train_vade fitted no mixture")
+    graft = train_vade.gmm_graft(fits[0])
+    check(all(np.array_equal(starts[1][k].cpu().numpy(), v) for k, v in graft.items()),
+          "phase 3 did not start from the grafted mixture")
+    accs = [float(ln.split("val_clustering_accuracy=")[1].split()[0])
+            for ln in lines if "val_clustering_accuracy=" in ln]
+    check(len(accs) == 2, "train_vade did not log val_clustering_accuracy at each validation")
+    out["train_vade"] = {"wall_s": wall, "gmm_accuracy": float(gmm_lines[0].split()[-1]),
+                         "val_clustering_accuracy": accs, "gmm_n_iter": fits[0].n_iter_,
+                         **step_rate("train_vade (phase 3)", clock, VADE_STEPS, lines)}
+    log(f"train_vade: {wall:.1f} s wall, GMM accuracy {out['train_vade']['gmm_accuracy']} "
+        f"({fits[0].n_iter_} EM iterations on the best of 10 initialisations), "
+        f"val_clustering_accuracy {accs}")
+
+    # -- train_pm_vade on it ------------------------------------------------------
+    lines, wall, clock = counted_cli("train_pm_vade pm_vade_mnist", train_pm_vade.main, [
+        "--config", "pm_vade_mnist", "--config.vade_dir", vade_dir, "--config.steps",
+        str(PM_VADE_STEPS), "--config.validation_freq", str(PM_VADE_STEPS // 2), *seed],
+        work, counters)
+    (pm_vade_dir,) = glob.glob(f"{work}/runs/pm-vade-mnist-*")
+    vade = convert.load_vade(vade_dir, device=DEVICE).state_dict()
+    pm_vade = convert.load_vade(pm_vade_dir, device=DEVICE).state_dict()
+    moved = [k for k, v in vade.items() if not same_bits(v, pm_vade[k])]
+    check(not moved, f"train_pm_vade moved frozen parameters {moved[:5]}")
+    check(set(pm_vade) - set(vade) == {k for k in pm_vade if k.startswith("partial_")},
+          "the PM-VaDE checkpoint's parameters are not the VaDE's and partial_*")
+    out["train_pm_vade"] = {"wall_s": wall, "frozen": len(vade),
+                            **step_rate("train_pm_vade", clock, PM_VADE_STEPS, lines)}
+    log(f"train_pm_vade: {wall:.1f} s wall; all {len(vade)} VaDE tensors bit for bit frozen")
+
+    # -- train_pm_vae mnist16, then the lookahead posterior on it ------------------
+    out["train_pm_vae_mnist16"] = pm_vae_train_cli("pm_vae_mnist16", PM_VAE16_STEPS, True,
+                                                   args.seed, work, counters)
+    pm_vae_dir = out["train_pm_vae_mnist16"]["run_dir"]
+    lines, wall, clock = counted_cli(
+        "train_lookahead_posterior lookahead_mnist16", train_lookahead_posterior.main, [
+            "--config", "lookahead_mnist16", "--config.pm_vae_dir", pm_vae_dir,
+            "--config.steps", str(LOOKAHEAD_STEPS), "--config.validation_freq",
+            str(LOOKAHEAD_STEPS // 2), *seed], work, counters)
+    (la_dir,) = glob.glob(f"{work}/runs/lookahead-mnist16-*")
+    la = convert.load_lookahead(la_dir, device=DEVICE)
+    pm_vae = convert.load_pm_vae(pm_vae_dir, device=DEVICE).state_dict()
+    check(all(same_bits(v, la.pm_vae.state_dict()[k]) for k, v in pm_vae.items()),
+          "train_lookahead_posterior moved the PM-VAE")
+    la_cfg = dict(config.lookahead_mnist16()["model"], num_features=256)
+    start = convert.lookahead_state_dict(convert.init_lookahead_tree(
+        la_cfg, json.load(open(f"{la_dir}/pm_vae_config.json")), seed=args.seed))
+    still = [k for k, v in la.state_dict().items() if k.startswith("lookahead_")
+             and np.array_equal(v.cpu().numpy(), start[k])]
+    check(not still, f"lookahead tensors that did not move: {still}")
+    s_mod, s_sub = la.model_samples, la.lookahead_subsample
+    out["train_lookahead"] = {"wall_s": wall, "one_step_rows": s_mod * 32 * s_sub, **step_rate(
+        "train_lookahead_posterior", clock, LOOKAHEAD_STEPS, lines)}
+    log(f"train_lookahead_posterior: {wall:.1f} s wall, {s_mod} x 32 x {s_sub} = "
+        f"{s_mod * 32 * s_sub} one-step rows a step; only lookahead_* moved")
+
+    # -- eval_greedy_acquisition on it --------------------------------------------
+    lines, wall, _ = counted_cli("eval_greedy_acquisition", eval_greedy_acquisition.main, [
+        "--run_dir", la_dir, "--dataset", "mnist16", "--num_instances", str(ACQ_INSTANCES),
+        "--num_samples", str(ACQ_SAMPLES), "--episode_length", str(ACQ_EPISODE),
+        "--chunk_size", str(ACQ_CHUNK)], work, counters)
+    curves = {}
+    for name in ("sampling", "lookahead"):
+        with open(f"{la_dir}/trajectories/{name}_trajectories.pkl", "rb") as fp:
+            trajectories = pickle.load(fp)
+        check(len(trajectories) == ACQ_INSTANCES
+              and all(tr["rmse"].shape == (ACQ_EPISODE,) and np.isfinite(tr["rmse"]).all()
+                      and tr["mask"].shape == (ACQ_EPISODE, 16, 16, 1)
+                      and tr[f"{name}_probs"].shape == (ACQ_EPISODE, 256)
+                      and tr["mask"][-1].sum() == ACQ_EPISODE - 1 for tr in trajectories),
+              f"the {name} trajectories have the wrong shapes or values")
+        curves[name] = np.mean([tr["rmse"] for tr in trajectories], 0).tolist()
+    rows = ACQ_CHUNK * ACQ_SAMPLES * 257
+    out["eval_greedy_acquisition"] = {"wall_s": wall, "rmse_curves": curves,
+                                      "sampling_rows_a_step": rows}
+    log(f"eval_greedy_acquisition: {ACQ_INSTANCES} instances x {ACQ_EPISODE} steps x 2 "
+        f"rollouts ({rows} partial-encoder rows a step for the sampling estimator) in "
+        f"{wall:.1f} s wall; mean RMSE first/last step: sampling {curves['sampling'][0]:.4f} -> "
+        f"{curves['sampling'][-1]:.4f}, lookahead {curves['lookahead'][0]:.4f} -> "
+        f"{curves['lookahead'][-1]:.4f}; no kernel launched")
     return out
 
 
@@ -2458,7 +2716,12 @@ def main() -> int:
         os.makedirs(f"{work}/pm_vae")
         pm_vae = pm_vae_phase(args, f"{work}/pm_vae")
 
-    # ---- 15. results -------------------------------------------------------
+        # ---- 15. VaDE and greedy acquisition from their CLIs ---------------------
+        stamp("VaDE and greedy acquisition from their CLIs")
+        os.makedirs(f"{work}/vade")
+        vade = vade_phase(args, f"{work}/vade")
+
+    # ---- 16. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
@@ -2490,6 +2753,7 @@ def main() -> int:
         "request_s": req_s, "psnr": psnrs, "modes_first_step": first_step,
         "training": train, "vqvae_cli": vqvae_cli, "vdvae": vdvae, "kernels": kernels,
         "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval, "pm_vae": pm_vae,
+        "vade": vade,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)

@@ -21,7 +21,13 @@ Copied from the JAX package's config files, which need ``ml_collections``:
   ``configs/_base.py:32-110`` (:func:`_uci_pm_vae`), and the conv family
   (``pm_vae_mnist``, ``pm_vae_mnist16``, ``pm_vae_digits16``) is written
   out. Their ``model`` blocks keep the ``masked_posterior_*`` keys, which
-  ``PosteriorMatchingVAE.from_config`` ignores, as the JAX package's does.
+  ``PosteriorMatchingVAE.from_config`` ignores, as the JAX package's does;
+- the five VaDE configurations, ``configs/vade_{mnist,digits,digits16}.py``
+  and ``configs/pm_vade_{mnist,digits}.py`` whole (the three VaDE ones set
+  ``adam.eps`` 1e-4; ``vade_digits`` is the residual MLP with an
+  ``IdentityGaussian`` likelihood), and the two lookahead ones,
+  ``configs/lookahead_{mnist16,digits}.py`` whole (their ``model.
+  num_features`` is set by the CLI from the data's shape).
 
 Each whole-file configuration leaves ``seed`` None (a fresh draw unless
 set) and ``compute_dtype`` None (the port computes in float32), and drops
@@ -72,7 +78,6 @@ PM_VQVAE_CELEB_A_TRAIN = {
         "decay_rate": 0.999995,
         "transition_steps": 1,
     },
-    "frozen": ("vqvae",),
 }
 
 # PM-VDVAE MNIST: ``configs/pm_vdvae_mnist.py:24-36``. ``compute_dtype`` is
@@ -412,9 +417,132 @@ PM_VAE_CONFIGS = {
 }
 
 
+def _vade_data(dataset: str, validation_split: str, batch: int) -> dict:
+    return {"dataset": dataset, "train_split": "train", "validation_split": validation_split,
+            "train_batch_size": batch, "val_batch_size": batch}
+
+
+def _lr(init_value: float, transition_steps: int) -> dict:
+    return {"init_value": init_value, "decay_rate": 0.9, "staircase": False,
+            "transition_steps": transition_steps}
+
+
+# The MNIST VaDE's conv stacks (``configs/vade_mnist.py:19-37``) and the
+# 16x16 digits' (``configs/vade_digits16.py:27-45``: a 4x4 last kernel).
+_VADE_MNIST_CONVS = {
+    "encoder_net_config": {"conv_layers": [(32, 5, 1), (32, 5, 2), (64, 5, 1), (64, 5, 2),
+                                           (128, 7, 1)]},
+    "decoder_net_config": {"conv_layers": [(64, 7, 1), (64, 5, 2), (32, 5, 1), (32, 5, 2),
+                                           (32, 5, 1), (1, 5, 1)]},
+}
+_VADE_DIGITS_MLPS = {
+    "encoder_net_config": {"residual_blocks": 2, "hidden_units": 256},
+    "decoder_net_config": {"residual_blocks": 2, "hidden_units": 256},
+    "decoder_dist_config": {"event_size": 64},
+}
+_AGMM_PARTIAL = {"partial_posterior_dist": "AutoregressiveGMM",
+                 "partial_posterior_dist_config": {"num_components": 10, "residual_blocks": 2,
+                                                   "hidden_units": 256}}
+
+
+def _vade_model(encoder_net: str, decoder_net: str, decoder_dist: str, nets: dict) -> dict:
+    return {"encoder_net": encoder_net, "decoder_net": decoder_net,
+            "decoder_dist": decoder_dist, "latent_dim": 10, "num_components": 10,
+            **{k: dict(v) for k, v in nets.items()}}
+
+
+def _vade(data: dict, model: dict, pretrain_steps: int, steps: int, validation_freq: int,
+          transition_steps: int) -> dict:
+    return {"data": data, "model": model, "pretrain_steps": pretrain_steps, "steps": steps,
+            "validation_freq": validation_freq, "cluster_pred_num_samples": 50,
+            "pretrain_lr": 0.002, "lr_schedule": _lr(0.002, transition_steps),
+            "adam": {"eps": 1e-4}, "seed": None}
+
+
+def vade_mnist() -> dict:
+    """``configs/vade_mnist.py`` whole: the conv VaDE with a Bernoulli
+    likelihood, 150 epochs of pretraining and 300 of ELBO training."""
+    return _vade(_vade_data("mnist", "test", 128),
+                 _vade_model("ConvEncoder", "ConvDecoder", "Bernoulli", _VADE_MNIST_CONVS),
+                 int(60000 / 128 * 150), int(60000 / 128 * 300), 1000, int(60000 / 128 * 10))
+
+
+def vade_digits() -> dict:
+    """``configs/vade_digits.py`` whole: residual MLPs and an
+    ``IdentityGaussian`` likelihood on the flat real digits (files only)."""
+    return _vade(_vade_data("digits_flat", "val", 128),
+                 _vade_model("ResidualMLP", "ResidualMLP", "IdentityGaussian",
+                             _VADE_DIGITS_MLPS), 3000, 6000, 1000, 200)
+
+
+def vade_digits16() -> dict:
+    """``configs/vade_digits16.py`` whole: the conv VaDE on the real 16x16
+    digits (files only)."""
+    convs = {"encoder_net_config": {"conv_layers": [(32, 5, 1), (32, 5, 2), (64, 5, 1),
+                                                    (64, 5, 2), (128, 4, 1)]},
+             "decoder_net_config": {"conv_layers": [(64, 4, 1), (64, 5, 2), (32, 5, 1),
+                                                    (32, 5, 2), (32, 5, 1), (1, 5, 1)]}}
+    return _vade(_vade_data("digits16", "val", 128),
+                 _vade_model("ConvEncoder", "ConvDecoder", "Bernoulli", convs),
+                 1700, 3400, 200, 110)
+
+
+def pm_vade_mnist() -> dict:
+    """``configs/pm_vade_mnist.py`` whole: the autoregressive GMM partial
+    posterior on ``vade_mnist``'s model."""
+    return {"data": _vade_data("mnist", "test", 128), "vade_dir": "runs/vade-mnist",
+            "model": {**_vade_model("ConvEncoder", "ConvDecoder", "Bernoulli",
+                                    _VADE_MNIST_CONVS), **_AGMM_PARTIAL},
+            "steps": 160000, "validation_freq": 5000,
+            "lr_schedule": _lr(0.001, int(60000 / 128 * 10)), "seed": None}
+
+
+def pm_vade_digits() -> dict:
+    """``configs/pm_vade_digits.py`` whole: ``vade_digits``'s model and the
+    autoregressive GMM partial posterior (files only)."""
+    return {"data": _vade_data("digits_flat", "val", 128),
+            "vade_dir": "runs/vade-digits_flat",
+            "model": {**_vade_model("ResidualMLP", "ResidualMLP", "IdentityGaussian",
+                                    _VADE_DIGITS_MLPS), **_AGMM_PARTIAL},
+            "steps": 8000, "validation_freq": 1000, "cluster_pred_num_samples": 50,
+            "lr_schedule": _lr(0.001, 1000), "seed": None}
+
+
+def _lookahead(dataset: str, validation_split: str, batch: int, pm_vae_dir: str,
+               steps: int, validation_freq: int, transition_steps: int) -> dict:
+    data = _vade_data(dataset, validation_split, batch)
+    data.update(mask_generator="UniformMaskGenerator",
+                mask_generator_kwargs={"bounds": (0.0, 0.20)})
+    return {"data": data, "pm_vae_dir": pm_vae_dir,
+            "model": {"lookahead_subsample": 16, "model_samples": 64},
+            "steps": steps, "validation_freq": validation_freq,
+            "lr_schedule": {"init_value": 0.001, "decay_rate": 0.9,
+                            "transition_steps": transition_steps},
+            "seed": None}
+
+
+def lookahead_mnist16() -> dict:
+    """``configs/lookahead_mnist16.py`` whole: 64 partial-posterior samples
+    and 16 subsampled features a step, on a ``pm_vae_mnist16`` run."""
+    return _lookahead("mnist16", "test", 32, "runs/pm-vae-mnist16", 40000, 5000, 5000)
+
+
+def lookahead_digits() -> dict:
+    """``configs/lookahead_digits.py`` whole: on a ``pm_vae_digits`` run
+    (files only)."""
+    return _lookahead("digits_flat", "val", 64, "runs/pm-vae-digits_flat", 6000, 1000, 1000)
+
+
+VADE_CONFIGS = {"vade_mnist": vade_mnist, "vade_digits": vade_digits,
+                "vade_digits16": vade_digits16}
+PM_VADE_CONFIGS = {"pm_vade_mnist": pm_vade_mnist, "pm_vade_digits": pm_vade_digits}
+LOOKAHEAD_CONFIGS = {"lookahead_mnist16": lookahead_mnist16,
+                     "lookahead_digits": lookahead_digits}
+
+
 # The configurations the training CLIs take by name.
 CONFIGS = {"pm_vdvae_mnist": pm_vdvae_mnist, "vqvae_mnist": vqvae_mnist,
            "pm_vqvae_mnist": pm_vqvae_mnist, "vqvae_celeb_a": vqvae_celeb_a,
            "pm_vqvae_celeb_a": pm_vqvae_celeb_a, "vqvae_digits16": vqvae_digits16,
            "pm_vqvae_digits16": pm_vqvae_digits16, "pm_vdvae_digits16": pm_vdvae_digits16,
-           **PM_VAE_CONFIGS}
+           **PM_VAE_CONFIGS, **VADE_CONFIGS, **PM_VADE_CONFIGS, **LOOKAHEAD_CONFIGS}

@@ -28,6 +28,20 @@ names and layouts in the port too: :func:`pm_vae_state_dict` and
 :func:`pm_vae_trees` join and split the tree paths, :func:`load_pm_vae`
 reads a run directory and :func:`init_pm_vae_tree` draws the JAX
 package's initialisation from a seed.
+
+VaDE and PM-VaDE. Their ``params`` trees hold the mixture prior's
+``logits``, ``mu`` and ``log_scale`` at the top, beside the submodules,
+with flax's names: :func:`vade_state_dict`, :func:`vade_trees`,
+:func:`vade_from_jax`, :func:`load_vade` and :func:`init_vade_tree` as for
+PM-VAE, for both classes (a tree with ``partial_encoder_net`` is a
+PM-VaDE's).
+
+The lookahead posterior. Its tree nests the PM-VAE's under ``pm_vae``,
+beside ``lookahead_encoder_net`` and ``lookahead_block``:
+:func:`lookahead_state_dict`, :func:`lookahead_trees`,
+:func:`lookahead_from_jax`, :func:`load_lookahead` (``lookahead_config.
+json``, ``pm_vae_config.json`` and ``train_state.pkl``) and
+:func:`init_lookahead_tree`.
 """
 from __future__ import annotations
 
@@ -38,7 +52,9 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from posterior_matching_torch.models.lookahead import LookaheadPosterior
 from posterior_matching_torch.models.pm_vqvae import PMVQVAE
+from posterior_matching_torch.models.vade import VADE, PosteriorMatchingVADE
 from posterior_matching_torch.models.vae import PosteriorMatchingVAE
 from posterior_matching_torch.models.vdvae import PosteriorMatchingVDVAE
 from posterior_matching_torch.models.vqvae import VQVAE
@@ -562,13 +578,123 @@ def init_pm_vae_tree(config: Dict[str, Any], seed: int) -> Tree:
     equal in distribution (its draws come from ``jax.random``): every Dense
     and conv kernel and the autoregressive GMM's ``ar_net_*_w`` truncated
     normal / sqrt(fan_in), every bias and ``log_scale`` zero."""
+    return _init_tree(PosteriorMatchingVAE.from_config(config, device="cpu"), seed)
+
+
+def _init_tree(model: torch.nn.Module, seed: int, normal=()) -> Tree:
+    """The flax initialisation of ``model``'s parameters as a JAX ``params``
+    tree, drawn from ``seed``: every Dense and conv kernel and
+    ``ar_net_*_w`` truncated normal / sqrt(fan_in), the names in ``normal``
+    N(0, 1), every other leaf (biases, ``log_scale`` of a head, the mixture
+    ``logits``) zero."""
     rng = np.random.default_rng(seed)
-    model = PosteriorMatchingVAE.from_config(config, device="cpu")
     out: Dict[str, np.ndarray] = {}
     for name, p in model.named_parameters():
         shape = tuple(p.shape)
-        if name.endswith(".kernel") or name.endswith("_w"):
+        if name in normal:
+            out[name] = rng.standard_normal(shape).astype(np.float32)
+        elif name.endswith(".kernel") or name.endswith("_w"):
             out[name] = _trunc_normal(rng, shape)
         else:
             out[name] = np.zeros(shape, np.float32)
-    return pm_vae_trees(out)
+    return _tree(out)
+
+
+# ---------------------------------------------------------------------------
+# VaDE and PM-VaDE
+# ---------------------------------------------------------------------------
+
+
+def vade_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """A JAX ``VADE`` / ``PosteriorMatchingVADE`` ``params`` tree -> the
+    port's state dict: each leaf under its tree path joined by dots."""
+    return _flat_state_dict(params)
+
+
+def vade_trees(state_dict) -> Tree:
+    """The port's state dict (tensors or arrays) -> the JAX ``params`` tree,
+    the inverse of :func:`vade_state_dict`."""
+    return _tree(state_dict)
+
+
+def _vade_class(partial: bool):
+    return PosteriorMatchingVADE if partial else VADE
+
+
+def vade_from_jax(params: Tree, config: Dict[str, Any],
+                  device: Optional[str] = None) -> VADE:
+    """Builds a ``PosteriorMatchingVADE`` when ``params`` holds a
+    ``partial_encoder_net``, else a ``VADE``, from a ``model_config.json``
+    dict on ``device`` (the GPU unless ``"cpu"``), and loads JAX-layout
+    weights; every parameter must be covered."""
+    model = _vade_class("partial_encoder_net" in params).from_config(config, device=device)
+    model.load_state_dict(to_torch(vade_state_dict(params)))
+    return model
+
+
+def load_vade(run_dir: str, device: Optional[str] = None) -> VADE:
+    """Reads a VaDE or PM-VaDE run directory (``model_config.json``,
+    ``train_state.pkl``) written by either package."""
+    resolve_device(device)
+    with open(os.path.join(run_dir, "model_config.json")) as fp:
+        config = json.load(fp)
+    ts = load_train_state(os.path.join(run_dir, "train_state.pkl"))
+    return vade_from_jax(ts.params, config, device=device)
+
+
+def init_vade_tree(config: Dict[str, Any], seed: int, partial: bool = False) -> Tree:
+    """The JAX package's initial ``params`` of ``VADE`` (``partial``:
+    ``PosteriorMatchingVADE``), equal in distribution: ``logits`` zero,
+    ``mu`` and ``log_scale`` N(0, 1) (``vade.py:59-70``), the networks and
+    heads as :func:`init_pm_vae_tree` draws them."""
+    model = _vade_class(partial).from_config(config, device="cpu")
+    return _init_tree(model, seed, normal=("mu", "log_scale"))
+
+
+# ---------------------------------------------------------------------------
+# The lookahead posterior
+# ---------------------------------------------------------------------------
+
+
+def lookahead_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """A JAX ``LookaheadPosterior`` ``params`` tree -> the port's state
+    dict (the PM-VAE's names under ``pm_vae.``)."""
+    return _flat_state_dict(params)
+
+
+def lookahead_trees(state_dict) -> Tree:
+    """The inverse of :func:`lookahead_state_dict`."""
+    return _tree(state_dict)
+
+
+def lookahead_from_jax(params: Tree, config: Dict[str, Any], pm_vae_config: Dict[str, Any],
+                       device: Optional[str] = None) -> LookaheadPosterior:
+    """Builds a ``LookaheadPosterior`` from its ``lookahead_config.json``
+    and ``pm_vae_config.json`` dicts on ``device`` (the GPU unless
+    ``"cpu"``) and loads JAX-layout weights; every parameter must be
+    covered."""
+    model = LookaheadPosterior.from_config(config, pm_vae_config, device=device)
+    model.load_state_dict(to_torch(lookahead_state_dict(params)))
+    return model
+
+
+def load_lookahead(run_dir: str, device: Optional[str] = None) -> LookaheadPosterior:
+    """Reads a lookahead run directory (``lookahead_config.json``,
+    ``pm_vae_config.json``, ``train_state.pkl``) written by either package
+    (``eval_greedy_acquisition.py:78-85``)."""
+    resolve_device(device)
+    configs = []
+    for name in ("lookahead_config.json", "pm_vae_config.json"):
+        with open(os.path.join(run_dir, name)) as fp:
+            configs.append(json.load(fp))
+    ts = load_train_state(os.path.join(run_dir, "train_state.pkl"))
+    return lookahead_from_jax(ts.params, *configs, device=device)
+
+
+def init_lookahead_tree(config: Dict[str, Any], pm_vae_config: Dict[str, Any],
+                        seed: int) -> Tree:
+    """The JAX package's initial ``params`` of ``LookaheadPosterior``, equal
+    in distribution: kernels truncated normal / sqrt(fan_in), the rest
+    zero, the ``pm_vae`` subtree included."""
+    model = LookaheadPosterior.from_config(config, pm_vae_config, device="cpu")
+    return _init_tree(model, seed)

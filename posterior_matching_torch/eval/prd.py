@@ -81,16 +81,17 @@ def _kmeans_pp(x: torch.Tensor, k: int, restarts: int, gen: torch.Generator) -> 
 
 
 def kmeans(x: torch.Tensor, k: int, runs: int = 1, n_init: int = 10,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None,
+           max_iter: int = MAX_ITER) -> torch.Tensor:
     """Cluster labels ``[runs, n]`` of ``x [n, d]`` for ``runs``
     independent clusterings into ``k`` clusters, each the best of ``n_init``
-    k-means++ / Lloyd restarts by inertia. Computes in float64 on ``x``'s
-    device; ``generator`` lives there too."""
+    k-means++ / Lloyd restarts (at most ``max_iter`` steps) by inertia.
+    Computes in float64 on ``x``'s device; ``generator`` lives there too."""
     x = x.double()
     restarts = runs * n_init
     centers = _kmeans_pp(x, k, restarts, generator)
     labels = None
-    for _ in range(MAX_ITER):
+    for _ in range(max_iter):
         new = _sq_dists(x, centers).argmin(-1)                       # [R, n]
         if labels is not None and torch.equal(new, labels):
             break

@@ -201,17 +201,25 @@ class PosteriorMatchingVAE(nn.Module):
         it, flattened (``vae.py:256-284``): the partial posterior's entropy
         before, minus its mean over ``num_samples`` imputations after, all
         ``S (F + 1)`` masked inputs in one forward."""
+        return self.batch_info_gains(x[None], b[None], noise, num_samples)[0]
+
+    def batch_info_gains(self, x: torch.Tensor, b: torch.Tensor, noise: Noise,
+                         num_samples: int = 100) -> torch.Tensor:
+        """:meth:`expected_info_gains` of each of ``N`` instances ``x [N,
+        D...]`` at once: ``[N, F]``, the ``S N (F + 1)`` masked inputs in one
+        forward. The samples are drawn for the batch, ``[S, N, L]``: for
+        ``N = 1`` the single instance's draw."""
         x_o = x * b
-        partial_posterior = self.encode_partial(torch.cat([x_o, b], -1)[None])
-        z = partial_posterior.sample(noise, (num_samples,))[:, 0]
-        x_u = self.decode(z).mean()                                 # [S, D...]
-        f = math.prod(b.shape)
-        one_hots = torch.eye(f, device=x.device, dtype=x.dtype).reshape(f, *b.shape)
-        masks = torch.cat([b[None], torch.maximum(b[None], one_hots)], 0)   # [F + 1, D...]
-        x_o_u = torch.where(b[None] == 1, x_o[None], x_u)          # [S, D...]
-        xs = x_o_u[:, None] * masks[None]                           # [S, F + 1, D...]
+        partial_posterior = self.encode_partial(torch.cat([x_o, b], -1))
+        z = partial_posterior.sample(noise, (num_samples,))         # [S, N, L]
+        x_u = self._decode_flat(z).mean()                           # [S, N, D...]
+        n, f = b.shape[0], math.prod(b.shape[1:])
+        one_hots = torch.eye(f, device=x.device, dtype=x.dtype).reshape(f, *b.shape[1:])
+        masks = torch.cat([b[:, None], torch.maximum(b[:, None], one_hots[None])], 1)
+        x_o_u = torch.where(b[None] == 1, x_o[None], x_u)          # [S, N, D...]
+        xs = x_o_u[:, :, None] * masks[None]                        # [S, N, F + 1, D...]
         inp = torch.cat([xs, masks[None].expand(xs.shape)], -1)
-        ents = self.encode_partial(inp.reshape(-1, *inp.shape[2:])).entropy()
-        ents = ents.reshape(num_samples, f + 1).mean(0)
-        gains = (ents[0] - ents[1:]).reshape(b.shape)
-        return torch.where(b == 0, gains, torch.full_like(gains, -math.inf)).reshape(-1)
+        ents = self.encode_partial(inp.reshape(-1, *inp.shape[3:])).entropy()
+        ents = ents.reshape(num_samples, n, f + 1).mean(0)
+        gains = (ents[:, :1] - ents[:, 1:]).reshape(b.shape)
+        return torch.where(b == 0, gains, torch.full_like(gains, -math.inf)).reshape(n, f)

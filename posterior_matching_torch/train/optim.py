@@ -4,18 +4,18 @@
 and, without its clip, PM-VAE's (below).
 
 Counterpart of ``optax.chain(scale_by_adam(), scale_by_schedule(schedule),
-scale(-1.0))`` (``train_pm_vqvae.py:170-175``), with optax's defaults (``b1 = 0.9``,
-``b2 = 0.999``, ``eps = 1e-8``, ``eps_root = 0``; no ported config changes
-them) and order of operations: ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2
-nu``, bias correction by the incremented count, ``u = mu_hat /
-(sqrt(nu_hat + eps_root) + eps)``, and ``p <- p - schedule(count) u`` with
-the count before the increment. Only the parameters it is given have state
+scale(-1.0))`` (``train_pm_vqvae.py:170-175``), with optax's defaults (``b1 =
+0.9``, ``b2 = 0.999``, ``eps = 1e-8``, ``eps_root = 0``; ``eps`` is an option,
+which the VaDE configurations set) and order of operations: ``mu = (1 - b1) g
++ b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``, bias correction by the
+incremented count, ``u = mu_hat / (sqrt(nu_hat + eps_root) + eps)``, and ``p
+<- p - schedule(count) u`` with the count before the increment. Only the parameters it is given have state
 and get updates: frozen parameters are simply not passed, which is what the
 JAX trainer's ``multi_transform(... set_to_zero)`` does to them.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -26,9 +26,10 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 class Adam:
-    def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule):
+    def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule, eps: float = EPS):
         self.params = dict(params)
         self.schedule = schedule
+        self.eps = float(eps)
         self.count = 0
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
@@ -45,7 +46,7 @@ class Adam:
         direction ``mu_hat / (sqrt(nu_hat) + eps)``."""
         mu = self.mu[k].mul_(B1).add_((1.0 - B1) * g)
         nu = self.nu[k].mul_(B2).add_((1.0 - B2) * (g * g))
-        return (mu / c1) / (torch.sqrt(nu / c2) + EPS)
+        return (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
 
     def _update(self, p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """The update of ``p`` before the schedule scales it: Adam's
@@ -75,8 +76,8 @@ class ClippedAdam(Adam):
     None there is no clip: PM-VAE's chain (``train_pm_vae.py:80-94``)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule,
-                 max_norm: Optional[float], weight_decay: float = 0.0):
-        super().__init__(params, schedule)
+                 max_norm: Optional[float], weight_decay: float = 0.0, eps: float = EPS):
+        super().__init__(params, schedule, eps)
         self.max_norm = None if max_norm is None else float(max_norm)
         self.weight_decay = float(weight_decay)
 
@@ -93,8 +94,16 @@ class ClippedAdam(Adam):
                       for k, g in grads.items()})
 
 
-def trainable_names(names: Sequence[str], frozen_prefixes: Sequence[str]):
-    """The names outside every frozen subtree (``"vqvae"`` freezes
-    ``vqvae.*``)."""
-    return [n for n in names
-            if not any(n == p or n.startswith(p + ".") for p in frozen_prefixes)]
+def trainable_names(names: Sequence[str],
+                    trainable: Optional[Callable[[str, str], bool]] = None):
+    """The names that ``trainable`` accepts (all of them without it).
+    ``trainable`` sees a name as the JAX trainer's predicate sees its tree
+    path (``trainer.py:193-205``): the module path, the name's dotted prefix
+    with ``/`` for the dots (``""`` for a parameter at the top of the
+    tree), and the leaf's name."""
+    out = []
+    for n in names:
+        module, _, leaf = n.rpartition(".")
+        if trainable is None or trainable(module.replace(".", "/"), leaf):
+            out.append(n)
+    return out

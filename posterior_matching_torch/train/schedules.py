@@ -3,8 +3,8 @@
 Counterpart of the optax schedules the JAX training scripts use:
 ``optax.exponential_decay`` (``train_pm_vqvae.py:170`` with
 ``configs/pm_vqvae_celeb_a.py:42-46``; ``train_pm_vae.py:82``), without the
-options no ported config sets (``transition_begin``, ``staircase``,
-``end_value``); ``optax.linear_schedule`` with its ``transition_begin``
+options no ported config sets (``transition_begin``, ``end_value``, and
+``staircase``, which the VaDE configurations name only as False); ``optax.linear_schedule`` with its ``transition_begin``
 (PM-VDVAE's warm-up, ``train_pm_vdvae.py:161-165``, and ``pm_vae_bsds``'s
 monotonic beta); and PM-VAE's beta schedules,
 ``cyclical_annealing_schedule`` and ``get_beta_schedule``
@@ -21,10 +21,13 @@ Schedule = Callable[[int], float]
 
 
 def exponential_decay(init_value: float, transition_steps: int,
-                      decay_rate: float) -> Schedule:
+                      decay_rate: float, staircase: bool = False) -> Schedule:
     """``init_value * decay_rate ** (count / transition_steps)``, so the
     value at update count 0 is ``init_value``; constant when optax's would
-    be (``transition_steps <= 0`` or ``decay_rate == 0``)."""
+    be (``transition_steps <= 0`` or ``decay_rate == 0``). ``staircase``
+    True is refused."""
+    if staircase:
+        raise NotImplementedError("staircase exponential decay is not ported")
     if transition_steps <= 0 or decay_rate == 0:
         return lambda count: init_value
     return lambda count: init_value * decay_rate ** (count / transition_steps)

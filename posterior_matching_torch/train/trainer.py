@@ -3,8 +3,10 @@
 Counterpart of ``posterior_matching_tpu/train/trainer.py`` (:185-272, the
 update step), for a ``torch.nn.Module``:
 
-- parameters under a frozen prefix (``"vqvae"``: ``train_pm_vqvae.py:
-  177-179``) get no gradient, no update and no optimizer state;
+- parameters that a ``trainable`` predicate on the module path refuses
+  (``not path.startswith("vqvae")``: ``train_pm_vqvae.py:177-179``;
+  ``"partial_" in path``: ``train_pm_vade.py:98-100``) get no gradient,
+  no update and no optimizer state;
 - the prologue (mask generation, PM-VAE's training noise) runs on the
   device from an explicit generator, seeded from (run seed, step), and
   validation may run another one (``val_prologue_fn``: PM-VAE's adds no
@@ -17,11 +19,15 @@ update step), for a ``torch.nn.Module``:
   ``train_pm_vdvae.py`` for PM-VDVAE, that chain without the clip for
   PM-VAE) and ``step + 1``, in that
   order; optionally the whole update is skipped when the loss or a raw
-  gradient is not finite, and an EMA of the parameters is kept;
+  gradient is not finite (the parameters, the optimizer's state and the
+  model's buffers, which the forward may have moved, all kept as they
+  were: :247-251), and an EMA of the parameters is kept;
 - checkpoints are ``train_state.pkl`` files in the JAX package's layout
   (:func:`posterior_matching_torch.train.state.save_train_state`), which
   the JAX package evaluates;
-- :meth:`Trainer.fit` validates as the JAX trainer does (:612-661).
+- :meth:`Trainer.fit` validates as the JAX trainer does (:612-661),
+  calling each callback's ``on_validation_step`` on every validation
+  batch (:644-646).
 
 A loss function returns the scalar loss, or ``(loss, metrics)`` with a
 dict of detached scalar metrics to log beside it. With ``pass_step`` it
@@ -44,7 +50,7 @@ from torch import nn
 from posterior_matching_torch.ops.gated_chain import _mix32_int
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.train.callbacks import Callback
-from posterior_matching_torch.train.optim import Adam, ClippedAdam, trainable_names
+from posterior_matching_torch.train.optim import EPS, Adam, ClippedAdam, trainable_names
 from posterior_matching_torch.train.schedules import (
     exponential_decay,
     get_beta_schedule,
@@ -66,7 +72,8 @@ OptimizerFn = Callable[[Dict[str, torch.Tensor]], Adam]
 
 def derive_seed(seed: int, step: int, stream: int) -> int:
     """A 31-bit seed for ``stream`` (0: dropout, 1: prologue, 2: the
-    validation at this step) of a step."""
+    validation at this step; 3 within a validation: a callback's draws) of
+    a step."""
     return _mix32_int(_mix32_int(_mix32_int(seed) ^ stream) ^ step) & 0x7FFFFFFF
 
 
@@ -89,12 +96,13 @@ class Trainer:
         loss_fn: LossFn,
         *,
         optimizer: OptimizerFn,
-        frozen: Sequence[str] = (),
+        trainable: Optional[Callable[[str, str], bool]] = None,
         prologue_fn: Optional[PrologueFn] = None,
         val_prologue_fn: Optional[PrologueFn] = None,
         pass_step: bool = False,
         seed: int = 0,
         skip_nonfinite_updates: bool = False,
+        zero_unused_grads: bool = False,
         ema_rate: Optional[float] = None,
         to_trees: Optional[TreesFn] = None,
         device: Optional[str] = None,
@@ -104,17 +112,22 @@ class Trainer:
         uses it (``use_ema_for_eval`` of the JAX trainer, which its one EMA
         caller sets); ``val_prologue_fn`` prepares validation batches
         (``prologue_fn`` when None); ``device``: the GPU unless ``"cpu"``
-        (raises without a GPU)."""
+        (raises without a GPU); with ``zero_unused_grads`` a trainable
+        parameter the loss does not use gets a zero gradient, as in JAX,
+        where without it autograd raises; ``trainable`` as
+        :func:`~posterior_matching_torch.train.optim.trainable_names` reads
+        it."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
         self.make_optimizer = optimizer
-        self.frozen = tuple(frozen)
+        self.trainable = trainable
         self.prologue_fn = prologue_fn
         self.val_prologue_fn = val_prologue_fn if val_prologue_fn is not None else prologue_fn
         self.pass_step = pass_step
         self.seed = int(seed)
         self.skip_nonfinite = skip_nonfinite_updates
+        self.zero_unused_grads = zero_unused_grads
         self.ema_rate = ema_rate
         self.to_trees = to_trees
         self.step = 0
@@ -123,8 +136,8 @@ class Trainer:
 
     def init(self, initial_state_dict: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """Loads warm-start weights (a partial state dict overrides the
-        model's own), freezes the frozen subtrees and builds the optimizer
-        over the rest, at step 0."""
+        model's own), freezes what ``trainable`` refuses and builds the
+        optimizer over the rest, at step 0."""
         if initial_state_dict:
             sd = self.model.state_dict()
             unknown = set(initial_state_dict) - set(sd)
@@ -133,7 +146,7 @@ class Trainer:
             sd.update(initial_state_dict)
             self.model.load_state_dict(sd)
         params = dict(self.model.named_parameters())
-        trainable = set(trainable_names(list(params), self.frozen))
+        trainable = set(trainable_names(list(params), self.trainable))
         for name, p in params.items():
             p.requires_grad_(name in trainable)
         self.optimizer = self.make_optimizer(
@@ -148,11 +161,17 @@ class Trainer:
         if self.optimizer is None:
             self.init()
         batch = self._prologue(batch, derive_seed(self.seed, self.step, 1), self.prologue_fn)
+        kept = None
+        if self.skip_nonfinite:
+            kept = {n: b.detach().clone() for n, b in self.model.named_buffers()}
         self.model.train()
         loss, aux = _loss_and_metrics(
             self._loss(batch, derive_seed(self.seed, self.step, 0), True))
         names = list(self.optimizer.params)
-        grads = torch.autograd.grad(loss, [self.optimizer.params[n] for n in names])
+        params = [self.optimizer.params[n] for n in names]
+        grads = torch.autograd.grad(loss, params, allow_unused=self.zero_unused_grads)
+        if self.zero_unused_grads:
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         grads = dict(zip(names, grads))
         metrics = {**aux, "loss": loss.detach()}
         ok = True
@@ -163,6 +182,10 @@ class Trainer:
             metrics["skipped"] = torch.tensor(float(not ok))
         if ok:
             self.optimizer.step(grads)
+        elif kept:
+            with torch.no_grad():
+                for n, b in self.model.named_buffers():
+                    b.copy_(kept[n])
         if self.ema_params is not None:
             with torch.no_grad():
                 for n, p in self.model.named_parameters():
@@ -184,12 +207,17 @@ class Trainer:
         return prologue_fn(batch, torch.Generator(device=self.device).manual_seed(seed))
 
     @torch.no_grad()
-    def validate(self, batches: Iterable[Batch]) -> Dict[str, float]:
+    def validate(self, batches: Iterable[Batch],
+                 callbacks: Sequence[Callback] = ()) -> Dict[str, float]:
         """The loss function's metrics (and ``loss``) averaged over
         ``batches``, not training, with the EMA parameters where the
         trainer keeps them, each batch through the validation prologue.
         Batch ``i``'s prologue and loss draw from seeds derived from (run
-        seed, step, 2) and ``i``."""
+        seed, step, 2) and ``i``. Then each callback's
+        ``on_validation_step(model, generator, batch)`` on every batch, on
+        the device before the prologue, with the model's own parameters (as
+        the JAX trainer hands its callbacks the train state, not the EMA)
+        and a generator seeded from (run seed, step, 2), ``i`` and 3."""
         if self.optimizer is None:
             self.init()
         params = dict(self.model.named_parameters())
@@ -201,7 +229,11 @@ class Trainer:
         try:
             self.model.eval()
             base, out = derive_seed(self.seed, self.step, 2), []
+            seen = []
             for i, batch in enumerate(batches):
+                batch = self._prologue(batch, 0, None)
+                if callbacks:
+                    seen.append(batch)
                 batch = self._prologue(batch, derive_seed(base, i, 1), self.val_prologue_fn)
                 loss, aux = _loss_and_metrics(self._loss(batch, derive_seed(base, i, 0), False))
                 out.append({**aux, "loss": loss})
@@ -209,6 +241,10 @@ class Trainer:
             if kept is not None:
                 for n, p in params.items():
                     p.copy_(kept[n])
+        for i, batch in enumerate(seen):
+            gen = torch.Generator(device=self.device).manual_seed(derive_seed(base, i, 3))
+            for cb in callbacks:
+                cb.on_validation_step(self.model, gen, batch)
         return _aggregate(out)
 
     def fit(
@@ -224,7 +260,8 @@ class Trainer:
         ``cb(trainer, metrics)``. Every ``validation_freq`` steps and at the
         last, as the JAX trainer (``trainer.py:612-661``): the step metrics
         since the last validation averaged, ``steps_per_sec``, the ``val_``
-        metrics of :meth:`validate` over ``val_batches``, each
+        metrics of :meth:`validate` over ``val_batches`` (with the
+        callbacks' ``on_validation_step``), each
         :class:`~posterior_matching_torch.train.callbacks.Callback`'s
         ``on_validation_end(train_state, step, logs)``, then prints one line
         ``[step s/S] k=v ...``."""
@@ -254,7 +291,9 @@ class Trainer:
             logs = _aggregate(pending)
             logs["steps_per_sec"] = since / max(time.time() - t_start, 1e-9)
             if val_batches is not None:
-                logs.update({f"val_{k}": v for k, v in self.validate(val_batches).items()})
+                val = self.validate(val_batches, [cb for cb in on_validation
+                                                  if cb.has_validation_step()])
+                logs.update({f"val_{k}": v for k, v in val.items()})
             if on_validation:
                 state = self.train_state()
                 for cb in on_validation:
@@ -306,7 +345,7 @@ def pm_vqvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     return Trainer(
         model, pm_vqvae_loss,
         optimizer=lambda params: Adam(params, schedule),
-        frozen=train_config.get("frozen", ("vqvae",)),
+        trainable=lambda module, name: not module.startswith("vqvae"),
         prologue_fn=prologue, seed=seed, to_trees=pm_vqvae_trees,
         device=device, **kwargs,
     )
@@ -435,23 +474,32 @@ def pm_vae_loss_fn(config: Dict[str, Any], data_key: str) -> LossFn:
     return loss_fn
 
 
+def adam_eps(config: Dict[str, Any]) -> float:
+    """The ``eps`` of a configuration's ``adam`` options (optax's
+    ``scale_by_adam`` keywords); any other option is refused."""
+    options = dict(config.get("adam") or {})
+    eps = options.pop("eps", EPS)
+    if options:
+        raise NotImplementedError(f"Adam options {sorted(options)} are not ported, only eps")
+    return float(eps)
+
+
 def pm_vae_trainer(model, config: Dict[str, Any], *, seed: int = 0, mask_fn=None,
                    data_key: str = "features", device: Optional[str] = None,
                    **kwargs) -> Trainer:
     """The trainer of ``train_pm_vae.py:80-158``: nothing frozen, Adam with
     the decayed weights of every parameter that is not 1-D under the
     exponential decay and no clip (:class:`~posterior_matching_torch.train.
-    optim.ClippedAdam` without ``max_norm``), the loss of
-    :func:`pm_vae_loss_fn` at the step, masks from ``mask_fn`` and the
+    optim.ClippedAdam` without ``max_norm``; the configuration's ``adam``
+    options may set ``eps``), the loss of :func:`pm_vae_loss_fn` at the step, masks from ``mask_fn`` and the
     training noise added on the device, checkpoints in the JAX package's
     layout."""
     from posterior_matching_torch.convert import pm_vae_trees
 
-    if config.get("adam"):
-        raise NotImplementedError("Adam options other than optax's defaults are not ported")
+    eps = adam_eps(config)
     schedule = exponential_decay(**config["lr_schedule"])
     optimizer = lambda params: ClippedAdam(params, schedule, None,
-                                           config.get("weight_decay", 0.0))
+                                           config.get("weight_decay", 0.0), eps)
     data = config.get("data", {})
     return Trainer(
         model, pm_vae_loss_fn(config, data_key), optimizer=optimizer,
@@ -459,4 +507,113 @@ def pm_vae_trainer(model, config: Dict[str, Any], *, seed: int = 0, mask_fn=None
         val_prologue_fn=pm_vae_prologue(data, mask_fn, False) or (lambda batch, gen: batch),
         pass_step=True,
         seed=seed, to_trees=lambda sd: (pm_vae_trees(sd), {}), device=device, **kwargs,
+    )
+
+
+def _sample_noise(model, noise):
+    """``noise`` as the models' ``sample`` takes it: an int seeds a
+    generator on the model's device; a generator or an iterator of draws is
+    used as given."""
+    if isinstance(noise, int):
+        return torch.Generator(device=model.device).manual_seed(noise)
+    return noise
+
+
+def vade_pretrain_loss_fn(data_key: str) -> LossFn:
+    """The deterministic autoencoder's loss ``pretrain_loss`` (``train_vade.
+    py:60-67``)."""
+    return lambda model, batch, noise, training: model.pretrain_loss(batch[data_key])
+
+
+def vade_loss_fn(data_key: str) -> LossFn:
+    """``-mean(elbo)`` (``train_vade.py:69-78``)."""
+    return lambda model, batch, noise, training: -model.elbo(
+        batch[data_key], _sample_noise(model, noise)).mean()
+
+
+def pm_vade_loss_fn(data_key: str) -> LossFn:
+    """``-mean(posterior_matching_ll)`` (``train_pm_vade.py:64-73``)."""
+    return lambda model, batch, noise, training: -model.posterior_matching_ll(
+        batch[data_key], batch["mask"], _sample_noise(model, noise)).mean()
+
+
+def lookahead_loss_fn(data_key: str) -> LossFn:
+    """``-mean`` of the lookahead posterior's training log-likelihood
+    (``train_lookahead_posterior.py:79-88``)."""
+    return lambda model, batch, noise, training: -model(
+        batch[data_key], batch["mask"], _sample_noise(model, noise)).mean()
+
+
+def vade_pretrain_trainer(model, config: Dict[str, Any], *, seed: int = 0,
+                          data_key: str = "image", device: Optional[str] = None,
+                          **kwargs) -> Trainer:
+    """Phase 1 of ``train_vade.py`` (:132-139): ``optax.adam(pretrain_lr)``,
+    plain Adam at a constant rate with optax's default ``eps``, nothing
+    frozen: the prior's ``logits``, ``mu`` and ``log_scale``, which the
+    autoencoder's loss does not use, get zero gradients and stay put."""
+    from posterior_matching_torch.convert import vade_trees
+
+    lr = config["pretrain_lr"]
+    return Trainer(model, vade_pretrain_loss_fn(data_key),
+                   optimizer=lambda params: Adam(params, lambda count: lr), seed=seed,
+                   zero_unused_grads=True,
+                   to_trees=lambda sd: (vade_trees(sd), {}), device=device, **kwargs)
+
+
+def _decayed_adam(config: Dict[str, Any]) -> OptimizerFn:
+    """``optax.chain(scale_by_adam(**adam), scale_by_schedule(exponential_
+    decay(**lr_schedule)), scale(-1.0))``, the chain of the VaDE, PM-VaDE
+    and lookahead CLIs."""
+    eps = adam_eps(config)
+    schedule = exponential_decay(**config["lr_schedule"])
+    return lambda params: Adam(params, schedule, eps)
+
+
+def vade_trainer(model, config: Dict[str, Any], *, seed: int = 0, data_key: str = "image",
+                 device: Optional[str] = None, **kwargs) -> Trainer:
+    """Phase 3 of ``train_vade.py`` (:176-207): ``-mean(elbo)``, Adam with
+    the configuration's ``adam`` options under the exponential decay,
+    nothing frozen, checkpoints in the JAX package's layout."""
+    from posterior_matching_torch.convert import vade_trees
+
+    return Trainer(model, vade_loss_fn(data_key), optimizer=_decayed_adam(config), seed=seed,
+                   to_trees=lambda sd: (vade_trees(sd), {}), device=device, **kwargs)
+
+
+def pm_vade_trainer(model, config: Dict[str, Any], *, seed: int = 0, mask_fn=None,
+                    data_key: str = "image", device: Optional[str] = None,
+                    **kwargs) -> Trainer:
+    """The trainer of ``train_pm_vade.py:64-112``: the matching loss, only
+    the modules whose path holds ``partial_`` trainable (so the GMM prior's
+    ``logits``, ``mu`` and ``log_scale``, at the top of the tree, are
+    frozen), Adam under the exponential decay, masks from ``mask_fn`` (the
+    CLI's ``UniformMaskGenerator``) drawn on the device."""
+    from posterior_matching_torch.convert import vade_trees
+
+    data = config.get("data", {})
+    return Trainer(
+        model, pm_vade_loss_fn(data_key), optimizer=_decayed_adam(config),
+        trainable=lambda module, name: "partial_" in module,
+        prologue_fn=pm_vae_prologue(data, mask_fn, True),
+        val_prologue_fn=pm_vae_prologue(data, mask_fn, False),
+        seed=seed, to_trees=lambda sd: (vade_trees(sd), {}), device=device, **kwargs,
+    )
+
+
+def lookahead_trainer(model, config: Dict[str, Any], *, seed: int = 0, mask_fn=None,
+                      data_key: str = "image", device: Optional[str] = None,
+                      **kwargs) -> Trainer:
+    """The trainer of ``train_lookahead_posterior.py:79-123``: the lookahead
+    log-likelihood, only the modules whose path holds ``lookahead``
+    trainable (the PM-VAE under ``pm_vae`` frozen), Adam under the
+    exponential decay, masks from ``mask_fn`` drawn on the device."""
+    from posterior_matching_torch.convert import lookahead_trees
+
+    data = config.get("data", {})
+    return Trainer(
+        model, lookahead_loss_fn(data_key), optimizer=_decayed_adam(config),
+        trainable=lambda module, name: "lookahead" in module,
+        prologue_fn=pm_vae_prologue(data, mask_fn, True),
+        val_prologue_fn=pm_vae_prologue(data, mask_fn, False),
+        seed=seed, to_trees=lambda sd: (lookahead_trees(sd), {}), device=device, **kwargs,
     )

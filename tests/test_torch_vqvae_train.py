@@ -115,3 +115,43 @@ def test_stage2_step_leaves_the_codebook():
     assert model.training
     for k, v in model.vqvae.state_dict().items():
         assert torch.equal(v, before[k]), k
+
+
+def test_skipped_nonfinite_step_keeps_the_codebook():
+    """A stage-1 step on a NaN batch under ``skip_nonfinite_updates``: the
+    forward moves the EMA codebook (to NaN) and the step is skipped, so the
+    parameters, the Adam state and the codebook buffers are all restored,
+    as the JAX trainer keeps its model state on a skipped step
+    (``trainer.py:244-251``); the next finite step moves them again."""
+    torch.manual_seed(1)
+    model = VQVAE(**CFG)
+    trainer = vqvae_trainer(model, {"learning_rate": 1e-3}, device="cpu",
+                            skip_nonfinite_updates=True)
+    x = torch.from_numpy(_images(5))
+    trainer.train_step({"image": x})
+    sd = lambda: {k: v.clone() for k, v in model.state_dict().items()}
+    opt = lambda: (trainer.optimizer.count,
+                   {k: v.clone() for k, v in trainer.optimizer.mu.items()},
+                   {k: v.clone() for k, v in trainer.optimizer.nu.items()})
+    before, opt_before = sd(), opt()
+    forward = model.vq.forward
+    moved = []
+
+    def seen(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        moved.append(bool(torch.isnan(model.vq.embeddings).any()))
+        return out
+
+    model.vq.forward = seen
+    metrics = trainer.train_step({"image": torch.full_like(x, float("nan"))})
+    del model.vq.forward
+    assert moved == [True] and metrics["skipped"].item() == 1.0 and trainer.step == 2
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    count, mu, nu = opt()
+    assert count == opt_before[0] == 1
+    for k in mu:
+        assert torch.equal(mu[k], opt_before[1][k]) and torch.equal(nu[k], opt_before[2][k]), k
+    metrics = trainer.train_step({"image": x})
+    assert metrics["skipped"].item() == 0.0 and trainer.optimizer.count == 2
+    assert not torch.equal(model.vq.embeddings, before["vq.embeddings"])
