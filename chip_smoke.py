@@ -100,8 +100,11 @@ acquisition's CLIs, and checks them, in these phases:
    validations), then ``eval_pm_vqvae`` on that run (64 images with CelebA
    masks, 10 samples, 1 trial): the batches, run directories, each CLI's
    kernel launches exactly (every counter set to 0 just before it: the
-   search 6, then the search 8 and the stream 16 + 8, then 2 x 16 of each
-   sampler kernel), the eval's files, shapes and ``eval_summary.json`` keys
+   search 8, 2 of them the reconstruction callback's, then the search 8,
+   the stream 16 + 8 and, from the imputation callback at the two
+   validations, 2 x 16 of each sampler kernel, then 2 x 16 of each sampler
+   kernel), the eval's files, shapes and
+   ``eval_summary.json`` keys
    (the JAX CLI's), and its wall time split into requests, embeddings and
    PRD;
 13. the PM-VDVAE eval CLIs on phase 11's run: ``eval_pm_vdvae_imputation``
@@ -139,7 +142,24 @@ acquisition's CLIs, and checks them, in these phases:
    loss within 1e-5 relative, every gradient within 1e-4 of scale); none
    of the thirteen kernels launched (every counter set to 0 before each
    CLI and read after it);
-16. one JSON line of per-kernel numbers, the card's name and power limit,
+16. resume and the run directory's logs: ``train_pm_vqvae --config
+   pm_vqvae_celeb_a`` (full width, on phase 12's files and VQ-VAE run),
+   ``train_pm_vdvae`` with the fused decoder (full width, on phase 11's
+   files), ``train_pm_vae --config pm_vae_gas`` and ``train_vade``'s ELBO
+   phase (``vade_mnist``) and ``train_vqvae --config vqvae_celeb_a``, each
+   run 6 steps straight and 3 steps then ``--resume_dir`` to 6, validating
+   every 3: the two final checkpoints (parameters, buffers, Adam's count
+   and moments, EMA parameters) bit for bit equal, the PM-VDVAE's within
+   the RESUME bounds, as its step runs cuDNN's own choice of algorithms
+   (the worst difference logged where not equal); the resumed run's seed
+   restored, its one validation, its TensorBoard events read back (the
+   imputation strips of PM-VQVAE, PM-VDVAE's three image tags), each run's
+   kernel launches (the sampler kernels at each PM-VQVAE validation, the
+   chains in training) and steps/s; then the cuDNN precision check: each
+   distinct convolution of the VQ-VAE and the VDVAE, its gradients on the
+   card with cuDNN's own choice of algorithms and with the deterministic
+   ones against float64 on the CPU;
+17. one JSON line of per-kernel numbers, the card's name and power limit,
    and the result line.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--vdvae_run_dir
@@ -1071,10 +1091,10 @@ def vqvae_cli_phase(args, gen):
                 log(f"{stage}: {steps} steps and 2 validations of {n_val} batches in "
                     f"{wall:.1f} s; run directory {out[stage]['files']}; launches {launched}")
             run1, run2 = out["train_vqvae"]["run_dir"], out["train_pm_vqvae"]["run_dir"]
-            check(out["train_vqvae"]["files"] == ["model_config.json", "train_meta.json",
+            check(out["train_vqvae"]["files"] == ["model_config.json", "tb", "train_meta.json",
                                                   "train_state.pkl"],
                   "train_vqvae's run directory holds other files")
-            check(out["train_pm_vqvae"]["files"] == ["config.json", "train_meta.json",
+            check(out["train_pm_vqvae"]["files"] == ["config.json", "tb", "train_meta.json",
                                                      "train_state.pkl", "vqvae_config.json"],
                   "train_pm_vqvae's run directory holds other files")
             check(out["train_vqvae"]["launches"]["vq_search"] > 0,
@@ -1675,15 +1695,18 @@ def cli_phase(args, gen, mask_fn, work):
     run_dirs = glob.glob(f"{work}/runs/pm-vdvae-mnist-*")
     check(len(run_dirs) == 1, f"train_pm_vdvae made the run directories {run_dirs}")
     files = sorted(os.listdir(run_dirs[0]))
-    check(files == ["model_config.json", "train_meta.json", "train_state.pkl"],
+    check(files == ["model_config.json", "tb", "train_meta.json", "train_state.pkl"],
           f"the run directory holds {files}")
     steps_lines = [ln for ln in lines if ln.startswith("[step ")]
     check(len(steps_lines) == 2 and all("val_loss=" in ln for ln in steps_lines),
           "train_pm_vdvae did not log two validations with val_loss")
     n_val = n_test // batch
-    check(bwd == 5 * steps and fwd == 5 * (steps + 2 * n_val),
+    # each validation: its batches, then the reconstruction callback's one
+    # forward (its imputations and samples run the decoder's blocks unfused)
+    want_fwd = 5 * (steps + 2 * (n_val + 1))
+    check(bwd == 5 * steps and fwd == want_fwd,
           f"train_pm_vdvae launched the decoder chain {fwd} + {bwd} times, not "
-          f"{5 * (steps + 2 * n_val)} + {5 * steps}")
+          f"{want_fwd} + {5 * steps}")
     with open(f"{run_dirs[0]}/model_config.json") as fp:
         written = json.load(fp)
     loaded = convert.load_pm_vdvae(run_dirs[0], device=DEVICE, fused_chain=True)
@@ -1875,23 +1898,27 @@ def celeb_a_pipeline_phase(args, work):
             log(f"{stage}: {wall:.1f} s; 64x64x3 batches; launches {launched}")
             return out[stage].get("run_dir")
 
+        # each validation: its batches, then the reconstruction callback's
+        # one forward
         run1 = run_stage("train_vqvae", train_vqvae.main,
                          ["--config", "vqvae_celeb_a", *common],
-                         {"vq_search": steps + 2 * n_val1})
+                         {"vq_search": steps + 2 * (n_val1 + 1)})
         run2 = run_stage("train_pm_vqvae", train_pm_vqvae.main,
                          ["--config", "pm_vqvae_celeb_a", *common, "--config.vqvae_dir", run1],
                          {"vq_search": steps + 2 * n_val2,
                           "gated_stream_fwd": 2 * (steps + 2 * n_val2),
-                          "gated_stream_bwd": 2 * steps})
+                          "gated_stream_bwd": 2 * steps,
+                          # the imputation callback's strips at each validation
+                          "sampler_vrow": 2 * rows, "sampler_row": 2 * rows})
         run_stage("eval_pm_vqvae", eval_pm_vqvae.main,
                   ["--run_dir", run2, "--dataset", "celeb_a", "--mask_generator",
                    "CelebAMaskGenerator", "--num_instances", str(n_eval), "--batch_size",
                    str(BATCH), "--num_samples", str(NUM_SAMPLES), "--num_trials", "1"],
                   {"sampler_vrow": n_req * rows, "sampler_row": n_req * rows})
-    check(out["train_vqvae"]["files"] == ["model_config.json", "train_meta.json",
+    check(out["train_vqvae"]["files"] == ["model_config.json", "tb", "train_meta.json",
                                           "train_state.pkl"],
           "train_vqvae's run directory holds other files")
-    check(out["train_pm_vqvae"]["files"] == ["config.json", "train_meta.json",
+    check(out["train_pm_vqvae"]["files"] == ["config.json", "tb", "train_meta.json",
                                              "train_state.pkl", "vqvae_config.json"],
           "train_pm_vqvae's run directory holds other files")
     res = imputation_results_check(run2, n_eval, NUM_SAMPLES, "eval_pm_vqvae")
@@ -2147,7 +2174,7 @@ def pm_vae_train_cli(name, steps, falls, seed, work, counters):
     run_dirs = glob.glob(f"{work}/runs/pm-vae-{dataset}-*")
     check(len(run_dirs) == 1, f"train_pm_vae {name} made the run directories {run_dirs}")
     files = sorted(os.listdir(run_dirs[0]))
-    check(files == ["model_config.json", "train_meta.json", "train_state.pkl"],
+    check(files == ["model_config.json", "tb", "train_meta.json", "train_state.pkl"],
           f"the run directory holds {files}")
     # before step_rate's profiled step moves the weights
     loaded = convert.load_pm_vae(run_dirs[0], device=DEVICE).state_dict()
@@ -2356,7 +2383,7 @@ def vade_phase(args, work):
         train_vade.GaussianMixture, Trainer.init = Recorded.__bases__[0], init
     (vade_dir,) = glob.glob(f"{work}/runs/vade-mnist-*")
     files = sorted(os.listdir(vade_dir))
-    check(files == ["model_config.json", "pretrain_state.pkl", "train_meta.json",
+    check(files == ["model_config.json", "pretrain_state.pkl", "tb", "train_meta.json",
                     "train_state.pkl"], f"the VaDE run directory holds {files}")
     gmm_lines = [ln for ln in lines if ln.startswith("GMM Accuracy: ")]
     check(len(gmm_lines) == 1, "train_vade printed no GMM accuracy")
@@ -2440,6 +2467,316 @@ def vade_phase(args, work):
         f"{wall:.1f} s wall; mean RMSE first/last step: sampling {curves['sampling'][0]:.4f} -> "
         f"{curves['sampling'][-1]:.4f}, lookahead {curves['lookahead'][0]:.4f} -> "
         f"{curves['lookahead'][-1]:.4f}; no kernel launched")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: resume, the run directory's logs, the cuDNN precision check
+# ---------------------------------------------------------------------------
+
+# Phase 16's runs: straight to RESUME_STEPS, and to RESUME_AT and on from
+# there, validating every RESUME_AT steps.
+RESUME_AT, RESUME_STEPS = 3, 6
+# The PM-VDVAE's step runs cuDNN's own choice of convolution algorithms,
+# whose weight-gradient sums land in another order from one call to the
+# next (its deterministic ones cost the fused step 5-8%:
+# tools/step_timing.py), so its resumed run is held to bounds, not bit for
+# bit. Counts and the step exactly. Parameters and EMA parameters within
+# RESUME_PARAM_STEPS x lr x RESUME_STEPS of each other, elementwise: Adam's
+# bias-corrected update is at most 1.015 lr an element in its first 6
+# steps whatever the gradients, so two runs drift apart by at most 2.03 lr
+# a step, while a parameter restored wrong is off by its own scale. Adam's
+# moments within RESUME_MOMENT_TOL of the tensor's scale: a moment, the
+# seed or the stream restored wrong moves them by a tenth of their scale or
+# more (the last 3 of 6 gradients weigh 0.27 of 0.47 in mu).
+RESUME_PARAM_STEPS = 2.1
+RESUME_MOMENT_TOL = 1e-2
+def checkpoint_arrays(run_dir):
+    """Every array of a run's ``train_state.pkl``, flat by its path (the
+    optimizer's through its optax records)."""
+    from posterior_matching_torch.train.state import ForeignRecord, load_train_state
+
+    ts = load_train_state(f"{run_dir}/train_state.pkl")
+    out = {"step": np.asarray(ts.step)}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}", v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(f"{prefix}/{i}", v)
+        elif isinstance(node, ForeignRecord):
+            walk(f"{prefix}/{type(node).__name__}", node.args)
+        else:
+            out[prefix] = np.asarray(node)
+
+    for field in ("params", "state", "opt_state", "ema_params"):
+        walk(field, getattr(ts, field))
+    return out
+
+
+def resume_check(name, main, argv, cwd, data_dir, counters, lr=None):
+    """``main`` on ``argv`` straight to RESUME_STEPS, then to RESUME_AT and
+    on to RESUME_STEPS by ``--resume_dir``, each run in its own directory
+    under ``cwd`` with every kernel counter set to 0 just before it and
+    each training step waited for and timed: the straight and resumed
+    checkpoints equal bit for bit or, given the learning rate ``lr`` of a
+    step that runs cuDNN's own choice of algorithms, within the RESUME
+    bounds (the worst difference logged where they are not equal), the
+    resumed run's seed restored and its one validation at RESUME_STEPS.
+    Returns each run's run directory, launches and steps/s, and the
+    comparison."""
+    common = [*argv, "--config.validation_freq", str(RESUME_AT)]
+    runs = {}
+    for label, extra in (
+            ("straight", ["--config.steps", str(RESUME_STEPS), "--config.seed", "5"]),
+            ("short", ["--config.steps", str(RESUME_AT), "--config.seed", "5"]),
+            ("resumed", ["--config.steps", str(RESUME_STEPS), "--resume_dir", None])):
+        if label == "resumed":
+            extra[-1] = runs["short"]["run_dir"]
+        os.makedirs(f"{cwd}/{label}")
+        for c in counters.values():
+            c.launches = 0
+        with cli_env(f"{cwd}/{label}", data_dir), step_clock() as clock:
+            _, lines, wall = run_cli(f"{name} ({label})", main, [*common, *extra])
+        (run_dir,) = glob.glob(f"{cwd}/{label}/runs/*")
+        spans = clock["spans"]
+        runs[label] = {"run_dir": run_dir, "lines": lines, "wall_s": wall,
+                       "launches": {k: c.launches for k, c in counters.items() if c.launches},
+                       "steps": len(spans), "steps_per_s": len(spans) / sum(spans)}
+    resumed = runs["resumed"]
+    steps_lines = [ln for ln in resumed["lines"] if ln.startswith("[step ")]
+    check(resumed["steps"] == RESUME_STEPS - RESUME_AT and len(steps_lines) == 1
+          and steps_lines[0].startswith(f"[step {RESUME_STEPS}/{RESUME_STEPS}] "),
+          f"{name}: the resumed run stepped {resumed['steps']} times, validated {steps_lines}")
+    check(any(ln.startswith("Restored training seed 5 from ") for ln in resumed["lines"]),
+          f"{name}: the resumed run did not restore the seed")
+    want, got = (checkpoint_arrays(runs[k]["run_dir"]) for k in ("straight", "resumed"))
+    check(set(got) == set(want) and int(want["step"]) == RESUME_STEPS,
+          f"{name}: the checkpoints hold other arrays")
+    differ = {k: float(np.abs(got[k].astype(np.float64) - w).max()
+                       / max(float(np.abs(w).max()), 1e-30))
+              for k, w in want.items() if not np.array_equal(got[k], w)}
+    worst = max(differ.items(), key=lambda t: t[1], default=(None, 0.0))
+    bounds = ""
+    if lr is None:
+        over = differ
+    else:
+        atol = RESUME_PARAM_STEPS * lr * RESUME_STEPS
+        param = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max()) for k in differ
+                 if not k.startswith("opt_state/")}
+        moment = {k: v for k, v in differ.items() if k.startswith("opt_state/")}
+        over = {k: v for k, v in differ.items()
+                if not np.issubdtype(want[k].dtype, np.floating)
+                or (k in param and param[k] > atol) or moment.get(k, 0.0) > RESUME_MOMENT_TOL}
+        bounds = (f"; parameters at most {max(param.values(), default=0.0):.3e} apart (bound "
+                  f"{atol:.3e}), moments {max(moment.values(), default=0.0):.3e} of scale "
+                  f"(bound {RESUME_MOMENT_TOL:g})")
+    log(f"{name}: resumed vs straight, {len(want)} arrays: "
+        + ("bit for bit equal" if not differ else
+           f"{len(differ)} differ, worst {worst[1]:.3e} of scale ({worst[0]})") + bounds
+        + "; steps/s " + ", ".join(f"{k} {v['steps_per_s']:.2f}" for k, v in runs.items())
+        + f" | {nvidia_smi_line()}")
+    check(not over, f"{name}: the resumed run is not the straight run: {len(over)} arrays "
+          f"out of bounds, {sorted(over)[:3]}")
+    return {"runs": {k: {kk: v for kk, v in r.items() if kk != "lines"} for k, r in runs.items()},
+            "arrays": len(want), "differ": len(differ), "worst_of_scale": worst[1]}
+
+
+def events(run_dir):
+    """The summary values of a run's ``tb/`` event file, through the tests'
+    reader (``tests/tb_events.py``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "tb_events", Path(__file__).resolve().parent / "tests" / "tb_events.py")
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    (path,) = glob.glob(f"{run_dir}/tb/events.out.tfevents.*")
+    return reader.read_events(path)
+
+
+def resume_phase(args, work, celeb_a_dir, vqvae_dir, mnist_dir):
+    """Phase 16: resume equal to a straight run through five CLIs at full
+    width, bit for bit (the PM-VDVAE within bounds), their TensorBoard
+    events and launches; then the cuDNN precision check."""
+    from posterior_matching_torch import (
+        train_pm_vae,
+        train_pm_vdvae,
+        train_pm_vqvae,
+        train_vade,
+        train_vqvae,
+    )
+    from posterior_matching_torch.config import CONFIGS
+
+    counters = all_kernel_counters()
+    out = {}
+    t0 = time.perf_counter()
+    # PM-VQVAE: the chain kernels relaunch bit for bit, and its trainer asks
+    # for cuDNN's deterministic algorithms
+    name = "train_pm_vqvae pm_vqvae_celeb_a"
+    res = resume_check(name, train_pm_vqvae.main, [
+        "--config", "pm_vqvae_celeb_a", "--config.vqvae_dir", vqvae_dir],
+        f"{work}/pm_vqvae", celeb_a_dir, counters)
+    rows = CONFIGS["pm_vqvae_celeb_a"]()["pixel_cnn"]["image_shape"][0]
+    for label, validations in (("straight", 2), ("short", 1), ("resumed", 1)):
+        run = res["runs"][label]
+        check(run["launches"].get("sampler_vrow") == run["launches"].get("sampler_row")
+              == validations * rows and run["launches"].get("gated_stream_bwd") ==
+              2 * run["steps"], f"{name} ({label}) launched {run['launches']}")
+    tb = events(res["runs"]["resumed"]["run_dir"])
+    strips = [(step, v) for step, tag, v in tb if tag == "imputations"]
+    check(strips == [(RESUME_STEPS, (64, 3 * 7 * 64))],
+          f"{name}: the resumed run's events hold the imputation strips {strips}")
+    out["pm_vqvae"] = res
+    log(f"{name}: sampler kernels {rows} + {rows} a validation (the imputation callback), "
+        f"the resumed run's events hold its imputation strips at step {RESUME_STEPS}")
+
+    # PM-VDVAE, fused: cuDNN's own choice of algorithms, within bounds
+    name = "train_pm_vdvae pm_vdvae_mnist (fused)"
+    res = resume_check(name, train_pm_vdvae.main, [
+        "--config", "pm_vdvae_mnist", "--config.model.fused_chain=True"],
+        f"{work}/pm_vdvae", mnist_dir, counters, lr=CONFIGS["pm_vdvae_mnist"]()["lr"])
+    run = res["runs"]["resumed"]
+    check(run["launches"].get("decoder_chain_bwd") == 5 * run["steps"]
+          and run["launches"].get("block_chain_bwd") == 10 * run["steps"],
+          f"{name} (resumed) launched {run['launches']}")
+    tags = sorted(tag for step, tag, v in events(run["run_dir"]) if isinstance(v, tuple))
+    check(tags == ["imputations", "reconstructions", "samples"],
+          f"{name}: the resumed run's events hold the images {tags}")
+    out["pm_vdvae"] = res
+
+    # stage 1 (the codebook's EMA state restored), PM-VAE gas and VaDE's
+    # ELBO phase: no kernel but the search's in stage 1
+    name = "train_vqvae vqvae_celeb_a"
+    res = resume_check(name, train_vqvae.main, ["--config", "vqvae_celeb_a"],
+                       f"{work}/vqvae", celeb_a_dir, counters)
+    check(all(set(r["launches"]) == {"vq_search"} for r in res["runs"].values()),
+          f"{name} launched {[r['launches'] for r in res['runs'].values()]}")
+    out["vqvae"] = res
+    for key, name, main, argv, data_dir in (
+            ("pm_vae", "train_pm_vae pm_vae_gas", train_pm_vae.main,
+             ["--config", "pm_vae_gas"], f"{work}/no_data"),
+            ("vade", "train_vade vade_mnist", train_vade.main,
+             ["--config", "vade_mnist", "--config.pretrain_steps", "3"], f"{work}/no_data")):
+        res = resume_check(name, main, argv, f"{work}/{key}", data_dir, counters)
+        check(not any(r["launches"] for r in res["runs"].values()),
+              f"{name} launched kernels")
+        out[key] = res
+    resumed_vade = glob.glob(f"{work}/vade/resumed/runs/*")[0]
+    check(not os.path.exists(f"{resumed_vade}/pretrain_state.pkl"),
+          "the resumed train_vade ran its pretraining")
+    seconds = time.perf_counter() - t0
+    log(f"resume checks: {seconds:.1f} s | {nvidia_smi_line()}")
+    out["conv_precision"] = conv_precision_check(args.seed)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# A cuDNN convolution's gradients on the card against float64 on the CPU,
+# relative to the float64 tensor's largest magnitude. Float32 sums in any
+# order read up to 8.9e-6 of scale here (the VDVAE's 14x14 48 -> 48 weight
+# gradient under the deterministic algorithms, NVIDIA H100); the Winograd
+# and FFT algorithms that lose digits read 1.36e-3 (PM-VAE's 5x5 layers).
+# The bar sits between the two, an order of magnitude from each.
+CONV_PRECISION_TOL = 1e-4
+
+
+def conv_precision_check(seed):
+    """Each distinct cuDNN convolution of the VQ-VAE (``vqvae_celeb_a``,
+    batch 32) and of the VDVAE (``pm_vdvae_mnist``'s k x k convs, batch 16),
+    on the input it sees in a forward pass, with a seeded cotangent: the
+    weight and input gradients (and the output) on the card in float32,
+    with cuDNN's own choice of algorithms and with the deterministic ones
+    the training step asks for (``det_``), against float64 on the CPU, the
+    CPU's float32 beside. Returns the worst figures per model; fails above
+    CONV_PRECISION_TOL."""
+    import copy
+
+    from posterior_matching_torch import config, convert, masking
+    from posterior_matching_torch.models import vdvae as vdm, vqvae as vqm
+    from posterior_matching_torch.train.trainer import deterministic_convolutions
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vq_cfg = config.VQVAE_CELEB_A
+    params, state = convert.init_vqvae_tree(vq_cfg, seed=seed)
+    vq = convert.vqvae_from_jax(params, state, vq_cfg, device=DEVICE)
+    vd = convert.pm_vdvae_from_jax(convert.random_pm_vdvae_tree(config.PM_VDVAE_MNIST, seed),
+                                   config.PM_VDVAE_MNIST, device=DEVICE)
+    mask_fn = masking.get_mask_generator("MNISTMaskGenerator", device=DEVICE)
+
+    def capture(model, run, convs):
+        seen = {}
+
+        def hook(mod, inputs, output):
+            x = inputs[0]
+            key = (type(mod).__name__, tuple(next(mod.parameters()).shape), tuple(x.shape))
+            seen.setdefault(key, (mod, x.detach().clone()))
+
+        handles = [m.register_forward_hook(hook) for m in model.modules() if convs(m)]
+        try:
+            with torch.no_grad():
+                run()
+        finally:
+            for h in handles:
+                h.remove()
+        return seen
+
+    def grads(mod, x, cot, device, dtype):
+        m = copy.deepcopy(mod).to(device=device, dtype=dtype)
+        w = next(m.parameters())
+        xx = x.to(device=device, dtype=dtype).requires_grad_()
+        y = m(xx)
+        gw, gx = torch.autograd.grad(y, (w, xx), cot.to(device=device, dtype=dtype))
+        return [t.detach().double().cpu() for t in (y, gw, gx)]
+
+    def scale_err(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    out = {}
+    vq_x = torch.rand((BATCH, *config.CELEB_A_IMAGE_SHAPE), generator=gen, device=dev)
+    vd_batch = mnist_batch(gen, dev, VDVAE_TRAIN_BATCH, mask_fn)
+    noise = torch.Generator(device=dev).manual_seed(seed)
+    cases = {
+        "vqvae_celeb_a": capture(vq, lambda: vq(vq_x, is_training=False),
+                                 lambda m: isinstance(m, (vqm.Conv, vqm.ConvTranspose))),
+        # the VDVAE's 1x1 convs are matrix products, not cuDNN's
+        "pm_vdvae_mnist": capture(vd, lambda: vd(vd_batch["image"], vd_batch["mask"], noise),
+                                  lambda m: isinstance(m, vdm.Conv) and m.k > 1),
+    }
+    for model_name, seen in cases.items():
+        rows = []
+        for (kind, wshape, xshape), (mod, x) in seen.items():
+            y = mod(x)
+            cot = torch.randn(y.shape, generator=gen, device=dev)
+            ref = grads(mod, x, cot, "cpu", torch.float64)
+            gpu = grads(mod, x, cot, DEVICE, torch.float32)
+            with deterministic_convolutions():
+                det = grads(mod, x, cot, DEVICE, torch.float32)
+            cpu = grads(mod, x, cot, "cpu", torch.float32)
+            row = {"layer": f"{kind} w{list(wshape)} x{list(xshape)}",
+                   "cpu_dw": scale_err(cpu[1], ref[1])}
+            for prefix, got in (("", gpu), ("det_", det)):
+                row.update({f"{prefix}{k}": scale_err(t, r)
+                            for k, t, r in zip(("out", "dw", "dx"), got, ref)})
+            rows.append(row)
+            log(f"conv precision {model_name} {row['layer']}: card vs float64 out "
+                f"{row['out']:.2e}, dW {row['dw']:.2e}, dx {row['dx']:.2e}; deterministic "
+                f"{row['det_out']:.2e}, {row['det_dw']:.2e}, {row['det_dx']:.2e} (CPU float32 "
+                f"dW {row['cpu_dw']:.2e})")
+        worst = {k: max(r[k] for r in rows) for k in rows[0] if k != "layer"}
+        out[model_name] = {"layers": rows, "worst": worst}
+        log(f"conv precision {model_name}: {len(rows)} distinct convolutions, worst of scale: "
+            f"out {worst['out']:.3e}, dW {worst['dw']:.3e}, dx {worst['dx']:.3e}; "
+            f"deterministic {worst['det_out']:.3e}, {worst['det_dw']:.3e}, "
+            f"{worst['det_dx']:.3e} (CPU float32 dW {worst['cpu_dw']:.3e}); bar "
+            f"{CONV_PRECISION_TOL:g} | {nvidia_smi_line()}")
+    for model_name, res in out.items():
+        check(max(v for k, v in res["worst"].items() if k != "cpu_dw") <= CONV_PRECISION_TOL,
+              f"{model_name}: a cuDNN convolution is more than {CONV_PRECISION_TOL:g} of "
+              "scale off float64")
     return out
 
 
@@ -2721,7 +3058,14 @@ def main() -> int:
         os.makedirs(f"{work}/vade")
         vade = vade_phase(args, f"{work}/vade")
 
-    # ---- 16. results -------------------------------------------------------
+        # ---- 16. resume, the run directory's logs, the cuDNN precision check ----
+        stamp("resume, TensorBoard events and the cuDNN precision check")
+        os.makedirs(f"{work}/resume/no_data")
+        resume = resume_phase(args, f"{work}/resume", f"{work}/celeb_a/data",
+                              celeb_a["train_vqvae"]["run_dir"], f"{work}/data")
+        log(f"phase 16: {resume['seconds']:.1f} s | {smi}")
+
+    # ---- 17. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
@@ -2753,7 +3097,7 @@ def main() -> int:
         "request_s": req_s, "psnr": psnrs, "modes_first_step": first_step,
         "training": train, "vqvae_cli": vqvae_cli, "vdvae": vdvae, "kernels": kernels,
         "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval, "pm_vae": pm_vae,
-        "vade": vade,
+        "vade": vade, "resume": resume,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)

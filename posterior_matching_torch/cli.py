@@ -6,8 +6,10 @@ or ``--config.<path>=<value>`` flags that set one of its entries, as the
 JAX CLIs' ``ml_collections`` config flags do (the value read as a Python
 literal, ``True``, ``16``, ``1.5e-4``, ``None``, or else kept as a string; an
 entry the configuration lacks is refused), ``--device cpu`` (the GPU
-otherwise) and ``--resume_dir``, which is refused until the optimizer state
-is written in optax's layout (``ROADMAP.md`` A6).
+otherwise) and ``--resume_dir <run directory>``, a run of either package
+to continue from its ``train_state.pkl`` into a fresh run directory, with
+its seed from its ``train_meta.json`` unless ``--config.seed`` is given
+(``posterior_matching_tpu/train/resume.py:20-61``).
 """
 from __future__ import annotations
 
@@ -59,18 +61,18 @@ def parse_config(parser: argparse.ArgumentParser, argv: Optional[Sequence[str]],
     """Adds ``--config`` (one of ``names``), ``--device`` and
     ``--resume_dir`` to ``parser``, parses ``argv`` and returns the
     arguments and the configuration with its overrides applied and its
-    seed resolved (an explicit one, else a fresh draw)."""
+    seed resolved (an explicit one, else ``--resume_dir``'s, else a fresh
+    draw)."""
     parser.add_argument("--config", required=True, choices=sorted(names))
     parser.add_argument("--device", default=None, help="the GPU unless 'cpu'")
-    parser.add_argument("--resume_dir", default=None)
+    parser.add_argument("--resume_dir", default=None,
+                        help="continue this run directory's train_state.pkl (params, "
+                             "optimizer state, EMA params, step) into a fresh run directory")
     args, rest = parser.parse_known_args(argv)
-    if args.resume_dir:
-        parser.error("--resume_dir is not ported yet: the port's optimizer state is not "
-                     "optax's layout (ROADMAP.md A6)")
     config = CONFIGS[args.config]()
     try:
         apply_overrides(config, parse_overrides(rest))
     except (ValueError, KeyError) as err:
         parser.error(str(err))
-    config["seed"] = resolve_seed(config)
+    config["seed"] = resolve_seed(config, args.resume_dir)
     return args, config

@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,7 +59,7 @@ from posterior_matching_torch.models.vae import PosteriorMatchingVAE
 from posterior_matching_torch.models.vdvae import PosteriorMatchingVDVAE
 from posterior_matching_torch.models.vqvae import VQVAE
 from posterior_matching_torch.runtime import resolve_device
-from posterior_matching_torch.train.state import load_train_state
+from posterior_matching_torch.train.state import ForeignRecord, foreign_class, load_train_state
 
 Tree = Dict[str, Any]
 
@@ -698,3 +698,201 @@ def init_lookahead_tree(config: Dict[str, Any], pm_vae_config: Dict[str, Any],
     zero, the ``pm_vae`` subtree included."""
     model = LookaheadPosterior.from_config(config, pm_vae_config, device="cpu")
     return _init_tree(model, seed)
+
+
+# ---------------------------------------------------------------------------
+# Optimizer state in optax's layout
+# ---------------------------------------------------------------------------
+
+# Where optax 0.2.6 defines the states that the JAX CLIs' chains init to:
+# the class paths a checkpoint names them by.
+_OPTAX_CLASSES = {
+    "ScaleByAdamState": "optax._src.transform",
+    "ScaleByScheduleState": "optax._src.transform",
+    "EmptyState": "optax._src.base",
+    "MaskedState": "optax.transforms._masking",
+    "MaskedNode": "optax.transforms._masking",
+    "PartitionState": "optax.transforms._combining",
+}
+
+
+def _optax(name: str, *args) -> ForeignRecord:
+    return foreign_class(_OPTAX_CLASSES[name], name)(*args)
+
+
+_EMPTY = lambda count, mu, nu: _optax("EmptyState")
+# The state each transform of a chain inits to, by the name of its optax
+# function (``train/optim.py``'s ``chain``), from the count and moments:
+# ``add_decayed_weights`` is always given a mask by the JAX CLIs.
+_STATES = {
+    "scale_by_adam": lambda count, mu, nu: _optax("ScaleByAdamState", count, mu, nu),
+    "scale_by_schedule": lambda count, mu, nu: _optax("ScaleByScheduleState", count.copy()),
+    "add_decayed_weights": lambda count, mu, nu: _optax("MaskedState", _optax("EmptyState")),
+    "clip_by_global_norm": _EMPTY, "scale": _EMPTY, "scale_by_learning_rate": _EMPTY,
+}
+
+
+def _is_optax(node, name: str) -> bool:
+    return isinstance(node, ForeignRecord) and type(node) is foreign_class(
+        _OPTAX_CLASSES[name], name)
+
+
+def _map_with_path(fn, tree: Tree, path=()) -> Tree:
+    """``fn(path, leaf)`` on each leaf of a tree of dicts."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, (*path, k)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _labels(params: Tree, trainable: Callable[[str, str], bool]) -> Tree:
+    """Whether each leaf trains, as the JAX trainer labels a tree
+    (``trainer.py:193-205``): ``trainable(module path, leaf name)``, the
+    module path the leaf's parents joined by ``/``."""
+    return _map_with_path(lambda path, _: bool(trainable("/".join(path[:-1]), path[-1])),
+                          params)
+
+
+def optax_opt_state(chain: Sequence[str], count: int, mu: Tree, nu: Tree,
+                    trainable: Optional[Callable[[str, str], bool]] = None):
+    """The state that the optax chain ``chain`` (its transforms' names, in
+    order) holds after ``count`` updates with moments ``mu`` and ``nu``
+    (JAX-layout trees of every parameter; the frozen ones' are dropped), as
+    records written under optax's class paths: a tuple of each transform's
+    state and, with a ``trainable`` predicate, inside
+    ``optax.multi_transform({"trainable": chain, "frozen": set_to_zero()})``
+    as the JAX trainer wraps it (``trainer.py:185-209``): a
+    ``PartitionState`` of two ``MaskedState``s, ``MaskedNode`` leaves where
+    a parameter is frozen. A plain ``pickle.load`` rebuilds optax's own
+    states from it."""
+    labels = _labels(mu, trainable or (lambda module, name: True))
+    moment = lambda path, v: (np.asarray(v, np.float32) if _leaf(labels, path)
+                              else _optax("MaskedNode"))
+    mu, nu = (_map_with_path(moment, tree) for tree in (mu, nu))
+    count = np.asarray(count, np.int32)
+    state = tuple(_STATES[t](count, mu, nu) for t in chain)
+    if trainable is None:
+        return state
+    return _optax("PartitionState", {"frozen": _optax("MaskedState", _optax("EmptyState")),
+                                     "trainable": _optax("MaskedState", state)})
+
+
+def _leaf(tree: Tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _records(node, name: str) -> list:
+    """Every optax ``name`` record in a state read from a checkpoint."""
+    if _is_optax(node, name):
+        return [node]
+    if isinstance(node, ForeignRecord):
+        node = node.args
+    if isinstance(node, dict):
+        node = list(node.values())
+    if isinstance(node, (list, tuple)):
+        return [r for v in node for r in _records(v, name)]
+    return []
+
+
+def optax_moments(opt_state, params: Tree,
+                  trainable: Optional[Callable[[str, str], bool]] = None
+                  ) -> Tuple[int, Tree, Tree]:
+    """The update count and the ``mu`` / ``nu`` trees (the structure of the
+    canonical ``params``; a frozen parameter's moments zero) of an optax
+    chain's state as :func:`~posterior_matching_torch.train.state.
+    load_train_state` reads it, written by either package. A state in
+    ``PackedChainCodec``'s layout (``packed_chain``, the JAX package's
+    default on a TPU) is unpacked to the PixelCNN's levels. Raises
+    ``ValueError``, naming what is wrong, for any other layout: no Adam
+    state, the shape-grouped ``flat_optimizer`` layout, frozen parameters
+    other than ``trainable``'s, or leaves that differ from ``params``."""
+    if isinstance(opt_state, dict) and set(opt_state) == {"count", "mu", "nu"}:
+        raise ValueError("the optimizer state is a {count, mu, nu} dict keyed by the port's "
+                         "parameter names, which the port wrote before it wrote optax's "
+                         "layout: such a checkpoint cannot be resumed")
+    adam = _records(opt_state, "ScaleByAdamState")
+    if len(adam) != 1:
+        raise ValueError(f"the optimizer state holds {len(adam)} scale_by_adam states, not one: "
+                         f"{opt_state!r:.300}")
+    count, mu, nu = adam[0].args
+    if not isinstance(mu, dict):
+        raise ValueError("the optimizer state is in flat_optimizer's layout (group_by_shape: "
+                         "moments stacked by leaf shape), which the port does not read "
+                         "(ROADMAP.md A7)")
+    count = int(np.asarray(count))
+    others = {int(np.asarray(r.args[0])) for r in _records(opt_state, "ScaleByScheduleState")}
+    if others - {count}:
+        raise ValueError(f"the optimizer's counts disagree: adam {count}, schedule {others}")
+    if trainable is None and _records(opt_state, "PartitionState"):
+        raise ValueError("the optimizer state freezes parameters, and this trainer freezes none")
+    if trainable is not None and not _records(opt_state, "PartitionState"):
+        raise ValueError("the optimizer state freezes no parameter, and this trainer does")
+    pc = mu.get("pixel_cnn")
+    if isinstance(pc, dict) and "packed" in pc:
+        mu, nu = (dict(t, pixel_cnn=_unpack_chain(t["pixel_cnn"], params["pixel_cnn"]))
+                  for t in (mu, nu))
+    labels = _labels(params, trainable or (lambda module, name: True))
+
+    def moment(tree):
+        def leaf(path, p):
+            try:
+                v = _leaf(tree, path)
+            except (KeyError, TypeError):
+                raise ValueError(
+                    f"the optimizer state has no moment for {'/'.join(path)}") from None
+            trains = _leaf(labels, path)
+            if _is_optax(v, "MaskedNode") == trains:
+                raise ValueError(f"{'/'.join(path)} is {'frozen' if trains else 'trained'} in "
+                                 "the optimizer state, and not in this trainer")
+            if not trains:
+                return np.zeros(np.shape(p), np.float32)
+            if np.shape(v) != np.shape(p):
+                raise ValueError(f"the moment of {'/'.join(path)} has shape {np.shape(v)}, the "
+                                 f"parameter {np.shape(p)}")
+            return np.asarray(v, np.float32)
+        return _map_with_path(leaf, params)
+
+    return count, moment(mu), moment(nu)
+
+
+def _unpack_chain(enc: Tree, pc: Tree) -> Tree:
+    """``PackedChainCodec``'s encoded ``pixel_cnn`` subtree of moments
+    (``{"packed": {"up": ..., "dn": ...}, "rest": ...}``; ``pixelcnn.py:
+    751-927``) -> the canonical subtree of ``pc``'s structure: the packed
+    stacks written back into each level's kernels and biases, the taps the
+    packed form leaves out zero (their gradient is zero, so are their
+    moments). The levels, filters and receptive field come from ``pc``."""
+    n = sum(1 for k in pc if k.startswith("up_0_") and k.endswith("_vertical_conv_a"))
+    rows, cols, _, f = np.shape(pc["up_0_0_vertical_conv_a"]["Conv_0"]["kernel"])
+    slices = {"vertical": ((0, rows - 1), (0, cols)), "horizontal": ((0, 2), (0, cols // 2 + 1))}
+    out = _map_with_path(lambda _, v: np.zeros(np.shape(v), np.float32), pc)
+    out.update({k: v for k, v in enc["rest"].items()})
+
+    def put_conv(tag, stack, which, k_flat, bias):
+        sub = out[f"{tag}_conv_{which}"]["Conv_0"]
+        (r0, r1), (c0, c1) = slices[stack]
+        sub["kernel"][r0:r1, c0:c1] = np.reshape(k_flat, (r1 - r0, c1 - c0,
+                                                          *sub["kernel"].shape[2:]))
+        sub["bias"] = np.reshape(bias, -1)
+
+    def put_dense(tag, suffix, kernel, bias):
+        out[f"{tag}_{suffix}"] = {"kernel": np.asarray(kernel), "bias": np.reshape(bias, -1)}
+
+    for d in ("up", "dn"):
+        pk = enc["packed"][d]
+        for p in range(n):
+            tv, th = f"{d}_0_{p}_vertical", f"{d}_0_{p}_horizontal"
+            put_conv(tv, "vertical", "a", pk["wav"][p], pk["bav"][p])
+            put_conv(tv, "vertical", "b", pk["wbv"][p], pk["bbv"][p])
+            put_dense(tv, "cond_proj", pk["wcv"][p], pk["bcv"][p])
+            put_conv(th, "horizontal", "a", pk["wah"][p], pk["bah"][p])
+            put_conv(th, "horizontal", "b", pk["wbh"][p], pk["bbh"][p])
+            put_dense(th, "cond_proj", pk["wch"][p], pk["bch"][p])
+            if d == "dn":
+                put_dense(tv, "aux", pk["wxv"][p], pk["bxv"][p])
+                u, s = np.asarray(pk["wxh_u"][p]), np.asarray(pk["wxh_s"][p])
+                put_dense(th, "aux", np.concatenate([u[:f], s[:f], u[f:], s[f:]]), pk["bxh"][p])
+            else:
+                put_dense(th, "aux", pk["wxh_u"][p], pk["bxh"][p])
+    return out

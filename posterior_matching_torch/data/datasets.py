@@ -1,9 +1,10 @@
 """Input pipeline: a numpy batcher and the reference's dataset transforms.
 
 Counterpart of ``posterior_matching_tpu/data/datasets.py``:
-:class:`ArrayDataset` (``:30-180``, without the native gather, the resume
-fast-forward and the device-resident copy), the CelebA crop and resize and
-the mnist16 transforms (``:316-369``), :func:`load_datasets` (``:372-402``)
+:class:`ArrayDataset` (``:30-180``, with the resume fast-forward
+``skip_stream``; without ``spec_batch``, as the port's models need no batch
+to start, the native gather and the device-resident copy), the CelebA crop
+and resize and the mnist16 transforms (``:316-369``), :func:`load_datasets` (``:372-402``)
 and :func:`load_eval_dataset` (``:405-426``). Masks are not added here: the
 trainer's prologue and the eval CLIs draw them on the device.
 
@@ -51,6 +52,7 @@ class ArrayDataset:
         self._drop_remainder = drop_remainder
         self._rng = np.random.RandomState(seed)
         self._transform = transform
+        self._pending_skip = 0   # batches the next epoch skips by index
 
     def cardinality(self) -> int:
         """Batches an epoch yields."""
@@ -63,10 +65,25 @@ class ArrayDataset:
         if self._shuffle:
             self._rng.shuffle(idx)
         stop = self._n - self.batch_size + 1 if self._drop_remainder else self._n
-        for start in range(0, max(stop, 0), self.batch_size):
-            sel = idx[start:start + self.batch_size]
-            batch = {k: v[sel] for k, v in self._data.items()}
-            yield self._transform(batch) if self._transform else batch
+        skip, self._pending_skip = self._pending_skip, 0
+        for start in range(skip * self.batch_size, max(stop, 0), self.batch_size):
+            yield self._batch(idx[start:start + self.batch_size])
+
+    def _batch(self, sel: np.ndarray) -> Batch:
+        batch = {k: v[sel] for k, v in self._data.items()}
+        return self._transform(batch) if self._transform else batch
+
+    def skip_stream(self, n: int) -> None:
+        """Moves the stream on so that the next batch drawn (iterating this
+        dataset epoch after epoch) is batch ``n`` of the stream, as a replay
+        would leave it (``datasets.py:166-177``): one ``shuffle`` for each
+        whole epoch skipped, the offset into the last one skipped by index
+        when its iteration starts; no batch is gathered or transformed."""
+        epochs, self._pending_skip = divmod(int(n), self.cardinality())
+        if self._shuffle:
+            idx = np.arange(self._n)
+            for _ in range(epochs):
+                self._rng.shuffle(idx)
 
 
 def _bilinear(x: np.ndarray) -> np.ndarray:
@@ -157,19 +174,24 @@ def _base(dataset: str) -> str:
     return "mnist" if "mnist" in dataset else dataset
 
 
-def load_datasets(config: Mapping, normalize_images: bool = True
-                  ) -> Tuple[ArrayDataset, ArrayDataset]:
-    """The training split (shuffled with ``shuffle_seed``) and the
-    validation split (in order) from a ``data`` config
-    (``datasets.py:372-402``)."""
+def load_datasets(config: Mapping, normalize_images: bool = True,
+                  seed: Optional[int] = None) -> Tuple[ArrayDataset, ArrayDataset]:
+    """The training split (shuffled with ``shuffle_seed``, else with
+    ``seed``) and the validation split (in order) from a ``data`` config
+    (``datasets.py:372-402``). The training CLIs pass the run's seed: no
+    shipped configuration sets ``shuffle_seed``, where the JAX package then
+    shuffles from fresh entropy, and a resumed run must see the stream the
+    interrupted run saw."""
     dataset = config["dataset"]
+    if config.get("shuffle_seed") is not None:
+        seed = config["shuffle_seed"]
     base = _base(dataset)
     transform = _make_batch_transform(dataset, normalize_images)
     train_arrays = load_arrays(base, config.get("train_split", "train"))
     val_arrays = load_arrays(base, config.get("validation_split", "validation"))
     train = ArrayDataset(_prepare_image_arrays(dataset, train_arrays),
                          config["train_batch_size"], shuffle=True,
-                         seed=config.get("shuffle_seed"), transform=transform)
+                         seed=seed, transform=transform)
     val = ArrayDataset(_prepare_image_arrays(dataset, val_arrays),
                        config["val_batch_size"], transform=transform)
     return train, val

@@ -190,7 +190,9 @@ class VectorQuantizer(nn.Module):
         """Laplace-smoothed EMA of the code counts and of the latents summed
         per code, and the codebook their ratio (``vqvae.py:88-113``)."""
         k = self.embeddings.shape[0]
-        dw = torch.zeros_like(self.ema_dw).index_add_(0, indices, flat)
+        # the one-hot product of vqvae.py:95-97, not index_add_, whose atomic
+        # sums land in another order each call on the GPU
+        dw = F.one_hot(indices, k).to(flat.dtype).T @ flat
         self.ema_cluster_size.mul_(self.decay).add_((1.0 - self.decay) * counts.to(flat.dtype))
         self.ema_dw.mul_(self.decay).add_((1.0 - self.decay) * dw)
         n = self.ema_cluster_size.sum()

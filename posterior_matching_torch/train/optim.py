@@ -12,6 +12,10 @@ incremented count, ``u = mu_hat / (sqrt(nu_hat + eps_root) + eps)``, and ``p
 <- p - schedule(count) u`` with the count before the increment. Only the parameters it is given have state
 and get updates: frozen parameters are simply not passed, which is what the
 JAX trainer's ``multi_transform(... set_to_zero)`` does to them.
+
+Each optimizer names the optax chain it stands for (``chain``, its
+transforms in order), which fixes the layout of its state in a checkpoint
+(``convert.optax_opt_state``); :meth:`Adam.load_state` takes a state back.
 """
 from __future__ import annotations
 
@@ -24,12 +28,19 @@ from posterior_matching_torch.train.schedules import Schedule
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
+# ``optax.adam(lr)`` (``train_vqvae.py:108``, ``train_vade.py:133``) and the
+# CLIs' ``chain(scale_by_adam(), scale_by_schedule(schedule), scale(-1.0))``.
+OPTAX_ADAM = ("scale_by_adam", "scale_by_learning_rate")
+OPTAX_SCHEDULED_ADAM = ("scale_by_adam", "scale_by_schedule", "scale")
+
 
 class Adam:
-    def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule, eps: float = EPS):
+    def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule, eps: float = EPS,
+                 chain: Sequence[str] = OPTAX_SCHEDULED_ADAM):
         self.params = dict(params)
         self.schedule = schedule
         self.eps = float(eps)
+        self.chain = tuple(chain)
         self.count = 0
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
@@ -60,8 +71,19 @@ class Adam:
         for k, p in self.params.items():
             p.sub_(lr * self._update(p, self._direction(k, grads[k], c1, c2)))
 
-    def state_dict(self) -> Dict[str, object]:
-        return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
+    @torch.no_grad()
+    def load_state(self, count: int, mu: Dict[str, torch.Tensor],
+                   nu: Dict[str, torch.Tensor]) -> None:
+        """Continues from a state of the same parameters: the count, and
+        the moments copied into this optimizer's own tensors."""
+        for name, moments in (("mu", mu), ("nu", nu)):
+            if set(moments) != set(self.params):
+                diff = sorted(set(moments) ^ set(self.params))
+                raise KeyError(f"{name} has other parameters than the optimizer: {diff[:5]}")
+        self.count = int(count)
+        for k in self.params:
+            self.mu[k].copy_(mu[k])
+            self.nu[k].copy_(nu[k])
 
 
 class ClippedAdam(Adam):
@@ -77,7 +99,9 @@ class ClippedAdam(Adam):
 
     def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule,
                  max_norm: Optional[float], weight_decay: float = 0.0, eps: float = EPS):
-        super().__init__(params, schedule, eps)
+        clip = () if max_norm is None else ("clip_by_global_norm",)
+        super().__init__(params, schedule, eps, chain=(
+            *clip, "scale_by_adam", "add_decayed_weights", "scale_by_schedule", "scale"))
         self.max_norm = None if max_norm is None else float(max_norm)
         self.weight_decay = float(weight_decay)
 

@@ -15,11 +15,16 @@ under the JAX package's name, ``posterior_matching_tpu.train.state.
 TrainState``, holding numpy trees only, so the JAX package's plain
 ``pickle.load`` reads it without this package or torch being importable.
 Pickle's own ``save_global`` imports the module a class names to check it,
-which would import JAX here; :class:`_JaxNamedPickler` writes that one
-reference without the lookup.
+which would import JAX here; :class:`_JaxNamedPickler` writes those
+references without the lookup: ``TrainState``'s, and each
+:class:`ForeignRecord` class's own (so an optax state the port writes,
+``convert.optax_opt_state``, is rebuilt as optax's by a plain
+``pickle.load``).
 """
 from __future__ import annotations
 
+import copyreg
+import functools
 import pickle
 from dataclasses import dataclass
 from typing import Any
@@ -41,10 +46,11 @@ _JAX_TRAIN_STATE = ("posterior_matching_tpu.train.state", "TrainState")
 
 class ForeignRecord:
     """Stand-in for an object of a JAX-side library (an optax state, say)
-    found in a checkpoint. Each foreign class path gets its own subclass
-    (``module`` and ``__name__`` say which); an instance keeps the
-    constructor arguments and pickled state as read. The port's inference
-    path never reads them."""
+    in a checkpoint. Each foreign class path has its own subclass
+    (:func:`foreign_class`; ``module`` and ``__name__`` say which); an
+    instance keeps the constructor arguments (and pickled state) as read,
+    and is written back under its class path with the same arguments, as
+    pickle writes a named tuple."""
 
     module = ""
 
@@ -55,6 +61,20 @@ class ForeignRecord:
 
     def __setstate__(self, state):
         self.state = state
+
+    def __reduce_ex__(self, protocol):
+        out = (copyreg.__newobj__, (type(self), *self.args))
+        return out + (self.state,) if hasattr(self, "state") else out
+
+    def __repr__(self):
+        return f"{type(self).__name__}{self.args!r}"
+
+
+@functools.lru_cache(maxsize=None)
+def foreign_class(module: str, name: str) -> type:
+    """The :class:`ForeignRecord` subclass standing for ``module.name``,
+    one per class path."""
+    return type(name, (ForeignRecord,), {"module": module})
 
 
 # Libraries whose classes a JAX-written checkpoint may name; importing any
@@ -71,19 +91,12 @@ _CLASS_MAP = {
 
 
 class _PortUnpickler(pickle.Unpickler):
-    def __init__(self, fp):
-        super().__init__(fp)
-        self._foreign = {}
-
     def find_class(self, module: str, name: str):
         mapped = _CLASS_MAP.get((module, name))
         if mapped is not None:
             return mapped
         if module.split(".")[0] in _FOREIGN_ROOTS:
-            key = (module, name)
-            if key not in self._foreign:
-                self._foreign[key] = type(name, (ForeignRecord,), {"module": module})
-            return self._foreign[key]
+            return foreign_class(module, name)
         return super().find_class(module, name)
 
 
@@ -99,13 +112,17 @@ def _to_numpy(tree):
 
 class _JaxNamedPickler(pickle._Pickler):
     """The pure-Python pickler, with :class:`TrainState` written under the
-    JAX package's module path. Only that class is renamed; every other
-    global (numpy's reconstructors) is written and checked as usual."""
+    JAX package's module path and each :class:`ForeignRecord` class under
+    its own. Every other global (numpy's reconstructors) is written and
+    checked as usual."""
 
     def save_global(self, obj, name=None):
-        if obj is not TrainState:
+        if obj is TrainState:
+            module, qualname = _JAX_TRAIN_STATE
+        elif isinstance(obj, type) and issubclass(obj, ForeignRecord) and obj.module:
+            module, qualname = obj.module, obj.__name__
+        else:
             return super().save_global(obj, name)
-        module, qualname = _JAX_TRAIN_STATE
         self.save(module)
         self.save(qualname)
         self.write(pickle.STACK_GLOBAL)

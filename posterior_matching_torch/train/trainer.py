@@ -23,11 +23,19 @@ update step), for a ``torch.nn.Module``:
   model's buffers, which the forward may have moved, all kept as they
   were: :247-251), and an EMA of the parameters is kept;
 - checkpoints are ``train_state.pkl`` files in the JAX package's layout
-  (:func:`posterior_matching_torch.train.state.save_train_state`), which
-  the JAX package evaluates;
+  (:func:`posterior_matching_torch.train.state.save_train_state`), the
+  optimizer's state in the layout its optax chain inits to
+  (``convert.optax_opt_state``), which the JAX package evaluates and
+  resumes;
 - :meth:`Trainer.fit` validates as the JAX trainer does (:612-661),
   calling each callback's ``on_validation_step`` on every validation
-  batch (:644-646).
+  batch (:644-646), and with ``resume_from`` continues a checkpoint of
+  either package (:474-559): parameters and buffers, the optimizer's count
+  and moments, the EMA parameters and the step restored, the batch stream
+  moved on to the step (``ArrayDataset.skip_stream``). The model needs no
+  batch to start (the JAX trainer's ``spec_batch`` init): its weights
+  come from the checkpoint. With the run's seed, a resumed run draws what
+  the straight run draws and equals it.
 
 A loss function returns the scalar loss, or ``(loss, metrics)`` with a
 dict of detached scalar metrics to log beside it. With ``pass_step`` it
@@ -40,23 +48,33 @@ the TPU.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from posterior_matching_torch.ops.gated_chain import _mix32_int
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.train.callbacks import Callback
-from posterior_matching_torch.train.optim import EPS, Adam, ClippedAdam, trainable_names
+from posterior_matching_torch.train.optim import (
+    EPS,
+    OPTAX_ADAM,
+    Adam,
+    ClippedAdam,
+    trainable_names,
+)
 from posterior_matching_torch.train.schedules import (
     exponential_decay,
     get_beta_schedule,
     linear_schedule,
 )
 from posterior_matching_torch.train.state import TrainState, save_train_state
+
+Tree = Dict[str, Any]
 
 Batch = Dict[str, torch.Tensor]
 # loss_fn(model, batch, seed, training[, step]) -> scalar loss, or (loss, metrics)
@@ -65,16 +83,35 @@ LossFn = Callable[..., Any]
 PrologueFn = Callable[[Batch, torch.Generator], Batch]
 # to_trees(state_dict) -> (params, state) in the JAX package's layout
 TreesFn = Callable[[Dict[str, torch.Tensor]], Tuple[Any, Any]]
+# from_trees(params, state) -> state dict (numpy), the inverse of to_trees
+FromTreesFn = Callable[[Tree, Tree], Dict[str, np.ndarray]]
 # optimizer(trainable parameters) -> an object with step(grads),
-# state_dict() and params, as optim.Adam
+# load_state(count, mu, nu), chain, count, mu, nu and params, as optim.Adam
 OptimizerFn = Callable[[Dict[str, torch.Tensor]], Adam]
 
 
 def derive_seed(seed: int, step: int, stream: int) -> int:
     """A 31-bit seed for ``stream`` (0: dropout, 1: prologue, 2: the
-    validation at this step; 3 within a validation: a callback's draws) of
-    a step."""
+    validation at this step; 3 within a validation: a callback's draws; 4:
+    the image callbacks' draws at the end of a validation) of a step."""
     return _mix32_int(_mix32_int(_mix32_int(seed) ^ stream) ^ step) & 0x7FFFFFFF
+
+
+@contextlib.contextmanager
+def deterministic_convolutions(enabled: bool = True):
+    """cuDNN's deterministic algorithms within, where ``enabled``. Its own
+    choice includes weight-gradient algorithms whose sums land in another
+    order from one call to the next, and Adam turns a last-bit difference in
+    a near-zero gradient into a step of the learning rate: a trainer built
+    with ``deterministic=True`` asks for them in its step, so that two runs
+    of one seed, and a resumed run and the straight one, are the same bit
+    for bit on the GPU."""
+    kept = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = kept or enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = kept
 
 
 def _loss_and_metrics(out) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -105,6 +142,8 @@ class Trainer:
         zero_unused_grads: bool = False,
         ema_rate: Optional[float] = None,
         to_trees: Optional[TreesFn] = None,
+        from_trees: Optional[FromTreesFn] = None,
+        deterministic: bool = False,
         device: Optional[str] = None,
     ):
         """``optimizer`` builds the optimizer from the trainable parameters;
@@ -116,7 +155,11 @@ class Trainer:
         parameter the loss does not use gets a zero gradient, as in JAX,
         where without it autograd raises; ``trainable`` as
         :func:`~posterior_matching_torch.train.optim.trainable_names` reads
-        it."""
+        it; ``to_trees`` and ``from_trees`` map the model's state dict to
+        the JAX package's ``(params, state)`` trees and back (the state
+        dict as its own tree without them); with ``deterministic`` the step
+        runs cuDNN's deterministic algorithms
+        (:func:`deterministic_convolutions`)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
@@ -129,7 +172,9 @@ class Trainer:
         self.skip_nonfinite = skip_nonfinite_updates
         self.zero_unused_grads = zero_unused_grads
         self.ema_rate = ema_rate
-        self.to_trees = to_trees
+        self.to_trees = to_trees or (lambda sd: (sd, {}))
+        self.from_trees = from_trees or (lambda params, state: params)
+        self.deterministic = deterministic
         self.step = 0
         self.optimizer: Optional[Adam] = None
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
@@ -165,11 +210,12 @@ class Trainer:
         if self.skip_nonfinite:
             kept = {n: b.detach().clone() for n, b in self.model.named_buffers()}
         self.model.train()
-        loss, aux = _loss_and_metrics(
-            self._loss(batch, derive_seed(self.seed, self.step, 0), True))
         names = list(self.optimizer.params)
         params = [self.optimizer.params[n] for n in names]
-        grads = torch.autograd.grad(loss, params, allow_unused=self.zero_unused_grads)
+        with deterministic_convolutions(self.deterministic):
+            loss, aux = _loss_and_metrics(
+                self._loss(batch, derive_seed(self.seed, self.step, 0), True))
+            grads = torch.autograd.grad(loss, params, allow_unused=self.zero_unused_grads)
         if self.zero_unused_grads:
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         grads = dict(zip(names, grads))
@@ -220,16 +266,8 @@ class Trainer:
         and a generator seeded from (run seed, step, 2), ``i`` and 3."""
         if self.optimizer is None:
             self.init()
-        params = dict(self.model.named_parameters())
-        kept = None
-        if self.ema_params is not None:
-            kept = {n: p.detach().clone() for n, p in params.items()}
-            for n, p in params.items():
-                p.copy_(self.ema_params[n])
-        try:
-            self.model.eval()
-            base, out = derive_seed(self.seed, self.step, 2), []
-            seen = []
+        base, out, seen = derive_seed(self.seed, self.step, 2), [], []
+        with self.eval_parameters():
             for i, batch in enumerate(batches):
                 batch = self._prologue(batch, 0, None)
                 if callbacks:
@@ -237,15 +275,31 @@ class Trainer:
                 batch = self._prologue(batch, derive_seed(base, i, 1), self.val_prologue_fn)
                 loss, aux = _loss_and_metrics(self._loss(batch, derive_seed(base, i, 0), False))
                 out.append({**aux, "loss": loss})
-        finally:
-            if kept is not None:
-                for n, p in params.items():
-                    p.copy_(kept[n])
         for i, batch in enumerate(seen):
             gen = torch.Generator(device=self.device).manual_seed(derive_seed(base, i, 3))
             for cb in callbacks:
                 cb.on_validation_step(self.model, gen, batch)
         return _aggregate(out)
+
+    @contextlib.contextmanager
+    def eval_parameters(self):
+        """The model in eval mode with the parameters that validation uses:
+        the EMA parameters where the trainer keeps them, its own restored
+        after."""
+        params = dict(self.model.named_parameters())
+        kept = None
+        with torch.no_grad():
+            if self.ema_params is not None:
+                kept = {n: p.detach().clone() for n, p in params.items()}
+                for n, p in params.items():
+                    p.copy_(self.ema_params[n])
+            try:
+                self.model.eval()
+                yield self.model
+            finally:
+                if kept is not None:
+                    for n, p in params.items():
+                        p.copy_(kept[n])
 
     def fit(
         self,
@@ -254,6 +308,7 @@ class Trainer:
         callbacks: Sequence[Any] = (),
         val_batches: Optional[Iterable[Batch]] = None,
         validation_freq: int = 1000,
+        resume_from: Optional[TrainState] = None,
     ) -> None:
         """Steps until ``self.step == steps``, cycling through ``batches``.
         After each step every plain callable of ``callbacks`` is called as
@@ -264,9 +319,15 @@ class Trainer:
         callbacks' ``on_validation_step``), each
         :class:`~posterior_matching_torch.train.callbacks.Callback`'s
         ``on_validation_end(train_state, step, logs)``, then prints one line
-        ``[step s/S] k=v ...``."""
+        ``[step s/S] k=v ...`` of the scalar logs (an image callback adds
+        arrays). With ``resume_from`` (a ``TrainState`` of either package)
+        the trainer first takes its state (:meth:`restore`) and ``batches``
+        (an ``ArrayDataset``) moves on to its step (``skip_stream``)."""
         if self.optimizer is None:
             self.init()
+        if resume_from is not None:
+            self.restore(resume_from)
+            batches.skip_stream(self.step)
 
         def forever():
             while True:
@@ -298,27 +359,53 @@ class Trainer:
                 state = self.train_state()
                 for cb in on_validation:
                     cb.on_validation_end(state, self.step, logs)
-            print(f"[step {self.step}/{steps}] "
-                  + " ".join(f"{k}={v:.5g}" for k, v in sorted(logs.items())), flush=True)
+            print(f"[step {self.step}/{steps}] " + " ".join(
+                f"{k}={v:.5g}" for k, v in sorted(logs.items()) if np.ndim(v) == 0), flush=True)
             pending, since, t_start = [], 0, time.time()
 
     def train_state(self) -> TrainState:
-        """The state as the JAX package's ``TrainState`` holds it."""
-        trees = self.to_trees or (lambda sd: (sd, {}))
-        params, state = trees(self.model.state_dict())
+        """The state as the JAX package's ``TrainState`` holds it, the
+        optimizer's in the layout of its optax chain, wrapped as the JAX
+        trainer wraps a chain under a trainable predicate."""
+        from posterior_matching_torch.convert import optax_opt_state
+
+        sd = self.model.state_dict()
+        params, state = self.to_trees(sd)
+        like = lambda tensors: self.to_trees({**sd, **tensors})[0]
         opt_state = None
         if self.optimizer is not None:
-            opt = self.optimizer.state_dict()
-            opt_state = {"count": opt["count"],
-                         "mu": {k: v.detach().cpu().numpy() for k, v in opt["mu"].items()},
-                         "nu": {k: v.detach().cpu().numpy() for k, v in opt["nu"].items()}}
-        ema = None
-        if self.ema_params is not None:
-            sd = dict(self.model.state_dict())
-            sd.update(self.ema_params)
-            ema = trees(sd)[0]
+            opt = self.optimizer
+            opt_state = optax_opt_state(opt.chain, opt.count, like(opt.mu), like(opt.nu),
+                                        self.trainable)
+        ema = None if self.ema_params is None else like(self.ema_params)
         return TrainState(params=params, state=state, opt_state=opt_state,
                           ema_params=ema, step=self.step)
+
+    def restore(self, ts: TrainState) -> None:
+        """Takes the state of a checkpoint of either package, in this
+        order: the parameters and buffers (the VQ-VAE's EMA codebook
+        among them), the optimizer's count and moments, the EMA
+        parameters, the step. Raises, naming what is wrong, where the
+        checkpoint does not fit this trainer: a missing or extra tensor, an
+        optimizer state of another layout, no EMA parameters where the
+        trainer keeps them."""
+        from posterior_matching_torch.convert import optax_moments, to_torch
+
+        if self.optimizer is None:
+            self.init()
+        self.model.load_state_dict(to_torch(self.from_trees(ts.params, ts.state)))
+        count, mu, nu = optax_moments(ts.opt_state, ts.params, self.trainable)
+        names = list(self.optimizer.params)
+        moments = [self.from_trees(tree, ts.state) for tree in (mu, nu)]
+        self.optimizer.load_state(count, *(to_torch({k: m[k] for k in names}) for m in moments))
+        if self.ema_params is not None:
+            if ts.ema_params is None:
+                raise ValueError("the checkpoint has no ema_params, and this trainer keeps an EMA")
+            ema = to_torch(self.from_trees(ts.ema_params, ts.state))
+            with torch.no_grad():
+                for n, e in self.ema_params.items():
+                    e.copy_(ema[n])
+        self.step = int(ts.step)
 
     def save_checkpoint(self, path: str) -> None:
         save_train_state(path, self.train_state())
@@ -334,8 +421,10 @@ def pm_vqvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     """The stage-2 trainer of ``train_pm_vqvae.py:144-193``: Adam under the
     exponential decay, the VQ-VAE frozen, masks added on the device by
     ``mask_fn`` (or passed in each batch when None), checkpoints in the JAX
-    package's layout."""
-    from posterior_matching_torch.convert import pm_vqvae_trees
+    package's layout; cuDNN's deterministic algorithms, which cost this
+    step nothing measurable on an H100 (``tools/step_timing.py``), so that
+    a resumed run equals the straight one bit for bit."""
+    from posterior_matching_torch.convert import pm_vqvae_state_dict, pm_vqvae_trees
     from posterior_matching_torch.masking import add_mask
 
     schedule = exponential_decay(**train_config["lr_schedule"])
@@ -347,7 +436,7 @@ def pm_vqvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
         optimizer=lambda params: Adam(params, schedule),
         trainable=lambda module, name: not module.startswith("vqvae"),
         prologue_fn=prologue, seed=seed, to_trees=pm_vqvae_trees,
-        device=device, **kwargs,
+        from_trees=pm_vqvae_state_dict, deterministic=True, device=device, **kwargs,
     )
 
 
@@ -367,12 +456,16 @@ def vqvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     """The stage-1 trainer of ``train_vqvae.py:84-112``: plain Adam at the
     constant ``learning_rate``, the codebook's EMA state advanced by the
     training forward and kept by validation, checkpoints in the JAX
-    package's layout (``params`` and ``{"vq_ema": ...}``)."""
-    from posterior_matching_torch.convert import vqvae_trees
+    package's layout (``params`` and ``{"vq_ema": ...}``); cuDNN's
+    deterministic algorithms, as in :func:`pm_vqvae_trainer`."""
+    from posterior_matching_torch.convert import vqvae_state_dict, vqvae_trees
 
     lr = train_config["learning_rate"]
-    return Trainer(model, vqvae_metrics, optimizer=lambda params: Adam(params, lambda count: lr),
-                   seed=seed, to_trees=vqvae_trees, device=device, **kwargs)
+    return Trainer(model, vqvae_metrics,
+                   optimizer=lambda params: Adam(params, lambda count: lr, chain=OPTAX_ADAM),
+                   seed=seed, to_trees=vqvae_trees,
+                   from_trees=lambda params, state: vqvae_state_dict(params, state["vq_ema"]),
+                   deterministic=True, device=device, **kwargs)
 
 
 def pm_vdvae_metrics(model, batch: Batch, noise, training: bool = True):
@@ -403,8 +496,11 @@ def pm_vdvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     skipped when the loss or a raw gradient is not finite, an EMA of the
     parameters, masks added on the device by ``mask_fn`` (or passed in each
     batch when None), the EMA parameters for validation, checkpoints in the
-    JAX package's layout."""
-    from posterior_matching_torch.convert import pm_vdvae_trees
+    JAX package's layout; cuDNN's own choice of algorithms, as the
+    deterministic ones cost the fused step 5-8% on an H100
+    (``tools/step_timing.py``): on the GPU a resumed run equals the
+    straight one up to the order of cuDNN's sums."""
+    from posterior_matching_torch.convert import pm_vdvae_state_dict, pm_vdvae_trees
     from posterior_matching_torch.masking import add_mask
 
     cfg = train_config
@@ -420,7 +516,8 @@ def pm_vdvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     return Trainer(
         model, pm_vdvae_metrics, optimizer=optimizer, prologue_fn=prologue, seed=seed,
         skip_nonfinite_updates=True, ema_rate=cfg.get("ema_rate", 0.999),
-        to_trees=lambda sd: (pm_vdvae_trees(sd), {}), device=device, **kwargs,
+        to_trees=lambda sd: (pm_vdvae_trees(sd), {}),
+        from_trees=lambda params, state: pm_vdvae_state_dict(params), device=device, **kwargs,
     )
 
 
@@ -494,7 +591,7 @@ def pm_vae_trainer(model, config: Dict[str, Any], *, seed: int = 0, mask_fn=None
     options may set ``eps``), the loss of :func:`pm_vae_loss_fn` at the step, masks from ``mask_fn`` and the
     training noise added on the device, checkpoints in the JAX package's
     layout."""
-    from posterior_matching_torch.convert import pm_vae_trees
+    from posterior_matching_torch.convert import pm_vae_state_dict, pm_vae_trees
 
     eps = adam_eps(config)
     schedule = exponential_decay(**config["lr_schedule"])
@@ -506,7 +603,8 @@ def pm_vae_trainer(model, config: Dict[str, Any], *, seed: int = 0, mask_fn=None
         prologue_fn=pm_vae_prologue(data, mask_fn, True),
         val_prologue_fn=pm_vae_prologue(data, mask_fn, False) or (lambda batch, gen: batch),
         pass_step=True,
-        seed=seed, to_trees=lambda sd: (pm_vae_trees(sd), {}), device=device, **kwargs,
+        seed=seed, to_trees=lambda sd: (pm_vae_trees(sd), {}),
+        from_trees=lambda params, state: pm_vae_state_dict(params), device=device, **kwargs,
     )
 
 
@@ -551,13 +649,18 @@ def vade_pretrain_trainer(model, config: Dict[str, Any], *, seed: int = 0,
     plain Adam at a constant rate with optax's default ``eps``, nothing
     frozen: the prior's ``logits``, ``mu`` and ``log_scale``, which the
     autoencoder's loss does not use, get zero gradients and stay put."""
-    from posterior_matching_torch.convert import vade_trees
-
     lr = config["pretrain_lr"]
     return Trainer(model, vade_pretrain_loss_fn(data_key),
-                   optimizer=lambda params: Adam(params, lambda count: lr), seed=seed,
-                   zero_unused_grads=True,
-                   to_trees=lambda sd: (vade_trees(sd), {}), device=device, **kwargs)
+                   optimizer=lambda params: Adam(params, lambda count: lr, chain=OPTAX_ADAM),
+                   seed=seed, zero_unused_grads=True, **_vade_trees(), device=device, **kwargs)
+
+
+def _vade_trees() -> Dict[str, Any]:
+    """``to_trees`` and ``from_trees`` of VaDE and PM-VaDE."""
+    from posterior_matching_torch.convert import vade_state_dict, vade_trees
+
+    return {"to_trees": lambda sd: (vade_trees(sd), {}),
+            "from_trees": lambda params, state: vade_state_dict(params)}
 
 
 def _decayed_adam(config: Dict[str, Any]) -> OptimizerFn:
@@ -574,10 +677,8 @@ def vade_trainer(model, config: Dict[str, Any], *, seed: int = 0, data_key: str 
     """Phase 3 of ``train_vade.py`` (:176-207): ``-mean(elbo)``, Adam with
     the configuration's ``adam`` options under the exponential decay,
     nothing frozen, checkpoints in the JAX package's layout."""
-    from posterior_matching_torch.convert import vade_trees
-
     return Trainer(model, vade_loss_fn(data_key), optimizer=_decayed_adam(config), seed=seed,
-                   to_trees=lambda sd: (vade_trees(sd), {}), device=device, **kwargs)
+                   **_vade_trees(), device=device, **kwargs)
 
 
 def pm_vade_trainer(model, config: Dict[str, Any], *, seed: int = 0, mask_fn=None,
@@ -588,15 +689,13 @@ def pm_vade_trainer(model, config: Dict[str, Any], *, seed: int = 0, mask_fn=Non
     ``logits``, ``mu`` and ``log_scale``, at the top of the tree, are
     frozen), Adam under the exponential decay, masks from ``mask_fn`` (the
     CLI's ``UniformMaskGenerator``) drawn on the device."""
-    from posterior_matching_torch.convert import vade_trees
-
     data = config.get("data", {})
     return Trainer(
         model, pm_vade_loss_fn(data_key), optimizer=_decayed_adam(config),
         trainable=lambda module, name: "partial_" in module,
         prologue_fn=pm_vae_prologue(data, mask_fn, True),
         val_prologue_fn=pm_vae_prologue(data, mask_fn, False),
-        seed=seed, to_trees=lambda sd: (vade_trees(sd), {}), device=device, **kwargs,
+        seed=seed, **_vade_trees(), device=device, **kwargs,
     )
 
 
@@ -607,7 +706,7 @@ def lookahead_trainer(model, config: Dict[str, Any], *, seed: int = 0, mask_fn=N
     log-likelihood, only the modules whose path holds ``lookahead``
     trainable (the PM-VAE under ``pm_vae`` frozen), Adam under the
     exponential decay, masks from ``mask_fn`` drawn on the device."""
-    from posterior_matching_torch.convert import lookahead_trees
+    from posterior_matching_torch.convert import lookahead_state_dict, lookahead_trees
 
     data = config.get("data", {})
     return Trainer(
@@ -615,5 +714,6 @@ def lookahead_trainer(model, config: Dict[str, Any], *, seed: int = 0, mask_fn=N
         trainable=lambda module, name: "lookahead" in module,
         prologue_fn=pm_vae_prologue(data, mask_fn, True),
         val_prologue_fn=pm_vae_prologue(data, mask_fn, False),
-        seed=seed, to_trees=lambda sd: (lookahead_trees(sd), {}), device=device, **kwargs,
+        seed=seed, to_trees=lambda sd: (lookahead_trees(sd), {}),
+        from_trees=lambda params, state: lookahead_state_dict(params), device=device, **kwargs,
     )

@@ -21,12 +21,12 @@ Counterpart of ``train_lookahead_posterior.py``. Run it as::
   decay.
 - The run directory ``runs/lookahead-<dataset>-<timestamp>/`` holds
   ``lookahead_config.json``, ``pm_vae_config.json``, ``train_meta.json``
-  and ``train_state.pkl`` (written at every validation), in the JAX
-  package's layout, which ``eval_greedy_acquisition`` of either package
-  reads.
+  ``train_state.pkl`` (written at every validation), in the JAX package's
+  layout, which ``eval_greedy_acquisition`` of either package reads, and
+  ``tb/``, the TensorBoard events of each validation's scalar logs.
+- ``--resume_dir`` continues a run of either package into a fresh run
+  directory.
 - It runs on the GPU unless ``--device cpu``, and raises without one.
-
-Not ported yet: ``--resume_dir`` (refused) and the TensorBoard logs.
 """
 from __future__ import annotations
 
@@ -43,8 +43,12 @@ from posterior_matching_torch.config import LOOKAHEAD_CONFIGS
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.masking import get_mask_generator
 from posterior_matching_torch.runtime import resolve_device
-from posterior_matching_torch.train.callbacks import CheckpointCallback, LearningRateLoggerCallback
-from posterior_matching_torch.train.resume import save_train_meta
+from posterior_matching_torch.train.callbacks import (
+    CheckpointCallback,
+    LearningRateLoggerCallback,
+    TensorBoardCallback,
+)
+from posterior_matching_torch.train.resume import resume_state_from_dir, save_train_meta
 from posterior_matching_torch.train.state import load_train_state
 from posterior_matching_torch.train.trainer import lookahead_trainer
 from posterior_matching_torch.utils import make_run_dir
@@ -54,9 +58,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args, config = parse_config(parser, argv, LOOKAHEAD_CONFIGS)
     device = resolve_device(args.device)
+    resume = resume_state_from_dir(args.resume_dir)
 
     data = config["data"]
-    train_dataset, val_dataset = load_datasets(data)
+    train_dataset, val_dataset = load_datasets(data, seed=config["seed"])
     first = next(iter(val_dataset))
     data_key = "image" if "image" in first else "features"
     with open(os.path.join(config["pm_vae_dir"], "model_config.json")) as fp:
@@ -86,9 +91,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         json.dump(pm_vae_config, fp)
 
     callbacks = [CheckpointCallback(os.path.join(run_dir, "train_state.pkl")),
-                 LearningRateLoggerCallback(trainer.optimizer.schedule)]
+                 LearningRateLoggerCallback(trainer.optimizer.schedule),
+                 TensorBoardCallback(os.path.join(run_dir, "tb"))]
     trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
-                validation_freq=config["validation_freq"])
+                validation_freq=config["validation_freq"], resume_from=resume)
     return 0
 
 

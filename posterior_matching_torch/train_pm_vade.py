@@ -19,11 +19,12 @@ Counterpart of ``train_pm_vade.py``. Run it as::
   reference's does (``train_pm_vade.py:52``), drawn on the device; Adam
   under the exponential decay.
 - The run directory ``runs/pm-vade-<dataset>-<timestamp>/`` holds
-  ``model_config.json``, ``train_meta.json`` and ``train_state.pkl``
-  (written at every validation), in the JAX package's layout.
+  ``model_config.json``, ``train_meta.json``, ``train_state.pkl`` (written
+  at every validation), in the JAX package's layout, and ``tb/``, the
+  TensorBoard events of each validation's scalar logs.
+- ``--resume_dir`` continues a run of either package into a fresh run
+  directory.
 - It runs on the GPU unless ``--device cpu``, and raises without one.
-
-Not ported yet: ``--resume_dir`` (refused) and the TensorBoard logs.
 """
 from __future__ import annotations
 
@@ -39,8 +40,12 @@ from posterior_matching_torch.config import PM_VADE_CONFIGS
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.masking import get_mask_generator
 from posterior_matching_torch.runtime import resolve_device
-from posterior_matching_torch.train.callbacks import CheckpointCallback, LearningRateLoggerCallback
-from posterior_matching_torch.train.resume import save_train_meta
+from posterior_matching_torch.train.callbacks import (
+    CheckpointCallback,
+    LearningRateLoggerCallback,
+    TensorBoardCallback,
+)
+from posterior_matching_torch.train.resume import resume_state_from_dir, save_train_meta
 from posterior_matching_torch.train.state import load_train_state
 from posterior_matching_torch.train.trainer import pm_vade_trainer
 from posterior_matching_torch.utils import make_run_dir
@@ -50,10 +55,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args, config = parse_config(parser, argv, PM_VADE_CONFIGS)
     device = resolve_device(args.device)
+    resume = resume_state_from_dir(args.resume_dir)
 
     config["data"]["mask_generator"] = "UniformMaskGenerator"
     data = config["data"]
-    train_dataset, val_dataset = load_datasets(data)
+    train_dataset, val_dataset = load_datasets(data, seed=config["seed"])
     data_key = "image" if "image" in next(iter(val_dataset)) else "features"
     tree = convert.init_vade_tree(config["model"], seed=config["seed"], partial=True)
     model = convert.vade_from_jax(tree, config["model"], device=device)
@@ -68,13 +74,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print("Using run directory:", run_dir, flush=True)
     save_train_meta(run_dir, config)
     callbacks = [CheckpointCallback(os.path.join(run_dir, "train_state.pkl")),
-                 LearningRateLoggerCallback(trainer.optimizer.schedule)]
+                 LearningRateLoggerCallback(trainer.optimizer.schedule),
+                 TensorBoardCallback(os.path.join(run_dir, "tb"))]
     with open(os.path.join(run_dir, "model_config.json"), "w") as fp:
         json.dump(config["model"], fp)
 
     print("Starting main training...", flush=True)
     trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
-                validation_freq=config["validation_freq"])
+                validation_freq=config["validation_freq"], resume_from=resume)
     return 0
 
 

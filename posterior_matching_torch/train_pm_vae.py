@@ -20,12 +20,13 @@ Counterpart of ``train_pm_vae.py``. Run it as::
 - Weights start from the JAX package's initialisation, drawn from the
   seed. The run directory ``runs/pm-vae-<dataset>-<timestamp>/`` holds
   ``model_config.json`` (the configuration's ``model`` block),
-  ``train_meta.json`` and ``train_state.pkl``, written at every validation
+  ``train_meta.json``, ``train_state.pkl``, written at every validation
   and, with ``save_final_state``, at the end, in the JAX package's layout,
-  which the JAX CLIs evaluate.
+  which the JAX CLIs evaluate and resume, and ``tb/``, the TensorBoard
+  events of each validation's scalar logs.
+- ``--resume_dir`` continues a run of either package into a fresh run
+  directory.
 - It runs on the GPU unless ``--device cpu``, and raises without one.
-
-Not ported yet: ``--resume_dir`` (refused) and the TensorBoard logs.
 """
 from __future__ import annotations
 
@@ -41,8 +42,12 @@ from posterior_matching_torch.config import PM_VAE_CONFIGS
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.masking import get_mask_generator
 from posterior_matching_torch.runtime import resolve_device
-from posterior_matching_torch.train.callbacks import CheckpointCallback, LearningRateLoggerCallback
-from posterior_matching_torch.train.resume import save_train_meta
+from posterior_matching_torch.train.callbacks import (
+    CheckpointCallback,
+    LearningRateLoggerCallback,
+    TensorBoardCallback,
+)
+from posterior_matching_torch.train.resume import resume_state_from_dir, save_train_meta
 from posterior_matching_torch.train.trainer import pm_vae_trainer
 from posterior_matching_torch.utils import make_run_dir
 
@@ -51,9 +56,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args, config = parse_config(parser, argv, PM_VAE_CONFIGS)
     device = resolve_device(args.device)
+    resume = resume_state_from_dir(args.resume_dir)
 
     data = dict(config["data"])
-    train_dataset, val_dataset = load_datasets(data)
+    train_dataset, val_dataset = load_datasets(data, seed=config["seed"])
     data_key = "image" if "image" in next(iter(val_dataset)) else "features"
     tree = convert.init_pm_vae_tree(config["model"], seed=config["seed"])
     model = convert.pm_vae_from_jax(tree, config["model"], device=device)
@@ -72,9 +78,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         json.dump(config["model"], fp)
 
     ckpt = os.path.join(run_dir, "train_state.pkl")
-    callbacks = [CheckpointCallback(ckpt), LearningRateLoggerCallback(trainer.optimizer.schedule)]
+    callbacks = [CheckpointCallback(ckpt), LearningRateLoggerCallback(trainer.optimizer.schedule),
+                 TensorBoardCallback(os.path.join(run_dir, "tb"))]
     trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
-                validation_freq=config["validation_freq"])
+                validation_freq=config["validation_freq"], resume_from=resume)
     if config.get("save_final_state", False):
         trainer.save_checkpoint(ckpt)
     return 0

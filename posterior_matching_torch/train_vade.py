@@ -29,9 +29,12 @@ Counterpart of ``train_vade.py``. Run it as::
   ``pretrain_state.pkl``, ``model_config.json``, ``train_meta.json`` and
   ``train_state.pkl`` (written at every validation), in the JAX package's
   layout.
+- ``tb/`` holds the TensorBoard events of each phase-3 validation's
+  scalar logs.
+- ``--resume_dir`` continues phase 3 of a run of either package into a
+  fresh run directory, skipping phases 1 and 2 (``train_vade.py:
+  114-128``), whose results the checkpoint holds.
 - It runs on the GPU unless ``--device cpu``, and raises without one.
-
-Not ported yet: ``--resume_dir`` (refused) and the TensorBoard logs.
 """
 from __future__ import annotations
 
@@ -54,8 +57,12 @@ from posterior_matching_torch.eval.clustering import (
 )
 from posterior_matching_torch.eval.gmm import GaussianMixture
 from posterior_matching_torch.runtime import resolve_device
-from posterior_matching_torch.train.callbacks import CheckpointCallback, LearningRateLoggerCallback
-from posterior_matching_torch.train.resume import save_train_meta
+from posterior_matching_torch.train.callbacks import (
+    CheckpointCallback,
+    LearningRateLoggerCallback,
+    TensorBoardCallback,
+)
+from posterior_matching_torch.train.resume import resume_state_from_dir, save_train_meta
 from posterior_matching_torch.train.trainer import vade_pretrain_trainer, vade_trainer
 from posterior_matching_torch.utils import batch_process, make_run_dir
 
@@ -73,10 +80,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args, config = parse_config(parser, argv, VADE_CONFIGS)
     device = resolve_device(args.device)
+    resume = resume_state_from_dir(args.resume_dir)
     seed = config["seed"]
 
     data = dict(config["data"])
-    train_dataset, val_dataset = load_datasets(data)
+    train_dataset, val_dataset = load_datasets(data, seed=seed)
     data_key = "image" if "image" in next(iter(val_dataset)) else "features"
     model = convert.vade_from_jax(convert.init_vade_tree(config["model"], seed=seed),
                                   config["model"], device=device)
@@ -84,8 +92,34 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     run_dir = make_run_dir(prefix=f"vade-{data['dataset']}")
     print("Using run directory:", run_dir, flush=True)
     save_train_meta(run_dir, config)
-    pretrain_dataset, _ = load_datasets(data)
-    latents_dataset, _ = load_datasets(data)
+    graft = None if resume is not None else pretrain_and_fit(
+        model, config, data_key, val_dataset, run_dir, device)
+
+    # -- phase 3: ELBO training -------------------------------------------------
+    with open(os.path.join(run_dir, "model_config.json"), "w") as fp:
+        json.dump(config["model"], fp)
+    trainer = vade_trainer(model, config, seed=seed, data_key=data_key, device=device)
+    trainer.init(graft)
+    samples = config["cluster_pred_num_samples"]
+    pred_fn = lambda m, gen, batch: m.predict_cluster(batch[data_key], gen, samples).argmax(-1)
+    callbacks = [ClusteringAccuracyCallback(pred_fn),
+                 CheckpointCallback(os.path.join(run_dir, "train_state.pkl")),
+                 LearningRateLoggerCallback(trainer.optimizer.schedule),
+                 TensorBoardCallback(os.path.join(run_dir, "tb"))]
+    print("Starting main training...", flush=True)
+    trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
+                validation_freq=config["validation_freq"], resume_from=resume)
+    return 0
+
+
+def pretrain_and_fit(model, config, data_key: str, val_dataset, run_dir: str, device):
+    """Phases 1 and 2: pretrains ``model`` (``pretrain_state.pkl``), fits the
+    mixture to its latents and returns the prior's grafted parameters.
+    They read their own streams of the training split, so phase 3's does
+    not depend on them (``train_vade.py:121-129``)."""
+    seed, data = config["seed"], dict(config["data"])
+    pretrain_dataset, _ = load_datasets(data, seed=seed)
+    latents_dataset, _ = load_datasets(data, seed=seed)
 
     # -- phase 1: pretraining -------------------------------------------------
     pretrain = vade_pretrain_trainer(model, config, seed=seed, data_key=data_key,
@@ -107,21 +141,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     targets = np.concatenate([b["label"] for b in val_dataset], axis=0)
     print("GMM Accuracy:", round(clustering_accuracy(targets, gmm.predict(val_latents)), 4),
           flush=True)
-
-    # -- phase 3: ELBO training -------------------------------------------------
-    with open(os.path.join(run_dir, "model_config.json"), "w") as fp:
-        json.dump(config["model"], fp)
-    trainer = vade_trainer(model, config, seed=seed, data_key=data_key, device=device)
-    trainer.init(convert.to_torch(gmm_graft(gmm)))
-    samples = config["cluster_pred_num_samples"]
-    pred_fn = lambda m, gen, batch: m.predict_cluster(batch[data_key], gen, samples).argmax(-1)
-    callbacks = [ClusteringAccuracyCallback(pred_fn),
-                 CheckpointCallback(os.path.join(run_dir, "train_state.pkl")),
-                 LearningRateLoggerCallback(trainer.optimizer.schedule)]
-    print("Starting main training...", flush=True)
-    trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
-                validation_freq=config["validation_freq"])
-    return 0
+    return convert.to_torch(gmm_graft(gmm))
 
 
 if __name__ == "__main__":

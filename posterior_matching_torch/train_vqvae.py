@@ -17,14 +17,16 @@ Counterpart of ``train_vqvae.py:69-134``. Run it as::
   at the last. Images are scaled to [0, 1].
 - Weights start from the JAX package's initialisation, drawn from the
   seed. The run directory ``runs/vqvae-<dataset>-<timestamp>/`` holds
-  ``model_config.json`` (the config's ``model`` block), ``train_meta.json``
-  and ``train_state.pkl`` (``params`` and ``state = {"vq_ema": ...}`` in the
-  JAX package's layout), written at every validation; either package's
-  ``train_pm_vqvae`` reads it as its ``vqvae_dir``.
+  ``model_config.json`` (the config's ``model`` block), ``train_meta.json``,
+  ``train_state.pkl`` (``params`` and ``state = {"vq_ema": ...}`` in the
+  JAX package's layout), written at every validation, and ``tb/``, the
+  TensorBoard events of each validation's logs with ``reconstructions``:
+  ``[x | reconstruction]`` strips of 3 validation images
+  (:class:`ReconstructionCallback`). Either package's ``train_pm_vqvae``
+  reads it as its ``vqvae_dir``.
+- ``--resume_dir`` continues a run of either package, its EMA codebook
+  included, into a fresh run directory.
 - It runs on the GPU unless ``--device cpu``, and raises without one.
-
-Not ported yet: ``--resume_dir`` (refused), the TensorBoard logs and the
-reconstruction images they show (``ROADMAP.md`` A6).
 """
 from __future__ import annotations
 
@@ -34,22 +36,45 @@ import os
 import sys
 from typing import Optional, Sequence
 
+import torch
+
 from posterior_matching_torch import convert
 from posterior_matching_torch.cli import parse_config
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.runtime import resolve_device
-from posterior_matching_torch.train.callbacks import CheckpointCallback
-from posterior_matching_torch.train.resume import save_train_meta
-from posterior_matching_torch.train.trainer import vqvae_trainer
+from posterior_matching_torch.train.callbacks import (
+    Callback,
+    CheckpointCallback,
+    TensorBoardCallback,
+)
+from posterior_matching_torch.train.resume import resume_state_from_dir, save_train_meta
+from posterior_matching_torch.train.trainer import Trainer, vqvae_trainer
 from posterior_matching_torch.utils import make_run_dir
+
+
+class ReconstructionCallback(Callback):
+    """Logs ``reconstructions``, ``[x | reconstruction]`` strips of the
+    first ``num_examples`` images of ``dataset``'s first batch, at each
+    validation (``train_vqvae.py:43-67``)."""
+
+    def __init__(self, trainer: Trainer, dataset, num_examples: int = 3):
+        self._trainer = trainer
+        self._images = torch.as_tensor(next(iter(dataset))["image"][:num_examples],
+                                       device=trainer.device)
+
+    def on_validation_end(self, train_state, step, logs):
+        with self._trainer.eval_parameters() as model:
+            recon = model(self._images, is_training=False)["reconstruction"].clamp(0.0, 1.0)
+        logs["reconstructions"] = torch.cat([self._images, recon], 2).cpu().numpy()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args, config = parse_config(parser, argv, ("vqvae_mnist", "vqvae_celeb_a", "vqvae_digits16"))
     device = resolve_device(args.device)
+    resume = resume_state_from_dir(args.resume_dir)
 
-    train_dataset, val_dataset = load_datasets(config["data"])
+    train_dataset, val_dataset = load_datasets(config["data"], seed=config["seed"])
     params, state = convert.init_vqvae_tree(config["model"], seed=config["seed"])
     model = convert.vqvae_from_jax(params, state, config["model"], device=device)
     trainer = vqvae_trainer(model, config, seed=config["seed"], device=device)
@@ -61,9 +86,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     with open(os.path.join(run_dir, "model_config.json"), "w") as fp:
         json.dump(config["model"], fp)
 
-    trainer.fit(train_dataset, config["steps"],
-                [CheckpointCallback(os.path.join(run_dir, "train_state.pkl"))],
-                val_batches=val_dataset, validation_freq=config["validation_freq"])
+    callbacks = [CheckpointCallback(os.path.join(run_dir, "train_state.pkl")),
+                 ReconstructionCallback(trainer, val_dataset),
+                 TensorBoardCallback(os.path.join(run_dir, "tb"))]
+    trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
+                validation_freq=config["validation_freq"], resume_from=resume)
     return 0
 
 

@@ -100,7 +100,7 @@ def _run_dir(work, dataset):
 
 
 def _check_run(run_dir, lines, config, overrides, validations):
-    assert sorted(os.listdir(run_dir)) == ["model_config.json", "train_meta.json",
+    assert sorted(os.listdir(run_dir)) == ["model_config.json", "tb", "train_meta.json",
                                            "train_state.pkl"]
     with open(os.path.join(run_dir, "model_config.json")) as fp:
         written = json.load(fp)
@@ -151,8 +151,23 @@ def test_mnist_training_cli(data_dir, tmp_path):
     _check_run(_run_dir(tmp_path, "mnist"), lines, "pm_vae_mnist", overrides, validations=2)
 
 
+def test_training_cli_resumes_a_run(gas_run, data_dir, tmp_path):
+    """``--resume_dir`` (refused before the optimizer state was written in
+    optax's layout): the gas run (4 steps) continued to step 6 in a fresh
+    run directory, its seed restored; one validation, at 6; the JAX
+    package reads the checkpoint, its optax counts at 6."""
+    run_dir, _ = gas_run
+    lines = _run(train_pm_vae.main, ["--config", "pm_vae_gas", "--device", "cpu",
+                                     "--config.steps=6", "--config.validation_freq=2",
+                                     "--resume_dir", run_dir, *GAS_FLAGS], data_dir, tmp_path)
+    assert any(ln.startswith("Restored training seed 0 from ") for ln in lines)
+    assert [ln.split()[1] for ln in lines if ln.startswith("[step ")] == ["6/6]"]
+    ts = jax_load(os.path.join(_run_dir(tmp_path, "gas"), "train_state.pkl"))
+    assert int(ts.step) == 6
+    assert [int(s.count) for s in ts.opt_state if "count" in s._fields] == [6, 6]
+
+
 @pytest.mark.parametrize("main,argv", [
-    (train_pm_vae.main, ["--config", "pm_vae_gas", "--resume_dir", "runs/x"]),
     (train_pm_vae.main, ["--config", "pm_vae_gas", "--config.model.no_such_entry=1"]),
 ])
 def test_training_cli_refuses(main, argv):

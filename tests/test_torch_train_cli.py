@@ -47,6 +47,17 @@ TINY = ["--config.model.width=16", "--config.model.latent_dim=4",
         "--config.model.decoder_blocks=1x2,7m1,7x2,28m7,28x2"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The CLI's toy runs on one intra-op thread: the suite's parallel
+    workers, each with torch's default pool of one thread a core,
+    oversubscribe the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def data_dir(tmp_path, monkeypatch):
     """Small MNIST files cut from the synthetic stand-in: 48 training and
@@ -131,7 +142,7 @@ def test_cli_trains_and_jax_reads_its_checkpoint(data_dir, tmp_path, monkeypatch
     lines = capsys.readouterr().out.splitlines()
     (run_dir,) = [ln.split(": ")[1] for ln in lines if ln.startswith("Using run directory")]
     assert run_dir.startswith(os.path.join("runs", "pm-vdvae-mnist-"))
-    assert sorted(os.listdir(run_dir)) == ["model_config.json", "train_meta.json",
+    assert sorted(os.listdir(run_dir)) == ["model_config.json", "tb", "train_meta.json",
                                            "train_state.pkl"]
     steps = [ln for ln in lines if ln.startswith("[step ")]
     assert len(steps) == 1 and steps[0].startswith("[step 2/2] ")
@@ -171,8 +182,38 @@ def test_cli_trains_and_jax_reads_its_checkpoint(data_dir, tmp_path, monkeypatch
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-4)
 
 
-@pytest.mark.parametrize("argv", [["--resume_dir", "runs/x"], ["--config.model.nope=1"],
-                                  ["--config.steps"], ["--steps", "3"]])
+def test_cli_resumes_a_run(data_dir, tmp_path, monkeypatch, capsys):
+    """``--resume_dir`` (refused before the optimizer state was written in
+    optax's layout): a 1-step run continued to step 2 in a fresh run
+    directory, its seed restored from ``train_meta.json``, its EMA carried
+    on, its one step logged at 2/2."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--config", "pm_vdvae_mnist", "--device", "cpu", "--config.validation_freq", "1",
+            "--config.model.fused_chain=True", *TINY]
+    assert train_pm_vdvae.main([*argv, "--config.steps", "1", "--config.seed", "3"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    (first,) = [ln.split(": ")[1] for ln in lines if ln.startswith("Using run directory")]
+    (tmp_path / "again").mkdir()
+    monkeypatch.chdir(tmp_path / "again")
+    assert train_pm_vdvae.main([*argv, "--config.steps", "2", "--resume_dir",
+                                str(tmp_path / first)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert any(ln.startswith("Restored training seed 3 from ") for ln in lines)
+    assert [ln.split()[1] for ln in lines if ln.startswith("[step ")] == ["2/2]"]
+    (second,) = [ln.split(": ")[1] for ln in lines if ln.startswith("Using run directory")]
+    with open(os.path.join(second, "train_meta.json")) as fp:
+        assert json.load(fp) == {"seed": 3, "steps": 2}
+    ts1 = jax_load_train_state(str(tmp_path / first / "train_state.pkl"))
+    ts2 = jax_load_train_state(os.path.join(second, "train_state.pkl"))
+    assert int(ts1.step) == 1 and int(ts2.step) == 2
+    assert int(ts2.opt_state[1].count) == 2   # optax's ScaleByAdamState, by pickle
+    moved = [not np.array_equal(a, b) for a, b in zip(jax.tree.leaves(ts1.ema_params),
+                                                      jax.tree.leaves(ts2.ema_params))]
+    assert any(moved)
+
+
+@pytest.mark.parametrize("argv", [["--config.model.nope=1"], ["--config.steps"],
+                                  ["--steps", "3"]])
 def test_cli_refuses_what_it_does_not_take(argv, capsys):
     with pytest.raises(SystemExit):
         train_pm_vdvae.main(["--config", "pm_vdvae_mnist", "--device", "cpu", *argv])

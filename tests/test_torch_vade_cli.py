@@ -131,7 +131,7 @@ def monkeypatch_module():
 def test_train_vade_runs_three_phases(vade_run):
     run_dir, lines, fits, starts = vade_run
     assert sorted(os.listdir(run_dir)) == ["model_config.json", "pretrain_state.pkl",
-                                           "train_meta.json", "train_state.pkl"]
+                                           "tb", "train_meta.json", "train_state.pkl"]
     with open(os.path.join(run_dir, "model_config.json")) as fp:
         assert json.load(fp) == json.loads(json.dumps(_vade_model_config()))
     (gmm_line,) = [ln for ln in lines if ln.startswith("GMM Accuracy: ")]
@@ -176,7 +176,7 @@ def test_train_pm_vade_on_a_jax_written_run(data_dir, tmp_path):
     assert len(steps) == 2 and all(np.isfinite(float(ln.split(" val_loss=")[1].split()[0]))
                                    for ln in steps)
     run_dir = _run_dir(tmp_path, "pm-vade-mnist")
-    assert sorted(os.listdir(run_dir)) == ["model_config.json", "train_meta.json",
+    assert sorted(os.listdir(run_dir)) == ["model_config.json", "tb", "train_meta.json",
                                            "train_state.pkl"]
     got = convert.vade_state_dict(jax_load(os.path.join(run_dir, "train_state.pkl")).params)
     want = convert.vade_state_dict(params)
@@ -217,7 +217,7 @@ def lookahead_run(data_dir, tmp_path_factory):
 def test_lookahead_cli_on_a_pm_vae_run(lookahead_run):
     run_dir, pm_vae_dir, lines = lookahead_run
     assert sorted(os.listdir(run_dir)) == ["lookahead_config.json", "pm_vae_config.json",
-                                           "train_meta.json", "train_state.pkl"]
+                                           "tb", "train_meta.json", "train_state.pkl"]
     steps = _steps(lines)
     assert len(steps) == 2 and all("val_loss=" in ln for ln in steps)
     with open(os.path.join(run_dir, "lookahead_config.json")) as fp:

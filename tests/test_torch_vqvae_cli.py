@@ -73,7 +73,7 @@ def test_stage1_then_stage2_and_jax_reads_both(data_dir, tmp_path, monkeypatch, 
                                          "--config.steps", "2", "--config.validation_freq", "2",
                                          "--config.seed", "3", *STAGE1], capsys)
     assert run1.startswith(os.path.join("runs", "vqvae-mnist-"))
-    assert sorted(os.listdir(run1)) == ["model_config.json", "train_meta.json",
+    assert sorted(os.listdir(run1)) == ["model_config.json", "tb", "train_meta.json",
                                         "train_state.pkl"]
     for key in ("loss", "perplexity", "reconstruction_loss", "vq_loss", "steps_per_sec",
                 "val_loss", "val_perplexity"):
@@ -96,7 +96,7 @@ def test_stage1_then_stage2_and_jax_reads_both(data_dir, tmp_path, monkeypatch, 
         "--config.steps", "2", "--config.validation_freq", "2", "--config.seed", "5",
         "--chain_segment", "2", *STAGE2], capsys)
     assert run2.startswith(os.path.join("runs", "pm-vqvae-mnist-"))
-    assert sorted(os.listdir(run2)) == ["config.json", "train_meta.json", "train_state.pkl",
+    assert sorted(os.listdir(run2)) == ["config.json", "tb", "train_meta.json", "train_state.pkl",
                                         "vqvae_config.json"]
     assert " val_loss=" in line
     with open(os.path.join(run2, "config.json")) as fp:
@@ -122,8 +122,33 @@ def test_stage1_then_stage2_and_jax_reads_both(data_dir, tmp_path, monkeypatch, 
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4)
 
 
+def test_stage1_resumes_a_run(data_dir, tmp_path, monkeypatch, capsys):
+    """``--resume_dir`` (refused before the optimizer state was written in
+    optax's layout): a 2-step stage-1 run continued to step 3 in a fresh
+    run directory, its seed restored; the codebook's EMA state and Adam's
+    count carried on, as the JAX package reads them."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--config", "vqvae_mnist", "--device", "cpu", "--config.validation_freq", "1",
+            *STAGE1]
+    assert train_vqvae.main([*argv, "--config.steps", "2", "--config.seed", "3"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    (first,) = [ln.split(": ")[1] for ln in lines if ln.startswith("Using run directory")]
+    (tmp_path / "again").mkdir()
+    monkeypatch.chdir(tmp_path / "again")
+    assert train_vqvae.main([*argv, "--config.steps", "3", "--resume_dir",
+                             str(tmp_path / first)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert any(ln.startswith("Restored training seed 3 from ") for ln in lines)
+    assert [ln.split()[1] for ln in lines if ln.startswith("[step ")] == ["3/3]"]
+    (second,) = [ln.split(": ")[1] for ln in lines if ln.startswith("Using run directory")]
+    ts1 = jax_load_train_state(str(tmp_path / first / "train_state.pkl"))
+    ts2 = jax_load_train_state(os.path.join(second, "train_state.pkl"))
+    assert int(ts2.step) == 3 and int(ts2.opt_state[0].count) == 3
+    size1, size2 = (ts.state["vq_ema"]["vq"]["ema_cluster_size"] for ts in (ts1, ts2))
+    assert not np.array_equal(size1, size2)
+
+
 @pytest.mark.parametrize("main,argv", [
-    (train_vqvae.main, ["--config", "vqvae_mnist", "--resume_dir", "runs/x"]),
     (train_vqvae.main, ["--config", "pm_vqvae_mnist"]),
     (train_vqvae.main, ["--config", "vqvae_mnist", "--config.model.nope=1"]),
     (train_pm_vqvae.main, ["--config", "pm_vqvae_mnist", "--chain_segment", "0"]),
