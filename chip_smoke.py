@@ -7,7 +7,8 @@ granularities), the PM-VQVAE MNIST training pipeline from the command line
 ``configs/pm_vdvae_mnist.py`` (imputation, likelihood, training), then the
 PM-VQVAE CelebA pipeline and the PM-VDVAE evals from their CLIs, then
 PM-VAE's training and UCI eval CLIs, then VaDE's and the greedy
-acquisition's CLIs, and checks them, in these phases:
+acquisition's CLIs, then the PM-VQVAE digits16 pipeline through the
+PixelCNN kernels' 64-filter builds, and checks them, in these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
 2. all thirteen kernels (``posterior_matching_torch/ops/csrc``; the pair
@@ -15,9 +16,9 @@ acquisition's CLIs, and checks them, in these phases:
    checkout's sources, one ``nvcc`` per source, in parallel; both
    row-sampler kernels are launched at the imputation path's shapes (n = 32
    images x 10 samples, F = 128, L = 24, 16 x 16 codes, K = 512) and held
-   against their plain PyTorch versions on the same inputs; each is timed
-   with CUDA events beside its bound, the row kernel also with its weight
-   stream per busy SM and its GFLOP/s;
+   against their plain PyTorch versions on the same inputs, each relaunched
+   bit for bit; each is timed with CUDA events beside its bound, the row
+   kernel also with its weight stream per busy SM and its GFLOP/s;
 3. imputation: three requests of 32 seeded 64x64x3 images with CelebA
    masks, 10 samples each, through ``pm_vqvae_impute`` with weights from
    ``--seed`` (a JAX-layout tree sent through ``convert.py``) or from
@@ -34,8 +35,9 @@ acquisition's CLIs, and checks them, in these phases:
    the plain chain at full width (B = 32, 16 x 16, F = 128, cond 512,
    keep 0.5, masks from the in-kernel hash): the stream's for the up and the
    down pass (L = 12), the pair's for an up and a down level, the
-   segment's for an up and a down segment of 4 levels; each timed beside
-   its bound;
+   segment's for an up and a down segment of 4 levels; each relaunched bit
+   for bit and timed beside its bound, by its device time (``torch.profiler``)
+   and its host's time to enqueue a call;
 6. the first training step at full width with ``chain_segment`` "stream",
    1, 4 and 5: equal losses and gradients, each mode's launches as
    expected;
@@ -159,8 +161,24 @@ acquisition's CLIs, and checks them, in these phases:
    distinct convolution of the VQ-VAE and the VDVAE, its gradients on the
    card with cuDNN's own choice of algorithms and with the deterministic
    ones against float64 on the CPU;
-17. one JSON line of per-kernel numbers, the card's name and power limit,
-   and the result line.
+17. PM-VQVAE digits16 at the full width of ``configs/pm_vqvae_digits16.py``
+   (4x4 codes, 6 resnet levels of 64 filters, 128 codes, cond 256) through
+   the kernels' 64-filter builds: phase 2's sampler comparisons at a
+   request's row (32 images x 10 samples), phase 5's gated stream, pair and
+   segment comparisons at a training batch (32 x 4 x 4 rows), relaunches
+   and times, and phase 3's small request against the CPU; then the
+   pipeline from its three CLIs on stand-in ``digits16/{train,val,test}.npz``
+   files (256 / 64 / 32 uint8 images from the seed) in a temporary
+   ``$PM_TPU_DATA_DIR``: ``train_vqvae --config vqvae_digits16``,
+   ``train_pm_vqvae --config pm_vqvae_digits16`` on its run with
+   ``chain_segment`` "stream", 1 and 4 (4 steps and one validation each,
+   whose imputation strips run the sampler kernels), ``eval_pm_vqvae`` on
+   the stream run (32 images, 10 samples, 1 trial): each CLI's kernel
+   launches exactly (every counter set to 0 just before it), its batches,
+   run directory, finite validation loss, and the eval's files;
+18. one JSON line of per-kernel numbers (the 64-filter forms as
+   ``<kernel>_f64``, their launches the digits16 pipeline's), the card's
+   name and power limit, and the result line.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--vdvae_run_dir
 RUN] [--out DIR]``.
@@ -341,6 +359,151 @@ def run_cli(name, main, argv):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2: the row sampler's kernels
+# ---------------------------------------------------------------------------
+
+
+def sampler_phase(pcnn, cond, gen):
+    """Both row-sampler kernels against their plain PyTorch versions at a
+    request's image row 1 (row 0 run through the plain versions first, so
+    that the previous-row state is what the sampler sees), for ``cond``'s n
+    chains: the vrow kernel's outputs within VROW_TOL, the row kernel's
+    samples equal on SAMPLE_AGREEMENT of the positions and its logits within
+    LOGITS_TOL where every earlier sample of the chain agreed; each
+    relaunched bit for bit, timed with CUDA events beside its bound (the
+    plain versions run the same arithmetic as many small launches; no single
+    library call computes either chain), the row kernel also with its weight
+    stream per busy SM and its GFLOP/s. Returns each kernel's numbers."""
+    from posterior_matching_torch.ops import sampler_chain as sc
+    from posterior_matching_torch.ops.profiling import time_ms
+
+    dev = cond.device
+    n = cond.shape[0]
+    f, n_res = pcnn.num_filters, pcnn.num_resnet
+    n_lvl, k_idx = 2 * n_res, pcnn.num_indices
+    hgt, wid = pcnn.image_shape
+    with torch.no_grad():
+        w = sc.fuse_sampler_weights(pcnn)
+        cpv, cph = sc.cond_projections(pcnn, cond, n)
+        z = torch.zeros(wid, n, f, device=dev)
+        zl = torch.zeros(n_lvl, wid, n, f, device=dev)
+        zm = torch.zeros(n_lvl, wid, n, 2 * f, device=dev)
+        g0 = sc.gumbel_noise((wid, n, k_idx), gen, dev)
+        g1 = sc.gumbel_noise((wid, n, k_idx), gen, dev)
+        wv = (w.viw, w.vib, w.huw, w.hub, w.wav, w.bav, w.wbv, w.bbv, w.waux)
+        wr = (w.wa, w.ba, w.wb, w.bb, cph)
+        wt = (w.emb, w.lw, w.lb, w.hlw, w.hlb)
+        outv0, outm0, v00, hup0 = sc.vrow_plain(z, z, z, zl, zm, cpv, *wv)
+        outh0, outmh0, s0, _ = sc.row_plain(*wr, zl, zm, outv0, hup0, z, g0, *wt)
+        e1 = w.emb[s0.long()].contiguous()
+        vrow_in = (z, e1, v00, outv0, outm0, cpv, *wv)
+
+        want_v = sc.vrow_plain(*vrow_in)
+        got_v = sc.vrow(*vrow_in)
+        again_v = sc.vrow(*vrow_in)
+        torch.cuda.synchronize()
+        vrow_err = 0.0
+        for name, gt, wt_, ag in zip(("outv", "outm", "v0", "hup"), got_v, want_v, again_v):
+            err, rel = rel_err(gt, wt_)
+            vrow_err = max(vrow_err, err)
+            log(f"vrow {name}: max abs err {err:.3e}, relative to scale {rel:.3e}")
+            if not rel <= VROW_TOL:
+                raise AssertionError(f"vrow {name} disagrees: {rel:.3e} > {VROW_TOL}")
+            check(torch.equal(gt, ag), f"vrow {name} differs from launch to launch")
+
+        outv1, _, _, hup1 = want_v
+        row_in = (*wr, outh0, outmh0, outv1, hup1, e1, g1, *wt)
+        want_r = sc.row_plain(*row_in, with_logits=True)
+        got_r = sc.row(*row_in, with_logits=True)
+        again_r = sc.row(*row_in, with_logits=True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got_r, again_r)),
+              "row differs from launch to launch")
+        same = got_r[2] == want_r[2]                      # [W, n]
+        agree = same.float().mean().item()
+        log(f"row samples agree on {agree:.6f} of {same.numel()} positions; both kernels "
+            f"relaunched bit for bit")
+        if agree < SAMPLE_AGREEMENT:
+            raise AssertionError(f"row samples agree on {agree} < {SAMPLE_AGREEMENT}")
+        # logits are comparable where every earlier sample of the chain agreed
+        prefix = torch.cumprod(same.int(), 0).bool()
+        ok = torch.cat([torch.ones_like(prefix[:1]), prefix[:-1]], 0)
+        row_err, rel = rel_err(got_r[3][ok], want_r[3][ok])
+        log(f"row logits: max abs err {row_err:.3e}, relative to scale {rel:.3e} "
+            f"over {ok.float().mean().item():.4f} of positions")
+        if not rel <= LOGITS_TOL:
+            raise AssertionError(f"row logits disagree: {rel:.3e} > {LOGITS_TOL}")
+
+        # times at the main path's shapes
+        vrow_ms = time_ms(lambda: sc.vrow(*vrow_in), reps=10)
+        vrow_plain_ms = time_ms(lambda: sc.vrow_plain(*vrow_in), reps=3)
+        row_ms = time_ms(lambda: sc.row(*row_in), reps=10)
+        row_plain_ms = time_ms(lambda: sc.row_plain(*row_in), reps=2)
+
+    vrow_flops = 2 * wid * n * (9 * f * f + n_lvl * (12 * f * f + 24 * f * f) + n_res * 2 * f * f)
+    row_flops = 2 * n * wid * (2 * f * f + n_lvl * (12 * f * f + 16 * f * f) + f * k_idx)
+    vrow_bytes = nbytes(*vrow_in, *want_v)
+    row_bytes = nbytes(*row_in, *want_r[:3])  # timed without the logits out
+
+    vrow_bound, vrow_by = bound(vrow_flops, vrow_bytes)
+    row_bound, row_by = bound(row_flops, row_bytes)
+    log(f"vrow: {vrow_ms:.3f} ms/launch (plain {vrow_plain_ms:.3f}), bound "
+        f"{vrow_bound:.3f} ms by {vrow_by} ({vrow_flops / 1e9:.1f} GFLOP, "
+        f"{vrow_bytes / 1e6:.1f} MB)")
+    log(f"row:  {row_ms:.3f} ms/launch (plain {row_plain_ms:.3f}), bound "
+        f"{row_bound:.3f} ms by {row_by} ({row_flops / 1e9:.1f} GFLOP, "
+        f"{row_bytes / 1e6:.1f} MB)")
+    # The row kernel streams every weight of a pixel once per block (8
+    # samples), pixel by pixel: hlw, wa and wb of each level, lw.
+    row_blocks = -(-n // 8)
+    row_wbytes = row_blocks * wid * 4 * (2 * f * f + n_lvl * 28 * f * f + f * k_idx)
+    log(f"row:  weight stream {row_wbytes / row_blocks / (row_ms * 1e6):.1f} GB/s "
+        f"per busy SM ({row_blocks} blocks, {row_wbytes / 1e9:.1f} GB a launch), "
+        f"{row_flops / (row_ms * 1e6):.1f} GFLOP/s, {row_ms / row_bound:.2f}x its bound")
+    # The vrow kernel streams every weight once per block (TS samples):
+    # viw, huw, then wav, waux (down levels) and wbv of each level.
+    vrow_nblocks = sc.vrow_blocks(wid, n)
+    vrow_wbytes = vrow_nblocks * 4 * (9 * f * f + n_lvl * 36 * f * f + n_res * 2 * f * f)
+    log(f"vrow: {vrow_nblocks} blocks ({-(-n // vrow_nblocks)} samples each), weight "
+        f"stream {vrow_wbytes / vrow_nblocks / (vrow_ms * 1e6):.1f} GB/s per busy SM "
+        f"({vrow_wbytes / 1e9:.2f} GB of L2 reads a launch), "
+        f"{vrow_flops / (vrow_ms * 1e6) / vrow_nblocks:.1f} GFLOP/s per busy SM, "
+        f"{vrow_ms / vrow_bound:.2f}x its bound")
+    return {"vrow": {"max_abs_err": vrow_err, "ms": vrow_ms, "plain_ms": vrow_plain_ms,
+                     "bound_ms": vrow_bound, "bound_by": vrow_by, "blocks": vrow_nblocks},
+            "row": {"max_abs_err": row_err, "ms": row_ms, "plain_ms": row_plain_ms,
+                    "bound_ms": row_bound, "bound_by": row_by, "blocks": row_blocks}}
+
+
+def small_request_check(model, xs, bs, gen, cond_dim, vq_cfg, pc_cfg):
+    """A small request (``xs``, ``bs``: two images, 2 samples each) through
+    the kernels against the plain path on the CPU, with the same noise: the
+    same codes, and imputations to 1e-4."""
+    from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
+    from posterior_matching_torch.ops import sampler_chain as sc
+
+    pcnn = model.pixel_cnn
+    hgt, wid = pcnn.image_shape
+    cpu_model = type(model)(cond_dim, vq_cfg, pc_cfg).eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    noise = sc.gumbel_noise((hgt, wid, 2 * 2, pcnn.num_indices), gen, xs.device)
+    with torch.no_grad():
+        cond_g = model.conditional_latents(xs, bs)
+        codes_g = sc.pixelcnn_sample(pcnn, 2, cond_g, noise=noise)
+        cond_c = cpu_model.conditional_latents(xs.cpu(), bs.cpu())
+        codes_c = sc.pixelcnn_sample(cpu_model.pixel_cnn, 2, cond_c, noise=noise.cpu())
+        imp_g = pm_vqvae_impute(model, xs, bs, 2, noise=noise)
+        imp_c = pm_vqvae_impute(cpu_model, xs.cpu(), bs.cpu(), 2, noise=noise.cpu())
+    code_agree = (codes_g.cpu() == codes_c).float().mean().item()
+    same_grid = (codes_g.cpu() == codes_c).flatten(2).all(-1).T  # [B, S]
+    imp_err = (imp_g.cpu() - imp_c)[same_grid].abs().max().item()
+    log(f"small request vs CPU plain path: codes agree on {code_agree:.5f}, "
+        f"imputation max abs err {imp_err:.3e} over {int(same_grid.sum())} of 4 grids")
+    if code_agree < SAMPLE_AGREEMENT or imp_err > 1e-4:
+        raise AssertionError("the GPU path disagrees with the CPU plain path")
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the codebook search
 # ---------------------------------------------------------------------------
 
@@ -478,9 +641,34 @@ def stream_work(cfg, fwd_bytes, bwd_bytes):
     return (mm + proj, fwd_bytes), (2 * mm + 2 * proj, bwd_bytes)
 
 
+def device_split(calls):
+    """Device ms and device kernels a call (``torch.profiler``) and host ms
+    to enqueue one, of each of ``calls`` ({kind: fn}): where a call's time
+    back to back is the host's."""
+    from posterior_matching_torch.ops.profiling import host_ms, profile_calls
+
+    out = {}
+    for kind, fn in calls.items():
+        prof = profile_calls(fn, 5)
+        out[kind] = {"device_ms": None if prof is None else prof[0],
+                     "kernels_per_call": None if prof is None else prof[1],
+                     "host_ms": host_ms(fn)}
+    return out
+
+
+def log_split(what, split):
+    for kind, sp in split.items():
+        dev = "not measured" if sp["device_ms"] is None else (
+            f"{sp['device_ms']:.4f} ms in {sp['kernels_per_call']:.0f} kernels")
+        log(f"{what.format(kind=kind)}: device {dev} a call, host {sp['host_ms']:.4f} ms to "
+            f"enqueue one")
+
+
 def stream_phase(model, x, b, seed):
     """Both gated chain kernels against autograd through the plain chain at
-    full width, up pass then down pass, with in-kernel hash dropout."""
+    full width, up pass then down pass, with in-kernel hash dropout; each
+    wrapper call timed back to back, by its device time and by its host's
+    time to enqueue it."""
     from posterior_matching_torch.ops import gated_chain as gc
     from posterior_matching_torch.ops.profiling import time_ms
 
@@ -558,9 +746,19 @@ def stream_phase(model, x, b, seed):
             fwd_ms = time_ms(lambda: gc.stream_fwd(cfg, xv0, xh0, sk, cond, w), reps=3)
             bwd_ms = time_ms(lambda: gc.stream_bwd(cfg, gv, gh, saved, w_nb), reps=3)
             fwd_plain = time_ms(lambda: gc.gated_stream_plain(xv0, xh0, sk, cond, w, **kw), reps=3)
+            split = device_split({
+                "fwd": lambda: gc.stream_fwd(cfg, xv0, xh0, sk, cond, w),
+                "bwd": lambda: gc.stream_bwd(cfg, gv, gh, saved, w_nb)})
         bwd_plain = time_ms(lambda: torch.autograd.grad(want, leaves, cot, retain_graph=True),
                             reps=3)
         grads = gc.stream_bwd(cfg, gv, gh, saved, w_nb)
+        with torch.no_grad():
+            saves2 = gc.stream_fwd(cfg, xv0, xh0, sk, cond, w)
+        grads2 = gc.stream_bwd(cfg, gv, gh, saved, w_nb)
+        check(all(torch.equal(saves[k], saves2[k]) for k in saves)
+              and all(torch.equal(grads[k], grads2[k]) for k in grads),
+              f"gated_stream {direction}: a relaunch differs")
+        del saves2, grads2
         fwd_bytes = nbytes(xv0, xh0, cond, *w.values(), *(sk or ()),
                            *(saves[k] for k in ("xvo", "xho", "a1v", "a1h", "b1v", "b1h")))
         bwd_bytes = nbytes(gv, gh, *saved.values(), *w_nb.values(), *grads.values())
@@ -568,9 +766,11 @@ def stream_phase(model, x, b, seed):
         results[direction] = {
             "fwd": (fwd_err, fwd_ms, fwd_plain, ff, fb),
             "bwd": (bwd_err, bwd_ms, bwd_plain, bf, bb),
-            "splits": gc.wgrad_splits("gated_stream_bwd", cfg),
+            "splits": gc.wgrad_splits("gated_stream_bwd", cfg), "split": split,
         }
-        log(f"gated_stream_bwd {direction}: wgrad row splits {results[direction]['splits']}")
+        log(f"gated_stream_bwd {direction}: wgrad row splits {results[direction]['splits']}; "
+            f"forward and backward relaunched bit for bit")
+        log_split(f"gated_stream_{{kind}} {direction}", split)
         for kind in ("fwd", "bwd"):
             _, ms, pms, fl, by = results[direction][kind]
             b_ms, b_by = bound_tc(fl, by)
@@ -595,6 +795,7 @@ def stream_phase(model, x, b, seed):
             "per_pass": {d: {"ms": results[d][kind][1], "plain_ms": results[d][kind][2],
                              "gflop": results[d][kind][3] / 1e9,
                              "mb": results[d][kind][4] / 1e6,
+                             **results[d]["split"][kind],
                              **({"wgrad_splits": results[d]["splits"]} if kind == "bwd"
                                 else {})} for d in ("up", "dn")},
         })
@@ -613,7 +814,8 @@ def level_phase(model, x, b, seed):
     through their plain versions at full width: an up and a down pair
     (levels 0 of each pass), an up and a down segment of SEGMENT levels, with
     in-kernel hash dropout and a random cotangent on every output; each
-    timed beside its bound."""
+    timed beside its bound, by its device time and by its host's time to
+    enqueue it."""
     from posterior_matching_torch.ops import gated_chain as gc
     from posterior_matching_torch.ops.profiling import time_ms
 
@@ -691,9 +893,21 @@ def level_phase(model, x, b, seed):
                                  warmup=2)
                 plain = lambda: gc.gated_segment_plain(xv, xh, sk, cond, ws, **kw)
                 fwd_plain = time_ms(plain, reps=3)
+                split = device_split({
+                    "fwd": lambda: fwd(cfg, xv, xh, sk, cond, ws),
+                    "bwd": lambda: bwd(cfg, gs, xv, xh, cond, sk, saves, ws)})
             bwd_plain = time_ms(lambda: torch.autograd.grad(want, leaves, cot, retain_graph=True),
                                 reps=3)
             head, grads = bwd(cfg, gs, xv, xh, cond, sk, saves, ws)
+            with torch.no_grad():
+                saves2 = fwd(cfg, xv, xh, sk, cond, ws)
+            head2, grads2 = bwd(cfg, gs, xv, xh, cond, sk, saves, ws)
+            flat = lambda ds: [t for d in ds for t in d.values()]
+            check(all(torch.equal(a, c) for a, c in zip(flat(saves), flat(saves2)))
+                  and all(torch.equal(a, c) for a, c in zip(flat([head, *grads]),
+                                                             flat([head2, *grads2]))),
+                  f"gated_{kind} {direction}: a relaunch differs")
+            del saves2, head2, grads2
             ins = (xv, xh, cond, *(t for w in ws for t in w.values()),
                    *(t for pair in (sk or ()) for t in pair))
             fwd_bytes = nbytes(*ins, *(t for s_ in saves for t in s_.values()))
@@ -703,9 +917,12 @@ def level_phase(model, x, b, seed):
             (ff, fb), (bf, bb) = stream_work(cfg, fwd_bytes, bwd_bytes)
             results[kind][direction] = {"fwd": (fwd_err, fwd_ms, fwd_plain, ff, fb),
                                         "bwd": (bwd_err, bwd_ms, bwd_plain, bf, bb),
-                                        "splits": gc.wgrad_splits("gated_levels_bwd", cfg)}
+                                        "splits": gc.wgrad_splits("gated_levels_bwd", cfg),
+                                        "split": split}
             log(f"gated_{kind}_bwd {direction}: wgrad row splits "
-                f"{results[kind][direction]['splits']}")
+                f"{results[kind][direction]['splits']}; forward and backward relaunched "
+                f"bit for bit")
+            log_split(f"gated_{kind}_{{kind}} {direction}", split)
             for k2 in ("fwd", "bwd"):
                 _, ms, pms, fl, by = results[kind][direction][k2]
                 b_ms, b_by = bound_tc(fl, by)
@@ -733,6 +950,7 @@ def level_phase(model, x, b, seed):
                                  "plain_ms": results[kind][d][k2][2],
                                  "gflop": results[kind][d][k2][3] / 1e9,
                                  "mb": results[kind][d][k2][4] / 1e6,
+                                 **results[kind][d]["split"][k2],
                                  **({"wgrad_splits": results[kind][d]["splits"]}
                                     if k2 == "bwd" else {})} for d in ("up", "dn")},
             })
@@ -1834,6 +2052,53 @@ def imputation_results_check(run_dir, n, num_samples, what):
     return {"psnr_mean": float(psnrs.mean()), "f_scores": f_scores[0].tolist()}
 
 
+def pipeline_stage(out, stage, main, argv, expected, counters, image_shape, dataset, n_val):
+    """One CLI of a pipeline in this process (in the working and data
+    directories the caller set) into ``out[stage]``: every kernel counter
+    set to 0 just before it and all of them checked exactly against
+    ``expected`` after it, the image batches its loaders yielded (noted as
+    they are yielded: ``image_shape`` float32 in [0, 1]), and for a
+    training CLI its one run directory ``runs/<prefix>-<dataset>-*`` and
+    its ``n_val`` validation lines. Returns the run directory (None for the
+    eval)."""
+    from posterior_matching_torch.data.datasets import ArrayDataset
+
+    seen = set()
+    plain_iter = ArrayDataset.__iter__
+
+    def noting_iter(self):
+        for batch in plain_iter(self):
+            img = batch["image"]
+            seen.add((img.shape[1:], str(img.dtype), bool(0 <= img.min() and img.max() <= 1)))
+            yield batch
+
+    for c in counters.values():
+        c.launches = 0
+    ArrayDataset.__iter__ = noting_iter
+    try:
+        _, lines, wall = run_cli(stage, main, argv)
+    finally:
+        ArrayDataset.__iter__ = plain_iter
+    shape = "x".join(map(str, image_shape))
+    check(seen == {(tuple(image_shape), "float32", True)},
+          f"{stage} read the image batches {seen}, not {shape} float32 in [0, 1]")
+    launched = {k: c.launches for k, c in counters.items()}
+    want = {k: expected.get(k, 0) for k in counters}
+    check(launched == want, f"{stage} launched {launched}, not {want}")
+    out[stage] = {"wall_s": wall, "launches": launched, "lines": lines}
+    if not stage.startswith("eval"):
+        prefix = stage.replace("train_", "").replace("_", "-")
+        run_dirs = glob.glob(f"runs/{prefix}-{dataset}-*")
+        check(len(run_dirs) == 1, f"{stage} made the run directories {run_dirs}")
+        out[stage]["run_dir"] = os.path.abspath(run_dirs[0])
+        out[stage]["files"] = sorted(os.listdir(run_dirs[0]))
+        steps_lines = [ln for ln in lines if ln.startswith("[step ")]
+        check(len(steps_lines) == n_val and all("val_loss=" in ln for ln in steps_lines),
+              f"{stage} did not log {n_val} validations with val_loss")
+    log(f"{stage}: {wall:.1f} s; {shape} batches; launches {launched}")
+    return out[stage].get("run_dir")
+
+
 def celeb_a_pipeline_phase(args, work):
     """``train_vqvae --config vqvae_celeb_a``, ``train_pm_vqvae --config
     pm_vqvae_celeb_a`` (the stream chain) reading its run, then
@@ -1845,7 +2110,6 @@ def celeb_a_pipeline_phase(args, work):
     eval's files and summary keys, and its wall time by part."""
     from posterior_matching_torch import eval_pm_vqvae, train_pm_vqvae, train_vqvae
     from posterior_matching_torch.config import CELEB_A_IMAGE_SHAPE, CONFIGS
-    from posterior_matching_torch.data.datasets import ArrayDataset
     from posterior_matching_torch.ops import sampler_chain as sc
 
     steps, n_eval = 4, 2 * BATCH
@@ -1861,42 +2125,11 @@ def celeb_a_pipeline_phase(args, work):
     rows = stage2["pixel_cnn"]["image_shape"][0]
     common = ["--config.steps", str(steps), "--config.validation_freq", str(steps // 2),
               "--config.seed", str(args.seed)]
-    out, seen = {}, set()
-    plain_iter = ArrayDataset.__iter__
-
-    def noting_iter(self):
-        for batch in plain_iter(self):
-            img = batch["image"]
-            seen.add((img.shape[1:], str(img.dtype), bool(0 <= img.min() and img.max() <= 1)))
-            yield batch
-
+    out = {}
     with cli_env(work, f"{work}/data"):
         def run_stage(stage, main, argv, expected):
-            for c in counters.values():
-                c.launches = 0
-            seen.clear()
-            ArrayDataset.__iter__ = noting_iter
-            try:
-                _, lines, wall = run_cli(stage, main, argv)
-            finally:
-                ArrayDataset.__iter__ = plain_iter
-            check(seen == {(CELEB_A_IMAGE_SHAPE, "float32", True)},
-                  f"{stage} read the image batches {seen}, not 64x64x3 float32 in [0, 1]")
-            launched = {k: c.launches for k, c in counters.items()}
-            want = {k: expected.get(k, 0) for k in counters}
-            check(launched == want, f"{stage} launched {launched}, not {want}")
-            out[stage] = {"wall_s": wall, "launches": launched, "lines": lines}
-            if stage != "eval_pm_vqvae":
-                prefix = stage.replace("train_", "").replace("_", "-")
-                run_dirs = glob.glob(f"runs/{prefix}-celeb_a-*")
-                check(len(run_dirs) == 1, f"{stage} made the run directories {run_dirs}")
-                out[stage]["run_dir"] = os.path.abspath(run_dirs[0])
-                out[stage]["files"] = sorted(os.listdir(run_dirs[0]))
-                steps_lines = [ln for ln in lines if ln.startswith("[step ")]
-                check(len(steps_lines) == 2 and all("val_loss=" in ln for ln in steps_lines),
-                      f"{stage} did not log two validations with val_loss")
-            log(f"{stage}: {wall:.1f} s; 64x64x3 batches; launches {launched}")
-            return out[stage].get("run_dir")
+            return pipeline_stage(out, stage, main, argv, expected, counters,
+                                  CELEB_A_IMAGE_SHAPE, "celeb_a", 2)
 
         # each validation: its batches, then the reconstruction callback's
         # one forward
@@ -1936,6 +2169,145 @@ def celeb_a_pipeline_phase(args, work):
         f"{summary['psnr_mean']:.3f}, precision {summary['precision']:.4f}, recall "
         f"{summary['recall']:.4f}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: PM-VQVAE digits16, the kernels' 64-filter builds
+# ---------------------------------------------------------------------------
+
+# Stand-in digits16 files (16x16x1 uint8 images and labels drawn from the
+# seed): datasets/prepare_local.py writes the real ones from scikit-learn's
+# digits, which this checkout does not hold.
+DIGITS16_SIZES = {"train": 256, "val": 64, "test": BATCH}
+DIGITS16_IMAGE = (16, 16, 1)
+DIGITS16_STEPS = 4
+DIGITS16_MODES = ("stream", 1, SEGMENT)
+
+
+def write_digits16(data_dir, seed):
+    rng = np.random.RandomState(seed)
+    os.makedirs(f"{data_dir}/digits16", exist_ok=True)
+    for split, n in DIGITS16_SIZES.items():
+        np.savez(f"{data_dir}/digits16/{split}.npz",
+                 image=rng.randint(0, 256, (n, *DIGITS16_IMAGE)).astype(np.uint8),
+                 label=rng.randint(0, 10, n).astype(np.int64))
+
+
+def digits16_phase(args, gen, work):
+    """``pm_vqvae_digits16`` at its full width (4x4 codes, 6 resnet levels of
+    64 filters, 128 codes, cond 256) through the kernels' 64-filter builds.
+    First the kernels, on weights from ``--seed``: both sampler kernels at a
+    request's image row (32 images x 10 samples) and the six gated chain
+    entry points at a training batch (32 x 4 x 4 rows, keep 0.5) against
+    their plain versions, each relaunched bit for bit and timed beside its
+    bound, and a small request against the plain path on the CPU. Then the
+    pipeline from its three CLIs, in this process, on stand-in files in
+    ``work``: ``train_vqvae --config vqvae_digits16``, ``train_pm_vqvae
+    --config pm_vqvae_digits16`` on its run once in each chain mode
+    (DIGITS16_STEPS steps and one validation, whose imputation strips run
+    the sampler kernels), then ``eval_pm_vqvae`` on the stream run (32
+    images, 10 samples, 1 trial): each CLI's kernel launches exactly (every
+    counter set to 0 just before it), its batches, run directory and
+    validation line, and the eval's files. Returns the kernel lines (named
+    ``<kernel>_f64``, their launches those of the pipeline's runs) and the
+    pipeline's record."""
+    from posterior_matching_torch import (config, convert, eval_pm_vqvae, masking,
+                                          train_pm_vqvae, train_vqvae)
+    from posterior_matching_torch.ops import sampler_chain as sc
+
+    t0 = time.perf_counter()
+    stage1, stage2 = config.CONFIGS["vqvae_digits16"](), config.CONFIGS["pm_vqvae_digits16"]()
+    vq_cfg = stage1["model"]
+    pc_cfg = {**stage2["pixel_cnn"], "num_indices": vq_cfg["num_embeddings"]}
+    cd = stage2["conditional_dim"]
+    model = convert.pm_vqvae_from_jax(
+        *convert.random_pm_vqvae_tree(cd, vq_cfg, pc_cfg, seed=args.seed), cd, vq_cfg, pc_cfg,
+        device=DEVICE)
+    pcnn = model.pixel_cnn
+    n_res, rows = pcnn.num_resnet, pcnn.image_shape[0]
+    check(pcnn.num_filters == 64 and pcnn.num_indices == 128,
+          f"pm_vqvae_digits16 has {pcnn.num_filters} filters and {pcnn.num_indices} codes")
+    mask_fn = masking.get_mask_generator(stage2["data"]["mask_generator"], device=DEVICE)
+    batch = masking.add_mask({"image": torch.rand(BATCH, *DIGITS16_IMAGE, generator=gen,
+                                                  device=DEVICE)}, gen, mask_fn)
+    x, b = batch["image"], batch["mask"]
+    with torch.no_grad():
+        cond = model.conditional_latents(x, b)
+        cond = cond[None].expand(NUM_SAMPLES, *cond.shape).reshape(NUM_SAMPLES * BATCH, -1)
+    sampler = sampler_phase(pcnn, cond, gen)
+    small_request_check(model, x[:2], b[:2], gen, cd, vq_cfg, pc_cfg)
+    chain_lines = stream_phase(model, x, b, args.seed) + level_phase(model, x, b, args.seed)
+    kernel_s = time.perf_counter() - t0
+    del model
+
+    steps, n_val = DIGITS16_STEPS, DIGITS16_SIZES["val"] // stage2["data"]["val_batch_size"]
+    write_digits16(f"{work}/data", args.seed)
+    counters = {**chain_counters(), "sampler_vrow": sc.vrow, "sampler_row": sc.row}
+    common = ["--config.steps", str(steps), "--config.validation_freq", str(steps),
+              "--config.seed", str(args.seed)]
+    out = {}
+
+    def run_stage(stage, cwd, main, argv, expected):
+        os.makedirs(cwd, exist_ok=True)
+        with cli_env(cwd, f"{work}/data"):
+            run = pipeline_stage(out, stage, main, argv, expected, counters, DIGITS16_IMAGE,
+                                 "digits16", 1)
+        return run
+
+    # train_vqvae's validation: its batches, then the reconstruction
+    # callback's one forward
+    run1 = run_stage("train_vqvae", f"{work}/stage1", train_vqvae.main,
+                     ["--config", "vqvae_digits16", *common],
+                     {"vq_search": steps + n_val + 1})
+    runs = {}
+    for mode in DIGITS16_MODES:
+        per_step = mode_launches(mode, n_res)
+        (fwd,), (bwd,) = ([k for k in per_step if k.endswith(e)] for e in ("_fwd", "_bwd"))
+        expected = {"vq_search": steps + n_val, fwd: per_step[fwd] * (steps + n_val),
+                    bwd: per_step[bwd] * steps,
+                    # the imputation callback's strips at the validation
+                    "sampler_vrow": rows, "sampler_row": rows}
+        runs[str(mode)] = run_stage(
+            "train_pm_vqvae", f"{work}/stage2_{mode}", train_pm_vqvae.main,
+            ["--config", "pm_vqvae_digits16", *common, "--config.vqvae_dir", run1,
+             "--chain_segment", str(mode)], expected)
+        out[f"train_pm_vqvae_{mode}"] = out.pop("train_pm_vqvae")
+    run_stage("eval_pm_vqvae", f"{work}/stage2_stream", eval_pm_vqvae.main,
+              ["--run_dir", runs["stream"], "--dataset", "digits16", "--mask_generator",
+               stage2["data"]["mask_generator"], "--num_instances", str(BATCH), "--batch_size",
+               str(BATCH), "--num_samples", str(NUM_SAMPLES), "--num_trials", "1"],
+              {"sampler_vrow": rows, "sampler_row": rows})
+    res = imputation_results_check(runs["stream"], BATCH, NUM_SAMPLES, "eval_pm_vqvae digits16")
+    out["eval_pm_vqvae"].update(res)
+    val_losses = {mode: line_value([ln for ln in out[f"train_pm_vqvae_{mode}"]["lines"]
+                                    if ln.startswith("[step ")][-1], "val_loss")
+                  for mode in map(str, DIGITS16_MODES)}
+    check(all(np.isfinite(v) for v in val_losses.values()),
+          f"a digits16 validation loss is not finite: {val_losses}")
+    seconds = time.perf_counter() - t0
+    log(f"digits16: kernels {kernel_s:.1f} s, pipeline {seconds - kernel_s:.1f} s; validation "
+        f"losses {val_losses}; eval PSNR {res['psnr_mean']:.3f}")
+
+    # the lines: launches of the pipeline's runs (the vrow and row kernels:
+    # the eval's)
+    lines = []
+    for name, line in (("sampler_vrow", sampler["vrow"]), ("sampler_row", sampler["row"])):
+        src = "sampler_vrow.cu" if name == "sampler_vrow" else "sampler_row.cu"
+        lines.append({"name": f"{name}_f64", "route": "cuda",
+                      "source": f"posterior_matching_torch/ops/csrc/{src}",
+                      "replaces": "posterior_matching_tpu/ops/sampler_chain.py:"
+                                  + ("124" if name == "sampler_vrow" else "215"),
+                      "launches": out["eval_pm_vqvae"]["launches"][name],
+                      **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by")},
+                      "library_ms": None})
+    run_of = {"gated_pair": "1", "gated_segment": str(SEGMENT), "gated_stream": "stream"}
+    for line in chain_lines:
+        kind = line["name"].rsplit("_", 1)[0]
+        line["launches"] = out[f"train_pm_vqvae_{run_of[kind]}"]["launches"][line["name"]]
+        line["name"] += "_f64"
+        lines.append(line)
+    return lines, {**out, "val_losses": val_losses, "seconds": seconds, "kernel_s": kernel_s}
 
 
 # ---------------------------------------------------------------------------
@@ -2796,7 +3168,6 @@ def main() -> int:
     from posterior_matching_torch import config, convert, masking
     from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
     from posterior_matching_torch.ops import _build, sampler_chain as sc
-    from posterior_matching_torch.ops.profiling import time_ms
 
     dev = torch.device(DEVICE)
     out_dir = repo / args.out
@@ -2835,7 +3206,7 @@ def main() -> int:
         )
         weights_from = f"seed {args.seed}"
     pcnn = model.pixel_cnn
-    f, n_lvl = pcnn.num_filters, 2 * pcnn.num_resnet
+    f = pcnn.num_filters
     hgt, wid = pcnn.image_shape
     k_idx = pcnn.num_indices
     n = BATCH * NUM_SAMPLES
@@ -2851,95 +3222,13 @@ def main() -> int:
         x = torch.rand(image_shape, generator=gen, device=dev)
         return masking.add_mask({"image": x}, gen, mask_fn)
 
-    # Main-path inputs of image row 1: row 0 is run through the plain
-    # versions first, so the previous-row state is what the sampler sees.
     with torch.no_grad():
         batch = request_batch()
         cond = model.conditional_latents(batch["image"], batch["mask"])
         cond = cond[None].expand(NUM_SAMPLES, *cond.shape).reshape(n, -1)
-        w = sc.fuse_sampler_weights(pcnn)
-        cpv, cph = sc.cond_projections(pcnn, cond, n)
-        z = torch.zeros(wid, n, f, device=dev)
-        zl = torch.zeros(n_lvl, wid, n, f, device=dev)
-        zm = torch.zeros(n_lvl, wid, n, 2 * f, device=dev)
-        g0 = sc.gumbel_noise((wid, n, k_idx), gen, dev)
-        g1 = sc.gumbel_noise((wid, n, k_idx), gen, dev)
-        wv = (w.viw, w.vib, w.huw, w.hub, w.wav, w.bav, w.wbv, w.bbv, w.waux)
-        wr = (w.wa, w.ba, w.wb, w.bb, cph)
-        wt = (w.emb, w.lw, w.lb, w.hlw, w.hlb)
-        outv0, outm0, v00, hup0 = sc.vrow_plain(z, z, z, zl, zm, cpv, *wv)
-        outh0, outmh0, s0, _ = sc.row_plain(*wr, zl, zm, outv0, hup0, z, g0, *wt)
-        e1 = w.emb[s0.long()].contiguous()
-        vrow_in = (z, e1, v00, outv0, outm0, cpv, *wv)
-
-        want_v = sc.vrow_plain(*vrow_in)
-        got_v = sc.vrow(*vrow_in)
-        torch.cuda.synchronize()
-        vrow_err = 0.0
-        for name, gt, wt_ in zip(("outv", "outm", "v0", "hup"), got_v, want_v):
-            err, rel = rel_err(gt, wt_)
-            vrow_err = max(vrow_err, err)
-            log(f"vrow {name}: max abs err {err:.3e}, relative to scale {rel:.3e}")
-            if not rel <= VROW_TOL:
-                raise AssertionError(f"vrow {name} disagrees: {rel:.3e} > {VROW_TOL}")
-
-        outv1, _, _, hup1 = want_v
-        row_in = (*wr, outh0, outmh0, outv1, hup1, e1, g1, *wt)
-        want_r = sc.row_plain(*row_in, with_logits=True)
-        got_r = sc.row(*row_in, with_logits=True)
-        torch.cuda.synchronize()
-        same = got_r[2] == want_r[2]                      # [W, n]
-        agree = same.float().mean().item()
-        log(f"row samples agree on {agree:.6f} of {same.numel()} positions")
-        if agree < SAMPLE_AGREEMENT:
-            raise AssertionError(f"row samples agree on {agree} < {SAMPLE_AGREEMENT}")
-        # logits are comparable where every earlier sample of the chain agreed
-        prefix = torch.cumprod(same.int(), 0).bool()
-        ok = torch.cat([torch.ones_like(prefix[:1]), prefix[:-1]], 0)
-        row_err, rel = rel_err(got_r[3][ok], want_r[3][ok])
-        log(f"row logits: max abs err {row_err:.3e}, relative to scale {rel:.3e} "
-            f"over {ok.float().mean().item():.4f} of positions")
-        if not rel <= LOGITS_TOL:
-            raise AssertionError(f"row logits disagree: {rel:.3e} > {LOGITS_TOL}")
-
-        # times at the main path's shapes (the plain versions run the same
-        # arithmetic as many small launches; no single library call
-        # computes either chain)
-        vrow_ms = time_ms(lambda: sc.vrow(*vrow_in), reps=10)
-        vrow_plain_ms = time_ms(lambda: sc.vrow_plain(*vrow_in), reps=3)
-        row_ms = time_ms(lambda: sc.row(*row_in), reps=10)
-        row_plain_ms = time_ms(lambda: sc.row_plain(*row_in), reps=2)
-
-    n_res = pcnn.num_resnet
-    vrow_flops = 2 * wid * n * (9 * f * f + n_lvl * (12 * f * f + 24 * f * f) + n_res * 2 * f * f)
-    row_flops = 2 * n * wid * (2 * f * f + n_lvl * (12 * f * f + 16 * f * f) + f * k_idx)
-    vrow_bytes = nbytes(*vrow_in, *want_v)
-    row_bytes = nbytes(*row_in, *want_r[:3])  # timed without the logits out
-
-    vrow_bound, vrow_by = bound(vrow_flops, vrow_bytes)
-    row_bound, row_by = bound(row_flops, row_bytes)
-    log(f"vrow: {vrow_ms:.3f} ms/launch (plain {vrow_plain_ms:.3f}), bound "
-        f"{vrow_bound:.3f} ms by {vrow_by} ({vrow_flops / 1e9:.1f} GFLOP, "
-        f"{vrow_bytes / 1e6:.1f} MB)")
-    log(f"row:  {row_ms:.3f} ms/launch (plain {row_plain_ms:.3f}), bound "
-        f"{row_bound:.3f} ms by {row_by} ({row_flops / 1e9:.1f} GFLOP, "
-        f"{row_bytes / 1e6:.1f} MB)")
-    # The row kernel streams every weight of a pixel once per block (8
-    # samples), pixel by pixel: hlw, wa and wb of each level, lw.
-    row_blocks = -(-n // 8)
-    row_wbytes = row_blocks * wid * 4 * (2 * f * f + n_lvl * 28 * f * f + f * k_idx)
-    log(f"row:  weight stream {row_wbytes / row_blocks / (row_ms * 1e6):.1f} GB/s "
-        f"per busy SM ({row_blocks} blocks, {row_wbytes / 1e9:.1f} GB a launch), "
-        f"{row_flops / (row_ms * 1e6):.1f} GFLOP/s, {row_ms / row_bound:.2f}x its bound")
-    # The vrow kernel streams every weight once per block (TS samples):
-    # viw, huw, then wav, waux (down levels) and wbv of each level.
-    vrow_nblocks = sc.vrow_blocks(wid, n)
-    vrow_wbytes = vrow_nblocks * 4 * (9 * f * f + n_lvl * 36 * f * f + n_res * 2 * f * f)
-    log(f"vrow: {vrow_nblocks} blocks ({-(-n // vrow_nblocks)} samples each), weight "
-        f"stream {vrow_wbytes / vrow_nblocks / (vrow_ms * 1e6):.1f} GB/s per busy SM "
-        f"({vrow_wbytes / 1e9:.2f} GB of L2 reads a launch), "
-        f"{vrow_flops / (vrow_ms * 1e6) / vrow_nblocks:.1f} GFLOP/s per busy SM, "
-        f"{vrow_ms / vrow_bound:.2f}x its bound")
+    sampler = sampler_phase(pcnn, cond, gen)
+    vrow_err, row_err = sampler["vrow"]["max_abs_err"], sampler["row"]["max_abs_err"]
+    vrow_ms, row_ms = sampler["vrow"]["ms"], sampler["row"]["ms"]
 
     # ---- 3. the slice: three imputation requests ---------------------------
     stamp("PM-VQVAE imputation")
@@ -2980,28 +3269,7 @@ def main() -> int:
         f"requests 1-{REQUESTS - 1}; kernels' share of a request "
         f"~{hgt * (vrow_ms + row_ms) / (1e3 * np.mean(steady)):.3f}")
 
-    # A small request through the kernels against the plain path on the CPU,
-    # with the same noise: the same codes, and imputations to 1e-4.
-    cpu_model = type(model)(
-        pm_cfg["conditional_dim"], vq_cfg, pc_cfg
-    ).eval()
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    xs, bs = x[:2], b[:2]
-    noise = sc.gumbel_noise((hgt, wid, 2 * 2, k_idx), gen, dev)
-    with torch.no_grad():
-        cond_g = model.conditional_latents(xs, bs)
-        codes_g = sc.pixelcnn_sample(pcnn, 2, cond_g, noise=noise)
-        cond_c = cpu_model.conditional_latents(xs.cpu(), bs.cpu())
-        codes_c = sc.pixelcnn_sample(cpu_model.pixel_cnn, 2, cond_c, noise=noise.cpu())
-        imp_g = pm_vqvae_impute(model, xs, bs, 2, noise=noise)
-        imp_c = pm_vqvae_impute(cpu_model, xs.cpu(), bs.cpu(), 2, noise=noise.cpu())
-    code_agree = (codes_g.cpu() == codes_c).float().mean().item()
-    same_grid = (codes_g.cpu() == codes_c).flatten(2).all(-1).T  # [B, S]
-    imp_err = (imp_g.cpu() - imp_c)[same_grid].abs().max().item()
-    log(f"small request vs CPU plain path: codes agree on {code_agree:.5f}, "
-        f"imputation max abs err {imp_err:.3e} over {int(same_grid.sum())} of 4 grids")
-    if code_agree < SAMPLE_AGREEMENT or imp_err > 1e-4:
-        raise AssertionError("the GPU path disagrees with the CPU plain path")
+    small_request_check(model, x[:2], b[:2], gen, pm_cfg["conditional_dim"], vq_cfg, pc_cfg)
 
     # ---- 4. the codebook search, 5. the gated chain kernels, 6. the modes --
     stamp("codebook search and gated chain kernels")
@@ -3065,16 +3333,22 @@ def main() -> int:
                               celeb_a["train_vqvae"]["run_dir"], f"{work}/data")
         log(f"phase 16: {resume['seconds']:.1f} s | {smi}")
 
-    # ---- 17. results -------------------------------------------------------
+        # ---- 17. PM-VQVAE digits16: the kernels' 64-filter builds -------------
+        stamp("PM-VQVAE digits16 at 64 filters")
+        digits16_lines, digits16 = digits16_phase(args, gen, f"{work}/digits16")
+        log(f"phase 17: {digits16['seconds']:.1f} s | {smi}")
+
+    # ---- 18. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
          "source": "posterior_matching_torch/ops/csrc/sampler_vrow.cu",
          "replaces": "posterior_matching_tpu/ops/sampler_chain.py:124",
          "launches": launches["sampler_vrow"], "max_abs_err": vrow_err,
-         "ms": vrow_ms, "plain_ms": vrow_plain_ms, "bound_ms": vrow_bound,
-         "bound_by": vrow_by, "library_ms": None,
-         "design": f"{vrow_nblocks} blocks of 12 warps; operands built in shared "
+         "ms": vrow_ms, "plain_ms": sampler["vrow"]["plain_ms"],
+         "bound_ms": sampler["vrow"]["bound_ms"], "bound_by": sampler["vrow"]["bound_by"],
+         "library_ms": None,
+         "design": f"{sampler['vrow']['blocks']} blocks of 12 warps; operands built in shared "
                    "memory once a GEMM (zero halo rows); weights streamed by "
                    "cp.async.bulk through 3 x 32 KB mbarrier slots, each refilled by "
                    "the last warp done with it; 16 rows x 4 or 8 x 8 columns a "
@@ -3083,13 +3357,14 @@ def main() -> int:
          "source": "posterior_matching_torch/ops/csrc/sampler_row.cu",
          "replaces": "posterior_matching_tpu/ops/sampler_chain.py:215",
          "launches": launches["sampler_row"], "max_abs_err": row_err,
-         "ms": row_ms, "plain_ms": row_plain_ms, "bound_ms": row_bound,
-         "bound_by": row_by, "library_ms": None,
+         "ms": row_ms, "plain_ms": sampler["row"]["plain_ms"],
+         "bound_ms": sampler["row"]["bound_ms"], "bound_by": sampler["row"]["bound_by"],
+         "library_ms": None,
          "design": "one block of 8 consumer warps + 1 producer warp per 8 samples; "
                    "operands gathered into shared memory once a GEMM; weights "
                    "streamed by cp.async.bulk through 2 x 64 KB mbarrier slots; "
                    "8 samples x 4 columns a lane, split-K reduced in fixed order"},
-        vq_line, *chain_lines, *vdvae_lines,
+        vq_line, *chain_lines, *vdvae_lines, *digits16_lines,
     ]
     summary = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -3097,7 +3372,7 @@ def main() -> int:
         "request_s": req_s, "psnr": psnrs, "modes_first_step": first_step,
         "training": train, "vqvae_cli": vqvae_cli, "vdvae": vdvae, "kernels": kernels,
         "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval, "pm_vae": pm_vae,
-        "vade": vade, "resume": resume,
+        "vade": vade, "resume": resume, "digits16": digits16,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)

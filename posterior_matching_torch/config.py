@@ -241,8 +241,8 @@ def vqvae_digits16() -> dict:
 
 def pm_vqvae_digits16() -> dict:
     """``configs/pm_vqvae_digits16.py`` whole (:15-47): 4x4 codes, 6 resnet
-    levels of 64 filters, rectangle masks. The chain and sampler kernels
-    are built for 128 filters, so this runs on the CPU only."""
+    levels of 64 filters (the chain and sampler kernels' 64-filter build),
+    rectangle masks."""
     return {
         "data": _digits16_data(32, "RectangleMaskGenerator"),
         "vqvae_dir": "runs/vqvae-digits16",

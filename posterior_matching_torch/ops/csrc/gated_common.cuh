@@ -21,7 +21,10 @@
 // A block of 16 warps owns a 64-row tile and all N columns; a warp owns
 // 32 rows x N/8 columns as 2 x N/64 m16n8 fragments, its columns half in
 // [0, N/2) and half at the same offsets in [N/2, N), so that one thread
-// holds column j and column j + F of a gated epilogue. 16 warps of at most
+// holds column j and column j + F of a gated epilogue (N = 64, conv_a's N
+// at 64 filters, is one fragment column a warp: no gated epilogue runs at
+// that N). The kernels are built for the widths of GSK_DISPATCH_WIDTHS;
+// every F-sized shape is a template parameter. 16 warps of at most
 // 128 registers (4 a scheduler) hide the MMAs' and loads' latencies. The K
 // loop walks 64-deep chunks with one barrier each: B (weights, or
 // cotangent rows for wgrad) lands by 16-byte cp.async copies in one of two
@@ -46,7 +49,6 @@
 
 namespace gsk {
 
-constexpr int kF = 128;        // num_filters the kernels are built for
 constexpr int kThreads = 512;  // threads per block of every GEMM kernel
 constexpr int kWarpsN = kThreads / 32 / 2;  // a block's warps across N (2 across its rows)
 constexpr int kBM = 64;        // rows (data_gemm) or channels (wgrad) of a block tile
@@ -101,8 +103,27 @@ enum GeoInt {
   I_L, I_B, I_H, I_W, I_CD,
   I_TV_SKH, I_TV_SKW, I_TV_PT, I_TV_PL,
   I_TH_SKH, I_TH_SKW, I_TH_PT, I_TH_PL,
-  I_SEED, I_BASE, I_THRESH, I_DROP, I_COUNT
+  I_SEED, I_BASE, I_THRESH, I_DROP, I_F, I_COUNT
 };
+
+// num_filters the kernels are built for: 128 (configs/pm_vqvae_celeb_a.py,
+// pm_vqvae_mnist.py) and 64 (pm_vqvae_digits16.py).
+__host__ __device__ constexpr bool width_built(int f) { return f == 128 || f == 64; }
+
+// `return call` with F a constant equal to `f`, one of the built widths;
+// cudaErrorInvalidValue for any other.
+#define GSK_DISPATCH_WIDTHS(f, call)   \
+  do {                                 \
+    if ((f) == 128) {                  \
+      constexpr int F = 128;           \
+      return call;                     \
+    }                                  \
+    if ((f) == 64) {                   \
+      constexpr int F = 64;            \
+      return call;                     \
+    }                                  \
+    return (int)cudaErrorInvalidValue; \
+  } while (0)
 
 struct Geo {
   int R, B, H, W, HW;
@@ -195,12 +216,18 @@ __device__ __forceinline__ float2 split_tf32(float x) {
 
 // ---- the GEMM core -----------------------------------------------------------
 
+// Floats of a B stage: a [kKC][N + 8] or an [N][kBPitchT] chunk (equal at
+// N = 128; the first is larger at N = 64, the second at N = 256).
+template <int N>
+__host__ __device__ constexpr int b_stage() {
+  return kKC * (N + 8) > N * kBPitchT ? kKC * (N + 8) : N * kBPitchT;
+}
+
 // Dynamic shared memory of data_gemm<N> and wgrad<N>: two A stages of two
-// planes, then kStages B stages of N * kBPitchT floats (a stage holds a
-// [kKC][N + 8] or an [N][kBPitchT] chunk).
+// planes, then kStages B stages.
 template <int N>
 constexpr int smem_bytes() {
-  return (2 * 2 * kAPlane + kStages * N * kBPitchT) * 4;
+  return (2 * 2 * kAPlane + kStages * b_stage<N>()) * 4;
 }
 
 // n8 tiles of a warp, and the accumulators of a thread: 2 m16 tiles x NT
@@ -213,12 +240,17 @@ template <int N>
 using Acc = float[2][n_tiles<N>()][4];
 
 // The first column of n8 tile u of this thread's warp: NT / 2 tiles at
-// warp column wn * N / (2 kWarpsN) in each half of N.
+// warp column wn * N / (2 kWarpsN) in each half of N; with one tile a warp
+// (N = 64), tile wn.
 template <int N>
 __device__ __forceinline__ int tile_n0(int u) {
   constexpr int NT = n_tiles<N>();
-  return (u < NT / 2 ? 0 : N / 2) + (threadIdx.x / 32 % kWarpsN) * (N / (2 * kWarpsN)) +
-         (u % (NT / 2)) * 8;
+  static_assert(N % (8 * kWarpsN) == 0 && (NT == 1 || NT % 2 == 0), "whole n8 tiles a warp");
+  const int wn = threadIdx.x / 32 % kWarpsN;
+  if constexpr (NT == 1)
+    return wn * 8;
+  else
+    return (u < NT / 2 ? 0 : N / 2) + wn * (N / (2 * kWarpsN)) + (u % (NT / 2)) * 8;
 }
 
 // The first row of m16 tile mt of this thread's warp.
@@ -392,8 +424,8 @@ __device__ __forceinline__ void stage_b(float* dst, const DataArgs& p, const Cur
 }
 
 // out = epilogue(sum_terms A_t @ B_t) for rows [kBM * blockIdx.x, + kBM) and
-// all N columns. N is F (conv_a) or 2F (conv_b, and every product whose
-// epilogue pairs column j with j + F).
+// all N columns. N is F (conv_a: E_BIAS) or 2F (conv_b, and every product
+// whose epilogue, E_GATE or E_CELU_BWD, pairs column j with j + F).
 template <int N>
 __global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__ DataArgs p) {
   constexpr int NT = n_tiles<N>();
@@ -401,7 +433,7 @@ __global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__
   // the two rows of a warp are 8 apart, so its stores spread over the banks
   constexpr int kAStep = kThreads / (kKC / 4), kAR = kBM / kAStep;
   static_assert(kAStep % 16 == 0, "a row pass covers whole m16 tiles");
-  constexpr int F = kF;
+  constexpr int F = N / 2;  // of the paired epilogues
   extern __shared__ __align__(16) float smem[];
   float* sA = smem;
   float* sB = smem + 4 * kAPlane;
@@ -479,7 +511,7 @@ __global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__
   for (int ti = 0; ti < p.nt; ++ti) nc += p.t[ti].K / kKC;
   Cursor ca{0, 0}, cb{0, 0}, cc{0, 0};  // A's next chunk, B's, the MMAs'
   for (int s = 0; s < kStages - 1; ++s) {
-    stage_b<N>(sB + s * N * kBPitchT, p, cb);
+    stage_b<N>(sB + s * b_stage<N>(), p, cb);
     cb.next(p);
   }
   load_a(ca);
@@ -488,12 +520,12 @@ __global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__
   for (int c = 0; c < nc; ++c) {
     cp_async_wait_ring();  // this thread's copies of chunk c landed
     __syncthreads();   // everyone's, and A stage c % 2; B stage c - 1 is free
-    stage_b<N>(sB + (c + kStages - 1) % kStages * N * kBPitchT, p, cb);
+    stage_b<N>(sB + (c + kStages - 1) % kStages * b_stage<N>(), p, cb);
     cb.next(p);
     const bool more = c + 1 < nc;
     if (more) load_a(ca);
     const float* a = sA + (c % 2) * 2 * kAPlane;
-    const float* b = sB + c % kStages * N * kBPitchT;
+    const float* b = sB + c % kStages * b_stage<N>();
     if (p.t[cc.ti].trans)
       mma_chunk<N, 1, kBPitchT>(acc, a, b);
     else

@@ -78,11 +78,11 @@ struct Level {
 using LevelFwd = Level<LF_COUNT>;
 using LevelBwd = Level<LB_COUNT>;
 
-// The settings every level shares: geometry, taps, dropout.
+// The settings every level shares: geometry, width, taps, dropout.
 struct Chain {
   Geo g;
   Taps tv, th;
-  int L, CD, base;
+  int L, CD, F, base;
   bool drop;
   uint32_t seed, thresh;
   float inv_keep;
@@ -98,7 +98,9 @@ inline bool make_chain(const int* ints, int nints, float inv_keep, Chain& c) {
   c.g = make_geo(ints);
   c.L = ints[I_L];
   c.CD = ints[I_CD];
-  if (c.L < 1 || c.L > kMaxLevels || c.g.R < 1 || c.CD < 1) return false;
+  c.F = ints[I_F];
+  if (c.L < 1 || c.L > kMaxLevels || c.g.R < 1 || c.CD < 1 || !width_built(c.F))
+    return false;
   c.tv = make_taps(ints[I_TV_SKH], ints[I_TV_SKW], ints[I_TV_PT], ints[I_TV_PL]);
   c.th = make_taps(ints[I_TH_SKH], ints[I_TH_SKW], ints[I_TH_PT], ints[I_TH_PL]);
   c.base = ints[I_BASE];
@@ -121,9 +123,10 @@ inline void unpack_levels(const void* const* ptrs, int head, int L, Level<N>* lv
 
 // proj[l][s][b][c] = sum_k cond[b][k] * wc_s,l[k][c] (s = 0 vertical,
 // 1 horizontal); one thread per (l, s, b, c).
+template <int F>
 __global__ void proj_kernel(const float* __restrict__ cond, const PerLevel wcv,
                             const PerLevel wch, float* __restrict__ proj, int B, int CD) {
-  constexpr int N = 2 * kF;
+  constexpr int N = 2 * F;
   const int c = threadIdx.x, b = blockIdx.x, s = blockIdx.y, l = blockIdx.z;
   const float* wc = s == 0 ? wcv.p[l] : wch.p[l];
   float acc = 0.f;
@@ -133,10 +136,10 @@ __global__ void proj_kernel(const float* __restrict__ cond, const PerLevel wcv,
 
 // The gate's derivative: g = carry + ext (either may be null),
 // db1 = [g * sg, g * act * sg * (1 - sg)] with act, gate = b1[:F], b1[F:].
+template <int F>
 __global__ void gate_bwd(const float* __restrict__ carry, const float* __restrict__ ext,
                          const float* __restrict__ b1, float* __restrict__ gtot,
                          float* __restrict__ db1, int R) {
-  constexpr int F = kF;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)R * F) return;
   const size_t r = idx / F, j = idx % F;
@@ -263,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 1) wgrad(const __grid_constant__ WgA
   // cotangent rows k0 .. k0 + kKC into B stage `s`, zeros past rend
   auto stage_b = [&](int k0, int s) {
     if (k0 < rend) {
-      float* dst = sB + s * N * kBPitchT;
+      float* dst = sB + s * b_stage<N>();
       constexpr int P = N / 4, STEP = kThreads / P;
       const int kr = tid / P, c4 = tid % P;
       uint32_t d = smem_u32(dst + kr * (N + 8) + 4 * c4);
@@ -287,7 +290,8 @@ __global__ void __launch_bounds__(kThreads, 1) wgrad(const __grid_constant__ WgA
     stage_b(k0 + (kStages - 1) * kKC, (c + kStages - 1) % kStages);
     const bool more = c + 1 < nc;
     if (more) load_a(k0 + kKC);
-    mma_chunk<N, N + 8, 1>(acc, sA + (c % 2) * 2 * kAPlane, sB + c % kStages * N * kBPitchT);
+    mma_chunk<N, N + 8, 1>(acc, sA + (c % 2) * 2 * kAPlane,
+                           sB + c % kStages * b_stage<N>());
     if (more) store_a((c + 1) % 2);
   }
 
@@ -339,9 +343,10 @@ __global__ void sum_images(const float* __restrict__ x, const PerLevelOut out, i
 }
 
 // dwc_l[k][c] = sum_b cond[b][k] * rs[l][b][c]; block (k, l), thread c.
+template <int F>
 __global__ void dwc_kernel(const float* __restrict__ cond, const float* __restrict__ rs,
                            const PerLevelOut dwc, int B, int CD) {
-  constexpr int N = 2 * kF;
+  constexpr int N = 2 * F;
   const int c = threadIdx.x, k = blockIdx.x, l = blockIdx.y;
   float acc = 0.f;
   for (int b = 0; b < B; ++b)
@@ -351,10 +356,11 @@ __global__ void dwc_kernel(const float* __restrict__ cond, const float* __restri
 
 // dcond[b][k] = sum_l (rsv[l][b] . wcv_l[k] + rsh[l][b] . wch_l[k]); one
 // warp per (b, k).
+template <int F>
 __global__ void dcond_kernel(const float* __restrict__ rsv, const PerLevel wcv,
                              const float* __restrict__ rsh, const PerLevel wch,
                              float* __restrict__ dcond, int L, int B, int CD) {
-  constexpr int N = 2 * kF;
+  constexpr int N = 2 * F;
   const int wid = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (wid >= B * CD) return;
@@ -374,7 +380,7 @@ __global__ void dcond_kernel(const float* __restrict__ rsv, const PerLevel wcv,
 
 // The split of chain c's weight kind of `taps` taps.
 inline Split wgrad_split(const Chain& c, int taps) {
-  return wgrad_split(c.g.R, (2 * kF / kBM) * taps * c.L);
+  return wgrad_split(c.g.R, (2 * c.F / kBM) * taps * c.L);
 }
 
 // The row splits of chain c's weight kinds: the vertical convs', the
@@ -393,7 +399,7 @@ inline long long wgrad_part_floats(const Chain& c) {
   wgrad_splits(c, splits);
   long long most = 0;
   for (int i = 0; i < 3; ++i) {
-    const long long n = splits[i] == 1 ? 0 : (long long)c.L * splits[i] * taps[i] * 4 * kF * kF;
+    const long long n = splits[i] == 1 ? 0 : (long long)c.L * splits[i] * taps[i] * 4 * c.F * c.F;
     most = n > most ? n : most;
   }
   return most;
@@ -423,11 +429,12 @@ inline void launch_wgrad(const WgArgs& a, dim3 grid, cudaStream_t stream) {
 // ---- the forward -----------------------------------------------------------
 
 // The L levels of `lv` from the chain inputs (level l's inputs are level
-// l - 1's outputs): each level's outputs and saves, through `proj`
-// ([L, 2, B, 2F] scratch). Returns cudaGetLastError() after the launches.
+// l - 1's outputs) at c.F == F filters: each level's outputs and saves,
+// through `proj` ([L, 2, B, 2F] scratch). Returns cudaGetLastError() after
+// the launches.
+template <int F>
 inline int levels_fwd(const Chain& c, const float* xv0, const float* xh0, const float* cond,
                       const LevelFwd* lv, float* proj, cudaStream_t stream) {
-  constexpr int F = kF;
   const Geo g = c.g;
   const bool down = lv[0].p[LF_SKV] != nullptr;
   PerLevel wcv{}, wch{};
@@ -435,7 +442,7 @@ inline int levels_fwd(const Chain& c, const float* xv0, const float* xh0, const 
     wcv.p[l] = lv[l].in(LF_WCV);
     wch.p[l] = lv[l].in(LF_WCH);
   }
-  proj_kernel<<<dim3(g.B, 2, c.L), 2 * F, 0, stream>>>(cond, wcv, wch, proj, g.B, c.CD);
+  proj_kernel<F><<<dim3(g.B, 2, c.L), 2 * F, 0, stream>>>(cond, wcv, wch, proj, g.B, c.CD);
 
   const int bmode = c.drop ? A_CELU_DROP : A_CELU;
   for (int l = 0; l < c.L; ++l) {
@@ -496,11 +503,11 @@ struct BwdPass {
   float* part;         // wgrad_part_floats(c) floats
 };
 
-// The VJP of the L levels of `lv`. Returns cudaGetLastError() after the
-// launches.
+// The VJP of the L levels of `lv` at c.F == F filters. Returns
+// cudaGetLastError() after the launches.
+template <int F>
 inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
                       cudaStream_t stream) {
-  constexpr int F = kF;
   const Geo g = c.g;
   const int L = c.L;
   const bool down = lv[0].p[LB_SKV] != nullptr;
@@ -523,10 +530,10 @@ inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
       // g = dv + gv_ext + daux_h for the vertical block (in gvtot), the
       // carry plus the level's external cotangent for the horizontal one
       if (vert)
-        gate_bwd<<<ew_blocks, kThreads, 0, stream>>>(s.gvtot, nullptr, v.in(LB_B1V), nullptr,
+        gate_bwd<F><<<ew_blocks, kThreads, 0, stream>>>(s.gvtot, nullptr, v.in(LB_B1V), nullptr,
                                                      db1, g.R);
       else
-        gate_bwd<<<ew_blocks, kThreads, 0, stream>>>(top ? nullptr : dh, v.in(LB_GH),
+        gate_bwd<F><<<ew_blocks, kThreads, 0, stream>>>(top ? nullptr : dh, v.in(LB_GH),
                                                      v.in(LB_B1H), s.gtot, db1, g.R);
       // da1 = concat_elu'(a1) (conv_b^T(db1) * mask / keep)
       DataArgs d{};
@@ -640,9 +647,9 @@ inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
   sum_images<<<L, 2 * F, 0, stream>>>(s.rsh, dbbh, g.B, 2 * F);
   sum_images<<<L, F, 0, stream>>>(s.rav, dbav, g.B, F);
   sum_images<<<L, F, 0, stream>>>(s.rah, dbah, g.B, F);
-  dwc_kernel<<<dim3(c.CD, L), 2 * F, 0, stream>>>(s.cond, s.rsv, dwcv, g.B, c.CD);
-  dwc_kernel<<<dim3(c.CD, L), 2 * F, 0, stream>>>(s.cond, s.rsh, dwch, g.B, c.CD);
-  dcond_kernel<<<(g.B * c.CD + 7) / 8, 256, 0, stream>>>(s.rsv, wcv, s.rsh, wch, s.dcond, L,
+  dwc_kernel<F><<<dim3(c.CD, L), 2 * F, 0, stream>>>(s.cond, s.rsv, dwcv, g.B, c.CD);
+  dwc_kernel<F><<<dim3(c.CD, L), 2 * F, 0, stream>>>(s.cond, s.rsh, dwch, g.B, c.CD);
+  dcond_kernel<F><<<(g.B * c.CD + 7) / 8, 256, 0, stream>>>(s.rsv, wcv, s.rsh, wch, s.dcond, L,
                                                          g.B, c.CD);
   return (int)cudaGetLastError();
 }

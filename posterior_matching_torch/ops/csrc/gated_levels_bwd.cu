@@ -21,7 +21,8 @@
 // in-image taps against ~70 MB read and written; a segment of 4 four times
 // that. As the GEMM core does it, 3 TF32 tensor-core products per float32
 // product: 0.19 / 0.20 ms at 495 TFLOP/s (0.46 / 0.50 ms as float32 FMAs at
-// 67 TFLOP/s).
+// 67 TFLOP/s). At digits16's shapes (512 rows of 4 x 4, F = 64: the
+// 64-filter build) 0.40 / 0.43 GFLOP a level, 2.4 / 2.6 us: launch-bound.
 //
 // Design. gated_levels.cuh's levels_bwd over the levels: the data gradients
 // a launch over all rows per phase and level, top level first, each level's
@@ -65,7 +66,7 @@ int run_levels_bwd(const void* const* ptrs, int nptrs, const int* ints, int nint
   const BwdPass s{in(XV0), in(XH0), in(COND), out(DXV0), out(DXH0), out(DCOND),
                   out(DB1V), out(DB1H), out(DA1V), out(DA1H), out(GTOT), out(GVTOT),
                   out(RSV), out(RSH), out(RAV), out(RAH), out(PART)};
-  return levels_bwd(c, s, lv, static_cast<cudaStream_t>(stream));
+  GSK_DISPATCH_WIDTHS(c.F, levels_bwd<F>(c, s, lv, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace

@@ -15,7 +15,9 @@
 // ~773 GFLOP at the in-image taps against ~1.5 GB read and written (0.45 ms
 // at 3.35 TB/s). The GEMM core (gated_common.cuh) does each float32
 // product as 3 TF32 tensor-core products: 4.7 ms at 495 TFLOP/s (11.5 ms as
-// float32 FMAs at 67 TFLOP/s).
+// float32 FMAs at 67 TFLOP/s). At digits16's (512 rows of 4 x 4, F = 64,
+// L = 6: the 64-filter build) 2.4 / 2.6 GFLOP a pass, 15 / 16 us:
+// launch-bound.
 //
 // Design. The TPU kernel carries dv/dh through VMEM across a sequential
 // grid and accumulates dW in a resident output block. On Hopper the
@@ -42,19 +44,9 @@ enum BwdPtr {
   DB1V, DB1H, DA1V, DA1H, GTOT, GVTOT, RSV, RSH, RAV, RAH, PART, BWD_NPTR
 };
 
-}  // namespace
-
-// The VJP of one pass. `ptrs` holds BWD_NPTR device pointers in the order
-// of ops/gated_chain.py::_BWD_PTRS (the skip and skip-weight entries null
-// on the up pass; the last is the weight gradients' partial sums,
-// pm_gated_stream_bwd_part_floats floats), `ints` the geometry of
-// _GEOMETRY. Returns cudaGetLastError() after the launches.
-extern "C" int pm_gated_stream_bwd(const void* const* ptrs, int nptrs, const int* ints,
-                                   int nints, float inv_keep, void* stream) {
-  constexpr int F = kF;
-  Chain c;
-  if (nptrs != BWD_NPTR || !make_chain(ints, nints, inv_keep, c))
-    return (int)cudaErrorInvalidValue;
+// The VJP of one pass of chain c at c.F == F filters.
+template <int F>
+int run_bwd(const void* const* ptrs, const Chain& c, cudaStream_t stream) {
   const size_t RF = (size_t)c.g.R * F, FF = (size_t)F * F;
   const size_t tv = c.tv.n, th = c.th.n, cd = c.CD;
   // each stack's [L, ...] level stride, in floats
@@ -83,7 +75,22 @@ extern "C" int pm_gated_stream_bwd(const void* const* ptrs, int nptrs, const int
   const BwdPass s{in(XV0), in(XH0), in(COND), out(DXV0), out(DXH0), out(DCOND),
                   out(DB1V), out(DB1H), out(DA1V), out(DA1H), out(GTOT), out(GVTOT),
                   out(RSV), out(RSH), out(RAV), out(RAH), out(PART)};
-  return levels_bwd(c, s, lv, static_cast<cudaStream_t>(stream));
+  return levels_bwd<F>(c, s, lv, stream);
+}
+
+}  // namespace
+
+// The VJP of one pass. `ptrs` holds BWD_NPTR device pointers in the order
+// of ops/gated_chain.py::_BWD_PTRS (the skip and skip-weight entries null
+// on the up pass; the last is the weight gradients' partial sums,
+// pm_gated_stream_bwd_part_floats floats), `ints` the geometry of
+// _GEOMETRY. Returns cudaGetLastError() after the launches.
+extern "C" int pm_gated_stream_bwd(const void* const* ptrs, int nptrs, const int* ints,
+                                   int nints, float inv_keep, void* stream) {
+  Chain c;
+  if (nptrs != BWD_NPTR || !make_chain(ints, nints, inv_keep, c))
+    return (int)cudaErrorInvalidValue;
+  GSK_DISPATCH_WIDTHS(c.F, run_bwd<F>(ptrs, c, static_cast<cudaStream_t>(stream)));
 }
 
 // Floats of the `part` scratch pm_gated_stream_bwd needs for a geometry (0

@@ -16,7 +16,9 @@
 // up pass and 2.03 on the down pass: 187 + 200 GFLOP per training step
 // against ~0.4 GB of saves written per pass (0.12 ms at 3.35 TB/s). The GEMM
 // core does each float32 product as 3 TF32 tensor-core products: 2.3 ms at
-// 495 TFLOP/s (5.8 ms as float32 FMAs at 67 TFLOP/s).
+// 495 TFLOP/s (5.8 ms as float32 FMAs at 67 TFLOP/s). At digits16's
+// (512 rows of 4 x 4, F = 64, L = 6: the 64-filter build) a pass is 1.2 /
+// 1.3 GFLOP up / down, 7.3 / 7.9 us: its 25 launches set its time.
 //
 // Design. The Pallas kernel walks (level, chunk) in order and carries the
 // stacks in VMEM. On Hopper blocks run in parallel and unordered, and one
@@ -41,18 +43,9 @@ enum FwdPtr {
   XVO, XHO, A1V, A1H, B1V, B1H, PROJ, FWD_NPTR
 };
 
-}  // namespace
-
-// One pass. `ptrs` holds FWD_NPTR device pointers in the order of
-// ops/gated_chain.py::_FWD_PTRS (skv, skh, wxv, wxh_s null on the up pass),
-// `ints` the geometry of _GEOMETRY. Returns cudaGetLastError() after the
-// launches.
-extern "C" int pm_gated_stream_fwd(const void* const* ptrs, int nptrs, const int* ints,
-                                   int nints, float inv_keep, void* stream) {
-  constexpr int F = kF;
-  Chain c;
-  if (nptrs != FWD_NPTR || !make_chain(ints, nints, inv_keep, c))
-    return (int)cudaErrorInvalidValue;
+// One pass of chain c at c.F == F filters.
+template <int F>
+int run_fwd(const void* const* ptrs, const Chain& c, cudaStream_t stream) {
   const size_t RF = (size_t)c.g.R * F, FF = (size_t)F * F;
   const size_t tv = c.tv.n, th = c.th.n, cd = c.CD;
   // each stack's [L, ...] level stride, in floats
@@ -73,7 +66,20 @@ extern "C" int pm_gated_stream_fwd(const void* const* ptrs, int nptrs, const int
       lv[l].p[k.to] = ptrs[k.from] ? static_cast<const float*>(ptrs[k.from]) + l * k.stride
                                    : nullptr;
   auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
-  return levels_fwd(c, in(XV0), in(XH0), in(COND), lv,
-                    static_cast<float*>(const_cast<void*>(ptrs[PROJ])),
-                    static_cast<cudaStream_t>(stream));
+  return levels_fwd<F>(c, in(XV0), in(XH0), in(COND), lv,
+                       static_cast<float*>(const_cast<void*>(ptrs[PROJ])), stream);
+}
+
+}  // namespace
+
+// One pass. `ptrs` holds FWD_NPTR device pointers in the order of
+// ops/gated_chain.py::_FWD_PTRS (skv, skh, wxv, wxh_s null on the up pass),
+// `ints` the geometry of _GEOMETRY. Returns cudaGetLastError() after the
+// launches.
+extern "C" int pm_gated_stream_fwd(const void* const* ptrs, int nptrs, const int* ints,
+                                   int nints, float inv_keep, void* stream) {
+  Chain c;
+  if (nptrs != FWD_NPTR || !make_chain(ints, nints, inv_keep, c))
+    return (int)cudaErrorInvalidValue;
+  GSK_DISPATCH_WIDTHS(c.F, run_fwd<F>(ptrs, c, static_cast<cudaStream_t>(stream)));
 }

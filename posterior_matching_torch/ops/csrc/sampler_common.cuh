@@ -9,7 +9,22 @@
 
 namespace pmk {
 
-constexpr int kF = 128;  // num_filters the kernels are built for
+// num_filters the kernels are built for: 128 (configs/pm_vqvae_celeb_a.py,
+// pm_vqvae_mnist.py) and 64 (pm_vqvae_digits16.py). `return call` with F a
+// constant equal to `f`, one of the built widths; cudaErrorInvalidValue for
+// any other.
+#define PMK_DISPATCH_WIDTHS(f, call)   \
+  do {                                 \
+    if ((f) == 128) {                  \
+      constexpr int F = 128;           \
+      return call;                     \
+    }                                  \
+    if ((f) == 64) {                   \
+      constexpr int F = 64;            \
+      return call;                     \
+    }                                  \
+    return (int)cudaErrorInvalidValue; \
+  } while (0)
 
 // elu in the exp(min(z, 0)) - 1 form of the JAX package's _elu
 // (ops/gated_block.py:58-66), which the plain PyTorch version also uses.

@@ -11,7 +11,8 @@
 // Bound: operations. At the flagship shapes (rows W*n = 16*320, F = 128,
 // L = 24) one launch is 2*W*n*(9F*F + L*36F*F + (L/2)*2F*F) ~ 150.5 GFLOP of
 // float32 FMAs against ~460 MB of row tensors in and out; the weights are
-// (9F*F + L*36F*F + (L/2)*2F*F) * 4 B = 58.8 MB.
+// (9F*F + L*36F*F + (L/2)*2F*F) * 4 B = 58.8 MB. At digits16's (W*n =
+// 4*320, F = 64, L = 12) it is 4.75 GFLOP: 0.071 ms at 67 TFLOP/s.
 //
 // Design. The Pallas kernel walks levels as a sequential grid and keeps the
 // carry and skip stack in VMEM. Here the n sample chains are independent, so
@@ -50,6 +51,14 @@
 //   rows of every stage; the partial sums are reduced through shared memory
 //   (over the operand, once the GEMM's last stage is consumed) in a fixed
 //   group order, so results are bit-identical from launch to launch.
+// - Widths. The kernel is a template over F (PMK_DISPATCH_WIDTHS: 128, and
+//   digits16's 64). A stage is 64 F-wide K rows (32 KB at F = 128, 16 KB at
+//   64), so every weight matrix is whole stages and a warp takes 16 K rows
+//   of each at both widths. A thread's float4 columns of an F-wide group
+//   take F / 4 lanes: at F = 64 a warp's two half-warps take rows of their
+//   own, a thread holds 8 x 4 or 4 x 8 accumulators (half the 128 build's)
+//   and an epilogue thread 2 rows. At digits16's W = 4 a block owns 9
+//   samples (36 of its 48 row slots).
 //
 // The level outputs (outv, outm) and v0, hup are written to global memory;
 // outv and v0 are re-read, with plain loads, as the next level's carry (by
@@ -58,8 +67,8 @@
 //
 // Shared memory (dynamic, floats): the ring 3 x 8192 (96 KB), the operand
 // 2 x kSlots x 2F (108 KB), 3 mbarriers and 3 counts, the rows' operand
-// rows (48 ints): 209,124 bytes of the 232,448 a block may have. One block
-// of 384 threads per SM.
+// rows (48 ints): 209,124 bytes of the 232,448 a block may have at F =
+// 128, 104,676 at 64. One block of 384 threads per SM.
 #include <cmath>
 #include <cstdint>
 
@@ -69,41 +78,17 @@ namespace {
 
 using namespace pmk;
 
-constexpr int F = kF;
 constexpr int kRows = 48;     // row slots of a block's GEMMs (TS * W of them used)
 constexpr int kSlots = 54;    // operand rows of a source: TS x (W + 2) columns
-constexpr int kSrc = kSlots * 2 * F;  // floats of one operand source (rows of 2F)
-constexpr int kStage = 8192;  // floats a stage (32 KB)
 constexpr int kStages = 3;    // ring depth
 constexpr int kWarpK = 16;    // K rows of a stage each warp multiplies
 constexpr int kBlock = 384;  // 12 warps
 constexpr int kWarps = kBlock / 32;
-static_assert(F == 128, "the tiles assume F = 128");
 
 // Samples a block owns at width W.
 __host__ __device__ constexpr int samples_per_block(int W) {
   return kRows / W < kSlots / (W + 2) ? kRows / W : kSlots / (W + 2);
 }
-
-// Shared memory layout, in floats.
-constexpr int kOffOp = kStages * kStage;
-constexpr int kOffBar = kOffOp + 2 * kSrc;      // uint64_t full[kStages]
-constexpr int kOffDone = kOffBar + 2 * kStages;  // int done[kStages]
-constexpr int kOffSlot = kOffDone + kStages;     // int [kRows]: each row's operand row
-constexpr size_t kSmemBytes = (size_t)(kOffSlot + kRows) * sizeof(float);
-static_assert(kSmemBytes <= 232448, "over the 227 KB a block may have");
-static_assert(kOffBar % 2 == 0, "mbarriers are 8-byte aligned");
-
-// A product's register tile and its K split (see the header).
-template <int N>
-struct Tile {
-  static constexpr int G = N == F ? 4 : 2;  // K groups
-  static constexpr int RT = kRows / (kWarps / G);
-  static constexpr int CT = N == F ? 4 : 8;
-  static constexpr int SR = kStage / N;  // K rows a stage
-  static_assert(G * kWarpK == SR && RT * CT == 64, "");
-  static_assert(G * kRows * N <= 2 * kSrc, "the partials overlay the operand");
-};
 
 // K of a GEMM in segments of kseg rows: segment i reads source src0 + i /
 // ntap at column shift i % 3 - 1 (ntap 3) or 0 (ntap 1).
@@ -116,83 +101,6 @@ struct VrowArgs {
   const float *viw, *vib, *huw, *hub, *wav, *bav, *wbv, *bbv, *waux;
   float *outv, *outm, *v0, *hup;
   int L, W, n, TS;
-};
-
-// Stages of the weight sequence: viw, huw, then wav[l], waux[l] (down
-// levels) and wbv[l] of each level.
-constexpr int kViwStages = 6 * F * F / kStage;
-constexpr int kHuwStages = 3 * F * F / kStage;
-constexpr int kWavStages = 12 * F * F / kStage;
-constexpr int kAuxStages = 2 * F * F / kStage;
-constexpr int kWbvStages = 12 * F * 2 * F / kStage;
-constexpr int kUpStages = kWavStages + kWbvStages;
-constexpr int kDownStages = kUpStages + kAuxStages;
-
-__device__ __forceinline__ int total_stages(int L) {
-  return kViwStages + kHuwStages + (L / 2) * (kUpStages + kDownStages);
-}
-
-// Where stage g's kStage floats start.
-__device__ const float* stage_src(const VrowArgs& p, int g) {
-  if (g < kViwStages) return p.viw + (size_t)g * kStage;
-  g -= kViwStages;
-  if (g < kHuwStages) return p.huw + (size_t)g * kStage;
-  g -= kHuwStages;
-  const int R = p.L / 2;
-  int l;
-  if (g < R * kUpStages) {
-    l = g / kUpStages;
-    g -= l * kUpStages;
-  } else {
-    g -= R * kUpStages;
-    l = R + g / kDownStages;
-    g -= (l - R) * kDownStages;
-  }
-  if (g < kWavStages) return p.wav + (size_t)l * 12 * F * F + (size_t)g * kStage;
-  g -= kWavStages;
-  if (l >= R) {
-    if (g < kAuxStages) return p.waux + (size_t)l * 2 * F * F + (size_t)g * kStage;
-    g -= kAuxStages;
-  }
-  return p.wbv + (size_t)l * 12 * F * 2 * F + (size_t)g * kStage;
-}
-
-// The weight stream, without a producer warp: slot g % kStages holds stage
-// g while phase g / kStages of its "full" mbarrier runs (one arrival and
-// the stage's bytes); done[] counts the warps finished with a slot's
-// stage, and the last of them issues stage g + kStages into the slot.
-struct VStream {
-  const VrowArgs* p;
-  float* slots;
-  uint64_t* full;
-  int* done;
-  int total, next;
-
-  __device__ float* slot(int g) const { return slots + (g % kStages) * kStage; }
-  // One thread: stage g's bulk copy into its slot.
-  __device__ void issue(int g) const {
-    const uint32_t bar = smem_u32(full + g % kStages);
-    mbar_expect_tx(bar, kStage * sizeof(float));
-    bulk_g2s(smem_u32(slot(g)), stage_src(*p, g), kStage * sizeof(float), bar);
-  }
-  __device__ const float* take() const {
-    mbar_wait(smem_u32(full + next % kStages), (next / kStages) & 1);
-    return slot(next);
-  }
-  // This warp is done reading stage `next`.
-  __device__ void release() {
-    __syncwarp();
-    if (threadIdx.x % 32 == 0) {
-      __threadfence_block();
-      if (atomicAdd(done + next % kStages, 1) == kWarps - 1) {
-        done[next % kStages] = 0;
-        __threadfence_block();
-        fence_proxy_async();
-        if (next + kStages < total) issue(next + kStages);
-      }
-    }
-    ++next;
-  }
 };
 
 // The block's rows: slot r < TS * W is (sample r / W, column r % W).
@@ -210,312 +118,447 @@ struct Rows {
   __device__ bool stored(int r) const { return r < used() && j0 + r / W < n; }
 };
 
-// acc (+)= the block's rows of A @ W over nst stages of the stream, A read
-// from the operand as `sg` says (row r of a source at operand row slot[r]);
-// this thread's share: Tile<N>'s rows of its warp, columns 4 * lane (+ F), K
-// group warp % G. The operand must be complete (a __syncthreads after it
-// was written).
-template <int N>
-__device__ __forceinline__ void gemm(float (&acc)[Tile<N>::RT][Tile<N>::CT], VStream& stream,
-                                     const float* op, const int* slot, Segs sg, int nst) {
-  using T = Tile<N>;
-  const int warp = threadIdx.x / 32, col = 4 * (threadIdx.x % 32);
-  const int grp = warp % T::G, row0 = (warp / T::G) * T::RT;
-  for (int st = 0; st < nst; ++st) {
-    const int k = st * T::SR + grp * kWarpK;
-    const int seg = k / sg.kseg, kc = k % sg.kseg;
-    const int dx = sg.ntap == 3 ? seg % 3 - 1 : 0;
-    const uint32_t a0 = smem_u32(op + (sg.src0 + seg / sg.ntap) * kSrc + dx * 2 * F + kc);
-    uint32_t ar[T::RT];
+// The kernel at F filters (a built width: sampler_common.cuh
+// PMK_DISPATCH_WIDTHS). A thread's columns are float4s of an F-wide group:
+// kColLanes lanes cover the group, the warp's kRowLanes lane groups take
+// rows of their own (one at F = 128, two at 64).
+template <int F>
+struct Vrow {
+  static constexpr int kSrc = kSlots * 2 * F;  // floats of one operand source (rows of 2F)
+  static constexpr int kStage = 64 * F;        // floats a stage (32 KB at F = 128)
+  static constexpr int kColLanes = F / 4;
+  static constexpr int kRowLanes = 32 / kColLanes;
+  static_assert(F % 64 == 0 && F <= 128, "the tiles take F = 64 or 128");
+
+  // Shared memory layout, in floats.
+  static constexpr int kOffOp = kStages * kStage;
+  static constexpr int kOffBar = kOffOp + 2 * kSrc;      // uint64_t full[kStages]
+  static constexpr int kOffDone = kOffBar + 2 * kStages;  // int done[kStages]
+  static constexpr int kOffSlot = kOffDone + kStages;     // int [kRows]: each row's operand row
+  static constexpr size_t kSmemBytes = (size_t)(kOffSlot + kRows) * sizeof(float);
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may have");
+  static_assert(kOffBar % 2 == 0, "mbarriers are 8-byte aligned");
+
+  // A product's register tile and its K split (see the header): G K groups
+  // of warps, RW rows a warp, RT rows x CT columns a thread.
+  template <int N>
+  struct Tile {
+    static constexpr int G = N == F ? 4 : 2;  // K groups
+    static constexpr int RW = kRows / (kWarps / G);
+    static constexpr int RT = RW / kRowLanes;
+    static constexpr int CT = N == F ? 4 : 8;
+    static constexpr int SR = kStage / N;  // K rows a stage
+    static_assert(G * kWarpK == SR && RT * CT * kRowLanes == 64, "");
+    static_assert(G * kRows * N <= 2 * kSrc, "the partials overlay the operand");
+  };
+
+  // Stages of the weight sequence: viw, huw, then wav[l], waux[l] (down
+  // levels) and wbv[l] of each level.
+  static constexpr int kViwStages = 6 * F * F / kStage;
+  static constexpr int kHuwStages = 3 * F * F / kStage;
+  static constexpr int kWavStages = 12 * F * F / kStage;
+  static constexpr int kAuxStages = 2 * F * F / kStage;
+  static constexpr int kWbvStages = 12 * F * 2 * F / kStage;
+  static constexpr int kUpStages = kWavStages + kWbvStages;
+  static constexpr int kDownStages = kUpStages + kAuxStages;
+
+  static __device__ __forceinline__ int total_stages(int L) {
+    return kViwStages + kHuwStages + (L / 2) * (kUpStages + kDownStages);
+  }
+
+  // Where stage g's kStage floats start.
+  static __device__ const float* stage_src(const VrowArgs& p, int g) {
+    if (g < kViwStages) return p.viw + (size_t)g * kStage;
+    g -= kViwStages;
+    if (g < kHuwStages) return p.huw + (size_t)g * kStage;
+    g -= kHuwStages;
+    const int R = p.L / 2;
+    int l;
+    if (g < R * kUpStages) {
+      l = g / kUpStages;
+      g -= l * kUpStages;
+    } else {
+      g -= R * kUpStages;
+      l = R + g / kDownStages;
+      g -= (l - R) * kDownStages;
+    }
+    if (g < kWavStages) return p.wav + (size_t)l * 12 * F * F + (size_t)g * kStage;
+    g -= kWavStages;
+    if (l >= R) {
+      if (g < kAuxStages) return p.waux + (size_t)l * 2 * F * F + (size_t)g * kStage;
+      g -= kAuxStages;
+    }
+    return p.wbv + (size_t)l * 12 * F * 2 * F + (size_t)g * kStage;
+  }
+
+  // The weight stream, without a producer warp: slot g % kStages holds stage
+  // g while phase g / kStages of its "full" mbarrier runs (one arrival and
+  // the stage's bytes); done[] counts the warps finished with a slot's
+  // stage, and the last of them issues stage g + kStages into the slot.
+  struct VStream {
+    const VrowArgs* p;
+    float* slots;
+    uint64_t* full;
+    int* done;
+    int total, next;
+
+    __device__ float* slot(int g) const { return slots + (g % kStages) * kStage; }
+    // One thread: stage g's bulk copy into its slot.
+    __device__ void issue(int g) const {
+      const uint32_t bar = smem_u32(full + g % kStages);
+      mbar_expect_tx(bar, kStage * sizeof(float));
+      bulk_g2s(smem_u32(slot(g)), stage_src(*p, g), kStage * sizeof(float), bar);
+    }
+    __device__ const float* take() const {
+      mbar_wait(smem_u32(full + next % kStages), (next / kStages) & 1);
+      return slot(next);
+    }
+    // This warp is done reading stage `next`.
+    __device__ void release() {
+      __syncwarp();
+      if (threadIdx.x % 32 == 0) {
+        __threadfence_block();
+        if (atomicAdd(done + next % kStages, 1) == kWarps - 1) {
+          done[next % kStages] = 0;
+          __threadfence_block();
+          fence_proxy_async();
+          if (next + kStages < total) issue(next + kStages);
+        }
+      }
+      ++next;
+    }
+  };
+
+  // This thread's first row of Tile<N> and its columns' first: RT rows of
+  // its warp's row group and lane group, columns col (+ F).
+  template <int N>
+  static __device__ __forceinline__ int tile_row0() {
+    using T = Tile<N>;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    return (warp / T::G) * T::RW + (lane / kColLanes) * T::RT;
+  }
+  static __device__ __forceinline__ int tile_col() { return 4 * (threadIdx.x % 32 % kColLanes); }
+
+  // acc (+)= the block's rows of A @ W over nst stages of the stream, A read
+  // from the operand as `sg` says (row r of a source at operand row slot[r]);
+  // this thread's share: its Tile<N> rows and columns, K group warp % G. The
+  // operand must be complete (a __syncthreads after it was written).
+  template <int N>
+  static __device__ __forceinline__ void gemm(float (&acc)[Tile<N>::RT][Tile<N>::CT],
+                                              VStream& stream, const float* op,
+                                              const int* slot, Segs sg, int nst) {
+    using T = Tile<N>;
+    const int col = tile_col(), grp = threadIdx.x / 32 % T::G, row0 = tile_row0<N>();
+    for (int st = 0; st < nst; ++st) {
+      const int k = st * T::SR + grp * kWarpK;
+      const int seg = k / sg.kseg, kc = k % sg.kseg;
+      const int dx = sg.ntap == 3 ? seg % 3 - 1 : 0;
+      const uint32_t a0 = smem_u32(op + (sg.src0 + seg / sg.ntap) * kSrc + dx * 2 * F + kc);
+      uint32_t ar[T::RT];
 #pragma unroll
-    for (int i = 0; i < T::RT; ++i) ar[i] = a0 + slot[row0 + i] * 2 * F * sizeof(float);
-    const float* ws = stream.take() + grp * kWarpK * N + col;
+      for (int i = 0; i < T::RT; ++i) ar[i] = a0 + slot[row0 + i] * 2 * F * sizeof(float);
+      const float* ws = stream.take() + grp * kWarpK * N + col;
 #pragma unroll
-    for (int k4 = 0; k4 < kWarpK; k4 += 4) {
-      float w[4][T::CT];
+      for (int k4 = 0; k4 < kWarpK; k4 += 4) {
+        float w[4][T::CT];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 w0 = ld4(ws + (k4 + j) * N);
-        w[j][0] = w0.x, w[j][1] = w0.y, w[j][2] = w0.z, w[j][3] = w0.w;
-        if constexpr (T::CT == 8) {
-          const float4 w1 = ld4(ws + (k4 + j) * N + F);
-          w[j][4] = w1.x, w[j][5] = w1.y, w[j][6] = w1.z, w[j][7] = w1.w;
+        for (int j = 0; j < 4; ++j) {
+          const float4 w0 = ld4(ws + (k4 + j) * N);
+          w[j][0] = w0.x, w[j][1] = w0.y, w[j][2] = w0.z, w[j][3] = w0.w;
+          if constexpr (T::CT == 8) {
+            const float4 w1 = ld4(ws + (k4 + j) * N + F);
+            w[j][4] = w1.x, w[j][5] = w1.y, w[j][6] = w1.z, w[j][7] = w1.w;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < T::RT; ++i) {
+          const float4 a4 = lds4(ar[i] + k4 * sizeof(float));
+          const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int u = 0; u < T::CT; ++u) acc[i][u] = fmaf(a[j], w[j][u], acc[i][u]);
+        }
+      }
+      stream.release();
+    }
+  }
+
+  template <int N>
+  static __device__ __forceinline__ void zero(float (&acc)[Tile<N>::RT][Tile<N>::CT]) {
+#pragma unroll
+    for (int i = 0; i < Tile<N>::RT; ++i)
+#pragma unroll
+      for (int u = 0; u < Tile<N>::CT; ++u) acc[i][u] = 0.f;
+  }
+
+  // Writes each warp's partial sums to P ([G][kRows][N]) once every warp is
+  // done with the operand P overlays.
+  template <int N>
+  static __device__ __forceinline__ void store_partials(
+      float* P, const float (&acc)[Tile<N>::RT][Tile<N>::CT]) {
+    using T = Tile<N>;
+    const int col = tile_col(), grp = threadIdx.x / 32 % T::G, row0 = tile_row0<N>();
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < T::RT; ++i) {
+      float* dst = P + (grp * kRows + row0 + i) * N + col;
+      st4(dst, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      if constexpr (T::CT == 8)
+        st4(dst + F, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+    }
+    __syncthreads();
+  }
+
+  // The sum of the partials at (row r, columns col..col + 3), in group order.
+  template <int N>
+  static __device__ __forceinline__ float4 reduced(const float* P, int r, int col) {
+    float4 s = ld4(P + r * N + col);
+#pragma unroll
+    for (int g = 1; g < Tile<N>::G; ++g) s = add4(s, ld4(P + (g * kRows + r) * N + col));
+    return s;
+  }
+
+  // Zeros in channels [0, CH) of the halo rows of operand source dst.
+  template <int CH>
+  static __device__ __forceinline__ void zero_halo(float* dst, const Rows& rw) {
+    for (int idx = threadIdx.x; idx < CH * 2 * rw.TS; idx += kBlock) {
+      const int h = idx / CH, e = idx % CH;
+      dst[((h / 2) * (rw.W + 2) + (h % 2 ? rw.W + 1 : 0)) * 2 * F + e] = 0.f;
+    }
+  }
+
+  // Operand source dst from C-wide rows of X ([W, n, C]): the raw values
+  // (channels [0, C)) or their concat_elu (channels [0, 2C)), and zeros in the
+  // halo rows. Every load is issued before the first store. X is read through
+  // the read-only path when `kRo`; outputs of this kernel are not. (The outer
+  // loop runs once; written out without it, ptxas spilled more and the kernel
+  // took 11% longer on an H100.)
+  template <int C, bool kCelu, bool kRo>
+  static __device__ __forceinline__ void build(float* dst, const float* X, const Rows& rw) {
+    constexpr int kBatch = kRows * C / kBlock;  // every element in one batch
+    const int tid = threadIdx.x, total = rw.used() * C;
+    for (int base = tid; base < total; base += kBatch * kBlock) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int idx = base + u * kBlock;
+        v[u] = 0.f;
+        if (idx < total) {
+          const float* src = X + rw.grow(idx / C) * C + idx % C;
+          v[u] = kRo ? __ldg(src) : *src;
         }
       }
 #pragma unroll
-      for (int i = 0; i < T::RT; ++i) {
-        const float4 a4 = lds4(ar[i] + k4 * sizeof(float));
-        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int u = 0; u < T::CT; ++u) acc[i][u] = fmaf(a[j], w[j][u], acc[i][u]);
+      for (int u = 0; u < kBatch; ++u) {
+        const int idx = base + u * kBlock;
+        if (idx >= total) continue;
+        float* d = dst + rw.slot(idx / C) * 2 * F + idx % C;
+        if (kCelu) {
+          d[0] = elu(v[u]);
+          d[C] = elu(-v[u]);
+        } else {
+          d[0] = v[u];
+        }
       }
     }
-    stream.release();
+    zero_halo<kCelu ? 2 * C : C>(dst, rw);
   }
-}
 
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[Tile<N>::RT][Tile<N>::CT]) {
-#pragma unroll
-  for (int i = 0; i < Tile<N>::RT; ++i)
-#pragma unroll
-    for (int u = 0; u < Tile<N>::CT; ++u) acc[i][u] = 0.f;
-}
-
-// Writes each warp's partial sums to P ([G][kRows][N]) once every warp is
-// done with the operand P overlays.
-template <int N>
-__device__ __forceinline__ void store_partials(float* P,
-                                               const float (&acc)[Tile<N>::RT][Tile<N>::CT]) {
-  using T = Tile<N>;
-  const int warp = threadIdx.x / 32, col = 4 * (threadIdx.x % 32);
-  const int grp = warp % T::G, row0 = (warp / T::G) * T::RT;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < T::RT; ++i) {
-    float* dst = P + (grp * kRows + row0 + i) * N + col;
-    st4(dst, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-    if constexpr (T::CT == 8)
-      st4(dst + F, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+  // In every epilogue thread t owns rows t / kColLanes + (kBlock /
+  // kColLanes) q (q < kEpiRows) and columns 4 (t % kColLanes)..+3: a level's
+  // a and its output are float4 x[kEpiRows] in these.
+  static constexpr int kEpiRows = kRows * kColLanes / kBlock;
+  static constexpr int kEpiStep = kBlock / kColLanes;
+  static __device__ __forceinline__ int epi_row(int q) {
+    return threadIdx.x / kColLanes + kEpiStep * q;
   }
-  __syncthreads();
-}
+  static __device__ __forceinline__ int epi_col() { return 4 * (threadIdx.x % kColLanes); }
 
-// The sum of the partials at (row r, columns col..col + 3), in group order.
-template <int N>
-__device__ __forceinline__ float4 reduced(const float* P, int r, int col) {
-  float4 s = ld4(P + r * N + col);
-#pragma unroll
-  for (int g = 1; g < Tile<N>::G; ++g) s = add4(s, ld4(P + (g * kRows + r) * N + col));
-  return s;
-}
-
-// Zeros in channels [0, CH) of the halo rows of operand source dst.
-template <int CH>
-__device__ __forceinline__ void zero_halo(float* dst, const Rows& rw) {
-  for (int idx = threadIdx.x; idx < CH * 2 * rw.TS; idx += kBlock) {
-    const int h = idx / CH, e = idx % CH;
-    dst[((h / 2) * (rw.W + 2) + (h % 2 ? rw.W + 1 : 0)) * 2 * F + e] = 0.f;
-  }
-}
-
-// Operand source dst from C-wide rows of X ([W, n, C]): the raw values
-// (channels [0, C)) or their concat_elu (channels [0, 2C)), and zeros in the
-// halo rows. Every load is issued before the first store. X is read through
-// the read-only path when `kRo`; outputs of this kernel are not. (The outer
-// loop runs once; written out without it, ptxas spilled more and the kernel
-// took 11% longer on an H100.)
-template <int C, bool kCelu, bool kRo>
-__device__ __forceinline__ void build(float* dst, const float* X, const Rows& rw) {
-  constexpr int kBatch = kRows * C / kBlock;  // every element in one batch
-  const int tid = threadIdx.x, total = rw.used() * C;
-  for (int base = tid; base < total; base += kBatch * kBlock) {
-    float v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + u * kBlock;
-      v[u] = 0.f;
-      if (idx < total) {
-        const float* src = X + rw.grow(idx / C) * C + idx % C;
-        v[u] = kRo ? __ldg(src) : *src;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + u * kBlock;
-      if (idx >= total) continue;
-      float* d = dst + rw.slot(idx / C) * 2 * F + idx % C;
-      if (kCelu) {
-        d[0] = elu(v[u]);
-        d[C] = elu(-v[u]);
-      } else {
-        d[0] = v[u];
-      }
-    }
-  }
-  zero_halo<kCelu ? 2 * C : C>(dst, rw);
-}
-
-// In every epilogue thread t owns rows t / 32 + 12q (q < 4) and columns
-// 4 (t % 32)..+3: a level's a and its output are float4 x[4] in these.
-constexpr int kEpiRows = kRows / kWarps;
-
-// Operand source dst = concat_elu of the epilogue's values x, with zero halo
-// rows.
-__device__ __forceinline__ void build_celu(float* dst, const float4 (&x)[kEpiRows],
-                                           const Rows& rw) {
-  const int tid = threadIdx.x, col = 4 * (tid % 32);
-#pragma unroll
-  for (int q = 0; q < kEpiRows; ++q) {
-    const int r = tid / 32 + kWarps * q;
-    if (r >= rw.used()) continue;
-    float* d = dst + rw.slot(r) * 2 * F + col;
-    st4(d, make_float4(elu(x[q].x), elu(x[q].y), elu(x[q].z), elu(x[q].w)));
-    st4(d + F, make_float4(elu(-x[q].x), elu(-x[q].y), elu(-x[q].z), elu(-x[q].w)));
-  }
-  zero_halo<2 * F>(dst, rw);
-}
-
-__global__ void __launch_bounds__(kBlock, 1) vrow_kernel(const VrowArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  float* op = smem + kOffOp;  // operand sources 0 and 1, or the partial sums
-  float* op1 = op + kSrc;
-  int* slot = reinterpret_cast<int*>(smem + kOffSlot);
-  VStream stream{&p, smem, reinterpret_cast<uint64_t*>(smem + kOffBar),
-                 reinterpret_cast<int*>(smem + kOffDone), total_stages(p.L), 0};
-  const int tid = threadIdx.x;
-  const int W = p.W, n = p.n, L = p.L, R = p.L / 2;
-  const Rows rw{W, n, p.TS, (int)blockIdx.x * p.TS};
-  if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) {
-      mbar_init(smem_u32(stream.full + i), 1);
-      stream.done[i] = 0;
-    }
-    mbar_fence_init();
-    for (int g = 0; g < kStages; ++g) stream.issue(g);
-  }
-  if (tid < kRows) slot[tid] = rw.slot(tid);
-  __syncthreads();
-
-  const size_t lvF = (size_t)W * n * F;  // one level of an [L, W, n, F] tensor
-  const int ecol = 4 * (tid % 32);
-  int erow[kEpiRows];
-#pragma unroll
-  for (int q = 0; q < kEpiRows; ++q) erow[q] = tid / 32 + kWarps * q;
-
-  // ---- v_init (rows r-2, r-1) and h_init_up (row r-1) --------------------
-  {
-    build<F, false, true>(op, p.e2, rw);
-    build<F, false, true>(op1, p.e1, rw);
-    __syncthreads();
-    float acc[Tile<F>::RT][Tile<F>::CT];
-    zero<F>(acc);
-    gemm<F>(acc, stream, op, slot, Segs{F, 0, 3}, 6 * F / Tile<F>::SR);
-    store_partials<F>(op, acc);
-    const float4 vb = ld4(p.vib + ecol);
-    float4 x[kEpiRows];  // v0
+  // Operand source dst = concat_elu of the epilogue's values x, with zero halo
+  // rows.
+  static __device__ __forceinline__ void build_celu(float* dst, const float4 (&x)[kEpiRows],
+                                                    const Rows& rw) {
+    const int col = epi_col();
 #pragma unroll
     for (int q = 0; q < kEpiRows; ++q) {
-      x[q] = add4(reduced<F>(op, erow[q], ecol), vb);
-      if (rw.stored(erow[q])) st4(p.v0 + rw.grow(erow[q]) * F + ecol, x[q]);
+      const int r = epi_row(q);
+      if (r >= rw.used()) continue;
+      float* d = dst + rw.slot(r) * 2 * F + col;
+      st4(d, make_float4(elu(x[q].x), elu(x[q].y), elu(x[q].z), elu(x[q].w)));
+      st4(d + F, make_float4(elu(-x[q].x), elu(-x[q].y), elu(-x[q].z), elu(-x[q].w)));
     }
-    __syncthreads();
-    build<F, false, true>(op1, p.e1, rw);
-    __syncthreads();
-    zero<F>(acc);
-    gemm<F>(acc, stream, op, slot, Segs{F, 1, 3}, 3 * F / Tile<F>::SR);
-    store_partials<F>(op, acc);
-    const float4 hb = ld4(p.hub + ecol);
-#pragma unroll
-    for (int q = 0; q < kEpiRows; ++q)
-      if (rw.stored(erow[q]))
-        st4(p.hup + rw.grow(erow[q]) * F + ecol, add4(reduced<F>(op, erow[q], ecol), hb));
-    __syncthreads();
-    build<F, true, true>(op, p.pv0, rw);
-    build_celu(op1, x, rw);
-    __syncthreads();
+    zero_halo<2 * F>(dst, rw);
   }
 
-  // ---- the L gated vertical levels ----------------------------------------
-  for (int l = 0; l < L; ++l) {
-    float* outv_l = p.outv + l * lvF;
-    float* outm_l = p.outm + l * 2 * lvF;
+  static __device__ __forceinline__ void run(const VrowArgs& p) {
+    extern __shared__ __align__(16) float smem[];
+    float* op = smem + kOffOp;  // operand sources 0 and 1, or the partial sums
+    float* op1 = op + kSrc;
+    int* slot = reinterpret_cast<int*>(smem + kOffSlot);
+    VStream stream{&p, smem, reinterpret_cast<uint64_t*>(smem + kOffBar),
+                   reinterpret_cast<int*>(smem + kOffDone), total_stages(p.L), 0};
+    const int tid = threadIdx.x;
+    const int W = p.W, n = p.n, L = p.L, R = p.L / 2;
+    const Rows rw{W, n, p.TS, (int)blockIdx.x * p.TS};
+    if (tid == 0) {
+      for (int i = 0; i < kStages; ++i) {
+        mbar_init(smem_u32(stream.full + i), 1);
+        stream.done[i] = 0;
+      }
+      mbar_fence_init();
+      for (int g = 0; g < kStages; ++g) stream.issue(g);
+    }
+    if (tid < kRows) slot[tid] = rw.slot(tid);
+    __syncthreads();
 
-    // conv_a (+ the skip product) and m = concat_elu(a)
-    float4 a[kEpiRows];
+    const size_t lvF = (size_t)W * n * F;  // one level of an [L, W, n, F] tensor
+    const int ecol = epi_col();
+    int erow[kEpiRows];
+#pragma unroll
+    for (int q = 0; q < kEpiRows; ++q) erow[q] = epi_row(q);
+
+    // ---- v_init (rows r-2, r-1) and h_init_up (row r-1) --------------------
     {
+      build<F, false, true>(op, p.e2, rw);
+      build<F, false, true>(op1, p.e1, rw);
+      __syncthreads();
       float acc[Tile<F>::RT][Tile<F>::CT];
       zero<F>(acc);
-      gemm<F>(acc, stream, op, slot, Segs{2 * F, 0, 3}, 12 * F / Tile<F>::SR);
-      if (l >= R) {
-        // down level: skip = the vertical stack entry 2R-1-l of this row
-        // (entry 0 is v0, entry k >= 1 the output of level k-1)
-        const int s = 2 * R - 1 - l;
-        __syncthreads();
-        build<F, true, false>(op, s == 0 ? p.v0 : p.outv + (s - 1) * lvF, rw);
-        __syncthreads();
-        gemm<F>(acc, stream, op, slot, Segs{2 * F, 0, 1}, 2 * F / Tile<F>::SR);
-      }
+      gemm<F>(acc, stream, op, slot, Segs{F, 0, 3}, 6 * F / Tile<F>::SR);
       store_partials<F>(op, acc);
-      const float4 ba = ld4(p.bav + l * F + ecol);
+      const float4 vb = ld4(p.vib + ecol);
+      float4 x[kEpiRows];  // v0
 #pragma unroll
-      for (int q = 0; q < kEpiRows; ++q) a[q] = add4(reduced<F>(op, erow[q], ecol), ba);
-    }
-    __syncthreads();
-    build_celu(op1, a, rw);
+      for (int q = 0; q < kEpiRows; ++q) {
+        x[q] = add4(reduced<F>(op, erow[q], ecol), vb);
+        if (rw.stored(erow[q])) st4(p.v0 + rw.grow(erow[q]) * F + ecol, x[q]);
+      }
+      __syncthreads();
+      build<F, false, true>(op1, p.e1, rw);
+      __syncthreads();
+      zero<F>(acc);
+      gemm<F>(acc, stream, op, slot, Segs{F, 1, 3}, 3 * F / Tile<F>::SR);
+      store_partials<F>(op, acc);
+      const float4 hb = ld4(p.hub + ecol);
 #pragma unroll
-    for (int q = 0; q < kEpiRows; ++q) {
-      if (!rw.stored(erow[q])) continue;
-      float* dst = outm_l + rw.grow(erow[q]) * 2 * F + ecol;
-      st4(dst, make_float4(elu(a[q].x), elu(a[q].y), elu(a[q].z), elu(a[q].w)));
-      st4(dst + F, make_float4(elu(-a[q].x), elu(-a[q].y), elu(-a[q].z), elu(-a[q].w)));
-    }
-    build<2 * F, false, true>(op, p.pm + l * 2 * lvF, rw);
-    __syncthreads();
-
-    // conv_b, the gate and the residual
-    {
-      float acc[Tile<2 * F>::RT][Tile<2 * F>::CT];
-      zero<2 * F>(acc);
-      gemm<2 * F>(acc, stream, op, slot, Segs{2 * F, 0, 3}, 12 * F / Tile<2 * F>::SR);
-      store_partials<2 * F>(op, acc);
-    }
-    const float* bb = p.bbv + l * 2 * F;
-    const float4 b_a = ld4(bb + ecol), b_g = ld4(bb + F + ecol);
-    // the carry in_cur, as this thread wrote it (v0 or the last level's outv)
-    const float* in_cur = l == 0 ? p.v0 : p.outv + (l - 1) * lvF;
-    float4 x[kEpiRows];
-#pragma unroll
-    for (int q = 0; q < kEpiRows; ++q) x[q] = ld4(in_cur + rw.grow(erow[q]) * F + ecol);
-#pragma unroll
-    for (int q = 0; q < kEpiRows; ++q) {
-      const int r = erow[q];
-      const float* cp = p.cpv + ((size_t)l * n + min(rw.j0 + r / W, n - 1)) * 2 * F;
-      const float4 ra = add4(add4(reduced<2 * F>(op, r, ecol), b_a), ld4(cp + ecol));
-      const float4 rg = add4(add4(reduced<2 * F>(op, r, F + ecol), b_g), ld4(cp + F + ecol));
-      x[q].x += sigmoid(rg.x) * ra.x;
-      x[q].y += sigmoid(rg.y) * ra.y;
-      x[q].z += sigmoid(rg.z) * ra.z;
-      x[q].w += sigmoid(rg.w) * ra.w;
-      if (rw.stored(r)) st4(outv_l + rw.grow(r) * F + ecol, x[q]);
-    }
-    __syncthreads();
-    if (l + 1 < L) {
-      build<F, true, true>(op, p.pv + l * lvF, rw);
+      for (int q = 0; q < kEpiRows; ++q)
+        if (rw.stored(erow[q]))
+          st4(p.hup + rw.grow(erow[q]) * F + ecol, add4(reduced<F>(op, erow[q], ecol), hb));
+      __syncthreads();
+      build<F, true, true>(op, p.pv0, rw);
       build_celu(op1, x, rw);
       __syncthreads();
     }
+
+    // ---- the L gated vertical levels ----------------------------------------
+    for (int l = 0; l < L; ++l) {
+      float* outv_l = p.outv + l * lvF;
+      float* outm_l = p.outm + l * 2 * lvF;
+
+      // conv_a (+ the skip product) and m = concat_elu(a)
+      float4 a[kEpiRows];
+      {
+        float acc[Tile<F>::RT][Tile<F>::CT];
+        zero<F>(acc);
+        gemm<F>(acc, stream, op, slot, Segs{2 * F, 0, 3}, 12 * F / Tile<F>::SR);
+        if (l >= R) {
+          // down level: skip = the vertical stack entry 2R-1-l of this row
+          // (entry 0 is v0, entry k >= 1 the output of level k-1)
+          const int s = 2 * R - 1 - l;
+          __syncthreads();
+          build<F, true, false>(op, s == 0 ? p.v0 : p.outv + (s - 1) * lvF, rw);
+          __syncthreads();
+          gemm<F>(acc, stream, op, slot, Segs{2 * F, 0, 1}, 2 * F / Tile<F>::SR);
+        }
+        store_partials<F>(op, acc);
+        const float4 ba = ld4(p.bav + l * F + ecol);
+#pragma unroll
+        for (int q = 0; q < kEpiRows; ++q) a[q] = add4(reduced<F>(op, erow[q], ecol), ba);
+      }
+      __syncthreads();
+      build_celu(op1, a, rw);
+#pragma unroll
+      for (int q = 0; q < kEpiRows; ++q) {
+        if (!rw.stored(erow[q])) continue;
+        float* dst = outm_l + rw.grow(erow[q]) * 2 * F + ecol;
+        st4(dst, make_float4(elu(a[q].x), elu(a[q].y), elu(a[q].z), elu(a[q].w)));
+        st4(dst + F, make_float4(elu(-a[q].x), elu(-a[q].y), elu(-a[q].z), elu(-a[q].w)));
+      }
+      build<2 * F, false, true>(op, p.pm + l * 2 * lvF, rw);
+      __syncthreads();
+
+      // conv_b, the gate and the residual
+      {
+        float acc[Tile<2 * F>::RT][Tile<2 * F>::CT];
+        zero<2 * F>(acc);
+        gemm<2 * F>(acc, stream, op, slot, Segs{2 * F, 0, 3}, 12 * F / Tile<2 * F>::SR);
+        store_partials<2 * F>(op, acc);
+      }
+      const float* bb = p.bbv + l * 2 * F;
+      const float4 b_a = ld4(bb + ecol), b_g = ld4(bb + F + ecol);
+      // the carry in_cur, as this thread wrote it (v0 or the last level's outv)
+      const float* in_cur = l == 0 ? p.v0 : p.outv + (l - 1) * lvF;
+      float4 x[kEpiRows];
+#pragma unroll
+      for (int q = 0; q < kEpiRows; ++q) x[q] = ld4(in_cur + rw.grow(erow[q]) * F + ecol);
+#pragma unroll
+      for (int q = 0; q < kEpiRows; ++q) {
+        const int r = erow[q];
+        const float* cp = p.cpv + ((size_t)l * n + min(rw.j0 + r / W, n - 1)) * 2 * F;
+        const float4 ra = add4(add4(reduced<2 * F>(op, r, ecol), b_a), ld4(cp + ecol));
+        const float4 rg = add4(add4(reduced<2 * F>(op, r, F + ecol), b_g), ld4(cp + F + ecol));
+        x[q].x += sigmoid(rg.x) * ra.x;
+        x[q].y += sigmoid(rg.y) * ra.y;
+        x[q].z += sigmoid(rg.z) * ra.z;
+        x[q].w += sigmoid(rg.w) * ra.w;
+        if (rw.stored(r)) st4(outv_l + rw.grow(r) * F + ecol, x[q]);
+      }
+      __syncthreads();
+      if (l + 1 < L) {
+        build<F, true, true>(op, p.pv + l * lvF, rw);
+        build_celu(op1, x, rw);
+        __syncthreads();
+      }
+    }
   }
+};
+
+template <int F>
+__global__ void __launch_bounds__(kBlock, 1) vrow_kernel(const VrowArgs p) {
+  Vrow<F>::run(p);
 }
 
 }  // namespace
 
 // Launches one image row. Tensors are float32, contiguous, 16-byte aligned,
 // on the device of `stream`; shapes as in posterior_matching_torch/ops/
-// sampler_chain.py::vrow_plain with F = 128, 1 <= W <= 32. Returns
-// cudaGetLastError() after the launch.
+// sampler_chain.py::vrow_plain with F a built width (PMK_DISPATCH_WIDTHS),
+// 1 <= W <= 32. Returns cudaGetLastError() after the launch.
 extern "C" int pm_sampler_vrow(
     const float* e2, const float* e1, const float* pv0, const float* pv,
     const float* pm, const float* cpv, const float* viw, const float* vib,
     const float* huw, const float* hub, const float* wav, const float* bav,
     const float* wbv, const float* bbv, const float* waux, float* outv,
-    float* outm, float* v0, float* hup, int L, int W, int n, void* stream) {
+    float* outm, float* v0, float* hup, int L, int W, int n, int filters, void* stream) {
   if (W < 1 || W > 32 || n < 1 || L < 2 || L % 2) return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {e2,  e1,  pv0, pv,   pm,   cpv,  viw, vib, huw, hub,
                         wav, bav, wbv, bbv, waux, outv, outm, v0,  hup};
   for (const void* q : ptrs)
     if (reinterpret_cast<uintptr_t>(q) % 16) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      vrow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
   const int ts = samples_per_block(W);
-  VrowArgs p{e2,  e1,  pv0, pv,   pm,   cpv,  viw, vib, huw, hub, wav,
-             bav, wbv, bbv, waux, outv, outm, v0,  hup, L,   W,   n,   ts};
+  const VrowArgs p{e2,  e1,  pv0, pv,   pm,   cpv,  viw, vib, huw, hub, wav,
+                   bav, wbv, bbv, waux, outv, outm, v0,  hup, L,   W,   n,   ts};
   const int blocks = (n + ts - 1) / ts;
-  vrow_kernel<<<blocks, kBlock, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  // one width's kernel, with its shared memory
+  auto launch = [&](void (*kernel)(VrowArgs), size_t smem) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    return (int)cudaGetLastError();
+  };
+  PMK_DISPATCH_WIDTHS(filters, launch(vrow_kernel<F>, Vrow<F>::kSmemBytes));
 }
 
 // Blocks of a launch at width W and n samples (0 for a width it refuses).

@@ -21,8 +21,9 @@ and prints one line each:
 - ``no_sync``: no block barrier a chunk (the warps race through the ring).
 
 Only ``kernel`` computes the right values. ``--other NAME=DIR`` also times
-the gated sources in DIR (another version of them, e.g. a parent commit's
-``ops/csrc``) as NAME, in the same turns. Last, the rate at which the card
+the gated sources in DIR (another version of them that reads the same
+``_GEOMETRY`` ints, num_filters last, e.g. a parent commit's ``ops/csrc``)
+as NAME, in the same turns. Last, the rate at which the card
 issues ``mma.sync`` alone (``MMA_RATE``: every warp of 264 blocks of 256
 threads issuing 8 independent MMAs at a time), for m16n8k8 TF32, the core's
 shape, and m16n8k16 bf16 beside it.
@@ -49,6 +50,7 @@ from posterior_matching_torch.ops.profiling import time_ms
 HEADER, LEVELS = "gated_common.cuh", "gated_levels.cuh"
 FILES = (HEADER, LEVELS, "gated_stream_fwd.cu", "gated_stream_bwd.cu", "gated_levels_bwd.cu")
 LIBS = ("gated_stream_fwd", "gated_stream_bwd", "gated_levels_bwd")
+FILTERS = 128  # the flagship's num_filters, one of gc.KERNEL_WIDTHS
 _MMAS = ("mma_tf32(part[mt][u], as[mt], bb[u]);", "mma_tf32(part[mt][u], ab[mt], bs[u]);",
          "mma_tf32(part[mt][u], ab[mt], bb[u]);")
 # Each variant's substitutions: (file, old, new).
@@ -177,7 +179,7 @@ def _cases(dev):
     """The timed calls, each a function of nothing: the stream's forward
     and backward over an up pass, a segment's backward."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    b, h, w, f, cd, n = 32, 16, 16, gc.KERNEL_FILTERS, 512, 12
+    b, h, w, f, cd, n = 32, 16, 16, FILTERS, 512, 12
     taps = gc.chain_taps()
     shapes = dict(gc.weight_shapes(f, cd, *taps, False))
 

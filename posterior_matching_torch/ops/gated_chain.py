@@ -36,7 +36,10 @@ All six run the launch sequence of ``csrc/gated_levels.cuh``, each launch
 over all ``B*H*W`` rows (a weight gradient whose grid is small over row
 splits, added up in a fixed order from the backward's ``part`` scratch): the
 JAX batch chunks ``bc_fwd`` / ``bc_bwd`` (``PM_TPU_CHAIN_BC_*``) tile the
-TPU's VMEM and have no counterpart here.
+TPU's VMEM and have no counterpart here. The sources are compiled for each
+num_filters of :data:`KERNEL_WIDTHS` (one template instantiation each, the
+width passed as the last geometry int); on the card a wrapper refuses any
+other width, naming the built ones.
 Beside them are the plain versions, :func:`gated_stream_plain`,
 :func:`gated_pair_plain` and :func:`gated_segment_plain`, the same levels in
 plain PyTorch differentiated by autograd, which the dispatchers
@@ -65,8 +68,9 @@ import torch.nn.functional as F
 from posterior_matching_torch.ops import _build
 from posterior_matching_torch.ops.gated_block import TapPlan, _concat_elu, plan_taps
 
-# num_filters the kernels are compiled for (csrc/gated_common.cuh kF).
-KERNEL_FILTERS = 128
+# num_filters the kernels are compiled for (csrc/gated_common.cuh,
+# GSK_DISPATCH_WIDTHS): PM-VQVAE CelebA's and MNIST's 128, digits16's 64.
+KERNEL_WIDTHS = (64, 128)
 
 Weights = Dict[str, torch.Tensor]
 Skips = Optional[Tuple[torch.Tensor, torch.Tensor]]
@@ -388,7 +392,7 @@ def gated_stream_plain(
 # stream's pointers (csrc/gated_stream_{fwd,bwd}.cu) ...
 _GEOMETRY = ("L", "B", "H", "W", "CD", "tv_skh", "tv_skw", "tv_pt", "tv_pl",
              "th_skh", "th_skw", "th_pt", "th_pl", "seed", "base_pair",
-             "thresh", "use_drop")
+             "thresh", "use_drop", "F")
 _W_FWD = ("wav", "bav", "wbv", "bbv", "wcv", "wxv",
           "wah", "bah", "wbh", "bbh", "wch", "wxh_u", "wxh_s")
 _FWD_PTRS = ("xv0", "xh0", "skv", "skh", "cond", *_W_FWD,
@@ -426,9 +430,9 @@ class StreamConfig:
         self.n_levels, self.down, self.keep = n_levels, down, float(keep)
         self.seed, self.base_pair = int(seed), int(base_pair)
         self.taps_v, self.taps_h = taps
-        if self.f != KERNEL_FILTERS:
+        if self.f not in KERNEL_WIDTHS:
             raise ValueError(
-                f"the gated chain kernels need num_filters == {KERNEL_FILTERS}, "
+                f"the gated chain kernels are built for num_filters in {KERNEL_WIDTHS}, "
                 f"got {self.f}"
             )
         if not 1 <= n_levels <= MAX_LEVELS:
@@ -456,6 +460,7 @@ class StreamConfig:
             "base_pair": self.base_pair,
             "thresh": ctypes.c_int32(thresh).value,
             "use_drop": int(self.keep < 1.0),
+            "F": self.f,
         }
         return [vals[k] for k in _GEOMETRY]
 

@@ -23,8 +23,9 @@ in turns, and prints one line each:
 
 Only ``kernel`` and the ring variant compute the right values; both are held
 against the plain version. ``--other NAME=DIR`` also times the kernel source
-in DIR (another version of it, e.g. a parent commit's; its
-``sampler_common.cuh`` beside it) as NAME, in the same turns.
+in DIR (another version of it with the same entry point, which takes F
+after the shape ints, e.g. a parent commit's; its ``sampler_common.cuh``
+beside it) as NAME, in the same turns.
 
 Usage: ``python3 -m posterior_matching_torch.ops.row_breakdown [--kernel
 row|vrow] [--other parent=DIR] [--out DIR]`` (sources, libraries and
@@ -63,12 +64,12 @@ _BULK = """  asm volatile(
 KERNELS = {
     "row": {
         "source": "sampler_row.cu",
-        "fma": ("for (int r = 0; r < kWarpRows; ++r) {", "for (int r = 0; r < 0; ++r) {"),
+        "fma": ("for (int r = 0; r < kGroupRows; ++r) {", "for (int r = 0; r < 0; ++r) {"),
         "no_ring": (("    if (tid == kConsumers) produce(p, ring, per_pixel, W * per_pixel);\n",
                      ""),
                     ("    mbar_wait(ring.full_bar(next), (next / kStages) & 1);\n", ""),
                     ("    if (threadIdx.x % 32 == 0) mbar_arrive(ring.empty_bar(next));\n", "")),
-        "ring": ("ring_5x32k", (("constexpr int kStage = 16384;", "constexpr int kStage = 8192;"),
+        "ring": ("ring_5x32k", (("int kStage = 128 * F;", "int kStage = 64 * F;"),
                                 ("constexpr int kStages = 2;", "constexpr int kStages = 5;"))),
     },
     "vrow": {
@@ -78,12 +79,13 @@ KERNELS = {
                     ("      if (atomicAdd(done + next % kStages, 1) == kWarps - 1) {",
                      "      if (false) {"),
                     ("    for (int g = 0; g < kStages; ++g) stream.issue(g);\n", "")),
-        "ring": ("ring_6x16k", (("constexpr int kStage = 8192;", "constexpr int kStage = 4096;"),
+        "ring": ("ring_6x16k", (("int kStage = 64 * F;", "int kStage = 32 * F;"),
                                 ("constexpr int kStages = 3;", "constexpr int kStages = 6;"),
                                 ("constexpr int kWarpK = 16;", "constexpr int kWarpK = 8;"))),
     },
 }
 REPS = 10  # launches a timing
+FILTERS = 128  # the flagship's num_filters, one of sc.KERNEL_WIDTHS
 
 
 def _sub(src: str, old: str, new: str) -> str:
@@ -116,7 +118,7 @@ def variants(src: str, header: str, kernel: str = "row") -> Dict[str, Tuple[str,
 
 def _build_all(kernel: str, sources: Dict[str, Path], out: Path) -> Dict[str, ctypes.CDLL]:
     stem = KERNELS[kernel]["source"].removesuffix(".cu")
-    nptr, nint = (20, 4) if kernel == "row" else (19, 3)
+    nptr, nint = (20, 5) if kernel == "row" else (19, 4)
     procs = {}
     for name, path in sources.items():
         lib = out / f"lib{stem}_{name}.so"
@@ -144,7 +146,7 @@ def _build_all(kernel: str, sources: Dict[str, Path], out: Path) -> Dict[str, ct
 def _row_case(dev, gen):
     """The row kernel's inputs, outputs, a launch of library ``lib`` and its
     check against ``row_plain``."""
-    f, n_lvl, wid, n, k = sc.KERNEL_FILTERS, 24, 16, 320, 512
+    f, n_lvl, wid, n, k = FILTERS, 24, 16, 320, 512
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).contiguous()
@@ -163,7 +165,7 @@ def _row_case(dev, gen):
     def launch(lib):
         return lib.pm_sampler_row(*[t.data_ptr() for t in ins], outh.data_ptr(),
                                   outm.data_ptr(), outs.data_ptr(), outl.data_ptr(),
-                                  n_lvl, wid, n, k, torch.cuda.current_stream().cuda_stream)
+                                  n_lvl, wid, n, k, f, torch.cuda.current_stream().cuda_stream)
 
     want = sc.row_plain(*ins, with_logits=True)
 
@@ -177,7 +179,7 @@ def _row_case(dev, gen):
 
 def _vrow_case(dev, gen):
     """As _row_case for the vrow kernel, with weights at 1 / sqrt(fan-in)."""
-    f, n_lvl, wid, n = sc.KERNEL_FILTERS, 24, 16, 320
+    f, n_lvl, wid, n = FILTERS, 24, 16, 320
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).contiguous()
@@ -193,7 +195,7 @@ def _vrow_case(dev, gen):
             torch.empty_like(ins[1]))
 
     def launch(lib):
-        return lib.pm_sampler_vrow(*[t.data_ptr() for t in (*ins, *outs)], n_lvl, wid, n,
+        return lib.pm_sampler_vrow(*[t.data_ptr() for t in (*ins, *outs)], n_lvl, wid, n, f,
                                    torch.cuda.current_stream().cuda_stream)
 
     want = sc.vrow_plain(*ins)

@@ -16,10 +16,13 @@ pixelcnn_sample_rowkernel`` (:340-788). Each image row takes two kernels:
   sample for the next pixel.
 
 Both kernels are CUDA C++ for ``sm_90a`` (``csrc/sampler_vrow.cu``,
-``csrc/sampler_row.cu``), in float32 with float32 accumulation. Beside each
-is its plain PyTorch version (:func:`vrow_plain`, :func:`row_plain`), which
-the wrapper runs only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises.
+``csrc/sampler_row.cu``), in float32 with float32 accumulation, each
+compiled for the num_filters of :data:`KERNEL_WIDTHS` (the row kernel also
+for logits chunks of 256 and 128 columns, so any ``num_indices`` that is a
+multiple of 128); on the card a wrapper refuses other shapes by name.
+Beside each is its plain PyTorch version (:func:`vrow_plain`,
+:func:`row_plain`), which the wrapper runs only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
 
 Row tensors are column-major flat rows ``[W, n, C]`` (row ``c * n + j``);
 per-level tensors are ``[L, W, n, C]``; ``n = num_samples * batch`` in
@@ -47,11 +50,13 @@ _VI_ORDER = ((-2, -1), (-2, 0), (-2, 1), (-1, -1), (-1, 0), (-1, 1))
 _VG_ORDER = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 0), (0, 1))
 _HU_ORDER = ((-1, -1), (-1, 0), (-1, 1))
 
-# Shapes the kernels are compiled for (csrc/sampler_common.cuh kF, the vrow
-# kernel's 32 row slots, the row kernel's logits column chunk).
-KERNEL_FILTERS = 128
+# Shapes the kernels are compiled for: num_filters (csrc/sampler_common.cuh
+# PMK_DISPATCH_WIDTHS: PM-VQVAE CelebA's and MNIST's 128, digits16's 64),
+# the vrow kernel's 32 row slots, the row kernel's logits column chunks (256
+# columns, or 128 where num_indices is an odd multiple of 128).
+KERNEL_WIDTHS = (64, 128)
 VROW_MAX_WIDTH = 32
-ROW_LOGITS_CHUNK = 256
+ROW_LOGITS_CHUNK = 128
 
 
 def _fuse_level(bp, f: int):
@@ -285,6 +290,14 @@ def _load(name: str, fn: str, nptr: int, nint: int):
     return _build.load_fn(name, fn, [_build.P] * nptr + [_build.I] * nint + [_build.P])
 
 
+def _check_width(kernel: str, f: int, n_lvl: int):
+    if f not in KERNEL_WIDTHS or n_lvl % 2:
+        raise ValueError(
+            f"{kernel} kernel is built for num_filters in {KERNEL_WIDTHS} "
+            f"and needs an even level count, got F={f}, L={n_lvl}"
+        )
+
+
 class _Vrow:
     """Wrapper of ``csrc/sampler_vrow.cu``. ``launches`` counts kernel
     launches; the plain version (CPU tensors) does not count."""
@@ -299,11 +312,7 @@ class _Vrow:
         if _on_cpu(args):
             return vrow_plain(*args)
         n_lvl, wid, n, f = pv.shape
-        if f != KERNEL_FILTERS or n_lvl % 2:
-            raise ValueError(
-                f"vrow kernel needs num_filters == {KERNEL_FILTERS} "
-                f"and an even level count, got F={f}, L={n_lvl}"
-            )
+        _check_width("vrow", f, n_lvl)
         if not 1 <= wid <= VROW_MAX_WIDTH:
             raise ValueError(
                 f"vrow kernel needs 1 <= W <= {VROW_MAX_WIDTH}, got W={wid}"
@@ -321,11 +330,11 @@ class _Vrow:
         outm = torch.empty_like(pm)
         v0 = torch.empty_like(e1)
         hup = torch.empty_like(e1)
-        lib = _load("sampler_vrow", "pm_sampler_vrow", 19, 3)
+        lib = _load("sampler_vrow", "pm_sampler_vrow", 19, 4)
         stream = torch.cuda.current_stream(e1.device).cuda_stream
         err = lib.pm_sampler_vrow(
             *ptrs, outv.data_ptr(), outm.data_ptr(), v0.data_ptr(),
-            hup.data_ptr(), n_lvl, wid, n, stream,
+            hup.data_ptr(), n_lvl, wid, n, f, stream,
         )
         self.launches += 1
         _raise_on(lib, err, "sampler_vrow")
@@ -355,11 +364,7 @@ class _Row:
             return row_plain(*args, with_logits=with_logits)
         n_lvl, wid, n, f = prevh.shape
         k = lw.shape[1]
-        if f != KERNEL_FILTERS or n_lvl % 2:
-            raise ValueError(
-                f"row kernel needs num_filters == {KERNEL_FILTERS} "
-                f"and an even level count, got F={f}, L={n_lvl}"
-            )
+        _check_width("row", f, n_lvl)
         if k % ROW_LOGITS_CHUNK:
             raise ValueError(
                 f"row kernel needs num_indices % {ROW_LOGITS_CHUNK} "
@@ -379,12 +384,12 @@ class _Row:
         outm = torch.empty_like(prevm)
         samples = torch.empty(wid, n, dtype=torch.int32, device=prevh.device)
         logits = gumbel.new_empty(wid, n, k) if with_logits else None
-        lib = _load("sampler_row", "pm_sampler_row", 20, 4)
+        lib = _load("sampler_row", "pm_sampler_row", 20, 5)
         stream = torch.cuda.current_stream(prevh.device).cuda_stream
         err = lib.pm_sampler_row(
             *ptrs, outh.data_ptr(), outm.data_ptr(), samples.data_ptr(),
             logits.data_ptr() if with_logits else None,
-            n_lvl, wid, n, k, stream,
+            n_lvl, wid, n, k, f, stream,
         )
         self.launches += 1
         _raise_on(lib, err, "sampler_row")

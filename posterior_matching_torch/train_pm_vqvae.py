@@ -9,7 +9,8 @@ Counterpart of ``train_pm_vqvae.py:88-224``. Run it as::
         [--device cpu]
 
 - ``--config`` is ``pm_vqvae_celeb_a``, ``pm_vqvae_mnist`` or
-  ``pm_vqvae_digits16`` (64 filters: the CPU only, the kernels take 128);
+  ``pm_vqvae_digits16`` (64 filters and 128 codes: the kernels' other
+  build);
   ``--config.<path> <value>``, ``--device`` and ``--resume_dir`` as
   :mod:`posterior_matching_torch.cli` reads them.
 - ``vqvae_dir`` is a stage-1 run directory of either package: its

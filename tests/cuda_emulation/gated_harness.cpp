@@ -14,14 +14,15 @@ EMU_GLOBALS(smem)
 using namespace gsk;
 
 // data_gemm<N> over all rows of a B x H x W grid; term i reads srcs[i] and
-// ws[i] with (C, K, mode, dy, dx, ld, trans) = ints[7 i .. 7 i + 6].
+// ws[i] with (C, K, mode, dy, dx, ld, trans) = ints[7 i .. 7 i + 6]. N is
+// F or 2F of a built width: 64, 128 or 256.
 extern "C" int emu_data_gemm(int N, int B, int H, int W, int nt, const float* const* srcs,
                              const float* const* ws, const int* ints, uint32_t key,
                              uint32_t thresh, float inv_keep, int drop, int epi,
                              const float* bias, const float* proj, const float* xres,
                              const float* z, const float* base1, const float* base2,
                              float* out, float* out2) {
-  if ((N != kF && N != 2 * kF) || nt < 1 || nt > kMaxTerms) return 1;
+  if ((N != 64 && N != 128 && N != 256) || nt < 1 || nt > kMaxTerms) return 1;
   DataArgs a{};
   a.g = Geo{B * H * W, B, H, W, H * W};
   for (int i = 0; i < nt; ++i) {
@@ -43,23 +44,24 @@ extern "C" int emu_data_gemm(int N, int B, int H, int W, int nt, const float* co
   a.out = out;
   a.out2 = out2;
   const int blocks = (a.g.R + kBM - 1) / kBM;
-  if (N == kF)
-    emu_launch(blocks, kThreads, kThreads, smem_bytes<kF>(), [&a] { data_gemm<kF>(a); });
+  if (N == 64)
+    emu_launch(blocks, kThreads, kThreads, smem_bytes<64>(), [&a] { data_gemm<64>(a); });
+  else if (N == 128)
+    emu_launch(blocks, kThreads, kThreads, smem_bytes<128>(), [&a] { data_gemm<128>(a); });
   else
-    emu_launch(blocks, kThreads, kThreads, smem_bytes<2 * kF>(),
-               [&a] { data_gemm<2 * kF>(a); });
+    emu_launch(blocks, kThreads, kThreads, smem_bytes<256>(), [&a] { data_gemm<256>(a); });
   return 0;
 }
 
-// wgrad<N> for L levels of C = kF channels over a B x H x W grid with the
-// taps (skh, skw, pad_top, pad_left) = taps4, in S splits of `rows` rows;
-// with S > 1 the partials go through `part` and reduce_splits (run serially:
-// it has no barriers).
-extern "C" int emu_wgrad(int N, int L, int B, int H, int W, const int* taps4, int drop,
+// wgrad<N> for L levels of C = F channels (a built width; N = F or 2F)
+// over a B x H x W grid with the taps (skh, skw, pad_top, pad_left) =
+// taps4, in S splits of `rows` rows; with S > 1 the partials go through
+// `part` and reduce_splits (run serially: it has no barriers).
+extern "C" int emu_wgrad(int F, int N, int L, int B, int H, int W, const int* taps4, int drop,
                          uint32_t seed, uint32_t thresh, int base, int sub, float inv_keep,
                          const float* const* srcs, float* const* outs, const float* g,
                          float* part, int S, int rows) {
-  if ((N != kF && N != 2 * kF) || L < 1 || L > kMaxLevels || S < 1 ||
+  if (!width_built(F) || (N != F && N != 2 * F) || L < 1 || L > kMaxLevels || S < 1 ||
       !taps_ok(taps4[0], taps4[1], taps4[2], taps4[3]))
     return 1;
   WgArgs a{};
@@ -69,7 +71,7 @@ extern "C" int emu_wgrad(int N, int L, int B, int H, int W, const int* taps4, in
   }
   a.g = g;
   a.part = part;
-  a.C = kF;
+  a.C = F;
   a.drop = drop;
   a.S = S;
   a.rows = rows;
@@ -80,14 +82,17 @@ extern "C" int emu_wgrad(int N, int L, int B, int H, int W, const int* taps4, in
   a.base = base;
   a.sub = sub;
   a.inv_keep = inv_keep;
-  const int gx = 2 * kF / kBM, gy = a.taps.n, gz = L * S;
-  if (N == kF)
-    emu_launch_grid(gx, gy, gz, kThreads, kThreads, smem_bytes<kF>(), [&a] { wgrad<kF>(a); });
+  const int gx = 2 * F / kBM, gy = a.taps.n, gz = L * S;
+  if (N == 64)
+    emu_launch_grid(gx, gy, gz, kThreads, kThreads, smem_bytes<64>(), [&a] { wgrad<64>(a); });
+  else if (N == 128)
+    emu_launch_grid(gx, gy, gz, kThreads, kThreads, smem_bytes<128>(),
+                    [&a] { wgrad<128>(a); });
   else
-    emu_launch_grid(gx, gy, gz, kThreads, kThreads, smem_bytes<2 * kF>(),
-                    [&a] { wgrad<2 * kF>(a); });
+    emu_launch_grid(gx, gy, gz, kThreads, kThreads, smem_bytes<256>(),
+                    [&a] { wgrad<256>(a); });
   if (S > 1) {
-    const size_t n = (size_t)a.taps.n * 2 * kF * N;
+    const size_t n = (size_t)a.taps.n * 2 * F * N;
     blockDim = Dim{256, 1, 1};
     for (size_t idx = 0; idx < (size_t)L * n; ++idx) {
       blockIdx = Dim{unsigned(idx / 256), 0, 0};

@@ -2,7 +2,12 @@
 
 ``gated_stream_plain`` against the JAX ``gated_stream`` run through the
 Pallas interpreter with injected masks (``mask_mode="input"``), for the up
-and the down pass at keep 0.6: level outputs within 1e-5 (relative and
+and the down pass at keep 0.6, at a toy width (8 filters) and at
+``pm_vqvae_digits16``'s geometry (4x4 codes, 64 filters, a 256-wide
+condition, two levels a pass; its weights at the model's own scale, 1 /
+sqrt(fan in), as ``tests/test_torch_gated_pair.py`` draws them: at 0.3 its
+activations reach ~1e3, where float32 rounding alone puts either package
+~2e-2 off a float64 run): level outputs within 1e-5 (relative and
 absolute, as ``tests/test_gated_chain.py`` holds the JAX paths), and every
 gradient (inputs, skips, cond, every stacked weight and bias) within
 2e-5 x scale, the bar of ``tests/test_gated_chain.py``'s pair test. The
@@ -20,13 +25,21 @@ from posterior_matching_torch.ops import gated_chain as gc
 
 B, H, W, F, CD, L = 2, 4, 4, 8, 16, 2
 KEEP = 0.6
+# (F, CD, weights at 1 / sqrt(fan in)) of the parity cases: the toy width,
+# and digits16's 64 filters and 256-wide condition
+# (configs/pm_vqvae_digits16.py)
+WIDTHS = {"toy": (F, CD, False), "digits16": (64, 256, True)}
 
 
-def _case(down: bool, seed: int = 3):
+def _case(down: bool, seed: int = 3, widths=(F, CD, False)):
+    F, CD, fan_in = widths
     rng = np.random.RandomState(seed)
     mk = lambda *s: (rng.randn(*s) * 0.3).astype(np.float32)
     taps = gc.chain_taps()
     w = {n: mk(L, *s) for n, s in gc.weight_shapes(F, CD, *taps, down)}
+    if fan_in:  # [L, fan in, n] weights at std 1 / sqrt(fan in), [L, n] biases at 0.1
+        std = lambda v: 0.1 if v.ndim == 2 else v.shape[1] ** -0.5
+        w = {n: v * np.float32(std(v) / 0.3) for n, v in w.items()}
     xv, xh = mk(B, H, W, F), mk(B, H, W, F)
     skips = (mk(L, B, H, W, F), mk(L, B, H, W, F)) if down else None
     cond = mk(B, CD)
@@ -57,9 +70,11 @@ def _scalar(xvo, xho, lib):
     return (lib.sin(xvo) * 0.7).sum() + lib.cos(xho).sum()
 
 
-@pytest.mark.parametrize("down", [False, True], ids=["up", "down"])
-def test_stream_plain_matches_jax(down):
-    xv, xh, skips, cond, w, masks = _case(down)
+@pytest.mark.parametrize("down,widths", [
+    pytest.param(d, geo, id=("" if geo == "toy" else geo + "-") + ("down" if d else "up"))
+    for geo in WIDTHS for d in (False, True)])
+def test_stream_plain_matches_jax(down, widths):
+    xv, xh, skips, cond, w, masks = _case(down, widths=WIDTHS[widths])
     fn = _jax_fn(down, masks)
     jv, jh = fn(xv, xh, skips, cond, w)
 

@@ -10,7 +10,8 @@ kernels' own tiles, fragment layouts, operand gathers (tap shifts,
 concat_elu, the dropout hash), B ring across term and chunk boundaries,
 3xTF32 split, ragged rows, row splits and epilogues without a GPU; the
 card's timing, memory model and PTX are left to the GPU tests. Toy grids
-(2 images of 4 x 4 and, ragged, 3 x 5) at the kernels' 128 filters.
+(2 images of 4 x 4 and, ragged, 3 x 5) at both built widths: 128 filters
+and 64 (digits16's; conv_a's N = 64 is one n8 tile a warp).
 Tolerance as on the GPU: 1e-4 of the tensor's scale. Skips where no C++20
 compiler is found.
 """
@@ -26,7 +27,6 @@ from posterior_matching_torch.ops import _build, gated_chain as gc
 from test_torch_row_kernel_emulated import _replace_helpers
 
 EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
-F = gc.KERNEL_FILTERS
 TOL = 1e-4
 A_IDENT, A_CELU, A_CELU_DROP = 0, 1, 2
 E_BIAS, E_GATE, E_CELU_BWD = 0, 1, 2
@@ -68,7 +68,7 @@ def emu(tmp_path_factory):
     P, I, U, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     cdll.emu_data_gemm.argtypes = ([I] * 5 + [P] * 3 + [U, U, F32, I, I] + [P] * 8)
     cdll.emu_data_gemm.restype = I
-    cdll.emu_wgrad.argtypes = ([I] * 5 + [P, I, U, U, I, I, F32] + [P] * 4 + [I, I])
+    cdll.emu_wgrad.argtypes = ([I] * 6 + [P, I, U, U, I, I, F32] + [P] * 4 + [I, I])
     cdll.emu_wgrad.restype = I
     return cdll
 
@@ -126,13 +126,17 @@ kBM_ROWS = 64   # rows of a tile (gated_common.cuh kBM)
 # (E_BIAS, N = F), conv_b with dropout, gate and residual (E_GATE, 2F), the
 # transposed conv_b and conv_a products with concat_elu's derivative
 # (E_CELU_BWD, trans B, with and without dropout); 4 x 4 images and the
-# ragged 3 x 5 (30 rows of a 64-row tile).
-@pytest.mark.parametrize("case,h,w", [
-    ("bias", 4, 4), ("bias", 3, 5), ("gate_drop", 4, 4), ("gate_drop", 3, 5),
-    ("celu_bwd", 4, 4), ("celu_bwd_drop", 3, 5),
+# ragged 3 x 5 (30 rows of a 64-row tile); at 128 filters and at 64.
+_GEMM_CASES = [("bias", 4, 4), ("bias", 3, 5), ("gate_drop", 4, 4), ("gate_drop", 3, 5),
+               ("celu_bwd", 4, 4), ("celu_bwd_drop", 3, 5)]
+
+
+@pytest.mark.parametrize("F,case,h,w", [
+    *(pytest.param(128, *c, id="-".join(map(str, c))) for c in _GEMM_CASES),
+    *(pytest.param(64, *c, id="f64-" + "-".join(map(str, c))) for c in _GEMM_CASES),
 ])
-def test_emulated_data_gemm_matches_plain(emu, case, h, w):
-    gen = torch.Generator().manual_seed(sum(map(ord, case)) * 100 + 10 * h + w)
+def test_emulated_data_gemm_matches_plain(emu, F, case, h, w):
+    gen = torch.Generator().manual_seed(sum(map(ord, case)) * 100 + 10 * h + w + F)
     b = 2
     grid, R = (b, h, w), b * h * w
     key = gc.stream_key(SEED, BLOCK_ID)
@@ -195,17 +199,30 @@ def test_emulated_data_gemm_matches_plain(emu, case, h, w):
         _close(out, want, "out")
 
 
-# (N, grid, taps (skh, skw, pad_top, pad_left), levels, dropout, rows a
-# split or None for one split): conv_a's and an aux product's kinds (N = F),
-# conv_b's (2F, dropout), ragged rows, and row splits (the last one short)
-# added by reduce_splits.
-@pytest.mark.parametrize("N,h,w,taps,L,drop,rows", [
-    (F, 4, 4, (2, 2, 1, 1), 2, False, None),
-    (2 * F, 3, 5, (2, 3, 1, 1), 2, True, None),
-    (2 * F, 4, 4, (1, 1, 0, 0), 2, True, 16),
-    (F, 3, 5, (2, 2, 1, 1), 1, False, 16),
+# (N as a multiple of F, grid, taps (skh, skw, pad_top, pad_left), levels,
+# dropout, rows a split or None for one split): conv_a's and an aux
+# product's kinds (N = F), conv_b's (2F, dropout), ragged rows, and row
+# splits (the last one short) added by reduce_splits; at 128 filters and at
+# 64.
+_WGRAD_CASES = [
+    (1, 4, 4, (2, 2, 1, 1), 2, False, None, "taps0"),
+    (2, 3, 5, (2, 3, 1, 1), 2, True, None, "taps1"),
+    (2, 4, 4, (1, 1, 0, 0), 2, True, 16, "taps2"),
+    (1, 3, 5, (2, 2, 1, 1), 1, False, 16, "taps3"),
+]
+
+
+def _wgrad_id(f, c):
+    nf, h, w, _, L, drop, rows, taps = c
+    return "-".join(map(str, (nf * f, h, w, taps, L, drop, rows)))
+
+
+@pytest.mark.parametrize("F,nf,h,w,taps,L,drop,rows", [
+    *(pytest.param(128, *c[:-1], id=_wgrad_id(128, c)) for c in _WGRAD_CASES),
+    *(pytest.param(64, *c[:-1], id="f64-" + _wgrad_id(64, c)) for c in _WGRAD_CASES),
 ])
-def test_emulated_wgrad_matches_plain(emu, N, h, w, taps, L, drop, rows):
+def test_emulated_wgrad_matches_plain(emu, F, nf, h, w, taps, L, drop, rows):
+    N = nf * F
     gen = torch.Generator().manual_seed(100 * N + 10 * h + L)
     b, base, sub = 2, 3, 1
     R = b * h * w
@@ -219,7 +236,7 @@ def test_emulated_wgrad_matches_plain(emu, N, h, w, taps, L, drop, rows):
     outs = [torch.full((skh * skw * 2 * F, N), float("nan")) for _ in range(L)]
     part = torch.full((L * S * skh * skw * 2 * F * N,), float("nan")) if S > 1 else None
     assert emu.emu_wgrad(
-        N, L, b, h, w, (ctypes.c_int * 4)(*taps), int(drop), SEED, gc.keep_threshold(keep),
+        F, N, L, b, h, w, (ctypes.c_int * 4)(*taps), int(drop), SEED, gc.keep_threshold(keep),
         base, sub, 1.0 / keep, _arr(srcs), _arr(outs), _ptr(gcot), _ptr(part), S,
         rows or R) == 0
     for lvl in range(L):

@@ -26,8 +26,14 @@ too, against the CPU; the block chain's and the decoder chain's kernels
 relaunched bit for bit at their res-28 run shapes; and the gated chain's
 GEMM core and the VDVAE chains' (the block chain's 1x1 products, its
 halo-staged 3x3 taps and their weight gradients, and the decoder chain's
-products) on operands that TF32 alone would round, against float64.
-Tolerance: 1e-4 relative to the tensor's scale (float32 sums in another
+products) on operands that TF32 alone would round, against float64. At 64
+filters (``pm_vqvae_digits16``'s width, the other build of the gated chain
+and sampler kernels): the vrow and row kernels at digits16's row (W 4, n
+320, L 12, K 128) and at ragged shapes, relaunched bit for bit, the row
+kernel also at three 128-column logits chunks; the six gated entry points
+at 32 x 4 x 4 and at ragged rows, their backwards relaunched bit for bit;
+a digits16 PM-VQVAE step per chain mode against the CPU; a width that was
+not built (96) refused by name. Tolerance: 1e-4 relative to the tensor's scale (float32 sums in another
 order), for the chains' gradients too (their sums run over at most a few
 thousand rows here).
 """
@@ -61,7 +67,7 @@ def _close(got, want):
     return err / max(1.0, want.abs().max().item()) <= TOL
 
 
-def _vrow_inputs(gen, n_lvl, wid, n, fan_in=False):
+def _vrow_inputs(gen, n_lvl, wid, n, fan_in=False, F=F):
     """Weights at 0.05, or with ``fan_in`` at 1 / sqrt(fan-in) (biases
     0.05): over 24 levels 0.05 makes the chain amplify float32 rounding
     (the plain version itself lands ~5e-2 of scale off float64 at the last
@@ -79,10 +85,13 @@ def _vrow_inputs(gen, n_lvl, wid, n, fan_in=False):
     )
 
 
-@pytest.mark.parametrize("wid,n", [(16, 5), (7, 33), (1, 3)])
-def test_vrow_kernel_matches_plain(dev, wid, n):
+@pytest.mark.parametrize("wid,n,f", [
+    *(pytest.param(w_, n_, F, id=f"{w_}-{n_}") for w_, n_ in ((16, 5), (7, 33), (1, 3))),
+    *(pytest.param(w_, n_, 64, id=f"f64-{w_}-{n_}") for w_, n_ in ((4, 13), (7, 33), (16, 5))),
+])
+def test_vrow_kernel_matches_plain(dev, wid, n, f):
     gen = torch.Generator(device=dev).manual_seed(wid * 100 + n)
-    args = _vrow_inputs(gen, 4, wid, n)
+    args = _vrow_inputs(gen, 4, wid, n, F=f)
     before = sc.vrow.launches
     got = sc.vrow(*args)
     torch.cuda.synchronize()
@@ -106,7 +115,7 @@ def test_vrow_kernel_flagship_matches_plain_and_relaunches_bit_for_bit(dev):
         assert torch.equal(g, g2)
 
 
-def _row_inputs(gen, n_lvl, wid, n, k):
+def _row_inputs(gen, n_lvl, wid, n, k, F=F):
     s = 0.05
     return (
         _rand(gen, n_lvl, 12 * F, F, scale=s), _rand(gen, n_lvl, F, scale=s),
@@ -122,17 +131,24 @@ def _row_inputs(gen, n_lvl, wid, n, k):
 
 # The weight ring wraps at GEMM, level and pixel boundaries: full depth
 # (L = 24) with a ragged last block (n = 13) and with full blocks (n = 16),
-# one column, one and two logits chunks.
-@pytest.mark.parametrize("wid,n,k,n_lvl", [
-    pytest.param(16, 5, 512, 4, id="16-5-512"),
-    pytest.param(7, 13, 256, 4, id="7-13-256"),
-    pytest.param(16, 13, 512, 24, id="16-13-512-L24"),
-    pytest.param(16, 16, 256, 24, id="16-16-256-L24"),
-    pytest.param(1, 5, 512, 4, id="1-5-512"),
+# one column, one and two logits chunks of 256 and 128-column chunks (K 128
+# and 384); at 64 filters digits16's depth (L 12) and codebook (K 128),
+# one column, two chunks of 256 and three of 128.
+@pytest.mark.parametrize("wid,n,k,n_lvl,f", [
+    pytest.param(16, 5, 512, 4, F, id="16-5-512"),
+    pytest.param(7, 13, 256, 4, F, id="7-13-256"),
+    pytest.param(16, 13, 512, 24, F, id="16-13-512-L24"),
+    pytest.param(16, 16, 256, 24, F, id="16-16-256-L24"),
+    pytest.param(1, 5, 512, 4, F, id="1-5-512"),
+    pytest.param(7, 13, 128, 4, F, id="7-13-128"),
+    pytest.param(3, 9, 384, 4, F, id="3-9-384"),
+    pytest.param(4, 13, 128, 12, 64, id="f64-4-13-128-L12"),
+    pytest.param(1, 5, 512, 4, 64, id="f64-1-5-512"),
+    pytest.param(7, 16, 384, 4, 64, id="f64-7-16-384"),
 ])
-def test_row_kernel_matches_plain(dev, wid, n, k, n_lvl):
+def test_row_kernel_matches_plain(dev, wid, n, k, n_lvl, f):
     gen = torch.Generator(device=dev).manual_seed(wid * 100 + n)
-    args = _row_inputs(gen, n_lvl, wid, n, k)
+    args = _row_inputs(gen, n_lvl, wid, n, k, F=f)
     before = sc.row.launches
     got = sc.row(*args, with_logits=True)
     torch.cuda.synchronize()
@@ -152,6 +168,29 @@ def test_row_kernel_is_deterministic(dev):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_sampler_kernels_at_the_digits16_row_relaunch_bit_for_bit(dev):
+    """digits16's row (W 4, n = 32 images x 10 samples, 64 filters, L 12,
+    K 128: 36 vrow blocks of 9 samples, 40 row blocks of 8): both kernels
+    against their plain versions, each relaunched bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(4320)
+    vargs = _vrow_inputs(gen, 12, 4, 320, fan_in=True, F=64)
+    rargs = _row_inputs(gen, 12, 4, 320, 128, F=64)
+    before = (sc.vrow.launches, sc.row.launches)
+    v1, v2 = sc.vrow(*vargs), sc.vrow(*vargs)
+    r1, r2 = sc.row(*rargs, with_logits=True), sc.row(*rargs, with_logits=True)
+    torch.cuda.synchronize()
+    assert (sc.vrow.launches, sc.row.launches) == (before[0] + 2, before[1] + 2)
+    for g, g2, w in zip(v1, v2, sc.vrow_plain(*vargs)):
+        assert _close(g, w) and torch.equal(g, g2)
+    want = sc.row_plain(*rargs, with_logits=True)
+    assert (r1[2] == want[2]).float().mean().item() >= 0.999
+    for a, b in zip(r1, r2):
+        assert torch.equal(a, b)
+    same = (r1[2] == want[2]).all(0)   # chains whose every sample agreed
+    for g, w in zip((r1[0], r1[1], r1[3]), (want[0], want[1], want[3])):
+        assert _close(g[..., same, :], w[..., same, :])
 
 
 def test_kernel_wrappers_refuse_unsupported_shapes(dev):
@@ -261,7 +300,7 @@ def test_vq_search_is_one_kernel_a_call(dev):
 
 
 def _stream_case(gen, b, h, w, L, cd, down):
-    f = gc.KERNEL_FILTERS
+    f = F
     taps = gc.chain_taps()
     shapes = gc.weight_shapes(f, cd, *taps, down)
     weights = {n: _rand(gen, L, *s, scale=0.05) for n, s in shapes}
@@ -297,10 +336,9 @@ def test_gated_stream_kernels_match_plain(dev, down, b, h, w, keep):
         assert _close(gk, gp)
 
 
-def _level_case(gen, b, h, w, L, cd, down):
+def _level_case(gen, b, h, w, L, cd, down, f=F):
     """Per-level weights at 1 / sqrt(fan-in) (biases 0.05), so that
     activations and gradients stay of order 1 over the levels."""
-    f = gc.KERNEL_FILTERS
     shapes = gc.weight_shapes(f, cd, *gc.chain_taps(), down)
     ws = [{n: _rand(gen, *s, scale=s[0] ** -0.5 if len(s) == 2 else 0.05) for n, s in shapes}
           for _ in range(L)]
@@ -388,6 +426,58 @@ def test_gated_backward_row_splits_match_autograd_bit_for_bit(dev, mode, b, h, w
     first = torch.autograd.grad(got, leaves, cot, retain_graph=True)
     second = torch.autograd.grad(got, leaves, cot)
     torch.cuda.synchronize()
+    grads_p = torch.autograd.grad(want, leaves, cot)
+    for i, (g1, g2, gp) in enumerate(zip(first, second, grads_p)):
+        assert _close(g1, gp), i
+        assert torch.equal(g1, g2), i
+
+
+# The six entry points at 64 filters (digits16's width: conv_a's products
+# are one n8 tile a warp): digits16's 32 x 4 x 4 rows (cond 256, pm_vqvae_
+# digits16's 6 levels a pass for the stream, a segment of 4; the pair's and
+# segment's weight gradients in row splits) and 5 x 3 x 5 (75 rows, a
+# ragged 64-row tile), up and down, dropout 0.5: outputs and every gradient
+# against autograd through the plain version, the backward relaunched bit
+# for bit, one launch a call.
+@pytest.mark.parametrize("down", [False, True], ids=["up", "down"])
+@pytest.mark.parametrize("b,h,w", [(32, 4, 4), (5, 3, 5)])
+@pytest.mark.parametrize("mode", ["pair", "segment", "stream"])
+def test_gated_kernels_at_64_filters_match_autograd(dev, mode, b, h, w, down):
+    gen = torch.Generator(device=dev).manual_seed(6400 + b * 10 + h + down)
+    n_lvl = {"pair": 1, "segment": 4, "stream": 6}[mode]
+    xv0, xh0, sk, cond, ws = _level_case(gen, b, h, w, n_lvl, 256, down, f=64)
+    if mode == "stream":
+        ws = [{k: torch.stack([wl[k] for wl in ws]) for k in ws[0]}]
+        sk = (torch.stack([p[0] for p in sk]), torch.stack([p[1] for p in sk])) if down else None
+        skl = list(sk) if down else []
+    else:
+        skl = [t for pair in (sk or ()) for t in pair]
+    leaves = [xv0, xh0, cond, *(t for wl in ws for t in wl.values()), *skl]
+    for t in leaves:
+        t.requires_grad_(True)
+    kernels = {"pair": (gc.pair_fwd, gc.pair_bwd), "segment": (gc.seg_fwd, gc.seg_bwd),
+               "stream": (gc.stream_fwd, gc.stream_bwd)}[mode]
+    before = [k.launches for k in kernels]
+    if mode == "stream":
+        kw = dict(seed=5, base_pair=6 if down else 0, keep=0.5)
+        got = list(gc.gated_stream(xv0, xh0, sk, cond, ws[0], **kw))
+        want = list(gc.gated_stream_plain(xv0, xh0, sk, cond, ws[0], **kw))
+    elif mode == "pair":
+        kw = dict(seed=5, pair_index=7 if down else 2, keep=0.5)
+        got = list(gc.gated_pair(xv0, xh0, sk and sk[0], cond, ws[0], **kw))
+        want = list(gc.gated_pair_plain(xv0, xh0, sk and sk[0], cond, ws[0], **kw))
+    else:
+        kw = dict(seed=5, base_pair=6 if down else 1, keep=0.5)
+        got = [t for pair in gc.gated_segment(xv0, xh0, sk, cond, ws, **kw) for t in pair]
+        want = [t for pair in gc.gated_segment_plain(xv0, xh0, sk, cond, ws, **kw)
+                for t in pair]
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        assert _close(g_, w_), i
+    cot = [_rand(gen, *t.shape) for t in want]
+    first = torch.autograd.grad(got, leaves, cot, retain_graph=True)
+    second = torch.autograd.grad(got, leaves, cot)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(kernels, before)] == [1, 2]
     grads_p = torch.autograd.grad(want, leaves, cot)
     for i, (g1, g2, gp) in enumerate(zip(first, second, grads_p)):
         assert _close(g1, gp), i
@@ -489,10 +579,17 @@ def test_gated_level_wrappers_refuse_masks_and_widths(dev):
     masks = (torch.ones(2, 4, 4, 256, device=dev),) * 2
     with pytest.raises(ValueError, match="injected masks"):
         gc.gated_pair(xv0, xh0, None, cond, ws[0], seed=0, pair_index=0, keep=0.5, masks=masks)
-    narrow = {n: t[..., :64] for n, t in ws[0].items()}
-    with pytest.raises(ValueError, match="num_filters"):
-        gc.gated_segment(xv0[..., :64], xh0[..., :64], None, cond, [narrow], seed=0,
+    # 96 filters: a width the kernels are not built for
+    narrow = {n: t[..., :96] for n, t in ws[0].items()}
+    with pytest.raises(ValueError, match=r"num_filters in \(64, 128\), got 96"):
+        gc.gated_segment(xv0[..., :96], xh0[..., :96], None, cond, [narrow], seed=0,
                          base_pair=0, keep=1.0)
+    with pytest.raises(ValueError, match=r"vrow kernel is built for num_filters in \(64, 128\)"):
+        sc.vrow(*_vrow_inputs(gen, 4, 4, 5, F=96))
+    with pytest.raises(ValueError, match=r"row kernel is built for num_filters in \(64, 128\)"):
+        sc.row(*_row_inputs(gen, 4, 4, 5, 128, F=96))
+    with pytest.raises(ValueError, match="num_indices % 128 == 0, got 192"):
+        sc.row(*_row_inputs(gen, 4, 4, 5, 192, F=64))
 
 
 # A small PM-VQVAE at PM-VQVAE MNIST's geometry (28x28x1 images, 7x7 codes,
@@ -509,17 +606,37 @@ SMALL_PC = {"image_shape": (7, 7), "num_resnet": 3, "num_hierarchies": 1,
 def test_pm_vqvae_step_per_chain_mode_matches_cpu(dev, chain_segment, launches):
     """The loss and gradients of a training step through each mode's
     kernels against the plain path on the CPU (the same hash masks)."""
+    _step_matches_cpu(dev, SMALL_VQ, SMALL_PC, 24, (28, 28, 1), chain_segment, launches)
+
+
+# pm_vqvae_digits16's PixelCNN whole (4x4 codes, 6 resnet levels of 64
+# filters, 128 codes, a 256-wide condition) over a narrow VQ-VAE of 16x16x1
+# images: the pair and segment modes' launches (12 and, in segments of 4
+# and 2, 4 a direction).
+DIGITS16_VQ = {**SMALL_VQ, "num_embeddings": 128}
+DIGITS16_PC = {"image_shape": (4, 4), "num_resnet": 6, "num_hierarchies": 1,
+               "num_filters": 64, "dropout": 0.5, "num_indices": 128}
+
+
+@pytest.mark.parametrize("chain_segment,launches", [("stream", (2, 0, 0)), (1, (0, 12, 0)),
+                                                    (4, (0, 0, 4))])
+def test_pm_vqvae_digits16_step_per_chain_mode_matches_cpu(dev, chain_segment, launches):
+    _step_matches_cpu(dev, DIGITS16_VQ, DIGITS16_PC, 256, (16, 16, 1), chain_segment,
+                      launches)
+
+
+def _step_matches_cpu(dev, vq_cfg, pc_cfg, cd, image, chain_segment, launches):
     from posterior_matching_torch import convert
     from posterior_matching_torch.train.trainer import pm_vqvae_loss
 
-    params, state = convert.random_pm_vqvae_tree(24, SMALL_VQ, SMALL_PC, seed=4)
+    params, state = convert.random_pm_vqvae_tree(cd, vq_cfg, pc_cfg, seed=4)
     g = torch.Generator().manual_seed(5)
-    x = torch.rand(3, 28, 28, 1, generator=g)
-    b = (torch.rand(3, 28, 28, 1, generator=g) > 0.5).float()
+    x = torch.rand(3, *image, generator=g)
+    b = (torch.rand(3, *image, generator=g) > 0.5).float()
     counters = (gc.stream_bwd, gc.pair_bwd, gc.seg_bwd)
     out = {}
     for d in (dev, torch.device("cpu")):
-        m = convert.pm_vqvae_from_jax(params, state, 24, SMALL_VQ, SMALL_PC, device=d,
+        m = convert.pm_vqvae_from_jax(params, state, cd, vq_cfg, pc_cfg, device=d,
                                       chain_segment=chain_segment)
         names, ps = zip(*[(n, p) for n, p in m.named_parameters()
                           if not n.startswith("vqvae.")])

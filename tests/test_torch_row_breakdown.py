@@ -18,13 +18,13 @@ def test_kernel_variant_is_the_source():
 
 
 @pytest.mark.parametrize("name,gone,kept", [
-    ("no_copy", ["mbar_expect_tx(bar"], ["for (int r = 0; r < kWarpRows; ++r)"]),
-    ("no_fma", ["for (int r = 0; r < kWarpRows; ++r)"], ["mbar_expect_tx(bar"]),
-    ("skeleton", ["for (int r = 0; r < kWarpRows; ++r)", "mbar_expect_tx(bar"],
+    ("no_copy", ["mbar_expect_tx(bar"], ["for (int r = 0; r < kGroupRows; ++r)"]),
+    ("no_fma", ["for (int r = 0; r < kGroupRows; ++r)"], ["mbar_expect_tx(bar"]),
+    ("skeleton", ["for (int r = 0; r < kGroupRows; ++r)", "mbar_expect_tx(bar"],
      ["produce(p, ring"]),
     ("no_ring", ["produce(p, ring, per_pixel", "mbar_arrive(ring.empty_bar",
                  "mbar_wait(ring.full_bar"], ["consumers_sync();"]),
-    ("ring_5x32k", ["kStage = 16384;", "kStages = 2;"], ["kStage = 8192;", "kStages = 5;"]),
+    ("ring_5x32k", ["kStage = 128 * F;", "kStages = 2;"], ["kStage = 64 * F;", "kStages = 5;"]),
 ])
 def test_variant_takes_its_part_away(name, gone, kept):
     text = "".join(row_breakdown.variants(SOURCE, HEADER)[name])
@@ -40,8 +40,8 @@ def test_variant_takes_its_part_away(name, gone, kept):
     ("skeleton", ["k4 < kWarpK", "mbar_expect_tx(bar"], ["stream.issue(g);"]),
     ("no_ring", ["stream.issue(g);", "== kWarps - 1", "mbar_wait(smem_u32(full"],
      ["__syncthreads();"]),
-    ("ring_6x16k", ["kStage = 8192;", "kStages = 3;", "kWarpK = 16;"],
-     ["kStage = 4096;", "kStages = 6;", "kWarpK = 8;"]),
+    ("ring_6x16k", ["kStage = 64 * F;", "kStages = 3;", "kWarpK = 16;"],
+     ["kStage = 32 * F;", "kStages = 6;", "kWarpK = 8;"]),
 ])
 def test_vrow_variant_takes_its_part_away(name, gone, kept):
     text = "".join(row_breakdown.variants(VSOURCE, HEADER, "vrow")[name])

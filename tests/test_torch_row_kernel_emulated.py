@@ -9,7 +9,10 @@ stand-in. That runs the kernel's own
 indexing, split-K reduction, ragged blocks and weight ring (the producer
 warp, the slots' parities across GEMM, level and pixel boundaries) without a
 GPU; the card's timing, memory model and PTX are left to the GPU tests.
-Tolerance as there: samples equal, the rest 1e-4 of the tensor's scale.
+Both built widths (128 filters and digits16's 64, whose gathers and
+epilogues use half the consumer threads) and both logits chunks (256
+columns, or 128 where K is an odd multiple of 128) run. Tolerance as
+there: samples equal, the rest 1e-4 of the tensor's scale.
 Skips where no C++20 compiler is found.
 """
 import ctypes
@@ -24,7 +27,6 @@ import torch
 from posterior_matching_torch.ops import _build, sampler_chain as sc
 
 EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
-F = sc.KERNEL_FILTERS
 TOL = 1e-4
 
 # The PTX helpers of csrc/sampler_common.cuh, csrc/gated_common.cuh and the
@@ -107,7 +109,7 @@ def emu(tmp_path_factory):
     lib = build_emulation(tmp_path_factory.mktemp("row_emulation"), "sampler_row.cu",
                           "pm_sampler_row", "row_harness.cpp")
     cdll = ctypes.CDLL(str(lib))
-    cdll.emu_sampler_row.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4
+    cdll.emu_sampler_row.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5
     cdll.emu_sampler_row.restype = ctypes.c_int
     return cdll
 
@@ -123,11 +125,17 @@ def _close(got, want):
 
 # One column; a ragged block of 5; two blocks (the second ragged) at full
 # depth, where the ring wraps at every GEMM, level and pixel boundary; a
-# full block with two logits chunks.
-@pytest.mark.parametrize("n_lvl,wid,n,k", [
-    (2, 1, 3, 256), (4, 3, 5, 256), (24, 2, 13, 512), (4, 2, 16, 512),
+# full block with two logits chunks; 128-column chunks (K = 128, 384). At 64
+# filters: digits16's row (W = 4, K = 128) at its depth (L = 12) with a
+# ragged second block, one column, three 128-column chunks, two of 256.
+@pytest.mark.parametrize("F,n_lvl,wid,n,k", [
+    *(pytest.param(128, *c, id="-".join(map(str, c)))
+      for c in ((2, 1, 3, 256), (4, 3, 5, 256), (24, 2, 13, 512), (4, 2, 16, 512))),
+    *(pytest.param(128, *c, id="-".join(map(str, c))) for c in ((4, 2, 5, 128),)),
+    *(pytest.param(64, *c, id="f64-" + "-".join(map(str, c)))
+      for c in ((12, 4, 13, 128), (2, 1, 3, 128), (4, 2, 5, 384), (4, 3, 8, 512))),
 ])
-def test_emulated_row_kernel_matches_plain(emu, n_lvl, wid, n, k):
+def test_emulated_row_kernel_matches_plain(emu, F, n_lvl, wid, n, k):
     gen = torch.Generator().manual_seed(1000 * n_lvl + 100 * wid + n)
     s = 0.05
     args = (
@@ -146,7 +154,7 @@ def test_emulated_row_kernel_matches_plain(emu, n_lvl, wid, n, k):
     outl = torch.full((wid, n, k), float("nan"))
     assert emu.emu_sampler_row(
         *[a.data_ptr() for a in args], outh.data_ptr(), outm.data_ptr(),
-        outs.data_ptr(), outl.data_ptr(), n_lvl, wid, n, k) == 0
+        outs.data_ptr(), outl.data_ptr(), n_lvl, wid, n, k, F) == 0
     want = sc.row_plain(*args, with_logits=True)
     torch.testing.assert_close(outs, want[2], rtol=0, atol=0)
     for got, ref in zip((outh, outm, outl), (want[0], want[1], want[3])):

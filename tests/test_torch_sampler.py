@@ -3,11 +3,12 @@
 Both get the same numpy-drawn Gumbel noise ``[H, W, n, K]``; the JAX side runs
 its Pallas kernels in interpret mode, as ``tests/test_sampler_chain.py`` does.
 In float32 the samples must be equal and the logits agree to 1e-4 absolute
-(float32 rounding along a chain of a few dozen matmuls of width <= 12F). One
-case runs at 128 filters, the only width the port's row kernel is built
-for, so the plain version that the kernel is held against on the card is
-itself held against JAX at that width, with a sample count (9) that leaves
-the kernel's 8-sample blocks ragged.
+(float32 rounding along a chain of a few dozen matmuls of width <= 12F). Two
+cases run at the widths the port's kernels are built for, so the plain
+version that the kernels are held against on the card is itself held
+against JAX there: 128 filters, with a sample count (9) that leaves the row
+kernel's 8-sample blocks ragged, and ``pm_vqvae_digits16``'s geometry (4x4
+codes, 64 filters, 128 codes, a 256-wide condition, two resnet levels).
 """
 import jax
 import jax.numpy as jnp
@@ -25,6 +26,8 @@ LOGITS_ATOL = 1e-4
 
 
 def _models(num_resnet, num_indices, image_shape, cond_dim, batch, num_filters=8):
+    """The JAX PixelCNN, its variables, the port's PixelCNN with the same
+    weights and a seeded condition."""
     jax_model = JaxPixelCNN(
         num_indices=num_indices, image_shape=image_shape, dropout=0.0,
         num_resnet=num_resnet, num_hierarchies=1, num_filters=num_filters,
@@ -44,14 +47,15 @@ def _models(num_resnet, num_indices, image_shape, cond_dim, batch, num_filters=8
 
 
 @pytest.mark.parametrize(
-    "num_resnet,cond_dim,num_filters,image_shape,batch",
-    [pytest.param(r, c, 8, (5, 6), 2, id=f"{r}-{cid}")
+    "num_resnet,cond_dim,num_filters,image_shape,batch,num_indices",
+    [pytest.param(r, c, 8, (5, 6), 2, 12, id=f"{r}-{cid}")
      for r in (1, 3) for c, cid in ((10, "cond"), (None, "uncond"))]
-    + [pytest.param(1, 10, 128, (3, 4), 3, id="1-cond-128filters")],
+    + [pytest.param(1, 10, 128, (3, 4), 3, 12, id="1-cond-128filters"),
+       pytest.param(2, 256, 64, (4, 4), 2, 128, id="2-cond-digits16")],
 )
 def test_plain_sampler_matches_jax_rowkernel(num_resnet, cond_dim, num_filters,
-                                             image_shape, batch):
-    num_indices, num_samples = 12, 3
+                                             image_shape, batch, num_indices):
+    num_samples = 3
     jax_model, variables, port, cond = _models(
         num_resnet, num_indices, image_shape, cond_dim, batch, num_filters
     )

@@ -7,8 +7,10 @@ thread per CUDA thread, the PTX helpers of ``sampler_common.cuh`` replaced),
 which runs the kernel's own operand builds (the zero halo rows, the
 concat_elu sources), split-K reduction, ragged blocks and weight ring (three
 slots, each refilled by the last warp done with its stage, whose parities
-wrap across GEMM and level boundaries) without a GPU. Tolerance as on the
-GPU: 1e-4 of the tensor's scale. Skips where no C++20 compiler is found.
+wrap across GEMM and level boundaries) without a GPU, at both built
+widths (128 filters and digits16's 64, whose warps split their lanes
+between two row groups). Tolerance as on the GPU: 1e-4 of the tensor's
+scale. Skips where no C++20 compiler is found.
 """
 import ctypes
 
@@ -18,7 +20,6 @@ import torch
 from posterior_matching_torch.ops import sampler_chain as sc
 from test_torch_row_kernel_emulated import build_emulation
 
-F = sc.KERNEL_FILTERS
 TOL = 1e-4
 
 
@@ -27,7 +28,7 @@ def emu(tmp_path_factory):
     lib = build_emulation(tmp_path_factory.mktemp("vrow_emulation"), "sampler_vrow.cu",
                           "pm_sampler_vrow", "vrow_harness.cpp")
     cdll = ctypes.CDLL(str(lib))
-    cdll.emu_sampler_vrow.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3
+    cdll.emu_sampler_vrow.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4
     cdll.emu_sampler_vrow.restype = ctypes.c_int
     return cdll
 
@@ -38,10 +39,17 @@ def _rand(gen, *shape, scale=1.0):
 
 # Blocks of 6 samples at W = 7 (the last of three ragged, one sample); of 3
 # at the flagship's W = 16 (the second ragged); 18 at W = 1; 7 at W = 5 over
-# six levels. L >= 4 runs up and down levels (the skip product); the ring's
-# three slots wrap at every GEMM and level boundary.
-@pytest.mark.parametrize("n_lvl,wid,n", [(4, 7, 13), (4, 16, 4), (2, 1, 3), (6, 5, 9)])
-def test_emulated_vrow_kernel_matches_plain(emu, n_lvl, wid, n):
+# six levels; at 64 filters, 9 at digits16's W = 4 (the second block
+# ragged) and the W = 7 and 16 blocks. L >= 4 runs up and down levels (the
+# skip product); the ring's three slots wrap at every GEMM and level
+# boundary.
+@pytest.mark.parametrize("F,n_lvl,wid,n", [
+    *(pytest.param(128, *c, id="-".join(map(str, c)))
+      for c in ((4, 7, 13), (4, 16, 4), (2, 1, 3), (6, 5, 9))),
+    *(pytest.param(64, *c, id="f64-" + "-".join(map(str, c)))
+      for c in ((4, 4, 13), (2, 7, 9), (6, 16, 4))),
+])
+def test_emulated_vrow_kernel_matches_plain(emu, F, n_lvl, wid, n):
     gen = torch.Generator().manual_seed(1000 * n_lvl + 100 * wid + n)
     s = 0.05
     args = (
@@ -57,7 +65,7 @@ def test_emulated_vrow_kernel_matches_plain(emu, n_lvl, wid, n):
     outs = [torch.full_like(args[3], float("nan")), torch.full_like(args[4], float("nan")),
             torch.full_like(args[1], float("nan")), torch.full_like(args[1], float("nan"))]
     assert emu.emu_sampler_vrow(*[a.data_ptr() for a in args], *[o.data_ptr() for o in outs],
-                                n_lvl, wid, n) == 0
+                                n_lvl, wid, n, F) == 0
     want = sc.vrow_plain(*args)
     for name, got, ref in zip(("outv", "outm", "v0", "hup"), outs, want):
         err = (got - ref).abs().max().item()
