@@ -8,7 +8,8 @@ granularities), the PM-VQVAE MNIST training pipeline from the command line
 PM-VQVAE CelebA pipeline and the PM-VDVAE evals from their CLIs, then
 PM-VAE's training and UCI eval CLIs, then VaDE's and the greedy
 acquisition's CLIs, then the PM-VQVAE digits16 pipeline through the
-PixelCNN kernels' 64-filter builds, and checks them, in these phases:
+PixelCNN kernels' 64-filter builds, then PM-VDVAE training and the image
+evals over ranks, and checks them, in these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
 2. all thirteen kernels (``posterior_matching_torch/ops/csrc``; the pair
@@ -176,7 +177,28 @@ PixelCNN kernels' 64-filter builds, and checks them, in these phases:
    the stream run (32 images, 10 samples, 1 trial): each CLI's kernel
    launches exactly (every counter set to 0 just before it), its batches,
    run directory, finite validation loss, and the eval's files;
-18. one JSON line of per-kernel numbers (the 64-filter forms as
+18. ranks (``posterior_matching_torch.parallel``), each rank a process of
+   this script with the launcher's environment set by hand and a time
+   limit (the kernels are built by now, so no rank compiles): (a)
+   ``train_pm_vdvae --config pm_vdvae_mnist`` with the fused decoder at full
+   width, per-device batch 16, 3 steps, as one NCCL rank and in this
+   process without a group, both asking cuDNN for its deterministic algorithms:
+   their ``train_state.pkl`` bit for bit equal, their steps/s, and the ms of
+   one gradient all-reduce under NCCL at one rank; then two gloo ranks on
+   the one card (every rank LOCAL_RANK 0): (b) the same run at global batch
+   32 with ``--dist_backend gloo``: the ranks' parameter digests equal after
+   every step, one run directory, its checkpoint reloaded, each rank's
+   block- and decoder-chain launches exactly; (c) one fused
+   ``pm_vdvae_trainer`` step at global batch 32 with injected normals
+   against one process's step on the global batch, within the CPU test's
+   bounds, the ranks bit for bit equal, and the ms of a gradient
+   all-reduce under gloo at two ranks; (d) ``eval_pm_vqvae`` on phase 12's
+   run (64 images x 10 samples): the PSNRs bit for bit phase 12's, each
+   rank's sampler launches; (e) ``eval_pm_vdvae_imputation`` (64 x 10) and
+   ``eval_pm_vdvae_likelihood`` (124 instances, 16 importance samples) on
+   phase 11's run: every instance finite, written once, the means within
+   IN_DISTRIBUTION_SE standard errors of phase 13's;
+19. one JSON line of per-kernel numbers (the 64-filter forms as
    ``<kernel>_f64``, their launches the digits16 pipeline's), the card's
    name and power limit, and the result line.
 
@@ -2956,17 +2978,23 @@ def resume_check(name, main, argv, cwd, data_dir, counters, lr=None):
             "arrays": len(want), "differ": len(differ), "worst_of_scale": worst[1]}
 
 
-def events(run_dir):
-    """The summary values of a run's ``tb/`` event file, through the tests'
-    reader (``tests/tb_events.py``)."""
+def tests_module(name):
+    """A helper module of the repo's ``tests/`` (none imports JAX), loaded
+    by path."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "tb_events", Path(__file__).resolve().parent / "tests" / "tb_events.py")
-    reader = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(reader)
+        name, Path(__file__).resolve().parent / "tests" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def events(run_dir):
+    """The summary values of a run's ``tb/`` event file, through the tests'
+    reader (``tests/tb_events.py``)."""
     (path,) = glob.glob(f"{run_dir}/tb/events.out.tfevents.*")
-    return reader.read_events(path)
+    return tests_module("tb_events").read_events(path)
 
 
 def resume_phase(args, work, celeb_a_dir, vqvae_dir, mnist_dir):
@@ -3152,12 +3180,465 @@ def conv_precision_check(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: ranks, the data parallelism of posterior_matching_torch.parallel
+# ---------------------------------------------------------------------------
+
+# Each rank is a process of this script (``--rank_mode``) with the
+# launcher's environment set by hand; every rank of the one card is
+# LOCAL_RANK 0 (gloo takes two ranks on one GPU, NCCL refuses them).
+RANK_TIMEOUT = 300          # seconds a rank process may take
+RANKS_STEPS, RANKS_BATCH = 3, 16       # train_pm_vdvae's steps, per-device batch
+RANKS_SPLITS = {"train": 128, "test": 64}
+ALL_REDUCE_REPS = 20
+# (c): the two-rank step against one process within the CPU test's bounds
+# (tests/test_torch_parallel.py, ``torch_parallel_worker.params_close``):
+# loss 1e-5 relative, Adam's moments 1e-4 of scale (the gradient bar,
+# GRAD_TOL); each parameter (and its EMA) within 5% of the learning rate,
+# or, where its gradient is within that bar of zero (its sign not
+# determined at that precision: Adam moves it by up to the rate either
+# way), within twice the rate.
+RANKS_LOSS_TOL, RANKS_MOMENT_TOL, RANKS_PARAM_STEP_SHARE = 1e-5, GRAD_TOL, 0.05
+# (e): the VDVAE evals' ranks draw their own normals (and, past the first
+# batch, other masks), so they equal phase 13's one-process results only in
+# distribution: the two means of the per-instance values must agree within
+# this many standard errors of their difference.
+IN_DISTRIBUTION_SE = 4.0
+LL_RANK_BATCH = 62          # (e)'s likelihood: 62 instances a rank, 124 in all
+
+
+def spawn_ranks(mode, spec_path, world):
+    """``world`` ranks of one group, each a process of this script in
+    ``mode`` with RANK_TIMEOUT seconds; their output logged, each killed at
+    its limit; raises unless every one exits 0. Returns their standard
+    outputs."""
+    port, procs = tests_module("torch_parallel_worker").free_port(), []
+    for r in range(world):
+        rank_env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank_mode", mode, "--rank_spec",
+             str(spec_path)], env=rank_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs, failed = [], []
+    for r, proc in enumerate(procs):
+        try:
+            out, _ = proc.communicate(timeout=RANK_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, _ = proc.communicate()
+            out += f"\n[killed after {RANK_TIMEOUT} s]"
+        for line in out.splitlines():
+            log(f"  rank {r}/{world}: {line}")
+        if proc.returncode != 0:
+            failed.append(f"rank {r} exited with {proc.returncode}")
+        outs.append(out)
+    check(not failed, f"{mode}: {failed}")
+    return outs
+
+
+def params_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for _, p in sorted(model.named_parameters()):
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def time_all_reduce(model):
+    """One gradient all-reduce of the step (every parameter's size and the
+    5 logged scalars, one flat buffer) over the process group, mean over
+    ALL_REDUCE_REPS after 3 warm-ups: ``all_reduce_mean`` whole by CUDA
+    events and by the host's clock, and its collective alone
+    (``dist.all_reduce`` of the flat buffer) by CUDA events."""
+    from posterior_matching_torch.parallel import mesh
+
+    grads = [torch.randn_like(p) for p in model.parameters()]
+    grads += [torch.ones((), device=DEVICE) for _ in range(5)]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    whole, host, collective = [], [], []
+    for i in range(3 + ALL_REDUCE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        mesh.all_reduce_mean(grads)
+        events[1].record()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        events[2].record()
+        mesh.dist.all_reduce(flat)
+        events[3].record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            whole.append(events[0].elapsed_time(events[1]))
+            host.append((t1 - t0) * 1e3)
+            collective.append(events[2].elapsed_time(events[3]))
+    return {"floats": flat.numel(), "event_ms": float(np.mean(whole)),
+            "host_ms": float(np.mean(host)), "collective_ms": float(np.mean(collective)),
+            "backend": mesh.dist.get_backend(), "world": mesh.world_size()}
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """Each ``Trainer.train_step`` waited for: its span and, after it, the
+    parameters' digest."""
+    from posterior_matching_torch.train.trainer import Trainer
+
+    seen = {"spans": [], "digests": []}
+    step = Trainer.train_step
+
+    def recorded(self, batch):
+        t0 = time.perf_counter()
+        out = step(self, batch)
+        torch.cuda.synchronize()
+        seen["spans"].append(time.perf_counter() - t0)
+        seen["digests"].append(params_digest(self.model))
+        return out
+
+    Trainer.train_step = recorded
+    try:
+        yield seen
+    finally:
+        Trainer.train_step = step
+
+
+def rank_train_cli(spec, backend=None):
+    """``train_pm_vdvae`` in this process as the spec says, cuDNN's
+    deterministic algorithms asked for where ``spec["deterministic"]``,
+    the VDVAE kernels counted: its lines, launches, step spans and
+    digests."""
+    from posterior_matching_torch import train_pm_vdvae
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    argv = list(spec["argv"]) + (["--dist_backend", backend] if backend else [])
+    kept = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = spec["deterministic"]
+    try:
+        with cli_env(spec["cwd"], spec["data"]), recorded_steps() as seen:
+            _, lines, wall = run_cli("train_pm_vdvae", train_pm_vdvae.main, argv)
+    finally:
+        torch.backends.cudnn.deterministic = kept
+    return {"lines": lines, "wall_s": wall, "spans": seen["spans"], "digests": seen["digests"],
+            "launches": {k: c.launches for k, c in counters.items()}}
+
+
+def rank_main(mode, spec_path) -> int:
+    """A rank of phase 18 (``mode`` "cli" or "ranks"); writes what it saw
+    to ``<spec dir>/<mode>.<rank>.json``."""
+    from posterior_matching_torch import (
+        convert,
+        eval_pm_vdvae_imputation,
+        eval_pm_vdvae_likelihood,
+        eval_pm_vqvae,
+    )
+    from posterior_matching_torch.ops import sampler_chain as sc
+    from posterior_matching_torch.parallel import mesh
+
+    worker = tests_module("torch_parallel_worker")
+    with open(spec_path) as fp:
+        spec = json.load(fp)
+    rank = int(os.environ.get("RANK", "0"))
+    out = {}
+    if mode == "cli":
+        # (a): one rank over NCCL
+        out["cli"] = rank_train_cli(spec["a"])
+        os.environ["MASTER_PORT"] = str(spec["port2"])
+        check(mesh.maybe_initialize_distributed(), "no process group for the timing")
+        out["all_reduce"] = time_all_reduce(convert.pm_vdvae_from_jax(
+            convert.random_pm_vdvae_tree(spec["model"], seed=0), spec["model"], device=DEVICE))
+        mesh.dist.destroy_process_group()
+    else:
+        # (b): two ranks over gloo, the group started by the CLI's flag
+        out["cli"] = rank_train_cli(spec["b"], backend="gloo")
+        check(not mesh.distributed(), "train_pm_vdvae left its process group up")
+        os.environ["MASTER_PORT"] = str(spec["port2"])
+        check(mesh.maybe_initialize_distributed(backend="gloo"), "no gloo group")
+        # (c): one fused step at the Trainer, normals injected
+        with open(spec["c"]["inputs"], "rb") as fp:
+            inputs = pickle.load(fp)
+        trainer = worker.vdvae_trainer(inputs, device=DEVICE)
+        out["c_metrics"] = {k: v.item() for k, v in trainer.train_step(inputs["batch"]).items()}
+        with open(f"{spec['dir']}/c.{rank}.pkl", "wb") as fp:
+            pickle.dump(worker.trainer_state(trainer), fp)
+        out["all_reduce"] = time_all_reduce(trainer.model)
+        del trainer
+        # (d) and (e): the eval CLIs, every kernel counter set to 0 before each
+        counters = {**kernel_counters(), "sampler_vrow": sc.vrow, "sampler_row": sc.row}
+        for stage, main, key in (("eval_pm_vqvae", eval_pm_vqvae.main, "d"),
+                                 ("eval_pm_vdvae_imputation", eval_pm_vdvae_imputation.main, "e1"),
+                                 ("eval_pm_vdvae_likelihood", eval_pm_vdvae_likelihood.main,
+                                  "e2")):
+            for c in counters.values():
+                c.launches = 0
+            with cli_env(spec[key]["cwd"], spec[key]["data"]):
+                _, lines, wall = run_cli(stage, main, spec[key]["argv"])
+            out[stage] = {"lines": lines, "wall_s": wall,
+                          "launches": {k: c.launches for k, c in counters.items()}}
+        mesh.dist.destroy_process_group()
+    with open(f"{spec['dir']}/{mode}.{rank}.json", "w") as fp:
+        json.dump(out, fp)
+    return 0
+
+
+def ranks_phase(args, work, celeb_a, vdvae_run, vdvae_data, celeb_data):
+    """Phase 18 in ``work`` (see the module's docstring): (a) one NCCL rank
+    against one process, (b)-(e) two gloo ranks on the one card; the
+    kernels are built (phase 2), so no rank compiles."""
+    from posterior_matching_torch import config, convert, masking
+
+    worker = tests_module("torch_parallel_worker")
+    t_phase = time.perf_counter()
+    os.makedirs(f"{work}/a_one")
+    os.makedirs(f"{work}/a_nccl")
+    os.makedirs(f"{work}/b")
+    write_splits(f"{work}/data", "mnist", RANKS_SPLITS)
+    cfg = dict(config.PM_VDVAE_MNIST, fused_chain=True)
+    train_argv = ["--config", "pm_vdvae_mnist", "--config.model.fused_chain=True",
+                  "--config.steps", str(RANKS_STEPS), "--config.validation_freq",
+                  str(RANKS_STEPS), "--config.seed", str(args.seed),
+                  f"--config.data.train_batch_size={RANKS_BATCH}",
+                  f"--config.data.val_batch_size={RANKS_BATCH}"]
+
+    def write_spec(name, spec):
+        path = f"{work}/{name}.json"
+        with open(path, "w") as fp:
+            json.dump({"dir": work, "port2": worker.free_port(), "model": cfg, **spec}, fp)
+        return path
+
+    def read(mode, world):
+        outs = []
+        for r in range(world):
+            with open(f"{work}/{mode}.{r}.json") as fp:
+                outs.append(json.load(fp))
+        return outs
+
+    def run_dir(cwd):
+        dirs = glob.glob(f"{cwd}/runs/pm-vdvae-mnist-*")
+        check(len(dirs) == 1, f"{cwd} holds the run directories {dirs}")
+        return dirs[0]
+
+    def steps_per_s(spans):
+        return (len(spans) - 1) / sum(spans[1:])   # the first step's warm-up left out
+
+    # ---- (a) one rank over NCCL against one process -------------------------
+    stamp("phase 18 (a): train_pm_vdvae, one NCCL rank against one process")
+    a_spec = {name: {"cwd": f"{work}/a_{name}", "data": f"{work}/data", "argv": train_argv,
+                     "deterministic": True} for name in ("one", "nccl")}
+    a = {"one": {"cli": rank_train_cli(a_spec["one"])}}   # in this process, no group
+    spawn_ranks("cli", write_spec("a_nccl", {"a": a_spec["nccl"]}), 1)
+    a["nccl"] = read("cli", 1)[0]
+    for name in a:
+        a[name]["run_dir"] = run_dir(f"{work}/a_{name}")
+        a[name]["steps_per_s"] = steps_per_s(a[name]["cli"]["spans"])
+    one, nccl = (checkpoint_arrays(a[k]["run_dir"]) for k in ("one", "nccl"))
+    check(sorted(one) == sorted(nccl) and int(one["step"]) == RANKS_STEPS,
+          "(a): the checkpoints hold other arrays")
+    differ = [k for k in one if not np.array_equal(one[k], nccl[k])]
+    check(not differ, f"(a): the NCCL rank's train_state.pkl differs from one process's at "
+                      f"{differ[:5]} ({len(differ)} arrays)")
+    check(a["one"]["cli"]["launches"] == a["nccl"]["cli"]["launches"],
+          f"(a): launches {a['one']['cli']['launches']} vs {a['nccl']['cli']['launches']}")
+    reduce_nccl = a["nccl"]["all_reduce"]
+    log(f"(a) train_pm_vdvae fused, batch {RANKS_BATCH}, {RANKS_STEPS} steps, cuDNN "
+        f"deterministic: train_state.pkl bit for bit equal ({len(one)} arrays); steps/s over "
+        f"steps 2-{RANKS_STEPS}: one process {a['one']['steps_per_s']:.3f}, one NCCL rank "
+        f"{a['nccl']['steps_per_s']:.3f}; a gradient all-reduce ({reduce_nccl['floats']} "
+        f"floats) under NCCL at W = 1: {reduce_nccl['event_ms']:.3f} ms (CUDA events), "
+        f"{reduce_nccl['host_ms']:.3f} ms (host)")
+
+    # ---- (c)'s inputs and its one-process step --------------------------------
+    gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 18)
+    tree = convert.random_pm_vdvae_tree(cfg, seed=args.seed)
+    mask_fn = masking.get_mask_generator("MNISTMaskGenerator", device=DEVICE)
+    batch = mnist_batch(gen, DEVICE, 2 * RANKS_BATCH, mask_fn)
+    with torch.no_grad():
+        shapes = worker.normals_shapes(convert.pm_vdvae_from_jax(tree, cfg, device=DEVICE), batch)
+    check(all(sh[0] == 2 * RANKS_BATCH for sh in shapes), f"normals of shapes {shapes}")
+    normals = [torch.randn(sh, generator=gen, device=DEVICE).cpu().numpy() for sh in shapes]
+    c_inputs = {"vdvae_tree": tree, "vdvae_config": cfg, "vdvae_train": {},
+                "vdvae_normals": [normals], "batch": {k: v.cpu() for k, v in batch.items()}}
+    with open(f"{work}/c_inputs.pkl", "wb") as fp:
+        pickle.dump(c_inputs, fp)
+    ref = worker.vdvae_trainer(c_inputs, device=DEVICE)
+    ref_metrics = {k: v.item() for k, v in ref.train_step(c_inputs["batch"]).items()}
+    want = worker.trainer_state(ref)
+    del ref
+
+    # ---- (d) and (e): run directories of links to phases 12 and 11 ------------
+    def linked(src, dst, files):
+        os.makedirs(dst)
+        for f in files:
+            os.symlink(f"{src}/{f}", f"{dst}/{f}")
+        return dst
+
+    d_run = linked(celeb_a["train_pm_vqvae"]["run_dir"], f"{work}/d_run",
+                   ("train_state.pkl", "config.json", "vqvae_config.json"))
+    e_run = linked(vdvae_run, f"{work}/e_run", ("train_state.pkl", "model_config.json"))
+    n_eval = n_imp = 2 * BATCH
+    spec = {
+        "b": {"cwd": f"{work}/b", "data": f"{work}/data", "argv": train_argv,
+              "deterministic": False},
+        "c": {"inputs": f"{work}/c_inputs.pkl"},
+        "d": {"cwd": work, "data": celeb_data, "argv": [
+            "--run_dir", d_run, "--dataset", "celeb_a", "--mask_generator",
+            "CelebAMaskGenerator", "--num_instances", str(n_eval), "--batch_size", str(BATCH),
+            "--num_samples", str(NUM_SAMPLES), "--num_trials", "1"]},
+        "e1": {"cwd": work, "data": vdvae_data, "argv": [
+            "--run_dir", e_run, "--dataset", "mnist", "--mask_generator",
+            "MNISTMaskGenerator", "--num_instances", str(n_imp), "--batch_size", str(BATCH),
+            "--num_samples", str(NUM_SAMPLES), "--num_trials", "1"]},
+        "e2": {"cwd": work, "data": vdvae_data, "argv": [
+            "--run_dir", e_run, "--dataset", "mnist", "--mask_generator",
+            "MNISTMaskGenerator", "--num_instances", str(2 * LL_RANK_BATCH), "--batch_size",
+            str(LL_RANK_BATCH), "--batch_chunk", str(LL_RANK_BATCH), "--num_samples",
+            str(LL_SAMPLES), "--num_trials", "1"]},
+    }
+
+    # ---- (b)-(e): two gloo ranks on the one card -----------------------------
+    stamp("phase 18 (b)-(e): two gloo ranks on the one card")
+    t0 = time.perf_counter()
+    spawn_ranks("ranks", write_spec("ranks", spec), 2)
+    ranks_s = time.perf_counter() - t0
+    ranks = read("ranks", 2)
+
+    # (b)
+    b_run = run_dir(f"{work}/b")
+    check(sorted(os.listdir(b_run)) == ["model_config.json", "tb", "train_meta.json",
+                                        "train_state.pkl"],
+          f"(b): the run directory holds {sorted(os.listdir(b_run))}")
+    digests = [r["cli"]["digests"] for r in ranks]
+    check(len(digests[0]) == RANKS_STEPS and digests[0] == digests[1],
+          f"(b): the ranks' parameter digests after each step {digests}")
+    steps_lines = [ln for ln in ranks[0]["cli"]["lines"] if ln.startswith("[step ")]
+    check(len(steps_lines) == 1 and "val_loss=" in steps_lines[0]
+          and np.isfinite(line_value(steps_lines[0], "loss")), f"(b): rank 0 logged {steps_lines}")
+    check(not ranks[1]["cli"]["lines"], f"(b): rank 1 printed {ranks[1]['cli']['lines'][:3]}")
+    from posterior_matching_torch.train.state import load_train_state
+
+    reloaded = convert.pm_vdvae_from_jax(load_train_state(f"{b_run}/train_state.pkl").params,
+                                         cfg, device=DEVICE)
+    check(params_digest(reloaded) == digests[0][-1], "(b): the checkpoint's parameters are not "
+                                                     "the ranks' last ones")
+    del reloaded
+    n_val = RANKS_SPLITS["test"] // (2 * RANKS_BATCH)
+    for r, out in enumerate(ranks):
+        callback = r == 0   # the reconstruction callback runs on rank 0 alone
+        want_launches = {
+            "block_chain_fwd": 10 * (RANKS_STEPS + n_val) + 15 * callback,
+            "block_chain_bwd": 10 * RANKS_STEPS,
+            "decoder_chain_fwd": 5 * (RANKS_STEPS + n_val) + 5 * callback,
+            "decoder_chain_bwd": 5 * RANKS_STEPS}
+        check(out["cli"]["launches"] == want_launches,
+              f"(b): rank {r} launched {out['cli']['launches']}, not {want_launches}")
+
+    # (c)
+    lr = config.PM_VDVAE_MNIST_TRAIN["lr"]
+    got = []
+    for r in range(2):
+        with open(f"{work}/c.{r}.pkl", "rb") as fp:
+            got.append(pickle.load(fp))
+    worst = {"loss": 0.0, "moments": 0.0, "params_of_lr": 0.0}
+    for key in ("params", "ema", "mu", "nu"):
+        for name, w in want[key].items():
+            a0 = got[0][key][name]
+            check(np.array_equal(a0, got[1][key][name]), f"(c): the ranks differ at {key} {name}")
+            if key in ("mu", "nu"):
+                worst["moments"] = max(worst["moments"], float(
+                    np.abs(a0 - w).max() / max(np.abs(w).max(), 1e-12)))
+            else:
+                worst["params_of_lr"] = max(worst["params_of_lr"],
+                                            float(np.abs(a0 - w).max() / lr))
+    for out in ranks:
+        worst["loss"] = max(worst["loss"], abs(out["c_metrics"]["loss"] - ref_metrics["loss"])
+                            / abs(ref_metrics["loss"]))
+        check(out["c_metrics"]["skipped"] == ref_metrics["skipped"] == 0.0, "(c): skipped")
+    check(worst["loss"] <= RANKS_LOSS_TOL and worst["moments"] <= RANKS_MOMENT_TOL,
+          f"(c): the two-rank step against one process: {worst}")
+    worker.params_close(got[0], want, lr, 1, RANKS_MOMENT_TOL, RANKS_PARAM_STEP_SHARE)
+    reduce_gloo = ranks[0]["all_reduce"]
+
+    # (d)
+    d_res, ref_res = f"{d_run}/imputation_results", f"{celeb_a['train_pm_vqvae']['run_dir']}" \
+                                                     "/imputation_results"
+    check(sorted(os.listdir(d_res)) == sorted(os.listdir(ref_res)),
+          f"(d): eval_pm_vqvae wrote {sorted(os.listdir(d_res))}")
+    psnr2, psnr1 = np.load(f"{d_res}/psnrs.npy"), np.load(f"{ref_res}/psnrs.npy")
+    check(psnr2.shape == psnr1.shape == (1, n_eval) and same_bits(
+        torch.from_numpy(psnr2), torch.from_numpy(psnr1)),
+        f"(d): two ranks' PSNRs differ from one process's: worst "
+        f"{float(np.abs(psnr2 - psnr1).max()) if psnr2.shape == psnr1.shape else psnr2.shape}")
+    rows = config.PM_VQVAE_CELEB_A["pixel_cnn"]["image_shape"][0]
+    for r, out in enumerate(ranks):
+        launched = {k: v for k, v in out["eval_pm_vqvae"]["launches"].items() if v}
+        want_d = {"sampler_vrow": n_eval // BATCH * rows, "sampler_row": n_eval // BATCH * rows}
+        check(launched == want_d, f"(d): rank {r} launched {launched}, not {want_d}")
+    check(any(ln.startswith("Wall time: ") for ln in ranks[0]["eval_pm_vqvae"]["lines"])
+          and not ranks[1]["eval_pm_vqvae"]["lines"], "(d): rank 1 printed, or rank 0 did not")
+
+    # (e)
+    def in_distribution(what, two, one):
+        two, one = two[np.isfinite(two)], one[np.isfinite(one)]
+        se = float(np.sqrt(two.var(ddof=1) / two.size + one.var(ddof=1) / one.size))
+        gap = abs(float(two.mean() - one.mean()))
+        check(gap <= IN_DISTRIBUTION_SE * se,
+              f"(e): {what}: two ranks' mean {two.mean():.4f} against one process's "
+              f"{one.mean():.4f}, {gap / se:.2f} standard errors apart")
+        return {"two_ranks": float(two.mean()), "one_process": float(one.mean()),
+                "standard_errors": gap / se}
+
+    imp2 = np.load(f"{e_run}/imputation_results/psnrs.npy")
+    check(imp2.shape == (1, n_imp) and bool(np.isfinite(imp2).all()),
+          f"(e): eval_pm_vdvae_imputation wrote psnrs {imp2.shape}")
+    e_imp = in_distribution("PSNR", imp2, np.load(f"{vdvae_run}/imputation_results/psnrs.npy"))
+    ll2 = {k: np.load(f"{e_run}/likelihood_results/{k}.npy") for k in ("bpd", "x_lls", "xo_lls")}
+    check(all(v.shape == (1, 2 * LL_RANK_BATCH) and bool(np.isfinite(v).all())
+              for v in ll2.values()),
+          f"(e): eval_pm_vdvae_likelihood wrote {[v.shape for v in ll2.values()]}")
+    e_ll = in_distribution("BPD", ll2["bpd"],
+                           np.load(f"{vdvae_run}/likelihood_results/bpd.npy"))
+    for r, out in enumerate(ranks):
+        for stage, fwd in (("eval_pm_vdvae_imputation", 5 * n_imp // BATCH),
+                           ("eval_pm_vdvae_likelihood", 10)):
+            launched = {k: v for k, v in out[stage]["launches"].items() if v}
+            check(launched == {"block_chain_fwd": fwd},
+                  f"(e): rank {r}'s {stage} launched {launched}")
+            check(r == 0 or not out[stage]["lines"], f"(e): rank {r}'s {stage} printed")
+    seconds = time.perf_counter() - t_phase
+    b_steps = steps_per_s(ranks[0]["cli"]["spans"])
+    log(f"(b) two gloo ranks on one card, global batch {2 * RANKS_BATCH}: parameter digests "
+        f"equal after each of {RANKS_STEPS} steps, one run directory, checkpoint reloaded, "
+        f"launches {ranks[0]['cli']['launches']} (rank 0) / {ranks[1]['cli']['launches']} "
+        f"(rank 1); {b_steps:.3f} steps/s (two ranks sharing one card: not a multi-GPU rate); "
+        f"a gradient all-reduce under gloo at W = 2: {reduce_gloo['event_ms']:.3f} ms (CUDA "
+        f"events), {reduce_gloo['host_ms']:.3f} ms (host)")
+    log(f"(c) a fused step at two ranks against one process on the global batch: {worst}")
+    log(f"(d) eval_pm_vqvae at two ranks: {n_eval} PSNRs bit for bit phase 12's")
+    log(f"(e) at two ranks: imputation PSNR {e_imp}, likelihood BPD {e_ll}")
+    log(f"phase 18: {seconds:.1f} s (the two gloo ranks {ranks_s:.1f} s)")
+    return {"seconds": seconds, "a": {k: {"steps_per_s": v["steps_per_s"],
+                                          "spans": v["cli"]["spans"],
+                                          "launches": v["cli"]["launches"]}
+                                      for k, v in a.items()},
+            "all_reduce": {"nccl_w1": reduce_nccl, "gloo_w2": reduce_gloo},
+            "b": {"steps_per_s": b_steps, "digests": digests,
+                  "launches": [r["cli"]["launches"] for r in ranks]},
+            "c": worst, "d": {"psnr_mean": float(psnr2.mean())},
+            "e": {"imputation_psnr": e_imp, "likelihood_bpd": e_ll}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--run_dir", default=None)
     parser.add_argument("--vdvae_run_dir", default=None)
     parser.add_argument("--out", default="chiprun_out/chip_smoke")
+    parser.add_argument("--rank_mode", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--rank_spec", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3165,6 +3646,8 @@ def main() -> int:
         return 2
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
+    if args.rank_mode:
+        return rank_main(args.rank_mode, args.rank_spec)
     from posterior_matching_torch import config, convert, masking
     from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
     from posterior_matching_torch.ops import _build, sampler_chain as sc
@@ -3338,7 +3821,13 @@ def main() -> int:
         digits16_lines, digits16 = digits16_phase(args, gen, f"{work}/digits16")
         log(f"phase 17: {digits16['seconds']:.1f} s | {smi}")
 
-    # ---- 18. results -------------------------------------------------------
+        # ---- 18. ranks: train_pm_vdvae and the image evals over ranks ---------
+        stamp("ranks: one NCCL rank, two gloo ranks on the one card")
+        ranks = ranks_phase(args, f"{work}/ranks", celeb_a, vdvae["cli"]["run_dir"],
+                            f"{work}/eval_data", f"{work}/celeb_a/data")
+        log(f"phase 18: {ranks['seconds']:.1f} s | {smi}")
+
+    # ---- 19. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
@@ -3372,7 +3861,7 @@ def main() -> int:
         "request_s": req_s, "psnr": psnrs, "modes_first_step": first_step,
         "training": train, "vqvae_cli": vqvae_cli, "vdvae": vdvae, "kernels": kernels,
         "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval, "pm_vae": pm_vae,
-        "vade": vade, "resume": resume, "digits16": digits16,
+        "vade": vade, "resume": resume, "digits16": digits16, "ranks": ranks,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)

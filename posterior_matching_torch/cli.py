@@ -9,7 +9,8 @@ entry the configuration lacks is refused), ``--device cpu`` (the GPU
 otherwise) and ``--resume_dir <run directory>``, a run of either package
 to continue from its ``train_state.pkl`` into a fresh run directory, with
 its seed from its ``train_meta.json`` unless ``--config.seed`` is given
-(``posterior_matching_tpu/train/resume.py:20-61``).
+(``posterior_matching_tpu/train/resume.py:20-61``); ``train_pm_vdvae`` and
+the image eval CLIs also take ``--dist_backend``.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import ast
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from posterior_matching_torch.config import CONFIGS
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.train.resume import resolve_seed
 
 
@@ -54,6 +56,15 @@ def apply_overrides(config: Dict[str, Any], overrides) -> None:
         if not isinstance(node, dict) or path[-1] not in node:
             raise KeyError(f"--config.{'.'.join(path)}: the configuration has no such entry")
         node[path[-1]] = value
+
+
+def add_dist_backend(parser: argparse.ArgumentParser) -> None:
+    """``--dist_backend``, the process group's backend where a launcher
+    starts the ranks (``nccl`` on the GPU and ``gloo`` on the CPU unless
+    given: :func:`~posterior_matching_torch.parallel.mesh.
+    maybe_initialize_distributed`)."""
+    parser.add_argument("--dist_backend", default=None, choices=mesh.BACKENDS,
+                        help="the ranks' backend: nccl on the GPU, gloo on the CPU unless given")
 
 
 def parse_config(parser: argparse.ArgumentParser, argv: Optional[Sequence[str]],

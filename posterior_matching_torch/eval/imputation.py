@@ -7,6 +7,15 @@ batch imputed ``num_samples`` times and scored by the PSNR of the mean
 imputation; per trial, every sample's embeddings against the real images'
 by PRD (20 clusters, 1001 angles, 10 runs) and the F_8 / F_1/8 pair of the
 trial's mean curve. ``eval_pm_vdvae_likelihood`` shares the flags.
+
+Under a launcher's W ranks (:mod:`posterior_matching_torch.parallel.mesh`)
+each batch is global, as on the JAX CLIs' mesh: every rank draws the
+batch's masks from the shared generator, imputes its own rows, and gets
+every rank's rows back. Every rank then embeds all of them and runs PRD on
+the same generator, so that no rank waits in a collective for work that
+grows with the dataset; rank 0 alone writes the results. At the end of a
+trial the generator takes rank 0's state on every rank (a guard: the ranks
+have drawn the same), so the next trial's masks stay shared.
 """
 from __future__ import annotations
 
@@ -25,7 +34,10 @@ from posterior_matching_torch.eval import (
     get_inception_embeddings,
     prd_to_max_f_beta_pair,
 )
+from posterior_matching_torch.cli import add_dist_backend
 from posterior_matching_torch.masking import MaskFn, add_mask
+from posterior_matching_torch.parallel import mesh
+from posterior_matching_torch.train.trainer import derive_seed
 
 # (x, b, generator) -> (psnr [B], imputations [B, S, H, W, C] in [0, 1])
 Evaluate = Callable[[torch.Tensor, torch.Tensor, torch.Generator],
@@ -51,7 +63,17 @@ def eval_parser(description: str, batch_size: int, num_samples: int) -> argparse
                         help="The number of trials to compute means and std. over.")
     parser.add_argument("--device", default=None, help="the GPU unless 'cpu'")
     parser.add_argument("--seed", type=int, default=91)
+    add_dist_backend(parser)
     return parser
+
+
+def rank_generator(gen: torch.Generator) -> torch.Generator:
+    """A generator of this rank's own, seeded by one draw of ``gen`` (the
+    same draw on every rank) folded with the rank: the ranks' samples for
+    their rows are then independent, and equal to the one-process run's
+    only in distribution."""
+    seed = int(torch.randint(0, 2**31 - 1, (), generator=gen, device=gen.device))
+    return torch.Generator(device=gen.device).manual_seed(derive_seed(seed, mesh.rank(), 5))
 
 
 def run_imputation_eval(dataset: ArrayDataset, evaluate: Evaluate, mask_fn: MaskFn,
@@ -60,13 +82,13 @@ def run_imputation_eval(dataset: ArrayDataset, evaluate: Evaluate, mask_fn: Mask
     """The protocol over ``dataset``, whose images over ``image_scale`` lie
     in [0, 1]. Returns ``psnrs [T, N]``, ``prd_data [T, S, 2, 1001]``,
     ``f_scores [T, 2]`` (F_8, F_1/8), ``per_trial_psnr [T]`` and the wall
-    seconds of the requests, the embeddings and PRD."""
-    device = gen.device
+    seconds of the requests, the embeddings and PRD; None on ranks other
+    than 0, where ``evaluate`` gets the rank's rows of each batch."""
+    device, main = gen.device, mesh.rank() == 0
     seconds = {"requests": 0.0, "embeddings": 0.0, "prd": 0.0}
     t0 = time.perf_counter()
     real = np.concatenate([b["image"] for b in dataset], axis=0)
-    real_embeddings = get_inception_embeddings(real / image_scale, batch_size=16,
-                                               device=device)
+    real_embeddings = get_inception_embeddings(real / image_scale, batch_size=16, device=device)
     seconds["embeddings"] += time.perf_counter() - t0
     psnrs, prd_data = [], []
     for trial in range(num_trials):
@@ -75,9 +97,9 @@ def run_imputation_eval(dataset: ArrayDataset, evaluate: Evaluate, mask_fn: Mask
         for batch in dataset:
             x = torch.from_numpy(batch["image"]).to(device)
             b = add_mask({"image": x}, gen, mask_fn)["mask"]
-            psnr, imp = evaluate(x, b, gen)
-            trial_psnrs.append(psnr.cpu().numpy())
-            imputations.append(imp.cpu().numpy())
+            psnr, imp = evaluate(mesh.shard_batch(x), mesh.shard_batch(b), gen)
+            trial_psnrs.append(mesh.gather_rows(psnr).cpu().numpy())
+            imputations.append(mesh.gather_rows(imp).cpu().numpy())
         psnrs.append(np.concatenate(trial_psnrs, axis=0))
         imputations = np.concatenate(imputations, axis=0)   # [N, S, H, W, C]
         t1 = time.perf_counter()
@@ -95,8 +117,12 @@ def run_imputation_eval(dataset: ArrayDataset, evaluate: Evaluate, mask_fn: Mask
         seconds["requests"] += t1 - t0
         seconds["embeddings"] += t2 - t1
         seconds["prd"] += t3 - t2
-        print(f"Trial {trial + 1}: {len(psnrs[-1])} instances x {num_samples} samples, "
-              f"PSNR {np.mean(np.ma.masked_invalid(psnrs[-1]))}", flush=True)
+        if main:
+            print(f"Trial {trial + 1}: {len(psnrs[-1])} instances x {num_samples} samples, "
+                  f"PSNR {np.mean(np.ma.masked_invalid(psnrs[-1]))}", flush=True)
+        mesh.sync_generator(gen)
+    if not main:
+        return None
     psnrs, prd_data = np.array(psnrs), np.array(prd_data)
     per_trial_prd = np.mean(prd_data, axis=1)
     return {

@@ -20,7 +20,9 @@ Counterpart of ``eval_greedy_acquisition.py``. Run it as::
   (``sampling_action``, ``lookahead_action``, ``sampling_probs``,
   ``lookahead_probs``, ``reconstruction``, ``rmse``, ``mask``) and the
   instance as ``truth``, and prints its wall time.
-- It runs on the GPU unless ``--device cpu``, and raises without one.
+- It runs on the GPU unless ``--device cpu``, and raises without one, in
+  one process, as the JAX CLI runs on one device: a launcher's
+  ``WORLD_SIZE`` above 1 is refused by name.
 """
 from __future__ import annotations
 
@@ -40,10 +42,12 @@ from posterior_matching_torch.acquisition import (
     make_collect_trajectory_fn,
 )
 from posterior_matching_torch.data import load_eval_dataset
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    mesh.refuse_ranks("eval_greedy_acquisition", "eval_greedy_acquisition.py builds no mesh")
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--run_dir", required=True)
     parser.add_argument("--dataset", required=True)

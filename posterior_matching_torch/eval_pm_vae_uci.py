@@ -18,7 +18,9 @@ Counterpart of ``eval_pm_vae_uci.py``. Run it as::
   and samples come from one ``torch.Generator`` seeded with ``--seed``.
 - It writes ``<run_dir>/uci_results/{nrmse,ac_lls}.npy`` (one value a
   trial) and prints the two result lines of the JAX CLI and the wall time.
-- It runs on the GPU unless ``--device cpu``, and raises without one.
+- It runs on the GPU unless ``--device cpu``, and raises without one, in
+  one process, as the JAX CLI runs on one device: a launcher's
+  ``WORLD_SIZE`` above 1 is refused by name.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import torch
 from posterior_matching_torch import convert
 from posterior_matching_torch.data import load_eval_dataset
 from posterior_matching_torch.masking import add_mask, get_mask_generator
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
 
 
@@ -54,6 +57,7 @@ def nrmse_score(imputations: np.ndarray, true_data: np.ndarray,
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    mesh.refuse_ranks("eval_pm_vae_uci", "eval_pm_vae_uci.py builds no mesh")
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--run_dir", required=True,
                         help="The run directory of the model to evaluate.")

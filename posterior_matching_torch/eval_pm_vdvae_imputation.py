@@ -20,6 +20,13 @@ Counterpart of ``eval_pm_vdvae_imputation.py``. Run it as::
   and ``embedder.txt`` as the JAX CLI does, and prints the results and the
   wall time of the requests, the embeddings and PRD.
 - It runs on the GPU unless ``--device cpu``, and raises without one.
+  Under a launcher's W ranks (``--dist_backend`` as in
+  :mod:`posterior_matching_torch.eval_pm_vqvae`) each ``--batch_size``
+  batch is global: its masks come from the shared generator, each rank
+  imputes its rows with normals of its own (``eval.imputation.
+  rank_generator``: equal to the one-process run's only in distribution),
+  every rank gets the rows back and scores them, and rank 0 writes the
+  files.
 """
 from __future__ import annotations
 
@@ -32,11 +39,13 @@ from posterior_matching_torch import convert
 from posterior_matching_torch.data import load_eval_dataset
 from posterior_matching_torch.eval.imputation import (
     eval_parser,
+    rank_generator,
     run_imputation_eval,
     save_imputation_results,
 )
 from posterior_matching_torch.masking import get_mask_generator
 from posterior_matching_torch.models.vdvae import Noise, PosteriorMatchingVDVAE, vdvae_impute
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
 
 
@@ -53,6 +62,11 @@ def evaluate_batch(model: PosteriorMatchingVDVAE, x: torch.Tensor, b: torch.Tens
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = eval_parser(__doc__.splitlines()[0], batch_size=32, num_samples=10).parse_args(argv)
+    with mesh.process_group(args.device, args.dist_backend):
+        return _evaluate(args)
+
+
+def _evaluate(args) -> int:
     device = resolve_device(args.device)
     dataset = load_eval_dataset(args.dataset, args.batch_size, args.num_instances,
                                 normalize_images=False)
@@ -60,10 +74,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     mask_fn = get_mask_generator(args.mask_generator, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
-    results = run_imputation_eval(
-        dataset, lambda x, b, g: evaluate_batch(model, x, b, args.num_samples, generator=g),
-        mask_fn, args.num_samples, args.num_trials, gen, image_scale=255.0)
-    save_imputation_results(args.run_dir, results)
+    def evaluate(x, b, g):
+        g = g if mesh.world_size() == 1 else rank_generator(g)
+        return evaluate_batch(model, x, b, args.num_samples, generator=g)
+
+    results = run_imputation_eval(dataset, evaluate, mask_fn, args.num_samples,
+                                  args.num_trials, gen, image_scale=255.0)
+    if results is not None:
+        save_imputation_results(args.run_dir, results)
     return 0
 
 

@@ -20,8 +20,16 @@ Counterpart of ``eval_pm_vdvae_likelihood.py``. Run it as::
   the image's dimensions times log 2) and prints the BPD and the AC LL
   (``x_lls - xo_lls``), each mean over the values that are finite and
   within 1e10 (``eval_pm_vdvae_likelihood.py:158-166``).
-- It runs on the GPU unless ``--device cpu``, and raises without one. One
-  device: no mesh; a ragged last chunk runs as it is.
+- It runs on the GPU unless ``--device cpu``, and raises without one; a
+  ragged last chunk runs as it is. ``--batch_size`` and ``--batch_chunk``
+  are per device (``eval_pm_vdvae_likelihood.py:74-77,114``): under a
+  launcher's W ranks (``--dist_backend`` as in
+  :mod:`posterior_matching_torch.eval_pm_vqvae`) a batch holds W times
+  ``--batch_size`` instances, whose masks come from the shared generator;
+  each rank scores its rows, ``--batch_chunk`` at a time, with normals of
+  its own (``eval.imputation.rank_generator``: equal to the one-process
+  run's only in distribution), and rank 0 gathers them and writes the
+  files.
 """
 from __future__ import annotations
 
@@ -36,13 +44,14 @@ import torch
 
 from posterior_matching_torch import convert
 from posterior_matching_torch.data import load_eval_dataset
-from posterior_matching_torch.eval.imputation import eval_parser
+from posterior_matching_torch.eval.imputation import eval_parser, rank_generator
 from posterior_matching_torch.masking import add_mask, get_mask_generator
 from posterior_matching_torch.models.vdvae import (
     Noise,
     PosteriorMatchingVDVAE,
     vdvae_is_log_probs,
 )
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
 
 
@@ -76,9 +85,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--batch_chunk", type=int, default=125,
                         help="instances a compute chunk holds; >= batch_size for one")
     args = parser.parse_args(argv)
+    with mesh.process_group(args.device, args.dist_backend):
+        return _evaluate(args)
+
+
+def _evaluate(args) -> int:
     device = resolve_device(args.device)
-    dataset = load_eval_dataset(args.dataset, args.batch_size, args.num_instances,
-                                normalize_images=False)
+    dataset = load_eval_dataset(args.dataset, args.batch_size * mesh.world_size(),
+                                args.num_instances, normalize_images=False)
     with open(os.path.join(args.run_dir, "model_config.json")) as fp:
         image_shape = json.load(fp)["image_shape"]
     model = convert.load_pm_vdvae(args.run_dir, device=device)
@@ -91,13 +105,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         for batch in dataset:
             x = torch.from_numpy(batch["image"]).to(device)
             b = add_mask({"image": x}, gen, mask_fn)["mask"]
-            px, pxo = evaluate_batch(model, x, b, args.num_samples,
-                                     batch_chunk=max(args.batch_chunk, 1), generator=gen)
-            px_trial.append(px.cpu().numpy())
-            xo_trial.append(pxo.cpu().numpy())
+            g = gen if mesh.world_size() == 1 else rank_generator(gen)
+            px, pxo = evaluate_batch(model, mesh.shard_batch(x), mesh.shard_batch(b),
+                                     args.num_samples, batch_chunk=max(args.batch_chunk, 1),
+                                     generator=g)
+            px_trial.append(mesh.gather_rows(px).cpu().numpy())
+            xo_trial.append(mesh.gather_rows(pxo).cpu().numpy())
         x_lls.append(np.concatenate(px_trial))
         xo_lls.append(np.concatenate(xo_trial))
-        print(f"Trial {trial + 1}: {len(x_lls[-1])} instances", flush=True)
+        if mesh.rank() == 0:
+            print(f"Trial {trial + 1}: {len(x_lls[-1])} instances", flush=True)
+    if mesh.rank() != 0:
+        return 0
     x_lls, xo_lls = np.array(x_lls), np.array(xo_lls)
     bpd, per_trial_bpd, per_trial_ac = summarize(x_lls, xo_lls, image_shape)
 

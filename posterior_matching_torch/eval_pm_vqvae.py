@@ -19,8 +19,15 @@ Counterpart of ``eval_pm_vqvae.py``. Run it as::
   1001]``, ``f_scores.npy``, ``embedder.txt`` and ``eval_summary.json``
   with its keys; it prints the results and the wall time of the requests,
   the embeddings and PRD.
-- It runs on the GPU unless ``--device cpu``, and raises without one. One
-  device: no mesh.
+- It runs on the GPU unless ``--device cpu``, and raises without one.
+  Under a launcher's W ranks (``python -m torch.distributed.run
+  --nproc_per_node W -m posterior_matching_torch.eval_pm_vqvae ...``;
+  ``--dist_backend`` ``nccl`` on the GPU and ``gloo`` on the CPU unless
+  given) each ``--batch_size`` batch is global, as on the JAX CLI's mesh:
+  the masks and the Gumbel noise of the whole request come from the shared
+  generator, each rank samples its rows' share of the noise, every rank
+  gets the rows back and scores them, and rank 0 writes the files, which
+  are the one-process run's (:mod:`posterior_matching_torch.eval.imputation`).
 """
 from __future__ import annotations
 
@@ -43,6 +50,8 @@ from posterior_matching_torch.eval.imputation import (
 )
 from posterior_matching_torch.masking import get_mask_generator
 from posterior_matching_torch.models.pm_vqvae import PMVQVAE, pm_vqvae_impute
+from posterior_matching_torch.ops.sampler_chain import gumbel_noise
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
 
 
@@ -57,17 +66,44 @@ def evaluate_batch(model: PMVQVAE, x: torch.Tensor, b: torch.Tensor, num_samples
     return -10.0 * torch.log10(mse), imputations
 
 
+def rank_noise(model: PMVQVAE, batch: int, num_samples: int,
+               generator: torch.Generator) -> torch.Tensor:
+    """This rank's rows of the Gumbel noise that the sampler would draw from
+    ``generator`` for a global request of ``batch`` rows a rank (one image
+    row at a time, sample-major): ``[h, w, num_samples * batch, K]``, the
+    whole request's noise in one process."""
+    pixel_cnn = model.pixel_cnn
+    (hgt, wid), k = pixel_cnn.image_shape, pixel_cnn.num_indices
+    rows = batch * mesh.world_size()
+    lo, hi = mesh.shard_rows(rows)
+    noise = torch.empty((hgt, wid, num_samples, hi - lo, k), device=generator.device)
+    for r in range(hgt):
+        drawn = gumbel_noise((wid, num_samples * rows, k), generator, generator.device)
+        noise[r] = drawn.view(wid, num_samples, rows, k)[:, :, lo:hi]
+    return noise.view(hgt, wid, num_samples * batch, k)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = eval_parser(__doc__.splitlines()[0], batch_size=32, num_samples=10).parse_args(argv)
+    with mesh.process_group(args.device, args.dist_backend):
+        return _evaluate(args)
+
+
+def _evaluate(args) -> int:
     device = resolve_device(args.device)
     dataset = load_eval_dataset(args.dataset, args.batch_size, args.num_instances)
     model = convert.load_pm_vqvae(args.run_dir, device=device)
     mask_fn = get_mask_generator(args.mask_generator, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
-    results = run_imputation_eval(
-        dataset, lambda x, b, g: evaluate_batch(model, x, b, args.num_samples, generator=g),
-        mask_fn, args.num_samples, args.num_trials, gen)
+    def evaluate(x, b, g):
+        return evaluate_batch(model, x, b, args.num_samples,
+                              noise=rank_noise(model, x.shape[0], args.num_samples, g))
+
+    results = run_imputation_eval(dataset, evaluate, mask_fn, args.num_samples,
+                                  args.num_trials, gen)
+    if results is None:
+        return 0
     results_dir = save_imputation_results(args.run_dir, results)
 
     psnr, f_scores = results["per_trial_psnr"], results["f_scores"]

@@ -39,6 +39,7 @@ from posterior_matching_torch.ops.vq import (
     nearest_codebook_indices,
     vq_straight_through,
 )
+from posterior_matching_torch.parallel import mesh
 
 
 class Conv(nn.Module):
@@ -174,9 +175,11 @@ class VectorQuantizer(nn.Module):
         counts = torch.bincount(
             indices.long(), minlength=self.embeddings.shape[0]
         )
+        total = indices.numel()
         if is_training:
-            self._ema_update(flat.detach(), indices.long(), counts)
-        avg_probs = counts.float() / indices.numel()
+            counts = self._ema_update(flat.detach(), indices.long(), counts)
+            total *= mesh.world_size()
+        avg_probs = counts.float() / total
         perplexity = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-10)).sum())
         return {
             "quantize": vq_straight_through(z, quantized),
@@ -188,16 +191,23 @@ class VectorQuantizer(nn.Module):
     @torch.no_grad()
     def _ema_update(self, flat, indices, counts):
         """Laplace-smoothed EMA of the code counts and of the latents summed
-        per code, and the codebook their ratio (``vqvae.py:88-113``)."""
+        per code, and the codebook their ratio (``vqvae.py:88-113``).
+        Under a process group the counts and sums are the ranks' total
+        first, so the codebook follows the global batch, as on the JAX
+        package's data mesh. Returns the counts it used."""
         k = self.embeddings.shape[0]
         # the one-hot product of vqvae.py:95-97, not index_add_, whose atomic
         # sums land in another order each call on the GPU
         dw = F.one_hot(indices, k).to(flat.dtype).T @ flat
-        self.ema_cluster_size.mul_(self.decay).add_((1.0 - self.decay) * counts.to(flat.dtype))
+        counts = counts.to(flat.dtype)
+        if mesh.distributed():
+            counts, dw = mesh.all_reduce_sum([counts, dw])
+        self.ema_cluster_size.mul_(self.decay).add_((1.0 - self.decay) * counts)
         self.ema_dw.mul_(self.decay).add_((1.0 - self.decay) * dw)
         n = self.ema_cluster_size.sum()
         stable = (self.ema_cluster_size + self.epsilon) / (n + k * self.epsilon) * n
         self.embeddings.copy_(self.ema_dw / stable[:, None])
+        return counts
 
     def quantize(self, encoding_indices: torch.Tensor) -> torch.Tensor:
         return self.embeddings[encoding_indices.long()]

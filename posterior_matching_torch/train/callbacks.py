@@ -6,9 +6,10 @@ calls ``on_validation_step(model, generator, batch)`` of each
 :class:`Callback` on every validation batch, then
 ``on_validation_end(train_state, step, logs)`` after the validation, with
 the state as the JAX package's ``TrainState`` holds it and the logs it is
-about to print. :class:`TensorBoardCallback` writes those logs as
-TensorBoard events (:mod:`posterior_matching_torch.train.tensorboard`,
-without tensorboardX, which the card does not have). The JAX package's
+about to print (on rank 0 only, under a process group: the checkpoint and
+the event files are written once). :class:`TensorBoardCallback` writes
+those logs as TensorBoard events (:mod:`posterior_matching_torch.train.
+tensorboard`, without tensorboardX, which the card does not have). The JAX package's
 ``OrbaxCheckpointCallback`` (:68-110) is left out: Orbax is not on the card
 and no CLI uses it; ``train_state.pkl`` is the checkpoint.
 """
@@ -18,6 +19,7 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.train import tensorboard
 from posterior_matching_torch.train.state import TrainState, save_train_state
 
@@ -44,6 +46,7 @@ class CheckpointCallback(Callback):
         self._path = path
 
     def on_validation_end(self, train_state, step, logs):
+        mesh.require_rank0("the checkpoint")
         save_train_state(self._path, train_state)
 
 
@@ -64,6 +67,7 @@ class TensorBoardCallback(Callback):
     C]`` clipped to [0, 1]."""
 
     def __init__(self, path: str):
+        mesh.require_rank0("TensorBoard events")
         self._writer = tensorboard.EventFileWriter(path)
 
     def on_validation_end(self, train_state, step, logs):

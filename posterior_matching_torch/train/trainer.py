@@ -42,6 +42,32 @@ dict of detached scalar metrics to log beside it. With ``pass_step`` it
 also takes the step, as the JAX trainer's loss functions do (PM-VAE's KL
 weight follows it).
 
+Under a process group (:mod:`posterior_matching_torch.parallel.mesh`; the
+JAX trainer's data mesh, :175-177 and :336-354) every rank holds the whole
+model and a step computes what one process computes on the global batch:
+
+- :meth:`Trainer.train_step` takes the global batch; its prologue runs on
+  all of it from the step's shared seed (so the masks are the one-process
+  run's), then the rank keeps its rows (:func:`~posterior_matching_torch.
+  parallel.mesh.shard_batch`);
+- the loss's own draws (dropout masks; PM-VDVAE's and PM-VAE's normals)
+  come from stream 0's seed with the rank folded in (:meth:`Trainer.
+  loss_seed`), so that the ranks draw different masks for their rows:
+  equal to the one-process run in distribution, not bit for bit;
+- the trainable gradients, the loss and the metrics are averaged over the
+  ranks in one ``all_reduce`` (every loss is a batch mean, so the mean of
+  the ranks' means is the global batch's); the clip of
+  :class:`~posterior_matching_torch.train.optim.ClippedAdam` then sees the
+  global gradient, as ``optax.clip_by_global_norm`` does under the mesh,
+  and the skip of a non-finite step is the same on every rank (a NaN or an
+  infinity on any rank reaches the reduced values of all);
+- the ranks' parameters, optimizer state and EMA stay equal because each
+  applies the same reduced update to the same weights: :meth:`Trainer.init`
+  broadcasts rank 0's weights;
+- validation shards each batch and averages the metrics over the ranks;
+  :meth:`Trainer.fit` calls the ``on_validation_end`` callbacks (the
+  checkpoint, the image logs) and prints on rank 0 only.
+
 The TPU trainer's dispatch tools (``steps_per_call``, device-resident data,
 the packed-parameter codec) are not ported: they amortise host dispatch on
 the TPU.
@@ -58,6 +84,7 @@ import torch
 from torch import nn
 
 from posterior_matching_torch.ops.gated_chain import _mix32_int
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.train.callbacks import Callback
 from posterior_matching_torch.train.optim import (
@@ -93,7 +120,8 @@ OptimizerFn = Callable[[Dict[str, torch.Tensor]], Adam]
 def derive_seed(seed: int, step: int, stream: int) -> int:
     """A 31-bit seed for ``stream`` (0: dropout, 1: prologue, 2: the
     validation at this step; 3 within a validation: a callback's draws; 4:
-    the image callbacks' draws at the end of a validation) of a step."""
+    the image callbacks' draws at the end of a validation; 5: a rank's
+    share of a draw, ``step`` then the rank) of a step."""
     return _mix32_int(_mix32_int(_mix32_int(seed) ^ stream) ^ step) & 0x7FFFFFFF
 
 
@@ -175,6 +203,7 @@ class Trainer:
         self.to_trees = to_trees or (lambda sd: (sd, {}))
         self.from_trees = from_trees or (lambda params, state: params)
         self.deterministic = deterministic
+        self.world_size, self.rank = mesh.world_size(), mesh.rank()
         self.step = 0
         self.optimizer: Optional[Adam] = None
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
@@ -190,6 +219,8 @@ class Trainer:
                 raise KeyError(f"unknown parameters: {sorted(unknown)[:5]}")
             sd.update(initial_state_dict)
             self.model.load_state_dict(sd)
+        if self.world_size > 1:
+            mesh.broadcast_module(self.model)
         params = dict(self.model.named_parameters())
         trainable = set(trainable_names(list(params), self.trainable))
         for name, p in params.items():
@@ -201,11 +232,18 @@ class Trainer:
             self.ema_params = {n: p.detach().clone() for n, p in params.items()}
         self.step = 0
 
+    def loss_seed(self, seed: int) -> int:
+        """The seed of the loss's draws on this rank: ``seed`` in one
+        process (and at one rank), else folded with the rank (stream 5)."""
+        return seed if self.world_size == 1 else derive_seed(seed, self.rank, 5)
+
     def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        """One update; returns the step's metrics (device tensors)."""
+        """One update on the global batch; returns the step's metrics
+        (device tensors, the ranks' mean)."""
         if self.optimizer is None:
             self.init()
         batch = self._prologue(batch, derive_seed(self.seed, self.step, 1), self.prologue_fn)
+        batch = mesh.shard_batch(batch)
         kept = None
         if self.skip_nonfinite:
             kept = {n: b.detach().clone() for n, b in self.model.named_buffers()}
@@ -214,12 +252,19 @@ class Trainer:
         params = [self.optimizer.params[n] for n in names]
         with deterministic_convolutions(self.deterministic):
             loss, aux = _loss_and_metrics(
-                self._loss(batch, derive_seed(self.seed, self.step, 0), True))
+                self._loss(batch, self.loss_seed(derive_seed(self.seed, self.step, 0)), True))
             grads = torch.autograd.grad(loss, params, allow_unused=self.zero_unused_grads)
         if self.zero_unused_grads:
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        loss = loss.detach()
+        if mesh.distributed():
+            keys = list(aux)
+            scalars = [loss, *(aux[k].to(self.device, torch.float32) for k in keys)]
+            reduced = mesh.all_reduce_mean([*grads, *scalars])
+            grads, loss = reduced[:len(grads)], reduced[len(grads)]
+            aux = dict(zip(keys, reduced[len(grads) + 1:]))
         grads = dict(zip(names, grads))
-        metrics = {**aux, "loss": loss.detach()}
+        metrics = {**aux, "loss": loss}
         ok = True
         if self.skip_nonfinite:
             ok = bool(torch.isfinite(loss)) and all(
@@ -263,7 +308,10 @@ class Trainer:
         ``on_validation_step(model, generator, batch)`` on every batch, on
         the device before the prologue, with the model's own parameters (as
         the JAX trainer hands its callbacks the train state, not the EMA)
-        and a generator seeded from (run seed, step, 2), ``i`` and 3."""
+        and a generator seeded from (run seed, step, 2), ``i`` and 3. Under
+        a process group each batch is global: its prologue runs on all of
+        it, the rank's rows go through the loss (with the rank folded into
+        the loss's seed) and the means are averaged over the ranks."""
         if self.optimizer is None:
             self.init()
         base, out, seen = derive_seed(self.seed, self.step, 2), [], []
@@ -273,13 +321,20 @@ class Trainer:
                 if callbacks:
                     seen.append(batch)
                 batch = self._prologue(batch, derive_seed(base, i, 1), self.val_prologue_fn)
-                loss, aux = _loss_and_metrics(self._loss(batch, derive_seed(base, i, 0), False))
+                loss, aux = _loss_and_metrics(self._loss(
+                    mesh.shard_batch(batch), self.loss_seed(derive_seed(base, i, 0)), False))
                 out.append({**aux, "loss": loss})
         for i, batch in enumerate(seen):
             gen = torch.Generator(device=self.device).manual_seed(derive_seed(base, i, 3))
             for cb in callbacks:
                 cb.on_validation_step(self.model, gen, batch)
-        return _aggregate(out)
+        logs = _aggregate(out)
+        if mesh.distributed():
+            keys = sorted(logs)
+            means = mesh.all_reduce_mean(
+                [torch.tensor([logs[k] for k in keys], dtype=torch.float64, device=self.device)])
+            logs = dict(zip(keys, means[0].tolist()))
+        return logs
 
     @contextlib.contextmanager
     def eval_parameters(self):
@@ -322,7 +377,10 @@ class Trainer:
         ``[step s/S] k=v ...`` of the scalar logs (an image callback adds
         arrays). With ``resume_from`` (a ``TrainState`` of either package)
         the trainer first takes its state (:meth:`restore`) and ``batches``
-        (an ``ArrayDataset``) moves on to its step (``skip_stream``)."""
+        (an ``ArrayDataset``) moves on to its step (``skip_stream``). Under
+        a process group every rank reads the same global stream and steps;
+        the ``on_validation_end`` callbacks run and the line is printed on
+        rank 0 only."""
         if self.optimizer is None:
             self.init()
         if resume_from is not None:
@@ -355,12 +413,14 @@ class Trainer:
                 val = self.validate(val_batches, [cb for cb in on_validation
                                                   if cb.has_validation_step()])
                 logs.update({f"val_{k}": v for k, v in val.items()})
-            if on_validation:
-                state = self.train_state()
-                for cb in on_validation:
-                    cb.on_validation_end(state, self.step, logs)
-            print(f"[step {self.step}/{steps}] " + " ".join(
-                f"{k}={v:.5g}" for k, v in sorted(logs.items()) if np.ndim(v) == 0), flush=True)
+            if self.rank == 0:
+                if on_validation:
+                    state = self.train_state()
+                    for cb in on_validation:
+                        cb.on_validation_end(state, self.step, logs)
+                print(f"[step {self.step}/{steps}] " + " ".join(
+                    f"{k}={v:.5g}" for k, v in sorted(logs.items()) if np.ndim(v) == 0),
+                    flush=True)
             pending, since, t_start = [], 0, time.time()
 
     def train_state(self) -> TrainState:

@@ -26,7 +26,9 @@ Counterpart of ``train_pm_vae.py``. Run it as::
   events of each validation's scalar logs.
 - ``--resume_dir`` continues a run of either package into a fresh run
   directory.
-- It runs on the GPU unless ``--device cpu``, and raises without one.
+- It runs on the GPU unless ``--device cpu``, and raises without one, in
+  one process, as the JAX CLI runs on one device: a launcher's
+  ``WORLD_SIZE`` above 1 is refused by name.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from posterior_matching_torch.cli import parse_config
 from posterior_matching_torch.config import PM_VAE_CONFIGS
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.masking import get_mask_generator
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.train.callbacks import (
     CheckpointCallback,
@@ -53,6 +56,7 @@ from posterior_matching_torch.utils import make_run_dir
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    mesh.refuse_ranks("train_pm_vae", "train_pm_vae.py:131 trains on one device")
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args, config = parse_config(parser, argv, PM_VAE_CONFIGS)
     device = resolve_device(args.device)

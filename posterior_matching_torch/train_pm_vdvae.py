@@ -6,9 +6,14 @@ Counterpart of ``train_pm_vdvae.py:111-227``. Run it as::
         [--config.steps 1000] [--config.validation_freq 500] [--config.seed 0] \\
         [--config.model.fused_chain=True] [--device cpu]
 
+or over N GPUs of one host, one process each::
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m posterior_matching_torch.train_pm_vdvae --config pm_vdvae_mnist [...]
+
 - ``--config`` is ``pm_vdvae_mnist`` or ``pm_vdvae_digits16``;
-  ``--config.<path> <value>``, ``--device`` and ``--resume_dir`` as
-  :mod:`posterior_matching_torch.cli` reads them.
+  ``--config.<path> <value>``, ``--device``, ``--resume_dir`` and
+  ``--dist_backend`` as :mod:`posterior_matching_torch.cli` reads them.
 - The loss is ``-ELBO + mean(pm_kl)``, logged with ``reconstruction_ll``,
   ``kl``, ``pm_kl`` and ``bpd`` (:135-150); the optimizer, EMA and skipping
   of non-finite updates are ``pm_vdvae_trainer``'s; masks are drawn on the
@@ -25,7 +30,12 @@ Counterpart of ``train_pm_vdvae.py:111-227``. Run it as::
 - ``--resume_dir`` continues a run of either package, its EMA parameters
   included, into a fresh run directory.
 - It runs on the GPU unless ``--device cpu``, and raises without one.
-  One device: the configuration's per-device batch is the batch.
+  The configuration's batch sizes are per device: under a launcher's W
+  ranks (``--dist_backend`` ``nccl`` on the GPU and ``gloo`` on the CPU
+  unless given) the global batches are W times theirs
+  (``train_pm_vdvae.py:118-122``), each rank steps on its rows
+  (:class:`~posterior_matching_torch.train.trainer.Trainer`), and rank 0
+  alone makes the run directory and writes its files and events.
 """
 from __future__ import annotations
 
@@ -39,11 +49,12 @@ import numpy as np
 import torch
 
 from posterior_matching_torch import convert
-from posterior_matching_torch.cli import parse_config
+from posterior_matching_torch.cli import add_dist_backend, parse_config
 from posterior_matching_torch.config import PM_VDVAE_MNIST
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.masking import add_mask, get_mask_generator
 from posterior_matching_torch.models.vdvae import vdvae_impute
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.train.callbacks import (
     Callback,
@@ -94,11 +105,19 @@ class ReconstructionCallback(Callback):
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_dist_backend(parser)
     args, config = parse_config(parser, argv, ("pm_vdvae_mnist", "pm_vdvae_digits16"))
+    with mesh.process_group(args.device, args.dist_backend):
+        return _train(args, config)
+
+
+def _train(args, config) -> int:
     device = resolve_device(args.device)
     resume = resume_state_from_dir(args.resume_dir)
 
     data = dict(config["data"])
+    data["train_batch_size"] *= mesh.world_size()
+    data["val_batch_size"] *= mesh.world_size()
     train_dataset, val_dataset = load_datasets(data, normalize_images=False, seed=config["seed"])
     tree = convert.init_pm_vdvae_tree(config["model"], seed=config["seed"])
     model = convert.pm_vdvae_from_jax(tree, config["model"], device=device)
@@ -108,16 +127,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                device=device)
     trainer.init()
 
-    run_dir = make_run_dir(prefix=f"pm-vdvae-{data['dataset']}")
-    print("Using run directory:", run_dir, flush=True)
-    save_train_meta(run_dir, config)
-    with open(os.path.join(run_dir, "model_config.json"), "w") as fp:
-        json.dump({k: config["model"][k] for k in PM_VDVAE_MNIST}, fp)
-
-    callbacks = [CheckpointCallback(os.path.join(run_dir, "train_state.pkl")),
-                 ReconstructionCallback(trainer, val_dataset, mask_fn),
-                 LearningRateLoggerCallback(trainer.optimizer.schedule),
-                 TensorBoardCallback(os.path.join(run_dir, "tb"))]
+    callbacks = []
+    if mesh.rank() == 0:
+        run_dir = make_run_dir(prefix=f"pm-vdvae-{data['dataset']}")
+        print("Using run directory:", run_dir, flush=True)
+        save_train_meta(run_dir, config)
+        with open(os.path.join(run_dir, "model_config.json"), "w") as fp:
+            json.dump({k: config["model"][k] for k in PM_VDVAE_MNIST}, fp)
+        callbacks = [CheckpointCallback(os.path.join(run_dir, "train_state.pkl")),
+                     ReconstructionCallback(trainer, val_dataset, mask_fn),
+                     LearningRateLoggerCallback(trainer.optimizer.schedule),
+                     TensorBoardCallback(os.path.join(run_dir, "tb"))]
     trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
                 validation_freq=config["validation_freq"], resume_from=resume)
     return 0

@@ -37,7 +37,9 @@ Counterpart of ``train_pm_vqvae.py:88-224``. Run it as::
 - ``--resume_dir`` continues a run of either package (a ``packed_chain``
   one too) into a fresh run directory; ``vqvae_dir`` still names the
   VQ-VAE's configuration.
-- It runs on the GPU unless ``--device cpu``, and raises without one.
+- It runs on the GPU unless ``--device cpu``, and raises without one, in
+  one process, as the JAX CLI runs on one device: a launcher's
+  ``WORLD_SIZE`` above 1 is refused by name.
 
 Not ported yet: ``compute_dtype`` (refused unless None).
 """
@@ -56,6 +58,7 @@ from posterior_matching_torch.cli import parse_config
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.masking import add_mask, get_mask_generator
 from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.train.callbacks import (
     Callback,
@@ -105,6 +108,7 @@ def chain_segment(raw: str) -> Union[str, int]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    mesh.refuse_ranks("train_pm_vqvae", "train_pm_vqvae.py:187 trains on one device")
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--chain_segment", type=chain_segment, default="stream",
                         help="the PixelCNN chain's kernels: stream, 1 (pairs) or L (segments)")

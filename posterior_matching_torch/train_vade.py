@@ -34,7 +34,9 @@ Counterpart of ``train_vade.py``. Run it as::
 - ``--resume_dir`` continues phase 3 of a run of either package into a
   fresh run directory, skipping phases 1 and 2 (``train_vade.py:
   114-128``), whose results the checkpoint holds.
-- It runs on the GPU unless ``--device cpu``, and raises without one.
+- It runs on the GPU unless ``--device cpu``, and raises without one, in
+  one process, as the JAX CLI runs on one device: a launcher's
+  ``WORLD_SIZE`` above 1 is refused by name.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ from posterior_matching_torch.eval.clustering import (
     clustering_accuracy,
 )
 from posterior_matching_torch.eval.gmm import GaussianMixture
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.train.callbacks import (
     CheckpointCallback,
@@ -77,6 +80,7 @@ def gmm_graft(gmm: GaussianMixture) -> dict:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    mesh.refuse_ranks("train_vade", "train_vade.py:188 trains on one device")
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args, config = parse_config(parser, argv, VADE_CONFIGS)
     device = resolve_device(args.device)

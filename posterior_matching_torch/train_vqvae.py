@@ -26,7 +26,9 @@ Counterpart of ``train_vqvae.py:69-134``. Run it as::
   reads it as its ``vqvae_dir``.
 - ``--resume_dir`` continues a run of either package, its EMA codebook
   included, into a fresh run directory.
-- It runs on the GPU unless ``--device cpu``, and raises without one.
+- It runs on the GPU unless ``--device cpu``, and raises without one, in
+  one process, as the JAX CLI runs on one device: a launcher's
+  ``WORLD_SIZE`` above 1 is refused by name.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import torch
 from posterior_matching_torch import convert
 from posterior_matching_torch.cli import parse_config
 from posterior_matching_torch.data import load_datasets
+from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.train.callbacks import (
     Callback,
@@ -69,6 +72,7 @@ class ReconstructionCallback(Callback):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    mesh.refuse_ranks("train_vqvae", "train_vqvae.py:109 trains on one device")
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args, config = parse_config(parser, argv, ("vqvae_mnist", "vqvae_celeb_a", "vqvae_digits16"))
     device = resolve_device(args.device)

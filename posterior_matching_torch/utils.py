@@ -9,6 +9,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from posterior_matching_torch.parallel import mesh
+
 
 def logmeanexp(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """``log(mean(exp(x)))`` along ``dim`` (``utils.py:105-108``)."""
@@ -16,7 +18,9 @@ def logmeanexp(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 
 def make_run_dir(path: str = "runs", prefix: Optional[str] = None) -> str:
-    """Creates ``runs/<prefix>-<timestamp>/`` (``utils.py:50-57``)."""
+    """Creates ``runs/<prefix>-<timestamp>/`` (``utils.py:50-57``); under a
+    process group only rank 0 may (a run has one directory)."""
+    mesh.require_rank0("the run directory")
     run_id = datetime.now().strftime("%Y%m%d-%H%M%S")
     if prefix is not None:
         run_id = prefix + "-" + run_id
