@@ -9,12 +9,15 @@ PM-VQVAE CelebA pipeline and the PM-VDVAE evals from their CLIs, then
 PM-VAE's training and UCI eval CLIs, then VaDE's and the greedy
 acquisition's CLIs, then the PM-VQVAE digits16 pipeline through the
 PixelCNN kernels' 64-filter builds, then PM-VDVAE training and the image
-evals over ranks, and checks them, in these phases:
+evals over ranks, then the PM-VDVAE in bf16 (the VDVAE chains' bf16
+builds) with ``flat_optimizer`` and ``remat``, and checks them, in these
+phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
 2. all thirteen kernels (``posterior_matching_torch/ops/csrc``; the pair
-   and segment kernels share a source per direction) are built from this
-   checkout's sources, one ``nvcc`` per source, in parallel; both
+   and segment kernels share a source per direction) and the bf16 builds
+   of the VDVAE chains' four are built from this checkout's sources, one
+   ``nvcc`` per library, in parallel; both
    row-sampler kernels are launched at the imputation path's shapes (n = 32
    images x 10 samples, F = 128, L = 24, 16 x 16 codes, K = 512) and held
    against their plain PyTorch versions on the same inputs, each relaunched
@@ -198,9 +201,25 @@ evals over ranks, and checks them, in these phases:
    ``eval_pm_vdvae_likelihood`` (124 instances, 16 importance samples) on
    phase 11's run: every instance finite, written once, the means within
    IN_DISTRIBUTION_SE standard errors of phase 13's;
-19. one JSON line of per-kernel numbers (the 64-filter forms as
-   ``<kernel>_f64``, their launches the digits16 pipeline's), the card's
-   name and power limit, and the result line.
+19. ``compute_dtype`` bfloat16, ``remat`` and ``flat_optimizer``: the bf16
+   builds of the block and decoder chains (``-DPM_CORE_BF16=1``) at the
+   five encoder and five decoder runs of a bf16 training batch of 16, each
+   against its plain bf16 version (outputs within BF16_TOL of scale, the
+   bf16 saves against the plain level on the kernel's level input equal but
+   for SAVE_FLIPS of them, the backward against the plain backward on the
+   kernel's saves), relaunched bit for bit and timed beside its bound, the
+   plain version and the float32 form's ms; then ``train_pm_vdvae
+   --config.model.compute_dtype bfloat16 --config.flat_optimizer True``
+   with the fused decoder (2 steps, a validation each; every kernel counter
+   set to 0 before it and each read after: the bf16 builds' launches
+   exactly, no float32 chain's), its ``model_config.json`` and optimizer
+   layout, its ``--resume_dir`` to step 3, both VDVAE evals on its run, and
+   one bf16 step of the unfused model with ``remat`` off and on (gradients
+   bit for bit equal, each step's peak device memory);
+20. one JSON line of per-kernel numbers (the 64-filter forms as
+   ``<kernel>_f64``, their launches the digits16 pipeline's; the bf16 forms
+   as ``<kernel>_bf16``, their launches phase 19's CLI's), the card's name
+   and power limit, and the result line.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--vdvae_run_dir
 RUN] [--out DIR]``.
@@ -1389,10 +1408,10 @@ def capture_runs(model, x, b):
 
     runs, chain = [], vdvae.block_chain
 
-    def record(h, w, *, mid, k):
+    def record(h, w, *, mid, k, **kw):
         runs.append((h.detach().clone(), {n: t.detach().clone() for n, t in w.items()},
                      mid, k))
-        return chain(h, w, mid=mid, k=k)
+        return chain(h, w, mid=mid, k=k, **kw)
 
     vdvae.block_chain = record
     try:
@@ -1719,10 +1738,10 @@ def capture_dec_runs(model, batch, gen):
 
     runs, chain = [], vdvae.dec_chain
 
-    def record(x0, acts, macts, eps, w, *, mid, ld, k):
+    def record(x0, acts, macts, eps, w, *, mid, ld, k, **kw):
         runs.append((*(t.detach().clone() for t in (x0, acts, macts, eps)),
                      {n: t.detach().clone() for n, t in w.items()}, mid, ld, k))
-        return chain(x0, acts, macts, eps, w, mid=mid, ld=ld, k=k)
+        return chain(x0, acts, macts, eps, w, mid=mid, ld=ld, k=k, **kw)
 
     vdvae.dec_chain = record
     try:
@@ -3631,6 +3650,474 @@ def ranks_phase(args, work, celeb_a, vdvae_run, vdvae_data, celeb_data):
             "e": {"imputation_psnr": e_imp, "likelihood_bpd": e_ll}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: compute_dtype bfloat16, remat and flat_optimizer
+# ---------------------------------------------------------------------------
+
+# Dense bf16 products on the H100 SXM's tensor cores (NVIDIA data sheet).
+PEAK_BF16_FLOPS = 989e12
+# The bf16 builds against their plain versions. Both round the same float32
+# values to bf16; a value within their float32 sums' difference (~1e-6) of
+# a bf16 boundary rounds the other way (one ulp, 2^-8 of it), which moves
+# the outputs of the products it enters by up to ~1e-3 of their scale, and
+# later levels carry that on. So each tensor within BF16_TOL of its scale
+# (max and mean logged, and the bf16 plain version's distance from the
+# float32 one beside); the bf16 saves, against the plain forward of the
+# same level on the kernel's level input, equal but for at most SAVE_FLIPS
+# of them, where a level run in float32 would change a third of them
+# (tests/test_torch_vdvae_bf16.py::test_saves_tell_bf16_from_float32): the
+# check that the products ran in bf16; the backward kernel against the
+# plain backward on the kernel's own saves; a relaunch bit for bit.
+BF16_TOL, SAVE_FLIPS = 5e-3, 0.05
+BF16_STEPS, BF16_VAL_FREQ, BF16_RESUME_STEPS = 2, 1, 3
+
+
+def bf16_flops(kind, b, h, w, c, mid, k, n_lvl, ld=None):
+    """A run's forward operations split (bf16, float32): c1..c3 of its
+    Blocks in bf16, every c4 (and the decoder's z projection) in float32."""
+    from posterior_matching_torch.distributions import tril_size
+    from posterior_matching_torch.ops import block_chain as bc
+
+    rows, taps = b * h * w, b * bc.tap_pixels(h, w, k)
+    if kind == "block":
+        return (2.0 * n_lvl * (rows * c * mid + 2 * taps * mid * mid),
+                2.0 * n_lvl * rows * mid * c)
+    mw = ld + tril_size(ld)
+    return (2.0 * n_lvl * (6 * rows * c * mid + 8 * taps * mid * mid),
+            2.0 * n_lvl * rows * (mid * (2 * ld + mw + 2 * ld + c + c) + ld * c))
+
+
+def bound_bf16(flops16, flops32, byts):
+    """The least time (ms) for a bf16 build's work on this card: its bf16
+    products at the dense bf16 rate plus its float32 products as their core
+    runs them (TF32_PASSES TF32 products each), against the bytes at the
+    memory rate; and what sets it."""
+    t_op = (flops16 / PEAK_BF16_FLOPS + TF32_PASSES * flops32 / PEAK_TF32_FLOPS) * 1e3
+    t_by = byts / PEAK_BYTES * 1e3
+    return max(t_op, t_by), ("operations" if t_op >= t_by else "bytes")
+
+
+def bf16_err(got, want):
+    """(max abs error, max and mean error relative to ``want``'s scale)."""
+    err = (got.float() - want.float().reshape(got.shape)).abs()
+    scale = max(1.0, want.abs().max().item())
+    return err.max().item(), err.max().item() / scale, err.mean().item() / scale
+
+
+def bf16_check(got, want, what):
+    """:func:`bf16_err` within BF16_TOL of scale; returns it."""
+    e = bf16_err(got, want)
+    check(e[1] <= BF16_TOL, f"{what}: {e[1]:.3e} of scale at the worst, {e[2]:.3e} on average")
+    return e
+
+
+def bf16_saves_check(got, want, what):
+    """bf16 saves against the plain forward's float32 values, rounded: equal
+    but for at most SAVE_FLIPS of them, each within 2^-6 of the tensor's
+    scale (a value rounded the other way, or a later product moved by an
+    operand that was). Returns the share that differs."""
+    from posterior_matching_torch.ops.block_chain import round_bf16
+
+    got, want = got.float(), round_bf16(want.float()).reshape(got.shape)
+    share = (got != want).float().mean().item()
+    worst = (got - want).abs().max().item() / max(1e-30, want.abs().max().item())
+    check(share <= SAVE_FLIPS and worst <= 2.0 ** -6,
+          f"{what}: {share:.4f} of the bf16 saves differ from the plain forward's, the worst "
+          f"by {worst:.3e} of scale")
+    return share
+
+
+def bf16_block_phase(runs, seed):
+    """The block chain's bf16 build at each encoder run of a bf16 training
+    batch: forward and saves against the plain forward, the backward
+    against the plain backward on the kernel's saves, a relaunch bit for
+    bit, each timed beside the plain version and its bound."""
+    from posterior_matching_torch.ops import block_chain as bc
+    from posterior_matching_torch.ops.profiling import time_ms
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 31)
+    per_run, bf16 = [], torch.bfloat16
+    for x, w, mid, k in runs:
+        n_lvl, (b, h, w_, c) = w["w1"].shape[0], x.shape
+        cfg = bc.ChainConfig(x, n_lvl, mid, k, bf16)
+        R = cfg.rows
+        x0, cot = x.reshape(R, c).contiguous(), torch.randn(x.shape, generator=gen, device=DEVICE)
+        wk = {n: w[n].to(cfg.dtype_of(n)).contiguous() for n in bc.NAMES}
+        g = cot.reshape(R, c).contiguous()
+        with torch.no_grad():
+            outs = bc.chain_fwd_bf16(cfg, x0, wk)
+            saved = {"x0": x0, **outs}
+            wb = {n: wk[n] for n in ("w1", "w2", "w3", "w4")}
+            grads = bc.chain_bwd_bf16(cfg, g, saved, wb)
+            outs2, grads2 = bc.chain_fwd_bf16(cfg, x0, wk), bc.chain_bwd_bf16(cfg, g, saved, wb)
+            want = bc.block_chain_plain(x, w, mid=mid, k=k, compute_dtype=bf16)
+            f32 = bc.block_chain_plain(x, w, mid=mid, k=k)
+            lv = lambda t: t.reshape(n_lvl, b, h, w_, -1).float()
+            shares = []
+            for lvl in range(n_lvl):   # the plain level on the kernel's level input
+                hs = bc.bf16_sub_fwd(lv(outs["xout"])[lvl - 1] if lvl else x,
+                                     {n: w[n][lvl] for n in bc.NAMES}, k)
+                for i, name in enumerate(("h1", "h2", "h3")):
+                    shares.append(bf16_saves_check(outs[name][lvl], hs[i],
+                                                   f"block_chain_fwd_bf16 res {h} {name}"))
+            d_x0, d_w = bc.bf16_chain_bwd(x, lv(outs["xout"]),
+                                          [lv(outs[n]) for n in ("h1", "h2", "h3")], w, cot, k)
+        torch.cuda.synchronize()
+        fwd_err, fwd_rel, fwd_mean = bf16_check(outs["xout"][-1], want,
+                                                f"block_chain_fwd_bf16 res {h}")
+        gap = bf16_err(want, f32)
+        bwd_err, worst = 0.0, ("", 0.0, 0.0)
+        for name, a, ref in (("dx0", grads["dx0"], d_x0),
+                             *(("d" + n, grads["d" + n], d_w[n]) for n in bc.NAMES)):
+            err, rel, mean = bf16_check(a, ref, f"block_chain_bwd_bf16 res {h} {name}")
+            bwd_err, worst = max(bwd_err, err), max(worst, (name, rel, mean), key=lambda t: t[1])
+        check(all(torch.equal(outs[n], outs2[n]) for n in outs)
+              and all(torch.equal(grads[n], grads2[n]) for n in grads),
+              f"block_chain bf16 res {h}: a relaunch changed the bits")
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: bc.chain_fwd_bf16(cfg, x0, wk), reps=10, warmup=2)
+            bwd_ms = time_ms(lambda: bc.chain_bwd_bf16(cfg, g, saved, wb), reps=10, warmup=2)
+            fwd_plain = time_ms(lambda: bc.block_chain_plain(x, w, mid=mid, k=k,
+                                                             compute_dtype=bf16), reps=3)
+            bwd_plain = time_ms(lambda: bc.bf16_chain_bwd(
+                x, lv(outs["xout"]), [lv(outs[n]) for n in ("h1", "h2", "h3")], w, cot, k),
+                reps=3)
+        f16, f32_ = bf16_flops("block", b, h, w_, c, mid, k, n_lvl)
+        fwd_bytes = nbytes(x0, *wk.values(), *outs.values())
+        bwd_bytes = nbytes(g, *saved.values(), *wb.values(), *grads.values())
+        run = {"res": h, "levels": n_lvl, "k": k, "rows": R, "save_flips": max(shares),
+               "bf16_vs_f32": gap[1:], "fwd_err": (fwd_rel, fwd_mean), "bwd_err": worst,
+               "fwd": (fwd_err, fwd_ms, fwd_plain, (f16, f32_), fwd_bytes),
+               "bwd": (bwd_err, bwd_ms, bwd_plain, (2 * f16, 2 * f32_), bwd_bytes)}
+        per_run.append(run)
+        log(f"block_chain bf16 res {h} (L = {n_lvl}): output {fwd_rel:.3e} / {fwd_mean:.3e} of "
+            f"scale (max / mean) from the bf16 plain version, which lies {gap[1]:.3e} / "
+            f"{gap[2]:.3e} from the float32 one; saves differing {max(shares):.4f}; 9 gradients "
+            f"against the plain backward on the kernel's saves worst {worst[1]:.3e} / "
+            f"{worst[2]:.3e} ({worst[0]}); relaunched bit for bit; fwd {fwd_ms:.4f} ms "
+            f"(plain {fwd_plain:.3f}, bound {bound_bf16(f16, f32_, fwd_bytes)[0]:.4f}), bwd "
+            f"{bwd_ms:.4f} ms (plain {bwd_plain:.3f}, bound "
+            f"{bound_bf16(2 * f16, 2 * f32_, bwd_bytes)[0]:.4f})")
+        del outs, outs2, grads, grads2, saved
+    return per_run
+
+
+def bf16_decoder_phase(runs, seed):
+    """The decoder chain's bf16 build at each decoder run of a bf16 training
+    batch, as :func:`bf16_block_phase` holds the block chain's."""
+    from posterior_matching_torch.ops import block_chain as bc
+    from posterior_matching_torch.ops import decoder_chain as dc
+    from posterior_matching_torch.ops.profiling import time_ms
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 37)
+    per_run, bf16 = [], torch.bfloat16
+    for x0, acts, macts, eps, w, mid, ld, k in runs:
+        n_lvl, (b, h, w_, c) = eps.shape[0], x0.shape
+        cfg = dc.DecConfig(x0, acts, n_lvl, mid, ld, k, bf16)
+        R, shapes = cfg.rows, cfg.shapes()
+        flat = lambda t: t.reshape(-1, t.shape[-1]).contiguous()
+        inputs = {"x0": flat(x0), "acts": flat(acts), "macts": flat(macts),
+                  "eps": eps.reshape(n_lvl, R, ld).contiguous(),
+                  **{n: w[n].to(cfg.dtype_of(n)).contiguous() for n in dc.NAMES}}
+        cot5 = [torch.randn(x0.shape, generator=gen, device=DEVICE),
+                *(torch.randn((n_lvl, b, h, w_, shapes[n][-1]), generator=gen, device=DEVICE)
+                  for n in ("post", "prior", "masked"))]
+        cots = {"g": flat(cot5[0]), **{g_: t.reshape(shapes[n]).contiguous() for g_, n, t in zip(
+            ("gpost", "gprior", "gmask"), ("post", "prior", "masked"), cot5[1:])}}
+        wk = {n: inputs[n] for n in dc.NAMES}
+        with torch.no_grad():
+            outs = dc.dec_fwd_bf16(cfg, inputs)
+            saved = {n: {**inputs, **outs}[n] for n in cfg.saved}
+            grads = dc.dec_bwd_bf16(cfg, cots, saved, wk)
+            outs2, grads2 = dc.dec_fwd_bf16(cfg, inputs), dc.dec_bwd_bf16(cfg, cots, saved, wk)
+            want = dc.dec_chain_plain(x0, acts, macts, eps, w, ld=ld, k=k, compute_dtype=bf16)
+            f32 = dc.dec_chain_plain(x0, acts, macts, eps, w, ld=ld, k=k)
+            lv = lambda t: t.reshape(n_lvl, b, h, w_, -1).float()
+            # each level's saves against its plain Blocks on the kernel's
+            # level input and u
+            shares = []
+            for lvl in range(n_lvl):
+                x_in = lv(outs["xout"])[lvl - 1] if lvl else x0
+                wl = {n: w[n][lvl] for n in dc.NAMES}
+                blk = lambda tag: {n: wl[f"{tag}_{n}"] for n in bc.NAMES}
+                for tag, inp in (("p", torch.cat([x_in, acts], -1)),
+                                 ("m", torch.cat([x_in, macts], -1)), ("q", x_in),
+                                 ("r", lv(outs["u"])[lvl])):
+                    hs = bc.bf16_sub_fwd(inp, blk(tag), k)
+                    for i in range(3):
+                        name = f"{tag}h{i + 1}"
+                        shares.append(bf16_saves_check(outs[name][lvl], hs[i],
+                                                       f"decoder_chain_fwd_bf16 res {h} {name}"))
+            d_x0, d_acts, d_macts, d_w = dc.bf16_dec_chain_bwd(
+                x0, acts, macts, eps, lv(outs["xout"]), [lv(outs[s]) for s in dc.SAVES], w,
+                cot5, ld=ld, k=k)
+        torch.cuda.synchronize()
+        fwd_err, fwd_rel, fwd_mean, gap = 0.0, 0.0, 0.0, (0.0, 0.0)
+        for name, ref, ref32 in zip(("xout", "post", "prior", "masked"), want, f32):
+            got = outs[name][-1] if name == "xout" else outs[name]
+            err, rel, mean = bf16_check(got, ref, f"decoder_chain_fwd_bf16 res {h} {name}")
+            fwd_err, fwd_rel, fwd_mean = max(fwd_err, err), max(fwd_rel, rel), max(fwd_mean, mean)
+            g_ = bf16_err(ref, ref32)
+            gap = (max(gap[0], g_[1]), max(gap[1], g_[2]))
+        plain = {"dx0": d_x0, "dacts": d_acts, "dmacts": d_macts,
+                 **{"d" + n: d_w[n] for n in dc.NAMES}}
+        bwd_err, worst = 0.0, ("", 0.0, 0.0)
+        for name, ref in plain.items():
+            err, rel, mean = bf16_check(grads[name], ref, f"decoder_chain_bwd_bf16 res {h} {name}")
+            bwd_err, worst = max(bwd_err, err), max(worst, (name, rel, mean), key=lambda t: t[1])
+        check(all(torch.equal(outs[n], outs2[n]) for n in outs)
+              and all(torch.equal(grads[n], grads2[n]) for n in grads),
+              f"decoder_chain bf16 res {h}: a relaunch changed the bits")
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: dc.dec_fwd_bf16(cfg, inputs), reps=5, warmup=1)
+            bwd_ms = time_ms(lambda: dc.dec_bwd_bf16(cfg, cots, saved, wk), reps=5, warmup=1)
+            fwd_plain = time_ms(lambda: dc.dec_chain_plain(x0, acts, macts, eps, w, ld=ld, k=k,
+                                                           compute_dtype=bf16), reps=2)
+            bwd_plain = time_ms(lambda: dc.bf16_dec_chain_bwd(
+                x0, acts, macts, eps, lv(outs["xout"]), [lv(outs[s]) for s in dc.SAVES], w,
+                cot5, ld=ld, k=k), reps=2)
+        f16, f32_ = bf16_flops("decoder", b, h, w_, c, mid, k, n_lvl, ld)
+        # the backward: every product twice but the masked Block's x-side
+        # data gradient (bf16); it also rebuilds post and u (float32)
+        b16 = 2 * f16 - 2.0 * n_lvl * R * c * mid
+        b32 = 2 * f32_ + 2.0 * n_lvl * R * (mid * (2 * ld + c) + ld * c)
+        read_w = [t for n, t in wk.items() if n != "bz" and "_b" not in n]
+        fwd_bytes = nbytes(*inputs.values(), *outs.values())
+        bwd_bytes = nbytes(*cots.values(), *saved.values(), *read_w, *grads.values())
+        run = {"res": h, "levels": n_lvl, "k": k, "rows": R, "save_flips": max(shares),
+               "bf16_vs_f32": gap, "fwd_err": (fwd_rel, fwd_mean), "bwd_err": worst,
+               "fwd": (fwd_err, fwd_ms, fwd_plain, (f16, f32_), fwd_bytes),
+               "bwd": (bwd_err, bwd_ms, bwd_plain, (b16, b32), bwd_bytes)}
+        per_run.append(run)
+        log(f"decoder_chain bf16 res {h} (L = {n_lvl}): 4 outputs {fwd_rel:.3e} / "
+            f"{fwd_mean:.3e} of scale (max / mean) from the bf16 plain version, which lies "
+            f"{gap[0]:.3e} / {gap[1]:.3e} from the float32 one; saves differing "
+            f"{max(shares):.4f}; {len(plain)} gradients against the plain backward on the "
+            f"kernel's saves worst {worst[1]:.3e} / {worst[2]:.3e} ({worst[0]}); relaunched bit "
+            f"for bit; fwd "
+            f"{fwd_ms:.4f} ms (plain {fwd_plain:.3f}, bound "
+            f"{bound_bf16(f16, f32_, fwd_bytes)[0]:.4f}), bwd {bwd_ms:.4f} ms (plain "
+            f"{bwd_plain:.3f}, bound {bound_bf16(b16, b32, bwd_bytes)[0]:.4f})")
+        del outs, outs2, grads, grads2, saved
+    return per_run
+
+
+def bf16_chain_lines(name, replaces, kinds, per_run, f32_lines):
+    """The kernels-line entries of a chain's two bf16 builds (per launch the
+    mean over the runs) with the float32 forms' ms per launch beside."""
+    mean = lambda vals: sum(vals) / len(vals)
+    f32_ms = {ln["name"]: ln["ms"] for ln in f32_lines}
+    out = []
+    for kind, line in kinds:
+        per = [r[kind] for r in per_run]
+        work = (mean([p[3][0] for p in per]), mean([p[3][1] for p in per]),
+                mean([p[4] for p in per]))
+        b_ms, b_by = bound_bf16(*work)
+        out.append({
+            "name": f"{name}_{kind}_bf16", "route": "cuda",
+            "source": f"posterior_matching_torch/ops/csrc/{name}_{kind}.cu",
+            "replaces": f"{replaces}:{line}",
+            "max_abs_err": max(p[0] for p in per),
+            "ms": mean([p[1] for p in per]), "plain_ms": mean([p[2] for p in per]),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "f32_ms": f32_ms.get(f"{name}_{kind}"),
+            "design": ("the float32 build's GEMM core with -DPM_CORE_BF16=1: c1..c3 and their "
+                       "gradients as mma.sync m16n8k16 bf16 products with float32 sums (A "
+                       "rounded as it is staged, bf16 weights by cp.async, the cotangent rows "
+                       "rounded at the fragment load), bf16 saves beside float32 scratch, c4 "
+                       "on 3xTF32"),
+            "per_run": [{"res": r["res"], "levels": r["levels"], "k": r["k"],
+                         "ms": r[kind][1], "plain_ms": r[kind][2],
+                         "bound_ms": bound_bf16(*r[kind][3], r[kind][4])[0],
+                         "gflop_bf16": r[kind][3][0] / 1e9, "gflop_f32": r[kind][3][1] / 1e9,
+                         "mb": r[kind][4] / 1e6, "save_flips": r["save_flips"],
+                         "err_max_mean": (r["fwd_err"] if kind == "fwd" else r["bwd_err"][1:]),
+                         "bf16_vs_f32": r["bf16_vs_f32"]} for r in per_run],
+        })
+    return out
+
+
+def bf16_counters():
+    """The bf16 builds' wrappers, whose ``launches`` count them."""
+    from posterior_matching_torch.ops import block_chain as bc
+    from posterior_matching_torch.ops import decoder_chain as dc
+
+    return {"block_chain_fwd_bf16": bc.chain_fwd_bf16, "block_chain_bwd_bf16": bc.chain_bwd_bf16,
+            "decoder_chain_fwd_bf16": dc.dec_fwd_bf16, "decoder_chain_bwd_bf16": dc.dec_bwd_bf16}
+
+
+def bf16_cli_launches(steps, validations, n_val, batch):
+    """The bf16 builds' launches that ``train_pm_vdvae`` makes (fused
+    decoder, ``pm_vdvae_mnist``): a step's and a validation batch's encoder
+    and decoder runs that bf16 fuses at ``batch`` (rows a multiple of 16),
+    and each validation's reconstruction callback, whose forward encodes
+    and decodes 8 images and whose imputations encode them once more."""
+    from posterior_matching_torch.ops.block_chain import chain_supported
+
+    bf = torch.bfloat16
+    runs = lambda n: sum(chain_supported(n, r, r, bf) for r in (28, 14, 7, 3, 1))
+    enc, dec, enc8, dec8 = 2 * runs(batch), runs(batch), 2 * runs(8), runs(8)
+    return {"block_chain_fwd_bf16": enc * steps + validations * (enc * n_val + enc8 + enc8 // 2),
+            "block_chain_bwd_bf16": enc * steps,
+            "decoder_chain_fwd_bf16": dec * steps + validations * (dec * n_val + dec8),
+            "decoder_chain_bwd_bf16": dec * steps}
+
+
+def remat_check(seed, gen, mask_fn):
+    """One full-width bf16 step of the unfused model (every encoder Block a
+    Block of its own) with ``remat`` off and on, cuDNN's deterministic
+    algorithms asked for: the loss and every gradient bit for bit equal;
+    each step's peak device memory."""
+    from posterior_matching_torch import config, convert
+    from posterior_matching_torch.train.trainer import pm_vdvae_loss
+
+    tree = convert.random_pm_vdvae_tree(config.PM_VDVAE_MNIST, seed=seed)
+    batch = mnist_batch(gen, DEVICE, VDVAE_TRAIN_BATCH, mask_fn)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for remat in (False, True):
+            model = convert.pm_vdvae_from_jax(tree, dict(
+                config.PM_VDVAE_MNIST, compute_dtype="bfloat16", fused_chain=False,
+                remat=remat), device=DEVICE)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss = pm_vdvae_loss(model, batch, seed + 41)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            torch.cuda.synchronize()
+            out[remat] = (loss.detach(), grads, torch.cuda.max_memory_allocated())
+            del model
+    finally:
+        torch.backends.cudnn.deterministic = det
+    same = torch.equal(out[False][0], out[True][0]) and all(
+        torch.equal(a, b) for a, b in zip(out[False][1], out[True][1]))
+    worst = max(((a - b).abs().max().item() for a, b in zip(out[False][1], out[True][1])))
+    check(same, f"remat changed the step's loss or gradients (worst {worst:.3e})")
+    mem = {str(k): v[2] for k, v in out.items()}
+    log(f"remat: a bf16 step of the unfused model with remat off and on, loss "
+        f"{out[False][0].item():.6f}, every gradient bit for bit equal; peak device memory "
+        f"{mem['False'] / 2**20:.1f} MiB without, {mem['True'] / 2**20:.1f} MiB with")
+    return {"loss": out[False][0].item(), "max_memory_allocated": mem}
+
+
+def bf16_phase(args, gen, work, f32_lines):
+    """Phase 19: the bf16 builds at the full-width runs, ``train_pm_vdvae``
+    with ``compute_dtype`` bfloat16 and ``flat_optimizer`` (the main path of
+    the bf16 builds: every counter set to 0 just before and read just
+    after) on phase 11's files in ``work``/data, its resume, both VDVAE evals
+    on its run (phase 13's ``work``/eval_data), the remat step, and the bf16
+    and float32 ms per launch side by side. Its runs go under
+    ``work``/bf16."""
+    from posterior_matching_torch import (
+        config, convert, eval_pm_vdvae_imputation, eval_pm_vdvae_likelihood, masking,
+        train_pm_vdvae,
+    )
+    from posterior_matching_torch.train.state import load_train_state
+
+    t0 = time.perf_counter()
+    mask_fn = masking.get_mask_generator("MNISTMaskGenerator", device=DEVICE)
+    model_config = dict(config.PM_VDVAE_MNIST, compute_dtype="bfloat16", fused_chain=True)
+    tree = convert.random_pm_vdvae_tree(model_config, seed=args.seed)
+    model = convert.pm_vdvae_from_jax(tree, model_config, device=DEVICE)
+    batch = mnist_batch(gen, DEVICE, VDVAE_TRAIN_BATCH, mask_fn)
+    runs = capture_runs(model, batch["image"], batch["mask"])
+    check([(r[0].shape[1], r[1]["w1"].shape[0], r[3]) for r in runs]
+          == [(28, 6, 3), (14, 4, 3), (7, 2, 3), (3, 2, 3), (1, 2, 1)],
+          "the bf16 encoder's runs are not the config's five")
+    block_runs = bf16_block_phase(runs, args.seed)
+    del runs
+    dec_runs = capture_dec_runs(model, batch, gen)
+    check([(r[0].shape[1], r[3].shape[0], r[7]) for r in dec_runs]
+          == [(1, 2, 1), (3, 3, 3), (7, 3, 3), (14, 5, 3), (28, 7, 3)],
+          "the bf16 decoder's fused runs are not the config's five")
+    dec_runs_ = bf16_decoder_phase(dec_runs, args.seed)
+    del dec_runs, model
+    lines = (bf16_chain_lines("block_chain", "posterior_matching_tpu/ops/block_chain.py",
+                              (("fwd", 270), ("bwd", 308)), block_runs, f32_lines)
+             + bf16_chain_lines("decoder_chain", "posterior_matching_tpu/ops/decoder_chain.py",
+                                (("fwd", 226), ("bwd", 291)), dec_runs_, f32_lines))
+    for line in lines:
+        log(f"{line['name']}: {line['ms']:.4f} ms per launch in bf16 against "
+            f"{line['f32_ms']:.4f} in float32 (mean over the runs; plain bf16 "
+            f"{line['plain_ms']:.3f}, bound {line['bound_ms']:.4f} by {line['bound_by']})")
+
+    # ---- the main path: train_pm_vdvae in bf16 with flat_optimizer --------
+    n_val = 64 // VDVAE_TRAIN_BATCH
+    argv = ["--config", "pm_vdvae_mnist", "--config.seed", str(args.seed),
+            "--config.model.fused_chain=True", "--config.model.compute_dtype", "bfloat16",
+            "--config.flat_optimizer", "True", "--config.validation_freq", str(BF16_VAL_FREQ)]
+    os.makedirs(f"{work}/bf16/first")
+    counters = {**all_kernel_counters(), **bf16_counters()}
+    for c in counters.values():
+        c.launches = 0
+    with cli_env(f"{work}/bf16/first", f"{work}/data"):
+        _, cli_lines, wall = run_cli("train_pm_vdvae (bf16, flat_optimizer)",
+                                     train_pm_vdvae.main,
+                                     [*argv, "--config.steps", str(BF16_STEPS)])
+    launched = {k: c.launches for k, c in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(bf16_cli_launches(BF16_STEPS, BF16_STEPS // BF16_VAL_FREQ, n_val,
+                                  VDVAE_TRAIN_BATCH))
+    check(launched == want, f"train_pm_vdvae in bf16 launched {launched}, not {want}")
+    (run_dir,) = glob.glob(f"{work}/bf16/first/runs/pm-vdvae-mnist-*")
+    with open(f"{run_dir}/model_config.json") as fp:
+        written = json.load(fp)
+    check(written.get("compute_dtype") == "bfloat16",
+          f"model_config.json holds compute_dtype {written.get('compute_dtype')!r}")
+    ts = load_train_state(f"{run_dir}/train_state.pkl")
+    adam = ts.opt_state[0][1]   # group_by_shape's (chain state,)
+    check(isinstance(adam.args[1], list) and int(np.asarray(adam.args[0])) == BF16_STEPS,
+          "the checkpoint's optimizer state is not flat_optimizer's layout")
+    val = [ln for ln in cli_lines if ln.startswith("[step ")]
+    check(len(val) == BF16_STEPS // BF16_VAL_FREQ
+          and all(np.isfinite(line_value(ln, "val_loss")) for ln in val),
+          "train_pm_vdvae in bf16 did not log a finite validation at each")
+    log(f"train_pm_vdvae bf16 + flat_optimizer: {BF16_STEPS} steps in {wall:.1f} s, launches "
+        f"{launched}; model_config.json compute_dtype bfloat16; the optimizer state in "
+        f"group_by_shape's layout ({len(adam.args[1])} shape groups)")
+
+    # ---- --resume_dir, then both evals on the first run --------------------
+    os.makedirs(f"{work}/bf16/resumed")
+    with cli_env(f"{work}/bf16/resumed", f"{work}/data"):
+        _, res_lines, res_wall = run_cli("train_pm_vdvae --resume_dir", train_pm_vdvae.main, [
+            *argv, "--config.steps", str(BF16_RESUME_STEPS), "--resume_dir", run_dir])
+    (resumed,) = glob.glob(f"{work}/bf16/resumed/runs/pm-vdvae-mnist-*")
+    ts2 = load_train_state(f"{resumed}/train_state.pkl")
+    check(int(ts2.step) == BF16_RESUME_STEPS
+          and int(np.asarray(ts2.opt_state[0][1].args[0])) == BF16_RESUME_STEPS,
+          "the resumed run's checkpoint is not at its last step")
+    evals = {}
+    common = ["--run_dir", run_dir, "--dataset", "mnist", "--mask_generator",
+              "MNISTMaskGenerator", "--num_trials", "1", "--num_instances", str(BATCH),
+              "--batch_size", str(BATCH)]
+    with cli_env(f"{work}/bf16", f"{work}/eval_data"):
+        for stage, main, extra, results in (
+                ("eval_pm_vdvae_imputation", eval_pm_vdvae_imputation.main,
+                 ["--num_samples", "2"], "imputation_results"),
+                ("eval_pm_vdvae_likelihood", eval_pm_vdvae_likelihood.main,
+                 ["--num_samples", "4", "--batch_chunk", str(BATCH)], "likelihood_results")):
+            for c in counters.values():
+                c.launches = 0
+            _, _, ewall = run_cli(f"{stage} (bf16 run)", main, [*common, *extra])
+            fwd = counters["block_chain_fwd_bf16"].launches
+            check(fwd > 0 and counters["block_chain_fwd"].launches == 0,
+                  f"{stage} on the bf16 run did not go through the bf16 block chain")
+            arrays = [np.load(f) for f in glob.glob(f"{run_dir}/{results}/*.npy")]
+            check(bool(arrays) and all(np.isfinite(a).all() for a in arrays),
+                  f"{stage} wrote no or non-finite results")
+            evals[stage] = {"wall_s": ewall, "block_chain_fwd_bf16": fwd}
+    log(f"resume to step {BF16_RESUME_STEPS} in {res_wall:.1f} s; evals on the bf16 run: {evals}")
+    remat = remat_check(args.seed, gen, mask_fn)
+    seconds = time.perf_counter() - t0
+    return lines, {"seconds": seconds, "cli_launches": launched, "cli_wall_s": wall,
+                   "resume_wall_s": res_wall, "evals": evals, "remat": remat,
+                   "block_runs": [{k: v for k, v in r.items() if k not in ("fwd", "bwd")}
+                                  for r in block_runs],
+                   "decoder_runs": [{k: v for k, v in r.items() if k not in ("fwd", "bwd")}
+                                    for r in dec_runs_]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3827,7 +4314,15 @@ def main() -> int:
                             f"{work}/eval_data", f"{work}/celeb_a/data")
         log(f"phase 18: {ranks['seconds']:.1f} s | {smi}")
 
-    # ---- 19. results -------------------------------------------------------
+        # ---- 19. compute_dtype bfloat16, remat, flat_optimizer -----------------
+        stamp("PM-VDVAE in bf16: the bf16 builds, the CLI with flat_optimizer, remat")
+        bf16_lines, bf16 = bf16_phase(args, gen, work, vdvae_lines)
+        for line in bf16_lines:
+            line["launches"] = bf16["cli_launches"][line["name"]]
+            line["launches_per_step"] = line["launches"] / BF16_STEPS
+        log(f"phase 19: {bf16['seconds']:.1f} s | {smi}")
+
+    # ---- 20. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
@@ -3853,7 +4348,7 @@ def main() -> int:
                    "operands gathered into shared memory once a GEMM; weights "
                    "streamed by cp.async.bulk through 2 x 64 KB mbarrier slots; "
                    "8 samples x 4 columns a lane, split-K reduced in fixed order"},
-        vq_line, *chain_lines, *vdvae_lines, *digits16_lines,
+        vq_line, *chain_lines, *vdvae_lines, *digits16_lines, *bf16_lines,
     ]
     summary = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -3861,14 +4356,14 @@ def main() -> int:
         "request_s": req_s, "psnr": psnrs, "modes_first_step": first_step,
         "training": train, "vqvae_cli": vqvae_cli, "vdvae": vdvae, "kernels": kernels,
         "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval, "pm_vae": pm_vae,
-        "vade": vade, "resume": resume, "digits16": digits16, "ranks": ranks,
+        "vade": vade, "resume": resume, "digits16": digits16, "ranks": ranks, "bf16": bf16,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("launches_per_step", "bound_f32_ms", "per_run", "per_pass", "per_shape",
-             "design")
+    extra = ("launches_per_step", "bound_f32_ms", "f32_ms", "per_run", "per_pass",
+             "per_shape", "design")
     log(json.dumps({"kernels": [{**{k: kd[k] for k in keys},
                                  **{k: kd[k] for k in extra if k in kd}} for kd in kernels]}))
     log(json.dumps({"ok": True, "device": {

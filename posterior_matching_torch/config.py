@@ -30,7 +30,8 @@ Copied from the JAX package's config files, which need ``ml_collections``:
   num_features`` is set by the CLI from the data's shape).
 
 Each whole-file configuration leaves ``seed`` None (a fresh draw unless
-set) and ``compute_dtype`` None (the port computes in float32), and drops
+set) and ``compute_dtype`` None (float32; the PM-VDVAE's may be set to
+bfloat16, the PM-VQVAE's not yet), and drops
 the JAX execution options the port does not take (``steps_per_call``,
 ``device_resident_data``, ``packed_chain``).
 """
@@ -81,8 +82,8 @@ PM_VQVAE_CELEB_A_TRAIN = {
 }
 
 # PM-VDVAE MNIST: ``configs/pm_vdvae_mnist.py:24-36``. ``compute_dtype`` is
-# None there (a placeholder the CLI may set to bfloat16, which the port does
-# not run).
+# None there, a placeholder the CLI may set to bfloat16
+# (``--config.model.compute_dtype bfloat16``: the chains' bf16 kernels).
 PM_VDVAE_MNIST = {
     "image_shape": (28, 28, 1),
     "encoder_blocks": "28x6,28d2,14x4,14d2,7x2,7d2,3x2,3d2,1x2",

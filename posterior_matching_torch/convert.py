@@ -752,8 +752,23 @@ def _labels(params: Tree, trainable: Callable[[str, str], bool]) -> Tree:
                           params)
 
 
+def _paths(tree: Tree, path=()) -> Dict[str, Any]:
+    """The leaves of a tree of dicts by their paths joined with dots."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _paths(sub, (*path, key)).items()}
+    return {".".join(path): tree}
+
+
+def _group_plan(tree: Tree):
+    """``group_by_shape``'s plan of a tree (``optim.shape_groups``)."""
+    from posterior_matching_torch.train.optim import shape_groups
+
+    return shape_groups({k: np.shape(v) for k, v in _paths(tree).items()})
+
+
 def optax_opt_state(chain: Sequence[str], count: int, mu: Tree, nu: Tree,
-                    trainable: Optional[Callable[[str, str], bool]] = None):
+                    trainable: Optional[Callable[[str, str], bool]] = None,
+                    grouped: bool = False):
     """The state that the optax chain ``chain`` (its transforms' names, in
     order) holds after ``count`` updates with moments ``mu`` and ``nu``
     (JAX-layout trees of every parameter; the frozen ones' are dropped), as
@@ -763,7 +778,17 @@ def optax_opt_state(chain: Sequence[str], count: int, mu: Tree, nu: Tree,
     as the JAX trainer wraps it (``trainer.py:185-209``): a
     ``PartitionState`` of two ``MaskedState``s, ``MaskedNode`` leaves where
     a parameter is frozen. A plain ``pickle.load`` rebuilds optax's own
-    states from it."""
+    states from it. With ``grouped`` the chain runs under ``group_by_shape``
+    (``flat_optimizer``, ``posterior_matching_tpu/train/optim.py:71-74``):
+    ``(chain's state,)``, every moment a list of the shape groups' stacks."""
+    if grouped:
+        if trainable is not None:
+            raise ValueError("flat_optimizer's layout freezes no parameter")
+        plan = _group_plan(mu)
+        stack = lambda tree: [np.stack([np.asarray(_paths(tree)[k], np.float32) for k in names])
+                              for _, names in plan]
+        count = np.asarray(count, np.int32)
+        return (tuple(_STATES[t](count, stack(mu), stack(nu)) for t in chain),)
     labels = _labels(mu, trainable or (lambda module, name: True))
     moment = lambda path, v: (np.asarray(v, np.float32) if _leaf(labels, path)
                               else _optax("MaskedNode"))
@@ -796,17 +821,20 @@ def _records(node, name: str) -> list:
 
 
 def optax_moments(opt_state, params: Tree,
-                  trainable: Optional[Callable[[str, str], bool]] = None
-                  ) -> Tuple[int, Tree, Tree]:
+                  trainable: Optional[Callable[[str, str], bool]] = None,
+                  grouped: bool = False) -> Tuple[int, Tree, Tree]:
     """The update count and the ``mu`` / ``nu`` trees (the structure of the
     canonical ``params``; a frozen parameter's moments zero) of an optax
     chain's state as :func:`~posterior_matching_torch.train.state.
     load_train_state` reads it, written by either package. A state in
     ``PackedChainCodec``'s layout (``packed_chain``, the JAX package's
-    default on a TPU) is unpacked to the PixelCNN's levels. Raises
-    ``ValueError``, naming what is wrong, for any other layout: no Adam
-    state, the shape-grouped ``flat_optimizer`` layout, frozen parameters
-    other than ``trainable``'s, or leaves that differ from ``params``."""
+    default on a TPU) is unpacked to the PixelCNN's levels; with
+    ``grouped`` the state is in ``flat_optimizer``'s layout
+    (``group_by_shape``: moments stacked by shape group, read back by the
+    plan of ``params``). Raises ``ValueError``, naming what is wrong, for
+    any other layout: no Adam state, the grouped layout where ``grouped``
+    is not set or the other one where it is, frozen parameters other than
+    ``trainable``'s, or leaves that differ from ``params``."""
     if isinstance(opt_state, dict) and set(opt_state) == {"count", "mu", "nu"}:
         raise ValueError("the optimizer state is a {count, mu, nu} dict keyed by the port's "
                          "parameter names, which the port wrote before it wrote optax's "
@@ -816,10 +844,15 @@ def optax_moments(opt_state, params: Tree,
         raise ValueError(f"the optimizer state holds {len(adam)} scale_by_adam states, not one: "
                          f"{opt_state!r:.300}")
     count, mu, nu = adam[0].args
-    if not isinstance(mu, dict):
-        raise ValueError("the optimizer state is in flat_optimizer's layout (group_by_shape: "
-                         "moments stacked by leaf shape), which the port does not read "
-                         "(ROADMAP.md A7)")
+    if isinstance(mu, dict) == grouped:
+        raise ValueError(
+            "the optimizer state is in flat_optimizer's layout (group_by_shape: moments "
+            "stacked by leaf shape), and this trainer's optimizer is not: only the PM-VDVAE "
+            "trainer takes flat_optimizer (ROADMAP.md A7)" if not isinstance(mu, dict) else
+            "this trainer's optimizer runs under flat_optimizer (group_by_shape), and the "
+            "optimizer state is not in its layout")
+    if grouped:
+        mu, nu = (_ungroup(m, params) for m in (mu, nu))
     count = int(np.asarray(count))
     others = {int(np.asarray(r.args[0])) for r in _records(opt_state, "ScaleByScheduleState")}
     if others - {count}:
@@ -854,6 +887,20 @@ def optax_moments(opt_state, params: Tree,
         return _map_with_path(leaf, params)
 
     return count, moment(mu), moment(nu)
+
+
+def _ungroup(stacks, params: Tree) -> Tree:
+    """A moment in ``group_by_shape``'s layout, its shape groups' stacks,
+    back to a tree of ``params``'s structure by the plan of ``params``."""
+    plan = _group_plan(params)
+    if len(stacks) != len(plan) or any(
+            np.shape(s) != (len(names), *key[0]) for s, (key, names) in zip(stacks, plan)):
+        raise ValueError(f"the optimizer state's shape groups "
+                         f"{[np.shape(s) for s in stacks]} are not those of the parameters "
+                         f"{[(len(n), *k[0]) for k, n in plan]}")
+    flat = {k: np.asarray(s[j], np.float32) for s, (_, names) in zip(stacks, plan)
+            for j, k in enumerate(names)}
+    return _map_with_path(lambda path, _: flat[".".join(path)], params)
 
 
 def _unpack_chain(enc: Tree, pc: Tree) -> Tree:

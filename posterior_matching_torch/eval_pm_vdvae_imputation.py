@@ -8,10 +8,12 @@ Counterpart of ``eval_pm_vdvae_imputation.py``. Run it as::
         [--num_samples 10] [--num_trials 5] [--seed 91] [--device cpu]
 
 - The run directory is a PM-VDVAE run of either package, its EMA
-  parameters when the checkpoint has them (``convert.load_pm_vdvae``);
-  imputations come from ``vdvae_impute`` (the block-chain kernels in both
-  encoders), masks and samples from one ``torch.Generator`` seeded with
-  ``--seed``.
+  parameters when the checkpoint has them (``convert.load_pm_vdvae``; a
+  run trained with ``compute_dtype`` bfloat16 evaluates in bf16, on the
+  block chain's bf16 build, as its ``model_config.json`` says);
+  imputations come from ``vdvae_impute`` (the block-chain kernels in the
+  masked encoder), masks and samples from one ``torch.Generator`` seeded
+  with ``--seed``.
 - Images stay in [0, 255] (``normalize_images=False``); the PSNR is of the
   mean imputation over 255 against the image over 255, and PRD embeds the
   imputations over 255 (``eval_pm_vdvae_imputation.py:88-97``), with the

@@ -10,8 +10,9 @@ Counterpart of ``eval_pm_vdvae_likelihood.py``. Run it as::
         [--device cpu]
 
 - The run directory is a PM-VDVAE run of either package, its EMA
-  parameters when the checkpoint has them (``convert.load_pm_vdvae``); the
-  log-likelihoods come from ``vdvae_is_log_probs`` with ``num_samples``
+  parameters when the checkpoint has them (``convert.load_pm_vdvae``; a
+  run trained with ``compute_dtype`` bfloat16 evaluates in bf16, as its
+  ``model_config.json`` says); the log-likelihoods come from ``vdvae_is_log_probs`` with ``num_samples``
   importance samples, ``batch_chunk`` instances at a time (the block-chain
   kernels in both encoders), masks and samples from one
   ``torch.Generator`` seeded with ``--seed``. Images stay in [0, 255].

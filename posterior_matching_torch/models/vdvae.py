@@ -26,8 +26,19 @@ the JAX tree path joined by dots (``convert.pm_vdvae_state_dict``).
   normals, consumed in the order in which the JAX package calls
   ``make_rng("sample")``; a fused run draws each block's normals by the
   same call, in the same order.
-- The other TPU options are not ported: ``compute_dtype`` other than
-  float32, ``remat`` and ``fused_chain="interpret"`` raise.
+- ``compute_dtype="bfloat16"`` (``vdvae.py:133-137``): every Block's
+  c1..c3 compute in bf16 and c4 in float32, so parameters, block outputs
+  and every distribution's parameters stay float32. An unfused Block has
+  flax's ``nn.Conv(dtype=bfloat16)`` semantics (bf16 input and kernel,
+  a bf16 output with its bias added in bf16, on bf16 tensors, whose
+  products cuBLAS and cuDNN sum in float32: ``runtime.py``); a fused run is
+  the chains' bf16 form, and a run is fused where the JAX package fuses it
+  (``chain_supported``: rows a multiple of 16).
+- ``remat=True`` (``nn.remat(Block)``, ``vdvae.py:242``) recomputes the
+  encoders' unfused and downsampling Blocks in the backward
+  (``torch.utils.checkpoint``); the chains already save only what their
+  backward reads.
+- ``fused_chain="interpret"`` (the JAX package's CPU test mode) raises.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from posterior_matching_torch.distributions import (
     MultivariateNormalDiag,
@@ -49,7 +61,9 @@ from posterior_matching_torch.distributions import (
     standard_normal,
     tril_size,
 )
-from posterior_matching_torch.ops.block_chain import NAMES, block_chain, conv_taps, gelu
+from posterior_matching_torch.ops.block_chain import (
+    NAMES, block_chain, chain_supported, conv_taps, gelu,
+)
 from posterior_matching_torch.ops.decoder_chain import dec_chain, dec_chain_supported
 from posterior_matching_torch.runtime import resolve_device
 from posterior_matching_torch.utils import logmeanexp
@@ -104,17 +118,29 @@ class Conv(nn.Module):
         return conv_taps(x, self.tap_weight(), self.k) + self.bias
 
 
+def torch_dtype(compute_dtype) -> torch.dtype:
+    """The config's ``compute_dtype`` (None, "float32" or "bfloat16") as a
+    torch dtype."""
+    names = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
+    if compute_dtype in (torch.float32, torch.bfloat16):
+        return compute_dtype
+    if compute_dtype not in names:
+        raise ValueError(f"compute_dtype {compute_dtype!r}: None, float32 or bfloat16")
+    return names[compute_dtype]
+
+
 class Block(nn.Module):
     """Bottleneck block: gelu -> 1x1 -> gelu -> kxk -> gelu -> kxk -> gelu ->
     1x1, with an optional residual and avg-pool downsampling
-    (``vdvae.py:121-196``)."""
+    (``vdvae.py:121-196``); c1..c3 at ``compute_dtype``, c4 in float32."""
 
     def __init__(self, cin: int, middle_width: int, out_width: int,
                  down_rate: Optional[int] = None, residual: bool = False,
-                 use_3x3: bool = True):
+                 use_3x3: bool = True, compute_dtype=torch.float32):
         super().__init__()
         self.mid, self.k = middle_width, 3 if use_3x3 else 1
         self.down_rate, self.residual = down_rate, residual
+        self.cdtype = compute_dtype
         self.c1 = Conv(cin, middle_width, 1)
         self.c2 = Conv(middle_width, middle_width, self.k)
         self.c3 = Conv(middle_width, middle_width, self.k)
@@ -129,11 +155,20 @@ class Block(nn.Module):
             out[f"b{i}"] = conv.bias.reshape(1, -1)
         return out
 
+    def _inner(self, conv: Conv, a: torch.Tensor) -> torch.Tensor:
+        """c1..c3 on ``a`` at the compute dtype: in bf16 flax's
+        ``nn.Conv(dtype=bfloat16)``, input, kernel and bias cast to bf16 and
+        the output bf16."""
+        if self.cdtype == torch.float32:
+            return conv(a)
+        cd = self.cdtype
+        return conv_taps(a.to(cd), conv.tap_weight().to(cd), conv.k) + conv.bias.to(cd)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.c1(gelu(x))
-        h = self.c2(gelu(h))
-        h = self.c3(gelu(h))
-        h = self.c4(gelu(h))
+        h = self._inner(self.c1, gelu(x))
+        h = self._inner(self.c2, gelu(h))
+        h = self._inner(self.c3, gelu(h))
+        h = self.c4(gelu(h).float())
         out = x + h if self.residual else h
         if self.down_rate is not None:
             d = self.down_rate
@@ -153,24 +188,40 @@ class Encoder(nn.Module):
 
     def __init__(self, in_channels: int, width: int, blocks: str,
                  bottleneck_multiple: float, custom_width_string: Optional[str] = None,
-                 chain: bool = True):
+                 chain: bool = True, compute_dtype=torch.float32, remat: bool = False):
         super().__init__()
         self.widths = get_width_settings(width, custom_width_string)
         self.specs = parse_layer_string(blocks)
         self.bm = bottleneck_multiple
-        self.chain = chain
+        self.chain, self.cdtype, self.remat = chain, compute_dtype, remat
         self.in_conv = Conv(in_channels, width, 3)
         c = width
         for i, (res, down) in enumerate(self.specs):
             w = self.widths[res]
             setattr(self, f"block_{i}", Block(c, int(w * bottleneck_multiple), w,
                                               down_rate=down, residual=True,
-                                              use_3x3=res > 2))
+                                              use_3x3=res > 2, compute_dtype=compute_dtype))
             new_res = res // down if down else res
             c = max(w, self.widths[new_res])
 
     def block(self, i: int) -> Block:
         return getattr(self, f"block_{i}")
+
+    def _fused(self, h: torch.Tensor, res: int, run: int) -> bool:
+        """Whether a run of ``run`` blocks at ``res`` goes through the block
+        chain. In float32 every run of two or more (the kernels take any row
+        count, and fused and unfused sums agree to rounding); in bf16 those
+        the JAX package fuses (``vdvae.py:280-288``), as the unfused Blocks
+        round each conv output to bf16 and the chain does not."""
+        return (self.chain and run >= 2 and h.shape[-1] == self.widths[res]
+                and (self.cdtype == torch.float32
+                     or chain_supported(h.shape[0], res, res, self.cdtype)))
+
+    def _block(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        """Block ``i`` on ``h``, recomputed in the backward with ``remat``."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self.block(i), h, use_reentrant=False)
+        return self.block(i)(h)
 
     def forward(self, x: torch.Tensor) -> Acts:
         h = self.in_conv(x)
@@ -184,14 +235,14 @@ class Encoder(nn.Module):
             while j < len(specs) and specs[j][0] == res and specs[j][1] is None:
                 j += 1
             j = max(j, i + 1)
-            if self.chain and j - i >= 2 and h.shape[-1] == self.widths[res]:
+            if self._fused(h, res, j - i):
                 per_level = [self.block(b).chain_weights() for b in range(i, j)]
                 stacked = {n: torch.stack([lv[n] for lv in per_level]) for n in NAMES}
                 h = block_chain(h, stacked, mid=int(self.widths[res] * self.bm),
-                                k=3 if res > 2 else 1)
+                                k=3 if res > 2 else 1, compute_dtype=self.cdtype)
             else:
                 for b in range(i, j):
-                    h = self.block(b)(h)
+                    h = self._block(b, h)
             h = _pad_channels(h, self.widths[h.shape[1]])
             acts[h.shape[1]] = h
             i = j
@@ -237,16 +288,17 @@ class DecoderBlock(nn.Module):
 
     def __init__(self, latent_dim: int, res: int, mixin: Optional[int], num_blocks: int,
                  width: int, bottleneck_multiple: float,
-                 custom_width_string: Optional[str] = None):
+                 custom_width_string: Optional[str] = None, compute_dtype=torch.float32):
         super().__init__()
         w = get_width_settings(width, custom_width_string)[res]
         self.res, self.mixin, self.ld, self.w = res, mixin, latent_dim, w
         mid, ld, use_3x3 = int(w * bottleneck_multiple), latent_dim, res > 2
-        self.posterior = Block(2 * w, mid, 2 * ld, use_3x3=use_3x3)
-        self.masked_posterior = Block(2 * w, mid, ld + tril_size(ld), use_3x3=use_3x3)
-        self.prior = Block(w, mid, 2 * ld + w, use_3x3=use_3x3)
+        kw = {"use_3x3": use_3x3, "compute_dtype": compute_dtype}
+        self.posterior = Block(2 * w, mid, 2 * ld, **kw)
+        self.masked_posterior = Block(2 * w, mid, ld + tril_size(ld), **kw)
+        self.prior = Block(w, mid, 2 * ld + w, **kw)
         self.z_proj = Conv(ld, w, 1)
-        self.resnet = Block(w, mid, w, residual=True, use_3x3=use_3x3)
+        self.resnet = Block(w, mid, w, residual=True, **kw)
 
     def _posterior(self, x, acts):
         out = self.posterior(torch.cat([x, acts], -1))
@@ -352,17 +404,18 @@ class Decoder(nn.Module):
     def __init__(self, latent_dim: int, image_size: int, num_channels: int, width: int,
                  blocks: str, bottleneck_multiple: float, no_bias_above: int,
                  num_mixtures: int, custom_width_string: Optional[str] = None,
-                 fused: bool = False):
+                 fused: bool = False, compute_dtype=torch.float32):
         super().__init__()
         widths = get_width_settings(width, custom_width_string)
         specs = parse_layer_string(blocks)
         self.specs, self.fused, self.bm = specs, fused, bottleneck_multiple
+        self.cdtype = compute_dtype
         self.latent_dim, self.image_size = latent_dim, image_size
         self.n_blocks = len(specs)
         for i, (res, mixin) in enumerate(specs):
             setattr(self, f"block_{i}", DecoderBlock(
                 latent_dim, res, mixin, len(specs), width, bottleneck_multiple,
-                custom_width_string))
+                custom_width_string, compute_dtype))
         self.bias_resolutions = [r for r in sorted({r for r, _ in specs}) if r <= no_bias_above]
         for r in self.bias_resolutions:
             self.register_parameter(f"x_bias_{r}", nn.Parameter(torch.zeros(1, r, r, widths[r])))
@@ -396,7 +449,7 @@ class Decoder(nn.Module):
         weights = {n: torch.stack([lv[n] for lv in per_level]) for n in per_level[0]}
         x_final, post, prior, masked = dec_chain(
             x0, a, ma, eps, weights, mid=int(first.w * self.bm), ld=ld,
-            k=3 if first.res > 2 else 1)
+            k=3 if first.res > 2 else 1, compute_dtype=self.cdtype)
         out = dict(xs)
         out[first.res] = x_final
         flat = lambda t: t.reshape(batch, -1, t.shape[-1])
@@ -421,7 +474,7 @@ class Decoder(nn.Module):
             while j < len(specs) and specs[j][0] == res and specs[j][1] is None:
                 j += 1
             if (self.fused and j - i >= 2
-                    and dec_chain_supported(acts[res].shape[0], res, res)):
+                    and dec_chain_supported(acts[res].shape[0], res, res, self.cdtype)):
                 xs, run_stats = self._fused_run(list(range(i, j)), xs, acts, masked_acts,
                                                 noise)
                 stats.extend(run_stats)
@@ -466,10 +519,6 @@ class Decoder(nn.Module):
         return self._final(xs[self.image_size]), self._final(masked_xs[self.image_size]), stats
 
 
-# Config keys of the TPU-only options and the value the port runs.
-_TPU_OPTIONS = {"compute_dtype": None, "remat": False}
-
-
 class PosteriorMatchingVDVAE(nn.Module):
     """Full PM-VDVAE (``vdvae.py:845-965``) on [0, 255] images; the encoders
     see ``x / 127.5 - 1``. ``fused_chain``: ``None``, ``True`` or ``False``,
@@ -479,31 +528,31 @@ class PosteriorMatchingVDVAE(nn.Module):
                  decoder_blocks: str, latent_dim: int = 16, width: int = 128,
                  bottleneck_multiple: float = 0.25, no_bias_above: int = 64,
                  num_mixtures: int = 10, custom_width_string: Optional[str] = None,
-                 fused_chain: Optional[bool] = None):
+                 fused_chain: Optional[bool] = None, compute_dtype: Optional[str] = None,
+                 remat: bool = False):
         super().__init__()
         if fused_chain not in (None, True, False):
             raise NotImplementedError(f"fused_chain={fused_chain!r} is not ported")
         self.image_shape = tuple(image_shape)
+        self.compute_dtype, self.remat = compute_dtype, bool(remat)
+        cd = torch_dtype(compute_dtype)
         c = self.image_shape[-1]
         chain = fused_chain is not False
+        enc = {"chain": chain, "compute_dtype": cd, "remat": self.remat}
         self.encoder = Encoder(c, width, encoder_blocks, bottleneck_multiple,
-                               custom_width_string, chain)
+                               custom_width_string, **enc)
         self.masked_encoder = Encoder(c + 1, width, encoder_blocks, bottleneck_multiple,
-                                      custom_width_string, chain)
+                                      custom_width_string, **enc)
         self.decoder = Decoder(latent_dim, self.image_shape[0], c, width, decoder_blocks,
                                bottleneck_multiple, no_bias_above, num_mixtures,
-                               custom_width_string, fused=fused_chain is True)
+                               custom_width_string, fused=fused_chain is True,
+                               compute_dtype=cd)
 
     @classmethod
     def from_config(cls, config: Dict[str, Any], device=None) -> "PosteriorMatchingVDVAE":
         """From a ``model_config.json`` dict, on ``device`` (the GPU unless
         ``"cpu"``; raises without a GPU)."""
-        dev = resolve_device(device)
-        cfg = dict(config)
-        for key, default in _TPU_OPTIONS.items():
-            if cfg.pop(key, default) != default:
-                raise NotImplementedError(f"{key}={config[key]!r} is not ported")
-        return cls(**cfg).to(dev)
+        return cls(**config).to(resolve_device(device))
 
     @property
     def device(self) -> torch.device:

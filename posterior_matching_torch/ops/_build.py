@@ -1,7 +1,9 @@
 """Builds and loads the hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded with ``ctypes``. Libraries go
+shared library with a plain C interface, loaded with ``ctypes``; the VDVAE
+chains' sources are built a second time with ``-DPM_CORE_BF16=1``, their
+bf16 builds (``*_bf16``, for ``compute_dtype`` bfloat16). Libraries go
 into ``ops/_build/`` (git-ignored), named by a hash of the sources and flags,
 so a changed source is rebuilt and an unchanged one is reused. Nothing is
 built at import time: the first call of a kernel wrapper builds its library,
@@ -38,7 +40,13 @@ SOURCES = {
     "block_chain_bwd": "block_chain_bwd.cu",
     "decoder_chain_fwd": "decoder_chain_fwd.cu",
     "decoder_chain_bwd": "decoder_chain_bwd.cu",
+    "block_chain_fwd_bf16": "block_chain_fwd.cu",
+    "block_chain_bwd_bf16": "block_chain_bwd.cu",
+    "decoder_chain_fwd_bf16": "decoder_chain_fwd.cu",
+    "decoder_chain_bwd_bf16": "decoder_chain_bwd.cu",
 }
+# flags of a build beside NVCC_FLAGS
+DEFINES = {name: ("-DPM_CORE_BF16=1",) for name in SOURCES if name.endswith("_bf16")}
 HEADERS = ("sampler_common.cuh", "gated_common.cuh", "gated_levels.cuh",
            "block_chain_common.cuh", "vdvae_gemm.cuh", "decoder_chain_common.cuh")
 
@@ -62,7 +70,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *DEFINES.get(name, ()))).encode())
     for f in (SOURCES[name], *HEADERS):
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -79,7 +87,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [_nvcc(), *NVCC_FLAGS, *DEFINES.get(name, ()), "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -126,6 +134,16 @@ def load_fn(name: str, fn: str, argtypes: Sequence) -> ctypes.CDLL:
     lib.pm_error_string.argtypes = [I]
     lib.pm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bf16_build(name: str, compute_dtype) -> str:
+    """The library of kernel ``name`` for ``compute_dtype``: ``name`` for
+    float32, its bf16 build for bfloat16; raises for any other."""
+    if compute_dtype == torch.float32:
+        return name
+    if compute_dtype == torch.bfloat16:
+        return name + "_bf16"
+    raise ValueError(f"{name}: compute_dtype float32 or bfloat16, got {compute_dtype}")
 
 
 def check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> int:

@@ -36,7 +36,12 @@
 // with their halo) and the c1/c4 stacks (wgrad; at k = 1 the c2/c3 stacks
 // join them), over fixed row splits that one reduce_parts launch adds, and
 // every bias gradient is one bias_sums launch: fixed splits and orders, no
-// atomics, so equal inputs give equal gradients on every run.
+// atomics, so equal inputs give equal gradients on every run. In the bf16
+// build, as the Pallas kernel (:334-383), gelu and its derivative are
+// recomputed from the rounded h saves, the c1..c3 data and weight gradients
+// are bf16 products (the cotangent rounded to bf16 as it enters one) with
+// float32 sums, and d @ w4^T and dw4 stay float32 (3xTF32); dw4 then has a
+// launch of its own, apart from the bf16 1x1 stacks.
 #include "block_chain_common.cuh"
 
 namespace {
@@ -51,24 +56,28 @@ enum BwdPtr {
 
 // The weight-gradient products of a run in two launches (0: the c2/c3
 // stacks, through wgrad_taps at k = 3; 1: the c1/c4 stacks, and at k = 1
-// the c2/c3 stacks too) and its bias gradients, from the entry point's
-// pointers `p` (any non-null stand-ins where only the sizes are wanted).
-// Returns the floats of `part` the row splits need.
+// the c2/c3 stacks too; in the bf16 build the float32 c4 stack is launch 2)
+// and its bias gradients, from the entry point's pointers `p` (any
+// non-null stand-ins where only the sizes are wanted). Returns the floats
+// of `part` the row splits need.
 struct Grads {
-  WJob w[2][kMaxWJobs];
-  int nw[2], blocks[2];
+  WJob w[3][kMaxWJobs];
+  int nw[3], blocks[3];
   BArgs bias;
+  // launches 0 and 1 are bf16 products in the bf16 build
+  static bool bf(int kind) { return kBF16 && kind < 2; }
 };
 
 template <int C, int M>
 size_t plan_grads(const Geo& g, int L, int k, float* const* p, Grads& gr) {
   const size_t R = g.R, RC = R * C, RM = R * M;
   const int taps = k * k;
-  auto wj = [&](int kind, const float* src0, const float* src, size_t lsrc, int Kin, int tp,
-                const float* gs, size_t lg, int N, float* out) {
+  auto wj = [&](int kind, const float* src0, const void* src, int s16, size_t lsrc, int Kin,
+                int tp, const float* gs, size_t lg, int N, float* out) {
     WJob j{};
     j.src0 = src0;
     j.src = src;
+    j.s16 = s16;
     j.lsrc = lsrc;
     j.gelu = 1;
     j.Kin = Kin;
@@ -82,18 +91,18 @@ size_t plan_grads(const Geo& g, int L, int k, float* const* p, Grads& gr) {
     j.ldo = N;
     gr.w[kind][gr.nw[kind]++] = j;
   };
-  gr.nw[0] = gr.nw[1] = 0;
+  gr.nw[0] = gr.nw[1] = gr.nw[2] = 0;
   // dw2, dw3: the shifted gelu(h1), gelu(h2) against dh2, dh3
   const int kt = k == 3 ? 0 : 1;
-  wj(kt, nullptr, p[H1], RM, M, taps, p[DH2], RM, M, p[DW2]);
-  wj(kt, nullptr, p[H2], RM, M, taps, p[DH3], RM, M, p[DW3]);
+  wj(kt, nullptr, p[H1], kBF16, RM, M, taps, p[DH2], RM, M, p[DW2]);
+  wj(kt, nullptr, p[H2], kBF16, RM, M, taps, p[DH3], RM, M, p[DW3]);
   // dw1: gelu(level input)^T dh1, the input x0 at level 0, else xout[l - 1];
   // dw4: gelu(h3)^T d
-  wj(1, p[X0], p[XOUT], RC, C, 1, p[DH1], RM, M, p[DW1]);
-  wj(1, nullptr, p[H3], RM, M, 1, p[DXS], RC, C, p[DW4]);
+  wj(1, p[X0], p[XOUT], 0, RC, C, 1, p[DH1], RM, M, p[DW1]);
+  wj(kBF16 ? 2 : 1, nullptr, p[H3], kBF16, RM, M, 1, p[DXS], RC, C, p[DW4]);
 
   size_t pofs = 0;
-  for (int kind = 0; kind < 2; ++kind)
+  for (int kind = 0; kind < 3; ++kind)
     gr.blocks[kind] =
         gr.nw[kind] ? plan_wgrad<M>(g, L, gr.w[kind], gr.nw[kind], kind == 0, &pofs) : 0;
 
@@ -116,6 +125,8 @@ template <int C, int M>
 int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
   auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
+  // c1..c3's weights and the saves: of the compute dtype
+  auto inc = [&](int i) { return static_cast<const cdt*>(ptrs[i]); };
   const Geo g = make_geo(ints);
   const int L = ints[I_L], k = ints[I_K], taps = k * k;
   const size_t RC = (size_t)g.R * C, RM = (size_t)g.R * M;
@@ -129,32 +140,32 @@ int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
   for (int l = L - 1; l >= 0; --l) {
     const float* d = dxs + l * RC;
     const float* x = l ? in(XOUT) + (l - 1) * RC : in(X0);
-    const float* h[3] = {in(H1) + l * RM, in(H2) + l * RM, in(H3) + l * RM};
+    const cdt* h[3] = {inc(H1) + l * RM, inc(H2) + l * RM, inc(H3) + l * RM};
     float* dh[3] = {out(DH1) + l * RM, out(DH2) + l * RM, out(DH3) + l * RM};
 
     // dh3 = gelu'(h3) * (d @ w4^T)
     DJob j3 = job(M, E_GELU_BWD, dh[2], M, term(d, C, 0, in(W4) + (size_t)l * M * C, C, 1));
-    j3.z = h[2];
+    set_z(j3, h[2]);
     launch_dgemm<M>(g, &j3, 1, s);
     // dh2, dh1 back through the mirrored taps of c3, c2
     const int ws[2] = {W2, W3};
     for (int c = 1; c >= 0; --c) {
       DJob jc = job(M, E_GELU_BWD, dh[c], M,
-                    term(dh[c + 1], M, 0, in(ws[c]) + (size_t)l * taps * M * M, M, 1, taps, -1));
-      jc.z = h[c];
-      launch_dgemm<M>(g, &jc, 1, s);
+                    term(dh[c + 1], M, 0, inc(ws[c]) + (size_t)l * taps * M * M, M, 1, taps, -1));
+      set_z(jc, h[c]);
+      launch_dgemm<M, kBF16>(g, &jc, 1, s);
     }
     // dx = d + gelu'(x) * (dh1 @ w1^T): the next level's d (dxs[l - 1], a
     // slice apart from d's dxs[l]), or dx0
     DJob jx = job(C, E_GELU_BWD, l ? dxs + (l - 1) * RC : out(DX0), C,
-                  term(dh[0], M, 0, in(W1) + (size_t)l * C * M, M, 1));
+                  term(dh[0], M, 0, inc(W1) + (size_t)l * C * M, M, 1));
     jx.z = x;
     jx.base = d;
-    launch_dgemm<M>(g, &jx, 1, s);
+    launch_dgemm<M, kBF16>(g, &jx, 1, s);
   }
 
-  // ---- weight gradients of all levels, two launches, then the splits'
-  // sums and the bias gradients, one launch each
+  // ---- weight gradients of all levels, two launches (three in the bf16
+  // build), then the splits' sums and the bias gradients, one launch each
   float* p[BWD_NPTR];
   for (int i = 0; i < BWD_NPTR; ++i) p[i] = out(i);
   Grads gr;
@@ -163,9 +174,10 @@ int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
   ra.L = L;
   ra.part = out(PART);
   size_t entries = 0;
-  for (int kind = 0; kind < 2; ++kind) {
+  for (int kind = 0; kind < 3; ++kind) {
     if (!gr.nw[kind]) continue;
-    launch_wgrad<M>(g, gr.w[kind], gr.nw[kind], gr.blocks[kind], kind == 0, out(PART), s);
+    launch_wgrad_dt<M>(Grads::bf(kind), g, gr.w[kind], gr.nw[kind], gr.blocks[kind], kind == 0,
+                       out(PART), s);
     for (int i = 0; i < gr.nw[kind]; ++i)
       if (gr.w[kind][i].S > 1) {
         const WJob& j = gr.w[kind][i];

@@ -7,6 +7,13 @@
 // A level of a run is one bottleneck Block, gelu -> c1 (1x1, C -> M) ->
 // gelu -> c2 (k x k) -> gelu -> c3 (k x k) -> gelu -> c4 (1x1, M -> C),
 // plus the level's input.
+//
+// Each source is built twice: in float32 and with -DPM_CORE_BF16=1 for
+// compute_dtype bfloat16 (ops/_build.py's *_bf16 libraries), where, as in
+// the Pallas kernels (block_chain.py:282-301, 345-347), c1..c3 and their
+// gradients are bf16 products with float32 sums (w1..w3 and the h1..h3
+// saves bf16), and c4, the residual stream, the biases and every gradient
+// stay float32.
 #pragma once
 
 #define PM_CORE_NS bck

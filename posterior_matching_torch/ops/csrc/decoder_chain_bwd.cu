@@ -46,7 +46,13 @@
 // stacks and wz (wgrad). Their row splits are added by one reduce_parts
 // launch, and every bias gradient is one bias_sums launch: fixed splits
 // and orders, no atomics, so equal inputs give equal gradients on every
-// run.
+// run. In the bf16 build, as the Pallas kernel (:330-378), gelu and its
+// derivative are recomputed from the rounded saves, u and the posterior's
+// outputs (whence z) are rebuilt from them at each level (_recompute_uz:
+// two c4 jobs on 3xTF32 and z_into_state, into the U and POST scratch the
+// wrapper passes in place of the forward's), and the c1..c3 data and weight
+// gradients are bf16 products (the cotangent rounded to bf16 as it enters
+// one) with float32 sums; the c4 and z gradients stay float32.
 #include "decoder_chain_common.cuh"
 
 namespace {
@@ -107,6 +113,8 @@ struct Grads {
   BArgs bias;
   // a 3x3 run's c2/c3 stacks go through wgrad_taps (every tap a block)
   static bool taps(int kind, int k) { return kind == 0 && k == 3; }
+  // the c1..c3 stacks are bf16 products in the bf16 build
+  static bool bf(int kind) { return kBF16 && kind < 2; }
 };
 
 template <int C, int M, int LD>
@@ -114,11 +122,14 @@ size_t plan_grads(const Geo& g, int L, int k, float* const* p, Grads& gr) {
   using D = Dims<C, M, LD>;
   const size_t R = g.R, RC = R * C, RM = R * M, RP = R * 2 * LD;
   const int taps = k * k;
-  auto wj = [&](int kind, const float* src0, const float* src, size_t lsrc, int gelu, int Kin,
-                int tp, const float* gs, size_t lg, int N, float* out, size_t lout, int ldo) {
+  // the h saves, of the compute dtype, are sources with s16 in the bf16 build
+  auto wj = [&](int kind, const float* src0, const void* src, size_t lsrc, int gelu, int Kin,
+                int tp, const float* gs, size_t lg, int N, float* out, size_t lout, int ldo,
+                int s16 = 0) {
     WJob j{};
     j.src0 = src0;
     j.src = src;
+    j.s16 = s16;
     j.lsrc = lsrc;
     j.gelu = gelu;
     j.Kin = Kin;
@@ -139,7 +150,7 @@ size_t plan_grads(const Geo& g, int L, int k, float* const* p, Grads& gr) {
     // dw2, dw3: the shifted gelu(h1), gelu(h2) against dh2, dh3
     for (int c = 0; c < 2; ++c)
       wj(0, nullptr, p[SBASE + 3 * b + c], RM, 1, M, taps, p[DHBASE + 3 * b + c + 1], RM, M,
-         dw(8 * b + W2 + 2 * c), st(8 * b + W2 + 2 * c), M);
+         dw(8 * b + W2 + 2 * c), st(8 * b + W2 + 2 * c), M, kBF16);
     // dw1: gelu(the Block's input)^T dh1: the state rows (the run's level
     // inputs, or u for the resnet), then for p and m the activation rows
     const float* dh1 = p[DHBASE + 3 * b];
@@ -155,14 +166,15 @@ size_t plan_grads(const Geo& g, int L, int k, float* const* p, Grads& gr) {
   // tail against du; dwz = z^T du
   auto h3 = [&](int b) { return p[SBASE + 3 * b + 2]; };
   wj(2, nullptr, h3(BP), RM, 1, M, 1, p[DPOST], RP, 2 * LD, dw(8 * BP + W4), st(8 * BP + W4),
-     2 * LD);
+     2 * LD, kBF16);
   wj(2, nullptr, h3(BM), RM, 1, M, 1, p[GMASK], R * D::MW, D::MW, dw(8 * BM + W4),
-     st(8 * BM + W4), D::MW);
+     st(8 * BM + W4), D::MW, kBF16);
   wj(2, nullptr, h3(BQ), RM, 1, M, 1, p[GPRIOR], RP, 2 * LD, dw(8 * BQ + W4), st(8 * BQ + W4),
-     D::QW);
+     D::QW, kBF16);
   wj(2, nullptr, h3(BQ), RM, 1, M, 1, p[DUS], RC, C, dw(8 * BQ + W4) + 2 * LD, st(8 * BQ + W4),
-     D::QW);
-  wj(2, nullptr, h3(BR), RM, 1, M, 1, p[DXS], RC, C, dw(8 * BR + W4), st(8 * BR + W4), C);
+     D::QW, kBF16);
+  wj(2, nullptr, h3(BR), RM, 1, M, 1, p[DXS], RC, C, dw(8 * BR + W4), st(8 * BR + W4), C,
+     kBF16);
   wj(2, nullptr, p[ZS], R * LD, 0, LD, 1, p[DUS], RC, C, dw(WZ), st(WZ), C);
 
   size_t pofs = 0;
@@ -193,6 +205,8 @@ int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
   using D = Dims<C, M, LD>;
   auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
+  // c1..c3's weights and the saves: of the compute dtype
+  auto inc = [&](int i) { return static_cast<const cdt*>(ptrs[i]); };
   const Geo g = make_geo(ints);
   const int L = ints[I_L], k = ints[I_K], taps = k * k;
   const size_t R = g.R, RC = R * C, RM = R * M, RP = R * 2 * LD, RZ = R * LD;
@@ -206,13 +220,16 @@ int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
 
   for (int l = L - 1; l >= 0; --l) {
     const float* w[4][8];
-    const float* h[4][3];
+    const cdt* wc[4][8];  // c1..c3's, of the compute dtype
+    const cdt* h[4][3];
     float* dh[4][3];
     for (int b = 0; b < 4; ++b) {
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i) {
         w[b][i] = in(WBASE + 8 * b + i) + l * D::stride(8 * b + i, k);
+        wc[b][i] = inc(WBASE + 8 * b + i) + l * D::stride(8 * b + i, k);
+      }
       for (int i = 0; i < 3; ++i) {
-        h[b][i] = in(SBASE + 3 * b + i) + l * RM;
+        h[b][i] = inc(SBASE + 3 * b + i) + l * RM;
         dh[b][i] = out(DHBASE + 3 * b + i) + l * RM;
       }
     }
@@ -221,20 +238,36 @@ int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
     float* du = dus + l * RC;
     float* dpost = out(DPOST) + l * RP;
     const bool first = l == L - 1;
+    if constexpr (kBF16) {
+      // the level's posterior outputs and u from the rounded saves (the
+      // Pallas kernel's _recompute_uz), into this build's POST and U scratch
+      float* post = out(POST) + l * RP;
+      float* u = out(U) + l * RC;
+      DJob rc[2] = {job(2 * LD, E_BIAS, post, 2 * LD, term(h[BP][2], M, 1, w[BP][W4], 2 * LD, 0)),
+                    job(C, E_BIAS_RES, u, C, term(h[BQ][2], M, 1, w[BQ][W4] + 2 * LD, D::QW, 0))};
+      rc[0].bias = w[BP][B4];
+      rc[1].bias = w[BQ][B4] + 2 * LD;
+      rc[1].res = x;
+      launch_dgemm<M>(g, rc, 2, s);
+      launch_kernel(z_into_state<C, LD>, dim3((g.R + kZRows - 1) / kZRows), kZThreads,
+                    kZRows * LD * 4, s, static_cast<const float*>(post), in(EPS) + l * RZ,
+                    in(WBASE + WZ) + l * D::stride(WZ, k), in(WBASE + BZ) + l * D::stride(BZ, k),
+                    u, g.R);
+    }
     // dh3 = gelu'(h3) (the c4 cotangent terms), then dh2 and dh1 back
     // through the mirrored taps of c3 and c2, of the Blocks in `bs`
     auto back = [&](const int* bs, int nb, DJob* top) {
-      for (int i = 0; i < nb; ++i) top[i].z = h[bs[i]][2];
+      for (int i = 0; i < nb; ++i) set_z(top[i], h[bs[i]][2]);
       launch_dgemm<M>(g, top, nb, s);
       for (int c = 1; c >= 0; --c) {
         DJob j[3];
         for (int i = 0; i < nb; ++i) {
           const int b = bs[i];
           j[i] = job(M, E_GELU_BWD, dh[b][c], M,
-                     term(dh[b][c + 1], M, 0, w[b][W2 + 2 * c], M, 1, taps, -1));
-          j[i].z = h[b][c];
+                     term(dh[b][c + 1], M, 0, wc[b][W2 + 2 * c], M, 1, taps, -1));
+          set_z(j[i], h[b][c]);
         }
-        launch_dgemm<M>(g, j, nb, s);
+        launch_dgemm<M, kBF16>(g, j, nb, s);
       }
     };
 
@@ -242,10 +275,10 @@ int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
     const int br[1] = {BR};
     DJob tr = job(M, E_GELU_BWD, dh[BR][2], M, term(d, C, 0, w[BR][W4], C, 1));
     back(br, 1, &tr);
-    DJob ju = job(C, E_GELU_BWD, du, C, term(dh[BR][0], M, 0, w[BR][W1], M, 1));
+    DJob ju = job(C, E_GELU_BWD, du, C, term(dh[BR][0], M, 0, wc[BR][W1], M, 1));
     ju.z = in(U) + l * RC;
     ju.base = d;
-    launch_dgemm<M>(g, &ju, 1, s);
+    launch_dgemm<M, kBF16>(g, &ju, 1, s);
 
     constexpr int RB = kZThreads / LD;
     launch_kernel(z_bwd<C, LD>, dim3((g.R + RB - 1) / RB), kZThreads, (LD + RB) * (C + 1) * 4,
@@ -266,19 +299,19 @@ int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
     // dacts, dmacts and the next d
     DJob da[3] = {
         job(C, E_GELU_BWD, out(DACTS), C,
-            term(dh[BP][0], M, 0, w[BP][W1] + (size_t)C * M, M, 1)),
+            term(dh[BP][0], M, 0, wc[BP][W1] + (size_t)C * M, M, 1)),
         job(C, E_GELU_BWD, out(DMACTS), C,
-            term(dh[BM][0], M, 0, w[BM][W1] + (size_t)C * M, M, 1)),
+            term(dh[BM][0], M, 0, wc[BM][W1] + (size_t)C * M, M, 1)),
         job(C, E_GELU_BWD, l ? dxs + (l - 1) * RC : out(DX0), C,
-            term(dh[BP][0], M, 0, w[BP][W1], M, 1))};
+            term(dh[BP][0], M, 0, wc[BP][W1], M, 1))};
     da[0].z = in(ACTS);
     da[0].base = first ? nullptr : out(DACTS);
     da[1].z = in(MACTS);
     da[1].base = first ? nullptr : out(DMACTS);
-    da[2].t[da[2].nt++] = term(dh[BQ][0], M, 0, w[BQ][W1], M, 1);
+    da[2].t[da[2].nt++] = term(dh[BQ][0], M, 0, wc[BQ][W1], M, 1);
     da[2].z = x;
     da[2].base = du;
-    launch_dgemm<M>(g, da, 3, s);
+    launch_dgemm<M, kBF16>(g, da, 3, s);
   }
 
   // ---- weight gradients of all levels, three launches, then the splits'
@@ -292,8 +325,8 @@ int run_bwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
   ra.part = out(PART);
   size_t entries = 0;
   for (int kind = 0; kind < 3; ++kind) {
-    launch_wgrad<M>(g, gr.w[kind], gr.nw[kind], gr.blocks[kind], Grads::taps(kind, k),
-                    out(PART), s);
+    launch_wgrad_dt<M>(Grads::bf(kind), g, gr.w[kind], gr.nw[kind], gr.blocks[kind],
+                       Grads::taps(kind, k), out(PART), s);
     for (int i = 0; i < gr.nw[kind]; ++i)
       if (gr.w[kind][i].S > 1) {
         const WJob& j = gr.w[kind][i];

@@ -9,6 +9,13 @@
 // the prior's head and the tail that joins the state) and r (the residual
 // resnet, on u, C); then the z projection wz [LD, C], bz [C]. The
 // encoder-activation width equals the state width C.
+//
+// Each source is built twice: in float32 and with -DPM_CORE_BF16=1 for
+// compute_dtype bfloat16 (ops/_build.py's *_bf16 libraries), where, as in
+// the Pallas kernels (decoder_chain.py:148-218, :298-299), the four
+// Blocks' c1..c3 and their gradients are bf16 products with float32 sums
+// (their weights and the twelve h saves bf16), and every c4, the z path,
+// the state and every gradient stay float32.
 #pragma once
 
 #define PM_CORE_NS dck
@@ -78,6 +85,39 @@ __device__ __forceinline__ float softplus(float x) {
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// u[r][c] += bz[c] + sum_j z[r][j] wz[j][c], with z = loc + (softplus(raw)
+// + 1e-5) eps from the level's posterior outputs [loc | raw] and noise.
+// A block: kZRows rows, their z staged in shared memory.
+constexpr int kZRows = 8;
+
+template <int C, int LD>
+__global__ void __launch_bounds__(kZThreads)
+    z_into_state(const float* __restrict__ post, const float* __restrict__ eps,
+                 const float* __restrict__ wz, const float* __restrict__ bz,
+                 float* __restrict__ u, int R) {
+  extern __shared__ __align__(16) float smem[];
+  float* sz = smem;  // [kZRows][LD]
+  const int r0 = blockIdx.x * kZRows;
+  for (int i = threadIdx.x; i < kZRows * LD; i += kZThreads) {
+    const int r = r0 + i / LD, j = i % LD;
+    float z = 0.f;
+    if (r < R) {
+      const size_t o = (size_t)r * 2 * LD;
+      z = post[o + j] + (softplus(post[o + LD + j]) + 1e-5f) * eps[(size_t)r * LD + j];
+    }
+    sz[i] = z;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kZRows * C; i += kZThreads) {
+    const int rr = i / C, c = i % C, r = r0 + rr;
+    if (r >= R) break;
+    float acc = bz[c];
+#pragma unroll
+    for (int j = 0; j < LD; ++j) acc = fmaf(sz[rr * LD + j], wz[j * C + c], acc);
+    u[(size_t)r * C + c] += acc;
+  }
+}
 
 }  // namespace dck
 

@@ -33,7 +33,10 @@
 // then c4 with the posterior's and masked posterior's heads, the prior's
 // head and its tail plus x into u (column tiles of 48). z_into_state adds
 // the z projection to u; the resnet Block r's four phases follow. 9
-// launches a level (the previous design: 18).
+// launches a level (the previous design: 18). In the bf16 build c1..c3 are
+// bf16 products, each writing its float32 output into scratch (HS, [12, R,
+// M]: the next product reads it unrounded, as the Pallas kernel) and its
+// bf16 save beside it; every c4 reads gelu(h3) in float32 on 3xTF32.
 #include "decoder_chain_common.cuh"
 
 namespace {
@@ -45,59 +48,38 @@ enum FwdPtr {
   X0, ACTS, MACTS, EPS,
   XOUT = WBASE + kWeights, POST, PRIOR, MASKED, U,
   SBASE,  // h1, h2, h3 of p, m, q, r
-  FWD_NPTR = SBASE + 12
+  HS = SBASE + 12,  // the bf16 build's float32 scratch, not passed to the float32 build
+  FWD_NPTR = kBF16 ? HS + 1 : HS
 };
-
-// u[r][c] += bz[c] + sum_j z[r][j] wz[j][c], with z = loc + (softplus(raw)
-// + 1e-5) eps from the level's posterior outputs [loc | raw] and noise.
-// A block: kZRows rows, their z staged in shared memory.
-constexpr int kZRows = 8;
-
-template <int C, int LD>
-__global__ void __launch_bounds__(kZThreads)
-    z_into_state(const float* __restrict__ post, const float* __restrict__ eps,
-                 const float* __restrict__ wz, const float* __restrict__ bz,
-                 float* __restrict__ u, int R) {
-  extern __shared__ __align__(16) float smem[];
-  float* sz = smem;  // [kZRows][LD]
-  const int r0 = blockIdx.x * kZRows;
-  for (int i = threadIdx.x; i < kZRows * LD; i += kZThreads) {
-    const int r = r0 + i / LD, j = i % LD;
-    float z = 0.f;
-    if (r < R) {
-      const size_t o = (size_t)r * 2 * LD;
-      z = post[o + j] + (softplus(post[o + LD + j]) + 1e-5f) * eps[(size_t)r * LD + j];
-    }
-    sz[i] = z;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kZRows * C; i += kZThreads) {
-    const int rr = i / C, c = i % C, r = r0 + rr;
-    if (r >= R) break;
-    float acc = bz[c];
-#pragma unroll
-    for (int j = 0; j < LD; ++j) acc = fmaf(sz[rr * LD + j], wz[j * C + c], acc);
-    u[(size_t)r * C + c] += acc;
-  }
-}
 
 template <int C, int M, int LD>
 int run_fwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
   using D = Dims<C, M, LD>;
   auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
+  // c1..c3's weights and the saves: of the compute dtype
+  auto inc = [&](int i) { return static_cast<const cdt*>(ptrs[i]); };
+  auto outc = [&](int i) { return static_cast<cdt*>(const_cast<void*>(ptrs[i])); };
   const Geo g = make_geo(ints);
   const int L = ints[I_L], k = ints[I_K], taps = k * k;
   const size_t R = g.R, RC = R * C, RM = R * M;
 
   for (int l = 0; l < L; ++l) {
-    // level l's eight stacks of Block b, its h1..h3 saves
+    // level l's eight stacks of Block b (wc: c1..c3's, of the compute
+    // dtype), its h1..h3 saves sv and the products' outputs h
     const float* w[4][8];
+    const cdt* wc[4][8];
+    cdt* sv[4][3];
     float* h[4][3];
     for (int b = 0; b < 4; ++b) {
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i) {
         w[b][i] = in(WBASE + 8 * b + i) + l * D::stride(8 * b + i, k);
-      for (int i = 0; i < 3; ++i) h[b][i] = out(SBASE + 3 * b + i) + l * RM;
+        wc[b][i] = inc(WBASE + 8 * b + i) + l * D::stride(8 * b + i, k);
+      }
+      for (int i = 0; i < 3; ++i) {
+        sv[b][i] = outc(SBASE + 3 * b + i) + l * RM;
+        h[b][i] = kBF16 ? out(HS) + (3 * b + i) * RM : reinterpret_cast<float*>(sv[b][i]);
+      }
     }
     const float* x = l ? in(XOUT) + (l - 1) * RC : in(X0);
     float* post = out(POST) + l * R * 2 * LD;
@@ -108,19 +90,22 @@ int run_fwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
     const float* acts[3] = {in(ACTS), in(MACTS), nullptr};
     DJob c1[3];
     for (int b = BP; b <= BQ; ++b) {
-      c1[b] = job(M, E_BIAS, h[b][0], M, term(x, C, 1, w[b][W1], M, 0));
-      if (acts[b]) c1[b].t[c1[b].nt++] = term(acts[b], C, 1, w[b][W1] + (size_t)C * M, M, 0);
+      c1[b] = job(M, E_BIAS, h[b][0], M, term(x, C, 1, wc[b][W1], M, 0));
+      if (acts[b]) c1[b].t[c1[b].nt++] = term(acts[b], C, 1, wc[b][W1] + (size_t)C * M, M, 0);
       c1[b].bias = w[b][B1];
+      set_save(c1[b], sv[b][0]);
     }
-    launch_dgemm<M>(g, c1, 3, s);
+    launch_dgemm<M, kBF16>(g, c1, 3, s);
     // c2, c3 of p, m, q: k x k convolutions through gelu
     for (int c = 0; c < 2; ++c) {
       DJob cv[3];
       for (int b = BP; b <= BQ; ++b) {
-        cv[b] = job(M, E_BIAS, h[b][c + 1], M, term(h[b][c], M, 1, w[b][W2 + 2 * c], M, 0, taps));
+        cv[b] = job(M, E_BIAS, h[b][c + 1], M,
+                    term(h[b][c], M, 1, wc[b][W2 + 2 * c], M, 0, taps));
         cv[b].bias = w[b][B2 + 2 * c];
+        set_save(cv[b], sv[b][c + 1]);
       }
-      launch_dgemm<M>(g, cv, 3, s);
+      launch_dgemm<M, kBF16>(g, cv, 3, s);
     }
     // c4: the heads of p, m and q, and q's tail plus x into u
     DJob c4[4] = {
@@ -142,14 +127,16 @@ int run_fwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
                   u, g.R);
 
     // the resnet Block on u; its c4 adds u
-    DJob r1 = job(M, E_BIAS, h[BR][0], M, term(u, C, 1, w[BR][W1], M, 0));
+    DJob r1 = job(M, E_BIAS, h[BR][0], M, term(u, C, 1, wc[BR][W1], M, 0));
     r1.bias = w[BR][B1];
-    launch_dgemm<M>(g, &r1, 1, s);
+    set_save(r1, sv[BR][0]);
+    launch_dgemm<M, kBF16>(g, &r1, 1, s);
     for (int c = 0; c < 2; ++c) {
       DJob rc = job(M, E_BIAS, h[BR][c + 1], M,
-                    term(h[BR][c], M, 1, w[BR][W2 + 2 * c], M, 0, taps));
+                    term(h[BR][c], M, 1, wc[BR][W2 + 2 * c], M, 0, taps));
       rc.bias = w[BR][B2 + 2 * c];
-      launch_dgemm<M>(g, &rc, 1, s);
+      set_save(rc, sv[BR][c + 1]);
+      launch_dgemm<M, kBF16>(g, &rc, 1, s);
     }
     DJob r4 = job(C, E_BIAS_RES, out(XOUT) + l * RC, C, term(h[BR][2], M, 1, w[BR][W4], C, 0));
     r4.bias = w[BR][B4];
@@ -162,8 +149,9 @@ int run_fwd(const void* const* ptrs, const int* ints, cudaStream_t s) {
 }  // namespace
 
 // One run. `ptrs` holds FWD_NPTR device pointers in the order of
-// ops/decoder_chain.py::_FWD_PTRS, `ints` the geometry of _GEOMETRY.
-// Returns cudaGetLastError() after the launches.
+// ops/decoder_chain.py::_FWD_PTRS (and, in the bf16 build, the scratch HS),
+// `ints` the geometry of _GEOMETRY. Returns cudaGetLastError() after the
+// launches.
 extern "C" int pm_decoder_chain_fwd(const void* const* ptrs, int nptrs,
                                     const int* ints, int nints, void* stream_) {
   if (nptrs != FWD_NPTR || nints != I_DCOUNT || !dec_geometry_ok(ints))

@@ -58,6 +58,21 @@
 // column tiles, or 16-row tiles with 6 B stages, or warps of two m16 tiles
 // (B split once for both), was no faster.)
 //
+// bf16 (compute_dtype bfloat16, a build with PM_CORE_BF16 = 1): the kernels'
+// template argument BF makes a product mma.sync.m16n8k16 with bf16 operands
+// and float32 accumulators, one MMA a 16-deep step, as JAX's bf16 x bf16 dot
+// with preferred_element_type float32 (each product of two bf16 values is
+// exact in float32). A is rounded to bf16 (to nearest even) as it is staged,
+// after gelu: each 16-deep step of a row holds the pairs (2t, 2t + 1) and
+// (2t + 8, 2t + 9) side by side, so a lane's fragment of a row is one 8-byte
+// load. B is bf16 in global memory (the c1..c3 weights, [k][n] or [n][k] in
+// the ring) or float32 rounded at the fragment load (the cotangent rows of a
+// weight gradient). The products JAX keeps in float32 (every c4 and its
+// gradients) stay on the 3xTF32 path in the same build. A source may be a
+// tensor of bf16 values (a term's or weight-gradient job's s16: the h saves),
+// and an epilogue may write a bf16 copy of its output (out16: the saves) and
+// read gelu's input as bf16 (z16).
+//
 // Determinism: fixed chunk, fragment, split and lane orders, no atomics, so
 // equal inputs give equal outputs on every run.
 //
@@ -79,8 +94,9 @@ namespace PM_CORE_NS {
 
 // Integer arguments of the C entry points, in the order of
 // ops/block_chain.py::_GEOMETRY and ops/decoder_chain.py::_GEOMETRY (whose
-// latent width follows, see decoder_chain_common.cuh).
-enum GeoInt { I_L, I_B, I_H, I_W, I_C, I_M, I_K, I_COUNT };
+// latent width follows, see decoder_chain_common.cuh). I_BF is 1 for a run
+// in bf16, which only a build with PM_CORE_BF16 = 1 takes.
+enum GeoInt { I_L, I_B, I_H, I_W, I_C, I_M, I_K, I_BF, I_COUNT };
 
 struct Geo {
   int R, B, H, W, HW;
@@ -96,9 +112,14 @@ inline Geo make_geo(const int* ints) {
   return g;
 }
 
+#ifndef PM_CORE_BF16
+#define PM_CORE_BF16 0
+#endif
+constexpr bool kBF16 = PM_CORE_BF16;
+
 inline bool geometry_ok(const int* ints) {
   return ints[I_L] >= 1 && ints[I_B] >= 1 && ints[I_H] >= 1 && ints[I_W] >= 1 &&
-         (ints[I_K] == 1 || ints[I_K] == 3);
+         (ints[I_K] == 1 || ints[I_K] == 3) && ints[I_BF] == (kBF16 ? 1 : 0);
 }
 
 // ---- tanh-gelu (jax.nn.gelu's default, F.gelu(approximate="tanh")) -----
@@ -115,6 +136,32 @@ __device__ __forceinline__ float gelu_grad(float z) {
   const float t = tanhf(kGeluC * (z + kGeluA * z * z * z));
   const float du = kGeluC * (1.f + 3.f * kGeluA * z * z);
   return 0.5f * (1.f + t) + 0.5f * z * (1.f - t * t) * du;
+}
+
+// ---- compute dtype ---------------------------------------------------------
+
+// The element type of the c1..c3 weights and of the h saves: bf16 (its bits)
+// in a build with PM_CORE_BF16 = 1, else float.
+template <bool BF>
+struct Elem {
+  using T = float;
+};
+template <>
+struct Elem<true> {
+  using T = uint16_t;
+};
+using cdt = Elem<kBF16>::T;
+
+// A bf16 value (its bits) as a float (exact).
+__device__ __forceinline__ float from_bf16(uint16_t h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+
+// Element i of a source of floats, or of bf16 values with s16 (only a bf16
+// build has such sources: a float32 build compiles the float path alone).
+__device__ __forceinline__ float src_at(const void* p, size_t i, int s16) {
+  return kBF16 && s16 ? from_bf16(static_cast<const uint16_t*>(p)[i])
+                      : __ldg(static_cast<const float*>(p) + i);
 }
 
 // ---- TF32 rounding; PTX: tensor-core MMA, cp.async ------------------------
@@ -141,6 +188,24 @@ __device__ __forceinline__ float2 split_tf32(float x) {
 // d[4] in the PTX ISA's fragment layout.
 __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// lo and hi rounded to bf16 (to nearest even), packed: lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += A B for one m16n8k16 bf16 fragment with float32 accumulators
+// (warp-collective): a[4] (rows g, g + 8 at k 2t, 2t + 1, then at k 2t + 8,
+// 2t + 9), b[2] (k 2t, 2t + 1 and 2t + 8, 2t + 9 at n = g), d[4] as
+// mma_tf32's, each register two bf16 values, the lower k in the low half.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -193,6 +258,35 @@ __device__ __forceinline__ void store_group(float* dst, const float (&v)[8]) {
   }
 }
 
+// Stores 8 consecutive values of a row (K index 8q .. 8q + 7 of a chunk)
+// rounded to bf16 into the row's words at `row`, in the m16n8k16 order: the
+// 16-deep step q / 2 is 8 words, its pair (2t, 2t + 1) at word 2t and
+// (2t + 8, 2t + 9) at word 2t + 1.
+__device__ __forceinline__ void store_group_bf(uint32_t* row, int q, const float (&v)[8]) {
+  uint32_t* dst = row + 8 * (q / 2) + q % 2;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) dst[2 * t] = pack_bf16(v[2 * t], v[2 * t + 1]);
+}
+
+// part += the 16-deep step k16 of a chunk in bf16 for one m16 tile and NW8
+// n8 tiles: A's rows g and g + 8 as loaded (va0, va1: the lane's two words
+// of the step, zero where masked), B(k, n) = sB[k * BSK + n * BSN] (bf16) at
+// the warp's columns nw.
+template <int NW8, int BSK, int BSN>
+__device__ __forceinline__ void mma_step_bf(float (&part)[NW8][4], const uint2& va0,
+                                            const uint2& va1, const uint16_t* sB, int k16,
+                                            int nw) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const uint32_t a[4] = {va0.x, va1.x, va0.y, va1.y};
+#pragma unroll
+  for (int u = 0; u < NW8; ++u) {
+    const uint16_t* p = sB + (k16 + 2 * t) * BSK + (nw + 8 * u + g) * BSN;
+    const uint32_t b[2] = {p[0] | static_cast<uint32_t>(p[BSK]) << 16,
+                           p[8 * BSK] | static_cast<uint32_t>(p[9 * BSK]) << 16};
+    mma_bf16(part[u], a, b);
+  }
+}
+
 // part += the 8-deep step k8 of a chunk for one m16 tile and NW8 n8 tiles:
 // A's rows g and g + 8 as loaded (va0, va1: the lane's group slots, zero
 // where masked), B(k, n) = sB[k * BSK + n * BSN] at the warp's columns nw.
@@ -234,27 +328,31 @@ enum Epi { E_BIAS = 0, E_BIAS_RES = 1, E_GELU_BWD = 2 };
 // = sign * (tap / 3 - 1, tap % 3 - 1) for a 3x3 conv (taps 9) and (0, 0)
 // for a 1x1 (taps 1), zero off the image, through gelu with `gelu`;
 // B_tap(k, n) = w[tap * K * ld + k * ld + n], or with `trans`
-// w[tap * K * ld + n * ld + k]. K and ld are multiples of 4, w 16-byte
-// aligned.
+// w[tap * K * ld + n * ld + k]. K and ld are multiples of 4 (of 8 in a bf16
+// product, whose w holds bf16 values), w 16-byte aligned. With s16 the
+// source holds bf16 values (K a multiple of 8).
 struct DTerm {
-  const float* src;
-  const float* w;
-  int K, taps, sign, gelu, ld, trans;
+  const void* src;
+  const void* w;
+  int K, taps, sign, gelu, ld, trans, s16;
 };
 
 // One job: columns [n0, n0 + BN) (those below N) of
 //   out[r, n] = epilogue(sum_terms)
 // E_BIAS: + bias[n]; E_BIAS_RES: + bias[n] + res[r, n]; E_GELU_BWD:
 // gelu'(z[r, n]) * sum (+ base[r, n] where base is given). out, res, z and
-// base have rows of ldo floats.
+// base have rows of ldo floats; z16 stands for z where z is a bf16 save, and
+// out16, where given, gets a bf16 copy of out (rows of ldo values).
 struct DJob {
   DTerm t[2];
   int nt, n0, N, epi, ldo;
   const float* bias;
   const float* res;
   const float* z;
+  const uint16_t* z16;
   const float* base;
   float* out;
+  uint16_t* out16;
 };
 
 struct DArgs {
@@ -264,11 +362,28 @@ struct DArgs {
   int nbuf;  // A slab buffers: 2 where a job has more than one slab
 };
 
-// A 1x1 or k x k term of a Block's product (see DTerm).
-inline DTerm term(const float* src, int K, int gelu, const float* w, int ld, int trans,
+// A 1x1 or k x k term of a Block's product (see DTerm), its source float32
+// or, as a save of a bf16 build, bf16.
+inline DTerm term(const float* src, int K, int gelu, const void* w, int ld, int trans,
                   int taps = 1, int sign = 1) {
-  return DTerm{src, w, K, taps, sign, gelu, ld, trans};
+  return DTerm{src, w, K, taps, sign, gelu, ld, trans, 0};
 }
+inline DTerm term(const uint16_t* src, int K, int gelu, const void* w, int ld, int trans,
+                  int taps = 1, int sign = 1) {
+  return DTerm{src, w, K, taps, sign, gelu, ld, trans, 1};
+}
+
+// gelu's input in a job's E_GELU_BWD epilogue: a float32 tensor or a bf16
+// save.
+inline void set_z(DJob& j, const float* z) { j.z = z; }
+inline void set_z(DJob& j, const uint16_t* z) { j.z16 = z; }
+
+// A product that fills a save: in float32 its output is the save; in bf16
+// (a save of uint16_t) the output is float32 scratch, which the next
+// product reads unrounded as the Pallas kernels do, and the save its copy
+// rounded to bf16.
+inline void set_save(DJob&, float*) {}
+inline void set_save(DJob& j, uint16_t* save) { j.out16 = save; }
 
 // A product of N columns into out (rows of ldo floats), its terms added.
 inline DJob job(int N, int epi, float* out, int ldo, DTerm t0) {
@@ -296,7 +411,10 @@ struct DTile {
   static constexpr int BSTAGE = KS * Cl::PB > BN * PT ? KS * Cl::PB : BN * PT;
   static constexpr int GROUPS = KS / 8;          // 8-channel groups of a slab row
   static constexpr int NREG = (TM * GROUPS + kThreads - 1) / kThreads;
-  static_assert(TM % 16 == 0 && PA % 32 == 16, "tile");
+  // bf16 products: words of a staged A row (8 or 24: the 8 lanes of a load
+  // phase hit distinct banks), bf16 pitches of [k][n] and [n][k] B stages
+  static constexpr int PAH = KS / 2, PBH = BN + 8, PTH = KS + 8;
+  static_assert(TM % 16 == 0 && PA % 32 == 16 && KS % 16 == 0, "tile");
 };
 
 // Floats of dgemm<BN, TM>'s dynamic shared memory.
@@ -321,11 +439,12 @@ struct Cursor {
   }
 };
 
-template <int BN, int TM>
+template <int BN, int TM, bool BF>
 __global__ void __launch_bounds__(DTile<BN, TM>::kThreads) dgemm(const __grid_constant__ DArgs p) {
   using T = DTile<BN, TM>;
   using Cl = Cols<BN>;
   constexpr int KS = T::KS, NW8 = Cl::NW8, PA = T::PA, PB = Cl::PB, PT = T::PT;
+  constexpr int PAH = T::PAH, PBH = T::PBH, PTH = T::PTH;
   constexpr int NT = T::kThreads, GROUPS = T::GROUPS, NREG = T::NREG;
   extern __shared__ __align__(16) float smem[];
   const DJob& J = p.job[blockIdx.y];
@@ -363,10 +482,23 @@ __global__ void __launch_bounds__(DTile<BN, TM>::kThreads) dgemm(const __grid_co
       const int rr = r0 - h + j, col = c.kc + 8 * (it % GROUPS);
       const bool ok = j < rows && rr >= 0 && rr < g.R;
       const int lim = t.K - col;
+      if (kBF16 && t.s16) {
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (ok && lim > 0)
+          x = __ldg(reinterpret_cast<const uint4*>(static_cast<const uint16_t*>(t.src) +
+                                                   (size_t)rr * t.K + col));
+        const uint32_t w4[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          va[n][2 * v] = __uint_as_float(w4[v] << 16);
+          va[n][2 * v + 1] = __uint_as_float(w4[v] & 0xffff0000u);
+        }
+        continue;
+      }
 #pragma unroll
       for (int v = 0; v < 8; v += 4) {
         float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ok && v < lim) x = ldg4(t.src + (size_t)rr * t.K + col + v);
+        if (ok && v < lim) x = ldg4(static_cast<const float*>(t.src) + (size_t)rr * t.K + col + v);
         va[n][v] = x.x;
         va[n][v + 1] = x.y;
         va[n][v + 2] = x.z;
@@ -384,7 +516,10 @@ __global__ void __launch_bounds__(DTile<BN, TM>::kThreads) dgemm(const __grid_co
       if (t.gelu)
 #pragma unroll
         for (int v = 0; v < 8; ++v) va[n][v] = gelu(va[n][v]);
-      store_group(buf + j * PA + 16 * (it % GROUPS), va[n]);
+      if constexpr (BF)
+        store_group_bf(reinterpret_cast<uint32_t*>(buf) + j * PAH, it % GROUPS, va[n]);
+      else
+        store_group(buf + j * PA + 16 * (it % GROUPS), va[n]);
     }
   };
   // the slab of chunk c into buf, in passes of NREG items a thread
@@ -397,9 +532,30 @@ __global__ void __launch_bounds__(DTile<BN, TM>::kThreads) dgemm(const __grid_co
   };
   // B's chunk at c into stage dst (zeros past K and N); a group either way
   auto stage_b = [&](float* dst, const Cursor& c) {
-    if (c.ti < J.nt) {
+    if (BF && c.ti < J.nt) {
       const DTerm& t = J.t[c.ti];
-      const float* w = t.w + (size_t)c.tap * t.K * t.ld;
+      const uint16_t* w = static_cast<const uint16_t*>(t.w) + (size_t)c.tap * t.K * t.ld;
+      uint16_t* d = reinterpret_cast<uint16_t*>(dst);
+      if (!t.trans) {
+        constexpr int P = BN / 8;
+        for (int it = tid; it < KS * P; it += NT) {
+          const int k = c.kc + it / P, n = J.n0 + 8 * (it % P);
+          const bool ok = k < t.K && n < J.N;
+          cp_async16(smem_u32(d + it / P * PBH + 8 * (it % P)),
+                     ok ? w + (size_t)k * t.ld + n : w, ok ? 16 : 0);
+        }
+      } else {
+        constexpr int P = KS / 8;
+        for (int it = tid; it < BN * P; it += NT) {
+          const int n = J.n0 + it / P, k = c.kc + 8 * (it % P);
+          const bool ok = k < t.K && n < J.N;
+          cp_async16(smem_u32(d + it / P * PTH + 8 * (it % P)),
+                     ok ? w + (size_t)n * t.ld + k : w, ok ? 16 : 0);
+        }
+      }
+    } else if (c.ti < J.nt) {
+      const DTerm& t = J.t[c.ti];
+      const float* w = static_cast<const float*>(t.w) + (size_t)c.tap * t.K * t.ld;
       if (!t.trans) {
         constexpr int P = BN / 4;
         for (int it = tid; it < KS * P; it += NT) {
@@ -453,23 +609,39 @@ __global__ void __launch_bounds__(DTile<BN, TM>::kThreads) dgemm(const __grid_co
                      (unsigned)(px[0] + dx) < (unsigned)g.W;
     const bool ok1 = (unsigned)(py[1] + dy) < (unsigned)g.H &&
                      (unsigned)(px[1] + dx) < (unsigned)g.W;
-    const float* a0 = sA + (slab % p.nbuf) * arows * PA + (h + m0 + dy * g.W + dx) * PA +
-                      4 * (lane % 4);
+    const float* slab_a = sA + (slab % p.nbuf) * arows * PA;
+    const int arow = h + m0 + dy * g.W + dx;
     const float* b = sB + c % kNS * T::BSTAGE;
     float part[NW8][4];
 #pragma unroll
     for (int u = 0; u < NW8; ++u)
 #pragma unroll
       for (int i = 0; i < 4; ++i) part[u][i] = 0.f;
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (BF) {
+      const uint32_t* a0 = reinterpret_cast<const uint32_t*>(slab_a) + arow * PAH + 2 * (lane % 4);
+      const uint16_t* b16 = reinterpret_cast<const uint16_t*>(b);
+      const uint2 zero = make_uint2(0u, 0u);
 #pragma unroll
-    for (int k8 = 0; k8 < KS; k8 += 8) {
-      const float4 v0 = ok0 ? *reinterpret_cast<const float4*>(a0 + 2 * k8) : zero;
-      const float4 v1 = ok1 ? *reinterpret_cast<const float4*>(a0 + 8 * PA + 2 * k8) : zero;
-      if (t.trans)
-        mma_step<NW8, 1, PT>(part, v0, v1, b, k8, nw);
-      else
-        mma_step<NW8, PB, 1>(part, v0, v1, b, k8, nw);
+      for (int k16 = 0; k16 < KS; k16 += 16) {
+        const uint2 v0 = ok0 ? *reinterpret_cast<const uint2*>(a0 + k16 / 2) : zero;
+        const uint2 v1 = ok1 ? *reinterpret_cast<const uint2*>(a0 + 8 * PAH + k16 / 2) : zero;
+        if (t.trans)
+          mma_step_bf<NW8, 1, PTH>(part, v0, v1, b16, k16, nw);
+        else
+          mma_step_bf<NW8, PBH, 1>(part, v0, v1, b16, k16, nw);
+      }
+    } else {
+      const float* a0 = slab_a + arow * PA + 4 * (lane % 4);
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k8 = 0; k8 < KS; k8 += 8) {
+        const float4 v0 = ok0 ? *reinterpret_cast<const float4*>(a0 + 2 * k8) : zero;
+        const float4 v1 = ok1 ? *reinterpret_cast<const float4*>(a0 + 8 * PA + 2 * k8) : zero;
+        if (t.trans)
+          mma_step<NW8, 1, PT>(part, v0, v1, b, k8, nw);
+        else
+          mma_step<NW8, PB, 1>(part, v0, v1, b, k8, nw);
+      }
     }
 #pragma unroll
     for (int u = 0; u < NW8; ++u)
@@ -500,7 +672,8 @@ __global__ void __launch_bounds__(DTile<BN, TM>::kThreads) dgemm(const __grid_co
       const size_t o = (size_t)r * J.ldo + col;
       float2 v = make_float2(acc[u][2 * hh], acc[u][2 * hh + 1]);
       if (J.epi == E_GELU_BWD) {
-        const float2 z = *reinterpret_cast<const float2*>(J.z + o);
+        const float2 z = kBF16 && J.z16 ? make_float2(from_bf16(J.z16[o]), from_bf16(J.z16[o + 1]))
+                               : *reinterpret_cast<const float2*>(J.z + o);
         v.x *= gelu_grad(z.x);
         v.y *= gelu_grad(z.y);
         if (J.base) {
@@ -518,6 +691,7 @@ __global__ void __launch_bounds__(DTile<BN, TM>::kThreads) dgemm(const __grid_co
         }
       }
       *reinterpret_cast<float2*>(J.out + o) = v;
+      if (kBF16 && J.out16) *reinterpret_cast<uint32_t*>(J.out16 + o) = pack_bf16(v.x, v.y);
     }
   }
 }
@@ -535,16 +709,35 @@ constexpr int kWRows = 64;    // rows (the K axis) of a wgrad chunk
 // l's input (src0 at l = 0, else src + (l - 1) * lsrc), through gelu with
 // `gelu`; G_l the rows of ldg floats at gs + l * lg. With S > 1 the rows are
 // cut into S splits of `rows` rows, each split's sum written to part (at
-// `pofs`: [L][S][taps * Kin][N]) for reduce_parts.
+// `pofs`: [L][S][taps * Kin][N]) for reduce_parts. With s16 the sources hold
+// bf16 values (the saves of a bf16 build).
 struct WJob {
-  const float* src0;
-  const float* src;
+  const void* src0;
+  const void* src;
   const float* gs;
   float* out;
   size_t lsrc, lg, lout, pofs;
-  int Kin, taps, gelu, ldg, N, ldo, S, rows;
+  int Kin, taps, gelu, ldg, N, ldo, S, rows, s16;
   int nb;  // blocks: L x taps x channel tiles x column tiles x S
 };
+
+// The source n elements past p (floats, or bf16 values with s16).
+__host__ __device__ inline const void* elem_off(const void* p, size_t n, int s16) {
+  return kBF16 && s16 ? static_cast<const void*>(static_cast<const uint16_t*>(p) + n)
+             : static_cast<const void*>(static_cast<const float*>(p) + n);
+}
+
+// B(k, n) of a bf16 weight-gradient step, from float32 rows at `b` (rows of
+// PB floats, the lane's column at b): the rows 2t, 2t + 1 and 2t + 8, 2t + 9
+// of the 16-deep step k16, rounded, zero where `ok` (a row's bit) is clear.
+template <int PB>
+__device__ __forceinline__ void b_frag_bf(uint32_t (&bf)[2], const float* b, int k16,
+                                          unsigned ok) {
+  const int t = threadIdx.x % 4;
+  const float* r = b + (k16 + 2 * t) * PB;
+  bf[0] = pack_bf16(ok & 1u ? r[0] : 0.f, ok & 2u ? r[PB] : 0.f);
+  bf[1] = pack_bf16(ok & 4u ? r[8 * PB] : 0.f, ok & 8u ? r[9 * PB] : 0.f);
+}
 
 struct WArgs {
   WJob job[kMaxWJobs];
@@ -564,14 +757,16 @@ struct WTile {
   static constexpr int ITEMS = TMW * kWRows / 8;    // (channel, 8-row group) items
   static constexpr int NREG = (ITEMS + kThreads - 1) / kThreads;
   static constexpr int SMEM_FLOATS = 2 * TMW * PW + kWNS * kWRows * Cl::PB;
-  static_assert(PW % 32 == 16, "tile");
+  static constexpr int PWH = kWRows / 2 + 8;       // words of a staged bf16 channel
+  static_assert(PW % 32 == 16 && PWH % 32 == 8, "tile");
 };
 
-template <int BN>
+template <int BN, bool BF>
 __global__ void __launch_bounds__(WTile<BN>::kThreads) wgrad(const __grid_constant__ WArgs p) {
   using T = WTile<BN>;
   using Cl = Cols<BN>;
   constexpr int NW8 = Cl::NW8, PW = T::PW, PB = Cl::PB, NT = T::kThreads, NREG = T::NREG;
+  constexpr int PWH = T::PWH;
   constexpr int TMW = T::TMW, KR = kWRows;
   extern __shared__ __align__(16) float smem[];
   float* sA = smem;
@@ -593,7 +788,8 @@ __global__ void __launch_bounds__(WTile<BN>::kThreads) wgrad(const __grid_consta
   b /= nch;
   const int tap = b % J.taps, l = b / J.taps;
   const int dy = J.taps > 1 ? tap / 3 - 1 : 0, dx = J.taps > 1 ? tap % 3 - 1 : 0;
-  const float* src = J.src0 ? (l ? J.src + (l - 1) * J.lsrc : J.src0) : J.src + l * J.lsrc;
+  const void* src = J.src0 ? (l ? elem_off(J.src, (l - 1) * J.lsrc, J.s16) : J.src0)
+                           : elem_off(J.src, l * J.lsrc, J.s16);
   const float* gl = J.gs + l * J.lg;
   const int rbeg = sp * J.rows, rend = min(g.R, rbeg + J.rows);
 
@@ -614,7 +810,7 @@ __global__ void __launch_bounds__(WTile<BN>::kThreads) wgrad(const __grid_consta
         const bool ok = chan && r < rend && (unsigned)(y + dy) < (unsigned)g.H &&
                         (unsigned)(x + dx) < (unsigned)g.W;
         float a = 0.f;
-        if (ok) a = __ldg(src + (size_t)(r + dy * g.W + dx) * J.Kin + i0 + i);
+        if (ok) a = src_at(src, (size_t)(r + dy * g.W + dx) * J.Kin + i0 + i, J.s16);
         vx[n][v] = a;
         if (++x == g.W) {
           x = 0;
@@ -631,7 +827,10 @@ __global__ void __launch_bounds__(WTile<BN>::kThreads) wgrad(const __grid_consta
       if (J.gelu)
 #pragma unroll
         for (int v = 0; v < 8; ++v) vx[n][v] = gelu(vx[n][v]);
-      store_group(buf + it % TMW * PW + 16 * (it / TMW), vx[n]);
+      if constexpr (BF)
+        store_group_bf(reinterpret_cast<uint32_t*>(buf) + it % TMW * PWH, it / TMW, vx[n]);
+      else
+        store_group(buf + it % TMW * PW + 16 * (it / TMW), vx[n]);
     }
   };
   // cotangent rows k0 .. k0 + KR into B stage dst, zeros past rend and N
@@ -666,18 +865,35 @@ __global__ void __launch_bounds__(WTile<BN>::kThreads) wgrad(const __grid_consta
     stage_b(sB + (c + kWNS - 1) % kWNS * KR * PB, k0 + (kWNS - 1) * KR);
     const bool more = c + 1 < nc, more2 = c + 2 < nc;
     if (more2) load_a(vb, k0 + 2 * KR);
-    const float* a = a0 + c % 2 * TMW * PW;
     const float* bs = sB + c % kWNS * KR * PB;
     float part[NW8][4];
 #pragma unroll
     for (int u = 0; u < NW8; ++u)
 #pragma unroll
       for (int i = 0; i < 4; ++i) part[u][i] = 0.f;
+    if constexpr (BF) {
+      const uint32_t* a = reinterpret_cast<const uint32_t*>(sA + c % 2 * TMW * PW) +
+                          (wm * 16 + lane / 4) * PWH + 2 * (lane % 4);
 #pragma unroll
-    for (int k8 = 0; k8 < KR; k8 += 8) {
-      const float4 v0 = *reinterpret_cast<const float4*>(a + 2 * k8);
-      const float4 v1 = *reinterpret_cast<const float4*>(a + 8 * PW + 2 * k8);
-      mma_step<NW8, PB, 1>(part, v0, v1, bs, k8, nw);
+      for (int k16 = 0; k16 < KR; k16 += 16) {
+        const uint2 v0 = *reinterpret_cast<const uint2*>(a + k16 / 2);
+        const uint2 v1 = *reinterpret_cast<const uint2*>(a + 8 * PWH + k16 / 2);
+        const uint32_t af[4] = {v0.x, v1.x, v0.y, v1.y};
+#pragma unroll
+        for (int u = 0; u < NW8; ++u) {
+          uint32_t bf[2];
+          b_frag_bf<PB>(bf, bs + nw + 8 * u + lane / 4, k16, 15u);
+          mma_bf16(part[u], af, bf);
+        }
+      }
+    } else {
+      const float* a = a0 + c % 2 * TMW * PW;
+#pragma unroll
+      for (int k8 = 0; k8 < KR; k8 += 8) {
+        const float4 v0 = *reinterpret_cast<const float4*>(a + 2 * k8);
+        const float4 v1 = *reinterpret_cast<const float4*>(a + 8 * PW + 2 * k8);
+        mma_step<NW8, PB, 1>(part, v0, v1, bs, k8, nw);
+      }
     }
 #pragma unroll
     for (int u = 0; u < NW8; ++u)
@@ -724,6 +940,7 @@ struct TTile {
   static constexpr int kThreads = 32 * kTaps * Cl::WN;
   static constexpr int PW = 2 * kWRows + 16;        // pitch of a staged channel
   static constexpr int ITEMS = TMW * kWRows / 8;    // (channel, 8-row group) items
+  static constexpr int PWH = kWRows / 2 + 8;       // words of a staged bf16 channel
   static_assert(ITEMS <= kThreads && kWRows <= kThreads, "gather");
 };
 
@@ -736,12 +953,13 @@ __host__ __device__ constexpr int taps_smem_floats(int W) {
   return 2 * T::TMW * T::PW + 2 * kWRows + kWNS * (kWRows + 2 * (W + 1)) * Cols<BN>::PB;
 }
 
-template <int BN>
+template <int BN, bool BF>
 __global__ void __launch_bounds__(TTile<BN>::kThreads, 1)
     wgrad_taps(const __grid_constant__ WArgs p) {
   using T = TTile<BN>;
   using Cl = Cols<BN>;
   constexpr int NW8 = Cl::NW8, PW = T::PW, PB = Cl::PB, TMW = T::TMW, KR = kWRows;
+  constexpr int PWH = T::PWH;
   extern __shared__ __align__(16) float smem[];
   const Geo g = p.g;
   const int halo = g.W + 1, grows = KR + 2 * halo;
@@ -762,7 +980,7 @@ __global__ void __launch_bounds__(TTile<BN>::kThreads, 1)
   const int n0 = b % ncol * BN;
   b /= ncol;
   const int i0 = b % nch * TMW, l = b / nch;
-  const float* src = J.src + l * J.lsrc;
+  const void* src = elem_off(J.src, l * J.lsrc, J.s16);
   const float* gl = J.gs + l * J.lg;
   const int rbeg = sp * J.rows, rend = min(g.R, rbeg + J.rows);
 
@@ -774,7 +992,7 @@ __global__ void __launch_bounds__(TTile<BN>::kThreads, 1)
 #pragma unroll
     for (int v = 0; v < 8; ++v) {
       const bool ok = tid < T::ITEMS && r + v < rend && i0 + i < J.Kin;
-      va[v] = ok ? __ldg(src + (size_t)(r + v) * J.Kin + i0 + i) : 0.f;
+      va[v] = ok ? src_at(src, (size_t)(r + v) * J.Kin + i0 + i, J.s16) : 0.f;
     }
     // the taps' mask of row k0 + tid (threads below KR)
     const int rm = k0 + tid, pos = rm % g.HW, y = pos / g.W, x = pos % g.W;
@@ -789,7 +1007,11 @@ __global__ void __launch_bounds__(TTile<BN>::kThreads, 1)
       if (J.gelu)
 #pragma unroll
         for (int v = 0; v < 8; ++v) va[v] = gelu(va[v]);
-      store_group(sA + s * TMW * PW + tid % TMW * PW + 16 * (tid / TMW), va);
+      if constexpr (BF)
+        store_group_bf(reinterpret_cast<uint32_t*>(sA + s * TMW * PW) + tid % TMW * PWH,
+                       tid / TMW, va);
+      else
+        store_group(sA + s * TMW * PW + tid % TMW * PW + 16 * (tid / TMW), va);
     }
     if (tid < KR) sM[s * KR + tid] = mask;
   };
@@ -827,40 +1049,62 @@ __global__ void __launch_bounds__(TTile<BN>::kThreads, 1)
     stage_g(sG + (c + kWNS - 1) % kWNS * gstage, k0 + (kWNS - 1) * KR);
     const bool more = c + 1 < nc;
     if (more) load_a(k0 + KR);
-    const float* a = sA + c % 2 * TMW * PW + lane / 4 * PW + 4 * t4;
-    const uint32_t* m = sM + c % 2 * KR + t4;
-    const float* bg = sG + c % kWNS * gstage + brow * PB + nw + lane / 4;
     float part[NW8][4];
 #pragma unroll
     for (int u = 0; u < NW8; ++u)
 #pragma unroll
       for (int i = 0; i < 4; ++i) part[u][i] = 0.f;
+    if constexpr (BF) {
+      const uint32_t* a = reinterpret_cast<const uint32_t*>(sA + c % 2 * TMW * PW) +
+                          lane / 4 * PWH + 2 * t4;
+      const uint32_t* m = sM + c % 2 * KR + 2 * t4;
+      // B(k, n) of this warp's tap: the staged row k + halo - shift
+      const float* bg = sG + c % kWNS * gstage + (halo - (dy * g.W + dx)) * PB + nw + lane / 4;
 #pragma unroll
-    for (int k8 = 0; k8 < KR; k8 += 8) {
-      const float4 v0 = *reinterpret_cast<const float4*>(a + 2 * k8);
-      const float4 v1 = *reinterpret_cast<const float4*>(a + 8 * PW + 2 * k8);
-      const bool ok0 = m[k8] >> tap & 1u, ok1 = m[k8 + 4] >> tap & 1u;
-      const uint32_t ab[4] = {__float_as_uint(v0.x), __float_as_uint(v1.x),
-                              __float_as_uint(v0.y), __float_as_uint(v1.y)};
-      const uint32_t as[4] = {__float_as_uint(v0.z), __float_as_uint(v1.z),
-                              __float_as_uint(v0.w), __float_as_uint(v1.w)};
-      uint32_t bb[NW8][2], bs[NW8][2];
+      for (int k16 = 0; k16 < KR; k16 += 16) {
+        const uint2 v0 = *reinterpret_cast<const uint2*>(a + k16 / 2);
+        const uint2 v1 = *reinterpret_cast<const uint2*>(a + 8 * PWH + k16 / 2);
+        const uint32_t af[4] = {v0.x, v1.x, v0.y, v1.y};
+        const unsigned ok = (m[k16] >> tap & 1u) | (m[k16 + 1] >> tap & 1u) << 1 |
+                            (m[k16 + 8] >> tap & 1u) << 2 | (m[k16 + 9] >> tap & 1u) << 3;
 #pragma unroll
-      for (int u = 0; u < NW8; ++u) {
-        // b0 (k = t, n = g), b1 (t + 4, g), zero where the tap is masked
-        const float2 x0 = split_tf32(ok0 ? bg[k8 * PB + 8 * u] : 0.f);
-        const float2 x1 = split_tf32(ok1 ? bg[(k8 + 4) * PB + 8 * u] : 0.f);
-        bb[u][0] = __float_as_uint(x0.x);
-        bs[u][0] = __float_as_uint(x0.y);
-        bb[u][1] = __float_as_uint(x1.x);
-        bs[u][1] = __float_as_uint(x1.y);
+        for (int u = 0; u < NW8; ++u) {
+          uint32_t bf[2];
+          b_frag_bf<PB>(bf, bg + 8 * u, k16, ok);
+          mma_bf16(part[u], af, bf);
+        }
       }
+    } else {
+      const float* a = sA + c % 2 * TMW * PW + lane / 4 * PW + 4 * t4;
+      const uint32_t* m = sM + c % 2 * KR + t4;
+      const float* bg = sG + c % kWNS * gstage + brow * PB + nw + lane / 4;
 #pragma unroll
-      for (int u = 0; u < NW8; ++u) mma_tf32(part[u], as, bb[u]);
+      for (int k8 = 0; k8 < KR; k8 += 8) {
+        const float4 v0 = *reinterpret_cast<const float4*>(a + 2 * k8);
+        const float4 v1 = *reinterpret_cast<const float4*>(a + 8 * PW + 2 * k8);
+        const bool ok0 = m[k8] >> tap & 1u, ok1 = m[k8 + 4] >> tap & 1u;
+        const uint32_t ab[4] = {__float_as_uint(v0.x), __float_as_uint(v1.x),
+                                __float_as_uint(v0.y), __float_as_uint(v1.y)};
+        const uint32_t as[4] = {__float_as_uint(v0.z), __float_as_uint(v1.z),
+                                __float_as_uint(v0.w), __float_as_uint(v1.w)};
+        uint32_t bb[NW8][2], bs[NW8][2];
 #pragma unroll
-      for (int u = 0; u < NW8; ++u) mma_tf32(part[u], ab, bs[u]);
+        for (int u = 0; u < NW8; ++u) {
+          // b0 (k = t, n = g), b1 (t + 4, g), zero where the tap is masked
+          const float2 x0 = split_tf32(ok0 ? bg[k8 * PB + 8 * u] : 0.f);
+          const float2 x1 = split_tf32(ok1 ? bg[(k8 + 4) * PB + 8 * u] : 0.f);
+          bb[u][0] = __float_as_uint(x0.x);
+          bs[u][0] = __float_as_uint(x0.y);
+          bb[u][1] = __float_as_uint(x1.x);
+          bs[u][1] = __float_as_uint(x1.y);
+        }
 #pragma unroll
-      for (int u = 0; u < NW8; ++u) mma_tf32(part[u], ab, bb[u]);
+        for (int u = 0; u < NW8; ++u) mma_tf32(part[u], as, bb[u]);
+#pragma unroll
+        for (int u = 0; u < NW8; ++u) mma_tf32(part[u], ab, bs[u]);
+#pragma unroll
+        for (int u = 0; u < NW8; ++u) mma_tf32(part[u], ab, bb[u]);
+      }
     }
 #pragma unroll
     for (int u = 0; u < NW8; ++u)
@@ -988,17 +1232,18 @@ inline void launch_kernel(void (*k)(A...), dim3 grid, int threads, int smem_byte
 #endif
 constexpr int kWaveBlocks = PM_CORE_WAVE_BLOCKS;
 
-template <int BN, int TM>
+template <int BN, int TM, bool BF>
 inline void launch_dgemm_tm(const DArgs& a, int nj, cudaStream_t s) {
   const int smem = dgemm_smem_floats<BN, TM>(a.halo, a.nbuf) * 4;
-  launch_kernel(dgemm<BN, TM>, dim3((a.g.R + TM - 1) / TM, nj), DTile<BN, TM>::kThreads, smem,
-                s, a);
+  launch_kernel(dgemm<BN, TM, BF>, dim3((a.g.R + TM - 1) / TM, nj), DTile<BN, TM>::kThreads,
+                smem, s, a);
 }
 
 // One dgemm launch of the `np` products `prob` (each job's n0 ignored: its
 // column tiles become jobs of their own). The row tile is the largest of
-// 64, 32 and 16 whose grid fills a wave of SMs, else 16.
-template <int BN>
+// 64, 32 and 16 whose grid fills a wave of SMs, else 16. BF: the products in
+// bf16 (every term's w holding bf16 values).
+template <int BN, bool BF = false>
 inline void launch_dgemm(const Geo& g, const DJob* prob, int np, cudaStream_t s) {
   DArgs a{};
   a.g = g;
@@ -1019,11 +1264,11 @@ inline void launch_dgemm(const Geo& g, const DJob* prob, int np, cudaStream_t s)
   }
   const int tiles64 = (g.R + 63) / 64, tiles32 = (g.R + 31) / 32;
   if (tiles64 * nj >= kWaveBlocks)
-    launch_dgemm_tm<BN, 64>(a, nj, s);
+    launch_dgemm_tm<BN, 64, BF>(a, nj, s);
   else if (tiles32 * nj >= kWaveBlocks)
-    launch_dgemm_tm<BN, 32>(a, nj, s);
+    launch_dgemm_tm<BN, 32, BF>(a, nj, s);
   else
-    launch_dgemm_tm<BN, 16>(a, nj, s);
+    launch_dgemm_tm<BN, 16, BF>(a, nj, s);
 }
 
 // Blocks a weight-gradient launch aims for (two blocks a SM, two waves),
@@ -1073,8 +1318,9 @@ inline int plan_wgrad(const Geo& g, int L, WJob* job, int nj, bool taps, size_t*
   return blocks * S;
 }
 
-// One weight-gradient launch of the `nj` jobs (wgrad_taps's with `taps`).
-template <int BN>
+// One weight-gradient launch of the `nj` jobs (wgrad_taps's with `taps`;
+// BF: the products in bf16; see launch_wgrad_dt).
+template <int BN, bool BF = false>
 inline void launch_wgrad(const Geo& g, const WJob* job, int nj, int blocks, bool taps,
                          float* part, cudaStream_t s) {
   WArgs a{};
@@ -1082,11 +1328,25 @@ inline void launch_wgrad(const Geo& g, const WJob* job, int nj, int blocks, bool
   a.part = part;
   for (int i = 0; i < nj; ++i) a.job[i] = job[i];
   if (taps)
-    launch_kernel(wgrad_taps<BN>, dim3(blocks), TTile<BN>::kThreads,
+    launch_kernel(wgrad_taps<BN, BF>, dim3(blocks), TTile<BN>::kThreads,
                   taps_smem_floats<BN>(g.W) * 4, s, a);
   else
-    launch_kernel(wgrad<BN>, dim3(blocks), WTile<BN>::kThreads, WTile<BN>::SMEM_FLOATS * 4, s,
-                  a);
+    launch_kernel(wgrad<BN, BF>, dim3(blocks), WTile<BN>::kThreads, WTile<BN>::SMEM_FLOATS * 4,
+                  s, a);
+}
+
+// launch_wgrad with the products in bf16 where `bf` is set, which only a
+// bf16 build instantiates.
+template <int BN>
+inline void launch_wgrad_dt(bool bf, const Geo& g, const WJob* job, int nj, int blocks,
+                            bool taps, float* part, cudaStream_t s) {
+  if constexpr (kBF16) {
+    if (bf) {
+      launch_wgrad<BN, true>(g, job, nj, blocks, taps, part, s);
+      return;
+    }
+  }
+  launch_wgrad<BN, false>(g, job, nj, blocks, taps, part, s);
 }
 
 }  // namespace PM_CORE_NS

@@ -77,8 +77,9 @@ _PARTS = {
     "one_pass": [(CORE, m, ";", 2) for m in _MMAS[:2]],
     "skeleton": [(CORE, m, ";", 2) for m in _MMAS],
     "no_a_loads": [(CORE, "if (ok && v < lim) x = ldg4(", "if (false) x = ldg4("),
-                   (CORE, "if (ok) a = __ldg(", "if (false) a = __ldg("),
-                   (CORE, "va[v] = ok ? __ldg(", "va[v] = false ? __ldg(")],
+                   (CORE, "if (ok && lim > 0)", "if (false)"),
+                   (CORE, "if (ok) a = src_at(", "if (false) a = src_at("),
+                   (CORE, "va[v] = ok ? src_at(", "va[v] = false ? src_at(")],
     "no_b_copies": [(CORE, 'asm volatile("cp.async.cg.shared.global',
                      'if (false) asm volatile("cp.async.cg.shared.global')],
     "no_sync": [(CORE, "__syncthreads();  // chunk c's B stage and slab", "// chunk c's B stage"),

@@ -18,6 +18,9 @@ import torch.distributed as dist
 # (about three decimal digits), which would break parity with the reference.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# A bf16 matmul (compute_dtype bfloat16's unfused Blocks) sums in float32, as
+# XLA's does: cuBLAS may otherwise reduce its split-K partials in bf16.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

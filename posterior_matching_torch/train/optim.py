@@ -16,11 +16,15 @@ JAX trainer's ``multi_transform(... set_to_zero)`` does to them.
 Each optimizer names the optax chain it stands for (``chain``, its
 transforms in order), which fixes the layout of its state in a checkpoint
 (``convert.optax_opt_state``); :meth:`Adam.load_state` takes a state back.
+:class:`GroupedClippedAdam` is ``ClippedAdam`` under the JAX package's
+``group_by_shape`` (``flat_optimizer``): the same updates, its state in
+that layout.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from posterior_matching_torch.train.schedules import Schedule
@@ -35,6 +39,9 @@ OPTAX_SCHEDULED_ADAM = ("scale_by_adam", "scale_by_schedule", "scale")
 
 
 class Adam:
+    # whether the state is group_by_shape's (GroupedClippedAdam)
+    grouped = False
+
     def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule, eps: float = EPS,
                  chain: Sequence[str] = OPTAX_SCHEDULED_ADAM):
         self.params = dict(params)
@@ -108,14 +115,72 @@ class ClippedAdam(Adam):
     def _update(self, p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return u + self.weight_decay * p if self.weight_decay and p.ndim != 1 else u
 
-    @torch.no_grad()
-    def step(self, grads: Dict[str, torch.Tensor]) -> None:
+    def _clip(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``grads`` clipped by their global norm (as they are without a
+        clip)."""
         if self.max_norm is None:
-            return super().step(grads)
+            return grads
         norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
         clip = ~(norm < self.max_norm)   # optax: keep g where norm < max_norm
-        super().step({k: torch.where(clip, (g / norm) * self.max_norm, g)
-                      for k, g in grads.items()})
+        return {k: torch.where(clip, (g / norm) * self.max_norm, g) for k, g in grads.items()}
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor]) -> None:
+        super().step(self._clip(grads))
+
+
+def shape_groups(shapes: Dict[str, Tuple[int, ...]]) -> List[Tuple[tuple, List[str]]]:
+    """``group_by_shape``'s plan (``posterior_matching_tpu/train/optim.py:
+    45-53``) of float32 leaves named by their dotted tree paths: the leaves
+    in the tree's flattening order (each level's keys sorted), grouped by
+    (shape, dtype), the groups in the order of ``sorted(groups, key=str)``;
+    each group as its key and its leaves' names."""
+    groups: Dict[tuple, List[str]] = {}
+    for name in sorted(shapes, key=lambda n: n.split(".")):
+        groups.setdefault((tuple(shapes[name]), np.dtype("float32")), []).append(name)
+    return [(k, groups[k]) for k in sorted(groups, key=str)]
+
+
+class GroupedClippedAdam(ClippedAdam):
+    """:class:`ClippedAdam` under ``group_by_shape`` (``train_pm_vdvae.py:
+    167-186`` with ``flat_optimizer``): the moments of same-shaped
+    parameters are stacked along a new leading axis, one stack a group
+    (:func:`shape_groups`, the parameters named by their tree paths), and a
+    step updates each group's stack in one elementwise pass; the decay
+    applies to the parameters that are not 1-D, as ``stacked_shape_mask``
+    judges a stack by its first slice. ``mu`` and ``nu`` name each
+    parameter's slice of its group's stack. The global norm is summed
+    parameter by parameter, as :class:`ClippedAdam` sums it, so the updates
+    equal its bit for bit (the JAX package sums it over the stacks: the
+    same norm to float32 rounding)."""
+
+    grouped = True
+
+    def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule,
+                 max_norm: Optional[float], weight_decay: float = 0.0, eps: float = EPS):
+        super().__init__(params, schedule, max_norm, weight_decay, eps)
+        self.groups = shape_groups({k: tuple(p.shape) for k, p in self.params.items()})
+        self.stacks = []
+        for _, names in self.groups:
+            mu = torch.zeros_like(torch.stack([self.params[k] for k in names]))
+            nu = torch.zeros_like(mu)
+            self.stacks.append((mu, nu))
+            for j, k in enumerate(names):
+                self.mu[k], self.nu[k] = mu[j], nu[j]
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor]) -> None:
+        grads = self._clip(grads)
+        lr, c1, c2 = self._advance()
+        for (key, names), (mu, nu) in zip(self.groups, self.stacks):
+            g = torch.stack([grads[k] for k in names])
+            mu.mul_(B1).add_((1.0 - B1) * g)
+            nu.mul_(B2).add_((1.0 - B2) * (g * g))
+            u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            if self.weight_decay and len(key[0]) != 1:
+                u = u + self.weight_decay * torch.stack([self.params[k] for k in names])
+            for j, k in enumerate(names):
+                self.params[k].sub_(lr * u[j])
 
 
 def trainable_names(names: Sequence[str],

@@ -92,6 +92,7 @@ from posterior_matching_torch.train.optim import (
     OPTAX_ADAM,
     Adam,
     ClippedAdam,
+    GroupedClippedAdam,
     trainable_names,
 )
 from posterior_matching_torch.train.schedules import (
@@ -436,7 +437,7 @@ class Trainer:
         if self.optimizer is not None:
             opt = self.optimizer
             opt_state = optax_opt_state(opt.chain, opt.count, like(opt.mu), like(opt.nu),
-                                        self.trainable)
+                                        self.trainable, opt.grouped)
         ema = None if self.ema_params is None else like(self.ema_params)
         return TrainState(params=params, state=state, opt_state=opt_state,
                           ema_params=ema, step=self.step)
@@ -454,7 +455,8 @@ class Trainer:
         if self.optimizer is None:
             self.init()
         self.model.load_state_dict(to_torch(self.from_trees(ts.params, ts.state)))
-        count, mu, nu = optax_moments(ts.opt_state, ts.params, self.trainable)
+        count, mu, nu = optax_moments(ts.opt_state, ts.params, self.trainable,
+                                      self.optimizer.grouped)
         names = list(self.optimizer.params)
         moments = [self.from_trees(tree, ts.state) for tree in (mu, nu)]
         self.optimizer.load_state(count, *(to_torch({k: m[k] for k in names}) for m in moments))
@@ -552,7 +554,9 @@ def pm_vdvae_loss(model, batch: Batch, noise, training: bool = True) -> torch.Te
 def pm_vdvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
                      mask_fn=None, device: Optional[str] = None, **kwargs) -> Trainer:
     """The trainer of ``train_pm_vdvae.py:135-202``: nothing frozen, the
-    clipped Adam chain under a constant rate (or a linear warm-up), updates
+    clipped Adam chain under a constant rate (or a linear warm-up; under
+    ``group_by_shape`` with ``flat_optimizer``: :class:`GroupedClippedAdam`,
+    its checkpoint in that layout), updates
     skipped when the loss or a raw gradient is not finite, an EMA of the
     parameters, masks added on the device by ``mask_fn`` (or passed in each
     batch when None), the EMA parameters for validation, checkpoints in the
@@ -564,12 +568,12 @@ def pm_vdvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     from posterior_matching_torch.masking import add_mask
 
     cfg = train_config
-    if cfg.get("flat_optimizer", False):
-        raise NotImplementedError("flat_optimizer is not ported")
     warm_up, lr = cfg.get("warm_up", 0), cfg["lr"]
     schedule = linear_schedule(0.0, lr, warm_up) if warm_up > 0 else (lambda count: lr)
-    optimizer = lambda params: ClippedAdam(params, schedule, cfg["gradient_clip"],
-                                           cfg.get("weight_decay", 0.0))
+    # flat_optimizer: the chain under group_by_shape (train_pm_vdvae.py:167-186)
+    adam = GroupedClippedAdam if cfg.get("flat_optimizer", False) else ClippedAdam
+    optimizer = lambda params: adam(params, schedule, cfg["gradient_clip"],
+                                    cfg.get("weight_decay", 0.0))
     prologue = None
     if mask_fn is not None:
         prologue = lambda batch, gen: add_mask(batch, gen, mask_fn)

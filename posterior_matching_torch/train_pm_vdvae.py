@@ -4,7 +4,8 @@ Counterpart of ``train_pm_vdvae.py:111-227``. Run it as::
 
     python -m posterior_matching_torch.train_pm_vdvae --config pm_vdvae_mnist \\
         [--config.steps 1000] [--config.validation_freq 500] [--config.seed 0] \\
-        [--config.model.fused_chain=True] [--device cpu]
+        [--config.model.fused_chain=True] [--config.model.compute_dtype bfloat16] \\
+        [--config.flat_optimizer True] [--device cpu]
 
 or over N GPUs of one host, one process each::
 
@@ -19,10 +20,15 @@ or over N GPUs of one host, one process each::
   of non-finite updates are ``pm_vdvae_trainer``'s; masks are drawn on the
   device; validation runs on the configuration's validation split with the
   EMA parameters every ``validation_freq`` steps and at the last.
+- ``compute_dtype`` bfloat16 computes every Block's c1..c3 in bf16 (the
+  chains' bf16 kernel builds on the GPU); ``flat_optimizer`` runs the
+  optimizer under ``group_by_shape`` (``GroupedClippedAdam``), its state in
+  that layout in ``train_state.pkl``, as the JAX CLI writes it.
 - Weights start from the JAX package's initialisation, drawn from the
   seed. The run directory ``runs/pm-vdvae-<dataset>-<timestamp>/`` holds
-  ``model_config.json`` (the keys of the config file's ``model`` block:
-  ``fused_chain`` is this run's execution option and is not written),
+  ``model_config.json`` (the keys of the config file's ``model`` block,
+  ``compute_dtype`` among them, and ``remat`` where a configuration sets
+  it: ``fused_chain`` is this run's execution option and is not written),
   ``train_meta.json``, ``train_state.pkl``, written at every validation
   in the JAX package's layout, which the JAX CLIs evaluate and resume, and
   ``tb/``, the TensorBoard events of each validation's logs with
@@ -133,7 +139,8 @@ def _train(args, config) -> int:
         print("Using run directory:", run_dir, flush=True)
         save_train_meta(run_dir, config)
         with open(os.path.join(run_dir, "model_config.json"), "w") as fp:
-            json.dump({k: config["model"][k] for k in PM_VDVAE_MNIST}, fp)
+            json.dump({k: config["model"][k] for k in (*PM_VDVAE_MNIST, "remat")
+                       if k in config["model"]}, fp)
         callbacks = [CheckpointCallback(os.path.join(run_dir, "train_state.pkl")),
                      ReconstructionCallback(trainer, val_dataset, mask_fn),
                      LearningRateLoggerCallback(trainer.optimizer.schedule),

@@ -12,7 +12,8 @@
 // its shared-memory offset; a bulk copy lands when it is issued and counts
 // its bytes against the mbarrier; a cp.async copy lands when it is issued
 // (its waits do nothing); mma.sync is warp-collective through a per-warp
-// buffer and reads its operands as TF32 (the low 13 bits ignored). The PTX helpers of the kernel are replaced by calls to the emu_*
+// buffer and reads its operands as TF32 (the low 13 bits ignored), or as
+// bf16 pairs for m16n8k16; a conversion to bf16 rounds to nearest even. The PTX helpers of the kernel are replaced by calls to the emu_*
 // functions here before it is compiled.
 #pragma once
 #include <algorithm>
@@ -39,8 +40,12 @@
 
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+struct uint2 { uint32_t x, y; };
+struct uint4 { uint32_t x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 inline float __uint_as_float(uint32_t u) {
   float f;
   std::memcpy(&f, &u, 4);
@@ -87,6 +92,7 @@ inline void __syncwarp() { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
 inline void emu_consumer_sync() { g_consumer_bar->arrive_and_wait(); }
 inline float __ldg(const float* p) { return *p; }
 inline float4 __ldg(const float4* p) { return *p; }
+inline uint4 __ldg(const uint4* p) { return *p; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline void __threadfence_block() { std::atomic_thread_fence(std::memory_order_seq_cst); }
@@ -215,6 +221,51 @@ inline void emu_mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
     for (int k = 0; k < 8; ++k) {
       const float av = tf(m.a[(row % 8) * 4 + k % 4][(row >= 8) + 2 * (k >= 4)]);
       const float bv = tf(m.b[col * 4 + k % 4][k >= 4]);
+      s += av * bv;
+    }
+    d[i] = s;
+  }
+}
+
+// ---- mma.sync m16n8k16 .bf16, cvt.rn.bf16x2 ---------------------------------
+
+// f rounded to bf16, to nearest even (as __float2bfloat16_rn): its bits.
+inline uint32_t emu_bf16_rn(float f) {
+  const uint32_t u = __float_as_uint(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;  // NaN
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+// cvt.rn.bf16x2.f32: lo in the low half, hi in the high half.
+inline uint32_t emu_pack_bf16(float lo, float hi) {
+  return emu_bf16_rn(lo) | emu_bf16_rn(hi) << 16;
+}
+// The bf16 value in the low (half 0) or high (half 1) half of a register.
+inline float emu_bf16_half(uint32_t reg, int half) {
+  return __uint_as_float(half ? reg & 0xffff0000u : reg << 16);
+}
+
+// D = A B + C for an m16n8k16 bf16 fragment with float32 accumulators, by
+// the PTX ISA's layout (lane = 4 g + t; each register two bf16 values, the
+// lower k in the low half): A a0 (g, 2t..2t + 1), a1 (g + 8, 2t..), a2
+// (g, 2t + 8..2t + 9), a3 (g + 8, 2t + 8..); B b0 (k = 2t..2t + 1, n = g),
+// b1 (2t + 8..2t + 9, g); C and D as emu_mma_tf32's. Each output sums C,
+// then k = 0..15, in float32 (a product of two bf16 values is exact).
+inline void emu_mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  static thread_local unsigned turn = 0;
+  const int lane = threadIdx.x % 32;
+  EmuMma& m = g_mma[threadIdx.x / 32][turn];
+  turn ^= 1u;
+  for (int i = 0; i < 4; ++i) m.a[lane][i] = a[i];
+  for (int i = 0; i < 2; ++i) m.b[lane][i] = b[i];
+  __syncwarp();
+  const int g = lane / 4, t = lane % 4;
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    float s = d[i];
+    for (int k = 0; k < 16; ++k) {
+      const float av =
+          emu_bf16_half(m.a[(row % 8) * 4 + (k % 8) / 2][(row >= 8) + 2 * (k >= 8)], k % 2);
+      const float bv = emu_bf16_half(m.b[col * 4 + (k % 8) / 2][k >= 8], k % 2);
       s += av * bv;
     }
     d[i] = s;

@@ -20,6 +20,22 @@ border and 1 x 1 runs (k = 1, where the c2/c3 weight gradients join the
 c1/c4 launch), at both geometries the kernels are built for. Tolerance as
 on the GPU: 1e-4 of each tensor's scale. Skips where no C++20 compiler is
 found.
+
+The bf16 builds (``-DPM_CORE_BF16=1``: c1..c3 and their gradients as
+``mma.sync`` m16n8k16 bf16 products, emulated by the same layout rules) are
+built once each, with the fewest rows a split sums set to 32, and held
+against the bf16 plain version on a 3 x 3 run of MNIST's (192, 48) and a
+1 x 1 run of digits16's (64, 16). Both sides round the same float32 values
+to bf16, but their float32 sums differ in order, so a save that lies within
+that difference of a bf16 rounding boundary rounds the other way (one ulp,
+2^-8 of its value) and the backward, which reads the saves, carries the
+difference on. Hence three checks: the forward's outputs within BF16_TOL of
+each tensor's scale (at most BF16_SHARE of the elements beyond 1e-4 of it)
+and its saves equal but for at most SAVE_FLIPS of their elements; the
+backward kernel against the plain backward fed the kernel's
+own saves (``bf16_chain_bwd``) at the forward's bar; and the whole against
+autograd through ``block_chain_plain`` within END_TOL of scale, the room a
+flipped save's effect takes (2.3e-3 at most in these cases).
 """
 import ctypes
 
@@ -34,7 +50,13 @@ SOURCES = ("block_chain_fwd.cu", "block_chain_bwd.cu")
 BUILDS = {"fwd_split": (SOURCES[0], ["-DPM_CORE_MIN_SPLIT_ROWS=32"]),
           "bwd_split": (SOURCES[1], ["-DPM_CORE_MIN_SPLIT_ROWS=32"]),
           "fwd_wide": (SOURCES[0], ["-DPM_CORE_WAVE_BLOCKS=1"]),
-          "bwd_wide": (SOURCES[1], ["-DPM_CORE_WAVE_BLOCKS=1"])}
+          "bwd_wide": (SOURCES[1], ["-DPM_CORE_WAVE_BLOCKS=1"]),
+          "fwd_bf16": (SOURCES[0], ["-DPM_CORE_BF16=1", "-DPM_CORE_MIN_SPLIT_ROWS=32"]),
+          "bwd_bf16": (SOURCES[1], ["-DPM_CORE_BF16=1", "-DPM_CORE_MIN_SPLIT_ROWS=32"])}
+BF16_TOL = 5e-4
+BF16_SHARE = 0.01
+SAVE_FLIPS = 0.05
+END_TOL = 1e-2
 
 
 @pytest.fixture(scope="module")
@@ -43,10 +65,10 @@ def emu(tmp_path_factory):
     emulated_sources(out, ("block_chain_common.cuh", *SOURCES))
     libs = compile_builds(out, "block_harness.cpp", "BLOCK_SOURCE", BUILDS)
     P, I = ctypes.c_void_p, ctypes.c_int
-    for name in ("fwd_split", "fwd_wide"):
+    for name in ("fwd_split", "fwd_wide", "fwd_bf16"):
         libs[name].pm_block_chain_fwd.argtypes = [P, I, P, I, P]
         libs[name].pm_block_chain_fwd.restype = I
-    for name in ("bwd_split", "bwd_wide"):
+    for name in ("bwd_split", "bwd_wide", "bwd_bf16"):
         libs[name].pm_block_chain_bwd.argtypes = [P, I, P, I, P]
         libs[name].pm_block_chain_bwd.restype = I
         libs[name].pm_block_chain_bwd_part_floats.argtypes = [P, I]
@@ -59,8 +81,11 @@ def emulated_chain(fwd, bwd, cfg, x0, weights, g, runs):
     emulated entry points, the backward run ``runs`` times (a list of each
     run's gradients); and the floats of ``part`` the backward asked for."""
     L, R, c, m = cfg.n_levels, cfg.rows, cfg.c, cfg.mid
-    outs = {"xout": _nan(L, R, c), **{h: _nan(L, R, m) for h in ("h1", "h2", "h3")}}
-    _call(fwd.pm_block_chain_fwd, bc._FWD_PTRS, {"x0": x0, **weights, **outs}, cfg)
+    outs = {"xout": _nan(L, R, c),
+            **{h: _nan(L, R, m).to(cfg.cdtype) for h in ("h1", "h2", "h3")}}
+    names = (*bc._FWD_PTRS, "hs") if cfg.bf16 else bc._FWD_PTRS
+    _call(fwd.pm_block_chain_fwd, names, {"x0": x0, **weights, **outs, "hs": _nan(3, R, m)},
+          cfg)
     ints = cfg.ints()
     part = bwd.pm_block_chain_bwd_part_floats(ints, len(ints))
     assert part >= 0
@@ -109,4 +134,72 @@ def test_emulated_block_chain_matches_autograd(emu, b, h, w, L, k, geo, split):
         key = "dx0" if name == "x0" else "d" + name
         got = grads[-1][key]
         _close(got.reshape(gp.shape), gp, name)
+        assert torch.equal(grads[0][key], got), f"{name}: a relaunch changed the bits"
+
+
+def _bf16_close(got, want, what, tol=BF16_TOL):
+    err = (got - want).abs()
+    scale = max(1.0, want.abs().max().item())
+    share = (err > 1e-4 * scale).float().mean().item()
+    assert err.max().item() / scale <= tol, (what, err.max().item() / scale)
+    if tol == BF16_TOL:
+        assert share <= BF16_SHARE, (what, share)
+
+
+def _saves_close(got, want, what):
+    """bf16 saves equal to ``want`` rounded but for at most SAVE_FLIPS of
+    them, each within 2^-6 of the tensor's scale (a value rounded the
+    other way, or a later product moved by an operand that was)."""
+    got, want = got.float(), bc.round_bf16(want)
+    assert (got != want).float().mean().item() <= SAVE_FLIPS, what
+    assert (got - want).abs().max() <= 2.0 ** -6 * want.abs().max(), what
+
+
+# (b, h, w, L, k, (width, mid)): MNIST's (192, 48) at 2 x 7 x 5 with 3 x 3
+# taps (70 rows: 16-row tiles, two weight-gradient splits), digits16's
+# (64, 16) at 80 x 1 x 1 (k = 1, two splits); both on one build per source.
+@pytest.mark.parametrize("b,h,w,L,k,geo", [
+    (2, 7, 5, 2, 3, (192, 48)), (80, 1, 1, 2, 1, (64, 16)),
+])
+def test_emulated_bf16_block_chain_matches_plain(emu, b, h, w, L, k, geo):
+    c, m = geo
+    gen = torch.Generator().manual_seed(b * 100 + h * 10 + k + c + 7)
+    x = torch.randn(b, h, w, c, generator=gen)
+    weights = {n: (torch.randn((L, *s), generator=gen) * s[0] ** -0.5).contiguous()
+               for n, s in bc.weight_shapes(c, m, k)}
+    leaves = [x.requires_grad_(True), *(weights[n].requires_grad_(True) for n in bc.NAMES)]
+    want = bc.block_chain_plain(x, weights, mid=m, k=k, compute_dtype=torch.bfloat16)
+    cot = torch.randn(want.shape, generator=gen)
+    grads_p = torch.autograd.grad(want, leaves, cot)
+
+    cfg = bc.ChainConfig(x, L, m, k, torch.bfloat16)
+    R = cfg.rows
+    flat = lambda t: t.detach().reshape(R, c).contiguous()
+    wk = {n: weights[n].detach().to(cfg.dtype_of(n)).contiguous() for n in bc.NAMES}
+    outs, grads, part = emulated_chain(emu["fwd_bf16"], emu["bwd_bf16"], cfg, flat(x), wk,
+                                       flat(cot), 2)
+    assert part > 0
+    assert all(outs[h_].dtype == torch.bfloat16 for h_ in ("h1", "h2", "h3"))
+    # the forward: its output, and its saves against the plain forward's
+    _bf16_close(outs["xout"][-1], flat(want), "x_final")
+    with torch.no_grad():
+        xs, plain_saves = x.detach(), []
+        for lvl in range(L):
+            *hs, h4 = bc.bf16_sub_fwd(xs, {n: weights[n][lvl].detach() for n in bc.NAMES}, k)
+            plain_saves.append(hs)
+            xs = xs + h4
+    for i, name in enumerate(("h1", "h2", "h3")):
+        _saves_close(outs[name], torch.stack([hs[i] for hs in plain_saves]).reshape(L, R, m),
+                     name)
+    # the backward against the plain backward from the kernel's saves
+    shape = lambda t: t.reshape(L, b, h, w, -1).float()
+    d_x0, d_w = bc.bf16_chain_bwd(x.detach(), shape(outs["xout"]),
+                                  [shape(outs[n]) for n in ("h1", "h2", "h3")],
+                                  {n: weights[n].detach() for n in bc.NAMES}, cot, k)
+    for name, gp in zip(("x0", *bc.NAMES), grads_p):
+        key = "dx0" if name == "x0" else "d" + name
+        got = grads[-1][key]
+        assert got.dtype == torch.float32
+        _bf16_close(got.reshape(gp.shape), d_x0 if name == "x0" else d_w[name], name)
+        _bf16_close(got.reshape(gp.shape), gp, name, END_TOL)
         assert torch.equal(grads[0][key], got), f"{name}: a relaunch changed the bits"

@@ -24,11 +24,11 @@ def test_kernel_variant_is_the_source():
 @pytest.mark.parametrize("name,gone,kept", [
     ("one_pass", [SMALL_BIG, BIG_SMALL], [BIG_BIG, "split_tf32("]),
     ("skeleton", [SMALL_BIG, BIG_SMALL, BIG_BIG], ["stage_b(", "gather(ca, sA);"]),
-    ("no_a_loads", ["x = ldg4(", "a = __ldg(", "va[v] = ok ? __ldg("], [BIG_BIG, "cp.async.cg"]),
+    ("no_a_loads", ["x = ldg4(", "a = src_at(", "va[v] = ok ? src_at("], [BIG_BIG, "cp.async.cg"]),
     ("no_b_copies", ['  asm volatile("cp.async.cg'], [BIG_BIG, "if (ok && v < lim) x = ldg4("]),
     ("no_sync", ["__syncthreads();  // chunk c"], [BIG_BIG, "cp_async_wait_ring<"]),
-    ("bwd_data", ["  // ---- weight gradients"], ["launch_wgrad<M>(", "z_bwd<C, LD>"]),
-    ("bwd_wgrad", ["for (int l = L - 1; l >= 0; --l)"], ["launch_wgrad<M>(", "bias_sums"]),
+    ("bwd_data", ["  // ---- weight gradients"], ["launch_wgrad_dt<M>(", "z_bwd<C, LD>"]),
+    ("bwd_wgrad", ["for (int l = L - 1; l >= 0; --l)"], ["launch_wgrad_dt<M>(", "bias_sums"]),
 ])
 def test_variant_takes_its_part_away(name, gone, kept):
     text = _text(name)
@@ -72,7 +72,7 @@ def test_block_variant_changes_the_core_or_the_backward(name):
     assert changed == want
     bwd = new["block_chain_bwd.cu"]
     if name == "bwd_data":
-        assert "  // ---- weight gradients" not in bwd and "launch_wgrad<M>(" in bwd
+        assert "  // ---- weight gradients" not in bwd and "launch_wgrad_dt<M>(" in bwd
     if name == "bwd_wgrad":
         assert "for (int l = L - 1; l >= 0; --l)" not in bwd and "bias_sums" in bwd
 

@@ -34,7 +34,7 @@ from posterior_matching_torch.config import (
 from posterior_matching_torch.models.pm_vqvae import PMVQVAE
 from posterior_matching_torch.models.vae import PosteriorMatchingVAE
 from posterior_matching_torch.models.vdvae import PosteriorMatchingVDVAE
-from posterior_matching_torch.train.optim import Adam
+from posterior_matching_torch.train.optim import Adam, ClippedAdam, GroupedClippedAdam
 from posterior_matching_torch.train.trainer import (
     Trainer,
     pm_vae_trainer,
@@ -127,14 +127,34 @@ def test_vdvae_fused_chain_options_are_taken():
 @pytest.mark.parametrize("option", [{"compute_dtype": "bfloat16"}, {"remat": True},
                                     {"fused_chain": "interpret"}])
 def test_vdvae_tpu_options_are_refused(option):
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        PosteriorMatchingVDVAE.from_config(dict(PM_VDVAE_MNIST, **option), device="cpu")
+    """Of the JAX package's TPU options only ``fused_chain="interpret"``
+    (its CPU test mode) is refused; ``compute_dtype`` bfloat16 and
+    ``remat`` are ported and taken."""
+    if "fused_chain" in option:
+        with pytest.raises(NotImplementedError, match="fused_chain"):
+            PosteriorMatchingVDVAE.from_config(dict(PM_VDVAE_MNIST, **option), device="cpu")
+        return
+    model = PosteriorMatchingVDVAE.from_config(dict(PM_VDVAE_MNIST, **option), device="cpu")
+    assert model.encoder.remat == model.masked_encoder.remat == bool(option.get("remat"))
+    cdtype = torch.bfloat16 if "compute_dtype" in option else torch.float32
+    assert model.encoder.cdtype == model.decoder.cdtype == cdtype
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        PosteriorMatchingVDVAE.from_config(dict(PM_VDVAE_MNIST, compute_dtype="float16"),
+                                           device="cpu")
 
 
 def test_vdvae_flat_optimizer_is_refused():
+    """``flat_optimizer`` is ported: the trainer takes it and runs the
+    clipped Adam chain under group_by_shape."""
     model = PosteriorMatchingVDVAE.from_config(PM_VDVAE_MNIST, device="cpu")
-    with pytest.raises(NotImplementedError, match="flat_optimizer"):
-        pm_vdvae_trainer(model, dict(PM_VDVAE_MNIST_TRAIN, flat_optimizer=True), device="cpu")
+    trainer = pm_vdvae_trainer(model, dict(PM_VDVAE_MNIST_TRAIN, flat_optimizer=True),
+                               device="cpu")
+    trainer.init()
+    assert isinstance(trainer.optimizer, GroupedClippedAdam)
+    plain = pm_vdvae_trainer(model, PM_VDVAE_MNIST_TRAIN, device="cpu")
+    plain.init()
+    assert type(plain.optimizer) is ClippedAdam
 
 
 @pytest.mark.parametrize("main", [eval_pm_vqvae.main, eval_pm_vdvae_imputation.main,

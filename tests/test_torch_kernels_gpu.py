@@ -35,7 +35,12 @@ at 32 x 4 x 4 and at ragged rows, their backwards relaunched bit for bit;
 a digits16 PM-VQVAE step per chain mode against the CPU; a width that was
 not built (96) refused by name. Tolerance: 1e-4 relative to the tensor's scale (float32 sums in another
 order), for the chains' gradients too (their sums run over at most a few
-thousand rows here).
+thousand rows here). The VDVAE chains' bf16 builds (``compute_dtype``
+bfloat16) at both geometries and three run shapes each, forward, saves
+and backward against their plain versions (the bars below
+``BF16_TOL``), relaunched bit for bit and through autograd with their own
+counters; a build refusing the other dtype; and a digits16 bf16 step,
+unfused and fused, against the CPU.
 """
 import pytest
 import torch
@@ -1002,3 +1007,204 @@ def test_pm_vdvae_digits16_step_matches_cpu(dev, fused_chain):
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for a, w in zip(gg, gc_):
         assert _close(a, w)
+
+
+# ---------------------------------------------------------------------------
+# The VDVAE chains' bf16 builds (compute_dtype bfloat16)
+# ---------------------------------------------------------------------------
+
+# Both versions round the same float32 values to bf16. A value that lies
+# within their float32 sums' difference (~1e-6) of a bf16 boundary rounds
+# the other way (one ulp, 2^-8 of it), which moves the outputs of the
+# products it enters by up to ~1e-3 of their scale, and each level carries
+# that on. So each tensor within BF16_TOL of its scale (a wrong tap, mask
+# or layout shows as O(1)). What shows that the products ran in bf16 is the
+# saves: against the plain forward of the same level on the kernel's level
+# input they are equal but for at most SAVE_FLIPS of them, where a level
+# run in float32 would change a third of them (tests/test_torch_vdvae_
+# bf16.py::test_saves_tell_bf16_from_float32). The backward kernel is held
+# against the plain backward on the kernel's own saves; the whole through
+# autograd within BF16_END_TOL.
+BF16_TOL, SAVE_FLIPS, BF16_END_TOL = 5e-3, 0.05, 1e-2
+
+
+def _bf16_close(got, want, tol=BF16_TOL):
+    err = (got.float() - want.float().reshape(got.shape)).abs()
+    return err.max().item() <= tol * max(1.0, want.abs().max().item())
+
+
+def _saves_close(got, want):
+    """bf16 saves equal to the plain level's values rounded but for at most
+    SAVE_FLIPS of them, each within 2^-6 of the tensor's scale (a value
+    rounded the other way, or a later product moved by an operand that
+    was)."""
+    got, want = got.float(), bc.round_bf16(want.reshape(got.shape))
+    share = (got != want).float().mean().item()
+    worst = (got - want).abs().max().item() / max(1e-30, want.abs().max().item())
+    assert share <= SAVE_FLIPS and worst <= 2.0 ** -6, (share, worst)
+    return True
+
+
+@pytest.mark.parametrize("c,m", bc.KERNEL_WIDTHS)
+@pytest.mark.parametrize("b,h,w,L,k", [(2, 7, 5, 3, 3), (16, 1, 1, 2, 1), (20, 9, 9, 2, 3)])
+def test_bf16_block_chain_kernels_match_plain(dev, b, h, w, L, k, c, m):
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + h + L + c + 16)
+    x, weights = _block_chain_case(gen, b, h, w, L, k, c, m)
+    cfg = bc.ChainConfig(x, L, m, k, torch.bfloat16)
+    R = cfg.rows
+    x0, cot = x.reshape(R, c), _rand(gen, b, h, w, c)
+    wk = {n: weights[n].to(cfg.dtype_of(n)).contiguous() for n in bc.NAMES}
+    with torch.no_grad():
+        outs = [bc.chain_fwd_bf16(cfg, x0, wk) for _ in range(2)]
+        saved = {"x0": x0, **outs[0]}
+        grads = [bc.chain_bwd_bf16(cfg, cot.reshape(R, c), saved, wk) for _ in range(2)]
+        want = bc.block_chain_plain(x, weights, mid=m, k=k, compute_dtype=torch.bfloat16)
+        shape = lambda t: t.reshape(L, b, h, w, -1).float()
+        # each level's plain forward on the kernel's level input
+        plain_saves = [bc.bf16_sub_fwd(shape(outs[0]["xout"])[lvl - 1] if lvl else x,
+                                       {n: weights[n][lvl] for n in bc.NAMES}, k)[:3]
+                       for lvl in range(L)]
+        d_x0, d_w = bc.bf16_chain_bwd(x, shape(outs[0]["xout"]),
+                                      [shape(outs[0][n]) for n in ("h1", "h2", "h3")],
+                                      weights, cot, k)
+    torch.cuda.synchronize()
+    assert all(outs[0][n].dtype == torch.bfloat16 for n in ("h1", "h2", "h3"))
+    assert _bf16_close(outs[0]["xout"][-1], want)
+    for i, n in enumerate(("h1", "h2", "h3")):
+        assert _saves_close(outs[0][n], torch.stack([s[i] for s in plain_saves]).reshape(L, R, m)), n
+    assert _bf16_close(grads[0]["dx0"], d_x0.reshape(R, c))
+    for n in bc.NAMES:
+        assert grads[0]["d" + n].dtype == torch.float32 and _bf16_close(grads[0]["d" + n],
+                                                                        d_w[n]), n
+    for a, b_ in (outs, grads):
+        for n in a:
+            assert torch.equal(a[n], b_[n]), f"{n}: a relaunch changed the bits"
+    # end to end through autograd, the bf16 build's counters
+    leaves = [x, *(weights[n] for n in bc.NAMES)]
+    for t in leaves:
+        t.requires_grad_(True)
+    f0, b0 = bc.chain_fwd_bf16.launches, bc.chain_bwd_bf16.launches
+    got = bc.block_chain(x, weights, mid=m, k=k, compute_dtype=torch.bfloat16)
+    grads_k = torch.autograd.grad(got, leaves, cot)
+    assert bc.chain_fwd_bf16.launches == f0 + 1 and bc.chain_bwd_bf16.launches == b0 + 1
+    plain = bc.block_chain_plain(x, weights, mid=m, k=k, compute_dtype=torch.bfloat16)
+    for name, gk, gp in zip(("x", *bc.NAMES), grads_k, torch.autograd.grad(plain, leaves, cot)):
+        assert _bf16_close(gk, gp, BF16_END_TOL), name
+
+
+@pytest.mark.parametrize("c,m,ld", dc.KERNEL_GEOMETRIES)
+@pytest.mark.parametrize("b,h,w,L,k", [(2, 7, 5, 3, 3), (16, 1, 1, 2, 1), (20, 9, 9, 2, 3)])
+def test_bf16_decoder_chain_kernels_match_plain(dev, b, h, w, L, k, c, m, ld):
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + h + L + c + 17)
+    (x0, acts, macts), eps, weights = _decoder_chain_case(gen, b, h, w, L, k, c, m, ld)
+    cfg = dc.DecConfig(x0, acts, L, m, ld, k, torch.bfloat16)
+    inputs = _dec_flat(cfg, x0, acts, macts, eps, weights)
+    inputs.update({n: inputs[n].to(cfg.dtype_of(n)).contiguous() for n in dc.NAMES})
+    shapes = cfg.shapes()
+    cot5 = [_rand(gen, b, h, w, c), *(_rand(gen, L, b, h, w, shapes[n][-1])
+                                      for n in ("post", "prior", "masked"))]
+    cots = {"g": cot5[0].reshape(shapes["x0"]),
+            **{g: t.reshape(shapes[n]) for g, n, t in zip(
+                ("gpost", "gprior", "gmask"), ("post", "prior", "masked"), cot5[1:])}}
+    wk = {n: inputs[n] for n in dc.NAMES}
+    with torch.no_grad():
+        outs = [dc.dec_fwd_bf16(cfg, inputs) for _ in range(2)]
+        saved = {n: {**inputs, **outs[0]}[n] for n in cfg.saved}
+        grads = [dc.dec_bwd_bf16(cfg, cots, saved, wk) for _ in range(2)]
+        want = dc.dec_chain_plain(x0, acts, macts, eps, weights, ld=ld, k=k,
+                                  compute_dtype=torch.bfloat16)
+        shape = lambda t: t.reshape(L, b, h, w, -1).float()
+        d_x0, d_acts, d_macts, d_w = dc.bf16_dec_chain_bwd(
+            x0, acts, macts, eps, shape(outs[0]["xout"]),
+            [shape(outs[0][s]) for s in dc.SAVES], weights, cot5, ld=ld, k=k)
+    torch.cuda.synchronize()
+    assert all(outs[0][s].dtype == torch.bfloat16 for s in dc.SAVES)
+    for name, ref in zip(("xout", "post", "prior", "masked"), want):
+        got = outs[0][name][-1] if name == "xout" else outs[0][name]
+        assert _bf16_close(got, ref), name
+    # each level's saves against its plain Blocks on the kernel's level
+    # input and u
+    with torch.no_grad():
+        for lvl in range(L):
+            x_in = shape(outs[0]["xout"])[lvl - 1] if lvl else x0
+            wl = {n: weights[n][lvl] for n in dc.NAMES}
+            blk = lambda tag: {n: wl[f"{tag}_{n}"] for n in bc.NAMES}
+            for tag, inp in (("p", torch.cat([x_in, acts], -1)), ("m", torch.cat([x_in, macts], -1)),
+                             ("q", x_in), ("r", shape(outs[0]["u"])[lvl])):
+                for i, hs in enumerate(bc.bf16_sub_fwd(inp, blk(tag), k)[:3]):
+                    assert _saves_close(outs[0][f"{tag}h{i + 1}"][lvl], hs.reshape(-1, m)), tag
+    plain = {"dx0": d_x0, "dacts": d_acts, "dmacts": d_macts,
+             **{"d" + n: d_w[n] for n in dc.NAMES}}
+    for name, ref in plain.items():
+        got = grads[0][name]
+        assert got.dtype == torch.float32 and _bf16_close(got, ref.reshape(got.shape)), name
+    for a, b_ in (outs, grads):
+        for n in a:
+            assert torch.equal(a[n], b_[n]), f"{n}: a relaunch changed the bits"
+    # end to end through autograd, the bf16 build's counters
+    leaves = [x0, acts, macts, *(weights[n] for n in dc.NAMES)]
+    for t in leaves:
+        t.requires_grad_(True)
+    f0, b0 = dc.dec_fwd_bf16.launches, dc.dec_bwd_bf16.launches
+    got = dc.dec_chain(x0, acts, macts, eps, weights, mid=m, ld=ld, k=k,
+                       compute_dtype=torch.bfloat16)
+    grads_k = torch.autograd.grad(got, leaves, cot5)
+    assert dc.dec_fwd_bf16.launches == f0 + 1 and dc.dec_bwd_bf16.launches == b0 + 1
+    ref = dc.dec_chain_plain(x0, acts, macts, eps, weights, ld=ld, k=k,
+                             compute_dtype=torch.bfloat16)
+    for name, gk, gp in zip(("x0", "acts", "macts", *dc.NAMES), grads_k,
+                            torch.autograd.grad(ref, leaves, cot5)):
+        assert _bf16_close(gk, gp, BF16_END_TOL), name
+
+
+def test_bf16_chain_builds_refuse_float32_runs(dev):
+    """A bf16 build refuses a float32 geometry, and a float32 build a bf16
+    one (the geometry's BF flag), so no call reads one dtype as the other."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x, weights = _block_chain_case(gen, 2, 4, 4, 2, 3)
+    cfg = bc.ChainConfig(x, 2, 48, 3)
+    cfg.fwd_lib = "block_chain_fwd_bf16"
+    with pytest.raises(RuntimeError, match="block_chain_fwd_bf16"):
+        bc.chain_fwd(cfg, x.reshape(cfg.rows, 192), weights)
+    cfg16 = bc.ChainConfig(x, 2, 48, 3, torch.bfloat16)
+    cfg16.fwd_lib = "block_chain_fwd"
+    with pytest.raises(RuntimeError, match="block_chain_fwd"):
+        bc.chain_fwd_bf16(cfg16, x.reshape(cfg.rows, 192),
+                          {n: t.to(cfg16.dtype_of(n)) for n, t in weights.items()})
+
+
+@pytest.mark.parametrize("fused_chain", [None, True])
+def test_pm_vdvae_digits16_bf16_step_matches_cpu(dev, fused_chain):
+    """A digits16 step at compute_dtype bfloat16 through the bf16 builds
+    (unfused Blocks as bf16 cuBLAS / cuDNN products) against the plain path
+    on the CPU, the same normals: the loss within 1e-3 relative, every
+    gradient within 5e-2 of its scale (bf16 roundings at other places in the
+    two libraries' unfused convolutions, and the chains' flipped saves)."""
+    from posterior_matching_torch import convert
+    from posterior_matching_torch.models.vdvae import parse_layer_string
+    from posterior_matching_torch.train.trainer import pm_vdvae_loss
+
+    config = dict(DIGITS16, fused_chain=fused_chain, compute_dtype="bfloat16")
+    tree = convert.random_pm_vdvae_tree(config, seed=5)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randint(0, 256, (4, 16, 16, 1), generator=g).float()
+    b = (torch.rand(4, 16, 16, 1, generator=g) > 0.5).float()
+    eps = [torch.randn(4, r, r, 8, generator=g)
+           for r, _ in parse_layer_string(DIGITS16["decoder_blocks"])]
+    counters = (bc.chain_fwd_bf16, bc.chain_bwd_bf16, dc.dec_fwd_bf16, dc.dec_bwd_bf16)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        m = convert.pm_vdvae_from_jax(tree, config, device=d)
+        before = [c.launches for c in counters]
+        loss = pm_vdvae_loss(m, {"image": x.to(d), "mask": b.to(d)}, iter(eps))
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        out[d.type] = (loss.item(), [gr.cpu() for gr in grads],
+                       [c.launches - n for c, n in zip(counters, before)])
+    (lg, gg, launches), (lc, gc_, _) = out["cuda"], out["cpu"]
+    # bf16 fuses runs of 16 rows or more: 16x3, 8x3 and 4x2 (64 rows) in
+    # each encoder, not 1x2 (4 rows); fused, the decoder's 4-, 8- and 16-runs
+    dec = 3 if fused_chain else 0
+    assert launches == [6, 6, dec, dec]
+    assert abs(lg - lc) <= 1e-3 * abs(lc)
+    for a, w in zip(gg, gc_):
+        assert _bf16_close(a, w, 5e-2)

@@ -42,6 +42,8 @@ _HELPERS = {
     "lds4": "return *reinterpret_cast<const float4*>(g_smem_base + addr);",
     "fence_proxy_async": "",
     "mma_tf32": "emu_mma_tf32(d, a, b);",
+    "mma_bf16": "emu_mma_bf16(d, a, b);",
+    "pack_bf16": "return emu_pack_bf16(lo, hi);",
     "cp_async16": "emu_cp_async16(dst, src, bytes);",
     "cp_async4": "emu_cp_async4(dst, src, bytes);",
     "cp_async_commit": "",
@@ -171,3 +173,7 @@ def test_emulation_replaces_every_ptx_helper():
     gated = (_build.CSRC / "gated_common.cuh").read_text()
     assert "asm(" in gated and "asm" not in _replace_helpers(gated, "gated_common.cuh")
     assert "asm" not in (_build.CSRC / "gated_levels.cuh").read_text()
+    # the VDVAE chains' core: its TF32 and bf16 MMAs and the bf16 rounding
+    core = _replace_helpers((_build.CSRC / "vdvae_gemm.cuh").read_text(), "vdvae_gemm.cuh")
+    for helper in ("mma_tf32", "mma_bf16", "pack_bf16", "cp_async16"):
+        assert f"emu_{helper}(" in core, helper
