@@ -4118,6 +4118,391 @@ def bf16_phase(args, gen, work, f32_lines):
                                     for r in dec_runs_]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the PM-VQVAE in bf16, the gated chain's bf16 builds
+# ---------------------------------------------------------------------------
+
+# The gated chain's bf16 builds against their plain bf16 versions. Here the
+# residual stream itself is bf16 (every level's output rounded), so a value
+# that the kernel's and the plain version's float32 sums put on the two
+# sides of a bf16 boundary moves by one ulp (2^-8 of it) and the later
+# levels carry that on: each output and gradient within GATED_BF16_TOL of
+# its scale at the worst and GATED_BF16_MEAN on average (the JAX package's
+# bf16 gradient tolerance is 2e-2); the saves, against the plain level on
+# the kernel's own level input, equal but for at most SAVE_FLIPS of them;
+# the backward against the plain backward on the kernel's own saves; a
+# relaunch bit for bit.
+GATED_BF16_TOL, GATED_BF16_MEAN = 2e-2, 2e-3
+PMVQ_BF16_STEPS = 2
+# bf16 against float32 from the same weights: the first step's loss (the
+# log-likelihood of random weights moves ~1e-3 relative in bf16) within
+# PMVQ_BF16_STEP_TOL, and, as a sanity bar only, the CLI's validation loss
+# after 2 steps within PMVQ_BF16_LOSS_TOL: from this init the loss
+# overshoots before it falls, and Adam's first steps move every weight by
+# about the learning rate in its gradient's sign, which bf16 can flip where
+# a gradient is near 0 (on an H100, 7-9% apart at step 2).
+PMVQ_BF16_STEP_TOL, PMVQ_BF16_LOSS_TOL = 1e-2, 0.25
+GATED_BF16_DESIGN = ("the float32 build's GEMM core with -DPM_CORE_BF16=1: every product "
+                     "mma.sync m16n8k16 bf16 with float32 sums (A rounded as it is staged "
+                     "after concat_elu and the mask, bf16 weights by cp.async, the cotangent "
+                     "rows rounded at the fragment load); activations, saves and their "
+                     "cotangents bf16 beside float32 scratch")
+# (kind, fwd line, bwd line) of posterior_matching_tpu/ops/gated_chain.py
+GATED_KINDS = (("stream", 1337, 1407), ("pair", 305, 368), ("segment", 801, 861))
+
+
+def gated_bf16_counters():
+    """The gated chain's bf16 builds' wrappers, whose ``launches`` count
+    them."""
+    from posterior_matching_torch.ops import gated_chain as gc
+
+    return {"gated_stream_fwd_bf16": gc.stream_fwd_bf16,
+            "gated_stream_bwd_bf16": gc.stream_bwd_bf16,
+            "gated_pair_fwd_bf16": gc.pair_fwd_bf16, "gated_pair_bwd_bf16": gc.pair_bwd_bf16,
+            "gated_segment_fwd_bf16": gc.seg_fwd_bf16,
+            "gated_segment_bwd_bf16": gc.seg_bwd_bf16}
+
+
+def gated_bf16_check(pcnn, codes, cond, kind, seed):
+    """One bf16 chain kernel pair at the model's shapes, keep its dropout:
+    the stream over the up pass, the pair at the first down level, the
+    segment over the last SEGMENT-or-fewer down levels (a short tail where
+    SEGMENT does not divide num_resnet), the down levels' skips and inputs
+    the kernels' own up pass. Returns the forward's and backward's
+    (max abs error, ms, plain ms, operations, bytes, float32 build ms) and
+    the worst errors and save flips."""
+    from posterior_matching_torch.ops import gated_chain as gc
+    from posterior_matching_torch.ops.profiling import time_ms
+
+    bf = torch.bfloat16
+    n, f, rf = pcnn.num_resnet, pcnn.num_filters, pcnn.receptive_field_dims
+    keep, taps = 1.0 - pcnn.dropout, gc.chain_taps(rf)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 43)
+    with torch.no_grad():
+        xv0, xh0 = (t.contiguous() for t in pcnn.init_stacks(codes))
+        pack = lambda d, p: {k: v.detach().contiguous() for k, v in
+                             gc.pack_level(pcnn.layers, d, p, f, d == "dn", rf).items()}
+        up = [pack("up", p) for p in range(n)]
+        cfg_up = gc.StreamConfig(xv0, cond, n, False, keep, seed, 0, taps, bf)
+        up_out = gc.stream_fwd_bf16(cfg_up, xv0, xh0, None, cond,
+                                    gc._kernel_weights(cfg_up, gc.stack_levels(up)))
+    shape = xv0.shape
+    xs_v = [xv0, *(t.view(shape) for t in up_out["xvo"])]
+    xs_h = [xh0, *(t.view(shape) for t in up_out["xho"])]
+    if kind == "stream":
+        lv, base, ws, sk, (xv, xh) = range(n), 0, up, None, (xv0, xh0)
+    else:
+        first = 0 if kind == "pair" else (n - 1) // SEGMENT * SEGMENT
+        lv = range(first, first + 1 if kind == "pair" else n)
+        base, ws = n + first, [pack("dn", p) for p in lv]
+        sk = [(xs_v[n - 1 - p].contiguous(), xs_h[n - 1 - p].contiguous()) for p in lv]
+        xv, xh = xs_v[n - first], xs_h[n - first]
+    n_lvl = len(ws)
+    cfg = gc.StreamConfig(xv, cond, n_lvl, sk is not None, keep, seed, base, taps, bf)
+    cfg32 = gc.StreamConfig(xv, cond, n_lvl, sk is not None, keep, seed, base, taps)
+    masks = [tuple(gc.dropout_keep_mask(seed, 2 * (base + l) + s, *shape[:3], 2 * f, keep,
+                                        DEVICE) for s in (0, 1)) for l in range(n_lvl)]
+    gs = [tuple(torch.randn(shape, generator=gen, device=DEVICE).to(bf) for _ in range(2))
+          for _ in range(n_lvl)]
+    if kind == "stream":
+        fwd_k, bwd_k = gc.stream_fwd_bf16, gc.stream_bwd_bf16
+        fwd32, bwd32 = gc.stream_fwd, gc.stream_bwd
+        w16 = gc._kernel_weights(cfg, gc.stack_levels(ws))
+        w32 = gc.stack_levels(ws)
+        gv, gh = (torch.stack([g[i] for g in gs]).reshape(n_lvl, cfg.rows, f) for i in (0, 1))
+
+        def run_fwd(c, fn, w, x):
+            return fn(c, x[0], x[1], None, cond, w)
+
+        def run_bwd(c, fn, w, x, saves, g):
+            saved = {"xv0": x[0], "xh0": x[1], "cond": cond, **saves}
+            return fn(c, g[0], g[1], saved, {k: v for k, v in w.items() if k[0] != "b"})
+
+        per_level = lambda o: [{k: o[k][l].view(*shape[:3], -1) for k in gc._SAVES}
+                               for l in range(n_lvl)]
+        gargs = (gv, gh)
+    else:
+        fwd_k, bwd_k = (gc.pair_fwd_bf16, gc.pair_bwd_bf16) if kind == "pair" else (
+            gc.seg_fwd_bf16, gc.seg_bwd_bf16)
+        fwd32, bwd32 = (gc.pair_fwd, gc.pair_bwd) if kind == "pair" else (gc.seg_fwd, gc.seg_bwd)
+        w16 = [gc._kernel_weights(cfg, w) for w in ws]
+        w32 = ws
+
+        def run_fwd(c, fn, w, x):
+            s = sk if c.bf16 else [tuple(t.float() for t in p) for p in sk]
+            return fn(c, x[0], x[1], s, cond, w)
+
+        def run_bwd(c, fn, w, x, saves, g):
+            s = sk if c.bf16 else [tuple(t.float() for t in p) for p in sk]
+            return fn(c, g, x[0], x[1], cond, s, saves, w)
+
+        per_level = lambda o: o
+        gargs = gs
+    with torch.no_grad():
+        outs = run_fwd(cfg, fwd_k, w16, (xv, xh))
+        grads = run_bwd(cfg, bwd_k, w16, (xv, xh), outs, gargs)
+        outs2 = run_fwd(cfg, fwd_k, w16, (xv, xh))
+        grads2 = run_bwd(cfg, bwd_k, w16, (xv, xh), outs, gargs)
+        flat = lambda t: ([v for v in t.values()] if isinstance(t, dict) else
+                          [v for d in t for v in (d.values() if isinstance(d, dict) else
+                                                  flat(d))])
+        check(all(torch.equal(a, b) for a, b in zip(flat(outs), flat(outs2)))
+              and all(torch.equal(a, b) for a, b in zip(flat(grads), flat(grads2))),
+              f"gated_{kind} bf16 F {f}: a relaunch changed the bits")
+        del outs2, grads2
+        lvl_saves = per_level(outs)
+        # the plain chain from the same inputs, and each level's saves
+        # against the plain level on the kernel's own level input
+        want = gc.gated_segment_plain(xv, xh, sk, cond, ws, keep=keep, masks=masks, taps=taps,
+                                      compute_dtype=bf)
+        fwd_err, fwd_rel, fwd_mean, shares = 0.0, 0.0, 0.0, []
+        xs = [(xv, xh)] + [(s["xvo"], s["xho"]) for s in lvl_saves]
+        for l in range(n_lvl):
+            for i, name in enumerate(("xvo", "xho")):
+                e = bf16_err(lvl_saves[l][name], want[l][i])
+                fwd_err, fwd_rel, fwd_mean = max(fwd_err, e[0]), max(fwd_rel, e[1]), max(
+                    fwd_mean, e[2])
+            ref_v, ref_h, ref = gc.bf16_level_fwd(
+                xs[l][0].float(), xs[l][1].float(),
+                None if sk is None else tuple(t.float() for t in sk[l]), cond, ws[l],
+                *masks[l], taps, keep)
+            for name, r in zip(gc._SAVES, (ref_v, ref_h, *ref)):
+                shares.append(bf16_saves_check(lvl_saves[l][name], r,
+                                               f"gated_{kind}_fwd_bf16 F {f} level {l} {name}"))
+        check(fwd_rel <= GATED_BF16_TOL and fwd_mean <= GATED_BF16_MEAN,
+              f"gated_{kind}_fwd_bf16 F {f}: outputs {fwd_rel:.3e} / {fwd_mean:.3e} of scale "
+              "from the plain bf16 chain")
+        # the backward against the plain backward on the kernel's saves
+        saves4 = [tuple(s[k] for k in ("a1v", "a1h", "b1v", "b1h")) for s in lvl_saves]
+        (dxv, dxh), dsk, dcond, dws = gc.bf16_levels_bwd(
+            gs, xs, sk, cond, ws, saves4, masks, keep, taps, kind == "stream")
+        if kind == "stream":
+            kd = {"dxv0": grads["dxv0"], "dxh0": grads["dxh0"], "dcond": grads["dcond"],
+                  **{f"d{k}{l}": grads["d" + k][l] for l in range(n_lvl) for k in ws[0]}}
+        else:
+            head, per = grads
+            kd = {**head, **{f"d{k}{l}": per[l]["d" + k] for l in range(n_lvl) for k in ws[0]},
+                  **{f"dsk{i}{l}": per[l]["dsk" + "vh"[i]] for l in range(n_lvl)
+                     for i in (0, 1) if sk is not None}}
+        pd = {"dxv0": dxv, "dxh0": dxh, "dcond": dcond,
+              **{f"d{k}{l}": dws[l][k] for l in range(n_lvl) for k in ws[0]},
+              **{f"dsk{i}{l}": dsk[l][i] for l in range(n_lvl) for i in (0, 1)
+                 if sk is not None}}
+        bwd_err, worst = 0.0, ("", 0.0, 0.0)
+        for name, ref in pd.items():
+            e = bf16_err(kd[name], ref)
+            bwd_err, worst = max(bwd_err, e[0]), max(worst, (name, e[1], e[2]),
+                                                     key=lambda t: t[1])
+        check(worst[1] <= GATED_BF16_TOL and worst[2] <= GATED_BF16_MEAN,
+              f"gated_{kind}_bwd_bf16 F {f}: {worst[0]} {worst[1]:.3e} / {worst[2]:.3e} of "
+              "scale from the plain backward on the kernel's saves")
+        gap = max(bf16_err(want[-1][i], ref32) for i, ref32 in enumerate(
+            gc.gated_segment_plain(xv.float(), xh.float(),
+                                   None if sk is None else [tuple(t.float() for t in p)
+                                                            for p in sk],
+                                   cond, ws, keep=keep, masks=masks, taps=taps)[-1]))
+        # times: the bf16 build, its plain version, the float32 build on the
+        # same values in float32
+        x32 = (xv.float(), xh.float())
+        outs32 = run_fwd(cfg32, fwd32, w32, x32)
+        g32 = [tuple(t.float() for t in g) for g in gs] if kind != "stream" else tuple(
+            t.float() for t in gargs)
+        fwd_ms = time_ms(lambda: run_fwd(cfg, fwd_k, w16, (xv, xh)), reps=10, warmup=2)
+        bwd_ms = time_ms(lambda: run_bwd(cfg, bwd_k, w16, (xv, xh), outs, gargs), reps=10,
+                         warmup=2)
+        fwd32_ms = time_ms(lambda: run_fwd(cfg32, fwd32, w32, x32), reps=10, warmup=2)
+        bwd32_ms = time_ms(lambda: run_bwd(cfg32, bwd32, w32, x32, outs32, g32), reps=10,
+                           warmup=2)
+        fwd_plain = time_ms(lambda: gc.gated_segment_plain(
+            xv, xh, sk, cond, ws, keep=keep, masks=masks, taps=taps, compute_dtype=bf), reps=3)
+        bwd_plain = time_ms(lambda: gc.bf16_levels_bwd(
+            gs, xs, sk, cond, ws, saves4, masks, keep, taps, kind == "stream"), reps=3)
+    ins = [xv, xh, cond, *flat(w16), *(t for p in (sk or ()) for t in p)]
+    fwd_bytes = nbytes(*ins, *flat(outs))
+    bwd_bytes = nbytes(*(t for g in gs for t in g), *ins, *flat(outs), *flat(grads))
+    (ff, fb), (bfl, bb) = stream_work(cfg, fwd_bytes, bwd_bytes)
+    log(f"gated_{kind} bf16 F {f} (L = {n_lvl}): outputs {fwd_rel:.3e} / {fwd_mean:.3e} of "
+        f"scale (max / mean) from the bf16 plain chain, which lies {gap[1]:.3e} / {gap[2]:.3e} "
+        f"from the float32 one; saves differing {max(shares):.4f}; {len(pd)} gradients "
+        f"against the plain backward on the kernel's saves worst {worst[1]:.3e} / "
+        f"{worst[2]:.3e} ({worst[0]}); relaunched bit for bit; fwd {fwd_ms:.4f} ms (float32 "
+        f"build {fwd32_ms:.4f}, plain {fwd_plain:.3f}, bound "
+        f"{bound_bf16(ff, 0.0, fb)[0]:.4f}), bwd {bwd_ms:.4f} ms (float32 build "
+        f"{bwd32_ms:.4f}, plain {bwd_plain:.3f}, bound {bound_bf16(bfl, 0.0, bb)[0]:.4f})")
+    return {"levels": n_lvl, "save_flips": max(shares), "fwd_err": (fwd_rel, fwd_mean),
+            "bwd_err": worst, "bf16_vs_f32": gap[1:],
+            "fwd": (fwd_err, fwd_ms, fwd_plain, ff, fb, fwd32_ms),
+            "bwd": (bwd_err, bwd_ms, bwd_plain, bfl, bb, bwd32_ms)}
+
+
+def pmvq_bf16_phase(args, gen, celeb_a, work):
+    """Phase 20: the gated chain's bf16 builds (rows 4-9 of PERF.md's table)
+    at the full widths, 128 filters (PM-VQVAE CelebA, 16 x 16 codes, 12 + 12
+    levels, batch 32) and 64 (digits16, 4 x 4, 6 + 6), each against its
+    plain bf16 version; then the main path: ``train_pm_vqvae --config
+    pm_vqvae_celeb_a --config.compute_dtype bfloat16`` on phase 12's files
+    and stage-1 run, in each chain mode (every counter set to 0 just
+    before, the bf16 builds' launches exactly the expected ones and the
+    float32 builds' none), its validation loss beside phase 12's float32
+    run at the same step from the same seed and weights, and
+    ``eval_pm_vqvae`` on the bf16 stream run. Runs go under ``work``."""
+    from posterior_matching_torch import config, convert, eval_pm_vqvae, masking, train_pm_vqvae
+    from posterior_matching_torch.train.trainer import pm_vqvae_loss
+
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    results = {}
+    for name, (vq_cfg, pm) in {
+            "celeb_a": (config.VQVAE_CELEB_A, config.CONFIGS["pm_vqvae_celeb_a"]()),
+            "digits16": (config.CONFIGS["vqvae_digits16"]()["model"],
+                         config.CONFIGS["pm_vqvae_digits16"]())}.items():
+        pc_cfg = {**pm["pixel_cnn"], "num_indices": vq_cfg["num_embeddings"]}
+        cd = pm["conditional_dim"]
+        tree = convert.random_pm_vqvae_tree(cd, vq_cfg, pc_cfg, seed=args.seed)
+        model = convert.pm_vqvae_from_jax(*tree, cd, vq_cfg, pc_cfg, device=DEVICE,
+                                          compute_dtype="bfloat16")
+        f32 = convert.pm_vqvae_from_jax(*tree, cd, vq_cfg, pc_cfg, device=DEVICE)
+        pcnn = model.pixel_cnn
+        check(pcnn.compute_dtype == bf, f"the {name} model is not bf16")
+        shape = (BATCH, *(config.CELEB_A_IMAGE_SHAPE if name == "celeb_a" else DIGITS16_IMAGE))
+        mask_fn = masking.get_mask_generator(pm["data"]["mask_generator"], device=DEVICE)
+        batch = masking.add_mask({"image": torch.rand(shape, generator=gen, device=DEVICE)},
+                                 gen, mask_fn)
+        with torch.no_grad():
+            codes = model.vqvae.encoding_indices(batch["image"])
+            cond = model.conditional_latents(batch["image"], batch["mask"]).contiguous()
+            kept = (codes == f32.vqvae.encoding_indices(batch["image"])).float().mean().item()
+            step = [pm_vqvae_loss(m, batch, args.seed + 47, True).item() for m in (model, f32)]
+        check(abs(step[0] - step[1]) <= PMVQ_BF16_STEP_TOL * abs(step[1]),
+              f"{name}: the first step's loss {step[0]} in bf16 against {step[1]} in float32")
+        log(f"{name}: the bf16 VQ-VAE's codes equal the float32 one's at {kept:.4f} of "
+            f"{codes.numel()} positions (random weights from the seed); the first training "
+            f"step's loss {step[0]:.4f} in bf16 against {step[1]:.4f} in float32")
+        results[pcnn.num_filters] = {kind: gated_bf16_check(pcnn, codes, cond, kind, args.seed)
+                                     for kind, _, _ in GATED_KINDS}
+        results[pcnn.num_filters]["codes_kept"] = kept
+        results[pcnn.num_filters]["first_step_loss"] = step
+        del model, pcnn, f32
+    kernel_s = time.perf_counter() - t0
+
+    # ---- the main path: train_pm_vqvae in bf16, each chain mode ------------
+    stage2 = config.CONFIGS["pm_vqvae_celeb_a"]()
+    n, rows = stage2["pixel_cnn"]["num_resnet"], stage2["pixel_cnn"]["image_shape"][0]
+    steps = PMVQ_BF16_STEPS
+    n_val = 64 // stage2["data"]["val_batch_size"]
+    vqvae_dir, data = celeb_a["train_vqvae"]["run_dir"], f"{work}/celeb_a/data"
+    f32_line = [ln for ln in celeb_a["train_pm_vqvae"]["lines"] if ln.startswith("[step ")][0]
+    check(f32_line.startswith(f"[step {steps}/"),
+          f"phase 12's first validation is not at step {steps}: {f32_line}")
+    f32_val = line_value(f32_line, "val_loss")
+    counters = {**all_kernel_counters(), **bf16_counters(), **gated_bf16_counters()}
+    out, launches = {}, {}
+    for mode in ("stream", 1, SEGMENT):
+        per_step = {f"{k}_bf16": v for k, v in mode_launches(mode, n).items()
+                    if k != "vq_search"}
+        fwd, bwd = sorted(per_step)[1], sorted(per_step)[0]   # ..._bwd_bf16 sorts first
+        expected = dict.fromkeys(counters, 0)
+        expected.update({"vq_search": steps + n_val, fwd: per_step[fwd] * (steps + n_val),
+                         bwd: per_step[bwd] * steps, "sampler_vrow": rows,
+                         "sampler_row": rows})
+        cwd = f"{work}/pmvq_bf16_{mode}"
+        os.makedirs(cwd)
+        for c in counters.values():
+            c.launches = 0
+        with cli_env(cwd, data):
+            _, lines, wall = run_cli(f"train_pm_vqvae bf16 chain_segment={mode}",
+                                     train_pm_vqvae.main, [
+                                         "--config", "pm_vqvae_celeb_a", "--config.steps",
+                                         str(steps), "--config.validation_freq", str(steps),
+                                         "--config.seed", str(args.seed),
+                                         "--config.compute_dtype", "bfloat16",
+                                         "--config.vqvae_dir", vqvae_dir,
+                                         "--chain_segment", str(mode)])
+        launched = {k: c.launches for k, c in counters.items()}
+        check(launched == expected, f"train_pm_vqvae bf16 {mode} launched {launched}, "
+                                    f"not {expected}")
+        launches[str(mode)] = {k: v for k, v in launched.items() if v}
+        (run_dir,) = glob.glob(f"{cwd}/runs/pm-vqvae-celeb_a-*")
+        with open(f"{run_dir}/config.json") as fp:
+            written = json.load(fp)
+        check(written.get("compute_dtype") == "bfloat16",
+              f"config.json holds compute_dtype {written.get('compute_dtype')!r}")
+        val = [ln for ln in lines if ln.startswith("[step ")]
+        loss = line_value(val[-1], "val_loss") if val else float("nan")
+        check(len(val) == 1 and np.isfinite(loss)
+              and abs(loss - f32_val) <= PMVQ_BF16_LOSS_TOL * abs(f32_val),
+              f"train_pm_vqvae bf16 {mode}: validation loss {loss} against float32 {f32_val}")
+        out[str(mode)] = {"run_dir": run_dir, "wall_s": wall, "val_loss": loss,
+                          "launches": launches[str(mode)]}
+        log(f"train_pm_vqvae bf16 chain_segment={mode}: {steps} steps in {wall:.1f} s; "
+            f"validation loss {loss:.4f} at step {steps} against {f32_val:.4f} in float32 "
+            f"(phase 12, same seed and weights); launches {launches[str(mode)]}")
+
+    # ---- eval_pm_vqvae on the bf16 stream run -----------------------------
+    run_dir = out["stream"]["run_dir"]
+    loaded = convert.load_pm_vqvae(run_dir, device=DEVICE)
+    check(loaded.pixel_cnn.compute_dtype == bf and loaded.vqvae.decoder.dec_1.dtype == bf
+          and loaded.partial_encoder.encoder.enc_1.dtype == bf,
+          "load_pm_vqvae did not build the bf16 run's bf16 model")
+    del loaded
+    for c in counters.values():
+        c.launches = 0
+    with cli_env(f"{work}/pmvq_bf16_stream", data):
+        _, lines, ewall = run_cli("eval_pm_vqvae (bf16 run)", eval_pm_vqvae.main, [
+            "--run_dir", run_dir, "--dataset", "celeb_a", "--mask_generator",
+            "CelebAMaskGenerator", "--num_instances", str(BATCH), "--batch_size", str(BATCH),
+            "--num_samples", "2", "--num_trials", "1"])
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    check(launched == {"sampler_vrow": rows, "sampler_row": rows},
+          f"eval_pm_vqvae on the bf16 run launched {launched}")
+    res = imputation_results_check(run_dir, BATCH, 2, "eval_pm_vqvae bf16")
+    seconds = time.perf_counter() - t0
+    log(f"eval_pm_vqvae on the bf16 run: {ewall:.1f} s, PSNR {res['psnr_mean']:.3f}; phase 20 "
+        f"kernels {kernel_s:.1f} s, CLIs {seconds - kernel_s:.1f} s")
+
+    # the kernels-line entries: ms at 128 filters (the main path's width),
+    # the 64-filter build's beside
+    lines = []
+    for kind, fl, bl in GATED_KINDS:
+        run = "stream" if kind == "stream" else ("1" if kind == "pair" else str(SEGMENT))
+        for fb, line in (("fwd", fl), ("bwd", bl)):
+            r = results[128][kind][fb]
+            b_ms, b_by = bound_bf16(r[3], 0.0, r[4])
+            src = f"gated_stream_{fb}.cu" if kind == "stream" else f"gated_levels_{fb}.cu"
+            lines.append({
+                "name": f"gated_{kind}_{fb}_bf16", "route": "cuda",
+                "source": f"posterior_matching_torch/ops/csrc/{src}",
+                "replaces": f"posterior_matching_tpu/ops/gated_chain.py:{line}",
+                "launches": out[run]["launches"][f"gated_{kind}_{fb}_bf16"],
+                "launches_per_step": out[run]["launches"][f"gated_{kind}_{fb}_bf16"] / steps,
+                "max_abs_err": max(results[w][kind][fb][0] for w in results),
+                "ms": r[1], "plain_ms": r[2], "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "f32_ms": r[5], "design": GATED_BF16_DESIGN,
+                "per_shape": {str(w): {
+                    "levels": results[w][kind]["levels"], "ms": results[w][kind][fb][1],
+                    "f32_ms": results[w][kind][fb][5], "plain_ms": results[w][kind][fb][2],
+                    "bound_ms": bound_bf16(results[w][kind][fb][3], 0.0,
+                                           results[w][kind][fb][4])[0],
+                    "gflop": results[w][kind][fb][3] / 1e9, "mb": results[w][kind][fb][4] / 1e6,
+                    "err_max_mean": (results[w][kind]["fwd_err"] if fb == "fwd" else
+                                     results[w][kind]["bwd_err"][1:]),
+                    "save_flips": results[w][kind]["save_flips"],
+                    "bf16_vs_f32": results[w][kind]["bf16_vs_f32"]} for w in results},
+            })
+    for line in lines:
+        log(f"{line['name']}: {line['ms']:.4f} ms per launch in bf16 against "
+            f"{line['f32_ms']:.4f} in float32 at 128 filters (64: "
+            f"{line['per_shape']['64']['ms']:.4f} against {line['per_shape']['64']['f32_ms']:.4f}"
+            f"); plain bf16 {line['plain_ms']:.3f}, bound {line['bound_ms']:.4f} by "
+            f"{line['bound_by']}; {line['launches']} launches in its CLI run")
+    return lines, {"seconds": seconds, "kernel_s": kernel_s, "runs": out,
+                   "f32_val_loss": f32_val, "eval_wall_s": ewall, "eval_psnr": res["psnr_mean"],
+                   "checks": {str(w): {k: (v if k in ("codes_kept", "first_step_loss") else
+                                           {kk: vv for kk, vv in v.items()
+                                            if kk not in ("fwd", "bwd")})
+                                       for k, v in per.items()} for w, per in results.items()}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4322,7 +4707,12 @@ def main() -> int:
             line["launches_per_step"] = line["launches"] / BF16_STEPS
         log(f"phase 19: {bf16['seconds']:.1f} s | {smi}")
 
-    # ---- 20. results -------------------------------------------------------
+        # ---- 20. the PM-VQVAE in bf16: the gated chain's bf16 builds ----------
+        stamp("PM-VQVAE in bf16: the gated chain's bf16 builds, train_pm_vqvae, eval")
+        pmvq_bf16_lines, pmvq_bf16 = pmvq_bf16_phase(args, gen, celeb_a, work)
+        log(f"phase 20: {pmvq_bf16['seconds']:.1f} s | {smi}")
+
+    # ---- 21. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
@@ -4348,7 +4738,7 @@ def main() -> int:
                    "operands gathered into shared memory once a GEMM; weights "
                    "streamed by cp.async.bulk through 2 x 64 KB mbarrier slots; "
                    "8 samples x 4 columns a lane, split-K reduced in fixed order"},
-        vq_line, *chain_lines, *vdvae_lines, *digits16_lines, *bf16_lines,
+        vq_line, *chain_lines, *vdvae_lines, *digits16_lines, *bf16_lines, *pmvq_bf16_lines,
     ]
     summary = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -4357,6 +4747,7 @@ def main() -> int:
         "training": train, "vqvae_cli": vqvae_cli, "vdvae": vdvae, "kernels": kernels,
         "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval, "pm_vae": pm_vae,
         "vade": vade, "resume": resume, "digits16": digits16, "ranks": ranks, "bf16": bf16,
+        "pmvq_bf16": pmvq_bf16,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)

@@ -30,8 +30,8 @@ Copied from the JAX package's config files, which need ``ml_collections``:
   num_features`` is set by the CLI from the data's shape).
 
 Each whole-file configuration leaves ``seed`` None (a fresh draw unless
-set) and ``compute_dtype`` None (float32; the PM-VDVAE's may be set to
-bfloat16, the PM-VQVAE's not yet), and drops
+set) and ``compute_dtype`` None (float32; the PM-VDVAE's and the
+PM-VQVAE's may be set to bfloat16), and drops
 the JAX execution options the port does not take (``steps_per_call``,
 ``device_resident_data``, ``packed_chain``).
 """
@@ -158,8 +158,8 @@ def vqvae_mnist() -> dict:
 
 def pm_vqvae_mnist() -> dict:
     """``configs/pm_vqvae_mnist.py`` whole (:9-38), as a fresh dict: 7x7
-    codes, 8 resnet levels of 128 filters; ``compute_dtype`` None (the port
-    computes in float32), ``seed`` None. ``pixel_cnn.num_indices`` is set
+    codes, 8 resnet levels of 128 filters; ``compute_dtype`` None (float32;
+    "bfloat16" computes the conv stacks in bf16), ``seed`` None. ``pixel_cnn.num_indices`` is set
     from the stage-1 run, as ``train_pm_vqvae.py:105`` does."""
     return {
         "data": {"dataset": "mnist", "train_split": "train", "validation_split": "test",

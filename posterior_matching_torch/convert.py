@@ -261,13 +261,15 @@ def pm_vqvae_from_jax(
     pixel_cnn_config: Dict[str, Any],
     device: Optional[str] = None,
     chain_segment: Union[str, int] = "stream",
+    compute_dtype: Optional[str] = None,
 ) -> PMVQVAE:
     """Builds a ``PMVQVAE`` on ``device`` (the GPU unless ``"cpu"``) with
-    the PixelCNN chain's ``chain_segment`` and loads JAX-layout weights into
-    it; every parameter must be covered."""
+    the PixelCNN chain's ``chain_segment`` and the run's ``compute_dtype``
+    and loads JAX-layout weights into it; every parameter must be
+    covered."""
     model = PMVQVAE.from_config(
         conditional_dim, vqvae_config, pixel_cnn_config, device=device,
-        chain_segment=chain_segment,
+        chain_segment=chain_segment, compute_dtype=compute_dtype,
     )
     model.load_state_dict(to_torch(pm_vqvae_state_dict(params, state)))
     return model
@@ -276,8 +278,10 @@ def pm_vqvae_from_jax(
 def load_pm_vqvae(run_dir: str, device: Optional[str] = None,
                   chain_segment: Union[str, int] = "stream") -> PMVQVAE:
     """Reads a PM-VQVAE run directory (``vqvae_config.json``,
-    ``config.json``, ``train_state.pkl``) written by either package;
-    ``chain_segment`` is the caller's choice, not the run's."""
+    ``config.json``, ``train_state.pkl``) written by either package, at the
+    run's ``compute_dtype`` (``config.json``'s key, as ``eval_pm_vqvae.py:
+    80-82`` builds it); ``chain_segment`` is the caller's choice, not the
+    run's."""
     resolve_device(device)
     with open(os.path.join(run_dir, "vqvae_config.json")) as fp:
         vqvae_config = json.load(fp)
@@ -287,6 +291,7 @@ def load_pm_vqvae(run_dir: str, device: Optional[str] = None,
     return pm_vqvae_from_jax(
         ts.params, ts.state, config["conditional_dim"], vqvae_config,
         config["pixel_cnn"], device=device, chain_segment=chain_segment,
+        compute_dtype=config.get("compute_dtype"),
     )
 
 

@@ -7,9 +7,12 @@ Counterpart of ``eval_pm_vqvae.py``. Run it as::
         [--batch_size 32] [--num_samples 10] [--num_trials 5] [--seed 91] [--device cpu]
 
 - The run directory is a stage-2 run of either package
-  (``convert.load_pm_vqvae``); imputations come from ``pm_vqvae_impute``
-  (the sampler kernels), masks and samples from one ``torch.Generator``
-  seeded with ``--seed``.
+  (``convert.load_pm_vqvae``, at the run's ``compute_dtype``, as
+  ``eval_pm_vqvae.py:80-82`` builds it: a bf16 run's partial encoder and
+  VQ-VAE decoder compute in bf16); imputations come from
+  ``pm_vqvae_impute`` (the sampler kernels, float32 in either run, as the
+  JAX CLI's default sampler ``pixelcnn_sample_fast`` is), masks and samples
+  from one ``torch.Generator`` seeded with ``--seed``.
 - The protocol is :mod:`posterior_matching_torch.eval.imputation`'s:
   ``num_trials`` passes, PSNR of the mean of ``num_samples`` imputations,
   PRD of each sample against the real images (20 clusters, 1001 angles, 10

@@ -14,13 +14,21 @@ embedding, the statically sliced ``v_init`` / ``h_init_up`` /
 ``h_init_left`` convs (``F.conv2d``, which the JAX package leaves to XLA),
 then the up and the down pass of the gated chain (:mod:`posterior_matching_
 torch.ops.gated_chain`: the hand-written kernels on the GPU) and the float32
-1x1 logits head. ``chain_segment`` chooses the chain's granularity, as
+1x1 logits head. ``dtype`` (None, "float32" or "bfloat16") is the JAX module's compute
+dtype (``pixelcnn.py:202-219``): in bf16 the embedding, the three initial
+convs (flax's ``dtype=bfloat16``: input, kernel and bias cast, the output
+bf16) and the gated chain compute in bf16 and carry bf16 activations; the
+parameters and the logits head stay float32. ``chain_segment`` chooses the
+chain's granularity, as
 ``PM_TPU_CHAIN_SEGMENT`` does in the JAX package (``pixelcnn.py:410-495``):
 ``"stream"`` (the default) runs each pass as one launch of the stream
 kernels, ``1`` each level through the pair kernels, an integer ``L``
 segments of ``L`` levels (the last one shorter where ``L`` does not divide
 ``num_resnet``). All three realise the same dropout masks and, in float32,
-the same outputs. It is an execution option, never a key of a config file.
+the same outputs; in bf16 the same forward, and backwards that keep their
+carries as the JAX modes do (``pixelcnn.py:398-406``: the stream's in bf16,
+a segment's in float32 within a launch, the pair's rounded at every level
+boundary). It is an execution option, never a key of a config file.
 A conv kernel's masked-out taps never enter the graph, so their gradients
 are exactly zero. Sampling is :mod:`posterior_matching_torch.ops.
 sampler_chain`.
@@ -42,18 +50,25 @@ from posterior_matching_torch.ops.gated_chain import (
     pack_level,
     stack_levels,
 )
+from posterior_matching_torch.runtime import torch_dtype
 
 
 def _masked_conv(x: torch.Tensor, layer: "KernelBias", kernel_size,
-                 valid_rows, valid_cols) -> torch.Tensor:
+                 valid_rows, valid_cols, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The JAX ``_MaskedConv``'s stride-1 path on NHWC ``x``: the kernel
     sliced to its valid taps, convolved with the SAME padding shifted by
-    the slice (negative padding crops)."""
+    the slice (negative padding crops). In bf16 the input and kernel are
+    cast, the conv's output is bf16 and the bf16 bias is added to it
+    (``pixelcnn.py:138-158``)."""
     kh, kw = kernel_size
     (r0, r1), (c0, c1) = valid_rows, valid_cols
     pads = (kw // 2 - c0, (c1 - 1) - kw // 2, kh // 2 - r0, (r1 - 1) - kh // 2)
     w = layer.kernel[r0:r1, c0:c1].permute(3, 2, 0, 1)
-    out = F.conv2d(F.pad(x.permute(0, 3, 1, 2), pads), w, layer.bias)
+    x = F.pad(x.permute(0, 3, 1, 2), pads)
+    if dtype == torch.float32:
+        out = F.conv2d(x, w, layer.bias)
+    else:
+        out = F.conv2d(x.to(dtype), w.to(dtype)) + layer.bias.to(dtype)[:, None, None]
     return out.permute(0, 2, 3, 1)
 
 
@@ -82,11 +97,13 @@ class PixelCNN(nn.Module):
         receptive_field_dims: Tuple[int, int] = (3, 3),
         conditional_dim: Optional[int] = None,
         chain_segment: Union[str, int] = "stream",
+        dtype: Optional[str] = None,
     ):
         super().__init__()
         if num_hierarchies != 1:
             raise ValueError("the port supports num_hierarchies == 1 only")
         self.chain_segment = chain_segment
+        self.compute_dtype = torch_dtype(dtype)
         self.num_indices = num_indices
         self.image_shape = tuple(image_shape)
         self.dropout = dropout
@@ -139,26 +156,28 @@ class PixelCNN(nn.Module):
     ) -> torch.Tensor:
         """``[B, H, W]`` codes and ``[B, D]`` conditions -> ``[B, H, W, K]``
         float32 logits. With ``training`` and ``dropout > 0`` the chain's
-        dropout masks are the hash masks of ``seed``."""
+        dropout masks are the hash masks of ``seed``. The head takes the
+        elu of the chain's output (bf16 in bf16) up to float32, as the JAX
+        head's float32 parameters promote it (``pixelcnn.py:586-596``)."""
         if conditional_input is None:
             raise ValueError("the port's PixelCNN chain needs a condition")
         xv, xh = self.init_stacks(indices)
         x_final = self._chain(xv, xh, conditional_input.reshape(indices.shape[0], -1),
                               training, seed)
         lw = self.layers["logits_conv"]
-        return (F.elu(x_final) @ lw.kernel[0, 0] + lw.bias).float()
+        return (F.elu(x_final).float() @ lw.kernel[0, 0] + lw.bias).float()
 
     def init_stacks(self, indices: torch.Tensor):
         """The chain's inputs: ``v_init`` and ``h_init_up + h_init_left`` of
-        the codes' embedding, ``[B, H, W, F]`` each."""
+        the codes' embedding, ``[B, H, W, F]`` each, at the compute dtype."""
         rows, cols = self.receptive_field_dims
-        layers = self.layers
-        h0 = self.embed[indices.long()]
+        layers, cd = self.layers, self.compute_dtype
+        h0 = self.embed.to(cd)[indices.long()]
         v_init = _masked_conv(h0, layers["v_init"], (2 * rows - 1, cols),
-                              (0, rows - 1), (0, cols))
-        h_up = _masked_conv(h0, layers["h_init_up"], (3, cols), (0, 1), (0, cols))
+                              (0, rows - 1), (0, cols), cd)
+        h_up = _masked_conv(h0, layers["h_init_up"], (3, cols), (0, 1), (0, cols), cd)
         h_left = _masked_conv(h0, layers["h_init_left"], (3, cols), (0, 2),
-                              (0, cols // 2))
+                              (0, cols // 2), cd)
         return v_init, h_up + h_left
 
     @property
@@ -180,7 +199,8 @@ class PixelCNN(nn.Module):
         n, f = self.num_resnet, self.num_filters
         rf = self.receptive_field_dims
         keep = 1.0 - self.dropout if (training and self.dropout > 0) else 1.0
-        common = dict(seed=seed, keep=keep, taps=chain_taps(rf))
+        common = dict(seed=seed, keep=keep, taps=chain_taps(rf),
+                      compute_dtype=self.compute_dtype)
         levels = {d: [pack_level(self.layers, d, p, f, d == "dn", rf) for p in range(n)]
                   for d in ("up", "dn")}
         if self.chain_segment == "stream":

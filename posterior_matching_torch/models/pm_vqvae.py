@@ -20,19 +20,42 @@ from torch import nn
 from posterior_matching_torch.models.pixelcnn import PixelCNN
 from posterior_matching_torch.models.vqvae import VQVAE, VQVAEPartialEncoder
 from posterior_matching_torch.ops.sampler_chain import pixelcnn_sample
-from posterior_matching_torch.runtime import resolve_device
+from posterior_matching_torch.runtime import resolve_device, torch_dtype
 
 _PIXEL_CNN_KEYS = (
     "num_indices", "image_shape", "dropout", "num_resnet", "num_hierarchies",
-    "num_filters", "receptive_field_dims",
+    "num_filters", "receptive_field_dims", "dtype",
 )
+
+
+def model_dtypes(vqvae_config: Dict[str, Any], pixel_cnn_config: Dict[str, Any],
+                 compute_dtype: Optional[str] = None):
+    """The configs with the compute dtype placed as the JAX package's
+    ``PMVQVAE.from_config`` places it (``pm_vqvae.py:50-57``): an explicit
+    ``compute_dtype`` fills a missing ``vqvae_config["compute_dtype"]`` and
+    a missing ``pixel_cnn_config["dtype"]``; failing that, the VQ-VAE's
+    ``compute_dtype`` fills the PixelCNN's ``dtype``. Returns copies; a
+    dtype other than None, "float32" or "bfloat16" is refused by name."""
+    vq, pc = dict(vqvae_config), dict(pixel_cnn_config)
+    if compute_dtype is not None:
+        vq.setdefault("compute_dtype", compute_dtype)
+        pc.setdefault("dtype", compute_dtype)
+    elif "compute_dtype" in vq:
+        pc.setdefault("dtype", vq["compute_dtype"])
+    torch_dtype(vq.get("compute_dtype"))
+    torch_dtype(pc.get("dtype"))
+    return vq, pc
 
 
 class PMVQVAE(nn.Module):
     """``vqvae_config`` and ``pixel_cnn_config`` are the JSON config dicts a
     run directory holds (``vqvae_config.json``, ``config.json``'s
-    ``pixel_cnn``); keys the port does not use (``compute_dtype``, say) are
-    ignored: the port computes in float32. ``chain_segment`` is the
+    ``pixel_cnn``). ``compute_dtype`` (None, "float32" or "bfloat16", the
+    run config's key) is the conv stacks' compute dtype, placed as
+    :func:`model_dtypes` says: the VQ-VAE's encoder and decoder and the
+    partial encoder at the VQ-VAE's ``compute_dtype``, the PixelCNN's
+    embedding, initial convs and gated chain at its ``dtype``; parameters,
+    the quantizer and every head stay float32. ``chain_segment`` is the
     PixelCNN's chain granularity (:class:`~posterior_matching_torch.models.
     pixelcnn.PixelCNN`), an option of the caller's, never read from a
     config."""
@@ -43,10 +66,11 @@ class PMVQVAE(nn.Module):
         vqvae_config: Dict[str, Any],
         pixel_cnn_config: Dict[str, Any],
         chain_segment: Union[str, int] = "stream",
+        compute_dtype: Optional[str] = None,
     ):
         super().__init__()
-        vq = dict(vqvae_config)
-        pc = {k: pixel_cnn_config[k] for k in _PIXEL_CNN_KEYS if k in pixel_cnn_config}
+        vq, pc = model_dtypes(vqvae_config, pixel_cnn_config, compute_dtype)
+        pc = {k: pc[k] for k in _PIXEL_CNN_KEYS if k in pc}
         self.vqvae = VQVAE(**vq)
         h, w = pc["image_shape"]
         # the VQ-VAE encoder downsamples 4x, so images are 4x the code grid
@@ -57,6 +81,7 @@ class PMVQVAE(nn.Module):
             hidden_units=vq["hidden_units"],
             residual_blocks=vq["residual_blocks"],
             residual_hidden_units=vq["residual_hidden_units"],
+            compute_dtype=vq.get("compute_dtype"),
         )
         self.pixel_cnn = PixelCNN(**pc, conditional_dim=conditional_dim,
                                   chain_segment=chain_segment)
@@ -69,11 +94,12 @@ class PMVQVAE(nn.Module):
         pixel_cnn_config: Dict[str, Any],
         device: Optional[str] = None,
         chain_segment: Union[str, int] = "stream",
+        compute_dtype: Optional[str] = None,
     ) -> "PMVQVAE":
         """Builds the model on ``device`` (the GPU unless ``"cpu"``)."""
         dev = resolve_device(device)
         return cls(conditional_dim, vqvae_config, pixel_cnn_config,
-                   chain_segment).to(dev).eval()
+                   chain_segment, compute_dtype).to(dev).eval()
 
     def conditional_latents(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.partial_encoder(torch.cat([x * b, b], dim=-1))

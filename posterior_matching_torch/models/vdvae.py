@@ -65,7 +65,7 @@ from posterior_matching_torch.ops.block_chain import (
     NAMES, block_chain, chain_supported, conv_taps, gelu,
 )
 from posterior_matching_torch.ops.decoder_chain import dec_chain, dec_chain_supported
-from posterior_matching_torch.runtime import resolve_device
+from posterior_matching_torch.runtime import resolve_device, torch_dtype
 from posterior_matching_torch.utils import logmeanexp
 
 Acts = Dict[int, torch.Tensor]
@@ -116,17 +116,6 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_taps(x, self.tap_weight(), self.k) + self.bias
-
-
-def torch_dtype(compute_dtype) -> torch.dtype:
-    """The config's ``compute_dtype`` (None, "float32" or "bfloat16") as a
-    torch dtype."""
-    names = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
-    if compute_dtype in (torch.float32, torch.bfloat16):
-        return compute_dtype
-    if compute_dtype not in names:
-        raise ValueError(f"compute_dtype {compute_dtype!r}: None, float32 or bfloat16")
-    return names[compute_dtype]
 
 
 class Block(nn.Module):

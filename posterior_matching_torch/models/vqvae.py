@@ -23,7 +23,7 @@ here both ends must be equal).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,14 +40,17 @@ from posterior_matching_torch.ops.vq import (
     vq_straight_through,
 )
 from posterior_matching_torch.parallel import mesh
+from posterior_matching_torch.runtime import torch_dtype
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` (``padding="SAME"``) on NCHW tensors."""
+    """flax ``nn.Conv`` (``padding="SAME"``) on NCHW tensors, at ``dtype``
+    as flax's ``dtype`` argument (float32 or bf16)."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.k, self.stride = k, stride
+        self.k, self.stride, self.dtype = k, stride, dtype
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
@@ -55,22 +58,27 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ph = same_padding(x.shape[2], self.k, self.stride)
         pw = same_padding(x.shape[3], self.k, self.stride)
+        if self.dtype == torch.float32:
+            w, b = self.weight, self.bias
+        else:  # flax: input, kernel and bias cast; the conv, then + bias
+            x, w, b = x.to(self.dtype), self.weight.to(self.dtype), None
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(
-                x, self.weight, self.bias, self.stride, (ph[0], pw[0])
-            )
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, self.stride)
+            out = F.conv2d(x, w, b, self.stride, (ph[0], pw[0]))
+        else:
+            out = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), w, b, self.stride)
+        return out if b is not None else out + self.bias.to(self.dtype)[:, None, None]
 
 
 class ConvTranspose(nn.Module):
     """flax ``nn.ConvTranspose`` (``padding="SAME"``,
     ``transpose_kernel=False``) on NCHW tensors. ``weight`` is
-    ``[in, out, k, k]``, flipped in space relative to the flax kernel."""
+    ``[in, out, k, k]``, flipped in space relative to the flax kernel; at
+    ``dtype`` as :class:`Conv`."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int):
+    def __init__(self, cin: int, cout: int, k: int, stride: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.stride = stride
+        self.stride, self.dtype = stride, dtype
         lo, hi = conv_transpose_padding(k, stride)
         if lo != hi:
             raise ValueError(f"asymmetric transpose padding for k={k}, s={stride}")
@@ -80,21 +88,24 @@ class ConvTranspose(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(
-            x, self.weight, self.bias, self.stride, self.padding
-        )
+        if self.dtype == torch.float32:
+            return F.conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding)
+        out = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype), None,
+                                 self.stride, self.padding)
+        return out + self.bias.to(self.dtype)[:, None, None]
 
 
 class ConvResidualStack(nn.Module):
-    """relu -> 3x3 conv -> relu -> 1x1 conv residual blocks."""
+    """relu -> 3x3 conv -> relu -> 1x1 conv residual blocks, at ``dtype``."""
 
-    def __init__(self, hidden: int, blocks: int, res_hidden: int):
+    def __init__(self, hidden: int, blocks: int, res_hidden: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.res3x3 = nn.ModuleList(
-            Conv(hidden, res_hidden, 3) for _ in range(blocks)
+            Conv(hidden, res_hidden, 3, dtype=dtype) for _ in range(blocks)
         )
         self.res1x1 = nn.ModuleList(
-            Conv(res_hidden, hidden, 1) for _ in range(blocks)
+            Conv(res_hidden, hidden, 1, dtype=dtype) for _ in range(blocks)
         )
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
@@ -104,14 +115,16 @@ class ConvResidualStack(nn.Module):
 
 
 class ConvResidualEncoder(nn.Module):
-    """Two stride-2 4x4 convs + 3x3 conv + residual stack (downsamples 4x)."""
+    """Two stride-2 4x4 convs + 3x3 conv + residual stack (downsamples 4x),
+    all at ``dtype``: in bf16 the output is bf16."""
 
-    def __init__(self, cin: int, hidden: int, blocks: int, res_hidden: int):
+    def __init__(self, cin: int, hidden: int, blocks: int, res_hidden: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.enc_1 = Conv(cin, hidden // 2, 4, 2)
-        self.enc_2 = Conv(hidden // 2, hidden, 4, 2)
-        self.enc_3 = Conv(hidden, hidden, 3)
-        self.stack = ConvResidualStack(hidden, blocks, res_hidden)
+        self.enc_1 = Conv(cin, hidden // 2, 4, 2, dtype=dtype)
+        self.enc_2 = Conv(hidden // 2, hidden, 4, 2, dtype=dtype)
+        self.enc_3 = Conv(hidden, hidden, 3, dtype=dtype)
+        self.stack = ConvResidualStack(hidden, blocks, res_hidden, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.enc_1(x))
@@ -123,21 +136,24 @@ class ConvResidualEncoder(nn.Module):
 class ConvResidualDecoder(nn.Module):
     """3x3 conv + residual stack + two stride-2 transposed convs; returns the
     decoder Normal's mean. Its scalar ``log_scale`` gives the scale of the
-    training loss (:meth:`VQVAE.forward`)."""
+    training loss (:meth:`VQVAE.forward`). All but the last transposed conv
+    run at ``dtype``; the last stays float32 (``vqvae.py:264-267``), so the
+    mean is float32."""
 
     def __init__(
-        self, cin: int, hidden: int, blocks: int, res_hidden: int, cout: int
+        self, cin: int, hidden: int, blocks: int, res_hidden: int, cout: int,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.log_scale = nn.Parameter(torch.zeros(()))
-        self.dec_1 = Conv(cin, hidden, 3)
-        self.stack = ConvResidualStack(hidden, blocks, res_hidden)
-        self.dec_2 = ConvTranspose(hidden, hidden // 2, 4, 2)
+        self.dec_1 = Conv(cin, hidden, 3, dtype=dtype)
+        self.stack = ConvResidualStack(hidden, blocks, res_hidden, dtype=dtype)
+        self.dec_2 = ConvTranspose(hidden, hidden // 2, 4, 2, dtype=dtype)
         self.dec_3 = ConvTranspose(hidden // 2, cout, 4, 2)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         h = self.stack(self.dec_1(z))
-        return self.dec_3(F.relu(self.dec_2(h)))
+        return self.dec_3(F.relu(self.dec_2(h)).float())
 
 
 class VectorQuantizer(nn.Module):
@@ -215,7 +231,10 @@ class VectorQuantizer(nn.Module):
 
 class VQVAE(nn.Module):
     """The VQ-VAE (``vqvae.py:252-329``). ``use_ema=False`` (the codebook
-    learned by the loss) is set by no config and is not ported."""
+    learned by the loss) is set by no config and is not ported.
+    ``compute_dtype`` (None, "float32" or "bfloat16") is the encoder's and
+    decoder's conv stacks' (``vqvae.py:268-295``); the pre-quantization
+    1x1 conv, the quantizer and the decoder's last conv stay float32."""
 
     def __init__(
         self,
@@ -228,21 +247,23 @@ class VQVAE(nn.Module):
         decay: float = 0.99,
         commitment_cost: float = 0.25,
         use_ema: bool = True,
+        compute_dtype: Optional[str] = None,
         **_unused,
     ):
         super().__init__()
         if not use_ema:
             raise NotImplementedError("use_ema=False is not ported: every config "
                                       "learns the codebook by EMA")
+        cd = torch_dtype(compute_dtype)
         self.encoder = ConvResidualEncoder(
             output_channels, hidden_units, residual_blocks,
-            residual_hidden_units,
+            residual_hidden_units, dtype=cd,
         )
         self.pre_vq_conv = Conv(hidden_units, embedding_dim, 1)
         self.vq = VectorQuantizer(num_embeddings, embedding_dim, commitment_cost, decay)
         self.decoder = ConvResidualDecoder(
             embedding_dim, hidden_units, residual_blocks,
-            residual_hidden_units, output_channels,
+            residual_hidden_units, output_channels, dtype=cd,
         )
 
     def forward(self, x: torch.Tensor, is_training: bool = False) -> Dict[str, Any]:
@@ -268,7 +289,7 @@ class VQVAE(nn.Module):
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, C] images -> [B, H/4, W/4, D] pre-quantization latents."""
-        z = self.pre_vq_conv(self.encoder(x.permute(0, 3, 1, 2)))
+        z = self.pre_vq_conv(self.encoder(x.permute(0, 3, 1, 2)).float())
         return z.permute(0, 2, 3, 1)
 
     def encoding_indices(self, x: torch.Tensor) -> torch.Tensor:
@@ -282,7 +303,9 @@ class VQVAE(nn.Module):
 
 
 class VQVAEPartialEncoder(nn.Module):
-    """Masked image + mask ``[B, H, W, 2C]`` -> conditioning vector."""
+    """Masked image + mask ``[B, H, W, 2C]`` -> conditioning vector: the
+    conv stack at ``compute_dtype`` (``vqvae.py:340-363``), the dense head
+    float32."""
 
     def __init__(
         self,
@@ -292,10 +315,12 @@ class VQVAEPartialEncoder(nn.Module):
         hidden_units: int,
         residual_blocks: int,
         residual_hidden_units: int,
+        compute_dtype: Optional[str] = None,
     ):
         super().__init__()
         self.encoder = ConvResidualEncoder(
-            in_channels, hidden_units, residual_blocks, residual_hidden_units
+            in_channels, hidden_units, residual_blocks, residual_hidden_units,
+            dtype=torch_dtype(compute_dtype),
         )
         h, w = (-(-image_hw[0] // 4), -(-image_hw[1] // 4))
         self.dense = Dense(h * w * hidden_units, conditional_dim)
@@ -304,4 +329,4 @@ class VQVAEPartialEncoder(nn.Module):
         h = self.encoder(x_o_b.permute(0, 3, 1, 2))
         # flax flattens NHWC: rows, then columns, then channels
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
-        return self.dense(h)
+        return self.dense(h.float())

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``; the VDVAE
-chains' sources are built a second time with ``-DPM_CORE_BF16=1``, their
-bf16 builds (``*_bf16``, for ``compute_dtype`` bfloat16). Libraries go
+chains' and the gated chain's sources are built a second time with
+``-DPM_CORE_BF16=1``, their bf16 builds (``*_bf16``, for ``compute_dtype``
+bfloat16). Libraries go
 into ``ops/_build/`` (git-ignored), named by a hash of the sources and flags,
 so a changed source is rebuilt and an unchanged one is reused. Nothing is
 built at import time: the first call of a kernel wrapper builds its library,
@@ -44,10 +45,14 @@ SOURCES = {
     "block_chain_bwd_bf16": "block_chain_bwd.cu",
     "decoder_chain_fwd_bf16": "decoder_chain_fwd.cu",
     "decoder_chain_bwd_bf16": "decoder_chain_bwd.cu",
+    "gated_stream_fwd_bf16": "gated_stream_fwd.cu",
+    "gated_stream_bwd_bf16": "gated_stream_bwd.cu",
+    "gated_levels_fwd_bf16": "gated_levels_fwd.cu",
+    "gated_levels_bwd_bf16": "gated_levels_bwd.cu",
 }
 # flags of a build beside NVCC_FLAGS
 DEFINES = {name: ("-DPM_CORE_BF16=1",) for name in SOURCES if name.endswith("_bf16")}
-HEADERS = ("sampler_common.cuh", "gated_common.cuh", "gated_levels.cuh",
+HEADERS = ("ptx_mma.cuh", "sampler_common.cuh", "gated_common.cuh", "gated_levels.cuh",
            "block_chain_common.cuh", "vdvae_gemm.cuh", "decoder_chain_common.cuh")
 
 NVCC_FLAGS = (

@@ -42,12 +42,68 @@
 // Bound: operations. 3 TF32 products per float32 product at the card's
 // 495 TFLOP/s dense TF32 rate: 165 TFLOP/s of float32 work (the float32
 // FMA rate outside the tensor cores is 67).
+//
+// bf16 (compute_dtype bfloat16, a build with PM_CORE_BF16 = 1, the JAX
+// chain at cdtype bf16, ops/gated_chain.py:164-260): every product is
+// mma.sync.m16n8k16 with bf16 operands and float32 accumulators, one MMA a
+// 16-deep step (a product of two bf16 values is exact in float32, as JAX's
+// preferred_element_type float32 dot). A is rounded to bf16 (to nearest
+// even) as it is staged, after concat_elu and the dropout mask, into a bf16
+// plane in the m16n8k16 fragment order (frag16_at); the weights are bf16
+// in global memory and land by cp.async as they are; a weight gradient's B
+// (float32 cotangent rows) is rounded at the fragment load. The tensors of
+// the compute dtype (cdt: the activations, the saves a1 and b1, the level
+// outputs, the cotangents of the activations, the weight matrices) are
+// bf16 and every epilogue rounds what it stores there; the biases, cond,
+// the scratch and every gradient of a weight or of cond stay float32. Bound
+// at the dense bf16 rate, 989 TFLOP/s.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx_mma.cuh"
+
 namespace gsk {
+
+#ifndef PM_CORE_BF16
+#define PM_CORE_BF16 0
+#endif
+constexpr bool kBF16 = PM_CORE_BF16;
+
+// The compute dtype's element: bf16 (its bits) in a build with
+// PM_CORE_BF16 = 1, else float.
+template <bool BF>
+struct Elem {
+  using T = float;
+};
+template <>
+struct Elem<true> {
+  using T = uint16_t;
+};
+using cdt = Elem<kBF16>::T;
+
+// An element of the compute dtype as a float (exact).
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(uint16_t h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+// v rounded to the compute dtype (to nearest even), as a float.
+__device__ __forceinline__ float round_c(float v) {
+  return kBF16 ? __uint_as_float(pack_bf16(v, 0.f) << 16) : v;
+}
+// Stores v (rounded to bf16 where the element is bf16).
+__device__ __forceinline__ void store_c(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_c(uint16_t* p, float v) {
+  *p = static_cast<uint16_t>(pack_bf16(v, 0.f) & 0xffffu);
+}
+// Stores the two consecutive values (a, b) at p.
+__device__ __forceinline__ void store_c2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_c2(uint16_t* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
 
 constexpr int kThreads = 512;  // threads per block of every GEMM kernel
 constexpr int kWarpsN = kThreads / 32 / 2;  // a block's warps across N (2 across its rows)
@@ -103,7 +159,7 @@ enum GeoInt {
   I_L, I_B, I_H, I_W, I_CD,
   I_TV_SKH, I_TV_SKW, I_TV_PT, I_TV_PL,
   I_TH_SKH, I_TH_SKW, I_TH_PT, I_TH_PL,
-  I_SEED, I_BASE, I_THRESH, I_DROP, I_F, I_COUNT
+  I_SEED, I_BASE, I_THRESH, I_DROP, I_BF, I_F, I_COUNT
 };
 
 // num_filters the kernels are built for: 128 (configs/pm_vqvae_celeb_a.py,
@@ -160,58 +216,6 @@ inline Geo make_geo(const int* ints) {
 inline bool taps_ok(int skh, int skw, int pad_top, int pad_left) {
   return skh >= 1 && skw >= 1 && skh * skw <= kMaxTaps && pad_top >= 0 &&
          pad_top < skh && pad_left >= 0 && pad_left < skw;
-}
-
-// ---- TF32 rounding; PTX: tensor-core MMA, cp.async ---------------------------
-
-// x rounded to TF32 (10 fraction bits, to nearest, ties away from zero),
-// as its bits: cvt.rna.tf32.f32's rounding for finite x and infinities, in
-// two integer operations (half an ulp added to the magnitude, the low 13
-// bits cleared). The conversion instruction itself runs on a slower pipe;
-// with it, B's split in the MMA loop cost ~0.9 ms more a stream backward
-// on the H100.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// d += A B for one m16n8k8 TF32 fragment (warp-collective): a[4], b[2] and
-// d[4] in the PTX ISA's fragment layout.
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Copies `bytes` (0 or 16) from global `src` to shared `dst`, zero-filling
-// the rest of the 16.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Waits until at most kStages - 2 of this thread's committed groups are
-// pending: the oldest chunk of the ring has landed.
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// An operand element split for 3xTF32: big = x rounded to TF32, small =
-// x - big, exact in float32 and at most half an ulp of big. small is not
-// rounded: the tensor cores read its top 11 significant bits, which leaves
-// an error of at most 2^-21 |x| (rounding it first: 2^-22) and saves three
-// instructions an element of B's split, ~0.5 ms a stream backward on the
-// H100.
-__device__ __forceinline__ float2 split_tf32(float x) {
-  const float big = __uint_as_float(to_tf32(x));
-  return make_float2(big, x - big);
 }
 
 // ---- the GEMM core -----------------------------------------------------------
@@ -344,6 +348,76 @@ __device__ __forceinline__ void mma_chunk(Acc<N>& acc, const float* sA, const fl
       for (int i = 0; i < 4; ++i) acc[mt][u][i] += part[mt][u][i];
 }
 
+// The offset, in bf16 values, of element (m, k) of a bf16 A stage: m16 x
+// k16 tiles, m-major, 32 lanes of 4 words each (lane 4g + t holds (g, 2t |
+// 2t + 1), (g + 8, 2t | 2t + 1), (g, 2t + 8 | 2t + 9), (g + 8, 2t + 8 |
+// 2t + 9), its a0..a3, the lower k in a word's low half), so a lane's A
+// registers of a step are one 16-byte load. A stage is kAPlane bf16 values.
+__device__ __forceinline__ int frag16_at(int m, int k) {
+  const int mi = m & 15, ki = k & 15;
+  const int lane = (mi & 7) * 4 + ((ki & 7) >> 1);
+  const int word = (((m >> 4) * (kKC / 16) + (k >> 4)) * 32 + lane) * 4 + (mi >> 3) + 2 * (ki >> 3);
+  return 2 * word + (ki & 1);
+}
+
+// B's values (k, n) and (k + 1, n) as the two halves of an MMA register:
+// from a bf16 stage (B(k, n) = sB[k * BSK + n * BSN]), or from a float32
+// stage rounded to bf16.
+template <int BSK, int BSN>
+__device__ __forceinline__ uint32_t b_pair(const uint16_t* sB, int k, int n) {
+  const uint16_t* p = sB + k * BSK + n * BSN;
+  if constexpr (BSK == 1)
+    return *reinterpret_cast<const uint32_t*>(p);
+  else
+    return p[0] | static_cast<uint32_t>(p[BSK]) << 16;
+}
+template <int BSK, int BSN>
+__device__ __forceinline__ uint32_t b_pair(const float* sB, int k, int n) {
+  const float* p = sB + k * BSK + n * BSN;
+  return pack_bf16(p[0], p[BSK]);
+}
+
+// acc += the staged chunk in bf16: A from the bf16 stage `sA` (frag16_at's
+// order), B(k, n) = sB[k * BSK + n * BSN] (bf16, or float32 rounded as it
+// is read). One m16n8k16 MMA per tile a 16-deep step; the chunk's products
+// accumulate in `part` from zero and are added into acc, as mma_chunk's.
+template <int N, int BSK, int BSN, typename TB>
+__device__ __forceinline__ void mma_chunk_bf(Acc<N>& acc, const uint16_t* sA, const TB* sB) {
+  constexpr int NT = n_tiles<N>();
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int mt0 = threadIdx.x / 32 / kWarpsN * 2;  // the warp's first m16 tile
+  Acc<N> part = {};
+#pragma unroll
+  for (int kt = 0; kt < kKC / 16; ++kt) {
+    uint32_t a[2][4], b[NT][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          sA + (((mt0 + mt) * (kKC / 16) + kt) * 32 + lane) * 8);
+      a[mt][0] = v.x;
+      a[mt][1] = v.y;
+      a[mt][2] = v.z;
+      a[mt][3] = v.w;
+    }
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      const int n = tile_n0<N>(u) + g;
+      b[u][0] = b_pair<BSK, BSN>(sB, 16 * kt + 2 * t, n);
+      b[u][1] = b_pair<BSK, BSN>(sB, 16 * kt + 2 * t + 8, n);
+    }
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_bf16(part[mt][u], a[mt], b[u]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][u][i] += part[mt][u][i];
+}
+
 // ---- data_gemm ---------------------------------------------------------
 
 enum AMode { A_IDENT = 0, A_CELU = 1, A_CELU_DROP = 2 };
@@ -353,10 +427,12 @@ enum Epi { E_BIAS = 0, E_GATE = 1, E_CELU_BWD = 2 };
 // A(r, k) reads row `src` at r's position shifted by (dy, dx) (zero off the
 // grid): the row itself (A_IDENT, K = C), or its concat_elu (K = 2C), times
 // the dropout keep mask / keep (A_CELU_DROP). B(k, n) = w[k * ld + n], or
-// w[n * ld + k] with `trans`. K, C and ld are multiples of kKC.
+// w[n * ld + k] with `trans`. K, C and ld are multiples of kKC. An A_IDENT
+// source is float32 scratch, the others are of the compute dtype (cdt), as
+// w is.
 struct Term {
-  const float* src;
-  const float* w;
+  const void* src;
+  const void* w;
   int C, K, mode, dy, dx, ld, trans;
 };
 
@@ -372,12 +448,14 @@ struct DataArgs {
   int epi;
   const float* bias;   // [N]
   const float* proj;   // [B, N] per-image addend (E_GATE)
-  const float* xres;   // [R, F] residual input (E_GATE)
-  const float* z;      // [R, F] concat_elu's argument (E_CELU_BWD)
+  const cdt* xres;     // [R, F] residual input (E_GATE)
+  const cdt* z;        // [R, F] concat_elu's argument (E_CELU_BWD)
   const float* base1;  // [R, F] addends of the E_CELU_BWD output, or null
-  const float* base2;
-  float* out;          // E_BIAS, E_GATE: [R, N]; E_CELU_BWD: [R, F]
-  float* out2;         // E_GATE: the gated residual [R, F]
+  const cdt* base2;
+  cdt* outc;           // E_BIAS, E_GATE: [R, N]; E_CELU_BWD: [R, F], or null
+  cdt* out2;           // E_GATE: the gated residual [R, F]
+  float* out;          // E_CELU_BWD where outc is null: [R, F] float32 ...
+  int round;           // ... rounded to the compute dtype with `round`
 };
 
 // A walk over the chunks of the terms: term ti, K offset k0.
@@ -397,13 +475,33 @@ struct Cursor {
 // past the last term), and commits a group either way.
 template <int N>
 __device__ __forceinline__ void stage_b(float* dst, const DataArgs& p, const Cursor& c) {
-  if (c.ti < p.nt) {
+  if (kBF16 && c.ti < p.nt) {
+    // bf16 weights: [k][N + 8] or [n][kKC + 8] bf16 values, 8 a copy
+    const Term& T = p.t[c.ti];
+    const uint16_t* w = static_cast<const uint16_t*>(T.w);
+    uint16_t* d16 = reinterpret_cast<uint16_t*>(dst);
+    if (!T.trans) {
+      constexpr int P = N / 8, STEP = kThreads / P;
+      const int kr = threadIdx.x / P, c8 = threadIdx.x % P;
+#pragma unroll
+      for (int j = 0; j < kKC / STEP; ++j)
+        cp_async16(smem_u32(d16 + (kr + j * STEP) * (N + 8) + 8 * c8),
+                   w + (size_t)(c.k0 + kr + j * STEP) * T.ld + 8 * c8, 16);
+    } else {
+      constexpr int P = kKC / 8, STEP = kThreads / P;
+      const int n = threadIdx.x / P, kq = threadIdx.x % P;
+#pragma unroll
+      for (int j = 0; j < N / STEP; ++j)
+        cp_async16(smem_u32(d16 + (n + j * STEP) * (kKC + 8) + 8 * kq),
+                   w + (size_t)(n + j * STEP) * T.ld + c.k0 + 8 * kq, 16);
+    }
+  } else if (c.ti < p.nt) {
     const Term& T = p.t[c.ti];
     // a thread's pieces: rows kThreads / (pieces a row) apart
     if (!T.trans) {
       constexpr int P = N / 4, STEP = kThreads / P;
       const int kr = threadIdx.x / P, c4 = threadIdx.x % P;
-      const float* src = T.w + (size_t)(c.k0 + kr) * T.ld + 4 * c4;
+      const float* src = static_cast<const float*>(T.w) + (size_t)(c.k0 + kr) * T.ld + 4 * c4;
       uint32_t d = smem_u32(dst + kr * (N + 8) + 4 * c4);
       const size_t sstep = (size_t)STEP * T.ld;
 #pragma unroll
@@ -412,7 +510,7 @@ __device__ __forceinline__ void stage_b(float* dst, const DataArgs& p, const Cur
     } else {
       constexpr int P = kKC / 4, STEP = kThreads / P;
       const int n = threadIdx.x / P, kq = threadIdx.x % P;
-      const float* src = T.w + (size_t)n * T.ld + c.k0 + 4 * kq;
+      const float* src = static_cast<const float*>(T.w) + (size_t)n * T.ld + c.k0 + 4 * kq;
       uint32_t d = smem_u32(dst + n * kBPitchT + 4 * kq);
       const size_t sstep = (size_t)STEP * T.ld;
 #pragma unroll
@@ -476,8 +574,14 @@ __global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (ok[h]) {
         const int r = r0 + m + kAStep * h;
-        v = __ldg(reinterpret_cast<const float4*>(
-            T.src + (size_t)(r + T.dy * g.W + T.dx) * T.C + col));
+        const size_t at = (size_t)(r + T.dy * g.W + T.dx) * T.C + col;
+        if (kBF16 && T.mode != A_IDENT) {
+          const uint2 x = __ldg(reinterpret_cast<const uint2*>(static_cast<const cdt*>(T.src) + at));
+          v = make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xffff0000u),
+                          __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xffff0000u));
+        } else {
+          v = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(T.src) + at));
+        }
       }
       va[h][0] = v.x;
       va[h][1] = v.y;
@@ -502,8 +606,15 @@ __global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__
           va[h][j] = v;
         }
       }
+      if constexpr (kBF16) {
+        uint32_t* sw = reinterpret_cast<uint32_t*>(reinterpret_cast<uint16_t*>(sA) + s * kAPlane);
+        sw[frag16_at(m + kAStep * h, 4 * q) / 2] = pack_bf16(va[h][0], va[h][1]);
+        sw[frag16_at(m + kAStep * h, 4 * q + 2) / 2] = pack_bf16(va[h][2], va[h][3]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) store_split(sA + s * 2 * kAPlane, m + kAStep * h, 4 * q + j, va[h][j]);
+        for (int j = 0; j < 4; ++j)
+          store_split(sA + s * 2 * kAPlane, m + kAStep * h, 4 * q + j, va[h][j]);
+      }
     }
   };
 
@@ -518,18 +629,27 @@ __global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__
   store_a(ca, 0);
   ca.next(p);
   for (int c = 0; c < nc; ++c) {
-    cp_async_wait_ring();  // this thread's copies of chunk c landed
+    cp_async_wait_ring<kStages>();  // this thread's copies of chunk c landed
     __syncthreads();   // everyone's, and A stage c % 2; B stage c - 1 is free
     stage_b<N>(sB + (c + kStages - 1) % kStages * b_stage<N>(), p, cb);
     cb.next(p);
     const bool more = c + 1 < nc;
     if (more) load_a(ca);
-    const float* a = sA + (c % 2) * 2 * kAPlane;
     const float* b = sB + c % kStages * b_stage<N>();
-    if (p.t[cc.ti].trans)
-      mma_chunk<N, 1, kBPitchT>(acc, a, b);
-    else
-      mma_chunk<N, N + 8, 1>(acc, a, b);
+    if constexpr (kBF16) {
+      const uint16_t* a = reinterpret_cast<const uint16_t*>(sA) + (c % 2) * kAPlane;
+      const uint16_t* b16 = reinterpret_cast<const uint16_t*>(b);
+      if (p.t[cc.ti].trans)
+        mma_chunk_bf<N, 1, kKC + 8>(acc, a, b16);
+      else
+        mma_chunk_bf<N, N + 8, 1>(acc, a, b16);
+    } else {
+      const float* a = sA + (c % 2) * 2 * kAPlane;
+      if (p.t[cc.ti].trans)
+        mma_chunk<N, 1, kBPitchT>(acc, a, b);
+      else
+        mma_chunk<N, N + 8, 1>(acc, a, b);
+    }
     cc.next(p);
     if (more) {
       store_a(ca, (c + 1) % 2);
@@ -551,8 +671,8 @@ __global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__
           const int c = tile_n0<N>(u) + t2;
           const float2 bias = p.bias ? make_float2(p.bias[c], p.bias[c + 1])
                                      : make_float2(0.f, 0.f);
-          *reinterpret_cast<float2*>(p.out + (size_t)r * N + c) =
-              make_float2(acc[mt][u][2 * hh] + bias.x, acc[mt][u][2 * hh + 1] + bias.y);
+          store_c2(p.outc + (size_t)r * N + c, acc[mt][u][2 * hh] + bias.x,
+                   acc[mt][u][2 * hh + 1] + bias.y);
         }
       } else if (p.epi == E_GATE) {
 #pragma unroll
@@ -560,13 +680,15 @@ __global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int j = tile_n0<N>(u) + t2 + e;  // act column; its gate is j + F
+            // b1 as saved (rounded to the compute dtype), and the gate on it
             const float act =
-                acc[mt][u][2 * hh + e] + p.bias[j] + p.proj[(size_t)b * N + j];
-            const float gate = acc[mt][u + NT / 2][2 * hh + e] + p.bias[j + F] +
-                               p.proj[(size_t)b * N + j + F];
-            p.out[(size_t)r * N + j] = act;
-            p.out[(size_t)r * N + j + F] = gate;
-            p.out2[(size_t)r * F + j] = p.xres[(size_t)r * F + j] + sigmoid(gate) * act;
+                round_c(acc[mt][u][2 * hh + e] + p.bias[j] + p.proj[(size_t)b * N + j]);
+            const float gate = round_c(acc[mt][u + NT / 2][2 * hh + e] + p.bias[j + F] +
+                                       p.proj[(size_t)b * N + j + F]);
+            store_c(p.outc + (size_t)r * N + j, act);
+            store_c(p.outc + (size_t)r * N + j + F, gate);
+            store_c(p.out2 + (size_t)r * F + j,
+                    to_f(p.xres[(size_t)r * F + j]) + sigmoid(gate) * act);
           }
       } else {  // E_CELU_BWD
         const uint32_t ki = mix32(p.key ^ (uint32_t)b);
@@ -581,13 +703,17 @@ __global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__
               gp = kept(ki, pos * (2 * F) + j, p.thresh) ? gp * p.inv_keep : 0.f;
               gn = kept(ki, pos * (2 * F) + j + F, p.thresh) ? gn * p.inv_keep : 0.f;
             }
-            const float z = p.z[(size_t)r * F + j];
+            const float z = to_f(p.z[(size_t)r * F + j]);
             const float dpos = z > 0.f ? 1.f : expf(z);
             const float dneg = -z > 0.f ? 1.f : expf(-z);
             float s = 0.f;
             if (p.base1) s += p.base1[(size_t)r * F + j];
-            if (p.base2) s += p.base2[(size_t)r * F + j];
-            p.out[(size_t)r * F + j] = s + (gp * dpos - gn * dneg);
+            if (p.base2) s += to_f(p.base2[(size_t)r * F + j]);
+            const float v = s + (gp * dpos - gn * dneg);
+            if (p.outc)
+              store_c(p.outc + (size_t)r * F + j, v);
+            else
+              p.out[(size_t)r * F + j] = p.round ? round_c(v) : v;
           }
       }
     }
@@ -595,7 +721,7 @@ __global__ void __launch_bounds__(kThreads, 1) data_gemm(const __grid_constant__
 
 // A term per tap of `taps` over `src`, appended to a.
 inline void add_tap_terms(DataArgs& a, const Taps& taps, int sign,
-                          const float* src, int C, int mode, const float* w,
+                          const void* src, int C, int mode, const cdt* w,
                           size_t wtap, int ld, int trans) {
   const int K = mode == A_IDENT ? C : 2 * C;
   for (int t = 0; t < taps.n; ++t)

@@ -41,12 +41,13 @@ constexpr int kMinSplitRows = 128;
 constexpr int kSplitAlign = 16;
 
 // Per-level pointers passed by value in a kernel's parameters.
-struct PerLevel {
-  const float* p[kMaxLevels];
+template <typename T>
+struct PerLevelT {
+  T p[kMaxLevels];
 };
-struct PerLevelOut {
-  float* p[kMaxLevels];
-};
+using PerLevel = PerLevelT<const float*>;
+using PerLevelC = PerLevelT<const cdt*>;  // tensors of the compute dtype
+using PerLevelOut = PerLevelT<float*>;
 
 // One level's tensors in the forward, in the order of
 // ops/gated_chain.py::_LEVEL_FWD (the skips and skip weights null on the up
@@ -69,21 +70,28 @@ enum LevelBwdPtr {
   LB_DWAH, LB_DBAH, LB_DWBH, LB_DBBH, LB_DWCH, LB_DWXHU, LB_DWXHS, LB_COUNT
 };
 
+// A level's pointers: in / out for the float32 ones (biases and
+// gradients), act / act_out for those of the compute dtype (activations,
+// saves, their cotangents, the weight matrices).
 template <int N>
 struct Level {
   const void* p[N];
   const float* in(int i) const { return static_cast<const float*>(p[i]); }
   float* out(int i) const { return static_cast<float*>(const_cast<void*>(p[i])); }
+  const cdt* act(int i) const { return static_cast<const cdt*>(p[i]); }
+  cdt* act_out(int i) const { return static_cast<cdt*>(const_cast<void*>(p[i])); }
 };
 using LevelFwd = Level<LF_COUNT>;
 using LevelBwd = Level<LB_COUNT>;
 
-// The settings every level shares: geometry, width, taps, dropout.
+// The settings every level shares: geometry, width, taps, dropout, and
+// whether the backward's carries between levels are rounded to the compute
+// dtype (the stream's rule in bf16; a segment keeps them float32).
 struct Chain {
   Geo g;
   Taps tv, th;
   int L, CD, F, base;
-  bool drop;
+  bool drop, round_carry;
   uint32_t seed, thresh;
   float inv_keep;
 };
@@ -99,12 +107,14 @@ inline bool make_chain(const int* ints, int nints, float inv_keep, Chain& c) {
   c.L = ints[I_L];
   c.CD = ints[I_CD];
   c.F = ints[I_F];
-  if (c.L < 1 || c.L > kMaxLevels || c.g.R < 1 || c.CD < 1 || !width_built(c.F))
+  if (c.L < 1 || c.L > kMaxLevels || c.g.R < 1 || c.CD < 1 || !width_built(c.F) ||
+      ints[I_BF] != (kBF16 ? 1 : 0))
     return false;
   c.tv = make_taps(ints[I_TV_SKH], ints[I_TV_SKW], ints[I_TV_PT], ints[I_TV_PL]);
   c.th = make_taps(ints[I_TH_SKH], ints[I_TH_SKW], ints[I_TH_PT], ints[I_TH_PL]);
   c.base = ints[I_BASE];
   c.drop = ints[I_DROP] != 0;
+  c.round_carry = false;
   c.seed = (uint32_t)ints[I_SEED];
   c.thresh = (uint32_t)ints[I_THRESH];
   c.inv_keep = inv_keep;
@@ -122,32 +132,34 @@ inline void unpack_levels(const void* const* ptrs, int head, int L, Level<N>* lv
 // ---- kernels -------------------------------------------------------------
 
 // proj[l][s][b][c] = sum_k cond[b][k] * wc_s,l[k][c] (s = 0 vertical,
-// 1 horizontal); one thread per (l, s, b, c).
+// 1 horizontal; cond rounded to the compute dtype); one thread per
+// (l, s, b, c).
 template <int F>
-__global__ void proj_kernel(const float* __restrict__ cond, const PerLevel wcv,
-                            const PerLevel wch, float* __restrict__ proj, int B, int CD) {
+__global__ void proj_kernel(const float* __restrict__ cond, const PerLevelC wcv,
+                            const PerLevelC wch, float* __restrict__ proj, int B, int CD) {
   constexpr int N = 2 * F;
   const int c = threadIdx.x, b = blockIdx.x, s = blockIdx.y, l = blockIdx.z;
-  const float* wc = s == 0 ? wcv.p[l] : wch.p[l];
+  const cdt* wc = s == 0 ? wcv.p[l] : wch.p[l];
   float acc = 0.f;
-  for (int k = 0; k < CD; ++k) acc = fmaf(cond[(size_t)b * CD + k], wc[(size_t)k * N + c], acc);
+  for (int k = 0; k < CD; ++k)
+    acc = fmaf(round_c(cond[(size_t)b * CD + k]), to_f(wc[(size_t)k * N + c]), acc);
   proj[(((size_t)l * 2 + s) * B + b) * N + c] = acc;
 }
 
 // The gate's derivative: g = carry + ext (either may be null),
 // db1 = [g * sg, g * act * sg * (1 - sg)] with act, gate = b1[:F], b1[F:].
 template <int F>
-__global__ void gate_bwd(const float* __restrict__ carry, const float* __restrict__ ext,
-                         const float* __restrict__ b1, float* __restrict__ gtot,
+__global__ void gate_bwd(const float* __restrict__ carry, const cdt* __restrict__ ext,
+                         const cdt* __restrict__ b1, float* __restrict__ gtot,
                          float* __restrict__ db1, int R) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)R * F) return;
   const size_t r = idx / F, j = idx % F;
   float g = 0.f;
   if (carry) g += carry[idx];
-  if (ext) g += ext[idx];
+  if (ext) g += to_f(ext[idx]);
   if (gtot) gtot[idx] = g;
-  const float act = b1[r * 2 * F + j], gate = b1[r * 2 * F + F + j];
+  const float act = to_f(b1[r * 2 * F + j]), gate = to_f(b1[r * 2 * F + F + j]);
   const float sg = sigmoid(gate);
   db1[r * 2 * F + j] = g * sg;
   db1[r * 2 * F + F + j] = g * act * sg * (1.f - sg);
@@ -174,7 +186,7 @@ inline Split wgrad_split(int R, int blocks) {
 // straight into dW_l when S == 1, else into part[l][s] ([taps.n * 2C, N]
 // each), which reduce_splits adds up.
 struct WgArgs {
-  PerLevel src;     // level l's source [R, C]
+  PerLevelC src;    // level l's source [R, C]
   PerLevelOut out;  // level l's gradient [taps.n * 2C, N]
   const float* g;   // [L, R, N]
   float* part;      // [L, S, taps.n * 2C, N] when S > 1
@@ -202,7 +214,7 @@ __global__ void __launch_bounds__(kThreads, 1) wgrad(const __grid_constant__ WgA
   const int i0 = blockIdx.x * kBM, t = blockIdx.y;
   const int l = blockIdx.z / p.S, sp = blockIdx.z % p.S;
   const int rbeg = sp * p.rows, rend = min(g.R, rbeg + p.rows);
-  const float* src = p.src.p[l];
+  const cdt* src = p.src.p[l];
   const float* gl = p.g + (size_t)l * g.R * N;
   const uint32_t key = stream_key(p.seed, (uint32_t)(2 * (p.base + l) + p.sub));
   const int dy = p.taps.dy[t], dx = p.taps.dx[t];
@@ -232,8 +244,16 @@ __global__ void __launch_bounds__(kThreads, 1) wgrad(const __grid_constant__ WgA
       spos[h] = (uint32_t)(yy * g.W + xx);
       kimg[h] = mix32(key ^ (uint32_t)b);
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (ok[h])
-        v = __ldg(reinterpret_cast<const float4*>(src + (size_t)(r + dy * g.W + dx) * p.C + ch));
+      if (ok[h]) {
+        const size_t at = (size_t)(r + dy * g.W + dx) * p.C + ch;
+        if constexpr (kBF16) {
+          const uint2 x = __ldg(reinterpret_cast<const uint2*>(src + at));
+          v = make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xffff0000u),
+                          __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xffff0000u));
+        } else {
+          v = __ldg(reinterpret_cast<const float4*>(src + at));
+        }
+      }
       va[h][0] = v.x;
       va[h][1] = v.y;
       va[h][2] = v.z;
@@ -243,23 +263,30 @@ __global__ void __launch_bounds__(kThreads, 1) wgrad(const __grid_constant__ WgA
   auto store_a = [&](int s) {
 #pragma unroll
     for (int h = 0; h < kWR; ++h) {
-      float2 w[4];
+      float v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        float v = 0.f;
+        v[j] = 0.f;
         if (ok[h]) {
-          v = elu(neg ? -va[h][j] : va[h][j]);
+          v[j] = elu(neg ? -va[h][j] : va[h][j]);
           if (p.drop)
-            v = kept(kimg[h], spos[h] * (uint32_t)(2 * p.C) + i + j, p.thresh) ? v * p.inv_keep
-                                                                            : 0.f;
+            v[j] = kept(kimg[h], spos[h] * (uint32_t)(2 * p.C) + i + j, p.thresh)
+                       ? v[j] * p.inv_keep
+                       : 0.f;
         }
-        w[j] = split_tf32(v);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int at = frag_at(4 * q + j, rr + kWStep * h);
-        sA[s * 2 * kAPlane + at] = w[j].x;
-        sA[s * 2 * kAPlane + kAPlane + at] = w[j].y;
+        if constexpr (kBF16) {
+          // one bf16 value a channel: the row is the K axis here
+          reinterpret_cast<uint16_t*>(sA)[s * kAPlane + frag16_at(4 * q + j, rr + kWStep * h)] =
+              static_cast<uint16_t>(pack_bf16(v[j], 0.f) & 0xffffu);
+        } else {
+          const float2 w = split_tf32(v[j]);
+          const int at = frag_at(4 * q + j, rr + kWStep * h);
+          sA[s * 2 * kAPlane + at] = w.x;
+          sA[s * 2 * kAPlane + kAPlane + at] = w.y;
+        }
       }
     }
   };
@@ -285,13 +312,17 @@ __global__ void __launch_bounds__(kThreads, 1) wgrad(const __grid_constant__ WgA
   store_a(0);
   for (int c = 0; c < nc; ++c) {
     const int k0 = rbeg + c * kKC;
-    cp_async_wait_ring();
+    cp_async_wait_ring<kStages>();
     __syncthreads();
     stage_b(k0 + (kStages - 1) * kKC, (c + kStages - 1) % kStages);
     const bool more = c + 1 < nc;
     if (more) load_a(k0 + kKC);
-    mma_chunk<N, N + 8, 1>(acc, sA + (c % 2) * 2 * kAPlane,
-                           sB + c % kStages * b_stage<N>());
+    if constexpr (kBF16)
+      mma_chunk_bf<N, N + 8, 1>(acc, reinterpret_cast<const uint16_t*>(sA) + (c % 2) * kAPlane,
+                                sB + c % kStages * b_stage<N>());
+    else
+      mma_chunk<N, N + 8, 1>(acc, sA + (c % 2) * 2 * kAPlane,
+                             sB + c % kStages * b_stage<N>());
     if (more) store_a((c + 1) % 2);
   }
 
@@ -342,7 +373,8 @@ __global__ void sum_images(const float* __restrict__ x, const PerLevelOut out, i
   out.p[l][c] = acc;
 }
 
-// dwc_l[k][c] = sum_b cond[b][k] * rs[l][b][c]; block (k, l), thread c.
+// dwc_l[k][c] = sum_b cond[b][k] * rs[l][b][c] (both rounded to the
+// compute dtype); block (k, l), thread c.
 template <int F>
 __global__ void dwc_kernel(const float* __restrict__ cond, const float* __restrict__ rs,
                            const PerLevelOut dwc, int B, int CD) {
@@ -350,15 +382,16 @@ __global__ void dwc_kernel(const float* __restrict__ cond, const float* __restri
   const int c = threadIdx.x, k = blockIdx.x, l = blockIdx.y;
   float acc = 0.f;
   for (int b = 0; b < B; ++b)
-    acc = fmaf(cond[(size_t)b * CD + k], rs[((size_t)l * B + b) * N + c], acc);
+    acc = fmaf(round_c(cond[(size_t)b * CD + k]), round_c(rs[((size_t)l * B + b) * N + c]),
+               acc);
   dwc.p[l][(size_t)k * N + c] = acc;
 }
 
-// dcond[b][k] = sum_l (rsv[l][b] . wcv_l[k] + rsh[l][b] . wch_l[k]); one
-// warp per (b, k).
+// dcond[b][k] = sum_l (rsv[l][b] . wcv_l[k] + rsh[l][b] . wch_l[k]) (the
+// row sums rounded to the compute dtype); one warp per (b, k).
 template <int F>
-__global__ void dcond_kernel(const float* __restrict__ rsv, const PerLevel wcv,
-                             const float* __restrict__ rsh, const PerLevel wch,
+__global__ void dcond_kernel(const float* __restrict__ rsv, const PerLevelC wcv,
+                             const float* __restrict__ rsh, const PerLevelC wch,
                              float* __restrict__ dcond, int L, int B, int CD) {
   constexpr int N = 2 * F;
   const int wid = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
@@ -369,9 +402,10 @@ __global__ void dcond_kernel(const float* __restrict__ rsv, const PerLevel wcv,
   for (int l = 0; l < L; ++l) {
     const float* v = rsv + ((size_t)l * B + b) * N;
     const float* h = rsh + ((size_t)l * B + b) * N;
-    const float* wv = wcv.p[l] + (size_t)k * N;
-    const float* wh = wch.p[l] + (size_t)k * N;
-    for (int c = lane; c < N; c += 32) acc += v[c] * wv[c] + h[c] * wh[c];
+    const cdt* wv = wcv.p[l] + (size_t)k * N;
+    const cdt* wh = wch.p[l] + (size_t)k * N;
+    for (int c = lane; c < N; c += 32)
+      acc += round_c(v[c]) * to_f(wv[c]) + round_c(h[c]) * to_f(wh[c]);
   }
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -433,39 +467,39 @@ inline void launch_wgrad(const WgArgs& a, dim3 grid, cudaStream_t stream) {
 // through `proj` ([L, 2, B, 2F] scratch). Returns cudaGetLastError() after
 // the launches.
 template <int F>
-inline int levels_fwd(const Chain& c, const float* xv0, const float* xh0, const float* cond,
+inline int levels_fwd(const Chain& c, const cdt* xv0, const cdt* xh0, const float* cond,
                       const LevelFwd* lv, float* proj, cudaStream_t stream) {
   const Geo g = c.g;
   const bool down = lv[0].p[LF_SKV] != nullptr;
-  PerLevel wcv{}, wch{};
+  PerLevelC wcv{}, wch{};
   for (int l = 0; l < c.L; ++l) {
-    wcv.p[l] = lv[l].in(LF_WCV);
-    wch.p[l] = lv[l].in(LF_WCH);
+    wcv.p[l] = lv[l].act(LF_WCV);
+    wch.p[l] = lv[l].act(LF_WCH);
   }
   proj_kernel<F><<<dim3(g.B, 2, c.L), 2 * F, 0, stream>>>(cond, wcv, wch, proj, g.B, c.CD);
 
   const int bmode = c.drop ? A_CELU_DROP : A_CELU;
   for (int l = 0; l < c.L; ++l) {
     const LevelFwd& v = lv[l];
-    const float* xv_in = l ? lv[l - 1].in(LF_XVO) : xv0;
-    const float* xh_in = l ? lv[l - 1].in(LF_XHO) : xh0;
+    const cdt* xv_in = l ? lv[l - 1].act(LF_XVO) : xv0;
+    const cdt* xh_in = l ? lv[l - 1].act(LF_XHO) : xh0;
     for (int sub = 0; sub < 2; ++sub) {
       const bool vert = sub == 0;
       const Taps& tp = vert ? c.tv : c.th;
-      const float* x_in = vert ? xv_in : xh_in;
-      float* a1 = v.out(vert ? LF_A1V : LF_A1H);
+      const cdt* x_in = vert ? xv_in : xh_in;
+      cdt* a1 = v.act_out(vert ? LF_A1V : LF_A1H);
       // conv_a (+ aux) + ba
       DataArgs a{};
       a.g = g;
       a.epi = E_BIAS;
-      add_tap_terms(a, tp, 1, x_in, F, A_CELU, v.in(vert ? LF_WAV : LF_WAH),
+      add_tap_terms(a, tp, 1, x_in, F, A_CELU, v.act(vert ? LF_WAV : LF_WAH),
                     (size_t)2 * F * F, F, 0);
-      if (!vert) a.t[a.nt++] = Term{v.in(LF_XVO), v.in(LF_WXHU), F, 2 * F, A_CELU, 0, 0, F, 0};
+      if (!vert) a.t[a.nt++] = Term{v.act(LF_XVO), v.act(LF_WXHU), F, 2 * F, A_CELU, 0, 0, F, 0};
       if (down)
-        a.t[a.nt++] = Term{v.in(vert ? LF_SKV : LF_SKH), v.in(vert ? LF_WXV : LF_WXHS), F,
+        a.t[a.nt++] = Term{v.act(vert ? LF_SKV : LF_SKH), v.act(vert ? LF_WXV : LF_WXHS), F,
                            2 * F, A_CELU, 0, 0, F, 0};
       a.bias = v.in(vert ? LF_BAV : LF_BAH);
-      a.out = a1;
+      a.outc = a1;
       launch_data_gemm<F>(a, stream);
       // conv_b(dropout(concat_elu(a1))) + bb + proj, gate, residual
       DataArgs b{};
@@ -475,13 +509,13 @@ inline int levels_fwd(const Chain& c, const float* xv0, const float* xh0, const 
       b.thresh = c.thresh;
       b.inv_keep = c.inv_keep;
       b.drop = c.drop;
-      add_tap_terms(b, tp, 1, a1, F, bmode, v.in(vert ? LF_WBV : LF_WBH), (size_t)4 * F * F,
+      add_tap_terms(b, tp, 1, a1, F, bmode, v.act(vert ? LF_WBV : LF_WBH), (size_t)4 * F * F,
                     2 * F, 0);
       b.bias = v.in(vert ? LF_BBV : LF_BBH);
       b.proj = proj + ((size_t)l * 2 + sub) * g.B * 2 * F;
       b.xres = x_in;
-      b.out = v.out(vert ? LF_B1V : LF_B1H);
-      b.out2 = v.out(vert ? LF_XVO : LF_XHO);
+      b.outc = v.act_out(vert ? LF_B1V : LF_B1H);
+      b.out2 = v.act_out(vert ? LF_XVO : LF_XHO);
       launch_data_gemm<2 * F>(b, stream);
     }
   }
@@ -493,14 +527,17 @@ inline int levels_fwd(const Chain& c, const float* xv0, const float* xh0, const 
 // The backward's pass-wide tensors: the chain inputs and cond, their
 // cotangents (out), and scratch.
 struct BwdPass {
-  const float *xv0, *xh0, *cond;
-  float *dxv0, *dxh0, *dcond;
+  const cdt *xv0, *xh0;
+  const float* cond;
+  cdt *dxv0, *dxh0;
+  float* dcond;
   float *db1v, *db1h;  // [L, R, 2F]
   float *da1v, *da1h;  // [L, R, F]
   float *gtot, *gvtot; // [R, F]
   float *rsv, *rsh;    // [L, B, 2F]
   float *rav, *rah;    // [L, B, F]
   float* part;         // wgrad_part_floats(c) floats
+  float *cv, *ch;      // [R, F]: the carries, the cotangents of level l's inputs (l > 0)
 };
 
 // The VJP of the L levels of `lv` at c.F == F filters. Returns
@@ -513,10 +550,11 @@ inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
   const bool down = lv[0].p[LB_SKV] != nullptr;
   const size_t RF = (size_t)g.R * F;
   const int ew_blocks = (int)((RF + kThreads - 1) / kThreads);
-  float* dv = s.dxv0;  // the carries end as the chain inputs' cotangents
-  float* dh = s.dxh0;
+  // the carries; level 0 writes the chain inputs' cotangents instead
+  float* dv = s.cv;
+  float* dh = s.ch;
   auto input = [&](int l, bool vert) {
-    return l ? lv[l - 1].in(vert ? LB_XVO : LB_XHO) : (vert ? s.xv0 : s.xh0);
+    return l ? lv[l - 1].act(vert ? LB_XVO : LB_XHO) : (vert ? s.xv0 : s.xh0);
   };
 
   for (int l = L - 1; l >= 0; --l) {
@@ -530,11 +568,11 @@ inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
       // g = dv + gv_ext + daux_h for the vertical block (in gvtot), the
       // carry plus the level's external cotangent for the horizontal one
       if (vert)
-        gate_bwd<F><<<ew_blocks, kThreads, 0, stream>>>(s.gvtot, nullptr, v.in(LB_B1V), nullptr,
+        gate_bwd<F><<<ew_blocks, kThreads, 0, stream>>>(s.gvtot, nullptr, v.act(LB_B1V), nullptr,
                                                      db1, g.R);
       else
-        gate_bwd<F><<<ew_blocks, kThreads, 0, stream>>>(top ? nullptr : dh, v.in(LB_GH),
-                                                     v.in(LB_B1H), s.gtot, db1, g.R);
+        gate_bwd<F><<<ew_blocks, kThreads, 0, stream>>>(top ? nullptr : dh, v.act(LB_GH),
+                                                     v.act(LB_B1H), s.gtot, db1, g.R);
       // da1 = concat_elu'(a1) (conv_b^T(db1) * mask / keep)
       DataArgs d{};
       d.g = g;
@@ -543,15 +581,16 @@ inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
       d.thresh = c.thresh;
       d.inv_keep = c.inv_keep;
       d.drop = c.drop;
-      add_tap_terms(d, tp, -1, db1, 2 * F, A_IDENT, v.in(vert ? LB_WBV : LB_WBH),
+      add_tap_terms(d, tp, -1, db1, 2 * F, A_IDENT, v.act(vert ? LB_WBV : LB_WBH),
                     (size_t)4 * F * F, 2 * F, 1);
-      d.z = v.in(vert ? LB_A1V : LB_A1H);
+      d.z = v.act(vert ? LB_A1V : LB_A1H);
       d.out = da1;
       launch_data_gemm<2 * F>(d, stream);
       // the aux cotangents: dv + gv_ext + concat_elu'(xv') (da1h Wxh_u^T),
       // and the skips'
-      auto aux_bwd = [&](const float* w, const float* z, const float* base1,
-                         const float* base2, float* dst) {
+      // (into float32 `out`, or `outc` of the compute dtype)
+      auto aux_bwd = [&](const cdt* w, const cdt* z, const float* base1, const cdt* base2,
+                         float* out, cdt* outc) {
         DataArgs x{};
         x.g = g;
         x.epi = E_CELU_BWD;
@@ -559,23 +598,31 @@ inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
         x.z = z;
         x.base1 = base1;
         x.base2 = base2;
-        x.out = dst;
+        x.out = out;
+        x.outc = outc;
         launch_data_gemm<2 * F>(x, stream);
       };
       if (!vert)
-        aux_bwd(v.in(LB_WXHU), v.in(LB_XVO), top ? nullptr : dv, v.in(LB_GV), s.gvtot);
+        aux_bwd(v.act(LB_WXHU), v.act(LB_XVO), top ? nullptr : dv, v.act(LB_GV), s.gvtot,
+                nullptr);
       if (down)
-        aux_bwd(v.in(vert ? LB_WXV : LB_WXHS), v.in(vert ? LB_SKV : LB_SKH), nullptr, nullptr,
-                v.out(vert ? LB_DSKV : LB_DSKH));
-      // the block input's cotangent: g + concat_elu'(x) (conv_a^T(da1))
+        aux_bwd(v.act(vert ? LB_WXV : LB_WXHS), v.act(vert ? LB_SKV : LB_SKH), nullptr, nullptr,
+                nullptr, v.act_out(vert ? LB_DSKV : LB_DSKH));
+      // the block input's cotangent: g + concat_elu'(x) (conv_a^T(da1)), a
+      // carry (rounded with round_carry) or, at level 0, the chain input's
       DataArgs x{};
       x.g = g;
       x.epi = E_CELU_BWD;
-      add_tap_terms(x, tp, -1, da1, F, A_IDENT, v.in(vert ? LB_WAV : LB_WAH), (size_t)2 * F * F,
+      add_tap_terms(x, tp, -1, da1, F, A_IDENT, v.act(vert ? LB_WAV : LB_WAH), (size_t)2 * F * F,
                     F, 1);
       x.z = input(l, vert);
       x.base1 = vert ? s.gvtot : s.gtot;
-      x.out = vert ? dv : dh;
+      if (l) {
+        x.out = vert ? dv : dh;
+        x.round = c.round_carry;
+      } else {
+        x.outc = vert ? s.dxv0 : s.dxh0;
+      }
       launch_data_gemm<2 * F>(x, stream);
     }
   }
@@ -613,7 +660,7 @@ inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
                                                                           sp.S, n);
     }
   };
-  auto of = [&](int i) { return [&lv, i](int l) { return lv[l].in(i); }; };
+  auto of = [&](int i) { return [&lv, i](int l) { return lv[l].act(i); }; };
   const Taps one = make_taps(1, 1, 0, 0);
   wg([&](int l) { return input(l, true); }, false, c.tv, 0, s.da1v, LB_DWAV, false);
   wg(of(LB_A1V), c.drop, c.tv, 0, s.db1v, LB_DWBV, true);
@@ -627,7 +674,7 @@ inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
 
   // bias and cond gradients
   PerLevelOut dbbv{}, dbbh{}, dbav{}, dbah{}, dwcv{}, dwch{};
-  PerLevel wcv{}, wch{};
+  PerLevelC wcv{}, wch{};
   for (int l = 0; l < L; ++l) {
     dbbv.p[l] = lv[l].out(LB_DBBV);
     dbbh.p[l] = lv[l].out(LB_DBBH);
@@ -635,8 +682,8 @@ inline int levels_bwd(const Chain& c, const BwdPass& s, const LevelBwd* lv,
     dbah.p[l] = lv[l].out(LB_DBAH);
     dwcv.p[l] = lv[l].out(LB_DWCV);
     dwch.p[l] = lv[l].out(LB_DWCH);
-    wcv.p[l] = lv[l].in(LB_WCV);
-    wch.p[l] = lv[l].in(LB_WCH);
+    wcv.p[l] = lv[l].act(LB_WCV);
+    wch.p[l] = lv[l].act(LB_WCH);
   }
   const int LB = L * g.B;
   rowsum_images<<<LB, 2 * F, 0, stream>>>(s.db1v, s.rsv, g.HW, 2 * F);

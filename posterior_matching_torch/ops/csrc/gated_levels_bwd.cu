@@ -36,6 +36,13 @@
 // (pm_gated_levels_bwd_part_floats floats). The TPU
 // kernels carry dv/dh in VMEM and accumulate dW per batch chunk; their batch
 // chunks (bc_bwd) have no counterpart here.
+//
+// bf16: built a second time with -DPM_CORE_BF16=1 (_build.SOURCES' *_bf16)
+// for compute_dtype bfloat16: the JAX kernel at cdtype bf16 (gated_chain.py:
+// 206-252), on the core's bf16 path (gated_common.cuh): the activations,
+// saves and their cotangents bf16; a segment's carries between levels stay
+// float32 within the launch, as the Pallas segment's do (:909); cond, dcond
+// and the weights' gradients float32.
 #include "gated_levels.cuh"
 
 namespace {
@@ -44,7 +51,7 @@ using namespace gsk;
 
 enum LevelsBwdPtr {
   XV0, XH0, COND, DXV0, DXH0, DCOND, DB1V, DB1H, DA1V, DA1H, GTOT, GVTOT,
-  RSV, RSH, RAV, RAH, PART, HEAD
+  RSV, RSH, RAV, RAH, PART, CV, CH, HEAD
 };
 
 // `ptrs` holds HEAD pointers (ops/gated_chain.py::_SEG_BWD: the levels'
@@ -61,11 +68,11 @@ int run_levels_bwd(const void* const* ptrs, int nptrs, const int* ints, int nint
     return (int)cudaErrorInvalidValue;
   LevelBwd lv[kMaxLevels];
   unpack_levels(ptrs, HEAD, c.L, lv);
-  auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
+  auto act = [&](int i) { return static_cast<cdt*>(const_cast<void*>(ptrs[i])); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
-  const BwdPass s{in(XV0), in(XH0), in(COND), out(DXV0), out(DXH0), out(DCOND),
+  const BwdPass s{act(XV0), act(XH0), out(COND), act(DXV0), act(DXH0), out(DCOND),
                   out(DB1V), out(DB1H), out(DA1V), out(DA1H), out(GTOT), out(GVTOT),
-                  out(RSV), out(RSH), out(RAV), out(RAH), out(PART)};
+                  out(RSV), out(RSH), out(RAV), out(RAH), out(PART), out(CV), out(CH)};
   GSK_DISPATCH_WIDTHS(c.F, levels_bwd<F>(c, s, lv, static_cast<cudaStream_t>(stream)));
 }
 

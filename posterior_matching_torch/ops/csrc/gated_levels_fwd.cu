@@ -33,6 +33,11 @@
 // memory, which the backward needs anyway. The TPU kernels keep the carry in
 // VMEM and all L levels' weights resident; their batch chunks (bc_fwd) tile
 // VMEM and have no counterpart: each launch covers all B*H*W rows.
+//
+// bf16: built a second time with -DPM_CORE_BF16=1 (_build.SOURCES' *_bf16)
+// for compute_dtype bfloat16: the JAX kernel at cdtype bf16 (gated_chain.py:
+// 164-203), on the core's bf16 path (gated_common.cuh): its inputs, outputs
+// and saves bf16 (the weight matrices bf16, the biases and cond float32).
 #include "gated_levels.cuh"
 
 namespace {
@@ -53,9 +58,10 @@ int run_levels_fwd(const void* const* ptrs, int nptrs, const int* ints, int nint
     return (int)cudaErrorInvalidValue;
   LevelFwd lv[kMaxLevels];
   unpack_levels(ptrs, HEAD, c.L, lv);
-  auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
+  auto act = [&](int i) { return static_cast<const cdt*>(ptrs[i]); };
+  const float* cond = static_cast<const float*>(ptrs[COND]);
   float* proj = static_cast<float*>(const_cast<void*>(ptrs[PROJ]));
-  GSK_DISPATCH_WIDTHS(c.F, levels_fwd<F>(c, in(XV0), in(XH0), in(COND), lv, proj,
+  GSK_DISPATCH_WIDTHS(c.F, levels_fwd<F>(c, act(XV0), act(XH0), cond, lv, proj,
                                          static_cast<cudaStream_t>(stream)));
 }
 

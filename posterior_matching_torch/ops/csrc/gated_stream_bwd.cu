@@ -30,6 +30,13 @@
 // products' (48) are cut into 2 and 6 row splits, whose partial sums go
 // through `part`. The stream's weights, saves and gradients are
 // [L, ...] stacks; this entry point cuts them into per-level pointers.
+//
+// bf16: built a second time with -DPM_CORE_BF16=1 (_build.SOURCES' *_bf16)
+// for compute_dtype bfloat16: the JAX kernel at cdtype bf16 (gated_chain.py:
+// 206-252, 1407-1505), on the core's bf16 path (gated_common.cuh): the
+// activations, saves and their cotangents bf16, the carries between levels
+// rounded to bf16 as the Pallas kernel's dv_scr / dh_scr are (:1462, :1502);
+// cond, dcond and the weights' gradients float32.
 #include "gated_levels.cuh"
 
 namespace {
@@ -41,16 +48,18 @@ enum BwdPtr {
   WAV, WBV, WCV, WXV, WAH, WBH, WCH, WXHU, WXHS,
   DXV0, DXH0, DSKV, DSKH, DCOND,
   DWAV, DBAV, DWBV, DBBV, DWCV, DWXV, DWAH, DBAH, DWBH, DBBH, DWCH, DWXHU, DWXHS,
-  DB1V, DB1H, DA1V, DA1H, GTOT, GVTOT, RSV, RSH, RAV, RAH, PART, BWD_NPTR
+  DB1V, DB1H, DA1V, DA1H, GTOT, GVTOT, RSV, RSH, RAV, RAH, PART, CV, CH, BWD_NPTR
 };
 
 // The VJP of one pass of chain c at c.F == F filters.
 template <int F>
-int run_bwd(const void* const* ptrs, const Chain& c, cudaStream_t stream) {
+int run_bwd(const void* const* ptrs, Chain c, cudaStream_t stream) {
   const size_t RF = (size_t)c.g.R * F, FF = (size_t)F * F;
   const size_t tv = c.tv.n, th = c.th.n, cd = c.CD;
-  // each stack's [L, ...] level stride, in floats
-  struct Cut { int from, to; size_t stride; };
+  c.round_carry = kBF16;  // the Pallas stream's carries are of the compute dtype
+  // each stack's [L, ...] level stride, in elements: of the compute dtype
+  // (cdt), or float32 (the gradients of the weights and biases)
+  struct Cut { int from, to; size_t stride; bool f32; };
   const Cut cuts[] = {
       {GV, LB_GV, RF}, {GH, LB_GH, RF}, {XVO, LB_XVO, RF}, {XHO, LB_XHO, RF},
       {SKV, LB_SKV, RF}, {SKH, LB_SKH, RF}, {A1V, LB_A1V, RF}, {A1H, LB_A1H, RF},
@@ -59,22 +68,25 @@ int run_bwd(const void* const* ptrs, const Chain& c, cudaStream_t stream) {
       {WXV, LB_WXV, 2 * FF}, {WAH, LB_WAH, th * 2 * FF}, {WBH, LB_WBH, th * 4 * FF},
       {WCH, LB_WCH, cd * 2 * F}, {WXHU, LB_WXHU, 2 * FF}, {WXHS, LB_WXHS, 2 * FF},
       {DSKV, LB_DSKV, RF}, {DSKH, LB_DSKH, RF},
-      {DWAV, LB_DWAV, tv * 2 * FF}, {DBAV, LB_DBAV, F}, {DWBV, LB_DWBV, tv * 4 * FF},
-      {DBBV, LB_DBBV, 2 * F}, {DWCV, LB_DWCV, cd * 2 * F}, {DWXV, LB_DWXV, 2 * FF},
-      {DWAH, LB_DWAH, th * 2 * FF}, {DBAH, LB_DBAH, F}, {DWBH, LB_DWBH, th * 4 * FF},
-      {DBBH, LB_DBBH, 2 * F}, {DWCH, LB_DWCH, cd * 2 * F}, {DWXHU, LB_DWXHU, 2 * FF},
-      {DWXHS, LB_DWXHS, 2 * FF},
+      {DWAV, LB_DWAV, tv * 2 * FF, true}, {DBAV, LB_DBAV, F, true},
+      {DWBV, LB_DWBV, tv * 4 * FF, true}, {DBBV, LB_DBBV, 2 * F, true},
+      {DWCV, LB_DWCV, cd * 2 * F, true}, {DWXV, LB_DWXV, 2 * FF, true},
+      {DWAH, LB_DWAH, th * 2 * FF, true}, {DBAH, LB_DBAH, F, true},
+      {DWBH, LB_DWBH, th * 4 * FF, true}, {DBBH, LB_DBBH, 2 * F, true},
+      {DWCH, LB_DWCH, cd * 2 * F, true}, {DWXHU, LB_DWXHU, 2 * FF, true},
+      {DWXHS, LB_DWXHS, 2 * FF, true},
   };
   LevelBwd lv[kMaxLevels];
   for (int l = 0; l < c.L; ++l)
     for (const Cut& k : cuts)
-      lv[l].p[k.to] = ptrs[k.from] ? static_cast<const float*>(ptrs[k.from]) + l * k.stride
+      lv[l].p[k.to] = ptrs[k.from] ? static_cast<const char*>(ptrs[k.from]) +
+                                         l * k.stride * (k.f32 ? sizeof(float) : sizeof(cdt))
                                    : nullptr;
-  auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
+  auto act = [&](int i) { return static_cast<cdt*>(const_cast<void*>(ptrs[i])); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
-  const BwdPass s{in(XV0), in(XH0), in(COND), out(DXV0), out(DXH0), out(DCOND),
+  const BwdPass s{act(XV0), act(XH0), out(COND), act(DXV0), act(DXH0), out(DCOND),
                   out(DB1V), out(DB1H), out(DA1V), out(DA1H), out(GTOT), out(GVTOT),
-                  out(RSV), out(RSH), out(RAV), out(RAH), out(PART)};
+                  out(RSV), out(RSH), out(RAV), out(RAH), out(PART), out(CV), out(CH)};
   return levels_bwd<F>(c, s, lv, stream);
 }
 

@@ -31,6 +31,11 @@
 // point cuts them into per-level pointers. The products run on
 // gated_common.cuh's core: mma.sync TF32 tensor cores with the 3xTF32 split
 // (float32 numerics), pipelined operands; wgmma and TMA are later work.
+//
+// bf16: built a second time with -DPM_CORE_BF16=1 (_build.SOURCES' *_bf16)
+// for compute_dtype bfloat16: the JAX kernel at cdtype bf16 (gated_chain.py:
+// 164-203), on the core's bf16 path (gated_common.cuh): its inputs, outputs
+// and saves bf16 (the weight matrices bf16, the biases and cond float32).
 #include "gated_levels.cuh"
 
 namespace {
@@ -48,14 +53,15 @@ template <int F>
 int run_fwd(const void* const* ptrs, const Chain& c, cudaStream_t stream) {
   const size_t RF = (size_t)c.g.R * F, FF = (size_t)F * F;
   const size_t tv = c.tv.n, th = c.th.n, cd = c.CD;
-  // each stack's [L, ...] level stride, in floats
-  struct Cut { int from, to; size_t stride; };
+  // each stack's [L, ...] level stride, in elements: of the compute dtype
+  // (cdt), or float32 (the biases)
+  struct Cut { int from, to; size_t stride; bool f32; };
   const Cut cuts[] = {
       {SKV, LF_SKV, RF}, {SKH, LF_SKH, RF},
-      {WAV, LF_WAV, tv * 2 * FF}, {BAV, LF_BAV, F}, {WBV, LF_WBV, tv * 4 * FF},
-      {BBV, LF_BBV, 2 * F}, {WCV, LF_WCV, cd * 2 * F}, {WXV, LF_WXV, 2 * FF},
-      {WAH, LF_WAH, th * 2 * FF}, {BAH, LF_BAH, F}, {WBH, LF_WBH, th * 4 * FF},
-      {BBH, LF_BBH, 2 * F}, {WCH, LF_WCH, cd * 2 * F}, {WXHU, LF_WXHU, 2 * FF},
+      {WAV, LF_WAV, tv * 2 * FF}, {BAV, LF_BAV, F, true}, {WBV, LF_WBV, tv * 4 * FF},
+      {BBV, LF_BBV, 2 * F, true}, {WCV, LF_WCV, cd * 2 * F}, {WXV, LF_WXV, 2 * FF},
+      {WAH, LF_WAH, th * 2 * FF}, {BAH, LF_BAH, F, true}, {WBH, LF_WBH, th * 4 * FF},
+      {BBH, LF_BBH, 2 * F, true}, {WCH, LF_WCH, cd * 2 * F}, {WXHU, LF_WXHU, 2 * FF},
       {WXHS, LF_WXHS, 2 * FF},
       {XVO, LF_XVO, RF}, {XHO, LF_XHO, RF}, {A1V, LF_A1V, RF}, {A1H, LF_A1H, RF},
       {B1V, LF_B1V, 2 * RF}, {B1H, LF_B1H, 2 * RF},
@@ -63,10 +69,11 @@ int run_fwd(const void* const* ptrs, const Chain& c, cudaStream_t stream) {
   LevelFwd lv[kMaxLevels];
   for (int l = 0; l < c.L; ++l)
     for (const Cut& k : cuts)
-      lv[l].p[k.to] = ptrs[k.from] ? static_cast<const float*>(ptrs[k.from]) + l * k.stride
+      lv[l].p[k.to] = ptrs[k.from] ? static_cast<const char*>(ptrs[k.from]) +
+                                         l * k.stride * (k.f32 ? sizeof(float) : sizeof(cdt))
                                    : nullptr;
-  auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
-  return levels_fwd<F>(c, in(XV0), in(XH0), in(COND), lv,
+  return levels_fwd<F>(c, static_cast<const cdt*>(ptrs[XV0]), static_cast<const cdt*>(ptrs[XH0]),
+                       static_cast<const float*>(ptrs[COND]), lv,
                        static_cast<float*>(const_cast<void*>(ptrs[PROJ])), stream);
 }
 

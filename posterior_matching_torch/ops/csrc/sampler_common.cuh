@@ -7,6 +7,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx_mma.cuh"
+
 namespace pmk {
 
 // num_filters the kernels are built for: 128 (configs/pm_vqvae_celeb_a.py,
@@ -46,11 +48,9 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// ---- mbarriers, bulk copies and shared-memory loads (PTX)
+// ---- mbarriers, bulk copies and shared-memory loads (PTX; smem_u32 is
+// ptx_mma.cuh's)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
                : "memory");

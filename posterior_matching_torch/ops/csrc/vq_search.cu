@@ -50,60 +50,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx_mma.cuh"
+
 namespace {
 
 constexpr int kMaxD = 256;
 constexpr int kNW8 = 2;             // n8 tiles a warp holds
 constexpr int kCW = 8 * kNW8;       // codes of a warp a chunk
 constexpr unsigned kFull = 0xffffffffu;
-
-// ---- TF32 rounding; PTX: tensor-core MMA, cp.async ------------------------
-
-// x rounded to TF32 (to nearest, ties away from zero) as its bits.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// big = x rounded to TF32, small = x - big (exact in float32).
-__device__ __forceinline__ float2 split_tf32(float x) {
-  const float big = __uint_as_float(to_tf32(x));
-  return make_float2(big, x - big);
-}
-
-// d += A B for one m16n8k8 TF32 fragment (warp-collective).
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Copies `bytes` (0 or 16) from global `src` to shared `dst`, zero-filling
-// the rest of the 16.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-// The same for 4 bytes (0 or 4), for rows that are not 16-byte aligned.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Waits until at most NS - 2 of this thread's committed groups are
-// pending: the oldest chunk of a ring of NS stages has landed.
-template <int NS>
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(NS - 2) : "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // ---- geometry ----------------------------------------------------------------
 

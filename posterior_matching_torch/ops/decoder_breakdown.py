@@ -63,11 +63,13 @@ from posterior_matching_torch.ops import _build, block_chain as bc, decoder_chai
 from posterior_matching_torch.ops.profiling import time_ms
 
 CORE, FWD, BWD = "vdvae_gemm.cuh", "decoder_chain_fwd.cu", "decoder_chain_bwd.cu"
+PTX = "ptx_mma.cuh"  # the PTX helpers the core includes (an older design has none)
 # the decoder's sources; a version may lack some (an older design has no
 # core header and includes block_chain_common.cuh)
-FILES = (CORE, "block_chain_common.cuh", "decoder_chain_common.cuh", FWD, BWD)
+FILES = (PTX, CORE, "block_chain_common.cuh", "decoder_chain_common.cuh", FWD, BWD)
 # the block chain's: the core (an older design had none) and its own
-BLOCK_FILES = (CORE, "block_chain_common.cuh", "block_chain_fwd.cu", "block_chain_bwd.cu")
+BLOCK_FILES = (PTX, CORE, "block_chain_common.cuh", "block_chain_fwd.cu",
+               "block_chain_bwd.cu")
 _MMAS = ("mma_tf32(part[u], as, bb[u]);", "mma_tf32(part[u], ab, bs[u]);",
          "mma_tf32(part[u], ab, bb[u]);")
 # Each variant's substitutions: (file, old, new[, n]); each old string
@@ -80,7 +82,7 @@ _PARTS = {
                    (CORE, "if (ok && lim > 0)", "if (false)"),
                    (CORE, "if (ok) a = src_at(", "if (false) a = src_at("),
                    (CORE, "va[v] = ok ? src_at(", "va[v] = false ? src_at(")],
-    "no_b_copies": [(CORE, 'asm volatile("cp.async.cg.shared.global',
+    "no_b_copies": [(PTX, 'asm volatile("cp.async.cg.shared.global',
                      'if (false) asm volatile("cp.async.cg.shared.global')],
     "no_sync": [(CORE, "__syncthreads();  // chunk c's B stage and slab", "// chunk c's B stage"),
                 (CORE, "__syncthreads();  // chunk c's B stage and A", "// chunk c's B stage"),

@@ -47,8 +47,9 @@ import torch
 from posterior_matching_torch.ops import _build, gated_chain as gc
 from posterior_matching_torch.ops.profiling import time_ms
 
-HEADER, LEVELS = "gated_common.cuh", "gated_levels.cuh"
-FILES = (HEADER, LEVELS, "gated_stream_fwd.cu", "gated_stream_bwd.cu", "gated_levels_bwd.cu")
+HEADER, LEVELS, PTX = "gated_common.cuh", "gated_levels.cuh", "ptx_mma.cuh"
+FILES = (PTX, HEADER, LEVELS, "gated_stream_fwd.cu", "gated_stream_bwd.cu",
+         "gated_levels_bwd.cu")
 LIBS = ("gated_stream_fwd", "gated_stream_bwd", "gated_levels_bwd")
 FILTERS = 128  # the flagship's num_filters, one of gc.KERNEL_WIDTHS
 _MMAS = ("mma_tf32(part[mt][u], as[mt], bb[u]);", "mma_tf32(part[mt][u], ab[mt], bs[u]);",
@@ -59,12 +60,13 @@ _PARTS = {
     "skeleton": [(HEADER, m, ";") for m in _MMAS],
     "no_a_loads": [(HEADER, "      if (ok[h]) {\n        const int r = r0",
                     "      if (false) {\n        const int r = r0"),
-                   (LEVELS, "      if (ok[h])\n        v = __ldg(", "      if (false)\n        v = __ldg(")],
-    "no_b_copies": [(HEADER, 'asm volatile("cp.async.cg.shared.global',
+                   (LEVELS, "      if (ok[h]) {\n        const size_t at = (size_t)(r + dy",
+                    "      if (false) {\n        const size_t at = (size_t)(r + dy")],
+    "no_b_copies": [(PTX, 'asm volatile("cp.async.cg.shared.global',
                      'if (false) asm volatile("cp.async.cg.shared.global')],
     "no_sync": [(HEADER, "    __syncthreads();   // everyone's", "    // everyone's"),
-                (LEVELS, "    cp_async_wait_ring();\n    __syncthreads();",
-                 "    cp_async_wait_ring();")],
+                (LEVELS, "    cp_async_wait_ring<kStages>();\n    __syncthreads();",
+                 "    cp_async_wait_ring<kStages>();")],
 }
 
 
@@ -141,10 +143,10 @@ def mma_rates(out: Path) -> Dict[str, float]:
     return rates
 
 
-def variants(header: str, levels: str) -> Dict[str, Dict[str, str]]:
-    """``gated_common.cuh`` and ``gated_levels.cuh`` as they are and with
-    parts of the core taken away, by name."""
-    out = {"kernel": {HEADER: header, LEVELS: levels}}
+def variants(header: str, levels: str, ptx: str) -> Dict[str, Dict[str, str]]:
+    """``gated_common.cuh``, ``gated_levels.cuh`` and ``ptx_mma.cuh`` as
+    they are and with parts of the core taken away, by name."""
+    out = {"kernel": {HEADER: header, LEVELS: levels, PTX: ptx}}
     for name, subs in _PARTS.items():
         texts = dict(out["kernel"])
         for f, old, new in subs:
@@ -224,8 +226,8 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
 
     dirs = {}
-    for name, texts in variants((_build.CSRC / HEADER).read_text(),
-                                (_build.CSRC / LEVELS).read_text()).items():
+    for name, texts in variants(*((_build.CSRC / f).read_text()
+                                  for f in (HEADER, LEVELS, PTX))).items():
         d = out / "src" / name
         d.mkdir(parents=True, exist_ok=True)
         for f in FILES:

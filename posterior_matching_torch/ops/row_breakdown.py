@@ -122,8 +122,9 @@ def _build_all(kernel: str, sources: Dict[str, Path], out: Path) -> Dict[str, ct
     procs = {}
     for name, path in sources.items():
         lib = out / f"lib{stem}_{name}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(path.parent), "-o", str(lib),
-               str(path)]
+        # the repo's csrc after the source's own: the PTX helpers' header
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(path.parent), "-I",
+               str(_build.CSRC), "-o", str(lib), str(path)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), lib)
     libs = {}

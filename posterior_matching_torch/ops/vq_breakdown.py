@@ -106,7 +106,9 @@ def _build_all(sources: Dict[str, str], out: Path) -> Dict[str, ctypes.CDLL]:
         (d / SOURCE).write_text(text)
         lib = d / f"lib{name}.so"
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(lib), str(d / SOURCE)],
+            # the repo's csrc after d: the PTX helpers' header
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-I", str(_build.CSRC), "-o",
+             str(lib), str(d / SOURCE)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for name, (proc, lib) in procs.items():

@@ -1,4 +1,5 @@
-"""Device resolution and float32 numerics for the PyTorch port.
+"""Device resolution, float32 numerics and the compute dtype for the
+PyTorch port.
 
 Entry points run on the GPU unless the caller asks for the CPU explicitly;
 with no GPU and no explicit ``device="cpu"`` they raise rather than quietly
@@ -35,3 +36,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "device='cpu' to run on the host"
         )
     return dev
+
+
+def torch_dtype(compute_dtype) -> torch.dtype:
+    """A config's ``compute_dtype`` (None, "float32" or "bfloat16", or that
+    torch dtype) as a torch dtype; any other is refused by name."""
+    names = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
+    if compute_dtype in (torch.float32, torch.bfloat16):
+        return compute_dtype
+    if compute_dtype not in names:
+        raise ValueError(f"compute_dtype {compute_dtype!r}: None, float32 or bfloat16")
+    return names[compute_dtype]

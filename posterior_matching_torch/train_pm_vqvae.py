@@ -6,7 +6,7 @@ Counterpart of ``train_pm_vqvae.py:88-224``. Run it as::
     python -m posterior_matching_torch.train_pm_vqvae --config pm_vqvae_celeb_a \\
         --config.vqvae_dir runs/vqvae-celeb_a-<timestamp> [--config.steps 1000] \\
         [--config.validation_freq 500] [--config.seed 0] [--chain_segment 4] \\
-        [--device cpu]
+        [--config.compute_dtype bfloat16] [--device cpu]
 
 - ``--config`` is ``pm_vqvae_celeb_a``, ``pm_vqvae_mnist`` or
   ``pm_vqvae_digits16`` (64 filters and 128 codes: the kernels' other
@@ -18,6 +18,12 @@ Counterpart of ``train_pm_vqvae.py:88-224``. Run it as::
   to its ``num_embeddings`` (:99-105); its ``train_state.pkl`` warm-starts
   the ``vqvae`` subtree and its ``vq_ema`` codebook (:212-223), which stay
   frozen: no gradient, no update, the codebook never moved.
+- ``compute_dtype`` (``--config.compute_dtype bfloat16``, as the JAX
+  CLI's ``PMVQVAE.from_config(..., compute_dtype=...)``, :107-112) runs the
+  VQ-VAE's, the partial encoder's and the PixelCNN's conv stacks in bf16,
+  the chain on the gated kernels' bf16 builds; parameters, the optimizer
+  and the heads stay float32, and ``config.json`` keeps the key, so that
+  ``convert.load_pm_vqvae`` and the JAX package rebuild the bf16 model.
 - ``--chain_segment`` chooses the PixelCNN chain's kernels: ``stream`` (the
   default, one launch a pass), ``1`` (one pair launch a level) or an
   integer ``L`` (segments of ``L`` levels), as ``PM_TPU_CHAIN_SEGMENT`` does
@@ -40,8 +46,6 @@ Counterpart of ``train_pm_vqvae.py:88-224``. Run it as::
 - It runs on the GPU unless ``--device cpu``, and raises without one, in
   one process, as the JAX CLI runs on one device: a launcher's
   ``WORLD_SIZE`` above 1 is refused by name.
-
-Not ported yet: ``compute_dtype`` (refused unless None).
 """
 from __future__ import annotations
 
@@ -59,7 +63,7 @@ from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.masking import add_mask, get_mask_generator
 from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
 from posterior_matching_torch.parallel import mesh
-from posterior_matching_torch.runtime import resolve_device
+from posterior_matching_torch.runtime import resolve_device, torch_dtype
 from posterior_matching_torch.train.callbacks import (
     Callback,
     CheckpointCallback,
@@ -114,8 +118,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         help="the PixelCNN chain's kernels: stream, 1 (pairs) or L (segments)")
     args, config = parse_config(parser, argv,
                                 ("pm_vqvae_mnist", "pm_vqvae_celeb_a", "pm_vqvae_digits16"))
-    if config["compute_dtype"] is not None:
-        parser.error("compute_dtype is not ported: the port computes in float32")
+    try:
+        torch_dtype(config["compute_dtype"])
+    except ValueError as err:
+        parser.error(str(err))
     device = resolve_device(args.device)
     resume = resume_state_from_dir(args.resume_dir)
 
@@ -132,7 +138,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     state = {"vq_ema": {"vqvae": vqvae_state.state["vq_ema"]}}
     model = convert.pm_vqvae_from_jax(params, state, config["conditional_dim"], vqvae_config,
                                       config["pixel_cnn"], device=device,
-                                      chain_segment=args.chain_segment)
+                                      chain_segment=args.chain_segment,
+                                      compute_dtype=config["compute_dtype"])
     mask_fn = get_mask_generator(data["mask_generator"], device,
                                  **(data.get("mask_generator_kwargs") or {}))
     trainer = pm_vqvae_trainer(model, config, seed=config["seed"], mask_fn=mask_fn,

@@ -93,6 +93,7 @@ inline void emu_consumer_sync() { g_consumer_bar->arrive_and_wait(); }
 inline float __ldg(const float* p) { return *p; }
 inline float4 __ldg(const float4* p) { return *p; }
 inline uint4 __ldg(const uint4* p) { return *p; }
+inline uint2 __ldg(const uint2* p) { return *p; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline void __threadfence_block() { std::atomic_thread_fence(std::memory_order_seq_cst); }

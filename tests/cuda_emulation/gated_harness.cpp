@@ -1,6 +1,7 @@
 // Runs the gated chain's GEMM kernels (gated_common.cuh's data_gemm,
 // gated_levels.cuh's wgrad and reduce_splits), emulated, over every block of
-// a launch, each block as kThreads std::threads. The headers here are the
+// a launch, each block as kThreads std::threads; a build with
+// -DPM_CORE_BF16=1 runs their bf16 path. The headers here are the
 // emulated copies (PTX helpers replaced, dynamic shared memory the array
 // below, gated_levels.cuh cut before its launches).
 #include <cuda_runtime.h>
@@ -15,13 +16,16 @@ using namespace gsk;
 
 // data_gemm<N> over all rows of a B x H x W grid; term i reads srcs[i] and
 // ws[i] with (C, K, mode, dy, dx, ld, trans) = ints[7 i .. 7 i + 6]. N is
-// F or 2F of a built width: 64, 128 or 256.
-extern "C" int emu_data_gemm(int N, int B, int H, int W, int nt, const float* const* srcs,
-                             const float* const* ws, const int* ints, uint32_t key,
+// F or 2F of a built width: 64, 128 or 256. xres, z, base2, out2, the
+// weights and the sources of concat_elu terms are of the build's compute
+// dtype (cdt), as out is with out_c (always for E_BIAS and E_GATE); else out
+// is float32, rounded to the compute dtype with `round`.
+extern "C" int emu_data_gemm(int N, int B, int H, int W, int nt, const void* const* srcs,
+                             const void* const* ws, const int* ints, uint32_t key,
                              uint32_t thresh, float inv_keep, int drop, int epi,
-                             const float* bias, const float* proj, const float* xres,
-                             const float* z, const float* base1, const float* base2,
-                             float* out, float* out2) {
+                             const float* bias, const float* proj, const void* xres,
+                             const void* z, const float* base1, const void* base2,
+                             void* out, void* out2, int out_c, int round) {
   if ((N != 64 && N != 128 && N != 256) || nt < 1 || nt > kMaxTerms) return 1;
   DataArgs a{};
   a.g = Geo{B * H * W, B, H, W, H * W};
@@ -37,12 +41,16 @@ extern "C" int emu_data_gemm(int N, int B, int H, int W, int nt, const float* co
   a.epi = epi;
   a.bias = bias;
   a.proj = proj;
-  a.xres = xres;
-  a.z = z;
+  a.xres = static_cast<const cdt*>(xres);
+  a.z = static_cast<const cdt*>(z);
   a.base1 = base1;
-  a.base2 = base2;
-  a.out = out;
-  a.out2 = out2;
+  a.base2 = static_cast<const cdt*>(base2);
+  if (out_c)
+    a.outc = static_cast<cdt*>(out);
+  else
+    a.out = static_cast<float*>(out);
+  a.round = round;
+  a.out2 = static_cast<cdt*>(out2);
   const int blocks = (a.g.R + kBM - 1) / kBM;
   if (N == 64)
     emu_launch(blocks, kThreads, kThreads, smem_bytes<64>(), [&a] { data_gemm<64>(a); });
@@ -59,14 +67,14 @@ extern "C" int emu_data_gemm(int N, int B, int H, int W, int nt, const float* co
 // `part` and reduce_splits (run serially: it has no barriers).
 extern "C" int emu_wgrad(int F, int N, int L, int B, int H, int W, const int* taps4, int drop,
                          uint32_t seed, uint32_t thresh, int base, int sub, float inv_keep,
-                         const float* const* srcs, float* const* outs, const float* g,
+                         const void* const* srcs, float* const* outs, const float* g,
                          float* part, int S, int rows) {
   if (!width_built(F) || (N != F && N != 2 * F) || L < 1 || L > kMaxLevels || S < 1 ||
       !taps_ok(taps4[0], taps4[1], taps4[2], taps4[3]))
     return 1;
   WgArgs a{};
   for (int l = 0; l < L; ++l) {
-    a.src.p[l] = srcs[l];
+    a.src.p[l] = static_cast<const cdt*>(srcs[l]);
     a.out.p[l] = outs[l];
   }
   a.g = g;

@@ -68,7 +68,8 @@ def test_block_variant_changes_the_core_or_the_backward(name):
     new = db.variants(BLOCK_TEXTS, [name], "block")[name]
     changed = {f for f in new if new[f] != BLOCK_TEXTS[f]}
     want = set() if name == "kernel" else (
-        {"block_chain_bwd.cu"} if name.startswith("bwd_") else {db.CORE})
+        {"block_chain_bwd.cu"} if name.startswith("bwd_") else
+        {db.PTX} if name == "no_b_copies" else {db.CORE})
     assert changed == want
     bwd = new["block_chain_bwd.cu"]
     if name == "bwd_data":

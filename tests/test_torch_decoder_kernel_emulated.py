@@ -39,7 +39,7 @@ import pytest
 import torch
 
 from posterior_matching_torch.ops import _build, decoder_chain as dc
-from test_torch_row_kernel_emulated import _replace_helpers
+from test_torch_row_kernel_emulated import _replace_helpers, write_ptx_header
 
 EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
 TOL = 1e-4
@@ -65,6 +65,7 @@ def emulated_sources(out: Path, files=("decoder_chain_common.cuh", *SOURCES)):
     assert core.count(_LAUNCH) == 1
     core = _replace_helpers(core.replace(_LAUNCH, _EMU_LAUNCH), "vdvae_gemm.cuh")
     (out / "vdvae_gemm.cuh").write_text(core.replace(_SMEM, ""))
+    write_ptx_header(out)
     for name in files:
         text = (_build.CSRC / name).read_text()
         assert "<<<" not in text and "asm" not in text, name

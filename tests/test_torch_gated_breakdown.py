@@ -1,6 +1,6 @@
 """The gated chain kernels' breakdown tool (``ops/gated_breakdown.py``) on
 the CPU: each variant's substitution still finds its place in
-``csrc/gated_common.cuh`` and ``gated_levels.cuh``, the ``mma.sync`` rate
+``csrc/gated_common.cuh``, ``gated_levels.cuh`` and ``ptx_mma.cuh``, the ``mma.sync`` rate
 probe issues both shapes, and the tool refuses to run without a CUDA
 device."""
 import pytest
@@ -10,26 +10,29 @@ from posterior_matching_torch.ops import _build, gated_breakdown
 
 HEADER = (_build.CSRC / "gated_common.cuh").read_text()
 LEVELS = (_build.CSRC / "gated_levels.cuh").read_text()
+PTX = (_build.CSRC / "ptx_mma.cuh").read_text()
 SMALL_BIG, BIG_SMALL, BIG_BIG = gated_breakdown._MMAS
 
 
 def _text(name):
-    return "".join(gated_breakdown.variants(HEADER, LEVELS)[name].values())
+    return "".join(gated_breakdown.variants(HEADER, LEVELS, PTX)[name].values())
 
 
 def test_kernel_variant_is_the_source():
-    assert gated_breakdown.variants(HEADER, LEVELS)["kernel"] == {
-        "gated_common.cuh": HEADER, "gated_levels.cuh": LEVELS}
+    assert gated_breakdown.variants(HEADER, LEVELS, PTX)["kernel"] == {
+        "gated_common.cuh": HEADER, "gated_levels.cuh": LEVELS, "ptx_mma.cuh": PTX}
 
 
 @pytest.mark.parametrize("name,gone,kept", [
     ("one_pass", [SMALL_BIG, BIG_SMALL], [BIG_BIG, "split_tf32("]),
     ("skeleton", [SMALL_BIG, BIG_SMALL, BIG_BIG], ["stage_b<N>(", "store_a(ca, 0);"]),
-    ("no_a_loads", ["if (ok[h]) {\n        const int r = r0", "if (ok[h])\n        v = __ldg("],
+    ("no_a_loads", ["if (ok[h]) {\n        const int r = r0",
+                    "if (ok[h]) {\n        const size_t at = (size_t)(r + dy"],
      [BIG_BIG, "cp.async.cg"]),
     ("no_b_copies", ['  asm volatile("cp.async.cg'], [BIG_BIG, "if (ok[h]) {"]),
     ("no_sync", ["__syncthreads();   // everyone's",
-                 "cp_async_wait_ring();\n    __syncthreads();"], [BIG_BIG, "cp_async_wait_ring();"]),
+                 "cp_async_wait_ring<kStages>();\n    __syncthreads();"],
+     [BIG_BIG, "cp_async_wait_ring<kStages>();"]),
 ])
 def test_variant_takes_its_part_away(name, gone, kept):
     text = _text(name)
@@ -41,7 +44,7 @@ def test_variant_takes_its_part_away(name, gone, kept):
 
 def test_variants_refuse_a_source_without_the_core():
     with pytest.raises(ValueError):
-        gated_breakdown.variants(HEADER.replace(BIG_BIG, ""), LEVELS)
+        gated_breakdown.variants(HEADER.replace(BIG_BIG, ""), LEVELS, PTX)
 
 
 def test_mma_rate_probe_times_both_shapes():

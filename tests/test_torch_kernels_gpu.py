@@ -40,7 +40,12 @@ bfloat16) at both geometries and three run shapes each, forward, saves
 and backward against their plain versions (the bars below
 ``BF16_TOL``), relaunched bit for bit and through autograd with their own
 counters; a build refusing the other dtype; and a digits16 bf16 step,
-unfused and fused, against the CPU.
+unfused and fused, against the CPU. The gated chain's bf16 builds (the
+PM-VQVAE's ``compute_dtype`` bfloat16): the stream, the pair and the
+segment up and down at both widths against the plain bf16 version through
+autograd (``GATED_BF16_TOL``), relaunched bit for bit and counted by their
+own wrappers, refusing a float32 geometry, and a small bf16 PM-VQVAE step
+per chain mode against the CPU.
 """
 import pytest
 import torch
@@ -1208,3 +1213,117 @@ def test_pm_vdvae_digits16_bf16_step_matches_cpu(dev, fused_chain):
     assert abs(lg - lc) <= 1e-3 * abs(lc)
     for a, w in zip(gg, gc_):
         assert _bf16_close(a, w, 5e-2)
+
+
+# ---------------------------------------------------------------------------
+# The gated chain's bf16 builds (the PM-VQVAE's compute_dtype bfloat16)
+# ---------------------------------------------------------------------------
+
+# As the VDVAE chains' bf16 builds, one bf16 ulp of a value rounded the other
+# way moves the products it enters; here the residual stream itself is bf16
+# and each level carries a flip on: each output and gradient within
+# GATED_BF16_TOL of its scale at the worst (the JAX package's bf16 gradient
+# tolerance) and GATED_BF16_MEAN on average.
+GATED_BF16_TOL, GATED_BF16_MEAN = 2e-2, 2e-3
+
+
+def _bf16_gated_run(mode, fn_plain, xv, xh, sk, cond, ws, keep, seed, base):
+    kw = dict(keep=keep, seed=seed, compute_dtype=torch.bfloat16)
+    if mode == "stream":
+        skips = None if sk is None else tuple(torch.stack([p[i] for p in sk]) for i in (0, 1))
+        fn = gc.gated_stream_plain if fn_plain else gc.gated_stream
+        ov, oh = fn(xv, xh, skips, cond, gc.stack_levels(ws), base_pair=base, **kw)
+        return [t for l in range(len(ws)) for t in (ov[l], oh[l])]
+    if mode == "pair":
+        fn = gc.gated_pair_plain if fn_plain else gc.gated_pair
+        return list(fn(xv, xh, sk and sk[0], cond, ws[0], pair_index=base, **kw))
+    fn = gc.gated_segment_plain if fn_plain else gc.gated_segment
+    return [t for p in fn(xv, xh, sk, cond, ws, base_pair=base, **kw) for t in p]
+
+
+@pytest.mark.parametrize("down", [False, True], ids=["up", "down"])
+@pytest.mark.parametrize("mode", ["stream", "pair", "segment"])
+@pytest.mark.parametrize("f,b,h,w", [(128, 8, 16, 16), (64, 32, 4, 4)])
+def test_bf16_gated_kernels_match_plain(dev, f, b, h, w, mode, down):
+    """Outputs and every gradient (inputs, skips, cond, weights) of the bf16
+    builds through autograd against the plain bf16 version on the same
+    device, 3 levels (a segment of 3 at 64 filters: the tail of digits16's
+    segments of 4 and 2 has 2), keep 0.5; only the bf16 wrappers count."""
+    gen = torch.Generator(device=dev).manual_seed(f + b + down)
+    n_lvl = 1 if mode == "pair" else (2 if f == 64 else 3)
+    xv, xh, sk, cond, ws = _level_case(gen, b, h, w, n_lvl, 64, down, f=f)
+    for t in (cond, *(t for wl in ws for t in wl.values())):
+        t.requires_grad_(True)
+    xv, xh = (t.detach().to(torch.bfloat16).requires_grad_(True) for t in (xv, xh))
+    if sk is not None:
+        sk = [tuple(t.detach().to(torch.bfloat16).requires_grad_(True) for t in p) for p in sk]
+    leaves = [xv, xh, cond, *(t for p in (sk or ()) for t in p),
+              *(t for wl in ws for t in wl.values())]
+    counters = [gc.stream_fwd, gc.stream_bwd, gc.pair_fwd, gc.pair_bwd, gc.seg_fwd, gc.seg_bwd]
+    before = [c.launches for c in counters]
+    b16 = {"stream": gc.stream_bwd_bf16, "pair": gc.pair_bwd_bf16, "segment": gc.seg_bwd_bf16}
+    n16 = b16[mode].launches
+    got = _bf16_gated_run(mode, False, xv, xh, sk, cond, ws, 0.5, 7, 3 * down)
+    want = _bf16_gated_run(mode, True, xv, xh, sk, cond, ws, 0.5, 7, 3 * down)
+    cots = [torch.randn(t.shape, generator=gen, device=dev).to(torch.bfloat16) for t in want]
+    gk = torch.autograd.grad(got, leaves, cots)
+    gp = torch.autograd.grad(want, leaves, cots)
+    assert [c.launches for c in counters] == before
+    assert b16[mode].launches == n16 + 1
+    for a, c in zip([*got, *gk], [*want, *gp]):
+        err = (a.float() - c.float()).abs()
+        scale = max(1.0, c.float().abs().max().item())
+        assert err.max().item() <= GATED_BF16_TOL * scale
+        assert err.mean().item() <= GATED_BF16_MEAN * scale
+    got2 = _bf16_gated_run(mode, False, xv, xh, sk, cond, ws, 0.5, 7, 3 * down)
+    gk2 = torch.autograd.grad(got2, leaves, cots)
+    assert all(torch.equal(a, c) for a, c in zip([*got, *gk], [*got2, *gk2]))
+
+
+def test_bf16_gated_builds_refuse_float32_runs(dev):
+    """A gated bf16 build refuses a float32 geometry (and its activations),
+    the float32 build a bf16 one."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xv, xh, sk, cond, ws = _level_case(gen, 2, 4, 4, 1, 16, False)
+    cfg = gc.StreamConfig(xv, cond, 1, False, 1.0, 0, 0, gc.chain_taps())
+    bad = gc._LevelsFwd("gated_pair_fwd", "gated_levels_fwd_bf16")
+    with pytest.raises(RuntimeError, match="gated_pair_fwd"):
+        bad(cfg, xv, xh, None, cond, ws)
+    cfg16 = gc.StreamConfig(xv, cond, 1, False, 1.0, 0, 0, gc.chain_taps(), torch.bfloat16)
+    bf = [gc._kernel_weights(cfg16, w) for w in ws]
+    x16 = [t.to(torch.bfloat16) for t in (xv, xh)]
+    with pytest.raises(RuntimeError, match="gated_pair_fwd"):
+        gc._LevelsFwd("gated_pair_fwd")(cfg16, *x16, None, cond, bf)
+    with pytest.raises(ValueError, match="xv0"):
+        gc.pair_fwd_bf16(cfg16, xv, xh, None, cond, bf)
+
+
+@pytest.mark.parametrize("chain_segment,launches", [("stream", (2, 0, 0)), (1, (0, 6, 0)),
+                                                    (2, (0, 0, 4))])
+def test_pm_vqvae_bf16_step_per_chain_mode_matches_cpu(dev, chain_segment, launches):
+    """A bf16 training step through each mode's bf16 builds against the
+    plain bf16 path on the CPU (the same hash masks): the loss within 1e-2,
+    every gradient within GATED_BF16_TOL of its scale."""
+    from posterior_matching_torch import convert
+    from posterior_matching_torch.train.trainer import pm_vqvae_loss
+
+    params, state = convert.random_pm_vqvae_tree(24, SMALL_VQ, SMALL_PC, seed=4)
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(3, 28, 28, 1, generator=g)
+    b = (torch.rand(3, 28, 28, 1, generator=g) > 0.5).float()
+    counters = (gc.stream_bwd_bf16, gc.pair_bwd_bf16, gc.seg_bwd_bf16)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        m = convert.pm_vqvae_from_jax(params, state, 24, SMALL_VQ, SMALL_PC, device=d,
+                                      chain_segment=chain_segment, compute_dtype="bfloat16")
+        ps = [p for n, p in m.named_parameters() if not n.startswith("vqvae.")]
+        before = [c.launches for c in counters]
+        loss = pm_vqvae_loss(m, {"image": x.to(d), "mask": b.to(d)}, 77, True)
+        grads = torch.autograd.grad(loss, ps)
+        out[d.type] = (loss.item(), [gr.cpu() for gr in grads],
+                       tuple(c.launches - n for c, n in zip(counters, before)))
+    (lg, gg, launched), (lc, gcpu, _) = out["cuda"], out["cpu"]
+    assert launched == launches
+    assert abs(lg - lc) <= 1e-2 * abs(lc)
+    for a, w_ in zip(gg, gcpu):
+        assert (a - w_).abs().max().item() <= GATED_BF16_TOL * max(1.0, w_.abs().max().item())

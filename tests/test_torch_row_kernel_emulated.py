@@ -65,6 +65,13 @@ def _replace_helpers(src: str, what: str) -> str:
     return src
 
 
+def write_ptx_header(out: Path):
+    """Writes ``ptx_mma.cuh``, which every kernel includes, into ``out``
+    with its PTX helpers replaced."""
+    (out / "ptx_mma.cuh").write_text(
+        _replace_helpers((_build.CSRC / "ptx_mma.cuh").read_text(), "ptx_mma.cuh"))
+
+
 def emulated_header(src: str) -> str:
     """``sampler_common.cuh`` with its PTX helpers replaced."""
     return _replace_helpers(src, "sampler_common.cuh")
@@ -88,6 +95,7 @@ def build_emulation(out: Path, kernel: str, entry: str, harness: str) -> Path:
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to compile the emulated kernel")
+    write_ptx_header(out)
     (out / "sampler_common.cuh").write_text(
         emulated_header((_build.CSRC / "sampler_common.cuh").read_text()))
     stem = kernel.removesuffix(".cu")
@@ -170,10 +178,21 @@ def test_emulation_replaces_every_ptx_helper():
                           ("sampler_vrow.cu", "pm_sampler_vrow")):
         src = (_build.CSRC / kernel).read_text()
         assert "asm" not in emulated_source(src, entry).split("sampler_common.cuh")[1]
-    gated = (_build.CSRC / "gated_common.cuh").read_text()
-    assert "asm(" in gated and "asm" not in _replace_helpers(gated, "gated_common.cuh")
-    assert "asm" not in (_build.CSRC / "gated_levels.cuh").read_text()
-    # the VDVAE chains' core: its TF32 and bf16 MMAs and the bf16 rounding
-    core = _replace_helpers((_build.CSRC / "vdvae_gemm.cuh").read_text(), "vdvae_gemm.cuh")
-    for helper in ("mma_tf32", "mma_bf16", "pack_bf16", "cp_async16"):
-        assert f"emu_{helper}(" in core, helper
+    # the one header of the PTX helpers: every helper with inline PTX has an
+    # emulated body, and none is defined again where the kernels include it
+    ptx = (_build.CSRC / "ptx_mma.cuh").read_text()
+    assert "asm(" in ptx and "asm volatile" in ptx
+    emulated = _replace_helpers(ptx, "ptx_mma.cuh")
+    helpers = ("mma_tf32", "mma_bf16", "pack_bf16", "cp_async16", "cp_async4",
+               "cp_async_commit", "cp_async_wait_ring")
+    for helper in helpers:
+        assert f"emu_{helper}(" in emulated or _HELPERS[helper] == "", helper
+        assert re.search(r"\b" + helper + r"\(", ptx), helper
+    for name in ("gated_common.cuh", "gated_levels.cuh", "vdvae_gemm.cuh", "vq_search.cu",
+                 "sampler_common.cuh"):
+        src = (_build.CSRC / name).read_text()
+        assert '#include "ptx_mma.cuh"' in src or '#include "gated_common.cuh"' in src, name
+        assert "asm(" not in src, name
+        for helper in (*helpers, "to_tf32", "split_tf32", "smem_u32"):
+            assert not re.search(r"__device__ __forceinline__ \w+ " + helper + r"\(", src), (
+                name, helper)

@@ -28,7 +28,7 @@ import torch
 
 from posterior_matching_torch.ops import _build
 from posterior_matching_torch.ops.vq import nearest_codebook_indices_plain
-from test_torch_row_kernel_emulated import _replace_helpers
+from test_torch_row_kernel_emulated import _replace_helpers, write_ptx_header
 
 EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
 _SMEM = "extern __shared__ __align__(16) float smem[];"
@@ -52,6 +52,7 @@ def emu(tmp_path_factory):
         pytest.skip("needs g++ to compile the emulated kernel")
     out = tmp_path_factory.mktemp("vq_emulation")
     (out / "vq_search.cu").write_text(emulated_source((_build.CSRC / "vq_search.cu").read_text()))
+    write_ptx_header(out)
     lib = out / "libvq_emulated.so"
     proc = subprocess.run(
         [cxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w",

@@ -153,7 +153,7 @@ def test_stage1_resumes_a_run(data_dir, tmp_path, monkeypatch, capsys):
     (train_vqvae.main, ["--config", "vqvae_mnist", "--config.model.nope=1"]),
     (train_pm_vqvae.main, ["--config", "pm_vqvae_mnist", "--chain_segment", "0"]),
     (train_pm_vqvae.main, ["--config", "pm_vqvae_mnist", "--chain_segment", "pairs"]),
-    (train_pm_vqvae.main, ["--config", "pm_vqvae_mnist", "--config.compute_dtype=bfloat16"]),
+    (train_pm_vqvae.main, ["--config", "pm_vqvae_mnist", "--config.compute_dtype=float16"]),
 ])
 def test_clis_refuse_what_they_do_not_take(main, argv):
     with pytest.raises(SystemExit):
