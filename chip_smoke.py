@@ -10,8 +10,10 @@ PM-VAE's training and UCI eval CLIs, then VaDE's and the greedy
 acquisition's CLIs, then the PM-VQVAE digits16 pipeline through the
 PixelCNN kernels' 64-filter builds, then PM-VDVAE training and the image
 evals over ranks, then the PM-VDVAE in bf16 (the VDVAE chains' bf16
-builds) with ``flat_optimizer`` and ``remat``, and checks them, in these
-phases:
+builds) with ``flat_optimizer`` and ``remat``, then the PM-VQVAE in bf16
+(the gated chain's bf16 builds), then the samplers' bf16 builds with
+``PM_TPU_SAMPLER=rowkernel`` and the naive raster sampler, and checks
+them, in these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
 2. all thirteen kernels (``posterior_matching_torch/ops/csrc``; the pair
@@ -216,10 +218,31 @@ phases:
    layout, its ``--resume_dir`` to step 3, both VDVAE evals on its run, and
    one bf16 step of the unfused model with ``remat`` off and on (gradients
    bit for bit equal, each step's peak device memory);
-20. one JSON line of per-kernel numbers (the 64-filter forms as
-   ``<kernel>_f64``, their launches the digits16 pipeline's; the bf16 forms
-   as ``<kernel>_bf16``, their launches phase 19's CLI's), the card's name
-   and power limit, and the result line.
+20. the PM-VQVAE in bf16: the gated chain's bf16 builds at CelebA's and
+   digits16's widths against their plain bf16 versions, relaunched bit for
+   bit and timed beside float32; ``train_pm_vqvae --config.compute_dtype
+   bfloat16`` in each chain mode on phase 12's files and run (the bf16
+   builds' launches exactly, no float32 chain's), ``eval_pm_vqvae`` on it;
+21. the samplers' bf16 builds (``-DPM_CORE_BF16=1``, JAX's
+   ``PM_TPU_SAMPLER=rowkernel`` sampler): (a) both at CelebA's row (n 320,
+   W 16, F 128, L 24, K 512) and digits16's (n 320, W 4, F 64, L 12, K
+   128), image row 1 after the plain bf16 versions' row 0, against the
+   plain bf16 versions with ``sampler_chain.bf16_gate_ok``, relaunched bit
+   for bit, timed beside their float32 builds (in turns) and the plain
+   versions; (b) a CelebA request through ``pm_vqvae_impute`` with
+   ``sampler_dtype`` float32 and bfloat16 in turns, each launching only its
+   builds, imgs/s of each; (c) ``eval_pm_vqvae`` on phase 12's run without
+   and with ``PM_TPU_SAMPLER=rowkernel``, each launching only its builds,
+   PSNR of each; (d) the naive sampler on a toy PM-VQVAE with two
+   hierarchies and the (5, 5) field, and on an unconditional PixelCNN of
+   that topology: the card's codes equal the CPU's with the same noise;
+22. one JSON line of per-kernel numbers (the 64-filter forms as
+   ``<kernel>_f64``, their launches the digits16 pipeline's; the VDVAE and
+   gated chains' bf16 forms as ``<kernel>_bf16``, their launches phases 19
+   and 20's CLIs'; the samplers' bf16 forms as ``sampler_{vrow,row}_bf16``,
+   their launches phase 21's bf16 request's, with ``f32_ms`` and the
+   digits16 shape under ``per_shape``), the card's name and power limit,
+   and the result line.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--run_dir RUN] [--vdvae_run_dir
 RUN] [--out DIR]``.
@@ -4503,6 +4526,298 @@ def pmvq_bf16_phase(args, gen, celeb_a, work):
                                        for k, v in per.items()} for w, per in results.items()}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the samplers' bf16 builds, PM_TPU_SAMPLER=rowkernel, the naive
+# raster sampler
+# ---------------------------------------------------------------------------
+
+SAMPLER_BF16_DESIGN = {
+    "vrow": "as sampler_vrow (12 warps, 3 x 32 KB cp.async.bulk ring refilled by the last "
+            "warp done), bf16 weights unpacked in registers: a stage carries 128 F-wide "
+            "rows, 32 K rows a warp; operands rounded to bf16 into float shared memory; "
+            "float32 FMA sums; the carry float32 in registers, outputs stored bf16",
+    "row": "as sampler_row (8 consumer warps + 1 producer warp a block of 8 samples, "
+           "2 x 64 KB cp.async.bulk ring), bf16 weights unpacked in registers: a stage "
+           "carries 256 F-wide rows (part stages where a matrix is not whole ones), 32 K "
+           "rows a group; operands rounded to bf16 as gathered; float32 FMA sums; the "
+           "chain rounded at the pixel's start and every lpg levels, outh/outm stored bf16",
+}
+
+
+def sampler_bf16_kernels(name, pcnn, cond, gen):
+    """(a) at one shape: both bf16 builds against their plain bf16 versions
+    at a request's image row 1 (row 0 through the plain bf16 versions),
+    with ``sampler_chain.bf16_gate_ok``, each relaunched bit for bit, then
+    timed with CUDA events beside its float32 build on the same row (in
+    turns: float32, bf16, bf16, float32) and beside the plain bf16 version.
+    Returns each kernel's numbers."""
+    from posterior_matching_torch.ops import sampler_chain as sc
+    from posterior_matching_torch.ops.profiling import time_ms
+
+    n = cond.shape[0]
+    f, n_lvl, k_idx = pcnn.num_filters, 2 * pcnn.num_resnet, pcnn.num_indices
+    wid = pcnn.image_shape[1]
+    lpg = sc.levels_per_group(n_lvl)
+    out = {}
+    with torch.no_grad():
+        vin, rin = sc.row1_inputs(pcnn, cond, n, gen, "bfloat16", lpg)
+        vin32, rin32 = sc.row1_inputs(pcnn, cond, n, gen, "float32")
+        got_v = [sc.vrow_bf16(*vin) for _ in range(2)]
+        got_r = [sc.row_bf16(*rin, with_logits=True, lpg=lpg) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((*got_v[0], *got_r[0]),
+                                                     (*got_v[1], *got_r[1]))),
+              f"{name}: a sampler bf16 build differs from launch to launch")
+        want_v = sc.vrow_plain(*vin, compute_dtype="bfloat16")
+        want_r = sc.row_plain(*rin, with_logits=True, compute_dtype="bfloat16", lpg=lpg)
+        reports = {"vrow": sc.vrow_bf16_report(got_v[0], want_v),
+                   "row": sc.row_bf16_report(got_r[0], want_r, rin[10], lpg)}
+        for kind, rep in reports.items():
+            log(f"{name} {kind} bf16 (lpg {lpg}): {rep}")
+            check(sc.bf16_gate_ok(rep), f"{name}: the {kind} bf16 build fails its gate: {rep}")
+        calls = {"vrow": (lambda: sc.vrow_bf16(*vin), lambda: sc.vrow(*vin32),
+                          lambda: sc.vrow_plain(*vin, compute_dtype="bfloat16")),
+                 "row": (lambda: sc.row_bf16(*rin, lpg=lpg), lambda: sc.row(*rin32),
+                         lambda: sc.row_plain(*rin, compute_dtype="bfloat16", lpg=lpg))}
+        for kind, (bf16_call, f32_call, plain_call) in calls.items():
+            f32a, bfa, bfb, f32b = (time_ms(fn, reps=10) for fn in
+                                    (f32_call, bf16_call, bf16_call, f32_call))
+            out[kind] = {"ms": (bfa + bfb) / 2, "f32_ms": (f32a + f32b) / 2,
+                         "plain_ms": time_ms(plain_call, reps=2), **reports[kind]}
+    flops = {"vrow": 2 * wid * n * (9 * f * f + n_lvl * 36 * f * f + n_lvl // 2 * 2 * f * f),
+             "row": 2 * n * wid * (2 * f * f + n_lvl * 28 * f * f + f * k_idx)}
+    byts = {"vrow": nbytes(*vin, *want_v), "row": nbytes(*rin, *want_r[:3])}
+    for kind, d in out.items():
+        d["bound_ms"], d["bound_by"] = bound(flops[kind], byts[kind], PEAK_BF16_FLOPS)
+        d["gflop"], d["mb"] = flops[kind] / 1e9, byts[kind] / 1e6
+        log(f"{name} {kind}: bf16 {d['ms']:.4f} ms a launch against float32 {d['f32_ms']:.4f} "
+            f"({d['ms'] / d['f32_ms']:.3f}x); plain bf16 {d['plain_ms']:.2f}; bound "
+            f"{d['bound_ms']:.4f} ms by {d['bound_by']} ({d['gflop']:.1f} GFLOP at the bf16 "
+            f"rate, {d['mb']:.1f} MB), {d['ms'] / d['bound_ms']:.1f}x it")
+    return out
+
+
+def sampler_bf16_request(model, gen, counters):
+    """(b) one CelebA request (BATCH x NUM_SAMPLES) through ``pm_vqvae_impute``
+    with ``sampler_dtype`` float32 and bfloat16 in turns (float32, bf16,
+    bf16, float32; each counter set to 0 before each and read after: the
+    float32 request launches only the float32 builds, the bf16 one only the
+    bf16 builds, one each an image row); then the request's codes in each
+    dtype from the same draws, and the share of them that agree. Returns
+    imgs/s of each and the bf16 request's launches."""
+    from posterior_matching_torch import config, masking
+    from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
+    from posterior_matching_torch.ops import sampler_chain as sc
+
+    rows = model.pixel_cnn.image_shape[0]
+    mask_fn = masking.get_mask_generator("CelebAMaskGenerator", device=DEVICE)
+    x = torch.rand((BATCH, *config.CELEB_A_IMAGE_SHAPE), generator=gen, device=DEVICE)
+    b = masking.add_mask({"image": x}, gen, mask_fn)["mask"]
+    spans, psnr, launched = {"float32": [], "bfloat16": []}, {}, {}
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        for c in counters.values():
+            c.launches = 0
+        draws = torch.Generator(device=DEVICE).manual_seed(7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imp = pm_vqvae_impute(model, x, b, NUM_SAMPLES, generator=draws, sampler_dtype=dtype)
+        torch.cuda.synchronize()
+        spans[dtype].append(time.perf_counter() - t0)
+        suffix = "_bf16" if dtype == "bfloat16" else ""
+        expected = dict.fromkeys(counters, 0)
+        expected.update({f"sampler_vrow{suffix}": rows, f"sampler_row{suffix}": rows})
+        launched[dtype] = {k: c.launches for k, c in counters.items()}
+        check(launched[dtype] == expected,
+              f"a {dtype} request launched {launched[dtype]}, not {expected}")
+        check(bool(torch.isfinite(imp).all()) and imp.min() >= 0 and imp.max() <= 1,
+              f"the {dtype} request's imputations are not finite values in [0, 1]")
+        observed = (b != 0).expand_as(x)
+        check(torch.equal(imp[:, 0][observed], x[observed]),
+              f"the {dtype} request did not copy the observed pixels through")
+        psnr[dtype] = (-10.0 * torch.log10(((imp.mean(1) - x) ** 2).mean((1, 2, 3)))).mean().item()
+    with torch.no_grad():
+        cond = model.conditional_latents(x, b)
+        codes = {dtype: sc.pixelcnn_sample(model.pixel_cnn, NUM_SAMPLES, cond,
+                                           generator=torch.Generator(device=DEVICE).manual_seed(7),
+                                           compute_dtype=dtype)
+                 for dtype in ("float32", "bfloat16")}
+    agree = (codes["float32"] == codes["bfloat16"]).float().mean().item()
+    rate = {k: BATCH * len(v) / sum(v) for k, v in spans.items()}
+    log(f"request ({BATCH} x {NUM_SAMPLES}): float32 {rate['float32']:.3f} imgs/s, bf16 "
+        f"{rate['bfloat16']:.3f} imgs/s ({rate['bfloat16'] / rate['float32']:.3f}x; "
+        f"seconds {spans}); PSNR float32 {psnr['float32']:.3f}, bf16 {psnr['bfloat16']:.3f} "
+        f"dB; the bf16 request launched {nonzero(launched['bfloat16'])}; its codes equal "
+        f"float32's at {agree:.4f} of {codes['float32'].numel()} positions")
+    return {"imgs_per_s": rate, "request_s": spans, "psnr": psnr, "codes_agree": agree,
+            "launches": nonzero(launched["bfloat16"])}
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def sampler_bf16_eval(celeb_a, work, counters):
+    """(c) ``eval_pm_vqvae`` on phase 12's run (its 64 test images, 10
+    samples, one trial, the CLI's seed) without and then with
+    ``PM_TPU_SAMPLER=rowkernel``: the first launches only the float32
+    sampler builds, the second only the bf16 ones; each one's PSNR."""
+    from posterior_matching_torch import config, eval_pm_vqvae
+
+    run2, data = celeb_a["train_pm_vqvae"]["run_dir"], f"{work}/celeb_a/data"
+    n_eval = 2 * BATCH
+    rows = config.CONFIGS["pm_vqvae_celeb_a"]()["pixel_cnn"]["image_shape"][0]
+    out = {}
+    for sampler, suffix in (("fast", ""), ("rowkernel", "_bf16")):
+        cwd = f"{work}/sampler_bf16_eval_{sampler}"
+        os.makedirs(cwd)
+        for c in counters.values():
+            c.launches = 0
+        old = os.environ.get("PM_TPU_SAMPLER")
+        os.environ["PM_TPU_SAMPLER"] = sampler
+        try:
+            with cli_env(cwd, data):
+                _, lines, wall = run_cli(f"eval_pm_vqvae PM_TPU_SAMPLER={sampler}",
+                                         eval_pm_vqvae.main, [
+                                             "--run_dir", run2, "--dataset", "celeb_a",
+                                             "--mask_generator", "CelebAMaskGenerator",
+                                             "--num_instances", str(n_eval), "--batch_size",
+                                             str(BATCH), "--num_samples", str(NUM_SAMPLES),
+                                             "--num_trials", "1"])
+        finally:
+            if old is None:
+                os.environ.pop("PM_TPU_SAMPLER", None)
+            else:
+                os.environ["PM_TPU_SAMPLER"] = old
+        expected = dict.fromkeys(counters, 0)
+        expected.update({f"sampler_vrow{suffix}": n_eval // BATCH * rows,
+                         f"sampler_row{suffix}": n_eval // BATCH * rows})
+        launched = {k: c.launches for k, c in counters.items()}
+        check(launched == expected, f"eval_pm_vqvae PM_TPU_SAMPLER={sampler} launched "
+                                    f"{launched}, not {expected}")
+        with open(f"{run2}/imputation_results/eval_summary.json") as fp:
+            psnr = json.load(fp)["psnr_mean"]
+        check(np.isfinite(psnr), f"eval_pm_vqvae PM_TPU_SAMPLER={sampler}: PSNR {psnr}")
+        out[sampler] = {"psnr": psnr, "wall_s": wall, "wall_split": wall_split(lines),
+                        "launches": nonzero(launched)}
+    log(f"eval_pm_vqvae on phase 12's run (the CLI's seed): PSNR {out['fast']['psnr']:.4f} "
+        f"with the float32 sampler, {out['rowkernel']['psnr']:.4f} under "
+        f"PM_TPU_SAMPLER=rowkernel (bf16); requests {out['fast']['wall_split']['requests']:.3f}"
+        f" s against {out['rowkernel']['wall_split']['requests']:.3f} s")
+    return out
+
+
+def naive_sampler_check(gen, counters):
+    """(d) the topologies the row kernels do not take: a toy PM-VQVAE whose
+    PixelCNN has two hierarchies and the (5, 5) receptive field imputes
+    through the naive sampler (with JAX's warning) on the card and on the
+    CPU with the same noise, and an unconditional PixelCNN of that topology
+    samples so: equal codes, imputations within 1e-4, no kernel launched."""
+    import warnings
+
+    from posterior_matching_torch import convert
+    from posterior_matching_torch.models.pixelcnn import (
+        PixelCNN, gumbel_noise, pixelcnn_sample_naive,
+    )
+    from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
+
+    vq_cfg = {"output_channels": 3, "embedding_dim": 8, "num_embeddings": 16,
+              "hidden_units": 8, "residual_blocks": 1, "residual_hidden_units": 4,
+              "decay": 0.99, "use_ema": True, "commitment_cost": 0.25}
+    pc_cfg = {"image_shape": [4, 4], "num_resnet": 1, "num_hierarchies": 2, "num_filters": 8,
+              "dropout": 0.0, "num_indices": 16, "receptive_field_dims": [5, 5]}
+    cd, s = 6, 2
+    tree = convert.random_pm_vqvae_tree(cd, vq_cfg, pc_cfg, seed=3)
+    models = {dev: convert.pm_vqvae_from_jax(*tree, cd, vq_cfg, pc_cfg, device=dev)
+              for dev in (DEVICE, "cpu")}
+    x = torch.rand(2, 16, 16, 3, generator=gen, device=DEVICE)
+    b = (torch.rand(2, 16, 16, 1, generator=gen, device=DEVICE) > 0.5).float()
+    noise = gumbel_noise((4, 4, 2 * s, 16), gen, DEVICE)
+    for c in counters.values():
+        c.launches = 0
+    imps, codes = {}, {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for dev, m in models.items():
+            xd, bd, nd = x.to(dev), b.to(dev), noise.to(dev)
+            imps[dev] = pm_vqvae_impute(m, xd, bd, s, noise=nd).cpu()
+            with torch.no_grad():
+                cond = m.conditional_latents(xd, bd)
+            codes[dev] = pixelcnn_sample_naive(m.pixel_cnn, s, cond,
+                                               noise=nd.reshape(16, 2 * s, 16)).cpu()
+    check(sum("naive full-forward raster sampler" in str(w.message) for w in caught)
+          == len(models), "pm_vqvae_impute did not warn of the naive sampler on each device")
+    torch.manual_seed(3)
+    uncond = PixelCNN(num_indices=16, image_shape=(4, 4), dropout=0.0, num_resnet=1,
+                      num_hierarchies=2, num_filters=8, receptive_field_dims=(5, 5))
+    un_noise = gumbel_noise((16, 3, 16), gen, DEVICE)
+    un = {"cpu": pixelcnn_sample_naive(uncond, 3, noise=un_noise.cpu())}
+    un[DEVICE] = pixelcnn_sample_naive(uncond.to(DEVICE), 3, noise=un_noise).cpu()
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    err = (imps[DEVICE] - imps["cpu"]).abs().max().item()
+    log(f"naive sampler (2 hierarchies, (5, 5) field): codes equal on the card and the CPU "
+        f"{torch.equal(codes[DEVICE], codes['cpu'])}, imputations max abs err {err:.3e}; "
+        f"unconditional codes equal {torch.equal(un[DEVICE], un['cpu'])}; kernel launches "
+        f"{launched}")
+    check(torch.equal(codes[DEVICE], codes["cpu"]) and torch.equal(un[DEVICE], un["cpu"])
+          and err <= 1e-4 and not launched,
+          "the naive sampler on the card disagrees with the CPU")
+    return {"imputation_max_abs_err": err, "codes_equal": True}
+
+
+def sampler_bf16_phase(args, gen, model, celeb_a, work):
+    """Phase 21: the samplers' bf16 builds (rows 1-2 of PERF.md's table) and
+    the imputation's other sampler branches: (a) both bf16 builds at
+    CelebA's shapes (n 320, W 16, F 128, L 24, K 512) and digits16's (n
+    320, W 4, F 64, L 12, K 128); (b) a CelebA request in bf16 beside
+    float32; (c) ``eval_pm_vqvae`` under ``PM_TPU_SAMPLER=rowkernel`` on
+    phase 12's run; (d) the naive sampler. Returns the JSON lines of the two
+    bf16 builds and the phase's numbers."""
+    from posterior_matching_torch import config, convert, masking
+    from posterior_matching_torch.ops import sampler_chain as sc
+
+    t0 = time.perf_counter()
+    counters = {**all_kernel_counters(), "sampler_vrow_bf16": sc.vrow_bf16,
+                "sampler_row_bf16": sc.row_bf16}
+    shapes = {}
+    for name, (vq_cfg, pm) in {
+            "celeb_a": (config.VQVAE_CELEB_A, config.CONFIGS["pm_vqvae_celeb_a"]()),
+            "digits16": (config.CONFIGS["vqvae_digits16"]()["model"],
+                         config.CONFIGS["pm_vqvae_digits16"]())}.items():
+        pc_cfg = {**pm["pixel_cnn"], "num_indices": vq_cfg["num_embeddings"]}
+        cd = pm["conditional_dim"]
+        m = convert.pm_vqvae_from_jax(*convert.random_pm_vqvae_tree(cd, vq_cfg, pc_cfg,
+                                                                    seed=args.seed),
+                                      cd, vq_cfg, pc_cfg, device=DEVICE)
+        shape = (BATCH, *(config.CELEB_A_IMAGE_SHAPE if name == "celeb_a" else DIGITS16_IMAGE))
+        mask_fn = masking.get_mask_generator(pm["data"]["mask_generator"], device=DEVICE)
+        batch = masking.add_mask({"image": torch.rand(shape, generator=gen, device=DEVICE)},
+                                 gen, mask_fn)
+        with torch.no_grad():
+            cond = m.conditional_latents(batch["image"], batch["mask"])
+            cond = cond[None].expand(NUM_SAMPLES, *cond.shape).reshape(BATCH * NUM_SAMPLES, -1)
+        shapes[name] = sampler_bf16_kernels(name, m.pixel_cnn, cond.contiguous(), gen)
+        del m
+    kernel_s = time.perf_counter() - t0
+    request = sampler_bf16_request(model, gen, counters)
+    ev = sampler_bf16_eval(celeb_a, work, counters)
+    naive = naive_sampler_check(gen, counters)
+    lines = []
+    for kind, replaces in (("vrow", 124), ("row", 215)):
+        d = shapes["celeb_a"][kind]
+        lines.append({
+            "name": f"sampler_{kind}_bf16", "route": "cuda",
+            "source": f"posterior_matching_torch/ops/csrc/sampler_{kind}.cu",
+            "replaces": f"posterior_matching_tpu/ops/sampler_chain.py:{replaces}",
+            "launches": request["launches"][f"sampler_{kind}_bf16"],
+            "max_abs_err": d["abs_err"], "ms": d["ms"], "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "library_ms": None,
+            "f32_ms": d["f32_ms"], "design": SAMPLER_BF16_DESIGN[kind],
+            "per_shape": {n: {k: v for k, v in shapes[n][kind].items()} for n in shapes},
+        })
+    return lines, {"seconds": time.perf_counter() - t0, "kernel_s": kernel_s,
+                   "shapes": shapes, "request": request, "eval": ev, "naive": naive}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4712,7 +5027,12 @@ def main() -> int:
         pmvq_bf16_lines, pmvq_bf16 = pmvq_bf16_phase(args, gen, celeb_a, work)
         log(f"phase 20: {pmvq_bf16['seconds']:.1f} s | {smi}")
 
-    # ---- 21. results -------------------------------------------------------
+        # ---- 21. the samplers' bf16 builds, rowkernel, the naive sampler ---
+        stamp("the samplers' bf16 builds, PM_TPU_SAMPLER=rowkernel, the naive sampler")
+        sampler_bf16_lines, sampler_bf16 = sampler_bf16_phase(args, gen, model, celeb_a, work)
+        log(f"phase 21: {sampler_bf16['seconds']:.1f} s | {smi}")
+
+    # ---- 22. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
@@ -4739,6 +5059,7 @@ def main() -> int:
                    "streamed by cp.async.bulk through 2 x 64 KB mbarrier slots; "
                    "8 samples x 4 columns a lane, split-K reduced in fixed order"},
         vq_line, *chain_lines, *vdvae_lines, *digits16_lines, *bf16_lines, *pmvq_bf16_lines,
+        *sampler_bf16_lines,
     ]
     summary = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -4747,7 +5068,7 @@ def main() -> int:
         "training": train, "vqvae_cli": vqvae_cli, "vdvae": vdvae, "kernels": kernels,
         "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval, "pm_vae": pm_vae,
         "vade": vade, "resume": resume, "digits16": digits16, "ranks": ranks, "bf16": bf16,
-        "pmvq_bf16": pmvq_bf16,
+        "pmvq_bf16": pmvq_bf16, "sampler_bf16": sampler_bf16,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)

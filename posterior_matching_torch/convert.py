@@ -128,7 +128,8 @@ def pixel_cnn_state_dict(params: Tree) -> Dict[str, np.ndarray]:
         if name == "embed":
             out["embed"] = np.asarray(sub["embedding"])
             continue
-        sub = sub.get("Conv_0", sub)  # masked convs nest their params
+        # masked convs nest their params, the transposed ones under their own name
+        sub = sub.get("Conv_0", sub.get("ConvTranspose_0", sub))
         out[f"layers.{name}.kernel"] = np.asarray(sub["kernel"])
         out[f"layers.{name}.bias"] = np.asarray(sub["bias"])
     return out
@@ -150,8 +151,26 @@ def pm_vqvae_state_dict(params: Tree, state: Tree) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 # PixelCNN layers that are masked convs, whose parameters flax nests under
-# ``Conv_0``.
-_MASKED_CONVS = ("v_init", "h_init_up", "h_init_left", "_conv_a", "_conv_b")
+# ``Conv_0`` (the hierarchies' transposed convs under ``ConvTranspose_0``).
+_MASKED_CONVS = ("v_init", "h_init_up", "h_init_left", "down_sample_", "_conv_a", "_conv_b")
+
+
+def pixel_cnn_tree(state_dict) -> Tree:
+    """The port's ``PixelCNN`` state dict (tensors or arrays) -> the JAX
+    module's ``params``, the inverse of :func:`pixel_cnn_state_dict`."""
+    pc = _numpy(state_dict)
+    pixel = {"embed": {"embedding": pc["embed"]}}
+    for key in pc:
+        if not key.startswith("layers.") or not key.endswith(".kernel"):
+            continue
+        name = key[len("layers."):-len(".kernel")]
+        kb = {"kernel": pc[key], "bias": pc[f"layers.{name}.bias"]}
+        if name.startswith("up_sample_"):
+            kb = {"ConvTranspose_0": kb}
+        elif name.startswith(_MASKED_CONVS[:4]) or name.endswith(_MASKED_CONVS[4:]):
+            kb = {"Conv_0": kb}
+        pixel[name] = kb
+    return pixel
 
 
 def _get_conv(sd, prefix, transpose=False) -> Tree:
@@ -217,14 +236,7 @@ def pm_vqvae_trees(state_dict) -> Tuple[Tree, Tree]:
     sd = _numpy(state_dict)
     pe, pc = _sub(sd, "partial_encoder"), _sub(sd, "pixel_cnn")
     vq_params, vq_state = vqvae_trees(_sub(sd, "vqvae"))
-    pixel = {"embed": {"embedding": pc["embed"]}}
-    for key in pc:
-        if not key.startswith("layers.") or not key.endswith(".kernel"):
-            continue
-        name = key[len("layers."):-len(".kernel")]
-        kb = {"kernel": pc[key], "bias": pc[f"layers.{name}.bias"]}
-        masked = name in _MASKED_CONVS[:3] or name.endswith(_MASKED_CONVS[3:])
-        pixel[name] = {"Conv_0": kb} if masked else kb
+    pixel = pixel_cnn_tree(pc)
     params = {
         "vqvae": vq_params,
         "partial_encoder": {
@@ -387,24 +399,37 @@ def random_pm_vqvae_tree(
     rng = np.random.default_rng(seed)
     vq, pc = vqvae_config, pixel_cnn_config
     f, ni, n_res = pc["num_filters"], pc["num_indices"], pc["num_resnet"]
+    n_hier = pc.get("num_hierarchies", 1)
+    rows, cols = pc.get("receptive_field_dims", (3, 3))
     h, w = pc["image_shape"]
     pixel = {
         "embed": {"embedding": (rng.standard_normal((ni, f)) / np.sqrt(f)).astype(np.float32)},
-        "v_init": {"Conv_0": _kb(rng, 5, 3, f, f)},
-        "h_init_up": {"Conv_0": _kb(rng, 3, 3, f, f)},
-        "h_init_left": {"Conv_0": _kb(rng, 3, 3, f, f)},
+        "v_init": {"Conv_0": _kb(rng, 2 * rows - 1, cols, f, f)},
+        "h_init_up": {"Conv_0": _kb(rng, 3, cols, f, f)},
+        "h_init_left": {"Conv_0": _kb(rng, 3, cols, f, f)},
         "logits_conv": _kb(rng, 1, 1, f, ni),
     }
+    ksize = {"vertical": (2 * rows - 3, cols), "horizontal": (3, cols)}
     aux_in = {("up", "horizontal"): f, ("dn", "vertical"): f, ("dn", "horizontal"): 2 * f}
     for dname in ("up", "dn"):
-        for r in range(n_res):
-            for st in ("vertical", "horizontal"):
-                tag = f"{dname}_0_{r}_{st}"
-                pixel[f"{tag}_conv_a"] = {"Conv_0": _kb(rng, 3, 3, 2 * f, f)}
-                pixel[f"{tag}_conv_b"] = {"Conv_0": _kb(rng, 3, 3, 2 * f, 2 * f)}
-                pixel[f"{tag}_cond_proj"] = _kb(rng, conditional_dim, 2 * f, std=1.0)
-                if (dname, st) in aux_in:
-                    pixel[f"{tag}_aux"] = _kb(rng, 2 * aux_in[(dname, st)], f)
+        for i in range(n_hier):
+            for r in range(n_res + (dname == "dn" and i > 0)):
+                for st in ("vertical", "horizontal"):
+                    tag = f"{dname}_{i}_{r}_{st}"
+                    pixel[f"{tag}_conv_a"] = {"Conv_0": _kb(rng, *ksize[st], 2 * f, f)}
+                    pixel[f"{tag}_conv_b"] = {"Conv_0": _kb(rng, *ksize[st], 2 * f, 2 * f)}
+                    pixel[f"{tag}_cond_proj"] = _kb(rng, conditional_dim, 2 * f, std=1.0)
+                    if (dname, st) in aux_in:
+                        pixel[f"{tag}_aux"] = _kb(rng, 2 * aux_in[(dname, st)], f)
+    # the hierarchies' resampling convs (pixelcnn.py:630-663)
+    valid = {"vertical": (rows - 1, cols), "horizontal": (2, cols // 2 + 1)}
+    for i in range(n_hier - 1):
+        for st in ("vertical", "horizontal"):
+            h_, w_ = valid[st]
+            down = (2 * h_, w_ + 1) if st == "vertical" else (2 * h_, 2 * w_)
+            up = (2 * h_ - 2, w_ + 1) if st == "vertical" else (2 * h_ - 2, 2 * w_ - 2)
+            pixel[f"down_sample_{i}_{st}"] = {"Conv_0": _kb(rng, *down, f, f)}
+            pixel[f"up_sample_{i}_{st}"] = {"ConvTranspose_0": _kb(rng, *up, f, f)}
     params = {
         "vqvae": _vqvae_params(rng, vq),
         "partial_encoder": {

@@ -10,9 +10,13 @@ Counterpart of ``eval_pm_vqvae.py``. Run it as::
   (``convert.load_pm_vqvae``, at the run's ``compute_dtype``, as
   ``eval_pm_vqvae.py:80-82`` builds it: a bf16 run's partial encoder and
   VQ-VAE decoder compute in bf16); imputations come from
-  ``pm_vqvae_impute`` (the sampler kernels, float32 in either run, as the
-  JAX CLI's default sampler ``pixelcnn_sample_fast`` is), masks and samples
-  from one ``torch.Generator`` seeded with ``--seed``.
+  ``pm_vqvae_impute``, masks and samples from one ``torch.Generator``
+  seeded with ``--seed``. Its sampler is the JAX CLI's, chosen from the
+  environment as ``models.pm_vqvae.impute_sampler`` says, on every rank:
+  the row kernels in float32 by default (as the JAX CLI's default
+  ``pixelcnn_sample_fast`` computes), in ``PM_TPU_SAMPLER_DTYPE`` (default
+  bfloat16) on the GPU under ``PM_TPU_SAMPLER=rowkernel``, and the naive
+  full-forward sampler for a PixelCNN topology the row kernels do not take.
 - The protocol is :mod:`posterior_matching_torch.eval.imputation`'s:
   ``num_trials`` passes, PSNR of the mean of ``num_samples`` imputations,
   PRD of each sample against the real images (20 clusters, 1001 angles, 10

@@ -7,19 +7,23 @@ Counterpart of ``posterior_matching_tpu/models/pm_vqvae.py:24-211``:
   condition, the PixelCNN's teacher-forced log-likelihood (the gated chain
   kernels on the GPU);
 - the imputation path (:func:`pm_vqvae_impute`): partial encoder -> raster
-  sampling of code grids (the row-sampler kernels on the GPU) -> VQ-VAE
-  decode -> stitch in the observed pixels -> clip.
+  sampling of code grids (the row-sampler kernels on the GPU, at the dtype
+  :func:`impute_sampler` chooses, or the naive full-forward sampler for the
+  topologies they do not take) -> VQ-VAE decode -> stitch in the observed
+  pixels -> clip.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+import os
+import warnings
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from posterior_matching_torch.models.pixelcnn import PixelCNN
+from posterior_matching_torch.models.pixelcnn import PixelCNN, pixelcnn_sample_naive
 from posterior_matching_torch.models.vqvae import VQVAE, VQVAEPartialEncoder
-from posterior_matching_torch.ops.sampler_chain import pixelcnn_sample
+from posterior_matching_torch.ops.sampler_chain import pixelcnn_sample, row_sampler_topology
 from posterior_matching_torch.runtime import resolve_device, torch_dtype
 
 _PIXEL_CNN_KEYS = (
@@ -123,6 +127,35 @@ class PMVQVAE(nn.Module):
         return imgs.reshape(s, b, *imgs.shape[1:])
 
 
+def impute_sampler(pixel_cnn: PixelCNN, device,
+                   sampler_dtype=None) -> Tuple[str, Optional[torch.dtype]]:
+    """The raster sampler :func:`pm_vqvae_impute` takes on ``device``, chosen
+    as the JAX package's ``pm_vqvae_impute`` chooses it (``pm_vqvae.py:
+    146-200``), so that a run's environment means the same in both:
+
+    - ``("naive", None)``, the full-forward sampler, for a topology the row
+      kernels do not take (more than one hierarchy, or a receptive field
+      other than (3, 3));
+    - else ``("rowkernel", dtype)``, the row kernels at ``sampler_dtype``
+      where the caller names it; on a CUDA device with
+      ``PM_TPU_SAMPLER=rowkernel`` at ``PM_TPU_SAMPLER_DTYPE`` (default
+      bfloat16), as JAX's TPU branch; otherwise at float32, where JAX's
+      default cached sampler computes (and always on the CPU, where JAX
+      tests for a TPU backend).
+    """
+    if not row_sampler_topology(pixel_cnn):
+        if sampler_dtype is not None:
+            raise ValueError("sampler_dtype names the row kernels' dtype; this "
+                             "PixelCNN's topology takes the naive sampler")
+        return "naive", None
+    if sampler_dtype is not None:
+        return "rowkernel", torch_dtype(sampler_dtype)
+    if (torch.device(device).type == "cuda"
+            and os.environ.get("PM_TPU_SAMPLER", "fast") == "rowkernel"):
+        return "rowkernel", torch_dtype(os.environ.get("PM_TPU_SAMPLER_DTYPE", "bfloat16"))
+    return "rowkernel", torch.float32
+
+
 @torch.no_grad()
 def pm_vqvae_impute(
     model: PMVQVAE,
@@ -131,15 +164,35 @@ def pm_vqvae_impute(
     num_samples: int = 5,
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
+    sampler_dtype=None,
 ) -> torch.Tensor:
     """Imputes ``x [B, H, W, C]`` where ``b [B, H, W, 1]`` is 0: returns
     ``[B, num_samples, H, W, C]`` clipped to [0, 1], observed pixels copied
     through. Sampling noise comes from ``generator`` (drawn on the model's
-    device) or is given as ``noise [h, w, num_samples * B, K]``."""
+    device) or is given as ``noise [h, w, num_samples * B, K]`` (for every
+    branch: the naive sampler reads it in raster order). The sampler is
+    :func:`impute_sampler`'s choice (``sampler_dtype`` names the row
+    kernels' dtype outright); the naive one with JAX's warning
+    (``pm_vqvae.py:182-199``)."""
     cond = model.conditional_latents(x, b)
-    samples = pixelcnn_sample(
-        model.pixel_cnn, num_samples, cond, noise=noise, generator=generator
-    )
+    pixel_cnn = model.pixel_cnn
+    branch, dtype = impute_sampler(pixel_cnn, pixel_cnn.embed.device, sampler_dtype)
+    if branch == "naive":
+        warnings.warn(
+            "pm_vqvae_impute: PixelCNN topology (num_hierarchies="
+            f"{pixel_cnn.num_hierarchies}, receptive_field_dims="
+            f"{tuple(pixel_cnn.receptive_field_dims)}) is not covered by the row "
+            "sampler's kernels; falling back to the naive full-forward raster "
+            "sampler (one full-grid forward a pixel).",
+            stacklevel=2,
+        )
+        if noise is not None:
+            noise = noise.reshape(-1, *noise.shape[2:])
+        samples = pixelcnn_sample_naive(pixel_cnn, num_samples, cond, noise=noise,
+                                        generator=generator)
+    else:
+        samples = pixelcnn_sample(pixel_cnn, num_samples, cond, noise=noise,
+                                  generator=generator, compute_dtype=dtype)
     imputations = model.decode_code_samples(samples).movedim(0, 1)
     imputations = torch.where(b[:, None] != 0, x[:, None], imputations)
     return imputations.clamp(0.0, 1.0)

@@ -2,9 +2,9 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``; the VDVAE
-chains' and the gated chain's sources are built a second time with
-``-DPM_CORE_BF16=1``, their bf16 builds (``*_bf16``, for ``compute_dtype``
-bfloat16). Libraries go
+chains', the gated chain's and the samplers' sources are built a second
+time with ``-DPM_CORE_BF16=1``, their bf16 builds (``*_bf16``, for
+``compute_dtype`` bfloat16). Libraries go
 into ``ops/_build/`` (git-ignored), named by a hash of the sources and flags,
 so a changed source is rebuilt and an unchanged one is reused. Nothing is
 built at import time: the first call of a kernel wrapper builds its library,
@@ -49,6 +49,8 @@ SOURCES = {
     "gated_stream_bwd_bf16": "gated_stream_bwd.cu",
     "gated_levels_fwd_bf16": "gated_levels_fwd.cu",
     "gated_levels_bwd_bf16": "gated_levels_bwd.cu",
+    "sampler_vrow_bf16": "sampler_vrow.cu",
+    "sampler_row_bf16": "sampler_row.cu",
 }
 # flags of a build beside NVCC_FLAGS
 DEFINES = {name: ("-DPM_CORE_BF16=1",) for name in SOURCES if name.endswith("_bf16")}

@@ -1,7 +1,19 @@
 // Shared pieces of the PixelCNN sampler kernels (sampler_vrow.cu,
-// sampler_row.cu): the elementwise functions and the PTX both kernels'
-// weight streams are built from (mbarriers, cp.async.bulk copies into
-// shared memory, shared-memory loads at 32-bit addresses).
+// sampler_row.cu): the compute dtype's element, the elementwise functions
+// and the PTX both kernels' weight streams are built from (mbarriers,
+// cp.async.bulk copies into shared memory, shared-memory loads at 32-bit
+// addresses).
+//
+// Each kernel is built twice: for float32, and with PM_CORE_BF16 = 1 for
+// the JAX kernels' compute dtype bfloat16 (ops/sampler_chain.py:124-330).
+// In the bf16 build the tensors of the compute dtype (cdt: the weight
+// matrices, the code embedding, the conditional projections and the row
+// state in and out) are bf16, the biases, the Gumbel noise and the logits
+// float32; every product multiplies bf16 values (the A operand rounded as
+// it is gathered, into float shared memory; the weights unpacked from bf16
+// in registers) and sums in float32 FMAs, which is what JAX's
+// preferred_element_type float32 dot computes (a product of two bf16
+// values is exact in float32).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,6 +22,24 @@
 #include "ptx_mma.cuh"
 
 namespace pmk {
+
+#ifndef PM_CORE_BF16
+#define PM_CORE_BF16 0
+#endif
+constexpr bool kBF16 = PM_CORE_BF16;
+
+// The compute dtype's element: bf16 (its bits) in a build with
+// PM_CORE_BF16 = 1, else float; kCdtPerFloat of them take a float's bytes.
+template <bool BF>
+struct Elem {
+  using T = float;
+};
+template <>
+struct Elem<true> {
+  using T = uint16_t;
+};
+using cdt = Elem<kBF16>::T;
+constexpr int kCdtPerFloat = kBF16 ? 2 : 1;
 
 // num_filters the kernels are built for: 128 (configs/pm_vqvae_celeb_a.py,
 // pm_vqvae_mnist.py) and 64 (pm_vqvae_digits16.py). `return call` with F a
@@ -48,6 +78,41 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+// An element of the compute dtype as a float (exact).
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(uint16_t h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+// v rounded to the compute dtype (to nearest even), as a float.
+__device__ __forceinline__ float round_c(float v) {
+  return kBF16 ? __uint_as_float(pack_bf16(v, 0.f) << 16) : v;
+}
+__device__ __forceinline__ float4 round_c4(float4 v) {
+  return make_float4(round_c(v.x), round_c(v.y), round_c(v.z), round_c(v.w));
+}
+// Four consecutive elements of the compute dtype as floats: a float4, or
+// four bf16 values in one 8-byte load.
+__device__ __forceinline__ float4 unpack4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 ldc4(const float* p) { return ld4(p); }
+__device__ __forceinline__ float4 ldc4(const uint16_t* p) {
+  return unpack4(*reinterpret_cast<const uint2*>(p));
+}
+// The same through the read-only path.
+__device__ __forceinline__ float4 ldgc4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldgc4(const uint16_t* p) {
+  return unpack4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+// Stores four consecutive values (rounded to bf16 where the element is).
+__device__ __forceinline__ void stc4(float* p, float4 v) { st4(p, v); }
+__device__ __forceinline__ void stc4(uint16_t* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
 // ---- mbarriers, bulk copies and shared-memory loads (PTX; smem_u32 is
 // ptx_mma.cuh's)
 
@@ -82,7 +147,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   for (uint32_t spins = 0; !mbar_try_wait(bar, parity);)
     if (++spins == (1u << 30)) __trap();
 }
-__device__ __forceinline__ void bulk_g2s(uint32_t dst, const float* src,
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
                                          uint32_t bytes, uint32_t bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "

@@ -63,6 +63,24 @@
 // barrier over the 256 consumer threads), with plain loads; the bulk
 // copies read only the weights.
 //
+// bf16 (a build with PM_CORE_BF16 = 1, the JAX kernel at cdtype bf16;
+// sampler_common.cuh). The weights are bf16 in global memory, so a 64 KB
+// stage carries twice the rows (256 F-wide, 128 2F-wide or 128 of a
+// 256-column logits chunk) and each K group takes twice the rows of a stage
+// (32 at F = 128, 16 at 64); a matrix that is not whole stages ends in a
+// part stage (h_init_left at F = 64: half of one; a 128-column logits
+// chunk: half of one), which only the K groups whose rows it holds read.
+// A thread unpacks four bf16 weights of a row from one 8-byte load. The A
+// operand is rounded to bf16 as it is gathered (it stays float in shared
+// memory). s_x holds the chain's float32 value, rounded at JAX's points:
+// T_0 = round(hup + (hl + hlb)) at the pixel's start, then at the start of
+// every lpg-th level (lpg divides L: the JAX kernel's levels per grid
+// step), never before the logits, which read the last group's unrounded
+// value; outh and outm are stored rounded, so the (0,-1) taps and the
+// skips read the rounded values, as JAX's bf16 stack and mstack. s_m keeps
+// m in float32 (the conv_b gather rounds it). Bound at the dense bf16 rate
+// (989 TFLOP/s): 0.115 ms at the flagship shapes.
+//
 // Shared memory (dynamic, floats): the weight ring 2 x 16384 (128 KB); the
 // A operand 12F x 8 (48 KB), whose first 8192 floats also hold the partial
 // sums once a GEMM's last stage is consumed, and whose floats [8192, 8192 +
@@ -91,13 +109,24 @@ constexpr int kStages = 2;     // ring depth
 // [TS, 256].
 constexpr int kPartials = kConsumers * 4 * TS;
 
+// cdt: the compute dtype's tensors (bf16 in a bf16 build); the biases, the
+// noise and the logits are float32.
 struct RowArgs {
-  const float *wa, *ba, *wb, *bb, *cp, *prevh, *prevm, *aux, *hup, *e1,
-      *gumbel, *emb, *lw, *lb, *hlw, *hlb;
-  float *outh, *outm;
+  const cdt *wa;
+  const float* ba;
+  const cdt* wb;
+  const float* bb;
+  const cdt *cp, *prevh, *prevm, *aux, *hup, *e1;
+  const float* gumbel;
+  const cdt* emb;
+  const cdt* lw;
+  const float* lb;
+  const cdt* hlw;
+  const float* hlb;
+  cdt *outh, *outm;
   int* outs;
   float* outl;  // logits out, or null
-  int L, W, n, K;
+  int L, W, n, K, lpg;
 };
 
 // ---- the consumers' barrier
@@ -107,10 +136,12 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-// Row k of a k-major [K, TS] operand.
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// Row k of a k-major [K, TS] operand, rounded to the compute dtype.
 __device__ __forceinline__ void put(float* sA, int k, const float (&v)[TS]) {
-  st4(sA + k * TS, make_float4(v[0], v[1], v[2], v[3]));
-  st4(sA + k * TS + 4, make_float4(v[4], v[5], v[6], v[7]));
+  st4(sA + k * TS, round_c4(make_float4(v[0], v[1], v[2], v[3])));
+  st4(sA + k * TS + 4, round_c4(make_float4(v[4], v[5], v[6], v[7])));
 }
 
 // A consumer's share of an N-column product: K group tid / (N / 4), which
@@ -133,13 +164,16 @@ template <int F, int NC>
 struct Row {
   // The weight stream.
   static constexpr int kStage = 128 * F;  // floats a stage (64 KB at F = 128)
-  static constexpr int kHlwStages = 2 * F * F / kStage;     // 2 at F = 128
-  static constexpr int kWaStages = 12 * F * F / kStage;     // 12
-  static constexpr int kWbStages = 8 * F * 2 * F / kStage;  // 16
+  static constexpr int kStageElems = kStage * kCdtPerFloat;  // weights a stage
+  // Stages of each matrix (the last one part of a stage where its weights
+  // are not whole stages).
+  static constexpr int kHlwStages = ceil_div(2 * F * F, kStageElems);     // 2 at F = 128 (1 in bf16)
+  static constexpr int kWaStages = ceil_div(12 * F * F, kStageElems);     // 12 (6)
+  static constexpr int kWbStages = ceil_div(8 * F * 2 * F, kStageElems);  // 16 (8)
   static constexpr int kLevelStages = kWaStages + kWbStages;
-  static constexpr int kLwStages = F * NC / kStage;  // 2 a logits chunk
-  // K rows of a stage each K group multiplies (16 at F = 128).
-  static constexpr int kGroupRows = kStage / (kConsumers * 4);
+  static constexpr int kLwStages = ceil_div(F * NC, kStageElems);  // 2 a logits chunk (1)
+  // K rows of a stage each K group multiplies (16 at F = 128, 32 in bf16).
+  static constexpr int kGroupRows = kStageElems / (kConsumers * 4);
   static_assert(F % 64 == 0 && F <= kHalf && NC % kHalf == 0 && NC <= 2 * kHalf,
                 "the tiles take F = 64 or 128, NC = 128 or 256");
   // F-wide values a consumer warp holds in an epilogue: its sample's F
@@ -179,30 +213,45 @@ struct Row {
     __device__ uint32_t empty_bar(int g) const { return smem_u32(empty + g % kStages); }
   };
 
+  // Stage st of a matrix of ELEMS weights at m: one bulk copy of a stage,
+  // or of the part of one that ends a matrix not whole stages (a constant
+  // in the float32 build, where every matrix is whole stages).
+  template <int ELEMS>
+  static __device__ __forceinline__ void copy_stage(uint32_t dst, const cdt* m, int st,
+                                                    uint32_t bar) {
+    constexpr int kLast = ELEMS - (ceil_div(ELEMS, kStageElems) - 1) * kStageElems;
+    const int count = st + 1 < ceil_div(ELEMS, kStageElems) ? kStageElems : kLast;
+    mbar_expect_tx(bar, count * sizeof(cdt));
+    bulk_g2s(dst, m + (size_t)st * kStageElems, count * sizeof(cdt), bar);
+  }
+
   // The producer's walk over the launch's stages: hlw, then wa[l] and wb[l]
   // for every level, then lw chunk by chunk, once per pixel.
   static __device__ void produce(const RowArgs& p, const Ring& ring, int per_pixel, int total) {
     for (int g = 0; g < total; ++g) {
       if (g >= kStages) mbar_wait(ring.empty_bar(g), (g / kStages + 1) & 1);
       const uint32_t bar = ring.full_bar(g), dst = smem_u32(ring.slot(g));
-      mbar_expect_tx(bar, kStage * sizeof(float));
       const int q = g % per_pixel - kHlwStages;
       if (q < 0) {
-        bulk_g2s(dst, p.hlw + (size_t)(q + kHlwStages) * kStage, kStage * 4, bar);
+        copy_stage<2 * F * F>(dst, p.hlw, q + kHlwStages, bar);
       } else if (q < p.L * kLevelStages) {
         const int l = q / kLevelStages, r = q % kLevelStages;
-        const float* src = r < kWaStages
-                               ? p.wa + ((size_t)l * kWaStages + r) * kStage
-                               : p.wb + ((size_t)l * kWbStages + r - kWaStages) * kStage;
-        bulk_g2s(dst, src, kStage * 4, bar);
+        if (r < kWaStages)
+          copy_stage<12 * F * F>(dst, p.wa + (size_t)l * 12 * F * F, r, bar);
+        else
+          copy_stage<16 * F * F>(dst, p.wb + (size_t)l * 16 * F * F, r - kWaStages, bar);
       } else {
-        // stage r of a chunk: kStage / NC rows of lw's columns [NC chunk,
-        // NC chunk + NC), one bulk copy a row
+        // stage r of a chunk: kStageElems / NC rows of lw's columns [NC
+        // chunk, NC chunk + NC), or the chunk's last rows, one bulk copy a row
+        constexpr int kRows = kStageElems / NC;
+        constexpr int kLastRows = F - (kLwStages - 1) * kRows;
         const int chunk = (q - p.L * kLevelStages) / kLwStages;
         const int r = (q - p.L * kLevelStages) % kLwStages;
-        const float* src = p.lw + (size_t)r * (kStage / NC) * p.K + chunk * NC;
-        for (int i = 0; i < kStage / NC; ++i)
-          bulk_g2s(dst + i * NC * 4, src + (size_t)i * p.K, NC * 4, bar);
+        const int rows = r + 1 < kLwStages ? kRows : kLastRows;
+        mbar_expect_tx(bar, rows * NC * sizeof(cdt));
+        const cdt* src = p.lw + (size_t)r * kRows * p.K + chunk * NC;
+        for (int i = 0; i < rows; ++i)
+          bulk_g2s(dst + i * NC * sizeof(cdt), src + (size_t)i * p.K, NC * sizeof(cdt), bar);
       }
     }
   }
@@ -225,23 +274,27 @@ struct Row {
   };
 
   // acc[s][u] = sum over this thread's K rows of A[k][s] * W[k][col + u],
-  // the product's K taken from the next nst stages of the stream. The
-  // operand must be complete (a consumers_sync after it was written).
-  template <int N>
+  // the product's KR rows of K taken from the next stages of the stream.
+  // The operand must be complete (a consumers_sync after it was written).
+  template <int N, int KR>
   static __device__ __forceinline__ void gemm(float (&acc)[TS][4], Stream& stream,
-                                              const float* sA, int nst) {
-    constexpr int R = kStage / N;  // K rows a stage
+                                              const float* sA) {
+    constexpr int R = kStageElems / N;  // K rows a stage
+    constexpr int nst = (KR + R - 1) / R;
+    constexpr int kLast = KR - (nst - 1) * R;  // rows of the last stage
+    static_assert(kLast % kGroupRows == 0, "a part stage holds whole K groups");
     const int row0 = kGroupRows * group<N>(), col = group_col<N>();
 #pragma unroll
     for (int s = 0; s < TS; ++s)
 #pragma unroll
       for (int u = 0; u < 4; ++u) acc[s][u] = 0.f;
     for (int st = 0; st < nst; ++st) {
-      const float* ws = stream.take() + row0 * N + col;
+      const cdt* ws = reinterpret_cast<const cdt*>(stream.take()) + row0 * N + col;
       const float* as = sA + (st * R + row0) * TS;
+      if (kLast == R || st + 1 < nst || row0 < kLast) {
 #pragma unroll
       for (int r = 0; r < kGroupRows; ++r) {
-        const float4 w4 = ld4(ws + r * N);
+        const float4 w4 = ldc4(ws + r * N);
         const float4 a0 = ld4(as + r * TS), a1 = ld4(as + r * TS + 4);
         const float a[TS] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
         const float w[4] = {w4.x, w4.y, w4.z, w4.w};
@@ -249,6 +302,7 @@ struct Row {
         for (int s = 0; s < TS; ++s)
 #pragma unroll
           for (int u = 0; u < 4; ++u) acc[s][u] = fmaf(a[s], w[u], acc[s][u]);
+      }
       }
       stream.release();
     }
@@ -343,11 +397,11 @@ struct Row {
 #pragma unroll
       for (int s = 0; s < TS; ++s) {
         const int j = js[s];
-        ta0[s] = c > 0 ? __ldg(p.prevh + off(l, c - 1, j, F) + e) : 0.f;
-        ta1[s] = __ldg(p.prevh + off(l, c, j, F) + e);
-        ta2[s] = c > 0 ? p.outh[off(l, c - 1, j, F) + e] : 0.f;
-        taq[s] = !neg ? __ldg(p.aux + off(l, c, j, F) + e)
-                 : l >= R ? p.outh[off(2 * R - 1 - l, c, j, F) + e]
+        ta0[s] = c > 0 ? to_f(__ldg(p.prevh + off(l, c - 1, j, F) + e)) : 0.f;
+        ta1[s] = to_f(__ldg(p.prevh + off(l, c, j, F) + e));
+        ta2[s] = c > 0 ? to_f(p.outh[off(l, c - 1, j, F) + e]) : 0.f;
+        taq[s] = !neg ? to_f(__ldg(p.aux + off(l, c, j, F) + e))
+                 : l >= R ? to_f(p.outh[off(2 * R - 1 - l, c, j, F) + e])
                           : 0.f;
       }
     };
@@ -358,9 +412,9 @@ struct Row {
 #pragma unroll
       for (int s = 0; s < TS; ++s) {
         const int j = js[s];
-        tb0[s] = c > 0 ? __ldg(p.prevm + off(l, c - 1, j, 2 * F) + tid) : 0.f;
-        tb1[s] = __ldg(p.prevm + off(l, c, j, 2 * F) + tid);
-        tb2[s] = c > 0 ? p.outm[off(l, c - 1, j, 2 * F) + tid] : 0.f;
+        tb0[s] = c > 0 ? to_f(__ldg(p.prevm + off(l, c - 1, j, 2 * F) + tid)) : 0.f;
+        tb1[s] = to_f(__ldg(p.prevm + off(l, c, j, 2 * F) + tid));
+        tb2[s] = c > 0 ? to_f(p.outm[off(l, c - 1, j, 2 * F) + tid]) : 0.f;
       }
     };
 
@@ -373,28 +427,33 @@ struct Row {
         float v[TS];
 #pragma unroll
         for (int s = 0; s < TS; ++s)
-          v[s] = c == 0 ? 0.f : neg ? s_e[s][e] : p.e1[off2(c - 1, js[s], F) + e];
+          v[s] = c == 0 ? 0.f : neg ? s_e[s][e] : to_f(p.e1[off2(c - 1, js[s], F) + e]);
         put(sA, tid, v);
       }
       float4 hup = {}, hlb = {};
       if (ef) {
-        hup = ld4(p.hup + off2(c, ej, F) + ecol);
+        hup = ldc4(p.hup + off2(c, ej, F) + ecol);
         hlb = ld4(p.hlb + ecol);
       }
       consumers_sync();
-      gemm<F>(acc, stream, sA, kHlwStages);
+      gemm<F, 2 * F>(acc, stream, sA);
       store_partials<F>(sA, acc);
       if (ef) {
         const float4 r = reduced<F>(sA, es, ecol);
-        st4(&s_x[es][ecol], make_float4(hup.x + r.x + hlb.x, hup.y + r.y + hlb.y,
-                                        hup.z + r.z + hlb.z, hup.w + r.w + hlb.w));
+        if constexpr (kBF16)  // JAX's order: hup + (hl + hlb), rounded
+          st4(&s_x[es][ecol],
+              round_c4(make_float4(hup.x + (r.x + hlb.x), hup.y + (r.y + hlb.y),
+                                   hup.z + (r.z + hlb.z), hup.w + (r.w + hlb.w))));
+        else
+          st4(&s_x[es][ecol], make_float4(hup.x + r.x + hlb.x, hup.y + r.y + hlb.y,
+                                          hup.z + r.z + hlb.z, hup.w + r.w + hlb.w));
       }
       consumers_sync();
 
       for (int l = 0; l < L; ++l) {
         // this level's input at this pixel: the next pixel's (0,-1) tap, and
         // the skip of level 2R-1-l later in this pixel
-        if (evalid && ef) st4(p.outh + off(l, c, ej, F) + ecol, ld4(&s_x[es][ecol]));
+        if (evalid && ef) stc4(p.outh + off(l, c, ej, F) + ecol, ld4(&s_x[es][ecol]));
 
         // ---- conv_a's operand [12F, TS]: taps (-1,-1), (-1,0), (0,-1),
         // (0,0) with concat_elu, then the aux slot rows 8F + tid and 10F +
@@ -423,7 +482,7 @@ struct Row {
         load_b(l, c);
         const float4 ba = ef ? ld4(p.ba + l * F + ecol) : float4{};
         consumers_sync();
-        gemm<F>(acc, stream, sA, kWaStages);
+        gemm<F, 12 * F>(acc, stream, sA);
         store_partials<F>(sA, acc);
         if (ef) {
           const float4 r = reduced<F>(sA, es, ecol);
@@ -433,8 +492,8 @@ struct Row {
           st4(&s_m[es][ecol], mp);
           st4(&s_m[es][F + ecol], mn);
           if (evalid) {
-            st4(p.outm + off(l, c, ej, 2 * F) + ecol, mp);
-            st4(p.outm + off(l, c, ej, 2 * F) + F + ecol, mn);
+            stc4(p.outm + off(l, c, ej, 2 * F) + ecol, mp);
+            stc4(p.outm + off(l, c, ej, 2 * F) + F + ecol, mn);
           }
         }
         consumers_sync();
@@ -452,14 +511,14 @@ struct Row {
         if (l + 1 < L) load_a(l + 1, c);
         // act column ecol + u, its gate ecol + u + F
         const float* bb = p.bb + l * 2 * F;
-        const float* cp = p.cp + ((size_t)l * n + ej) * 2 * F;
+        const cdt* cp = p.cp + ((size_t)l * n + ej) * 2 * F;
         float4 b_a = {}, b_g = {}, c_a = {}, c_g = {};
         if (ef) {
           b_a = ld4(bb + ecol), b_g = ld4(bb + F + ecol);
-          c_a = ld4(cp + ecol), c_g = ld4(cp + F + ecol);
+          c_a = ldc4(cp + ecol), c_g = ldc4(cp + F + ecol);
         }
         consumers_sync();
-        gemm<2 * F>(acc, stream, sA, kWbStages);
+        gemm<2 * F, 8 * F>(acc, stream, sA);
         store_partials<2 * F>(sA, acc);
         if (ef) {
           const float4 ra = reduced<2 * F>(sA, es, ecol);
@@ -469,6 +528,9 @@ struct Row {
           x.y += sigmoid(rg.y + b_g.y + c_g.y) * (ra.y + b_a.y + c_a.y);
           x.z += sigmoid(rg.z + b_g.z + c_g.z) * (ra.z + b_a.z + c_a.z);
           x.w += sigmoid(rg.w + b_g.w + c_g.w) * (ra.w + b_a.w + c_a.w);
+          // bf16: the next level starts a group of lpg (the logits read
+          // the last level's value unrounded)
+          if (kBF16 && (l + 1) % p.lpg == 0 && l + 1 < L) x = round_c4(x);
           st4(&s_x[es][ecol], x);
         }
         consumers_sync();
@@ -486,7 +548,7 @@ struct Row {
       int bidx = INT_MAX;
       const size_t o = off2(c, ej, K);
       for (int n0 = 0; n0 < K; n0 += NC) {
-        gemm<NC>(acc, stream, sAL, kLwStages);
+        gemm<NC, F>(acc, stream, sAL);
         store_partials<NC>(sA, acc);
 #pragma unroll
         for (int h = 0; h < NC / kHalf; ++h) {
@@ -521,9 +583,7 @@ struct Row {
         if (evalid) p.outs[(size_t)c * n + ej] = y;
       }
       consumers_sync();
-      if (ef)
-        st4(&s_e[es][ecol], __ldg(reinterpret_cast<const float4*>(
-                                p.emb + (size_t)s_y[es] * F + ecol)));
+      if (ef) st4(&s_e[es][ecol], ldgc4(p.emb + (size_t)s_y[es] * F + ecol));
       consumers_sync();
     }
   }
@@ -536,19 +596,22 @@ __global__ void __launch_bounds__(kBlock, 1) row_kernel(const RowArgs p) {
 
 }  // namespace
 
-// Launches one image row. Tensors are float32 (outs int32), contiguous,
-// 16-byte aligned, on the device of `stream`; shapes as in
-// posterior_matching_torch/ops/sampler_chain.py::row_plain with F a built
-// width (PMK_DISPATCH_WIDTHS) and K % 128 == 0; outl may be null. Returns
+// Launches one image row. Tensors are contiguous, 16-byte aligned, on the
+// device of `stream`, cdt (bf16 in a bf16 build) or float32 as RowArgs says
+// (outs int32); shapes as in posterior_matching_torch/ops/sampler_chain.py::
+// row_plain with F a built width (PMK_DISPATCH_WIDTHS) and K % 128 == 0;
+// outl may be null. `bf16` must be this build's (1 for the bf16 build),
+// lpg (the bf16 chain's rounding cadence) a divisor of L. Returns
 // cudaGetLastError() after the launch.
 extern "C" int pm_sampler_row(
-    const float* wa, const float* ba, const float* wb, const float* bb,
-    const float* cp, const float* prevh, const float* prevm, const float* aux,
-    const float* hup, const float* e1, const float* gumbel, const float* emb,
-    const float* lw, const float* lb, const float* hlw, const float* hlb,
-    float* outh, float* outm, int* outs, float* outl, int L, int W, int n,
-    int K, int filters, void* stream) {
-  if (W < 1 || n < 1 || L < 2 || L % 2 || K < kHalf || K % kHalf)
+    const cdt* wa, const float* ba, const cdt* wb, const float* bb,
+    const cdt* cp, const cdt* prevh, const cdt* prevm, const cdt* aux,
+    const cdt* hup, const cdt* e1, const float* gumbel, const cdt* emb,
+    const cdt* lw, const float* lb, const cdt* hlw, const float* hlb,
+    cdt* outh, cdt* outm, int* outs, float* outl, int L, int W, int n,
+    int K, int filters, int bf16, int lpg, void* stream) {
+  if (W < 1 || n < 1 || L < 2 || L % 2 || K < kHalf || K % kHalf || bf16 != (int)kBF16 ||
+      lpg < 1 || L % lpg)
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {wa,  ba,  wb, bb,     cp,  prevh, prevm, aux,  hup,  e1,
                         gumbel, emb, lw, lb, hlw, hlb,   outh,  outm, outs, outl};
@@ -556,7 +619,7 @@ extern "C" int pm_sampler_row(
     if (reinterpret_cast<uintptr_t>(q) % 16) return (int)cudaErrorInvalidValue;
   const RowArgs p{wa,  ba,  wb,  bb,  cp,   prevh, prevm, aux,  hup, e1, gumbel,
                   emb, lw,  lb,  hlw, hlb,  outh,  outm,  outs, outl, L,  W,
-                  n,   K};
+                  n,   K,  lpg};
   const int blocks = (n + TS - 1) / TS;
   // one (width, logits chunk)'s kernel, with its shared memory
   auto launch = [&](void (*kernel)(RowArgs), size_t smem) {

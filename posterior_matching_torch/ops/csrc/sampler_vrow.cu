@@ -65,6 +65,21 @@
 // the thread that wrote them) and as down levels' skips (after a
 // __syncthreads).
 //
+// bf16 (a build with PM_CORE_BF16 = 1, the JAX kernel at cdtype bf16;
+// sampler_common.cuh). The weights are bf16 in global memory, so a 32 KB
+// stage carries twice the rows (128 F-wide or 64 2F-wide) and each warp
+// takes 32 K rows of a stage; h_init_up at F = 64 (192 rows) ends in half
+// a stage, which the first two K groups read. A thread unpacks four bf16
+// weights of a row from one 8-byte load. Every operand value is rounded to
+// bf16 as it is built (the operand stays float in shared memory). outv,
+// outm, v0 and hup are stored rounded, and the down levels' skips read
+// them so, as JAX's bf16 vstack; the carry (rounded in outv) stays float32
+// in the epilogue threads' registers, as JAX's float32 carry: a thread's
+// epilogue rows and columns are the same at every level. The skip product adds into conv_a's sums, where JAX
+// adds a separately summed product: a difference of float32 summation
+// order, like the split over K groups. Bound at the dense bf16 rate (989
+// TFLOP/s): 0.152 ms at the flagship shapes.
+//
 // Shared memory (dynamic, floats): the ring 3 x 8192 (96 KB), the operand
 // 2 x kSlots x 2F (108 KB), 3 mbarriers and 3 counts, the rows' operand
 // rows (48 ints): 209,124 bytes of the 232,448 a block may have at F =
@@ -81,7 +96,7 @@ using namespace pmk;
 constexpr int kRows = 48;     // row slots of a block's GEMMs (TS * W of them used)
 constexpr int kSlots = 54;    // operand rows of a source: TS x (W + 2) columns
 constexpr int kStages = 3;    // ring depth
-constexpr int kWarpK = 16;    // K rows of a stage each warp multiplies
+constexpr int kWarpK = 16 * kCdtPerFloat;  // K rows of a stage each warp multiplies
 constexpr int kBlock = 384;  // 12 warps
 constexpr int kWarps = kBlock / 32;
 
@@ -96,12 +111,23 @@ struct Segs {
   int kseg, src0, ntap;
 };
 
+// cdt: the compute dtype's tensors (bf16 in a bf16 build); the biases are
+// float32.
 struct VrowArgs {
-  const float *e2, *e1, *pv0, *pv, *pm, *cpv;
-  const float *viw, *vib, *huw, *hub, *wav, *bav, *wbv, *bbv, *waux;
-  float *outv, *outm, *v0, *hup;
+  const cdt *e2, *e1, *pv0, *pv, *pm, *cpv, *viw;
+  const float* vib;
+  const cdt* huw;
+  const float* hub;
+  const cdt* wav;
+  const float* bav;
+  const cdt* wbv;
+  const float* bbv;
+  const cdt* waux;
+  cdt *outv, *outm, *v0, *hup;
   int L, W, n, TS;
 };
+
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // The block's rows: slot r < TS * W is (sample r / W, column r % W).
 struct Rows {
@@ -126,6 +152,7 @@ template <int F>
 struct Vrow {
   static constexpr int kSrc = kSlots * 2 * F;  // floats of one operand source (rows of 2F)
   static constexpr int kStage = 64 * F;        // floats a stage (32 KB at F = 128)
+  static constexpr int kStageElems = kStage * kCdtPerFloat;  // weights a stage
   static constexpr int kColLanes = F / 4;
   static constexpr int kRowLanes = 32 / kColLanes;
   static_assert(F % 64 == 0 && F <= 128, "the tiles take F = 64 or 128");
@@ -147,18 +174,19 @@ struct Vrow {
     static constexpr int RW = kRows / (kWarps / G);
     static constexpr int RT = RW / kRowLanes;
     static constexpr int CT = N == F ? 4 : 8;
-    static constexpr int SR = kStage / N;  // K rows a stage
+    static constexpr int SR = kStageElems / N;  // K rows a stage
     static_assert(G * kWarpK == SR && RT * CT * kRowLanes == 64, "");
     static_assert(G * kRows * N <= 2 * kSrc, "the partials overlay the operand");
   };
 
   // Stages of the weight sequence: viw, huw, then wav[l], waux[l] (down
-  // levels) and wbv[l] of each level.
-  static constexpr int kViwStages = 6 * F * F / kStage;
-  static constexpr int kHuwStages = 3 * F * F / kStage;
-  static constexpr int kWavStages = 12 * F * F / kStage;
-  static constexpr int kAuxStages = 2 * F * F / kStage;
-  static constexpr int kWbvStages = 12 * F * 2 * F / kStage;
+  // levels) and wbv[l] of each level (a matrix not whole stages ends in a
+  // part of one).
+  static constexpr int kViwStages = ceil_div(6 * F * F, kStageElems);
+  static constexpr int kHuwStages = ceil_div(3 * F * F, kStageElems);
+  static constexpr int kWavStages = ceil_div(12 * F * F, kStageElems);
+  static constexpr int kAuxStages = ceil_div(2 * F * F, kStageElems);
+  static constexpr int kWbvStages = ceil_div(12 * F * 2 * F, kStageElems);
   static constexpr int kUpStages = kWavStages + kWbvStages;
   static constexpr int kDownStages = kUpStages + kAuxStages;
 
@@ -166,11 +194,26 @@ struct Vrow {
     return kViwStages + kHuwStages + (L / 2) * (kUpStages + kDownStages);
   }
 
-  // Where stage g's kStage floats start.
-  static __device__ const float* stage_src(const VrowArgs& p, int g) {
-    if (g < kViwStages) return p.viw + (size_t)g * kStage;
+  // Stage st of a matrix of ELEMS weights at m: where it starts and its
+  // weights, a stage or the part of one that ends a matrix not whole
+  // stages (a constant in the float32 build, where every matrix is whole
+  // stages).
+  struct Span {
+    const cdt* src;
+    int count;
+  };
+  template <int ELEMS>
+  static __device__ __forceinline__ Span span(const cdt* m, int st) {
+    constexpr int kLast = ELEMS - (ceil_div(ELEMS, kStageElems) - 1) * kStageElems;
+    return {m + (size_t)st * kStageElems,
+            st + 1 < ceil_div(ELEMS, kStageElems) ? kStageElems : kLast};
+  }
+
+  // Stage g of the weight sequence.
+  static __device__ Span stage_span(const VrowArgs& p, int g) {
+    if (g < kViwStages) return span<6 * F * F>(p.viw, g);
     g -= kViwStages;
-    if (g < kHuwStages) return p.huw + (size_t)g * kStage;
+    if (g < kHuwStages) return span<3 * F * F>(p.huw, g);
     g -= kHuwStages;
     const int R = p.L / 2;
     int l;
@@ -182,13 +225,13 @@ struct Vrow {
       l = R + g / kDownStages;
       g -= (l - R) * kDownStages;
     }
-    if (g < kWavStages) return p.wav + (size_t)l * 12 * F * F + (size_t)g * kStage;
+    if (g < kWavStages) return span<12 * F * F>(p.wav + (size_t)l * 12 * F * F, g);
     g -= kWavStages;
     if (l >= R) {
-      if (g < kAuxStages) return p.waux + (size_t)l * 2 * F * F + (size_t)g * kStage;
+      if (g < kAuxStages) return span<2 * F * F>(p.waux + (size_t)l * 2 * F * F, g);
       g -= kAuxStages;
     }
-    return p.wbv + (size_t)l * 12 * F * 2 * F + (size_t)g * kStage;
+    return span<24 * F * F>(p.wbv + (size_t)l * 24 * F * F, g);
   }
 
   // The weight stream, without a producer warp: slot g % kStages holds stage
@@ -206,8 +249,9 @@ struct Vrow {
     // One thread: stage g's bulk copy into its slot.
     __device__ void issue(int g) const {
       const uint32_t bar = smem_u32(full + g % kStages);
-      mbar_expect_tx(bar, kStage * sizeof(float));
-      bulk_g2s(smem_u32(slot(g)), stage_src(*p, g), kStage * sizeof(float), bar);
+      const Span s = stage_span(*p, g);
+      mbar_expect_tx(bar, s.count * sizeof(cdt));
+      bulk_g2s(smem_u32(slot(g)), s.src, s.count * sizeof(cdt), bar);
     }
     __device__ const float* take() const {
       mbar_wait(smem_u32(full + next % kStages), (next / kStages) & 1);
@@ -239,17 +283,26 @@ struct Vrow {
   }
   static __device__ __forceinline__ int tile_col() { return 4 * (threadIdx.x % 32 % kColLanes); }
 
-  // acc (+)= the block's rows of A @ W over nst stages of the stream, A read
-  // from the operand as `sg` says (row r of a source at operand row slot[r]);
-  // this thread's share: its Tile<N> rows and columns, K group warp % G. The
-  // operand must be complete (a __syncthreads after it was written).
-  template <int N>
+  // acc (+)= the block's rows of A @ W over the KR rows of K the next stages
+  // of the stream hold, A read from the operand as `sg` says (row r of a
+  // source at operand row slot[r]); this thread's share: its Tile<N> rows
+  // and columns, K group warp % G. The operand must be complete (a
+  // __syncthreads after it was written).
+  template <int N, int KR>
   static __device__ __forceinline__ void gemm(float (&acc)[Tile<N>::RT][Tile<N>::CT],
                                               VStream& stream, const float* op,
-                                              const int* slot, Segs sg, int nst) {
+                                              const int* slot, Segs sg) {
     using T = Tile<N>;
+    constexpr int nst = ceil_div(KR, T::SR);
+    constexpr int kLast = KR - (nst - 1) * T::SR;  // rows of the last stage
+    static_assert(kLast % kWarpK == 0, "a part stage holds whole K groups");
     const int col = tile_col(), grp = threadIdx.x / 32 % T::G, row0 = tile_row0<N>();
     for (int st = 0; st < nst; ++st) {
+      if (kLast != T::SR && st + 1 == nst && grp * kWarpK >= kLast) {
+        stream.take();
+        stream.release();
+        continue;
+      }
       const int k = st * T::SR + grp * kWarpK;
       const int seg = k / sg.kseg, kc = k % sg.kseg;
       const int dx = sg.ntap == 3 ? seg % 3 - 1 : 0;
@@ -257,16 +310,16 @@ struct Vrow {
       uint32_t ar[T::RT];
 #pragma unroll
       for (int i = 0; i < T::RT; ++i) ar[i] = a0 + slot[row0 + i] * 2 * F * sizeof(float);
-      const float* ws = stream.take() + grp * kWarpK * N + col;
+      const cdt* ws = reinterpret_cast<const cdt*>(stream.take()) + grp * kWarpK * N + col;
 #pragma unroll
       for (int k4 = 0; k4 < kWarpK; k4 += 4) {
         float w[4][T::CT];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float4 w0 = ld4(ws + (k4 + j) * N);
+          const float4 w0 = ldc4(ws + (k4 + j) * N);
           w[j][0] = w0.x, w[j][1] = w0.y, w[j][2] = w0.z, w[j][3] = w0.w;
           if constexpr (T::CT == 8) {
-            const float4 w1 = ld4(ws + (k4 + j) * N + F);
+            const float4 w1 = ldc4(ws + (k4 + j) * N + F);
             w[j][4] = w1.x, w[j][5] = w1.y, w[j][6] = w1.z, w[j][7] = w1.w;
           }
         }
@@ -329,13 +382,13 @@ struct Vrow {
   }
 
   // Operand source dst from C-wide rows of X ([W, n, C]): the raw values
-  // (channels [0, C)) or their concat_elu (channels [0, 2C)), and zeros in the
-  // halo rows. Every load is issued before the first store. X is read through
+  // (channels [0, C)) or their concat_elu (channels [0, 2C)), rounded to the
+  // compute dtype, and zeros in the halo rows. Every load is issued before the first store. X is read through
   // the read-only path when `kRo`; outputs of this kernel are not. (The outer
   // loop runs once; written out without it, ptxas spilled more and the kernel
   // took 11% longer on an H100.)
   template <int C, bool kCelu, bool kRo>
-  static __device__ __forceinline__ void build(float* dst, const float* X, const Rows& rw) {
+  static __device__ __forceinline__ void build(float* dst, const cdt* X, const Rows& rw) {
     constexpr int kBatch = kRows * C / kBlock;  // every element in one batch
     const int tid = threadIdx.x, total = rw.used() * C;
     for (int base = tid; base < total; base += kBatch * kBlock) {
@@ -345,8 +398,8 @@ struct Vrow {
         const int idx = base + u * kBlock;
         v[u] = 0.f;
         if (idx < total) {
-          const float* src = X + rw.grow(idx / C) * C + idx % C;
-          v[u] = kRo ? __ldg(src) : *src;
+          const cdt* src = X + rw.grow(idx / C) * C + idx % C;
+          v[u] = to_f(kRo ? __ldg(src) : *src);
         }
       }
 #pragma unroll
@@ -355,10 +408,10 @@ struct Vrow {
         if (idx >= total) continue;
         float* d = dst + rw.slot(idx / C) * 2 * F + idx % C;
         if (kCelu) {
-          d[0] = elu(v[u]);
-          d[C] = elu(-v[u]);
+          d[0] = round_c(elu(v[u]));
+          d[C] = round_c(elu(-v[u]));
         } else {
-          d[0] = v[u];
+          d[0] = v[u];  // a value of the compute dtype
         }
       }
     }
@@ -375,8 +428,8 @@ struct Vrow {
   }
   static __device__ __forceinline__ int epi_col() { return 4 * (threadIdx.x % kColLanes); }
 
-  // Operand source dst = concat_elu of the epilogue's values x, with zero halo
-  // rows.
+  // Operand source dst = concat_elu of the epilogue's values x, rounded to the
+  // compute dtype, with zero halo rows.
   static __device__ __forceinline__ void build_celu(float* dst, const float4 (&x)[kEpiRows],
                                                     const Rows& rw) {
     const int col = epi_col();
@@ -385,8 +438,9 @@ struct Vrow {
       const int r = epi_row(q);
       if (r >= rw.used()) continue;
       float* d = dst + rw.slot(r) * 2 * F + col;
-      st4(d, make_float4(elu(x[q].x), elu(x[q].y), elu(x[q].z), elu(x[q].w)));
-      st4(d + F, make_float4(elu(-x[q].x), elu(-x[q].y), elu(-x[q].z), elu(-x[q].w)));
+      st4(d, round_c4(make_float4(elu(x[q].x), elu(x[q].y), elu(x[q].z), elu(x[q].w))));
+      st4(d + F,
+          round_c4(make_float4(elu(-x[q].x), elu(-x[q].y), elu(-x[q].z), elu(-x[q].w))));
     }
     zero_halo<2 * F>(dst, rw);
   }
@@ -418,6 +472,9 @@ struct Vrow {
 #pragma unroll
     for (int q = 0; q < kEpiRows; ++q) erow[q] = epi_row(q);
 
+    // the carry: v0, then each level's output (float32 in either build)
+    float4 x[kEpiRows];
+
     // ---- v_init (rows r-2, r-1) and h_init_up (row r-1) --------------------
     {
       build<F, false, true>(op, p.e2, rw);
@@ -425,26 +482,25 @@ struct Vrow {
       __syncthreads();
       float acc[Tile<F>::RT][Tile<F>::CT];
       zero<F>(acc);
-      gemm<F>(acc, stream, op, slot, Segs{F, 0, 3}, 6 * F / Tile<F>::SR);
+      gemm<F, 6 * F>(acc, stream, op, slot, Segs{F, 0, 3});
       store_partials<F>(op, acc);
       const float4 vb = ld4(p.vib + ecol);
-      float4 x[kEpiRows];  // v0
 #pragma unroll
       for (int q = 0; q < kEpiRows; ++q) {
         x[q] = add4(reduced<F>(op, erow[q], ecol), vb);
-        if (rw.stored(erow[q])) st4(p.v0 + rw.grow(erow[q]) * F + ecol, x[q]);
+        if (rw.stored(erow[q])) stc4(p.v0 + rw.grow(erow[q]) * F + ecol, x[q]);
       }
       __syncthreads();
       build<F, false, true>(op1, p.e1, rw);
       __syncthreads();
       zero<F>(acc);
-      gemm<F>(acc, stream, op, slot, Segs{F, 1, 3}, 3 * F / Tile<F>::SR);
+      gemm<F, 3 * F>(acc, stream, op, slot, Segs{F, 1, 3});
       store_partials<F>(op, acc);
       const float4 hb = ld4(p.hub + ecol);
 #pragma unroll
       for (int q = 0; q < kEpiRows; ++q)
         if (rw.stored(erow[q]))
-          st4(p.hup + rw.grow(erow[q]) * F + ecol, add4(reduced<F>(op, erow[q], ecol), hb));
+          stc4(p.hup + rw.grow(erow[q]) * F + ecol, add4(reduced<F>(op, erow[q], ecol), hb));
       __syncthreads();
       build<F, true, true>(op, p.pv0, rw);
       build_celu(op1, x, rw);
@@ -453,15 +509,15 @@ struct Vrow {
 
     // ---- the L gated vertical levels ----------------------------------------
     for (int l = 0; l < L; ++l) {
-      float* outv_l = p.outv + l * lvF;
-      float* outm_l = p.outm + l * 2 * lvF;
+      cdt* outv_l = p.outv + l * lvF;
+      cdt* outm_l = p.outm + l * 2 * lvF;
 
       // conv_a (+ the skip product) and m = concat_elu(a)
       float4 a[kEpiRows];
       {
         float acc[Tile<F>::RT][Tile<F>::CT];
         zero<F>(acc);
-        gemm<F>(acc, stream, op, slot, Segs{2 * F, 0, 3}, 12 * F / Tile<F>::SR);
+        gemm<F, 12 * F>(acc, stream, op, slot, Segs{2 * F, 0, 3});
         if (l >= R) {
           // down level: skip = the vertical stack entry 2R-1-l of this row
           // (entry 0 is v0, entry k >= 1 the output of level k-1)
@@ -469,7 +525,7 @@ struct Vrow {
           __syncthreads();
           build<F, true, false>(op, s == 0 ? p.v0 : p.outv + (s - 1) * lvF, rw);
           __syncthreads();
-          gemm<F>(acc, stream, op, slot, Segs{2 * F, 0, 1}, 2 * F / Tile<F>::SR);
+          gemm<F, 2 * F>(acc, stream, op, slot, Segs{2 * F, 0, 1});
         }
         store_partials<F>(op, acc);
         const float4 ba = ld4(p.bav + l * F + ecol);
@@ -481,9 +537,9 @@ struct Vrow {
 #pragma unroll
       for (int q = 0; q < kEpiRows; ++q) {
         if (!rw.stored(erow[q])) continue;
-        float* dst = outm_l + rw.grow(erow[q]) * 2 * F + ecol;
-        st4(dst, make_float4(elu(a[q].x), elu(a[q].y), elu(a[q].z), elu(a[q].w)));
-        st4(dst + F, make_float4(elu(-a[q].x), elu(-a[q].y), elu(-a[q].z), elu(-a[q].w)));
+        cdt* dst = outm_l + rw.grow(erow[q]) * 2 * F + ecol;
+        stc4(dst, make_float4(elu(a[q].x), elu(a[q].y), elu(a[q].z), elu(a[q].w)));
+        stc4(dst + F, make_float4(elu(-a[q].x), elu(-a[q].y), elu(-a[q].z), elu(-a[q].w)));
       }
       build<2 * F, false, true>(op, p.pm + l * 2 * lvF, rw);
       __syncthreads();
@@ -492,27 +548,29 @@ struct Vrow {
       {
         float acc[Tile<2 * F>::RT][Tile<2 * F>::CT];
         zero<2 * F>(acc);
-        gemm<2 * F>(acc, stream, op, slot, Segs{2 * F, 0, 3}, 12 * F / Tile<2 * F>::SR);
+        gemm<2 * F, 12 * F>(acc, stream, op, slot, Segs{2 * F, 0, 3});
         store_partials<2 * F>(op, acc);
       }
       const float* bb = p.bbv + l * 2 * F;
       const float4 b_a = ld4(bb + ecol), b_g = ld4(bb + F + ecol);
-      // the carry in_cur, as this thread wrote it (v0 or the last level's outv)
-      const float* in_cur = l == 0 ? p.v0 : p.outv + (l - 1) * lvF;
-      float4 x[kEpiRows];
+      if constexpr (!kBF16) {
+        // the carry in_cur, as this thread wrote it (v0 or the last level's
+        // outv; kept in registers in bf16, where those are rounded)
+        const cdt* in_cur = l == 0 ? p.v0 : p.outv + (l - 1) * lvF;
 #pragma unroll
-      for (int q = 0; q < kEpiRows; ++q) x[q] = ld4(in_cur + rw.grow(erow[q]) * F + ecol);
+        for (int q = 0; q < kEpiRows; ++q) x[q] = ldc4(in_cur + rw.grow(erow[q]) * F + ecol);
+      }
 #pragma unroll
       for (int q = 0; q < kEpiRows; ++q) {
         const int r = erow[q];
-        const float* cp = p.cpv + ((size_t)l * n + min(rw.j0 + r / W, n - 1)) * 2 * F;
-        const float4 ra = add4(add4(reduced<2 * F>(op, r, ecol), b_a), ld4(cp + ecol));
-        const float4 rg = add4(add4(reduced<2 * F>(op, r, F + ecol), b_g), ld4(cp + F + ecol));
+        const cdt* cp = p.cpv + ((size_t)l * n + min(rw.j0 + r / W, n - 1)) * 2 * F;
+        const float4 ra = add4(add4(reduced<2 * F>(op, r, ecol), b_a), ldc4(cp + ecol));
+        const float4 rg = add4(add4(reduced<2 * F>(op, r, F + ecol), b_g), ldc4(cp + F + ecol));
         x[q].x += sigmoid(rg.x) * ra.x;
         x[q].y += sigmoid(rg.y) * ra.y;
         x[q].z += sigmoid(rg.z) * ra.z;
         x[q].w += sigmoid(rg.w) * ra.w;
-        if (rw.stored(r)) st4(outv_l + rw.grow(r) * F + ecol, x[q]);
+        if (rw.stored(r)) stc4(outv_l + rw.grow(r) * F + ecol, x[q]);
       }
       __syncthreads();
       if (l + 1 < L) {
@@ -531,17 +589,21 @@ __global__ void __launch_bounds__(kBlock, 1) vrow_kernel(const VrowArgs p) {
 
 }  // namespace
 
-// Launches one image row. Tensors are float32, contiguous, 16-byte aligned,
-// on the device of `stream`; shapes as in posterior_matching_torch/ops/
-// sampler_chain.py::vrow_plain with F a built width (PMK_DISPATCH_WIDTHS),
-// 1 <= W <= 32. Returns cudaGetLastError() after the launch.
+// Launches one image row. Tensors are contiguous, 16-byte aligned, on the
+// device of `stream`, cdt (bf16 in a bf16 build) or float32 as VrowArgs
+// says; shapes as in posterior_matching_torch/ops/sampler_chain.py::
+// vrow_plain with F a built width (PMK_DISPATCH_WIDTHS), 1 <= W <= 32.
+// `bf16` must be this build's (1 for the bf16 build). Returns
+// cudaGetLastError() after the launch.
 extern "C" int pm_sampler_vrow(
-    const float* e2, const float* e1, const float* pv0, const float* pv,
-    const float* pm, const float* cpv, const float* viw, const float* vib,
-    const float* huw, const float* hub, const float* wav, const float* bav,
-    const float* wbv, const float* bbv, const float* waux, float* outv,
-    float* outm, float* v0, float* hup, int L, int W, int n, int filters, void* stream) {
-  if (W < 1 || W > 32 || n < 1 || L < 2 || L % 2) return (int)cudaErrorInvalidValue;
+    const cdt* e2, const cdt* e1, const cdt* pv0, const cdt* pv,
+    const cdt* pm, const cdt* cpv, const cdt* viw, const float* vib,
+    const cdt* huw, const float* hub, const cdt* wav, const float* bav,
+    const cdt* wbv, const float* bbv, const cdt* waux, cdt* outv,
+    cdt* outm, cdt* v0, cdt* hup, int L, int W, int n, int filters, int bf16,
+    void* stream) {
+  if (W < 1 || W > 32 || n < 1 || L < 2 || L % 2 || bf16 != (int)kBF16)
+    return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {e2,  e1,  pv0, pv,   pm,   cpv,  viw, vib, huw, hub,
                         wav, bav, wbv, bbv, waux, outv, outm, v0,  hup};
   for (const void* q : ptrs)

@@ -24,8 +24,9 @@ in turns, and prints one line each:
 Only ``kernel`` and the ring variant compute the right values; both are held
 against the plain version. ``--other NAME=DIR`` also times the kernel source
 in DIR (another version of it with the same entry point, which takes F
-after the shape ints, e.g. a parent commit's; its ``sampler_common.cuh``
-beside it) as NAME, in the same turns.
+and the dtype int after the shape ints, and lpg after them in the row
+kernel, e.g. a parent commit's; its ``sampler_common.cuh`` beside it) as
+NAME, in the same turns. Every build is the float32 one.
 
 Usage: ``python3 -m posterior_matching_torch.ops.row_breakdown [--kernel
 row|vrow] [--other parent=DIR] [--out DIR]`` (sources, libraries and
@@ -47,9 +48,8 @@ from posterior_matching_torch.ops import _build, sampler_chain as sc
 from posterior_matching_torch.ops.profiling import time_ms
 
 HEADER = "sampler_common.cuh"
-# The bulk copy in sampler_common.cuh, and a stage's arming for its bytes
-# (the same line in both kernels).
-_ARM = ("    mbar_expect_tx(bar, kStage * sizeof(float));\n", "    mbar_arrive(bar);\n")
+# The bulk copy in sampler_common.cuh; a stage's arming for its bytes is
+# each kernel's "arm".
 _BULK = """  asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\\n" ::"r"(dst),
@@ -65,6 +65,9 @@ KERNELS = {
     "row": {
         "source": "sampler_row.cu",
         "fma": ("for (int r = 0; r < kGroupRows; ++r) {", "for (int r = 0; r < 0; ++r) {"),
+        "arm": (("    mbar_expect_tx(bar, count * sizeof(cdt));\n", "    mbar_arrive(bar);\n"),
+                ("        mbar_expect_tx(bar, rows * NC * sizeof(cdt));\n",
+                 "        mbar_arrive(bar);\n")),
         "no_ring": (("    if (tid == kConsumers) produce(p, ring, per_pixel, W * per_pixel);\n",
                      ""),
                     ("    mbar_wait(ring.full_bar(next), (next / kStages) & 1);\n", ""),
@@ -75,13 +78,15 @@ KERNELS = {
     "vrow": {
         "source": "sampler_vrow.cu",
         "fma": ("for (int k4 = 0; k4 < kWarpK; k4 += 4) {", "for (int k4 = 0; k4 < 0; k4 += 4) {"),
+        "arm": (("      mbar_expect_tx(bar, s.count * sizeof(cdt));\n", "      mbar_arrive(bar);\n"),),
         "no_ring": (("    mbar_wait(smem_u32(full + next % kStages), (next / kStages) & 1);\n", ""),
                     ("      if (atomicAdd(done + next % kStages, 1) == kWarps - 1) {",
                      "      if (false) {"),
                     ("    for (int g = 0; g < kStages; ++g) stream.issue(g);\n", "")),
         "ring": ("ring_6x16k", (("int kStage = 64 * F;", "int kStage = 32 * F;"),
                                 ("constexpr int kStages = 3;", "constexpr int kStages = 6;"),
-                                ("constexpr int kWarpK = 16;", "constexpr int kWarpK = 8;"))),
+                                ("constexpr int kWarpK = 16 * kCdtPerFloat;",
+                                 "constexpr int kWarpK = 8 * kCdtPerFloat;"))),
     },
 }
 REPS = 10  # launches a timing
@@ -108,9 +113,9 @@ def variants(src: str, header: str, kernel: str = "row") -> Dict[str, Tuple[str,
     ring_name, ring_subs = k["ring"]
     return {
         "kernel": (src, header),
-        "no_copy": (_sub(src, *_ARM), no_copy_h),
+        "no_copy": (_subs(src, k["arm"]), no_copy_h),
         "no_fma": (no_fma, header),
-        "skeleton": (_sub(no_fma, *_ARM), no_copy_h),
+        "skeleton": (_subs(no_fma, k["arm"]), no_copy_h),
         "no_ring": (_subs(no_fma, k["no_ring"]), header),
         ring_name: (_subs(src, ring_subs), header),
     }
@@ -118,7 +123,7 @@ def variants(src: str, header: str, kernel: str = "row") -> Dict[str, Tuple[str,
 
 def _build_all(kernel: str, sources: Dict[str, Path], out: Path) -> Dict[str, ctypes.CDLL]:
     stem = KERNELS[kernel]["source"].removesuffix(".cu")
-    nptr, nint = (20, 5) if kernel == "row" else (19, 4)
+    nptr, nint = (20, 7) if kernel == "row" else (19, 5)
     procs = {}
     for name, path in sources.items():
         lib = out / f"lib{stem}_{name}.so"
@@ -166,7 +171,8 @@ def _row_case(dev, gen):
     def launch(lib):
         return lib.pm_sampler_row(*[t.data_ptr() for t in ins], outh.data_ptr(),
                                   outm.data_ptr(), outs.data_ptr(), outl.data_ptr(),
-                                  n_lvl, wid, n, k, f, torch.cuda.current_stream().cuda_stream)
+                                  n_lvl, wid, n, k, f, 0, 1,
+                                  torch.cuda.current_stream().cuda_stream)
 
     want = sc.row_plain(*ins, with_logits=True)
 
@@ -196,7 +202,7 @@ def _vrow_case(dev, gen):
             torch.empty_like(ins[1]))
 
     def launch(lib):
-        return lib.pm_sampler_vrow(*[t.data_ptr() for t in (*ins, *outs)], n_lvl, wid, n, f,
+        return lib.pm_sampler_vrow(*[t.data_ptr() for t in (*ins, *outs)], n_lvl, wid, n, f, 0,
                                    torch.cuda.current_stream().cuda_stream)
 
     want = sc.vrow_plain(*ins)

@@ -81,7 +81,10 @@ class ImputationCallback(Callback):
     images of ``dataset``'s first batch, ``num_samples`` each through
     :func:`~posterior_matching_torch.models.pm_vqvae.pm_vqvae_impute`, at
     each validation (``train_pm_vqvae.py:52-85``). The mask and the samples
-    are drawn from a seed derived from (run seed, step)."""
+    are drawn from a seed derived from (run seed, step); the sampler is
+    ``pm_vqvae_impute``'s choice (``impute_sampler``), as JAX's callback
+    (``train_pm_vqvae.py:70``) takes it: ``PM_TPU_SAMPLER=rowkernel`` on the
+    GPU samples with the bf16 row kernels (``PM_TPU_SAMPLER_DTYPE``)."""
 
     def __init__(self, trainer: Trainer, dataset, mask_fn, num_examples: int = 3,
                  num_samples: int = 5):

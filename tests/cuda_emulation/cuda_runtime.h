@@ -91,6 +91,7 @@ inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
 inline void __syncwarp() { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
 inline void emu_consumer_sync() { g_consumer_bar->arrive_and_wait(); }
 inline float __ldg(const float* p) { return *p; }
+inline uint16_t __ldg(const uint16_t* p) { return *p; }
 inline float4 __ldg(const float4* p) { return *p; }
 inline uint4 __ldg(const uint4* p) { return *p; }
 inline uint2 __ldg(const uint2* p) { return *p; }
@@ -161,7 +162,7 @@ inline void emu_expect_tx(uint32_t bar, uint32_t bytes) {
   b.pend -= 1;
   emu_flip_if_done(b);
 }
-inline void emu_bulk(uint32_t dst, const float* src, uint32_t bytes, uint32_t bar) {
+inline void emu_bulk(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
   std::memcpy(g_smem_base + dst, src, bytes);
   std::lock_guard<std::mutex> g(g_bar_mu);
   EmuBar& b = emu_bar(bar);

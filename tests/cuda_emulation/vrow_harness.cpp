@@ -1,18 +1,20 @@
 // Runs the emulated vertical-stack kernel (sampler_vrow_emulated.cpp, the
 // kernel source without its entry point, against the emulated
 // sampler_common.cuh) over every block of a launch, each block as kBlock
-// std::threads. Entry point as pm_sampler_vrow (F 64 or 128), without the
-// stream.
+// std::threads. Entry point as pm_sampler_vrow (F 64 or 128; the build's
+// compute dtype, bf16 where PM_CORE_BF16 = 1), without the stream.
 #include "sampler_vrow_emulated.cpp"
 
 EMU_GLOBALS(smem)
 
+using pmk::cdt;
+
 extern "C" int emu_sampler_vrow(
-    const float* e2, const float* e1, const float* pv0, const float* pv,
-    const float* pm, const float* cpv, const float* viw, const float* vib,
-    const float* huw, const float* hub, const float* wav, const float* bav,
-    const float* wbv, const float* bbv, const float* waux, float* outv,
-    float* outm, float* v0, float* hup, int L, int W, int n, int F) {
+    const cdt* e2, const cdt* e1, const cdt* pv0, const cdt* pv,
+    const cdt* pm, const cdt* cpv, const cdt* viw, const float* vib,
+    const cdt* huw, const float* hub, const cdt* wav, const float* bav,
+    const cdt* wbv, const float* bbv, const cdt* waux, cdt* outv,
+    cdt* outm, cdt* v0, cdt* hup, int L, int W, int n, int F) {
   if (W < 1 || W > 32 || n < 1 || L < 2 || L % 2 || (F != 64 && F != 128)) return 1;
   const int ts = samples_per_block(W);
   const VrowArgs p{e2,  e1,  pv0, pv,   pm,   cpv,  viw, vib, huw, hub, wav,

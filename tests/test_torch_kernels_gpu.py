@@ -45,11 +45,17 @@ PM-VQVAE's ``compute_dtype`` bfloat16): the stream, the pair and the
 segment up and down at both widths against the plain bf16 version through
 autograd (``GATED_BF16_TOL``), relaunched bit for bit and counted by their
 own wrappers, refusing a float32 geometry, and a small bf16 PM-VQVAE step
-per chain mode against the CPU.
+per chain mode against the CPU. The sampler kernels' bf16 builds (JAX's
+``PM_TPU_SAMPLER=rowkernel`` sampler): vrow and row at both widths, both
+logits chunks and each rounding cadence, on a seeded model's row-1 state,
+against the plain bf16 versions with ``sampler_chain.bf16_gate_ok``,
+relaunched bit for bit and counted by their own wrappers; a build refusing
+the other dtype; a bf16 request launching only the bf16 builds.
 """
 import pytest
 import torch
 
+from posterior_matching_torch.models.pixelcnn import PixelCNN
 from posterior_matching_torch.ops import block_chain as bc
 from posterior_matching_torch.ops import decoder_chain as dc
 from posterior_matching_torch.ops import gated_chain as gc
@@ -1327,3 +1333,69 @@ def test_pm_vqvae_bf16_step_per_chain_mode_matches_cpu(dev, chain_segment, launc
     assert abs(lg - lc) <= 1e-2 * abs(lc)
     for a, w_ in zip(gg, gcpu):
         assert (a - w_).abs().max().item() <= GATED_BF16_TOL * max(1.0, w_.abs().max().item())
+
+
+def _bf16_sampler_inputs(dev, f, n_lvl, wid, n, k, lpg, seed=0):
+    """Row 1's bf16 kernel arguments for a seeded PixelCNN on ``dev``."""
+    torch.manual_seed(seed)
+    pcnn = PixelCNN(num_indices=k, image_shape=(2, wid), dropout=0.0, num_resnet=n_lvl // 2,
+                    num_filters=f, conditional_dim=32).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cond = torch.randn(n, 32, generator=gen, device=dev)
+    return sc.row1_inputs(pcnn, cond, n, gen, "bfloat16", lpg)
+
+
+# The flagship's depth (L 24, W 16) with a ragged last block of each kernel,
+# a 256-column chunk at L 4, three 128-column chunks at lpg 3; at 64 filters
+# digits16's row (L 12, W 4, K 128: half-stage chunks and h_init_left) and
+# 128-column chunks at lpg 2.
+@pytest.mark.parametrize("f,n_lvl,wid,n,k,lpg", [
+    pytest.param(*c, id="-".join(map(str, c)))
+    for c in ((128, 24, 16, 13, 512, 4), (128, 4, 7, 13, 256, 4), (128, 6, 3, 9, 384, 3),
+              (64, 12, 4, 13, 128, 4), (64, 4, 7, 16, 384, 2))
+])
+def test_bf16_sampler_kernels_match_plain(dev, f, n_lvl, wid, n, k, lpg):
+    vargs, rargs = _bf16_sampler_inputs(dev, f, n_lvl, wid, n, k, lpg)
+    before = (sc.vrow.launches, sc.row.launches, sc.vrow_bf16.launches, sc.row_bf16.launches)
+    v1, v2 = sc.vrow_bf16(*vargs), sc.vrow_bf16(*vargs)
+    r1 = sc.row_bf16(*rargs, with_logits=True, lpg=lpg)
+    r2 = sc.row_bf16(*rargs, with_logits=True, lpg=lpg)
+    torch.cuda.synchronize()
+    assert (sc.vrow.launches, sc.row.launches, sc.vrow_bf16.launches,
+            sc.row_bf16.launches) == (*before[:2], before[2] + 2, before[3] + 2)
+    assert all(t.dtype == torch.bfloat16 for t in (*v1, *r1[:2]))
+    for a, b in zip((*v1, *r1), (*v2, *r2)):
+        assert torch.equal(a, b)
+    report = sc.vrow_bf16_report(v1, sc.vrow_plain(*vargs, compute_dtype="bfloat16"))
+    assert sc.bf16_gate_ok(report), report
+    want = sc.row_plain(*rargs, with_logits=True, compute_dtype="bfloat16", lpg=lpg)
+    report = sc.row_bf16_report(r1, want, rargs[10], lpg)
+    assert sc.bf16_gate_ok(report), report
+
+
+def test_bf16_sampler_builds_refuse_the_other_dtype(dev):
+    # the dtype int is checked before any pointer: a float32 call into a
+    # bf16 build (and the reverse) is cudaErrorInvalidValue
+    for name, bf16 in (("sampler_vrow_bf16", 0), ("sampler_vrow", 1)):
+        lib = sc._load(name, "pm_sampler_vrow", 19, 5)
+        assert lib.pm_sampler_vrow(*[None] * 19, 4, 16, 8, 128, bf16, None) == 1
+    for name, bf16 in (("sampler_row_bf16", 0), ("sampler_row", 1)):
+        lib = sc._load(name, "pm_sampler_row", 20, 7)
+        assert lib.pm_sampler_row(*[None] * 20, 4, 16, 8, 512, 128, bf16, 4, None) == 1
+    vargs, _ = _bf16_sampler_inputs(dev, 64, 2, 4, 3, 128, 2)
+    with pytest.raises(ValueError, match="must be torch.float32"):
+        sc.vrow(*vargs)
+
+
+def test_bf16_request_launches_only_the_bf16_builds(dev):
+    torch.manual_seed(0)
+    pcnn = PixelCNN(num_indices=128, image_shape=(4, 4), dropout=0.0, num_resnet=2,
+                    num_filters=64, conditional_dim=32).to(dev)
+    cond = torch.randn(3, 32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    before = (sc.vrow.launches, sc.row.launches, sc.vrow_bf16.launches, sc.row_bf16.launches)
+    out = sc.pixelcnn_sample(pcnn, 2, cond, generator=gen, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert (sc.vrow.launches, sc.row.launches, sc.vrow_bf16.launches,
+            sc.row_bf16.launches) == (*before[:2], before[2] + 4, before[3] + 4)
+    assert out.shape == (2, 3, 4, 4) and 0 <= int(out.min()) and int(out.max()) < 128

@@ -40,8 +40,8 @@ def test_variant_takes_its_part_away(name, gone, kept):
     ("skeleton", ["k4 < kWarpK", "mbar_expect_tx(bar"], ["stream.issue(g);"]),
     ("no_ring", ["stream.issue(g);", "== kWarps - 1", "mbar_wait(smem_u32(full"],
      ["__syncthreads();"]),
-    ("ring_6x16k", ["kStage = 64 * F;", "kStages = 3;", "kWarpK = 16;"],
-     ["kStage = 32 * F;", "kStages = 6;", "kWarpK = 8;"]),
+    ("ring_6x16k", ["kStage = 64 * F;", "kStages = 3;", "kWarpK = 16 *"],
+     ["kStage = 32 * F;", "kStages = 6;", "kWarpK = 8 *"]),
 ])
 def test_vrow_variant_takes_its_part_away(name, gone, kept):
     text = "".join(row_breakdown.variants(VSOURCE, HEADER, "vrow")[name])

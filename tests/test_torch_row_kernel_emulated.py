@@ -11,9 +11,13 @@ warp, the slots' parities across GEMM, level and pixel boundaries) without a
 GPU; the card's timing, memory model and PTX are left to the GPU tests.
 Both built widths (128 filters and digits16's 64, whose gathers and
 epilogues use half the consumer threads) and both logits chunks (256
-columns, or 128 where K is an odd multiple of 128) run. Tolerance as
-there: samples equal, the rest 1e-4 of the tensor's scale.
-Skips where no C++20 compiler is found.
+columns, or 128 where K is an odd multiple of 128) run, in both builds.
+The float32 build's tolerance is the card's: samples equal, the rest 1e-4
+of the tensor's scale. The bf16 build (``-DPM_CORE_BF16=1``: twice the
+rows a stage, part stages where a matrix is not whole stages, the chain
+rounded every ``lpg`` levels) is held to the bf16 plain version with the
+card's gate (``sampler_chain.row_bf16_report``). Each build compiles once
+for the module. Skips where no C++20 compiler is found.
 """
 import ctypes
 import re
@@ -24,6 +28,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from posterior_matching_torch.models.pixelcnn import PixelCNN
 from posterior_matching_torch.ops import _build, sampler_chain as sc
 
 EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
@@ -88,9 +93,11 @@ def emulated_source(src: str, entry: str = "pm_sampler_row") -> str:
                        "using namespace pmk;\nalignas(64) float smem[232448 / 4];", 1)
 
 
-def build_emulation(out: Path, kernel: str, entry: str, harness: str) -> Path:
+def build_emulation(out: Path, kernel: str, entry: str, harness: str,
+                    defines=()) -> Path:
     """Compiles ``harness`` (in tests/cuda_emulation) against the emulated
-    ``kernel`` source and header in ``out``; skips without a C++20
+    ``kernel`` source and header in ``out``, with the preprocessor
+    ``defines`` (e.g. ``-DPM_CORE_BF16=1``); skips without a C++20
     compiler. Returns the shared library."""
     cxx = shutil.which("g++")
     if cxx is None:
@@ -103,7 +110,7 @@ def build_emulation(out: Path, kernel: str, entry: str, harness: str) -> Path:
         emulated_source((_build.CSRC / kernel).read_text(), entry))
     lib = out / f"lib{stem}_emulated.so"
     proc = subprocess.run(
-        [cxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w",
+        [cxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", *defines,
          "-I", str(out), "-I", str(EMULATION),
          "-o", str(lib), str(EMULATION / harness)],
         capture_output=True, text=True,
@@ -114,14 +121,23 @@ def build_emulation(out: Path, kernel: str, entry: str, harness: str) -> Path:
     return lib
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
+def _load_row(tmp_path_factory, defines=()):
     lib = build_emulation(tmp_path_factory.mktemp("row_emulation"), "sampler_row.cu",
-                          "pm_sampler_row", "row_harness.cpp")
+                          "pm_sampler_row", "row_harness.cpp", defines)
     cdll = ctypes.CDLL(str(lib))
-    cdll.emu_sampler_row.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5
+    cdll.emu_sampler_row.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6
     cdll.emu_sampler_row.restype = ctypes.c_int
     return cdll
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    return _load_row(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def emu_bf16(tmp_path_factory):
+    return _load_row(tmp_path_factory, ("-DPM_CORE_BF16=1",))
 
 
 def _rand(gen, *shape, scale=1.0):
@@ -146,9 +162,62 @@ def _close(got, want):
       for c in ((12, 4, 13, 128), (2, 1, 3, 128), (4, 2, 5, 384), (4, 3, 8, 512))),
 ])
 def test_emulated_row_kernel_matches_plain(emu, F, n_lvl, wid, n, k):
+    args = _inputs(F, n_lvl, wid, n, k)
+    outh = torch.full_like(args[5], float("nan"))
+    outm = torch.full_like(args[6], float("nan"))
+    outs = torch.full((wid, n), -1, dtype=torch.int32)
+    outl = torch.full((wid, n, k), float("nan"))
+    assert emu.emu_sampler_row(
+        *[a.data_ptr() for a in args], outh.data_ptr(), outm.data_ptr(),
+        outs.data_ptr(), outl.data_ptr(), n_lvl, wid, n, k, F, 1) == 0
+    want = sc.row_plain(*args, with_logits=True)
+    torch.testing.assert_close(outs, want[2], rtol=0, atol=0)
+    for got, ref in zip((outh, outm, outl), (want[0], want[1], want[3])):
+        assert _close(got, ref)
+
+
+def model_inputs(F, n_lvl, wid, n, k, lpg, seed=0):
+    """Row 1's kernel arguments at bf16 for a seeded PixelCNN of these shapes
+    (the port's initialisation, a 16-wide condition), row 0 through the
+    plain version (``sampler_chain.row1_inputs``): the state a request's
+    kernels see, and the inputs of the card's gate (random tensors at unit
+    scale make one-ulp flips cascade through the plain version against
+    itself summed in float64 too)."""
+    torch.manual_seed(seed)
+    pcnn = PixelCNN(num_indices=k, image_shape=(2, wid), dropout=0.0,
+                    num_resnet=n_lvl // 2, num_filters=F, conditional_dim=16)
+    gen = torch.Generator().manual_seed(seed)
+    cond = torch.randn(n, 16, generator=gen)
+    return sc.row1_inputs(pcnn, cond, n, gen, "bfloat16", lpg)
+
+
+# bf16, one block each (the float32 cases above run the blocks' indexing):
+# at 128 filters a 256-column chunk (one stage of lw) at lpg 2, and three
+# 128-column chunks (each half a stage) at lpg 3; at 64 filters (h_init_left
+# half a stage) digits16's W = 4 and K = 128 (half-stage chunks) over two
+# groups of lpg 4, and two 256-column chunks at lpg 2.
+@pytest.mark.parametrize("F,n_lvl,wid,n,k,lpg", [
+    pytest.param(*c, id="-".join(map(str, c)))
+    for c in ((128, 4, 3, 5, 256, 2), (128, 6, 2, 7, 384, 3), (64, 8, 4, 8, 128, 4),
+              (64, 4, 2, 5, 512, 2))
+])
+def test_emulated_row_kernel_bf16_matches_plain(emu_bf16, F, n_lvl, wid, n, k, lpg):
+    args = model_inputs(F, n_lvl, wid, n, k, lpg)[1]
+    outh = torch.zeros_like(args[5])
+    outm = torch.zeros_like(args[6])
+    outs = torch.full((wid, n), -1, dtype=torch.int32)
+    outl = torch.full((wid, n, k), float("nan"))
+    assert emu_bf16.emu_sampler_row(
+        *[a.data_ptr() for a in args], outh.data_ptr(), outm.data_ptr(),
+        outs.data_ptr(), outl.data_ptr(), n_lvl, wid, n, k, F, lpg) == 0
+    want = sc.row_plain(*args, with_logits=True, compute_dtype="bfloat16", lpg=lpg)
+    report = sc.row_bf16_report((outh, outm, outs, outl), want, args[10], lpg)
+    assert sc.bf16_gate_ok(report), report
+
+
+def _inputs(F, n_lvl, wid, n, k, s=0.05):
     gen = torch.Generator().manual_seed(1000 * n_lvl + 100 * wid + n)
-    s = 0.05
-    args = (
+    return (
         _rand(gen, n_lvl, 12 * F, F, scale=s), _rand(gen, n_lvl, F, scale=s),
         _rand(gen, n_lvl, 8 * F, 2 * F, scale=s), _rand(gen, n_lvl, 2 * F, scale=s),
         _rand(gen, n_lvl, n, 2 * F),
@@ -158,17 +227,6 @@ def test_emulated_row_kernel_matches_plain(emu, F, n_lvl, wid, n, k):
         _rand(gen, k, F, scale=s), _rand(gen, F, k, scale=s), _rand(gen, k, scale=s),
         _rand(gen, 2 * F, F, scale=s), _rand(gen, F, scale=s),
     )
-    outh = torch.full_like(args[5], float("nan"))
-    outm = torch.full_like(args[6], float("nan"))
-    outs = torch.full((wid, n), -1, dtype=torch.int32)
-    outl = torch.full((wid, n, k), float("nan"))
-    assert emu.emu_sampler_row(
-        *[a.data_ptr() for a in args], outh.data_ptr(), outm.data_ptr(),
-        outs.data_ptr(), outl.data_ptr(), n_lvl, wid, n, k, F) == 0
-    want = sc.row_plain(*args, with_logits=True)
-    torch.testing.assert_close(outs, want[2], rtol=0, atol=0)
-    for got, ref in zip((outh, outm, outl), (want[0], want[1], want[3])):
-        assert _close(got, ref)
 
 
 def test_emulation_replaces_every_ptx_helper():
