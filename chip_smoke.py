@@ -12,8 +12,10 @@ PixelCNN kernels' 64-filter builds, then PM-VDVAE training and the image
 evals over ranks, then the PM-VDVAE in bf16 (the VDVAE chains' bf16
 builds) with ``flat_optimizer`` and ``remat``, then the PM-VQVAE in bf16
 (the gated chain's bf16 builds), then the samplers' bf16 builds with
-``PM_TPU_SAMPLER=rowkernel`` and the naive raster sampler, and checks
-them, in these phases:
+``PM_TPU_SAMPLER=rowkernel`` and the naive raster sampler, then the modules
+ported last (``use_ema=False``, ``packed_chain``, ``steps_per_call``,
+``device_resident_data``, the last mask generators), and checks them, in
+these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
 2. all thirteen kernels (``posterior_matching_torch/ops/csrc``; the pair
@@ -236,7 +238,19 @@ them, in these phases:
    PSNR of each; (d) the naive sampler on a toy PM-VQVAE with two
    hierarchies and the (5, 5) field, and on an unconditional PixelCNN of
    that topology: the card's codes equal the CPU's with the same noise;
-22. one JSON line of per-kernel numbers (the 64-filter forms as
+22. (a) ``train_vqvae --config.model.use_ema False`` (its codebook a
+   parameter that moves; the search's launches), ``train_pm_vqvae`` and
+   ``eval_pm_vqvae`` on it; (b) ``train_pm_vqvae`` packed (the default on
+   the card) and with ``--config.packed_chain False`` from one seed: the
+   stream builds only, no level packed or stacked when packed, the weights
+   within PACKED_TOL, launches a step and step ms of each, a packed run
+   resumed at step 2 bit for bit the straight one, again in bf16; (c)
+   ``steps_per_call`` 4 against 1 on ``train_pm_vqvae`` and ``train_pm_vae
+   pm_vae_gas`` bit for bit, with ``device_resident_data`` finite, steps/s;
+   (d) the Omniglot and CIFAR-10 mixtures, ``batch_level`` and
+   ``update_freq`` drawn on the card and held against the CPU by
+   distribution (:func:`options_phase`);
+23. one JSON line of per-kernel numbers (the 64-filter forms as
    ``<kernel>_f64``, their launches the digits16 pipeline's; the VDVAE and
    gated chains' bf16 forms as ``<kernel>_bf16``, their launches phases 19
    and 20's CLIs'; the samplers' bf16 forms as ``sampler_{vrow,row}_bf16``,
@@ -4818,6 +4832,317 @@ def sampler_bf16_phase(args, gen, model, celeb_a, work):
                    "shapes": shapes, "request": request, "eval": ev, "naive": naive}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: use_ema=False, packed_chain, steps_per_call, device_resident_data,
+# the last mask generators
+# ---------------------------------------------------------------------------
+
+OPTIONS_STEPS = 4          # steps of each stage-2 and PM-VAE run of phase 22
+PACKED_TOL = 1e-6          # packed vs canonical weights, of each tensor's scale
+MASK_DRAWS = 400           # batch_level / update_freq calls of (d)
+MASK_N = 2048              # masks a mixture draws on each device in (d)
+
+
+@contextlib.contextmanager
+def level_packing_counter():
+    """Counts the calls of ``pack_level`` and ``stack_levels`` from the
+    PixelCNN's chain while it is held: ``{"pack_level", "stack_levels"}``."""
+    from posterior_matching_torch.models import pixelcnn
+
+    seen = {"pack_level": 0, "stack_levels": 0}
+    kept = {name: getattr(pixelcnn, name) for name in seen}
+
+    def counting(name):
+        def call(*a, **kw):
+            seen[name] += 1
+            return kept[name](*a, **kw)
+        return call
+
+    for name in seen:
+        setattr(pixelcnn, name, counting(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in kept.items():
+            setattr(pixelcnn, name, fn)
+
+
+def options_cli(label, main, argv, cwd, data, counters):
+    """A training CLI in this process in ``cwd/label`` on ``data`` (every
+    kernel counter set to 0 just before, read just after; each step waited
+    for and timed; the PixelCNN's level packing counted), then one more
+    step profiled: its run directory, launches, spans, the logged
+    ``steps_per_sec`` and losses, and the profiled step's CUDA kernel
+    launches."""
+    os.makedirs(f"{cwd}/{label}")
+    for c in counters.values():
+        c.launches = 0
+    with cli_env(f"{cwd}/{label}", data), step_clock() as clock, \
+            level_packing_counter() as packing:
+        _, lines, wall = run_cli(label, main, argv)
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    (run_dir,) = glob.glob(f"{cwd}/{label}/runs/*")
+    windows = [ln for ln in lines if ln.startswith("[step ")]
+    losses = [line_value(ln, "loss") for ln in windows]
+    rate = [line_value(ln, "steps_per_sec") for ln in windows]
+    spans = clock["spans"]
+    prof = profile_step(clock["trainer"], clock["batch"], VQVAE_GROUPS)
+    out = {"run_dir": run_dir, "wall_s": wall, "launches": launched, "packing": dict(packing),
+           "steps": len(spans), "step_ms": [s * 1e3 for s in spans], "losses": losses,
+           "steps_per_sec_logged": rate,
+           "launches_per_step": None if prof is None else prof["kernel_launches"],
+           "idle_share": None if prof is None else prof["idle_share"]}
+    log(f"{label}: {len(spans)} steps, step ms {[round(s * 1e3, 2) for s in spans]}, logged "
+        f"steps/s {rate}, losses {losses}; kernels {launched}; pack_level / stack_levels "
+        f"calls {packing}; {out['launches_per_step']} CUDA kernel launches in a profiled "
+        f"step | {nvidia_smi_line()}")
+    check(all(np.isfinite(losses)) and losses, f"{label}: losses {losses}")
+    return out
+
+
+def arrays_apart(a_dir, b_dir, prefix="params/"):
+    """The worst difference of the ``prefix`` arrays of two run directories'
+    checkpoints, of each array's scale, and whether all are equal bit for
+    bit."""
+    a, b = checkpoint_arrays(a_dir), checkpoint_arrays(b_dir)
+    keys = sorted(k for k in a if k.startswith(prefix))
+    check(keys and set(keys) == {k for k in b if k.startswith(prefix)},
+          f"the checkpoints hold other {prefix} arrays")
+    worst = max(float(np.abs(a[k].astype(np.float64) - b[k]).max()
+                      / max(float(np.abs(b[k]).max()), 1e-30)) for k in keys)
+    return worst, all(np.array_equal(a[k], b[k]) for k in keys)
+
+
+def same_checkpoints(a_dir, b_dir, what):
+    """Every array of the two checkpoints equal bit for bit."""
+    a, b = checkpoint_arrays(a_dir), checkpoint_arrays(b_dir)
+    differ = sorted(k for k in a if k not in b or not np.array_equal(a[k], b[k]))
+    check(set(a) == set(b) and not differ, f"{what}: {len(differ)} arrays differ, "
+                                           f"{differ[:3]}")
+    log(f"{what}: {len(a)} arrays bit for bit equal")
+
+
+def mask_distribution_check(seed):
+    """(d): the Omniglot and CIFAR-10 mixtures drawn on the card and on the
+    CPU (MASK_N masks each): mean hidden share within 5 sigma of the
+    difference, each fixed half-image rectangle's share within 5 binomial
+    sigma of the other device's; ``batch_level`` on the card (MASK_DRAWS
+    batches of two extreme components at weights 0.3 / 0.7): every batch
+    one component, the share within 4 sigma of 0.3; ``update_freq``'s pool
+    on the card (3 canvases of 64 cropped whole): each canvas drawn within
+    4 sigma of 1/3, the pool's canvases the CPU's."""
+    from posterior_matching_torch import masking
+
+    out = {}
+    for name, dim in (("OmniglotMaskGenerator", 28), ("Cifar10MaskGenerator", 32)):
+        draws = {}
+        for dev in (DEVICE, "cpu"):
+            fn = masking.get_mask_generator(name, dev)
+            m = fn(torch.Generator(device=dev).manual_seed(seed), (MASK_N, dim, dim, 1))
+            draws[dev] = m[..., 0].cpu().numpy()
+        half = dim // 2
+        shares = {}
+        for dev, m in draws.items():
+            hidden = 1 - m.mean((1, 2))
+            rects = []
+            for y1, x1, y2, x2 in ((0, 0, dim, half), (0, 0, half, dim), (0, half, dim, dim),
+                                   (half, 0, dim, dim)):
+                r = np.ones((dim, dim), np.float32)
+                r[y1:y2, x1:x2] = 0
+                rects.append(float((m == r).all((1, 2)).mean()))
+            shares[dev] = (hidden, rects)
+        (hg, rg), (hc, rc) = shares[DEVICE], shares["cpu"]
+        sigma = np.sqrt(hg.var() / MASK_N + hc.var() / MASK_N)
+        check(abs(hg.mean() - hc.mean()) < 5 * sigma,
+              f"{name}: hidden share {hg.mean():.4f} on the card, {hc.mean():.4f} on the CPU")
+        for g, c in zip(rg, rc):
+            s = np.sqrt(0.1 * 0.9 / MASK_N * 2)
+            check(abs(g - c) < 5 * s, f"{name}: a half rectangle's share {g} vs {c}")
+        out[name] = {"hidden_card": float(hg.mean()), "hidden_cpu": float(hc.mean()),
+                     "halves_card": rg, "halves_cpu": rc}
+        log(f"{name}: hidden share {hg.mean():.4f} on the card, {hc.mean():.4f} on the CPU; "
+            f"half-rectangle shares {np.round(rg, 4).tolist()} vs {np.round(rc, 4).tolist()}")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    ones = lambda g, s: torch.ones(tuple(s), device=DEVICE)
+    zeros = lambda g, s: torch.zeros(tuple(s), device=DEVICE)
+    means = torch.stack([masking.mixture_mask(gen, (16, 4, 4, 1), [ones, zeros], [0.3, 0.7],
+                                              batch_level=True).mean()
+                         for _ in range(MASK_DRAWS)]).cpu().numpy()
+    check(set(np.unique(means)) <= {0.0, 1.0}, "batch_level mixed components in a batch")
+    sigma = np.sqrt(0.3 * 0.7 / MASK_DRAWS)
+    check(abs(means.mean() - 0.3) < 4 * sigma, f"batch_level's share {means.mean()}")
+    size, pool = 64, 3
+    fn = masking.pattern_mask(DEVICE, canvas_size=size, update_freq=1.0, num_canvases=pool)
+    canvases = [torch.from_numpy(masking.pattern_canvas(size, 0.06, 0.25, i)[0]).to(DEVICE)
+                for i in range(pool)]
+    check(all(torch.equal(fn.keywords["canvas"][i], canvases[i]) for i in range(pool)),
+          "the card's pool holds other canvases than the CPU builds")
+    picks = torch.stack([fn(gen, (1, size, size, 1))[0, ..., 0] for _ in range(MASK_DRAWS)])
+    hits = torch.stack([(picks == 1 - c.float()).all(-1).all(-1) for c in canvases], 1)
+    check(bool((hits.sum(1) == 1).all()), "an update_freq crop is no canvas of the pool")
+    counts = hits.sum(0).cpu().numpy() / MASK_DRAWS
+    sigma = np.sqrt((1 / pool) * (1 - 1 / pool) / MASK_DRAWS)
+    check(bool(np.all(np.abs(counts - 1 / pool) < 4 * sigma)), f"update_freq's draws {counts}")
+    log(f"batch_level: {MASK_DRAWS} batches, share {means.mean():.4f} (weight 0.3); "
+        f"update_freq: canvas shares {np.round(counts, 4).tolist()} of {pool}")
+    out.update(batch_level_share=float(means.mean()), update_freq_shares=counts.tolist())
+    return out
+
+
+def options_phase(args, celeb_a, work):
+    """Phase 22, the modules ported last, on phase 12's CelebA files and
+    stage-1 run, each CLI with every kernel counter set to 0 just before it
+    and read just after:
+
+    (a) ``train_vqvae --config vqvae_celeb_a --config.model.use_ema False``
+        (4 steps): the codebook search's launches, the codebook a parameter
+        that moved; ``train_pm_vqvae`` 2 steps on that run, ``eval_pm_vqvae``
+        on 32 images, 1 trial;
+    (b) ``train_pm_vqvae --config pm_vqvae_celeb_a`` 4 steps packed (the
+        default on the card) and with ``--config.packed_chain False`` from
+        one seed: the stream builds only, no level packed or stacked in the
+        packed run, the weights within PACKED_TOL of scale, each run's CUDA
+        kernel launches a step and step ms; a packed run to step 2 resumed
+        to 4 equals the straight one bit for bit; packed and not again in
+        bf16;
+    (c) ``steps_per_call`` 4 against 1 on that CLI and on ``train_pm_vae
+        --config pm_vae_gas``, bit for bit; with ``device_resident_data``
+        too, finite losses; the logged steps/s;
+    (d) :func:`mask_distribution_check`."""
+    from posterior_matching_torch import (
+        config,
+        eval_pm_vqvae,
+        train_pm_vae,
+        train_pm_vqvae,
+        train_vqvae,
+    )
+    from posterior_matching_torch.convert import init_vqvae_tree
+
+    t0 = time.perf_counter()
+    data, vqvae_dir = f"{work}/celeb_a/data", celeb_a["train_vqvae"]["run_dir"]
+    counters = {**all_kernel_counters(), **bf16_counters(), **gated_bf16_counters()}
+    os.makedirs(f"{work}/options/no_data")   # the PM-VAE runs read the stand-in
+    stage1 = config.CONFIGS["vqvae_celeb_a"]()
+    stage2 = config.CONFIGS["pm_vqvae_celeb_a"]()
+    n, rows = stage2["pixel_cnn"]["num_resnet"], stage2["pixel_cnn"]["image_shape"][0]
+    n_val1 = 64 // stage1["data"]["val_batch_size"]
+    n_val2 = 64 // stage2["data"]["val_batch_size"]
+    steps, seed = OPTIONS_STEPS, str(args.seed)
+    out = {}
+
+    # ---- (a) use_ema=False ---------------------------------------------------
+    cwd = f"{work}/options"
+    common = ["--config.seed", seed]
+    a = options_cli("train_vqvae use_ema=False", train_vqvae.main, [
+        "--config", "vqvae_celeb_a", "--config.steps", str(steps), "--config.validation_freq",
+        str(steps), "--config.model.use_ema", "False", *common], cwd, data, counters)
+    check(a["launches"] == {"vq_search": steps + n_val1 + 1},
+          f"train_vqvae use_ema=False launched {a['launches']}")
+    ts = checkpoint_arrays(a["run_dir"])
+    start = init_vqvae_tree({**stage1["model"], "use_ema": False}, args.seed)[0]
+    moved = float(np.abs(ts["params/vq/embeddings"] - start["vq"]["embeddings"]).max())
+    check(not any(k.startswith("state/") for k in ts) and moved > 0,
+          f"the codebook is not a parameter that moved ({moved})")
+    a2 = options_cli("train_pm_vqvae on the use_ema=False run", train_pm_vqvae.main, [
+        "--config", "pm_vqvae_celeb_a", "--config.steps", "2", "--config.validation_freq", "2",
+        "--config.vqvae_dir", a["run_dir"], *common], cwd, data, counters)
+    check(a2["launches"] == {"vq_search": 2 + n_val2, "gated_stream_fwd": 2 * (2 + n_val2),
+                             "gated_stream_bwd": 2 * 2, "sampler_vrow": rows,
+                             "sampler_row": rows}, f"launched {a2['launches']}")
+    for c in counters.values():
+        c.launches = 0
+    with cli_env(cwd, data):
+        run_cli("eval_pm_vqvae on the use_ema=False pipeline", eval_pm_vqvae.main, [
+            "--run_dir", a2["run_dir"], "--dataset", "celeb_a", "--mask_generator",
+            "CelebAMaskGenerator", "--num_instances", str(BATCH), "--batch_size", str(BATCH),
+            "--num_samples", "2", "--num_trials", "1"])
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    check(launched == {"sampler_vrow": rows, "sampler_row": rows},
+          f"eval_pm_vqvae launched {launched}")
+    res = imputation_results_check(a2["run_dir"], BATCH, 2, "eval_pm_vqvae use_ema=False")
+    out["use_ema_false"] = {"train_vqvae": a, "codebook_moved": moved, "train_pm_vqvae": a2,
+                            "eval_psnr": res["psnr_mean"]}
+    log(f"(a) use_ema=False: the codebook moved by up to {moved:.3e}; the pipeline's PSNR "
+        f"{res['psnr_mean']:.3f} on {BATCH} images")
+
+    # ---- (b) packed_chain ------------------------------------------------------
+    # one validation, at the last step, in every 4-step run
+    base = ["--config", "pm_vqvae_celeb_a", "--config.vqvae_dir", vqvae_dir, *common]
+    per_step = {"vq_search": steps + n_val2, "gated_stream_fwd": 2 * (steps + n_val2),
+                "gated_stream_bwd": 2 * steps, "sampler_vrow": rows, "sampler_row": rows}
+    run = lambda label, extra, dtype=(): options_cli(
+        label, train_pm_vqvae.main, [*base, "--config.steps", str(steps),
+                                     "--config.validation_freq", str(steps), *dtype, *extra],
+        cwd, data, counters)
+    b = {"packed": run("train_pm_vqvae packed", []),
+         "unpacked": run("train_pm_vqvae packed_chain=False",
+                         ["--config.packed_chain", "False"])}
+    for label, r in b.items():
+        check(r["launches"] == per_step, f"{label} launched {r['launches']}, not {per_step}")
+    check(b["packed"]["packing"] == {"pack_level": 0, "stack_levels": 0}
+          and b["unpacked"]["packing"]["pack_level"] > 0,
+          f"level packing: {b['packed']['packing']} packed, {b['unpacked']['packing']} not")
+    worst, bits = arrays_apart(b["packed"]["run_dir"], b["unpacked"]["run_dir"])
+    check(worst <= PACKED_TOL, f"packed vs canonical weights {worst:.3e} of scale apart")
+    b["weights_apart"], b["weights_bit_equal"] = worst, bits
+    log(f"(b) packed vs canonical after {steps} steps: weights {worst:.3e} of scale apart "
+        f"({'bit for bit equal' if bits else 'not bit for bit'}); launches a profiled step "
+        f"{b['packed']['launches_per_step']} packed, {b['unpacked']['launches_per_step']} not")
+    short = options_cli("train_pm_vqvae packed to step 2", train_pm_vqvae.main, [
+        *base, "--config.steps", "2", "--config.validation_freq", "2"], cwd, data, counters)
+    resumed = options_cli("train_pm_vqvae packed resumed to step 4", train_pm_vqvae.main, [
+        "--config", "pm_vqvae_celeb_a", "--config.vqvae_dir", vqvae_dir, "--config.steps",
+        str(steps), "--config.validation_freq", str(steps), "--resume_dir", short["run_dir"]],
+        cwd, data, counters)
+    same_checkpoints(b["packed"]["run_dir"], resumed["run_dir"],
+                     "(b) the packed run resumed at step 2 against the straight one")
+    b["resumed"] = resumed
+    bf16 = ["--config.compute_dtype", "bfloat16"]
+    per_step16 = {("gated_stream_fwd_bf16" if k == "gated_stream_fwd" else
+                   "gated_stream_bwd_bf16" if k == "gated_stream_bwd" else k): v
+                  for k, v in per_step.items()}
+    b16 = {"packed": run("train_pm_vqvae bf16 packed", [], bf16),
+           "unpacked": run("train_pm_vqvae bf16 packed_chain=False",
+                           ["--config.packed_chain", "False"], bf16)}
+    for label, r in b16.items():
+        check(r["launches"] == per_step16, f"bf16 {label} launched {r['launches']}")
+    worst16, bits16 = arrays_apart(b16["packed"]["run_dir"], b16["unpacked"]["run_dir"])
+    check(worst16 <= PACKED_TOL, f"bf16 packed vs canonical: {worst16:.3e} of scale apart")
+    b16["weights_apart"], b16["weights_bit_equal"] = worst16, bits16
+    log(f"(b) bf16 packed vs canonical: weights {worst16:.3e} of scale apart "
+        f"({'bit for bit equal' if bits16 else 'not bit for bit'})")
+    out["packed_chain"], out["packed_chain_bf16"] = b, b16
+
+    # ---- (c) steps_per_call, device_resident_data ------------------------------
+    spc = ["--config.steps_per_call", str(steps)]
+    c = {"pm_vqvae": {"spc1": b["packed"]}}
+    c["pm_vqvae"]["spc4"] = run("train_pm_vqvae steps_per_call=4", spc)
+    c["pm_vqvae"]["resident"] = run("train_pm_vqvae steps_per_call=4 device_resident_data",
+                                    [*spc, "--config.device_resident_data", "True"])
+    same_checkpoints(b["packed"]["run_dir"], c["pm_vqvae"]["spc4"]["run_dir"],
+                     "(c) train_pm_vqvae steps_per_call=4 against 1")
+    gas = ["--config", "pm_vae_gas", "--config.steps", str(steps), "--config.validation_freq",
+           str(steps), *common]
+    c["pm_vae_gas"] = {label: options_cli(f"train_pm_vae gas {label}", train_pm_vae.main,
+                                          [*gas, *extra], f"{cwd}/gas", f"{cwd}/no_data",
+                                          counters)
+                       for label, extra in (("spc1", []), ("spc4", spc), ("resident", [
+                           *spc, "--config.device_resident_data", "True"]))}
+    same_checkpoints(c["pm_vae_gas"]["spc1"]["run_dir"], c["pm_vae_gas"]["spc4"]["run_dir"],
+                     "(c) train_pm_vae gas steps_per_call=4 against 1")
+    for name, runs in c.items():
+        log(f"(c) {name}: logged steps/s " + ", ".join(
+            f"{k} {v['steps_per_sec_logged']}" for k, v in runs.items())
+            + f" | {nvidia_smi_line()}")
+    out["steps_per_call"] = c
+
+    # ---- (d) the mask generators -------------------------------------------------
+    out["masks"] = mask_distribution_check(args.seed)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5032,7 +5357,20 @@ def main() -> int:
         sampler_bf16_lines, sampler_bf16 = sampler_bf16_phase(args, gen, model, celeb_a, work)
         log(f"phase 21: {sampler_bf16['seconds']:.1f} s | {smi}")
 
-    # ---- 22. results -------------------------------------------------------
+        # ---- 22. use_ema=False, packed_chain, steps_per_call, the masks ------
+        stamp("use_ema=False, packed_chain, steps_per_call, device_resident_data, masks")
+        options = options_phase(args, celeb_a, work)
+        log(f"phase 22: {options['seconds']:.1f} s | {smi}")
+        new_paths = {"train_vqvae use_ema=False": options["use_ema_false"]["train_vqvae"],
+                     "train_pm_vqvae packed": options["packed_chain"]["packed"],
+                     "train_pm_vqvae steps_per_call=4":
+                         options["steps_per_call"]["pm_vqvae"]["spc4"]}
+        for line in (vq_line, *chain_lines):
+            if line["name"] in ("vq_search", "gated_stream_fwd", "gated_stream_bwd"):
+                line["launches_new_paths"] = {k: r["launches"].get(line["name"], 0)
+                                              for k, r in new_paths.items()}
+
+    # ---- 23. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
@@ -5068,14 +5406,14 @@ def main() -> int:
         "training": train, "vqvae_cli": vqvae_cli, "vdvae": vdvae, "kernels": kernels,
         "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval, "pm_vae": pm_vae,
         "vade": vade, "resume": resume, "digits16": digits16, "ranks": ranks, "bf16": bf16,
-        "pmvq_bf16": pmvq_bf16, "sampler_bf16": sampler_bf16,
+        "pmvq_bf16": pmvq_bf16, "sampler_bf16": sampler_bf16, "options": options,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("launches_per_step", "bound_f32_ms", "f32_ms", "per_run", "per_pass",
-             "per_shape", "design")
+    extra = ("launches_per_step", "launches_new_paths", "bound_f32_ms", "f32_ms", "per_run",
+             "per_pass", "per_shape", "design")
     log(json.dumps({"kernels": [{**{k: kd[k] for k in keys},
                                  **{k: kd[k] for k in extra if k in kd}} for kd in kernels]}))
     log(json.dumps({"ok": True, "device": {

@@ -87,3 +87,12 @@ def parse_config(parser: argparse.ArgumentParser, argv: Optional[Sequence[str]],
         parser.error(str(err))
     config["seed"] = resolve_seed(config, args.resume_dir)
     return args, config
+
+
+def device_resident(config: Dict[str, Any], dataset, device):
+    """The training split as the run's ``device_resident_data`` asks: held
+    on ``device`` and gathered there (``ArrayDataset.to_device_resident``),
+    or as it is."""
+    if config.get("device_resident_data", False):
+        return dataset.to_device_resident(device)
+    return dataset

@@ -31,10 +31,14 @@ Copied from the JAX package's config files, which need ``ml_collections``:
 
 Each whole-file configuration leaves ``seed`` None (a fresh draw unless
 set) and ``compute_dtype`` None (float32; the PM-VDVAE's and the
-PM-VQVAE's may be set to bfloat16), and drops
-the JAX execution options the port does not take (``steps_per_call``,
-``device_resident_data``, ``packed_chain``).
+PM-VQVAE's may be set to bfloat16), and has the JAX trainer's execution
+options as the JAX files do (``configs/_base.py:17-22``): ``steps_per_call``
+1 and ``device_resident_data`` False on every one (``Trainer``'s
+``steps_per_call``, ``ArrayDataset.to_device_resident``), and
+``packed_chain`` None (on where the stream kernels run on the GPU) on
+``pm_vqvae_celeb_a``, the one file that has it.
 """
+import functools
 
 VQVAE_CELEB_A = {
     "embedding_dim": 64,
@@ -127,6 +131,17 @@ PM_VDVAE_MNIST_DATA = {
 }
 
 
+def _whole_file(make):
+    """A whole-file configuration with the JAX trainer's execution options
+    at their defaults, as ``config_from`` adds them to every JAX config file
+    (``configs/_base.py:17-22``)."""
+    @functools.wraps(make)
+    def config(*args, **kwargs) -> dict:
+        return {**make(*args, **kwargs), "steps_per_call": 1, "device_resident_data": False}
+    return config
+
+
+@_whole_file
 def pm_vdvae_mnist() -> dict:
     """``configs/pm_vdvae_mnist.py`` whole, in its nesting (``data``,
     ``model``, then the training keys of :42-47), as a fresh dict that the
@@ -140,6 +155,7 @@ def pm_vdvae_mnist() -> dict:
             "seed": None, **train}
 
 
+@_whole_file
 def vqvae_mnist() -> dict:
     """``configs/vqvae_mnist.py`` whole (:7-29), as a fresh dict; ``seed``
     None (a fresh draw unless set)."""
@@ -156,6 +172,7 @@ def vqvae_mnist() -> dict:
     }
 
 
+@_whole_file
 def pm_vqvae_mnist() -> dict:
     """``configs/pm_vqvae_mnist.py`` whole (:9-38), as a fresh dict: 7x7
     codes, 8 resnet levels of 128 filters; ``compute_dtype`` None (float32;
@@ -177,6 +194,7 @@ def pm_vqvae_mnist() -> dict:
     }
 
 
+@_whole_file
 def vqvae_celeb_a() -> dict:
     """``configs/vqvae_celeb_a.py`` whole (:7-29): the model block is
     :data:`VQVAE_CELEB_A`."""
@@ -192,6 +210,7 @@ def vqvae_celeb_a() -> dict:
     }
 
 
+@_whole_file
 def pm_vqvae_celeb_a() -> dict:
     """``configs/pm_vqvae_celeb_a.py`` whole (:10-47): 16x16 codes, 12
     resnet levels of 128 filters; ``pixel_cnn.num_indices`` is set from
@@ -208,6 +227,7 @@ def pm_vqvae_celeb_a() -> dict:
         "pixel_cnn": pixel_cnn,
         "conditional_dim": PM_VQVAE_CELEB_A["conditional_dim"],
         "compute_dtype": None,
+        "packed_chain": None,
         "steps": t["steps"],
         "validation_freq": t["validation_freq"],
         "lr_schedule": dict(t["lr_schedule"]),
@@ -226,6 +246,7 @@ def _digits16_data(batch_size: int, mask_generator: str = None) -> dict:
     return data
 
 
+@_whole_file
 def vqvae_digits16() -> dict:
     """``configs/vqvae_digits16.py`` whole (:11-35): a 4x4 code grid."""
     return {
@@ -240,6 +261,7 @@ def vqvae_digits16() -> dict:
     }
 
 
+@_whole_file
 def pm_vqvae_digits16() -> dict:
     """``configs/pm_vqvae_digits16.py`` whole (:15-47): 4x4 codes, 6 resnet
     levels of 64 filters (the chain and sampler kernels' 64-filter build),
@@ -258,6 +280,7 @@ def pm_vqvae_digits16() -> dict:
     }
 
 
+@_whole_file
 def pm_vdvae_digits16() -> dict:
     """``configs/pm_vdvae_digits16.py`` whole (:15-59): the 16/8/4/1
     resolution ladder at width 64; ``model.fused_chain`` None, as
@@ -290,6 +313,7 @@ _CYCLIC_BETA = {"schedule": "cyclic", "low_value": 0.0, "high_value": 1.0, "peri
                 "delay": 1000}
 
 
+@_whole_file
 def _uci_pm_vae(dataset: str, event_size: int, latent_dim: int, *,
                 train_batch_size: int = 512, encoder_blocks: int = 2,
                 decoder_blocks: int = 2, layer_norm: bool = False, dropout: float = None,
@@ -330,6 +354,7 @@ def _cyclic(period: int, delay: int) -> dict:
     return dict(_CYCLIC_BETA, period=period, delay=delay)
 
 
+@_whole_file
 def _conv_pm_vae(dataset: str, validation_split: str, batch: int, mask_generator: str,
                  model: dict, steps: int, validation_freq: int, transition_steps: int,
                  mask_kwargs: dict = None) -> dict:
@@ -452,6 +477,7 @@ def _vade_model(encoder_net: str, decoder_net: str, decoder_dist: str, nets: dic
             **{k: dict(v) for k, v in nets.items()}}
 
 
+@_whole_file
 def _vade(data: dict, model: dict, pretrain_steps: int, steps: int, validation_freq: int,
           transition_steps: int) -> dict:
     return {"data": data, "model": model, "pretrain_steps": pretrain_steps, "steps": steps,
@@ -488,6 +514,7 @@ def vade_digits16() -> dict:
                  1700, 3400, 200, 110)
 
 
+@_whole_file
 def pm_vade_mnist() -> dict:
     """``configs/pm_vade_mnist.py`` whole: the autoregressive GMM partial
     posterior on ``vade_mnist``'s model."""
@@ -498,6 +525,7 @@ def pm_vade_mnist() -> dict:
             "lr_schedule": _lr(0.001, int(60000 / 128 * 10)), "seed": None}
 
 
+@_whole_file
 def pm_vade_digits() -> dict:
     """``configs/pm_vade_digits.py`` whole: ``vade_digits``'s model and the
     autoregressive GMM partial posterior (files only)."""
@@ -509,6 +537,7 @@ def pm_vade_digits() -> dict:
             "lr_schedule": _lr(0.001, 1000), "seed": None}
 
 
+@_whole_file
 def _lookahead(dataset: str, validation_split: str, batch: int, pm_vae_dir: str,
                steps: int, validation_freq: int, transition_steps: int) -> dict:
     data = _vade_data(dataset, validation_split, batch)

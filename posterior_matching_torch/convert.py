@@ -96,9 +96,10 @@ def _put_encoder(out, prefix, enc):
     _put_stack(out, f"{prefix}.stack", enc["ConvResidualStack_0"])
 
 
-def vqvae_state_dict(params: Tree, vq_ema: Tree) -> Dict[str, np.ndarray]:
+def vqvae_state_dict(params: Tree, vq_ema: Optional[Tree]) -> Dict[str, np.ndarray]:
     """A JAX ``VQVAE``'s ``params`` and ``vq_ema`` trees -> the port's
-    ``VQVAE`` state dict."""
+    ``VQVAE`` state dict. With ``use_ema=False`` the codebook is
+    ``params["vq"]["embeddings"]`` and there is no ``vq_ema`` (None)."""
     out: Dict[str, np.ndarray] = {}
     _put_encoder(out, "encoder", params["encoder"])
     _put_conv(out, "pre_vq_conv", params["pre_vq_conv"])
@@ -108,6 +109,9 @@ def vqvae_state_dict(params: Tree, vq_ema: Tree) -> Dict[str, np.ndarray]:
     _put_conv(out, "decoder.dec_2", dec["dec_2"], transpose=True)
     _put_conv(out, "decoder.dec_3", dec["dec_3"], transpose=True)
     out["decoder.log_scale"] = np.asarray(dec["log_scale"])
+    if "vq" in params:
+        out["vq.embeddings"] = np.asarray(params["vq"]["embeddings"])
+        return out
     for name in ("embeddings", "ema_cluster_size", "ema_dw"):
         out[f"vq.{name}"] = np.asarray(vq_ema["vq"][name])
     return out
@@ -137,9 +141,10 @@ def pixel_cnn_state_dict(params: Tree) -> Dict[str, np.ndarray]:
 
 def pm_vqvae_state_dict(params: Tree, state: Tree) -> Dict[str, np.ndarray]:
     """JAX ``params`` / ``state`` trees -> the port's ``PMVQVAE`` state dict
-    (numpy arrays). The codebook comes from ``state["vq_ema"]``."""
+    (numpy arrays). The codebook comes from ``state["vq_ema"]``, or from
+    ``params`` where the VQ-VAE learns it by the loss (no ``vq_ema``)."""
     parts = {
-        "vqvae": vqvae_state_dict(params["vqvae"], state["vq_ema"]["vqvae"]),
+        "vqvae": vqvae_state_dict(params["vqvae"], state.get("vq_ema", {}).get("vqvae")),
         "partial_encoder": partial_encoder_state_dict(params["partial_encoder"]),
         "pixel_cnn": pixel_cnn_state_dict(params["pixel_cnn"]),
     }
@@ -209,7 +214,8 @@ def _numpy(state_dict) -> Dict[str, np.ndarray]:
 def vqvae_trees(state_dict) -> Tuple[Tree, Tree]:
     """The port's ``VQVAE`` state dict (tensors or arrays) -> a JAX
     ``VQVAE``'s ``(params, {"vq_ema": ...})`` numpy trees, the inverse of
-    :func:`vqvae_state_dict`."""
+    :func:`vqvae_state_dict`; with ``use_ema=False`` (no EMA statistics)
+    the codebook goes to ``params["vq"]`` and the state is ``{}``."""
     vq = _numpy(state_dict)
     decoder = {
         "dec_1": _get_conv(vq, "decoder.dec_1"),
@@ -223,6 +229,9 @@ def vqvae_trees(state_dict) -> Tuple[Tree, Tree]:
         "pre_vq_conv": _get_conv(vq, "pre_vq_conv"),
         "decoder": decoder,
     }
+    if "vq.ema_dw" not in vq:
+        params["vq"] = {"embeddings": vq["vq.embeddings"]}
+        return params, {}
     state = {"vq_ema": {"vq": {
         name: vq[f"vq.{name}"] for name in ("embeddings", "ema_cluster_size", "ema_dw")
     }}}
@@ -245,6 +254,8 @@ def pm_vqvae_trees(state_dict) -> Tuple[Tree, Tree]:
         },
         "pixel_cnn": pixel,
     }
+    if "vq_ema" not in vq_state:
+        return params, {}
     return params, {"vq_ema": {"vqvae": vq_state["vq_ema"]}}
 
 
@@ -261,7 +272,7 @@ def vqvae_from_jax(params: Tree, state: Tree, config: Dict[str, Any],
     (the GPU unless ``"cpu"``) and loads a JAX ``VQVAE``'s ``params`` and
     ``{"vq_ema": ...}`` trees into it."""
     model = VQVAE(**config).to(resolve_device(device))
-    model.load_state_dict(to_torch(vqvae_state_dict(params, state["vq_ema"])))
+    model.load_state_dict(to_torch(vqvae_state_dict(params, state.get("vq_ema"))))
     return model
 
 
@@ -383,7 +394,15 @@ def init_vqvae_tree(config: Dict[str, Any], seed: int) -> Tuple[Tree, Tree]:
     the codebook uniform with variance 1 / D, the EMA statistics zero."""
     rng = np.random.default_rng(seed)
     params = _vqvae_params(rng, config)
-    return params, {"vq_ema": _vq_ema(rng, config)}
+    return _codebook(params, _vq_ema(rng, config), config)
+
+
+def _codebook(params: Tree, vq_ema: Tree, config: Dict[str, Any]) -> Tuple[Tree, Tree]:
+    """``(params, {"vq_ema": vq_ema})``, or with ``use_ema=False`` the
+    codebook moved into ``params["vq"]`` and no state."""
+    if config.get("use_ema", True):
+        return params, {"vq_ema": vq_ema}
+    return {**params, "vq": {"embeddings": vq_ema["vq"]["embeddings"]}}, {}
 
 
 def random_pm_vqvae_tree(
@@ -438,7 +457,8 @@ def random_pm_vqvae_tree(
         },
         "pixel_cnn": pixel,
     }
-    return params, {"vq_ema": {"vqvae": _vq_ema(rng, vq)}}
+    params["vqvae"], vq_state = _codebook(params["vqvae"], _vq_ema(rng, vq), vq)
+    return params, ({"vq_ema": {"vqvae": vq_state["vq_ema"]}} if vq_state else {})
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 Counterpart of ``posterior_matching_tpu/data/datasets.py``:
 :class:`ArrayDataset` (``:30-180``, with the resume fast-forward
-``skip_stream``; without ``spec_batch``, as the port's models need no batch
-to start, the native gather and the device-resident copy), the CelebA crop
+``skip_stream`` and the device-resident copy ``to_device_resident``;
+without ``spec_batch``, as the port's models need no batch to start, and
+the native gather), :class:`DeviceDataset` (``:225-310``), the CelebA crop
 and resize and the mnist16 transforms (``:316-369``), :func:`load_datasets` (``:372-402``)
 and :func:`load_eval_dataset` (``:405-426``). Masks are not added here: the
 trainer's prologue and the eval CLIs draw them on the device.
@@ -21,8 +22,10 @@ import functools
 from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 from posterior_matching_torch.data.sources import load_arrays
+from posterior_matching_torch.runtime import resolve_device
 
 Batch = Dict[str, np.ndarray]
 
@@ -84,6 +87,75 @@ class ArrayDataset:
             idx = np.arange(self._n)
             for _ in range(epochs):
                 self._rng.shuffle(idx)
+
+    def to_device_resident(self, device: Optional[str] = None) -> "DeviceDataset":
+        """The split as a :class:`DeviceDataset` on ``device`` (the GPU
+        unless ``"cpu"``; ``datasets.py:182-222``). Where the transform is a
+        pure rescale of uint8 fields (:meth:`_is_pure_rescale`) the uint8
+        arrays go to the device, a quarter of float32's memory, and the
+        rescale runs there on each batch; otherwise the transform runs once
+        here, over the split in order (the last partial batch kept), and
+        its float output goes to the device."""
+        divisors = getattr(self._transform, "u8_divisors", None)
+        if divisors and self._is_pure_rescale(divisors):
+            data = {k: v for k, v in self._data.items() if k != "id"}
+            return DeviceDataset(data, self.batch_size, divisors=divisors, device=device)
+        full = ArrayDataset(self._data, self.batch_size, drop_remainder=False,
+                            transform=self._transform)
+        batches = list(full)
+        data = {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+        return DeviceDataset(data, self.batch_size, device=device)
+
+    def _is_pure_rescale(self, divisors: Dict[str, float]) -> bool:
+        """Whether the transform is exactly ``uint8 field / divisor`` for
+        each field of ``divisors``, on this split's first rows: no resize,
+        rename or other field changed (``datasets.py:224-242``, here held
+        bit for bit)."""
+        sample = {k: v[:2] for k, v in self._data.items()}
+        got = self._transform(dict(sample))
+        want = {k: v for k, v in sample.items() if k != "id"}
+        for k, d in divisors.items():
+            if k not in want or want[k].dtype != np.uint8:
+                return False
+            want[k] = want[k].astype(np.float32) / d
+        return set(got) == set(want) and all(
+            got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+            and np.array_equal(got[k], want[k]) for k in want)
+
+
+class DeviceDataset:
+    """A training split held in device memory (``datasets.py:244-300``):
+    :meth:`sample` draws a batch's indices on the device, uniformly with
+    replacement, from the generator it is given, gathers the rows there and
+    divides the fields of ``divisors`` (uint8) by their divisor, as the host
+    transform would. The trainer seeds the generator from (run seed, step),
+    so a step's batch needs no stream and a resume no replay; sampling with
+    replacement stands in for shuffled epochs, as in the JAX package."""
+
+    def __init__(self, data: Batch, batch_size: int, divisors: Optional[Dict[str, float]] = None,
+                 device: Optional[str] = None):
+        n = len(next(iter(data.values())))
+        for k, v in data.items():
+            if len(v) != n:
+                raise ValueError(f"ragged dataset field {k}: {len(v)} rows, not {n}")
+        dev = resolve_device(device)
+        self.data = {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in data.items()}
+        self.batch_size, self.num_examples = batch_size, n
+        self.divisors = dict(divisors or {})
+
+    def gather(self, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The rows ``idx`` (a device tensor), transformed."""
+        out = {k: v.index_select(0, idx) for k, v in self.data.items()}
+        for k, d in self.divisors.items():
+            out[k] = out[k].float() / d
+        return out
+
+    def sample(self, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        """One batch, its indices uniform with replacement from ``gen``
+        (on this dataset's device)."""
+        idx = torch.randint(0, self.num_examples, (self.batch_size,), generator=gen,
+                            device=gen.device)
+        return self.gather(idx)
 
 
 def _bilinear(x: np.ndarray) -> np.ndarray:
@@ -166,6 +238,10 @@ def _make_batch_transform(dataset: str, normalize_images: bool) -> Callable[[Bat
             img = out.pop("image")
             out["features"] = img.reshape(len(img), -1)
         return out
+
+    if normalize_images:
+        # the rescale a device-resident copy may run on uint8 fields
+        transform.u8_divisors = {"image": 255.0}
     return transform
 
 

@@ -2,17 +2,19 @@
 
 Counterpart of ``posterior_matching_tpu/masking.py`` for the feature-level
 generators of PM-VAE (``uniform_mask`` and ``bernoulli_mask``, :58-95) and
-for the generators the ``CelebAMaskGenerator`` (:447-452) and
-``MNISTMaskGenerator`` (:383-401, :460) mixtures draw from: random
-rectangles, fixed rectangles, random squares, per-pixel Bernoulli, and
-crops of the thresholded bicubic noise canvas (``random_pattern_mask``,
-:242-321), flattened into one categorical (:329-376). Every generator is
-``(generator, shape) -> mask`` with an explicit ``torch.Generator`` whose
-device the mask is drawn on; masks are float32, 1 where a feature is
-observed: the data's own shape for the feature-level generators, ``[B, H,
-W, 1]`` for the image ones. The registry (:func:`get_mask_generator`) also
-names the rectangle and per-pixel Bernoulli generators alone; its Omniglot
-and CIFAR-10 entries are not ported yet.
+for the generators the ``CelebAMaskGenerator`` (:447-452), ``MNISTMaskGenerator``
+(:383-401, :460), ``OmniglotMaskGenerator`` and ``Cifar10MaskGenerator``
+(:404-413, :464-471) mixtures draw from: random rectangles, fixed
+rectangles, random squares, per-pixel Bernoulli, and crops of the
+thresholded bicubic noise canvas (``random_pattern_mask``, :242-321, with
+``update_freq``'s pool of canvases), flattened into one categorical drawn
+per element or, with ``batch_level``, once a batch (:329-376). Every
+generator is ``(generator, shape) -> mask`` with an explicit
+``torch.Generator`` whose device the mask is drawn on; masks are float32, 1
+where a feature is observed: the data's own shape for the feature-level
+generators, ``[B, H, W, 1]`` for the image ones. The registry
+(:func:`get_mask_generator`) holds every name of the JAX package's, and
+refuses any other with its ``KeyError``.
 
 The pattern canvas is rebuilt without PIL: :func:`_bicubic_resize`
 reproduces ``PIL.Image.resize(..., BICUBIC)`` on a mode ``F`` image (PIL's
@@ -183,7 +185,7 @@ def _bicubic_resize(img: np.ndarray, out_size: int) -> np.ndarray:
     return (mv @ tmp.astype(np.float64)).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=8)
 def pattern_canvas(
     canvas_size: int, resolution: float, density: float, seed: int
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -201,6 +203,24 @@ def pattern_canvas(
     return canvas, sat
 
 
+def pattern_pool(
+    device, canvas_size: int = 2048, resolution: float = 0.06, density: float = 0.25,
+    seed: int = 0, num_canvases: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The canvases of seeds ``seed .. seed + num_canvases - 1`` and their
+    summed-area tables on ``device``: ``[S, S]`` and ``[S + 1, S + 1]`` for
+    one canvas, ``[N, S, S]`` and ``[N, S + 1, S + 1]`` stacked for more.
+    A 2048 canvas is 4.2 MB of uint8 and its table 16.8 MB of int32: 21 MB
+    of device memory a canvas of the pool."""
+    tables = [pattern_canvas(canvas_size, resolution, density, seed + i)
+              for i in range(num_canvases)]
+    canvas = np.stack([c for c, _ in tables])
+    sat = np.stack([t for _, t in tables])
+    if num_canvases == 1:
+        canvas, sat = canvas[0], sat[0]
+    return torch.from_numpy(canvas).to(device), torch.from_numpy(sat).to(device)
+
+
 def random_pattern_mask(
     gen: torch.Generator,
     shape: Sequence[int],
@@ -212,13 +232,29 @@ def random_pattern_mask(
     """Crops of the pattern canvas with density rejection: the first of 32
     random crops whose hidden share is within ``density_std`` of
     ``density``, else the closest. Candidate densities come from four
-    corners of the summed-area table; only the chosen crop is gathered."""
+    corners of the summed-area table; only the chosen crop is gathered.
+
+    Given a pool of canvases (``canvas [N, S, S]``, ``sat [N, S + 1, S +
+    1]`` from :func:`pattern_pool`: ``update_freq``, :func:`pattern_mask`),
+    one canvas of the pool, its index uniform and drawn on the device
+    before the crops, serves the whole call: the JAX package's stand-in for
+    the reference regenerating its canvas every ``update_freq * max_size **
+    2`` cropped points (``masking.py:242-272``)."""
     b, h, w = _image_shape(shape)
-    size = canvas.shape[0]
+    dev = canvas.device
+    if canvas.dim() == 3:
+        pick = _randint(gen, 0, canvas.shape[0], (1,))
+        canvas_at = lambda *ix: canvas[(pick, *ix)]
+        sat_at = lambda *ix: sat[(pick, *ix)]
+    else:
+        canvas_at = lambda *ix: canvas[ix]
+        sat_at = lambda *ix: sat[ix]
+    size = canvas.shape[-1]
     k = _REJECTION_CANDIDATES
     xs = _randint(gen, 0, size - w + 1, (b, k))
     ys = _randint(gen, 0, size - h + 1, (b, k))
-    count = sat[ys + h, xs + w] - sat[ys, xs + w] - sat[ys + h, xs] + sat[ys, xs]
+    count = (sat_at(ys + h, xs + w) - sat_at(ys, xs + w) - sat_at(ys + h, xs)
+             + sat_at(ys, xs))
     coverage = count.float() / np.float32(h * w)
     gap = (coverage - density).abs()
     valid = gap < density_std
@@ -227,11 +263,27 @@ def random_pattern_mask(
     )[:, None]
     x_sel = xs.gather(1, idx)[:, 0]
     y_sel = ys.gather(1, idx)[:, 0]
-    dev = canvas.device
     rows = y_sel[:, None] + torch.arange(h, device=dev)
     cols = x_sel[:, None] + torch.arange(w, device=dev)
-    picked = canvas[rows[:, :, None], cols[:, None, :]].float()
+    picked = canvas_at(rows[:, :, None], cols[:, None, :]).float()
     return (1.0 - picked)[..., None]
+
+
+def pattern_mask(
+    device, max_size: int = 10000, resolution: float = 0.06, density: float = 0.25,
+    density_std: float = 0.05, canvas_size: int = 2048, canvas_seed: int = 0,
+    update_freq: Optional[float] = None, num_canvases: int = 4,
+) -> MaskFn:
+    """:func:`random_pattern_mask` with the JAX function's keywords
+    (``masking.py:242-253``), its tables built on ``device``: one canvas,
+    or with ``update_freq`` a pool of ``num_canvases`` (only the option's
+    presence matters, as there). ``canvas_size`` plays ``max_size``'s role,
+    as in the JAX package."""
+    del max_size
+    n = num_canvases if update_freq is not None and num_canvases > 1 else 1
+    canvas, sat = pattern_pool(device, canvas_size, resolution, density, canvas_seed, n)
+    return functools.partial(random_pattern_mask, canvas=canvas, sat=sat, density=density,
+                             density_std=density_std)
 
 
 # ---------------------------------------------------------------------------
@@ -244,13 +296,19 @@ def mixture_mask(
     shape: Sequence[int],
     generators: Sequence[MaskFn],
     weights: Sequence[float],
+    batch_level: bool = False,
 ) -> torch.Tensor:
-    """Every batch element picks a component independently; all components
-    are drawn batched and selected by index."""
+    """Every batch element picks a component independently, or with
+    ``batch_level`` one component, drawn once, serves the whole batch
+    (``masking.py:329-360``); all components are drawn batched and selected
+    by index on the device."""
     b = shape[0]
     w = torch.tensor(weights, dtype=torch.float32, device=gen.device)
-    choice = torch.multinomial(w / w.sum(), b, replacement=True, generator=gen)
+    choice = torch.multinomial(w / w.sum(), 1 if batch_level else b, replacement=True,
+                               generator=gen)
     masks = torch.stack([g(gen, shape) for g in generators], 1)
+    if batch_level:
+        return masks.index_select(1, choice)[:, 0]
     return masks[torch.arange(b, device=gen.device), choice]
 
 
@@ -296,9 +354,7 @@ def celeb_a_mask_spec(
     """SIIDGM + GCF + rectangle with weights [1, 1, 2], flattened (the
     reference's CelebAMaskGenerator). The pattern canvas lives on
     ``device``."""
-    canvas, sat = pattern_canvas(canvas_size, 0.06, 0.25, 0)
-    canvas_t = torch.from_numpy(canvas).to(device)
-    sat_t = torch.from_numpy(sat).to(device)
+    canvas_t, sat_t = pattern_pool(device, canvas_size)
     gcf = (
         [functools.partial(fixed_rectangle_mask, y1=a, x1=b, y2=c, x2=d)
          for a, b, c, d in _GCF_RECTS],
@@ -309,29 +365,44 @@ def celeb_a_mask_spec(
     )
 
 
-def mnist_mask_spec(dim: int = 28) -> Tuple[list, list]:
-    """Bernoulli(0.5), four half-image rectangles, a random half-size square
-    and a random rectangle, weights [2, 1, 1, 1, 1, 2, 2] (the reference's
-    MNISTMaskGenerator, ``masking.py:383-401``)."""
+def mnist_mask_spec(dim: int = 28, rect_kwargs: Optional[dict] = None,
+                    bern_p: float = 0.5) -> Tuple[list, list]:
+    """Bernoulli(``bern_p``), four half-image rectangles, a random half-size
+    square and a random rectangle (of ``rect_kwargs``), weights [2, 1, 1, 1,
+    1, 2, 2] (the reference's MNISTMaskGenerator, ``masking.py:383-401``)."""
     half = dim // 2
     fixed = functools.partial
     gens = [
-        fixed(image_bernoulli_mask, p=0.5),
+        fixed(image_bernoulli_mask, p=bern_p),
         fixed(fixed_rectangle_mask, y1=0, x1=0, y2=dim, x2=half),
         fixed(fixed_rectangle_mask, y1=0, x1=0, y2=half, x2=dim),
         fixed(fixed_rectangle_mask, y1=0, x1=half, y2=dim, x2=dim),
         fixed(fixed_rectangle_mask, y1=half, x1=0, y2=dim, x2=dim),
         fixed(square_mask, size=half),
-        rectangle_mask,
+        fixed(rectangle_mask, **(rect_kwargs or {})),
     ]
     return gens, [2, 1, 1, 1, 1, 2, 2]
+
+
+def omniglot_mask_spec() -> Tuple[list, list]:
+    """The MNIST mixture with rectangles of 0.1-0.6 of the image (the
+    reference's OmniglotMaskGenerator, ``masking.py:404-406``)."""
+    return mnist_mask_spec(28, rect_kwargs=dict(min_prop=0.1, max_prop=0.6))
+
+
+def cifar10_mask_spec() -> Tuple[list, list]:
+    """The MNIST mixture at 32 pixels, Bernoulli(0.3), rectangles of
+    0.1-0.5 of the image (the reference's Cifar10MaskGenerator,
+    ``masking.py:409-413``)."""
+    return mnist_mask_spec(32, rect_kwargs=dict(min_prop=0.1, max_prop=0.5), bern_p=0.3)
 
 
 def _mixture(spec: Tuple[list, list]) -> MaskFn:
     return functools.partial(mixture_mask, generators=spec[0], weights=spec[1])
 
 
-# name -> (device, **kwargs) -> mask function (``masking.py:455-476``).
+# name -> (device, **kwargs) -> mask function (``masking.py:455-476``); as
+# there, the Omniglot and CIFAR-10 mixtures take no keyword.
 _REGISTRY = {
     "BernoulliMaskGenerator": lambda dev, **kw: functools.partial(bernoulli_mask, **kw),
     "UniformMaskGenerator": lambda dev, **kw: functools.partial(uniform_mask, **kw),
@@ -339,6 +410,8 @@ _REGISTRY = {
         lambda dev, **kw: functools.partial(image_bernoulli_mask, **kw),
     "RectangleMaskGenerator": lambda dev, **kw: functools.partial(rectangle_mask, **kw),
     "MNISTMaskGenerator": lambda dev, **kw: _mixture(mnist_mask_spec(**kw)),
+    "OmniglotMaskGenerator": lambda dev, **kw: _mixture(omniglot_mask_spec()),
+    "Cifar10MaskGenerator": lambda dev, **kw: _mixture(cifar10_mask_spec()),
     "CelebAMaskGenerator": lambda dev, **kw: _mixture(celeb_a_mask_spec(dev, **kw)),
 }
 
@@ -347,14 +420,14 @@ def get_mask_generator(name: str, device: Optional[str] = None, **kwargs) -> Mas
     """``(generator, shape) -> mask`` by the reference's generator name and
     keyword arguments (a config's ``mask_generator_kwargs``;
     ``masking.py:479-486``), with its tables on ``device`` (the GPU unless
-    ``"cpu"``)."""
+    ``"cpu"``). An unknown name raises the registry's ``KeyError``, as
+    the JAX function does."""
+    factory = _REGISTRY[name]
     dev = resolve_device(device)
-    if name not in _REGISTRY:
-        raise NotImplementedError(f"mask generator {name!r} is not ported yet")
     # `bounds` may arrive as a list from a JSON round trip.
     if kwargs.get("bounds") is not None:
         kwargs["bounds"] = tuple(kwargs["bounds"])
-    return _REGISTRY[name](dev, **kwargs)
+    return factory(dev, **kwargs)
 
 
 def add_mask(

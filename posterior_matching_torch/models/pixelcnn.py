@@ -47,7 +47,7 @@ fused chain does not take these topologies either. Sampling is
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -175,6 +175,9 @@ class PixelCNN(nn.Module):
         if num_hierarchies < 1:
             raise ValueError(f"num_hierarchies must be >= 1, got {num_hierarchies}")
         self.chain_segment = chain_segment
+        # the chain's weights in the stream kernels' stacked layout, where a
+        # trainer keeps them so (PackedChainCodec), else None
+        self.packed_chain: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.compute_dtype = torch_dtype(dtype)
         self.num_indices = num_indices
         self.image_shape = tuple(image_shape)
@@ -366,16 +369,28 @@ class PixelCNN(nn.Module):
         reverse (``pixelcnn.py:386-495``): with ``xs = [init] + up outputs``
         down level p takes ``xs[n - 1 - p]``, so the last up output is the
         down pass's carry and never a skip, and the init stacks are the
-        last skip. Returns the last horizontal output."""
+        last skip. Returns the last horizontal output. With
+        :attr:`packed_chain` the stream kernels take the packed stacks as
+        they are, their biases folded (``pixelcnn.py:410-430``): no level
+        is packed or stacked in the step."""
         n, f = self.num_resnet, self.num_filters
         rf = self.receptive_field_dims
         keep = 1.0 - self.dropout if (training and self.dropout > 0) else 1.0
         common = dict(seed=seed, keep=keep, taps=chain_taps(rf),
                       compute_dtype=self.compute_dtype)
-        levels = {d: [pack_level(self.layers, d, p, f, d == "dn", rf) for p in range(n)]
-                  for d in ("up", "dn")}
+        packed = self.packed_chain
+        if packed is not None and self.chain_segment != "stream":
+            raise ValueError("packed_chain requires the stream chain kernels "
+                             "(PM_TPU_CHAIN_SEGMENT=stream)")
+        if packed is not None:
+            stacks = {d: fold_packed_biases(packed[d], d == "dn") for d in ("up", "dn")}
+        else:
+            levels = {d: [pack_level(self.layers, d, p, f, d == "dn", rf) for p in range(n)]
+                      for d in ("up", "dn")}
         if self.chain_segment == "stream":
-            up_v, up_h = gated_stream(xv, xh, None, cond, stack_levels(levels["up"]),
+            if packed is None:
+                stacks = {d: stack_levels(levels[d]) for d in ("up", "dn")}
+            up_v, up_h = gated_stream(xv, xh, None, cond, stacks["up"],
                                       base_pair=0, **common)
             xs_v, xs_h = [xv, *up_v], [xh, *up_h]
             skips = (
@@ -383,7 +398,7 @@ class PixelCNN(nn.Module):
                 torch.stack([xs_h[n - 1 - p] for p in range(n)]),
             )
             _, dn_h = gated_stream(up_v[-1], up_h[-1], skips, cond,
-                                   stack_levels(levels["dn"]), base_pair=n, **common)
+                                   stacks["dn"], base_pair=n, **common)
             return dn_h[-1]
         seg = self.chain_segment
         xs_v, xs_h = [xv], [xh]
@@ -417,6 +432,165 @@ class PixelCNN(nn.Module):
         logp = torch.log_softmax(logits, dim=-1)
         lls = torch.gather(logp, -1, value.long()[..., None])[..., 0]
         return lls.sum(dim=tuple(range(1, lls.ndim)))
+
+
+# ---------------------------------------------------------------------------
+# The packed chain: the training representation of ``packed_chain``
+# ---------------------------------------------------------------------------
+
+# Biases the packed form keeps unfolded (``pixelcnn.py:751``), each [L, 1, C].
+_PACKED_BIAS_KEYS = ("bav", "bbv", "bcv", "bxv", "bah", "bbh", "bch", "bxh")
+
+
+def fold_packed_biases(packed: Dict[str, torch.Tensor], down: bool) -> Dict[str, torch.Tensor]:
+    """Packed (unfolded) stacks -> the stream kernels' weights
+    (``pixelcnn.py:754-768``): the aux bias folded into conv_a's, the cond
+    bias into conv_b's, each bias ``[L, C]``; the weights as they are."""
+    w = {k: v for k, v in packed.items() if k not in _PACKED_BIAS_KEYS}
+    flat = lambda t: t.reshape(t.shape[0], -1)
+    w["bav"] = flat(packed["bav"] + packed["bxv"] if down else packed["bav"])
+    w["bah"] = flat(packed["bah"] + packed["bxh"])
+    w["bbv"] = flat(packed["bbv"] + packed["bcv"])
+    w["bbh"] = flat(packed["bbh"] + packed["bch"])
+    return w
+
+
+def is_chain_layer(tag: str) -> bool:
+    """Whether a layer of the PixelCNN belongs to the gated chain that the
+    packed form holds (``is_chain_param``, ``pixelcnn.py:779-782``)."""
+    return tag.startswith("up_0_") or tag.startswith("dn_0_")
+
+
+class PackedChainCodec:
+    """The port's ``PackedChainCodec`` (``pixelcnn.py:870-940``) for a
+    model whose PixelCNN sits at ``prefix``: tensors keyed by the model's
+    parameter names (canonical) <-> the training representation, where the
+    chain's kernels and biases are replaced by ``{prefix}.packed.{up,dn}.
+    {name}`` stacks ``[num_resnet, ...]`` in the stream kernels' layout
+    (``pack_chain_params``, :785-866): kernels sliced to their valid taps
+    and flattened, ``wxh`` of the down pass split into its ``u`` / ``s`` row
+    halves, biases ``[L, 1, C]`` unfolded. :meth:`encode` and
+    :meth:`decode_into` are exact rearrangements, so an elementwise
+    optimizer's steps on either side are the same numbers; the taps outside
+    the valid region keep the canonical tensors' values (their gradient is
+    zero on both sides)."""
+
+    def __init__(self, model: nn.Module, prefix: str = "pixel_cnn"):
+        pixel_cnn = model.get_submodule(prefix)
+        self.prefix = prefix
+        self.n, self.f = pixel_cnn.num_resnet, pixel_cnn.num_filters
+        rows, cols = pixel_cnn.receptive_field_dims
+        self._slices = {"vertical": ((0, rows - 1), (0, cols)),
+                        "horizontal": ((0, 2), (0, cols // 2 + 1))}
+        head = f"{prefix}.layers."
+        self.chain_names = [k for k, _ in model.named_parameters()
+                            if k.startswith(head) and is_chain_layer(k[len(head):])]
+
+    def _layer(self, tensors, tag: str, which: str) -> torch.Tensor:
+        return tensors[f"{self.prefix}.layers.{tag}.{which}"]
+
+    def _plan(self):
+        """``(pass, packed name, layer tag, kernel or bias, stack or None,
+        rows of the [4F, F] aux kernel or None)`` of every packed stack, in
+        the JAX packed dict's order."""
+        f = self.f
+        for d in ("up", "dn"):
+            for stack, sfx in (("vertical", "v"), ("horizontal", "h")):
+                if stack == "horizontal" or d == "dn":
+                    aux = "wxh" if stack == "horizontal" else "wxv"
+                    if d == "dn" and stack == "horizontal":
+                        yield d, "wxh_u", "horizontal_aux", "kernel", None, (0, f, 2 * f, 3 * f)
+                        yield d, "wxh_s", "horizontal_aux", "kernel", None, (f, 2 * f, 3 * f, 4 * f)
+                    else:
+                        yield d, aux if aux == "wxv" else "wxh_u", f"{stack}_aux", "kernel", None, None
+                    yield d, f"bx{sfx}", f"{stack}_aux", "bias", None, None
+                yield d, f"wa{sfx}", f"{stack}_conv_a", "kernel", stack, None
+                yield d, f"ba{sfx}", f"{stack}_conv_a", "bias", None, None
+                yield d, f"wb{sfx}", f"{stack}_conv_b", "kernel", stack, None
+                yield d, f"bb{sfx}", f"{stack}_conv_b", "bias", None, None
+                yield d, f"wc{sfx}", f"{stack}_cond_proj", "kernel", None, None
+                yield d, f"bc{sfx}", f"{stack}_cond_proj", "bias", None, None
+
+    def _level(self, t: torch.Tensor, which: str, stack, rows) -> torch.Tensor:
+        """One level's canonical tensor in its packed form."""
+        if which == "bias":
+            return t.reshape(1, -1)
+        if stack is not None:
+            (r0, r1), (c0, c1) = self._slices[stack]
+            t = t[r0:r1, c0:c1]
+            return t.reshape(-1, t.shape[-1])
+        if rows is not None:
+            f = self.f
+            return torch.cat([t[rows[0]:rows[0] + f], t[rows[2]:rows[2] + f]])
+        return t
+
+    def encode(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Canonical tensors (a parameter dict, or moments keyed alike) ->
+        the training representation: every tensor that is not the chain's
+        as it is, then the packed stacks."""
+        chain = set(self.chain_names)
+        out = {k: v for k, v in tensors.items() if k not in chain}
+        for d, name, layer, which, stack, rows in self._plan():
+            levels = [self._level(self._layer(tensors, f"{d}_0_{p}_{layer}", which), which,
+                                  stack, rows) for p in range(self.n)]
+            out[f"{self.prefix}.packed.{d}.{name}"] = torch.stack(levels)
+        return out
+
+    @torch.no_grad()
+    def decode_into(self, encoded: Dict[str, torch.Tensor],
+                    canonical: Dict[str, torch.Tensor]) -> None:
+        """Writes the packed stacks of ``encoded`` back into the chain's
+        tensors of ``canonical`` (keyed by the model's names), in place,
+        the inverse of :meth:`encode`; the taps outside the valid region are
+        left as they are."""
+        f = self.f
+        for d, name, layer, which, stack, rows in self._plan():
+            packed = encoded[f"{self.prefix}.packed.{d}.{name}"]
+            for p in range(self.n):
+                t = self._layer(canonical, f"{d}_0_{p}_{layer}", which)
+                v = packed[p]
+                if which == "bias":
+                    t.copy_(v.reshape(-1))
+                elif stack is not None:
+                    (r0, r1), (c0, c1) = self._slices[stack]
+                    t[r0:r1, c0:c1].copy_(v.reshape(r1 - r0, c1 - c0, *t.shape[2:]))
+                elif rows is not None:
+                    t[rows[0]:rows[0] + f].copy_(v[:f])
+                    t[rows[2]:rows[2] + f].copy_(v[f:])
+                else:
+                    t.copy_(v)
+
+    def attach(self, model: nn.Module, encoded: Dict[str, torch.Tensor]) -> None:
+        """Points the model's PixelCNN at the packed stacks of ``encoded``
+        (``None`` detaches it: the canonical path again)."""
+        pixel_cnn = model.get_submodule(self.prefix)
+        if encoded is None:
+            pixel_cnn.packed_chain = None
+            return
+        head = f"{self.prefix}.packed."
+        packed = {"up": {}, "dn": {}}
+        for k, v in encoded.items():
+            if k.startswith(head):
+                d, name = k[len(head):].split(".")
+                packed[d][name] = v
+        pixel_cnn.packed_chain = packed
+
+    def jax_tree(self, params_tree: Dict, encoded: Dict[str, torch.Tensor]) -> Dict:
+        """A canonical JAX-layout tree (a ``to_trees`` output) with its
+        ``prefix`` subtree encoded as the JAX codec encodes it: ``{"packed":
+        {"up": ..., "dn": ...}, "rest": <the PixelCNN's other leaves>}``,
+        the packed leaves numpy arrays of ``encoded``."""
+        head = f"{self.prefix}.packed."
+        packed = {"up": {}, "dn": {}}
+        for k, v in encoded.items():
+            if k.startswith(head):
+                d, name = k[len(head):].split(".")
+                packed[d][name] = v.detach().cpu().numpy()
+        pc = params_tree[self.prefix]
+        out = dict(params_tree)
+        out[self.prefix] = {"packed": packed,
+                            "rest": {k: v for k, v in pc.items() if not is_chain_layer(k)}}
+        return out
 
 
 def fused_chain_topology(pixel_cnn: PixelCNN, conditional_input) -> bool:

@@ -157,23 +157,29 @@ class ConvResidualDecoder(nn.Module):
 
 
 class VectorQuantizer(nn.Module):
-    """The EMA codebook quantizer (``vqvae.py:33-140`` with ``use_ema``).
-    The codebook and its EMA statistics are buffers, as they are the
-    ``vq_ema`` state collection in the JAX package: no optimizer sees them.
-    Only a forward called with ``is_training=True`` moves them, never the
-    module's ``training`` flag, so a frozen VQ-VAE inside a model in
-    ``train()`` mode keeps its codebook."""
+    """The codebook quantizer (``vqvae.py:33-140``). With ``use_ema`` (every
+    config) the codebook and its EMA statistics are buffers, as they are
+    the ``vq_ema`` state collection in the JAX package: no optimizer sees
+    them. Only a forward called with ``is_training=True`` moves them, never
+    the module's ``training`` flag, so a frozen VQ-VAE inside a model in
+    ``train()`` mode keeps its codebook. Without it the codebook is a
+    parameter, as JAX's ``self.param("embeddings", ...)`` (:66-67), learned
+    by the loss: its gradient comes through the gather of the chosen codes
+    alone (``jnp.take``), the search being the same kernel."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  commitment_cost: float = 0.25, decay: float = 0.99,
-                 epsilon: float = 1e-5):
+                 epsilon: float = 1e-5, use_ema: bool = True):
         super().__init__()
         self.commitment_cost, self.decay, self.epsilon = commitment_cost, decay, epsilon
+        self.use_ema = use_ema
         # the JAX init: uniform with variance 1 / embedding_dim
         lim = math.sqrt(3.0 / embedding_dim)
-        self.register_buffer(
-            "embeddings", torch.empty(num_embeddings, embedding_dim).uniform_(-lim, lim)
-        )
+        codebook = torch.empty(num_embeddings, embedding_dim).uniform_(-lim, lim)
+        if not use_ema:
+            self.embeddings = nn.Parameter(codebook)
+            return
+        self.register_buffer("embeddings", codebook)
         self.register_buffer("ema_cluster_size", torch.zeros(num_embeddings))
         self.register_buffer(
             "ema_dw", torch.zeros(num_embeddings, embedding_dim)
@@ -181,25 +187,31 @@ class VectorQuantizer(nn.Module):
 
     def forward(self, z: torch.Tensor, is_training: bool = False) -> Dict[str, torch.Tensor]:
         """``z [..., D]`` -> the straight-through quantization, the
-        commitment loss, the codebook perplexity and the indices
-        (``vqvae.py:75-135``); with ``is_training`` the codebook then takes
-        one EMA step (the quantization uses the codebook before it)."""
+        quantizer's loss, the codebook perplexity and the indices
+        (``vqvae.py:75-135``): with ``use_ema`` the commitment loss, and
+        with ``is_training`` the codebook then takes one EMA step (the
+        quantization uses the codebook before it); without it
+        ``q_latent + commitment_cost * e_latent`` (:114-118)."""
         flat = z.reshape(-1, z.shape[-1]).contiguous()
         indices = nearest_codebook_indices(flat, self.embeddings)
         quantized = self.embeddings[indices.long()].reshape(z.shape)
         e_latent_loss = ((quantized.detach() - z) ** 2).mean()
+        if self.use_ema:
+            loss = self.commitment_cost * e_latent_loss
+        else:
+            loss = ((quantized - z.detach()) ** 2).mean() + self.commitment_cost * e_latent_loss
         counts = torch.bincount(
             indices.long(), minlength=self.embeddings.shape[0]
         )
         total = indices.numel()
-        if is_training:
+        if is_training and self.use_ema:
             counts = self._ema_update(flat.detach(), indices.long(), counts)
             total *= mesh.world_size()
         avg_probs = counts.float() / total
         perplexity = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-10)).sum())
         return {
             "quantize": vq_straight_through(z, quantized),
-            "loss": self.commitment_cost * e_latent_loss,
+            "loss": loss,
             "perplexity": perplexity,
             "encoding_indices": indices.reshape(z.shape[:-1]),
         }
@@ -230,8 +242,8 @@ class VectorQuantizer(nn.Module):
 
 
 class VQVAE(nn.Module):
-    """The VQ-VAE (``vqvae.py:252-329``). ``use_ema=False`` (the codebook
-    learned by the loss) is set by no config and is not ported.
+    """The VQ-VAE (``vqvae.py:252-329``). ``use_ema=False`` learns the
+    codebook by the loss (:class:`VectorQuantizer`); no config sets it.
     ``compute_dtype`` (None, "float32" or "bfloat16") is the encoder's and
     decoder's conv stacks' (``vqvae.py:268-295``); the pre-quantization
     1x1 conv, the quantizer and the decoder's last conv stay float32."""
@@ -251,16 +263,14 @@ class VQVAE(nn.Module):
         **_unused,
     ):
         super().__init__()
-        if not use_ema:
-            raise NotImplementedError("use_ema=False is not ported: every config "
-                                      "learns the codebook by EMA")
         cd = torch_dtype(compute_dtype)
         self.encoder = ConvResidualEncoder(
             output_channels, hidden_units, residual_blocks,
             residual_hidden_units, dtype=cd,
         )
         self.pre_vq_conv = Conv(hidden_units, embedding_dim, 1)
-        self.vq = VectorQuantizer(num_embeddings, embedding_dim, commitment_cost, decay)
+        self.vq = VectorQuantizer(num_embeddings, embedding_dim, commitment_cost, decay,
+                                  use_ema=use_ema)
         self.decoder = ConvResidualDecoder(
             embedding_dim, hidden_units, residual_blocks,
             residual_hidden_units, output_channels, dtype=cd,
@@ -270,8 +280,8 @@ class VQVAE(nn.Module):
         """Stage 1's objective on ``[B, H, W, C]`` images
         (``vqvae.py:301-321``): ``loss`` is the reconstruction loss, the
         decoder Normal's ``-mean(sum log p(x))`` at scale
-        ``exp(log_scale) + 1e-5``, plus the quantizer's commitment loss; with
-        ``is_training`` the codebook takes its EMA step."""
+        ``exp(log_scale) + 1e-5``, plus the quantizer's loss; with
+        ``is_training`` an EMA codebook takes its step."""
         z = self.encode(x)
         vq_output = self.vq(z, is_training=is_training)
         loc = self.decoder(vq_output["quantize"].permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

@@ -68,9 +68,23 @@ model and a step computes what one process computes on the global batch:
   :meth:`Trainer.fit` calls the ``on_validation_end`` callbacks (the
   checkpoint, the image logs) and prints on rank 0 only.
 
-The TPU trainer's dispatch tools (``steps_per_call``, device-resident data,
-the packed-parameter codec) are not ported: they amortise host dispatch on
-the TPU.
+The JAX trainer's execution options (:134, :140-168, :468-473):
+
+- ``steps_per_call=K``: :meth:`Trainer.fit` takes K optimizer steps a
+  call, a chunk's host batches stacked and copied to the device at once, a
+  shorter tail chunk where K does not divide the steps, and refuses a
+  ``validation_freq`` that K does not divide. The steps keep their seeds,
+  so a K-step run is the K=1 run bit for bit;
+- a :class:`~posterior_matching_torch.data.datasets.DeviceDataset` for
+  ``batches``: each step's indices drawn on the device, uniformly with
+  replacement, from a generator seeded by (run seed, step, 6), the batch
+  gathered and transformed there; a resume needs no replay;
+- ``param_codec``: a factory ``model -> codec`` (:class:`~posterior_matching_
+  torch.models.pixelcnn.PackedChainCodec`) of a training representation.
+  The optimizer, its moments and the EMA work on the encoded tensors, which
+  the model reads in its steps; validation, the callbacks and
+  ``train_state.pkl`` see the canonical weights, decoded where they read
+  them, and the checkpoint's optimizer state is in the JAX codec's layout.
 """
 from __future__ import annotations
 
@@ -174,6 +188,8 @@ class Trainer:
         from_trees: Optional[FromTreesFn] = None,
         deterministic: bool = False,
         device: Optional[str] = None,
+        steps_per_call: int = 1,
+        param_codec: Optional[Callable[[nn.Module], Any]] = None,
     ):
         """``optimizer`` builds the optimizer from the trainable parameters;
         with ``ema_rate`` an EMA of the parameters is kept, and validation
@@ -188,7 +204,10 @@ class Trainer:
         the JAX package's ``(params, state)`` trees and back (the state
         dict as its own tree without them); with ``deterministic`` the step
         runs cuDNN's deterministic algorithms
-        (:func:`deterministic_convolutions`)."""
+        (:func:`deterministic_convolutions`); ``steps_per_call`` and
+        ``param_codec`` as the module's notes say."""
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
@@ -205,8 +224,14 @@ class Trainer:
         self.from_trees = from_trees or (lambda params, state: params)
         self.deterministic = deterministic
         self.world_size, self.rank = mesh.world_size(), mesh.rank()
+        self.steps_per_call = int(steps_per_call)
+        self.param_codec = param_codec
+        self.codec = None
         self.step = 0
         self.optimizer: Optional[Adam] = None
+        # the parameters as the optimizer sees them: the model's own, or
+        # with a codec the encoded tensors the model reads in its steps
+        self.train_params: Dict[str, torch.Tensor] = {}
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
 
     def init(self, initial_state_dict: Optional[Dict[str, torch.Tensor]] = None) -> None:
@@ -223,6 +248,14 @@ class Trainer:
         if self.world_size > 1:
             mesh.broadcast_module(self.model)
         params = dict(self.model.named_parameters())
+        if self.param_codec is not None:
+            self.codec = self.param_codec(self.model)
+            for name in self.codec.chain_names:
+                params[name].requires_grad_(False)
+            encoded = self.codec.encode({n: p.detach() for n, p in params.items()})
+            params = {n: params[n] if n in params else t.clone() for n, t in encoded.items()}
+            self.codec.attach(self.model, params)
+        self.train_params = params
         trainable = set(trainable_names(list(params), self.trainable))
         for name, p in params.items():
             p.requires_grad_(name in trainable)
@@ -280,7 +313,7 @@ class Trainer:
                     b.copy_(kept[n])
         if self.ema_params is not None:
             with torch.no_grad():
-                for n, p in self.model.named_parameters():
+                for n, p in self.train_params.items():
                     e = self.ema_params[n]
                     e.copy_(e * self.ema_rate + (1.0 - self.ema_rate) * p)
         self.step += 1
@@ -341,14 +374,15 @@ class Trainer:
     def eval_parameters(self):
         """The model in eval mode with the parameters that validation uses:
         the EMA parameters where the trainer keeps them, its own restored
-        after."""
-        params = dict(self.model.named_parameters())
+        after; with a codec the canonical weights decoded from them."""
+        params = self.train_params
         kept = None
         with torch.no_grad():
             if self.ema_params is not None:
                 kept = {n: p.detach().clone() for n, p in params.items()}
                 for n, p in params.items():
                     p.copy_(self.ema_params[n])
+            self.sync_canonical()
             try:
                 self.model.eval()
                 yield self.model
@@ -356,6 +390,14 @@ class Trainer:
                 if kept is not None:
                     for n, p in params.items():
                         p.copy_(kept[n])
+                    self.sync_canonical()
+
+    @torch.no_grad()
+    def sync_canonical(self) -> None:
+        """With a codec, the model's canonical chain weights decoded from
+        the encoded tensors (which the steps move); nothing without one."""
+        if self.codec is not None:
+            self.codec.decode_into(self.train_params, dict(self.model.named_parameters()))
 
     def fit(
         self,
@@ -381,12 +423,25 @@ class Trainer:
         (an ``ArrayDataset``) moves on to its step (``skip_stream``). Under
         a process group every rank reads the same global stream and steps;
         the ``on_validation_end`` callbacks run and the line is printed on
-        rank 0 only."""
+        rank 0 only. With ``steps_per_call`` K the steps run in chunks of
+        K (the last one shorter where K does not divide ``steps``), each
+        chunk's host batches stacked and copied to the device at once;
+        ``batches`` may be a :class:`~posterior_matching_torch.data.
+        datasets.DeviceDataset`, which draws each step's batch on the
+        device."""
+        from posterior_matching_torch.data.datasets import DeviceDataset
+
+        spc = self.steps_per_call
+        if spc > 1 and validation_freq % spc != 0:
+            raise ValueError(f"validation_freq={validation_freq} must be divisible by "
+                             f"steps_per_call={spc}")
         if self.optimizer is None:
             self.init()
+        device_resident = isinstance(batches, DeviceDataset)
         if resume_from is not None:
             self.restore(resume_from)
-            batches.skip_stream(self.step)
+            if not device_resident:
+                batches.skip_stream(self.step)
 
         def forever():
             while True:
@@ -397,15 +452,30 @@ class Trainer:
                 if empty:
                     raise ValueError("empty dataset")
 
+        def chunk(k: int) -> List[Batch]:
+            """The next ``k`` steps' batches, on the device: a device-resident
+            split's drawn from each step's seed."""
+            if device_resident:
+                return [batches.sample(torch.Generator(device=self.device).manual_seed(
+                    derive_seed(self.seed, self.step + j, 6))) for j in range(k)]
+            host = [next(it) for _ in range(k)]
+            if k == 1:
+                return host
+            stacked = {key: torch.as_tensor(np.stack([np.asarray(b[key]) for b in host]))
+                       .to(self.device) for key in host[0]}
+            return [{key: v[j] for key, v in stacked.items()} for j in range(k)]
+
         per_step = [cb for cb in callbacks if not isinstance(cb, Callback)]
         on_validation = [cb for cb in callbacks if isinstance(cb, Callback)]
-        it, pending, since, t_start = forever(), [], 0, time.time()
+        it = None if device_resident else forever()
+        pending, since, t_start = [], 0, time.time()
         while self.step < steps:
-            metrics = self.train_step(next(it))
-            for cb in per_step:
-                cb(self, metrics)
-            pending.append(metrics)
-            since += 1
+            for batch in chunk(min(spc, steps - self.step)):
+                metrics = self.train_step(batch)
+                for cb in per_step:
+                    cb(self, metrics)
+                pending.append(metrics)
+                since += 1
             if self.step % validation_freq and self.step != steps:
                 continue
             logs = _aggregate(pending)
@@ -430,17 +500,36 @@ class Trainer:
         trainer wraps a chain under a trainable predicate."""
         from posterior_matching_torch.convert import optax_opt_state
 
+        self.sync_canonical()
         sd = self.model.state_dict()
         params, state = self.to_trees(sd)
         like = lambda tensors: self.to_trees({**sd, **tensors})[0]
+        moments = like
+        if self.codec is not None:
+            # the moments in the JAX codec's encoded layout; the EMA canonical
+            moments = lambda tensors: self.codec.jax_tree(like(tensors), tensors)
         opt_state = None
         if self.optimizer is not None:
             opt = self.optimizer
-            opt_state = optax_opt_state(opt.chain, opt.count, like(opt.mu), like(opt.nu),
-                                        self.trainable, opt.grouped)
-        ema = None if self.ema_params is None else like(self.ema_params)
+            opt_state = optax_opt_state(opt.chain, opt.count, moments(opt.mu),
+                                        moments(opt.nu), self.trainable, opt.grouped)
+        ema = None if self.ema_params is None else like(self._canonical(self.ema_params))
         return TrainState(params=params, state=state, opt_state=opt_state,
                           ema_params=ema, step=self.step)
+
+    def _canonical(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Tensors keyed as :attr:`train_params` -> keyed by the model's
+        parameter names (decoded with a codec)."""
+        if self.codec is None:
+            return tensors
+        params = dict(self.model.named_parameters())
+        out = {n: params[n].detach().clone() for n in self.codec.chain_names}
+        self.codec.decode_into(tensors, out)
+        return {**{n: t for n, t in tensors.items() if n in params}, **out}
+
+    def _encoded(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The inverse of :meth:`_canonical`."""
+        return tensors if self.codec is None else self.codec.encode(tensors)
 
     def restore(self, ts: TrainState) -> None:
         """Takes the state of a checkpoint of either package, in this
@@ -455,15 +544,20 @@ class Trainer:
         if self.optimizer is None:
             self.init()
         self.model.load_state_dict(to_torch(self.from_trees(ts.params, ts.state)))
+        if self.codec is not None:
+            with torch.no_grad():
+                enc = self._encoded({n: p.detach() for n, p in self.model.named_parameters()})
+                for n, p in self.train_params.items():
+                    p.copy_(enc[n])
         count, mu, nu = optax_moments(ts.opt_state, ts.params, self.trainable,
                                       self.optimizer.grouped)
         names = list(self.optimizer.params)
-        moments = [self.from_trees(tree, ts.state) for tree in (mu, nu)]
-        self.optimizer.load_state(count, *(to_torch({k: m[k] for k in names}) for m in moments))
+        moments = [self._encoded(to_torch(self.from_trees(tree, ts.state))) for tree in (mu, nu)]
+        self.optimizer.load_state(count, *({k: m[k] for k in names} for m in moments))
         if self.ema_params is not None:
             if ts.ema_params is None:
                 raise ValueError("the checkpoint has no ema_params, and this trainer keeps an EMA")
-            ema = to_torch(self.from_trees(ts.ema_params, ts.state))
+            ema = self._encoded(to_torch(self.from_trees(ts.ema_params, ts.state)))
             with torch.no_grad():
                 for n, e in self.ema_params.items():
                     e.copy_(ema[n])
@@ -518,7 +612,9 @@ def vqvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     """The stage-1 trainer of ``train_vqvae.py:84-112``: plain Adam at the
     constant ``learning_rate``, the codebook's EMA state advanced by the
     training forward and kept by validation, checkpoints in the JAX
-    package's layout (``params`` and ``{"vq_ema": ...}``); cuDNN's
+    package's layout (``params`` and ``{"vq_ema": ...}``; with
+    ``use_ema=False`` the codebook is a parameter Adam trains, and the state
+    is empty); cuDNN's
     deterministic algorithms, as in :func:`pm_vqvae_trainer`."""
     from posterior_matching_torch.convert import vqvae_state_dict, vqvae_trees
 
@@ -526,7 +622,8 @@ def vqvae_trainer(model, train_config: Dict[str, Any], *, seed: int = 0,
     return Trainer(model, vqvae_metrics,
                    optimizer=lambda params: Adam(params, lambda count: lr, chain=OPTAX_ADAM),
                    seed=seed, to_trees=vqvae_trees,
-                   from_trees=lambda params, state: vqvae_state_dict(params, state["vq_ema"]),
+                   from_trees=lambda params, state: vqvae_state_dict(params,
+                                                                     state.get("vq_ema")),
                    deterministic=True, device=device, **kwargs)
 
 

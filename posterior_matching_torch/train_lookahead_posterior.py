@@ -40,7 +40,7 @@ import sys
 from typing import Optional, Sequence
 
 from posterior_matching_torch import convert
-from posterior_matching_torch.cli import parse_config
+from posterior_matching_torch.cli import device_resident, parse_config
 from posterior_matching_torch.config import LOOKAHEAD_CONFIGS
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.masking import get_mask_generator
@@ -82,7 +82,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     mask_fn = get_mask_generator(data["mask_generator"], device,
                                  **(data.get("mask_generator_kwargs") or {}))
     trainer = lookahead_trainer(model, config, seed=config["seed"], mask_fn=mask_fn,
-                                data_key=data_key, device=device)
+                                data_key=data_key, device=device,
+                                steps_per_call=config.get("steps_per_call", 1))
     pm_vae = convert.pm_vae_state_dict(pm_vae_state.params)
     trainer.init(convert.to_torch({f"pm_vae.{k}": v for k, v in pm_vae.items()}))
 
@@ -97,6 +98,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     callbacks = [CheckpointCallback(os.path.join(run_dir, "train_state.pkl")),
                  LearningRateLoggerCallback(trainer.optimizer.schedule),
                  TensorBoardCallback(os.path.join(run_dir, "tb"))]
+    train_dataset = device_resident(config, train_dataset, device)
     trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
                 validation_freq=config["validation_freq"], resume_from=resume)
     return 0

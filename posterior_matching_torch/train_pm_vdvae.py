@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from posterior_matching_torch import convert
-from posterior_matching_torch.cli import add_dist_backend, parse_config
+from posterior_matching_torch.cli import add_dist_backend, device_resident, parse_config
 from posterior_matching_torch.config import PM_VDVAE_MNIST
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.masking import add_mask, get_mask_generator
@@ -130,7 +130,7 @@ def _train(args, config) -> int:
     mask_fn = get_mask_generator(data["mask_generator"], device,
                                  **(data.get("mask_generator_kwargs") or {}))
     trainer = pm_vdvae_trainer(model, config, seed=config["seed"], mask_fn=mask_fn,
-                               device=device)
+                               device=device, steps_per_call=config.get("steps_per_call", 1))
     trainer.init()
 
     callbacks = []
@@ -145,6 +145,7 @@ def _train(args, config) -> int:
                      ReconstructionCallback(trainer, val_dataset, mask_fn),
                      LearningRateLoggerCallback(trainer.optimizer.schedule),
                      TensorBoardCallback(os.path.join(run_dir, "tb"))]
+    train_dataset = device_resident(config, train_dataset, device)
     trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
                 validation_freq=config["validation_freq"], resume_from=resume)
     return 0

@@ -40,6 +40,16 @@ Counterpart of ``train_pm_vqvae.py:88-224``. Run it as::
   ``tb/``, the TensorBoard events of each validation's logs with
   ``imputations``: ``[x | x_o | 5 imputations]`` strips of 3 validation
   images through the raster sampler (:class:`ImputationCallback`).
+- ``packed_chain`` (``--config.packed_chain``, ``pm_vqvae_celeb_a``'s
+  key; :func:`use_packed_chain`): the Trainer keeps the PixelCNN chain's
+  weights, their Adam moments too, in the stream kernels' stacked layout
+  between steps (:class:`~posterior_matching_torch.models.pixelcnn.
+  PackedChainCodec`), so no step packs or stacks a level; on by default on
+  the GPU's stream chain, ``False`` turns it off, and it needs
+  ``--chain_segment stream``. The checkpoint holds the canonical weights
+  and the optimizer state in the JAX codec's layout.
+- ``steps_per_call`` and ``device_resident_data`` as every training CLI
+  reads them (:mod:`posterior_matching_torch.train.trainer`).
 - ``--resume_dir`` continues a run of either package (a ``packed_chain``
   one too) into a fresh run directory; ``vqvae_dir`` still names the
   VQ-VAE's configuration.
@@ -58,9 +68,10 @@ from typing import Optional, Sequence, Union
 import torch
 
 from posterior_matching_torch import convert
-from posterior_matching_torch.cli import parse_config
+from posterior_matching_torch.cli import device_resident, parse_config
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.masking import add_mask, get_mask_generator
+from posterior_matching_torch.models.pixelcnn import PackedChainCodec, fused_chain_topology
 from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
 from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device, torch_dtype
@@ -114,6 +125,16 @@ def chain_segment(raw: str) -> Union[str, int]:
     return int(raw)
 
 
+def use_packed_chain(option: Optional[bool], model, device, segment) -> bool:
+    """``packed_chain`` as ``train_pm_vqvae.py:115-126`` reads it: None is
+    on where the stream kernels run on the GPU (a CUDA device, the
+    ``stream`` chain and the fused chain's topology), else the option."""
+    if option is not None:
+        return bool(option)
+    return (torch.device(device).type == "cuda" and segment == "stream"
+            and fused_chain_topology(model.pixel_cnn, True))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     mesh.refuse_ranks("train_pm_vqvae", "train_pm_vqvae.py:187 trains on one device")
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -138,15 +159,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     params, _ = convert.random_pm_vqvae_tree(
         config["conditional_dim"], vqvae_config, config["pixel_cnn"], seed=config["seed"])
     params["vqvae"] = vqvae_state.params
-    state = {"vq_ema": {"vqvae": vqvae_state.state["vq_ema"]}}
+    # a VQ-VAE that learned its codebook by the loss has it in its params
+    state = ({"vq_ema": {"vqvae": vqvae_state.state["vq_ema"]}}
+             if "vq_ema" in vqvae_state.state else {})
     model = convert.pm_vqvae_from_jax(params, state, config["conditional_dim"], vqvae_config,
                                       config["pixel_cnn"], device=device,
                                       chain_segment=args.chain_segment,
                                       compute_dtype=config["compute_dtype"])
     mask_fn = get_mask_generator(data["mask_generator"], device,
                                  **(data.get("mask_generator_kwargs") or {}))
+    packed = use_packed_chain(config.get("packed_chain"), model, device, args.chain_segment)
     trainer = pm_vqvae_trainer(model, config, seed=config["seed"], mask_fn=mask_fn,
-                               device=device)
+                               device=device, steps_per_call=config.get("steps_per_call", 1),
+                               param_codec=PackedChainCodec if packed else None)
     trainer.init()
 
     run_dir = make_run_dir(prefix=f"pm-vqvae-{data['dataset']}")
@@ -160,6 +185,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     callbacks = [CheckpointCallback(os.path.join(run_dir, "train_state.pkl")),
                  ImputationCallback(trainer, val_dataset, mask_fn),
                  TensorBoardCallback(os.path.join(run_dir, "tb"))]
+    train_dataset = device_resident(config, train_dataset, device)
     trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
                 validation_freq=config["validation_freq"], resume_from=resume)
     return 0

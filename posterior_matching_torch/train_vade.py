@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from posterior_matching_torch import convert
-from posterior_matching_torch.cli import parse_config
+from posterior_matching_torch.cli import device_resident, parse_config
 from posterior_matching_torch.config import VADE_CONFIGS
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.eval.clustering import (
@@ -102,7 +102,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     # -- phase 3: ELBO training -------------------------------------------------
     with open(os.path.join(run_dir, "model_config.json"), "w") as fp:
         json.dump(config["model"], fp)
-    trainer = vade_trainer(model, config, seed=seed, data_key=data_key, device=device)
+    trainer = vade_trainer(model, config, seed=seed, data_key=data_key, device=device,
+                           steps_per_call=config.get("steps_per_call", 1))
     trainer.init(graft)
     samples = config["cluster_pred_num_samples"]
     pred_fn = lambda m, gen, batch: m.predict_cluster(batch[data_key], gen, samples).argmax(-1)
@@ -111,6 +112,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                  LearningRateLoggerCallback(trainer.optimizer.schedule),
                  TensorBoardCallback(os.path.join(run_dir, "tb"))]
     print("Starting main training...", flush=True)
+    train_dataset = device_resident(config, train_dataset, device)
     trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
                 validation_freq=config["validation_freq"], resume_from=resume)
     return 0

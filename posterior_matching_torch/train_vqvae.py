@@ -41,7 +41,7 @@ from typing import Optional, Sequence
 import torch
 
 from posterior_matching_torch import convert
-from posterior_matching_torch.cli import parse_config
+from posterior_matching_torch.cli import device_resident, parse_config
 from posterior_matching_torch.data import load_datasets
 from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
@@ -81,7 +81,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     train_dataset, val_dataset = load_datasets(config["data"], seed=config["seed"])
     params, state = convert.init_vqvae_tree(config["model"], seed=config["seed"])
     model = convert.vqvae_from_jax(params, state, config["model"], device=device)
-    trainer = vqvae_trainer(model, config, seed=config["seed"], device=device)
+    trainer = vqvae_trainer(model, config, seed=config["seed"], device=device,
+                            steps_per_call=config.get("steps_per_call", 1))
     trainer.init()
 
     run_dir = make_run_dir(prefix=f"vqvae-{config['data']['dataset']}")
@@ -93,6 +94,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     callbacks = [CheckpointCallback(os.path.join(run_dir, "train_state.pkl")),
                  ReconstructionCallback(trainer, val_dataset),
                  TensorBoardCallback(os.path.join(run_dir, "tb"))]
+    train_dataset = device_resident(config, train_dataset, device)
     trainer.fit(train_dataset, config["steps"], callbacks, val_batches=val_dataset,
                 validation_freq=config["validation_freq"], resume_from=resume)
     return 0

@@ -6,19 +6,28 @@
 // emu_launch_grid, with the host
 // calls they make: stream copies, attributes) use, so the kernels' indexing,
 // barriers, operand rings and fragment layouts can be tested without a GPU
-// (tests/test_torch_*_kernel_emulated.py). A block runs as one std::thread
-// per CUDA thread, one block at a time: __syncthreads, the named barrier and
-// __syncwarp are std::barriers; an mbarrier is a side-table entry keyed by
-// its shared-memory offset; a bulk copy lands when it is issued and counts
-// its bytes against the mbarrier; a cp.async copy lands when it is issued
-// (its waits do nothing); mma.sync is warp-collective through a per-warp
-// buffer and reads its operands as TF32 (the low 13 bits ignored), or as
-// bf16 pairs for m16n8k16; a conversion to bf16 rounds to nearest even. The PTX helpers of the kernel are replaced by calls to the emu_*
-// functions here before it is compiled.
+// (tests/test_torch_*_kernel_emulated.py). A block runs one at a time, each
+// CUDA thread a fiber (ucontext) of the launching thread, switched
+// cooperatively: a fiber runs until it waits, at __syncthreads, the named
+// barrier, __syncwarp (barriers counted by phase) or an mbarrier's
+// try_wait, and the launch's fibers take turns in thread order. So a launch
+// takes one CPU whatever its block size: as one std::thread per CUDA
+// thread, a block's hundreds of threads met at a barrier every few
+// operations and spun against one another and against the other test
+// processes of a parallel run (on an 8-core host a wgrad case took 49-59 s
+// on all cores, 17 s pinned to one; a decoder chain case 200 s against 27
+// s; tests/test_torch_gated_wgrad_emulated.py and
+// tests/test_torch_decoder_kernel_emulated.py alone). An mbarrier is a
+// side-table entry keyed by its shared-memory offset; a bulk copy lands when
+// it is issued and counts its bytes against the mbarrier; a cp.async copy
+// lands when it is issued (its waits do nothing); mma.sync is
+// warp-collective through a per-warp buffer and reads its operands as TF32
+// (the low 13 bits ignored), or as bf16 pairs for m16n8k16; a conversion to
+// bf16 rounds to nearest even. The PTX helpers of the kernel are replaced by
+// calls to the emu_* functions here before it is compiled.
 #pragma once
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <chrono>
 #include <cmath>
 #include <cstdint>
@@ -26,8 +35,10 @@
 #include <cstdlib>
 #include <cstring>
 #include <mutex>
-#include <thread>
 #include <vector>
+
+#include <sys/mman.h>
+#include <ucontext.h>
 
 #define __device__
 #define __global__
@@ -81,15 +92,50 @@ inline cudaError_t cudaMemcpyAsync(void* dst, const void* src, size_t bytes, cud
   return cudaSuccess;
 }
 
-extern thread_local Dim threadIdx, blockIdx, blockDim;
-extern std::barrier<>* g_block_bar;     // every thread of the block
-extern std::barrier<>* g_consumer_bar;  // the named barrier's threads
-extern std::barrier<>* g_warp_bar[32];  // one per warp
-extern char* g_smem_base;               // the kernel's shared memory
+// ---- fibers ----------------------------------------------------------------
 
-inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
-inline void __syncwarp() { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
-inline void emu_consumer_sync() { g_consumer_bar->arrive_and_wait(); }
+// A CUDA thread of the running block: its context, and whether it ended.
+struct EmuFiber {
+  ucontext_t ctx;
+  bool done;
+};
+// A barrier of `count` threads: a thread arrives, then waits (letting the
+// other fibers run) until its phase completes.
+struct EmuSync {
+  int count = 0, arrived = 0;
+  unsigned phase = 0;
+};
+constexpr int kEmuMaxThreads = 1024;
+constexpr size_t kEmuStack = 256 << 10;   // bytes of a fiber's stack
+
+extern thread_local Dim threadIdx, blockIdx, blockDim;
+extern EmuSync* g_block_bar;     // every thread of the block
+extern EmuSync* g_consumer_bar;  // the named barrier's threads
+extern EmuSync* g_warp_bar[32];  // one per warp
+extern char* g_smem_base;        // the kernel's shared memory
+extern ucontext_t g_sched;       // the launching thread's context
+extern EmuFiber g_fibers[kEmuMaxThreads];
+extern int g_fiber;              // the running fiber's thread index
+extern void (*g_body)(void*);    // the block's code and its argument
+extern void* g_body_arg;
+extern unsigned g_mma_turn[kEmuMaxThreads];
+
+// The running fiber gives the launching thread its turn back.
+inline void emu_yield() { swapcontext(&g_fibers[g_fiber].ctx, &g_sched); }
+
+inline void emu_sync(EmuSync* s) {
+  const unsigned phase = s->phase;
+  if (++s->arrived == s->count) {
+    s->arrived = 0;
+    ++s->phase;
+    return;
+  }
+  while (s->phase == phase) emu_yield();
+}
+
+inline void __syncthreads() { emu_sync(g_block_bar); }
+inline void __syncwarp() { emu_sync(g_warp_bar[threadIdx.x / 32]); }
+inline void emu_consumer_sync() { emu_sync(g_consumer_bar); }
 inline float __ldg(const float* p) { return *p; }
 inline uint16_t __ldg(const uint16_t* p) { return *p; }
 inline float4 __ldg(const float4* p) { return *p; }
@@ -173,21 +219,15 @@ inline void emu_bulk(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar
 // A wait that lasts a minute (a parity mistake) aborts the test's process
 // instead of hanging it.
 inline bool emu_try_wait(uint32_t bar, uint32_t parity) {
-  static thread_local bool waiting = false;
-  static thread_local std::chrono::steady_clock::time_point since;
-  if (emu_bar(bar).phase.load() != parity) {
-    waiting = false;
-    return true;
+  if (emu_bar(bar).phase.load() != parity) return true;
+  const auto since = std::chrono::steady_clock::now();
+  while (emu_bar(bar).phase.load() == parity) {
+    if (std::chrono::steady_clock::now() - since > std::chrono::seconds(60)) {
+      std::fprintf(stderr, "emulated kernel: an mbarrier wait does not end\n");
+      std::abort();
+    }
+    emu_yield();
   }
-  const auto now = std::chrono::steady_clock::now();
-  if (!waiting) {
-    waiting = true;
-    since = now;
-  } else if (now - since > std::chrono::seconds(60)) {
-    std::fprintf(stderr, "emulated kernel: an mbarrier wait does not end\n");
-    std::abort();
-  }
-  std::this_thread::yield();
   return false;
 }
 
@@ -208,7 +248,7 @@ extern EmuMma g_mma[32][2];
 // bits ignored, as the tensor cores do); each output sums C, then k = 0..7,
 // in float32.
 inline void emu_mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  static thread_local unsigned turn = 0;
+  unsigned& turn = g_mma_turn[threadIdx.x];
   const int lane = threadIdx.x % 32;
   EmuMma& m = g_mma[threadIdx.x / 32][turn];
   turn ^= 1u;
@@ -253,7 +293,7 @@ inline float emu_bf16_half(uint32_t reg, int half) {
 // b1 (2t + 8..2t + 9, g); C and D as emu_mma_tf32's. Each output sums C,
 // then k = 0..15, in float32 (a product of two bf16 values is exact).
 inline void emu_mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  static thread_local unsigned turn = 0;
+  unsigned& turn = g_mma_turn[threadIdx.x];
   const int lane = threadIdx.x % 32;
   EmuMma& m = g_mma[threadIdx.x / 32][turn];
   turn ^= 1u;
@@ -285,31 +325,68 @@ inline void emu_cp_async4(uint32_t dst, const void* src, uint32_t bytes) {
   std::memcpy(g_smem_base + dst, src, bytes);
 }
 
+// A fiber's entry: the block's code, then back to the launching thread
+// (uc_link) for good.
+inline void emu_fiber_main() {
+  g_body(g_body_arg);
+  g_fibers[g_fiber].done = true;
+}
+
+// Fiber stacks, mapped once (pages committed as a stack first touches them).
+inline char* emu_stacks() {
+  static char* base = static_cast<char*>(mmap(nullptr, kEmuStack * kEmuMaxThreads,
+                                              PROT_READ | PROT_WRITE,
+                                              MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE,
+                                              -1, 0));
+  if (base == MAP_FAILED) {
+    std::fprintf(stderr, "emulated kernel: no memory for the fibers' stacks\n");
+    std::abort();
+  }
+  return base;
+}
+
 // Runs `kernel` (a callable taking no arguments) over a grid of gx x gy x gz
-// blocks of `threads` threads, one block at a time (x fastest); `consumers`
-// threads take the named barrier. Shared memory (`smem_bytes` at
-// g_smem_base) starts as NaNs, so stale reads show.
+// blocks of `threads` threads, one block at a time (x fastest), the threads
+// as fibers of this thread; `consumers` threads take the named barrier.
+// Shared memory (`smem_bytes` at g_smem_base) starts each block as NaNs, so
+// stale reads show.
 template <class K>
 void emu_launch_grid(int gx, int gy, int gz, int threads, int consumers, size_t smem_bytes,
                      K kernel) {
+  if (threads > kEmuMaxThreads) {
+    std::fprintf(stderr, "emulated kernel: %d threads a block\n", threads);
+    std::abort();
+  }
+  char* stacks = emu_stacks();
+  g_body = [](void* k) { (*static_cast<K*>(k))(); };
+  g_body_arg = &kernel;
+  std::fill(g_mma_turn, g_mma_turn + threads, 0u);
+  blockDim = Dim{unsigned(threads), 1, 1};
   for (int b = 0; b < gx * gy * gz; ++b) {
     std::memset(g_smem_base, 0xff, smem_bytes);
-    std::barrier<> block(threads), cons(consumers);
-    std::vector<std::barrier<>*> warps;
-    for (int w = 0; w < threads / 32; ++w) warps.push_back(g_warp_bar[w] = new std::barrier<>(32));
+    EmuSync block{threads}, cons{consumers}, warps[32];
+    for (int w = 0; w < 32; ++w) g_warp_bar[w] = &(warps[w] = EmuSync{32});
     g_block_bar = &block;
     g_consumer_bar = &cons;
-    const Dim bid{unsigned(b % gx), unsigned(b / gx % gy), unsigned(b / (gx * gy))};
-    std::vector<std::thread> pool;
-    for (int t = 0; t < threads; ++t)
-      pool.emplace_back([&kernel, t, bid, threads] {
+    blockIdx = Dim{unsigned(b % gx), unsigned(b / gx % gy), unsigned(b / (gx * gy))};
+    for (int t = 0; t < threads; ++t) {
+      EmuFiber& f = g_fibers[t];
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = stacks + size_t(t) * kEmuStack;
+      f.ctx.uc_stack.ss_size = kEmuStack;
+      f.ctx.uc_link = &g_sched;
+      makecontext(&f.ctx, emu_fiber_main, 0);
+      f.done = false;
+    }
+    for (int live = threads; live > 0;) {
+      for (int t = 0; t < threads; ++t) {
+        if (g_fibers[t].done) continue;
+        g_fiber = t;
         threadIdx = Dim{unsigned(t), 0, 0};
-        blockIdx = bid;
-        blockDim = Dim{unsigned(threads), 1, 1};
-        kernel();
-      });
-    for (auto& t : pool) t.join();
-    for (auto* w : warps) delete w;
+        swapcontext(&g_sched, &g_fibers[t].ctx);
+        live -= g_fibers[t].done;
+      }
+    }
   }
 }
 
@@ -323,9 +400,15 @@ void emu_launch(int blocks, int threads, int consumers, size_t smem_bytes, K ker
 // emulated kernel's shared-memory array.
 #define EMU_GLOBALS(smem)                                  \
   thread_local Dim threadIdx, blockIdx, blockDim;          \
-  std::barrier<>* g_block_bar;                             \
-  std::barrier<>* g_consumer_bar;                          \
-  std::barrier<>* g_warp_bar[32];                          \
+  EmuSync* g_block_bar;                                    \
+  EmuSync* g_consumer_bar;                                 \
+  EmuSync* g_warp_bar[32];                                 \
+  ucontext_t g_sched;                                      \
+  EmuFiber g_fibers[kEmuMaxThreads];                       \
+  int g_fiber;                                             \
+  void (*g_body)(void*);                                   \
+  void* g_body_arg;                                        \
+  unsigned g_mma_turn[kEmuMaxThreads];                     \
   char* g_smem_base = reinterpret_cast<char*>(smem);       \
   float g_shfl[1024 * 2];                                  \
   EmuBar g_bars[64];                                       \

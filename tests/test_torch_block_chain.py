@@ -19,6 +19,7 @@ from posterior_matching_tpu.ops.block_chain import block_chain as jax_block_chai
 from posterior_matching_torch import convert
 from posterior_matching_torch.models.vdvae import Encoder
 from posterior_matching_torch.ops import block_chain as bc
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ENC_KW = dict(width=16, blocks="8x3,8d2,4x2,4d4,1x2", bottleneck_multiple=0.5)
 VALUE_TOL = 1e-5

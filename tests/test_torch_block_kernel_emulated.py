@@ -21,7 +21,10 @@ c1/c4 launch), at both geometries the kernels are built for. Tolerance as
 on the GPU: 1e-4 of each tensor's scale. Skips where no C++20 compiler is
 found.
 
-The bf16 builds (``-DPM_CORE_BF16=1``: c1..c3 and their gradients as
+The bf16 builds' cases are ``test_torch_block_kernel_bf16_emulated.py``'s
+(a file of their own, so that the suite's workers build and run the two
+dtypes side by side), with the bars defined here: the bf16 builds
+(``-DPM_CORE_BF16=1``: c1..c3 and their gradients as
 ``mma.sync`` m16n8k16 bf16 products, emulated by the same layout rules) are
 built once each, with the fewest rows a split sums set to 32, and held
 against the bf16 plain version on a 3 x 3 run of MNIST's (192, 48) and a
@@ -45,7 +48,7 @@ import torch
 from posterior_matching_torch.ops import block_chain as bc
 from test_torch_decoder_kernel_emulated import _call, _close, _nan, compile_builds, \
     emulated_sources
-
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 SOURCES = ("block_chain_fwd.cu", "block_chain_bwd.cu")
 BUILDS = {"fwd_split": (SOURCES[0], ["-DPM_CORE_MIN_SPLIT_ROWS=32"]),
           "bwd_split": (SOURCES[1], ["-DPM_CORE_MIN_SPLIT_ROWS=32"]),
@@ -59,21 +62,29 @@ SAVE_FLIPS = 0.05
 END_TOL = 1e-2
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
+def block_libraries(tmp_path_factory, names):
+    """The builds ``names`` of BUILDS compiled against the emulated sources,
+    their entry points typed."""
     out = tmp_path_factory.mktemp("block_emulation")
     emulated_sources(out, ("block_chain_common.cuh", *SOURCES))
-    libs = compile_builds(out, "block_harness.cpp", "BLOCK_SOURCE", BUILDS)
+    libs = compile_builds(out, "block_harness.cpp", "BLOCK_SOURCE",
+                          {n: BUILDS[n] for n in names})
     P, I = ctypes.c_void_p, ctypes.c_int
-    for name in ("fwd_split", "fwd_wide", "fwd_bf16"):
-        libs[name].pm_block_chain_fwd.argtypes = [P, I, P, I, P]
-        libs[name].pm_block_chain_fwd.restype = I
-    for name in ("bwd_split", "bwd_wide", "bwd_bf16"):
-        libs[name].pm_block_chain_bwd.argtypes = [P, I, P, I, P]
-        libs[name].pm_block_chain_bwd.restype = I
-        libs[name].pm_block_chain_bwd_part_floats.argtypes = [P, I]
-        libs[name].pm_block_chain_bwd_part_floats.restype = ctypes.c_longlong
+    for name in names:
+        if name.startswith("fwd"):
+            libs[name].pm_block_chain_fwd.argtypes = [P, I, P, I, P]
+            libs[name].pm_block_chain_fwd.restype = I
+        else:
+            libs[name].pm_block_chain_bwd.argtypes = [P, I, P, I, P]
+            libs[name].pm_block_chain_bwd.restype = I
+            libs[name].pm_block_chain_bwd_part_floats.argtypes = [P, I]
+            libs[name].pm_block_chain_bwd_part_floats.restype = ctypes.c_longlong
     return libs
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    return block_libraries(tmp_path_factory, ("fwd_split", "bwd_split", "fwd_wide", "bwd_wide"))
 
 
 def emulated_chain(fwd, bwd, cfg, x0, weights, g, runs):
@@ -153,53 +164,3 @@ def _saves_close(got, want, what):
     got, want = got.float(), bc.round_bf16(want)
     assert (got != want).float().mean().item() <= SAVE_FLIPS, what
     assert (got - want).abs().max() <= 2.0 ** -6 * want.abs().max(), what
-
-
-# (b, h, w, L, k, (width, mid)): MNIST's (192, 48) at 2 x 7 x 5 with 3 x 3
-# taps (70 rows: 16-row tiles, two weight-gradient splits), digits16's
-# (64, 16) at 80 x 1 x 1 (k = 1, two splits); both on one build per source.
-@pytest.mark.parametrize("b,h,w,L,k,geo", [
-    (2, 7, 5, 2, 3, (192, 48)), (80, 1, 1, 2, 1, (64, 16)),
-])
-def test_emulated_bf16_block_chain_matches_plain(emu, b, h, w, L, k, geo):
-    c, m = geo
-    gen = torch.Generator().manual_seed(b * 100 + h * 10 + k + c + 7)
-    x = torch.randn(b, h, w, c, generator=gen)
-    weights = {n: (torch.randn((L, *s), generator=gen) * s[0] ** -0.5).contiguous()
-               for n, s in bc.weight_shapes(c, m, k)}
-    leaves = [x.requires_grad_(True), *(weights[n].requires_grad_(True) for n in bc.NAMES)]
-    want = bc.block_chain_plain(x, weights, mid=m, k=k, compute_dtype=torch.bfloat16)
-    cot = torch.randn(want.shape, generator=gen)
-    grads_p = torch.autograd.grad(want, leaves, cot)
-
-    cfg = bc.ChainConfig(x, L, m, k, torch.bfloat16)
-    R = cfg.rows
-    flat = lambda t: t.detach().reshape(R, c).contiguous()
-    wk = {n: weights[n].detach().to(cfg.dtype_of(n)).contiguous() for n in bc.NAMES}
-    outs, grads, part = emulated_chain(emu["fwd_bf16"], emu["bwd_bf16"], cfg, flat(x), wk,
-                                       flat(cot), 2)
-    assert part > 0
-    assert all(outs[h_].dtype == torch.bfloat16 for h_ in ("h1", "h2", "h3"))
-    # the forward: its output, and its saves against the plain forward's
-    _bf16_close(outs["xout"][-1], flat(want), "x_final")
-    with torch.no_grad():
-        xs, plain_saves = x.detach(), []
-        for lvl in range(L):
-            *hs, h4 = bc.bf16_sub_fwd(xs, {n: weights[n][lvl].detach() for n in bc.NAMES}, k)
-            plain_saves.append(hs)
-            xs = xs + h4
-    for i, name in enumerate(("h1", "h2", "h3")):
-        _saves_close(outs[name], torch.stack([hs[i] for hs in plain_saves]).reshape(L, R, m),
-                     name)
-    # the backward against the plain backward from the kernel's saves
-    shape = lambda t: t.reshape(L, b, h, w, -1).float()
-    d_x0, d_w = bc.bf16_chain_bwd(x.detach(), shape(outs["xout"]),
-                                  [shape(outs[n]) for n in ("h1", "h2", "h3")],
-                                  {n: weights[n].detach() for n in bc.NAMES}, cot, k)
-    for name, gp in zip(("x0", *bc.NAMES), grads_p):
-        key = "dx0" if name == "x0" else "d" + name
-        got = grads[-1][key]
-        assert got.dtype == torch.float32
-        _bf16_close(got.reshape(gp.shape), d_x0 if name == "x0" else d_w[name], name)
-        _bf16_close(got.reshape(gp.shape), gp, name, END_TOL)
-        assert torch.equal(grads[0][key], got), f"{name}: a relaunch changed the bits"

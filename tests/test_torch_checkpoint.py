@@ -28,6 +28,7 @@ from posterior_matching_tpu.models.pm_vqvae import PMVQVAE as JaxPMVQVAE
 from posterior_matching_torch import convert
 from posterior_matching_torch.config import PM_VDVAE_MNIST_TRAIN, PM_VQVAE_CELEB_A_TRAIN
 from posterior_matching_torch.train import pm_vdvae_trainer, pm_vqvae_trainer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 VQ = {"output_channels": 3, "embedding_dim": 8, "num_embeddings": 16,

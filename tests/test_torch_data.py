@@ -26,6 +26,7 @@ from posterior_matching_tpu.data import datasets as jax_datasets
 from posterior_matching_tpu.data import sources as jax_sources
 from posterior_matching_torch.config import CONFIGS
 from posterior_matching_torch.data import datasets, load_eval_dataset, sources
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL_255 = 1e-3   # on the 0-255 scale
 SHAPES = {"celeb_a": (218, 178, 3), "mnist": (28, 28, 1), "digits16": (16, 16, 1)}
@@ -103,11 +104,6 @@ def test_digits16_has_no_synthetic_stand_in(tmp_path, monkeypatch):
             load("digits16", "train")
 
 
-# The JAX config files' keys the port does not take: execution options of
-# the JAX trainer and the TPU chain's packed weights.
-JAX_ONLY = {"steps_per_call", "device_resident_data", "packed_chain"}
-
-
 def _plain(v):
     """Nested dicts with lists for tuples, as a JSON round trip gives them."""
     if isinstance(v, dict):
@@ -121,7 +117,9 @@ def _plain(v):
     ("pm_vdvae_digits16", jax_pm_vdvae_digits16)])
 def test_configs_are_the_jax_files(name, get_config):
     got = _plain(CONFIGS[name]())
-    want = {k: v for k, v in _plain(get_config().to_dict()).items() if k not in JAX_ONLY}
+    # every key of the JAX file, its execution options (steps_per_call,
+    # device_resident_data, packed_chain) too
+    want = _plain(get_config().to_dict())
     if name == "pm_vdvae_digits16":
         assert got["model"].pop("fused_chain") is None   # the port's execution option
     assert got == want

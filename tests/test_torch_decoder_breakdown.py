@@ -8,6 +8,7 @@ import torch
 
 from posterior_matching_torch.ops import _build, block_chain as bc, decoder_breakdown as db
 from posterior_matching_torch.ops import decoder_chain as dc
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TEXTS = {f: (_build.CSRC / f).read_text() for f in db.FILES}
 SMALL_BIG, BIG_SMALL, BIG_BIG = db._MMAS

@@ -58,6 +58,7 @@ from posterior_matching_torch import (
 )
 from test_torch_pm_vqvae import COND_DIM, NUM_SAMPLES, PC_CONFIG, VQ_CONFIG, jax_key_noise
 from test_torch_vdvae import MODE_TOL, TINY_CONFIG
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 PSNR_TOL = 1e-5   # dB

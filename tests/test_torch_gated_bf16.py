@@ -26,6 +26,7 @@ import torch
 
 from posterior_matching_tpu.ops import gated_chain as jgc
 from posterior_matching_torch.ops import gated_chain as gc
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, W, F, CD = 2, 4, 4, 8, 16
 KEEP = 0.6

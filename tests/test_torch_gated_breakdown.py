@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from posterior_matching_torch.ops import _build, gated_breakdown
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HEADER = (_build.CSRC / "gated_common.cuh").read_text()
 LEVELS = (_build.CSRC / "gated_levels.cuh").read_text()

@@ -22,6 +22,7 @@ import torch
 
 from posterior_matching_tpu.ops.gated_chain import gated_stream as jax_gated_stream
 from posterior_matching_torch.ops import gated_chain as gc
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, W, F, CD, L = 2, 4, 4, 8, 16, 2
 KEEP = 0.6

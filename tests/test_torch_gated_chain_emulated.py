@@ -27,7 +27,10 @@ tolerance, 2e-2, ``tests/test_gated_chain.py:357``) and their mean error to
 sum exactly in float32 in any order); the stream's relaunch is equal bit
 for bit. The float32 builds (their carries moved into scratch of their
 own) against the plain float32 version at 1e-4 of scale, the GPU tests'
-bound. Skips where no C++20 compiler is found.
+bound: those cases are ``test_torch_gated_chain_f32_emulated.py``'s, which
+builds the float32 libraries, so that the suite's workers (``--dist
+loadfile``) build and run the two dtypes side by side. Skips where no C++20
+compiler is found.
 """
 import re
 
@@ -37,6 +40,7 @@ import torch
 from posterior_matching_torch.ops import _build, gated_chain as gc
 from test_torch_decoder_kernel_emulated import compile_builds
 from test_torch_row_kernel_emulated import _replace_helpers, write_ptx_header
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SOURCES = ("gated_stream_fwd.cu", "gated_stream_bwd.cu", "gated_levels_fwd.cu",
            "gated_levels_bwd.cu")
@@ -87,8 +91,10 @@ def emulate_launches(src: str) -> str:
     return "".join(out) + src[pos:]
 
 
-@pytest.fixture(scope="module")
-def chain_libs(tmp_path_factory):
+def chain_libraries(tmp_path_factory, bf16: bool):
+    """The gated sources with their launches emulated, compiled: the four
+    ``_bf16`` builds, or the two float32 builds of the pair and segment
+    sources (the float32 stream's are the GPU tests')."""
     out = tmp_path_factory.mktemp("gated_chain_emulation")
     write_ptx_header(out)
     for name in ("gated_common.cuh", "gated_levels.cuh", *SOURCES):
@@ -98,10 +104,16 @@ def chain_libs(tmp_path_factory):
     builds = {}
     for src in SOURCES:
         stem = src.removesuffix(".cu")
-        builds[stem + "_bf16"] = (src, ["-DPM_CORE_BF16=1"])
-        if stem.startswith("gated_levels"):
+        if bf16:
+            builds[stem + "_bf16"] = (src, ["-DPM_CORE_BF16=1"])
+        elif stem.startswith("gated_levels"):
             builds[stem] = (src, [])
     return compile_builds(out, "gated_chain_harness.cpp", "GATED_SOURCE", builds)
+
+
+@pytest.fixture(scope="module")
+def chain_libs(tmp_path_factory):
+    return chain_libraries(tmp_path_factory, bf16=True)
 
 
 @pytest.fixture
@@ -188,18 +200,3 @@ def test_bf16_chain_kernels_match_plain(emulated, mode, down):
         again_o, again_g = _run(mode, False, case, torch.bfloat16, base)
         assert all(torch.equal(a, b) for a, b in zip(got_o + got_g, again_o + again_g)), \
             f"{mode}: a relaunch differs"
-
-
-@pytest.mark.parametrize("mode", ["segment"])
-def test_float32_level_kernels_match_plain(emulated, mode):
-    """The float32 build after the move of the carries into their own
-    scratch: the segment's down pass against the plain float32 version."""
-    case = _case(True, seed=9)
-    case = (case[0].detach().float().requires_grad_(True),
-            case[1].detach().float().requires_grad_(True),
-            [tuple(t.detach().float().requires_grad_(True) for t in p) for p in case[2]],
-            case[3], case[4])
-    got_o, got_g = _run(mode, False, case, torch.float32, L)
-    want_o, want_g = _run(mode, True, case, torch.float32, L)
-    _held(got_o, want_o, TOL_F32, TOL_F32, f"{mode} outputs")
-    _held(got_g, want_g, TOL_F32, TOL_F32, f"{mode} gradients")

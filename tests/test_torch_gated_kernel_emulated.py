@@ -12,7 +12,11 @@ concat_elu, the dropout hash), B ring across term and chunk boundaries,
 card's timing, memory model and PTX are left to the GPU tests. Toy grids
 (2 images of 4 x 4 and, ragged, 3 x 5) at both built widths: 128 filters
 and 64 (digits16's; conv_a's N = 64 is one n8 tile a warp).
-Tolerance as on the GPU: 1e-4 of the tensor's scale. Skips where no C++20
+Tolerance as on the GPU: 1e-4 of the tensor's scale. This file holds the
+emulation, its helpers and ``data_gemm``'s float32 cases; ``wgrad``'s and
+the bf16 build's are in ``test_torch_gated_{wgrad,kernel_bf16,wgrad_bf16}_
+emulated.py``, one entry point and build a file, so that the suite's
+workers (``--dist loadfile``) run them side by side. Skips where no C++20
 compiler is found.
 """
 import ctypes
@@ -25,6 +29,7 @@ import torch
 
 from posterior_matching_torch.ops import _build, gated_chain as gc
 from test_torch_row_kernel_emulated import _replace_helpers, write_ptx_header
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
 TOL = 1e-4
@@ -48,42 +53,37 @@ def emulated_headers(out: Path):
         _replace_helpers(levels, "gated_levels.cuh").replace(_SMEM, ""))
 
 
-@pytest.fixture(scope="module")
-def builds(tmp_path_factory):
-    """The harness compiled against the emulated headers twice, both at
-    once: the float32 build and the bf16 one (``-DPM_CORE_BF16=1``)."""
+def gated_library(tmp_path_factory, bf16: bool):
+    """The harness compiled against the emulated headers: the float32 build,
+    or with ``bf16`` the bf16 one (``-DPM_CORE_BF16=1``). Each test file
+    compiles the one build its cases run."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to compile the emulated kernels")
     out = tmp_path_factory.mktemp("gated_emulation")
     emulated_headers(out)
-    procs = {}
-    for name, flags in (("f32", []), ("bf16", ["-DPM_CORE_BF16=1"])):
-        lib = out / f"libgated_emulated_{name}.so"
-        procs[name] = (subprocess.Popen(
-            [cxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", *flags,
-             "-I", str(out), "-I", str(EMULATION),
-             "-o", str(lib), str(EMULATION / "gated_harness.cpp")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode and "<barrier>" in log:
-            pytest.skip("needs a C++20 standard library (<barrier>)")
-        assert proc.returncode == 0, log[-4000:]
-        cdll = ctypes.CDLL(str(lib))
-        P, I, U, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-        cdll.emu_data_gemm.argtypes = ([I] * 5 + [P] * 3 + [U, U, F32, I, I] + [P] * 8 + [I, I])
-        cdll.emu_data_gemm.restype = I
-        cdll.emu_wgrad.argtypes = ([I] * 6 + [P, I, U, U, I, I, F32] + [P] * 4 + [I, I])
-        cdll.emu_wgrad.restype = I
-        libs[name] = cdll
-    return libs
+    name, flags = ("bf16", ["-DPM_CORE_BF16=1"]) if bf16 else ("f32", [])
+    lib = out / f"libgated_emulated_{name}.so"
+    proc = subprocess.run(
+        [cxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", *flags,
+         "-I", str(out), "-I", str(EMULATION), "-o", str(lib),
+         str(EMULATION / "gated_harness.cpp")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode and "<barrier>" in proc.stdout:
+        pytest.skip("needs a C++20 standard library (<barrier>)")
+    assert proc.returncode == 0, proc.stdout[-4000:]
+    cdll = ctypes.CDLL(str(lib))
+    P, I, U, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+    cdll.emu_data_gemm.argtypes = ([I] * 5 + [P] * 3 + [U, U, F32, I, I] + [P] * 8 + [I, I])
+    cdll.emu_data_gemm.restype = I
+    cdll.emu_wgrad.argtypes = ([I] * 6 + [P, I, U, U, I, I, F32] + [P] * 4 + [I, I])
+    cdll.emu_wgrad.restype = I
+    return cdll
 
 
 @pytest.fixture(scope="module")
-def emu(builds):
-    return builds["f32"]
+def emu(tmp_path_factory):
+    return gated_library(tmp_path_factory, bf16=False)
 
 
 def _ptr(t):
@@ -210,206 +210,3 @@ def test_emulated_data_gemm_matches_plain(emu, F, case, h, w):
         dneg = torch.where(-z > 0, torch.ones_like(z), torch.exp(-z))
         want = base1 + (base2 if base2 is not None else 0.0) + g[:, :F] * dpos - g[:, F:] * dneg
         _close(out, want, "out")
-
-
-# (N as a multiple of F, grid, taps (skh, skw, pad_top, pad_left), levels,
-# dropout, rows a split or None for one split): conv_a's and an aux
-# product's kinds (N = F), conv_b's (2F, dropout), ragged rows, and row
-# splits (the last one short) added by reduce_splits; at 128 filters and at
-# 64.
-_WGRAD_CASES = [
-    (1, 4, 4, (2, 2, 1, 1), 2, False, None, "taps0"),
-    (2, 3, 5, (2, 3, 1, 1), 2, True, None, "taps1"),
-    (2, 4, 4, (1, 1, 0, 0), 2, True, 16, "taps2"),
-    (1, 3, 5, (2, 2, 1, 1), 1, False, 16, "taps3"),
-]
-
-
-def _wgrad_id(f, c):
-    nf, h, w, _, L, drop, rows, taps = c
-    return "-".join(map(str, (nf * f, h, w, taps, L, drop, rows)))
-
-
-@pytest.mark.parametrize("F,nf,h,w,taps,L,drop,rows", [
-    *(pytest.param(128, *c[:-1], id=_wgrad_id(128, c)) for c in _WGRAD_CASES),
-    *(pytest.param(64, *c[:-1], id="f64-" + _wgrad_id(64, c)) for c in _WGRAD_CASES),
-])
-def test_emulated_wgrad_matches_plain(emu, F, nf, h, w, taps, L, drop, rows):
-    N = nf * F
-    gen = torch.Generator().manual_seed(100 * N + 10 * h + L)
-    b, base, sub = 2, 3, 1
-    R = b * h * w
-    skh, skw, pt, pl = taps
-    keep = KEEP if drop else 1.0
-    S = 1 if rows is None else -(-R // rows)
-    srcs = [_rand(gen, R, F) for _ in range(L)]
-    # the cotangents, followed by NaNs: a read past the last row shows
-    gcot = torch.cat([_rand(gen, L * R * N), torch.full((kBM_ROWS * N,), float("nan"))])
-    gcot = gcot[: L * R * N].view(L, R, N)
-    outs = [torch.full((skh * skw * 2 * F, N), float("nan")) for _ in range(L)]
-    part = torch.full((L * S * skh * skw * 2 * F * N,), float("nan")) if S > 1 else None
-    assert emu.emu_wgrad(
-        F, N, L, b, h, w, (ctypes.c_int * 4)(*taps), int(drop), SEED, gc.keep_threshold(keep),
-        base, sub, 1.0 / keep, _arr(srcs), _arr(outs), _ptr(gcot), _ptr(part), S,
-        rows or R) == 0
-    for lvl in range(L):
-        mask = gc.dropout_keep_mask(SEED, 2 * (base + lvl) + sub, b, h, w, 2 * F, keep)
-        a = _operand(srcs[lvl], A_CELU_DROP if drop else A_CELU, (b, h, w), mask, keep)
-        want = torch.cat([_shift(a, i - pt, j - pl).reshape(R, -1).T @ gcot[lvl]
-                          for i in range(skh) for j in range(skw)])
-        _close(outs[lvl], want, f"level {lvl}")
-
-
-# ---- the bf16 build (-DPM_CORE_BF16=1) --------------------------------------
-
-# A float32 output of bf16 products against the same products of the rounded
-# operands summed in float64: the sums differ in their order only, but an
-# operand that concat_elu's exp rounds one float32 ulp apart on the two sides
-# can round to the neighbouring bf16 value (one bf16 ulp, 2^-8, of one term),
-# so 2e-3 of the tensor's scale. A rounded output: at most 2% of its values
-# one bf16 ulp from the rounded reference, none further than 2^-7 of scale.
-TOL_BF = 2e-3
-FLIP_SHARE = 0.02
-
-
-def _bf(t):
-    return t.to(torch.bfloat16)
-
-
-def _rb(t):
-    return t.to(torch.bfloat16).float()
-
-
-def _close_bf16(got, want, what):
-    """A bf16 output ``got`` against the float32 ``want`` it rounds."""
-    got, scale = got.float(), max(1.0, want.abs().max().item())
-    assert (got - want).abs().max().item() <= 2 ** -7 * scale, what
-    share = (got != _rb(want)).float().mean().item()
-    assert share <= FLIP_SHARE, (what, share)
-
-
-_GEMM_CASES_BF = [("bias", 4, 4), ("gate_drop", 3, 5), ("celu_bwd", 4, 4),
-                  ("celu_bwd_drop", 3, 5), ("celu_bwd_act", 4, 4), ("celu_bwd_round", 3, 5)]
-
-
-@pytest.mark.parametrize("F,case,h,w", [
-    *(pytest.param(128, *c, id="-".join(map(str, c))) for c in _GEMM_CASES_BF),
-    *(pytest.param(64, *c, id="f64-" + "-".join(map(str, c))) for c in _GEMM_CASES_BF),
-])
-def test_emulated_data_gemm_bf16_matches_plain(builds, F, case, h, w):
-    """The bf16 path of data_gemm: A rounded to bf16 after concat_elu and
-    the mask, bf16 weights through the ring, m16n8k16 MMAs, and each
-    epilogue's rounding (a1 and b1 saved in bf16, the gate taken on the
-    saved b1, x' rounded; a backward output in float32, in bf16
-    (``celu_bwd_act``: a skip's or the chain input's cotangent) or as a
-    float32 carry rounded to bf16 (``celu_bwd_round``: the stream's))."""
-    emu = builds["bf16"]
-    gen = torch.Generator().manual_seed(sum(map(ord, case)) * 100 + 10 * h + w + F + 7)
-    b = 2
-    grid, R = (b, h, w), b * h * w
-    key = gc.stream_key(SEED, BLOCK_ID)
-    mask = gc.dropout_keep_mask(SEED, BLOCK_ID, b, h, w, 2 * F, KEEP)
-    drop = case in ("gate_drop", "celu_bwd_drop")
-    keep = KEEP if drop else 1.0
-    s = 0.05
-    if case == "bias":
-        N, epi, mode = F, E_BIAS, A_CELU
-        x, aux = _bf(_rand(gen, R, F)), _bf(_rand(gen, R, F))
-        taps = [(-1, 0), (0, -1)]
-        srcs = [x, x, aux]
-        ws = [_bf(_rand(gen, 2 * F, F, scale=s)) for _ in range(3)]
-        terms = [(F, 2 * F, mode, dy, dx, F, 0) for dy, dx in taps] + [(F, 2 * F, mode, 0, 0,
-                                                                       F, 0)]
-    elif case == "gate_drop":
-        N, epi, mode = 2 * F, E_GATE, A_CELU_DROP
-        a1 = _bf(_rand(gen, R, F))
-        taps = [(-1, -1), (-1, 0), (0, 0)]
-        srcs = [a1] * 3
-        ws = [_bf(_rand(gen, 2 * F, 2 * F, scale=s)) for _ in taps]
-        terms = [(F, 2 * F, mode, dy, dx, 2 * F, 0) for dy, dx in taps]
-    else:
-        N, epi, mode = 2 * F, E_CELU_BWD, A_IDENT
-        c = 2 * F if case in ("celu_bwd", "celu_bwd_round") else F
-        src = _rand(gen, R, c)
-        taps = [(1, 0), (0, 1), (1, 1)]
-        srcs = [src] * 3
-        ws = [_bf(_rand(gen, 2 * F, c, scale=s)) for _ in taps]   # B(k, n) = w[n, k]
-        terms = [(c, c, mode, dy, dx, c, 1) for dy, dx in taps]
-    bias = _rand(gen, N, scale=s) if epi != E_CELU_BWD else None
-    proj = _rand(gen, b, N) if epi == E_GATE else None
-    xres = _bf(_rand(gen, R, F)) if epi == E_GATE else None
-    z = _bf(_rand(gen, R, F)) if epi == E_CELU_BWD else None
-    base1 = _rand(gen, R, F) if epi == E_CELU_BWD else None
-    base2 = _bf(_rand(gen, R, F)) if case == "celu_bwd" else None
-    out_c = epi != E_CELU_BWD or case == "celu_bwd_act"
-    out = torch.full((R, N if epi != E_CELU_BWD else F), float("nan"),
-                     dtype=torch.bfloat16 if out_c else torch.float32)
-    out2 = torch.full((R, F), float("nan"), dtype=torch.bfloat16) if epi == E_GATE else None
-    ints = (ctypes.c_int * (7 * len(terms)))(*[v for t in terms for v in t])
-    assert emu.emu_data_gemm(
-        N, b, h, w, len(terms), _arr(srcs), _arr(ws), ints, key, gc.keep_threshold(keep),
-        1.0 / keep, int(drop), epi, _ptr(bias), _ptr(proj), _ptr(xres), _ptr(z),
-        _ptr(base1), _ptr(base2), _ptr(out), _ptr(out2), int(out_c),
-        int(case == "celu_bwd_round")) == 0
-
-    acc = torch.zeros(R, N, dtype=torch.float64)
-    for src, wt, (_, _, md, dy, dx, _, trans) in zip(srcs, ws, terms):
-        a = _rb(_shift(_operand(src.float(), md, grid, mask, keep), dy, dx).reshape(R, -1))
-        acc = acc + a.double() @ (wt.T if trans else wt).double()
-    acc = acc.float()
-    img = torch.arange(R) // (h * w)
-    if epi == E_BIAS:
-        _close_bf16(out, acc + bias, "out")
-    elif epi == E_GATE:
-        b1 = acc + bias + proj[img]
-        _close_bf16(out, b1, "out")
-        act, gate = out.float()[:, :F], out.float()[:, F:]   # the saved b1
-        _close_bf16(out2, xres.float() + torch.sigmoid(gate) * act, "out2")
-    else:
-        g = acc * mask.reshape(R, 2 * F) / keep if drop else acc
-        zf = z.float()
-        dpos = torch.where(zf > 0, torch.ones_like(zf), torch.exp(zf))
-        dneg = torch.where(-zf > 0, torch.ones_like(zf), torch.exp(-zf))
-        extra = base2.float() if base2 is not None else 0.0
-        want = base1 + extra + g[:, :F] * dpos - g[:, F:] * dneg
-        if out_c or case == "celu_bwd_round":
-            _close_bf16(out, want, "out")
-        else:
-            err = (out - want).abs().max().item()
-            assert err <= TOL_BF * max(1.0, want.abs().max().item()), err
-
-
-@pytest.mark.parametrize("F,nf,h,w,taps,L,drop,rows", [
-    *(pytest.param(128, *c[:-1], id=_wgrad_id(128, c)) for c in _WGRAD_CASES[1:3]),
-    *(pytest.param(64, *c[:-1], id="f64-" + _wgrad_id(64, c)) for c in _WGRAD_CASES[::3]),
-])
-def test_emulated_wgrad_bf16_matches_plain(builds, F, nf, h, w, taps, L, drop, rows):
-    """The bf16 path of wgrad: the bf16 sources' concat_elu (and mask)
-    rounded to bf16 as they are staged along K, the float32 cotangent rows
-    rounded at the fragment load, the row splits summed in float32 in split
-    order."""
-    emu = builds["bf16"]
-    N = nf * F
-    gen = torch.Generator().manual_seed(100 * N + 10 * h + L + 3)
-    b, base, sub = 2, 3, 1
-    R = b * h * w
-    skh, skw, pt, pl = taps
-    keep = KEEP if drop else 1.0
-    S = 1 if rows is None else -(-R // rows)
-    srcs = [_bf(_rand(gen, R, F)) for _ in range(L)]
-    gcot = _rand(gen, L, R, N)
-    outs = [torch.full((skh * skw * 2 * F, N), float("nan")) for _ in range(L)]
-    part = torch.full((L * S * skh * skw * 2 * F * N,), float("nan")) if S > 1 else None
-    assert emu.emu_wgrad(
-        F, N, L, b, h, w, (ctypes.c_int * 4)(*taps), int(drop), SEED, gc.keep_threshold(keep),
-        base, sub, 1.0 / keep, _arr(srcs), _arr(outs), _ptr(gcot), _ptr(part), S,
-        rows or R) == 0
-    for lvl in range(L):
-        mask = gc.dropout_keep_mask(SEED, 2 * (base + lvl) + sub, b, h, w, 2 * F, keep)
-        a = _rb(_operand(srcs[lvl].float(), A_CELU_DROP if drop else A_CELU, (b, h, w), mask,
-                         keep))
-        want = torch.cat([_shift(a, i - pt, j - pl).reshape(R, -1).double().T
-                          @ _rb(gcot[lvl]).double()
-                          for i in range(skh) for j in range(skw)]).float()
-        err = (outs[lvl] - want).abs().max().item()
-        assert err <= TOL_BF * max(1.0, want.abs().max().item()), (lvl, err)

@@ -33,6 +33,7 @@ from posterior_matching_tpu.ops.gated_chain import gated_pair as jax_gated_pair
 from posterior_matching_tpu.ops.gated_chain import gated_segment as jax_gated_segment
 from posterior_matching_torch.models.pixelcnn import PixelCNN
 from posterior_matching_torch.ops import gated_chain as gc
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, W, F, CD = 2, 4, 4, 8, 16
 KEEP = 0.6

@@ -29,6 +29,7 @@ from posterior_matching_torch.eval.clustering import (
 from posterior_matching_torch.eval.gmm import GaussianMixture
 from posterior_matching_torch.train.optim import Adam
 from posterior_matching_torch.train.trainer import Trainer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def blobs(seed, k=4, d=3, sep=12.0):

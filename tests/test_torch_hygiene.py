@@ -41,6 +41,7 @@ from posterior_matching_torch.train.trainer import (
     pm_vdvae_trainer,
     pm_vqvae_loss,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "posterior_matching_torch").rglob("*.py")) + [

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from posterior_matching_torch.ops import _build, gated_chain as gc, sampler_chain as sc
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 UNBUILT = 96
 BUILT = re.escape(str(gc.KERNEL_WIDTHS))

@@ -20,6 +20,10 @@ package's, on the CPU at toy widths.
   masks and actions equal, the RMSE curve, the action distributions and
   the reconstructions at 1e-5 of scale; and one eval step on two other
   instances, with a mask observing some features already.
+
+The acquisition's trajectories and eval step are
+``tests/test_torch_lookahead_acquisition.py``'s (on this file's recorded
+draws).
 """
 import os
 
@@ -42,6 +46,7 @@ from posterior_matching_torch import acquisition, convert  # noqa: E402
 from posterior_matching_torch.train.trainer import lookahead_loss_fn, lookahead_trainer  # noqa
 from test_torch_vade import jax_trainable  # noqa: E402
 from test_torch_vae import GRAD_TOL, close, randomize, t  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CONV_PM_VAE = {"latent_dim": 3, "encoder_net": "ConvEncoder", "decoder_net": "ConvDecoder",
                "posterior_dist": "TriLGaussian", "decoder_dist": "Bernoulli",
@@ -222,68 +227,3 @@ def test_trainer_freezes_and_steps_as_jax(record):
 # ---------------------------------------------------------------------------
 
 ACQ_SAMPLES, EPISODE = 4, 4
-
-
-@pytest.fixture(scope="module")
-def acq_model():
-    pm_cfg, shape, subsample = MODELS["conv"]
-    cfg = lookahead_config(shape, subsample)
-    x, b = data(shape, seed=2, n=2)
-    jm = JaxLookahead.from_config(cfg, pm_cfg)
-    params = randomize(init_shapes(jm, x, b), 8, std=0.4)
-    port = convert.lookahead_from_jax(params, cfg, pm_cfg, device="cpu")
-    return jm, params, port, x, b
-
-
-def _stack(per_instance):
-    """Per-instance draws ``[S, 1, L]`` -> the batch's ``[S, N, L]``, draw
-    by draw."""
-    return [t(np.concatenate(ds, axis=1)) for ds in zip(*per_instance)]
-
-
-def test_trajectories_match_jax(acq_model, record):
-    """Both rollouts of ``EPISODE`` steps from nothing observed."""
-    jm, params, port, x, b = acq_model
-    eval_fn = jax_acq.make_acquisition_eval_fn(jm, {"params": params}, ACQ_SAMPLES)
-    collect = jax_acq.make_collect_trajectory_fn(eval_fn, EPISODE)
-    want, per_instance = [], []
-    with jax.disable_jit():
-        for i in range(len(x)):
-            record.clear()
-            want.append(jax.device_get(collect(x[i], jax.random.PRNGKey(10 + i))))
-            per_instance.append(list(record))
-    assert all(len(r) == 2 * 2 * EPISODE for r in per_instance)
-    got = acquisition.make_collect_trajectory_fn(
-        acquisition.make_acquisition_eval_fn(port, ACQ_SAMPLES), EPISODE)(
-        t(x), iter(_stack(per_instance)))
-    for r, rollout in enumerate(("sampling", "lookahead")):
-        g = {k: v.numpy() for k, v in got[r].items()}
-        for i in range(len(x)):
-            w = want[i][r]
-            for k in ("sampling_action", "lookahead_action", "mask"):
-                np.testing.assert_array_equal(g[k][i], np.asarray(w[k]), err_msg=f"{rollout} {k}")
-            for k in ("rmse", "sampling_probs", "lookahead_probs", "reconstruction"):
-                close(g[k][i], w[k], what=f"{rollout} {k}")
-            assert g["mask"][i].shape == (EPISODE, *x.shape[1:])
-            actions = g[f"{rollout}_action"][i]
-            assert len(set(actions.tolist())) == EPISODE    # a new feature each step
-            np.testing.assert_array_equal(g["mask"][i][-1].reshape(-1)[actions[:-1]], 1.0)
-
-
-def test_eval_step_matches_jax(acq_model, record):
-    jm, params, port, x, b = acq_model
-    eval_fn = jax_acq.make_acquisition_eval_fn(jm, {"params": params}, ACQ_SAMPLES)
-    want, per_instance = [], []
-    with jax.disable_jit():
-        for i in range(len(x)):
-            record.clear()
-            want.append(eval_fn(x[i] * b[i], b[i], jax.random.PRNGKey(i)))
-            per_instance.append(list(record))
-    assert all(len(r) == 2 for r in per_instance)
-    got = acquisition.make_acquisition_eval_fn(port, ACQ_SAMPLES)(
-        t(x * b), t(b), iter(_stack(per_instance)))
-    for i in range(len(x)):
-        for k in ("sampling_action", "lookahead_action"):
-            assert int(got[k][i]) == int(want[i][k]), k
-        for k in ("sampling_probs", "lookahead_probs", "reconstruction"):
-            close(got[k][i], want[i][k], what=k)

@@ -15,6 +15,7 @@ import torch
 
 from posterior_matching_tpu import masking as jax_masking
 from posterior_matching_torch import masking
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N = 2048
 SHAPE = (N, 64, 64, 3)

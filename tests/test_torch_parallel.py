@@ -68,6 +68,7 @@ from posterior_matching_torch.train.trainer import pm_vqvae_trainer
 from test_torch_train import COND, PC, VQ
 from test_torch_vdvae import TINY_CONFIG
 from test_torch_vqvae_train import CFG as VQ_CFG
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 VDVAE_TRAIN = {"gradient_clip": 20.0}   # below the toy's gradient norms
 MOMENT_TOL, PARAM_STEP_SHARE, RESUME_PARAM_TOL = 1e-4, 0.05, 2e-6

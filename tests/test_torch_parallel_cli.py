@@ -34,6 +34,7 @@ from posterior_matching_torch.data import sources
 from test_torch_pm_vqvae import COND_DIM, PC_CONFIG, VQ_CONFIG
 from test_torch_train_cli import TINY
 from test_torch_vdvae import TINY_CONFIG
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 IMPUTATION_FILES = ("psnrs", "prd_data", "f_scores")
 

@@ -29,6 +29,7 @@ from posterior_matching_torch import convert
 from test_torch_train import COND, LR, PC, VQ
 from test_torch_vqvae_train import CFG as VQ_CFG
 from test_torch_vqvae_train import EMA
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 VQ_LR = 1e-3
 EMA_TOL = 1e-6

@@ -15,6 +15,7 @@ import torch
 from posterior_matching_tpu.models.pixelcnn import PixelCNN as JaxPixelCNN
 from posterior_matching_torch.convert import pixel_cnn_state_dict, to_torch
 from posterior_matching_torch.models.pixelcnn import PixelCNN
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(num_indices=12, image_shape=(4, 4), num_resnet=2, num_hierarchies=1,
           num_filters=8, dropout=0.0)

@@ -36,6 +36,7 @@ from posterior_matching_torch.models.pixelcnn import (
 )
 from posterior_matching_torch.models.pm_vqvae import impute_sampler, pm_vqvae_impute
 from test_torch_pm_vqvae import VQ_CONFIG, jax_key_noise
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 COND = 6
 TOPOLOGIES = {

@@ -40,6 +40,7 @@ from posterior_matching_tpu.train.state import load_train_state as jax_load  # n
 from posterior_matching_torch import convert, eval_pm_vae_uci, train_pm_vae  # noqa: E402
 from posterior_matching_torch.config import CONFIGS  # noqa: E402
 from posterior_matching_torch.data import sources  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GAS_FLAGS = ["--config.model.encoder_net_config.hidden_units=16",
              "--config.model.decoder_net_config.hidden_units=16",

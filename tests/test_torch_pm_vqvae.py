@@ -28,6 +28,7 @@ from posterior_matching_tpu.models.pm_vqvae import (
 from posterior_matching_tpu.train.state import TrainState, save_train_state
 from posterior_matching_torch import convert
 from posterior_matching_torch.models.pm_vqvae import pm_vqvae_impute
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 REPO = Path(__file__).resolve().parents[1]

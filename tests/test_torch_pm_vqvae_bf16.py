@@ -46,6 +46,7 @@ from posterior_matching_torch.train.state import load_train_state
 from test_torch_pm_vqvae import COND_DIM, VQ_CONFIG
 from test_torch_resume_cli import _run
 from test_torch_vqvae_cli import STAGE1, STAGE2
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PC_CONFIG = {"image_shape": [4, 4], "num_resnet": 3, "num_hierarchies": 1,
              "num_filters": 8, "dropout": 0.0, "num_indices": 16}
@@ -145,7 +146,14 @@ def pixel_cnn_case():
     cond = rng.randn(2, COND_DIM).astype(np.float32)
     kw = {k: (tuple(v) if k == "image_shape" else v) for k, v in PC_CONFIG.items()}
     jm = JaxPixelCNN(fused_chain=False, dtype="bfloat16", **kw)
-    variables = jax.device_get(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(cond)))
+    # the port's seeded weights carried to JAX (JAX's eager init with a
+    # condition takes tens of seconds), its structure JAX's init's
+    torch.manual_seed(0)
+    seeded = PixelCNN(**kw, conditional_dim=COND_DIM)
+    variables = {"params": convert.pixel_cnn_tree(seeded.state_dict())}
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(cond))
+    assert (jax.tree.map(lambda a: a.shape, shapes["params"])
+            == jax.tree.map(lambda a: a.shape, variables["params"]))
     sd = convert.to_torch(convert.pixel_cnn_state_dict(variables["params"]))
     return kw, variables, sd, x, cond
 

@@ -20,9 +20,10 @@ checkpoints, on the CPU at toy sizes.
   frozen subtree and the clipped chain among the cases.
 - A ``packed_chain`` checkpoint (``PackedChainCodec``'s stacked moments):
   the port's unpacking inverts the JAX package's ``pack_chain_params``
-  exactly, and a tiny PM-VQVAE trained packed by the JAX trainer (fused
-  chain in interpret mode) resumes in the port to the state that its
-  canonical twin resumes to, within 1e-5 of scale.
+  exactly; a tiny PM-VQVAE trained packed by the JAX trainer resumes in
+  the port as its canonical twin does (``tests/test_torch_resume_packed.py``,
+  a file of its own so that the suite's workers run its interpret-mode JAX
+  training beside the rest).
 """
 import jax
 import jax.numpy as jnp
@@ -34,7 +35,7 @@ from flax import linen as fnn
 from torch import nn
 
 from posterior_matching_tpu.data.datasets import ArrayDataset as JaxArrayDataset
-from posterior_matching_tpu.models.pixelcnn import PackedChainCodec, pack_chain_params
+from posterior_matching_tpu.models.pixelcnn import pack_chain_params
 from posterior_matching_tpu.train import Trainer as JaxTrainer
 from posterior_matching_tpu.train.state import load_train_state as jax_load
 from posterior_matching_tpu.train.state import save_train_state as jax_save
@@ -45,6 +46,7 @@ from posterior_matching_torch.train import trainer as tr
 from posterior_matching_torch.train.optim import Adam, ClippedAdam
 from posterior_matching_torch.train.schedules import exponential_decay
 from posterior_matching_torch.train.state import TrainState, load_train_state, save_train_state
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _stream(ds, n):
@@ -350,64 +352,3 @@ def test_packed_moments_unpack_to_the_canonical_tree():
             np.testing.assert_array_equal(g, w)
     vertical = sd_got["layers.up_0_0_vertical_conv_a.kernel"]
     assert np.all(vertical[2] == 0) and np.all(vertical[:2] != 0)   # rows 0..1 of 3
-
-
-def test_packed_chain_checkpoint_resumes_in_the_port(tmp_path):
-    """A tiny PM-VQVAE trained 3 steps by the JAX trainer with and without
-    ``PackedChainCodec`` (fused chain in interpret mode, no dropout, masks
-    in the batch); the port continues each to step 5: the same state within
-    1e-5 of scale."""
-    from posterior_matching_tpu.models.pm_vqvae import PMVQVAE as JaxPMVQVAE
-
-    pc = dict(PC, fused_chain="interpret")
-    jm = JaxPMVQVAE.from_config(16, VQ, pc)
-    rng = np.random.RandomState(0)
-    data = {"image": (rng.rand(16, 16, 16, 1) > 0.5).astype(np.float32),
-            "mask": (rng.rand(16, 16, 16, 1) > 0.5).astype(np.float32)}
-    params, state = convert.random_pm_vqvae_tree(16, VQ, PC, seed=2)
-
-    def init_fn(key, batch):
-        variables = jm.init({"params": key, "dropout": key}, batch["image"], batch["mask"],
-                            training=True)
-        return variables.pop("params"), dict(variables)
-
-    def jax_fit(packed):
-        cell = []
-
-        def codec(init_params):
-            cell.append(PackedChainCodec(init_params, num_resnet=2, num_filters=8))
-            return cell[0]
-
-        def loss_fn(p, s, key, step, batch, is_training):
-            chain = None
-            if cell and cell[0].is_encoded(p):
-                p, chain = cell[0].split_encoded(p)
-            ll, _ = jm.apply({"params": p, **s}, batch["image"], batch["mask"],
-                             training=is_training, rngs={"dropout": key}, mutable=["vq_ema"],
-                             packed_chain=chain)
-            return -jnp.mean(ll), {}, s
-
-        jt = JaxTrainer(loss_fn, init_fn, optax.chain(
-            optax.scale_by_adam(), optax.scale_by_schedule(optax.exponential_decay(**SCHEDULE)),
-            optax.scale(-1.0)), trainable_predicate=lambda m, n, v: not m.startswith("vqvae"),
-            seed=3, rng_impl=None, param_codec=codec if packed else None)
-        return jt.fit(JaxArrayDataset(data, 8), 3, validation_freq=100,
-                      initial_params=params, initial_state=state)
-
-    out = []
-    for packed in (False, True):
-        path = str(tmp_path / f"packed{packed}.pkl")
-        jax_save(path, jax_fit(packed))
-        ts = load_train_state(path)
-        assert ("packed" in str(ts.opt_state)) == packed
-        model = convert.pm_vqvae_from_jax(params, state, 16, VQ, PC, device="cpu")
-        pt = tr.pm_vqvae_trainer(model, {"lr_schedule": SCHEDULE}, device="cpu")
-        pt.fit(ArrayDataset(data, 8), 5, validation_freq=100, resume_from=ts)
-        out.append(_flat_pm_vqvae(pt.train_state(), pt.trainable))
-    _assert_close(out[1], out[0])
-
-
-def _flat_pm_vqvae(ts, trainable):
-    count, mu, nu = convert.optax_moments(ts.opt_state, ts.params, trainable)
-    flat = lambda t: convert.pm_vqvae_state_dict(t, ts.state)
-    return count, {k: flat(t) for k, t in (("params", ts.params), ("mu", mu), ("nu", nu))}

@@ -34,7 +34,6 @@ import jax
 import numpy as np
 import optax
 import pytest
-import torch
 
 from posterior_matching_tpu.train import group_by_shape
 from posterior_matching_tpu.train.state import TrainState as JaxTrainState
@@ -59,6 +58,7 @@ from posterior_matching_torch.train.state import (
     save_train_state,
 )
 from tb_events import read_events
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_pm_vae_cli import GAS_FLAGS
 from test_torch_train_cli import TINY
 from test_torch_vade_cli import LOOKAHEAD_FLAGS, PM_VADE_FLAGS, PM_VAE16_FLAGS, VADE_FLAGS
@@ -87,17 +87,6 @@ TAGS = {"vqvae": (("reconstructions",), False), "pm_vqvae": (("imputations",), F
         "pm_vdvae": (("imputations", "reconstructions", "samples"), True),
         "pm_vae": ((), True), "vade": ((), True), "pm_vade": ((), True),
         "lookahead": ((), True)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The toy runs on one intra-op thread: the suite's parallel workers,
-    each with torch's default pool of one thread a core, oversubscribe the
-    cores many times over (a run took 60x its time alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from posterior_matching_torch.ops import _build, row_breakdown
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SOURCE = (_build.CSRC / "sampler_row.cu").read_text()
 VSOURCE = (_build.CSRC / "sampler_vrow.cu").read_text()

@@ -18,16 +18,20 @@ import torch
 
 from posterior_matching_tpu.models.pixelcnn import PixelCNN as JaxPixelCNN
 from posterior_matching_tpu.ops.sampler_chain import pixelcnn_sample_rowkernel
-from posterior_matching_torch.convert import pixel_cnn_state_dict, to_torch
+from posterior_matching_torch.convert import pixel_cnn_state_dict, pixel_cnn_tree, to_torch
 from posterior_matching_torch.models.pixelcnn import PixelCNN
 from posterior_matching_torch.ops import sampler_chain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOGITS_ATOL = 1e-4
 
 
 def _models(num_resnet, num_indices, image_shape, cond_dim, batch, num_filters=8):
     """The JAX PixelCNN, its variables, the port's PixelCNN with the same
-    weights and a seeded condition."""
+    weights and a seeded condition. The weights are the port's seeded
+    initialisation carried to JAX by ``convert.pixel_cnn_tree`` (JAX's
+    eager ``init`` with a condition takes tens of seconds), its structure
+    held against ``jax.eval_shape`` of that ``init``."""
     jax_model = JaxPixelCNN(
         num_indices=num_indices, image_shape=image_shape, dropout=0.0,
         num_resnet=num_resnet, num_hierarchies=1, num_filters=num_filters,
@@ -37,11 +41,15 @@ def _models(num_resnet, num_indices, image_shape, cond_dim, batch, num_filters=8
         None if cond_dim is None
         else np.random.RandomState(7).randn(batch, cond_dim).astype(np.float32)
     )
-    variables = jax_model.init(jax.random.PRNGKey(0), x0, cond)
+    torch.manual_seed(0)
     port = PixelCNN(
         num_indices=num_indices, image_shape=image_shape, dropout=0.0,
         num_resnet=num_resnet, num_filters=num_filters, conditional_dim=cond_dim,
     )
+    variables = {"params": pixel_cnn_tree(port.state_dict())}
+    shapes = jax.eval_shape(jax_model.init, jax.random.PRNGKey(0), x0, cond)
+    assert (jax.tree.map(lambda a: a.shape, shapes["params"])
+            == jax.tree.map(lambda a: a.shape, variables["params"]))
     port.load_state_dict(to_torch(pixel_cnn_state_dict(variables["params"])))
     return jax_model, variables, port, cond
 

@@ -42,6 +42,7 @@ from posterior_matching_torch import convert
 from posterior_matching_torch.models import pm_vqvae
 from posterior_matching_torch.models.pixelcnn import PixelCNN
 from posterior_matching_torch.ops import sampler_chain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOGITS_TOL = 5e-3   # of the logits' scale (max |logit|, at least 1)
 TIE_GAP = 2e-2      # a first divergence's top-two gap, in units of that scale

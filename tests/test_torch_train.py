@@ -25,6 +25,7 @@ from posterior_matching_tpu.train import Trainer as JaxTrainer
 from posterior_matching_torch import convert
 from posterior_matching_torch.config import PM_VQVAE_CELEB_A_TRAIN
 from posterior_matching_torch.train.trainer import pm_vqvae_loss, pm_vqvae_trainer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 VQ = {"output_channels": 3, "embedding_dim": 8, "num_embeddings": 16,
       "hidden_units": 8, "residual_blocks": 1, "residual_hidden_units": 4,

@@ -19,6 +19,8 @@ package's.
   same injected normals, within 1e-4 relative (the port's fused runs sum
   in another order than the JAX package's unfused blocks); the port loads
   the run unfused unless asked for the fused decoder.
+
+The initial tree's structure is ``tests/test_torch_train_init_tree.py``'s.
 """
 import json
 import os
@@ -100,23 +102,6 @@ def test_load_datasets_stream_matches_jax(data_dir):
                 assert g["image"].dtype == np.float32 and g["image"].max() > 1.0
                 for k in g:
                     np.testing.assert_array_equal(g[k], w[k])
-
-
-def test_init_tree_has_the_jax_init_structure():
-    config = dict(CONFIGS["pm_vdvae_mnist"]()["model"], image_shape=(8, 8, 1),
-                  width=16, latent_dim=4, num_mixtures=2,
-                  encoder_blocks="8x2,8d2,4x2,4d4,1x2", decoder_blocks="1x2,4m1,4x2,8m4,8x2")
-    x = np.zeros((1, 8, 8, 1), np.float32)
-    init = jax.jit(JaxVDVAE.from_config(dict(config, fused_chain=False)).init)
-    want = init({"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)}, x, x)
-    want = convert.pm_vdvae_state_dict(jax.device_get(want["params"]))
-    got = convert.pm_vdvae_state_dict(convert.init_pm_vdvae_tree(config, seed=0))
-    assert set(got) == set(want)
-    for name, w in want.items():
-        assert got[name].shape == w.shape, name
-        assert np.all(got[name] == 0) == np.all(w == 0), name
-        if name.endswith("gain"):
-            np.testing.assert_array_equal(got[name], w)
 
 
 @pytest.fixture

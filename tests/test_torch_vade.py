@@ -63,6 +63,7 @@ from posterior_matching_torch.train.trainer import (  # noqa: E402
 )
 from posterior_matching_torch.utils import batch_process  # noqa: E402
 from test_torch_vae import GRAD_TOL, TOL, close, randomize, t  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MLP = {"num_components": 3, "latent_dim": 2, "encoder_net": "ResidualMLP",
        "decoder_net": "ResidualMLP", "decoder_dist": "IdentityGaussian",

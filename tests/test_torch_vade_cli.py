@@ -48,6 +48,7 @@ from posterior_matching_torch.config import CONFIGS  # noqa: E402
 from posterior_matching_torch.data import sources  # noqa: E402
 from posterior_matching_torch.train.trainer import Trainer  # noqa: E402
 from test_torch_pm_vae_cli import _run  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ENC = [(4, 5, 1), (4, 5, 2), (8, 5, 1), (8, 5, 2), (8, 7, 1)]
 DEC = [(8, 7, 1), (8, 5, 2), (4, 5, 1), (4, 5, 2), (4, 5, 1), (1, 5, 1)]

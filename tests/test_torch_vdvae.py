@@ -3,8 +3,10 @@
 One seeded tree (``convert.random_pm_vdvae_tree``, non-zero everywhere) and
 the same numpy images and masks go through both packages. The JAX side's
 standard normals are recorded by replacing ``MultivariateNormalDiag.sample``
-and ``MultivariateNormalTriL.sample`` in this test only (eager ``apply``),
-and handed to the port in the same order.
+and ``MultivariateNormalTriL.sample`` in this test only (concrete ones as an
+eager ``apply`` draws them, traced ones by an ordered debug callback where
+the JAX side is jitted: the same bits), and handed to the port in the same
+order.
 
 Tolerances: the distributions' values within 1e-5 relative and gradients
 within 1e-5 of each gradient's scale (the JAX side solves by unrolled
@@ -13,6 +15,9 @@ the model's modes within 1e-4 relative (twenty-odd float32 convolutions and
 a triangular solve per block, summed in another order); the training step's
 loss within 1e-5 relative and its gradients within 1e-4 of each gradient's
 scale; the optimizer within 1e-6 relative of optax after three updates.
+
+The model's cases against JAX (forward, imputation, decoder log-likelihoods,
+the training step) are ``tests/test_torch_vdvae_jax_model.py``'s.
 """
 import jax
 import jax.numpy as jnp
@@ -41,8 +46,8 @@ from posterior_matching_torch.models.vdvae import (
 )
 from posterior_matching_torch.train.optim import ClippedAdam
 from posterior_matching_torch.train.schedules import linear_schedule
-from posterior_matching_torch.train.trainer import pm_vdvae_loss
 from posterior_matching_torch.utils import logmeanexp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY_CONFIG = {
     "image_shape": (8, 8, 1),
@@ -186,13 +191,17 @@ def models():
 
 @pytest.fixture
 def record(monkeypatch):
-    """Records the JAX side's standard normals in call order, where they are
-    concrete (eager ``apply``; under ``jit`` they are traced and the same
-    keys draw the same normals)."""
+    """Records the JAX side's standard normals in call order: concrete ones
+    (an eager ``apply``) at once, traced ones (under ``jit``, which draws the
+    same bits from the same keys in a fraction of the eager time) by an
+    ordered debug callback; a jitted caller waits for them with
+    ``jax.effects_barrier()``."""
     store = []
 
     def keep(eps):
-        if not isinstance(eps, jax.core.Tracer):
+        if isinstance(eps, jax.core.Tracer):
+            jax.debug.callback(lambda e: store.append(np.array(e)), eps, ordered=True)
+        else:
             store.append(np.asarray(eps))
 
     def diag_sample(self, key, sample_shape=()):
@@ -222,59 +231,6 @@ def test_random_tree_has_the_jax_structure_and_no_zeros(models):
     shapes = lambda tr: jax.tree_util.tree_map(lambda a: tuple(a.shape), tr)
     assert shapes(init["params"]) == shapes(tree)
     assert all(np.all(a != 0) for a in jax.tree_util.tree_leaves(tree))
-
-
-def test_forward_matches_jax(models, record):
-    jm, tree, port, x, b = models
-    want = jm.apply({"params": tree}, x, b, rngs={"sample": jax.random.PRNGKey(2)})
-    assert len(record) == 6   # one posterior sample per decoder block
-    with torch.no_grad():
-        got = port(t(x), t(b), _noise(record))
-    for k in ("reconstruction_ll", "kl", "pm_kl"):
-        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=MODE_TOL, err_msg=k)
-    assert got["reconstruction"].shape == x.shape
-
-
-def test_impute_once_matches_jax(models, record):
-    jm, tree, port, x, b = models
-    v = {"params": tree}
-    macts = jm.apply(v, x, b, method=jm.encode_masked)
-    px_z = jm.apply(v, macts, method=lambda m, a: m.decoder.forward_partial_posterior(a),
-                    rngs={"sample": jax.random.PRNGKey(3)})
-    eps = list(record)
-    want = np.asarray(jm.apply(v, x, b, macts, method=jm.impute_once,
-                               rngs={"sample": jax.random.PRNGKey(3)}))
-    with torch.no_grad():
-        pmacts = port.encode_masked(t(x), t(b))
-        for res in macts:
-            np.testing.assert_allclose(pmacts[res].numpy(), np.asarray(macts[res]),
-                                       rtol=MODE_TOL, atol=MODE_TOL)
-        got_px = port.decoder.forward_partial_posterior(pmacts, _noise(eps))
-        got = port.impute_once(t(x), t(b), pmacts, _noise(eps)).numpy()
-        unrounded = port.decoder.out_net(got_px).mean_unrounded().numpy()
-    scale = float(np.abs(px_z).max())
-    np.testing.assert_allclose(got_px.numpy(), np.asarray(px_z), rtol=MODE_TOL,
-                               atol=MODE_TOL * scale)
-    # the stitched values: observed pixels exact, the rest equal but where
-    # the unrounded mean sits on a rounding boundary
-    obs = np.broadcast_to(b == 1, x.shape)
-    np.testing.assert_array_equal(got[obs], x[obs])
-    safe = np.abs(unrounded % 1 - 0.5) > 1e-2
-    np.testing.assert_array_equal(got[safe], want[safe])
-
-
-def test_decode_lls_once_matches_jax(models, record):
-    jm, tree, port, x, b = models
-    v = {"params": tree}
-    acts, macts = jm.apply(v, x, b, method=jm.encode_pair)
-    want = jm.apply(v, x, b, acts, macts, method=jm.decode_lls_once,
-                    rngs={"sample": jax.random.PRNGKey(4)})
-    assert len(record) == 12  # posterior, then masked posterior, per block
-    with torch.no_grad():
-        pa, pma = port.encode_pair(t(x), t(b))
-        got = port.decode_lls_once(t(x), t(b), pa, pma, _noise(record))
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=MODE_TOL)
 
 
 def test_sample_is_in_range(models):
@@ -347,30 +303,6 @@ def test_vdvae_is_log_probs_is_logmeanexp_of_decode_lls_once(models, chunk):
 # ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
-
-
-def test_training_step_matches_jax_grad(models, record):
-    """The loss of ``train_pm_vdvae.py:135-150`` and its gradient with
-    respect to every parameter, with the same normals (an eager forward
-    records them; the jitted gradient draws the same from the same key)."""
-    jm, tree, port, x, b = models
-
-    def loss_fn(params):
-        out = jm.apply({"params": params}, x, b, rngs={"sample": jax.random.PRNGKey(8)})
-        return -jnp.mean(out["reconstruction_ll"] - out["kl"]) + jnp.mean(out["pm_kl"])
-
-    loss_fn(tree)
-    loss_j, grads_j = jax.jit(jax.value_and_grad(loss_fn))(tree)
-    want = convert.pm_vdvae_state_dict(jax.device_get(grads_j))
-    names, params = zip(*port.named_parameters())
-    loss = pm_vdvae_loss(port, {"image": t(x), "mask": t(b)}, _noise(record), True)
-    grads = torch.autograd.grad(loss, params)
-    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
-    assert set(names) == set(want)
-    for name, g in zip(names, grads):
-        w = want[name]
-        scale = max(float(np.abs(w).max()), 1e-12)
-        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4 * scale, err_msg=name)
 
 
 def test_clipped_adam_matches_optax():

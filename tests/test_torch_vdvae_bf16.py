@@ -26,15 +26,14 @@ package, on the CPU at toy sizes.
   (``tests/test_vdvae.py:202-231``: ``rtol=0.15, atol=3.0``; parameters
   stay float32).
 - ``remat=True``'s gradients equal those without it, bit for bit.
+
+The whole model against JAX's is ``tests/test_torch_vdvae_bf16_model.py``'s.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from posterior_matching_tpu.distributions import normal as jax_normal
-from posterior_matching_tpu.models.vdvae import PosteriorMatchingVDVAE as JaxVDVAE
 from posterior_matching_tpu.ops import block_chain as jbc
 from posterior_matching_tpu.ops import decoder_chain as jdc
 from posterior_matching_torch import convert
@@ -42,6 +41,7 @@ from posterior_matching_torch.distributions import tril_size
 from posterior_matching_torch.ops import block_chain as bc
 from posterior_matching_torch.ops import decoder_chain as dc
 from posterior_matching_torch.train.trainer import pm_vdvae_loss
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BF16 = torch.bfloat16
 CHAIN_TOL, TIGHT_TOL, SAVE_FLIPS = 1e-2, 1e-4, 0.05
@@ -222,50 +222,6 @@ def data():
     x = rng.randint(0, 256, (2, 8, 8, 1)).astype(np.float32)
     b = (rng.rand(2, 8, 8, 1) > 0.5).astype(np.float32)
     return convert.random_pm_vdvae_tree(KW, seed=2), x, b
-
-
-@pytest.fixture(scope="module")
-def jax_outputs(data):
-    """The JAX model's outputs at bf16, unfused and fused (the chains in
-    interpret mode), from one key, and the standard normals of the unfused
-    run in call order (recorded by an ordered callback in the replaced
-    ``MultivariateNormalDiag.sample``; the fused decoder draws the same bits
-    through each block's own key)."""
-    tree, x, b = data
-    store = []
-
-    def diag_sample(self, key, sample_shape=()):
-        eps = jax.random.normal(key, tuple(sample_shape) + self.loc.shape, self.loc.dtype)
-        jax.debug.callback(lambda e: store.append(np.asarray(e)), eps, ordered=True)
-        return self.loc + self.scale_diag * eps
-
-    outs = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_normal.MultivariateNormalDiag, "sample", diag_sample)
-        for fused in (False, True):
-            jm = JaxVDVAE(fused_chain="interpret" if fused else False,
-                          compute_dtype="bfloat16", **KW)
-            outs[fused] = jax.device_get(jax.jit(lambda p: jm.apply(
-                {"params": p}, x, b, rngs={"sample": jax.random.PRNGKey(7)}))(tree))
-            jax.effects_barrier()
-            if not fused:
-                eps = [torch.from_numpy(np.array(e)) for e in store]
-    return outs, eps
-
-
-@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
-def test_model_matches_jax_at_bf16(data, jax_outputs, fused):
-    tree, x, b = data
-    outs, eps = jax_outputs
-    assert len(eps) == 9   # one posterior sample per decoder block
-    port = convert.pm_vdvae_from_jax(tree, dict(KW, fused_chain=fused,
-                                                compute_dtype="bfloat16"), device="cpu")
-    with torch.no_grad():
-        out = port(torch.from_numpy(x), torch.from_numpy(b), iter(eps))
-    for key in ("reconstruction_ll", "kl", "pm_kl"):
-        assert out[key].dtype == torch.float32
-        np.testing.assert_allclose(out[key].numpy(), np.asarray(outs[fused][key]),
-                                   rtol=MODEL_TOL, err_msg=key)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])

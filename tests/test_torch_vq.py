@@ -21,6 +21,7 @@ from posterior_matching_tpu.ops.vq import (
 from posterior_matching_torch.convert import to_torch, vqvae_state_dict
 from posterior_matching_torch.models.vqvae import VQVAE
 from posterior_matching_torch.ops.vq import nearest_codebook_indices_plain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _jax_both(z, cb):

@@ -10,6 +10,7 @@ import torch
 
 from posterior_matching_torch.ops import _build, vq_breakdown as vb
 from posterior_matching_torch.ops.vq import nearest_codebook_indices_plain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TEXT = (_build.CSRC / vb.SOURCE).read_text()
 SMALL_BIG, BIG_SMALL, BIG_BIG = vb._MMAS

@@ -29,6 +29,7 @@ import torch
 from posterior_matching_torch.ops import _build
 from posterior_matching_torch.ops.vq import nearest_codebook_indices_plain
 from test_torch_row_kernel_emulated import _replace_helpers, write_ptx_header
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
 _SMEM = "extern __shared__ __align__(16) float smem[];"

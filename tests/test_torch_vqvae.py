@@ -22,6 +22,7 @@ from posterior_matching_torch.convert import (
     vqvae_state_dict,
 )
 from posterior_matching_torch.models.vqvae import VQVAE, VQVAEPartialEncoder
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 CFG = dict(

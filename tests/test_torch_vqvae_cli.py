@@ -36,6 +36,7 @@ from posterior_matching_tpu.train.state import load_train_state as jax_load_trai
 from posterior_matching_torch import convert, train_pm_vqvae, train_vqvae
 from posterior_matching_torch.config import pm_vqvae_mnist, vqvae_mnist
 from posterior_matching_torch.data import sources
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STAGE1 = ["--config.data.train_batch_size=8", "--config.data.val_batch_size=8",
           "--config.model.hidden_units=8", "--config.model.residual_hidden_units=4",

@@ -12,19 +12,20 @@ the codebook's freezing.
 - The codebook is a buffer, outside every optimizer. It does not move
   under ``is_training=False``, under ``vqvae_trainer``'s validation, or in
   a stage-2 step, though ``Trainer.train_step`` puts the model in
-  ``train()`` mode; ``vqvae_trainer``'s step moves it. ``use_ema=False``
-  is refused.
+  ``train()`` mode; ``vqvae_trainer``'s step moves it. With
+  ``use_ema=False`` the codebook is a parameter instead, without EMA
+  statistics (``tests/test_torch_vqvae_no_ema.py`` trains it).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from posterior_matching_tpu.models.vqvae import VQVAE as JaxVQVAE
 from posterior_matching_torch import convert
 from posterior_matching_torch.models.vqvae import VQVAE
 from posterior_matching_torch.train.trainer import pm_vqvae_trainer, vqvae_trainer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = {"output_channels": 1, "embedding_dim": 8, "num_embeddings": 16, "hidden_units": 8,
        "residual_blocks": 1, "residual_hidden_units": 4, "decay": 0.99, "use_ema": True,
@@ -97,8 +98,9 @@ def test_codebook_is_a_buffer_moved_by_training_forwards_only():
     trainer.train_step({"image": x})
     for n in EMA:
         assert not torch.equal(getattr(model.vq, n), before[n]), n
-    with pytest.raises(NotImplementedError, match="use_ema"):
-        VQVAE(**dict(CFG, use_ema=False))
+    learned = VQVAE(**dict(CFG, use_ema=False))
+    assert "vq.embeddings" in dict(learned.named_parameters())
+    assert not any("ema" in n for n in learned.state_dict())
 
 
 def test_stage2_step_leaves_the_codebook():

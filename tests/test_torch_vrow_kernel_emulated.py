@@ -9,13 +9,10 @@ concat_elu sources), split-K reduction, ragged blocks and weight ring (three
 slots, each refilled by the last warp done with its stage, whose parities
 wrap across GEMM and level boundaries) without a GPU, at both built
 widths (128 filters and digits16's 64, whose warps split their lanes
-between two row groups), in both builds. The float32 build's tolerance
-is the card's: 1e-4 of the tensor's scale. The bf16 build
-(``-DPM_CORE_BF16=1``: twice the rows a stage, h_init_up half a stage at 64
-filters, the carry in float32 registers) is held to the bf16 plain version
-on a seeded model's row-1 state with the card's gate
-(``sampler_chain.vrow_bf16_report``). Each build compiles once for the
-module. Skips where no C++20 compiler is found.
+between two row groups). The tolerance is the card's: 1e-4 of the
+tensor's scale. The bf16 build's cases are
+``test_torch_vrow_kernel_bf16_emulated.py``'s. The build compiles once for
+the module. Skips where no C++20 compiler is found.
 """
 import ctypes
 
@@ -23,7 +20,8 @@ import pytest
 import torch
 
 from posterior_matching_torch.ops import sampler_chain as sc
-from test_torch_row_kernel_emulated import build_emulation, model_inputs
+from test_torch_row_kernel_emulated import build_emulation
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 
@@ -41,10 +39,6 @@ def _load_vrow(tmp_path_factory, defines=()):
 def emu(tmp_path_factory):
     return _load_vrow(tmp_path_factory)
 
-
-@pytest.fixture(scope="module")
-def emu_bf16(tmp_path_factory):
-    return _load_vrow(tmp_path_factory, ("-DPM_CORE_BF16=1",))
 
 
 def _rand(gen, *shape, scale=1.0):
@@ -84,21 +78,3 @@ def test_emulated_vrow_kernel_matches_plain(emu, F, n_lvl, wid, n):
     for name, got, ref in zip(("outv", "outm", "v0", "hup"), outs, want):
         err = (got - ref).abs().max().item()
         assert err / max(1.0, ref.abs().max().item()) <= TOL, (name, err)
-
-
-# bf16: at 128 filters W = 7 over four levels (up and down: the skip
-# product) and the flagship's W = 16 over two, one block each; at 64 filters
-# (h_init_up a stage and a half) digits16's W = 4 over six levels and W = 7
-# with a ragged second block.
-@pytest.mark.parametrize("F,n_lvl,wid,n", [
-    pytest.param(*c, id="-".join(map(str, c)))
-    for c in ((128, 4, 7, 6), (128, 2, 16, 3), (64, 6, 4, 9), (64, 2, 7, 9))
-])
-def test_emulated_vrow_kernel_bf16_matches_plain(emu_bf16, F, n_lvl, wid, n):
-    args = model_inputs(F, n_lvl, wid, n, 128, 1)[0]
-    outs = [torch.zeros_like(args[3]), torch.zeros_like(args[4]),
-            torch.zeros_like(args[1]), torch.zeros_like(args[1])]
-    assert emu_bf16.emu_sampler_vrow(*[a.data_ptr() for a in args],
-                                     *[o.data_ptr() for o in outs], n_lvl, wid, n, F) == 0
-    report = sc.vrow_bf16_report(outs, sc.vrow_plain(*args, compute_dtype="bfloat16"))
-    assert sc.bf16_gate_ok(report), report
