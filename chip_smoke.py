@@ -14,7 +14,8 @@ builds) with ``flat_optimizer`` and ``remat``, then the PM-VQVAE in bf16
 (the gated chain's bf16 builds), then the samplers' bf16 builds with
 ``PM_TPU_SAMPLER=rowkernel`` and the naive raster sampler, then the modules
 ported last (``use_ema=False``, ``packed_chain``, ``steps_per_call``,
-``device_resident_data``, the last mask generators), and checks them, in
+``device_resident_data``, the last mask generators), then the native host
+gather, the device rescale and the snapshot callback, and checks them, in
 these phases:
 
 1. header: torch and CUDA versions, the card's name and power limit;
@@ -250,7 +251,20 @@ these phases:
    (d) the Omniglot and CIFAR-10 mixtures, ``batch_level`` and
    ``update_freq`` drawn on the card and held against the CPU by
    distribution (:func:`options_phase`);
-23. one JSON line of per-kernel numbers (the 64-filter forms as
+23. the JAX package's last two modules (:func:`host_modules_phase`): (a)
+   the native host gather (``posterior_matching_torch/native``, built with
+   g++ from this checkout) against numpy's bit for bit at CelebA's (32 x
+   64x64x3 uint8, fused with the rescale), MNIST's (16 x 28x28x1 uint8,
+   fused) and ``pm_vae_gas``'s (512 float32 rows of 8) training batches
+   out of splits of their real sizes, the median ms of a batch of each over
+   200 batches; (b) ``DeviceDataset.gather`` on the card bit for bit the
+   host batch of the same indices and ``float32(u8) * float32(1/255)``;
+   (c) ``SnapshotCallback`` (``max_to_keep`` 2) beside ``CheckpointCallback``
+   on a full-width ``pm_vqvae_celeb_a`` trainer over 3 validations: two
+   whole snapshots left, ``restore_latest()`` the last ``train_state.pkl``
+   array for array, the ms each blocks the training thread, the
+   snapshot's MB;
+24. one JSON line of per-kernel numbers (the 64-filter forms as
    ``<kernel>_f64``, their launches the digits16 pipeline's; the VDVAE and
    gated chains' bf16 forms as ``<kernel>_bf16``, their launches phases 19
    and 20's CLIs'; the samplers' bf16 forms as ``sampler_{vrow,row}_bf16``,
@@ -5143,6 +5157,222 @@ def options_phase(args, celeb_a, work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the native host gather, the device rescale, snapshots
+# ---------------------------------------------------------------------------
+
+GATHER_BATCHES = 200       # batches each gather is timed over, native and numpy in turns
+# (name, rows of the split, row shape, dtype, batch): CelebA's training split
+# (162,770 images at 64x64x3), MNIST's (60,000) and gas's (852,174 rows of 8),
+# at their configs' training batches
+GATHER_CASES = (("celeb_a", 162_770, (64, 64, 3), np.uint8, "pm_vqvae_celeb_a"),
+                ("mnist", 60_000, (28, 28, 1), np.uint8, "pm_vdvae_mnist"),
+                ("pm_vae_gas", 852_174, (8,), np.float32, "pm_vae_gas"))
+SNAPSHOT_EVERY = 2         # steps between the validations of (c)
+
+
+def flat_tree(tree, prefix="", out=None):
+    """A snapshot tree's leaves by path (containers as ``<type>`` entries)."""
+    out = {} if out is None else out
+    if isinstance(tree, dict):
+        out[prefix + "<dict>"] = sorted(tree)
+        for k, v in tree.items():
+            flat_tree(v, f"{prefix}{k}/", out)
+    elif isinstance(tree, list):
+        out[prefix + "<list>"] = len(tree)
+        for i, v in enumerate(tree):
+            flat_tree(v, f"{prefix}{i}/", out)
+    else:
+        out[prefix] = tree
+    return out
+
+
+def same_tree(got, want, what):
+    """Two snapshot trees equal: containers, keys, scalars, and every array
+    bit for bit with its dtype."""
+    g, w = flat_tree(got), flat_tree(want)
+    check(set(g) == set(w), f"{what}: the trees hold other paths")
+    for k, v in w.items():
+        if isinstance(v, np.ndarray):
+            check(isinstance(g[k], np.ndarray) and g[k].dtype == v.dtype
+                  and g[k].shape == v.shape and g[k].tobytes() == v.tobytes(),
+                  f"{what}: {k} differs")
+        else:
+            check(g[k] == v, f"{what}: {k} is {g[k]!r}, not {v!r}")
+    return sum(isinstance(v, np.ndarray) for v in w.values())
+
+
+def gather_check(args):
+    """(a): each batch of GATHER_CASES through the native gather (fused
+    with the rescale for uint8 images) against numpy's plain version on
+    the same indices, bit for bit, GATHER_BATCHES shuffled batches, the two
+    timed in turns on the host clock; the median ms of a batch of each."""
+    from posterior_matching_torch import config, native
+
+    rng = np.random.default_rng(args.seed)
+    scale = np.float32(1.0 / 255.0)
+    out = {"threads": native.THREADS, "cpu_count": os.cpu_count(),
+           "library": native.build().name}
+    for name, rows, shape, dtype, cfg in GATHER_CASES:
+        batch = config.CONFIGS[cfg]()["data"]["train_batch_size"]
+        if dtype == np.uint8:
+            src = rng.integers(0, 256, (rows, *shape), dtype=np.uint8)
+            fast = lambda idx: native.gather_u8_to_f32(src, idx, 1.0 / 255.0)
+            plain = lambda idx: src[idx].astype(np.float32) * scale
+        else:
+            src = rng.standard_normal((rows, *shape), dtype=np.float32)
+            fast = lambda idx: native.gather_rows(src, idx)
+            plain = lambda idx: src[idx]
+        order = rng.permutation(rows)[:batch * GATHER_BATCHES].reshape(GATHER_BATCHES, batch)
+        times = {"native": [], "numpy": []}
+        for i, idx in enumerate(order):
+            res = {}
+            for kind in (("native", "numpy") if i % 2 else ("numpy", "native")):
+                fn = fast if kind == "native" else plain
+                t = time.perf_counter_ns()
+                res[kind] = fn(idx)
+                times[kind].append((time.perf_counter_ns() - t) / 1e6)
+            check(res["native"].dtype == res["numpy"].dtype
+                  and res["native"].tobytes() == res["numpy"].tobytes(),
+                  f"{name}: the native batch {i} differs from numpy's")
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        out[name] = {"rows": rows, "row_shape": list(shape), "dtype": np.dtype(dtype).name,
+                     "batch": batch, "batch_mb": res["numpy"].nbytes / 1e6,
+                     "native_ms": med["native"], "numpy_ms": med["numpy"],
+                     "native_over_numpy": med["native"] / med["numpy"],
+                     "native_ms_p10_p90": np.percentile(times["native"], [10, 90]).tolist(),
+                     "numpy_ms_p10_p90": np.percentile(times["numpy"], [10, 90]).tolist()}
+        log(f"(a) {name}: {GATHER_BATCHES} batches of {batch} x {shape} {np.dtype(dtype).name} "
+            f"from {rows} rows, bit for bit numpy's; median ms a batch native "
+            f"{med['native']:.4f}, numpy {med['numpy']:.4f} "
+            f"({med['native'] / med['numpy']:.3f}x; {native.THREADS} threads, "
+            f"{os.cpu_count()} cores)")
+        del src
+    return out
+
+
+def device_rescale_check(args):
+    """(b): ``DeviceDataset.gather`` on the card against the host batch of
+    the same indices (``ArrayDataset``'s fused gather), bit for bit, for a
+    CelebA and an MNIST split of every byte value, and against numpy's
+    float32 product."""
+    from posterior_matching_torch.data.datasets import ArrayDataset, _make_batch_transform
+
+    gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
+    out = {}
+    for name, shape, batch in (("celeb_a", (64, 64, 3), 32), ("mnist", (28, 28, 1), 16)):
+        n = 512
+        x = np.resize(np.arange(256, dtype=np.uint8), (n, *shape))
+        ds = ArrayDataset({"image": x}, batch, transform=_make_batch_transform(name, True))
+        dds = ds.to_device_resident(DEVICE)
+        check(dds.data["image"].dtype == torch.uint8
+              and dds.data["image"].device.type == torch.device(DEVICE).type,
+              f"{name}: the device split is not uint8 on the card")
+        for _ in range(4):
+            idx = torch.randint(0, n, (batch,), generator=gen, device=DEVICE)
+            got = dds.gather(idx)["image"].cpu().numpy()
+            sel = idx.cpu().numpy()
+            host = ds._batch(sel)["image"]
+            check(got.dtype == host.dtype and got.tobytes() == host.tobytes(),
+                  f"{name}: the card's batch differs from the host batch")
+            check(got.tobytes() == (x[sel].astype(np.float32) * np.float32(1 / 255)).tobytes(),
+                  f"{name}: the card's batch is not float32(u8) * float32(1/255)")
+        out[name] = {"batches": 4, "batch": batch, "bit_for_bit": True}
+        log(f"(b) {name}: 4 device batches of {batch} bit for bit the host batches and "
+            "float32(u8) * float32(1/255)")
+    return out
+
+
+def timed_callback(inner):
+    """``inner`` wrapped: the host ms each ``on_validation_end`` blocks the
+    training thread, in ``.ms``."""
+    from posterior_matching_torch.train.callbacks import Callback
+
+    class Timed(Callback):
+        def __init__(self):
+            self.inner, self.ms = inner, []
+
+        def on_validation_end(self, train_state, step, logs):
+            t0 = time.perf_counter()
+            self.inner.on_validation_end(train_state, step, logs)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+
+    return Timed()
+
+
+def snapshot_check(args, model, mask_fn, gen, work):
+    """(c): ``pm_vqvae_trainer`` at the full width of
+    ``configs/pm_vqvae_celeb_a.py`` fitted 3 x SNAPSHOT_EVERY steps,
+    validating every SNAPSHOT_EVERY, with a ``SnapshotCallback``
+    (``max_to_keep`` 2) and a ``CheckpointCallback``: exactly two whole
+    snapshots left, ``restore_latest()`` the last ``train_state.pkl``
+    array for array; the ms each callback blocks the training thread, the
+    snapshot's MB, and one more save's blocking and writing ms."""
+    from posterior_matching_torch import config
+    from posterior_matching_torch.train.callbacks import (
+        CheckpointCallback,
+        SnapshotCallback,
+        snapshot_tree,
+    )
+    from posterior_matching_torch.train.state import load_train_state
+    from posterior_matching_torch.train.trainer import pm_vqvae_trainer
+
+    root = f"{work}/snapshots"
+    os.makedirs(root)
+    snap = timed_callback(SnapshotCallback(f"{root}/snap", max_to_keep=2))
+    ckpt = timed_callback(CheckpointCallback(f"{root}/train_state.pkl"))
+    trainer = pm_vqvae_trainer(model, config.PM_VQVAE_CELEB_A_TRAIN, seed=args.seed,
+                               mask_fn=mask_fn, device=DEVICE)
+    batches = [{"image": torch.rand((BATCH, *config.CELEB_A_IMAGE_SHAPE), generator=gen,
+                                    device=DEVICE)} for _ in range(SNAPSHOT_EVERY)]
+    steps = 3 * SNAPSHOT_EVERY
+    trainer.fit(batches, steps, validation_freq=SNAPSHOT_EVERY, callbacks=[snap, ckpt])
+    t0 = time.perf_counter()
+    got = snap.inner.restore_latest()
+    restore_s = time.perf_counter() - t0
+    kept = sorted(os.listdir(f"{root}/snap"))
+    check(kept == [str(2 * SNAPSHOT_EVERY), str(steps)],
+          f"the snapshot directory holds {kept}, not the newest two steps")
+    want = snapshot_tree(load_train_state(f"{root}/train_state.pkl"), steps)
+    n_arrays = same_tree(got, want, "restore_latest() against train_state.pkl")
+    snap_mb = sum(f.stat().st_size for f in Path(f"{root}/snap/{steps}").iterdir()) / 1e6
+    pkl_mb = os.path.getsize(f"{root}/train_state.pkl") / 1e6
+    snap.inner.close()
+    # one more save alone: its blocking and its writing
+    state = trainer.train_state()
+    extra = SnapshotCallback(f"{root}/extra", max_to_keep=1)
+    t0 = time.perf_counter()
+    extra.on_validation_end(state, steps, {})
+    t1 = time.perf_counter()
+    extra.close()
+    t2 = time.perf_counter()
+    out = {"steps": steps, "validations": len(snap.ms), "kept": kept, "arrays": n_arrays,
+           "snapshot_mb": snap_mb, "pickle_mb": pkl_mb,
+           "snapshot_block_ms": snap.ms, "checkpoint_block_ms": ckpt.ms,
+           "restore_s": restore_s, "alone_block_ms": (t1 - t0) * 1e3,
+           "alone_write_ms": (t2 - t1) * 1e3}
+    log(f"(c) snapshots of the full-width PM-VQVAE CelebA trainer: {steps} steps, "
+        f"{len(snap.ms)} validations, kept {kept}; restore_latest() the last "
+        f"train_state.pkl in all {n_arrays} arrays ({restore_s:.3f} s); a snapshot "
+        f"{snap_mb:.1f} MB (the pickle {pkl_mb:.1f} MB); on_validation_end blocks "
+        f"{[round(v, 2) for v in snap.ms]} ms (SnapshotCallback) against "
+        f"{[round(v, 2) for v in ckpt.ms]} ms (CheckpointCallback); one save alone blocks "
+        f"{out['alone_block_ms']:.2f} ms and writes for {out['alone_write_ms']:.2f} ms "
+        f"more | {nvidia_smi_line()}")
+    return out
+
+
+def host_modules_phase(args, model, mask_fn, gen, work):
+    """Phase 23, the JAX package's last two modules in the port:
+    (a) :func:`gather_check`, (b) :func:`device_rescale_check`, (c)
+    :func:`snapshot_check`."""
+    t0 = time.perf_counter()
+    out = {"gather": gather_check(args), "device_rescale": device_rescale_check(args),
+           "snapshots": snapshot_check(args, model, mask_fn, gen, work)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5370,7 +5600,12 @@ def main() -> int:
                 line["launches_new_paths"] = {k: r["launches"].get(line["name"], 0)
                                               for k, r in new_paths.items()}
 
-    # ---- 23. results -------------------------------------------------------
+        # ---- 23. the native gather, the device rescale, snapshots ----------
+        stamp("the native host gather, the device rescale, SnapshotCallback")
+        host_modules = host_modules_phase(args, model, mask_fn, gen, work)
+        log(f"phase 23: {host_modules['seconds']:.1f} s | {smi}")
+
+    # ---- 24. results -------------------------------------------------------
     stamp("results")
     kernels = [
         {"name": "sampler_vrow", "route": "cuda",
@@ -5407,6 +5642,7 @@ def main() -> int:
         "celeb_a_pipeline": celeb_a, "vdvae_eval_clis": vdvae_eval, "pm_vae": pm_vae,
         "vade": vade, "resume": resume, "digits16": digits16, "ranks": ranks, "bf16": bf16,
         "pmvq_bf16": pmvq_bf16, "sampler_bf16": sampler_bf16, "options": options,
+        "host_modules": host_modules,
     }
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     log(smi)

@@ -766,8 +766,48 @@ _OPTAX_CLASSES = {
 }
 
 
+# Each state's fields in order: a record read from a checkpoint holds their
+# values (``ForeignRecord.args``), and Orbax restores a state as a dict of
+# them.
+_OPTAX_FIELDS = {
+    "ScaleByAdamState": ("count", "mu", "nu"),
+    "ScaleByScheduleState": ("count",),
+    "EmptyState": (),
+    "MaskedState": ("inner_state",),
+    "MaskedNode": (),
+    "PartitionState": ("inner_states",),
+}
+
+
 def _optax(name: str, *args) -> ForeignRecord:
     return foreign_class(_OPTAX_CLASSES[name], name)(*args)
+
+
+def orbax_tree(tree: Any) -> Any:
+    """``tree`` as Orbax restores a saved tree without a target (the JAX
+    package's ``OrbaxCheckpointCallback.restore_latest``,
+    ``posterior_matching_tpu/train/callbacks.py:98-103``): each optax state
+    a dict of its fields, one with no fields (``EmptyState``,
+    ``MaskedNode``) None, tuples and lists lists, tensors and numpy scalars
+    numpy arrays; dicts, None and Python scalars as they are. Raises
+    ``ValueError`` for a record of any other class."""
+    if isinstance(tree, ForeignRecord):
+        name = type(tree).__name__
+        if name not in _OPTAX_FIELDS or not _is_optax(tree, name) or hasattr(tree, "state"):
+            raise ValueError(f"no Orbax form for a {tree.module}.{name} record")
+        fields = _OPTAX_FIELDS[name]
+        if len(tree.args) != len(fields):
+            raise ValueError(f"a {name} record holds {len(tree.args)} values, not {fields}")
+        return {f: orbax_tree(v) for f, v in zip(fields, tree.args)} if fields else None
+    if isinstance(tree, dict):
+        return {k: orbax_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [orbax_tree(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return np.asarray(tree)
+    return tree
 
 
 _EMPTY = lambda count, mu, nu: _optax("EmptyState")

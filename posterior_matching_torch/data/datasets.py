@@ -2,12 +2,22 @@
 
 Counterpart of ``posterior_matching_tpu/data/datasets.py``:
 :class:`ArrayDataset` (``:30-180``, with the resume fast-forward
-``skip_stream`` and the device-resident copy ``to_device_resident``;
-without ``spec_batch``, as the port's models need no batch to start, and
-the native gather), :class:`DeviceDataset` (``:225-310``), the CelebA crop
+``skip_stream``, the device-resident copy ``to_device_resident`` and the
+batches assembled by the native gather, :mod:`posterior_matching_torch.
+native`; without ``spec_batch``, as the port's models need no batch to
+start), :class:`DeviceDataset` (``:225-310``), the CelebA crop
 and resize and the mnist16 transforms (``:316-369``), :func:`load_datasets` (``:372-402``)
 and :func:`load_eval_dataset` (``:405-426``). Masks are not added here: the
 trainer's prologue and the eval CLIs draw them on the device.
+
+Images are rescaled as the JAX package rescales them on its two batch
+paths, the fused native gather and the device-resident transform:
+``float32(u8) * float32(1 / 255)``, which differs from ``u8 / 255`` in
+the last bit for 126 of the 256 byte values. A transform advertises the
+rescale as ``u8_scale_fields``; the native gather applies it to uint8
+fields and marks them ``_prescaled``, and the transform leaves those as
+they are (a field the gather did not rescale is divided by 255, as in the
+JAX package).
 
 The JAX package resizes through PIL, which the port does not use:
 :func:`_resize_batch` reproduces ``PIL.Image.resize(..., BILINEAR)`` on
@@ -24,6 +34,7 @@ from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from posterior_matching_torch import native
 from posterior_matching_torch.data.sources import load_arrays
 from posterior_matching_torch.runtime import resolve_device
 
@@ -73,8 +84,27 @@ class ArrayDataset:
             yield self._batch(idx[start:start + self.batch_size])
 
     def _batch(self, sel: np.ndarray) -> Batch:
-        batch = {k: v[sel] for k, v in self._data.items()}
-        return self._transform(batch) if self._transform else batch
+        """The rows ``sel``, transformed, gathered as ``datasets.py:104-127``
+        gathers them: a C-contiguous uint8 field the transform names in
+        ``u8_scale_fields`` by the fused native gather and rescale (marked
+        ``_prescaled`` for the transform), any other C-contiguous field of
+        fixed-size items by the native row gather, the rest by numpy."""
+        scales = getattr(self._transform, "u8_scale_fields", {})
+        batch, prescaled = {}, set()
+        for k, v in self._data.items():
+            if k in scales and v.dtype == np.uint8 and v.flags.c_contiguous:
+                batch[k] = native.gather_u8_to_f32(v, sel, scales[k])
+                prescaled.add(k)
+            elif v.flags.c_contiguous and v.ndim >= 1 and not v.dtype.hasobject:
+                batch[k] = native.gather_rows(v, sel)
+            else:
+                batch[k] = v[sel]
+        if prescaled:
+            batch["_prescaled"] = prescaled
+        if self._transform:
+            batch = self._transform(batch)
+        batch.pop("_prescaled", None)
+        return batch
 
     def skip_stream(self, n: int) -> None:
         """Moves the stream on so that the next batch drawn (iterating this
@@ -96,28 +126,28 @@ class ArrayDataset:
         rescale runs there on each batch; otherwise the transform runs once
         here, over the split in order (the last partial batch kept), and
         its float output goes to the device."""
-        divisors = getattr(self._transform, "u8_divisors", None)
-        if divisors and self._is_pure_rescale(divisors):
+        scales = getattr(self._transform, "u8_scale_fields", None)
+        if scales and self._is_pure_rescale(scales):
             data = {k: v for k, v in self._data.items() if k != "id"}
-            return DeviceDataset(data, self.batch_size, divisors=divisors, device=device)
+            return DeviceDataset(data, self.batch_size, scales=scales, device=device)
         full = ArrayDataset(self._data, self.batch_size, drop_remainder=False,
                             transform=self._transform)
         batches = list(full)
         data = {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
         return DeviceDataset(data, self.batch_size, device=device)
 
-    def _is_pure_rescale(self, divisors: Dict[str, float]) -> bool:
-        """Whether the transform is exactly ``uint8 field / divisor`` for
-        each field of ``divisors``, on this split's first rows: no resize,
-        rename or other field changed (``datasets.py:224-242``, here held
-        bit for bit)."""
-        sample = {k: v[:2] for k, v in self._data.items()}
-        got = self._transform(dict(sample))
-        want = {k: v for k, v in sample.items() if k != "id"}
-        for k, d in divisors.items():
-            if k not in want or want[k].dtype != np.uint8:
+    def _is_pure_rescale(self, scales: Dict[str, float]) -> bool:
+        """Whether a batch is exactly ``float32(uint8 field) *
+        float32(scale)`` for each field of ``scales`` (C-contiguous, so the
+        fused gather rescales it), the other fields as they are, on this
+        split's first rows: no resize, rename or other field changed
+        (``datasets.py:224-242``, here held bit for bit)."""
+        got = self._batch(np.arange(min(2, self._n)))
+        want = {k: v[:2] for k, v in self._data.items() if k != "id"}
+        for k, s in scales.items():
+            if k not in want or want[k].dtype != np.uint8 or not self._data[k].flags.c_contiguous:
                 return False
-            want[k] = want[k].astype(np.float32) / d
+            want[k] = want[k].astype(np.float32) * np.float32(s)
         return set(got) == set(want) and all(
             got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
             and np.array_equal(got[k], want[k]) for k in want)
@@ -127,12 +157,13 @@ class DeviceDataset:
     """A training split held in device memory (``datasets.py:244-300``):
     :meth:`sample` draws a batch's indices on the device, uniformly with
     replacement, from the generator it is given, gathers the rows there and
-    divides the fields of ``divisors`` (uint8) by their divisor, as the host
-    transform would. The trainer seeds the generator from (run seed, step),
-    so a step's batch needs no stream and a resume no replay; sampling with
-    replacement stands in for shuffled epochs, as in the JAX package."""
+    rescales the uint8 fields of ``scales`` as the host batch does,
+    ``float32(u8) * float32(scale)``. The trainer seeds the generator from
+    (run seed, step), so a step's batch needs no stream and a resume no
+    replay; sampling with replacement stands in for shuffled epochs, as in
+    the JAX package."""
 
-    def __init__(self, data: Batch, batch_size: int, divisors: Optional[Dict[str, float]] = None,
+    def __init__(self, data: Batch, batch_size: int, scales: Optional[Dict[str, float]] = None,
                  device: Optional[str] = None):
         n = len(next(iter(data.values())))
         for k, v in data.items():
@@ -141,13 +172,16 @@ class DeviceDataset:
         dev = resolve_device(device)
         self.data = {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in data.items()}
         self.batch_size, self.num_examples = batch_size, n
-        self.divisors = dict(divisors or {})
+        # float32 scalar tensors: a Python float could be widened in the
+        # product, and the host batch multiplies in float32
+        self.scales = {k: torch.tensor(np.float32(s), device=dev)
+                       for k, s in (scales or {}).items()}
 
     def gather(self, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The rows ``idx`` (a device tensor), transformed."""
         out = {k: v.index_select(0, idx) for k, v in self.data.items()}
-        for k, d in self.divisors.items():
-            out[k] = out[k].float() / d
+        for k, s in self.scales.items():
+            out[k] = out[k].float() * s
         return out
 
     def sample(self, gen: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -221,16 +255,20 @@ def _prepare_image_arrays(dataset: str, arrays: Batch) -> Batch:
 
 
 def _make_batch_transform(dataset: str, normalize_images: bool) -> Callable[[Batch], Batch]:
-    """Drops ``id``; images to float32, over 255 with ``normalize_images``;
-    ``mnist16*`` resized to 16x16, ``mnist16_flat`` flattened to
-    ``features`` (``datasets.py:344-369``)."""
+    """Drops ``id``; images to float32, over 255 with ``normalize_images``
+    unless the gather rescaled them (``_prescaled``); ``mnist16*`` resized
+    to 16x16, ``mnist16_flat`` flattened to ``features``
+    (``datasets.py:344-369``)."""
     def transform(batch: Batch) -> Batch:
         out = dict(batch)
         out.pop("id", None)
         if "image" in out:
-            img = out["image"].astype(np.float32)
-            if normalize_images:
-                img = img / 255.0
+            if "image" in out.get("_prescaled", ()):
+                img = out["image"]
+            else:
+                img = out["image"].astype(np.float32)
+                if normalize_images:
+                    img = img / 255.0
             if "mnist16" in dataset:
                 img = _resize_batch(img, (16, 16))
             out["image"] = img
@@ -240,8 +278,9 @@ def _make_batch_transform(dataset: str, normalize_images: bool) -> Callable[[Bat
         return out
 
     if normalize_images:
-        # the rescale a device-resident copy may run on uint8 fields
-        transform.u8_divisors = {"image": 255.0}
+        # the fused uint8 gather and rescale, for ArrayDataset and a
+        # device-resident copy
+        transform.u8_scale_fields = {"image": 1.0 / 255.0}
     return transform
 
 

@@ -2,6 +2,7 @@ from posterior_matching_torch.train.callbacks import (
     Callback,
     CheckpointCallback,
     LearningRateLoggerCallback,
+    SnapshotCallback,
 )
 from posterior_matching_torch.train.state import (
     TrainState,
@@ -15,6 +16,6 @@ from posterior_matching_torch.train.trainer import (
     vqvae_trainer,
 )
 
-__all__ = ["Callback", "CheckpointCallback", "LearningRateLoggerCallback", "TrainState",
-           "Trainer", "load_train_state", "pm_vdvae_trainer", "pm_vqvae_trainer",
-           "save_train_state", "vqvae_trainer"]
+__all__ = ["Callback", "CheckpointCallback", "LearningRateLoggerCallback", "SnapshotCallback",
+           "TrainState", "Trainer", "load_train_state",
+           "pm_vdvae_trainer", "pm_vqvae_trainer", "save_train_state", "vqvae_trainer"]

@@ -9,9 +9,9 @@
 - ``ArrayDataset.to_device_resident``: the split stored as uint8 where the
   transform is a pure rescale, the transform materialised otherwise (as
   ``tests/test_trainer.py:230-310`` holds JAX's); given the same indices
-  the batches are the host transform's bit for bit; the indices a step
-  draws pass a chi-square test of uniformity; a resumed run equals the
-  straight one bit for bit.
+  the batches are the host batches' bit for bit (the fused gather's
+  rescale, as JAX's); the indices a step draws pass a chi-square test of
+  uniformity; a resumed run equals the straight one bit for bit.
 
 The seven training CLIs with both options: ``tests/test_torch_execution_cli.py``.
 """
@@ -126,12 +126,12 @@ def _jax_transform():
 @pytest.mark.parametrize("dataset", ["mnist", "mnist16"])
 def test_device_batches_are_the_host_batches(dataset):
     x = _images()
-    transform = _make_batch_transform(dataset, True)
-    dds = ArrayDataset({"image": x}, 16, transform=transform).to_device_resident("cpu")
+    ds = ArrayDataset({"image": x}, 16, transform=_make_batch_transform(dataset, True))
+    dds = ds.to_device_resident("cpu")
     for seed in range(3):
         idx = torch.randint(0, 50, (16,), generator=torch.Generator().manual_seed(seed))
         got = dds.gather(idx)["image"].numpy()
-        want = transform({"image": x[idx.numpy()]})["image"]
+        want = ds._batch(idx.numpy())["image"]   # the fused gather's rescale, JAX's
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
 

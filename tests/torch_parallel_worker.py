@@ -323,6 +323,47 @@ def task_resume(inputs):
     return out
 
 
+def task_snapshots(inputs):
+    """``Trainer.fit`` of a small linear model over the test's ``features``
+    (4 steps, validating every 2) with a ``SnapshotCallback`` and a
+    ``CheckpointCallback`` on every rank, which the trainer calls on rank 0
+    only: rank 0's ``restore_latest()`` and its ``train_state.pkl`` as a
+    snapshot tree; every rank's view of the snapshot steps after a
+    barrier."""
+    import torch
+
+    from posterior_matching_torch.data.datasets import ArrayDataset
+    from posterior_matching_torch.parallel import mesh
+    from posterior_matching_torch.train.callbacks import (
+        CheckpointCallback,
+        SnapshotCallback,
+        snapshot_tree,
+    )
+    from posterior_matching_torch.train.optim import Adam
+    from posterior_matching_torch.train.state import load_train_state
+    from posterior_matching_torch.train.trainer import Trainer
+
+    torch.manual_seed(0)
+    x = inputs["features"]
+    trainer = Trainer(torch.nn.Linear(x.shape[1], x.shape[1]),
+                      lambda model, batch, seed, training: (
+                          (model(batch["features"]) - batch["features"]) ** 2).mean(),
+                      optimizer=lambda params: Adam(params, lambda count: 1e-2), device="cpu")
+    workdir = Path(inputs["workdir"])
+    snap = SnapshotCallback(str(workdir / "snapshots"), max_to_keep=1)
+    pkl = str(workdir / "train_state.pkl")
+    trainer.fit(ArrayDataset({"features": x}, 8), 4, validation_freq=2,
+                callbacks=[snap, CheckpointCallback(pkl)])
+    out = {}
+    if mesh.rank() == 0:
+        out["restored"] = snap.restore_latest()
+        out["checkpoint"] = snapshot_tree(load_train_state(pkl), 4)
+    snap.close()
+    torch.distributed.barrier()
+    out["steps"] = snap.steps()
+    return out
+
+
 def imputation_eval(inputs):
     """``run_imputation_eval`` over the test's PM-VQVAE images (batches of
     4, 2 trials of 2 samples) with an imputation that zeroes the missing
