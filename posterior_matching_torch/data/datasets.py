@@ -34,7 +34,7 @@ from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from posterior_matching_torch import native
+from posterior_matching_torch import native, tracing
 from posterior_matching_torch.data.sources import load_arrays
 from posterior_matching_torch.runtime import resolve_device
 
@@ -89,22 +89,23 @@ class ArrayDataset:
         ``u8_scale_fields`` by the fused native gather and rescale (marked
         ``_prescaled`` for the transform), any other C-contiguous field of
         fixed-size items by the native row gather, the rest by numpy."""
-        scales = getattr(self._transform, "u8_scale_fields", {})
-        batch, prescaled = {}, set()
-        for k, v in self._data.items():
-            if k in scales and v.dtype == np.uint8 and v.flags.c_contiguous:
-                batch[k] = native.gather_u8_to_f32(v, sel, scales[k])
-                prescaled.add(k)
-            elif v.flags.c_contiguous and v.ndim >= 1 and not v.dtype.hasobject:
-                batch[k] = native.gather_rows(v, sel)
-            else:
-                batch[k] = v[sel]
-        if prescaled:
-            batch["_prescaled"] = prescaled
-        if self._transform:
-            batch = self._transform(batch)
-        batch.pop("_prescaled", None)
-        return batch
+        with tracing.span("data.fetch"):
+            scales = getattr(self._transform, "u8_scale_fields", {})
+            batch, prescaled = {}, set()
+            for k, v in self._data.items():
+                if k in scales and v.dtype == np.uint8 and v.flags.c_contiguous:
+                    batch[k] = native.gather_u8_to_f32(v, sel, scales[k])
+                    prescaled.add(k)
+                elif v.flags.c_contiguous and v.ndim >= 1 and not v.dtype.hasobject:
+                    batch[k] = native.gather_rows(v, sel)
+                else:
+                    batch[k] = v[sel]
+            if prescaled:
+                batch["_prescaled"] = prescaled
+            if self._transform:
+                batch = self._transform(batch)
+            batch.pop("_prescaled", None)
+            return batch
 
     def skip_stream(self, n: int) -> None:
         """Moves the stream on so that the next batch drawn (iterating this

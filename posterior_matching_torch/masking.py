@@ -29,6 +29,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from posterior_matching_torch import tracing
 from posterior_matching_torch.runtime import resolve_device
 
 MaskFn = Callable[[torch.Generator, Sequence[int]], torch.Tensor]
@@ -303,7 +304,8 @@ def mixture_mask(
     (``masking.py:329-360``); all components are drawn batched and selected
     by index on the device."""
     b = shape[0]
-    w = torch.tensor(weights, dtype=torch.float32, device=gen.device)
+    with tracing.span("sync"):   # the weights copied from the host
+        w = torch.tensor(weights, dtype=torch.float32, device=gen.device)
     choice = torch.multinomial(w / w.sum(), 1 if batch_level else b, replacement=True,
                                generator=gen)
     masks = torch.stack([g(gen, shape) for g in generators], 1)

@@ -14,6 +14,7 @@ Counterpart of ``posterior_matching_tpu/models/pm_vqvae.py:24-211``:
 """
 from __future__ import annotations
 
+import itertools
 import os
 import warnings
 from typing import Any, Dict, Optional, Tuple, Union
@@ -21,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from posterior_matching_torch import tracing
 from posterior_matching_torch.models.pixelcnn import PixelCNN, pixelcnn_sample_naive
 from posterior_matching_torch.models.vqvae import VQVAE, VQVAEPartialEncoder
 from posterior_matching_torch.ops.sampler_chain import pixelcnn_sample, row_sampler_topology
@@ -156,6 +158,10 @@ def impute_sampler(pixel_cnn: PixelCNN, device,
     return "rowkernel", torch.float32
 
 
+# the unit of each request's spans
+_requests = itertools.count()
+
+
 @torch.no_grad()
 def pm_vqvae_impute(
     model: PMVQVAE,
@@ -174,25 +180,26 @@ def pm_vqvae_impute(
     :func:`impute_sampler`'s choice (``sampler_dtype`` names the row
     kernels' dtype outright); the naive one with JAX's warning
     (``pm_vqvae.py:182-199``)."""
-    cond = model.conditional_latents(x, b)
-    pixel_cnn = model.pixel_cnn
-    branch, dtype = impute_sampler(pixel_cnn, pixel_cnn.embed.device, sampler_dtype)
-    if branch == "naive":
-        warnings.warn(
-            "pm_vqvae_impute: PixelCNN topology (num_hierarchies="
-            f"{pixel_cnn.num_hierarchies}, receptive_field_dims="
-            f"{tuple(pixel_cnn.receptive_field_dims)}) is not covered by the row "
-            "sampler's kernels; falling back to the naive full-forward raster "
-            "sampler (one full-grid forward a pixel).",
-            stacklevel=2,
-        )
-        if noise is not None:
-            noise = noise.reshape(-1, *noise.shape[2:])
-        samples = pixelcnn_sample_naive(pixel_cnn, num_samples, cond, noise=noise,
-                                        generator=generator)
-    else:
-        samples = pixelcnn_sample(pixel_cnn, num_samples, cond, noise=noise,
-                                  generator=generator, compute_dtype=dtype)
-    imputations = model.decode_code_samples(samples).movedim(0, 1)
-    imputations = torch.where(b[:, None] != 0, x[:, None], imputations)
-    return imputations.clamp(0.0, 1.0)
+    with tracing.span("impute.request", next(_requests)):
+        cond = model.conditional_latents(x, b)
+        pixel_cnn = model.pixel_cnn
+        branch, dtype = impute_sampler(pixel_cnn, pixel_cnn.embed.device, sampler_dtype)
+        if branch == "naive":
+            warnings.warn(
+                "pm_vqvae_impute: PixelCNN topology (num_hierarchies="
+                f"{pixel_cnn.num_hierarchies}, receptive_field_dims="
+                f"{tuple(pixel_cnn.receptive_field_dims)}) is not covered by the row "
+                "sampler's kernels; falling back to the naive full-forward raster "
+                "sampler (one full-grid forward a pixel).",
+                stacklevel=2,
+            )
+            if noise is not None:
+                noise = noise.reshape(-1, *noise.shape[2:])
+            samples = pixelcnn_sample_naive(pixel_cnn, num_samples, cond, noise=noise,
+                                            generator=generator)
+        else:
+            samples = pixelcnn_sample(pixel_cnn, num_samples, cond, noise=noise,
+                                      generator=generator, compute_dtype=dtype)
+        imputations = model.decode_code_samples(samples).movedim(0, 1)
+        imputations = torch.where(b[:, None] != 0, x[:, None], imputations)
+        return imputations.clamp(0.0, 1.0)

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from posterior_matching_torch import tracing
 from posterior_matching_torch.distributions._math import LOG_2PI
 from posterior_matching_torch.models.networks import (
     Dense,
@@ -200,9 +201,10 @@ class VectorQuantizer(nn.Module):
             loss = self.commitment_cost * e_latent_loss
         else:
             loss = ((quantized - z.detach()) ** 2).mean() + self.commitment_cost * e_latent_loss
-        counts = torch.bincount(
-            indices.long(), minlength=self.embeddings.shape[0]
-        )
+        with tracing.span("sync"):   # the output's length waits on the indices' range
+            counts = torch.bincount(
+                indices.long(), minlength=self.embeddings.shape[0]
+            )
         total = indices.numel()
         if is_training and self.use_ema:
             counts = self._ema_update(flat.detach(), indices.long(), counts)

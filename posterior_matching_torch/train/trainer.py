@@ -97,6 +97,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from posterior_matching_torch import tracing
 from posterior_matching_torch.ops.gated_chain import _mix32_int
 from posterior_matching_torch.parallel import mesh
 from posterior_matching_torch.runtime import resolve_device
@@ -155,6 +156,12 @@ def deterministic_convolutions(enabled: bool = True):
         yield
     finally:
         torch.backends.cudnn.deterministic = kept
+
+
+def _host_bool(t: torch.Tensor) -> bool:
+    """``bool(t)`` of a device tensor: the host waits for the device."""
+    with tracing.span("sync"):
+        return bool(t)
 
 
 def _loss_and_metrics(out) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -276,33 +283,46 @@ class Trainer:
         (device tensors, the ranks' mean)."""
         if self.optimizer is None:
             self.init()
-        batch = self._prologue(batch, derive_seed(self.seed, self.step, 1), self.prologue_fn)
-        batch = mesh.shard_batch(batch)
-        kept = None
-        if self.skip_nonfinite:
-            kept = {n: b.detach().clone() for n, b in self.model.named_buffers()}
-        self.model.train()
-        names = list(self.optimizer.params)
-        params = [self.optimizer.params[n] for n in names]
-        with deterministic_convolutions(self.deterministic):
-            loss, aux = _loss_and_metrics(
-                self._loss(batch, self.loss_seed(derive_seed(self.seed, self.step, 0)), True))
-            grads = torch.autograd.grad(loss, params, allow_unused=self.zero_unused_grads)
-        if self.zero_unused_grads:
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        loss = loss.detach()
-        if mesh.distributed():
-            keys = list(aux)
-            scalars = [loss, *(aux[k].to(self.device, torch.float32) for k in keys)]
-            reduced = mesh.all_reduce_mean([*grads, *scalars])
-            grads, loss = reduced[:len(grads)], reduced[len(grads)]
-            aux = dict(zip(keys, reduced[len(grads) + 1:]))
-        grads = dict(zip(names, grads))
-        metrics = {**aux, "loss": loss}
+        with tracing.span("train.step", self.step):
+            with tracing.span("train.prologue"):
+                batch = self._prologue(batch, derive_seed(self.seed, self.step, 1),
+                                       self.prologue_fn)
+            batch = mesh.shard_batch(batch)
+            kept = None
+            if self.skip_nonfinite:
+                kept = {n: b.detach().clone() for n, b in self.model.named_buffers()}
+            self.model.train()
+            names = list(self.optimizer.params)
+            params = [self.optimizer.params[n] for n in names]
+            with deterministic_convolutions(self.deterministic):
+                loss, aux = _loss_and_metrics(
+                    self._loss(batch, self.loss_seed(derive_seed(self.seed, self.step, 0)), True))
+                grads = torch.autograd.grad(loss, params, allow_unused=self.zero_unused_grads)
+            if self.zero_unused_grads:
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            loss = loss.detach()
+            if mesh.distributed():
+                keys = list(aux)
+                scalars = [loss, *(aux[k].to(self.device, torch.float32) for k in keys)]
+                reduced = mesh.all_reduce_mean([*grads, *scalars])
+                grads, loss = reduced[:len(grads)], reduced[len(grads)]
+                aux = dict(zip(keys, reduced[len(grads) + 1:]))
+            metrics = {**aux, "loss": loss}
+            with tracing.span("train.update"):
+                self._update(dict(zip(names, grads)), metrics, kept)
+            self.step += 1
+        return metrics
+
+    def _update(self, grads: Dict[str, torch.Tensor], metrics: Dict[str, torch.Tensor],
+                kept: Optional[Dict[str, torch.Tensor]]) -> None:
+        """The optimizer's step on ``grads``, then the EMA. Under
+        ``skip_nonfinite_updates`` the step is skipped, the buffers ``kept``
+        restored and ``metrics["skipped"]`` set, where the loss or a gradient
+        is not finite."""
         ok = True
         if self.skip_nonfinite:
-            ok = bool(torch.isfinite(loss)) and all(
-                bool(torch.isfinite(g).all()) for g in grads.values()
+            ok = _host_bool(torch.isfinite(metrics["loss"])) and all(
+                _host_bool(torch.isfinite(g).all()) for g in grads.values()
             )
             metrics["skipped"] = torch.tensor(float(not ok))
         if ok:
@@ -316,8 +336,6 @@ class Trainer:
                 for n, p in self.train_params.items():
                     e = self.ema_params[n]
                     e.copy_(e * self.ema_rate + (1.0 - self.ema_rate) * p)
-        self.step += 1
-        return metrics
 
     def _loss(self, batch: Batch, seed: int, training: bool):
         step = (self.step,) if self.pass_step else ()
@@ -326,10 +344,18 @@ class Trainer:
     def _prologue(self, batch: Batch, seed: int, prologue_fn: Optional[PrologueFn]) -> Batch:
         """The batch (tensors or numpy arrays) on the device, through
         ``prologue_fn`` with a generator seeded by ``seed``."""
-        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        batch = {k: self._on_device(v) for k, v in batch.items()}
         if prologue_fn is None:
             return batch
         return prologue_fn(batch, torch.Generator(device=self.device).manual_seed(seed))
+
+    def _on_device(self, v) -> torch.Tensor:
+        """``v`` (a tensor or numpy array) on the trainer's device. A copy
+        from the host waits for the device's queue: a ``sync`` span."""
+        if isinstance(v, torch.Tensor) and v.device.type == self.device.type:
+            return torch.as_tensor(v, device=self.device)
+        with tracing.span("sync"):
+            return torch.as_tensor(v, device=self.device)
 
     @torch.no_grad()
     def validate(self, batches: Iterable[Batch],
